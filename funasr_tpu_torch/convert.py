@@ -1,0 +1,88 @@
+"""JAX Paraformer parameters -> the port's ``state_dict``.
+
+The inverse of ``funasr_tpu/convert/torch_to_jax.py::convert_paraformer``: it takes the
+JAX package's parameter tree (as numpy arrays) and gives the tensors that
+``Paraformer.load_state_dict`` takes, under FunASR's state-dict names. Layouts:
+
+* scanned layer stacks (``encoders``, ``decoders``, ``decoders2``) -> ``name.{i}``;
+  single-module lists (``encoders0``, ``decoders3``) and ``embed`` -> ``name.0``;
+* Linear ``w`` (in, out) -> ``weight`` (out, in); LayerNorm ``scale`` -> ``weight``;
+* depthwise conv ``w`` (k, C) -> ``weight`` (C, 1, k);
+* full conv1d ``w`` (k, C_in, C_out) -> ``weight`` (C_out, C_in, k);
+* Embedding ``w`` -> ``weight`` unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+_STACKED = ("encoders", "decoders", "decoders2")
+_SINGLE = ("encoders0", "decoders3", "embed")
+
+
+def _leaf(p: Dict[str, np.ndarray], prefix: str, target: Dict[str, torch.Tensor]):
+    """One JAX layer dict -> {torch name: array}, laid out as ``target`` expects."""
+    if set(p) == {"scale", "bias"}:
+        return {prefix + "weight": p["scale"], prefix + "bias": p["bias"]}
+    w = np.asarray(p["w"])
+    tw = target[prefix + "weight"]
+    if w.ndim == 3:  # full conv1d (k, C_in, C_out)
+        w = w.transpose(2, 1, 0)
+    elif tw.dim() == 3:  # depthwise conv (k, C)
+        w = w.T[:, None, :]
+    elif not prefix.endswith("embed.0."):  # linear (in, out)
+        w = w.T
+    out = {prefix + "weight": w}
+    if "b" in p:
+        out[prefix + "bias"] = p["b"]
+    return out
+
+
+def _walk(tree, prefix: str, target, out):
+    if all(not isinstance(v, dict) for v in tree.values()):
+        out.update(_leaf(tree, prefix, target))
+        return
+    for name, sub in tree.items():
+        if name in _STACKED:
+            n = len(next(iter(_flatten(sub))))
+            for i in range(n):
+                _walk(_index(sub, i), f"{prefix}{name}.{i}.", target, out)
+        elif name in _SINGLE:
+            _walk(sub, f"{prefix}{name}.0.", target, out)
+        else:
+            _walk(sub, f"{prefix}{name}.", target, out)
+
+
+def _flatten(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _flatten(v)
+        else:
+            yield v
+
+
+def _index(tree, i: int):
+    return {k: _index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """JAX Paraformer params (nested dict of arrays) -> ``model``'s state dict.
+
+    Raises if the names or shapes do not match ``model.state_dict()`` exactly.
+    """
+    target = model.state_dict()
+    out: Dict[str, np.ndarray] = {}
+    _walk(np_params, "", target, out)
+    if set(out) != set(target):
+        raise KeyError(f"parameter names differ: missing {sorted(set(target) - set(out))}, "
+                       f"unexpected {sorted(set(out) - set(target))}")
+    sd = {}
+    for name, arr in out.items():
+        t = torch.from_numpy(np.array(arr, dtype=np.float32))  # a writable copy
+        if t.shape != target[name].shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(target[name].shape)}")
+        sd[name] = t
+    return sd

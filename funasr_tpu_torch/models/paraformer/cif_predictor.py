@@ -1,0 +1,63 @@
+"""CIF predictor (CifPredictorV2) in PyTorch (counterpart of
+``funasr_tpu/models/paraformer/cif_predictor.py::CifPredictorV2``).
+
+FunASR's ``CifPredictorV2`` (``funasr/models/paraformer/cif_predictor.py:209-412``):
+pad(l, r) conv1d + relu + linear + sigmoid alphas, then (inference) the tail-threshold
+fire appended. The fired-token axis is the caller's ``max_tokens`` budget; slots past a
+row's token count are zero. The training branch (alphas rescaled to the target length)
+is slice 7, the streaming ``forward_chunk`` slice 3.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from funasr_tpu_torch.core.layers import conv1d, linear
+from funasr_tpu_torch.ops.cif import cif
+from funasr_tpu_torch.register import tables
+
+
+@tables.register("predictor_classes", "CifPredictorV2")
+class CifPredictorV2(nn.Module):
+    def __init__(self, idim: int, l_order: int = 1, r_order: int = 1,
+                 threshold: float = 1.0, smooth_factor: float = 1.0,
+                 noise_threshold: float = 0.0, tail_threshold: float = 0.45,
+                 tail_mask: bool = True, device=None, **kwargs):
+        super().__init__()
+        self.l_order, self.r_order = l_order, r_order
+        self.threshold = threshold
+        self.smooth_factor = smooth_factor
+        self.noise_threshold = noise_threshold
+        self.tail_threshold = tail_threshold
+        self.cif_conv1d = nn.Conv1d(idim, idim, l_order + r_order + 1, device=device)
+        self.cif_output = nn.Linear(idim, 1, device=device)
+
+    def alphas(self, hidden, mask):
+        """hidden: (B, T, D); mask: (B, T) bool -> per-frame alphas (B, T) fp32."""
+        h = conv1d(hidden, self.cif_conv1d.weight, self.cif_conv1d.bias,
+                   left_pad=self.l_order, right_pad=self.r_order)
+        out = linear(torch.relu(h), self.cif_output.weight, self.cif_output.bias)
+        a = torch.sigmoid(out[..., 0].float())
+        a = torch.relu(a * self.smooth_factor - self.noise_threshold)
+        if mask is not None:
+            a = a * mask.float()
+        return a
+
+    def forward(self, hidden, mask, max_tokens: int):
+        """Returns (acoustic_embeds (B,K,D), token_num (B,), alphas (B,T+1), fires)."""
+        b, t, _ = hidden.shape
+        a = self.alphas(hidden, mask)
+        if self.tail_threshold > 0.0:
+            # one extra frame of zeros; alpha[len] += tail_threshold
+            lens = (mask.sum(dim=1) if mask is not None
+                    else torch.full((b,), t, dtype=torch.long, device=hidden.device))
+            tail = F.one_hot(lens.long(), t + 1).float() * self.tail_threshold
+            alphas_c = F.pad(a, (0, 1)) + tail
+            hidden_c = F.pad(hidden, (0, 0, 0, 1))
+            out_token_num = torch.floor(alphas_c.sum(dim=1))
+        else:
+            hidden_c, alphas_c, out_token_num = hidden, a, a.sum(dim=1)
+        acoustic_embeds, fires = cif(hidden_c, alphas_c, max_tokens, self.threshold)
+        return acoustic_embeds, out_token_num, alphas_c, fires

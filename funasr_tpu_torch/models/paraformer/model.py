@@ -1,0 +1,187 @@
+"""Paraformer offline decode in PyTorch (counterpart of
+``funasr_tpu/models/paraformer/model.py::Paraformer``).
+
+SAN-M encoder -> CIF predictor -> SAN-M NAR decoder -> greedy argmax, with the JAX
+package's bucketing: (B, T) padded to (next pow2, next multiple of 128), a decoder
+token budget of T_bucket/2 + 16 and a re-decode at the full T+1 budget when any row
+saturates it (``model.py:306-331``). Features are cast to the weights' dtype, as
+``bench.py`` casts them for its bf16 decode. Training, CTC, specaug and the
+dispatch/fetch split are later slices.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from funasr_tpu_torch.core.layers import make_pad_mask
+from funasr_tpu_torch.core.module import init_weights
+from funasr_tpu_torch.register import tables
+from funasr_tpu_torch.utils import postprocess_utils
+from funasr_tpu_torch.utils.bucket import pad_feats_bucketed
+from funasr_tpu_torch.utils.load_utils import load_audio
+
+
+@tables.register("model_classes", "Paraformer")
+class Paraformer(nn.Module):
+    def __init__(
+        self,
+        normalize: Optional[str] = None,
+        encoder: str = "SANMEncoder",
+        encoder_conf: Optional[Dict] = None,
+        decoder: str = "ParaformerSANMDecoder",
+        decoder_conf: Optional[Dict] = None,
+        predictor: str = "CifPredictorV2",
+        predictor_conf: Optional[Dict] = None,
+        ctc_weight: float = 0.0,
+        input_size: int = 80,
+        vocab_size: int = -1,
+        blank_id: int = 0,
+        sos: int = 1,
+        eos: int = 2,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+        **kwargs,
+    ):
+        """``generator``: when given, every weight is drawn from it (the JAX package's
+        init rules, ``core/module.py::init_weights``); otherwise torch's default init.
+        Training-only keys of hub configs (specaug, predictor_bias, lsm_weight, ...) are
+        accepted and ignored; a ``normalize`` layer is not ported yet."""
+        super().__init__()
+        if normalize is not None:
+            raise NotImplementedError(f"normalize={normalize} is not ported")
+        if ctc_weight > 0.0:
+            raise NotImplementedError("the CTC branch is not ported")
+        self.encoder = tables.encoder_classes[encoder](
+            input_size=input_size, device=device, **(encoder_conf or {}))
+        enc_out = self.encoder.output_size()
+        self.decoder = tables.decoder_classes[decoder](
+            vocab_size=vocab_size, encoder_output_size=enc_out, device=device,
+            **(decoder_conf or {}))
+        self.predictor = tables.predictor_classes[predictor](
+            device=device, **(predictor_conf or {}))
+        self.blank_id = blank_id
+        self.sos = sos if sos is not None else vocab_size - 1
+        self.eos = eos if eos is not None else vocab_size - 1
+        if generator is not None:
+            init_weights(self, generator)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(self.parameters()).dtype
+
+    # ------------------------------------------------------------------
+    # device path
+    # ------------------------------------------------------------------
+
+    def encode(self, speech, speech_lengths):
+        return self.encoder(speech, speech_lengths)
+
+    def calc_predictor(self, encoder_out, encoder_out_lens,
+                       max_tokens: Optional[int] = None):
+        mask = make_pad_mask(encoder_out_lens, encoder_out.shape[1])
+        k = max_tokens if max_tokens is not None else encoder_out.shape[1] + 1
+        return self.predictor(encoder_out, mask, k)
+
+    def cal_decoder_with_predictor(self, encoder_out, encoder_out_lens, sematic_embeds,
+                                   ys_pad_lens):
+        logits, olens = self.decoder(encoder_out, encoder_out_lens, sematic_embeds,
+                                     ys_pad_lens)
+        return torch.log_softmax(logits.float(), dim=-1), olens
+
+    def infer_core(self, speech, speech_lengths, max_tokens: Optional[int] = None):
+        """Batched greedy decode -> (yseq (B,K), token_lens (B,), score (B,),
+        alphas (B,T+1), peaks (B,T+1), encoder_out, encoder_out_lens)."""
+        encoder_out, encoder_out_lens = self.encode(speech, speech_lengths)
+        pre_acoustic_embeds, pre_token_length, alphas, peaks = self.calc_predictor(
+            encoder_out, encoder_out_lens, max_tokens)
+        k = pre_acoustic_embeds.shape[1]
+        token_lens = torch.clamp(torch.round(pre_token_length).to(torch.int32), 0, k)
+        decoder_out, _ = self.cal_decoder_with_predictor(
+            encoder_out, encoder_out_lens, pre_acoustic_embeds, token_lens)
+        yseq = decoder_out.argmax(dim=-1).to(torch.int32)
+        tok_valid = make_pad_mask(token_lens, k)
+        score = (decoder_out.max(dim=-1).values * tok_valid).sum(dim=-1)
+        yseq = torch.where(tok_valid, yseq, self.blank_id)
+        return (yseq, token_lens, score, alphas, peaks, encoder_out, encoder_out_lens)
+
+    # ------------------------------------------------------------------
+    # host orchestration
+    # ------------------------------------------------------------------
+
+    # decoder token budget per T-bucket: CIF fires ~T/6 tokens on real speech, so
+    # T/2+16 is a ~3x margin (funasr_tpu/models/paraformer/model.py:303-309)
+    MAX_TOKENS_RATIO = 0.5
+
+    def _max_tokens_for(self, t_bucket: int) -> int:
+        return min(int(t_bucket * self.MAX_TOKENS_RATIO) + 16, t_bucket + 1)
+
+    @torch.inference_mode()
+    def infer_bucketed(self, speech, speech_lengths):
+        """Pad (B, T) to the bucket grid, decode, slice back to the real batch. If any
+        utterance saturates the token budget, re-decode with the full T+1 budget so
+        the transcript is never truncated. Returns (yseq, token_lens, score, alphas,
+        peaks) as numpy arrays for the real B."""
+        dev = self.device
+        speech = torch.as_tensor(speech, device=dev)
+        speech_lengths = torch.as_tensor(speech_lengths, device=dev)
+        sp, ln, b = pad_feats_bucketed(speech, speech_lengths)
+        sp = sp.to(self.dtype)
+        mt = self._max_tokens_for(sp.shape[1])
+        out = self.infer_core(sp, ln, mt)[:5]
+        token_lens = out[1].cpu().numpy()
+        if mt <= sp.shape[1] and (token_lens[:b] >= mt).any():
+            logging.warning("CIF token count hit the %d-token bucket budget; "
+                            "re-decoding with the full budget", mt)
+            out = self.infer_core(sp, ln, sp.shape[1] + 1)[:5]
+        return tuple(x[:b].float().cpu().numpy() if x.is_floating_point()
+                     else x[:b].cpu().numpy() for x in out)
+
+    def inference(self, data_in, data_lengths=None, key=None, tokenizer=None,
+                  frontend=None, **kwargs):
+        """waveforms -> text (reference contract ``model.py:534-697``).
+
+        ``data_in``: one input or a list of numpy waveforms (float32 in [-1, 1) or raw
+        int16 PCM) and ``.wav`` paths. Returns (results, meta): one
+        ``{"key", "text"}`` per input (``{"key", "token_int"}`` without a tokenizer).
+        """
+        if kwargs.get("pred_timestamp", False):
+            raise NotImplementedError("timestamps are not ported")
+        meta_data = {}
+        t0 = time.perf_counter()
+        items = data_in if isinstance(data_in, (list, tuple)) else [data_in]
+        audio_list = [load_audio(x, fs=frontend.fs, audio_fs=kwargs.get("fs", 16000))
+                      for x in items]
+        t1 = time.perf_counter()
+        meta_data["load_data"] = f"{t1 - t0:0.3f}"
+        speech, speech_lengths = frontend.extract(audio_list, device=self.device)
+        t2 = time.perf_counter()
+        meta_data["extract_feat"] = f"{t2 - t1:0.3f}"
+        meta_data["batch_data_time"] = (
+            float(speech_lengths.sum()) * frontend.frame_shift_ms * frontend.lfr_n / 1000.0)
+
+        yseq, token_lens, _, _, _ = self.infer_bucketed(speech, speech_lengths)
+        b = len(audio_list)
+        if key is None:
+            key = [f"rand_key_{i}" for i in range(b)]
+        results = []
+        for i in range(b):
+            token_int = [int(t) for t in yseq[i, : token_lens[i]]
+                         if t not in (self.blank_id, self.sos, self.eos)]
+            if tokenizer is None:
+                results.append({"key": key[i], "token_int": token_int})
+                continue
+            token = tokenizer.ids2tokens(token_int)
+            text = tokenizer.tokens2text(token)
+            if not hasattr(tokenizer, "bpemodel"):
+                text, _ = postprocess_utils.sentence_postprocess(token)
+            results.append({"key": key[i], "text": text})
+        return results, meta_data

@@ -1,0 +1,93 @@
+"""Flash attention for the SAN-M encoder: a hand-written Hopper kernel and its plain
+PyTorch version.
+
+Replaces the TPU kernel ``funasr_tpu/ops/flash_attention.py::flash_attention``
+(Pallas kernel ``_flash_kernel``): softmax(Q K^T / sqrt(D)) V with fp32 scores, an
+online softmax and an fp32 accumulator; keys at or past ``lengths[b]`` score -1e30;
+output in q's dtype. The CUDA source, ``funasr_tpu_torch/csrc/flash_attention.cu``,
+notes what bounds it on the H100 (the two products: it is compute bound at the
+path's T <= 1408, D = 128) and what its design does about it (bf16 products on the
+tensor cores, K/V streamed through shared memory in 64-key tiles, key tiles past a
+row's length skipped).
+
+Unlike the Pallas kernel it needs no T % block == 0: the ragged last tile is masked in
+the kernel. A row of length 0 gets the uniform average of V over its T keys in both
+versions (the Pallas kernel's behaviour); bucketing never builds one.
+
+Dispatch: a CPU tensor takes ``flash_attention_ref``; a CUDA tensor launches the
+kernel or raises. ``flash_attention.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from funasr_tpu_torch.ops import cuda_lib
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_ref(q, k, v, lengths):
+    """Plain PyTorch version: q, k, v (B, H, T, D), lengths (B,) -> (B, H, T, D)."""
+    t, d = q.shape[2], q.shape[3]
+    s = torch.matmul(q.float() * (1.0 / math.sqrt(d)), k.float().transpose(-1, -2))
+    key_valid = torch.arange(t, device=q.device)[None, :] < lengths.to(q.device)[:, None]
+    s = s.masked_fill(~key_valid[:, None, None, :], NEG_INF)
+    return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
+
+
+def _check(q, k, v, lengths):
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 q/k/v of one dtype, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must share one (B, H, T, D) shape: "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, t, d = q.shape
+    if d > 128 or d % 8 or t < 1 or b * h < 1:
+        raise ValueError(f"flash_attention needs D <= 128 with D % 8 == 0 and T >= 1, "
+                         f"got {tuple(q.shape)}")
+    if -(-t // 64) > 65535:
+        raise ValueError(f"T={t} exceeds the kernel's grid")
+    vec = 16 // q.element_size()  # the kernel moves 16-byte vectors
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        if x.stride(3) != 1 or any(s % vec for s in x.stride()[:3]) or x.data_ptr() % 16:
+            raise ValueError(f"{name} needs a unit last stride, 16-byte aligned rows and "
+                             f"base; strides {x.stride()}")
+    if lengths.shape != (b,):
+        raise ValueError(f"lengths must be ({b},), got {tuple(lengths.shape)}")
+
+
+def flash_attention(q, k, v, lengths):
+    """q, k, v: (B, H, T, D); lengths: (B,) valid key lengths -> (B, H, T, D).
+
+    On CUDA q, k, v may be strided views (e.g. heads split out of a fused projection)
+    as long as the last stride is 1; the result is a (B, H, T, D) view of a contiguous
+    (B, T, H, D) tensor, so merging heads afterwards costs no copy.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on CPU or CUDA tensors, not {q.device}")
+    _check(q, k, v, lengths)
+    b, h, t, d = q.shape
+    lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out) for s in x.stride()[:3]))
+    lib = cuda_lib.load_library()
+    flash_attention.launches += 1
+    err = lib.flash_attention_fwd(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lens.data_ptr(), b, h, t, d, strides, 1.0 / math.sqrt(d),
+        cuda_lib.stream_handle(q.device))
+    cuda_lib.check(err, "flash_attention_fwd")
+    return out
+
+
+flash_attention.launches = 0

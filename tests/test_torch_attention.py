@@ -1,0 +1,207 @@
+"""SAN-M attention and kernel parity of the PyTorch port against the JAX package.
+
+On the CPU the kernel wrappers take their plain PyTorch versions; those are held to the
+JAX functions here:
+
+* flash: against the Pallas kernel in interpret mode, as ``tests/test_flash_attention.py``
+  runs it (atol/rtol 2e-3, valid query rows);
+* FSMN memory: against ``attention.py::_fsmn`` / ``fsmn_decoder_apply`` (built on
+  ``depthwise_conv1d_apply``, to which the Pallas ``dw_pallas`` is bit-exact), 1e-5 fp32;
+* ``sanm_attention_apply`` / ``cross_attention_apply``: 2e-4 fp32 (the ROADMAP budget).
+
+The tests marked ``cuda`` hold each CUDA kernel to its plain version on the card and
+skip elsewhere.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from funasr_tpu.convert.torch_to_jax import SD
+from funasr_tpu.models.sanm import attention as jattn
+from funasr_tpu.ops.flash_attention import flash_attention as pallas_flash
+from funasr_tpu_torch.core.module import init_weights
+from funasr_tpu_torch.models.sanm import attention as tattn
+from funasr_tpu_torch.ops import cuda_lib
+from funasr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+from funasr_tpu_torch.ops.fsmn import fsmn_memory, fsmn_memory_ref
+from torch_parity_util import t, to_jax
+
+FLASH_TOL = 2e-3
+FSMN_TOL = 1e-5
+ATTN_TOL = 2e-4
+
+
+def _gen(seed=0):
+    return torch.Generator().manual_seed(seed)
+
+
+def _mask(lens, n):
+    return np.arange(n)[None, :] < np.asarray(lens)[:, None]
+
+
+@pytest.mark.parametrize("t_len,block", [(256, 128), (512, 256)])
+def test_flash_plain_matches_pallas_interpret(rng, t_len, block):
+    b, h, d = 2, 2, 128
+    q, k, v = (rng.standard_normal((b, h, t_len, d)).astype(np.float32) for _ in range(3))
+    lens = np.asarray([t_len, t_len - 37], np.int32)
+    want = np.asarray(pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   jnp.asarray(lens), block_q=block, block_k=block,
+                                   interpret=True))
+    got = flash_attention_ref(t(q), t(k), t(v), t(lens)).numpy()
+    for i, n in enumerate(lens):
+        np.testing.assert_allclose(got[i, :, :n], want[i, :, :n], rtol=FLASH_TOL,
+                                   atol=FLASH_TOL)
+
+
+def test_kernel_wrappers_take_plain_version_on_cpu(rng):
+    """No nvcc here: the wrappers import, never build, and run the plain versions."""
+    q, k, v = (t(rng.standard_normal((2, 3, 77, 16)).astype(np.float32)) for _ in range(3))
+    lens = torch.tensor([77, 0])
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, lens)
+    assert flash_attention.launches == before
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v, lens), rtol=0, atol=0)
+    # a zero-length row averages V over all T keys (the Pallas kernel's behaviour)
+    torch.testing.assert_close(out[1], v[1].mean(dim=1, keepdim=True).expand(3, 77, 16))
+
+    x = t(rng.standard_normal((2, 30, 8)).astype(np.float32))
+    w = t(rng.standard_normal((8, 1, 11)).astype(np.float32))
+    mask = t(_mask([30, 20], 30))
+    before = fsmn_memory.launches
+    out = fsmn_memory(x, w, mask, 5, 5)
+    assert fsmn_memory.launches == before
+    torch.testing.assert_close(out, fsmn_memory_ref(x, w, mask, 5, 5), rtol=0, atol=0)
+    assert cuda_lib.load_library.cache_info().currsize == 0
+
+
+@pytest.mark.parametrize("shift", [0, 5])
+@pytest.mark.parametrize("masked", [True, False])
+def test_fsmn_plain_matches_jax(rng, shift, masked):
+    b, n, c, k = 3, 40, 24, 11
+    x = rng.standard_normal((b, n, c)).astype(np.float32)
+    w_kc = rng.uniform(-0.3, 0.3, (k, c)).astype(np.float32)  # JAX layout (k, C)
+    mask = _mask([40, 33, 7], n) if masked else None
+    jm = None if mask is None else jnp.asarray(mask)
+    tm = None if mask is None else t(mask)
+    enc_cfg = jattn.SANMAttentionConfig(4, c, c, kernel_size=k, sanm_shift=shift)
+    dec_cfg = jattn.FSMNDecoderConfig(c, kernel_size=k, sanm_shift=shift)
+    params = {"fsmn_block": {"w": jnp.asarray(w_kc)}}
+    left, right = enc_cfg.fsmn_pads
+    got = fsmn_memory_ref(t(x), t(w_kc.T[:, None, :]), tm, left, right).numpy()
+    np.testing.assert_allclose(got, np.asarray(jattn._fsmn(params, enc_cfg, jnp.asarray(x), jm)),
+                               atol=FSMN_TOL, rtol=0)
+    np.testing.assert_allclose(
+        got, np.asarray(jattn.fsmn_decoder_apply(params, dec_cfg, jnp.asarray(x), jm)),
+        atol=FSMN_TOL, rtol=0)
+
+
+def test_fsmn_plain_bf16_rounds_like_jax(rng):
+    """bf16: the conv sum is rounded before the residual add, and again after."""
+    b, n, c, k = 2, 33, 16, 11
+    x = rng.standard_normal((b, n, c)).astype(np.float32)
+    w_kc = rng.uniform(-0.3, 0.3, (k, c)).astype(np.float32)
+    mask = _mask([33, 20], n)
+    cfg = jattn.FSMNDecoderConfig(c, kernel_size=k)
+    want = jattn.fsmn_decoder_apply({"fsmn_block": {"w": jnp.asarray(w_kc)}}, cfg,
+                                    jnp.asarray(x, jnp.bfloat16), jnp.asarray(mask))
+    got = fsmn_memory_ref(t(x).bfloat16(), t(w_kc.T[:, None, :]), t(mask), 5, 5)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+
+
+def _sanm_pair(in_feat, n_feat, n_head, seed=0):
+    cfg = tattn.SANMAttentionConfig(n_head, in_feat, n_feat)
+    mod = init_weights(tattn.MultiHeadedAttentionSANM(cfg), _gen(seed))
+    sd = SD(mod.state_dict())
+    params = to_jax({"linear_q_k_v": sd.linear("linear_q_k_v"),
+                     "linear_out": sd.linear("linear_out"),
+                     "fsmn_block": sd.dwconv("fsmn_block")})
+    return mod, jattn.SANMAttentionConfig(n_head, in_feat, n_feat), params
+
+
+@pytest.mark.parametrize("in_feat", [48, 64])
+def test_sanm_attention_matches_jax(rng, in_feat):
+    """The port's flash route against the JAX einsum route (the one it takes off-TPU)."""
+    b, n, d, h = 3, 45, 64, 4
+    mod, jcfg, params = _sanm_pair(in_feat, d, h)
+    x = rng.standard_normal((b, n, in_feat)).astype(np.float32)
+    lens = np.asarray([45, 30, 12], np.int32)
+    mask = _mask(lens, n)
+    want = jattn.sanm_attention_apply(params, jcfg, jnp.asarray(x), jnp.asarray(mask),
+                                      lengths=jnp.asarray(lens))
+    got = tattn.sanm_attention_apply(mod, t(x), t(mask), t(lens))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=ATTN_TOL, rtol=0)
+
+
+def test_cross_attention_and_decoder_fsmn_match_jax(rng):
+    b, nq, nk, d, h = 2, 17, 40, 64, 16
+    cfg = tattn.CrossAttentionConfig(h, d, d)
+    mod = init_weights(tattn.MultiHeadedAttentionCrossAtt(cfg), _gen(1))
+    sd = SD(mod.state_dict())
+    params = to_jax({name: sd.linear(name) for name in ("linear_q", "linear_k_v", "linear_out")})
+    x = rng.standard_normal((b, nq, d)).astype(np.float32)
+    mem = rng.standard_normal((b, nk, d)).astype(np.float32)
+    mmask = _mask([40, 25], nk)
+    want = jattn.cross_attention_apply(params, jattn.CrossAttentionConfig(h, d, d),
+                                       jnp.asarray(x), jnp.asarray(mem), jnp.asarray(mmask))
+    got = tattn.cross_attention_apply(mod, t(x), t(mem), t(mmask))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=ATTN_TOL, rtol=0)
+
+    fcfg = tattn.FSMNDecoderConfig(d)
+    fmod = init_weights(tattn.MultiHeadedAttentionSANMDecoder(fcfg), _gen(2))
+    fparams = to_jax({"fsmn_block": SD(fmod.state_dict()).dwconv("fsmn_block")})
+    tmask = _mask([17, 9], nq)
+    want = jattn.fsmn_decoder_apply(fparams, jattn.FSMNDecoderConfig(d), jnp.asarray(x),
+                                    jnp.asarray(tmask))
+    got = fmod(t(x), t(tmask))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=FSMN_TOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# on the card: each CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU machine)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", [(4, 4, 384, 128), (2, 3, 77, 40)])
+def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, tol, shape):
+    b, h, n, d = shape
+    g = _gen(3)
+    qkv = torch.randn(b, n, 3, h, d, generator=g).to(cuda_device, dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # strided head views
+    lens = torch.tensor([n - 37 * (i % 2) for i in range(b)], device=cuda_device)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, lens)
+    for i in range(b):
+        n_i = int(lens[i])
+        torch.testing.assert_close(got[i, :, :n_i].float(), want[i, :, :n_i].float(),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_fsmn_kernel_matches_plain_on_card(cuda_device, dtype, tol):
+    b, n, c = 4, 208, 512
+    g = _gen(4)
+    x = torch.randn(b, n, 3 * c, generator=g).to(cuda_device, dtype)[..., 2 * c:]
+    w = (torch.rand(c, 1, 11, generator=g) - 0.5).to(cuda_device, dtype)
+    mask = torch.arange(n, device=cuda_device)[None] < torch.tensor(
+        [n, n - 17, 100, 1], device=cuda_device)[:, None]
+    before = fsmn_memory.launches
+    got = fsmn_memory(x, w, mask, 5, 5)
+    torch.cuda.synchronize()
+    assert fsmn_memory.launches == before + 1
+    torch.testing.assert_close(got.float(), fsmn_memory_ref(x, w, mask, 5, 5).float(),
+                               atol=tol, rtol=tol)
