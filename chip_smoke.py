@@ -1,23 +1,38 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels, holds each
 against its plain PyTorch version, checks the port on CUDA against the port on the CPU,
-and drives the offline Paraformer decode at Paraformer-large width.
+and drives the offline Paraformer decode and ``AutoModel(quant="w8a8")`` at
+Paraformer-large width.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
 
 1. device: CUDA must be available; prints ``nvidia-smi`` name and power limit;
-2. build: compiles ``funasr_tpu_torch/csrc/*.cu`` with nvcc (seconds printed);
+2. build: compiles ``funasr_tpu_torch/csrc/*.cu`` with nvcc, one process per source in
+   parallel (seconds printed);
 3. kernels: flash attention at (32, 4, 384, 128) and (1, 4, 1408, 128), bf16 and fp32,
    ragged lengths, valid query rows; FSMN memory at (32, 384, 512) and (32, 208, 512),
    k = 11; each against its plain version, with median kernel and plain times;
-4. CUDA vs CPU: a small config (2 + 2 blocks, d = 64), same weights, fp32: token ids
-   equal, encoder output within ``CPU_GPU_ENC_TOL``;
-5. main path: Paraformer-large width (``bench.py``'s PROD_CONF: 50 encoder blocks,
+4. w8a8 kernel: the W8A8 linear at every (M, K, N) of the W8A8 path (ragged K = 560 and
+   M = 720 included), bf16 and fp32 x, bit-exact to its plain version (a mismatch
+   raises), with median kernel, plain and cuBLAS bf16 ``F.linear`` times;
+5. CUDA vs CPU: a small config (2 + 2 blocks, d = 64), same weights, fp32: token ids
+   equal, encoder output within ``CPU_GPU_ENC_TOL``; then d = 256 under W8A8 (the
+   kernel on CUDA, its plain version on the CPU): every W8A8 call of the CUDA decode
+   bit-exact to the plain version on its own input, encoder within
+   ``W8A8_ENC_REL_TOL`` relative L2, token agreement printed (see the constants);
+6. main path: Paraformer-large width (``bench.py``'s PROD_CONF: 50 encoder blocks,
    16 decoder blocks, vocab 8404) in bf16 with seeded random weights: 32 x 15 s int16
    PCM and one 70 s utterance through WavFrontend -> model.inference -> text; the
    kernel launch counts of that run must show every encoder attention and every FSMN
-   block went through the kernels; RTFx at B = 32 x 15 s.
+   block went through the kernels; RTFx at B = 32 x 15 s;
+7. AutoModel W8A8: a model directory at PROD_CONF width (config.yaml, 8404 tokens,
+   identity am.mvn, model.pt of a seeded port Paraformer) through
+   ``AutoModel(model=dir, device="cuda", bf16=True, quant="w8a8", batch_size=32)
+   .generate(32 x 15 s int16 PCM)``: 32 non-empty texts, finite scores, and launch
+   counts of >= 282 W8A8 linears, 50 flash and 66 FSMN per decode; RTFx, and the token
+   agreement with the same directory at ``quant=None`` (printed, not gated: with random
+   weights the argmax margins are degenerate, ``tests/test_w8a8_production.py``).
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -25,6 +40,7 @@ The second-to-last line is the kernels' JSON record, the last line
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -44,6 +60,18 @@ FLASH_TOL = {torch.float32: 1e-4,    # fp32 products, sums in another order
 FSMN_TOL = {torch.float32: 1e-5,     # fp32 taps, FMA vs separate multiply-add
             torch.bfloat16: 2e-2}    # one bf16 ulp of outputs up to 4 in magnitude
 CPU_GPU_ENC_TOL = 1e-3               # fp32 encoder output, cuBLAS vs CPU sum order
+# W8A8, CUDA vs CPU (d = 256): the fp32 ops upstream of each W8A8 linear (LayerNorm,
+# attention, cuBLAS) differ in the last bits between the devices, and an activation that
+# sits within that of a rounding boundary of x / sx moves its int8 value by one. At
+# this config 3 of 126,000 first-layer activations do so for most inputs, and the
+# difference grows through the quantized layers: encoder drift 2.0e-3-3.5e-3 relative L2
+# over 12 input seeds on the H100 (1.8e-7 where none crosses), with random-weight argmax
+# margins that flip tokens. So the kernel is held bit-exact per call on the path's own
+# activations, the drift to a bound above the measured range, and the agreement only
+# against a broken path (random tokens agree 1 in 304).
+W8A8_ENC_REL_TOL = 1e-2
+W8A8_MIN_AGREEMENT = 0.5
+W8A8_TOL = 0                         # the W8A8 kernel is bit-exact to its plain version
 
 PROD_CONF = dict(
     input_size=560, vocab_size=8404,
@@ -61,7 +89,21 @@ SMALL_CONF = dict(
                       sanm_shfit=0),
     predictor_conf=dict(idim=64), sos=1, eos=2, predictor_bias=1)
 
+# the W8A8 CUDA-vs-CPU config: every linear large enough to quantize (min dim 256)
+D256_CONF = dict(
+    input_size=560, vocab_size=304,
+    encoder_conf=dict(output_size=256, attention_heads=4, linear_units=256, num_blocks=2),
+    decoder_conf=dict(attention_heads=4, linear_units=256, num_blocks=2, att_layer_num=2,
+                      sanm_shfit=0),
+    predictor_conf=dict(idim=256), sos=1, eos=2, predictor_bias=1)
+
 FRONTEND_CONF = dict(fs=16000, n_mels=80, lfr_m=7, lfr_n=6, cmvn_file=None, dither=0.0)
+
+# (M, K, N) of every W8A8 linear on the path at B = 32 x 15 s (encoder M = 32 x 384,
+# decoder M = 32 x 208) and of the long-form decoder (M = 1408 / 2 + 16)
+W8A8_SHAPES = [(12288, 560, 1536), (12288, 512, 1536), (12288, 512, 512), (12288, 512, 2048),
+               (12288, 2048, 512), (6656, 512, 512), (6656, 512, 2048), (6656, 2048, 512),
+               (12288, 512, 1024), (720, 512, 2048)]
 
 
 def log(*args):
@@ -137,30 +179,115 @@ def phase_kernels(dev):
     return record
 
 
-def phase_cuda_vs_cpu(dev, tables):
-    rng = np.random.default_rng(1)
+def phase_w8a8_kernel(dev):
+    import torch.nn.functional as F
+    from funasr_tpu_torch.ops.w8a8 import w8a8_linear, w8a8_linear_ref
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    record = None
+    for m, k, n in W8A8_SHAPES:
+        w_q8 = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+        scale = torch.rand(n, generator=g, device=dev) * 1e-3
+        w_bf16 = (w_q8.float() * scale[:, None]).to(torch.bfloat16)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+            x[-1] = 0  # a zero-padded bucket row
+            bias = torch.randn(n, generator=g, device=dev).to(dtype)
+            out = w8a8_linear(x, w_q8, scale, bias)
+            torch.cuda.synchronize()
+            ref = w8a8_linear_ref(x, w_q8, scale, bias)
+            err = (out.float() - ref.float()).abs().max().item()
+            ms = median_ms(lambda: w8a8_linear(x, w_q8, scale, bias))
+            plain_ms = median_ms(lambda: w8a8_linear_ref(x, w_q8, scale, bias), iters=10,
+                                 warmup=2)
+            xb, bb = x.to(torch.bfloat16), bias.to(torch.bfloat16)
+            cublas_ms = median_ms(lambda: F.linear(xb, w_bf16, bb))
+            log(f"w8a8 ({m}, {k}, {n}) {str(dtype)[6:]}: max_abs_err {err:.3e} "
+                f"(tol {W8A8_TOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                f"cuBLAS bf16 F.linear {cublas_ms:.4f} ms")
+            if not torch.equal(out, ref):
+                raise AssertionError(f"w8a8 kernel disagrees at {(m, k, n)} {dtype}: {err}")
+            if (m, k, n) == (12288, 512, 2048) and dtype == torch.bfloat16:
+                record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return record
+
+
+def compare_cuda_cpu(dev, cpu_model, gpu_model, seed):
+    """The same weights on the CPU and on CUDA, 3 utterances: encoder max abs and
+    relative L2 errors, whether the token ids are equal, the share of equal tokens, and
+    the CUDA token counts."""
+    from funasr_tpu_torch import tables
+
+    rng = np.random.default_rng(seed)
     waves = [pcm(rng, s) for s in (3.0, 4.5, 2.2)]
-    g = torch.Generator().manual_seed(0)
-    cpu_model = tables.model_classes["Paraformer"](**SMALL_CONF, generator=g).eval()
-    gpu_model = tables.model_classes["Paraformer"](**SMALL_CONF, device=dev).eval()
-    gpu_model.load_state_dict(cpu_model.state_dict())
     frontend = tables.frontend_classes["WavFrontend"](**FRONTEND_CONF)
     feats, flens = frontend.extract(waves)
     with torch.inference_mode():
         enc_cpu, _ = cpu_model.encode(torch.from_numpy(feats), torch.from_numpy(flens))
         enc_gpu, _ = gpu_model.encode(torch.from_numpy(feats).to(dev),
                                       torch.from_numpy(flens).to(dev))
-    enc_err = (enc_gpu.cpu() - enc_cpu).abs().max().item()
+    diff = enc_gpu.cpu() - enc_cpu
     out_cpu = cpu_model.infer_bucketed(feats, flens)
     out_gpu = gpu_model.infer_bucketed(feats, flens)
     same_lens = np.array_equal(out_cpu[1], out_gpu[1])
-    same_ids = same_lens and all(
-        np.array_equal(out_cpu[0][i, :n], out_gpu[0][i, :n]) for i, n in enumerate(out_cpu[1]))
-    log(f"cuda vs cpu (2+2 blocks, d=64, fp32): encoder max_abs_err {enc_err:.3e} "
-        f"(tol {CPU_GPU_ENC_TOL:g}); token counts {out_gpu[1].tolist()} "
-        f"ids equal {same_ids}")
-    if not (enc_err <= CPU_GPU_ENC_TOL and same_ids):
+    seqs = [(out_cpu[0][i, :n], out_gpu[0][i, :m])
+            for i, (n, m) in enumerate(zip(out_cpu[1], out_gpu[1]))]
+    n_same = sum(int((a[:len(b)] == b[:len(a)]).sum()) for a, b in seqs)
+    return dict(enc_err=diff.abs().max().item(), enc_rel=(diff.norm() / enc_cpu.norm()).item(),
+                same_ids=same_lens and all(np.array_equal(a, b) for a, b in seqs),
+                agree=n_same / max(sum(max(len(a), len(b)) for a, b in seqs), 1),
+                counts=out_gpu[1].tolist())
+
+
+def phase_cuda_vs_cpu(dev):
+    from funasr_tpu_torch import tables
+
+    g = torch.Generator().manual_seed(0)
+    cpu_model = tables.model_classes["Paraformer"](**SMALL_CONF, generator=g).eval()
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    r = compare_cuda_cpu(dev, cpu_model, gpu_model, seed=1)
+    log(f"cuda vs cpu (2+2 blocks, d=64, fp32): encoder max_abs_err {r['enc_err']:.3e} "
+        f"(tol {CPU_GPU_ENC_TOL:g}); token counts {r['counts']} ids equal {r['same_ids']}")
+    if not (r["enc_err"] <= CPU_GPU_ENC_TOL and r["same_ids"]):
         raise AssertionError("the port on CUDA disagrees with the port on the CPU")
+
+
+def phase_cuda_vs_cpu_w8a8(dev, seed=2):
+    """W8A8 at d = 256 (every linear quantized), the kernel on CUDA against the plain
+    version on the CPU. Gates: every W8A8 call of the CUDA run (encoder and decoder)
+    launched the kernel and equals, bit for bit, the CPU plain version applied to that
+    call's own CUDA input; the encoder drift within W8A8_ENC_REL_TOL; the token
+    agreement at least W8A8_MIN_AGREEMENT. Token ids equal is printed, not gated."""
+    from funasr_tpu_torch import tables
+    from funasr_tpu_torch.ops.quant import Int8Linear, quantize_params_int8
+    from funasr_tpu_torch.ops.w8a8 import w8a8_linear, w8a8_linear_ref
+
+    g = torch.Generator().manual_seed(0)
+    cpu_model = quantize_params_int8(
+        tables.model_classes["Paraformer"](**D256_CONF, generator=g).eval(), mode="w8a8")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    calls = []  # (layer name, CUDA input, CUDA output) of every W8A8 call
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out, name=name: calls.append((name, inp[0].cpu(), out.cpu())))
+        for name, m in gpu_model.named_modules() if isinstance(m, Int8Linear) and m.key == "w_q8"]
+    before = w8a8_linear.launches
+    r = compare_cuda_cpu(dev, cpu_model, gpu_model, seed)
+    launched = w8a8_linear.launches - before
+    for h in hooks:
+        h.remove()
+    cpu_layers = dict(cpu_model.named_modules())
+    differ = [name for name, x, y in calls
+              if not torch.equal(w8a8_linear_ref(x, cpu_layers[name].w_q8, cpu_layers[name].scale,
+                                                 cpu_layers[name].bias), y)]
+    log(f"cuda vs cpu W8A8 (2+2 blocks, d=256, fp32, seed {seed}): {len(calls)} W8A8 calls on "
+        f"CUDA, {launched} kernel launches, {len(differ)} differ from the CPU plain version "
+        f"on their own input; encoder rel L2 {r['enc_rel']:.3e} (tol {W8A8_ENC_REL_TOL:g}), "
+        f"max_abs_err {r['enc_err']:.3e}; token counts {r['counts']}, ids equal "
+        f"{r['same_ids']}, agreement {r['agree']:.4f} (min {W8A8_MIN_AGREEMENT:g})")
+    if differ or not calls or launched != len(calls):
+        raise AssertionError(f"W8A8 kernel calls on the path disagree or bypass it: {differ}")
+    if not (r["enc_rel"] <= W8A8_ENC_REL_TOL and r["agree"] >= W8A8_MIN_AGREEMENT):
+        raise AssertionError("the W8A8 port on CUDA disagrees with the port on the CPU")
 
 
 def phase_main_path(dev, tables, counters, card):
@@ -225,6 +352,97 @@ def phase_main_path(dev, tables, counters, card):
     return launches
 
 
+def write_model_dir(d, dev):
+    """A FunASR-layout model directory at PROD_CONF width with seeded random weights."""
+    import yaml
+    from funasr_tpu_torch import tables
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = tables.model_classes["Paraformer"](**PROD_CONF, device=dev, generator=g)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(d, "model.pt"))
+    tokens = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(8400)] + ["<unk>"]
+    with open(os.path.join(d, "tokens.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(tokens) + "\n")
+    dim = PROD_CONF["input_size"]
+    with open(os.path.join(d, "am.mvn"), "w") as f:
+        f.write(f"<Nnet>\n<Splice> {dim} {dim}\n[ 0 ]\n<AddShift> {dim} {dim}\n"
+                f"<LearnRateCoef> 0 [ {' '.join(['0.0'] * dim)} ]\n<Rescale> {dim} {dim}\n"
+                f"<LearnRateCoef> 0 [ {' '.join(['1.0'] * dim)} ]\n</Nnet>\n")
+    cfg = dict(model="Paraformer", model_conf=dict(sos=1, eos=2, predictor_bias=1, ctc_weight=0.0),
+               encoder="SANMEncoder", encoder_conf=PROD_CONF["encoder_conf"],
+               decoder="ParaformerSANMDecoder", decoder_conf=PROD_CONF["decoder_conf"],
+               predictor="CifPredictorV2", predictor_conf=PROD_CONF["predictor_conf"],
+               frontend="WavFrontend", frontend_conf=dict(FRONTEND_CONF, cmvn_file="am.mvn"),
+               tokenizer="CharTokenizer",
+               tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>"))
+    with open(os.path.join(d, "config.yaml"), "w", encoding="utf-8") as f:
+        yaml.safe_dump(cfg, f, allow_unicode=True)
+
+
+def token_agreement(texts_a, texts_b):
+    """Share of aligned positions with the same character (one token per character)."""
+    same = sum(sum(x == y for x, y in zip(a, b)) for a, b in zip(texts_a, texts_b))
+    return same / max(sum(max(len(a), len(b)) for a, b in zip(texts_a, texts_b)), 1)
+
+
+def phase_automodel_w8a8(dev, counters, card):
+    import tempfile
+
+    from funasr_tpu_torch import AutoModel
+
+    rng = np.random.default_rng(0)
+    batch = [pcm(rng, 15.0) for _ in range(32)]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        write_model_dir(d, dev)
+        t1 = time.perf_counter()
+        am = AutoModel(model=d, device="cuda", bf16=True, quant="w8a8", batch_size=32,
+                       log_level="WARNING")
+        log(f"AutoModel W8A8: model dir written in {t1 - t0:.1f} s, built in "
+            f"{time.perf_counter() - t1:.1f} s")
+        am.generate(input=batch)  # warm-up, outside the counted run
+        torch.cuda.synchronize()
+
+        for c in counters:
+            c.launches = 0
+        results = am.generate(input=batch)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        log(f"AutoModel W8A8 launches over 1 decode: {launches}")
+        if len(results) != 32 or not all(isinstance(r["text"], str) and r["text"]
+                                         for r in results):
+            raise AssertionError("AutoModel W8A8: expected 32 non-empty texts")
+        if (launches["w8a8_linear"] < 282 or launches["flash_attention"] < 50
+                or launches["fsmn_memory"] < 66):
+            raise AssertionError(f"AutoModel W8A8 bypassed a kernel: {launches}")
+
+        feats, flens = am.kwargs["frontend"].extract(batch, device=dev)
+        _, token_lens, score, alphas, _ = am.model.infer_bucketed(feats, flens)
+        if not (np.isfinite(score).all() and np.isfinite(alphas).all()):
+            raise AssertionError("NaN or inf on the AutoModel W8A8 path")
+
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            am.generate(input=batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        t_med = statistics.median(times)
+        log(f"AutoModel W8A8 B=32 x 15 s: generate median {t_med * 1e3:.2f} ms "
+            f"(runs {[round(x * 1e3, 2) for x in times]}), RTFx {32 * 15.0 / t_med:.1f}, "
+            f"token counts {token_lens.tolist()[:8]}..., mean score {float(score.mean()):.3f} "
+            f"on {card}")
+        del am
+        ref = AutoModel(model=d, device="cuda", bf16=True, batch_size=32, log_level="WARNING")
+        ref_results = ref.generate(input=batch)
+        del ref
+    agree = token_agreement([r["text"] for r in results], [r["text"] for r in ref_results])
+    log(f"AutoModel W8A8 vs quant=None (bf16): token agreement {agree:.4f} (not gated: "
+        f"random weights)")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; needs an NVIDIA GPU")
@@ -241,17 +459,22 @@ def main():
     from funasr_tpu_torch.ops import cuda_lib
     from funasr_tpu_torch.ops.flash_attention import flash_attention
     from funasr_tpu_torch.ops.fsmn import fsmn_memory
+    from funasr_tpu_torch.ops.w8a8 import w8a8_linear
 
     lib = cuda_lib.load_library()
-    log(f"build: {lib.build_seconds:.1f} s (nvcc, sm_90a) -> {lib._name}")
+    log(f"build: {lib.build_seconds:.1f} s (nvcc, sm_90a, one process per source) -> "
+        f"{lib._name}")
     for line in lib.build_log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log("  " + line.strip())
 
+    counters = (flash_attention, fsmn_memory, w8a8_linear)
     record = phase_kernels(dev)
-    phase_cuda_vs_cpu(dev, funasr_tpu_torch.tables)
-    launches = phase_main_path(dev, funasr_tpu_torch.tables, (flash_attention, fsmn_memory),
-                               card)
+    record["w8a8_linear"] = phase_w8a8_kernel(dev)
+    phase_cuda_vs_cpu(dev)
+    phase_cuda_vs_cpu_w8a8(dev)
+    launches = phase_main_path(dev, funasr_tpu_torch.tables, counters, card)
+    am_launches = phase_automodel_w8a8(dev, counters, card)
 
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -261,6 +484,9 @@ def main():
         dict(name="fsmn_memory", route="cuda", source="funasr_tpu_torch/csrc/fsmn.cu",
              replaces="benchmarks/bench_pallas_dwconv.py:21",
              launches=launches["fsmn_memory"], **record["fsmn_memory"]),
+        dict(name="w8a8_linear", route="cuda", source="funasr_tpu_torch/csrc/w8a8.cu",
+             replaces="benchmarks/bench_pallas_w8a8.py:18",
+             launches=am_launches["w8a8_linear"], **record["w8a8_linear"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

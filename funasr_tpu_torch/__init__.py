@@ -1,7 +1,13 @@
-"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slice 1: offline Paraformer).
+"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slices 1-2: offline
+Paraformer, ``AutoModel`` with bf16 and int8 / W8A8 quantization).
 
-Imports torch and numpy, never jax and never ``funasr_tpu``. Importing the package
-registers its classes in its own ``tables``:
+Imports torch and numpy, never jax and never ``funasr_tpu``. The public entry point:
+
+    from funasr_tpu_torch import AutoModel
+    model = AutoModel(model="<model dir>", device="cuda", bf16=True, quant="w8a8")
+    results = model.generate(input=[wave, "a.wav"], batch_size=32)
+
+Importing the package registers its classes in its own ``tables``:
 
     from funasr_tpu_torch import tables
     model = tables.model_classes["Paraformer"](**conf, device="cuda", generator=g)
@@ -9,9 +15,9 @@ registers its classes in its own ``tables``:
     tokenizer = tables.tokenizer_classes["CharTokenizer"](token_list=tokens)
     results, meta = model.inference(waves, tokenizer=tokenizer, frontend=frontend)
 
-On a CUDA device the encoder's attention and every FSMN memory block run hand-written
-kernels (``csrc/``, built with nvcc at first use); on the CPU they run their plain
-PyTorch versions.
+On a CUDA device the encoder's attention, every FSMN memory block and every W8A8 linear
+run hand-written kernels (``csrc/``, built with nvcc at first use); on the CPU they run
+their plain PyTorch versions.
 """
 
 import torch
@@ -27,5 +33,6 @@ from funasr_tpu_torch.frontends import wav_frontend  # noqa: E402,F401
 from funasr_tpu_torch.models.paraformer import cif_predictor, decoder, model  # noqa: E402,F401
 from funasr_tpu_torch.models.sanm import encoder  # noqa: E402,F401
 from funasr_tpu_torch.tokenizer import char_tokenizer  # noqa: E402,F401
+from funasr_tpu_torch.auto.auto_model import AutoModel  # noqa: E402
 
-__all__ = ["tables"]
+__all__ = ["AutoModel", "tables"]

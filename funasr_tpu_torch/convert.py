@@ -9,7 +9,11 @@ JAX package's parameter tree (as numpy arrays) and gives the tensors that
 * Linear ``w`` (in, out) -> ``weight`` (out, in); LayerNorm ``scale`` -> ``weight``;
 * depthwise conv ``w`` (k, C) -> ``weight`` (C, 1, k);
 * full conv1d ``w`` (k, C_in, C_out) -> ``weight`` (C_out, C_in, k);
-* Embedding ``w`` -> ``weight`` unchanged.
+* Embedding ``w`` -> ``weight`` unchanged;
+* int8 linears of ``ops/quant.py::quantize_params_int8`` (``{w_q8 | w_q, scale[, b]}``)
+  -> ``Int8Linear`` tensors: ``w_q8`` / ``w_q`` (in, out) -> (out, in), kept int8.
+  The target model is quantized first (``funasr_tpu_torch.ops.quant``, same mode), so
+  its state dict has the int8 names.
 """
 
 from __future__ import annotations
@@ -27,6 +31,12 @@ def _leaf(p: Dict[str, np.ndarray], prefix: str, target: Dict[str, torch.Tensor]
     """One JAX layer dict -> {torch name: array}, laid out as ``target`` expects."""
     if set(p) == {"scale", "bias"}:
         return {prefix + "weight": p["scale"], prefix + "bias": p["bias"]}
+    q = next((k for k in ("w_q8", "w_q") if k in p), None)
+    if q is not None:
+        out = {prefix + q: np.asarray(p[q]).T, prefix + "scale": p["scale"]}
+        if "b" in p:
+            out[prefix + "bias"] = p["b"]
+        return out
     w = np.asarray(p["w"])
     tw = target[prefix + "weight"]
     if w.ndim == 3:  # full conv1d (k, C_in, C_out)
@@ -71,7 +81,8 @@ def _index(tree, i: int):
 def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """JAX Paraformer params (nested dict of arrays) -> ``model``'s state dict.
 
-    Raises if the names or shapes do not match ``model.state_dict()`` exactly.
+    Int8 tensors stay int8, every other leaf becomes fp32. Raises if the names or
+    shapes do not match ``model.state_dict()`` exactly.
     """
     target = model.state_dict()
     out: Dict[str, np.ndarray] = {}
@@ -81,7 +92,8 @@ def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor
                        f"unexpected {sorted(set(out) - set(target))}")
     sd = {}
     for name, arr in out.items():
-        t = torch.from_numpy(np.array(arr, dtype=np.float32))  # a writable copy
+        dtype = np.int8 if target[name].dtype == torch.int8 else np.float32
+        t = torch.from_numpy(np.array(arr, dtype=dtype))  # a writable copy
         if t.shape != target[name].shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(target[name].shape)}")
         sd[name] = t

@@ -39,6 +39,15 @@ def linear(x, weight, bias=None):
     return F.linear(x, w, b)
 
 
+def apply_linear(mod, x):
+    """A linear layer's module applied to x (``linear_apply``'s dispatch, ``:50-53``):
+    ``nn.Linear`` through ``linear``; an int8 layer (``ops/quant.py::Int8Linear``, swapped
+    in by ``quantize_params_int8``) through its own forward, ``qlinear``."""
+    if isinstance(mod, nn.Linear):
+        return linear(x, mod.weight, mod.bias)
+    return mod(x)
+
+
 def layer_norm(x, weight, bias, eps: float = LN_EPS):
     """fp32 LayerNorm over the last axis, cast back to x's dtype."""
     y = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(), eps)
@@ -115,8 +124,8 @@ class PositionwiseFeedForward(nn.Module):
         self.w_2 = nn.Linear(hidden_units, idim, device=device)
 
     def forward(self, x):
-        h = torch.relu(linear(x, self.w_1.weight, self.w_1.bias))
-        return linear(h, self.w_2.weight, self.w_2.bias)
+        h = torch.relu(apply_linear(self.w_1, x))
+        return apply_linear(self.w_2, h)
 
 
 class PositionwiseFeedForwardDecoderSANM(nn.Module):
@@ -130,5 +139,5 @@ class PositionwiseFeedForwardDecoderSANM(nn.Module):
         self.norm = LayerNorm(hidden_units, device=device)
 
     def forward(self, x):
-        h = torch.relu(linear(x, self.w_1.weight, self.w_1.bias))
-        return linear(self.norm(h), self.w_2.weight)
+        h = torch.relu(apply_linear(self.w_1, x))
+        return apply_linear(self.w_2, self.norm(h))

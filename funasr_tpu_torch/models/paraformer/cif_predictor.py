@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from funasr_tpu_torch.core.layers import conv1d, linear
+from funasr_tpu_torch.core.layers import apply_linear, conv1d
 from funasr_tpu_torch.ops.cif import cif
 from funasr_tpu_torch.register import tables
 
@@ -38,7 +38,7 @@ class CifPredictorV2(nn.Module):
         """hidden: (B, T, D); mask: (B, T) bool -> per-frame alphas (B, T) fp32."""
         h = conv1d(hidden, self.cif_conv1d.weight, self.cif_conv1d.bias,
                    left_pad=self.l_order, right_pad=self.r_order)
-        out = linear(torch.relu(h), self.cif_output.weight, self.cif_output.bias)
+        out = apply_linear(self.cif_output, torch.relu(h))
         a = torch.sigmoid(out[..., 0].float())
         a = torch.relu(a * self.smooth_factor - self.noise_threshold)
         if mask is not None:

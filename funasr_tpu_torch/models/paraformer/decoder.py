@@ -17,7 +17,7 @@ from torch import nn
 from funasr_tpu_torch.core.layers import (
     LayerNorm,
     PositionwiseFeedForwardDecoderSANM,
-    linear,
+    apply_linear,
     make_pad_mask,
 )
 from funasr_tpu_torch.models.sanm.attention import (
@@ -121,5 +121,5 @@ class ParaformerSANMDecoder(nn.Module):
             x = layer(x, tgt_mask, None, None)
         hidden = self.after_norm(x)
         if self.output_layer is not None and not return_hidden:
-            return linear(hidden, self.output_layer.weight, self.output_layer.bias), ys_in_lens
+            return apply_linear(self.output_layer, hidden), ys_in_lens
         return hidden, ys_in_lens

@@ -5,8 +5,8 @@ SAN-M encoder -> CIF predictor -> SAN-M NAR decoder -> greedy argmax, with the J
 package's bucketing: (B, T) padded to (next pow2, next multiple of 128), a decoder
 token budget of T_bucket/2 + 16 and a re-decode at the full T+1 budget when any row
 saturates it (``model.py:306-331``). Features are cast to the weights' dtype, as
-``bench.py`` casts them for its bf16 decode. Training, CTC, specaug and the
-dispatch/fetch split are later slices.
+``bench.py`` casts them for its bf16 decode. ``inference`` is the dispatch / fetch pair
+of the JAX package. Training, CTC and specaug are later slices.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from funasr_tpu_torch.core.module import init_weights
 from funasr_tpu_torch.register import tables
 from funasr_tpu_torch.utils import postprocess_utils
 from funasr_tpu_torch.utils.bucket import pad_feats_bucketed
-from funasr_tpu_torch.utils.load_utils import load_audio
+from funasr_tpu_torch.utils.load_utils import extract_fbank, load_audio_text_image_video
 
 
 @tables.register("model_classes", "Paraformer")
@@ -147,29 +147,63 @@ class Paraformer(nn.Module):
 
     def inference(self, data_in, data_lengths=None, key=None, tokenizer=None,
                   frontend=None, **kwargs):
-        """waveforms -> text (reference contract ``model.py:534-697``).
+        """waveforms -> text (reference contract ``model.py:534-697``):
+        ``inference_fetch(inference_dispatch(...))``.
 
         ``data_in``: one input or a list of numpy waveforms (float32 in [-1, 1) or raw
-        int16 PCM) and ``.wav`` paths. Returns (results, meta): one
+        int16 PCM), ``.wav`` / ``.pcm`` paths and bytes. Returns (results, meta): one
         ``{"key", "text"}`` per input (``{"key", "token_int"}`` without a tokenizer).
         """
+        return self.inference_fetch(self.inference_dispatch(
+            data_in, data_lengths=data_lengths, key=key, tokenizer=tokenizer,
+            frontend=frontend, **kwargs))
+
+    def inference_dispatch(self, data_in, data_lengths=None, key=None, tokenizer=None,
+                           frontend=None, **kwargs):
+        """Load, upload and launch the decode without waiting for the device
+        (``model.py:357-391``): returns a handle for :meth:`inference_fetch`. Launches
+        are asynchronous, so the caller can prepare the next batch while this one runs
+        (``AutoModel.inference`` double-buffers with the pair)."""
         if kwargs.get("pred_timestamp", False):
             raise NotImplementedError("timestamps are not ported")
         meta_data = {}
         t0 = time.perf_counter()
-        items = data_in if isinstance(data_in, (list, tuple)) else [data_in]
-        audio_list = [load_audio(x, fs=frontend.fs, audio_fs=kwargs.get("fs", 16000))
-                      for x in items]
+        audio_list = load_audio_text_image_video(
+            data_in, fs=frontend.fs, audio_fs=kwargs.get("fs", 16000),
+            data_type=kwargs.get("data_type", "sound"))
         t1 = time.perf_counter()
         meta_data["load_data"] = f"{t1 - t0:0.3f}"
-        speech, speech_lengths = frontend.extract(audio_list, device=self.device)
-        t2 = time.perf_counter()
-        meta_data["extract_feat"] = f"{t2 - t1:0.3f}"
+        speech, speech_lengths = extract_fbank(
+            audio_list, data_type=kwargs.get("data_type", "sound"), frontend=frontend,
+            device=self.device)
+        meta_data["extract_feat"] = f"{time.perf_counter() - t1:0.3f}"
+        with torch.inference_mode():
+            sp, ln, b = pad_feats_bucketed(speech, speech_lengths)
+            sp = sp.to(self.dtype)
+            mt = self._max_tokens_for(sp.shape[1])
+            yseq, token_lens = self.infer_core(sp, ln, mt)[:2]
+            # one int32 (B, 2 + K) block: the fetch's single device-to-host copy
+            packed = torch.cat([ln[:b, None], token_lens[:b, None], yseq[:b]], dim=1)
+        return {"packed": packed, "sp": sp, "ln": ln, "mt": mt, "b": b, "key": key,
+                "tokenizer": tokenizer, "frontend": frontend, "meta": meta_data}
+
+    def inference_fetch(self, handle):
+        """The blocking half (``model.py:393-438``): one device-to-host copy, the
+        token-budget retry, detokenize. Returns (results, meta) as :meth:`inference`."""
+        b, sp, mt = handle["b"], handle["sp"], handle["mt"]
+        tokenizer, key, frontend = handle["tokenizer"], handle["key"], handle["frontend"]
+        meta_data = handle["meta"]
+        packed = handle["packed"].cpu().numpy()
+        speech_lengths, token_lens, yseq = packed[:, 0], packed[:, 1], packed[:, 2:]
+        if mt <= sp.shape[1] and (token_lens >= mt).any():
+            logging.warning("CIF token count hit the %d-token bucket budget; "
+                            "re-decoding with the full budget", mt)
+            with torch.inference_mode():
+                out = self.infer_core(sp, handle["ln"], sp.shape[1] + 1)
+            yseq, token_lens = out[0][:b].cpu().numpy(), out[1][:b].cpu().numpy()
         meta_data["batch_data_time"] = (
             float(speech_lengths.sum()) * frontend.frame_shift_ms * frontend.lfr_n / 1000.0)
 
-        yseq, token_lens, _, _, _ = self.infer_bucketed(speech, speech_lengths)
-        b = len(audio_list)
         if key is None:
             key = [f"rand_key_{i}" for i in range(b)]
         results = []

@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from funasr_tpu_torch.core.layers import linear, masked_softmax
+from funasr_tpu_torch.core.layers import apply_linear, masked_softmax
 from funasr_tpu_torch.ops.flash_attention import flash_attention
 from funasr_tpu_torch.ops.fsmn import fsmn_memory
 
@@ -133,7 +133,7 @@ def sanm_attention_apply(attn: MultiHeadedAttentionSANM, x, mask, lengths):
     """x: (B, T, in_feat); mask: (B, T) bool valid-mask or None; lengths: (B,) valid
     key counts -> (B, T, n_feat)."""
     cfg = attn.cfg
-    qkv = linear(x, attn.linear_q_k_v.weight, attn.linear_q_k_v.bias)
+    qkv = apply_linear(attn.linear_q_k_v, x)
     q, k, v = torch.split(qkv, cfg.n_feat, dim=-1)
     left, right = cfg.fsmn_pads
     fsmn = fsmn_memory(v, attn.fsmn_block.weight, mask, left, right)
@@ -142,7 +142,7 @@ def sanm_attention_apply(attn: MultiHeadedAttentionSANM, x, mask, lengths):
     k_h = _split_heads(k, cfg.n_head, cfg.d_k)
     v_h = _split_heads(v, cfg.n_head, cfg.d_k)
     ctx = flash_attention(q_h, k_h, v_h, lengths)
-    att_out = linear(_merge_heads(ctx), attn.linear_out.weight, attn.linear_out.bias)
+    att_out = apply_linear(attn.linear_out, _merge_heads(ctx))
     return att_out + fsmn
 
 
@@ -155,8 +155,8 @@ def fsmn_decoder_apply(attn: MultiHeadedAttentionSANMDecoder, x, mask):
 def cross_attention_apply(attn: MultiHeadedAttentionCrossAtt, x, memory, memory_mask):
     """x: (B, Tq, n_feat); memory: (B, Tk, enc); memory_mask: (B, Tk) bool or None."""
     cfg = attn.cfg
-    q = linear(x, attn.linear_q.weight, attn.linear_q.bias)
-    kv = linear(memory.to(x.dtype), attn.linear_k_v.weight, attn.linear_k_v.bias)
+    q = apply_linear(attn.linear_q, x)
+    kv = apply_linear(attn.linear_k_v, memory.to(x.dtype))
     k, v = torch.split(kv, cfg.n_feat, dim=-1)
     q_h = _split_heads(q, cfg.n_head, cfg.d_k) * (cfg.d_k ** -0.5)
     k_h = _split_heads(k, cfg.n_head, cfg.d_k)
@@ -164,4 +164,4 @@ def cross_attention_apply(attn: MultiHeadedAttentionCrossAtt, x, memory, memory_
     scores = torch.matmul(q_h, k_h.transpose(-1, -2))
     mask = None if memory_mask is None else memory_mask[:, None, None, :]
     ctx = torch.matmul(masked_softmax(scores, mask), v_h)
-    return linear(_merge_heads(ctx), attn.linear_out.weight, attn.linear_out.bias)
+    return apply_linear(attn.linear_out, _merge_heads(ctx))

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``funasr_tpu_torch/csrc/*.cu``).
 
-At first use every source is compiled with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface under ``build/funasr_tpu_torch/`` at the repository
-root, and loaded with ``ctypes``. Nothing includes PyTorch's headers, so a build takes
-seconds. The library's name carries a hash of the sources and flags, so an edited
-kernel is rebuilt and a stale one never loaded. Nothing here runs at import: the CPU
+At first use every source is compiled with ``nvcc`` for ``sm_90a`` (one process per
+source, all in parallel) and linked into one shared library with a plain C interface
+under ``build/funasr_tpu_torch/`` at the repository root, and loaded with ``ctypes``.
+Nothing includes PyTorch's headers, so a build takes seconds. The library's name
+carries a hash of the sources and flags, so an edited kernel is rebuilt and a stale one
+never loaded. Nothing here runs at import: the CPU
 tests import the wrappers on machines without ``nvcc``.
 """
 
@@ -24,8 +25,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "funasr_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NVCC_LINK_FLAGS = ["-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +39,9 @@ _SIGNATURES = {
                             ctypes.POINTER(_L), ctypes.c_float, _P],
     # dtype, x, w, mask, out, B, T, C, K, left, x_sb, x_st, stream
     "fsmn_memory_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P],
+    # dtype, x, x_row_stride, w_q, scale, bias, bias_dtype, x_q, sx, out, M, N, K, Mp, Kp,
+    # stream
+    "w8a8_linear_fwd": [_I, _P, _L, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -47,29 +52,39 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; (return code, output) of each, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    return [(p.returncode, out) for p, out in ((p, p.communicate()[0]) for p in procs)]
+
+
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library. The returned handle has
-    ``build_seconds`` (0.0 when a built library was reused) and ``build_log``."""
+    """Compile (if needed) and load the kernel library: one nvcc per source, all started
+    together, then one link. The returned handle has ``build_seconds`` (0.0 when a
+    built library was reused) and ``build_log``."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + NVCC_LINK_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode() + src.read_bytes())
     lib_path = BUILD_DIR / f"libfunasr_tpu_torch_{digest.hexdigest()[:16]}.so"
     build_seconds, log = 0.0, ""
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)],
-                              capture_output=True, text=True)
-        build_seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, lib_path)  # atomic: a concurrent build never loads a partial file
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+            t0 = time.perf_counter()
+            objs = [os.path.join(tmp_dir, src.stem + ".o") for src in sources]
+            runs = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                             for src, obj in zip(sources, objs)])
+            tmp = os.path.join(tmp_dir, lib_path.name)
+            if all(rc == 0 for rc, _ in runs):
+                runs += _run_all([[_nvcc(), *NVCC_LINK_FLAGS, "-o", tmp, *objs]])
+            build_seconds = time.perf_counter() - t0
+            log = "".join(out for _, out in runs)
+            if any(rc != 0 for rc, _ in runs):
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            os.replace(tmp, lib_path)  # atomic: a concurrent build never loads a partial file
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
