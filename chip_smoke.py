@@ -12,10 +12,10 @@ Phases (any failure raises and exits non-zero):
    parallel (seconds printed);
 3. kernels: flash attention at (32, 4, 384, 128) and (1, 4, 1408, 128), bf16 and fp32,
    ragged lengths, valid query rows; FSMN memory at (32, 384, 512) and (32, 208, 512),
-   k = 11; each against its plain version, with median kernel and plain times;
+   k = 11; each against its plain version;
 4. w8a8 kernel: the W8A8 linear at every (M, K, N) of the W8A8 path (ragged K = 560 and
    M = 720 included), bf16 and fp32 x, bit-exact to its plain version (a mismatch
-   raises), with median kernel, plain and cuBLAS bf16 ``F.linear`` times;
+   raises);
 5. CUDA vs CPU: a small config (2 + 2 blocks, d = 64), same weights, fp32: token ids
    equal, encoder output within ``CPU_GPU_ENC_TOL``; then d = 256 under W8A8 (the
    kernel on CUDA, its plain version on the CPU): every W8A8 call of the CUDA decode
@@ -25,17 +25,32 @@ Phases (any failure raises and exits non-zero):
    16 decoder blocks, vocab 8404) in bf16 with seeded random weights: 32 x 15 s int16
    PCM and one 70 s utterance through WavFrontend -> model.inference -> text; the
    kernel launch counts of that run must show every encoder attention and every FSMN
-   block went through the kernels; RTFx at B = 32 x 15 s;
+   block went through the kernels; RTFx at B = 32 x 15 s, and one decode under
+   torch.profiler: device time by kernel and the device's idle share;
 7. AutoModel W8A8: a model directory at PROD_CONF width (config.yaml, 8404 tokens,
    identity am.mvn, model.pt of a seeded port Paraformer) through
    ``AutoModel(model=dir, device="cuda", bf16=True, quant="w8a8", batch_size=32)
    .generate(32 x 15 s int16 PCM)``: 32 non-empty texts, finite scores, and launch
-   counts of >= 282 W8A8 linears, 50 flash and 66 FSMN per decode; RTFx, and the token
-   agreement with the same directory at ``quant=None`` (printed, not gated: with random
-   weights the argmax margins are degenerate, ``tests/test_w8a8_production.py``).
+   counts of >= 282 W8A8 linears, 50 flash and 66 FSMN per decode; RTFx; then the same
+   directory at ``quant=None`` in the same call: its RTFx and the token agreement
+   (printed, not gated: with random weights the argmax margins are degenerate,
+   ``tests/test_w8a8_production.py``); one profiled ``generate`` of each.
 
-The second-to-last line is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``.
+Kernel times (phases 3-4): ``ms`` is device time per launch over 20 back-to-back
+launches between one pair of CUDA events, queued behind a spin kernel so that host
+overhead leaves no gaps (``device_ms``, median of 5); ``call_ms`` one lone call
+between events, so the wrapper's host overhead is in it; ``plain_ms`` the plain PyTorch
+version and ``library_ms`` one PyTorch call computing the same function
+(``LIBRARY_CALLS``; for W8A8 the integer product alone, with cuBLAS bf16 ``F.linear``
+beside it as ``cublas_bf16_ms``), both timed like ``ms``; ``bound_ms`` the least time
+the card could take (``bound_ms()``, from the bytes and operations of ``*_work()`` at
+the H100's published peaks). The W8A8 lines add its quantize / GEMM split from
+torch.profiler. No L2 flush between launches: on the path each kernel reads what the
+op before it just wrote.
+
+The second-to-last line is the kernels' JSON record (each kernel at its main path
+shape, with ``launches`` of the main path's run and ``launches_per_decode``), the last
+line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -110,8 +125,36 @@ def log(*args):
     print(*args, flush=True)
 
 
-def median_ms(fn, iters=30, warmup=5):
-    """Median device time of one call, CUDA events around each call after warm-up."""
+def device_ms(fn, launches=20, repeats=5, warmup=3):
+    """Device time of one call: `launches` back-to-back calls between one pair of CUDA
+    events, divided by their number; median over `repeats` after warm-up. A spin kernel
+    ahead of the first event holds the stream until the host has queued every launch,
+    so the wrapper's host overhead never leaves the device idle between them. If the
+    spin had already ended when the host finished queueing, the repeat is dropped and
+    the spin doubled."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times, spin = [], 1 << 21
+    while len(times) < repeats:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        e0.record()
+        for _ in range(launches):
+            fn()
+        e1.record()
+        starved = e0.query() and spin < 1 << 31
+        e1.synchronize()
+        if starved:
+            spin *= 2
+        else:
+            times.append(e0.elapsed_time(e1) / launches)
+    return statistics.median(times)
+
+
+def call_ms(fn, iters=20, warmup=3):
+    """Wall time of one lone call, host overhead included (the wrapper's checks, ctypes
+    marshalling, allocations): CUDA events around each single call; median."""
     for _ in range(warmup):
         fn()
     times = []
@@ -125,11 +168,101 @@ def median_ms(fn, iters=30, warmup=5):
     return statistics.median(times)
 
 
+def wall_ms(fn, runs=5):
+    """Host-clock wall time of `fn` ending in a synchronize: (median ms, all runs)."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def profile_kernels(fn, calls=1):
+    """Device time in ms and launches of each kernel over `calls` calls of `fn`, from
+    torch.profiler: {kernel name: (ms, launches)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def profile_once(fn, label, wall):
+    """One call of `fn` under torch.profiler: device kernel time in all and by kernel,
+    and the device's idle share against `wall`, the unprofiled median wall ms."""
+    kernels = sorted(((t, n, name) for name, (t, n) in profile_kernels(fn).items()),
+                     reverse=True)
+    device = sum(t for t, _, _ in kernels)
+    log(f"profile {label}: device kernel time {device:.2f} ms, unprofiled wall {wall:.2f} ms, "
+        f"idle share {1 - device / wall:.1%}; by kernel (ms, launches):")
+    for t, n, name in kernels[:14]:
+        log(f"  {t:8.3f} {n:5d}  {name[:110]}")
+    for group, keys in PORT_KERNELS.items():  # the port's kernels, all instantiations
+        rows = [(t, n) for t, n, name in kernels if any(k in name for k in keys)]
+        log(f"  port {group}: {sum(t for t, _ in rows):.3f} ms over {sum(n for _, n in rows)} "
+            f"launches")
+
+
+# the device kernels of each wrapper, by name
+PORT_KERNELS = {"flash_attention": ("flash_bf16_kernel", "flash_f32_kernel"),
+                "fsmn_memory": ("fsmn_kernel",),
+                "w8a8_linear": ("quantize_rows_kernel", "gemm_kernel")}
+
+
+# NVIDIA H100 SXM, published dense peaks (data sheet) at the full 700 W power limit
+H100_PEAK = {"bytes": 3.35e12, "bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+
+
+def bound_ms(n_bytes, n_ops, op_type, peak=H100_PEAK):
+    """The least time the card could take: the larger of the bytes over the memory rate
+    and the operations over the peak rate of their type; (ms, "bytes" | "operations")."""
+    t_bytes, t_ops = n_bytes / peak["bytes"] * 1e3, n_ops / peak[op_type] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_work(b, h, t, d, lengths, elem_bytes):
+    """Bytes and flops of flash attention over (B, H, T, D): q read and o written in
+    full, k and v read up to the keys each row needs (its length; all T keys for a
+    length-0 row, which averages V), the int32 lengths; 4 T L D flops per head."""
+    keys = [n if n > 0 else t for n in lengths]
+    n_bytes = elem_bytes * h * d * sum(2 * t + 2 * n for n in keys) + 4 * b
+    return n_bytes, 4 * h * t * d * sum(keys)
+
+
+def fsmn_work(b, t, c, k, elem_bytes):
+    """Bytes and flops of the FSMN memory block: x read and out written once, the
+    (C, k) taps, the bool mask; k multiply-adds and the residual add per element."""
+    return elem_bytes * (2 * b * t * c + c * k) + b * t, (2 * k + 1) * b * t * c
+
+
+def w8a8_work(m, k, n, x_bytes, bias_bytes):
+    """Bytes and int8 operations of the W8A8 linear: x read, int8 weights, fp32 scales
+    and the bias read, out (x's dtype) written; 2 M N K integer operations."""
+    return m * k * x_bytes + n * k + 4 * n + bias_bytes * n + m * n * x_bytes, 2 * m * n * k
+
+
+LIBRARY_CALLS = {
+    "flash_attention": "torch.nn.functional.scaled_dot_product_attention(q, k, v, "
+                       "attn_mask=key_valid[:, None, None, :])",
+    "fsmn_memory": "torch.nn.functional.conv1d(xm, w, padding=5, groups=C)",
+    "w8a8_linear": "torch._int_mm(x_q, w_q8.t())",
+}
+
+
 def pcm(rng, seconds, fs=16000):
     return np.asarray(rng.standard_normal(int(seconds * fs)) * 0.1 * 32767, np.int16)
 
 
 def phase_kernels(dev):
+    import torch.nn.functional as F
     from funasr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
     from funasr_tpu_torch.ops.fsmn import fsmn_memory, fsmn_memory_ref
 
@@ -141,22 +274,30 @@ def phase_kernels(dev):
             # q | k | v as strided head views of one fused projection, as on the path
             qkv = torch.randn(b, t, 3, h, d, generator=g).to(dev, dtype)
             q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-            lens = torch.tensor([t - 37 * (i % 2) for i in range(b)], dtype=torch.int32,
-                                device=dev)
+            lens_list = [t - 37 * (i % 2) for i in range(b)]
+            lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
             out = flash_attention(q, k, v, lens)
             torch.cuda.synchronize()
             ref = flash_attention_ref(q, k, v, lens)
             err = max((out[i, :, :n] - ref[i, :, :n]).abs().max().item()
-                      for i, n in enumerate(lens.tolist()))
-            ms = median_ms(lambda: flash_attention(q, k, v, lens))
-            plain_ms = median_ms(lambda: flash_attention_ref(q, k, v, lens))
-            ok = math.isfinite(err) and err <= FLASH_TOL[dtype]
+                      for i, n in enumerate(lens_list))
+            row = dict(shape=shape, max_abs_err=err,
+                       ms=device_ms(lambda: flash_attention(q, k, v, lens)),
+                       call_ms=call_ms(lambda: flash_attention(q, k, v, lens)),
+                       plain_ms=device_ms(lambda: flash_attention_ref(q, k, v, lens)))
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                *flash_work(b, h, t, d, lens_list, q.element_size()),
+                "bf16" if dtype == torch.bfloat16 else "fp32")
+            key_valid = torch.arange(t, device=dev)[None, :] < lens[:, None].long()
+            mask = key_valid[:, None, None, :]
+            row["library_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
             log(f"flash {shape} {str(dtype)[6:]}: max_abs_err {err:.3e} "
-                f"(tol {FLASH_TOL[dtype]:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-            if not ok:
+                f"(tol {FLASH_TOL[dtype]:g}) " + timing_line(row))
+            if not (math.isfinite(err) and err <= FLASH_TOL[dtype]):
                 raise AssertionError(f"flash kernel disagrees at {shape} {dtype}: {err}")
             if shape == (32, 4, 384, 128) and dtype == torch.bfloat16:
-                record["flash_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                record["flash_attention"] = row
 
     for shape in ((32, 384, 512), (32, 208, 512)):
         b, t, c = shape
@@ -168,20 +309,35 @@ def phase_kernels(dev):
             out = fsmn_memory(x, w, mask, 5, 5)
             torch.cuda.synchronize()
             err = (out - fsmn_memory_ref(x, w, mask, 5, 5)).abs().max().item()
-            ms = median_ms(lambda: fsmn_memory(x, w, mask, 5, 5))
-            plain_ms = median_ms(lambda: fsmn_memory_ref(x, w, mask, 5, 5))
+            xm = (x * mask[..., None].to(dtype)).transpose(1, 2).contiguous()  # (B, C, T)
+            row = dict(shape=shape, max_abs_err=err,
+                       ms=device_ms(lambda: fsmn_memory(x, w, mask, 5, 5)),
+                       call_ms=call_ms(lambda: fsmn_memory(x, w, mask, 5, 5)),
+                       plain_ms=device_ms(lambda: fsmn_memory_ref(x, w, mask, 5, 5)),
+                       library_ms=device_ms(lambda: F.conv1d(xm, w, padding=5, groups=c)))
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                *fsmn_work(b, t, c, 11, x.element_size()), "fp32")
             log(f"fsmn {shape} k=11 {str(dtype)[6:]}: max_abs_err {err:.3e} "
-                f"(tol {FSMN_TOL[dtype]:g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+                f"(tol {FSMN_TOL[dtype]:g}) " + timing_line(row))
             if not (math.isfinite(err) and err <= FSMN_TOL[dtype]):
                 raise AssertionError(f"fsmn kernel disagrees at {shape} {dtype}: {err}")
             if shape == (32, 384, 512) and dtype == torch.bfloat16:
-                record["fsmn_memory"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                record["fsmn_memory"] = row
     return record
+
+
+def timing_line(row):
+    return (f"kernel {row['ms']:.4f} ms (back-to-back launches; lone call, host overhead "
+            f"included, {row['call_ms']:.4f}) plain {row['plain_ms']:.4f} library "
+            f"{row['library_ms']:.4f} "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+            f"{row['bound_ms'] / row['ms']:.1%} of it)")
 
 
 def phase_w8a8_kernel(dev):
     import torch.nn.functional as F
-    from funasr_tpu_torch.ops.w8a8 import w8a8_linear, w8a8_linear_ref
+    from funasr_tpu_torch.ops.w8a8 import (plan_w8a8, quantize_rows_int8, w8a8_linear,
+                                           w8a8_linear_ref)
 
     g = torch.Generator(device=dev).manual_seed(0)
     record = None
@@ -197,18 +353,32 @@ def phase_w8a8_kernel(dev):
             torch.cuda.synchronize()
             ref = w8a8_linear_ref(x, w_q8, scale, bias)
             err = (out.float() - ref.float()).abs().max().item()
-            ms = median_ms(lambda: w8a8_linear(x, w_q8, scale, bias))
-            plain_ms = median_ms(lambda: w8a8_linear_ref(x, w_q8, scale, bias), iters=10,
-                                 warmup=2)
+            row = dict(shape=(m, k, n), max_abs_err=err,
+                       ms=device_ms(lambda: w8a8_linear(x, w_q8, scale, bias)),
+                       call_ms=call_ms(lambda: w8a8_linear(x, w_q8, scale, bias)),
+                       plain_ms=device_ms(lambda: w8a8_linear_ref(x, w_q8, scale, bias),
+                                          launches=5))
+            # the library's integer product alone, on the padded int8 operands
+            kp = plan_w8a8(m, k, n, dtype).kp
+            x_q = F.pad(quantize_rows_int8(x)[0], (0, kp - k))
+            w_p = F.pad(w_q8, (0, kp - k))
+            row["library_ms"] = device_ms(lambda: torch._int_mm(x_q, w_p.t()))
             xb, bb = x.to(torch.bfloat16), bias.to(torch.bfloat16)
-            cublas_ms = median_ms(lambda: F.linear(xb, w_bf16, bb))
+            row["cublas_bf16_ms"] = device_ms(lambda: F.linear(xb, w_bf16, bb))
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                *w8a8_work(m, k, n, x.element_size(), bias.element_size()), "int8")
             log(f"w8a8 ({m}, {k}, {n}) {str(dtype)[6:]}: max_abs_err {err:.3e} "
-                f"(tol {W8A8_TOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                f"cuBLAS bf16 F.linear {cublas_ms:.4f} ms")
+                f"(tol {W8A8_TOL}) " + timing_line(row)
+                + f"; cuBLAS bf16 F.linear {row['cublas_bf16_ms']:.4f}")
+            if dtype == torch.bfloat16:
+                split = profile_kernels(lambda: w8a8_linear(x, w_q8, scale, bias), calls=10)
+                log("  profile, ms per call: " + ", ".join(
+                    f"{name.split('<')[0].split('::')[-1]} {t / 10:.4f}"
+                    for name, (t, _) in split.items()))
             if not torch.equal(out, ref):
                 raise AssertionError(f"w8a8 kernel disagrees at {(m, k, n)} {dtype}: {err}")
             if (m, k, n) == (12288, 512, 2048) and dtype == torch.bfloat16:
-                record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                record = row
     return record
 
 
@@ -338,17 +508,14 @@ def phase_main_path(dev, tables, counters, card):
         log(f"bucket T={t_bucket}: token counts {token_lens.tolist()[:8]}..., "
             f"decoded width {yseq.shape[1]}, mean score {float(score.mean()):.3f}")
 
-    times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    def decode():
         model.inference(batch, tokenizer=tokenizer, frontend=frontend)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    t_med = statistics.median(times)
-    log(f"main path B=32 x 15 s: waves -> text median {t_med * 1e3:.2f} ms "
-        f"(runs {[round(x * 1e3, 2) for x in times]}), RTFx {32 * 15.0 / t_med:.1f}, "
+
+    t_med, times = wall_ms(decode)
+    log(f"main path B=32 x 15 s: waves -> text median {t_med:.2f} ms "
+        f"(runs {[round(x, 2) for x in times]}), RTFx {32 * 15e3 / t_med:.1f}, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    profile_once(decode, "main path bf16, model.inference", t_med)
     return launches
 
 
@@ -421,21 +588,20 @@ def phase_automodel_w8a8(dev, counters, card):
         if not (np.isfinite(score).all() and np.isfinite(alphas).all()):
             raise AssertionError("NaN or inf on the AutoModel W8A8 path")
 
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            am.generate(input=batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        t_med = statistics.median(times)
-        log(f"AutoModel W8A8 B=32 x 15 s: generate median {t_med * 1e3:.2f} ms "
-            f"(runs {[round(x * 1e3, 2) for x in times]}), RTFx {32 * 15.0 / t_med:.1f}, "
+        t_med, times = wall_ms(lambda: am.generate(input=batch))
+        log(f"AutoModel W8A8 B=32 x 15 s: generate median {t_med:.2f} ms "
+            f"(runs {[round(x, 2) for x in times]}), RTFx {32 * 15e3 / t_med:.1f}, "
             f"token counts {token_lens.tolist()[:8]}..., mean score {float(score.mean()):.3f} "
             f"on {card}")
+        profile_once(lambda: am.generate(input=batch), "AutoModel W8A8 generate", t_med)
         del am
         ref = AutoModel(model=d, device="cuda", bf16=True, batch_size=32, log_level="WARNING")
         ref_results = ref.generate(input=batch)
+        r_med, times = wall_ms(lambda: ref.generate(input=batch))
+        log(f"AutoModel quant=None (bf16) B=32 x 15 s, same call: generate median {r_med:.2f} "
+            f"ms (runs {[round(x, 2) for x in times]}), RTFx {32 * 15e3 / r_med:.1f}; W8A8 "
+            f"takes {t_med / r_med:.3f}x its time")
+        profile_once(lambda: ref.generate(input=batch), "AutoModel quant=None generate", r_med)
         del ref
     agree = token_agreement([r["text"] for r in results], [r["text"] for r in ref_results])
     log(f"AutoModel W8A8 vs quant=None (bf16): token agreement {agree:.4f} (not gated: "
@@ -476,18 +642,23 @@ def main():
     launches = phase_main_path(dev, funasr_tpu_torch.tables, counters, card)
     am_launches = phase_automodel_w8a8(dev, counters, card)
 
-    kernels = [
-        dict(name="flash_attention", route="cuda",
-             source="funasr_tpu_torch/csrc/flash_attention.cu",
-             replaces="funasr_tpu/ops/flash_attention.py:63",
-             launches=launches["flash_attention"], **record["flash_attention"]),
-        dict(name="fsmn_memory", route="cuda", source="funasr_tpu_torch/csrc/fsmn.cu",
-             replaces="benchmarks/bench_pallas_dwconv.py:21",
-             launches=launches["fsmn_memory"], **record["fsmn_memory"]),
-        dict(name="w8a8_linear", route="cuda", source="funasr_tpu_torch/csrc/w8a8.cu",
-             replaces="benchmarks/bench_pallas_w8a8.py:18",
-             launches=am_launches["w8a8_linear"], **record["w8a8_linear"]),
-    ]
+    # launches per decode: the main path counted 2 decodes (B = 32 x 15 s and the 70 s
+    # utterance), AutoModel W8A8 one
+    per_decode = {"flash_attention": launches["flash_attention"] / 2,
+                  "fsmn_memory": launches["fsmn_memory"] / 2,
+                  "w8a8_linear": am_launches["w8a8_linear"]}
+    sources = {
+        "flash_attention": ("funasr_tpu_torch/csrc/flash_attention.cu",
+                            "funasr_tpu/ops/flash_attention.py:63", launches),
+        "fsmn_memory": ("funasr_tpu_torch/csrc/fsmn.cu", "benchmarks/bench_pallas_dwconv.py:21",
+                        launches),
+        "w8a8_linear": ("funasr_tpu_torch/csrc/w8a8.cu", "benchmarks/bench_pallas_w8a8.py:18",
+                        am_launches),
+    }
+    kernels = [dict(name=name, route="cuda", source=src, replaces=tpu, launches=counts[name],
+                    launches_per_decode=per_decode[name], library_call=LIBRARY_CALLS[name],
+                    **record[name])
+               for name, (src, tpu, counts) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

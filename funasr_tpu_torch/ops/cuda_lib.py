@@ -3,10 +3,12 @@
 At first use every source is compiled with ``nvcc`` for ``sm_90a`` (one process per
 source, all in parallel) and linked into one shared library with a plain C interface
 under ``build/funasr_tpu_torch/`` at the repository root, and loaded with ``ctypes``.
-Nothing includes PyTorch's headers, so a build takes seconds. The library's name
-carries a hash of the sources and flags, so an edited kernel is rebuilt and a stale one
-never loaded. Nothing here runs at import: the CPU
-tests import the wrappers on machines without ``nvcc``.
+Nothing includes PyTorch's headers, so a build takes seconds. The sources share
+``csrc/hopper.cuh`` (TMA, mbarriers, wgmma); the TMA tensor maps are encoded with the
+driver's ``cuTensorMapEncodeTiled``, looked up in ``libcuda.so.1`` with ``dlsym`` (hence
+``-ldl``; no ``-lcuda``). The library's name carries a hash of the sources, headers and
+flags, so an edited kernel is rebuilt and a stale one never loaded. Nothing here runs at
+import: the CPU tests import the wrappers on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -27,21 +29,21 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "funasr_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-NVCC_LINK_FLAGS = ["-shared"]
+NVCC_LINK_FLAGS = ["-shared", "-ldl"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> argtypes (each returns a cudaError_t as int)
 _SIGNATURES = {
-    # dtype, q, k, v, o, lengths, B, H, T, D, strides[12], sm_scale, stream
+    # dtype, q, k, v, o, lengths, B, H, T, D, strides[12], sm_scale, block_rows, stream
     "flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            ctypes.POINTER(_L), ctypes.c_float, _P],
+                            ctypes.POINTER(_L), ctypes.c_float, _I, _P],
     # dtype, x, w, mask, out, B, T, C, K, left, x_sb, x_st, stream
     "fsmn_memory_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P],
-    # dtype, x, x_row_stride, w_q, scale, bias, bias_dtype, x_q, sx, out, M, N, K, Mp, Kp,
-    # stream
-    "w8a8_linear_fwd": [_I, _P, _L, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dtype, x, x_row_stride, w_q, scale, bias, bias_dtype, x_q, sx, out, out_pitch, M, N,
+    # K, Kp, sms, stream
+    "w8a8_linear_fwd": [_I, _P, _L, _P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -66,7 +68,7 @@ def load_library() -> ctypes.CDLL:
     built library was reused) and ``build_log``."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS + NVCC_LINK_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode() + src.read_bytes())
     lib_path = BUILD_DIR / f"libfunasr_tpu_torch_{digest.hexdigest()[:16]}.so"
     build_seconds, log = 0.0, ""
@@ -99,6 +101,12 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry point returned a CUDA error (e.g. a refused launch)."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_handle(device) -> int:

@@ -5,10 +5,11 @@ Replaces the TPU kernel ``funasr_tpu/ops/flash_attention.py::flash_attention``
 (Pallas kernel ``_flash_kernel``): softmax(Q K^T / sqrt(D)) V with fp32 scores, an
 online softmax and an fp32 accumulator; keys at or past ``lengths[b]`` score -1e30;
 output in q's dtype. The CUDA source, ``funasr_tpu_torch/csrc/flash_attention.cu``,
-notes what bounds it on the H100 (the two products: it is compute bound at the
-path's T <= 1408, D = 128) and what its design does about it (bf16 products on the
-tensor cores, K/V streamed through shared memory in 64-key tiles, key tiles past a
-row's length skipped).
+notes what bounds it on the H100 (bytes at the path's T = 384, operations at the
+long-form T = 1408) and what its design does about it: bf16 runs on ``wgmma`` with K/V
+fed by TMA through a 2-stage ring from one producer warp, scores, softmax and the
+accumulator in registers, key tiles past a row's length skipped; fp32 (only the
+CPU-parity sizes use it on the card) runs on CUDA-core FMAs.
 
 Unlike the Pallas kernel it needs no T % block == 0: the ragged last tile is masked in
 the kernel. A row of length 0 gets the uniform average of V over its T keys in both
@@ -29,6 +30,15 @@ from funasr_tpu_torch.ops import cuda_lib
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+H100_SMS = 132
+
+
+def flash_block_rows(b: int, h: int, t: int, sms: int = H100_SMS) -> int:
+    """Query rows per block of the bf16 kernel: 128 (two consumer warpgroups sharing
+    each K/V tile, half the K/V traffic) while that grid still gives every SM a block,
+    else 64 (twice the blocks). (32, 4, 384): 384 blocks of 128. (1, 4, 1408): 128-row
+    blocks would be 44 for 132 SMs, so 88 blocks of 64."""
+    return 128 if b * h * -(-t // 128) >= sms else 64
 
 
 def flash_attention_ref(q, k, v, lengths):
@@ -48,7 +58,7 @@ def _check(q, k, v, lengths):
         raise ValueError(f"q, k, v must share one (B, H, T, D) shape: "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, t, d = q.shape
-    if d > 128 or d % 8 or t < 1 or b * h < 1:
+    if d > 128 or d % 8 or d < 8 or t < 1 or b * h < 1:
         raise ValueError(f"flash_attention needs D <= 128 with D % 8 == 0 and T >= 1, "
                          f"got {tuple(q.shape)}")
     if -(-t // 64) > 65535:
@@ -80,11 +90,12 @@ def flash_attention(q, k, v, lengths):
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out) for s in x.stride()[:3]))
+    rows = flash_block_rows(b, h, t, cuda_lib.sm_count(q.device.index or 0))
     lib = cuda_lib.load_library()
     flash_attention.launches += 1
     err = lib.flash_attention_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lens.data_ptr(), b, h, t, d, strides, 1.0 / math.sqrt(d),
+        lens.data_ptr(), b, h, t, d, strides, 1.0 / math.sqrt(d), rows,
         cuda_lib.stream_handle(q.device))
     cuda_lib.check(err, "flash_attention_fwd")
     return out

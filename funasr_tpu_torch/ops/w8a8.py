@@ -16,9 +16,12 @@ numerics are those of the path the kernel serves, ``funasr_tpu/ops/quant.py::qli
   no bias, ``float(acc) * (sx * scale)``.
 
 The CUDA source, ``funasr_tpu_torch/csrc/w8a8.cu``, notes what bounds it on the H100
-(int8 tensor-core throughput at the path's shapes) and its design (a row-quantize
-kernel into a padded int8 scratch, then a ``mma.sync`` s8 GEMM with a 4-stage
-``cp.async`` ring and the fused epilogue). It is bit-exact to ``w8a8_linear_ref``.
+(bytes at the path's shapes, most of them the output) and its design: a row-quantize
+kernel that reads each row once into an int8 scratch, then a persistent ``wgmma`` s8
+GEMM fed by TMA from one producer warp, whose two consumer warpgroups take alternate
+tiles so that one's scale / bias epilogue (staged in shared memory, written by TMA
+stores) overlaps the other's products. It is bit-exact to ``w8a8_linear_ref``.
+``plan_w8a8`` holds the wrapper's shape arithmetic (paddings).
 
 Dispatch: a CPU tensor takes ``w8a8_linear_ref``; a CUDA tensor launches the kernel or
 raises. ``w8a8_linear.launches`` counts kernel launches.
@@ -26,15 +29,31 @@ raises. ``w8a8_linear.launches`` counts kernel launches.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
+import torch.nn.functional as F
 
 from funasr_tpu_torch.ops import cuda_lib
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BIAS_DTYPES = {torch.float32: 1, torch.bfloat16: 2}
-# x_q scratch padding: BM rows and BK columns of csrc/w8a8.cu
-_BM, _BK = 128, 64
 INV127 = 1.0 / 127.0  # fl32(1/127) when a float32 tensor is multiplied by it
+
+
+@dataclass(frozen=True)
+class W8A8Plan:
+    """The paddings of one (M, K, N) call."""
+
+    kp: int            # K rounded up to 16: the TMA row pitch of x_q and of the weights
+    pad_weights: bool  # K % 16 != 0: the weights are copied into an (N, kp) zero buffer
+    out_pitch: int     # output row pitch in elements: N rounded up to 16 bytes
+
+
+def plan_w8a8(m: int, k: int, n: int, dtype: torch.dtype) -> W8A8Plan:
+    kp = -(-k // 16) * 16
+    per16 = 16 // dtype.itemsize
+    return W8A8Plan(kp=kp, pad_weights=kp != k, out_pitch=-(-n // per16) * per16)
 
 
 def quantize_rows_int8(x):
@@ -85,8 +104,8 @@ def w8a8_linear(x, w_q8, scale, bias=None):
     bias (N,) fp32 / bf16 or None -> contiguous (..., N) in x's dtype.
 
     On CUDA, x is viewed as (M, K) rows (copied only if that view needs a non-unit column
-    stride); the wrapper allocates the padded (Mp, Kp) int8 scratch of x_q and the (Mp,)
-    row scales the kernel fills."""
+    stride); the wrapper allocates the (M, Kp) int8 rows x_q and the (M,) fp32 row scales
+    that the kernel fills (``plan_w8a8``)."""
     if x.device.type == "cpu":
         return w8a8_linear_ref(x, w_q8, scale, bias)
     if x.device.type != "cuda":
@@ -97,25 +116,28 @@ def w8a8_linear(x, w_q8, scale, bias=None):
     if x2.stride(1) != 1:
         x2 = x2.contiguous()
     m = x2.shape[0]
-    out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
     if m == 0:
-        return out
-    mp, kp = -(-m // _BM) * _BM, -(-k // _BK) * _BK
-    if mp // _BM > 65535:
-        raise ValueError(f"{m} rows exceed the kernel's grid")
-    x_q = torch.empty((mp, kp), dtype=torch.int8, device=x.device)
-    sx = torch.empty((mp,), dtype=torch.float32, device=x.device)
-    w = w_q8.contiguous()
+        return torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    p = plan_w8a8(m, k, n, x.dtype)
+    x_q = torch.empty((m, p.kp), dtype=torch.int8, device=x.device)
+    sx = torch.empty(m, dtype=torch.float32, device=x.device)
+    out = torch.empty((m, p.out_pitch), dtype=x.dtype, device=x.device)
+    w = F.pad(w_q8, (0, p.kp - k)) if p.pad_weights else w_q8.contiguous()
+    if w.data_ptr() % 16:  # TMA reads from a 16-byte aligned base
+        w = w.clone()
+    sc = scale.contiguous()
     b = None if bias is None else bias.contiguous()
     lib = cuda_lib.load_library()
     w8a8_linear.launches += 1
     err = lib.w8a8_linear_fwd(
-        _DTYPES[x.dtype], x2.data_ptr(), x2.stride(0), w.data_ptr(), scale.contiguous().data_ptr(),
+        _DTYPES[x.dtype], x2.data_ptr(), x2.stride(0), w.data_ptr(), sc.data_ptr(),
         None if b is None else b.data_ptr(), 0 if b is None else _BIAS_DTYPES[b.dtype],
-        x_q.data_ptr(), sx.data_ptr(), out.data_ptr(), m, n, k, mp, kp,
-        cuda_lib.stream_handle(x.device))
+        x_q.data_ptr(), sx.data_ptr(), out.data_ptr(), p.out_pitch, m, n, k, p.kp,
+        cuda_lib.sm_count(x.device.index), cuda_lib.stream_handle(x.device))
     cuda_lib.check(err, "w8a8_linear_fwd")
-    return out
+    if p.out_pitch != n:
+        out = out[:, :n].contiguous()
+    return out.view(*x.shape[:-1], n)
 
 
 w8a8_linear.launches = 0

@@ -172,20 +172,26 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("shape", [(4, 4, 384, 128), (2, 3, 77, 40)])
+@pytest.mark.parametrize("shape", [(4, 4, 384, 128), (2, 3, 77, 40), (32, 4, 384, 128),
+                                   (1, 4, 1408, 128)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, tol, shape):
+    """Strided q|k|v head views, ragged lengths, a zero-length row (uniform average of V
+    over all T keys, every row compared), T not a multiple of the tile (77)."""
     b, h, n, d = shape
     g = _gen(3)
     qkv = torch.randn(b, n, 3, h, d, generator=g).to(cuda_device, dtype)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # strided head views
-    lens = torch.tensor([n - 37 * (i % 2) for i in range(b)], device=cuda_device)
+    lens = [n - 37 * (i % 2) for i in range(b)]
+    if b > 1:
+        lens[-1] = 0
+    lens = torch.tensor(lens, device=cuda_device)
     before = flash_attention.launches
     got = flash_attention(q, k, v, lens)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     want = flash_attention_ref(q, k, v, lens)
     for i in range(b):
-        n_i = int(lens[i])
+        n_i = int(lens[i]) or n
         torch.testing.assert_close(got[i, :, :n_i].float(), want[i, :, :n_i].float(),
                                    atol=tol, rtol=tol)
 

@@ -1,0 +1,135 @@
+"""What the port's kernels are held to that a CPU can check.
+
+* ``chip_smoke.py``'s roofline arithmetic: each kernel's bytes and operations from its
+  shapes, and the least time the H100 could take for them (the bound beside every
+  kernel time in ``PERF.md``);
+* the wrappers' pure-Python planning: the W8A8 paddings, the flash
+  block rows;
+* the W8A8 kernel's quantizer: a product with fl(1/sx), checked against the rounding
+  boundary, gives the IEEE quotient's int8 value bit for bit (emulated here in fp32);
+* the kernel modules never call the library functions that ``chip_smoke.py`` times
+  beside the kernels.
+"""
+
+import ast
+from pathlib import Path
+
+import chip_smoke
+import numpy as np
+import pytest
+import torch
+
+from funasr_tpu_torch.ops.flash_attention import flash_block_rows
+from funasr_tpu_torch.ops.w8a8 import INV127, plan_w8a8, quantize_rows_int8
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("name,work,op_type,want_us,want_by", [
+    # (32, 4, 384, 128) bf16, every key live: q, k, v read and o written, 50.3 MB
+    ("flash path", chip_smoke.flash_work(32, 4, 384, 128, [384] * 32, 2), "bf16", 15.0,
+     "bytes"),
+    ("flash long form", chip_smoke.flash_work(1, 4, 1408, 128, [1408], 2), "bf16", 4.1,
+     "operations"),
+    ("w8a8 FFN w_1", chip_smoke.w8a8_work(12288, 512, 2048, 2, 2), "int8", 19.1, "bytes"),
+    ("fsmn encoder", chip_smoke.fsmn_work(32, 384, 512, 11, 2), "fp32", 7.5, "bytes"),
+])
+def test_roofline_bounds(name, work, op_type, want_us, want_by):
+    ms, by = chip_smoke.bound_ms(*work, op_type)
+    assert round(ms * 1e3, 1) == want_us and by == want_by, (name, ms, by)
+
+
+def test_flash_work_counts_keys_up_to_the_lengths():
+    """K and V are read, and scored, only up to each row's length; a length-0 row
+    averages V over all T keys, so it needs every key."""
+    full_bytes, full_ops = chip_smoke.flash_work(3, 2, 100, 64, [100, 100, 100], 2)
+    bytes_, ops = chip_smoke.flash_work(3, 2, 100, 64, [100, 40, 0], 2)
+    assert full_ops == 4 * 2 * 100 * 64 * 300 and ops == 4 * 2 * 100 * 64 * 240
+    assert full_bytes - bytes_ == 2 * 2 * 64 * 2 * 60  # k and v rows 40..99 of one batch
+
+
+def test_w8a8_work_and_peaks():
+    n_bytes, n_ops = chip_smoke.w8a8_work(12288, 512, 2048, 2, 2)
+    assert n_ops == 2 * 12288 * 512 * 2048
+    assert n_bytes == 12288 * 512 * 2 + 2048 * 512 + 4 * 2048 + 2 * 2048 + 12288 * 2048 * 2
+    ms, by = chip_smoke.bound_ms(0, n_ops, "int8")
+    assert by == "operations" and round(ms * 1e3, 1) == 13.0
+
+
+def test_library_calls_named_for_every_kernel():
+    assert set(chip_smoke.LIBRARY_CALLS) == {"flash_attention", "fsmn_memory", "w8a8_linear"}
+    assert "scaled_dot_product_attention" in chip_smoke.LIBRARY_CALLS["flash_attention"]
+    assert "conv1d" in chip_smoke.LIBRARY_CALLS["fsmn_memory"]
+    assert "_int_mm" in chip_smoke.LIBRARY_CALLS["w8a8_linear"]
+
+
+@pytest.mark.parametrize("m,k,n,dtype,kp,pad,pitch", [
+    (12288, 560, 1536, torch.bfloat16, 560, False, 1536),  # encoders0: K = 35 x 16
+    (12288, 2048, 512, torch.bfloat16, 2048, False, 512),
+    (33, 40, 24, torch.bfloat16, 48, True, 24),            # K % 16 != 0: weights padded
+    (65, 100, 37, torch.bfloat16, 112, True, 40),          # N = 37: out rows padded to 16 B
+    (65, 100, 37, torch.float32, 112, True, 40),
+    (7, 560, 24, torch.float32, 560, False, 24),
+])
+def test_w8a8_plan(m, k, n, dtype, kp, pad, pitch):
+    p = plan_w8a8(m, k, n, dtype)
+    assert (p.kp, p.pad_weights, p.out_pitch) == (kp, pad, pitch)
+    assert p.kp % 16 == 0 and p.out_pitch * torch.empty(0, dtype=dtype).element_size() % 16 == 0
+
+
+@pytest.mark.parametrize("b,h,t,rows", [
+    (32, 4, 384, 128),   # 384 blocks of 128 rows
+    (1, 4, 1408, 64),    # 128-row blocks would be 44 for 132 SMs: 88 blocks of 64
+    (4, 4, 384, 64),
+    (2, 3, 77, 64),
+    (132, 1, 128, 128),  # one 128-row block per SM
+    (131, 1, 128, 64),
+])
+def test_flash_block_rows(b, h, t, rows):
+    assert flash_block_rows(b, h, t) == rows
+
+
+def _quantize_like_the_kernel(x):
+    """``csrc/w8a8.cu`` quant(), emulated in fp32: t = fl(v * fl(1 / sx)); where t lies
+    more than 2^-12 from a half-integer, rint(t), else rint of the IEEE quotient."""
+    xf = x.float()
+    s = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True), 1e-6) * INV127
+    t = xf * (1.0 / s)
+    near = (t - torch.floor(t) - 0.5).abs() <= 2.0 ** -12
+    q = torch.where(near, torch.round(xf / s), torch.round(t))
+    return torch.clamp(q, -127, 127).to(torch.int8), s, int(near.sum())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_reciprocal_path_is_bit_exact(rng, dtype):
+    x = (rng.standard_normal((256, 512)) * rng.uniform(1e-3, 50.0, (256, 1))).astype(np.float32)
+    x[3] = 0.0
+    x[4, :7] = 1e-7  # a row below the 1e-6 floor
+    # rows of max 127 * 2^e and values (j + 1/2) 2^e, exact in bf16 too: their
+    # quotients lie within rounding of a half-integer, where the IEEE quotient decides
+    unit = 2.0 ** rng.integers(-10, 6, (35, 1))
+    x[5:40, 0:1] = 127 * unit
+    x[5:40, 1:255] = (np.arange(-127, 127) + 0.5) * unit
+    xt = torch.from_numpy(x).to(dtype)
+    got, s, n_near = _quantize_like_the_kernel(xt)
+    want, want_s = quantize_rows_int8(xt)
+    assert n_near > 0  # the boundary path was taken
+    torch.testing.assert_close(s, want_s, rtol=0, atol=0)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+KERNEL_MODULES = ["funasr_tpu_torch/ops/flash_attention.py", "funasr_tpu_torch/ops/fsmn.py",
+                  "funasr_tpu_torch/ops/w8a8.py", "funasr_tpu_torch/ops/quant.py",
+                  "funasr_tpu_torch/models/sanm/attention.py"]
+
+
+@pytest.mark.parametrize("path", KERNEL_MODULES)
+def test_kernel_modules_call_no_library_kernel(path):
+    """The yardsticks ``chip_smoke.py`` times are never named in the port's kernel
+    modules (as an attribute, a function or an import)."""
+    tree = ast.parse((REPO / path).read_text())
+    names = {node.attr for node in ast.walk(tree) if isinstance(node, ast.Attribute)}
+    names |= {node.id for node in ast.walk(tree) if isinstance(node, ast.Name)}
+    names |= {a.name for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)
+              for a in node.names}
+    assert not names & {"scaled_dot_product_attention", "_int_mm", "conv1d"}, path

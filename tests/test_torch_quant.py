@@ -16,6 +16,7 @@ Inputs are made with numpy and handed to both packages. Tolerances:
 The ``cuda``-marked test holds the kernel to its plain version on the card.
 """
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -204,11 +205,20 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("mkn", [(7, 560, 24), (720, 512, 2048), (33, 40, 24), (300, 512, 1024)])
+@pytest.mark.parametrize("mkn", chip_smoke.W8A8_SHAPES + [(7, 560, 24), (33, 40, 24),
+                                                         (65, 100, 37), (300, 512, 1024),
+                                                         (33, 40, 24, 0), (9, 9000, 40, 0)])
 def test_w8a8_kernel_matches_plain_bit_exact(cuda_device, dtype, mkn):
-    m, k, n = mkn
+    """Every (M, K, N) of the W8A8 path, plus ragged M / N and K = 40, 100 (weights
+    padded to K % 16 == 0 by the wrapper) and N = 37 (output row pitch padded); x with
+    row stride 2K, starting `off` elements into its row. K % 16 != 0 starts off a
+    16-byte boundary (the quantizer's scalar loads) unless `off` = 0 is given: then the
+    vector loads meet the ragged K tail, and at K = 9000 the row is longer than the
+    8,192 values the quantizer keeps in registers, so it is read again."""
+    m, k, n, *given = mkn
     g = torch.Generator().manual_seed(0)
-    x = (torch.randn(m, 2 * k, generator=g) * 2).to(cuda_device, dtype)[:, :k]  # row stride 2k
+    off = given[0] if given else 1 if k % 16 else 0
+    x = (torch.randn(m, 2 * k, generator=g) * 2).to(cuda_device, dtype)[:, off:off + k]
     x[1] = 0
     w_q8 = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(cuda_device)
     scale = (torch.rand(n, generator=g) * 0.01).to(cuda_device)
