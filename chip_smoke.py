@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels, holds each
 against its plain PyTorch version, checks the port on CUDA against the port on the CPU,
-and drives the offline Paraformer decode and ``AutoModel(quant="w8a8")`` at
-Paraformer-large width.
+and drives the offline Paraformer decode, ``AutoModel(quant="w8a8")`` and the default
+(fp32) ``AutoModel`` at Paraformer-large width.
 
     python3 chip_smoke.py
 
@@ -27,14 +27,18 @@ Phases (any failure raises and exits non-zero):
    kernel launch counts of that run must show every encoder attention and every FSMN
    block went through the kernels; RTFx at B = 32 x 15 s, and one decode under
    torch.profiler: device time by kernel and the device's idle share;
-7. AutoModel W8A8: a model directory at PROD_CONF width (config.yaml, 8404 tokens,
-   identity am.mvn, model.pt of a seeded port Paraformer) through
+7. AutoModel (``phase_automodel``): a model directory at PROD_CONF width (config.yaml,
+   8404 tokens, identity am.mvn, model.pt of a seeded port Paraformer) through
    ``AutoModel(model=dir, device="cuda", bf16=True, quant="w8a8", batch_size=32)
    .generate(32 x 15 s int16 PCM)``: 32 non-empty texts, finite scores, and launch
    counts of >= 282 W8A8 linears, 50 flash and 66 FSMN per decode; RTFx; then the same
    directory at ``quant=None`` in the same call: its RTFx and the token agreement
    (printed, not gated: with random weights the argmax margins are degenerate,
-   ``tests/test_w8a8_production.py``); one profiled ``generate`` of each.
+   ``tests/test_w8a8_production.py``); one profiled ``generate`` of each; then the
+   public default from the same directory, ``AutoModel(model=dir, device="cuda",
+   batch_size=32)`` (no bf16, no quant: fp32): 32 non-empty texts, finite scores, >= 50
+   flash and >= 66 FSMN launches per decode, and its profile showing them in the fp32
+   kernels (``FP32_KERNELS``); RTFx and one profiled ``generate``.
 
 Kernel times (phases 3-4): ``ms`` is device time per launch over 20 back-to-back
 launches between one pair of CUDA events, queued behind a spin kernel so that host
@@ -44,13 +48,15 @@ version and ``library_ms`` one PyTorch call computing the same function
 (``LIBRARY_CALLS``; for W8A8 the integer product alone, with cuBLAS bf16 ``F.linear``
 beside it as ``cublas_bf16_ms``), both timed like ``ms``; ``bound_ms`` the least time
 the card could take (``bound_ms()``, from the bytes and operations of ``*_work()`` at
-the H100's published peaks). The W8A8 lines add its quantize / GEMM split from
+the H100's published peaks; fp32 flash on the 3xTF32 route, ``flash_bound()``, with the
+CUDA-core figure beside it as ``cuda_core_bound_ms``). The W8A8 lines add its quantize / GEMM split from
 torch.profiler. No L2 flush between launches: on the path each kernel reads what the
 op before it just wrote.
 
-The second-to-last line is the kernels' JSON record (each kernel at its main path
-shape, with ``launches`` of the main path's run and ``launches_per_decode``), the last
-line ``{"ok": true, "device": {...}}``.
+The second-to-last line is the kernels' JSON record (``kernels_line``: each kernel at
+its main path shape, with ``launches`` of the main path's run and
+``launches_per_decode``; flash and FSMN add their fp32 figures under ``fp32``, launches
+from the fp32 ``AutoModel`` decode), the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -197,9 +203,10 @@ def profile_kernels(fn, calls=1):
 
 def profile_once(fn, label, wall):
     """One call of `fn` under torch.profiler: device kernel time in all and by kernel,
-    and the device's idle share against `wall`, the unprofiled median wall ms."""
-    kernels = sorted(((t, n, name) for name, (t, n) in profile_kernels(fn).items()),
-                     reverse=True)
+    and the device's idle share against `wall`, the unprofiled median wall ms. Returns
+    {kernel name: (ms, launches)}."""
+    by_name = profile_kernels(fn)
+    kernels = sorted(((t, n, name) for name, (t, n) in by_name.items()), reverse=True)
     device = sum(t for t, _, _ in kernels)
     log(f"profile {label}: device kernel time {device:.2f} ms, unprofiled wall {wall:.2f} ms, "
         f"idle share {1 - device / wall:.1%}; by kernel (ms, launches):")
@@ -209,16 +216,27 @@ def profile_once(fn, label, wall):
         rows = [(t, n) for t, n, name in kernels if any(k in name for k in keys)]
         log(f"  port {group}: {sum(t for t, _ in rows):.3f} ms over {sum(n for _, n in rows)} "
             f"launches")
+    return by_name
+
+
+def kernel_totals(by_name, key):
+    """(device ms, launches) summed over the profiled kernels whose name holds `key`."""
+    rows = [v for name, v in by_name.items() if key in name]
+    return sum(t for t, _ in rows), sum(n for _, n in rows)
 
 
 # the device kernels of each wrapper, by name
 PORT_KERNELS = {"flash_attention": ("flash_bf16_kernel", "flash_f32_kernel"),
                 "fsmn_memory": ("fsmn_kernel",),
                 "w8a8_linear": ("quantize_rows_kernel", "gemm_kernel")}
+# the fp32 instantiations, which the default (fp32) AutoModel must launch
+FP32_KERNELS = {"flash_attention": "flash_f32_kernel", "fsmn_memory": "fsmn_kernel<float"}
 
 
-# NVIDIA H100 SXM, published dense peaks (data sheet) at the full 700 W power limit
-H100_PEAK = {"bytes": 3.35e12, "bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# NVIDIA H100 SXM, published dense peaks (data sheet) at the full 700 W power limit;
+# "fp32" is the CUDA cores' rate, "tf32" the tensor cores'
+H100_PEAK = {"bytes": 3.35e12, "bf16": 989e12, "int8": 1979e12, "tf32": 495e12,
+             "fp32": 67e12}
 
 
 def bound_ms(n_bytes, n_ops, op_type, peak=H100_PEAK):
@@ -235,6 +253,16 @@ def flash_work(b, h, t, d, lengths, elem_bytes):
     keys = [n if n > 0 else t for n in lengths]
     n_bytes = elem_bytes * h * d * sum(2 * t + 2 * n for n in keys) + 4 * b
     return n_bytes, 4 * h * t * d * sum(keys)
+
+
+def flash_bound(b, h, t, d, lengths, dtype):
+    """The flash bound (ms, by) for `dtype`. fp32 takes the card's fastest route to
+    fp32-accurate products: the 3xTF32 split, three TF32 products per product, on the
+    tensor cores."""
+    n_bytes, n_ops = flash_work(b, h, t, d, lengths, 2 if dtype == torch.bfloat16 else 4)
+    if dtype == torch.bfloat16:
+        return bound_ms(n_bytes, n_ops, "bf16")
+    return bound_ms(n_bytes, 3 * n_ops, "tf32")
 
 
 def fsmn_work(b, t, c, k, elem_bytes):
@@ -285,9 +313,10 @@ def phase_kernels(dev):
                        ms=device_ms(lambda: flash_attention(q, k, v, lens)),
                        call_ms=call_ms(lambda: flash_attention(q, k, v, lens)),
                        plain_ms=device_ms(lambda: flash_attention_ref(q, k, v, lens)))
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                *flash_work(b, h, t, d, lens_list, q.element_size()),
-                "bf16" if dtype == torch.bfloat16 else "fp32")
+            row["bound_ms"], row["bound_by"] = flash_bound(b, h, t, d, lens_list, dtype)
+            if dtype == torch.float32:  # the CUDA-core bound, beside the 3xTF32 one
+                row["cuda_core_bound_ms"] = bound_ms(
+                    *flash_work(b, h, t, d, lens_list, 4), "fp32")[0]
             key_valid = torch.arange(t, device=dev)[None, :] < lens[:, None].long()
             mask = key_valid[:, None, None, :]
             row["library_ms"] = device_ms(
@@ -296,8 +325,8 @@ def phase_kernels(dev):
                 f"(tol {FLASH_TOL[dtype]:g}) " + timing_line(row))
             if not (math.isfinite(err) and err <= FLASH_TOL[dtype]):
                 raise AssertionError(f"flash kernel disagrees at {shape} {dtype}: {err}")
-            if shape == (32, 4, 384, 128) and dtype == torch.bfloat16:
-                record["flash_attention"] = row
+            if shape == (32, 4, 384, 128):
+                record[("flash_attention", dtype)] = row
 
     for shape in ((32, 384, 512), (32, 208, 512)):
         b, t, c = shape
@@ -321,8 +350,8 @@ def phase_kernels(dev):
                 f"(tol {FSMN_TOL[dtype]:g}) " + timing_line(row))
             if not (math.isfinite(err) and err <= FSMN_TOL[dtype]):
                 raise AssertionError(f"fsmn kernel disagrees at {shape} {dtype}: {err}")
-            if shape == (32, 384, 512) and dtype == torch.bfloat16:
-                record["fsmn_memory"] = row
+            if shape == (32, 384, 512):
+                record[("fsmn_memory", dtype)] = row
     return record
 
 
@@ -331,7 +360,9 @@ def timing_line(row):
             f"included, {row['call_ms']:.4f}) plain {row['plain_ms']:.4f} library "
             f"{row['library_ms']:.4f} "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-            f"{row['bound_ms'] / row['ms']:.1%} of it)")
+            f"{row['bound_ms'] / row['ms']:.1%} of it)"
+            + (f"; CUDA-core fp32 bound {row['cuda_core_bound_ms']:.4f} ms"
+               if "cuda_core_bound_ms" in row else ""))
 
 
 def phase_w8a8_kernel(dev):
@@ -552,61 +583,148 @@ def token_agreement(texts_a, texts_b):
     return same / max(sum(max(len(a), len(b)) for a, b in zip(texts_a, texts_b)), 1)
 
 
-def phase_automodel_w8a8(dev, counters, card):
+def phase_automodel(dev, counters, card):
+    """AutoModel at PROD_CONF width from one model directory: W8A8 (bf16), quant=None
+    (bf16), then the public default, fp32. Returns the launches of one W8A8 decode and
+    of one fp32 decode."""
     import tempfile
-
-    from funasr_tpu_torch import AutoModel
 
     rng = np.random.default_rng(0)
     batch = [pcm(rng, 15.0) for _ in range(32)]
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         write_model_dir(d, dev)
-        t1 = time.perf_counter()
-        am = AutoModel(model=d, device="cuda", bf16=True, quant="w8a8", batch_size=32,
-                       log_level="WARNING")
-        log(f"AutoModel W8A8: model dir written in {t1 - t0:.1f} s, built in "
-            f"{time.perf_counter() - t1:.1f} s")
-        am.generate(input=batch)  # warm-up, outside the counted run
-        torch.cuda.synchronize()
+        log(f"AutoModel: model dir written in {time.perf_counter() - t0:.1f} s")
+        w8a8_launches = automodel_w8a8(d, batch, dev, counters, card)
+        fp32_launches = automodel_fp32(d, batch, dev, counters, card)
+    return w8a8_launches, fp32_launches
 
-        for c in counters:
-            c.launches = 0
-        results = am.generate(input=batch)
-        torch.cuda.synchronize()
-        launches = {c.__name__: c.launches for c in counters}
-        log(f"AutoModel W8A8 launches over 1 decode: {launches}")
-        if len(results) != 32 or not all(isinstance(r["text"], str) and r["text"]
-                                         for r in results):
-            raise AssertionError("AutoModel W8A8: expected 32 non-empty texts")
-        if (launches["w8a8_linear"] < 282 or launches["flash_attention"] < 50
-                or launches["fsmn_memory"] < 66):
-            raise AssertionError(f"AutoModel W8A8 bypassed a kernel: {launches}")
 
-        feats, flens = am.kwargs["frontend"].extract(batch, device=dev)
-        _, token_lens, score, alphas, _ = am.model.infer_bucketed(feats, flens)
-        if not (np.isfinite(score).all() and np.isfinite(alphas).all()):
-            raise AssertionError("NaN or inf on the AutoModel W8A8 path")
+def automodel_w8a8(d, batch, dev, counters, card):
+    from funasr_tpu_torch import AutoModel
 
-        t_med, times = wall_ms(lambda: am.generate(input=batch))
-        log(f"AutoModel W8A8 B=32 x 15 s: generate median {t_med:.2f} ms "
-            f"(runs {[round(x, 2) for x in times]}), RTFx {32 * 15e3 / t_med:.1f}, "
-            f"token counts {token_lens.tolist()[:8]}..., mean score {float(score.mean()):.3f} "
-            f"on {card}")
-        profile_once(lambda: am.generate(input=batch), "AutoModel W8A8 generate", t_med)
-        del am
-        ref = AutoModel(model=d, device="cuda", bf16=True, batch_size=32, log_level="WARNING")
-        ref_results = ref.generate(input=batch)
-        r_med, times = wall_ms(lambda: ref.generate(input=batch))
-        log(f"AutoModel quant=None (bf16) B=32 x 15 s, same call: generate median {r_med:.2f} "
-            f"ms (runs {[round(x, 2) for x in times]}), RTFx {32 * 15e3 / r_med:.1f}; W8A8 "
-            f"takes {t_med / r_med:.3f}x its time")
-        profile_once(lambda: ref.generate(input=batch), "AutoModel quant=None generate", r_med)
-        del ref
+    t1 = time.perf_counter()
+    am = AutoModel(model=d, device="cuda", bf16=True, quant="w8a8", batch_size=32,
+                   log_level="WARNING")
+    log(f"AutoModel W8A8: built in {time.perf_counter() - t1:.1f} s")
+    am.generate(input=batch)  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+
+    for c in counters:
+        c.launches = 0
+    results = am.generate(input=batch)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"AutoModel W8A8 launches over 1 decode: {launches}")
+    if len(results) != 32 or not all(isinstance(r["text"], str) and r["text"]
+                                     for r in results):
+        raise AssertionError("AutoModel W8A8: expected 32 non-empty texts")
+    if (launches["w8a8_linear"] < 282 or launches["flash_attention"] < 50
+            or launches["fsmn_memory"] < 66):
+        raise AssertionError(f"AutoModel W8A8 bypassed a kernel: {launches}")
+
+    feats, flens = am.kwargs["frontend"].extract(batch, device=dev)
+    _, token_lens, score, alphas, _ = am.model.infer_bucketed(feats, flens)
+    if not (np.isfinite(score).all() and np.isfinite(alphas).all()):
+        raise AssertionError("NaN or inf on the AutoModel W8A8 path")
+
+    t_med, times = wall_ms(lambda: am.generate(input=batch))
+    log(f"AutoModel W8A8 B=32 x 15 s: generate median {t_med:.2f} ms "
+        f"(runs {[round(x, 2) for x in times]}), RTFx {32 * 15e3 / t_med:.1f}, "
+        f"token counts {token_lens.tolist()[:8]}..., mean score {float(score.mean()):.3f} "
+        f"on {card}")
+    profile_once(lambda: am.generate(input=batch), "AutoModel W8A8 generate", t_med)
+    del am
+    ref = AutoModel(model=d, device="cuda", bf16=True, batch_size=32, log_level="WARNING")
+    ref_results = ref.generate(input=batch)
+    r_med, times = wall_ms(lambda: ref.generate(input=batch))
+    log(f"AutoModel quant=None (bf16) B=32 x 15 s, same call: generate median {r_med:.2f} "
+        f"ms (runs {[round(x, 2) for x in times]}), RTFx {32 * 15e3 / r_med:.1f}; W8A8 "
+        f"takes {t_med / r_med:.3f}x its time")
+    profile_once(lambda: ref.generate(input=batch), "AutoModel quant=None generate", r_med)
+    del ref
     agree = token_agreement([r["text"] for r in results], [r["text"] for r in ref_results])
     log(f"AutoModel W8A8 vs quant=None (bf16): token agreement {agree:.4f} (not gated: "
         f"random weights)")
     return launches
+
+
+def automodel_fp32(d, batch, dev, counters, card):
+    """The public default, ``AutoModel(model=d, device="cuda")`` with no bf16 and no
+    quant: the whole model in fp32, so every encoder attention and every FSMN block
+    takes the fp32 kernels. Gates: 32 non-empty texts, finite scores, >= 50 flash and
+    >= 66 FSMN launches per decode, and the profile showing those launches in the fp32
+    kernels (``FP32_KERNELS``)."""
+    from funasr_tpu_torch import AutoModel
+
+    t1 = time.perf_counter()
+    am = AutoModel(model=d, device="cuda", batch_size=32, log_level="WARNING")
+    dtype = next(am.model.parameters()).dtype
+    log(f"AutoModel fp32 (default dtype {dtype}): built in {time.perf_counter() - t1:.1f} s")
+    if dtype != torch.float32:
+        raise AssertionError(f"the default AutoModel runs in {dtype}, not float32")
+    am.generate(input=batch)  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+
+    for c in counters:
+        c.launches = 0
+    results = am.generate(input=batch)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    log(f"AutoModel fp32 launches over 1 decode: {launches}")
+    if len(results) != 32 or not all(isinstance(r["text"], str) and r["text"]
+                                     for r in results):
+        raise AssertionError("AutoModel fp32: expected 32 non-empty texts")
+    if launches["flash_attention"] < 50 or launches["fsmn_memory"] < 66:
+        raise AssertionError(f"AutoModel fp32 bypassed a kernel: {launches}")
+
+    feats, flens = am.kwargs["frontend"].extract(batch, device=dev)
+    _, token_lens, score, alphas, _ = am.model.infer_bucketed(feats, flens)
+    if not (np.isfinite(score).all() and np.isfinite(alphas).all()):
+        raise AssertionError("NaN or inf on the AutoModel fp32 path")
+
+    t_med, times = wall_ms(lambda: am.generate(input=batch))
+    log(f"AutoModel fp32 B=32 x 15 s: generate median {t_med:.2f} ms "
+        f"(runs {[round(x, 2) for x in times]}), RTFx {32 * 15e3 / t_med:.1f}, "
+        f"token counts {token_lens.tolist()[:8]}..., mean score {float(score.mean()):.3f} "
+        f"on {card}")
+    by_name = profile_once(lambda: am.generate(input=batch), "AutoModel fp32 generate", t_med)
+    fp32 = {name: kernel_totals(by_name, key) for name, key in FP32_KERNELS.items()}
+    log("AutoModel fp32 profile, fp32 kernels (ms, launches) per decode: " + ", ".join(
+        f"{FP32_KERNELS[name]} {ms:.3f} ms / {n}" for name, (ms, n) in fp32.items()))
+    if fp32["flash_attention"][1] < 50 or fp32["fsmn_memory"][1] < 66:
+        raise AssertionError(f"AutoModel fp32 did not run the fp32 kernels: {fp32}")
+    del am
+    return launches
+
+
+def kernels_line(record, launches, am_launches, fp32_launches):
+    """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
+    of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
+    ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
+    the launches of one decode of the default (fp32) AutoModel."""
+    per_decode = {"flash_attention": launches["flash_attention"] / 2,
+                  "fsmn_memory": launches["fsmn_memory"] / 2,
+                  "w8a8_linear": am_launches["w8a8_linear"]}
+    sources = {
+        "flash_attention": ("funasr_tpu_torch/csrc/flash_attention.cu",
+                            "funasr_tpu/ops/flash_attention.py:63", launches),
+        "fsmn_memory": ("funasr_tpu_torch/csrc/fsmn.cu", "benchmarks/bench_pallas_dwconv.py:21",
+                        launches),
+        "w8a8_linear": ("funasr_tpu_torch/csrc/w8a8.cu", "benchmarks/bench_pallas_w8a8.py:18",
+                        am_launches),
+    }
+    kernels = []
+    for name, (src, tpu, counts) in sources.items():
+        entry = dict(name=name, route="cuda", source=src, replaces=tpu, launches=counts[name],
+                     launches_per_decode=per_decode[name], library_call=LIBRARY_CALLS[name],
+                     **record[(name, torch.bfloat16)])
+        if (name, torch.float32) in record:
+            entry["fp32"] = dict(launches=fp32_launches[name],
+                                 launches_per_decode=fp32_launches[name],
+                                 **record[(name, torch.float32)])
+        kernels.append(entry)
+    return {"kernels": kernels}
 
 
 def main():
@@ -636,30 +754,12 @@ def main():
 
     counters = (flash_attention, fsmn_memory, w8a8_linear)
     record = phase_kernels(dev)
-    record["w8a8_linear"] = phase_w8a8_kernel(dev)
+    record[("w8a8_linear", torch.bfloat16)] = phase_w8a8_kernel(dev)
     phase_cuda_vs_cpu(dev)
     phase_cuda_vs_cpu_w8a8(dev)
     launches = phase_main_path(dev, funasr_tpu_torch.tables, counters, card)
-    am_launches = phase_automodel_w8a8(dev, counters, card)
-
-    # launches per decode: the main path counted 2 decodes (B = 32 x 15 s and the 70 s
-    # utterance), AutoModel W8A8 one
-    per_decode = {"flash_attention": launches["flash_attention"] / 2,
-                  "fsmn_memory": launches["fsmn_memory"] / 2,
-                  "w8a8_linear": am_launches["w8a8_linear"]}
-    sources = {
-        "flash_attention": ("funasr_tpu_torch/csrc/flash_attention.cu",
-                            "funasr_tpu/ops/flash_attention.py:63", launches),
-        "fsmn_memory": ("funasr_tpu_torch/csrc/fsmn.cu", "benchmarks/bench_pallas_dwconv.py:21",
-                        launches),
-        "w8a8_linear": ("funasr_tpu_torch/csrc/w8a8.cu", "benchmarks/bench_pallas_w8a8.py:18",
-                        am_launches),
-    }
-    kernels = [dict(name=name, route="cuda", source=src, replaces=tpu, launches=counts[name],
-                    launches_per_decode=per_decode[name], library_call=LIBRARY_CALLS[name],
-                    **record[name])
-               for name, (src, tpu, counts) in sources.items()]
-    print(json.dumps({"kernels": kernels}))
+    am_launches, fp32_launches = phase_automodel(dev, counters, card)
+    print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

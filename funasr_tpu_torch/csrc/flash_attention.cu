@@ -5,8 +5,19 @@
 // tiles, fp32 scores and fp32 accumulation, keys at or past lengths[b] scored -1e30,
 // output acc / max(l, 1e-30) in q's dtype.
 //
-// Two kernels: bf16 (the path's dtype) on wgmma fed by TMA, and fp32 on CUDA-core FMAs
-// (no TF32: it would move results by ~1e-3), which only the CPU-parity sizes use.
+// Two kernels: bf16 (the dtype of the bf16 paths) on wgmma fed by TMA, and fp32, the
+// dtype of the public default AutoModel (no bf16, no quant): 50 launches per decode,
+// every encoder self-attention. fp32 runs on the tensor cores with the 3xTF32 split
+// (three TF32 products per fp32 product, fp32 accuracy), not plain TF32, which moves
+// results by ~1e-3 (its design note is below, at "fp32: 3xTF32").
+//
+// What bounds fp32 on the H100 (NVIDIA H100 80GB HBM3 at 700 W): at (32, 4, 384, 128)
+// with the smoke's lengths 27.6 GFLOP of TF32 products (3 x 4 T L D), 0.056 ms at 495
+// TFLOP/s, against 98 MB of bytes (0.029 ms): operations. On the CUDA cores (67 TFLOP/s)
+// the same work is bound at 0.137 ms; the first port, on CUDA-core FMAs with O in shared
+// memory and one block of 4 warps per SM, took 0.777 ms, 2.8x
+// scaled_dot_product_attention's 0.276 ms. This design takes 0.191 ms (29 % of the
+// 3xTF32 bound, 1.4x faster than that call), most likely held by mma.sync's TF32 rate.
 //
 // What bounds bf16 on the H100 (NVIDIA H100 80GB HBM3 at 700 W: 3.35 TB/s, 989 TFLOP/s
 // bf16). Per (b, h) the kernel reads q, k, v once and writes o once (8 T D bytes) and
@@ -33,7 +44,8 @@
 //
 // Masking (both kernels). Keys in [lengths[b], T) score -1e30 like the Pallas kernel;
 // keys past T (the ragged last tile, which Pallas never has because it requires
-// T % block == 0; TMA fills it with zeros) score -inf and contribute exactly 0. A row
+// T % block == 0; TMA or cp.async fills it with zeros) score -inf and contribute
+// exactly 0. A row
 // with lengths[b] == 0 therefore gets the uniform average of V over all T keys, as the
 // Pallas kernel gives. When lengths[b] > 0 key tiles wholly past the length are
 // skipped: their exp() is exactly 0. Query rows at or past lengths[b] are computed like
@@ -275,185 +287,268 @@ cudaError_t launch_bf16(const void* const* ptrs, const int* lengths, int B, int 
   return cudaGetLastError();
 }
 
-// ---- fp32: CUDA-core FMAs -------------------------------------------------------------
+// ---- fp32: 3xTF32 on mma.sync --------------------------------------------------------
 //
-// One block of 4 warps per (b*h, 64-row query tile); K and V stream through shared
-// memory in 64-key tiles; q is pre-scaled as the Pallas kernel does.
+// Each fp32 operand a is split into hi = tf32(a) (round to nearest) and lo = a - hi
+// (exact; the tensor core truncates it to TF32), and a product is lo*hi' + hi*lo' +
+// hi*hi', three m16n8k8 TF32 mma accumulating in fp32: the dropped lo*lo' and lo's
+// truncation are ~2^-21 of a product, fp32 accuracy at three TF32 products (one TF32
+// product alone moves results by ~1e-3).
+//
+// Block: 4 warps, 16 query rows each (64 rows). Q sits in shared memory; K and V tiles
+// of 32 keys come through a 2-stage cp.async ring (all threads copy, one barrier per
+// tile), so the next tile's loads overlap this one's products; 104 KB of shared memory
+// and at most 255 registers a thread let two blocks share an SM. Per warp the
+// accumulator O (16 rows x 128 columns) stays in registers; S = Q K^T and O += P V run
+// on mma.sync with the fragments read from shared memory, P taken straight from S's
+// accumulators; each term's products are issued across 4 (S) or 4 (P V) independent
+// accumulators, so none waits on the one before it.
+//
+// Why mma.sync and not wgmma: tf32 wgmma needs both operands K-major, and V's tile
+// (keys x head dim, D contiguous) is N-major for P V, so V would have to be transposed
+// through shared memory on every tile; mma.sync reads V's fragments from the padded
+// row-major tile as it is.
+//
+// Index maps (reductions are order-free, so logical and actual indices may differ):
+//   * S: mma step 2s / 2s+1 of head-dim chunk s covers columns 16s + 4 tig + {0,1} /
+//     {2,3}, so one 16-byte load gives a thread's K values of both steps; the B column g
+//     of key tile j is key 8j + (g >> 1) + 4 (g & 1), so accumulator c0 / c1 hold keys
+//     8j + tig / 8j + tig + 4;
+//   * P V: P's A fragment of key step j is S's accumulator of key tile j as it is, and
+//     the B column g of output tile jn is head-dim column 16 g + jn, so a thread reads
+//     its V values as 16-byte vectors and holds output columns 32 tig + [0, 32).
+// Row pitches of 132 floats for K and V (= 4 mod 32 banks) and 144 for Q (= 16 mod 32)
+// make every such 16-byte read conflict-free.
 
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 64;   // keys per tile
-constexpr int NT = 128;  // threads per block: 4 warps x 16 query rows
+constexpr int FQ = 64;           // query rows per block (4 warps x 16)
+constexpr int FK = 32;           // keys per tile
+constexpr int FSTAGES = 2;       // cp.async ring depth
+constexpr int FPITCH = DP + 4;   // K / V row pitch in floats (= 4 mod 32 banks)
+constexpr int QPITCH = DP + 16;  // Q row pitch in floats (= 16 mod 32 banks)
+constexpr int FTHREADS = 128;
 
-struct F32Layout {
-  static constexpr int QP = DP, KP = DP + 1, VP = DP;
-  static constexpr int SP = BK;  // probabilities overwrite the scores in place
-  static constexpr int OP = DP;
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + BQ * QP * sizeof(float);
-  static constexpr size_t v = k + BK * KP * sizeof(float);
-  static constexpr size_t s = v + BK * VP * sizeof(float);
-  static constexpr size_t o = s + BQ * SP * sizeof(float);
-  static constexpr size_t stats = o + BQ * OP * sizeof(float);
-  static constexpr size_t bytes = stats + 3 * BQ * sizeof(float);
+struct F32Smem {  // 104,448 bytes: two blocks per SM
+  float q[FQ * QPITCH];
+  float k[FSTAGES][FK * FPITCH];
+  float v[FSTAGES][FK * FPITCH];
 };
 
-// rows [row0, row0 + 64) x [0, DP) of a (T, D) slice with row stride st, zero past T / D
-__device__ __forceinline__ void load_tile(float* dst, int pitch, const float* src, long long st,
-                                          int row0, int T, int D, float scale) {
-  for (int i = threadIdx.x; i < BQ * (DP / 4); i += NT) {
-    const int r = i / (DP / 4), c = (i % (DP / 4)) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < T && c < D)
-      val = *reinterpret_cast<const float4*>(src + (long long)(row0 + r) * st + c);
-    float* d = dst + r * pitch + c;
-    d[0] = val.x * scale;
-    d[1] = val.y * scale;
-    d[2] = val.z * scale;
-    d[3] = val.w * scale;
-  }
+// hi: x rounded to TF32 (nearest, ties away), exact; lo = x - hi, exact in fp32, of which
+// the tensor core reads the top 19 bits (a truncation: 2^-21 of x). Integer and fp32
+// ops at full rate: cvt.rna.tf32.f32 runs at a quarter of it and, at ~670 conversions a
+// warp and key tile, held the first version of this kernel.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+// not volatile: a pure function of its operands, so the compiler may interleave
+// independent products
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(x[i], hi[i], lo[i]);
 }
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(FTHREADS, 2)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  const int* __restrict__ lengths, int H, int T_len, int D,
                  long long qsb, long long qsh, long long qst,
                  long long ksb, long long ksh, long long kst,
                  long long vsb, long long vsh, long long vst,
-                 long long osb, long long osh, long long ost, float sm_scale) {
-  using L = F32Layout;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem + L::q);
-  float* Ks = reinterpret_cast<float*>(smem + L::k);
-  float* Vs = reinterpret_cast<float*>(smem + L::v);
-  float* S = reinterpret_cast<float*>(smem + L::s);
-  float* O = reinterpret_cast<float*>(smem + L::o);
-  float* m_s = reinterpret_cast<float*>(smem + L::stats);
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
-
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.y * BQ;
+                 long long osb, long long osh, long long ost, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  F32Smem& sm = *reinterpret_cast<F32Smem*>(smem_raw);
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = warp * 16;  // this warp's first query row in the tile
+  const int g = lane / 4, tig = lane % 4;
   const int len = min(max(lengths[b], 0), T_len);
+  const int ntiles = ((len > 0 ? len : T_len) + FK - 1) / FK;
 
-  const float* qg = q + b * qsb + h * qsh;
   const float* kg = k + b * ksb + h * ksh;
   const float* vg = v + b * vsb + h * vsh;
-  float* og = o + b * osb + h * osh;
 
-  for (int i = tid; i < BQ * L::OP; i += NT) O[i] = 0.f;
-  if (tid < BQ) {
-    m_s[tid] = MASKED;
-    l_s[tid] = 0.f;
+  // K and V rows [kt * FK, + FK) into stage st, zero past T and D
+  auto load_kv = [&](int st, int kt) {
+#pragma unroll
+    for (int n = 0; n < FK * (DP / 4) / FTHREADS; ++n) {
+      const int i = tid + n * FTHREADS, r = i / (DP / 4), c = (i % (DP / 4)) * 4;
+      const int key = kt * FK + r;
+      const bool full = key < T_len && c < D;
+      const long long row = full ? key : 0;
+      hopper::cp_async16(&sm.k[st][r * FPITCH + c], kg + (full ? row * kst + c : 0), full);
+      hopper::cp_async16(&sm.v[st][r * FPITCH + c], vg + (full ? row * vst + c : 0), full);
+    }
+  };
+  {  // the block's Q rows, zero past T and D, with the first K / V tile
+    const float* qg = q + b * qsb + h * qsh;
+#pragma unroll
+    for (int n = 0; n < FQ * (DP / 4) / FTHREADS; ++n) {
+      const int i = tid + n * FTHREADS, r = i / (DP / 4), c = (i % (DP / 4)) * 4;
+      const int row = blockIdx.y * FQ + r;
+      const bool full = row < T_len && c < D;
+      hopper::cp_async16(&sm.q[r * QPITCH + c], qg + (full ? (long long)row * qst + c : 0), full);
+    }
   }
-  load_tile(Qs, L::QP, qg, qst, q0, T_len, D, sm_scale);
+#pragma unroll
+  for (int st = 0; st < FSTAGES - 1; ++st) {
+    if (st < ntiles) load_kv(st, st);
+    hopper::cp_async_commit();
+  }
+  const int r0 = blockIdx.y * FQ + warp * 16;  // this warp's rows r0 + g, r0 + g + 8
+  const float* qs = &sm.q[(warp * 16 + g) * QPITCH + 4 * tig];
 
-  const int kend = len > 0 ? len : T_len;
-  const int ntiles = (kend + BK - 1) / BK;
+  float acc[DP / 8][4];  // O: output tile jn, rows g / g + 8
+#pragma unroll
+  for (int jn = 0; jn < DP / 8; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[jn][e] = 0.f;
+  float m_r[2] = {MASKED, MASKED}, l_r[2] = {0.f, 0.f};
+
   for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * BK;
-    load_tile(Ks, L::KP, kg, kst, k0, T_len, D, 1.f);
-    load_tile(Vs, L::VP, vg, vst, k0, T_len, D, 1.f);
-    __syncthreads();
+    hopper::cp_async_wait<FSTAGES - 2>();  // this thread's copies of tile kt have landed
+    __syncthreads();               // everyone's have; everyone is done with tile kt - 1
+    if (kt + FSTAGES - 1 < ntiles) load_kv((kt + FSTAGES - 1) % FSTAGES, kt + FSTAGES - 1);
+    hopper::cp_async_commit();
+    const float* ks = sm.k[kt % FSTAGES];
+    const float* vs = sm.v[kt % FSTAGES];
 
-    // scores S[r0:r0+16, 0:64] = Q K^T: thread owns rows ty*8 .. ty*8+7 and keys tx + 16*j
-    {
-      const int ty = tid / 16, tx = tid % 16;
-      float acc[8][4];
-      for (int i = 0; i < 8; ++i)
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        float qv[8], kv[4];
-        for (int i = 0; i < 8; ++i) qv[i] = Qs[(ty * 8 + i) * L::QP + d];
-        for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * L::KP + d];
-        for (int i = 0; i < 8; ++i)
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(qv[i], kv[j], acc[i][j]);
+    // S = Q K^T over 16 head-dim columns (two mma steps) at a time
+    float sc[FK / 8][4];
+#pragma unroll
+    for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    const int krow = (g >> 1) + 4 * (g & 1);
+#pragma unroll
+    for (int s = 0; s < DP / 16; ++s) {
+      const float4 q0 = *reinterpret_cast<const float4*>(qs + 16 * s);
+      const float4 q1 = *reinterpret_cast<const float4*>(qs + 8 * QPITCH + 16 * s);
+      uint32_t ah[2][4], al[2][4];
+      split4({q0.x, q1.x, q0.y, q1.y}, ah[0], al[0]);
+      split4({q0.z, q1.z, q0.w, q1.w}, ah[1], al[1]);
+      uint32_t bh[FK / 8][4], bl[FK / 8][4];
+#pragma unroll
+      for (int j = 0; j < FK / 8; ++j) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(&ks[(8 * j + krow) * FPITCH + 16 * s + 4 * tig]);
+        split4({kv.x, kv.y, kv.z, kv.w}, bh[j], bl[j]);
       }
-      for (int i = 0; i < 8; ++i)
-        for (int j = 0; j < 4; ++j) S[(ty * 8 + i) * L::SP + tx + 16 * j] = acc[i][j];
-    }
-    __syncwarp();
-
-    // online softmax over this warp's 16 rows
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr;
-      float sv[2];
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int c = lane + 32 * h2, key = k0 + c;
-        const float s = S[r * L::SP + c];
-        sv[h2] = key >= T_len ? -INFINITY : (key >= len ? MASKED : s);
-      }
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(sv[0], sv[1])));
-      const float p0 = expf(sv[0] - m_new), p1 = expf(sv[1] - m_new);
-      const float psum = warp_sum(p0 + p1);
-      const float alpha = expf(m_old - m_new);
-      S[r * L::SP + lane] = p0;
-      S[r * L::SP + lane + 32] = p1;
-      __syncwarp();
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * alpha + psum;
-        a_s[r] = alpha;
+      // term by term across the key tiles, so no product waits on the one before it
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {
+#pragma unroll
+        for (int j = 0; j < FK / 8; ++j) mma_tf32(sc[j], al[st], bh[j][2 * st], bh[j][2 * st + 1]);
+#pragma unroll
+        for (int j = 0; j < FK / 8; ++j) mma_tf32(sc[j], ah[st], bl[j][2 * st], bl[j][2 * st + 1]);
+#pragma unroll
+        for (int j = 0; j < FK / 8; ++j) mma_tf32(sc[j], ah[st], bh[j][2 * st], bh[j][2 * st + 1]);
       }
     }
-    __syncwarp();
 
-    // O = alpha * O + P V: thread owns rows ty*8 .. ty*8+7 and columns tx + 16*j
-    {
-      const int ty = tid / 16, tx = tid % 16;
-      float acc[8][DP / 16];
-      for (int i = 0; i < 8; ++i) {
-        const float alpha = a_s[ty * 8 + i];
-        for (int j = 0; j < DP / 16; ++j) acc[i][j] = O[(ty * 8 + i) * L::OP + tx + 16 * j] * alpha;
+    // mask, scale to log2 units, online softmax (rows g and g + 8, a quad per row)
+    const int k0 = kt * FK;
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + tig + 4 * (e & 1);
+        const float x = sc[j][e] * scale_log2;
+        sc[j][e] = key >= T_len ? -INFINITY : (key >= len ? MASKED : x);
+        mx[e / 2] = fmaxf(mx[e / 2], sc[j][e]);
       }
-      for (int kk = 0; kk < BK; ++kk) {
-        float pv[8], vv[DP / 16];
-        for (int i = 0; i < 8; ++i) pv[i] = S[(ty * 8 + i) * L::SP + kk];
-        for (int j = 0; j < DP / 16; ++j) vv[j] = Vs[kk * L::VP + tx + 16 * j];
-        for (int i = 0; i < 8; ++i)
-          for (int j = 0; j < DP / 16; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-      }
-      for (int i = 0; i < 8; ++i)
-        for (int j = 0; j < DP / 16; ++j) O[(ty * 8 + i) * L::OP + tx + 16 * j] = acc[i][j];
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = exp2f(m_r[r] - mx[r]);
+      m_r[r] = mx[r];
+      l_r[r] *= alpha[r];
     }
-    __syncthreads();  // K/V tiles are overwritten next iteration
+#pragma unroll
+    for (int j = 0; j < FK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(sc[j][e] - mx[e / 2]);
+        sc[j][e] = p;
+        l_r[e / 2] += p;
+      }
+#pragma unroll
+    for (int jn = 0; jn < DP / 8; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jn][e] *= alpha[e / 2];
+
+    // O += P V, one key step of 8 keys per key tile j of S
+#pragma unroll
+    for (int j = 0; j < FK / 8; ++j) {
+      uint32_t ph[4], pl[4];
+      split4({sc[j][0], sc[j][2], sc[j][1], sc[j][3]}, ph, pl);
+      const float* v0 = &vs[(8 * j + tig) * FPITCH + 16 * g];
+      const float* v1 = v0 + 4 * FPITCH;
+#pragma unroll
+      for (int c4 = 0; c4 < 4; ++c4) {
+        const float4 x0 = *reinterpret_cast<const float4*>(v0 + 4 * c4);
+        const float4 x1 = *reinterpret_cast<const float4*>(v1 + 4 * c4);
+        uint32_t vh0[4], vl0[4], vh1[4], vl1[4];  // keys 8j + tig / + 4, tiles 4 c4 + e
+        split4({x0.x, x0.y, x0.z, x0.w}, vh0, vl0);
+        split4({x1.x, x1.y, x1.z, x1.w}, vh1, vl1);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mma_tf32(acc[4 * c4 + e], pl, vh0[e], vh1[e]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mma_tf32(acc[4 * c4 + e], ph, vl0[e], vl1[e]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mma_tf32(acc[4 * c4 + e], ph, vh0[e], vh1[e]);
+      }
+    }
   }
+  hopper::cp_async_wait<0>();
 
-  // out = O / max(l, 1e-30), rows < T, columns < D
-  for (int i = tid; i < BQ * (DP / 4); i += NT) {
-    const int r = i / (DP / 4), c = (i % (DP / 4)) * 4;
-    if (q0 + r >= T_len || c >= D) continue;
-    const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
-    float* dst = og + (long long)(q0 + r) * ost + c;
-    for (int e = 0; e < 4; ++e) dst[e] = O[r * L::OP + c + e] * inv;
+  // out = O / max(l, 1e-30): row g + 8 hr, columns 32 tig + 16 e + jn
+  float* og = o + b * osb + h * osh;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r0 + g + 8 * hr;
+    const float inv = 1.f / fmaxf(quad_sum(l_r[hr]), 1e-30f);
+    if (row >= T_len) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int c4 = 0; c4 < 4; ++c4) {
+        const int c = 32 * tig + 16 * e + 4 * c4;
+        if (c >= D) continue;
+        const float4 val = make_float4(
+            acc[4 * c4 + 0][2 * hr + e] * inv, acc[4 * c4 + 1][2 * hr + e] * inv,
+            acc[4 * c4 + 2][2 * hr + e] * inv, acc[4 * c4 + 3][2 * hr + e] * inv);
+        *reinterpret_cast<float4*>(og + row * ost + c) = val;
+      }
   }
 }
 
 cudaError_t launch_f32(const void* const* ptrs, const int* lengths, int B, int H, int T_len,
                        int D, const long long* st, float sm_scale, cudaStream_t stream) {
-  const size_t bytes = F32Layout::bytes;  // above the 48 KB default: opt in per device
+  const size_t bytes = sizeof(F32Smem);  // above the 48 KB default: opt in per device
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess)  // the whole carveout as shared memory: two blocks per SM
+    err = cudaFuncSetAttribute(flash_f32_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (T_len + BQ - 1) / BQ);
-  flash_f32_kernel<<<grid, NT, bytes, stream>>>(
+  dim3 grid(B * H, (T_len + FQ - 1) / FQ);
+  flash_f32_kernel<<<grid, FTHREADS, bytes, stream>>>(
       static_cast<const float*>(ptrs[0]), static_cast<const float*>(ptrs[1]),
       static_cast<const float*>(ptrs[2]), static_cast<float*>(const_cast<void*>(ptrs[3])),
       lengths, H, T_len, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], sm_scale);
+      st[9], st[10], st[11], sm_scale * LOG2E);
   return cudaGetLastError();
 }
 

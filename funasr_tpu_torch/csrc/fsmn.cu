@@ -6,90 +6,241 @@
 // Replaces the TPU kernel benchmarks/bench_pallas_dwconv.py::dw_pallas (the FSMN
 // depthwise conv1d) fused with the mask / residual / mask passes around it in
 // funasr_tpu/models/sanm/attention.py::_fsmn and ::fsmn_decoder_apply, which are the
-// same function. The taps accumulate in fp32; round() is a rounding to x's dtype, and
-// the residual sum is rounded again, in the order of the JAX functions
-// (depthwise_conv1d_apply casts its fp32 sum to x's dtype before "+ v").
+// same function. The taps accumulate in fp32 in the order i = 0 .. k - 1; round() is a
+// rounding to x's dtype, and the residual sum is rounded again, in the order of the JAX
+// functions (depthwise_conv1d_apply casts its fp32 sum to x's dtype before "+ v").
 //
-// Design. Pure bandwidth: one read of x and one write of out (k = 11 taps are 22
-// flops per element). A block of 128 threads owns 128 channels x 32 time steps of one
-// row b. Each thread stages its own channel's column of masked inputs (32 + k - 1
-// values) and its k weights in shared memory, so neighbouring threads read and write
-// neighbouring channels (coalesced) and no block-wide barrier is needed; the k-fold
-// reuse of each input hits shared memory instead of device memory. The mask is read
-// as bytes (torch.bool), so any mask is exact, not only prefix masks.
+// What bounds it on the H100: bytes. One read of x and one write of out; k = 11 taps are
+// 23 flops per element. At (32, 384, 512) bf16 that is 25.2 MB, 7.5 us at 3.35 TB/s
+// (NVIDIA H100 80GB HBM3, 700 W); fp32 twice that. The first port (one scalar load per
+// thread and time step, a runtime tap count, the mask byte read again by every thread,
+// the window staged in shared memory) reached 15 % of it (0.0488 ms bf16): too few bytes
+// in flight. What this design does about it:
+//   * 16-byte loads and stores: a thread owns 8 bf16 or 4 fp32 channels (one vector),
+//     a warp 32 neighbouring vectors of one time chunk (512 contiguous bytes a row);
+//   * k and the left pad are template parameters (11 and 5, the path's; a generic
+//     instantiation serves any other k up to 64 and any pads): the time loop is
+//     unrolled and the k-vector window of inputs lives in registers (input row r in
+//     slot r % k); each input is loaded once per thread through a per-thread ring of
+//     PREFETCH = 16 shared-memory slots (32 KB a block) that cp.async fills 15 rows
+//     ahead, so 15 16-byte loads per thread are in flight without costing registers;
+//     the halo rows of neighbouring chunks come from L2;
+//   * the weights (each thread's k x vector taps, contiguous in the (C, k) layout, so
+//     k 16-byte loads) are read once per thread into registers;
+//   * the mask is read once per warp and time step, one byte per lane, and turned into
+//     bits with __ballot_sync; a masked or out-of-range row is not loaded at all;
+//   * TT = 24 time steps per warp: at (32, 384, 512) bf16 16 chunks x 2 vector groups x
+//     32 utterances = 1,024 warps, about one wave at the 8 warps per SM that the bf16 register
+//     count allows (222 registers; 2,048 warps for fp32, whose 4-channel vectors need
+//     116, four blocks an SM); halo reads are (24 + 10) / 24 = 1.4x the inputs, from L2.
 //
-// x is (B, T, C) with unit channel stride and any batch / time strides (it is a
-// slice of the fused q|k|v projection in the encoder); w is (C, k) contiguous
-// (torch's depthwise Conv1d weight (C, 1, k)) in x's dtype; out is (B, T, C)
-// contiguous.
+// Measured (NVIDIA H100 80GB HBM3, 700 W): bf16 0.0120 ms at (32, 384, 512), 63 % of the
+// bytes bound (the first port 0.0488 ms), fp32 0.0181 ms, 83 %.
+//
+// x is (B, T, C) with unit channel stride and batch / time strides that are multiples of
+// the vector (it is the v slice of the fused q|k|v projection in the encoder, or the
+// decoder's contiguous input), its base 16-byte aligned and C a multiple of the vector;
+// the wrapper (funasr_tpu_torch/ops/fsmn.py) checks this and raises otherwise. w is
+// (C, k) contiguous in x's dtype, 16-byte aligned; out is (B, T, C) contiguous.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int CT = 128;  // channels per block (= threads)
-constexpr int TT = 32;   // time steps per block
+constexpr int TT = 24;        // time steps per warp
+constexpr int WARPS = 4;      // warps per block, on consecutive time chunks
+constexpr int PREFETCH = 16;  // cp.async ring slots per thread: 15 input rows in flight
+constexpr int MAX_K = 64;
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T> struct Vec { static constexpr int N = 16 / sizeof(T); };
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
-
-template <typename T>
-__global__ void __launch_bounds__(CT)
-fsmn_kernel(const T* __restrict__ x, const T* __restrict__ w, const uint8_t* __restrict__ mask,
-            T* __restrict__ out, int T_len, int C, int K, int left, long long xsb, long long xst) {
-  extern __shared__ float smem[];
-  float* col = smem;             // (TT + K - 1) x CT masked inputs
-  float* wk = smem + (TT + K - 1) * CT;  // K x CT weights
-  const int tx = threadIdx.x;
-  const int c = blockIdx.x * CT + tx;
-  const int t0 = blockIdx.y * TT;
-  const int b = blockIdx.z;
-  const uint8_t* mrow = mask ? mask + (long long)b * T_len : nullptr;
-  const T* xb = x + b * xsb;
-
-  for (int i = 0; i < K; ++i) wk[i * CT + tx] = c < C ? to_f(w[(long long)c * K + i]) : 0.f;
-  for (int r = 0; r < TT + K - 1; ++r) {
-    const int t = t0 - left + r;
-    float val = 0.f;
-    if (c < C && t >= 0 && t < T_len && (!mrow || mrow[t]))
-      val = to_f(xb[(long long)t * xst + c]);
-    col[r * CT + tx] = val;
-  }
-  if (c >= C) return;
-
-  for (int tt = 0; tt < TT; ++tt) {
-    const int t = t0 + tt;
-    if (t >= T_len) break;
-    float acc = 0.f;
-    for (int i = 0; i < K; ++i) acc += col[(tt + i) * CT + tx] * wk[i * CT + tx];
-    const float mem = to_f(from_f<T>(acc)) + col[(tt + left) * CT + tx];
-    const bool valid = !mrow || mrow[t];
-    out[((long long)b * T_len + t) * C + c] = from_f<T>(valid ? mem : 0.f);
+// the N floats of one 16-byte vector
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
 
-template <typename T>
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+
+// round to T and back
+__device__ __forceinline__ float round_to(float x, float*) { return x; }
+__device__ __forceinline__ float round_to(float x, bf16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                    __float_as_uint(f[3]));
+}
+__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 p = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    w[i] = *reinterpret_cast<uint32_t*>(&p);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// KS > 0: k = KS and left = LS, window in registers; KS == 0: any k and left (the
+// runtime `k`, `left`), taps read through L1. Block: WARPS warps on consecutive time
+// chunks of TT steps, each warp 32 channel vectors. Grid (ceil(C / V / 32),
+// ceil(chunks / WARPS), B).
+template <typename T, int KS, int LS>
+__global__ void __launch_bounds__(32 * WARPS, 2)
+fsmn_kernel(const T* __restrict__ x, const T* __restrict__ w, const uint8_t* __restrict__ mask,
+            T* __restrict__ out, int T_len, int C, int k, int left_rt, long long xsb,
+            long long xst) {
+  constexpr int V = Vec<T>::N;
+  constexpr int NW = KS > 0 ? (TT + KS - 1 + 31) / 32 : (TT + MAX_K - 1 + 31) / 32;
+  const int K = KS > 0 ? KS : k;
+  const int left = KS > 0 ? LS : left_rt;
+  const int R = TT + K - 1;  // input rows of the chunk: t0 - left + r
+  const int lane = threadIdx.x % 32;
+  const int t0 = (blockIdx.y * WARPS + threadIdx.x / 32) * TT;
+  const int b = blockIdx.z;
+  if (t0 >= T_len) return;  // the whole warp
+  const int cv = blockIdx.x * 32 + lane;  // channel vector
+  const bool active = cv * V < C;
+
+  // valid[r]: row r inside [0, T) and unmasked; one mask byte per lane and row
+  uint32_t valid[NW];
+  const uint8_t* mrow = mask ? mask + (long long)b * T_len : nullptr;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const int r = lane + 32 * i, t = t0 - left + r;
+    const bool ok = r < R && t >= 0 && t < T_len && (!mrow || mrow[t]);
+    valid[i] = __ballot_sync(0xffffffffu, ok);
+  }
+  if (!active) return;
+  auto row_ok = [&](int r) -> bool {  // selects, no dynamic index into valid[]
+    const uint32_t word = r < 32 ? valid[0] : (r < 64 ? valid[NW > 1 ? 1 : 0] : valid[NW - 1]);
+    return (word >> (r & 31)) & 1u;
+  };
+
+  const T* xb = x + b * xsb + (long long)cv * V;
+  T* ob = out + ((long long)b * T_len + t0) * C + (long long)cv * V;
+  const T* wv = w + (long long)cv * V * K;  // this thread's V x K taps, contiguous
+
+  if constexpr (KS > 0) {
+    // weights: wr[i][j] = w[cv * V + j, i], from K 16-byte loads
+    float wr[KS][V];
+#pragma unroll
+    for (int u = 0; u < KS; ++u) {
+      float f[V];
+      unpack(load16(wv + u * V), f);
+#pragma unroll
+      for (int e = 0; e < V; ++e) wr[(u * V + e) % KS][(u * V + e) / KS] = f[e];
+    }
+
+    // input rows ride a per-thread ring of PREFETCH 16-byte slots, filled by cp.async
+    // PREFETCH - 1 rows ahead (a masked or out-of-range row is zero-filled, not read);
+    // each thread reads back only its own copies, so no barrier is needed
+    constexpr int RS = TT + KS - 1;
+    __shared__ uint4 ring[WARPS][PREFETCH][32];
+    uint4* slot = &ring[threadIdx.x / 32][0][lane];
+    auto issue = [&](int r) {
+      const bool ok = row_ok(r);
+      hopper::cp_async16(slot + (r % PREFETCH) * 32, ok ? xb + (t0 - left + r) * xst : xb, ok);
+    };
+#pragma unroll
+    for (int r = 0; r < PREFETCH - 1; ++r) {
+      if (r < RS) issue(r);
+      hopper::cp_async_commit();
+    }
+
+    float xw[KS][V];  // input row r in slot r % KS
+#pragma unroll
+    for (int r = 0; r < RS; ++r) {
+      if (r + PREFETCH - 1 < RS) issue(r + PREFETCH - 1);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<PREFETCH - 1>();  // row r has landed
+      unpack(slot[(r % PREFETCH) * 32], xw[r % KS]);
+      if (r < KS - 1) continue;
+      const int tt = r - (KS - 1);  // output t0 + tt reads rows tt .. tt + KS - 1
+      if (t0 + tt >= T_len) break;
+      float res[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        float acc = 0.f;
+#pragma unroll
+        for (int i = 0; i < KS; ++i) acc = fmaf(xw[(tt + i) % KS][e], wr[i][e], acc);
+        res[e] = round_to(acc, (T*)nullptr) + xw[(tt + left) % KS][e];
+      }
+      // row tt + left is output t0 + tt's own: valid means unmasked (t < T holds)
+      if (!row_ok(tt + left))
+#pragma unroll
+        for (int e = 0; e < V; ++e) res[e] = 0.f;
+      *reinterpret_cast<uint4*>(ob + (long long)tt * C) = pack(res);
+    }
+  } else {
+    for (int tt = 0; tt < TT && t0 + tt < T_len; ++tt) {
+      float acc[V], f[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = 0.f;
+      for (int i = 0; i < K; ++i) {
+        if (!row_ok(tt + i)) continue;  // a zero input adds exactly 0 to every tap
+        unpack(load16(xb + (t0 - left + tt + i) * xst), f);
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[e] = fmaf(f[e], to_float(wv[e * K + i]), acc[e]);
+      }
+      float res[V];
+      if (row_ok(tt + left)) {
+        unpack(load16(xb + (t0 + tt) * xst), f);
+#pragma unroll
+        for (int e = 0; e < V; ++e) res[e] = round_to(acc[e], (T*)nullptr) + f[e];
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) res[e] = 0.f;
+      }
+      *reinterpret_cast<uint4*>(ob + (long long)tt * C) = pack(res);
+    }
+  }
+}
+
+template <typename T, int KS, int LS>
 cudaError_t launch(const void* x, const void* w, const void* mask, void* out, int B, int T_len,
                    int C, int K, int left, long long xsb, long long xst, cudaStream_t stream) {
-  const size_t bytes = (size_t)(TT + 2 * K - 1) * CT * sizeof(float);
-  if (bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fsmn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid((C + CT - 1) / CT, (T_len + TT - 1) / TT, B);
-  fsmn_kernel<T><<<grid, CT, bytes, stream>>>(
+  const int vectors = C / Vec<T>::N, chunks = (T_len + TT - 1) / TT;
+  dim3 grid((vectors + 31) / 32, (chunks + WARPS - 1) / WARPS, B);
+  fsmn_kernel<T, KS, LS><<<grid, 32 * WARPS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const uint8_t*>(mask),
       static_cast<T*>(out), T_len, C, K, left, xsb, xst);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* x, const void* w, const void* mask, void* out, int B,
+                     int T_len, int C, int K, int left, long long xsb, long long xst,
+                     cudaStream_t stream) {
+  constexpr int V = Vec<T>::N;
+  if (K < 1 || K > MAX_K || left < 0 || left > K - 1 || C % V || xsb % V || xst % V ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+    return cudaErrorInvalidValue;
+  if (K == 11 && left == 5)  // the path's k and pads
+    return launch<T, 11, 5>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
+  return launch<T, 0, 0>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
 }
 
 }  // namespace
@@ -100,7 +251,7 @@ extern "C" int fsmn_memory_fwd(int dtype, const void* x, const void* w, const vo
                                void* out, int B, int T_len, int C, int K, int left,
                                long long xsb, long long xst, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, s);
-  if (dtype == 1) return (int)launch<bf16>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, s);
+  if (dtype == 0) return (int)dispatch<float>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, s);
+  if (dtype == 1) return (int)dispatch<bf16>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers, TMA loads
-// and stores, wgmma descriptors and instructions, register rebalancing, and the host
+// Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers, cp.async,
+// TMA loads and stores, wgmma descriptors and instructions, register rebalancing, and the host
 // side encoding of TMA tensor maps.
 //
 // Shared-memory tiles are loaded by TMA with 128-byte swizzle: a tile is rows of 128
@@ -81,6 +81,22 @@ template <int R> __device__ __forceinline__ void setmaxnreg_dec() {
 }
 template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// ---- cp.async -------------------------------------------------------------------------
+
+// 16 bytes global -> shared, or 16 zero bytes where !full (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// at most N of this thread's committed groups are still in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- TMA ------------------------------------------------------------------------------

@@ -8,8 +8,13 @@ output in q's dtype. The CUDA source, ``funasr_tpu_torch/csrc/flash_attention.cu
 notes what bounds it on the H100 (bytes at the path's T = 384, operations at the
 long-form T = 1408) and what its design does about it: bf16 runs on ``wgmma`` with K/V
 fed by TMA through a 2-stage ring from one producer warp, scores, softmax and the
-accumulator in registers, key tiles past a row's length skipped; fp32 (only the
-CPU-parity sizes use it on the card) runs on CUDA-core FMAs.
+accumulator in registers, key tiles past a row's length skipped. fp32 is the dtype of
+the public default ``AutoModel`` (no ``bf16``, no ``quant``), 50 launches per decode; it
+runs on the tensor cores with the 3xTF32 split (hi = tf32(a), lo = tf32(a - hi), each
+product as lo*hi' + hi*lo' + hi*hi' on ``mma.sync``; plain TF32 would move results by
+~1e-3), the accumulator in registers, Q in shared memory, K / V through a 2-stage
+``cp.async`` ring, two blocks of 64 query rows per SM. At (1, 4, 1408) its 88 blocks of 64 rows leave 44 of
+132 SMs idle: each warp holds 16 rows, so only a split over keys would fill them.
 
 Unlike the Pallas kernel it needs no T % block == 0: the ragged last tile is masked in
 the kernel. A row of length 0 gets the uniform average of V over its T keys in both

@@ -7,12 +7,21 @@ depthwise conv1d, bit-exact to ``funasr_tpu/core/layers.py::depthwise_conv1d_app
 fused with the mask / residual / mask passes of ``funasr_tpu/models/sanm/attention.py``
 ``_fsmn`` (encoder) and ``fsmn_decoder_apply`` (decoder), which compute this same
 function. The CUDA source, ``funasr_tpu_torch/csrc/fsmn.cu``, notes what bounds it on the
-H100 (device-memory bandwidth: 22 flops per element for k = 11) and what its design does
-about it (one read of x and one write of out, the k-fold input reuse in shared memory,
-the three elementwise passes fused away).
+H100 (device-memory bandwidth: 23 flops per element for k = 11; 7.5 us of bytes at
+(32, 384, 512) bf16, where the first port took 0.0488 ms) and what its design does about
+it: 16-byte loads and stores of 8 bf16 or 4 fp32 channels per thread, k and the pads as
+template parameters (11 and 5 on the path; a generic instantiation for the rest) so the
+k-vector input window stays in registers and loads run several rows ahead, the weights
+read once per thread, the mask once per warp and row (as ballot bits), and the three
+elementwise passes fused away.
 
 Taps accumulate in fp32; the conv sum is rounded to x's dtype before the residual is
 added, and the sum rounded again, in the JAX functions' order.
+
+On CUDA the kernel moves 16-byte vectors, so x's base must be 16-byte aligned and C and
+x's batch / time strides multiples of 16 bytes / element size (8 bf16, 4 fp32): the
+path's inputs are (the v slice at offset 2C of q|k|v, the decoder's contiguous input);
+anything else raises ``ValueError``.
 
 Dispatch: a CPU tensor takes ``fsmn_memory_ref``; a CUDA tensor launches the kernel or
 raises. ``fsmn_memory.launches`` counts kernel launches.
@@ -27,6 +36,7 @@ from funasr_tpu_torch.ops import cuda_lib
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_KERNEL = 64
+TIME_STEPS = 24 * 4  # time steps per block (csrc/fsmn.cu: TT x WARPS)
 
 
 def _masked(x, mask):
@@ -62,11 +72,16 @@ def _check(x, weight, mask, left_pad, right_pad):
     if not 1 <= k <= MAX_KERNEL or left_pad < 0 or right_pad < 0 or left_pad + right_pad != k - 1:
         raise ValueError(f"need 1 <= k <= {MAX_KERNEL} and pads summing to k - 1, got "
                          f"k={k}, pads=({left_pad}, {right_pad})")
-    if b > 65535 or -(-t // 32) > 65535:
+    if b > 65535 or -(-t // TIME_STEPS) > 65535:
         raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's grid")
     if mask is not None and (mask.dtype != torch.bool or mask.shape != (b, t)
                              or mask.device != x.device):
         raise ValueError(f"mask must be a ({b}, {t}) bool tensor on {x.device}")
+    vec = 16 // x.element_size()  # the kernel moves 16-byte vectors
+    if c % vec or x.stride(0) % vec or x.stride(1) % vec or x.data_ptr() % 16:
+        raise ValueError(f"the FSMN kernel needs C and x's batch / time strides multiples of "
+                         f"{vec} and a 16-byte aligned base; got C={c}, strides {x.stride()}, "
+                         f"base offset {x.data_ptr() % 16}")
 
 
 def fsmn_memory(x, weight, mask, left_pad: int, right_pad: int):
@@ -80,6 +95,8 @@ def fsmn_memory(x, weight, mask, left_pad: int, right_pad: int):
     b, t, c = x.shape
     k = weight.shape[-1]
     w = weight.reshape(c, k).contiguous()
+    if w.data_ptr() % 16:  # a view at an odd offset: the kernel reads 16-byte vectors
+        w = w.clone()
     m = None if mask is None else mask.contiguous()
     out = torch.empty((b, t, c), dtype=x.dtype, device=x.device)
     lib = cuda_lib.load_library()

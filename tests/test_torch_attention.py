@@ -173,7 +173,7 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape", [(4, 4, 384, 128), (2, 3, 77, 40), (32, 4, 384, 128),
-                                   (1, 4, 1408, 128)])
+                                   (1, 4, 1408, 128), (3, 4, 200, 64)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, tol, shape):
     """Strided q|k|v head views, ragged lengths, a zero-length row (uniform average of V
     over all T keys, every row compared), T not a multiple of the tile (77)."""
@@ -196,18 +196,57 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, tol, shape):
                                    atol=tol, rtol=tol)
 
 
+# (B, T, C, k, left, mask): "prefix" lengths (T, T - 17, 100, 1, ...), "random" a
+# non-prefix bool mask, None no mask
+FSMN_CARD_CASES = {
+    "path": (4, 208, 512, 11, 5, "prefix"),        # the decoder's shape, the k = 11 kernel
+    "asymmetric pads": (4, 208, 512, 11, 7, "prefix"),
+    "no mask": (3, 384, 512, 11, 5, None),
+    "non-prefix mask": (3, 150, 256, 11, 5, "random"),
+    "T = 1": (2, 1, 512, 11, 5, None),
+    "T not a multiple of the time tile": (4, 50, 64, 11, 5, "prefix"),
+    "k = 1": (2, 97, 128, 1, 0, "prefix"),
+    "k = 21": (2, 130, 512, 21, 10, "random"),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-def test_fsmn_kernel_matches_plain_on_card(cuda_device, dtype, tol):
-    b, n, c = 4, 208, 512
+@pytest.mark.parametrize("case", list(FSMN_CARD_CASES))
+def test_fsmn_kernel_matches_plain_on_card(cuda_device, dtype, tol, case):
+    """x as the v slice of a q|k|v projection; prefix, non-prefix and no masks, any
+    pads, ragged T, the generic-k kernel (k = 1, 21, or pads other than 5 / 5)."""
+    b, n, c, k, left, mask_kind = FSMN_CARD_CASES[case]
     g = _gen(4)
     x = torch.randn(b, n, 3 * c, generator=g).to(cuda_device, dtype)[..., 2 * c:]
-    w = (torch.rand(c, 1, 11, generator=g) - 0.5).to(cuda_device, dtype)
-    mask = torch.arange(n, device=cuda_device)[None] < torch.tensor(
-        [n, n - 17, 100, 1], device=cuda_device)[:, None]
+    w = (torch.rand(c, 1, k, generator=g) - 0.5).to(cuda_device, dtype)
+    mask = None
+    if mask_kind == "prefix":
+        lens = torch.tensor([n, n - 17, 100, 1][:b], device=cuda_device).clamp(0, n)
+        mask = torch.arange(n, device=cuda_device)[None] < lens[:, None]
+    elif mask_kind == "random":
+        mask = (torch.rand(b, n, generator=g) < 0.7).to(cuda_device)
     before = fsmn_memory.launches
-    got = fsmn_memory(x, w, mask, 5, 5)
+    got = fsmn_memory(x, w, mask, left, k - 1 - left)
     torch.cuda.synchronize()
     assert fsmn_memory.launches == before + 1
-    torch.testing.assert_close(got.float(), fsmn_memory_ref(x, w, mask, 5, 5).float(),
+    torch.testing.assert_close(got.float(),
+                               fsmn_memory_ref(x, w, mask, left, k - 1 - left).float(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fsmn_kernel_refuses_unaligned_input_on_card(cuda_device, dtype):
+    """The kernel moves 16-byte vectors: C not a multiple of the vector width, or a slice
+    whose base is not 16-byte aligned, raises instead of launching."""
+    g = _gen(5)
+    w10 = torch.rand(10, 1, 11, generator=g).to(cuda_device, dtype)
+    x10 = torch.randn(2, 40, 10, generator=g).to(cuda_device, dtype)  # C = 10
+    w = torch.rand(64, 1, 11, generator=g).to(cuda_device, dtype)
+    x = torch.randn(2, 40, 65, generator=g).to(cuda_device, dtype)[..., 1:]  # base + 1 elem
+    before = fsmn_memory.launches
+    for xs, ws in ((x10, w10), (x, w)):
+        with pytest.raises(ValueError, match="16-byte"):
+            fsmn_memory(xs, ws, None, 5, 5)
+    assert fsmn_memory.launches == before

@@ -7,6 +7,10 @@
   block rows;
 * the W8A8 kernel's quantizer: a product with fl(1/sx), checked against the rounding
   boundary, gives the IEEE quotient's int8 value bit for bit (emulated here in fp32);
+* the fp32 flash kernel's 3xTF32 split, emulated in fp32 with its key tiles and online
+  softmax: within the card's tolerance of the plain version, where one TF32 product is
+  not;
+* the kernels' JSON line of ``chip_smoke.py``, fp32 entries included;
 * the kernel modules never call the library functions that ``chip_smoke.py`` times
   beside the kernels.
 """
@@ -19,10 +23,13 @@ import numpy as np
 import pytest
 import torch
 
-from funasr_tpu_torch.ops.flash_attention import flash_block_rows
+from funasr_tpu_torch.ops.flash_attention import flash_attention_ref, flash_block_rows
 from funasr_tpu_torch.ops.w8a8 import INV127, plan_w8a8, quantize_rows_int8
 
 REPO = Path(__file__).resolve().parents[1]
+
+
+SMOKE_LENS = [384 - 37 * (i % 2) for i in range(32)]  # chip_smoke's flash lengths
 
 
 @pytest.mark.parametrize("name,work,op_type,want_us,want_by", [
@@ -33,10 +40,55 @@ REPO = Path(__file__).resolve().parents[1]
      "operations"),
     ("w8a8 FFN w_1", chip_smoke.w8a8_work(12288, 512, 2048, 2, 2), "int8", 19.1, "bytes"),
     ("fsmn encoder", chip_smoke.fsmn_work(32, 384, 512, 11, 2), "fp32", 7.5, "bytes"),
+    ("fsmn encoder fp32", chip_smoke.fsmn_work(32, 384, 512, 11, 4), "fp32", 15.0, "bytes"),
+    # fp32 flash on the CUDA cores at the smoke's lengths (the figure beside the 3xTF32 one)
+    ("flash fp32 CUDA cores", chip_smoke.flash_work(32, 4, 384, 128, SMOKE_LENS, 4), "fp32",
+     137.3, "operations"),
 ])
 def test_roofline_bounds(name, work, op_type, want_us, want_by):
     ms, by = chip_smoke.bound_ms(*work, op_type)
     assert round(ms * 1e3, 1) == want_us and by == want_by, (name, ms, by)
+
+
+def test_fp32_flash_bound_on_the_3xtf32_route():
+    """fp32 flash is bound at three TF32 products per product on the tensor cores (the
+    card's fastest fp32-accurate route), not at the CUDA cores' 67 TFLOP/s."""
+    assert chip_smoke.H100_PEAK["tf32"] == 495e12 and chip_smoke.H100_PEAK["fp32"] == 67e12
+    n_bytes, n_ops = chip_smoke.flash_work(32, 4, 384, 128, SMOKE_LENS, 4)
+    ms, by = chip_smoke.flash_bound(32, 4, 384, 128, SMOKE_LENS, torch.float32)
+    assert (ms, by) == chip_smoke.bound_ms(n_bytes, 3 * n_ops, "tf32")
+    assert round(ms * 1e3, 1) == 55.7 and by == "operations"
+    ms, by = chip_smoke.flash_bound(1, 4, 1408, 128, [1408], torch.float32)
+    assert round(ms * 1e3, 1) == 24.6 and by == "operations"
+    # bf16 keeps its own route
+    assert chip_smoke.flash_bound(32, 4, 384, 128, [384] * 32, torch.bfloat16) == \
+        chip_smoke.bound_ms(*chip_smoke.flash_work(32, 4, 384, 128, [384] * 32, 2), "bf16")
+
+
+def test_kernels_line_carries_fp32_entries():
+    """One entry per kernel; flash and FSMN carry their fp32 figures under ``fp32`` with
+    the launches of one default (fp32) AutoModel decode."""
+    row = dict(shape=(1, 2), max_abs_err=0.0, ms=1.0, call_ms=2.0, plain_ms=3.0,
+               library_ms=4.0, bound_ms=0.5, bound_by="bytes")
+    record = {(name, torch.bfloat16): row for name in chip_smoke.LIBRARY_CALLS}
+    record[("flash_attention", torch.float32)] = dict(row, ms=5.0, cuda_core_bound_ms=0.9)
+    record[("fsmn_memory", torch.float32)] = dict(row, ms=6.0)
+    line = chip_smoke.kernels_line(record, {"flash_attention": 100, "fsmn_memory": 132},
+                                   {"w8a8_linear": 282},
+                                   {"flash_attention": 50, "fsmn_memory": 66})
+    kernels = {k["name"]: k for k in line["kernels"]}
+    assert list(kernels) == ["flash_attention", "fsmn_memory", "w8a8_linear"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert all(keys <= set(k) for k in kernels.values())
+    assert kernels["flash_attention"]["launches_per_decode"] == 50
+    assert kernels["flash_attention"]["fp32"]["ms"] == 5.0
+    assert kernels["flash_attention"]["fp32"]["launches"] == 50
+    assert kernels["flash_attention"]["fp32"]["cuda_core_bound_ms"] == 0.9
+    assert kernels["fsmn_memory"]["fp32"]["launches_per_decode"] == 66
+    assert kernels["fsmn_memory"]["fp32"]["ms"] == 6.0
+    assert "fp32" not in kernels["w8a8_linear"]
+    assert kernels["w8a8_linear"]["launches"] == 282
 
 
 def test_flash_work_counts_keys_up_to_the_lengths():
@@ -116,6 +168,91 @@ def test_quantize_reciprocal_path_is_bit_exact(rng, dtype):
     assert n_near > 0  # the boundary path was taken
     torch.testing.assert_close(s, want_s, rtol=0, atol=0)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits; nearest, ties away), as ``csrc/flash_attention.cu``
+    split_tf32 does with integer ops."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """What the tensor core reads of an fp32 operand: its top 19 bits."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel's mma.sync computes it: hi = tf32(x), lo = x - hi (truncated
+    to TF32 by the tensor core), lo hi' + hi lo' + hi hi'; TF32 products are exact in
+    fp32, the sums fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _flash_like_the_kernel(q, k, v, lengths, mm, tile=32):
+    """The fp32 kernel's arithmetic: 32-key tiles, scores in log2 units, keys past the
+    length -1e30 (past T -inf), tiles past a non-zero length skipped, online softmax,
+    out = O / max(l, 1e-30); every product through `mm`."""
+    b, h, t, d = q.shape
+    scale_log2 = (1.0 / d ** 0.5) * 1.4426950408889634
+    out = torch.empty_like(q)
+    for i in range(b):
+        n = int(lengths[i])
+        m = torch.full((h, t, 1), -1e30)
+        l = torch.zeros(h, t, 1)
+        o = torch.zeros(h, t, d)
+        for k0 in range(0, n if n > 0 else t, tile):
+            keys = torch.arange(k0, k0 + tile)
+            kt = torch.zeros(h, tile, d)
+            vt = torch.zeros(h, tile, d)
+            kt[:, :min(tile, t - k0)] = k[i, :, k0:k0 + tile]
+            vt[:, :min(tile, t - k0)] = v[i, :, k0:k0 + tile]
+            s = mm(q[i], kt.transpose(1, 2)) * scale_log2
+            s = torch.where(keys >= n, torch.tensor(-1e30), s)
+            s = torch.where(keys >= t, torch.tensor(-float("inf")), s)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            o = o * alpha + mm(p, vt)
+            m = m_new
+        out[i] = o / torch.clamp_min(l, 1e-30)
+    return out
+
+
+def test_3xtf32_split_meets_the_fp32_tolerance():
+    """At (4, 4, 384, 128) with chip_smoke's lengths, the 3xTF32 emulation lies within
+    FLASH_TOL[float32] of the plain version; a single TF32 product does not."""
+    g = torch.Generator().manual_seed(0)
+    b, h, t, d = 4, 4, 384, 128
+    qkv = torch.randn(b, t, 3, h, d, generator=g)
+    q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+    lens = [t - 37 * (i % 2) for i in range(b)]
+    ref = flash_attention_ref(q, k, v, torch.tensor(lens))
+    tol = chip_smoke.FLASH_TOL[torch.float32]
+
+    def err(mm):
+        got = _flash_like_the_kernel(q, k, v, lens, mm)
+        return max((got[i, :, :n] - ref[i, :, :n]).abs().max().item()
+                   for i, n in enumerate(lens))
+
+    assert err(_mm_3xtf32) <= tol / 5
+    assert err(_mm_1xtf32) > tol
+
+
+def test_tf32_rounding_is_exact_split():
+    """hi is a TF32 value (low 13 bits clear) within half a TF32 ulp of x, and x - hi is
+    exact in fp32."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(4096).astype(np.float32))
+    hi = _tf32(x)
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    assert ((x - hi).abs() <= x.abs() * 2.0 ** -11).all()
+    assert torch.equal((x.double() - hi.double()).float().double(), x.double() - hi.double())
 
 
 KERNEL_MODULES = ["funasr_tpu_torch/ops/flash_attention.py", "funasr_tpu_torch/ops/fsmn.py",
