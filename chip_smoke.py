@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels, holds each
 against its plain PyTorch version, checks the port on CUDA against the port on the CPU,
-and drives the offline Paraformer decode, ``AutoModel(quant="w8a8")`` and the default
-(fp32) ``AutoModel`` at Paraformer-large width.
+and drives the offline Paraformer decode, ``AutoModel(quant="w8a8")``, the default
+(fp32) ``AutoModel`` at Paraformer-large width, and the VAD -> ASR -> punctuation
+pipeline ``AutoModel(model=, vad_model=, punc_model=)``.
 
     python3 chip_smoke.py
 
@@ -12,7 +13,10 @@ Phases (any failure raises and exits non-zero):
    parallel (seconds printed);
 3. kernels: flash attention at (32, 4, 384, 128) and (1, 4, 1408, 128), bf16 and fp32,
    ragged lengths, valid query rows; FSMN memory at (32, 384, 512) and (32, 208, 512),
-   k = 11; each against its plain version;
+   k = 11; and at the pipeline's shapes (``pipeline_kernel_rows``): the VAD's FSMN at
+   (1, 6019, 128) fp32, k = 20, pads (19, 0), no mask; the punctuation encoder's FSMN
+   at (1, 64, 256) fp32, k = 11, a prefix mask; its flash at (1, 8, 64, 32) fp32 and
+   bf16 with a ragged length; each against its plain version;
 4. w8a8 kernel: the W8A8 linear at every (M, K, N) of the W8A8 path (ragged K = 560 and
    M = 720 included), bf16 and fp32 x, bit-exact to its plain version (a mismatch
    raises);
@@ -38,7 +42,19 @@ Phases (any failure raises and exits non-zero):
    public default from the same directory, ``AutoModel(model=dir, device="cuda",
    batch_size=32)`` (no bf16, no quant: fp32): 32 non-empty texts, finite scores, >= 50
    flash and >= 66 FSMN launches per decode, and its profile showing them in the fp32
-   kernels (``FP32_KERNELS``); RTFx and one profiled ``generate``.
+   kernels (``FP32_KERNELS``); RTFx and one profiled ``generate``;
+8. pipeline (``phase_pipeline``): three model directories written from the port's
+   seeded modules (the PROD_CONF Paraformer; fsmn-vad at its published widths crafted
+   into an energy detector with small seeded memory taps; ct-punc-c at its published
+   widths, vocab 272727) through ``AutoModel(model=asr, vad_model=vad, punc_model=punc,
+   device="cuda")`` (fp32, the public default), 4 requests of 300 s of synthetic speech
+   bursts (3-14 s) and near silence (1-3 s), one ``generate`` each. Gates per request:
+   one row with its key and a text ending in sentence-final punctuation, >= 10 VAD
+   segments equal to the port's VAD on the CPU to the ms, the first 3 punctuation
+   windows' logits within ``PUNC_LOGIT_TOL`` of the CPU port's, and each stage's kernel
+   launches (``kernel_sites`` x its calls). Prints RTFx per request, the wall ms of each
+   stage (VAD, ASR, punctuation) and one profiled request (device ms by kernel, idle
+   share).
 
 Kernel times (phases 3-4): ``ms`` is device time per launch over 20 back-to-back
 launches between one pair of CUDA events, queued behind a spin kernel so that host
@@ -56,7 +72,9 @@ op before it just wrote.
 The second-to-last line is the kernels' JSON record (``kernels_line``: each kernel at
 its main path shape, with ``launches`` of the main path's run and
 ``launches_per_decode``; flash and FSMN add their fp32 figures under ``fp32``, launches
-from the fp32 ``AutoModel`` decode), the last line ``{"ok": true, "device": {...}}``.
+from the fp32 ``AutoModel`` decode, and their rows at the pipeline's shapes under
+``pipeline``, launches from phase 8's four requests), the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -352,7 +370,89 @@ def phase_kernels(dev):
                 raise AssertionError(f"fsmn kernel disagrees at {shape} {dtype}: {err}")
             if shape == (32, 384, 512):
                 record[("fsmn_memory", dtype)] = row
+    record.update(pipeline_kernel_rows(dev, g))
     return record
+
+
+def fsmn_row(x, w, mask, left, right):
+    """One FSMN kernel row against its plain version, with the library call
+    ``F.conv1d(groups=C)`` (zero padding max(left, right), the causal output sliced) plus
+    the residual."""
+    import torch.nn.functional as F
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory, fsmn_memory_ref
+
+    b, t, c = x.shape
+    k = w.shape[-1]
+    out = fsmn_memory(x, w, mask, left, right)
+    torch.cuda.synchronize()
+    err = (out - fsmn_memory_ref(x, w, mask, left, right)).abs().max().item()
+    xm = x if mask is None else x * mask[..., None].to(x.dtype)
+    xm = xm.transpose(1, 2).contiguous()  # (B, C, T)
+    pad, off = max(left, right), max(left, right) - left
+    row = dict(shape=(b, t, c), k=k, pads=(left, right), max_abs_err=err,
+               library_call=f"F.conv1d(xm, w, padding={pad}, groups=C)[..., {off}:{off} + T]"
+                            " + xm",
+               ms=device_ms(lambda: fsmn_memory(x, w, mask, left, right)),
+               call_ms=call_ms(lambda: fsmn_memory(x, w, mask, left, right)),
+               plain_ms=device_ms(lambda: fsmn_memory_ref(x, w, mask, left, right)),
+               library_ms=device_ms(
+                   lambda: F.conv1d(xm, w, padding=pad, groups=c)[..., off:off + t] + xm))
+    row["bound_ms"], row["bound_by"] = bound_ms(*fsmn_work(b, t, c, k, x.element_size()),
+                                                "fp32")
+    return row
+
+
+def flash_row(q, k, v, lens_list):
+    """One flash kernel row against its plain version and scaled_dot_product_attention;
+    the error over each row's valid queries."""
+    import torch.nn.functional as F
+    from funasr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+
+    b, h, t, d = q.shape
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=q.device)
+    out = flash_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q, k, v, lens)
+    err = max((out[i, :, :n] - ref[i, :, :n]).abs().max().item()
+              for i, n in enumerate(lens_list))
+    mask = (torch.arange(t, device=q.device)[None, :] < lens[:, None].long())[:, None, None, :]
+    row = dict(shape=(b, h, t, d), max_abs_err=err,
+               library_call=LIBRARY_CALLS["flash_attention"],
+               ms=device_ms(lambda: flash_attention(q, k, v, lens)),
+               call_ms=call_ms(lambda: flash_attention(q, k, v, lens)),
+               plain_ms=device_ms(lambda: flash_attention_ref(q, k, v, lens)),
+               library_ms=device_ms(
+                   lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)))
+    row["bound_ms"], row["bound_by"] = flash_bound(b, h, t, d, lens_list, q.dtype)
+    return row
+
+
+def pipeline_kernel_rows(dev, g):
+    """The kernels at the shapes of the VAD -> ASR -> punctuation pipeline (phase 8):
+    the VAD's causal FSMN memory over cache + one 60 s chunk (k = 20, pads 19 / 0, no
+    mask, C = 128, fp32), the punctuation encoder's FSMN (v slice, k = 11, prefix mask,
+    C = 256) and its flash attention (8 heads x 32, strided head views of q|k|v, a ragged
+    length), each against its plain version. Raises on a disagreement."""
+    rows = {}
+    x = torch.randn(1, 6019, 128, generator=g).to(dev)  # concat(cache, h), contiguous
+    w = ((torch.rand(128, 1, 20, generator=g) - 0.5) * 2e-3).to(dev)
+    rows[("fsmn_memory", "vad")] = fsmn_row(x, w, None, 19, 0)
+    x = torch.randn(1, 64, 3 * 256, generator=g).to(dev)[..., 2 * 256:]
+    w = (torch.rand(256, 1, 11, generator=g) - 0.5).to(dev)
+    mask = torch.arange(64, device=dev)[None] < 57
+    rows[("fsmn_memory", "punc")] = fsmn_row(x, w, mask, 5, 5)
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(1, 64, 3, 8, 32, generator=g).to(dev, dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        rows[("flash_attention", "punc", dtype)] = flash_row(q, k, v, [57])
+    for key, row in rows.items():
+        dtype = key[2] if len(key) > 2 else torch.float32
+        tol = (FLASH_TOL if key[0] == "flash_attention" else FSMN_TOL)[dtype]
+        log(f"{key[0]} {key[1]} {row['shape']} {str(dtype)[6:]}: max_abs_err "
+            f"{row['max_abs_err']:.3e} (tol {tol:g}) " + timing_line(row))
+        if not (math.isfinite(row["max_abs_err"]) and row["max_abs_err"] <= tol):
+            raise AssertionError(f"{key} kernel disagrees: {row['max_abs_err']}")
+    return rows
 
 
 def timing_line(row):
@@ -550,6 +650,12 @@ def phase_main_path(dev, tables, counters, card):
     return launches
 
 
+def identity_cmvn(dim):
+    return (f"<Nnet>\n<Splice> {dim} {dim}\n[ 0 ]\n<AddShift> {dim} {dim}\n"
+            f"<LearnRateCoef> 0 [ {' '.join(['0.0'] * dim)} ]\n<Rescale> {dim} {dim}\n"
+            f"<LearnRateCoef> 0 [ {' '.join(['1.0'] * dim)} ]\n</Nnet>\n")
+
+
 def write_model_dir(d, dev):
     """A FunASR-layout model directory at PROD_CONF width with seeded random weights."""
     import yaml
@@ -561,11 +667,8 @@ def write_model_dir(d, dev):
     tokens = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(8400)] + ["<unk>"]
     with open(os.path.join(d, "tokens.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(tokens) + "\n")
-    dim = PROD_CONF["input_size"]
     with open(os.path.join(d, "am.mvn"), "w") as f:
-        f.write(f"<Nnet>\n<Splice> {dim} {dim}\n[ 0 ]\n<AddShift> {dim} {dim}\n"
-                f"<LearnRateCoef> 0 [ {' '.join(['0.0'] * dim)} ]\n<Rescale> {dim} {dim}\n"
-                f"<LearnRateCoef> 0 [ {' '.join(['1.0'] * dim)} ]\n</Nnet>\n")
+        f.write(identity_cmvn(PROD_CONF["input_size"]))
     cfg = dict(model="Paraformer", model_conf=dict(sos=1, eos=2, predictor_bias=1, ctc_weight=0.0),
                encoder="SANMEncoder", encoder_conf=PROD_CONF["encoder_conf"],
                decoder="ParaformerSANMDecoder", decoder_conf=PROD_CONF["decoder_conf"],
@@ -698,11 +801,312 @@ def automodel_fp32(d, batch, dev, counters, card):
     return launches
 
 
-def kernels_line(record, launches, am_launches, fp32_launches):
+# ---- phase 8: the VAD -> ASR -> punctuation pipeline -----------------------------------
+
+# fsmn-vad and ct-punc-c at their published widths (benchmarks/bench_realtime_ws.py:63-83)
+VAD_CONF = dict(input_dim=400, input_affine_dim=140, fsmn_layers=4, linear_dim=250,
+                proj_dim=128, lorder=20, rorder=0, lstride=1, rstride=1,
+                output_affine_dim=140, output_dim=248)
+PUNC_ENC = dict(input_size=256, output_size=256, attention_heads=8, linear_units=1024,
+                num_blocks=4, input_layer="pe", kernel_size=11, sanm_shfit=0)
+PUNC_MODEL_CONF = dict(punc_list=["<unk>", "_", "，", "。", "？", "、"], embed_unit=256,
+                       att_unit=256, sentence_end_id=3)
+PUNC_VOCAB = 272727
+PIPELINE_REQUESTS = 4
+REQUEST_SECONDS = 300.0
+MIN_SEGMENTS = 10
+PUNC_LOGIT_TOL = 1e-3  # fp32 logits, CUDA against the CPU: cuBLAS and kernel sum order
+
+
+def write_config(d, cfg):
+    import yaml
+    with open(os.path.join(d, "config.yaml"), "w", encoding="utf-8") as f:
+        yaml.safe_dump(cfg, f, allow_unicode=True)
+
+
+def craft_energy_vad(vad, g, tap=1e-3):
+    """A deterministic energy detector at fsmn-vad width: every layer averages its input,
+    the output affine maps the mean log-mel energy m to logits sil = 3 - 2m, speech = 2m
+    (every other pdf -10). The memory taps are seeded values in +-tap, so the FSMN kernel's
+    output enters the scores."""
+    enc, c = vad.encoder, vad.encoder.cfg
+    with torch.no_grad():
+        for lin, fan_in in ((enc.in_linear1.linear, c.input_dim),
+                            (enc.in_linear2.linear, c.input_affine_dim),
+                            (enc.out_linear1.linear, c.linear_dim)):
+            lin.weight.fill_(1.0 / fan_in)
+            lin.bias.zero_()
+        for blk in enc.fsmn:
+            blk.linear.linear.weight.fill_(1.0 / c.linear_dim)
+            w = blk.fsmn_block.conv_left.weight
+            w.copy_((torch.rand(w.shape, generator=g) * 2 - 1) * tap)
+            blk.affine.linear.weight.fill_(1.0 / c.proj_dim)
+            blk.affine.linear.bias.zero_()
+        out = enc.out_linear2.linear
+        out.weight.zero_()
+        out.weight[0].fill_(-2.0 / c.output_affine_dim)
+        out.weight[1].fill_(2.0 / c.output_affine_dim)
+        out.bias.fill_(-10.0)
+        out.bias[0] = 3.0
+        out.bias[1] = 0.0
+
+
+def write_pipeline_dirs(root, dev):
+    """Three FunASR-layout model directories under `root`: the PROD_CONF Paraformer,
+    fsmn-vad (crafted energy detector) and ct-punc-c (the ASR's 8404 tokens first, then
+    filler tokens up to 272727), all from the port's seeded modules."""
+    from funasr_tpu_torch import tables
+
+    dirs = {name: os.path.join(root, name) for name in ("asr", "vad", "punc")}
+    for d in dirs.values():
+        os.makedirs(d)
+    write_model_dir(dirs["asr"], dev)
+
+    g = torch.Generator().manual_seed(1)
+    vad = tables.model_classes["FsmnVADStreaming"](encoder_conf=VAD_CONF, generator=g)
+    craft_energy_vad(vad, g)
+    torch.save(vad.state_dict(), os.path.join(dirs["vad"], "model.pt"))
+    with open(os.path.join(dirs["vad"], "am.mvn"), "w") as f:
+        f.write(identity_cmvn(VAD_CONF["input_dim"]))
+    write_config(dirs["vad"], dict(
+        model="FsmnVADStreaming",
+        model_conf=dict(max_end_silence_time=800, speech_noise_thres=0.6, sil_pdf_ids=[0]),
+        encoder="FSMN", encoder_conf=VAD_CONF, frontend="WavFrontendOnline",
+        frontend_conf=dict(fs=16000, window="hamming", n_mels=80, frame_length=25,
+                           frame_shift=10, lfr_m=5, lfr_n=1, cmvn_file="am.mvn",
+                           dither=0.0)))
+
+    asr_tokens = (["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(8400)]
+                  + ["<unk>"])
+    tokens = asr_tokens + [f"<filler_{i}>" for i in range(PUNC_VOCAB - len(asr_tokens))]
+    punc = tables.model_classes["CTTransformer"](
+        encoder_conf=PUNC_ENC, vocab_size=len(tokens), **PUNC_MODEL_CONF,
+        generator=torch.Generator().manual_seed(2))
+    torch.save(punc.state_dict(), os.path.join(dirs["punc"], "model.pt"))
+    with open(os.path.join(dirs["punc"], "tokens.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(tokens) + "\n")
+    write_config(dirs["punc"], dict(
+        model="CTTransformer", model_conf=PUNC_MODEL_CONF, encoder="SANMEncoder",
+        encoder_conf=PUNC_ENC, tokenizer="CharTokenizer",
+        tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>")))
+    return dirs
+
+
+def long_recording(rng, seconds=REQUEST_SECONDS, fs=16000):
+    """Synthetic long-form speech (the idea of tests/pipeline_parity_util.py's
+    multi_segment_wav at request length): 3-14 s bursts of noise or amplitude-modulated
+    tones, 1-3 s of near silence (a 1e-6 noise floor) between them; float32 in [-1, 1)."""
+    wav = (rng.standard_normal(int(seconds * fs)) * 1e-6).astype(np.float32)
+    t0 = rng.uniform(0.3, 1.5)
+    while t0 + 3.0 < seconds:
+        i, j = int(t0 * fs), int(min(t0 + rng.uniform(3.0, 14.0), seconds - 0.5) * fs)
+        tt = np.arange(j - i) / fs
+        if rng.random() < 0.5:
+            burst = 0.1 * rng.standard_normal(j - i)
+        else:
+            f0 = rng.uniform(120.0, 450.0)
+            burst = 0.3 * np.sin(2 * np.pi * f0 * tt) * (1 + 0.4 * np.sin(2 * np.pi * 3 * tt))
+        wav[i:j] += burst.astype(np.float32)
+        t0 = j / fs + rng.uniform(1.0, 3.0)
+    return wav
+
+
+class Stage:
+    """Wraps ``obj.attr`` (an instance attribute shadows the method, so its callers call
+    the wrapper): per call, wall ms up to a synchronize and the kernel launches made
+    inside it; with ``keep``, the results (the first item of what it returns)."""
+
+    def __init__(self, obj, attr, counters, keep=False):
+        self.counters, self.keep, self.inner = counters, keep, getattr(obj, attr)
+        self.reset()
+        setattr(obj, attr, self)
+
+    def reset(self):
+        self.calls, self.ms, self.results = 0, 0.0, []
+        self.launches = {c.__name__: 0 for c in self.counters}
+
+    def __call__(self, *args, **kwargs):
+        before = {c.__name__: c.launches for c in self.counters}
+        t0 = time.perf_counter()
+        out = self.inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.ms += (time.perf_counter() - t0) * 1e3
+        self.calls += 1
+        for c in self.counters:
+            self.launches[c.__name__] += c.launches - before[c.__name__]
+        if self.keep:
+            self.results.extend(out[0])
+        return out
+
+
+def kernel_sites(model):
+    """Launches of each kernel per forward of `model`: one flash per SAN-M self-attention,
+    one FSMN per SAN-M attention, decoder FSMN block and VAD memory block."""
+    from funasr_tpu_torch.models.fsmn_vad_streaming.encoder import FSMNBlock
+    from funasr_tpu_torch.models.sanm.attention import (MultiHeadedAttentionSANM,
+                                                        MultiHeadedAttentionSANMDecoder)
+
+    def count(*kinds):
+        return sum(isinstance(m, kinds) for m in model.modules())
+    sites = {"fsmn_memory": count(MultiHeadedAttentionSANM, MultiHeadedAttentionSANMDecoder,
+                                  FSMNBlock)}
+    if count(MultiHeadedAttentionSANM):
+        sites["flash_attention"] = count(MultiHeadedAttentionSANM)
+    return sites
+
+
+def forward_counter(module):
+    """A list that grows by one per forward call of `module`."""
+    calls = []
+    module.register_forward_hook(lambda *_: calls.append(1))
+    return calls
+
+
+def phase_pipeline(dev, counters, card):
+    """AutoModel(model=asr, vad_model=vad, punc_model=punc, device="cuda"), the public
+    default (fp32 everywhere), answering PIPELINE_REQUESTS requests of ~300 s, one
+    ``generate`` each. Gates per request: one row with its key and text ending in
+    sentence-final punctuation; >= MIN_SEGMENTS VAD segments, equal to the port's VAD
+    on the CPU to the ms; the first 3 punctuation windows' logits within PUNC_LOGIT_TOL
+    of the CPU port's; launches per stage at least the model's kernel sites times its
+    calls (``kernel_sites``; FSMN 4 per VAD encoder call, 66 per ASR batch, 4 per
+    punctuation window; flash 50 per ASR batch, 4 per window).
+    Returns the launches per request of each stage."""
+    import tempfile
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.frontends import wav_frontend
+    from funasr_tpu_torch.models.ct_transformer.utils import split_to_mini_sentence, split_words
+
+    rng = np.random.default_rng(5)
+    requests = [long_recording(rng) for _ in range(PIPELINE_REQUESTS)]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        dirs = write_pipeline_dirs(root, dev)
+        log(f"pipeline: model dirs written in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        am = AutoModel(model=dirs["asr"], vad_model=dirs["vad"], punc_model=dirs["punc"],
+                       device="cuda", log_level="WARNING")
+        log(f"pipeline: AutoModel(model, vad_model, punc_model, device='cuda') built in "
+            f"{time.perf_counter() - t0:.1f} s")
+    dtypes = {name: next(m.parameters()).dtype for name, m in
+              (("asr", am.model), ("vad", am.vad_model), ("punc", am.punc_model))}
+    if set(dtypes.values()) != {torch.float32}:
+        raise AssertionError(f"the default pipeline is not fp32: {dtypes}")
+    # kernel launches per VAD encoder call, ASR batch and punctuation window: 4 FSMN;
+    # 50 flash + 66 FSMN (PROD_CONF); 4 flash + 4 FSMN
+    sites = {"vad": kernel_sites(am.vad_model), "asr": kernel_sites(am.model),
+             "punc": kernel_sites(am.punc_model)}
+    log(f"pipeline: kernel launches per VAD encoder call / ASR batch / punctuation window: "
+        f"{sites}")
+    cpu_vad = copy.deepcopy(am.vad_model).cpu()
+    cpu_punc = copy.deepcopy(am.punc_model).cpu()
+    stages = {"vad": Stage(am.vad_model, "inference", counters, keep=True),
+              "asr": Stage(am.model, "inference", counters),
+              "punc": Stage(am.punc_model, "inference", counters),
+              # inside the VAD: the fbank (on the card) + LFR / CMVN (host), and the
+              # encoder on the card with the scores' copy to the host; inside the
+              # punctuation stage: each window's forward and its logits' copy
+              "vad_fbank": Stage(am.vad_kwargs["frontend"], "forward_streaming", counters),
+              "vad_fbank_only": Stage(wav_frontend, "fbank", counters),
+              "vad_scores": Stage(am.vad_model, "silence_scores", counters),
+              "punc_windows": Stage(am.punc_model, "window_logits", counters)}
+    vad_calls = forward_counter(am.vad_model.encoder)
+    windows = forward_counter(am.punc_model.encoder)
+    am.generate(input=[requests[0][:16000 * 60]], key=["warm-up"])  # outside the counts
+    torch.cuda.synchronize()
+
+    per_request = []
+    for r, wav in enumerate(requests):
+        for st in stages.values():
+            st.reset()
+        vad_calls.clear()
+        windows.clear()
+        key = f"request_{r}"
+        t0 = time.perf_counter()
+        rows = am.generate(input=[wav], key=[key], return_raw_text=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        audio_s = len(wav) / 16000
+        segments = stages["vad"].results[0]["value"]
+        stats = dict(wall_ms=wall * 1e3, rtfx=audio_s / wall, segments=len(segments),
+                     vad_calls=len(vad_calls), asr_batches=stages["asr"].calls,
+                     windows=len(windows),
+                     **{f"{name}_ms": st.ms for name, st in stages.items()},
+                     **{f"{name}_launches": st.launches for name, st in stages.items()})
+        per_request.append(stats)
+        log(f"pipeline {key}: {audio_s:.1f} s of audio, wall {stats['wall_ms']:.2f} ms, "
+            f"RTFx {stats['rtfx']:.1f}; stages: VAD {stats['vad_ms']:.2f} ms "
+            f"({stats['vad_calls']} encoder calls, {len(segments)} segments), ASR "
+            f"{stats['asr_ms']:.2f} ms ({stats['asr_batches']} batches), punctuation "
+            f"{stats['punc_ms']:.2f} ms ({stats['windows']} windows); launches "
+            f"VAD {stats['vad_launches']} ASR {stats['asr_launches']} "
+            f"punc {stats['punc_launches']}; text {len(rows[0]['text'])} chars on {card}")
+        log(f"  inside the stages: VAD fbank + LFR {stats['vad_fbank_ms']:.2f} ms (the fbank "
+            f"on the card and back {stats['vad_fbank_only_ms']:.2f}), VAD "
+            f"encoder + scores to the host {stats['vad_scores_ms']:.2f} ms, VAD host rest "
+            f"(decibel loop, state machine) "
+            f"{stats['vad_ms'] - stats['vad_fbank_ms'] - stats['vad_scores_ms']:.2f} ms; "
+            f"punctuation window forwards + logits to the host {stats['punc_windows_ms']:.2f}"
+            f" ms, host rest {stats['punc_ms'] - stats['punc_windows_ms']:.2f} ms")
+
+        if len(rows) != 1 or rows[0]["key"] != key:
+            raise AssertionError(f"{key}: expected one row with its key, got {rows}")
+        text = rows[0]["text"]
+        if not (isinstance(text, str) and text and text[-1] in "。？.?"):
+            raise AssertionError(f"{key}: text {text[-20:]!r} does not end a sentence")
+        if len(segments) < MIN_SEGMENTS:
+            raise AssertionError(f"{key}: {len(segments)} VAD segments < {MIN_SEGMENTS}")
+        cpu_segments = am.inference([wav], model=cpu_vad, kwargs=am.vad_kwargs)[0]["value"]
+        if cpu_segments != segments:
+            raise AssertionError(f"{key}: VAD segments on CUDA differ from the CPU port's: "
+                                 f"{segments} vs {cpu_segments}")
+        tok = am.punc_kwargs["tokenizer"]
+        ids = [tok.token2id.get(w, tok.unk_id) for w in split_words(rows[0]["raw_text"])]
+        err = max(np.abs(am.punc_model.window_logits(np.asarray(w, np.int32))
+                         - cpu_punc.window_logits(np.asarray(w, np.int32))).max()
+                  for w in split_to_mini_sentence(ids, 20)[:3])
+        log(f"  VAD segments equal to the CPU port's ({len(segments)}); punctuation logits "
+            f"of the first 3 windows: max_abs_err {err:.3e} (tol {PUNC_LOGIT_TOL:g})")
+        if not err <= PUNC_LOGIT_TOL:
+            raise AssertionError(f"{key}: punctuation logits on CUDA differ by {err}")
+        need = {(stage, kernel): n * calls for stage, calls in
+                (("vad", stats["vad_calls"]), ("asr", stats["asr_batches"]),
+                 ("punc", stats["windows"])) for kernel, n in sites[stage].items()}
+        short = {k: (stats[f"{k[0]}_launches"][k[1]], n) for k, n in need.items()
+                 if stats[f"{k[0]}_launches"][k[1]] < n or n == 0}
+        if short:
+            raise AssertionError(f"{key}: a stage bypassed a kernel (launches, needed): "
+                                 f"{short}")
+
+    walls = [s["wall_ms"] for s in per_request]
+    total_audio = sum(len(w) for w in requests) / 16000
+    log(f"pipeline: {PIPELINE_REQUESTS} requests, {total_audio:.1f} s of audio, RTFx "
+        f"{[round(s['rtfx'], 1) for s in per_request]} (all {total_audio * 1e3 / sum(walls):.1f}); "
+        f"stage wall ms, mean per request: " + ", ".join(
+            f"{name} {statistics.mean(s[f'{name}_ms'] for s in per_request):.2f}"
+            for name in stages) + f" on {card}")
+    profile_once(lambda: am.generate(input=[requests[0]], key=["profiled"]),
+                 "pipeline request 0 (VAD + ASR + punctuation)", walls[0])
+    return per_request
+
+
+# the kernel rows at the pipeline's shapes: kernel -> [(label, record key, the phase 8
+# stage whose launches they are, None where the default fp32 pipeline does not run it)]
+PIPELINE_ENTRIES = {
+    "flash_attention": [("punc_fp32", ("flash_attention", "punc", torch.float32), "punc"),
+                        ("punc_bf16", ("flash_attention", "punc", torch.bfloat16), None)],
+    "fsmn_memory": [("vad", ("fsmn_memory", "vad"), "vad"),
+                    ("punc", ("fsmn_memory", "punc"), "punc")],
+}
+
+
+def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
-    the launches of one decode of the default (fp32) AutoModel."""
+    the launches of one decode of the default (fp32) AutoModel, and their rows at the
+    pipeline's shapes under ``pipeline``, with the launches of phase 8's requests
+    (``pipeline``: its per-request stats)."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -723,11 +1127,16 @@ def kernels_line(record, launches, am_launches, fp32_launches):
             entry["fp32"] = dict(launches=fp32_launches[name],
                                  launches_per_decode=fp32_launches[name],
                                  **record[(name, torch.float32)])
+        for label, key, stage in PIPELINE_ENTRIES.get(name, ()) if pipeline else ():
+            n = sum(r[f"{stage}_launches"][name] for r in pipeline) if stage else 0
+            entry.setdefault("pipeline", {})[label] = dict(
+                launches=n, launches_per_request=n / len(pipeline), **record[key])
         kernels.append(entry)
     return {"kernels": kernels}
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; needs an NVIDIA GPU")
     dev = torch.device("cuda")
@@ -759,7 +1168,9 @@ def main():
     phase_cuda_vs_cpu_w8a8(dev)
     launches = phase_main_path(dev, funasr_tpu_torch.tables, counters, card)
     am_launches, fp32_launches = phase_automodel(dev, counters, card)
-    print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches)))
+    pipeline = phase_pipeline(dev, counters, card)
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

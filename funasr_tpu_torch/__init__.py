@@ -1,11 +1,13 @@
-"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slices 1-2: offline
-Paraformer, ``AutoModel`` with bf16 and int8 / W8A8 quantization).
+"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slices 1-5: offline
+Paraformer, ``AutoModel`` with bf16 and int8 / W8A8 quantization, and the VAD -> ASR ->
+punctuation pipeline with FSMN-VAD and CT-Transformer).
 
 Imports torch and numpy, never jax and never ``funasr_tpu``. The public entry point:
 
     from funasr_tpu_torch import AutoModel
-    model = AutoModel(model="<model dir>", device="cuda", bf16=True, quant="w8a8")
-    results = model.generate(input=[wave, "a.wav"], batch_size=32)
+    model = AutoModel(model="<asr dir>", vad_model="<vad dir>", punc_model="<punc dir>",
+                      device="cuda")
+    results = model.generate(input=["long.wav"], batch_size_s=300)
 
 Importing the package registers its classes in its own ``tables``:
 
@@ -15,9 +17,9 @@ Importing the package registers its classes in its own ``tables``:
     tokenizer = tables.tokenizer_classes["CharTokenizer"](token_list=tokens)
     results, meta = model.inference(waves, tokenizer=tokenizer, frontend=frontend)
 
-On a CUDA device the encoder's attention, every FSMN memory block and every W8A8 linear
-run hand-written kernels (``csrc/``, built with nvcc at first use); on the CPU they run
-their plain PyTorch versions.
+On a CUDA device the encoders' attention, every FSMN memory block (the VAD's included)
+and every W8A8 linear run hand-written kernels (``csrc/``, built with nvcc at first use);
+on the CPU they run their plain PyTorch versions.
 """
 
 import torch
@@ -30,6 +32,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from funasr_tpu_torch.frontends import wav_frontend  # noqa: E402,F401
+from funasr_tpu_torch.models.ct_transformer import model as ct_model  # noqa: E402,F401
+from funasr_tpu_torch.models.fsmn_vad_streaming import model as vad_model  # noqa: E402,F401
 from funasr_tpu_torch.models.paraformer import cif_predictor, decoder, model  # noqa: E402,F401
 from funasr_tpu_torch.models.sanm import encoder  # noqa: E402,F401
 from funasr_tpu_torch.tokenizer import char_tokenizer  # noqa: E402,F401

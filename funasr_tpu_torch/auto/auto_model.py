@@ -1,17 +1,24 @@
 """AutoModel, the user-facing pipeline API of the port (counterpart of
 ``funasr_tpu/auto/auto_model.py``; reference FunASR ``funasr/auto/auto_model.py``).
 
-    model = AutoModel(model="<local model dir>", device="cuda", bf16=True, quant="w8a8")
-    results = model.generate(input=[wave, "a.wav", pcm_bytes], batch_size=32)
+    model = AutoModel(model="<asr dir>", vad_model="<vad dir>", punc_model="<punc dir>",
+                      device="cuda")
+    results = model.generate(input=[wave, "a.wav", pcm_bytes], batch_size_s=300)
 
 ``build_model`` follows the JAX order: model dir -> tokenizer -> frontend -> model class
 -> weights (``init_param``, else drawn from a seeded ``torch.Generator``) -> ``bf16``
 cast -> ``quant`` ("int8": weight-only int8; "w8a8": int8 weights and activations, whose
 linears run the hand-written kernel of ``ops/w8a8.py`` on CUDA). ``device`` defaults to
-"cuda"; "cuda" without a GPU raises, it never falls back to the CPU.
+"cuda"; "cuda" without a GPU raises, it never falls back to the CPU. ``vad_model`` and
+``punc_model`` are built the same way from their own kwargs (``vad_kwargs``,
+``punc_kwargs``) on the main model's device; ``bf16`` / ``quant`` apply to them only when
+their own kwargs carry them.
 
-Ported: the main model's ``generate`` without VAD. The VAD / punctuation / speaker
-pipeline (slice 2, ROADMAP items 11-12), ITN (slice 9) and ``export`` raise
+``generate`` without a VAD runs the main model over the inputs, then the punctuation
+model over each text; with a VAD it runs ``inference_with_vad``: VAD segments -> length
+sorted ``batch_size_s`` batches of segments -> ASR -> texts joined (timestamps offset by
+their segment's start) -> punctuation -> ``sentence_info`` when ``sentence_timestamp``.
+The speaker model (ROADMAP item 12), ITN (item 23) and ``export`` raise
 ``NotImplementedError``.
 """
 
@@ -22,6 +29,7 @@ import json
 import logging
 import os
 import random
+import re
 import string
 import time
 from typing import Any, Dict, List
@@ -31,12 +39,23 @@ import torch
 from funasr_tpu_torch.download.download_model_from_hub import download_model
 from funasr_tpu_torch.register import tables
 from funasr_tpu_torch.utils.misc import deep_update
+from funasr_tpu_torch.utils.vad_utils import merge_vad, slice_padding_audio_samples
 
-_NOT_PORTED = {
-    "vad_model": "the VAD pipeline (slice 2, ROADMAP item 11)",
-    "punc_model": "the punctuation model (slice 2, ROADMAP item 11)",
-    "spk_model": "the speaker model (slice 2, ROADMAP item 12)",
-}
+
+def _join_vad_texts(texts) -> str:
+    """Strip rich tags and join per-VAD-segment texts, inserting a space only when the
+    join boundary is not CJK-to-CJK (reference ``funasr/auto/auto_model.py:56-68``).
+    This surface feeds the punctuation model and sentence segmentation."""
+    cleaned = [re.sub(r"<\|[^|]*\|>", "", str(t)).strip() for t in texts]
+    cleaned = [t for t in cleaned if t]
+    if not cleaned:
+        return ""
+    joined = cleaned[0]
+    for text in cleaned[1:]:
+        sep = "" if ("㐀" <= joined[-1] <= "鿿"
+                     and "㐀" <= text[0] <= "鿿") else " "
+        joined += sep + text
+    return joined
 
 
 def _rand_key() -> str:
@@ -97,15 +116,28 @@ class AutoModel:
     def __init__(self, **kwargs):
         log_level = getattr(logging, kwargs.get("log_level", "INFO").upper())
         logging.basicConfig(level=log_level)
-        for name, what in _NOT_PORTED.items():
-            if kwargs.get(name) is not None:
-                raise NotImplementedError(f"{name}: {what} is not ported yet")
+        if kwargs.get("spk_model") is not None:
+            raise NotImplementedError("spk_model: the speaker model (a later slice, "
+                                      "ROADMAP item 12) is not ported yet")
 
         model, kwargs = self.build_model(**kwargs)
+        self.vad_model, self.vad_kwargs = self._build_sub_model(kwargs, "vad")
+        self.punc_model, self.punc_kwargs = self._build_sub_model(kwargs, "punc")
         self.kwargs = kwargs
         self.model = model
         self.model_path = kwargs.get("model_path")
         self._store_base_configs()
+
+    def _build_sub_model(self, kwargs, name: str):
+        """(``{name}_model`` built from ``{name}_kwargs`` on the main model's device, its
+        kwargs), or (None, ``{name}_kwargs``) when no such model is asked for."""
+        sub_kwargs = dict(kwargs.get(f"{name}_kwargs") or {})
+        if kwargs.get(f"{name}_model") is None:
+            return None, sub_kwargs
+        sub_kwargs.update(model=kwargs[f"{name}_model"], device=kwargs["device"])
+        if "hub" in kwargs:
+            sub_kwargs.setdefault("hub", kwargs["hub"])
+        return self.build_model(**sub_kwargs)
 
     # ------------------------------------------------------------------
 
@@ -202,20 +234,37 @@ class AutoModel:
         from funasr_tpu_torch.utils.postprocess_hotwords import (
             apply_postprocess_hotwords_to_results)
 
+        self._reset_runtime_configs()
+        if self.vad_model is not None:
+            results = self.inference_with_vad(input, input_len=input_len,
+                                              progress_callback=progress_callback, **cfg)
+            return apply_postprocess_hotwords_to_results(results, cfg)
         results = self.inference(input, input_len=input_len,
                                  progress_callback=progress_callback, **cfg)
+        if self.punc_model is not None:
+            deep_update(self.punc_kwargs, cfg)
+            for result in results:
+                punc_res = self.inference(result["text"], model=self.punc_model,
+                                          kwargs=self.punc_kwargs, **cfg)
+                if cfg.get("return_raw_text", self.kwargs.get("return_raw_text", False)):
+                    result["raw_text"] = copy.copy(result["text"])
+                result["text"] = punc_res[0]["text"]
         return apply_postprocess_hotwords_to_results(results, cfg)
 
-    def inference(self, input, input_len=None, key=None, progress_callback=None, **cfg):
-        """The main model over ``input`` in batches of ``batch_size``; ``cfg`` overrides
-        the build kwargs for this call only."""
-        self._reset_runtime_configs()
-        kwargs = self.kwargs
+    def inference(self, input, input_len=None, model=None, kwargs=None, key=None,
+                  progress_callback=None, **cfg):
+        """``model`` (the main model unless given) over ``input`` in batches of
+        ``batch_size``; ``kwargs`` are that model's build kwargs (the main model's unless
+        given), ``cfg`` overrides them for this call."""
+        if kwargs is None:
+            self._reset_runtime_configs()
+        kwargs = self.kwargs if kwargs is None else kwargs
+        kwargs.pop("cache", None)
         deep_update(kwargs, cfg)
         if kwargs.get("itn") and not kwargs.get("use_itn"):
             raise NotImplementedError("itn=True: inverse text normalization (slice 9, "
                                       "ROADMAP item 23) is not ported yet")
-        model = self.model
+        model = self.model if model is None else model
 
         batch_size = kwargs.get("batch_size", 1)
         key_list, data_list = prepare_data_iterator(
@@ -265,6 +314,120 @@ class AutoModel:
         logging.debug("speed_stats: %s rtf_avg=%.3f", speed_stats,
                       time_escape / time_speech)
         return results_all
+
+    # ------------------------------------------------------------------
+
+    def inference_with_vad(self, input, input_len=None, **cfg):
+        """VAD -> per-segment ASR in length-sorted ``batch_size_s`` batches -> merged
+        text and timestamps -> punctuation (``auto_model.py:378-538``)."""
+        from funasr_tpu_torch.utils.load_utils import load_audio
+
+        self._reset_runtime_configs()
+        kwargs = self.kwargs
+
+        # step 1: VAD
+        deep_update(self.vad_kwargs, cfg)
+        res = self.inference(input, input_len=input_len, model=self.vad_model,
+                             kwargs=self.vad_kwargs, **cfg)
+        if cfg.get("merge_vad", False):
+            for r in res:
+                r["value"] = merge_vad(r["value"], kwargs.get("merge_length_s", 15) * 1000)
+
+        # step 2: per-segment ASR with batch_size_s dynamic batching
+        deep_update(kwargs, cfg)
+        batch_size = max(int(kwargs.get("batch_size_s", 300)) * 1000, 1)
+        batch_threshold_ms = int(kwargs.get("batch_size_threshold_s", 60)) * 1000
+        kwargs["batch_size"] = batch_size
+
+        key_list, data_list = prepare_data_iterator(
+            input, input_len=input_len, data_type=kwargs.get("data_type"))
+
+        results_ret = []
+        for i, r in enumerate(res):
+            key = r["key"]
+            vadsegments = r["value"]
+            fs = kwargs["frontend"].fs if hasattr(kwargs.get("frontend"), "fs") else 16000
+            speech = load_audio(data_list[i], fs=fs, audio_fs=kwargs.get("fs", 16000))
+            speech_length = len(speech)
+            n = len(vadsegments)
+            sorted_data = sorted([(seg, idx) for idx, seg in enumerate(vadsegments)],
+                                 key=lambda x: x[0][1] - x[0][0])
+            if not sorted_data:
+                results_ret.append({"key": key, "text": "", "timestamp": []})
+                continue
+            batch_ms = max(batch_size, sorted_data[0][0][1] - sorted_data[0][0][0])
+
+            results_sorted: List[dict] = []
+            beg_idx, end_idx, max_len = 0, 1, 0
+            for j in range(n):
+                sample_len = sorted_data[j][0][1] - sorted_data[j][0][0]
+                potential = max(max_len, sample_len) * (j + 1 - beg_idx)
+                if (j < n - 1 and sample_len < batch_threshold_ms
+                        and potential < batch_ms):
+                    max_len = max(max_len, sample_len)
+                    end_idx += 1
+                    continue
+                speech_j, _ = slice_padding_audio_samples(
+                    speech, speech_length, sorted_data[beg_idx:end_idx])
+                results_sorted.extend(self.inference(speech_j, input_len=None,
+                                                     model=self.model, kwargs=kwargs, **cfg))
+                beg_idx, end_idx = end_idx, end_idx + 1
+                max_len = sample_len
+
+            if len(results_sorted) != n:
+                results_ret.append({"key": key, "text": "", "timestamp": []})
+                continue
+            restored = [None] * n
+            for j in range(n):
+                restored[sorted_data[j][1]] = results_sorted[j]
+
+            # merge texts / offset timestamps (reference :992-1038)
+            result: Dict[str, Any] = {}
+            for j in range(n):
+                for k, v in restored[j].items():
+                    if k.startswith("timestamp"):
+                        result.setdefault(k, [])
+                        for t in v:
+                            t[0] = int(t[0]) + int(vadsegments[j][0])
+                            t[1] = int(t[1]) + int(vadsegments[j][0])
+                        result[k].extend(v)
+                    elif "text" in k:
+                        result[k] = v if k not in result else result[k] + " " + v
+                    else:
+                        result[k] = v if k not in result else result[k] + v
+
+            if not result.get("text", "").strip():
+                # still one row per input key, so output aligns with inputs
+                result["key"] = key
+                result.setdefault("text", "")
+                results_ret.append(result)
+                continue
+            return_raw_text = kwargs.get("return_raw_text", False)
+
+            # step 3: punctuation over the _join_vad_texts surface (no space at CJK
+            # segment joins), as the reference pipeline does (:1063-1082)
+            punc_array = None
+            punc_input_text = _join_vad_texts(restored[j].get("text", "") for j in range(n))
+            if self.punc_model is not None:
+                deep_update(self.punc_kwargs, cfg)
+                raw_text = copy.copy(result["text"])
+                punc_res = self.inference(punc_input_text, model=self.punc_model,
+                                          kwargs=self.punc_kwargs, **cfg)
+                if return_raw_text:
+                    result["raw_text"] = raw_text
+                result["text"] = punc_res[0]["text"]
+                punc_array = punc_res[0].get("punc_array")
+
+            if kwargs.get("sentence_timestamp", False) and punc_array is not None:
+                from funasr_tpu_torch.utils.timestamp_tools import timestamp_sentence
+                result["sentence_info"] = timestamp_sentence(
+                    punc_array, result.get("timestamp", []),
+                    punc_input_text or result["text"], return_raw_text=return_raw_text)
+
+            result["key"] = key
+            results_ret.append(result)
+
+        return results_ret
 
     def export(self, input=None, **cfg):
         raise NotImplementedError("export is not ported yet (slice 5 with the serving "

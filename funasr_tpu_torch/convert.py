@@ -1,15 +1,20 @@
-"""JAX Paraformer parameters -> the port's ``state_dict``.
+"""JAX parameters -> the port's ``state_dict``.
 
-The inverse of ``funasr_tpu/convert/torch_to_jax.py::convert_paraformer``: it takes the
-JAX package's parameter tree (as numpy arrays) and gives the tensors that
-``Paraformer.load_state_dict`` takes, under FunASR's state-dict names. Layouts:
+The inverse of ``funasr_tpu/convert/torch_to_jax.py``'s ``convert_paraformer``,
+``convert_fsmn_vad`` and ``convert_ct_transformer``: it takes the JAX package's parameter
+tree (as numpy arrays) and gives the tensors that the port model's ``load_state_dict``
+takes, under FunASR's state-dict names. Layouts:
 
 * scanned layer stacks (``encoders``, ``decoders``, ``decoders2``) -> ``name.{i}``;
   single-module lists (``encoders0``, ``decoders3``) and ``embed`` -> ``name.0``;
 * Linear ``w`` (in, out) -> ``weight`` (out, in); LayerNorm ``scale`` -> ``weight``;
 * depthwise conv ``w`` (k, C) -> ``weight`` (C, 1, k);
 * full conv1d ``w`` (k, C_in, C_out) -> ``weight`` (C_out, C_in, k);
-* Embedding ``w`` -> ``weight`` unchanged;
+* Embedding ``w`` -> ``weight`` unchanged (CTTransformer's ``embed`` is one module,
+  ``embed.weight``);
+* the VAD's FSMN: ``fsmn`` is a list of blocks; ``linear`` / ``affine`` / ``in_linear*`` /
+  ``out_linear*`` sit under FunASR's ``.linear``; the memory convs ``conv_left`` /
+  ``conv_right`` ``w`` (k, C) -> ``fsmn_block.conv_*.weight`` (C, 1, k, 1);
 * int8 linears of ``ops/quant.py::quantize_params_int8`` (``{w_q8 | w_q, scale[, b]}``)
   -> ``Int8Linear`` tensors: ``w_q8`` / ``w_q`` (in, out) -> (out, in), kept int8.
   The target model is quantized first (``funasr_tpu_torch.ops.quant``, same mode), so
@@ -78,15 +83,49 @@ def _index(tree, i: int):
     return {k: _index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def _fsmn_vad(tree, target, out):
+    enc = tree["encoder"]
+
+    def linear(prefix, p):
+        out[prefix + "weight"] = np.asarray(p["w"]).T
+        if "b" in p:
+            out[prefix + "bias"] = p["b"]
+
+    for name in ("in_linear1", "in_linear2", "out_linear1", "out_linear2"):
+        linear(f"encoder.{name}.linear.", enc[name])
+    for i, block in enumerate(enc["fsmn"]):
+        prefix = f"encoder.fsmn.{i}."
+        linear(prefix + "linear.linear.", block["linear"])
+        linear(prefix + "affine.linear.", block["affine"])
+        for conv in ("conv_left", "conv_right"):
+            if conv in block:
+                w = np.asarray(block[conv]["w"]).T  # (C, k)
+                out[f"{prefix}fsmn_block.{conv}.weight"] = w[:, None, :, None]
+
+
+def _ct_transformer(tree, target, out):
+    out["embed.weight"] = tree["embed"]["w"]
+    _walk(tree["encoder"], "encoder.", target, out)
+    _walk(tree["decoder"], "decoder.", target, out)
+
+
+def _generic(tree, target, out):  # Paraformer
+    _walk(tree, "", target, out)
+
+
+_BY_MODEL = {"FsmnVADStreaming": _fsmn_vad, "CTTransformer": _ct_transformer}
+
+
 def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """JAX Paraformer params (nested dict of arrays) -> ``model``'s state dict.
+    """JAX params (nested dict of arrays) of a Paraformer, FsmnVADStreaming or
+    CTTransformer -> ``model``'s state dict.
 
     Int8 tensors stay int8, every other leaf becomes fp32. Raises if the names or
     shapes do not match ``model.state_dict()`` exactly.
     """
     target = model.state_dict()
     out: Dict[str, np.ndarray] = {}
-    _walk(np_params, "", target, out)
+    _BY_MODEL.get(type(model).__name__, _generic)(np_params, target, out)
     if set(out) != set(target):
         raise KeyError(f"parameter names differ: missing {sorted(set(target) - set(out))}, "
                        f"unexpected {sorted(set(out) - set(target))}")

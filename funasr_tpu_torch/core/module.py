@@ -21,14 +21,15 @@ def _fill(param, sample):
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialise every weight from ``generator``, with the JAX package's init rules:
-    Linear and Conv1d weights and biases uniform in +-1/sqrt(fan_in) (torch defaults,
-    ``core/layers.py::linear_init`` / ``conv1d_init``), Embedding standard normal,
+    Linear and Conv1d / Conv2d weights and biases uniform in +-1/sqrt(fan_in) (torch
+    defaults, ``core/layers.py::linear_init`` / ``conv1d_init`` /
+    ``depthwise_conv1d_init``), Embedding standard normal,
     LayerNorm ones and zeros. Samples are drawn on the generator's device and copied, so
     a CPU generator initialises a model on any device identically.
     """
     dev = generator.device
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             for p in (m.weight, m.bias):
                 if p is not None:

@@ -18,8 +18,9 @@
 // in flight. What this design does about it:
 //   * 16-byte loads and stores: a thread owns 8 bf16 or 4 fp32 channels (one vector),
 //     a warp 32 neighbouring vectors of one time chunk (512 contiguous bytes a row);
-//   * k and the left pad are template parameters (11 and 5, the path's; a generic
-//     instantiation serves any other k up to 64 and any pads): the time loop is
+//   * k and the left pad are template parameters (11 and 5, the SAN-M path's; 20 and
+//     19, the VAD's causal memory, fp32 only; a generic instantiation serves any other k
+//     up to 64 and any pads, with runtime taps read through L1): the time loop is
 //     unrolled and the k-vector window of inputs lives in registers (input row r in
 //     slot r % k); each input is loaded once per thread through a per-thread ring of
 //     PREFETCH = 16 shared-memory slots (32 KB a block) that cp.async fills 15 rows
@@ -35,7 +36,9 @@
 //     116, four blocks an SM); halo reads are (24 + 10) / 24 = 1.4x the inputs, from L2.
 //
 // Measured (NVIDIA H100 80GB HBM3, 700 W): bf16 0.0120 ms at (32, 384, 512), 63 % of the
-// bytes bound (the first port 0.0488 ms), fp32 0.0181 ms, 83 %.
+// bytes bound (the first port 0.0488 ms), fp32 0.0181 ms, 83 %. The VAD's (1, 6019, 128)
+// k = 20 fp32 took 0.0902 ms on the generic instantiation (2 % of its 1.8 us bound, 5x
+// F.conv1d), hence its own instantiation.
 //
 // x is (B, T, C) with unit channel stride and batch / time strides that are multiples of
 // the vector (it is the v slice of the fused q|k|v projection in the encoder, or the
@@ -238,8 +241,13 @@ cudaError_t dispatch(const void* x, const void* w, const void* mask, void* out, 
   if (K < 1 || K > MAX_K || left < 0 || left > K - 1 || C % V || xsb % V || xst % V ||
       reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
     return cudaErrorInvalidValue;
-  if (K == 11 && left == 5)  // the path's k and pads
+  if (K == 11 && left == 5)  // the SAN-M encoders' and decoder's k and pads
     return launch<T, 11, 5>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
+  // the VAD's causal memory (lorder 20, fp32): its window and taps take 160 registers
+  // a thread at 4 channels; bf16's 8 channels would spill, so bf16 stays generic
+  if constexpr (Vec<T>::N == 4)
+    if (K == 20 && left == 19)
+      return launch<T, 20, 19>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
   return launch<T, 0, 0>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
 }
 

@@ -5,7 +5,8 @@ Same math as the reference frontend (FunASR ``funasr/frontends/wav_frontend.py:8
 waveform * 2^15, hamming 25/10 ms fbank, LFR m/n stack, CMVN add-shift/rescale), run
 as batched tensor ops on the device the caller names. The waveform is padded to the
 JAX package's geometric bucket, which fixes the frame count and with it every shape
-downstream. The streaming ``WavFrontendOnline`` is slice 3.
+downstream. ``WavFrontendOnline`` (the VAD's chunked frontend) carries sample and LFR
+caches across chunks.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from funasr_tpu_torch.ops.fbank import fbank_batch
+from funasr_tpu_torch.ops.fbank import fbank, fbank_batch, num_frames
 from funasr_tpu_torch.ops.lfr import apply_cmvn, apply_lfr_batch, load_cmvn
 from funasr_tpu_torch.register import tables
 from funasr_tpu_torch.utils.bucket import bucket_length
@@ -104,3 +105,98 @@ class WavFrontend:
         feats, flens = feats.numpy(), flens.numpy()
         t = int(flens.max()) if len(flens) else 0
         return feats[:, :t], flens
+
+
+@tables.register("frontend_classes", "WavFrontendOnline")
+class WavFrontendOnline(WavFrontend):
+    """Streaming frontend (``funasr_tpu/frontends/wav_frontend.py::WavFrontendOnline``):
+    carries sample + LFR splice caches across chunks so the concatenated streaming
+    output matches the offline pipeline.
+
+    Cache dict: {"waveform": leftover raw samples not yet fully framed,
+                 "consumed_samples", "raw_frames": raw fbank frames emitted so far,
+                 "lfr_ctx": raw frames kept as LFR left context,
+                 "lfr_out": LFR frames emitted so far}
+    (role of reference ``input_cache``/``lfr_splice_cache``, ``wav_frontend.py:261-662``)
+    """
+
+    def init_cache(self):
+        return {
+            "waveform": np.zeros((0,), np.float32),
+            "consumed_samples": 0,   # samples fully consumed into emitted fbank frames
+            "raw_frames": 0,          # total raw fbank frames emitted so far
+            "lfr_ctx": np.zeros((0, self.n_mels), np.float32),  # raw frames kept for lfr
+            "lfr_out": 0,             # LFR frames emitted so far
+        }
+
+    def forward_streaming(self, waveforms: List[np.ndarray], cache=None,
+                          is_final: bool = False, device=None):
+        """Accumulate chunk, emit all complete LFR frames; on final, flush tail.
+
+        The fbank of the buffered samples runs on ``device`` (the CPU when None); the
+        LFR splice and CMVN stay on the host. Returns numpy (feats (1, T, D), lens (1,)),
+        possibly T = 0.
+        """
+        assert cache is not None
+        if "waveform" not in cache:
+            cache.update(self.init_cache())
+        chunk = np.concatenate([cache["waveform"]] + [w.astype(np.float32) for w in waveforms])
+        # raw fbank frames available in buffered samples
+        total = chunk.shape[0]
+        t_raw = num_frames(total, self.frame_length, self.frame_shift)
+        if t_raw == 0 and not is_final:
+            cache["waveform"] = chunk
+            return np.zeros((1, 0, self.output_size()), np.float32), np.zeros((1,), np.int32)
+
+        feats_new = np.zeros((0, self.n_mels), np.float32)
+        if t_raw > 0:
+            scale = float(1 << 15) if self.upsacle_samples else 1.0
+            wav = torch.from_numpy(chunk * scale).to(device or "cpu")
+            feats_new = fbank(
+                wav, num_mel_bins=self.n_mels, frame_length=self.frame_length,
+                frame_shift=self.frame_shift, sample_frequency=float(self.fs),
+                window_type=self.window, snip_edges=self.snip_edges).cpu().numpy()
+        # keep unconsumed samples: frames consume t_raw*shift samples; window overhang stays
+        consumed = t_raw * self.frame_shift
+        cache["waveform"] = chunk[consumed:]
+
+        # assemble raw-frame stream for LFR: previously kept context + new frames
+        stream = np.concatenate([cache["lfr_ctx"], feats_new], axis=0)
+        ctx_left = (self.lfr_m - 1) // 2
+
+        if self.lfr_m == 1 and self.lfr_n == 1:
+            out = stream
+            cache["lfr_ctx"] = np.zeros((0, self.n_mels), np.float32)
+        else:
+            first_emitted = cache["lfr_out"]  # absolute LFR index of next output
+            abs_start_of_stream = cache["raw_frames"] - cache["lfr_ctx"].shape[0]
+            total_raw = cache["raw_frames"] + feats_new.shape[0]
+            outs = []
+            i = first_emitted
+            while True:
+                # window covers raw frames [i*n - ctx_left, i*n - ctx_left + m)
+                w_beg = i * self.lfr_n - ctx_left
+                w_end = w_beg + self.lfr_m
+                if w_end > total_raw and not is_final:
+                    break
+                if is_final and i * self.lfr_n >= total_raw:
+                    break
+                idx = np.clip(np.arange(w_beg, w_end), 0, total_raw - 1)
+                rel = idx - abs_start_of_stream
+                if rel.min() < 0:
+                    rel = np.clip(rel, 0, None)  # clamped-first-frame semantics
+                rel = np.clip(rel, 0, stream.shape[0] - 1)
+                outs.append(stream[rel].reshape(-1))
+                i += 1
+            out = (np.stack(outs, axis=0) if outs
+                   else np.zeros((0, self.output_size()), np.float32))
+            cache["lfr_out"] = i
+            # keep raw frames still needed by future windows
+            next_need = i * self.lfr_n - ctx_left
+            keep_from = max(next_need - abs_start_of_stream, 0)
+            cache["lfr_ctx"] = stream[keep_from:]
+
+        cache["raw_frames"] += feats_new.shape[0]
+        if self.cmvn is not None and out.shape[0] > 0:
+            out = (out + self.cmvn[0]) * self.cmvn[1]
+        return out[None].astype(np.float32), np.asarray([out.shape[0]], np.int32)

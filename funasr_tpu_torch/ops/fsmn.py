@@ -10,8 +10,9 @@ function. The CUDA source, ``funasr_tpu_torch/csrc/fsmn.cu``, notes what bounds 
 H100 (device-memory bandwidth: 23 flops per element for k = 11; 7.5 us of bytes at
 (32, 384, 512) bf16, where the first port took 0.0488 ms) and what its design does about
 it: 16-byte loads and stores of 8 bf16 or 4 fp32 channels per thread, k and the pads as
-template parameters (11 and 5 on the path; a generic instantiation for the rest) so the
-k-vector input window stays in registers and loads run several rows ahead, the weights
+template parameters (11 and 5 on the SAN-M path, 20 and 19 for the VAD's fp32 causal
+memory; a generic instantiation for the rest) so the k-vector input window stays in
+registers and loads run several rows ahead, the weights
 read once per thread, the mask once per warp and row (as ballot bits), and the three
 elementwise passes fused away.
 

@@ -6,8 +6,9 @@ Audio sources: numpy arrays (float32 in [-1, 1), or raw int16 PCM, which passes 
 as int16 so the frontend converts it itself), ``.wav`` paths and RIFF bytes read with
 the stdlib ``wave`` module (PCM16, any channel count, resampled with
 ``scipy.signal.resample_poly`` as the JAX package does), ``.pcm`` paths and raw PCM16
-bytes. Compressed containers, other WAV sample formats, URLs and the text / fbank data
-types are not ported.
+bytes. The "text" data type passes text through (or encodes it with a tokenizer).
+Compressed containers, other WAV sample formats, URLs and the fbank data type are not
+ported.
 
 Checkpoints: a FunASR ``model.pt`` state dict loads through ``load_state_dict``; a
 pickle of the JAX package's Trainer goes through ``convert.params_from_jax``.
@@ -83,13 +84,36 @@ def load_audio(source, fs: int = 16000, audio_fs: int = 16000) -> np.ndarray:
     raise TypeError(f"unsupported audio source type {type(source)}")
 
 
+def as_unit_f32(wav: np.ndarray) -> np.ndarray:
+    """Any loaded waveform -> float32 in [-1, 1) (int16 PCM rescaled by 1/32768).
+
+    Consumers that bypass ``extract_fbank`` (the streaming VAD) call this to undo the
+    int16 passthrough that ``load_audio`` keeps for PCM16-capable frontends."""
+    if getattr(wav, "dtype", None) == np.int16:
+        return wav.astype(np.float32) / 32768.0
+    return np.asarray(wav, np.float32)
+
+
+def as_pcm16_f32(wav: np.ndarray) -> np.ndarray:
+    """Any loaded waveform -> float32 at PCM16 scale (unit floats x32768), the scale
+    kaldi-style fbank expects."""
+    if getattr(wav, "dtype", None) == np.int16:
+        return wav.astype(np.float32)
+    return np.asarray(wav, np.float32) * 32768.0
+
+
 def load_audio_text_image_video(data_in, fs: int = 16000, audio_fs: int = 16000,
-                                data_type: str = "sound") -> List[np.ndarray]:
-    """One input or a list of them -> list of waveforms (reference
-    ``load_audio_text_image_video:48``, sound only)."""
-    if data_type != "sound":
-        raise NotImplementedError(f"data_type={data_type!r} is not ported (sound only)")
+                                data_type: str = "sound", tokenizer=None) -> List[Any]:
+    """One input or a list of them -> a list (reference ``load_audio_text_image_video:48``):
+    "sound" -> waveforms; "text" -> token-id arrays with a tokenizer, else the items as
+    they are."""
+    if data_type not in ("sound", "text"):
+        raise NotImplementedError(f"data_type={data_type!r} is not ported (sound, text)")
     items = list(data_in) if isinstance(data_in, (list, tuple)) else [data_in]
+    if data_type == "text":
+        return [np.asarray(tokenizer.encode(item), dtype=np.int32)
+                if tokenizer is not None and isinstance(item, str) else item
+                for item in items]
     return [load_audio(item, fs=fs, audio_fs=audio_fs) for item in items]
 
 

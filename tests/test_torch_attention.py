@@ -173,10 +173,12 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape", [(4, 4, 384, 128), (2, 3, 77, 40), (32, 4, 384, 128),
-                                   (1, 4, 1408, 128), (3, 4, 200, 64)])
+                                   (1, 4, 1408, 128), (3, 4, 200, 64),
+                                   (1, 8, 40, 32), (2, 8, 224, 32)])  # ct-punc: 8 x 32
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, tol, shape):
     """Strided q|k|v head views, ragged lengths, a zero-length row (uniform average of V
-    over all T keys, every row compared), T not a multiple of the tile (77)."""
+    over all T keys, every row compared), T not a multiple of the tile (77), D = 32 (the
+    punctuation encoder's heads; the next head's columns sit just above D in memory)."""
     b, h, n, d = shape
     g = _gen(3)
     qkv = torch.randn(b, n, 3, h, d, generator=g).to(cuda_device, dtype)
@@ -207,6 +209,9 @@ FSMN_CARD_CASES = {
     "T not a multiple of the time tile": (4, 50, 64, 11, 5, "prefix"),
     "k = 1": (2, 97, 128, 1, 0, "prefix"),
     "k = 21": (2, 130, 512, 21, 10, "random"),
+    # the VAD's causal memory over cache + one 60 s chunk, and the punctuation encoder's
+    "VAD causal k = 20": (1, 6019, 128, 20, 19, None),
+    "punc": (1, 64, 256, 11, 5, "prefix"),
 }
 
 

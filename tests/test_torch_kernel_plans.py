@@ -44,6 +44,11 @@ SMOKE_LENS = [384 - 37 * (i % 2) for i in range(32)]  # chip_smoke's flash lengt
     # fp32 flash on the CUDA cores at the smoke's lengths (the figure beside the 3xTF32 one)
     ("flash fp32 CUDA cores", chip_smoke.flash_work(32, 4, 384, 128, SMOKE_LENS, 4), "fp32",
      137.3, "operations"),
+    # the pipeline's shapes: the VAD's causal memory over cache + a 60 s chunk, the
+    # punctuation encoder's FSMN and (8 x 32-wide heads, length 57 of 64) flash
+    ("fsmn VAD k = 20", chip_smoke.fsmn_work(1, 6019, 128, 20, 4), "fp32", 1.8, "bytes"),
+    ("fsmn punc", chip_smoke.fsmn_work(1, 64, 256, 11, 4), "fp32", 0.0, "bytes"),
+    ("flash punc fp32", chip_smoke.flash_work(1, 8, 64, 32, [57], 4), "tf32", 0.1, "bytes"),
 ])
 def test_roofline_bounds(name, work, op_type, want_us, want_by):
     ms, by = chip_smoke.bound_ms(*work, op_type)
@@ -89,6 +94,33 @@ def test_kernels_line_carries_fp32_entries():
     assert kernels["fsmn_memory"]["fp32"]["ms"] == 6.0
     assert "fp32" not in kernels["w8a8_linear"]
     assert kernels["w8a8_linear"]["launches"] == 282
+
+
+def test_kernels_line_carries_pipeline_entries():
+    """Flash and FSMN carry their rows at the pipeline's shapes under ``pipeline``, with
+    the launches of phase 8's requests summed (the bf16 punctuation row: 0, the default
+    pipeline runs fp32); W8A8 has none."""
+    row = dict(shape=(1, 2), max_abs_err=0.0, ms=1.0, call_ms=2.0, plain_ms=3.0,
+               library_ms=4.0, bound_ms=0.5, bound_by="bytes")
+    record = {(name, torch.bfloat16): row for name in chip_smoke.LIBRARY_CALLS}
+    for entries in chip_smoke.PIPELINE_ENTRIES.values():
+        for _, key, _ in entries:
+            record[key] = dict(row, ms=7.0)
+    stage = {"flash_attention": 0, "fsmn_memory": 0, "w8a8_linear": 0}
+    requests = [dict(vad_launches=dict(stage, fsmn_memory=24),
+                     punc_launches=dict(stage, fsmn_memory=n, flash_attention=n))
+                for n in (480, 500)]
+    launches = {"flash_attention": 100, "fsmn_memory": 132}
+    line = chip_smoke.kernels_line(record, launches, {"w8a8_linear": 282}, launches, requests)
+    kernels = {k["name"]: k for k in line["kernels"]}
+    assert kernels["fsmn_memory"]["pipeline"]["vad"]["launches"] == 48
+    assert kernels["fsmn_memory"]["pipeline"]["punc"]["launches_per_request"] == 490
+    assert kernels["flash_attention"]["pipeline"]["punc_fp32"]["launches"] == 980
+    assert kernels["flash_attention"]["pipeline"]["punc_bf16"]["launches"] == 0
+    assert kernels["flash_attention"]["pipeline"]["punc_fp32"]["ms"] == 7.0
+    assert "pipeline" not in kernels["w8a8_linear"]
+    assert "pipeline" not in chip_smoke.kernels_line(record, launches, {"w8a8_linear": 282},
+                                                     launches)["kernels"][0]
 
 
 def test_flash_work_counts_keys_up_to_the_lengths():
@@ -257,7 +289,9 @@ def test_tf32_rounding_is_exact_split():
 
 KERNEL_MODULES = ["funasr_tpu_torch/ops/flash_attention.py", "funasr_tpu_torch/ops/fsmn.py",
                   "funasr_tpu_torch/ops/w8a8.py", "funasr_tpu_torch/ops/quant.py",
-                  "funasr_tpu_torch/models/sanm/attention.py"]
+                  "funasr_tpu_torch/models/sanm/attention.py",
+                  "funasr_tpu_torch/models/fsmn_vad_streaming/encoder.py",
+                  "funasr_tpu_torch/models/ct_transformer/model.py"]
 
 
 @pytest.mark.parametrize("path", KERNEL_MODULES)
