@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the CUDA kernels, holds each
 against its plain PyTorch version, checks the port on CUDA against the port on the CPU,
 and drives the offline Paraformer decode, ``AutoModel(quant="w8a8")``, the default
-(fp32) ``AutoModel`` at Paraformer-large width, and the VAD -> ASR -> punctuation
-pipeline ``AutoModel(model=, vad_model=, punc_model=)``.
+(fp32) ``AutoModel`` at Paraformer-large width, the VAD -> ASR -> punctuation pipeline
+``AutoModel(model=, vad_model=, punc_model=)`` and speaker-attributed transcription
+``AutoModel(model=bicif, vad_model=, punc_model=, spk_model=)``.
 
     python3 chip_smoke.py
 
@@ -54,7 +55,18 @@ Phases (any failure raises and exits non-zero):
    windows' logits within ``PUNC_LOGIT_TOL`` of the CPU port's, and each stage's kernel
    launches (``kernel_sites`` x its calls). Prints RTFx per request, the wall ms of each
    stage (VAD, ASR, punctuation) and one profiled request (device ms by kernel, idle
-   share).
+   share);
+9. speaker (``phase_speaker``): a BiCifParaformer at PROD_CONF width with the published
+   CifPredictorV3 head, phase 8's VAD and punctuation, CAM++ at speech_campplus_sv's
+   widths, through ``AutoModel(model=, vad_model=, punc_model=, spk_model=,
+   device="cuda")`` on 4 meetings of 300 s of two synthetic voices, one
+   ``generate(**SPEAKER_CALL)`` each. Gates: integer speakers on every sentence and
+   timestamps rising inside [0, 300000] ms; each stage's launches at their sites; the
+   timestamp head and CAM++ embeddings against the CPU port; request 0 whole through
+   the CPU port (VAD segments to the ms, token boundaries, the voices separating on its
+   embeddings, cluster labels equal). Prints RTFx and the stage split per meeting, the
+   speaker stage at ``spk_kwargs`` batch 64, CAM++ alone at B = 1 / 11 / 64 and one
+   profiled meeting.
 
 Kernel times (phases 3-4): ``ms`` is device time per launch over 20 back-to-back
 launches between one pair of CUDA events, queued behind a spin kernel so that host
@@ -73,8 +85,8 @@ The second-to-last line is the kernels' JSON record (``kernels_line``: each kern
 its main path shape, with ``launches`` of the main path's run and
 ``launches_per_decode``; flash and FSMN add their fp32 figures under ``fp32``, launches
 from the fp32 ``AutoModel`` decode, and their rows at the pipeline's shapes under
-``pipeline``, launches from phase 8's four requests), the last line
-``{"ok": true, "device": {...}}``.
+``pipeline``, launches from phase 8's four requests; every kernel's launches on phase 9's
+meetings under ``speaker``), the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -656,23 +668,25 @@ def identity_cmvn(dim):
             f"<LearnRateCoef> 0 [ {' '.join(['1.0'] * dim)} ]\n</Nnet>\n")
 
 
-def write_model_dir(d, dev):
+def write_model_dir(d, dev, model_name="Paraformer", predictor="CifPredictorV2",
+                    predictor_conf=PROD_CONF["predictor_conf"]):
     """A FunASR-layout model directory at PROD_CONF width with seeded random weights."""
     import yaml
     from funasr_tpu_torch import tables
 
     g = torch.Generator(device=dev).manual_seed(0)
-    model = tables.model_classes["Paraformer"](**PROD_CONF, device=dev, generator=g)
+    model = tables.model_classes[model_name](**dict(PROD_CONF, predictor_conf=predictor_conf),
+                                             predictor=predictor, device=dev, generator=g)
     torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(d, "model.pt"))
     tokens = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(8400)] + ["<unk>"]
     with open(os.path.join(d, "tokens.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(tokens) + "\n")
     with open(os.path.join(d, "am.mvn"), "w") as f:
         f.write(identity_cmvn(PROD_CONF["input_size"]))
-    cfg = dict(model="Paraformer", model_conf=dict(sos=1, eos=2, predictor_bias=1, ctc_weight=0.0),
+    cfg = dict(model=model_name, model_conf=dict(sos=1, eos=2, predictor_bias=1, ctc_weight=0.0),
                encoder="SANMEncoder", encoder_conf=PROD_CONF["encoder_conf"],
                decoder="ParaformerSANMDecoder", decoder_conf=PROD_CONF["decoder_conf"],
-               predictor="CifPredictorV2", predictor_conf=PROD_CONF["predictor_conf"],
+               predictor=predictor, predictor_conf=predictor_conf,
                frontend="WavFrontend", frontend_conf=dict(FRONTEND_CONF, cmvn_file="am.mvn"),
                tokenizer="CharTokenizer",
                tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>"))
@@ -851,24 +865,30 @@ def craft_energy_vad(vad, g, tap=1e-3):
         out.bias[1] = 0.0
 
 
-def write_pipeline_dirs(root, dev):
-    """Three FunASR-layout model directories under `root`: the PROD_CONF Paraformer,
-    fsmn-vad (crafted energy detector) and ct-punc-c (the ASR's 8404 tokens first, then
-    filler tokens up to 272727), all from the port's seeded modules."""
-    from funasr_tpu_torch import tables
-
+def write_pipeline_dirs(root, dev, asr_writer=None):
+    """FunASR-layout model directories under `root`: the PROD_CONF Paraformer (or what
+    `asr_writer` writes), fsmn-vad (crafted energy detector) and ct-punc-c (the ASR's
+    8404 tokens first, then filler tokens up to 272727), all from the port's seeded
+    modules."""
     dirs = {name: os.path.join(root, name) for name in ("asr", "vad", "punc")}
     for d in dirs.values():
         os.makedirs(d)
-    write_model_dir(dirs["asr"], dev)
+    (asr_writer or write_model_dir)(dirs["asr"], dev)
+    write_vad_dir(dirs["vad"])
+    write_punc_dir(dirs["punc"])
+    return dirs
+
+
+def write_vad_dir(d):
+    from funasr_tpu_torch import tables
 
     g = torch.Generator().manual_seed(1)
     vad = tables.model_classes["FsmnVADStreaming"](encoder_conf=VAD_CONF, generator=g)
     craft_energy_vad(vad, g)
-    torch.save(vad.state_dict(), os.path.join(dirs["vad"], "model.pt"))
-    with open(os.path.join(dirs["vad"], "am.mvn"), "w") as f:
+    torch.save(vad.state_dict(), os.path.join(d, "model.pt"))
+    with open(os.path.join(d, "am.mvn"), "w") as f:
         f.write(identity_cmvn(VAD_CONF["input_dim"]))
-    write_config(dirs["vad"], dict(
+    write_config(d, dict(
         model="FsmnVADStreaming",
         model_conf=dict(max_end_silence_time=800, speech_noise_thres=0.6, sil_pdf_ids=[0]),
         encoder="FSMN", encoder_conf=VAD_CONF, frontend="WavFrontendOnline",
@@ -876,20 +896,23 @@ def write_pipeline_dirs(root, dev):
                            frame_shift=10, lfr_m=5, lfr_n=1, cmvn_file="am.mvn",
                            dither=0.0)))
 
+
+def write_punc_dir(d):
+    from funasr_tpu_torch import tables
+
     asr_tokens = (["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(8400)]
                   + ["<unk>"])
     tokens = asr_tokens + [f"<filler_{i}>" for i in range(PUNC_VOCAB - len(asr_tokens))]
     punc = tables.model_classes["CTTransformer"](
         encoder_conf=PUNC_ENC, vocab_size=len(tokens), **PUNC_MODEL_CONF,
         generator=torch.Generator().manual_seed(2))
-    torch.save(punc.state_dict(), os.path.join(dirs["punc"], "model.pt"))
-    with open(os.path.join(dirs["punc"], "tokens.txt"), "w", encoding="utf-8") as f:
+    torch.save(punc.state_dict(), os.path.join(d, "model.pt"))
+    with open(os.path.join(d, "tokens.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(tokens) + "\n")
-    write_config(dirs["punc"], dict(
+    write_config(d, dict(
         model="CTTransformer", model_conf=PUNC_MODEL_CONF, encoder="SANMEncoder",
         encoder_conf=PUNC_ENC, tokenizer="CharTokenizer",
         tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>")))
-    return dirs
 
 
 def long_recording(rng, seconds=REQUEST_SECONDS, fs=16000):
@@ -1090,6 +1113,420 @@ def phase_pipeline(dev, counters, card):
     return per_request
 
 
+# ---- phase 9: speaker-attributed transcription ------------------------------------------
+
+# the published timestamp head of speech_paraformer-large-vad-punc_asr_nat-zh-cn-16k-
+# common-vocab8404 (CifPredictorV3: upsample 3 by a transposed conv, then a BLSTM)
+BICIF_PREDICTOR = dict(PROD_CONF["predictor_conf"], smooth_factor2=0.25, noise_threshold2=0.01,
+                       upsample_times=3, use_cif1_cnn=False, upsample_type="cnn_blstm")
+# speech_campplus_sv_zh-cn_16k-common: the CAMPPlus defaults (feat 80, embedding 192,
+# growth 32, bn_size 4, init 128, blocks 12 / 24 / 16)
+SPK_CONF = dict(feat_dim=80, embedding_size=192, growth_rate=32, bn_size=4, init_channels=128)
+SPEAKER_REQUESTS = 4
+US_ALPHAS_TOL = 1e-4      # fp32 upsampled alphas, CUDA against the CPU (cuDNN LSTM, cuBLAS)
+US_FIRES_MIN_SHARE = 0.99  # fires of running sums within rounding of an integer may move
+SPK_EMB_REL_TOL = 1e-3    # CAM++ embeddings, per chunk, relative L2 (cuDNN conv sum order)
+BOUNDARY_MIN_SHARE = 0.99  # token boundaries equal to the ms, on segments whose ids agree
+BOUNDARY_MAX_MS = 20       # one upsampled frame: 60 ms / 3
+MIN_VOICE_AGREEMENT = 0.9  # chunk labels (2 speakers) against the voice that spoke there
+# every request's call: a fixed 800 ms end silence (the VAD config's own figure). Without
+# it the VAD's dynamic schedule ends a segment at any silence once it has been in speech
+# for a 60 s chunk, and the voices' syllable gaps would cut a turn into ~1 s segments.
+SPEAKER_CALL = dict(batch_size_s=300, preset_spk_num=2, max_end_silence_time=800)
+
+
+def write_bicif_dir(d, dev):
+    write_model_dir(d, dev, model_name="BiCifParaformer", predictor="CifPredictorV3",
+                    predictor_conf=BICIF_PREDICTOR)
+
+
+def seed_batchnorm(model, seed):
+    """Every batch norm's running statistics and affine parameters drawn from a numpy
+    seed (tests/torch_parity_util.py::seed_batchnorm)."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                n = m.num_features
+                m.running_mean.copy_(torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32)))
+                m.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)))
+                if m.affine:
+                    m.weight.copy_(torch.from_numpy(rng.uniform(0.8, 1.2, n).astype(np.float32)))
+                    m.bias.copy_(torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32)))
+    return model
+
+
+def write_spk_dir(d):
+    """cam++ as FunASR lays it out (its config names a WavFrontend, which CAM++ does not
+    use), seeded conv weights and batch-norm statistics."""
+    from funasr_tpu_torch import tables
+
+    os.makedirs(d)
+    model = seed_batchnorm(tables.model_classes["CAMPPlus"](
+        **SPK_CONF, generator=torch.Generator().manual_seed(3)), 3)
+    torch.save(model.state_dict(), os.path.join(d, "model.pt"))
+    write_config(d, dict(
+        model="CAMPPlus", model_conf=dict(SPK_CONF, config_str="batchnorm-relu",
+                                          memory_efficient=False, output_level="segment"),
+        frontend="WavFrontend", frontend_conf=dict(fs=16000, window="hamming", n_mels=80,
+                                                   frame_length=25, frame_shift=10, lfr_m=1,
+                                                   lfr_n=1, dither=0.0)))
+
+
+def voice_burst(rng, voice, n, fs=16000):
+    """Voice A (0): 100-200 Hz harmonic tones with a 3 Hz AM in 2 Hz syllables (75 %
+    voiced); voice B (1): 2-4 kHz band-limited noise bursts at 8 Hz (35 % on)
+    (tests/torch_parity_util.py::voice_burst). The short silences inside each voice make
+    a segment's first chunk, which starts in silence, look like the rest of its voice to a
+    CAM++ with random weights."""
+    tt = np.arange(n) / fs
+    rate, duty = (2.0, 0.75) if voice == 0 else (8.0, 0.35)
+    gate = ((tt * rate + rng.uniform()) % 1.0) < duty
+    if voice == 0:
+        f0 = rng.uniform(100.0, 200.0)
+        tone = sum(np.sin(2 * np.pi * f0 * h * tt) / h for h in range(1, 12))
+        return (0.12 * tone * (1 + 0.5 * np.sin(2 * np.pi * 3 * tt)) * gate).astype(np.float32)
+    spec = np.fft.rfft(rng.standard_normal(n))
+    freqs = np.fft.rfftfreq(n, 1.0 / fs)
+    spec[(freqs < 2000.0) | (freqs > 4000.0)] = 0.0
+    noise = np.fft.irfft(spec, n)
+    return (0.3 * noise / (np.abs(noise).max() + 1e-9) * gate).astype(np.float32)
+
+
+def two_voice_recording(rng, seconds=REQUEST_SECONDS, fs=16000):
+    """A meeting of two synthetic voices taking turns of 3-14 s with 1-3 s of near
+    silence (a 1e-6 noise floor) between them; (float32 waveform, [(start s, end s,
+    voice)])."""
+    wav = (rng.standard_normal(int(seconds * fs)) * 1e-6).astype(np.float32)
+    turns, t0, voice = [], rng.uniform(0.3, 1.5), 0
+    while t0 + 3.0 < seconds:
+        t1 = min(t0 + rng.uniform(3.0, 14.0), seconds - 0.5)
+        i, j = int(t0 * fs), int(t1 * fs)
+        wav[i:j] += voice_burst(rng, voice, j - i, fs)
+        turns.append((t0, t1, voice))
+        t0, voice = t1 + rng.uniform(1.0, 3.0), 1 - voice
+    return wav, turns
+
+
+def chunk_voices(chunks, turns):
+    """The voice that overlaps each [start s, end s, samples] chunk most."""
+    def overlap(c, t):
+        return max(min(c[1], t[1]) - max(c[0], t[0]), 0.0)
+    return np.asarray([max(turns, key=lambda t: overlap(c, t))[2] for c in chunks])
+
+
+class DeviceTimer:
+    """Device ms of every forward of `module`, from CUDA events recorded by forward
+    hooks; read after a synchronize."""
+
+    def __init__(self, module):
+        self.pairs = []
+        module.register_forward_pre_hook(self._start)
+        module.register_forward_hook(self._end)
+
+    def _start(self, *_):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.pairs.append([e, None])
+
+    def _end(self, *_):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.pairs[-1][1] = e
+
+    def take(self):
+        """(device ms, forwards) since the last take."""
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in self.pairs)
+        n, self.pairs = len(self.pairs), []
+        return ms, n
+
+
+class Recorder:
+    """Wraps ``obj.attr`` and keeps (args, kwargs) of every call."""
+
+    def __init__(self, obj, attr):
+        self.inner, self.calls = getattr(obj, attr), []
+        setattr(obj, attr, self)
+
+    def __call__(self, *args, **kwargs):
+        self.calls.append((args, dict(kwargs)))
+        return self.inner(*args, **kwargs)
+
+
+def sync_points(fn):
+    """The Python lines of `fn` that make the host wait for the device
+    (``torch.cuda.set_sync_debug_mode``), with their counts."""
+    import collections
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return collections.Counter(f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught)
+
+
+def campplus_alone(model, dev, card):
+    """CAM++ forwards on 1.5 s chunks' features (148 frames) at B = 1, 11 (a segment's
+    chunks) and 64: the wall of one lone forward, the device's kernel time and launches a
+    forward (torch.profiler over 3 forwards), and the calls that synchronise the host
+    with the device."""
+    x = torch.randn(64, 148, 80, generator=torch.Generator().manual_seed(0)).to(dev)
+    with torch.inference_mode():
+        for b in (1, 11, 64):
+            def forward():
+                model(x[:b])
+            lone, _ = wall_ms(forward, runs=5)
+            by_name = profile_kernels(forward, calls=3)
+            busy = sum(t for t, _ in by_name.values()) / 3
+            launches = sum(n for _, n in by_name.values()) / 3
+            syncs = sync_points(forward)
+            log(f"speaker: CAM++ alone at B = {b}: lone forward wall {lone:.3f} ms, device "
+                f"kernel time {busy:.3f} ms a forward over {launches:.0f} launches "
+                f"({lone * 1e3 / launches:.1f} us of wall each); host waits for the device "
+                f"{sum(syncs.values())} times a forward {dict(syncs.most_common(4))} on {card}")
+
+
+def segment_boundaries(results):
+    """Per ASR segment result: (text, token boundaries in ms)."""
+    return [(r["text"], [b for ts in r.get("timestamp", []) for b in ts]) for r in results]
+
+
+def phase_speaker(dev, counters, card):
+    """AutoModel(model=bicif, vad_model=vad, punc_model=punc, spk_model=cam++,
+    device="cuda") at the fp32 default: a BiCif Paraformer-large (PROD_CONF with the
+    published CifPredictorV3 head), phase 8's fsmn-vad and ct-punc-c, CAM++ at
+    speech_campplus_sv's widths, all seeded; SPEAKER_REQUESTS meetings of 300 s of two
+    synthetic voices, one ``generate(**SPEAKER_CALL)`` each (``batch_size_s=300,
+    preset_spk_num=2``, a fixed 800 ms end silence). Gates
+    (raised errors): every request's ``sentence_info`` has an int ``spk`` on every
+    sentence and timestamps rising inside [0, 300000] ms; each stage's kernel launches at
+    their sites; the timestamp head on the card against the CPU port on request 0's first
+    ASR batch (``us_alphas`` within US_ALPHAS_TOL, fires equal on US_FIRES_MIN_SHARE);
+    CAM++ embeddings of request 0's chunks against the CPU port (SPK_EMB_REL_TOL per
+    chunk); request 0 whole through the CPU port: VAD segments equal to the ms, token
+    boundaries on segments whose ids agree (BOUNDARY_MIN_SHARE equal, all within
+    BOUNDARY_MAX_MS), the voices separate on the CPU port's embeddings
+    (MIN_VOICE_AGREEMENT), and the card's cluster labels equal the CPU port's. Prints
+    RTFx and the stage split per request, the speaker stage at ``spk_kwargs`` batch 64,
+    and one profiled request. Returns the launches per request of each stage."""
+    import tempfile
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.models.campplus import utils as spk_utils
+
+    rng = np.random.default_rng(9)
+    requests = [two_voice_recording(rng) for _ in range(SPEAKER_REQUESTS)]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        dirs = write_pipeline_dirs(root, dev, asr_writer=write_bicif_dir)
+        dirs["spk"] = os.path.join(root, "spk")
+        write_spk_dir(dirs["spk"])
+        log(f"speaker: model dirs written in {time.perf_counter() - t0:.1f} s")
+        kw = dict(model=dirs["asr"], vad_model=dirs["vad"], punc_model=dirs["punc"],
+                  spk_model=dirs["spk"], log_level="WARNING")
+        t0 = time.perf_counter()
+        am = AutoModel(**kw, device="cuda")
+        log(f"speaker: AutoModel(model, vad_model, punc_model, spk_model, device='cuda') "
+            f"built in {time.perf_counter() - t0:.1f} s")
+        cpu_am = AutoModel(**kw, device="cpu")
+    models = {"asr": am.model, "vad": am.vad_model, "punc": am.punc_model, "spk": am.spk_model}
+    dtypes = {name: next(m.parameters()).dtype for name, m in models.items()}
+    if set(dtypes.values()) != {torch.float32} or type(am.model).__name__ != "BiCifParaformer":
+        raise AssertionError(f"the speaker path is not the fp32 BiCif default: {dtypes}")
+    sites = {"vad": kernel_sites(am.vad_model), "asr": kernel_sites(am.model),
+             "punc": kernel_sites(am.punc_model)}
+    log(f"speaker: CAM++ {sum(p.numel() for p in am.spk_model.parameters()) / 1e6:.2f}M "
+        f"params; kernel launches per VAD encoder call / ASR batch / punctuation window: "
+        f"{sites}")
+
+    backend = am.cb_model
+    # what the pipeline clustered: the chunk embeddings (chronological) and the chunks
+    clustered = Recorder(am, "cb_model")
+    assembled = Recorder(am, "_speaker_sentences")
+    stages = {"vad": Stage(am.vad_model, "inference", counters, keep=True),
+              "asr": Stage(am.model, "inference", counters, keep=True),
+              "punc": Stage(am.punc_model, "inference", counters),
+              "speaker": Stage(am, "_speaker_embeddings", counters),
+              "sv_chunk": Stage(spk_utils, "sv_chunk", counters),
+              "campplus": Stage(am.spk_model, "inference", counters),
+              "clustering": Stage(am, "cb_model", counters),
+              "sentences": Stage(am, "_speaker_sentences", counters)}
+    cpu_stages = {"vad": Stage(cpu_am.vad_model, "inference", (), keep=True),
+                  "asr": Stage(cpu_am.model, "inference", (), keep=True)}
+    blstm = DeviceTimer(am.model.predictor.blstm)
+    campplus = DeviceTimer(am.spk_model)
+    head = Recorder(am.model.predictor, "get_upsample_timestamp")
+    vad_calls = forward_counter(am.vad_model.encoder)
+    windows = forward_counter(am.punc_model.encoder)
+    am.generate(input=[requests[0][0][:16000 * 60]], key=["warm-up"], **SPEAKER_CALL)
+    torch.cuda.synchronize()
+    blstm.take()
+    campplus.take()
+
+    per_request, first = [], None
+    for r, (wav, turns) in enumerate(requests):
+        for st in stages.values():
+            st.reset()
+        vad_calls.clear()
+        windows.clear()
+        for rec in (head, clustered, assembled):
+            rec.calls.clear()
+        key = f"meeting_{r}"
+        t0 = time.perf_counter()
+        rows = am.generate(input=[wav], key=[key], **SPEAKER_CALL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        blstm_ms, blstm_n = blstm.take()
+        cam_ms, cam_n = campplus.take()
+        stats = dict(wall_ms=wall * 1e3, rtfx=len(wav) / 16000 / wall,
+                     segments=len(stages["vad"].results[0]["value"]),
+                     vad_calls=len(vad_calls), asr_batches=stages["asr"].calls,
+                     windows=len(windows), blstm_ms=blstm_ms, blstm_calls=blstm_n,
+                     campplus_device_ms=cam_ms, campplus_forwards=cam_n,
+                     **{f"{name}_ms": st.ms for name, st in stages.items()},
+                     **{f"{name}_launches": st.launches for name, st in stages.items()})
+        per_request.append(stats)
+        row = rows[0] if rows else {}
+        info = row.get("sentence_info", [])
+        log(f"speaker {key}: {len(wav) / 16000:.1f} s, wall {stats['wall_ms']:.2f} ms, RTFx "
+            f"{stats['rtfx']:.1f}; {stats['segments']} segments, {stats['asr_batches']} ASR "
+            f"batches, {cam_n} CAM++ forwards, {len(info)} sentences, speakers "
+            f"{sorted({s.get('spk') for s in info}, key=str)} on {card}")
+        log(f"  stages (wall ms): VAD {stats['vad_ms']:.2f} / ASR {stats['asr_ms']:.2f} "
+            f"(BLSTM event span {blstm_ms:.2f} over {blstm_n} calls) / speaker "
+            f"{stats['speaker_ms']:.2f} (sv_chunk {stats['sv_chunk_ms']:.2f}, CAM++ "
+            f"{cam_n} forwards: event span {cam_ms:.2f}, wall {stats['campplus_ms']:.2f}) / "
+            f"clustering {stats['clustering_ms']:.2f} / punctuation {stats['punc_ms']:.2f} / "
+            f"assembly {stats['sentences_ms'] - stats['clustering_ms']:.2f}")
+
+        if len(rows) != 1 or row.get("key") != key or not info:
+            raise AssertionError(f"{key}: expected one row with sentence_info, got {rows}")
+        if not all(isinstance(s.get("spk"), int) for s in info):
+            raise AssertionError(f"{key}: a sentence without an integer speaker")
+        bounds = [b for ts in row["timestamp"] for b in ts]
+        starts = [s["start"] for s in info]
+        if not (bounds == sorted(bounds) and starts == sorted(starts) and bounds
+                and 0 <= bounds[0] and bounds[-1] <= REQUEST_SECONDS * 1e3):
+            raise AssertionError(f"{key}: timestamps do not rise inside [0, 300000] ms")
+        need = {(stage, kernel): n * calls for stage, calls in
+                (("vad", stats["vad_calls"]), ("asr", stats["asr_batches"]),
+                 ("punc", stats["windows"])) for kernel, n in sites[stage].items()}
+        short = {k: (stats[f"{k[0]}_launches"][k[1]], n) for k, n in need.items()
+                 if stats[f"{k[0]}_launches"][k[1]] < n or n == 0}
+        if short:
+            raise AssertionError(f"{key}: a stage bypassed a kernel (launches, needed): "
+                                 f"{short}")
+        if r == 0:
+            first = dict(row=row, head=head.calls[0], emb=clustered.calls[0][0][0],
+                         chunks=sorted(assembled.calls[0][0][1], key=lambda c: c[0]),
+                         segments=stages["vad"].results[0]["value"],
+                         asr=segment_boundaries(stages["asr"].results))
+
+    walls = [s["wall_ms"] for s in per_request]
+    total_audio = sum(len(w) for w, _ in requests) / 16000
+    log(f"speaker: {SPEAKER_REQUESTS} requests, {total_audio:.1f} s of audio, RTFx "
+        f"{[round(s['rtfx'], 1) for s in per_request]} (all {total_audio * 1e3 / sum(walls):.1f})"
+        f"; stage wall ms, mean per request: " + ", ".join(
+            f"{name} {statistics.mean(s[f'{name}_ms'] for s in per_request):.2f}"
+            for name in stages) + f"; event spans: BLSTM "
+        f"{statistics.mean(s['blstm_ms'] for s in per_request):.2f}, CAM++ "
+        f"{statistics.mean(s['campplus_device_ms'] for s in per_request):.2f} on {card}")
+
+    # the timestamp head, CUDA against the CPU port, on request 0's first ASR batch
+    (hidden, mask), token_num = first["head"][0], first["head"][1]["token_num"]
+    with torch.inference_mode():  # the CPU port's AutoModel holds the same weights
+        card_out = head.inner(hidden, mask, token_num=token_num)
+        cpu_out = cpu_am.model.predictor.get_upsample_timestamp(
+            hidden.cpu(), mask.cpu(), token_num=token_num.cpu())
+    err = (card_out[2].cpu() - cpu_out[2]).abs().max().item()
+    fires = [set(zip(*np.nonzero(x.cpu().numpy() >= 1 - 1e-4))) for x in (card_out[3], cpu_out[3])]
+    share = len(fires[0] & fires[1]) / max(len(fires[0] | fires[1]), 1)
+    log(f"speaker: timestamp head {tuple(hidden.shape)} CUDA vs CPU: us_alphas max_abs_err "
+        f"{err:.3e} (tol {US_ALPHAS_TOL:g}), fires equal {share:.4f} of {len(fires[1])} "
+        f"(min {US_FIRES_MIN_SHARE})")
+    if not (err <= US_ALPHAS_TOL and share >= US_FIRES_MIN_SHARE):
+        raise AssertionError("the timestamp head on CUDA disagrees with the CPU port")
+
+    # request 0 whole through the CPU port
+    wav, turns = requests[0]
+    t0 = time.perf_counter()
+    cpu_rows = cpu_am.generate(input=[wav], key=["meeting_0"], **SPEAKER_CALL)
+    log(f"speaker: request 0 through the CPU port in {time.perf_counter() - t0:.1f} s")
+    cpu_segments = cpu_stages["vad"].results[0]["value"]
+    if cpu_segments != first["segments"]:
+        raise AssertionError(f"VAD segments on CUDA differ from the CPU port's: "
+                             f"{first['segments']} vs {cpu_segments}")
+    cpu_asr = segment_boundaries(cpu_stages["asr"].results)
+    agree = token_agreement([t for t, _ in first["asr"]], [t for t, _ in cpu_asr])
+    same = [(a, b) for (ta, a), (tb, b) in zip(first["asr"], cpu_asr) if ta == tb]
+    diffs = np.abs(np.concatenate([np.subtract(a, b) for a, b in same])) if same else np.zeros(0)
+    equal_share = float((diffs == 0).mean()) if len(diffs) else 0.0
+    log(f"speaker: request 0 CUDA vs CPU: token agreement {agree:.4f}; {len(same)} of "
+        f"{len(cpu_asr)} segments with equal ids, token boundaries equal to the ms "
+        f"{equal_share:.4f} (min {BOUNDARY_MIN_SHARE}), largest difference "
+        f"{diffs.max() if len(diffs) else 0} ms (max {BOUNDARY_MAX_MS}); texts equal "
+        f"{cpu_rows[0]['text'] == first['row']['text']}")
+    if not same or equal_share < BOUNDARY_MIN_SHARE or diffs.max() > BOUNDARY_MAX_MS:
+        raise AssertionError("token boundaries on CUDA differ from the CPU port's")
+
+    # CAM++ over the chunks request 0 clustered (B = 1 on the card, as the pipeline ran
+    # them), against the CPU port; the voices separate; the card's labels equal the CPU's
+    chunks, card_emb = first["chunks"], first["emb"]
+    cpu_emb = np.concatenate([cpu_am.spk_model.inference([c[2] for c in chunks[i:i + 64]])[0][0]
+                              ["spk_embedding"] for i in range(0, len(chunks), 64)])
+    rel = np.linalg.norm(card_emb - cpu_emb, axis=1) / np.linalg.norm(cpu_emb, axis=1)
+    log(f"speaker: CAM++ embeddings of request 0's {len(chunks)} chunks, CUDA (B = 1) vs "
+        f"CPU (B = 64): relative L2 max {rel.max():.3e} (tol {SPK_EMB_REL_TOL:g})")
+    if len(card_emb) != len(chunks) or not rel.max() <= SPK_EMB_REL_TOL:
+        raise AssertionError("CAM++ on CUDA disagrees with the CPU port")
+    voices = chunk_voices(chunks, turns)
+    labels = {}
+    for name, emb in (("cpu", cpu_emb), ("card", card_emb)):
+        np.random.seed(0)
+        labels[name] = spk_utils.correct_labels(backend(emb, oracle_num=2))
+    np.random.seed(0)
+    found = backend(cpu_emb).max() + 1
+    voice_share = max(float((labels["cpu"] == voices).mean()),
+                      float((labels["cpu"] != voices).mean()))
+    log(f"speaker: the CPU port's labels (2 speakers) match the voices on {voice_share:.4f} "
+        f"of {len(chunks)} chunks (min {MIN_VOICE_AGREEMENT}); without preset_spk_num the "
+        f"backend finds {found}; card labels equal the CPU port's: "
+        f"{np.array_equal(labels['card'], labels['cpu'])}")
+    if voice_share < MIN_VOICE_AGREEMENT:
+        raise AssertionError("the two voices do not separate on the CPU port's embeddings")
+    if not np.array_equal(labels["card"], labels["cpu"]):
+        raise AssertionError("cluster labels from the card's embeddings differ from the CPU's")
+
+    # the speaker stage at spk_kwargs batch_size 64 (every chunk is 1.5 s: same results)
+    am.spk_kwargs["batch_size"] = 64
+    for st in stages.values():
+        st.reset()
+    campplus.take()
+    t0 = time.perf_counter()
+    rows64 = am.generate(input=[wav], key=["meeting_0"], **SPEAKER_CALL)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    cam_ms, cam_n = campplus.take()
+    emb64 = clustered.calls[-1][0][0]
+    log(f"speaker: request 0 at spk_kwargs batch_size 64: embeddings against batch 1: "
+        f"max_abs_err {np.abs(emb64 - card_emb).max():.3e}")
+    log(f"speaker: request 0 at spk_kwargs batch_size 64: wall {wall:.2f} ms, RTFx "
+        f"{len(wav) / 16 / wall:.1f}; speaker stage {stages['speaker'].ms:.2f} ms (was "
+        f"{per_request[0]['speaker_ms']:.2f}), CAM++ {cam_n} forwards (one per ASR segment "
+        f"at most), event span {cam_ms:.2f} ms, wall {stages['campplus'].ms:.2f}; "
+        f"sentence_info equal to batch 1: "
+        f"{rows64[0]['sentence_info'] == first['row']['sentence_info']}")
+    am.spk_kwargs["batch_size"] = 1
+    campplus_alone(am.spk_model, dev, card)
+    profile_once(lambda: am.generate(input=[wav], key=["profiled"], **SPEAKER_CALL),
+                 "speaker request 0 (VAD + BiCif ASR + CAM++ + punctuation)", walls[0])
+    return per_request
+
+
 # the kernel rows at the pipeline's shapes: kernel -> [(label, record key, the phase 8
 # stage whose launches they are, None where the default fp32 pipeline does not run it)]
 PIPELINE_ENTRIES = {
@@ -1100,13 +1537,14 @@ PIPELINE_ENTRIES = {
 }
 
 
-def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None):
+def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
     the launches of one decode of the default (fp32) AutoModel, and their rows at the
     pipeline's shapes under ``pipeline``, with the launches of phase 8's requests
-    (``pipeline``: its per-request stats)."""
+    (``pipeline``: its per-request stats). Every kernel carries phase 9's launches under
+    ``speaker`` (``speaker``: its per-request stats), by stage."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -1131,6 +1569,12 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None):
             n = sum(r[f"{stage}_launches"][name] for r in pipeline) if stage else 0
             entry.setdefault("pipeline", {})[label] = dict(
                 launches=n, launches_per_request=n / len(pipeline), **record[key])
+        if speaker:
+            by_stage = {st: sum(r[f"{st}_launches"][name] for r in speaker)
+                        for st in ("vad", "asr", "punc")}
+            total = sum(by_stage.values())
+            entry["speaker"] = dict(launches=total, launches_per_request=total / len(speaker),
+                                    by_stage=by_stage)
         kernels.append(entry)
     return {"kernels": kernels}
 
@@ -1169,8 +1613,10 @@ def main():
     launches = phase_main_path(dev, funasr_tpu_torch.tables, counters, card)
     am_launches, fp32_launches = phase_automodel(dev, counters, card)
     pipeline = phase_pipeline(dev, counters, card)
+    speaker = phase_speaker(dev, counters, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline)))
+    print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
+                                  speaker)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

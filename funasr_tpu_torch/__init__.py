@@ -1,13 +1,16 @@
-"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slices 1-5: offline
-Paraformer, ``AutoModel`` with bf16 and int8 / W8A8 quantization, and the VAD -> ASR ->
-punctuation pipeline with FSMN-VAD and CT-Transformer).
+"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slices 1-6: offline
+Paraformer, ``AutoModel`` with bf16 and int8 / W8A8 quantization, the VAD -> ASR ->
+punctuation pipeline with FSMN-VAD and CT-Transformer, and speaker-attributed
+transcription: BiCif-Paraformer timestamps, CAM++ and its clustering).
 
-Imports torch and numpy, never jax and never ``funasr_tpu``. The public entry point:
+Imports torch, numpy and scipy, never jax, ``funasr_tpu`` or scikit-learn. The public
+entry point:
 
     from funasr_tpu_torch import AutoModel
-    model = AutoModel(model="<asr dir>", vad_model="<vad dir>", punc_model="<punc dir>",
-                      device="cuda")
-    results = model.generate(input=["long.wav"], batch_size_s=300)
+    model = AutoModel(model="<bicif asr dir>", vad_model="<vad dir>",
+                      punc_model="<punc dir>", spk_model="<cam++ dir>", device="cuda")
+    results = model.generate(input=["meeting.wav"], batch_size_s=300, preset_spk_num=2)
+    # results[0]["sentence_info"]: [{"text", "start", "end", "spk", "timestamp"}, ...]
 
 Importing the package registers its classes in its own ``tables``:
 
@@ -32,11 +35,14 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from funasr_tpu_torch.frontends import wav_frontend  # noqa: E402,F401
+from funasr_tpu_torch.models.bicif_paraformer import model as bicif_model  # noqa: E402,F401
+from funasr_tpu_torch.models.campplus import model as campplus_model  # noqa: E402,F401
 from funasr_tpu_torch.models.ct_transformer import model as ct_model  # noqa: E402,F401
 from funasr_tpu_torch.models.fsmn_vad_streaming import model as vad_model  # noqa: E402,F401
 from funasr_tpu_torch.models.paraformer import cif_predictor, decoder, model  # noqa: E402,F401
 from funasr_tpu_torch.models.sanm import encoder  # noqa: E402,F401
 from funasr_tpu_torch.tokenizer import char_tokenizer  # noqa: E402,F401
+from funasr_tpu_torch import parity  # noqa: E402,F401  (aliases, after every class)
 from funasr_tpu_torch.auto.auto_model import AutoModel  # noqa: E402
 
 __all__ = ["AutoModel", "tables"]

@@ -14,12 +14,18 @@ linears run the hand-written kernel of ``ops/w8a8.py`` on CUDA). ``device`` defa
 ``punc_kwargs``) on the main model's device; ``bf16`` / ``quant`` apply to them only when
 their own kwargs carry them.
 
+``spk_model`` (CAM++) is built the same way from ``spk_kwargs``, with a
+``ClusterBackend(**spk_kwargs["cb_kwargs"])`` and ``spk_mode`` ("punc_segment" by default).
+
 ``generate`` without a VAD runs the main model over the inputs, then the punctuation
 model over each text; with a VAD it runs ``inference_with_vad``: VAD segments -> length
-sorted ``batch_size_s`` batches of segments -> ASR -> texts joined (timestamps offset by
-their segment's start) -> punctuation -> ``sentence_info`` when ``sentence_timestamp``.
-The speaker model (ROADMAP item 12), ITN (item 23) and ``export`` raise
-``NotImplementedError``.
+sorted ``batch_size_s`` batches of segments -> ASR (and, with a speaker model, CAM++ over
+each segment's 1.5 s chunks at ``spk_kwargs["batch_size"]``, default 1) -> texts joined
+(timestamps offset by their segment's start) -> punctuation -> with a speaker model the
+chunk embeddings clustered (``preset_spk_num`` speakers, else found), the speaker turns
+distributed over the sentences into ``sentence_info`` (``spk``, ``start``, ``end``,
+``text``), else ``sentence_info`` when ``sentence_timestamp``. ITN (ROADMAP item 23) and
+``export`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import string
 import time
 from typing import Any, Dict, List
 
+import numpy as np
 import torch
 
 from funasr_tpu_torch.download.download_model_from_hub import download_model
@@ -116,13 +123,15 @@ class AutoModel:
     def __init__(self, **kwargs):
         log_level = getattr(logging, kwargs.get("log_level", "INFO").upper())
         logging.basicConfig(level=log_level)
-        if kwargs.get("spk_model") is not None:
-            raise NotImplementedError("spk_model: the speaker model (a later slice, "
-                                      "ROADMAP item 12) is not ported yet")
 
         model, kwargs = self.build_model(**kwargs)
         self.vad_model, self.vad_kwargs = self._build_sub_model(kwargs, "vad")
         self.punc_model, self.punc_kwargs = self._build_sub_model(kwargs, "punc")
+        self.spk_model, self.spk_kwargs = self._build_sub_model(kwargs, "spk")
+        if self.spk_model is not None:
+            from funasr_tpu_torch.models.campplus.cluster_backend import ClusterBackend
+            self.cb_model = ClusterBackend(**(self.spk_kwargs.get("cb_kwargs") or {}))
+            self.spk_mode = kwargs.get("spk_mode", "punc_segment")
         self.kwargs = kwargs
         self.model = model
         self.model_path = kwargs.get("model_path")
@@ -278,7 +287,7 @@ class AutoModel:
         # featurized and launched before batch k's results are fetched, so the host
         # work of one overlaps the device work of the other. Launches are
         # asynchronous, so one stream suffices.
-        dispatch = getattr(model, "inference_dispatch", None)
+        dispatch = dispatch_pair(model)
         pipelined = dispatch is not None and n > batch_size
 
         def _finish(res, t1, end):
@@ -303,14 +312,14 @@ class AutoModel:
             batch = {"data_in": data_list[beg:end], "key": key_list[beg:end]}
             t1 = time.perf_counter()
             if pipelined:
-                handle = dispatch(**batch, **_strip(kwargs))
+                handle = dispatch[0](**batch, **_strip(kwargs))
                 if pending is not None:
-                    _finish(model.inference_fetch(pending[0]), pending[1], pending[2])
+                    _finish(dispatch[1](pending[0]), pending[1], pending[2])
                 pending = (handle, t1, end)
             else:
                 _finish(model.inference(**batch, **_strip(kwargs)), t1, end)
         if pending is not None:
-            _finish(model.inference_fetch(pending[0]), pending[1], pending[2])
+            _finish(dispatch[1](pending[0]), pending[1], pending[2])
         logging.debug("speed_stats: %s rtf_avg=%.3f", speed_stats,
                       time_escape / time_speech)
         return results_all
@@ -318,8 +327,9 @@ class AutoModel:
     # ------------------------------------------------------------------
 
     def inference_with_vad(self, input, input_len=None, **cfg):
-        """VAD -> per-segment ASR in length-sorted ``batch_size_s`` batches -> merged
-        text and timestamps -> punctuation (``auto_model.py:378-538``)."""
+        """VAD -> per-segment ASR in length-sorted ``batch_size_s`` batches (+ CAM++ over
+        each segment's chunks) -> merged text and timestamps -> punctuation -> speaker
+        clustering and sentence assembly (``auto_model.py:378-538``)."""
         from funasr_tpu_torch.utils.load_utils import load_audio
 
         self._reset_runtime_configs()
@@ -358,6 +368,7 @@ class AutoModel:
             batch_ms = max(batch_size, sorted_data[0][0][1] - sorted_data[0][0][0])
 
             results_sorted: List[dict] = []
+            all_segments: List = []
             beg_idx, end_idx, max_len = 0, 1, 0
             for j in range(n):
                 sample_len = sorted_data[j][0][1] - sorted_data[j][0][0]
@@ -369,8 +380,12 @@ class AutoModel:
                     continue
                 speech_j, _ = slice_padding_audio_samples(
                     speech, speech_length, sorted_data[beg_idx:end_idx])
-                results_sorted.extend(self.inference(speech_j, input_len=None,
-                                                     model=self.model, kwargs=kwargs, **cfg))
+                results = self.inference(speech_j, input_len=None, model=self.model,
+                                         kwargs=kwargs, **cfg)
+                if self.spk_model is not None:
+                    all_segments.extend(self._speaker_embeddings(
+                        speech_j, sorted_data[beg_idx:end_idx], results, cfg))
+                results_sorted.extend(results)
                 beg_idx, end_idx = end_idx, end_idx + 1
                 max_len = sample_len
 
@@ -391,6 +406,9 @@ class AutoModel:
                             t[0] = int(t[0]) + int(vadsegments[j][0])
                             t[1] = int(t[1]) + int(vadsegments[j][0])
                         result[k].extend(v)
+                    elif k == "spk_embedding":
+                        result[k] = (v if k not in result
+                                     else np.concatenate([result[k], v], 0))
                     elif "text" in k:
                         result[k] = v if k not in result else result[k] + " " + v
                     else:
@@ -398,6 +416,7 @@ class AutoModel:
 
             if not result.get("text", "").strip():
                 # still one row per input key, so output aligns with inputs
+                result.pop("spk_embedding", None)
                 result["key"] = key
                 result.setdefault("text", "")
                 results_ret.append(result)
@@ -418,20 +437,85 @@ class AutoModel:
                 result["text"] = punc_res[0]["text"]
                 punc_array = punc_res[0].get("punc_array")
 
-            if kwargs.get("sentence_timestamp", False) and punc_array is not None:
+            # step 4: speaker clustering + sentence assembly (:502-533)
+            if (self.spk_model is not None and kwargs.get("return_spk_res", True)
+                    and "spk_embedding" in result):
+                result["sentence_info"] = self._speaker_sentences(
+                    result, all_segments, punc_array, punc_input_text, return_raw_text,
+                    kwargs.get("preset_spk_num"))
+            elif kwargs.get("sentence_timestamp", False) and punc_array is not None:
                 from funasr_tpu_torch.utils.timestamp_tools import timestamp_sentence
                 result["sentence_info"] = timestamp_sentence(
                     punc_array, result.get("timestamp", []),
                     punc_input_text or result["text"], return_raw_text=return_raw_text)
+            result.pop("spk_embedding", None)
 
             result["key"] = key
             results_ret.append(result)
 
         return results_ret
 
+    def _speaker_embeddings(self, speech_j, segments, results, cfg):
+        """CAM++ over each ASR segment's 1.5 s / 0.75 s chunks (``sv_chunk``) in batches
+        of ``spk_kwargs["batch_size"]`` (default 1), the embeddings stored on that
+        segment's result (``auto_model.py:431-444``). Returns the chunks
+        ([start s, end s, samples])."""
+        from funasr_tpu_torch.models.campplus.utils import sv_chunk
+
+        chunks = []
+        for b, wav in enumerate(speech_j):
+            seg = segments[b][0]
+            seg_chunks = sv_chunk([[seg[0] / 1000.0, seg[1] / 1000.0, np.asarray(wav)]])
+            chunks.extend(seg_chunks)
+            spk_res = self.inference([c[2] for c in seg_chunks], input_len=None,
+                                     model=self.spk_model, kwargs=self.spk_kwargs, **cfg)
+            results[b]["spk_embedding"] = np.concatenate(
+                [np.asarray(r["spk_embedding"]) for r in spk_res], 0)
+        return chunks
+
+    def _speaker_sentences(self, result, all_segments, punc_array, punc_input_text,
+                           return_raw_text, preset_spk_num):
+        """Cluster the chunk embeddings, merge the chunk labels into speaker turns and
+        give each sentence the speaker it overlaps most (``auto_model.py:503-526``): the
+        punctuation's sentences under ``spk_mode="punc_segment"``, else the whole text as
+        one sentence."""
+        from funasr_tpu_torch.models.campplus.utils import distribute_spk
+        from funasr_tpu_torch.models.campplus.utils import postprocess as spk_postprocess
+        from funasr_tpu_torch.utils.timestamp_tools import timestamp_sentence
+
+        all_segments = sorted(all_segments, key=lambda x: x[0])
+        embeddings = np.asarray(result["spk_embedding"])
+        labels = self.cb_model(embeddings, oracle_num=preset_spk_num)
+        sv_output = spk_postprocess(all_segments, None, labels, embeddings)
+        timestamp = result.get("timestamp", [])
+        if self.spk_mode == "punc_segment" and punc_array is not None:
+            sentence_list = timestamp_sentence(punc_array, timestamp, punc_input_text,
+                                               return_raw_text=return_raw_text)
+        else:
+            sentence_list = [dict(text=result["text"],
+                                  start=timestamp[0][0] if timestamp else 0,
+                                  end=timestamp[-1][1] if timestamp else 0,
+                                  timestamp=timestamp)]
+        distribute_spk(sentence_list, sv_output)
+        return sentence_list
+
     def export(self, input=None, **cfg):
         raise NotImplementedError("export is not ported yet (slice 5 with the serving "
                                   "binaries, ROADMAP item 17)")
+
+
+def dispatch_pair(model):
+    """(``inference_dispatch``, ``inference_fetch``) of ``model`` when the class that
+    defines its ``inference`` also defines both, else None. A subclass that overrides
+    ``inference`` without its own pair then runs its ``inference``: the JAX package takes
+    the inherited pair whenever it exists (``auto_model.py:323-324``) and so loses the
+    subclass's results (ROADMAP section 3). ``BiCifParaformer`` keeps Paraformer's
+    ``inference`` and pair, whose hooks it overrides, so its timestamps survive."""
+    owner = next((c for c in type(model).__mro__ if "inference" in vars(c)), None)
+    if owner is None or not all(f in vars(owner) for f in ("inference_dispatch",
+                                                             "inference_fetch")):
+        return None
+    return model.inference_dispatch, model.inference_fetch
 
 
 def _strip(kwargs: Dict[str, Any]) -> Dict[str, Any]:

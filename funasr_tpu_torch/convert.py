@@ -1,9 +1,10 @@
 """JAX parameters -> the port's ``state_dict``.
 
-The inverse of ``funasr_tpu/convert/torch_to_jax.py``'s ``convert_paraformer``,
-``convert_fsmn_vad`` and ``convert_ct_transformer``: it takes the JAX package's parameter
-tree (as numpy arrays) and gives the tensors that the port model's ``load_state_dict``
-takes, under FunASR's state-dict names. Layouts:
+The inverse of ``funasr_tpu/convert/torch_to_jax.py``'s ``convert_paraformer`` (the
+BiCif predictor's head included, ``:165-188``), ``convert_fsmn_vad``,
+``convert_ct_transformer`` and ``convert_campplus`` (``:244-288``): it takes the JAX
+package's parameter tree (as numpy arrays) and gives the tensors that the port model's
+``load_state_dict`` takes, under FunASR's state-dict names. Layouts:
 
 * scanned layer stacks (``encoders``, ``decoders``, ``decoders2``) -> ``name.{i}``;
   single-module lists (``encoders0``, ``decoders3``) and ``embed`` -> ``name.0``;
@@ -15,6 +16,14 @@ takes, under FunASR's state-dict names. Layouts:
 * the VAD's FSMN: ``fsmn`` is a list of blocks; ``linear`` / ``affine`` / ``in_linear*`` /
   ``out_linear*`` sit under FunASR's ``.linear``; the memory convs ``conv_left`` /
   ``conv_right`` ``w`` (k, C) -> ``fsmn_block.conv_*.weight`` (C, 1, k, 1);
+* the CifPredictorV3 head: ``upsample_cnn`` ``w`` is torch's ConvTranspose1d
+  (C_in, C_out, K) already and is not transposed; ``blstm_fw`` / ``blstm_bw`` ``w_ih`` /
+  ``w_hh`` (in, 4H) -> ``blstm.weight_{ih,hh}_l0[_reverse]`` (4H, in);
+* CAM++: conv2d ``w`` HWIO -> ``weight`` OIHW; batch norm ``mean`` / ``var`` / ``scale``
+  / ``bias`` -> ``running_mean`` / ``running_var`` / ``weight`` / ``bias``, plus a zero
+  ``num_batches_tracked``; the FCM blocks ``head.layer{1,2}.{i}`` (0-based) with
+  ``shortcut.0`` / ``shortcut.1``, the dense layers ``xvector.block{i}.tdnnd{j}``
+  (1-based), every batch norm of the trunk under ``.batchnorm``;
 * int8 linears of ``ops/quant.py::quantize_params_int8`` (``{w_q8 | w_q, scale[, b]}``)
   -> ``Int8Linear`` tensors: ``w_q8`` / ``w_q`` (in, out) -> (out, in), kept int8.
   The target model is quantized first (``funasr_tpu_torch.ops.quant``, same mode), so
@@ -113,14 +122,80 @@ def _generic(tree, target, out):  # Paraformer
     _walk(tree, "", target, out)
 
 
-_BY_MODEL = {"FsmnVADStreaming": _fsmn_vad, "CTTransformer": _ct_transformer}
+def _bicif(tree, target, out):
+    """Paraformer, with the CifPredictorV3 head's transposed conv and BLSTM by hand."""
+    pred = dict(tree["predictor"])
+    up = pred.pop("upsample_cnn")
+    lstm = {"": pred.pop("blstm_fw", None), "_reverse": pred.pop("blstm_bw", None)}
+    _walk({**tree, "predictor": pred}, "", target, out)
+    out["predictor.upsample_cnn.weight"] = up["w"]
+    out["predictor.upsample_cnn.bias"] = up["b"]
+    for suffix, p in lstm.items():
+        if p is not None:
+            for name in ("ih", "hh"):
+                out[f"predictor.blstm.weight_{name}_l0{suffix}"] = np.asarray(p[f"w_{name}"]).T
+                out[f"predictor.blstm.bias_{name}_l0{suffix}"] = p[f"b_{name}"]
+
+
+def _campplus(tree, target, out):
+    def bn(prefix, p):
+        out[prefix + "running_mean"] = p["mean"]
+        out[prefix + "running_var"] = p["var"]
+        out[prefix + "num_batches_tracked"] = np.zeros((), np.int64)
+        if "scale" in p:
+            out[prefix + "weight"] = p["scale"]
+            out[prefix + "bias"] = p["bias"]
+
+    def conv(prefix, p):
+        w = np.asarray(p["w"])
+        out[prefix + "weight"] = (w.transpose(3, 2, 0, 1) if w.ndim == 4  # HWIO -> OIHW
+                                  else w.transpose(2, 1, 0))  # (k, C_in, C_out)
+        if "b" in p:
+            out[prefix + "bias"] = p["b"]
+
+    head = tree["head"]
+    for name in ("conv1", "conv2"):
+        conv(f"head.{name}.", head[name])
+    for name in ("bn1", "bn2"):
+        bn(f"head.{name}.", head[name])
+    for li in (1, 2):
+        for bi, block in enumerate(head[f"layer{li}"]):
+            prefix = f"head.layer{li}.{bi}."
+            conv(prefix + "conv1.", block["conv1"])
+            conv(prefix + "conv2.", block["conv2"])
+            bn(prefix + "bn1.", block["bn1"])
+            bn(prefix + "bn2.", block["bn2"])
+            if "shortcut" in block:
+                conv(prefix + "shortcut.0.", block["shortcut"]["conv"])
+                bn(prefix + "shortcut.1.", block["shortcut"]["bn"])
+    xv = tree["xvector"]
+    conv("xvector.tdnn.linear.", xv["tdnn"]["linear"])
+    bn("xvector.tdnn.nonlinear.batchnorm.", xv["tdnn"]["bn"])
+    for i in range(1, 4):
+        for j, layer in enumerate(xv[f"block{i}"]):
+            prefix = f"xvector.block{i}.tdnnd{j + 1}."
+            bn(prefix + "nonlinear1.batchnorm.", layer["nonlinear1"])
+            conv(prefix + "linear1.", layer["linear1"])
+            bn(prefix + "nonlinear2.batchnorm.", layer["nonlinear2"])
+            for name, p in layer["cam_layer"].items():
+                conv(f"{prefix}cam_layer.{name}.", p)
+        bn(f"xvector.transit{i}.nonlinear.batchnorm.", xv[f"transit{i}"]["nonlinear"])
+        conv(f"xvector.transit{i}.linear.", xv[f"transit{i}"]["linear"])
+    bn("xvector.out_nonlinear.batchnorm.", xv["out_nonlinear"])
+    if "dense" in xv:
+        conv("xvector.dense.linear.", xv["dense"]["linear"])
+        bn("xvector.dense.nonlinear.batchnorm.", xv["dense"]["nonlinear"])
+
+
+_BY_MODEL = {"FsmnVADStreaming": _fsmn_vad, "CTTransformer": _ct_transformer,
+             "BiCifParaformer": _bicif, "CAMPPlus": _campplus}
 
 
 def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """JAX params (nested dict of arrays) of a Paraformer, FsmnVADStreaming or
-    CTTransformer -> ``model``'s state dict.
+    """JAX params (nested dict of arrays) of a Paraformer, BiCifParaformer,
+    FsmnVADStreaming, CTTransformer or CAMPPlus -> ``model``'s state dict.
 
-    Int8 tensors stay int8, every other leaf becomes fp32. Raises if the names or
+    Int8 and int64 tensors keep their type, every other leaf becomes fp32. Raises if the names or
     shapes do not match ``model.state_dict()`` exactly.
     """
     target = model.state_dict()
@@ -131,7 +206,8 @@ def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor
                        f"unexpected {sorted(set(out) - set(target))}")
     sd = {}
     for name, arr in out.items():
-        dtype = np.int8 if target[name].dtype == torch.int8 else np.float32
+        dtype = {torch.int8: np.int8, torch.int64: np.int64}.get(target[name].dtype,
+                                                                 np.float32)
         t = torch.from_numpy(np.array(arr, dtype=dtype))  # a writable copy
         if t.shape != target[name].shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(target[name].shape)}")

@@ -67,6 +67,18 @@ def conv1d(x, weight, bias=None, *, left_pad: int = 0, right_pad: int = 0):
                   bias)
 
 
+def conv_transpose1d_stride_eq_kernel(x, weight, bias=None):
+    """``nn.ConvTranspose1d`` with stride == kernel (``core/layers.py:188-194``): each
+    input frame emits K output frames. x (B, T, C_in), weight (C_in, C_out, K) ->
+    (B, T * K, C_out), as one GEMM with ``linear``'s numerics (fp32 accumulation, the
+    bias added before the one rounding)."""
+    c_in, c_out, k = weight.shape
+    w = weight.permute(2, 1, 0).reshape(k * c_out, c_in)  # row k * C_out + d
+    b = None if bias is None else bias.repeat(k)
+    y = linear(x, w, b)  # (B, T, K * C_out)
+    return y.reshape(x.shape[0], x.shape[1] * k, c_out)
+
+
 def embedding(ids, weight, *, dtype=torch.float32):
     return F.embedding(ids, weight).to(dtype)
 

@@ -6,7 +6,10 @@ package's bucketing: (B, T) padded to (next pow2, next multiple of 128), a decod
 token budget of T_bucket/2 + 16 and a re-decode at the full T+1 budget when any row
 saturates it (``model.py:306-331``). Features are cast to the weights' dtype, as
 ``bench.py`` casts them for its bf16 decode. ``inference`` is the dispatch / fetch pair
-of the JAX package. Training, CTC and specaug are later slices.
+of the JAX package; ``pred_timestamp=True`` adds CIF timestamps, whose alphas and peaks
+ride in the fetch's one device-to-host copy. Subclasses change the decode's outputs
+(``decode_outputs``) and each row's result (``transcript``), so the pair serves them
+too. Training, CTC and specaug are later slices.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import logging
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -24,6 +28,7 @@ from funasr_tpu_torch.register import tables
 from funasr_tpu_torch.utils import postprocess_utils
 from funasr_tpu_torch.utils.bucket import pad_feats_bucketed
 from funasr_tpu_torch.utils.load_utils import extract_fbank, load_audio_text_image_video
+from funasr_tpu_torch.utils.timestamp_tools import ts_prediction_lfr6_standard
 
 
 @tables.register("model_classes", "Paraformer")
@@ -152,11 +157,22 @@ class Paraformer(nn.Module):
 
         ``data_in``: one input or a list of numpy waveforms (float32 in [-1, 1) or raw
         int16 PCM), ``.wav`` / ``.pcm`` paths and bytes. Returns (results, meta): one
-        ``{"key", "text"}`` per input (``{"key", "token_int"}`` without a tokenizer).
+        ``{"key", "text"}`` per input (``{"key", "token_int"}`` without a tokenizer), with
+        ``"timestamp"`` (ms per token) under ``pred_timestamp=True``.
         """
         return self.inference_fetch(self.inference_dispatch(
             data_in, data_lengths=data_lengths, key=key, tokenizer=tokenizer,
             frontend=frontend, **kwargs))
+
+    def wants_timestamps(self, kwargs) -> bool:
+        return bool(kwargs.get("pred_timestamp", False))
+
+    def decode_outputs(self, sp, ln, max_tokens: int, timestamps: bool):
+        """One padded batch on the device -> (yseq (B, K), token_lens (B,), enc_lens (B,),
+        ts): ts is the CIF's (alphas, peaks), each (B, T + 1), when ``timestamps``, else
+        None."""
+        yseq, token_lens, _, alphas, peaks, _, enc_lens = self.infer_core(sp, ln, max_tokens)
+        return yseq, token_lens, enc_lens, ((alphas, peaks) if timestamps else None)
 
     def inference_dispatch(self, data_in, data_lengths=None, key=None, tokenizer=None,
                            frontend=None, **kwargs):
@@ -164,8 +180,6 @@ class Paraformer(nn.Module):
         (``model.py:357-391``): returns a handle for :meth:`inference_fetch`. Launches
         are asynchronous, so the caller can prepare the next batch while this one runs
         (``AutoModel.inference`` double-buffers with the pair)."""
-        if kwargs.get("pred_timestamp", False):
-            raise NotImplementedError("timestamps are not ported")
         meta_data = {}
         t0 = time.perf_counter()
         audio_list = load_audio_text_image_video(
@@ -177,15 +191,16 @@ class Paraformer(nn.Module):
             audio_list, data_type=kwargs.get("data_type", "sound"), frontend=frontend,
             device=self.device)
         meta_data["extract_feat"] = f"{time.perf_counter() - t1:0.3f}"
+        timestamps = self.wants_timestamps(kwargs)
         with torch.inference_mode():
             sp, ln, b = pad_feats_bucketed(speech, speech_lengths)
             sp = sp.to(self.dtype)
             mt = self._max_tokens_for(sp.shape[1])
-            yseq, token_lens = self.infer_core(sp, ln, mt)[:2]
-            # one int32 (B, 2 + K) block: the fetch's single device-to-host copy
-            packed = torch.cat([ln[:b, None], token_lens[:b, None], yseq[:b]], dim=1)
-        return {"packed": packed, "sp": sp, "ln": ln, "mt": mt, "b": b, "key": key,
-                "tokenizer": tokenizer, "frontend": frontend, "meta": meta_data}
+            out = self.decode_outputs(sp, ln, mt, timestamps)
+            packed = _pack(ln, out, b)
+        return {"packed": packed, "k": out[0].shape[1], "sp": sp, "ln": ln, "mt": mt,
+                "b": b, "timestamps": timestamps, "key": key, "tokenizer": tokenizer,
+                "frontend": frontend, "kwargs": kwargs, "meta": meta_data}
 
     def inference_fetch(self, handle):
         """The blocking half (``model.py:393-438``): one device-to-host copy, the
@@ -193,14 +208,17 @@ class Paraformer(nn.Module):
         b, sp, mt = handle["b"], handle["sp"], handle["mt"]
         tokenizer, key, frontend = handle["tokenizer"], handle["key"], handle["frontend"]
         meta_data = handle["meta"]
-        packed = handle["packed"].cpu().numpy()
-        speech_lengths, token_lens, yseq = packed[:, 0], packed[:, 1], packed[:, 2:]
-        if mt <= sp.shape[1] and (token_lens >= mt).any():
+        ints, ts = _unpack(handle["packed"].cpu().numpy(), handle["k"])
+        speech_lengths = ints[:, 0]
+        if mt <= sp.shape[1] and (ints[:, 1] >= mt).any():
             logging.warning("CIF token count hit the %d-token bucket budget; "
                             "re-decoding with the full budget", mt)
             with torch.inference_mode():
-                out = self.infer_core(sp, handle["ln"], sp.shape[1] + 1)
-            yseq, token_lens = out[0][:b].cpu().numpy(), out[1][:b].cpu().numpy()
+                out = self.decode_outputs(sp, handle["ln"], sp.shape[1] + 1,
+                                          handle["timestamps"])
+                ints, ts = _unpack(_pack(handle["ln"], out, b).cpu().numpy(),
+                                   out[0].shape[1])
+        token_lens, enc_lens, yseq = ints[:, 1], ints[:, 2], ints[:, 3:]
         meta_data["batch_data_time"] = (
             float(speech_lengths.sum()) * frontend.frame_shift_ms * frontend.lfr_n / 1000.0)
 
@@ -214,8 +232,47 @@ class Paraformer(nn.Module):
                 results.append({"key": key[i], "token_int": token_int})
                 continue
             token = tokenizer.ids2tokens(token_int)
-            text = tokenizer.tokens2text(token)
-            if not hasattr(tokenizer, "bpemodel"):
-                text, _ = postprocess_utils.sentence_postprocess(token)
-            results.append({"key": key[i], "text": text})
+            row_ts = None if ts is None else (ts[0][i], ts[1][i])
+            results.append({"key": key[i], **self.transcript(
+                token, tokenizer, int(enc_lens[i]), row_ts, handle["kwargs"])})
         return results, meta_data
+
+    def transcript(self, token, tokenizer, enc_len: int, ts, kwargs) -> dict:
+        """One row's ``{"text"[, "timestamp"]}`` from its tokens and, under
+        ``pred_timestamp``, its CIF (alphas, peaks) (``model.py:420-435``). The JAX
+        package passes the peaks in ``ts_prediction_lfr6_standard``'s alphas slot and
+        the alphas in its peaks slot; the port copies that order (ROADMAP section 3)."""
+        text = tokenizer.tokens2text(token)
+        if ts is not None:
+            alphas, peaks = ts
+            _, timestamp = ts_prediction_lfr6_standard(
+                peaks, alphas, list(token), vad_offset=kwargs.get("begin_time", 0),
+                upsample_rate=1)
+            text, timestamp, _ = postprocess_utils.sentence_postprocess(token, timestamp)
+            return {"text": text, "timestamp": timestamp}
+        if not hasattr(tokenizer, "bpemodel"):
+            text, _ = postprocess_utils.sentence_postprocess(token)
+        return {"text": text}
+
+
+def _pack(ln, out, b: int):
+    """The first ``b`` rows of a decode's outputs as one block, for a single
+    device-to-host copy: int32 (B, 3 + K) = [speech length, token count, encoder
+    length, ids]; with timestamps, that block's bits viewed as fp32 followed by the two
+    timestamp arrays, (B, 3 + K + 2 T')."""
+    yseq, token_lens, enc_lens, ts = out
+    ints = torch.cat([ln[:b, None], token_lens[:b, None], enc_lens[:b, None].to(torch.int32),
+                      yseq[:b]], dim=1).to(torch.int32)
+    if ts is None:
+        return ints
+    return torch.cat([ints.view(torch.float32), ts[0][:b].float(), ts[1][:b].float()], dim=1)
+
+
+def _unpack(block, k: int):
+    """``_pack``'s block on the host -> (int32 (B, 3 + K), None or (a, b) fp32 rows)."""
+    if block.dtype == np.int32:
+        return block, None
+    ints = np.ascontiguousarray(block[:, : 3 + k]).view(np.int32)
+    rest = block[:, 3 + k:]
+    n = rest.shape[1] // 2
+    return ints, (rest[:, :n], rest[:, n:])

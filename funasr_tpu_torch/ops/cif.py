@@ -6,6 +6,8 @@
 * weights: a firing frame splits its alpha between the completing token
   (``floor(csum[t]) - csum[t-1]``) and the next one (``csum[t] - floor(csum[t])``).
 * token embeddings: one fp32 (B,K,T) x (B,T,D) product against the weight matrix.
+* ``fires_thr``: the fire trace at another threshold (the timestamp head's
+  ``threshold - 1e-4``), through ``cif_fires`` on ``alphas / threshold``.
 
 The cumsum sums in another order than XLA's, on the CPU and more so on the GPU, so a
 fire count can differ from the JAX package's only where a running sum sits within
@@ -25,6 +27,14 @@ def cif_fires(alphas):
     fire_mask = floor > prev_floor
     fires = fire_mask.float() + csum - floor
     return fires, fire_mask, csum
+
+
+def fires_thr(alphas, threshold: float):
+    """The sequential fire trace at ``threshold`` (reference ``cif_wo_hidden``), fp32:
+    ``cif_fires(alphas / threshold) * threshold``
+    (``funasr_tpu/models/bicif_paraformer/cif_predictor.py:81-87``)."""
+    fires, _, _ = cif_fires(alphas.float() / threshold)
+    return fires * threshold
 
 
 def _one_hot(idx, k: int):

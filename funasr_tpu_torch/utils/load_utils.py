@@ -1,14 +1,15 @@
-"""Input and checkpoint loading for the port (the sound subset of
+"""Input and checkpoint loading for the port (the sound and text parts of
 ``funasr_tpu/utils/load_utils.py`` and the loaders of
 ``funasr_tpu/convert/torch_to_jax.py:1038-1079``).
 
 Audio sources: numpy arrays (float32 in [-1, 1), or raw int16 PCM, which passes through
-as int16 so the frontend converts it itself), ``.wav`` paths and RIFF bytes read with
-the stdlib ``wave`` module (PCM16, any channel count, resampled with
-``scipy.signal.resample_poly`` as the JAX package does), ``.pcm`` paths and raw PCM16
-bytes. The "text" data type passes text through (or encodes it with a tokenizer).
-Compressed containers, other WAV sample formats, URLs and the fbank data type are not
-ported.
+as int16 so the frontend converts it itself), lists and tuples of samples, ``.wav``
+paths and RIFF bytes (copies of the JAX package's parser: 8/16/24/32-bit integer,
+float32, G.711 mu-law and A-law, any channel count), ``.pcm`` paths and raw PCM16 bytes,
+all resampled with ``scipy.signal.resample_poly`` as the JAX package does. The "text"
+data type passes text through (or encodes it with a tokenizer). Compressed containers
+(mp3, flac, ogg, mp4, ...) raise: they need the native codec or ``ffmpeg`` (ROADMAP
+item 9). URLs raise: the port fetches nothing. The fbank data type is not ported.
 
 Checkpoints: a FunASR ``model.pt`` state dict loads through ``load_state_dict``; a
 pickle of the JAX package's Trainer goes through ``convert.params_from_jax``.
@@ -16,17 +17,106 @@ pickle of the JAX package's Trainer goes through ``convert.params_from_jax``.
 
 from __future__ import annotations
 
-import io
 import logging
 import math
 import os
 import pickle
-import wave
+import struct
 import zipfile
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+
+
+def _g711_ulaw_decode(u8: np.ndarray) -> np.ndarray:
+    """ITU-T G.711 mu-law -> float32 in [-1, 1] (telephony WAV format 7)."""
+    u = (~u8).astype(np.int32) & 0xFF
+    sign = u & 0x80
+    exponent = (u >> 4) & 0x07
+    mantissa = u & 0x0F
+    mag = ((mantissa << 3) + 0x84 << exponent) - 0x84
+    return np.where(sign, -mag, mag).astype(np.float32) / 32768.0
+
+
+def _g711_alaw_decode(a8: np.ndarray) -> np.ndarray:
+    """ITU-T G.711 A-law -> float32 in [-1, 1] (telephony WAV format 6)."""
+    a = (a8.astype(np.int32) ^ 0x55) & 0xFF
+    sign = a & 0x80
+    exponent = (a >> 4) & 0x07
+    mantissa = a & 0x0F
+    mag = np.where(exponent == 0, (mantissa << 4) + 8,
+                   ((mantissa << 4) + 0x108) << (exponent - 1))
+    # A-law transmits bit 7 = 1 for POSITIVE samples (opposite of mu-law)
+    return np.where(sign, mag, -mag).astype(np.float32) / 32768.0
+
+
+def _parse_wav_bytes(data: bytes) -> Tuple[np.ndarray, int]:
+    """Minimal RIFF/WAVE parser: PCM 8/16/24/32, float32, G.711 mu-law/A-law,
+    mono/multi-channel -> (float32 mono, sample rate)."""
+    if data[:4] != b"RIFF" or data[8:12] != b"WAVE":
+        raise ValueError("not a RIFF/WAVE stream")
+    pos = 12
+    fmt = None
+    raw = None
+    while pos + 8 <= len(data):
+        chunk_id = data[pos : pos + 4]
+        size = struct.unpack("<I", data[pos + 4 : pos + 8])[0]
+        body = data[pos + 8 : pos + 8 + size]
+        if chunk_id == b"fmt ":
+            fmt = struct.unpack("<HHIIHH", body[:16])
+        elif chunk_id == b"data":
+            raw = body
+        pos += 8 + size + (size & 1)
+    if fmt is None or raw is None:
+        raise ValueError("missing fmt/data chunk")
+    audio_format, channels, sample_rate, _, _, bits = fmt
+    if audio_format == 3 or (audio_format == 0xFFFE and bits == 32):
+        wav = np.frombuffer(raw, dtype=np.float32)
+    elif audio_format == 7:  # G.711 mu-law
+        wav = _g711_ulaw_decode(np.frombuffer(raw, dtype=np.uint8))
+    elif audio_format == 6:  # G.711 A-law
+        wav = _g711_alaw_decode(np.frombuffer(raw, dtype=np.uint8))
+    elif bits == 16:
+        wav = np.frombuffer(raw, dtype=np.int16).astype(np.float32) / 32768.0
+    elif bits == 32:
+        wav = np.frombuffer(raw, dtype=np.int32).astype(np.float32) / 2147483648.0
+    elif bits == 8:
+        wav = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
+    elif bits == 24:
+        b = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 3)
+        vals = (b[:, 0].astype(np.int32) | (b[:, 1].astype(np.int32) << 8)
+                | (b[:, 2].astype(np.int32) << 16))
+        vals = np.where(vals >= 1 << 23, vals - (1 << 24), vals)
+        wav = vals.astype(np.float32) / float(1 << 23)
+    else:
+        raise ValueError(f"unsupported wav: format={audio_format} bits={bits}")
+    if channels > 1:
+        wav = wav.reshape(-1, channels).mean(axis=1)
+    return np.ascontiguousarray(wav), sample_rate
+
+
+def is_audio_container(data: bytes) -> bool:
+    """Container sniff (reference ``_is_audio_container:272``)."""
+    if len(data) < 12:
+        return False
+    if data[:4] == b"RIFF" and data[8:12] == b"WAVE":
+        return True
+    if data[:4] == b"fLaC" or data[:4] == b"OggS" or data[:3] == b"ID3":
+        return True
+    if data[:2] in (b"\xff\xfb", b"\xff\xf3", b"\xff\xf2", b"\xff\xe3"):
+        return True  # mp3 frame sync
+    if data[4:8] == b"ftyp":
+        return True  # mp4/m4a
+    return False
+
+
+def decode_container(data: bytes, fs: int) -> np.ndarray:
+    """Compressed containers are not ported: the JAX package decodes them with its
+    native runtime's libav or ``ffmpeg`` (``load_utils.py:122-138``)."""
+    raise NotImplementedError(
+        "compressed audio (mp3/flac/ogg/mp4/...) is not ported (ROADMAP item 9): "
+        "pass WAV, PCM or a waveform")
 
 
 def resample(wav: np.ndarray, orig_fs: int, target_fs: int) -> np.ndarray:
@@ -37,27 +127,14 @@ def resample(wav: np.ndarray, orig_fs: int, target_fs: int) -> np.ndarray:
     return resample_poly(wav, target_fs // g, orig_fs // g).astype(np.float32)
 
 
-def read_wav(source, fs: int = 16000) -> np.ndarray:
-    """PCM16 ``.wav`` (a path or a binary file object) -> mono float32 in [-1, 1) at
-    ``fs``."""
-    with wave.open(source if hasattr(source, "read") else os.fspath(source), "rb") as w:
-        if w.getsampwidth() != 2:
-            raise ValueError(f"{source}: only 16-bit PCM wav is supported")
-        channels, sr = w.getnchannels(), w.getframerate()
-        pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
-    wav = pcm.astype(np.float32) / 32768.0
-    if channels > 1:
-        wav = wav.reshape(-1, channels).mean(axis=1)
-    return resample(np.ascontiguousarray(wav), sr, fs)
-
-
 def load_bytes(data: bytes) -> np.ndarray:
     """Raw 16-bit PCM bytes -> float32 (reference ``load_bytes:306``)."""
     return np.frombuffer(data, dtype=np.int16).astype(np.float32) / 32768.0
 
 
-def load_audio(source, fs: int = 16000, audio_fs: int = 16000) -> np.ndarray:
-    """One source (ndarray, path or bytes) -> mono waveform at ``fs``.
+def load_audio(source: Any, fs: int = 16000, audio_fs: int = 16000) -> np.ndarray:
+    """One source (ndarray, list / tuple of samples, path or bytes) -> mono waveform at
+    ``fs`` (``funasr_tpu/utils/load_utils.py:170-226``).
 
     float32 in [-1, 1), except a 1-D int16 array at the target rate, which is returned
     as int16 (the frontend's PCM16 path; bit-identical features).
@@ -73,14 +150,32 @@ def load_audio(source, fs: int = 16000, audio_fs: int = 16000) -> np.ndarray:
         return resample(wav, audio_fs, fs)
     if isinstance(source, (bytes, bytearray)):
         data = bytes(source)
-        if data[:4] == b"RIFF" and data[8:12] == b"WAVE":
-            return read_wav(io.BytesIO(data), fs)
+        if is_audio_container(data):
+            if data[:4] == b"RIFF":
+                wav, sr = _parse_wav_bytes(data)
+                return resample(wav, sr, fs)
+            return decode_container(data, fs)
         return resample(load_bytes(data), audio_fs, fs)
     if isinstance(source, (str, os.PathLike)):
-        if os.path.splitext(os.fspath(source))[1].lower() == ".pcm":
-            with open(source, "rb") as f:
-                return resample(load_bytes(f.read()), audio_fs, fs)
-        return read_wav(source, fs)
+        source = os.fspath(source)
+        if source.startswith(("http://", "https://")):
+            raise NotImplementedError(f"{source}: URLs are not fetched; download the "
+                                      "file and pass its path")
+        ext = os.path.splitext(source)[1].lower()
+        with open(source, "rb") as f:
+            data = f.read()
+        if ext == ".pcm":
+            return resample(load_bytes(data), audio_fs, fs)
+        if data[:4] == b"RIFF":
+            wav, sr = _parse_wav_bytes(data)
+            return resample(wav, sr, fs)
+        if is_audio_container(data) or ext in (".mp3", ".flac", ".ogg", ".m4a",
+                                               ".mp4", ".webm", ".opus", ".aac"):
+            return decode_container(data, fs)
+        wav, sr = _parse_wav_bytes(data)
+        return resample(wav, sr, fs)
+    if isinstance(source, (list, tuple)):
+        return resample(np.asarray(source, dtype=np.float32), audio_fs, fs)
     raise TypeError(f"unsupported audio source type {type(source)}")
 
 

@@ -230,10 +230,11 @@ def test_deep_update_and_hotwords_copies_match():
 
 
 def test_unported_options_raise(model_dir, monkeypatch):
-    """vad_model / punc_model build (tests/test_torch_pipeline.py); spk_model still
-    raises, before any model is built."""
-    with pytest.raises(NotImplementedError, match="slice"):
-        AutoModel(model=model_dir, device="cpu", spk_model="cam++")
+    """vad_model / punc_model / spk_model build (tests/test_torch_pipeline.py,
+    tests/test_torch_spk_pipeline.py); ITN and export still raise."""
+    monkeypatch.setenv("FUNASR_TPU_OFFLINE", "1")
+    with pytest.raises(FileNotFoundError, match="cam"):  # a hub alias, not a directory
+        AutoModel(model=model_dir, device="cpu", spk_model="cam++", log_level="WARNING")
     am = AutoModel(model=model_dir, device="cpu", log_level="WARNING")
     with pytest.raises(NotImplementedError, match="slice 9"):
         am.generate(input=_pcm(1, (8000,)), itn=True)
@@ -245,12 +246,15 @@ def test_unported_options_raise(model_dir, monkeypatch):
 
 
 def test_import_of_auto_model_pulls_in_no_jax():
+    """Neither jax, nor the JAX package, nor scikit-learn (the port's clustering,
+    imported here too, is numpy)."""
     code = ("import sys\n"
             "import funasr_tpu_torch\n"
             "from funasr_tpu_torch import AutoModel\n"
+            "from funasr_tpu_torch.models.campplus import cluster_backend\n"
             "assert AutoModel is funasr_tpu_torch.AutoModel\n"
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-            "             or m == 'funasr_tpu' or m.startswith('funasr_tpu.'))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'funasr_tpu', 'sklearn'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -19,6 +19,7 @@ from funasr_tpu_torch import AutoModel
 from funasr_tpu_torch.auto import auto_model as tauto
 from pipeline_parity_util import multi_segment_wav
 from torch_parity_util import write_asr_dir, write_punc_dir, write_vad_dir
+from torch_parity_util import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -1,0 +1,77 @@
+"""Registry aliases of the PyTorch port against the JAX package's (``funasr_tpu/parity.py``).
+
+Every (table, alias -> target) pair that the JAX package's ``register_parity_aliases``
+binds, and whose target the port registers, must resolve in the port as in the JAX
+package: to the target's class where the JAX package binds the alias to its target, and
+not at all where the JAX package has a class of that name of its own (the port would
+otherwise build the target for a config that names another model). A ``config.yaml``
+naming the export aliases then builds in the port's ``AutoModel`` and gives the JAX
+``AutoModel``'s texts.
+"""
+
+import os
+
+import pytest
+import yaml
+
+import funasr_tpu  # noqa: F401  (fills the JAX tables)
+from funasr_tpu import parity as jparity
+from funasr_tpu.auto import auto_model as jauto
+from funasr_tpu.register import tables as jtables
+from funasr_tpu_torch import AutoModel, tables
+from pipeline_parity_util import multi_segment_wav
+from torch_parity_util import write_asr_dir
+
+# the aliases of the JAX package's list whose targets the port has (ROADMAP section 3)
+PORT_ALIASES = {"SANMEncoderExport", "FSMNExport", "FSMNConvert", "FSMNMT", "FSMNMTConvert",
+                "ParaformerSANMDecoderExport", "ParaformerSANMDecoderOnlineExport",
+                "ParaformerSANMDecoder_v2_community"}
+
+
+def _reference_pairs():
+    """(table, alias, target) of every ``_alias`` call the JAX package makes."""
+    pairs = []
+    original = jparity._alias
+    jparity._alias = lambda table, name, target: pairs.append((table, name, target))
+    try:
+        jparity.register_parity_aliases()
+    finally:
+        jparity._alias = original
+    return pairs
+
+
+PAIRS = [p for p in _reference_pairs() if p[2] in getattr(tables, p[0])]
+
+
+def test_the_port_binds_the_eight_aliases():
+    assert {name for _, name, _ in PAIRS} >= PORT_ALIASES
+    for table, name, target in PAIRS:
+        if name in PORT_ALIASES:
+            assert getattr(tables, table)[name] is getattr(tables, table)[target]
+
+
+@pytest.mark.parametrize("table,name,target", PAIRS, ids=[p[1] for p in PAIRS])
+def test_alias_resolves_as_in_the_jax_package(table, name, target):
+    jax_table, port_table = getattr(jtables, table), getattr(tables, table)
+    if jax_table.get(name) is jax_table[target]:
+        assert port_table[name] is port_table[target]
+    else:  # the JAX package registers a class of that name (e.g. the SCAMA decoder)
+        assert name not in port_table
+
+
+def test_config_naming_export_aliases_builds_and_matches_jax(tmp_path):
+    d = write_asr_dir(tmp_path)
+    with open(os.path.join(d, "config.yaml"), encoding="utf-8") as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(encoder="SANMEncoderExport", decoder="ParaformerSANMDecoderExport")
+    with open(os.path.join(d, "config.yaml"), "w", encoding="utf-8") as f:
+        yaml.safe_dump(cfg, f, allow_unicode=True)
+    kw = dict(model=d, device="cpu", log_level="WARNING")
+    port, ref = AutoModel(**kw), jauto.AutoModel(**kw)
+    assert type(port.model.encoder) is tables.encoder_classes["SANMEncoder"]
+    assert type(port.model.decoder) is tables.decoder_classes["ParaformerSANMDecoder"]
+    waves = [multi_segment_wav(3.0, seed=s) for s in (1, 2)]
+    got = port.generate(input=waves, batch_size=2)
+    want = ref.generate(input=waves, batch_size=2)
+    assert [r["text"] for r in got] == [r["text"] for r in want]
+    assert all(r["text"] for r in got)

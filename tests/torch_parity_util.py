@@ -6,10 +6,13 @@ identical weights. Inputs are made with numpy and handed to both. The pipeline's
 directories (Paraformer, FSMN-VAD, CT-Transformer) are written the same way.
 """
 
+import contextlib
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from funasr_tpu.convert.torch_to_jax import convert_paraformer
@@ -27,6 +30,18 @@ SMALL_CONF = dict(
                       kernel_size=11, sanm_shfit=0),
     predictor_conf=dict(idim=64, l_order=1, r_order=1, tail_threshold=0.45),
     sos=1, eos=2, predictor_bias=1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's port on one CPU thread. Its ops are small and sequential (BLSTM
+    steps, B = 1 windows and convs): one thread is as fast alone, and with several test
+    workers on the machine each worker's spinning thread pool made them 10-30x slower.
+    Import it into a test module to use it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def to_jax(tree):
@@ -169,3 +184,129 @@ def write_punc_dir(d, seed=2, tokens=PIPE_TOKENS):
         encoder="SANMEncoder", encoder_conf=PUNC_ENC,
         tokenizer="CharTokenizer",
         tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>")))
+
+
+# ---------------------------------------------------------------------------
+# the speaker-attributed pipeline: a small BiCifParaformer (CifPredictorV3 head) and a
+# small CAM++, written the same way
+# ---------------------------------------------------------------------------
+
+# the published timestamp head of speech_paraformer-large-vad-punc (upsample 3, BLSTM,
+# the encoder output upsampled), at the pipeline's d = 64
+BICIF_PREDICTOR = dict(PIPE_ASR_CONF["predictor_conf"], smooth_factor2=0.25,
+                       noise_threshold2=0.01, upsample_times=3, use_cif1_cnn=False,
+                       upsample_type="cnn_blstm")
+# CAM++ at the width of tests/pipeline_parity_util.py:300-302
+SPK_CONF = dict(feat_dim=80, embedding_size=16, growth_rate=4, bn_size=2, init_channels=8)
+
+
+def seed_batchnorm(model, seed):
+    """Draw every batch norm's running statistics (and affine parameters) from a numpy
+    seed, so that they are not the identity."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                n = m.num_features
+                m.running_mean.copy_(torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32)))
+                m.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)))
+                if m.affine:
+                    m.weight.copy_(torch.from_numpy(rng.uniform(0.8, 1.2, n).astype(np.float32)))
+                    m.bias.copy_(torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32)))
+    return model
+
+
+def write_bicif_dir(d, seed=0):
+    from funasr_tpu_torch.models.bicif_paraformer.model import BiCifParaformer
+    conf = dict(PIPE_ASR_CONF, predictor_conf=BICIF_PREDICTOR)
+    model = BiCifParaformer(**conf, generator=torch.Generator().manual_seed(seed))
+    torch.save(model.state_dict(), os.path.join(d, "model.pt"))
+    _write_tokens(d, PIPE_TOKENS)
+    write_identity_cmvn(os.path.join(d, "am.mvn"), conf["input_size"])
+    return _write_config(d, dict(
+        model="BiCifParaformer",
+        model_conf=dict(sos=1, eos=2, predictor_bias=1, ctc_weight=0.0),
+        encoder="SANMEncoder", encoder_conf=conf["encoder_conf"],
+        decoder="ParaformerSANMDecoder", decoder_conf=conf["decoder_conf"],
+        predictor="CifPredictorV3", predictor_conf=BICIF_PREDICTOR,
+        frontend="WavFrontend",
+        frontend_conf=dict(fs=16000, window="hamming", n_mels=80, frame_length=25,
+                           frame_shift=10, lfr_m=7, lfr_n=6, cmvn_file="am.mvn", dither=0.0),
+        tokenizer="CharTokenizer",
+        tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>")))
+
+
+def write_spk_dir(d, seed=3):
+    """A cam++ directory as FunASR lays it out: its config names a WavFrontend, which
+    CAM++ does not use (it computes its own fbank)."""
+    from funasr_tpu_torch.models.campplus.model import CAMPPlus
+    model = seed_batchnorm(CAMPPlus(**SPK_CONF, generator=torch.Generator().manual_seed(seed)),
+                           seed)
+    torch.save(model.state_dict(), os.path.join(d, "model.pt"))
+    return _write_config(d, dict(
+        model="CAMPPlus",
+        model_conf=dict(SPK_CONF, config_str="batchnorm-relu", memory_efficient=False,
+                        output_level="segment"),
+        frontend="WavFrontend",
+        frontend_conf=dict(fs=16000, window="hamming", n_mels=80, frame_length=25,
+                           frame_shift=10, lfr_m=1, lfr_n=1, dither=0.0)))
+
+
+def two_voice_wav(seconds=40.0, seed=11, fs=16000):
+    """Two synthetic voices taking turns of 3-7 s with 1.2-2 s of near silence between
+    them. Voice A: 100-200 Hz harmonic tones with a 3 Hz AM, in 2 Hz syllables (75 %
+    voiced); voice B: 2-4 kHz band-limited noise bursts at 8 Hz (35 % on). The short
+    silences inside each voice make a segment's first chunk, which starts in silence,
+    look like the rest of its voice to a CAM++ with random weights. Returns (float32
+    waveform, [(start s, end s, voice), ...])."""
+    rng = np.random.default_rng(seed)
+    wav = (rng.standard_normal(int(seconds * fs)) * 1e-6).astype(np.float32)
+    turns, t0, voice = [], 0.5, 0
+    while t0 + 3.0 < seconds:
+        t1 = min(t0 + rng.uniform(3.0, 7.0), seconds - 0.3)
+        i, j = int(t0 * fs), int(t1 * fs)
+        wav[i:j] += voice_burst(rng, voice, j - i, fs)
+        turns.append((t0, t1, voice))
+        t0, voice = t1 + rng.uniform(1.2, 2.0), 1 - voice
+    return wav, turns
+
+
+def voice_burst(rng, voice, n, fs=16000):
+    tt = np.arange(n) / fs
+    rate, duty = (2.0, 0.75) if voice == 0 else (8.0, 0.35)
+    gate = ((tt * rate + rng.uniform()) % 1.0) < duty
+    if voice == 0:
+        f0 = rng.uniform(100.0, 200.0)
+        tone = sum(np.sin(2 * np.pi * f0 * h * tt) / h for h in range(1, 12))
+        return (0.12 * tone * (1 + 0.5 * np.sin(2 * np.pi * 3 * tt)) * gate).astype(np.float32)
+    spec = np.fft.rfft(rng.standard_normal(n))
+    freqs = np.fft.rfftfreq(n, 1.0 / fs)
+    spec[(freqs < 2000.0) | (freqs > 4000.0)] = 0.0
+    noise = np.fft.irfft(spec, n)
+    return (0.3 * noise / (np.abs(noise).max() + 1e-9) * gate).astype(np.float32)
+
+
+@contextlib.contextmanager
+def shape_only_init(names=("Paraformer", "BiCifParaformer", "FsmnVADStreaming",
+                           "CTTransformer", "CAMPPlus")):
+    """The JAX ``AutoModel`` draws random parameters for each model and then replaces
+    them with the converted ``model.pt``; inside this context it draws their shapes only
+    (``jax.eval_shape``), which changes no parameter it runs and saves the eager
+    initialisation (~50 s for CAM++)."""
+    from funasr_tpu.register import tables as jtables
+
+    originals = {name: jtables.model_classes[name].init_params for name in names}
+
+    def init(original):
+        def shapes(self, rng):
+            tree = jax.eval_shape(lambda r: original(self, r), rng)
+            return jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype), tree)
+        return shapes
+
+    for name, original in originals.items():
+        jtables.model_classes[name].init_params = init(original)
+    try:
+        yield
+    finally:
+        for name, original in originals.items():
+            jtables.model_classes[name].init_params = original
