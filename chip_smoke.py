@@ -2,8 +2,9 @@
 against its plain PyTorch version, checks the port on CUDA against the port on the CPU,
 and drives the offline Paraformer decode, ``AutoModel(quant="w8a8")``, the default
 (fp32) ``AutoModel`` at Paraformer-large width, the VAD -> ASR -> punctuation pipeline
-``AutoModel(model=, vad_model=, punc_model=)`` and speaker-attributed transcription
-``AutoModel(model=bicif, vad_model=, punc_model=, spk_model=)``.
+``AutoModel(model=, vad_model=, punc_model=)``, speaker-attributed transcription
+``AutoModel(model=bicif, vad_model=, punc_model=, spk_model=)`` and hotword transcription
+``AutoModel(model=seaco | contextual).generate(hotword=...)``.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,10 @@ Phases (any failure raises and exits non-zero):
    k = 11; and at the pipeline's shapes (``pipeline_kernel_rows``): the VAD's FSMN at
    (1, 6019, 128) fp32, k = 20, pads (19, 0), no mask; the punctuation encoder's FSMN
    at (1, 64, 256) fp32, k = 11, a prefix mask; its flash at (1, 8, 64, 32) fp32 and
-   bf16 with a ragged length; each against its plain version;
+   bf16 with a ragged length; and the SeACo decoder's FSMN (``hotword_kernel_rows``) at
+   (32, 208, 512), k = 21, pads (10, 10), fp32 and bf16, also against the generic
+   instantiation (its time, the kernel's before its k = 21 instantiation); each against
+   its plain version;
 4. w8a8 kernel: the W8A8 linear at every (M, K, N) of the W8A8 path (ragged K = 560 and
    M = 720 included), bf16 and fp32 x, bit-exact to its plain version (a mismatch
    raises);
@@ -59,14 +63,27 @@ Phases (any failure raises and exits non-zero):
 9. speaker (``phase_speaker``): a BiCifParaformer at PROD_CONF width with the published
    CifPredictorV3 head, phase 8's VAD and punctuation, CAM++ at speech_campplus_sv's
    widths, through ``AutoModel(model=, vad_model=, punc_model=, spk_model=,
-   device="cuda")`` on 4 meetings of 300 s of two synthetic voices, one
+   device="cuda")`` on 2 meetings of 300 s of two synthetic voices, one
    ``generate(**SPEAKER_CALL)`` each. Gates: integer speakers on every sentence and
    timestamps rising inside [0, 300000] ms; each stage's launches at their sites; the
    timestamp head and CAM++ embeddings against the CPU port; request 0 whole through
    the CPU port (VAD segments to the ms, token boundaries, the voices separating on its
    embeddings, cluster labels equal). Prints RTFx and the stage split per meeting, the
    speaker stage at ``spk_kwargs`` batch 64, CAM++ alone at B = 1 / 11 / 64 and one
-   profiled meeting.
+   profiled meeting;
+10. hotword (``phase_hotword``): SeACo-Paraformer (PROD_CONF, the published V3 head, a
+   SeACo decoder of 6 + 1 layers at kernel_size 21, inner_dim 512) and the Contextual
+   Paraformer, seeded, with seeded hotword lists of 2-6 tokens a word; 32 x 15 s through
+   ``AutoModel(model=dir, device="cuda").generate(hotword=...)``: SeACo without
+   hotwords equal to a BiCifParaformer over the same base weights, with 20 hotwords and
+   with 200 (attention-score filtering), fp32 and ``bf16=True``; Contextual with 20,
+   fp32. Gates: 32 texts, every kernel site launched, the k = 21 FSMN instantiation 12
+   times a SeACo decode (18 under filtering) by count and by profile. Prints RTFx, device
+   spans by stage (CUDA events), tokens the gate gave the hotword head, launches, one
+   profile each. Then CUDA against the CPU port on 4 x 15 s (log-probs within
+   ``HOTWORD_LOGP_TOL``, the kept set, timestamps), and the pipeline with 20 hotwords:
+   ``HOTWORD_REQUESTS`` requests of 300 s through ``AutoModel(model=seaco, vad_model=,
+   punc_model=)``, RTFx and the stage split.
 
 Kernel times (phases 3-4): ``ms`` is device time per launch over 20 back-to-back
 launches between one pair of CUDA events, queued behind a spin kernel so that host
@@ -86,7 +103,8 @@ its main path shape, with ``launches`` of the main path's run and
 ``launches_per_decode``; flash and FSMN add their fp32 figures under ``fp32``, launches
 from the fp32 ``AutoModel`` decode, and their rows at the pipeline's shapes under
 ``pipeline``, launches from phase 8's four requests; every kernel's launches on phase 9's
-meetings under ``speaker``), the last line ``{"ok": true, "device": {...}}``.
+meetings under ``speaker`` and on phase 10's decodes under ``hotword``, where FSMN adds its
+k = 21 rows), the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -383,6 +401,7 @@ def phase_kernels(dev):
             if shape == (32, 384, 512):
                 record[("fsmn_memory", dtype)] = row
     record.update(pipeline_kernel_rows(dev, g))
+    record.update(hotword_kernel_rows(dev, g))
     return record
 
 
@@ -464,6 +483,34 @@ def pipeline_kernel_rows(dev, g):
             f"{row['max_abs_err']:.3e} (tol {tol:g}) " + timing_line(row))
         if not (math.isfinite(row["max_abs_err"]) and row["max_abs_err"] <= tol):
             raise AssertionError(f"{key} kernel disagrees: {row['max_abs_err']}")
+    return rows
+
+
+def hotword_kernel_rows(dev, g):
+    """The FSMN kernel at the SeACo decoder's shape (phase 10): k = 21, pads 10 / 10, its
+    contiguous (32, 208, 512) input with a prefix mask, fp32 and bf16, against its plain
+    version and against the generic instantiation (``generic_ms``: the kernel before its
+    k = 21 instantiation), which must agree with it exactly. Raises on a disagreement."""
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory
+
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(32, 208, 512, generator=g).to(dev, dtype)
+        w = (torch.rand(512, 1, 21, generator=g) - 0.5).to(dev, dtype)
+        lens = torch.tensor([208 - 17 * (i % 3) for i in range(32)], device=dev)
+        mask = torch.arange(208, device=dev)[None] < lens[:, None]
+        row = fsmn_row(x, w, mask, 10, 10)
+        generic = fsmn_memory(x, w, mask, 10, 10, generic=True)
+        same = torch.equal(generic, fsmn_memory(x, w, mask, 10, 10))
+        row["generic_ms"] = device_ms(lambda: fsmn_memory(x, w, mask, 10, 10, generic=True))
+        log(f"fsmn_memory hotword (32, 208, 512) k=21 {str(dtype)[6:]}: max_abs_err "
+            f"{row['max_abs_err']:.3e} (tol {FSMN_TOL[dtype]:g}) " + timing_line(row)
+            + f"; generic instantiation {row['generic_ms']:.4f} ms, equal {same}")
+        if not (math.isfinite(row["max_abs_err"]) and row["max_abs_err"] <= FSMN_TOL[dtype]
+                and same):
+            raise AssertionError(f"the k = 21 FSMN kernel disagrees ({dtype}): "
+                                 f"{row['max_abs_err']}, equal to the generic one {same}")
+        rows[("fsmn_memory", "hotword", dtype)] = row
     return rows
 
 
@@ -669,23 +716,27 @@ def identity_cmvn(dim):
 
 
 def write_model_dir(d, dev, model_name="Paraformer", predictor="CifPredictorV2",
-                    predictor_conf=PROD_CONF["predictor_conf"]):
-    """A FunASR-layout model directory at PROD_CONF width with seeded random weights."""
+                    predictor_conf=PROD_CONF["predictor_conf"],
+                    decoder="ParaformerSANMDecoder", extra=None):
+    """A FunASR-layout model directory at PROD_CONF width with seeded random weights;
+    `extra`: the model's own config keys (a hotword model's), in ``model_conf``."""
     import yaml
     from funasr_tpu_torch import tables
 
     g = torch.Generator(device=dev).manual_seed(0)
     model = tables.model_classes[model_name](**dict(PROD_CONF, predictor_conf=predictor_conf),
-                                             predictor=predictor, device=dev, generator=g)
+                                             predictor=predictor, decoder=decoder, device=dev,
+                                             generator=g, **(extra or {}))
     torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(d, "model.pt"))
     tokens = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(8400)] + ["<unk>"]
     with open(os.path.join(d, "tokens.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(tokens) + "\n")
     with open(os.path.join(d, "am.mvn"), "w") as f:
         f.write(identity_cmvn(PROD_CONF["input_size"]))
-    cfg = dict(model=model_name, model_conf=dict(sos=1, eos=2, predictor_bias=1, ctc_weight=0.0),
+    cfg = dict(model=model_name, model_conf=dict(sos=1, eos=2, predictor_bias=1, ctc_weight=0.0,
+                                                 **(extra or {})),
                encoder="SANMEncoder", encoder_conf=PROD_CONF["encoder_conf"],
-               decoder="ParaformerSANMDecoder", decoder_conf=PROD_CONF["decoder_conf"],
+               decoder=decoder, decoder_conf=PROD_CONF["decoder_conf"],
                predictor=predictor, predictor_conf=predictor_conf,
                frontend="WavFrontend", frontend_conf=dict(FRONTEND_CONF, cmvn_file="am.mvn"),
                tokenizer="CharTokenizer",
@@ -1122,7 +1173,7 @@ BICIF_PREDICTOR = dict(PROD_CONF["predictor_conf"], smooth_factor2=0.25, noise_t
 # speech_campplus_sv_zh-cn_16k-common: the CAMPPlus defaults (feat 80, embedding 192,
 # growth 32, bn_size 4, init 128, blocks 12 / 24 / 16)
 SPK_CONF = dict(feat_dim=80, embedding_size=192, growth_rate=32, bn_size=4, init_channels=128)
-SPEAKER_REQUESTS = 4
+SPEAKER_REQUESTS = 2  # two meetings keep the whole run near its length beside phase 10
 US_ALPHAS_TOL = 1e-4      # fp32 upsampled alphas, CUDA against the CPU (cuDNN LSTM, cuBLAS)
 US_FIRES_MIN_SHARE = 0.99  # fires of running sums within rounding of an integer may move
 SPK_EMB_REL_TOL = 1e-3    # CAM++ embeddings, per chunk, relative L2 (cuDNN conv sum order)
@@ -1215,43 +1266,50 @@ def chunk_voices(chunks, turns):
     return np.asarray([max(turns, key=lambda t: overlap(c, t))[2] for c in chunks])
 
 
-class DeviceTimer:
-    """Device ms of every forward of `module`, from CUDA events recorded by forward
-    hooks; read after a synchronize."""
+class Span:
+    """CUDA events and a ``torch.profiler`` range named `label` around every call of
+    ``obj.attr`` (an instance attribute shadows the method; a module's global is
+    replaced): ``take`` gives (device span ms, calls); under a profiler the range's
+    ``device_time_total`` is the device time of the kernels launched inside it."""
 
-    def __init__(self, module):
-        self.pairs = []
-        module.register_forward_pre_hook(self._start)
-        module.register_forward_hook(self._end)
+    def __init__(self, obj, attr, label):
+        self.obj, self.attr, self.own, self.label = obj, attr, attr in vars(obj), label
+        self.inner, self.pairs = getattr(obj, attr), []
+        setattr(obj, attr, self)
 
-    def _start(self, *_):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        self.pairs.append([e, None])
-
-    def _end(self, *_):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        self.pairs[-1][1] = e
+    def __call__(self, *args, **kwargs):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        with torch.profiler.record_function(self.label):
+            out = self.inner(*args, **kwargs)
+        e1.record()
+        self.pairs.append((e0, e1))
+        return out
 
     def take(self):
-        """(device ms, forwards) since the last take."""
         torch.cuda.synchronize()
-        ms = sum(a.elapsed_time(b) for a, b in self.pairs)
-        n, self.pairs = len(self.pairs), []
+        ms, n, self.pairs = sum(a.elapsed_time(b) for a, b in self.pairs), len(self.pairs), []
         return ms, n
+
+    def remove(self):
+        if self.own:
+            setattr(self.obj, self.attr, self.inner)
+        else:
+            delattr(self.obj, self.attr)
 
 
 class Recorder:
-    """Wraps ``obj.attr`` and keeps (args, kwargs) of every call."""
+    """Wraps ``obj.attr`` and keeps (args, kwargs) and what it returned of every call."""
 
     def __init__(self, obj, attr):
-        self.inner, self.calls = getattr(obj, attr), []
+        self.inner, self.calls, self.outputs = getattr(obj, attr), [], []
         setattr(obj, attr, self)
 
     def __call__(self, *args, **kwargs):
         self.calls.append((args, dict(kwargs)))
-        return self.inner(*args, **kwargs)
+        out = self.inner(*args, **kwargs)
+        self.outputs.append(out)
+        return out
 
 
 def sync_points(fn):
@@ -1357,8 +1415,8 @@ def phase_speaker(dev, counters, card):
               "sentences": Stage(am, "_speaker_sentences", counters)}
     cpu_stages = {"vad": Stage(cpu_am.vad_model, "inference", (), keep=True),
                   "asr": Stage(cpu_am.model, "inference", (), keep=True)}
-    blstm = DeviceTimer(am.model.predictor.blstm)
-    campplus = DeviceTimer(am.spk_model)
+    blstm = Span(am.model.predictor.blstm, "forward", "BLSTM")
+    campplus = Span(am.spk_model, "forward", "CAM++")
     head = Recorder(am.model.predictor, "get_upsample_timestamp")
     vad_calls = forward_counter(am.vad_model.encoder)
     windows = forward_counter(am.punc_model.encoder)
@@ -1527,6 +1585,390 @@ def phase_speaker(dev, counters, card):
     return per_request
 
 
+# ---- phase 10: hotword transcription -----------------------------------------------------
+
+# speech_seaco_paraformer_large_asr_nat-zh-cn-16k-common-vocab8404-pytorch: BiCif's
+# CifPredictorV3 head, inner_dim 512 (the bias LSTM reads decoder.embed rows and the SeACo
+# decoder's memory is the hotword matrix, so the shapes force it), the seaco_decoder_conf of
+# that model card's config.yaml (att_layer_num left at its default of 6: 6 cross-attention
+# layers + the FFN-only layer, no decoders2) and NO_BIAS 8377. The Contextual Paraformer
+# (paraformer-zh-hotword): PROD_CONF's decoder widths, inner_dim 512 (its bias attention
+# reads the memory through linear_k_v of width d).
+SEACO_EXTRA = dict(inner_dim=512, NO_BIAS=8377, seaco_decoder="ParaformerSANMDecoder",
+                   seaco_decoder_conf=dict(attention_heads=4, linear_units=1024, num_blocks=4,
+                                           kernel_size=21, sanm_shfit=0, use_output_layer=False))
+CONTEXTUAL_EXTRA = dict(inner_dim=512)
+HOTWORD_COUNTS = (20, 200)  # N + 1 = 21 < nfilter 50: no filtering; 201: ASF keeps 51
+HOTWORD_LOGP_TOL = 1e-3     # fp32 log-probs, CUDA against the CPU port (sum orders)
+HOTWORD_REQUESTS = 2
+FSMN_K21 = ", 21, 10, 4>"   # the k = 21 instantiation's template arguments, demangled
+
+
+def hotword_list(rng, n):
+    """n hotwords of 2-6 tokens drawn from the 8400 CJK tokens, as one string."""
+    return " ".join("".join(chr(0x4E00 + int(i)) for i in rng.integers(0, 8400, rng.integers(2, 7)))
+                    for _ in range(n))
+
+
+def write_seaco_dir(d, dev):
+    write_model_dir(d, dev, model_name="SeacoParaformer", predictor="CifPredictorV3",
+                    predictor_conf=BICIF_PREDICTOR, extra=SEACO_EXTRA)
+
+
+def base_dir_of(seaco_dir, d):
+    """A BiCifParaformer directory over the SeACo directory's model.pt (its extra tensors
+    are dropped on load): the same base weights."""
+    import yaml
+    os.makedirs(d)
+    for name in ("model.pt", "tokens.txt", "am.mvn"):
+        os.symlink(os.path.join(seaco_dir, name), os.path.join(d, name))
+    with open(os.path.join(seaco_dir, "config.yaml"), encoding="utf-8") as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"] = "BiCifParaformer"
+    for key in SEACO_EXTRA:
+        cfg["model_conf"].pop(key)
+    write_config(d, cfg)
+
+
+def hotword_spans(model):
+    """The decode's stages, each a Span: {label: Span}."""
+    import funasr_tpu_torch.models.contextual_paraformer.model as ctx_mod
+    import funasr_tpu_torch.models.seaco_paraformer.model as seaco_mod
+
+    sites = {"encoder": (model, "encode"), "CIF": (model, "calc_predictor"),
+             "main decoder": (model.decoder, "forward")}
+    if hasattr(model, "seaco_decoder"):
+        sites.update({"hotword LSTM": (seaco_mod, "encode_hotwords"),
+                      "SeACo total": (model, "_seaco_decode_with_asf"),
+                      "SeACo decoder": (model.seaco_decoder, "forward"),
+                      "probe": (model.seaco_decoder, "forward_asf"),
+                      "gate": (model, "no_bias_gate"),
+                      "timestamp head": (model.predictor, "get_upsample_timestamp")})
+    else:
+        sites["hotword LSTM"] = (ctx_mod, "encode_hotwords")
+    return {label: Span(obj, attr, label) for label, (obj, attr) in sites.items()}
+
+
+def stage_device_ms(fn, labels):
+    """Device kernel time (ms) inside each profiler range of `labels` (``Span``) over
+    one call of `fn`, from torch.profiler with CPU and CUDA activity: each range's
+    kernels and its children's, summed over its calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(labels, 0.0)
+    for e in prof.events():
+        if e.name in out and e.device_type == DeviceType.CPU:
+            out[e.name] += e.device_time_total / 1e3
+    return out
+
+
+def k21_sites(model):
+    """(a list that grows by one per forward of the SeACo decoder's FSMN blocks, each a
+    launch of the FSMN kernel's k = 21 instantiation on the card; the hooks' handles)."""
+    from funasr_tpu_torch.models.sanm.attention import MultiHeadedAttentionSANMDecoder
+    calls = []
+    handles = [m.register_forward_hook(lambda *_: calls.append(1))
+               for m in getattr(model, "seaco_decoder", torch.nn.Module()).modules()
+               if isinstance(m, MultiHeadedAttentionSANMDecoder)]
+    return calls, handles
+
+
+def hotword_run(am, batch, counters, card, label, **call):
+    """One configuration of ``am.generate(input=batch, **call)``: a warm-up, one counted
+    run (kernel launches, k = 21 FSMN launches, gate picks, event spans of each stage),
+    one profiled with a range per stage (device kernel ms by stage; host ms of dispatch
+    and fetch), 5 timed runs (wall median, RTFx), one profile (device time, the k = 21
+    instantiation's launches). Returns (figures, the counted run's results)."""
+    model = am.model
+    k21, hooks = k21_sites(model)
+    picks, lens = [], []
+    gate = getattr(model, "no_bias_gate", None)
+    if gate is not None:
+        decode = model.cal_decoder_with_predictor
+        model.cal_decoder_with_predictor = lambda *a: lens.append(a[3]) or decode(*a)
+        model.no_bias_gate = lambda dec, dha, lmbd: picks.append(dha.argmax(-1)) or gate(dec, dha, lmbd)
+    spans = hotword_spans(model)
+    am.generate(input=batch, **call)  # warm-up, outside the counts
+    for sp in spans.values():
+        sp.take()
+    k21.clear()
+    picks.clear()
+    lens.clear()
+    for c in counters:
+        c.launches = 0
+    results = am.generate(input=batch, **call)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    k21_launches, gate_runs = len(k21), list(zip(picks, lens))
+    split = {name: sp.take() for name, sp in spans.items()}
+    host = {name: Stage(model, name, ()) for name in ("inference_dispatch", "inference_fetch")}
+    staged = stage_device_ms(lambda: am.generate(input=batch, **call), spans)
+    host = {name: st.ms for name, st in host.items()}
+    for handle in (*hooks, *spans.values()):
+        handle.remove()
+    del model.inference_dispatch, model.inference_fetch
+    if gate is not None:
+        del model.no_bias_gate, model.cal_decoder_with_predictor
+    head = no_bias = 0
+    for ids, n in gate_runs:
+        valid = torch.arange(ids.shape[1], device=ids.device)[None] < n[:, None]
+        no_bias += int(((ids == model.NO_BIAS) & valid).sum())
+        head += int(valid.sum())
+    t_med, times = wall_ms(lambda: am.generate(input=batch, **call))
+    by_name = profile_once(lambda: am.generate(input=batch, **call), label, t_med)
+    k21_ms, k21_n = (sum(v[i] for name, v in by_name.items()
+                         if "fsmn_kernel" in name and FSMN_K21 in name) for i in (0, 1))
+    stats = dict(wall_ms=t_med, rtfx=len(batch) * 15e3 / t_med, launches=launches,
+                 k21_launches=k21_launches, k21_profile=(k21_ms, k21_n), gate_head=head - no_bias,
+                 gate_no_bias=no_bias, split=split, staged=staged, host=host,
+                 device_ms=sum(t for t, _ in by_name.values()))
+    log(f"hotword {label}: generate median {t_med:.2f} ms (runs {[round(x, 2) for x in times]}), "
+        f"RTFx {stats['rtfx']:.1f}, device kernel time {stats['device_ms']:.2f} ms; launches "
+        f"{launches}, FSMN k = 21 {k21_launches} (profile: {k21_n} launches of the k = 21 "
+        f"instantiation, {k21_ms:.3f} ms); gate: {head - no_bias} tokens took the hotword "
+        f"head, {no_bias} NO_BIAS, on {card}")
+    log("  device kernel ms by stage (profiled decode; event span ms / calls of the counted "
+        "one): " + ", ".join(f"{name} {staged[name]:.2f} ({ms:.2f} / {n})"
+                             for name, (ms, n) in split.items()))
+    log(f"  host (profiled decode, wall ms to a synchronize): dispatch (load, fbank, every "
+        f"launch, waits) {host['inference_dispatch']:.2f}, fetch (copy, detokenize, "
+        f"timestamps) {host['inference_fetch']:.2f}")
+    return stats, results
+
+
+def hotword_checks(label, model, stats, results, n, asf):
+    """Gates of one hotword run: n non-empty texts; the encoder's and main decoder's kernel
+    sites launched (``kernel_sites``: 50 flash and 66 FSMN at PROD_CONF) plus the SeACo
+    decoder's FSMN blocks twice (three times under ASF: the probe), and those last on the
+    k = 21 instantiation, counted and profiled (12 or 18 a decode at its 6 blocks)."""
+    if len(results) != n or not all(isinstance(r["text"], str) and r["text"] for r in results):
+        raise AssertionError(f"hotword {label}: expected {n} non-empty texts")
+    seaco = getattr(model, "seaco_decoder", None)
+    sites = kernel_sites(model)
+    k21_sites_n = kernel_sites(seaco)["fsmn_memory"] if seaco is not None else 0
+    k21_needed = k21_sites_n * (3 if asf else 2)
+    launches = stats["launches"]
+    if (launches["flash_attention"] < sites["flash_attention"]
+            or launches["fsmn_memory"] < sites["fsmn_memory"] - k21_sites_n + k21_needed):
+        raise AssertionError(f"hotword {label}: a kernel was bypassed: {launches}, sites {sites}")
+    if stats["k21_launches"] != k21_needed or stats["k21_profile"][1] < k21_needed:
+        raise AssertionError(f"hotword {label}: the k = 21 FSMN instantiation ran "
+                             f"{stats['k21_launches']} / {stats['k21_profile'][1]} times, "
+                             f"expected {k21_needed}")
+
+
+def hotword_cuda_vs_cpu(am, cpu_am, waves, hotword):
+    """The same model and 4 x 15 s on the card and on the CPU port (fp32) through
+    ``model.inference``: the merged (or Contextual) log-probs of the decode within
+    HOTWORD_LOGP_TOL on valid tokens of rows whose token counts agree, the ASF kept set
+    equal, token flips, and the results (texts, ms timestamps) equal. Returns a dict."""
+    out = {}
+    for name, a in (("card", am), ("cpu", cpu_am)):
+        model = a.model
+        logp = Recorder(model, "cal_decoder_with_predictor")
+        probe = (Recorder(model.seaco_decoder, "forward_asf")
+                 if hasattr(model, "seaco_decoder") else None)
+        with torch.inference_mode():
+            results, _ = model.inference(waves, tokenizer=a.kwargs["tokenizer"],
+                                         frontend=a.kwargs["frontend"], hotword=hotword)
+        del model.cal_decoder_with_predictor
+        kept = None
+        if probe is not None:
+            del model.seaco_decoder.forward_asf
+            if probe.outputs:
+                scores = probe.outputs[-1][0].sum(dim=(0, 1)).float().cpu().numpy()
+                kept = set(np.argsort(-scores)[: min(50, len(scores) - 1)].tolist())
+        out[name] = dict(results=results, logp=logp.outputs[-1][0].float().cpu(),
+                         lens=logp.calls[-1][0][3].cpu(), kept=kept)
+    card, cpu = out["card"], out["cpu"]
+    b = len(waves)
+    same = (card["lens"][:b] == cpu["lens"][:b]).tolist()
+    err, flips, tokens = 0.0, 0, 0
+    for i in range(b):
+        n = int(cpu["lens"][i])
+        if not same[i]:
+            continue
+        a_, b_ = card["logp"][i, :n], cpu["logp"][i, :n]
+        err = max(err, (a_ - b_).abs().max().item())
+        flips += int((a_.argmax(-1) != b_.argmax(-1)).sum())
+        tokens += n
+    pairs = list(zip(card["results"], cpu["results"]))
+    same_text = [x for x, y in pairs if x["text"] == y["text"]]
+    return dict(err=err, flips=flips, tokens=tokens, same_lens=same,
+                kept_equal=card["kept"] == cpu["kept"], kept=card["kept"],
+                rows_equal=[x == y for x, y in pairs], same_text=len(same_text),
+                ts_equal=all(x.get("timestamp") == y.get("timestamp") for x, y in pairs
+                             if x["text"] == y["text"]))
+
+
+def phase_hotword(dev, counters, card):
+    """Hotword transcription at PROD_CONF width, ``device="cuda"``, seeded weights and
+    hotwords (words of 2-6 tokens of the 8,404-token list):
+    - SeACo-Paraformer, 32 x 15 s through ``AutoModel(model=seaco).generate``: with no
+      hotword (results equal, texts and ms timestamps, to a BiCifParaformer over the same
+      base weights), with 20 hotwords (no filtering) and 200 (ASF: the probe and top 50),
+      fp32 and ``bf16=True``; gates: 32 texts, >= 50 flash and >= 66 + 12 FSMN launches,
+      the k = 21 instantiation 12 times a decode (18 under ASF), counted and profiled;
+    - the Contextual Paraformer, 20 hotwords, fp32, the same figures;
+    - CUDA against the CPU port, 4 x 15 s fp32: SeACo (200 hotwords) and Contextual (20)
+      log-probs within HOTWORD_LOGP_TOL, the ASF kept set equal, results equal; token
+      flips printed;
+    - the pipeline with 20 hotwords: HOTWORD_REQUESTS requests of 300 s through
+      ``AutoModel(model=seaco, vad_model=, punc_model=)`` (phase 8's VAD and punctuation):
+      per request a row with its key, sentence-final text and rising timestamps, each
+      stage's launches at its sites; RTFx and the stage split.
+    Returns {label: figures} for the kernels line."""
+    import tempfile
+    from funasr_tpu_torch import AutoModel
+
+    rng = np.random.default_rng(10)
+    batch = [pcm(rng, 15.0) for _ in range(32)]
+    keys = [f"utt_{i}" for i in range(32)]
+    hotwords = {n: hotword_list(rng, n) for n in HOTWORD_COUNTS}
+    small = batch[:4]
+    figures = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        dirs = write_pipeline_dirs(root, dev, asr_writer=write_seaco_dir)
+        dirs["bicif"] = os.path.join(root, "bicif")
+        base_dir_of(dirs["asr"], dirs["bicif"])
+        dirs["ctx"] = os.path.join(root, "ctx")
+        os.makedirs(dirs["ctx"])
+        write_model_dir(dirs["ctx"], dev, model_name="ContextualParaformer",
+                        decoder="ContextualParaformerDecoder", extra=CONTEXTUAL_EXTRA)
+        log(f"hotword: model dirs written in {time.perf_counter() - t0:.1f} s")
+        kw = dict(device="cuda", batch_size=32, log_level="WARNING")
+
+        # SeACo, fp32: no hotword against BiCif over the same weights, then 20 and 200
+        am = AutoModel(model=dirs["asr"], **kw)
+        base = AutoModel(model=dirs["bicif"], **kw)
+        n_params = sum(p.numel() for p in am.model.parameters()) / 1e6
+        plain = am.generate(input=batch, key=keys)
+        want = base.generate(input=batch, key=keys)
+        log(f"hotword: SeACo {n_params:.1f}M params (fp32); no hotword against BiCif over the "
+            f"same base weights: results equal {plain == want}")
+        if plain != want or not all(r["timestamp"] for r in plain):
+            raise AssertionError("SeACo without hotwords differs from BiCif")
+        del base
+        for n in HOTWORD_COUNTS:
+            label = f"SeACo fp32, {n} hotwords"
+            stats, results = hotword_run(am, batch, counters, card, label, key=keys,
+                                         hotword=hotwords[n])
+            hotword_checks(label, am.model, stats, results, 32, n + 1 > 50)
+            if results == plain:
+                raise AssertionError(f"{label}: the hotwords changed nothing")
+            figures[("seaco", "fp32", n)] = stats
+        cpu_am = AutoModel(model=dirs["asr"], device="cpu", log_level="WARNING")
+        r = hotword_cuda_vs_cpu(am, cpu_am, small, hotwords[200])
+        log(f"hotword: SeACo 4 x 15 s, 200 hotwords, CUDA vs CPU port (fp32): merged "
+            f"log-probs max_abs_err {r['err']:.3e} (tol {HOTWORD_LOGP_TOL:g}) over "
+            f"{r['tokens']} tokens, token counts equal {r['same_lens']}, flips {r['flips']}; "
+            f"ASF kept set equal {r['kept_equal']} ({len(r['kept'] or ())} of 201); rows "
+            f"equal (texts, ms timestamps) {r['rows_equal']}; ms timestamps equal on the "
+            f"{r['same_text']} rows of equal text {r['ts_equal']}")
+        if not (r["err"] <= HOTWORD_LOGP_TOL and r["kept_equal"] and r["kept"]
+                and all(r["same_lens"]) and r["same_text"] and r["ts_equal"]):
+            raise AssertionError("SeACo on CUDA disagrees with the CPU port")
+        figures["seaco_cuda_vs_cpu"] = r
+        del am, cpu_am
+
+        # SeACo, bf16
+        am = AutoModel(model=dirs["asr"], bf16=True, **kw)
+        for n in HOTWORD_COUNTS:
+            label = f"SeACo bf16, {n} hotwords"
+            stats, results = hotword_run(am, batch, counters, card, label, key=keys,
+                                         hotword=hotwords[n])
+            hotword_checks(label, am.model, stats, results, 32, n + 1 > 50)
+            figures[("seaco", "bf16", n)] = stats
+        del am
+
+        # Contextual, fp32
+        am = AutoModel(model=dirs["ctx"], **kw)
+        label = "Contextual fp32, 20 hotwords"
+        stats, results = hotword_run(am, batch, counters, card, label, key=keys,
+                                     hotword=hotwords[20])
+        hotword_checks(label, am.model, stats, results, 32, False)
+        figures[("contextual", "fp32", 20)] = stats
+        cpu_am = AutoModel(model=dirs["ctx"], device="cpu", log_level="WARNING")
+        r = hotword_cuda_vs_cpu(am, cpu_am, small, hotwords[20])
+        log(f"hotword: Contextual 4 x 15 s, 20 hotwords, CUDA vs CPU port (fp32): log-probs "
+            f"max_abs_err {r['err']:.3e} (tol {HOTWORD_LOGP_TOL:g}) over {r['tokens']} "
+            f"tokens, token counts equal {r['same_lens']}, flips {r['flips']}; rows equal "
+            f"{r['rows_equal']}")
+        if not (r["err"] <= HOTWORD_LOGP_TOL and all(r["same_lens"])):
+            raise AssertionError("the Contextual Paraformer on CUDA disagrees with the CPU port")
+        del am, cpu_am
+
+        # the pipeline with hotwords
+        am = AutoModel(model=dirs["asr"], vad_model=dirs["vad"], punc_model=dirs["punc"],
+                       device="cuda", log_level="WARNING")
+    figures["pipeline"] = hotword_pipeline(am, counters, card, hotwords[20])
+    return figures
+
+
+def hotword_pipeline(am, counters, card, hotword):
+    """HOTWORD_REQUESTS requests of 300 s, one ``generate(hotword=...)`` each."""
+    rng = np.random.default_rng(11)
+    requests = [long_recording(rng) for _ in range(HOTWORD_REQUESTS)]
+    sites = {"vad": kernel_sites(am.vad_model), "asr": kernel_sites(am.model),
+             "punc": kernel_sites(am.punc_model)}
+    stages = {"vad": Stage(am.vad_model, "inference", counters),
+              "asr": Stage(am.model, "inference", counters),
+              "punc": Stage(am.punc_model, "inference", counters)}
+    vad_calls = forward_counter(am.vad_model.encoder)
+    windows = forward_counter(am.punc_model.encoder)
+    am.generate(input=[requests[0][:16000 * 60]], key=["warm-up"], hotword=hotword)
+    torch.cuda.synchronize()
+    per_request = []
+    for r, wav in enumerate(requests):
+        for st in stages.values():
+            st.reset()
+        vad_calls.clear()
+        windows.clear()
+        key = f"hotword_request_{r}"
+        t0 = time.perf_counter()
+        rows = am.generate(input=[wav], key=[key], hotword=hotword)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = dict(wall_ms=wall * 1e3, rtfx=len(wav) / 16000 / wall, vad_calls=len(vad_calls),
+                     asr_batches=stages["asr"].calls, windows=len(windows),
+                     **{f"{name}_ms": st.ms for name, st in stages.items()},
+                     **{f"{name}_launches": st.launches for name, st in stages.items()})
+        per_request.append(stats)
+        log(f"hotword pipeline {key}: {len(wav) / 16000:.1f} s, wall {stats['wall_ms']:.2f} ms, "
+            f"RTFx {stats['rtfx']:.1f}; stages: VAD {stats['vad_ms']:.2f} ms "
+            f"({stats['vad_calls']} encoder calls), ASR {stats['asr_ms']:.2f} ms "
+            f"({stats['asr_batches']} batches), punctuation {stats['punc_ms']:.2f} ms "
+            f"({stats['windows']} windows); launches VAD {stats['vad_launches']} ASR "
+            f"{stats['asr_launches']} punc {stats['punc_launches']} on {card}")
+        row = rows[0] if len(rows) == 1 else {}
+        bounds = [b for ts in row.get("timestamp", []) for b in ts]
+        if row.get("key") != key or not (row.get("text") and row["text"][-1] in "。？.?"):
+            raise AssertionError(f"{key}: expected one row with a sentence-final text")
+        if not (bounds and bounds == sorted(bounds) and bounds[-1] <= REQUEST_SECONDS * 1e3):
+            raise AssertionError(f"{key}: timestamps do not rise inside the request")
+        need = {(stage, kernel): n * calls for stage, calls in
+                (("vad", stats["vad_calls"]), ("asr", stats["asr_batches"]),
+                 ("punc", stats["windows"])) for kernel, n in sites[stage].items()}
+        short = {k: (stats[f"{k[0]}_launches"][k[1]], n) for k, n in need.items()
+                 if stats[f"{k[0]}_launches"][k[1]] < n or n == 0}
+        if short:
+            raise AssertionError(f"{key}: a stage bypassed a kernel (launches, needed): {short}")
+    walls = [s["wall_ms"] for s in per_request]
+    total = sum(len(w) for w in requests) / 16000
+    log(f"hotword pipeline: {HOTWORD_REQUESTS} requests, {total:.1f} s of audio, RTFx "
+        f"{[round(s['rtfx'], 1) for s in per_request]} (all {total * 1e3 / sum(walls):.1f}); "
+        f"stage wall ms, mean per request: " + ", ".join(
+            f"{name} {statistics.mean(s[f'{name}_ms'] for s in per_request):.2f}"
+            for name in stages) + f" on {card}")
+    return per_request
+
+
 # the kernel rows at the pipeline's shapes: kernel -> [(label, record key, the phase 8
 # stage whose launches they are, None where the default fp32 pipeline does not run it)]
 PIPELINE_ENTRIES = {
@@ -1537,14 +1979,17 @@ PIPELINE_ENTRIES = {
 }
 
 
-def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None):
+def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None,
+                 hotword=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
     the launches of one decode of the default (fp32) AutoModel, and their rows at the
     pipeline's shapes under ``pipeline``, with the launches of phase 8's requests
     (``pipeline``: its per-request stats). Every kernel carries phase 9's launches under
-    ``speaker`` (``speaker``: its per-request stats), by stage."""
+    ``speaker`` (``speaker``: its per-request stats), by stage, and phase 10's under
+    ``hotword`` (``hotword``: its figures), per counted decode; FSMN adds there its k = 21
+    rows (the SeACo decoder's memory) with their launches per decode."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -1575,6 +2020,19 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             total = sum(by_stage.values())
             entry["speaker"] = dict(launches=total, launches_per_request=total / len(speaker),
                                     by_stage=by_stage)
+        if hotword:
+            runs = {"_".join(map(str, key)): v for key, v in hotword.items()
+                    if isinstance(key, tuple)}  # ("seaco", "fp32", 20) -> "seaco_fp32_20"
+            decodes = {k: v["launches"][name] for k, v in runs.items()}
+            entry["hotword"] = dict(launches=sum(decodes.values()), launches_per_decode=decodes,
+                                    pipeline_launches=sum(r["asr_launches"][name]
+                                                          for r in hotword["pipeline"]))
+            if name == "fsmn_memory":
+                for dtype, dt in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+                    k21 = {k: v["k21_launches"] for k, v in runs.items() if f"_{dt}_" in k}
+                    entry["hotword"][f"k21_{dt}"] = dict(
+                        launches=sum(k21.values()), launches_per_decode=k21,
+                        **record[("fsmn_memory", "hotword", dtype)])
         kernels.append(entry)
     return {"kernels": kernels}
 
@@ -1614,9 +2072,10 @@ def main():
     am_launches, fp32_launches = phase_automodel(dev, counters, card)
     pipeline = phase_pipeline(dev, counters, card)
     speaker = phase_speaker(dev, counters, card)
+    hotword = phase_hotword(dev, counters, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
-                                  speaker)))
+                                  speaker, hotword), default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
-"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slices 1-6: offline
+"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slices 1-7: offline
 Paraformer, ``AutoModel`` with bf16 and int8 / W8A8 quantization, the VAD -> ASR ->
-punctuation pipeline with FSMN-VAD and CT-Transformer, and speaker-attributed
-transcription: BiCif-Paraformer timestamps, CAM++ and its clustering).
+punctuation pipeline with FSMN-VAD and CT-Transformer, speaker-attributed
+transcription: BiCif-Paraformer timestamps, CAM++ and its clustering, and hotword
+transcription: SeACo-Paraformer and the Contextual Paraformer through ``hotword=``).
 
 Imports torch, numpy and scipy, never jax, ``funasr_tpu`` or scikit-learn. The public
 entry point:
@@ -11,6 +12,9 @@ entry point:
                       punc_model="<punc dir>", spk_model="<cam++ dir>", device="cuda")
     results = model.generate(input=["meeting.wav"], batch_size_s=300, preset_spk_num=2)
     # results[0]["sentence_info"]: [{"text", "start", "end", "spk", "timestamp"}, ...]
+
+    model = AutoModel(model="<seaco or contextual dir>", device="cuda")
+    results = model.generate(input=["a.wav"], hotword="w1 w2 w3")
 
 Importing the package registers its classes in its own ``tables``:
 
@@ -37,9 +41,12 @@ torch.backends.cudnn.allow_tf32 = False
 from funasr_tpu_torch.frontends import wav_frontend  # noqa: E402,F401
 from funasr_tpu_torch.models.bicif_paraformer import model as bicif_model  # noqa: E402,F401
 from funasr_tpu_torch.models.campplus import model as campplus_model  # noqa: E402,F401
+from funasr_tpu_torch.models.contextual_paraformer import model as ctx_model  # noqa: E402,F401
 from funasr_tpu_torch.models.ct_transformer import model as ct_model  # noqa: E402,F401
 from funasr_tpu_torch.models.fsmn_vad_streaming import model as vad_model  # noqa: E402,F401
 from funasr_tpu_torch.models.paraformer import cif_predictor, decoder, model  # noqa: E402,F401
+from funasr_tpu_torch.models.paraformer import san_decoder  # noqa: E402,F401
+from funasr_tpu_torch.models.seaco_paraformer import model as seaco_model  # noqa: E402,F401
 from funasr_tpu_torch.models.sanm import encoder  # noqa: E402,F401
 from funasr_tpu_torch.tokenizer import char_tokenizer  # noqa: E402,F401
 from funasr_tpu_torch import parity  # noqa: E402,F401  (aliases, after every class)

@@ -510,7 +510,9 @@ def dispatch_pair(model):
     ``inference`` without its own pair then runs its ``inference``: the JAX package takes
     the inherited pair whenever it exists (``auto_model.py:323-324``) and so loses the
     subclass's results (ROADMAP section 3). ``BiCifParaformer`` keeps Paraformer's
-    ``inference`` and pair, whose hooks it overrides, so its timestamps survive."""
+    ``inference`` and pair, whose hooks it overrides, so its timestamps survive; so do
+    ``SeacoParaformer`` and ``ContextualParaformer`` (their hook ``decode_context``
+    carries the call's hotwords), so their bias survives."""
     owner = next((c for c in type(model).__mro__ if "inference" in vars(c)), None)
     if owner is None or not all(f in vars(owner) for f in ("inference_dispatch",
                                                              "inference_fetch")):

@@ -19,6 +19,12 @@ package's parameter tree (as numpy arrays) and gives the tensors that the port m
 * the CifPredictorV3 head: ``upsample_cnn`` ``w`` is torch's ConvTranspose1d
   (C_in, C_out, K) already and is not transposed; ``blstm_fw`` / ``blstm_bw`` ``w_ih`` /
   ``w_hh`` (in, 4H) -> ``blstm.weight_{ih,hh}_l0[_reverse]`` (4H, in);
+* LSTM layers ``{w_ih, w_hh, b_ih, b_hh}`` (the hotword bias encoders: SeACo's list of
+  two, Contextual's one) -> ``bias_encoder.weight_{ih,hh}_l{i}`` (transposed) and
+  ``bias_{ih,hh}_l{i}``;
+* ContextualParaformer's stacked decoder layers -> ``decoders.{i}`` for all but the last,
+  which is ``last_decoder``; ``bias_output`` ``w`` (1, 2d, d) -> (d, 2d, 1); ``bias_embed``
+  unchanged;
 * CAM++: conv2d ``w`` HWIO -> ``weight`` OIHW; batch norm ``mean`` / ``var`` / ``scale``
   / ``bias`` -> ``running_mean`` / ``running_var`` / ``weight`` / ``bias``, plus a zero
   ``num_batches_tracked``; the FCM blocks ``head.layer{1,2}.{i}`` (0-based) with
@@ -125,16 +131,44 @@ def _generic(tree, target, out):  # Paraformer
 def _bicif(tree, target, out):
     """Paraformer, with the CifPredictorV3 head's transposed conv and BLSTM by hand."""
     pred = dict(tree["predictor"])
-    up = pred.pop("upsample_cnn")
+    up = pred.pop("upsample_cnn", None)
     lstm = {"": pred.pop("blstm_fw", None), "_reverse": pred.pop("blstm_bw", None)}
     _walk({**tree, "predictor": pred}, "", target, out)
-    out["predictor.upsample_cnn.weight"] = up["w"]
-    out["predictor.upsample_cnn.bias"] = up["b"]
+    if up is not None:
+        out["predictor.upsample_cnn.weight"] = up["w"]
+        out["predictor.upsample_cnn.bias"] = up["b"]
     for suffix, p in lstm.items():
         if p is not None:
-            for name in ("ih", "hh"):
-                out[f"predictor.blstm.weight_{name}_l0{suffix}"] = np.asarray(p[f"w_{name}"]).T
-                out[f"predictor.blstm.bias_{name}_l0{suffix}"] = p[f"b_{name}"]
+            _lstm_layer(p, "predictor.blstm", "l0" + suffix, out)
+
+
+def _lstm_layer(p, prefix: str, suffix: str, out):
+    for name in ("ih", "hh"):
+        out[f"{prefix}.weight_{name}_{suffix}"] = np.asarray(p[f"w_{name}"]).T
+        out[f"{prefix}.bias_{name}_{suffix}"] = p[f"b_{name}"]
+
+
+def _seaco(tree, target, out):
+    """BiCif, plus the 2-layer ``bias_encoder`` (the rest walks by name)."""
+    rest = {k: v for k, v in tree.items() if k != "bias_encoder"}
+    _bicif(rest, target, out)
+    for i, p in enumerate(tree["bias_encoder"]):
+        _lstm_layer(p, "bias_encoder", f"l{i}", out)
+
+
+def _contextual(tree, target, out):
+    """The stacked decoder layers split into ``decoders`` and ``last_decoder``, the
+    1-layer ``bias_encoder`` and ``bias_embed`` by hand."""
+    dec = dict(tree["decoder"])
+    stacked = dec.pop("decoders")
+    rest = {k: v for k, v in tree.items() if k not in ("bias_encoder", "bias_embed")}
+    _bicif({**rest, "decoder": dec}, target, out)
+    n = len(next(iter(_flatten(stacked))))
+    for i in range(n):
+        prefix = f"decoder.decoders.{i}." if i < n - 1 else "decoder.last_decoder."
+        _walk(_index(stacked, i), prefix, target, out)
+    _lstm_layer(tree["bias_encoder"], "bias_encoder", "l0", out)
+    out["bias_embed.weight"] = tree["bias_embed"]["w"]
 
 
 def _campplus(tree, target, out):
@@ -188,12 +222,14 @@ def _campplus(tree, target, out):
 
 
 _BY_MODEL = {"FsmnVADStreaming": _fsmn_vad, "CTTransformer": _ct_transformer,
-             "BiCifParaformer": _bicif, "CAMPPlus": _campplus}
+             "BiCifParaformer": _bicif, "CAMPPlus": _campplus, "SeacoParaformer": _seaco,
+             "ContextualParaformer": _contextual}
 
 
 def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """JAX params (nested dict of arrays) of a Paraformer, BiCifParaformer,
-    FsmnVADStreaming, CTTransformer or CAMPPlus -> ``model``'s state dict.
+    SeacoParaformer, ContextualParaformer, FsmnVADStreaming, CTTransformer or CAMPPlus ->
+    ``model``'s state dict.
 
     Int8 and int64 tensors keep their type, every other leaf becomes fp32. Raises if the names or
     shapes do not match ``model.state_dict()`` exactly.

@@ -117,6 +117,42 @@ def masked_softmax(scores, mask, *, dim: int = -1):
     return out.to(scores.dtype)
 
 
+def lstm_apply(lstm: nn.LSTM, x):
+    """A unidirectional ``nn.LSTM`` (any number of layers, FunASR's parameter names) over
+    x (B, T, D) -> (B, T, H), in fp32 whatever the weights' dtype, as ``lstm_apply``
+    (``core/layers.py:209-239``) computes: per layer the input product plus both biases
+    for every step at once, then one (B, H) x (H, 4H) product a step, gates (i, f, g, o).
+    The hotword bias encoders run it over a few tokens per word."""
+    h_all = x.float()
+    for layer in range(lstm.num_layers):
+        w_ih, w_hh, b_ih, b_hh = (getattr(lstm, f"{name}_l{layer}").float() for name in
+                                  ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+        pre = F.linear(h_all, w_ih) + b_ih + b_hh
+        h = torch.zeros(x.shape[0], lstm.hidden_size, device=x.device)
+        c = torch.zeros_like(h)
+        steps = []
+        for t in range(x.shape[1]):
+            i, f, g, o = (pre[:, t] + h @ w_hh.T).chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            steps.append(h)
+        h_all = torch.stack(steps, dim=1)
+    return h_all
+
+
+def encode_hotwords(lstm: nn.LSTM, table, hw_lists):
+    """Hotwords as token-id lists (N of them) -> (N, H) fp32: the rows of the embedding
+    ``table`` through ``lstm_apply``, each word's last valid step (its first for an empty
+    word), as the hotword models take it (``seaco_paraformer/model.py:55-62``)."""
+    lengths = [len(h) for h in hw_lists]
+    ids = torch.zeros(len(hw_lists), max(lengths), dtype=torch.long)
+    for i, h in enumerate(hw_lists):
+        ids[i, :len(h)] = torch.as_tensor(h, dtype=torch.long)
+    h = lstm_apply(lstm, embedding(ids.to(table.device), table))
+    last = torch.as_tensor([max(n - 1, 0) for n in lengths], device=table.device)
+    return h[torch.arange(len(hw_lists), device=table.device), last]
+
+
 class LayerNorm(nn.LayerNorm):
     """``nn.LayerNorm`` parameters (``weight``, ``bias``) with eps 1e-12 in fp32."""
 

@@ -29,11 +29,12 @@ class BiCifParaformer(Paraformer):
     def __init__(self, *args, predictor: str = "CifPredictorV3", **kwargs):
         super().__init__(*args, predictor=predictor, **kwargs)
 
-    def infer_timestamp(self, speech, speech_lengths, max_tokens: Optional[int] = None):
+    def infer_timestamp(self, speech, speech_lengths, max_tokens: Optional[int] = None,
+                        context=None):
         """``infer_jit_timestamp`` (``model.py:55-64``) -> (yseq, token_lens, score,
         us_alphas (B, T * up), us_peaks, encoder_out_lens)."""
-        (yseq, token_lens, score, _, _,
-         encoder_out, encoder_out_lens) = self.infer_core(speech, speech_lengths, max_tokens)
+        (yseq, token_lens, score, _, _, encoder_out,
+         encoder_out_lens) = self.infer_core(speech, speech_lengths, max_tokens, context)
         mask = make_pad_mask(encoder_out_lens, encoder_out.shape[1])
         _, _, us_alphas, us_peaks = self.predictor.get_upsample_timestamp(
             encoder_out, mask, token_num=token_lens.float())
@@ -42,9 +43,9 @@ class BiCifParaformer(Paraformer):
     def wants_timestamps(self, kwargs) -> bool:
         return True
 
-    def decode_outputs(self, sp, ln, max_tokens: int, timestamps: bool = True):
+    def decode_outputs(self, sp, ln, max_tokens: int, timestamps: bool = True, context=None):
         yseq, token_lens, _, us_alphas, us_peaks, enc_lens = self.infer_timestamp(
-            sp, ln, max_tokens)
+            sp, ln, max_tokens, context)
         return yseq, token_lens, enc_lens, (us_alphas, us_peaks)
 
     def transcript(self, token, tokenizer, enc_len: int, ts, kwargs) -> dict:

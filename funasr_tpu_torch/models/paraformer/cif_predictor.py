@@ -1,11 +1,18 @@
-"""CIF predictor (CifPredictorV2) in PyTorch (counterpart of
-``funasr_tpu/models/paraformer/cif_predictor.py::CifPredictorV2``).
+"""CIF predictors (CifPredictorV2 and V1) in PyTorch (counterpart of
+``funasr_tpu/models/paraformer/cif_predictor.py``).
 
 FunASR's ``CifPredictorV2`` (``funasr/models/paraformer/cif_predictor.py:209-412``):
 pad(l, r) conv1d + relu + linear + sigmoid alphas, then (inference) the tail-threshold
 fire appended. The fired-token axis is the caller's ``max_tokens`` budget; slots past a
 row's token count are zero. The training branch (alphas rescaled to the target length)
 is slice 7, the streaming ``forward_chunk`` slice 3.
+
+``CifPredictorV1`` (registered as ``CifPredictor``; FunASR ``cif_predictor.py:17``) is V2
+with a depthwise alpha conv (``Conv1d(idim, idim, l + r + 1, groups=idim)``, with a bias)
+and a residual before the ReLU. The JAX package also binds ``CifPredictorV2Export`` and
+``CifPredictorV3Export`` to it; in FunASR those wrap V2 and V3, whose ``cif_conv1d`` is a
+full (idim, idim, k) conv that V1's (idim, 1, k) weight cannot hold, so the port leaves
+both names unbound (ROADMAP section 3).
 """
 
 from __future__ import annotations
@@ -61,3 +68,29 @@ class CifPredictorV2(nn.Module):
             hidden_c, alphas_c, out_token_num = hidden, a, a.sum(dim=1)
         acoustic_embeds, fires = cif(hidden_c, alphas_c, max_tokens, self.threshold)
         return acoustic_embeds, out_token_num, alphas_c, fires
+
+
+@tables.register("predictor_classes", "CifPredictor")
+class CifPredictorV1(CifPredictorV2):
+    def __init__(self, idim: int, l_order: int = 1, r_order: int = 1, *args, device=None,
+                 **kwargs):
+        super().__init__(idim, l_order, r_order, *args, device=device, **kwargs)
+        self.cif_conv1d = nn.Conv1d(idim, idim, l_order + r_order + 1, groups=idim,
+                                    device=device)
+
+    def alphas(self, hidden, mask):
+        """``depthwise_conv1d_apply`` (fp32 taps, the bias added, one rounding to hidden's
+        dtype) + hidden -> relu -> linear -> sigmoid; (B, T) fp32."""
+        w = self.cif_conv1d.weight[:, 0].float()  # (C, k)
+        pad = F.pad(hidden.float(), (0, 0, self.l_order, self.r_order))
+        t = hidden.shape[1]
+        mem = torch.zeros(hidden.shape, dtype=torch.float32, device=hidden.device)
+        for i in range(w.shape[1]):
+            mem = mem + pad[:, i:i + t] * w[:, i]
+        mem = (mem + self.cif_conv1d.bias.float()).to(hidden.dtype)
+        out = apply_linear(self.cif_output, torch.relu(mem + hidden))
+        a = torch.sigmoid(out[..., 0].float())
+        a = torch.relu(a * self.smooth_factor - self.noise_threshold)
+        if mask is not None:
+            a = a * mask.float()
+        return a

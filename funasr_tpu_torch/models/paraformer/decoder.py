@@ -5,7 +5,8 @@ FunASR's ``ParaformerSANMDecoder`` (``funasr/models/paraformer/decoder.py:233-64
 ``decoders`` (FFN -> FSMN with the layer input as residual -> cross-attention),
 ``decoders2`` (no cross-attention), ``decoders3`` (FFN only, NO residual), after-norm and
 the vocab projection. ``embed`` is kept for the state dict (the glancing sampler of
-training uses it). The streaming ``forward_chunk`` is slice 3.
+training uses it; SeACo embeds its hotwords with it). ``forward_asf`` is the SeACo
+decoder's attention-score probe. The streaming ``forward_chunk`` is slice 3.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from funasr_tpu_torch.models.sanm.attention import (
     FSMNDecoderConfig,
     MultiHeadedAttentionCrossAtt,
     MultiHeadedAttentionSANMDecoder,
+    cross_attention_apply,
 )
 from funasr_tpu_torch.register import tables
 
@@ -117,9 +119,32 @@ class ParaformerSANMDecoder(nn.Module):
         x = ys_in_pad
         for layer in self.decoders:
             x = layer(x, tgt_mask, hs_pad, memory_mask)
+        return self.forward_tail(x, tgt_mask, ys_in_lens, return_hidden)
+
+    def forward_tail(self, x, tgt_mask, ys_in_lens, return_hidden: bool = False):
+        """The layers after the cross-attention ones, the after-norm and the vocab
+        projection (none under ``return_hidden``)."""
         for layer in (*self.decoders2, *self.decoders3):
             x = layer(x, tgt_mask, None, None)
         hidden = self.after_norm(x)
         if self.output_layer is not None and not return_hidden:
             return apply_linear(self.output_layer, hidden), ys_in_lens
         return hidden, ys_in_lens
+
+    def forward_asf(self, hs_pad, hlens, ys_in_pad, ys_in_lens, probe_layer=None):
+        """Run the first ``probe_layer`` - 1 layers (6 when None, at most
+        ``att_layer_num``), then the next layer up to its cross-attention, and return
+        that attention's probabilities (B, H, Tq, Tk): the attention-score filtering
+        probe (``decoder.py:151-178``; FunASR ``forward_asf6``)."""
+        probe = min(probe_layer if probe_layer is not None else 6, self.cfg.att_layer_num) - 1
+        tgt_mask = make_pad_mask(ys_in_lens, ys_in_pad.shape[1])
+        memory_mask = make_pad_mask(hlens, hs_pad.shape[1])
+        x = ys_in_pad
+        for layer in self.decoders[:probe]:
+            x = layer(x, tgt_mask, hs_pad, memory_mask)
+        layer = self.decoders[probe]
+        h = layer.feed_forward(layer.norm1(x))
+        x = x + layer.self_attn(layer.norm2(h), tgt_mask)
+        _, attn = cross_attention_apply(layer.src_attn, layer.norm3(x), hs_pad, memory_mask,
+                                        ret_attn=True)
+        return attn

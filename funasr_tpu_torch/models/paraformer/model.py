@@ -8,8 +8,10 @@ saturates it (``model.py:306-331``). Features are cast to the weights' dtype, as
 ``bench.py`` casts them for its bf16 decode. ``inference`` is the dispatch / fetch pair
 of the JAX package; ``pred_timestamp=True`` adds CIF timestamps, whose alphas and peaks
 ride in the fetch's one device-to-host copy. Subclasses change the decode's outputs
-(``decode_outputs``) and each row's result (``transcript``), so the pair serves them
-too. Training, CTC and specaug are later slices.
+(``decode_outputs``), its per-call inputs beyond the audio (``decode_context``: the
+hotword models' biasing lists, made once per call) and each row's result
+(``transcript``), so the pair serves them too. Training, CTC and specaug are later
+slices.
 """
 
 from __future__ import annotations
@@ -97,12 +99,15 @@ class Paraformer(nn.Module):
         return self.predictor(encoder_out, mask, k)
 
     def cal_decoder_with_predictor(self, encoder_out, encoder_out_lens, sematic_embeds,
-                                   ys_pad_lens):
+                                   ys_pad_lens, context=None):
+        """fp32 log-probs (B, K, vocab) of the decoder; ``context`` is the hotword models'
+        (``decode_context``), None here."""
         logits, olens = self.decoder(encoder_out, encoder_out_lens, sematic_embeds,
                                      ys_pad_lens)
         return torch.log_softmax(logits.float(), dim=-1), olens
 
-    def infer_core(self, speech, speech_lengths, max_tokens: Optional[int] = None):
+    def infer_core(self, speech, speech_lengths, max_tokens: Optional[int] = None,
+                   context=None):
         """Batched greedy decode -> (yseq (B,K), token_lens (B,), score (B,),
         alphas (B,T+1), peaks (B,T+1), encoder_out, encoder_out_lens)."""
         encoder_out, encoder_out_lens = self.encode(speech, speech_lengths)
@@ -111,7 +116,7 @@ class Paraformer(nn.Module):
         k = pre_acoustic_embeds.shape[1]
         token_lens = torch.clamp(torch.round(pre_token_length).to(torch.int32), 0, k)
         decoder_out, _ = self.cal_decoder_with_predictor(
-            encoder_out, encoder_out_lens, pre_acoustic_embeds, token_lens)
+            encoder_out, encoder_out_lens, pre_acoustic_embeds, token_lens, context)
         yseq = decoder_out.argmax(dim=-1).to(torch.int32)
         tok_valid = make_pad_mask(token_lens, k)
         score = (decoder_out.max(dim=-1).values * tok_valid).sum(dim=-1)
@@ -167,11 +172,17 @@ class Paraformer(nn.Module):
     def wants_timestamps(self, kwargs) -> bool:
         return bool(kwargs.get("pred_timestamp", False))
 
-    def decode_outputs(self, sp, ln, max_tokens: int, timestamps: bool):
+    def decode_context(self, kwargs, tokenizer):
+        """What the decode needs of this call beyond the audio: None here; the hotword
+        models' biasing lists (``hotword=``)."""
+        return None
+
+    def decode_outputs(self, sp, ln, max_tokens: int, timestamps: bool, context=None):
         """One padded batch on the device -> (yseq (B, K), token_lens (B,), enc_lens (B,),
         ts): ts is the CIF's (alphas, peaks), each (B, T + 1), when ``timestamps``, else
         None."""
-        yseq, token_lens, _, alphas, peaks, _, enc_lens = self.infer_core(sp, ln, max_tokens)
+        yseq, token_lens, _, alphas, peaks, _, enc_lens = self.infer_core(sp, ln, max_tokens,
+                                                                         context)
         return yseq, token_lens, enc_lens, ((alphas, peaks) if timestamps else None)
 
     def inference_dispatch(self, data_in, data_lengths=None, key=None, tokenizer=None,
@@ -192,14 +203,16 @@ class Paraformer(nn.Module):
             device=self.device)
         meta_data["extract_feat"] = f"{time.perf_counter() - t1:0.3f}"
         timestamps = self.wants_timestamps(kwargs)
+        context = self.decode_context(kwargs, tokenizer)
         with torch.inference_mode():
             sp, ln, b = pad_feats_bucketed(speech, speech_lengths)
             sp = sp.to(self.dtype)
             mt = self._max_tokens_for(sp.shape[1])
-            out = self.decode_outputs(sp, ln, mt, timestamps)
+            out = self.decode_outputs(sp, ln, mt, timestamps, context)
             packed = _pack(ln, out, b)
         return {"packed": packed, "k": out[0].shape[1], "sp": sp, "ln": ln, "mt": mt,
-                "b": b, "timestamps": timestamps, "key": key, "tokenizer": tokenizer,
+                "b": b, "timestamps": timestamps, "context": context, "key": key,
+                "tokenizer": tokenizer,
                 "frontend": frontend, "kwargs": kwargs, "meta": meta_data}
 
     def inference_fetch(self, handle):
@@ -215,7 +228,7 @@ class Paraformer(nn.Module):
                             "re-decoding with the full budget", mt)
             with torch.inference_mode():
                 out = self.decode_outputs(sp, handle["ln"], sp.shape[1] + 1,
-                                          handle["timestamps"])
+                                          handle["timestamps"], handle["context"])
                 ints, ts = _unpack(_pack(handle["ln"], out, b).cpu().numpy(),
                                    out[0].shape[1])
         token_lens, enc_lens, yseq = ints[:, 1], ints[:, 2], ints[:, 3:]

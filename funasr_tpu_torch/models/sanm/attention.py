@@ -152,8 +152,11 @@ def fsmn_decoder_apply(attn: MultiHeadedAttentionSANMDecoder, x, mask):
     return fsmn_memory(x, attn.fsmn_block.weight, mask, left, right)
 
 
-def cross_attention_apply(attn: MultiHeadedAttentionCrossAtt, x, memory, memory_mask):
-    """x: (B, Tq, n_feat); memory: (B, Tk, enc); memory_mask: (B, Tk) bool or None."""
+def cross_attention_apply(attn: MultiHeadedAttentionCrossAtt, x, memory, memory_mask,
+                          ret_attn: bool = False):
+    """x: (B, Tq, n_feat); memory: (B, Tk, enc); memory_mask: (B, Tk) bool or None.
+    ``ret_attn`` also returns the masked-softmax probabilities (B, H, Tq, Tk), in x's
+    dtype (the SeACo decoder's attention-score filter reads them)."""
     cfg = attn.cfg
     q = apply_linear(attn.linear_q, x)
     kv = apply_linear(attn.linear_k_v, memory.to(x.dtype))
@@ -163,5 +166,6 @@ def cross_attention_apply(attn: MultiHeadedAttentionCrossAtt, x, memory, memory_
     v_h = _split_heads(v, cfg.n_head, cfg.d_k)
     scores = torch.matmul(q_h, k_h.transpose(-1, -2))
     mask = None if memory_mask is None else memory_mask[:, None, None, :]
-    ctx = torch.matmul(masked_softmax(scores, mask), v_h)
-    return apply_linear(attn.linear_out, _merge_heads(ctx))
+    probs = masked_softmax(scores, mask)
+    out = apply_linear(attn.linear_out, _merge_heads(torch.matmul(probs, v_h)))
+    return (out, probs) if ret_attn else out

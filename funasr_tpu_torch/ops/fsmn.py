@@ -11,8 +11,9 @@ H100 (device-memory bandwidth: 23 flops per element for k = 11; 7.5 us of bytes 
 (32, 384, 512) bf16, where the first port took 0.0488 ms) and what its design does about
 it: 16-byte loads and stores of 8 bf16 or 4 fp32 channels per thread, k and the pads as
 template parameters (11 and 5 on the SAN-M path, 20 and 19 for the VAD's fp32 causal
-memory; a generic instantiation for the rest) so the k-vector input window stays in
-registers and loads run several rows ahead, the weights
+memory, 21 and 10 for the SeACo decoder's memory at 4 channels a thread, so that bf16's
+window and taps fit in registers too; a generic instantiation for the rest) so the
+k-vector input window stays in registers and loads run several rows ahead, the weights
 read once per thread, the mask once per warp and row (as ballot bits), and the three
 elementwise passes fused away.
 
@@ -25,7 +26,8 @@ path's inputs are (the v slice at offset 2C of q|k|v, the decoder's contiguous i
 anything else raises ``ValueError``.
 
 Dispatch: a CPU tensor takes ``fsmn_memory_ref``; a CUDA tensor launches the kernel or
-raises. ``fsmn_memory.launches`` counts kernel launches.
+raises. ``fsmn_memory.launches`` counts kernel launches. ``generic=True`` launches the
+generic instantiation whatever k is, to time a specialised one against it.
 """
 
 from __future__ import annotations
@@ -85,7 +87,7 @@ def _check(x, weight, mask, left_pad, right_pad):
                          f"base offset {x.data_ptr() % 16}")
 
 
-def fsmn_memory(x, weight, mask, left_pad: int, right_pad: int):
+def fsmn_memory(x, weight, mask, left_pad: int, right_pad: int, *, generic: bool = False):
     """x (B, T, C) (any batch/time strides, unit channel stride); weight (C, 1, k) in
     x's dtype; mask (B, T) bool or None -> contiguous (B, T, C) in x's dtype."""
     if x.device.type == "cpu":
@@ -102,7 +104,7 @@ def fsmn_memory(x, weight, mask, left_pad: int, right_pad: int):
     out = torch.empty((b, t, c), dtype=x.dtype, device=x.device)
     lib = cuda_lib.load_library()
     fsmn_memory.launches += 1
-    err = lib.fsmn_memory_fwd(
+    err = (lib.fsmn_memory_generic_fwd if generic else lib.fsmn_memory_fwd)(
         _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
         None if m is None else m.data_ptr(), out.data_ptr(), b, t, c, k, left_pad,
         x.stride(0), x.stride(1), cuda_lib.stream_handle(x.device))

@@ -10,7 +10,8 @@
 * the fp32 flash kernel's 3xTF32 split, emulated in fp32 with its key tiles and online
   softmax: within the card's tolerance of the plain version, where one TF32 product is
   not;
-* the kernels' JSON line of ``chip_smoke.py``, fp32 entries included;
+* the kernels' JSON line of ``chip_smoke.py``, fp32, pipeline and hotword entries
+  included;
 * the kernel modules never call the library functions that ``chip_smoke.py`` times
   beside the kernels.
 """
@@ -49,6 +50,9 @@ SMOKE_LENS = [384 - 37 * (i % 2) for i in range(32)]  # chip_smoke's flash lengt
     ("fsmn VAD k = 20", chip_smoke.fsmn_work(1, 6019, 128, 20, 4), "fp32", 1.8, "bytes"),
     ("fsmn punc", chip_smoke.fsmn_work(1, 64, 256, 11, 4), "fp32", 0.0, "bytes"),
     ("flash punc fp32", chip_smoke.flash_work(1, 8, 64, 32, [57], 4), "tf32", 0.1, "bytes"),
+    # the SeACo decoder's memory (k = 21): the same bytes as k = 11 at (32, 208, 512)
+    ("fsmn SeACo k = 21 fp32", chip_smoke.fsmn_work(32, 208, 512, 21, 4), "fp32", 8.2, "bytes"),
+    ("fsmn SeACo k = 21 bf16", chip_smoke.fsmn_work(32, 208, 512, 21, 2), "fp32", 4.1, "bytes"),
 ])
 def test_roofline_bounds(name, work, op_type, want_us, want_by):
     ms, by = chip_smoke.bound_ms(*work, op_type)
@@ -121,6 +125,42 @@ def test_kernels_line_carries_pipeline_entries():
     assert "pipeline" not in kernels["w8a8_linear"]
     assert "pipeline" not in chip_smoke.kernels_line(record, launches, {"w8a8_linear": 282},
                                                      launches)["kernels"][0]
+
+
+def test_kernels_line_carries_hotword_entries():
+    """Every kernel carries phase 10's launches under ``hotword``, per counted decode and
+    over the pipeline's ASR batches; FSMN adds its k = 21 rows with the launches of the
+    decodes of their dtype."""
+    row = dict(shape=(1, 2), max_abs_err=0.0, ms=1.0, call_ms=2.0, plain_ms=3.0,
+               library_ms=4.0, bound_ms=0.5, bound_by="bytes")
+    record = {(name, torch.bfloat16): row for name in chip_smoke.LIBRARY_CALLS}
+    for dtype in (torch.float32, torch.bfloat16):
+        record[("fsmn_memory", "hotword", dtype)] = dict(row, ms=9.0, generic_ms=90.0)
+    kernels = dict(flash_attention=50, fsmn_memory=78, w8a8_linear=0)
+
+    def run(k21, fsmn=78):
+        return dict(launches=dict(kernels, fsmn_memory=fsmn), k21_launches=k21)
+    hotword = {("seaco", "fp32", 20): run(12), ("seaco", "fp32", 200): run(18, 84),
+               ("seaco", "bf16", 200): run(18, 84), ("contextual", "fp32", 20): run(0, 66),
+               "seaco_cuda_vs_cpu": dict(err=0.0),
+               "pipeline": [dict(asr_launches=dict(kernels, fsmn_memory=156))] * 2}
+    launches = {"flash_attention": 100, "fsmn_memory": 132}
+    line = chip_smoke.kernels_line(record, launches, {"w8a8_linear": 282}, launches,
+                                   hotword=hotword)
+    kernels_out = {k["name"]: k for k in line["kernels"]}
+    fsmn = kernels_out["fsmn_memory"]["hotword"]
+    assert fsmn["launches_per_decode"] == {"seaco_fp32_20": 78, "seaco_fp32_200": 84,
+                                           "seaco_bf16_200": 84, "contextual_fp32_20": 66}
+    assert fsmn["launches"] == 312 and fsmn["pipeline_launches"] == 312
+    assert fsmn["k21_fp32"]["launches_per_decode"] == {"seaco_fp32_20": 12, "seaco_fp32_200": 18,
+                                                       "contextual_fp32_20": 0}
+    assert fsmn["k21_fp32"]["launches"] == 30 and fsmn["k21_bf16"]["launches"] == 18
+    assert fsmn["k21_bf16"]["generic_ms"] == 90.0 and fsmn["k21_bf16"]["bound_by"] == "bytes"
+    assert kernels_out["flash_attention"]["hotword"]["launches"] == 200
+    assert kernels_out["w8a8_linear"]["hotword"]["launches"] == 0
+    assert "k21_fp32" not in kernels_out["flash_attention"]["hotword"]
+    # the other per-decode figures are the main path's, whatever phase 10 ran
+    assert kernels_out["w8a8_linear"]["launches_per_decode"] == 282
 
 
 def test_flash_work_counts_keys_up_to_the_lengths():

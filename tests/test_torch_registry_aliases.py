@@ -6,7 +6,13 @@ package: to the target's class where the JAX package binds the alias to its targ
 not at all where the JAX package has a class of that name of its own (the port would
 otherwise build the target for a config that names another model). A ``config.yaml``
 naming the export aliases then builds in the port's ``AutoModel`` and gives the JAX
-``AutoModel``'s texts.
+``AutoModel``'s texts; so does one naming ``ContextualParaformerDecoderExport``.
+
+``CifPredictor`` resolves to the V1 predictor. The JAX package also binds
+``CifPredictorV2Export`` and ``CifPredictorV3Export`` to V1 (``cif_predictor.py:182-183``);
+in FunASR those wrap V2 and V3, whose full (idim, idim, k) ``cif_conv1d`` does not fit V1's
+depthwise weight, so the port leaves them unbound (ROADMAP section 3, shown on the JAX
+side below).
 """
 
 import os
@@ -20,12 +26,12 @@ from funasr_tpu.auto import auto_model as jauto
 from funasr_tpu.register import tables as jtables
 from funasr_tpu_torch import AutoModel, tables
 from pipeline_parity_util import multi_segment_wav
-from torch_parity_util import write_asr_dir
+from torch_parity_util import write_asr_dir, write_contextual_dir
 
 # the aliases of the JAX package's list whose targets the port has (ROADMAP section 3)
 PORT_ALIASES = {"SANMEncoderExport", "FSMNExport", "FSMNConvert", "FSMNMT", "FSMNMTConvert",
                 "ParaformerSANMDecoderExport", "ParaformerSANMDecoderOnlineExport",
-                "ParaformerSANMDecoder_v2_community"}
+                "ParaformerSANMDecoder_v2_community", "ContextualParaformerDecoderExport"}
 
 
 def _reference_pairs():
@@ -75,3 +81,50 @@ def test_config_naming_export_aliases_builds_and_matches_jax(tmp_path):
     want = ref.generate(input=waves, batch_size=2)
     assert [r["text"] for r in got] == [r["text"] for r in want]
     assert all(r["text"] for r in got)
+
+
+def _rewrite_config(d, **update):
+    with open(os.path.join(d, "config.yaml"), encoding="utf-8") as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(update)
+    with open(os.path.join(d, "config.yaml"), "w", encoding="utf-8") as f:
+        yaml.safe_dump(cfg, f, allow_unicode=True)
+
+
+def test_config_naming_the_contextual_export_decoder_builds_and_matches_jax(tmp_path):
+    d = write_contextual_dir(tmp_path)
+    _rewrite_config(d, decoder="ContextualParaformerDecoderExport")
+    kw = dict(model=d, device="cpu", log_level="WARNING")
+    port, ref = AutoModel(**kw), jauto.AutoModel(**kw)
+    assert type(port.model.decoder) is tables.decoder_classes["ContextualParaformerDecoder"]
+    waves = [multi_segment_wav(3.0, seed=s) for s in (1, 2)]
+    got = port.generate(input=waves, batch_size=2, hotword="一二 三")
+    want = ref.generate(input=waves, batch_size=2, hotword="一二 三")
+    assert [r["text"] for r in got] == [r["text"] for r in want]
+
+
+def test_cif_predictor_names():
+    from funasr_tpu_torch.models.paraformer.cif_predictor import CifPredictorV1
+    assert tables.predictor_classes["CifPredictor"] is CifPredictorV1
+    assert jtables.predictor_classes["CifPredictor"].__name__ == "CifPredictorV1"
+    for name in ("CifPredictorV2Export", "CifPredictorV3Export"):
+        assert name not in tables.predictor_classes
+        assert jtables.predictor_classes[name] is jtables.predictor_classes["CifPredictor"]
+
+
+def test_jax_export_predictor_alias_cannot_hold_a_v2_checkpoint():
+    """The suspected reference fault: a FunASR V2 checkpoint (full ``cif_conv1d``) under
+    the name ``CifPredictorV2Export`` converts to a (k, idim, idim) conv, while the class
+    the JAX package binds to that name holds a depthwise (k, idim) one."""
+    import jax
+    from funasr_tpu.convert.torch_to_jax import convert_paraformer
+    from funasr_tpu.models.paraformer.model import Paraformer as JaxParaformer
+    from funasr_tpu_torch.models.paraformer.model import Paraformer
+    from torch_parity_util import SMALL_CONF
+
+    v2 = Paraformer(**SMALL_CONF)  # FunASR's V2 layout: cif_conv1d (64, 64, 3)
+    jm = JaxParaformer(**dict(SMALL_CONF, predictor="CifPredictorV2Export"))
+    shapes = jax.eval_shape(jm.init_params, jax.random.PRNGKey(0))
+    held = shapes["predictor"]["cif_conv1d"]["w"].shape
+    loaded = convert_paraformer(v2.state_dict(), jm)["predictor"]["cif_conv1d"]["w"].shape
+    assert held == (3, 64) and loaded == (3, 64, 64)

@@ -47,6 +47,8 @@ def one_torch_thread():
 def to_jax(tree):
     if isinstance(tree, dict):
         return {k: to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_jax(v) for v in tree]
     return jnp.asarray(tree)
 
 
@@ -236,6 +238,66 @@ def write_bicif_dir(d, seed=0):
         tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>")))
 
 
+# ---------------------------------------------------------------------------
+# the hotword models: a small SeACo-Paraformer (BiCif base, 2-layer bias LSTM, a SeACo
+# decoder at FunASR's kernel_size 21) and a small Contextual Paraformer, written the same
+# way
+# ---------------------------------------------------------------------------
+
+NO_BIAS = 7  # the hotword head's "no bias" token at the test vocab (8377 at 8404)
+SEACO_DECODER_CONF = dict(attention_heads=4, linear_units=64, num_blocks=2, att_layer_num=3,
+                          kernel_size=21, sanm_shfit=0, use_output_layer=False)
+
+
+def seaco_conf(base=PIPE_ASR_CONF, kernel_size=21):
+    d = base["encoder_conf"]["output_size"]
+    return dict(base, predictor_conf=dict(BICIF_PREDICTOR, idim=d), inner_dim=d, NO_BIAS=NO_BIAS,
+                seaco_decoder="ParaformerSANMDecoder",
+                seaco_decoder_conf=dict(SEACO_DECODER_CONF, kernel_size=kernel_size))
+
+
+def contextual_conf(base=PIPE_ASR_CONF):
+    return dict(base, inner_dim=base["encoder_conf"]["output_size"])
+
+
+def _write_asr_family(d, name, model, conf, extra):
+    torch.save(model.state_dict(), os.path.join(d, "model.pt"))
+    _write_tokens(d, PIPE_TOKENS)
+    write_identity_cmvn(os.path.join(d, "am.mvn"), conf["input_size"])
+    return _write_config(d, dict(
+        model=name,
+        model_conf=dict(sos=1, eos=2, predictor_bias=1, ctc_weight=0.0, **extra),
+        encoder="SANMEncoder", encoder_conf=conf["encoder_conf"],
+        decoder=conf.get("decoder", "ParaformerSANMDecoder"), decoder_conf=conf["decoder_conf"],
+        predictor=conf.get("predictor", "CifPredictorV2"), predictor_conf=conf["predictor_conf"],
+        frontend="WavFrontend",
+        frontend_conf=dict(fs=16000, window="hamming", n_mels=80, frame_length=25,
+                           frame_shift=10, lfr_m=7, lfr_n=6, cmvn_file="am.mvn", dither=0.0),
+        tokenizer="CharTokenizer",
+        tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>")))
+
+
+def write_seaco_dir(d, seed=0, model=None):
+    """A SeACo directory as FunASR lays it out (``model_conf`` carries inner_dim, NO_BIAS
+    and the SeACo decoder)."""
+    from funasr_tpu_torch.models.seaco_paraformer.model import SeacoParaformer
+    conf = seaco_conf()
+    if model is None:
+        model = SeacoParaformer(**conf, generator=torch.Generator().manual_seed(seed))
+    extra = {k: conf[k] for k in ("inner_dim", "NO_BIAS", "seaco_decoder", "seaco_decoder_conf")}
+    return _write_asr_family(d, "SeacoParaformer", model,
+                             dict(conf, predictor="CifPredictorV3"), extra)
+
+
+def write_contextual_dir(d, seed=0):
+    from funasr_tpu_torch.models.contextual_paraformer.model import ContextualParaformer
+    conf = contextual_conf()
+    model = ContextualParaformer(**conf, generator=torch.Generator().manual_seed(seed))
+    return _write_asr_family(d, "ContextualParaformer", model,
+                             dict(conf, decoder="ContextualParaformerDecoder"),
+                             dict(inner_dim=conf["inner_dim"]))
+
+
 def write_spk_dir(d, seed=3):
     """A cam++ directory as FunASR lays it out: its config names a WavFrontend, which
     CAM++ does not use (it computes its own fbank)."""
@@ -288,7 +350,8 @@ def voice_burst(rng, voice, n, fs=16000):
 
 @contextlib.contextmanager
 def shape_only_init(names=("Paraformer", "BiCifParaformer", "FsmnVADStreaming",
-                           "CTTransformer", "CAMPPlus")):
+                           "CTTransformer", "CAMPPlus", "SeacoParaformer",
+                           "ContextualParaformer")):
     """The JAX ``AutoModel`` draws random parameters for each model and then replaces
     them with the converted ``model.pt``; inside this context it draws their shapes only
     (``jax.eval_shape``), which changes no parameter it runs and saves the eager
