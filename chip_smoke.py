@@ -3,8 +3,9 @@ against its plain PyTorch version, checks the port on CUDA against the port on t
 and drives the offline Paraformer decode, ``AutoModel(quant="w8a8")``, the default
 (fp32) ``AutoModel`` at Paraformer-large width, the VAD -> ASR -> punctuation pipeline
 ``AutoModel(model=, vad_model=, punc_model=)``, speaker-attributed transcription
-``AutoModel(model=bicif, vad_model=, punc_model=, spk_model=)`` and hotword transcription
-``AutoModel(model=seaco | contextual).generate(hotword=...)``.
+``AutoModel(model=bicif, vad_model=, punc_model=, spk_model=)``, hotword transcription
+``AutoModel(model=seaco | contextual).generate(hotword=...)`` and streaming
+``AutoModel(model=paraformer_streaming).generate(input=chunk, cache=cache, ...)``.
 
     python3 chip_smoke.py
 
@@ -83,7 +84,23 @@ Phases (any failure raises and exits non-zero):
    profile each. Then CUDA against the CPU port on 4 x 15 s (log-probs within
    ``HOTWORD_LOGP_TOL``, the kept set, timestamps), and the pipeline with 20 hotwords:
    ``HOTWORD_REQUESTS`` requests of 300 s through ``AutoModel(model=seaco, vad_model=,
-   punc_model=)``, RTFx and the stage split.
+   punc_model=)``, RTFx and the stage split;
+11. streaming (``phase_streaming``): kernel rows at the streaming shapes
+   (``streaming_kernel_rows``: flash with a key cache, (1, 4, 15, 128) over 15 / 55 / 1005
+   keys, and with causal / corner key limits at (1, 8, 64, 32); FSMN (11, 10) at (1, 25 /
+   26, 512) against its generic instantiation); ParaformerStreaming at PROD_CONF width
+   (the chunk encoder, decoder sanm_shfit 5, WavFrontendOnline) through
+   ``AutoModel.generate`` 600 ms a call as the demo calls it, 2 streams of 30 s, fp32 and
+   ``bf16=True``: gated on non-empty texts (a whole-array call's text equal to the
+   chunked stream's), exactly 50 flash, 50 FSMN (11, 5) and 16 FSMN (11, 10) launches a
+   chunk and one device-to-host copy a chunk; per-chunk wall p50 / p95 (cold apart), RTF,
+   device ms a chunk and idle share from a profiled stream; CUDA against the CPU port
+   chunk by chunk (full width for 10 chunks, the small config for a stream: encoder
+   within ``CPU_GPU_ENC_TOL``, fire counts and ids equal, caches within
+   ``STREAM_CACHE_TOL``); the realtime punctuation model (ct-punc widths,
+   CTTransformerStreaming) over the demo's pieces against the CPU port (texts, the first
+   3 windows' logits within ``PUNC_LOGIT_TOL``); ``DynamicStreamingVAD`` over phase 8's
+   VAD in 60 ms feeds, events equal to the CPU port's.
 
 Kernel times (phases 3-4): ``ms`` is device time per launch over 20 back-to-back
 launches between one pair of CUDA events, queued behind a spin kernel so that host
@@ -103,8 +120,9 @@ its main path shape, with ``launches`` of the main path's run and
 ``launches_per_decode``; flash and FSMN add their fp32 figures under ``fp32``, launches
 from the fp32 ``AutoModel`` decode, and their rows at the pipeline's shapes under
 ``pipeline``, launches from phase 8's four requests; every kernel's launches on phase 9's
-meetings under ``speaker`` and on phase 10's decodes under ``hotword``, where FSMN adds its
-k = 21 rows), the last line ``{"ok": true, "device": {...}}``.
+meetings under ``speaker``, on phase 10's decodes under ``hotword``, where FSMN adds its
+k = 21 rows, and phase 11's under ``streaming``, with the rows at the streaming shapes),
+the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -294,20 +312,24 @@ def bound_ms(n_bytes, n_ops, op_type, peak=H100_PEAK):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_work(b, h, t, d, lengths, elem_bytes):
-    """Bytes and flops of flash attention over (B, H, T, D): q read and o written in
-    full, k and v read up to the keys each row needs (its length; all T keys for a
-    length-0 row, which averages V), the int32 lengths; 4 T L D flops per head."""
-    keys = [n if n > 0 else t for n in lengths]
-    n_bytes = elem_bytes * h * d * sum(2 * t + 2 * n for n in keys) + 4 * b
-    return n_bytes, 4 * h * t * d * sum(keys)
+def flash_work(b, h, t, d, lengths, elem_bytes, limits=None):
+    """Bytes and flops of flash attention with T query rows over (B, H, ., D): q read and
+    o written in full, k and v read up to the keys each batch row needs (its length; all
+    T keys for a length-0 row, which averages V), the int32 lengths; 4 D flops per query
+    row and key it sees. ``limits``: each batch row's per-query-row key limits (a key
+    cache, Tk > T, or the causal / corner modes), else every row sees its length."""
+    if limits is None:
+        limits = [[n if n > 0 else t] * t for n in lengths]
+    n_bytes = elem_bytes * h * d * sum(2 * len(r) + 2 * max(r) for r in limits) + 4 * b
+    return n_bytes, 4 * h * d * sum(sum(r) for r in limits)
 
 
-def flash_bound(b, h, t, d, lengths, dtype):
+def flash_bound(b, h, t, d, lengths, dtype, limits=None):
     """The flash bound (ms, by) for `dtype`. fp32 takes the card's fastest route to
     fp32-accurate products: the 3xTF32 split, three TF32 products per product, on the
     tensor cores."""
-    n_bytes, n_ops = flash_work(b, h, t, d, lengths, 2 if dtype == torch.bfloat16 else 4)
+    n_bytes, n_ops = flash_work(b, h, t, d, lengths, 2 if dtype == torch.bfloat16 else 4,
+                                limits)
     if dtype == torch.bfloat16:
         return bound_ms(n_bytes, n_ops, "bf16")
     return bound_ms(n_bytes, 3 * n_ops, "tf32")
@@ -327,7 +349,7 @@ def w8a8_work(m, k, n, x_bytes, bias_bytes):
 
 LIBRARY_CALLS = {
     "flash_attention": "torch.nn.functional.scaled_dot_product_attention(q, k, v, "
-                       "attn_mask=key_valid[:, None, None, :])",
+                       "attn_mask=key_valid)",
     "fsmn_memory": "torch.nn.functional.conv1d(xm, w, padding=5, groups=C)",
     "w8a8_linear": "torch._int_mm(x_q, w_q8.t())",
 }
@@ -402,6 +424,7 @@ def phase_kernels(dev):
                 record[("fsmn_memory", dtype)] = row
     record.update(pipeline_kernel_rows(dev, g))
     record.update(hotword_kernel_rows(dev, g))
+    record.update(streaming_kernel_rows(dev, g))
     return record
 
 
@@ -433,28 +456,41 @@ def fsmn_row(x, w, mask, left, right):
     return row
 
 
-def flash_row(q, k, v, lens_list):
-    """One flash kernel row against its plain version and scaled_dot_product_attention;
-    the error over each row's valid queries."""
+def flash_row(q, k, v, lens_list, mode="none", vad_pos=None, timed=True):
+    """One flash kernel row against its plain version and scaled_dot_product_attention
+    (with the explicit (B, 1, Tq, Tk) mask of the same key limits); the error over each
+    row's valid queries. q (B, H, Tq, D), k and v (B, H, Tk, D); ``mode`` / ``vad_pos``
+    the per-row key limits. Untimed: the error only."""
     import torch.nn.functional as F
-    from funasr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+    from funasr_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_ref,
+                                                      key_limits)
 
     b, h, t, d = q.shape
+    tk = k.shape[2]
     lens = torch.tensor(lens_list, dtype=torch.int32, device=q.device)
-    out = flash_attention(q, k, v, lens)
+    vp = None if vad_pos is None else torch.tensor(vad_pos, dtype=torch.int32, device=q.device)
+    out = flash_attention(q, k, v, lens, mode, vp)
     torch.cuda.synchronize()
-    ref = flash_attention_ref(q, k, v, lens)
-    err = max((out[i, :, :n] - ref[i, :, :n]).abs().max().item()
+    ref = flash_attention_ref(q, k, v, lens, mode, vp)
+    err = max((out[i, :, :min(n, t)] - ref[i, :, :min(n, t)]).abs().max().item()
               for i, n in enumerate(lens_list))
-    mask = (torch.arange(t, device=q.device)[None, :] < lens[:, None].long())[:, None, None, :]
-    row = dict(shape=(b, h, t, d), max_abs_err=err,
-               library_call=LIBRARY_CALLS["flash_attention"],
-               ms=device_ms(lambda: flash_attention(q, k, v, lens)),
-               call_ms=call_ms(lambda: flash_attention(q, k, v, lens)),
-               plain_ms=device_ms(lambda: flash_attention_ref(q, k, v, lens)),
+    row = dict(shape=(b, h, t, d), max_abs_err=err)
+    if tk != t:
+        row["keys"] = tk
+    if mode != "none":
+        row.update(mode=mode, vad_pos=vad_pos)
+    if not timed:
+        return row
+    limits = key_limits(lens, t, mode, vp)
+    mask = (torch.arange(tk, device=q.device)[None, None, :] < limits[:, :, None])[:, None]
+    row.update(library_call=LIBRARY_CALLS["flash_attention"],
+               ms=device_ms(lambda: flash_attention(q, k, v, lens, mode, vp)),
+               call_ms=call_ms(lambda: flash_attention(q, k, v, lens, mode, vp)),
+               plain_ms=device_ms(lambda: flash_attention_ref(q, k, v, lens, mode, vp)),
                library_ms=device_ms(
                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)))
-    row["bound_ms"], row["bound_by"] = flash_bound(b, h, t, d, lens_list, q.dtype)
+    row["bound_ms"], row["bound_by"] = flash_bound(b, h, t, d, lens_list, q.dtype,
+                                                   limits.tolist())
     return row
 
 
@@ -717,16 +753,21 @@ def identity_cmvn(dim):
 
 def write_model_dir(d, dev, model_name="Paraformer", predictor="CifPredictorV2",
                     predictor_conf=PROD_CONF["predictor_conf"],
-                    decoder="ParaformerSANMDecoder", extra=None):
+                    decoder="ParaformerSANMDecoder", extra=None, encoder="SANMEncoder",
+                    encoder_conf=PROD_CONF["encoder_conf"],
+                    decoder_conf=PROD_CONF["decoder_conf"], frontend="WavFrontend"):
     """A FunASR-layout model directory at PROD_CONF width with seeded random weights;
-    `extra`: the model's own config keys (a hotword model's), in ``model_conf``."""
+    `extra`: the model's own config keys (a hotword model's), in ``model_conf``; the
+    streaming model names its own encoder, decoder shift and frontend."""
     import yaml
     from funasr_tpu_torch import tables
 
     g = torch.Generator(device=dev).manual_seed(0)
-    model = tables.model_classes[model_name](**dict(PROD_CONF, predictor_conf=predictor_conf),
-                                             predictor=predictor, decoder=decoder, device=dev,
-                                             generator=g, **(extra or {}))
+    conf = dict(PROD_CONF, predictor_conf=predictor_conf, encoder_conf=encoder_conf,
+                decoder_conf=decoder_conf)
+    model = tables.model_classes[model_name](**conf, encoder=encoder, predictor=predictor,
+                                             decoder=decoder, device=dev, generator=g,
+                                             **(extra or {}))
     torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(d, "model.pt"))
     tokens = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(8400)] + ["<unk>"]
     with open(os.path.join(d, "tokens.txt"), "w", encoding="utf-8") as f:
@@ -735,10 +776,10 @@ def write_model_dir(d, dev, model_name="Paraformer", predictor="CifPredictorV2",
         f.write(identity_cmvn(PROD_CONF["input_size"]))
     cfg = dict(model=model_name, model_conf=dict(sos=1, eos=2, predictor_bias=1, ctc_weight=0.0,
                                                  **(extra or {})),
-               encoder="SANMEncoder", encoder_conf=PROD_CONF["encoder_conf"],
-               decoder=decoder, decoder_conf=PROD_CONF["decoder_conf"],
+               encoder=encoder, encoder_conf=encoder_conf,
+               decoder=decoder, decoder_conf=decoder_conf,
                predictor=predictor, predictor_conf=predictor_conf,
-               frontend="WavFrontend", frontend_conf=dict(FRONTEND_CONF, cmvn_file="am.mvn"),
+               frontend=frontend, frontend_conf=dict(FRONTEND_CONF, cmvn_file="am.mvn"),
                tokenizer="CharTokenizer",
                tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>"))
     with open(os.path.join(d, "config.yaml"), "w", encoding="utf-8") as f:
@@ -1969,6 +2010,441 @@ def hotword_pipeline(am, counters, card, hotword):
     return per_request
 
 
+# ---- phase 11: streaming ------------------------------------------------------------------
+
+# paraformer-zh-streaming's own parts at PROD_CONF width (tests/test_streaming_e2e.py:12-34):
+# the chunk encoder (input_layer pe_online), the decoder's sanm_shfit 5, WavFrontendOnline
+STREAM_ENCODER_CONF = dict(PROD_CONF["encoder_conf"], input_layer="pe_online")
+STREAM_DECODER_CONF = dict(PROD_CONF["decoder_conf"], sanm_shfit=5)
+STREAM_SMALL_CONF = dict(SMALL_CONF, encoder="SANMEncoderChunkOpt",
+                         encoder_conf=dict(SMALL_CONF["encoder_conf"], input_layer="pe_online"),
+                         decoder_conf=dict(SMALL_CONF["decoder_conf"], sanm_shfit=5))
+# the demo's call (examples/industrial_data_pretraining/paraformer_streaming/demo.py:21-40)
+STREAM_CALL = dict(chunk_size=[0, 10, 5], encoder_chunk_look_back=4, decoder_chunk_look_back=1)
+STREAM_STRIDE = 9600       # samples a generate: 600 ms
+STREAM_SECONDS = 30.0
+STREAMS = 2
+STREAM_COLD = 5            # the first chunks of the first stream: the look-back fills
+STREAM_CPU_CHUNKS = 10     # full-width chunks held against the CPU port
+STREAM_CACHE_TOL = 1e-3    # fp32 caches, CUDA against the CPU: as CPU_GPU_ENC_TOL
+STREAM_FLASH_KEYS = (15, 55, 1005)  # the first chunk, a full look-back of 4, look-back -1
+STREAM_FSMN_ROWS = (25, 26)  # 10 cached + a chunk's 15 (16 when final) token rows
+FSMN_K11 = ", 11, 5, "     # the encoder's FSMN instantiation, demangled
+FSMN_STEP = ", 11, 10, "   # the streaming decoder's step (pads 10 / 0)
+# the demo's pieces (examples/industrial_data_pretraining/ct_transformer_streaming/demo.py)
+PUNC_DEMO = ("跨境河流是养育沿岸|人民的生命之源长期以来为帮助下游地区防灾减灾中方技术人员|"
+             "在上游地区极为恶劣的自然条件下克服巨大困难甚至冒着生命危险|"
+             "向印方提供汛期水文资料处理紧急事件中方重视印方在跨境河流>问题上的关切|"
+             "愿意进一步完善双方联合工作机制|凡是|中方能做的我们|"
+             "都会去做而且会做得更好我请印度朋友们放心中国在上游的|任何开发利用都会经过科学|"
+             "规划和论证兼顾上下游的利益")
+
+
+def streaming_kernel_rows(dev, g):
+    """The kernels at the streaming shapes (phase 11), each against its plain version:
+    flash with a key cache, (1, 4, 15, 128) queries over Tk = 15 / 55 / 1005 keys, fp32
+    and bf16; flash with per-row key limits at the realtime punctuation encoder's (1, 8,
+    64, 32), length 57: causal, and the VAD corner at vad_pos 0, 1, 30, 64 (timed at 30);
+    the streaming decoder's FSMN step, k = 11 with pads (10, 0), no mask, at (1, 25, 512)
+    and (1, 26, 512), also against the generic instantiation (``generic_ms``: the kernel
+    before its (11, 10) instantiation), which it must equal. Raises on a disagreement."""
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory
+
+    rows = {}
+    for tk in STREAM_FLASH_KEYS:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(1, 15, 3, 4, 128, generator=g).to(dev, dtype)[:, :, 0].transpose(1, 2)
+            kv = torch.randn(1, tk, 2, 4, 128, generator=g).to(dev, dtype)
+            k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+            rows[("flash_attention", "streaming", f"keys{tk}", dtype)] = flash_row(q, k, v, [tk])
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(1, 64, 3, 8, 32, generator=g).to(dev, dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        rows[("flash_attention", "streaming", "causal", dtype)] = flash_row(q, k, v, [57],
+                                                                            "causal")
+        for vp in (0, 1, 30, 64):
+            rows[("flash_attention", "streaming", f"corner{vp}", dtype)] = flash_row(
+                q, k, v, [57], "corner", [vp], timed=vp == 30)
+    for t in STREAM_FSMN_ROWS:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(1, t, 512, generator=g).to(dev, dtype)  # concat(cache, x)
+            w = (torch.rand(512, 1, 11, generator=g) - 0.5).to(dev, dtype)
+            row = fsmn_row(x, w, None, 10, 0)
+            row["generic_equal"] = torch.equal(fsmn_memory(x, w, None, 10, 0, generic=True),
+                                               fsmn_memory(x, w, None, 10, 0))
+            row["generic_ms"] = device_ms(lambda: fsmn_memory(x, w, None, 10, 0, generic=True))
+            rows[("fsmn_memory", "streaming", f"step{t}", dtype)] = row
+    for key, row in rows.items():
+        dtype = key[3]
+        tol = (FLASH_TOL if key[0] == "flash_attention" else FSMN_TOL)[dtype]
+        line = f"{key[0]} streaming {key[2]} {row['shape']} {str(dtype)[6:]}: max_abs_err " \
+               f"{row['max_abs_err']:.3e} (tol {tol:g})"
+        if "ms" in row:
+            line += " " + timing_line(row)
+        if "generic_ms" in row:
+            line += (f"; generic instantiation {row['generic_ms']:.4f} ms, equal "
+                     f"{row['generic_equal']}")
+        log(line)
+        if not (math.isfinite(row["max_abs_err"]) and row["max_abs_err"] <= tol
+                and row.get("generic_equal", True)):
+            raise AssertionError(f"{key} kernel disagrees: {row['max_abs_err']}")
+    return rows
+
+
+def percentile(values, q):
+    return float(np.percentile(np.asarray(values), q)) if values else float("nan")
+
+
+class FsmnSplit:
+    """Counts the SAN-M modules' FSMN kernel calls by (k, left pad): each is one launch of
+    that instantiation on the card (the wrapper launches or raises). Wraps the module
+    global that ``models/sanm/attention.py`` calls; ``remove`` restores it."""
+
+    def __init__(self):
+        from funasr_tpu_torch.models.sanm import attention
+        self.module, self.inner = attention, attention.fsmn_memory
+        self.counts = {}
+        attention.fsmn_memory = self
+
+    def __call__(self, x, weight, mask, left, right, **kwargs):
+        key = (weight.shape[-1], left)
+        self.counts[key] = self.counts.get(key, 0) + 1
+        return self.inner(x, weight, mask, left, right, **kwargs)
+
+    def remove(self):
+        self.module.fsmn_memory = self.inner
+
+
+def stream_calls(wav):
+    """The demo's 600 ms pieces of `wav` (the last one is_final)."""
+    return [wav[i:i + STREAM_STRIDE] for i in range(0, len(wav), STREAM_STRIDE)]
+
+
+def run_stream(am, wav):
+    """One stream through ``am.generate`` 600 ms a call, the caller's cache carried:
+    (joined text, wall ms per call)."""
+    cache, texts, walls = {}, [], []
+    pieces = stream_calls(wav)
+    for j, piece in enumerate(pieces):
+        t0 = time.perf_counter()
+        res = am.generate(input=piece, cache=cache, is_final=j == len(pieces) - 1,
+                          **STREAM_CALL)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        texts.append(res[0]["text"])
+    return "".join(texts), walls
+
+
+def streaming_asr(am, streams, counters, card, label):
+    """ParaformerStreaming through ``AutoModel.generate`` 600 ms a call (the demo loop):
+    one whole-array call (is_final: it streams internally) as warm-up, then the counted
+    streams. Gates: non-empty texts, the whole-array call's text equal to stream 0's;
+    exactly 50 flash and 66 FSMN launches a chunk by count, 50 FSMN at (11, 5) and 16 at
+    (11, 10) by call (``FsmnSplit``), no W8A8; one device-to-host copy a chunk
+    (``sync_points``); the profile showing those instantiations (within one launch in a
+    hundred: CUPTI may drop a record over ~10^5 launches). Prints per-chunk wall (cold / steady p50, p95), RTF, device ms a
+    chunk and the idle share from one profiled stream, launches a chunk by kernel."""
+    model = am.model
+    inner, chunk_ms = model.generate_chunk, []
+
+    def timed_chunk(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)  # ends in the chunk's one copy to the host
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    model.generate_chunk = timed_chunk
+    split = FsmnSplit()
+    try:
+        whole = am.generate(input=streams[0], cache={}, is_final=True, **STREAM_CALL)
+        for c in counters:
+            c.launches = 0
+        chunk_ms.clear()
+        split.counts.clear()
+        runs = [run_stream(am, wav) for wav in streams]
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        by_call = dict(split.counts)
+        chunks, walls = len(chunk_ms), list(chunk_ms)
+        chunk_ms.clear()
+        syncs = sync_points(lambda: run_stream(am, streams[1]))
+        sync_chunks = len(chunk_ms)
+        chunk_ms.clear()
+        by_name = profile_kernels(lambda: run_stream(am, streams[1]))
+        prof_chunks = len(chunk_ms)
+    finally:
+        del model.generate_chunk
+        split.remove()
+    texts = [text for text, _ in runs]
+    reset_ms = wall_ms(am._reset_runtime_configs, runs=5)[0]  # host work of every generate
+    audio_s = sum(len(w) for w in streams) / 16000
+    call_walls = [w for _, ws in runs for w in ws]
+    stream1_wall = sum(runs[1][1])
+    device = sum(t for t, _ in by_name.values())
+    per_chunk = {name: n / chunks for name, n in launches.items()}
+    k11 = kernel_totals({k: v for k, v in by_name.items() if "fsmn_kernel" in k}, FSMN_K11)
+    step = kernel_totals({k: v for k, v in by_name.items() if "fsmn_kernel" in k}, FSMN_STEP)
+    flash = kernel_totals(by_name, "flash_")
+    all_launches = sum(n for _, n in by_name.values())
+    cold, steady = walls[:STREAM_COLD], walls[STREAM_COLD:]
+    stats = dict(chunks=chunks, launches=launches, launches_per_chunk=per_chunk,
+                 fsmn_per_chunk={f"{k}_{left}": n / chunks for (k, left), n in by_call.items()},
+                 cold_ms=cold, p50_ms=percentile(steady, 50), p95_ms=percentile(steady, 95),
+                 call_p50_ms=percentile(call_walls, 50), call_p95_ms=percentile(call_walls, 95),
+                 rtf=sum(call_walls) / 1e3 / audio_s,
+                 device_ms_per_chunk=device / prof_chunks,
+                 idle_share=1 - device / stream1_wall,
+                 kernel_launches_per_chunk=all_launches / prof_chunks,
+                 profile_per_chunk={"flash": flash[1] / prof_chunks,
+                                    "fsmn_11_5": k11[1] / prof_chunks,
+                                    "fsmn_11_10": step[1] / prof_chunks},
+                 profile_ms_per_chunk={"flash": flash[0] / prof_chunks,
+                                       "fsmn_11_5": k11[0] / prof_chunks,
+                                       "fsmn_11_10": step[0] / prof_chunks},
+                 d2h_per_chunk=sum(syncs.values()) / max(sync_chunks, 1), reset_ms=reset_ms,
+                 sync_lines=dict(syncs))
+    log(f"streaming {label}: {len(streams)} streams of {STREAM_SECONDS:.0f} s, {chunks} chunks "
+        f"({len(call_walls)} generate calls); chunk wall (generate_chunk) cold "
+        f"{[round(x, 2) for x in cold]} ms, steady p50 {stats['p50_ms']:.2f} p95 "
+        f"{stats['p95_ms']:.2f} ms; generate call p50 {stats['call_p50_ms']:.2f} p95 "
+        f"{stats['call_p95_ms']:.2f} ms (of it AutoModel's config reset, a deepcopy of its "
+        f"build kwargs, {reset_ms:.2f} ms); RTF {stats['rtf']:.4f} on {card}")
+    log(f"  launches a chunk (counters): {per_chunk}, FSMN by (k, left pad) "
+        f"{stats['fsmn_per_chunk']}; by profile (stream 1, {prof_chunks} "
+        f"chunks): every kernel {stats['kernel_launches_per_chunk']:.1f}, flash "
+        f"{stats['profile_per_chunk']['flash']:.1f} ({stats['profile_ms_per_chunk']['flash']:.4f} "
+        f"ms), FSMN (11, 5) {stats['profile_per_chunk']['fsmn_11_5']:.1f} "
+        f"({stats['profile_ms_per_chunk']['fsmn_11_5']:.4f} ms), FSMN (11, 10) "
+        f"{stats['profile_per_chunk']['fsmn_11_10']:.1f} "
+        f"({stats['profile_ms_per_chunk']['fsmn_11_10']:.4f} ms); device kernel time "
+        f"{stats['device_ms_per_chunk']:.3f} ms a chunk, idle share {stats['idle_share']:.1%} "
+        f"(stream 1 unprofiled wall {stream1_wall:.1f} ms)")
+    log(f"  host waits for the device: {stats['d2h_per_chunk']:.2f} a chunk over "
+        f"{sync_chunks} chunks {dict(syncs.most_common(4))}; texts {[len(x) for x in texts]} "
+        f"chars")
+    if not all(isinstance(x, str) and x for x in texts) or whole[0]["text"] != texts[0]:
+        raise AssertionError(f"streaming {label}: empty text, or the whole-array call's text "
+                             f"differs from the chunked stream's")
+    enc, dec = (PROD_CONF[f"{part}_conf"]["num_blocks"] for part in ("encoder", "decoder"))
+    if (launches["flash_attention"] != enc * chunks
+            or launches["fsmn_memory"] != (enc + dec) * chunks or launches["w8a8_linear"] != 0
+            or by_call != {(11, 5): enc * chunks, (11, 10): dec * chunks}):
+        raise AssertionError(f"streaming {label}: launches {launches}, FSMN by (k, left pad) "
+                             f"{by_call} over {chunks} chunks")
+    if not all(abs(n - want * prof_chunks) <= want * prof_chunks // 100 and n > 0
+               for n, want in ((flash[1], enc), (k11[1], enc), (step[1], dec))):
+        raise AssertionError(f"streaming {label}: profiled launches flash {flash[1]}, FSMN "
+                             f"(11, 5) {k11[1]}, (11, 10) {step[1]} over {prof_chunks} chunks")
+    if sum(syncs.values()) != sync_chunks:
+        raise AssertionError(f"streaming {label}: {sum(syncs.values())} host waits over "
+                             f"{sync_chunks} chunks: {syncs}")
+    return stats
+
+
+def stream_cuda_vs_cpu(gpu_model, wav, chunks, label):
+    """The CUDA model against its copy on the CPU (fp32, TF32 off), chunk by chunk on the
+    same host features (``chunk_outputs``): the encoder output within CPU_GPU_ENC_TOL,
+    fire counts and token ids equal, every cache tensor within STREAM_CACHE_TOL.
+    Returns the largest differences."""
+    from funasr_tpu_torch import tables
+    from funasr_tpu_torch.models.paraformer_streaming.model import upload
+
+    cpu_model = copy.deepcopy(gpu_model).cpu()
+    frontend = tables.frontend_classes["WavFrontendOnline"](**FRONTEND_CONF)
+    gc, cc, fcache = gpu_model.init_cache({}, **STREAM_CALL), cpu_model.init_cache(
+        {}, **STREAM_CALL), {}
+    worst = dict(encoder=0.0, cache=0.0, fired=0, tokens=0)
+    for i, piece in enumerate(stream_calls(wav)[:chunks]):
+        feats, _ = frontend.forward_streaming([piece], cache=fcache, is_final=False)
+        with torch.inference_mode():
+            yg, ng, lg = gpu_model.chunk_outputs(upload(feats, gpu_model.device, torch.float32),
+                                                 gc, False)
+            yc, nc, lc = cpu_model.chunk_outputs(upload(feats, cpu_model.device, torch.float32),
+                                                 cc, False)
+        n = int(nc[0])
+        ids_g, ids_c = lg[0, :n].argmax(-1).cpu(), lc[0, :n].argmax(-1)
+        enc_err = (yg.cpu() - yc).abs().max().item()
+        pairs = [(gc["encoder"]["cif_state"][k], cc["encoder"]["cif_state"][k])
+                 for k in ("integrate", "frame")]
+        pairs += [(a[k], b[k]) for a, b in zip(gc["encoder"]["opt"], cc["encoder"]["opt"])
+                  for k in ("k", "v")]
+        pairs += list(zip(gc["decoder"]["decode_fsmn"], cc["decoder"]["decode_fsmn"]))
+        pairs += [(a[k], b[k]) for a, b in zip(gc["decoder"]["opt"], cc["decoder"]["opt"])
+                  for k in ("k", "v")]
+        cache_err = max((a.cpu() - b).abs().max().item() for a, b in pairs)
+        worst = dict(encoder=max(worst["encoder"], enc_err), cache=max(worst["cache"], cache_err),
+                     fired=worst["fired"] + n, tokens=worst["tokens"] + len(ids_c))
+        if not (enc_err <= CPU_GPU_ENC_TOL and cache_err <= STREAM_CACHE_TOL
+                and int(ng[0]) == n and torch.equal(ids_g, ids_c)):
+            raise AssertionError(f"streaming {label} chunk {i}: CUDA vs CPU encoder {enc_err}, "
+                                 f"caches {cache_err}, fired {int(ng[0])} vs {n}, ids "
+                                 f"{ids_g.tolist()} vs {ids_c.tolist()}")
+    log(f"streaming CUDA vs CPU {label}: {chunks} chunks, encoder max_abs_err "
+        f"{worst['encoder']:.3e} (tol {CPU_GPU_ENC_TOL:g}), caches {worst['cache']:.3e} (tol "
+        f"{STREAM_CACHE_TOL:g}), fire counts and {worst['tokens']} token ids equal")
+    del cpu_model
+    return worst
+
+
+def write_punc_realtime_dir(d):
+    """The realtime punctuation model at ct-punc's widths (phase 8's PUNC_ENC, vocab
+    272727) as CTTransformerStreaming with SANMVadEncoder: the ASR's tokens, the demo's
+    characters, then filler tokens."""
+    from funasr_tpu_torch import tables
+
+    asr_tokens = (["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(8400)]
+                  + ["<unk>"])
+    demo = sorted(set(PUNC_DEMO) - set(asr_tokens) - {"|"})
+    tokens = asr_tokens + demo
+    tokens += [f"<filler_{i}>" for i in range(PUNC_VOCAB - len(tokens))]
+    punc = tables.model_classes["CTTransformerStreaming"](
+        encoder_conf=PUNC_ENC, vocab_size=len(tokens), **PUNC_MODEL_CONF,
+        generator=torch.Generator().manual_seed(2))
+    torch.save(punc.state_dict(), os.path.join(d, "model.pt"))
+    with open(os.path.join(d, "tokens.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(tokens) + "\n")
+    write_config(d, dict(
+        model="CTTransformerStreaming", model_conf=PUNC_MODEL_CONF, encoder="SANMVadEncoder",
+        encoder_conf=PUNC_ENC, tokenizer="CharTokenizer",
+        tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>")))
+
+
+def realtime_punctuation(d, counters, card):
+    """The demo's pieces through ``AutoModel(model=d, device="cuda").generate(input=piece,
+    cache=cache)`` and the same on the CPU port. Gates: texts equal after every piece; the
+    first 3 windows' logits within PUNC_LOGIT_TOL; 4 flash (3 causal, 1 corner) and 4 FSMN
+    launches a window."""
+    from funasr_tpu_torch import AutoModel
+
+    am = AutoModel(model=d, device="cuda", log_level="WARNING")
+    cpu = AutoModel(model=d, device="cpu", log_level="WARNING")
+    gpu_windows, cpu_windows = Recorder(am.model, "window_logits"), Recorder(cpu.model,
+                                                                              "window_logits")
+    window_ms = []
+
+    def timed_window(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = gpu_windows(*args, **kwargs)  # ends in the logits' copy to the host
+        window_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    am.model.window_logits = timed_window
+    am.generate(input=PUNC_DEMO.split("|")[0], cache={})  # warm-up
+    gpu_windows.calls.clear()
+    gpu_windows.outputs.clear()
+    window_ms.clear()
+    for c in counters:
+        c.launches = 0
+    outputs, walls = {"cuda": [], "cpu": []}, []
+    for name, model in (("cuda", am), ("cpu", cpu)):
+        cache = {}
+        for piece in PUNC_DEMO.split("|"):
+            t0 = time.perf_counter()
+            outputs[name].append((model.generate(input=piece, cache=cache)[0]["text"],
+                                  list(cache["pre_text"])))
+            if name == "cuda":
+                walls.append((time.perf_counter() - t0) * 1e3)
+        if name == "cuda":
+            launches = {c.__name__: c.launches for c in counters}
+    if outputs["cuda"] != outputs["cpu"]:
+        raise AssertionError(f"realtime punctuation: CUDA {outputs['cuda']} vs CPU "
+                             f"{outputs['cpu']}")
+    windows = len(gpu_windows.calls)
+    err = max(np.abs(a - b).max() for a, b in zip(gpu_windows.outputs[:3],
+                                                   cpu_windows.outputs[:3]))
+    del am.model.window_logits, cpu.model.window_logits
+    reset_ms = wall_ms(am._reset_runtime_configs, runs=5)[0]
+    log(f"realtime punctuation: {len(walls)} pieces, {windows} windows, wall per piece p50 "
+        f"{percentile(walls, 50):.2f} ms (all {[round(x, 2) for x in walls]}); window forwards "
+        f"+ logits to the host {sum(window_ms):.2f} ms in all; AutoModel's config reset "
+        f"{reset_ms:.2f} ms a generate; texts equal to "
+        f"the CPU port's, logits of the first 3 windows max_abs_err {err:.3e} (tol "
+        f"{PUNC_LOGIT_TOL:g}); launches {launches} on {card}")
+    blocks = PUNC_ENC["num_blocks"]
+    if not (err <= PUNC_LOGIT_TOL and launches["flash_attention"] == blocks * windows
+            and launches["fsmn_memory"] == blocks * windows):
+        raise AssertionError(f"realtime punctuation: logits {err}, launches {launches} over "
+                             f"{windows} windows")
+    return dict(windows=windows, launches=launches, piece_p50_ms=percentile(walls, 50),
+                window_ms=sum(window_ms), reset_ms=reset_ms, max_abs_err=float(err))
+
+
+def dynamic_vad(vad_dir, wav, card):
+    """``DynamicStreamingVAD`` over phase 8's VAD dir, 60 ms feeds, on the card and on the
+    CPU port. Gate: the events equal, at least one endpoint."""
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.models.fsmn_vad_streaming.dynamic_vad import DynamicStreamingVAD
+
+    events, walls = {}, []
+    for device in ("cuda", "cpu"):
+        vad = DynamicStreamingVAD(AutoModel(model=vad_dir, device=device, log_level="WARNING"))
+        events[device] = []
+        for i in range(0, len(wav), vad.chunk_samples):
+            t0 = time.perf_counter()
+            events[device] += vad.feed(wav[i:i + vad.chunk_samples],
+                                       is_final=i + vad.chunk_samples >= len(wav))
+            if device == "cuda":
+                walls.append((time.perf_counter() - t0) * 1e3)
+    ends = sum(e[1] != -1 for e in events["cuda"])
+    log(f"dynamic VAD: {len(walls)} feeds of 60 ms, wall per feed p50 "
+        f"{percentile(walls, 50):.2f} p95 {percentile(walls, 95):.2f} ms; {len(events['cuda'])} "
+        f"events ({ends} endpoints), equal to the CPU port's {events['cuda'] == events['cpu']} "
+        f"on {card}")
+    if events["cuda"] != events["cpu"] or ends < 1:
+        raise AssertionError(f"dynamic VAD: CUDA {events['cuda']} vs CPU {events['cpu']}")
+    return dict(feeds=len(walls), events=len(events["cuda"]), feed_p50_ms=percentile(walls, 50))
+
+
+def phase_streaming(dev, counters, card):
+    """Phase 11: ParaformerStreaming at PROD_CONF width through ``AutoModel.generate``
+    600 ms a call, fp32 then ``bf16=True`` (``streaming_asr``); the CUDA port against
+    the CPU port at full width for the first chunks and at the small config for a whole
+    stream (``stream_cuda_vs_cpu``); the realtime punctuation model over the demo's
+    pieces; ``DynamicStreamingVAD``. Returns its figures."""
+    import tempfile
+    from funasr_tpu_torch import AutoModel, tables
+
+    rng = np.random.default_rng(11)
+    streams = [long_recording(rng, STREAM_SECONDS) for _ in range(STREAMS)]
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        dirs = {name: os.path.join(root, name) for name in ("asr", "punc", "vad")}
+        for d in dirs.values():
+            os.makedirs(d)
+        t0 = time.perf_counter()
+        write_model_dir(dirs["asr"], dev, model_name="ParaformerStreaming",
+                        predictor_conf=PROD_CONF["predictor_conf"],
+                        encoder="SANMEncoderChunkOpt", encoder_conf=STREAM_ENCODER_CONF,
+                        decoder_conf=STREAM_DECODER_CONF, frontend="WavFrontendOnline")
+        write_punc_realtime_dir(dirs["punc"])
+        write_vad_dir(dirs["vad"])
+        log(f"streaming: model dirs written in {time.perf_counter() - t0:.1f} s")
+        for bf16, label in ((False, "fp32"), (True, "bf16")):
+            am = AutoModel(model=dirs["asr"], device="cuda", bf16=bf16, log_level="WARNING")
+            out[label] = streaming_asr(am, streams, counters, card, label)
+            if not bf16:
+                out["cuda_vs_cpu"] = stream_cuda_vs_cpu(am.model, streams[0], STREAM_CPU_CHUNKS,
+                                                        "PROD_CONF fp32")
+            del am
+        g = torch.Generator(device=dev).manual_seed(3)
+        small = tables.model_classes["ParaformerStreaming"](**STREAM_SMALL_CONF, device=dev,
+                                                            generator=g).eval()
+        out["cuda_vs_cpu_small"] = stream_cuda_vs_cpu(
+            small, streams[1], len(stream_calls(streams[1])), "small config fp32")
+        out["punc"] = realtime_punctuation(dirs["punc"], counters, card)
+        out["vad"] = dynamic_vad(dirs["vad"], streams[0], card)
+    return out
+
+
+# the kernel rows at the streaming shapes: kernel -> [(label, record key)]
+STREAMING_ENTRIES = {
+    "flash_attention": [(f"{key}_{dt}", ("flash_attention", "streaming", key, dtype))
+                        for key in [f"keys{tk}" for tk in STREAM_FLASH_KEYS] + ["causal",
+                                                                                 "corner30"]
+                        for dt, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))],
+    "fsmn_memory": [(f"{key}_{dt}", ("fsmn_memory", "streaming", key, dtype))
+                    for key in [f"step{t}" for t in STREAM_FSMN_ROWS]
+                    for dt, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))],
+}
+
+
 # the kernel rows at the pipeline's shapes: kernel -> [(label, record key, the phase 8
 # stage whose launches they are, None where the default fp32 pipeline does not run it)]
 PIPELINE_ENTRIES = {
@@ -1980,7 +2456,7 @@ PIPELINE_ENTRIES = {
 
 
 def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None,
-                 hotword=None):
+                 hotword=None, streaming=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
@@ -1989,7 +2465,10 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
     (``pipeline``: its per-request stats). Every kernel carries phase 9's launches under
     ``speaker`` (``speaker``: its per-request stats), by stage, and phase 10's under
     ``hotword`` (``hotword``: its figures), per counted decode; FSMN adds there its k = 21
-    rows (the SeACo decoder's memory) with their launches per decode."""
+    rows (the SeACo decoder's memory) with their launches per decode. Phase 11's figures
+    (``streaming``) go under ``streaming``: launches of the fp32 and bf16 streams and per
+    chunk, the realtime punctuation's, and the kernel rows at the streaming shapes
+    (``STREAMING_ENTRIES``); FSMN splits its chunk launches into (11, 5) and (11, 10)."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -2033,6 +2512,17 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
                     entry["hotword"][f"k21_{dt}"] = dict(
                         launches=sum(k21.values()), launches_per_decode=k21,
                         **record[("fsmn_memory", "hotword", dtype)])
+        if streaming and name in STREAMING_ENTRIES:
+            runs = {dt: streaming[dt] for dt in ("fp32", "bf16")}
+            entry["streaming"] = dict(
+                launches=sum(r["launches"][name] for r in runs.values()),
+                launches_per_chunk={dt: r["launches_per_chunk"][name] for dt, r in runs.items()},
+                punc_launches=streaming["punc"]["launches"][name],
+                rows={label: record[key] for label, key in STREAMING_ENTRIES[name]})
+            if name == "fsmn_memory":
+                entry["streaming"]["profile_per_chunk"] = {
+                    dt: {k: v for k, v in r["profile_per_chunk"].items() if "fsmn" in k}
+                    for dt, r in runs.items()}
         kernels.append(entry)
     return {"kernels": kernels}
 
@@ -2073,9 +2563,10 @@ def main():
     pipeline = phase_pipeline(dev, counters, card)
     speaker = phase_speaker(dev, counters, card)
     hotword = phase_hotword(dev, counters, card)
+    streaming = phase_streaming(dev, counters, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
-                                  speaker, hotword), default=str))
+                                  speaker, hotword, streaming), default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
-"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slices 1-7: offline
+"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slices 1-8: offline
 Paraformer, ``AutoModel`` with bf16 and int8 / W8A8 quantization, the VAD -> ASR ->
 punctuation pipeline with FSMN-VAD and CT-Transformer, speaker-attributed
-transcription: BiCif-Paraformer timestamps, CAM++ and its clustering, and hotword
-transcription: SeACo-Paraformer and the Contextual Paraformer through ``hotword=``).
+transcription: BiCif-Paraformer timestamps, CAM++ and its clustering, hotword
+transcription: SeACo-Paraformer and the Contextual Paraformer through ``hotword=``, and
+streaming: ParaformerStreaming and the realtime punctuation model through ``cache=``).
 
 Imports torch, numpy and scipy, never jax, ``funasr_tpu`` or scikit-learn. The public
 entry point:
@@ -15,6 +16,13 @@ entry point:
 
     model = AutoModel(model="<seaco or contextual dir>", device="cuda")
     results = model.generate(input=["a.wav"], hotword="w1 w2 w3")
+
+    model = AutoModel(model="<paraformer streaming dir>", device="cuda")
+    cache = {}
+    for i, chunk in enumerate(chunks_of_9600_samples):  # 600 ms each
+        res = model.generate(input=chunk, cache=cache, is_final=i == last,
+                             chunk_size=[0, 10, 5], encoder_chunk_look_back=4,
+                             decoder_chunk_look_back=1)
 
 Importing the package registers its classes in its own ``tables``:
 
@@ -43,9 +51,11 @@ from funasr_tpu_torch.models.bicif_paraformer import model as bicif_model  # noq
 from funasr_tpu_torch.models.campplus import model as campplus_model  # noqa: E402,F401
 from funasr_tpu_torch.models.contextual_paraformer import model as ctx_model  # noqa: E402,F401
 from funasr_tpu_torch.models.ct_transformer import model as ct_model  # noqa: E402,F401
+from funasr_tpu_torch.models.ct_transformer_streaming import model as ct_stream  # noqa: E402,F401
 from funasr_tpu_torch.models.fsmn_vad_streaming import model as vad_model  # noqa: E402,F401
 from funasr_tpu_torch.models.paraformer import cif_predictor, decoder, model  # noqa: E402,F401
 from funasr_tpu_torch.models.paraformer import san_decoder  # noqa: E402,F401
+from funasr_tpu_torch.models.paraformer_streaming import model as stream_model  # noqa: E402,F401
 from funasr_tpu_torch.models.seaco_paraformer import model as seaco_model  # noqa: E402,F401
 from funasr_tpu_torch.models.sanm import encoder  # noqa: E402,F401
 from funasr_tpu_torch.tokenizer import char_tokenizer  # noqa: E402,F401

@@ -222,14 +222,16 @@ def _campplus(tree, target, out):
 
 
 _BY_MODEL = {"FsmnVADStreaming": _fsmn_vad, "CTTransformer": _ct_transformer,
+             "CTTransformerStreaming": _ct_transformer,
              "BiCifParaformer": _bicif, "CAMPPlus": _campplus, "SeacoParaformer": _seaco,
              "ContextualParaformer": _contextual}
 
 
 def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """JAX params (nested dict of arrays) of a Paraformer, BiCifParaformer,
-    SeacoParaformer, ContextualParaformer, FsmnVADStreaming, CTTransformer or CAMPPlus ->
-    ``model``'s state dict.
+    ParaformerStreaming (Paraformer's layout), SeacoParaformer, ContextualParaformer,
+    FsmnVADStreaming, CTTransformer, CTTransformerStreaming or CAMPPlus -> ``model``'s
+    state dict.
 
     Int8 and int64 tensors keep their type, every other leaf becomes fp32. Raises if the names or
     shapes do not match ``model.state_dict()`` exactly.

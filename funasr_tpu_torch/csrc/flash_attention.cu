@@ -42,19 +42,29 @@
 //     the grid fills the card with them, else 64 rows (the wrapper chooses: at
 //     (1, 4, 1408) 128-row blocks would leave 88 of 132 SMs idle).
 //
-// Masking (both kernels). Keys in [lengths[b], T) score -1e30 like the Pallas kernel;
-// keys past T (the ragged last tile, which Pallas never has because it requires
-// T % block == 0; TMA or cp.async fills it with zeros) score -inf and contribute
-// exactly 0. A row
-// with lengths[b] == 0 therefore gets the uniform average of V over all T keys, as the
-// Pallas kernel gives. When lengths[b] > 0 key tiles wholly past the length are
-// skipped: their exp() is exactly 0. Query rows at or past lengths[b] are computed like
-// any other row (callers ignore them); rows past T are not written.
+// Shapes. Queries are (B, H, Tq, D), keys and values (B, H, Tk, D) with Tq <= Tk: the
+// streaming encoder's chunk attends over [cached K/V | chunk] (Tq = 15 rows over Tk = 15
+// to 55 keys at look-back 4, unbounded at look-back -1); offline Tq = Tk.
 //
-// Inputs are (B, H, T, D) with any strides whose last one is 1 and the others
-// multiples of 16 bytes; the wrapper (funasr_tpu_torch/ops/flash_attention.py) checks
-// this, allocates the output, picks the bf16 block rows and passes the stream.
-// D <= 128, a multiple of 8.
+// Masking (both kernels). Row r of batch b sees the keys below its limit
+//   mode 0 (none):   klim = len_b = lengths[b]
+//   mode 1 (causal): klim = min(r + 1, len_b)
+//   mode 2 (corner): klim = min(vp_b, len_b) for r <= vp_b - 2, else len_b
+// (vp_b = vad_pos[b]; mode 2 is the streaming punctuation encoder's last layer,
+// ~((rows <= vp - 2) & (cols >= vp)) & (cols < len), so vp <= 1 or vp >= Tk masks no
+// more than the length does; mode 1 its other layers). Keys in [klim, Tk) score -1e30
+// like the Pallas kernel; keys past Tk (the ragged last tile, which Pallas never has
+// because it requires T % block == 0; TMA or cp.async fills it with zeros) score -inf
+// and contribute exactly 0. A row with lengths[b] == 0 (so klim == 0) therefore gets the
+// uniform average of V over all Tk keys, as the Pallas kernel gives; every other row's
+// limit is >= 1, so key 0 is live in the first tile. klim does not decrease with r, so
+// a block's largest limit is its last row's: key tiles wholly past it are neither
+// loaded nor computed (their exp() is exactly 0). Query rows at or past lengths[b] are
+// computed like any other row (callers ignore them); rows past Tq are not written.
+//
+// Inputs have any strides whose last one is 1 and the others multiples of 16 bytes;
+// the wrapper (funasr_tpu_torch/ops/flash_attention.py) checks this, allocates the
+// output, picks the bf16 block rows and passes the stream. D <= 128, a multiple of 8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,6 +101,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
+// the keys row r sees (the masking note above); mode 2 reads vp, the others ignore it
+__device__ __forceinline__ int key_limit(int mode, int row, int len, int vp) {
+  if (mode == 1) return min(row + 1, len);
+  if (mode == 2 && row <= vp - 2) return min(vp, len);
+  return len;
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -107,13 +124,16 @@ template <int NC>
 __global__ void __launch_bounds__(384, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
-                  const int* __restrict__ lengths, int H, int T_len, float scale_log2) {
+                  const int* __restrict__ lengths, const int* __restrict__ vad_pos, int H,
+                  int Tq, int Tk, int mode, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   BfSmem<NC>& sm = *reinterpret_cast<BfSmem<NC>*>(hopper::align1024(smem_raw));
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int q0 = blockIdx.y * (NC * QR);
-  const int len = min(max(lengths[b], 0), T_len);
-  const int ntiles = ((len > 0 ? len : T_len) + BKB - 1) / BKB;
+  const int len = min(max(lengths[b], 0), Tk);
+  const int vp = mode == 2 ? vad_pos[b] : 0;
+  const int block_lim = key_limit(mode, min(q0 + NC * QR, Tq) - 1, len, vp);
+  const int ntiles = ((block_lim > 0 ? block_lim : Tk) + BKB - 1) / BKB;
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(&sm.q_full, 1);
@@ -155,6 +175,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 #pragma unroll
     for (int i = 0; i < 64; ++i) o[i] = 0.f;
     float m_r[2] = {MASKED, MASKED}, l_r[2] = {0.f, 0.f};  // rows lane / 4 and + 8
+    const int row_a = q0 + c * QR + warp * 16 + lane / 4;
+    const int lim[2] = {key_limit(mode, row_a, len, vp), key_limit(mode, row_a + 8, len, vp)};
 
     hopper::mbar_wait(&sm.q_full, 0);
     for (int kt = 0; kt < ntiles; ++kt) {
@@ -184,7 +206,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + 8 * j + 2 * quad + (e & 1);
           const float x = sc[4 * j + e] * scale_log2;
-          sc[4 * j + e] = key >= T_len ? -INFINITY : (key >= len ? MASKED : x);
+          sc[4 * j + e] = key >= Tk ? -INFINITY : (key >= lim[e / 2] ? MASKED : x);
           mx[e / 2] = fmaxf(mx[e / 2], sc[4 * j + e]);
         }
       float alpha[2];
@@ -229,7 +251,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     }
 
     // out = O / max(l, 1e-30): staged in this consumer's Q tile (swizzled as TMA
-    // expects), then one TMA store per 64-column block; rows past T are clipped
+    // expects), then one TMA store per 64-column block; rows past Tq are clipped
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(quad_sum(l_r[r]), 1e-30f);
@@ -246,7 +268,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       }
     hopper::fence_proxy_async();
     hopper::named_barrier(1 + c, 128);
-    if (tid == 0 && q0 + c * QR < T_len) {
+    if (tid == 0 && q0 + c * QR < Tq) {
       for (int hf = 0; hf < 2; ++hf)
         hopper::tma_store_4d(&to, sm.q[c][hf], hf * HALF, q0 + c * QR, h, b);
       hopper::tma_store_commit();
@@ -261,12 +283,13 @@ template <int NC> cudaError_t opt_in_smem() {
                               (int)(sizeof(BfSmem<NC>) + 1024));
 }
 
-cudaError_t launch_bf16(const void* const* ptrs, const int* lengths, int B, int H, int T_len,
-                        int D, const long long* st, float sm_scale, int block_rows,
-                        cudaStream_t stream) {
-  CUtensorMap maps[4];  // q, k, v, o as (D, T, H, B)
+cudaError_t launch_bf16(const void* const* ptrs, const int* lengths, const int* vad_pos, int B,
+                        int H, int Tq, int Tk, int D, const long long* st, float sm_scale,
+                        int mode, int block_rows, cudaStream_t stream) {
+  CUtensorMap maps[4];  // q, k, v, o as (D, T, H, B): T = Tk for k and v, else Tq
   for (int i = 0; i < 4; ++i) {
-    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)T_len, (cuuint64_t)H, (cuuint64_t)B};
+    const int t = i == 1 || i == 2 ? Tk : Tq;
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)t, (cuuint64_t)H, (cuuint64_t)B};
     const cuuint64_t strides[3] = {(cuuint64_t)st[3 * i + 2] * sizeof(bf16),
                                    (cuuint64_t)st[3 * i + 1] * sizeof(bf16),
                                    (cuuint64_t)st[3 * i] * sizeof(bf16)};
@@ -281,9 +304,10 @@ cudaError_t launch_bf16(const void* const* ptrs, const int* lengths, int B, int 
   auto kernel = two ? flash_bf16_kernel<2> : flash_bf16_kernel<1>;
   const cudaError_t err = two ? opt_in_smem<2>() : opt_in_smem<1>();
   if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (T_len + block_rows - 1) / block_rows);
+  dim3 grid(B * H, (Tq + block_rows - 1) / block_rows);
   kernel<<<grid, 128 * (two ? 3 : 2), bytes, stream>>>(maps[0], maps[1], maps[2], maps[3],
-                                                      lengths, H, T_len, sm_scale * LOG2E);
+                                                      lengths, vad_pos, H, Tq, Tk, mode,
+                                                      sm_scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -361,7 +385,8 @@ __device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4], u
 __global__ void __launch_bounds__(FTHREADS, 2)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 const int* __restrict__ lengths, int H, int T_len, int D,
+                 const int* __restrict__ lengths, const int* __restrict__ vad_pos, int H,
+                 int Tq, int Tk, int D, int mode,
                  long long qsb, long long qsh, long long qst,
                  long long ksb, long long ksh, long long kst,
                  long long vsb, long long vsh, long long vst,
@@ -371,31 +396,33 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tig = lane % 4;
-  const int len = min(max(lengths[b], 0), T_len);
-  const int ntiles = ((len > 0 ? len : T_len) + FK - 1) / FK;
+  const int len = min(max(lengths[b], 0), Tk);
+  const int vp = mode == 2 ? vad_pos[b] : 0;
+  const int block_lim = key_limit(mode, min((int)blockIdx.y * FQ + FQ, Tq) - 1, len, vp);
+  const int ntiles = ((block_lim > 0 ? block_lim : Tk) + FK - 1) / FK;
 
   const float* kg = k + b * ksb + h * ksh;
   const float* vg = v + b * vsb + h * vsh;
 
-  // K and V rows [kt * FK, + FK) into stage st, zero past T and D
+  // K and V rows [kt * FK, + FK) into stage st, zero past Tk and D
   auto load_kv = [&](int st, int kt) {
 #pragma unroll
     for (int n = 0; n < FK * (DP / 4) / FTHREADS; ++n) {
       const int i = tid + n * FTHREADS, r = i / (DP / 4), c = (i % (DP / 4)) * 4;
       const int key = kt * FK + r;
-      const bool full = key < T_len && c < D;
+      const bool full = key < Tk && c < D;
       const long long row = full ? key : 0;
       hopper::cp_async16(&sm.k[st][r * FPITCH + c], kg + (full ? row * kst + c : 0), full);
       hopper::cp_async16(&sm.v[st][r * FPITCH + c], vg + (full ? row * vst + c : 0), full);
     }
   };
-  {  // the block's Q rows, zero past T and D, with the first K / V tile
+  {  // the block's Q rows, zero past Tq and D, with the first K / V tile
     const float* qg = q + b * qsb + h * qsh;
 #pragma unroll
     for (int n = 0; n < FQ * (DP / 4) / FTHREADS; ++n) {
       const int i = tid + n * FTHREADS, r = i / (DP / 4), c = (i % (DP / 4)) * 4;
       const int row = blockIdx.y * FQ + r;
-      const bool full = row < T_len && c < D;
+      const bool full = row < Tq && c < D;
       hopper::cp_async16(&sm.q[r * QPITCH + c], qg + (full ? (long long)row * qst + c : 0), full);
     }
   }
@@ -405,6 +432,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     hopper::cp_async_commit();
   }
   const int r0 = blockIdx.y * FQ + warp * 16;  // this warp's rows r0 + g, r0 + g + 8
+  const int lim[2] = {key_limit(mode, r0 + g, len, vp), key_limit(mode, r0 + g + 8, len, vp)};
   const float* qs = &sm.q[(warp * 16 + g) * QPITCH + 4 * tig];
 
   float acc[DP / 8][4];  // O: output tile jn, rows g / g + 8
@@ -464,7 +492,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + 8 * j + tig + 4 * (e & 1);
         const float x = sc[j][e] * scale_log2;
-        sc[j][e] = key >= T_len ? -INFINITY : (key >= len ? MASKED : x);
+        sc[j][e] = key >= Tk ? -INFINITY : (key >= lim[e / 2] ? MASKED : x);
         mx[e / 2] = fmaxf(mx[e / 2], sc[j][e]);
       }
     float alpha[2];
@@ -519,7 +547,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int hr = 0; hr < 2; ++hr) {
     const int row = r0 + g + 8 * hr;
     const float inv = 1.f / fmaxf(quad_sum(l_r[hr]), 1e-30f);
-    if (row >= T_len) continue;
+    if (row >= Tq) continue;
 #pragma unroll
     for (int e = 0; e < 2; ++e)
 #pragma unroll
@@ -534,8 +562,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-cudaError_t launch_f32(const void* const* ptrs, const int* lengths, int B, int H, int T_len,
-                       int D, const long long* st, float sm_scale, cudaStream_t stream) {
+cudaError_t launch_f32(const void* const* ptrs, const int* lengths, const int* vad_pos, int B,
+                       int H, int Tq, int Tk, int D, const long long* st, float sm_scale,
+                       int mode, cudaStream_t stream) {
   const size_t bytes = sizeof(F32Smem);  // above the 48 KB default: opt in per device
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -543,29 +572,36 @@ cudaError_t launch_f32(const void* const* ptrs, const int* lengths, int B, int H
     err = cudaFuncSetAttribute(flash_f32_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  dim3 grid(B * H, (T_len + FQ - 1) / FQ);
+  dim3 grid(B * H, (Tq + FQ - 1) / FQ);
   flash_f32_kernel<<<grid, FTHREADS, bytes, stream>>>(
       static_cast<const float*>(ptrs[0]), static_cast<const float*>(ptrs[1]),
       static_cast<const float*>(ptrs[2]), static_cast<float*>(const_cast<void*>(ptrs[3])),
-      lengths, H, T_len, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], sm_scale * LOG2E);
+      lengths, vad_pos, H, Tq, Tk, D, mode, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      st[7], st[8], st[9], st[10], st[11], sm_scale * LOG2E);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. strides: (b, h, t) for q, k, v, o in elements.
-// block_rows: query rows per bf16 block, 64 or 128 (the fp32 kernel always takes 64).
+// dtype: 0 = float32, 1 = bfloat16. q and o are (B, H, Tq, D), k and v (B, H, Tk, D);
+// strides: (b, h, t) for q, k, v, o in elements. mode: 0 none, 1 causal, 2 corner, which
+// reads vad_pos (B int32; NULL otherwise). block_rows: query rows per bf16 block, 64 or
+// 128 (the fp32 kernel always takes 64).
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
-                                   void* o, const void* lengths, int B, int H, int T_len,
-                                   int D, const long long* strides, float sm_scale,
-                                   int block_rows, void* stream) {
+                                   void* o, const void* lengths, int B, int H, int Tq, int Tk,
+                                   int D, const long long* strides, float sm_scale, int mode,
+                                   const void* vad_pos, int block_rows, void* stream) {
   const void* ptrs[4] = {q, k, v, o};
   const int* lens = static_cast<const int*>(lengths);
+  const int* vps = static_cast<const int*>(vad_pos);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D < 8 || D > DP || D % 8) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return (int)launch_f32(ptrs, lens, B, H, T_len, D, strides, sm_scale, s);
+  if (D < 8 || D > DP || D % 8 || Tq < 1 || Tk < Tq || mode < 0 || mode > 2 ||
+      (mode == 2 && vps == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch_f32(ptrs, lens, vps, B, H, Tq, Tk, D, strides, sm_scale, mode, s);
   if (dtype == 1 && (block_rows == QR || block_rows == 2 * QR))
-    return (int)launch_bf16(ptrs, lens, B, H, T_len, D, strides, sm_scale, block_rows, s);
+    return (int)launch_bf16(ptrs, lens, vps, B, H, Tq, Tk, D, strides, sm_scale, mode,
+                            block_rows, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -18,8 +18,9 @@
 // in flight. What this design does about it:
 //   * 16-byte loads and stores: a thread owns 8 bf16 or 4 fp32 channels (one vector),
 //     a warp 32 neighbouring vectors of one time chunk (512 contiguous bytes a row);
-//   * k and the left pad are template parameters (11 and 5, the SAN-M path's; 20 and
-//     19, the VAD's causal memory, fp32 only; 21 and 10, the SeACo decoder's memory; a
+//   * k and the left pad are template parameters (11 and 5, the SAN-M path's; 11 and 10,
+//     the streaming decoder's causal step; 20 and 19, the VAD's causal memory, fp32
+//     only; 21 and 10, the SeACo decoder's memory; a
 //     generic instantiation serves any other k up to 64 and any pads, with runtime taps
 //     read through L1): the time loop is unrolled and the k-vector window of inputs
 //     lives in registers (input row r in slot r % k); each input is loaded once per
@@ -276,6 +277,10 @@ cudaError_t dispatch(const void* x, const void* w, const void* mask, void* out, 
     return launch<T, 0, 0>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
   if (K == 11 && left == 5)  // the SAN-M encoders' and decoder's k and pads
     return launch<T, 11, 5>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
+  // the streaming decoder's causal step over concat(cache, x) (the offline decoder of a
+  // streaming model, sanm_shfit 5, has the same pads)
+  if (K == 11 && left == 10)
+    return launch<T, 11, 10>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
   // the VAD's causal memory (lorder 20, fp32): its window and taps take 160 registers
   // a thread at 4 channels; bf16's 8 channels would spill, so bf16 stays generic
   if constexpr (Vec<T>::N == 4)

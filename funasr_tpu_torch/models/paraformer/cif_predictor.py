@@ -5,7 +5,10 @@ FunASR's ``CifPredictorV2`` (``funasr/models/paraformer/cif_predictor.py:209-412
 pad(l, r) conv1d + relu + linear + sigmoid alphas, then (inference) the tail-threshold
 fire appended. The fired-token axis is the caller's ``max_tokens`` budget; slots past a
 row's token count are zero. The training branch (alphas rescaled to the target length)
-is slice 7, the streaming ``forward_chunk`` slice 3.
+is slice 7. ``forward_chunk`` is the streaming predictor (``cif_predictor.py:106-167``):
+the chunk's alphas kept inside its stride, the tail-threshold frame appended when final,
+the sequential integrate with a carried state (``ops/cif.py::cif_scan``) and the fired
+frames compacted to the front by a stable sort, all on the device.
 
 ``CifPredictorV1`` (registered as ``CifPredictor``; FunASR ``cif_predictor.py:17``) is V2
 with a depthwise alpha conv (``Conv1d(idim, idim, l + r + 1, groups=idim)``, with a bias)
@@ -22,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from funasr_tpu_torch.core.layers import apply_linear, conv1d
-from funasr_tpu_torch.ops.cif import cif
+from funasr_tpu_torch.ops.cif import cif, cif_scan
 from funasr_tpu_torch.register import tables
 
 
@@ -68,6 +71,42 @@ class CifPredictorV2(nn.Module):
             hidden_c, alphas_c, out_token_num = hidden, a, a.sum(dim=1)
         acoustic_embeds, fires = cif(hidden_c, alphas_c, max_tokens, self.threshold)
         return acoustic_embeds, out_token_num, alphas_c, fires
+
+    def forward_chunk(self, hidden, state, max_tokens: int, is_final: bool = False,
+                      chunk_size=None):
+        """One streaming chunk. hidden (B, T, D); ``state`` {"integrate" (B,), "frame"
+        (B, D)} fp32; ``chunk_size`` [pad_left, stride, look-ahead] zeroes the alphas
+        outside the stride (the look-ahead rows come again next chunk) -> (embeds
+        (B, min(max_tokens, T'), D) with the fired frames first and zeros past
+        ``n_fired``, n_fired (B,) int32 on the device, new state). T' = T + 1 when
+        final (the tail-threshold frame)."""
+        b, t, d = hidden.shape
+        a = self.alphas(hidden, None)
+        if chunk_size is not None:
+            pos = torch.arange(t, device=hidden.device)[None, :]
+            keep = pos >= chunk_size[0]
+            if not is_final:
+                keep &= pos < chunk_size[0] + chunk_size[1]
+            a = a * keep.to(a.dtype)
+        if is_final:
+            a = torch.cat([a, torch.full((b, 1), self.tail_threshold, dtype=torch.float32,
+                                         device=a.device)], dim=1)
+            hidden = torch.cat([hidden, hidden.new_zeros(b, 1, d)], dim=1)
+            t += 1
+        integrate, frame, fire_mask, fired_frames = cif_scan(
+            hidden, a, state["integrate"], state["frame"], self.threshold)
+        n_fired = fire_mask.sum(dim=1).to(torch.int32)
+        order = torch.argsort((~fire_mask).to(torch.int32), dim=1, stable=True)
+        k = min(max_tokens, t)
+        embeds = torch.take_along_dim(fired_frames, order[..., None], dim=1)[:, :k]
+        valid = torch.arange(k, device=hidden.device)[None, :] < n_fired[:, None]
+        embeds = torch.where(valid[..., None], embeds, 0.0).to(hidden.dtype)
+        return embeds, n_fired, {"integrate": integrate, "frame": frame}
+
+    @staticmethod
+    def init_state(batch: int, dim: int, device=None):
+        return {"integrate": torch.zeros(batch, device=device),
+                "frame": torch.zeros(batch, dim, device=device)}
 
 
 @tables.register("predictor_classes", "CifPredictor")

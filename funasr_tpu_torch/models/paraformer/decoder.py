@@ -6,13 +6,19 @@ FunASR's ``ParaformerSANMDecoder`` (``funasr/models/paraformer/decoder.py:233-64
 ``decoders2`` (no cross-attention), ``decoders3`` (FFN only, NO residual), after-norm and
 the vocab projection. ``embed`` is kept for the state dict (the glancing sampler of
 training uses it; SeACo embeds its hotwords with it). ``forward_asf`` is the SeACo
-decoder's attention-score probe. The streaming ``forward_chunk`` is slice 3.
+decoder's attention-score probe. ``forward_chunk`` is the streaming decode
+(``decoder.py:180-270``): FFN -> the FSMN step over [cache | tokens] on the FSMN kernel
+(k = 11, pads (10, 0)) -> cross-attention over [cached | this chunk's] memory, for
+``decoders``; the same without cross-attention for ``decoders2``; ``decoders3`` with no
+residual. The token rows are padded to the chunk's bucket with ``n`` valid (a device
+tensor), so no host wait sits between the predictor and the decoder.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import torch
 from torch import nn
 
 from funasr_tpu_torch.core.layers import (
@@ -27,6 +33,8 @@ from funasr_tpu_torch.models.sanm.attention import (
     MultiHeadedAttentionCrossAtt,
     MultiHeadedAttentionSANMDecoder,
     cross_attention_apply,
+    cross_attention_apply_chunk,
+    fsmn_decoder_apply_masked,
 )
 from funasr_tpu_torch.register import tables
 
@@ -148,3 +156,47 @@ class ParaformerSANMDecoder(nn.Module):
         _, attn = cross_attention_apply(layer.src_attn, layer.norm3(x), hs_pad, memory_mask,
                                         ret_attn=True)
         return attn
+
+    def forward_chunk(self, memory, tgt, n, cache):
+        """One streaming chunk: memory (B, Tm, enc) the chunk's encoder output, tgt
+        (B, tmax, dim) the predictor's embeddings with ``n`` (a 0-d device tensor) valid
+        rows -> logits (B, tmax, vocab); rows from n on are padding, which the caller
+        drops. ``cache``: {"decode_fsmn": per-layer (B, k - 1, dim) or None, "opt":
+        per cross-attention layer {"k", "v"} or None, "chunk_size",
+        "decoder_chunk_look_back"}, updated in place."""
+        cfg = self.cfg
+        b, _, d = tgt.shape
+        if cache.get("decode_fsmn") is None:
+            cache["decode_fsmn"] = [tgt.new_zeros(b, cfg.kernel_size - 1, d)
+                                    for _ in range(len(self.decoders) + len(self.decoders2))]
+        look_back = cache.get("decoder_chunk_look_back", 0)
+        chunk_size = cache.get("chunk_size")
+        logits, fsmn, opt = self.chunk_step(memory, tgt, n, cache["decode_fsmn"],
+                                            cache.get("opt"), chunk_size, look_back)
+        cache["decode_fsmn"] = fsmn
+        if look_back > 0 or look_back == -1:
+            cache["opt"] = opt
+        return logits
+
+    def chunk_step(self, memory, tgt, n, fsmn_cache, opt_cache, chunk_size, look_back: int):
+        """``_forward_chunk_impl``: -> (logits, new FSMN caches, new cross caches)."""
+        index = n.reshape(1).long() + torch.arange(self.cfg.kernel_size - 1,
+                                                   device=tgt.device)
+        opt_cache = opt_cache or [None] * len(self.decoders)
+        x, new_fsmn, new_opt = tgt, [], []
+        for i, layer in enumerate((*self.decoders, *self.decoders2)):
+            h = layer.feed_forward(layer.norm1(x))
+            h, fc = fsmn_decoder_apply_masked(layer.self_attn, layer.norm2(h), fsmn_cache[i],
+                                              index)
+            x = x + h
+            new_fsmn.append(fc)
+            if layer.src_attn is not None:
+                h, oc = cross_attention_apply_chunk(layer.src_attn, layer.norm3(x), memory,
+                                                    opt_cache[i], chunk_size, look_back)
+                x = x + h
+                new_opt.append(oc)
+        layer = self.decoders3[0]
+        x = self.after_norm(layer.feed_forward(layer.norm1(x)))
+        if self.output_layer is not None:
+            x = apply_linear(self.output_layer, x)
+        return x, new_fsmn, new_opt

@@ -22,6 +22,7 @@ from funasr_tpu_torch.core.layers import (
 from funasr_tpu_torch.models.sanm.attention import (
     MultiHeadedAttentionSANM,
     SANMAttentionConfig,
+    sanm_attention_apply_chunk,
 )
 from funasr_tpu_torch.register import tables
 
@@ -61,10 +62,17 @@ class EncoderLayerSANM(nn.Module):
         self.feed_forward = PositionwiseFeedForward(cfg.output_size, cfg.linear_units,
                                                     device=device)
 
-    def forward(self, x, mask, lengths):
-        h = self.self_attn(self.norm1(x), mask, lengths)
+    def forward(self, x, mask, lengths, mode: str = "none", vad_pos=None):
+        h = self.self_attn(self.norm1(x), mask, lengths, mode, vad_pos)
         x = x + h if self.residual_attn else h
         return x + self.feed_forward(self.norm2(x))
+
+    def forward_chunk(self, x, cache, lengths, chunk_size, look_back: int):
+        """One streaming chunk (``scama/encoder.py:87-97``) -> (out, new K/V cache)."""
+        h, cache = sanm_attention_apply_chunk(self.self_attn, self.norm1(x), cache, lengths,
+                                              chunk_size, look_back)
+        x = x + h if self.residual_attn else h
+        return x + self.feed_forward(self.norm2(x)), cache
 
 
 @tables.register("encoder_classes", "SANMEncoder")

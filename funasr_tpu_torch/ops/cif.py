@@ -8,6 +8,10 @@
 * token embeddings: one fp32 (B,K,T) x (B,T,D) product against the weight matrix.
 * ``fires_thr``: the fire trace at another threshold (the timestamp head's
   ``threshold - 1e-4``), through ``cif_fires`` on ``alphas / threshold``.
+* ``cif_scan_step`` / ``cif_scan``: the streaming predictor's sequential integrate
+  (``ops/cif.py:80-98``) with a carried (integrate, frame): one step per frame, in the
+  JAX scan's fp32 order, so the fire decisions are the same sums (a chunk has at most
+  16 frames).
 
 The cumsum sums in another order than XLA's, on the CPU and more so on the GPU, so a
 fire count can differ from the JAX package's only where a running sum sits within
@@ -64,3 +68,31 @@ def cif(hidden, alphas, max_tokens: int, threshold: float = 1.0):
     valid = torch.arange(k, device=hidden.device)[None, :] < n_fires[:, None]
     frames = torch.where(valid[..., None], frames, 0.0)
     return frames.to(hidden.dtype), fires
+
+
+def cif_scan_step(integrate, frame, alpha, hidden, threshold: float = 1.0):
+    """One streaming integrate step: integrate (B,), frame (B, D), alpha (B,), hidden
+    (B, D), all fp32 -> (new integrate, new frame, fire (B,) bool, fired frame (B, D))."""
+    dist_completion = threshold - integrate
+    integrate = integrate + alpha
+    fire = integrate >= threshold
+    cur = torch.where(fire, dist_completion, alpha)
+    remains = alpha - cur
+    fired_frame = frame + cur[:, None] * hidden
+    new_frame = torch.where(fire[:, None], remains[:, None] * hidden, fired_frame)
+    new_integrate = torch.where(fire, integrate - threshold, integrate)
+    return new_integrate, new_frame, fire, fired_frame
+
+
+def cif_scan(hidden, alphas, integrate, frame, threshold: float = 1.0):
+    """``cif_scan_step`` over the T frames of hidden (B, T, D) and alphas (B, T) from the
+    carry (integrate (B,), frame (B, D)) -> (integrate, frame, fire_mask (B, T),
+    fired_frames (B, T, D)), fp32."""
+    hid = hidden.float()
+    fires, frames = [], []
+    for i in range(alphas.shape[1]):
+        integrate, frame, fire, fired = cif_scan_step(integrate, frame, alphas[:, i],
+                                                      hid[:, i], threshold)
+        fires.append(fire)
+        frames.append(fired)
+    return integrate, frame, torch.stack(fires, dim=1), torch.stack(frames, dim=1)

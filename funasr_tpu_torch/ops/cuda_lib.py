@@ -36,9 +36,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> argtypes (each returns a cudaError_t as int)
 _SIGNATURES = {
-    # dtype, q, k, v, o, lengths, B, H, T, D, strides[12], sm_scale, block_rows, stream
-    "flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            ctypes.POINTER(_L), ctypes.c_float, _I, _P],
+    # dtype, q, k, v, o, lengths, B, H, Tq, Tk, D, strides[12], sm_scale, mode, vad_pos,
+    # block_rows, stream
+    "flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            ctypes.POINTER(_L), ctypes.c_float, _I, _P, _I, _P],
     # dtype, x, w, mask, out, B, T, C, K, left, x_sb, x_st, stream
     "fsmn_memory_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P],
     "fsmn_memory_generic_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P],

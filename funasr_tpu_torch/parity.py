@@ -6,9 +6,10 @@ under names of their own. The alias list below is the JAX package's
 (``funasr_tpu/parity.py:23-54``) for the encoder and decoder tables; as there, an alias
 is bound only when its target is registered and the name is not, so it grows with the
 port. Two entries are left out because the reference binds their names to classes of
-their own, which the port does not have yet (streaming, ROADMAP item 13):
-``FsmnDecoderSCAMAOpt`` (the SCAMA decoder) and ``FsmnDecoder`` through it. Binding them
-here would build a Paraformer decoder for a SCAMA config.
+their own, which the port does not have yet: ``FsmnDecoderSCAMAOpt`` (the SCAMA decoder
+of the autoregressive SCAMA model, deferred when streaming Paraformer was ported) and
+``FsmnDecoder`` through it. Binding them here would build a Paraformer decoder for a
+SCAMA config.
 """
 
 from __future__ import annotations

@@ -213,12 +213,17 @@ def load_audio_text_image_video(data_in, fs: int = 16000, audio_fs: int = 16000,
 
 
 def extract_fbank(audio_list: List[np.ndarray], data_type: str = "sound", frontend=None,
-                  device=None):
+                  device=None, cache=None, is_final: bool = True):
     """Waveforms -> (feats (B, T, D), lens (B,)) through the frontend's batched path:
     numpy on the CPU when ``device`` is None, else tensors left on ``device`` (the
-    decode pads them to its own bucket)."""
+    decode pads them to its own bucket). With a streaming ``cache`` the waveforms go to
+    ``frontend.forward_streaming`` (``WavFrontendOnline``) as floats in [-1, 1) (int16 PCM
+    scaled by 1/32768, ``load_utils.py:266-272``) and come back as host numpy."""
     if data_type != "sound":
         raise NotImplementedError(f"data_type={data_type!r} is not ported (sound only)")
+    if cache is not None:
+        return frontend.forward_streaming([as_unit_f32(w) for w in audio_list], cache=cache,
+                                          is_final=is_final)
     return frontend.extract(audio_list, device=device)
 
 

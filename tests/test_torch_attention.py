@@ -7,7 +7,11 @@ JAX functions here:
   runs it (atol/rtol 2e-3, valid query rows);
 * FSMN memory: against ``attention.py::_fsmn`` / ``fsmn_decoder_apply`` (built on
   ``depthwise_conv1d_apply``, to which the Pallas ``dw_pallas`` is bit-exact), 1e-5 fp32;
-* ``sanm_attention_apply`` / ``cross_attention_apply``: 2e-4 fp32 (the ROADMAP budget).
+* ``sanm_attention_apply`` / ``cross_attention_apply``: 2e-4 fp32 (the ROADMAP budget);
+  with the streaming punctuation encoder's causal and "VAD corner" masks (the flash
+  route's per-row key limits against JAX's masked einsum route); the streaming chunk
+  functions (queries over [cached K/V | chunk], Tq < Tk; the cross-attention cache; the
+  decoder's FSMN step over concat(cache, x) with a gathered cache) against JAX's.
 
 The tests marked ``cuda`` hold each CUDA kernel to its plain version on the card and
 skip elsewhere.
@@ -134,6 +138,85 @@ def test_sanm_attention_matches_jax(rng, in_feat):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=ATTN_TOL, rtol=0)
 
 
+@pytest.mark.parametrize("vad_pos", [None, (0, 1), (6, 40), (20, 13)])
+def test_sanm_attention_row_limits_match_jax(rng, vad_pos):
+    """Causal (``vad_pos`` None) and corner key limits against the JAX einsum route with
+    the (B, T, T) mask beside the pad mask (``SANMVadEncoder``'s layers), ragged lengths."""
+    b, n, d, h = 2, 37, 64, 4
+    mod, jcfg, params = _sanm_pair(d, d, h)
+    x = rng.standard_normal((b, n, d)).astype(np.float32)
+    lens = np.asarray([37, 22], np.int32)
+    mask = _mask(lens, n)
+    rows, cols = np.arange(n)[None, :, None], np.arange(n)[None, None, :]
+    if vad_pos is None:
+        attn_mask = np.broadcast_to(rows >= cols, (b, n, n))
+        mode, vp = "causal", None
+    else:
+        vpa = np.asarray(vad_pos, np.int32)[:, None, None]
+        attn_mask = ~((rows <= vpa - 2) & (cols >= vpa))
+        mode, vp = "corner", t(np.asarray(vad_pos, np.int32))
+    want = jattn.sanm_attention_apply(params, jcfg, jnp.asarray(x), jnp.asarray(mask),
+                                      attn_mask=jnp.asarray(attn_mask))
+    got = tattn.sanm_attention_apply(mod, t(x), t(mask), t(lens), mode, vp)
+    for i, m in enumerate(lens):  # JAX zeroes no padded query row: compare the valid ones
+        np.testing.assert_allclose(got.detach().numpy()[i, :m], np.asarray(want)[i, :m],
+                                   atol=ATTN_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("look_back", [0, 1, 4, -1])
+def test_sanm_attention_chunk_matches_jax(rng, look_back):
+    """Four chunks of 15 rows ([0, 10, 5]): queries over [cached K/V | chunk] (Tk up to
+    55 at look-back 4), the cache kept to the stride boundary and trimmed."""
+    mod, jcfg, params = _sanm_pair(64, 64, 4)
+    jcache = {"k": jnp.zeros((1, 4, 0, 16)), "v": jnp.zeros((1, 4, 0, 16))}
+    pcache = None
+    for _ in range(4):
+        x = rng.standard_normal((1, 15, 64)).astype(np.float32)
+        want, jcache = jattn.sanm_attention_apply_chunk(params, jcfg, jnp.asarray(x), jcache,
+                                                        (0, 10, 5), look_back)
+        tk = 15 + (0 if pcache is None or look_back == 0 else pcache["k"].shape[2])
+        got, pcache = tattn.sanm_attention_apply_chunk(
+            mod, t(x), pcache, torch.tensor([tk], dtype=torch.int32), (0, 10, 5), look_back)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=ATTN_TOL,
+                                   rtol=0)
+        if look_back:
+            np.testing.assert_allclose(pcache["v"].detach().numpy(), np.asarray(jcache["v"]),
+                                       atol=ATTN_TOL, rtol=0)
+    assert pcache is None if look_back == 0 else pcache["k"].shape[2] == {
+        1: 10, 4: 40, -1: 40}[look_back]
+
+
+def test_cross_attention_chunk_and_fsmn_step_match_jax(rng):
+    """The streaming decoder's cross-attention with a look-back of 1 chunk, and its FSMN
+    step over concat(cache, x) with n valid rows of a padded bucket."""
+    d, h = 64, 16
+    cfg = tattn.CrossAttentionConfig(h, d, d)
+    mod = init_weights(tattn.MultiHeadedAttentionCrossAtt(cfg), _gen(1))
+    sd = SD(mod.state_dict())
+    params = to_jax({name: sd.linear(name) for name in ("linear_q", "linear_k_v", "linear_out")})
+    fcfg = tattn.FSMNDecoderConfig(d, 11, 5)
+    fmod = init_weights(tattn.MultiHeadedAttentionSANMDecoder(fcfg), _gen(2))
+    fparams = to_jax({"fsmn_block": SD(fmod.state_dict()).dwconv("fsmn_block")})
+    jkv, pkv = None, None
+    jfc, pfc = jnp.zeros((1, 10, d)), torch.zeros(1, 10, d)
+    for n, tmax in ((4, 15), (0, 15), (16, 16)):
+        x = rng.standard_normal((1, tmax, d)).astype(np.float32)
+        mem = rng.standard_normal((1, 15, d)).astype(np.float32)
+        want, jkv = jattn.cross_attention_apply_chunk(params, jattn.CrossAttentionConfig(h, d, d),
+                                                      jnp.asarray(x), jnp.asarray(mem), jkv,
+                                                      (0, 10, 5), 1)
+        got, pkv = tattn.cross_attention_apply_chunk(mod, t(x), t(mem), pkv, (0, 10, 5), 1)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=ATTN_TOL,
+                                   rtol=0)
+        want, jfc = jattn.fsmn_decoder_apply_masked(fparams, jattn.FSMNDecoderConfig(d, 11, 5),
+                                                    jnp.asarray(x), jfc, n)
+        got, pfc = tattn.fsmn_decoder_apply_masked(fmod, t(x), pfc, n + torch.arange(10))
+        np.testing.assert_allclose(got.detach().numpy()[:, :n], np.asarray(want)[:, :n],
+                                   atol=FSMN_TOL, rtol=0)
+        np.testing.assert_array_equal(pfc.numpy(), np.asarray(jfc))
+    assert pkv["k"].shape[2] == 10
+
+
 def test_cross_attention_and_decoder_fsmn_match_jax(rng):
     b, nq, nk, d, h = 2, 17, 40, 64, 16
     cfg = tattn.CrossAttentionConfig(h, d, d)
@@ -196,6 +279,59 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, tol, shape):
         n_i = int(lens[i]) or n
         torch.testing.assert_close(got[i, :, :n_i].float(), want[i, :, :n_i].float(),
                                    atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,mode", [
+    ((1, 4, 15, 55, 128), "none"),   # a streaming chunk over a full look-back of 4
+    ((1, 4, 15, 15, 128), "none"),   # the first chunk
+    ((1, 4, 15, 1005, 128), "none"),  # look-back -1, 100 chunks in
+    ((2, 3, 70, 200, 64), "none"),   # Tq over one 64-row block, Tk over one key tile
+    ((2, 8, 64, 64, 32), "causal"),  # the punctuation encoder's layers
+    ((2, 8, 64, 64, 32), "corner"),  # and its last
+    ((3, 4, 200, 200, 64), "causal"),
+    ((4, 4, 130, 130, 64), "corner"),
+])
+def test_flash_kernel_key_cache_and_row_limits_on_card(cuda_device, dtype, tol, shape, mode):
+    """Tq < Tk with its own K / V strides, and per-row key limits: every valid query row
+    against the plain version; ragged lengths, vad positions 0, 1, mid, >= T."""
+    b, h, tq, tk, d = shape
+    g = _gen(6)
+    q = torch.randn(b, tq, 3, h, d, generator=g).to(cuda_device, dtype)[:, :, 0].transpose(1, 2)
+    kv = torch.randn(b, tk, 2, h, d, generator=g).to(cuda_device, dtype)
+    k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    lens = torch.tensor([tk - 17 * (i % 2) for i in range(b)], device=cuda_device)
+    vad_pos = None
+    if mode == "corner":
+        vad_pos = torch.tensor([0, 1, tq // 2, tq + 3][:b] if b > 2 else [tq // 2, 1],
+                               dtype=torch.int32, device=cuda_device)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, lens, mode, vad_pos)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, lens, mode, vad_pos)
+    for i in range(b):
+        rows = min(tq, int(lens[i]))
+        torch.testing.assert_close(got[i, :, :rows].float(), want[i, :, :rows].float(),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("t_len", [25, 26, 208])
+def test_fsmn_kernel_streaming_step_on_card(cuda_device, dtype, tol, t_len):
+    """The streaming decoder's step, k = 11 with pads (10, 0) over concat(cache, x), no
+    mask: its own instantiation against the plain version and, bit for bit, the generic
+    one."""
+    g = _gen(7)
+    x = torch.randn(1, t_len, 512, generator=g).to(cuda_device, dtype)
+    w = (torch.rand(512, 1, 11, generator=g) - 0.5).to(cuda_device, dtype)
+    got = fsmn_memory(x, w, None, 10, 0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), fsmn_memory_ref(x, w, None, 10, 0).float(),
+                               atol=tol, rtol=tol)
+    assert torch.equal(got, fsmn_memory(x, w, None, 10, 0, generic=True))
 
 
 # (B, T, C, k, left, mask): "prefix" lengths (T, T - 17, 100, 1, ...), "random" a

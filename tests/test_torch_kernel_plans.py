@@ -10,8 +10,11 @@
 * the fp32 flash kernel's 3xTF32 split, emulated in fp32 with its key tiles and online
   softmax: within the card's tolerance of the plain version, where one TF32 product is
   not;
-* the kernels' JSON line of ``chip_smoke.py``, fp32, pipeline and hotword entries
-  included;
+* the kernels' JSON line of ``chip_smoke.py``, fp32, pipeline, hotword and streaming
+  entries included;
+* the flash kernel's per-row key limits (``key_limits``): each mode's limits are the JAX
+  masks (causal, the "VAD corner") beside the pad mask as row prefixes, and never fall
+  with the row, which the kernel's skip of key tiles past a row block's last row needs;
 * the kernel modules never call the library functions that ``chip_smoke.py`` times
   beside the kernels.
 """
@@ -24,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from funasr_tpu_torch.ops.flash_attention import flash_attention_ref, flash_block_rows
+from funasr_tpu_torch.ops.flash_attention import flash_attention_ref, flash_block_rows, key_limits
 from funasr_tpu_torch.ops.w8a8 import INV127, plan_w8a8, quantize_rows_int8
 
 REPO = Path(__file__).resolve().parents[1]
@@ -161,6 +164,69 @@ def test_kernels_line_carries_hotword_entries():
     assert "k21_fp32" not in kernels_out["flash_attention"]["hotword"]
     # the other per-decode figures are the main path's, whatever phase 10 ran
     assert kernels_out["w8a8_linear"]["launches_per_decode"] == 282
+
+
+def test_kernels_line_carries_streaming_entries():
+    """Flash and FSMN carry phase 11's launches (fp32 and bf16 streams, per chunk, the
+    realtime punctuation's) and their rows at the streaming shapes under ``streaming``;
+    FSMN adds the profile's (11, 5) / (11, 10) split; W8A8 has none."""
+    row = dict(shape=(1, 2), max_abs_err=0.0, ms=1.0, call_ms=2.0, plain_ms=3.0,
+               library_ms=4.0, bound_ms=0.5, bound_by="bytes")
+    record = {(name, torch.bfloat16): row for name in chip_smoke.LIBRARY_CALLS}
+    for entries in chip_smoke.STREAMING_ENTRIES.values():
+        for _, key in entries:
+            record[key] = dict(row, ms=8.0)
+    run = dict(launches=dict(flash_attention=5100, fsmn_memory=6732, w8a8_linear=0),
+               launches_per_chunk=dict(flash_attention=50.0, fsmn_memory=66.0, w8a8_linear=0.0),
+               profile_per_chunk=dict(flash=50.0, fsmn_11_5=50.0, fsmn_11_10=16.0))
+    streaming = dict(fp32=run, bf16=run, punc=dict(launches=dict(flash_attention=56,
+                                                                fsmn_memory=56, w8a8_linear=0)))
+    launches = {"flash_attention": 100, "fsmn_memory": 132}
+    line = chip_smoke.kernels_line(record, launches, {"w8a8_linear": 282}, launches,
+                                   streaming=streaming)
+    kernels = {k["name"]: k for k in line["kernels"]}
+    flash, fsmn = kernels["flash_attention"]["streaming"], kernels["fsmn_memory"]["streaming"]
+    assert flash["launches"] == 10200 and flash["launches_per_chunk"] == {"fp32": 50.0,
+                                                                          "bf16": 50.0}
+    assert flash["punc_launches"] == 56 and flash["rows"]["keys55_fp32"]["ms"] == 8.0
+    assert set(flash["rows"]) >= {"keys15_bf16", "keys1005_fp32", "causal_fp32", "corner30_bf16"}
+    assert fsmn["profile_per_chunk"]["fp32"] == {"fsmn_11_5": 50.0, "fsmn_11_10": 16.0}
+    assert set(fsmn["rows"]) == {"step25_fp32", "step25_bf16", "step26_fp32", "step26_bf16"}
+    assert "streaming" not in kernels["w8a8_linear"]
+
+
+def test_flash_work_with_a_key_cache_and_row_limits():
+    """15 query rows over 55 cached + chunk keys read k and v once (55 rows) and score
+    15 x 55 pairs; causal rows score r + 1 keys each."""
+    n_bytes, n_ops = chip_smoke.flash_work(1, 4, 15, 128, [55], 4, [[55] * 15])
+    assert n_bytes == 4 * 4 * 128 * (2 * 15 + 2 * 55) + 4
+    assert n_ops == 4 * 4 * 128 * 15 * 55
+    _, causal_ops = chip_smoke.flash_work(1, 8, 64, 32, [64], 4,
+                                          key_limits(torch.tensor([64]), 64, "causal").tolist())
+    assert causal_ops == 4 * 8 * 32 * sum(range(1, 65))
+    assert chip_smoke.flash_work(3, 2, 100, 64, [100, 40, 0], 2) == chip_smoke.flash_work(
+        3, 2, 100, 64, [100, 40, 0], 2, [[100] * 100, [40] * 100, [100] * 100])
+
+
+@pytest.mark.parametrize("mode,vad_pos", [("none", None), ("causal", None),
+                                          ("corner", [0, 1, 9, 40, 30])])
+def test_key_limits_are_the_jax_masks(mode, vad_pos):
+    """The keys below each row's limit are exactly the keys the JAX route lets it see:
+    ``cols < len`` with the causal mask, or with ``vad_corner_mask``; limits never fall
+    with the row."""
+    b, t = 5, 30
+    lens = torch.tensor([30, 17, 1, 30, 25])
+    vp = None if vad_pos is None else torch.tensor(vad_pos)
+    lim = key_limits(lens, t, mode, vp)
+    rows, cols = np.arange(t)[None, :, None], np.arange(t)[None, None, :]
+    want = np.broadcast_to(cols < lens.numpy()[:, None, None], (b, t, t))
+    if mode == "causal":
+        want = want & (rows >= cols)
+    if mode == "corner":
+        v = np.asarray(vad_pos)[:, None, None]
+        want = want & ~((rows <= v - 2) & (cols >= v))
+    np.testing.assert_array_equal(cols < lim.numpy()[:, :, None], want)
+    assert (lim[:, 1:] >= lim[:, :-1]).all()
 
 
 def test_flash_work_counts_keys_up_to_the_lengths():

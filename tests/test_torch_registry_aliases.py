@@ -31,7 +31,8 @@ from torch_parity_util import write_asr_dir, write_contextual_dir
 # the aliases of the JAX package's list whose targets the port has (ROADMAP section 3)
 PORT_ALIASES = {"SANMEncoderExport", "FSMNExport", "FSMNConvert", "FSMNMT", "FSMNMTConvert",
                 "ParaformerSANMDecoderExport", "ParaformerSANMDecoderOnlineExport",
-                "ParaformerSANMDecoder_v2_community", "ContextualParaformerDecoderExport"}
+                "ParaformerSANMDecoder_v2_community", "ContextualParaformerDecoderExport",
+                "SANMEncoderChunkOptExport", "SANMVadEncoderExport"}
 
 
 def _reference_pairs():
@@ -63,6 +64,16 @@ def test_alias_resolves_as_in_the_jax_package(table, name, target):
         assert port_table[name] is port_table[target]
     else:  # the JAX package registers a class of that name (e.g. the SCAMA decoder)
         assert name not in port_table
+
+
+def test_streaming_encoder_aliases_bind_and_the_scama_decoder_stays_unbound():
+    """The streaming encoders' export names resolve to the port's classes; the SCAMA
+    decoder's names stay unbound until the SCAMA decoder is ported."""
+    enc = tables.encoder_classes
+    assert enc["SANMEncoderChunkOptExport"] is enc["SANMEncoderChunkOpt"]
+    assert enc["SANMVadEncoderExport"] is enc["SANMVadEncoder"]
+    assert "FsmnDecoderSCAMAOpt" not in tables.decoder_classes
+    assert "FsmnDecoder" not in tables.decoder_classes
 
 
 def test_config_naming_export_aliases_builds_and_matches_jax(tmp_path):

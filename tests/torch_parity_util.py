@@ -348,6 +348,69 @@ def voice_burst(rng, voice, n, fs=16000):
     return (0.3 * noise / (np.abs(noise).max() + 1e-9) * gate).astype(np.float32)
 
 
+# ---------------------------------------------------------------------------
+# streaming: a small ParaformerStreaming (the parts of paraformer-zh-streaming: the chunk
+# encoder with input_layer pe_online, decoder sanm_shfit 5, WavFrontendOnline) and a
+# small realtime punctuation model, written the same way
+# ---------------------------------------------------------------------------
+
+STREAM_CONF = dict(
+    input_size=560, vocab_size=len(PIPE_TOKENS),
+    encoder_conf=dict(output_size=32, attention_heads=4, linear_units=48, num_blocks=2,
+                      input_layer="pe_online", kernel_size=11, sanm_shfit=0),
+    decoder_conf=dict(attention_heads=4, linear_units=48, num_blocks=3, att_layer_num=2,
+                      kernel_size=11, sanm_shfit=5),
+    predictor_conf=dict(idim=32, l_order=1, r_order=1, threshold=1.0, tail_threshold=0.45),
+    sos=1, eos=2, predictor_bias=1, ctc_weight=0.0)
+STREAM_FRONTEND = dict(fs=16000, window="hamming", n_mels=80, frame_length=25, frame_shift=10,
+                       lfr_m=7, lfr_n=6, dither=0.0)
+# the demo's pieces (examples/industrial_data_pretraining/ct_transformer_streaming/demo.py)
+PUNC_DEMO = ("跨境河流是养育沿岸|人民的生命之源长期以来为帮助下游地区防灾减灾中方技术人员|"
+             "在上游地区极为恶劣的自然条件下克服巨大困难甚至冒着生命危险|"
+             "向印方提供汛期水文资料处理紧急事件中方重视印方在跨境河流>问题上的关切|"
+             "愿意进一步完善双方联合工作机制|凡是|中方能做的我们|"
+             "都会去做而且会做得更好我请印度朋友们放心中国在上游的|任何开发利用都会经过科学|"
+             "规划和论证兼顾上下游的利益")
+# the demo's characters as the punctuation vocabulary, so its words are not <unk>
+PUNC_DEMO_TOKENS = (["<blank>", "<s>", "</s>"] + sorted(set(PUNC_DEMO) - {"|"}) + ["<unk>"])
+# ct-punc's widths cut to 3 blocks of 64 (the realtime model's SANMVadEncoder)
+PUNC_RT_ENC = dict(PUNC_ENC, input_size=64, output_size=64, attention_heads=4,
+                   linear_units=96, num_blocks=3)
+PUNC_RT_MODEL_CONF = dict(PUNC_MODEL_CONF, embed_unit=64, att_unit=64)
+
+
+def write_streaming_dir(d, seed=0):
+    from funasr_tpu_torch.models.paraformer_streaming.model import ParaformerStreaming
+    conf = dict(STREAM_CONF)
+    model = ParaformerStreaming(**conf, generator=torch.Generator().manual_seed(seed))
+    torch.save(model.state_dict(), os.path.join(d, "model.pt"))
+    _write_tokens(d, PIPE_TOKENS)
+    write_identity_cmvn(os.path.join(d, "am.mvn"), conf["input_size"])
+    return _write_config(d, dict(
+        model="ParaformerStreaming",
+        model_conf=dict(sos=1, eos=2, predictor_bias=1, ctc_weight=0.0),
+        encoder="SANMEncoderChunkOpt", encoder_conf=conf["encoder_conf"],
+        decoder="ParaformerSANMDecoder", decoder_conf=conf["decoder_conf"],
+        predictor="CifPredictorV2", predictor_conf=conf["predictor_conf"],
+        frontend="WavFrontendOnline", frontend_conf=dict(STREAM_FRONTEND, cmvn_file="am.mvn"),
+        tokenizer="CharTokenizer",
+        tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>")))
+
+
+def write_punc_realtime_dir(d, seed=2):
+    from funasr_tpu_torch.models.ct_transformer_streaming.model import CTTransformerStreaming
+    punc = CTTransformerStreaming(encoder_conf=PUNC_RT_ENC, vocab_size=len(PUNC_DEMO_TOKENS),
+                                  **PUNC_RT_MODEL_CONF,
+                                  generator=torch.Generator().manual_seed(seed))
+    torch.save(punc.state_dict(), os.path.join(d, "model.pt"))
+    _write_tokens(d, PUNC_DEMO_TOKENS)
+    return _write_config(d, dict(
+        model="CTTransformerStreaming", model_conf=PUNC_RT_MODEL_CONF,
+        encoder="SANMVadEncoder", encoder_conf=PUNC_RT_ENC,
+        tokenizer="CharTokenizer",
+        tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>")))
+
+
 @contextlib.contextmanager
 def shape_only_init(names=("Paraformer", "BiCifParaformer", "FsmnVADStreaming",
                            "CTTransformer", "CAMPPlus", "SeacoParaformer",
