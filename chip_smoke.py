@@ -4,8 +4,9 @@ and drives the offline Paraformer decode, ``AutoModel(quant="w8a8")``, the defau
 (fp32) ``AutoModel`` at Paraformer-large width, the VAD -> ASR -> punctuation pipeline
 ``AutoModel(model=, vad_model=, punc_model=)``, speaker-attributed transcription
 ``AutoModel(model=bicif, vad_model=, punc_model=, spk_model=)``, hotword transcription
-``AutoModel(model=seaco | contextual).generate(hotword=...)`` and streaming
-``AutoModel(model=paraformer_streaming).generate(input=chunk, cache=cache, ...)``.
+``AutoModel(model=seaco | contextual).generate(hotword=...)``, streaming
+``AutoModel(model=paraformer_streaming).generate(input=chunk, cache=cache, ...)`` and
+SenseVoice-Small ``AutoModel(model=sensevoice[, vad_model=])`` with the CTC family.
 
     python3 chip_smoke.py
 
@@ -94,13 +95,35 @@ Phases (any failure raises and exits non-zero):
    ``bf16=True``: gated on non-empty texts (a whole-array call's text equal to the
    chunked stream's), exactly 50 flash, 50 FSMN (11, 5) and 16 FSMN (11, 10) launches a
    chunk and one device-to-host copy a chunk; per-chunk wall p50 / p95 (cold apart), RTF,
-   device ms a chunk and idle share from a profiled stream; CUDA against the CPU port
+   device ms a chunk and idle share from a profiled stream, taken in a process of its own
+   (``chip_smoke.py --stream-profile``, waited for); CUDA against the CPU port
    chunk by chunk (full width for 10 chunks, the small config for a stream: encoder
    within ``CPU_GPU_ENC_TOL``, fire counts and ids equal, caches within
    ``STREAM_CACHE_TOL``); the realtime punctuation model (ct-punc widths,
    CTTransformerStreaming) over the demo's pieces against the CPU port (texts, the first
    3 windows' logits within ``PUNC_LOGIT_TOL``); ``DynamicStreamingVAD`` over phase 8's
-   VAD in 60 ms feeds, events equal to the CPU port's.
+   VAD in 60 ms feeds, events equal to the CPU port's;
+12. SenseVoice (``phase_sensevoice``): kernel rows at its shapes (``sense_voice_kernel_
+   rows``: flash (32, 4, 388, 128) and FSMN (11, 5) at (32, 388, 512), fp32 and bf16; the
+   blocks' five W8A8 products at M = 12416 and the W8A8 CTC head (12416, 512, 25055),
+   bf16, bit-exact, with the wrapper's slice copy of the 25,056-pitch output timed); SenseVoiceSmall at its published widths (50 + 20
+   blocks, d 512, vocab 25055 with the rich tags at their ids) written as a model dir,
+   32 x 15 s through ``AutoModel.generate`` at fp32, ``bf16=True`` and ``bf16=True,
+   quant="w8a8"`` (``sense_voice_batch``): gated on 32 keyed texts, exactly 70 flash, 70
+   FSMN and (W8A8) 281 W8A8 launches a decode by counter and by profile (fp32 in the
+   fp32 kernels), one host wait a batch; RTFx, device ms by kernel, idle share. CUDA
+   against the CPU port (``sense_voice_cuda_vs_cpu``): the small config's ids equal, at
+   full width on 2 x 15 s the encoder within ``CPU_GPU_ENC_TOL``, log-probs within
+   ``SV_LOGP_TOL`` and ids equal where the top-2 margin clears 10x the error. The demo's
+   call (``sense_voice_demo``): ``AutoModel(model=, vad_model=, vad_kwargs=
+   {"max_single_segment_time": 30000})``, 2 requests of 300 s, ``generate(language="auto",
+   use_itn=True, batch_size_s=60, merge_vad=True, merge_length_s=15)``: one row each, VAD
+   segments equal to the CPU port's, the ASR stage's launches at its sites, no tag left
+   by ``rich_transcription_postprocess``; then request 0 once more with the ASR stage's
+   inputs kept (``sense_voice_demo_kernels``): flash and FSMN at each VAD-merged batch's
+   shape against their plain versions, and the longest batch against the CPU port. The CTC family at a small config
+   (``family_cuda_vs_cpu``): CTCModel, ParaformerV2, EParaformer ids and MonotonicAligner
+   timestamps equal to the CPU port's, every kernel site launched.
 
 Kernel times (phases 3-4): ``ms`` is device time per launch over 20 back-to-back
 launches between one pair of CUDA events, queued behind a spin kernel so that host
@@ -121,8 +144,9 @@ its main path shape, with ``launches`` of the main path's run and
 from the fp32 ``AutoModel`` decode, and their rows at the pipeline's shapes under
 ``pipeline``, launches from phase 8's four requests; every kernel's launches on phase 9's
 meetings under ``speaker``, on phase 10's decodes under ``hotword``, where FSMN adds its
-k = 21 rows, and phase 11's under ``streaming``, with the rows at the streaming shapes),
-the last line ``{"ok": true, "device": {...}}``.
+k = 21 rows, phase 11's under ``streaming``, with the rows at the streaming shapes, and
+phase 12's under ``sensevoice``, with the rows at SenseVoice's shapes), the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -265,6 +289,11 @@ def profile_kernels(fn, calls=1):
         torch.cuda.synchronize()
     return {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA}
+
+
+# A profile that shows fewer launches of a kernel than its counter gave is taken again,
+# at most PROFILE_TRIES times in all, each try printed, before its launches are gated
+PROFILE_TRIES = 3
 
 
 def profile_once(fn, label, wall):
@@ -425,13 +454,14 @@ def phase_kernels(dev):
     record.update(pipeline_kernel_rows(dev, g))
     record.update(hotword_kernel_rows(dev, g))
     record.update(streaming_kernel_rows(dev, g))
+    record.update(sense_voice_kernel_rows(dev, g))
     return record
 
 
-def fsmn_row(x, w, mask, left, right):
+def fsmn_row(x, w, mask, left, right, timed=True):
     """One FSMN kernel row against its plain version, with the library call
     ``F.conv1d(groups=C)`` (zero padding max(left, right), the causal output sliced) plus
-    the residual."""
+    the residual. Untimed: the error only."""
     import torch.nn.functional as F
     from funasr_tpu_torch.ops.fsmn import fsmn_memory, fsmn_memory_ref
 
@@ -440,6 +470,8 @@ def fsmn_row(x, w, mask, left, right):
     out = fsmn_memory(x, w, mask, left, right)
     torch.cuda.synchronize()
     err = (out - fsmn_memory_ref(x, w, mask, left, right)).abs().max().item()
+    if not timed:
+        return dict(shape=(b, t, c), k=k, pads=(left, right), max_abs_err=err)
     xm = x if mask is None else x * mask[..., None].to(x.dtype)
     xm = xm.transpose(1, 2).contiguous()  # (B, C, T)
     pad, off = max(left, right), max(left, right) - left
@@ -560,49 +592,57 @@ def timing_line(row):
                if "cuda_core_bound_ms" in row else ""))
 
 
-def phase_w8a8_kernel(dev):
+def w8a8_row(x, w_q8, scale, bias, label="w8a8"):
+    """One W8A8 kernel row, bit-exact against its plain version, with the library's integer
+    product alone (``torch._int_mm`` on the padded int8 operands) and cuBLAS bf16
+    ``F.linear``; bf16 rows print the profile's quantize / GEMM split. Raises on a
+    disagreement."""
     import torch.nn.functional as F
     from funasr_tpu_torch.ops.w8a8 import (plan_w8a8, quantize_rows_int8, w8a8_linear,
                                            w8a8_linear_ref)
 
+    (m, k), n, dtype = x.shape, w_q8.shape[0], x.dtype
+    out = w8a8_linear(x, w_q8, scale, bias)
+    torch.cuda.synchronize()
+    ref = w8a8_linear_ref(x, w_q8, scale, bias)
+    err = (out.float() - ref.float()).abs().max().item()
+    row = dict(shape=(m, k, n), max_abs_err=err,
+               ms=device_ms(lambda: w8a8_linear(x, w_q8, scale, bias)),
+               call_ms=call_ms(lambda: w8a8_linear(x, w_q8, scale, bias)),
+               plain_ms=device_ms(lambda: w8a8_linear_ref(x, w_q8, scale, bias), launches=5))
+    kp = plan_w8a8(m, k, n, dtype).kp
+    x_q = F.pad(quantize_rows_int8(x)[0], (0, kp - k))
+    w_p = F.pad(w_q8, (0, kp - k))
+    row["library_ms"] = device_ms(lambda: torch._int_mm(x_q, w_p.t()))
+    w_bf16 = (w_q8.float() * scale[:, None]).to(torch.bfloat16)
+    xb, bb = x.to(torch.bfloat16), bias.to(torch.bfloat16)
+    row["cublas_bf16_ms"] = device_ms(lambda: F.linear(xb, w_bf16, bb))
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        *w8a8_work(m, k, n, x.element_size(), bias.element_size()), "int8")
+    log(f"{label} ({m}, {k}, {n}) {str(dtype)[6:]}: max_abs_err {err:.3e} "
+        f"(tol {W8A8_TOL}) " + timing_line(row)
+        + f"; cuBLAS bf16 F.linear {row['cublas_bf16_ms']:.4f}")
+    if dtype == torch.bfloat16:
+        split = profile_kernels(lambda: w8a8_linear(x, w_q8, scale, bias), calls=10)
+        log("  profile, ms per call: " + ", ".join(
+            f"{name.split('<')[0].split('::')[-1]} {t / 10:.4f}"
+            for name, (t, _) in split.items()))
+    if not torch.equal(out, ref):
+        raise AssertionError(f"w8a8 kernel disagrees at {(m, k, n)} {dtype}: {err}")
+    return row
+
+
+def phase_w8a8_kernel(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     record = None
     for m, k, n in W8A8_SHAPES:
         w_q8 = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
         scale = torch.rand(n, generator=g, device=dev) * 1e-3
-        w_bf16 = (w_q8.float() * scale[:, None]).to(torch.bfloat16)
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(m, k, generator=g, device=dev).to(dtype)
             x[-1] = 0  # a zero-padded bucket row
             bias = torch.randn(n, generator=g, device=dev).to(dtype)
-            out = w8a8_linear(x, w_q8, scale, bias)
-            torch.cuda.synchronize()
-            ref = w8a8_linear_ref(x, w_q8, scale, bias)
-            err = (out.float() - ref.float()).abs().max().item()
-            row = dict(shape=(m, k, n), max_abs_err=err,
-                       ms=device_ms(lambda: w8a8_linear(x, w_q8, scale, bias)),
-                       call_ms=call_ms(lambda: w8a8_linear(x, w_q8, scale, bias)),
-                       plain_ms=device_ms(lambda: w8a8_linear_ref(x, w_q8, scale, bias),
-                                          launches=5))
-            # the library's integer product alone, on the padded int8 operands
-            kp = plan_w8a8(m, k, n, dtype).kp
-            x_q = F.pad(quantize_rows_int8(x)[0], (0, kp - k))
-            w_p = F.pad(w_q8, (0, kp - k))
-            row["library_ms"] = device_ms(lambda: torch._int_mm(x_q, w_p.t()))
-            xb, bb = x.to(torch.bfloat16), bias.to(torch.bfloat16)
-            row["cublas_bf16_ms"] = device_ms(lambda: F.linear(xb, w_bf16, bb))
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                *w8a8_work(m, k, n, x.element_size(), bias.element_size()), "int8")
-            log(f"w8a8 ({m}, {k}, {n}) {str(dtype)[6:]}: max_abs_err {err:.3e} "
-                f"(tol {W8A8_TOL}) " + timing_line(row)
-                + f"; cuBLAS bf16 F.linear {row['cublas_bf16_ms']:.4f}")
-            if dtype == torch.bfloat16:
-                split = profile_kernels(lambda: w8a8_linear(x, w_q8, scale, bias), calls=10)
-                log("  profile, ms per call: " + ", ".join(
-                    f"{name.split('<')[0].split('::')[-1]} {t / 10:.4f}"
-                    for name, (t, _) in split.items()))
-            if not torch.equal(out, ref):
-                raise AssertionError(f"w8a8 kernel disagrees at {(m, k, n)} {dtype}: {err}")
+            row = w8a8_row(x, w_q8, scale, bias)
             if (m, k, n) == (12288, 512, 2048) and dtype == torch.bfloat16:
                 record = row
     return record
@@ -2120,29 +2160,42 @@ def stream_calls(wav):
     return [wav[i:i + STREAM_STRIDE] for i in range(0, len(wav), STREAM_STRIDE)]
 
 
-def run_stream(am, wav):
+def run_stream(am, wav, profiled=None):
     """One stream through ``am.generate`` 600 ms a call, the caller's cache carried:
-    (joined text, wall ms per call)."""
+    (joined text, wall ms per call). With a dict ``profiled``, each call runs under a
+    profile of its own and its {kernel name: (ms, launches)} is added into the dict."""
     cache, texts, walls = {}, [], []
     pieces = stream_calls(wav)
     for j, piece in enumerate(pieces):
+        res = []
+
+        def call():
+            res.append(am.generate(input=piece, cache=cache, is_final=j == len(pieces) - 1,
+                                   **STREAM_CALL))
         t0 = time.perf_counter()
-        res = am.generate(input=piece, cache=cache, is_final=j == len(pieces) - 1,
-                          **STREAM_CALL)
+        if profiled is None:
+            call()
+        else:
+            for name, (ms, n) in profile_kernels(call).items():
+                total_ms, total_n = profiled.get(name, (0.0, 0))
+                profiled[name] = (total_ms + ms, total_n + n)
         walls.append((time.perf_counter() - t0) * 1e3)
-        texts.append(res[0]["text"])
+        texts.append(res[0][0]["text"])
     return "".join(texts), walls
 
 
-def streaming_asr(am, streams, counters, card, label):
+def streaming_asr(am, streams, counters, card, label, model_dir, bf16):
     """ParaformerStreaming through ``AutoModel.generate`` 600 ms a call (the demo loop):
     one whole-array call (is_final: it streams internally) as warm-up, then the counted
     streams. Gates: non-empty texts, the whole-array call's text equal to stream 0's;
     exactly 50 flash and 66 FSMN launches a chunk by count, 50 FSMN at (11, 5) and 16 at
     (11, 10) by call (``FsmnSplit``), no W8A8; one device-to-host copy a chunk
-    (``sync_points``); the profile showing those instantiations (within one launch in a
-    hundred: CUPTI may drop a record over ~10^5 launches). Prints per-chunk wall (cold / steady p50, p95), RTF, device ms a
-    chunk and the idle share from one profiled stream, launches a chunk by kernel."""
+    (``sync_points``); the profile of stream 1, one per call, taken in a process of its
+    own (``stream_profile``), showing those instantiations within one launch in a
+    hundred. Prints per-chunk wall (cold / steady p50, p95), RTF,
+    device ms a chunk and the idle share from one profiled stream, launches a chunk by
+    kernel."""
+    enc, dec = (PROD_CONF[f"{part}_conf"]["num_blocks"] for part in ("encoder", "decoder"))
     model = am.model
     inner, chunk_ms = model.generate_chunk, []
 
@@ -2167,22 +2220,19 @@ def streaming_asr(am, streams, counters, card, label):
         chunk_ms.clear()
         syncs = sync_points(lambda: run_stream(am, streams[1]))
         sync_chunks = len(chunk_ms)
-        chunk_ms.clear()
-        by_name = profile_kernels(lambda: run_stream(am, streams[1]))
-        prof_chunks = len(chunk_ms)
     finally:
         del model.generate_chunk
         split.remove()
     texts = [text for text, _ in runs]
     reset_ms = wall_ms(am._reset_runtime_configs, runs=5)[0]  # host work of every generate
+    profiled = stream_profile_child(model_dir, bf16, label)
+    by_name, prof_chunks = profiled["by_name"], profiled["chunks"]
     audio_s = sum(len(w) for w in streams) / 16000
     call_walls = [w for _, ws in runs for w in ws]
-    stream1_wall = sum(runs[1][1])
+    stream1_wall = profiled["wall_ms"]
     device = sum(t for t, _ in by_name.values())
     per_chunk = {name: n / chunks for name, n in launches.items()}
-    k11 = kernel_totals({k: v for k, v in by_name.items() if "fsmn_kernel" in k}, FSMN_K11)
-    step = kernel_totals({k: v for k, v in by_name.items() if "fsmn_kernel" in k}, FSMN_STEP)
-    flash = kernel_totals(by_name, "flash_")
+    flash, k11, step = stream_profile_totals(by_name)
     all_launches = sum(n for _, n in by_name.values())
     cold, steady = walls[:STREAM_COLD], walls[STREAM_COLD:]
     stats = dict(chunks=chunks, launches=launches, launches_per_chunk=per_chunk,
@@ -2216,27 +2266,107 @@ def streaming_asr(am, streams, counters, card, label):
         f"{stats['profile_per_chunk']['fsmn_11_10']:.1f} "
         f"({stats['profile_ms_per_chunk']['fsmn_11_10']:.4f} ms); device kernel time "
         f"{stats['device_ms_per_chunk']:.3f} ms a chunk, idle share {stats['idle_share']:.1%} "
-        f"(stream 1 unprofiled wall {stream1_wall:.1f} ms)")
+        f"(stream 1 unprofiled wall {stream1_wall:.1f} ms in the profile's process)")
     log(f"  host waits for the device: {stats['d2h_per_chunk']:.2f} a chunk over "
         f"{sync_chunks} chunks {dict(syncs.most_common(4))}; texts {[len(x) for x in texts]} "
         f"chars")
     if not all(isinstance(x, str) and x for x in texts) or whole[0]["text"] != texts[0]:
         raise AssertionError(f"streaming {label}: empty text, or the whole-array call's text "
                              f"differs from the chunked stream's")
-    enc, dec = (PROD_CONF[f"{part}_conf"]["num_blocks"] for part in ("encoder", "decoder"))
     if (launches["flash_attention"] != enc * chunks
             or launches["fsmn_memory"] != (enc + dec) * chunks or launches["w8a8_linear"] != 0
             or by_call != {(11, 5): enc * chunks, (11, 10): dec * chunks}):
         raise AssertionError(f"streaming {label}: launches {launches}, FSMN by (k, left pad) "
                              f"{by_call} over {chunks} chunks")
+    if profiled["launches"] != {"flash_attention": enc * prof_chunks, "fsmn_memory": (enc + dec)
+                                * prof_chunks, "w8a8_linear": 0}:
+        raise AssertionError(f"streaming {label}: the profile's process counted "
+                             f"{profiled['launches']} over {prof_chunks} chunks")
     if not all(abs(n - want * prof_chunks) <= want * prof_chunks // 100 and n > 0
                for n, want in ((flash[1], enc), (k11[1], enc), (step[1], dec))):
         raise AssertionError(f"streaming {label}: profiled launches flash {flash[1]}, FSMN "
-                             f"(11, 5) {k11[1]}, (11, 10) {step[1]} over {prof_chunks} chunks")
+                             f"(11, 5) {k11[1]}, (11, 10) {step[1]} over {prof_chunks} chunks "
+                             f"({profiled['tries']} profiles)")
     if sum(syncs.values()) != sync_chunks:
         raise AssertionError(f"streaming {label}: {sum(syncs.values())} host waits over "
                              f"{sync_chunks} chunks: {syncs}")
     return stats
+
+
+def stream_waves():
+    """Phase 11's streams, from their seed."""
+    rng = np.random.default_rng(11)
+    return [long_recording(rng, STREAM_SECONDS) for _ in range(STREAMS)]
+
+
+def stream_profile(model_dir, bf16):
+    """Phase 11's profile (``python3 chip_smoke.py --stream-profile <dir> <fp32|bf16>``), in
+    a process of its own: late in the script, one profile per call of the streaming path
+    lost ~2 % of its kernel records (1,317.4 of 1,341.2 a chunk, flash and FSMN among
+    them), where a fresh process lost none in 18 profiles. Stream 1 through ``model_dir``:
+    stream 0 as warm-up, stream 1 unprofiled (its wall), then stream 1 with one profile
+    per ``generate`` call, taken again (``PROFILE_TRIES``) while it shows fewer launches
+    than the counters. Prints each try, then as its last line a JSON object: chunks,
+    counters, {kernel name: (ms, launches)}, the unprofiled wall ms, tries."""
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.ops.flash_attention import flash_attention
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory
+    from funasr_tpu_torch.ops.w8a8 import w8a8_linear
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; needs an NVIDIA GPU")
+    counters = (flash_attention, fsmn_memory, w8a8_linear)
+    streams = stream_waves()
+    am = AutoModel(model=model_dir, device="cuda", bf16=bf16, log_level="WARNING")
+    model, chunks = am.model, []
+    inner = model.generate_chunk
+
+    def counted(*args, **kwargs):
+        chunks.append(1)
+        return inner(*args, **kwargs)
+    model.generate_chunk = counted
+    run_stream(am, streams[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_stream(am, streams[1])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    for tries in range(1, PROFILE_TRIES + 1):
+        for c in counters:
+            c.launches = 0
+        chunks.clear()
+        by_name = {}
+        run_stream(am, streams[1], profiled=by_name)
+        launches = {c.__name__: c.launches for c in counters}
+        flash, fsmn = (kernel_totals(by_name, key)[1] for key in ("flash_", "fsmn_kernel"))
+        log(f"try {tries}: {len(chunks)} chunks; launches by counter {launches}, by profile "
+            f"flash {flash}, FSMN {fsmn}")
+        if flash >= launches["flash_attention"] and fsmn >= launches["fsmn_memory"]:
+            break
+    print(json.dumps(dict(chunks=len(chunks), launches=launches, by_name=by_name,
+                          wall_ms=wall, tries=tries)))
+
+
+def stream_profile_child(model_dir, bf16, label):
+    """``stream_profile`` in a process of its own, waited for; its lines relayed, its last
+    line's JSON object returned."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--stream-profile",
+                           model_dir, "bf16" if bf16 else "fp32"],
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  streaming {label} profile process: {line}")
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"streaming {label}: the profile process exited with "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def stream_profile_totals(by_name):
+    """(device ms, launches) of flash, FSMN (11, 5) and FSMN (11, 10) in a profile."""
+    fsmn = {k: v for k, v in by_name.items() if "fsmn_kernel" in k}
+    return (kernel_totals(by_name, "flash_"), kernel_totals(fsmn, FSMN_K11),
+            kernel_totals(fsmn, FSMN_STEP))
 
 
 def stream_cuda_vs_cpu(gpu_model, wav, chunks, label):
@@ -2401,8 +2531,7 @@ def phase_streaming(dev, counters, card):
     import tempfile
     from funasr_tpu_torch import AutoModel, tables
 
-    rng = np.random.default_rng(11)
-    streams = [long_recording(rng, STREAM_SECONDS) for _ in range(STREAMS)]
+    streams = stream_waves()
     out = {}
     with tempfile.TemporaryDirectory() as root:
         dirs = {name: os.path.join(root, name) for name in ("asr", "punc", "vad")}
@@ -2418,7 +2547,7 @@ def phase_streaming(dev, counters, card):
         log(f"streaming: model dirs written in {time.perf_counter() - t0:.1f} s")
         for bf16, label in ((False, "fp32"), (True, "bf16")):
             am = AutoModel(model=dirs["asr"], device="cuda", bf16=bf16, log_level="WARNING")
-            out[label] = streaming_asr(am, streams, counters, card, label)
+            out[label] = streaming_asr(am, streams, counters, card, label, dirs["asr"], bf16)
             if not bf16:
                 out["cuda_vs_cpu"] = stream_cuda_vs_cpu(am.model, streams[0], STREAM_CPU_CHUNKS,
                                                         "PROD_CONF fp32")
@@ -2430,6 +2559,515 @@ def phase_streaming(dev, counters, card):
             small, streams[1], len(stream_calls(streams[1])), "small config fp32")
         out["punc"] = realtime_punctuation(dirs["punc"], counters, card)
         out["vad"] = dynamic_vad(dirs["vad"], streams[0], card)
+    return out
+
+
+# ---- phase 12: SenseVoice-Small and the CTC family ---------------------------------------
+
+# SenseVoiceSmall's published config as benchmarks/bench_zoo.py:47-53 records it (50 + 20
+# SAN-M blocks, d 512, 4 heads, FFN 2048, k 11, vocab 25055), not cut
+SV_CONF = dict(input_size=560, vocab_size=25055, blank_id=0, encoder="SenseVoiceEncoderSmall",
+               encoder_conf=dict(output_size=512, attention_heads=4, linear_units=2048,
+                                 num_blocks=50, tp_blocks=20, kernel_size=11, sanm_shfit=0))
+SV_SMALL_CONF = dict(SV_CONF, encoder_conf=dict(SV_CONF["encoder_conf"], output_size=64,
+                                                linear_units=96, num_blocks=2, tp_blocks=1))
+# the published tag ids (SenseVoiceSmall.LID_INT_DICT / TEXTNORM_INT_DICT); the emotion
+# and event tags of the copied tag tables (utils/postprocess_utils.py) placed beside
+# EMO_UNK, 25009, which stays a plain token: those tables name no unknown-emotion tag
+SV_TAGS = {24884: "<|zh|>", 24885: "<|en|>", 24888: "<|yue|>", 24892: "<|ja|>",
+           24896: "<|ko|>", 24992: "<|nospeech|>", 25016: "<|withitn|>", 25017: "<|woitn|>",
+           24993: "<|Speech|>", 24994: "<|BGM|>", 24995: "<|Applause|>",
+           24996: "<|Laughter|>", 24997: "<|Cry|>", 24998: "<|Sneeze|>", 24999: "<|Breath|>",
+           25000: "<|Cough|>", 25001: "<|HAPPY|>", 25002: "<|SAD|>", 25003: "<|ANGRY|>",
+           25004: "<|NEUTRAL|>", 25005: "<|FEARFUL|>", 25006: "<|DISGUSTED|>",
+           25007: "<|SURPRISED|>", 25008: "<|Event_UNK|>"}
+SV_SETTINGS = (("fp32", {}), ("bf16", dict(bf16=True)), ("w8a8", dict(bf16=True, quant="w8a8")))
+SV_T = 388                 # a 15 s batch: the 384-frame bucket + the 4 prompt rows
+SV_BATCH = 32              # utterances of 15 s a decode
+SV_HEAD = (SV_BATCH * SV_T, 512, 25055)  # the CTC head's W8A8 product
+# (K, N) of the blocks' W8A8 products at M = SV_BATCH x SV_T: the first block's q/k/v from
+# the 560-wide features, then q/k/v, out, FFN in and out (1 + 69 + 70 + 70 + 70 a decode)
+SV_W8A8_BLOCKS = ((560, 1536), (512, 1536), (512, 512), (512, 2048), (2048, 512))
+SV_LOGP_TOL = 1e-3         # fp32 CTC log-probs, CUDA against the CPU: as HOTWORD_LOGP_TOL
+SV_MARGIN_FACTOR = 10      # ids gated where the top-2 margin exceeds 10x the log-prob error
+SV_DEMO_REQUESTS = 2
+SV_DEMO_CALL = dict(language="auto", use_itn=True, batch_size_s=60, merge_vad=True,
+                    merge_length_s=15)
+# the CTC family at a small config (2 + 2 blocks, d 64), CUDA against the CPU port
+FAMILY = {
+    "CTC": dict(input_size=560, vocab_size=41, encoder="SANMEncoder",
+                encoder_conf=SMALL_CONF["encoder_conf"]),
+    "ParaformerV2": dict({k: v for k, v in SMALL_CONF.items() if k != "predictor_conf"},
+                         ctc_weight=0.5),
+    "EParaformer": dict(SMALL_CONF, predictor_conf=dict(idim=64, sigma_heads=4)),
+    "MonotonicAligner": dict(input_size=560, encoder="SANMEncoder",
+                             encoder_conf=SMALL_CONF["encoder_conf"],
+                             predictor="CifPredictorV3",
+                             predictor_conf=dict(idim=64, upsample_times=3,
+                                                 upsample_type="cnn_blstm",
+                                                 use_cif1_cnn=False, smooth_factor2=0.25,
+                                                 noise_threshold2=0.01)),
+}
+
+
+def sv_tokens(n=SV_CONF["vocab_size"]):
+    tokens = [chr(0x4E00 + i) for i in range(n)]
+    tokens[:4] = ["<blank>", "<s>", "</s>", "<unk>"]
+    for i, tag in SV_TAGS.items():
+        tokens[i] = tag
+    return tokens
+
+
+def write_sense_voice_dir(d, dev, conf=None):
+    """A SenseVoiceSmall directory (config.yaml, 25055 tokens with the tags at their ids,
+    identity am.mvn, model.pt of a seeded port model at ``conf``, SV_CONF by default)."""
+    from funasr_tpu_torch import tables
+
+    conf = conf or SV_CONF
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = tables.model_classes["SenseVoiceSmall"](**conf, device=dev, generator=g)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(d, "model.pt"))
+    with open(os.path.join(d, "tokens.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(sv_tokens(conf["vocab_size"])) + "\n")
+    with open(os.path.join(d, "am.mvn"), "w") as f:
+        f.write(identity_cmvn(conf["input_size"]))
+    write_config(d, dict(
+        model="SenseVoiceSmall", model_conf=dict(blank_id=0, sos=1, eos=2),
+        encoder=conf["encoder"], encoder_conf=conf["encoder_conf"], frontend="WavFrontend",
+        frontend_conf=dict(FRONTEND_CONF, cmvn_file="am.mvn"), tokenizer="CharTokenizer",
+        tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>")))
+    return model
+
+
+def sense_voice_kernel_rows(dev, g):
+    """The kernels at SenseVoice's shapes: flash (32, 4, 388, 128) over strided head views
+    with ragged lengths and FSMN (11, 5) at (32, 388, 512) on the v slice with a prefix
+    mask, fp32 and bf16; the blocks' five W8A8 products at M = 12416 (``SV_W8A8_BLOCKS``)
+    and the W8A8 CTC head (12416, 512, 25055), in bf16 and bit-exact, the head with the
+    time of the wrapper's slice copy of the padded (12416, 25056) output
+    (``slice_copy_ms``). Raises on a disagreement."""
+    import torch.nn.functional as F
+    from funasr_tpu_torch.ops.w8a8 import (plan_w8a8, quantize_rows_int8, w8a8_linear,
+                                           w8a8_linear_ref)
+
+    b, h, t, d = 32, 4, SV_T, 128
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(b, t, 3, h, d, generator=g).to(dev, dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        rows[("flash_attention", "sensevoice", dtype)] = flash_row(
+            q, k, v, [t - 37 * (i % 2) for i in range(b)])
+        x = torch.randn(b, t, 3 * 512, generator=g).to(dev, dtype)[..., 2 * 512:]
+        w = (torch.rand(512, 1, 11, generator=g) - 0.5).to(dev, dtype)
+        lens = torch.tensor([t - 17 * (i % 3) for i in range(b)], device=dev)
+        rows[("fsmn_memory", "sensevoice", dtype)] = fsmn_row(
+            x, w, torch.arange(t, device=dev)[None] < lens[:, None], 5, 5)
+    for key, row in rows.items():
+        tol = (FLASH_TOL if key[0] == "flash_attention" else FSMN_TOL)[key[2]]
+        log(f"{key[0]} sensevoice {row['shape']} {str(key[2])[6:]}: max_abs_err "
+            f"{row['max_abs_err']:.3e} (tol {tol:g}) " + timing_line(row))
+        if not (math.isfinite(row["max_abs_err"]) and row["max_abs_err"] <= tol):
+            raise AssertionError(f"{key} kernel disagrees: {row['max_abs_err']}")
+
+    m, k, n = SV_HEAD
+    gb = torch.Generator(device=dev).manual_seed(2)
+    for kb, nb in SV_W8A8_BLOCKS:
+        w_q8 = torch.randint(-127, 128, (nb, kb), generator=gb, device=dev, dtype=torch.int8)
+        scale = torch.rand(nb, generator=gb, device=dev) * 1e-3
+        x = torch.randn(m, kb, generator=gb, device=dev).to(torch.bfloat16)
+        x[-1] = 0  # a zero-padded bucket row
+        bias = torch.randn(nb, generator=gb, device=dev).to(torch.bfloat16)
+        rows[("w8a8_linear", "sensevoice", (kb, nb))] = w8a8_row(
+            x, w_q8, scale, bias, label="w8a8 sensevoice block")
+    gd = torch.Generator(device=dev).manual_seed(1)
+    w_q8 = torch.randint(-127, 128, (n, k), generator=gd, device=dev, dtype=torch.int8)
+    scale = torch.rand(n, generator=gd, device=dev) * 1e-3
+    x = torch.randn(m, k, generator=gd, device=dev).to(torch.bfloat16)
+    bias = torch.randn(n, generator=gd, device=dev).to(torch.bfloat16)
+    out = w8a8_linear(x, w_q8, scale, bias)
+    torch.cuda.synchronize()
+    ref = w8a8_linear_ref(x, w_q8, scale, bias)
+    exact = torch.equal(out, ref)
+    row = dict(shape=SV_HEAD, max_abs_err=(out.float() - ref.float()).abs().max().item(),
+               ms=device_ms(lambda: w8a8_linear(x, w_q8, scale, bias)),
+               call_ms=call_ms(lambda: w8a8_linear(x, w_q8, scale, bias)),
+               plain_ms=device_ms(lambda: w8a8_linear_ref(x, w_q8, scale, bias), launches=5))
+    del ref, out  # 1.2 GB of the card's memory between them
+    # the library's integer product alone, on operands padded to K % 16 and N % 8
+    # (torch._int_mm takes no odd N)
+    p = plan_w8a8(m, k, n, torch.bfloat16)
+    x_q = F.pad(quantize_rows_int8(x)[0], (0, p.kp - k))
+    w_p = F.pad(w_q8, (0, p.kp - k, 0, -n % 8))
+    row["library_ms"] = device_ms(lambda: torch._int_mm(x_q, w_p.t()))
+    w_bf16 = (w_q8.float() * scale[:, None]).to(torch.bfloat16)
+    row["cublas_bf16_ms"] = device_ms(lambda: F.linear(x, w_bf16, bias))
+    padded = torch.empty(m, p.out_pitch, dtype=torch.bfloat16, device=dev)
+    row["out_pitch"] = p.out_pitch
+    row["slice_copy_ms"] = device_ms(lambda: padded[:, :n].contiguous())
+    row["bound_ms"], row["bound_by"] = bound_ms(*w8a8_work(m, k, n, 2, 2), "int8")
+    split = profile_kernels(lambda: w8a8_linear(x, w_q8, scale, bias), calls=10)
+    log(f"w8a8 sensevoice head {SV_HEAD} bf16: max_abs_err {row['max_abs_err']:.3e} (tol "
+        f"{W8A8_TOL}) " + timing_line(row) + f"; cuBLAS bf16 F.linear "
+        f"{row['cublas_bf16_ms']:.4f}; the wrapper's slice copy of the ({m}, {p.out_pitch}) "
+        f"output {row['slice_copy_ms']:.4f} ms; profile, ms per call: " + ", ".join(
+            f"{name.split('<')[0].split('::')[-1].split('(')[0]} {ms / 10:.4f}"
+            for name, (ms, _) in split.items()))
+    if not exact:
+        raise AssertionError(f"w8a8 kernel disagrees at the SenseVoice head: "
+                             f"{row['max_abs_err']}")
+    rows[("w8a8_linear", "sensevoice", torch.bfloat16)] = row
+    return rows
+
+
+def sense_voice_batch(am, batch, counters, card, label, sites):
+    """One setting of the offline batch (path 1): SV_BATCH x 15 s through ``am.generate``.
+    Gates: a row with its key and text per utterance; exactly ``sites`` launches per decode by
+    counter and (within 1 %) by profile, the fp32 setting's in the fp32 kernels; one
+    device-to-host copy per batch (``sync_points``, beside the frontend's three pageable
+    uploads, which the sync debug mode reports too). Prints RTFx (median of 5 walls),
+    device ms by kernel and the idle share from one profiled ``generate``."""
+    keys = [f"utt{i}" for i in range(len(batch))]
+    am.generate(input=batch, key=keys)  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    results = am.generate(input=batch, key=keys, language="auto", use_itn=False)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    syncs = sync_points(lambda: am.generate(input=batch, key=keys))
+    # the frontend's pageable uploads (waveforms, lengths, CMVN) register as waits too
+    d2h = sum(n for line, n in syncs.items() if not line.startswith("wav_frontend.py"))
+    t_med, times = wall_ms(lambda: am.generate(input=batch, key=keys))
+    kernels = {"flash_attention": "flash_f32_kernel" if label == "fp32" else "flash_",
+               "fsmn_memory": "fsmn_kernel<float" if label == "fp32" else "fsmn_kernel",
+               "w8a8_linear": "quantize_rows_kernel"}
+    for tries in range(1, PROFILE_TRIES + 1):
+        by_name = profile_once(lambda: am.generate(input=batch, key=keys),
+                               f"SenseVoice {label} generate", t_med)
+        profiled = {name: kernel_totals(by_name, key) for name, key in kernels.items()}
+        log(f"  SenseVoice {label} profile {tries}: launches "
+            f"{ {name: n for name, (_, n) in profiled.items()} } (counters {sites})")
+        if all(profiled[name][1] >= n for name, n in sites.items()):
+            break
+    device = sum(ms for ms, _ in by_name.values())
+    stats = dict(launches=launches, wall_ms=t_med, walls=times, rtfx=len(batch) * 15e3 / t_med,
+                 device_ms=device, idle_share=1 - device / t_med,
+                 profile={name: dict(ms=ms, launches=n) for name, (ms, n) in profiled.items()},
+                 d2h_per_batch=d2h, sync_lines=dict(syncs))
+    log(f"SenseVoice {label} B={len(batch)} x 15 s: generate median {t_med:.2f} ms (runs "
+        f"{[round(x, 2) for x in times]}), RTFx {stats['rtfx']:.1f}, device {device:.2f} ms, "
+        f"idle share {stats['idle_share']:.1%}; launches {launches}; profile "
+        f"{stats['profile']}; host waits {dict(syncs)} ({d2h} outside the frontend's "
+        f"uploads); texts "
+        f"{[len(r['text']) for r in results[:6]]}... chars on {card}")
+    if [r["key"] for r in results] != keys or not all(
+            isinstance(r["text"], str) and r["text"] for r in results):
+        raise AssertionError(f"SenseVoice {label}: expected {len(keys)} keyed non-empty texts")
+    if launches != sites:
+        raise AssertionError(f"SenseVoice {label}: launches {launches}, expected {sites}")
+    for name, want in sites.items():
+        n = profiled[name][1]
+        if abs(n - want) > want // 100 or (want and n == 0):
+            raise AssertionError(f"SenseVoice {label}: the profile shows {n} launches of "
+                                 f"{kernels[name]}, expected {want} ({tries} profiles)")
+    if d2h != 1:
+        raise AssertionError(f"SenseVoice {label}: {d2h} device-to-host waits a batch: "
+                             f"{syncs}")
+    return stats
+
+
+def sense_voice_cuda_vs_cpu(gpu_model, waves, label, gate_all, textnorm=15):
+    """The CUDA model against its copy on the CPU (fp32) on the same host features and
+    prompt (language "auto", ``textnorm``'s query row: 15 "woitn", 14 "withitn"): the
+    encoder output at the valid frames within CPU_GPU_ENC_TOL, the CTC
+    log-probs within SV_LOGP_TOL; the ids equal everywhere (``gate_all``) or wherever the
+    top-2 log-prob margin exceeds SV_MARGIN_FACTOR x the measured log-prob error, the
+    agreement at the rest printed (random weights make margins degenerate)."""
+    from funasr_tpu_torch import tables
+    from funasr_tpu_torch.utils.bucket import pad_feats_bucketed
+
+    cpu_model = copy.deepcopy(gpu_model).cpu()
+    # the features at the waveform bucket's frame count, as ``inference`` extracts them
+    feats, flens = tables.frontend_classes["WavFrontend"](**FRONTEND_CONF).extract(
+        waves, device="cpu")
+    sp, ln, b = pad_feats_bucketed(feats, flens)
+    lid = torch.zeros(sp.shape[0], dtype=torch.long)
+    tn = torch.full_like(lid, textnorm)
+    outs = {}
+    with torch.inference_mode():
+        for name, model in (("cpu", cpu_model), ("gpu", gpu_model)):
+            dev = model.device
+            x, lens = model.with_prompt(sp.to(dev), ln.to(dev), lid.to(dev), tn.to(dev))
+            enc, _ = model.encoder(x, lens)
+            logp = model.ctc.log_softmax(enc)  # ``infer``'s, on the encoder output kept
+            outs[name] = (enc.cpu(), logp.argmax(dim=-1).cpu(), logp.cpu())
+    valid = torch.arange(sp.shape[1] + 4)[None] < (ln + 4)[:, None]
+    enc_err = (outs["gpu"][0] - outs["cpu"][0])[valid].abs().max().item()
+    logp_err = (outs["gpu"][2] - outs["cpu"][2])[valid].abs().max().item()
+    top2 = outs["cpu"][2].topk(2, dim=-1).values
+    sure = valid & (top2[..., 0] - top2[..., 1] > SV_MARGIN_FACTOR * logp_err)
+    same = outs["gpu"][1] == outs["cpu"][1]
+    r = dict(enc_err=enc_err, logp_err=logp_err, frames=int(valid.sum()),
+             sure=int(sure.sum()), sure_equal=bool(same[sure].all()),
+             agree_rest=float(same[valid & ~sure].float().mean()) if (valid & ~sure).any()
+             else 1.0, ids_equal=bool(same[valid].all()))
+    seconds = sum(len(w) for w in waves) / 16000
+    log(f"SenseVoice cuda vs cpu ({label}, fp32, {len(waves)} waves, {seconds:.1f} s, "
+        f"encoded T {sp.shape[1] + 4}): encoder max_abs_err "
+        f"{enc_err:.3e} (tol {CPU_GPU_ENC_TOL:g}), CTC log-probs {logp_err:.3e} (tol "
+        f"{SV_LOGP_TOL:g}); ids equal on {r['sure']} of {r['frames']} frames whose top-2 "
+        f"margin exceeds {SV_MARGIN_FACTOR}x the log-prob error: {r['sure_equal']}; agreement "
+        f"at the rest {r['agree_rest']:.4f}; all equal {r['ids_equal']}")
+    if not (enc_err <= CPU_GPU_ENC_TOL and logp_err <= SV_LOGP_TOL and r["sure_equal"]
+            and (r["ids_equal"] or not gate_all)):
+        raise AssertionError(f"SenseVoice on CUDA disagrees with the CPU port ({label}): {r}")
+    return r
+
+
+def keep_sanm_kernel_inputs():
+    """Patches the SAN-M attention's calls of the flash and FSMN wrappers
+    (``models/sanm/attention.py``) to keep a copy, strides kept, of the inputs of the first
+    call at each distinct set of shapes, and to call through (the wrappers count their
+    launches as ever). Returns (kernel -> {shapes: args}, a function that undoes the
+    patch)."""
+    from funasr_tpu_torch.models.sanm import attention
+
+    kept = {"flash_attention": {}, "fsmn_memory": {}}
+    inner = {name: getattr(attention, name) for name in kept}
+
+    def copy_of(a):
+        return a.new_empty_strided(a.shape, a.stride()).copy_(a) if torch.is_tensor(a) else a
+
+    def keeper(name):
+        def call(*args, **kwargs):
+            key = tuple(tuple(a.shape) if torch.is_tensor(a) else a for a in args)
+            if key not in kept[name]:
+                kept[name][key] = [copy_of(a) for a in args]
+            return inner[name](*args, **kwargs)
+        return call
+
+    for name in kept:
+        setattr(attention, name, keeper(name))
+
+    def restore():
+        for name, fn in inner.items():
+            setattr(attention, name, fn)
+    return kept, restore
+
+
+def sense_voice_demo_kernels(am, wav):
+    """One more demo call on ``wav`` with the ASR stage's kernel inputs and batches kept:
+    flash and FSMN at every shape the VAD-merged ASR batches gave them against their plain
+    versions (within FLASH_TOL / FSMN_TOL; the largest shape timed), and the longest ASR
+    batch on the CUDA model against the CPU port (``sense_voice_cuda_vs_cpu``, the call's
+    "withitn" prompt). Returns the rows at the largest shapes and the comparison."""
+    kept, restore = keep_sanm_kernel_inputs()
+    batches, asr_stage = [], am.model.inference
+
+    def asr_inference(*args, **kwargs):
+        batches.append(kwargs["data_in"] if "data_in" in kwargs else args[0])
+        return asr_stage(*args, **kwargs)
+    am.model.inference = asr_inference
+    try:
+        am.generate(input=[wav], key=["kept"], **SV_DEMO_CALL)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+        am.model.inference = asr_stage
+    rows = {}
+    for name, calls in kept.items():
+        largest = max(calls, key=lambda key: math.prod(key[0]))
+        for key, args in calls.items():
+            if name == "flash_attention":
+                q, k, v, lengths, *rest = args
+                row = flash_row(q, k, v, lengths.tolist(), *rest, timed=key == largest)
+                tol = FLASH_TOL[q.dtype]
+            else:
+                row = fsmn_row(*args, timed=key == largest)
+                tol = FSMN_TOL[args[0].dtype]
+            log(f"{name} sensevoice demo ASR batch {row['shape']} {str(args[0].dtype)[6:]}: "
+                f"max_abs_err {row['max_abs_err']:.3e} (tol {tol:g})"
+                + (" " + timing_line(row) if key == largest else ""))
+            if not (math.isfinite(row["max_abs_err"]) and row["max_abs_err"] <= tol):
+                raise AssertionError(f"{name} disagrees at the demo's ASR shape {key}: "
+                                     f"{row['max_abs_err']}")
+            if key == largest:
+                rows[name] = row
+    longest = max(batches, key=lambda b: max(len(w) for w in b))
+    textnorm = am.model.query_ids(SV_DEMO_CALL)[1]
+    del am.model.inference  # the Stage wrapper: the copy for the CPU takes the bare model
+    cmp = sense_voice_cuda_vs_cpu(am.model, longest, "the demo's longest ASR batch",
+                                  gate_all=False, textnorm=textnorm)
+    return dict(rows=rows, shapes={name: [list(k[0]) for k in calls]
+                                   for name, calls in kept.items()}, cuda_vs_cpu=cmp)
+
+
+def sense_voice_demo(sv_dir, vad_dir, counters, card):
+    """The demo's call (``sense_voice/demo.py:19-28``) over phase 8's VAD, fp32, on
+    SV_DEMO_REQUESTS requests of 300 s. Gates per request: one row with its key; the VAD
+    segments (before ``merge_vad``) equal to the CPU port's VAD to the ms; the ASR stage's
+    launches at their sites (``kernel_sites`` x its calls); ``rich_transcription_
+    postprocess`` leaves no ``<|...|>``. Prints RTFx per request and the VAD / ASR split.
+    (The VAD's launches are gated at least at their sites, as phase 8 gates them.) Then
+    ``sense_voice_demo_kernels`` on request 0. Returns (per-request stats, its figures)."""
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.utils.postprocess_utils import rich_transcription_postprocess
+
+    am = AutoModel(model=sv_dir, vad_model=vad_dir,
+                   vad_kwargs={"max_single_segment_time": 30000}, device="cuda",
+                   log_level="WARNING")
+    sites = {"vad": kernel_sites(am.vad_model), "asr": kernel_sites(am.model)}
+    cpu_vad = copy.deepcopy(am.vad_model).cpu()
+    stages = {"vad": Stage(am.vad_model, "inference", counters),
+              "asr": Stage(am.model, "inference", counters)}
+    raw_segments, vad_stage = [], stages["vad"]
+
+    def vad_inference(*args, **kwargs):  # keeps the segments before merge_vad
+        out = vad_stage(*args, **kwargs)
+        raw_segments.append([[list(s) for s in r["value"]] for r in out[0]])
+        return out
+    am.vad_model.inference = vad_inference
+    vad_calls = forward_counter(am.vad_model.encoder)
+    rng = np.random.default_rng(12)
+    requests = [long_recording(rng) for _ in range(SV_DEMO_REQUESTS)]
+    am.generate(input=[requests[0][:16000 * 60]], key=["warm-up"], **SV_DEMO_CALL)
+    torch.cuda.synchronize()
+    per_request = []
+    for r, wav in enumerate(requests):
+        for st in stages.values():
+            st.reset()
+        raw_segments.clear()
+        vad_calls.clear()
+        key = f"request_{r}"
+        t0 = time.perf_counter()
+        rows = am.generate(input=[wav], key=[key], **SV_DEMO_CALL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        text = rich_transcription_postprocess(rows[0]["text"]) if rows else ""
+        stats = dict(wall_ms=wall * 1e3, rtfx=len(wav) / 16000 / wall,
+                     segments=len(raw_segments[0][0]), asr_batches=stages["asr"].calls,
+                     vad_calls=len(vad_calls),
+                     **{f"{name}_ms": st.ms for name, st in stages.items()},
+                     **{f"{name}_launches": st.launches for name, st in stages.items()},
+                     tags=rows[0]["text"].count("<|") if rows else 0, chars=len(text))
+        per_request.append(stats)
+        log(f"SenseVoice demo {key}: {len(wav) / 16000:.1f} s, wall {stats['wall_ms']:.2f} ms, "
+            f"RTFx {stats['rtfx']:.1f}; VAD {stats['vad_ms']:.2f} ms ({stats['vad_calls']} "
+            f"encoder calls, {stats['segments']} segments), ASR {stats['asr_ms']:.2f} ms "
+            f"({stats['asr_batches']} batches); launches VAD {stats['vad_launches']} ASR "
+            f"{stats['asr_launches']}; {stats['tags']} tags in the raw text, "
+            f"{stats['chars']} chars after rich_transcription_postprocess on {card}")
+        if len(rows) != 1 or rows[0]["key"] != key or not rows[0]["text"]:
+            raise AssertionError(f"SenseVoice demo {key}: expected one row with its key")
+        if "<|" in text or "|>" in text:
+            raise AssertionError(f"SenseVoice demo {key}: a tag survived: {text[:200]!r}")
+        cpu = am.inference([wav], model=cpu_vad, kwargs=am.vad_kwargs)[0]["value"]
+        if [list(s) for s in cpu] != raw_segments[0][0]:
+            raise AssertionError(f"SenseVoice demo {key}: VAD segments differ from the CPU "
+                                 f"port's: {raw_segments[0][0]} vs {cpu}")
+        need = {(stage, kernel): n * calls for stage, calls in
+                (("vad", stats["vad_calls"]), ("asr", stats["asr_batches"]))
+                for kernel, n in sites[stage].items()}
+        # the ASR stage exactly at its sites; the VAD at least (as phase 8 gates it)
+        short = {k: (stats[f"{k[0]}_launches"][k[1]], n) for k, n in need.items()
+                 if n == 0 or stats[f"{k[0]}_launches"][k[1]] < n
+                 or (k[0] == "asr" and stats["asr_launches"][k[1]] != n)}
+        if short:
+            raise AssertionError(f"SenseVoice demo {key}: launches off their sites "
+                                 f"(launches, sites x calls): {short}")
+    kernels = sense_voice_demo_kernels(am, requests[0])
+    del am
+    return per_request, kernels
+
+
+def family_cuda_vs_cpu(dev, counters):
+    """The CTC family at a small config, each seeded on the CPU and copied to CUDA:
+    ``CTCModel``, ``ParaformerV2`` and ``EParaformer`` ids equal on 3 utterances,
+    ``MonotonicAligner`` timestamps equal on 3 (audio, text) pairs; each model's kernel
+    sites launched per call (``kernel_sites``)."""
+    from funasr_tpu_torch import tables
+
+    rng = np.random.default_rng(13)
+    waves = [pcm(rng, s) for s in (3.0, 4.5, 2.2)]
+    frontend = tables.frontend_classes["WavFrontend"](**FRONTEND_CONF)
+    tokens = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(37)] + ["<unk>"]
+    tokenizer = tables.tokenizer_classes["CharTokenizer"](token_list=tokens)
+    out = {}
+    for name, conf in FAMILY.items():
+        cpu_model = tables.model_classes[name](
+            **conf, generator=torch.Generator().manual_seed(0)).eval()
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        data = ([(w, "".join(tokens[3 + (i * 7 + j) % 37] for j in range(3 + 2 * i)))
+                 for i, w in enumerate(waves)] if name == "MonotonicAligner" else waves)
+        results = {"cpu": cpu_model.inference(data, tokenizer=tokenizer, frontend=frontend)[0]}
+        for c in counters:
+            c.launches = 0
+        results["gpu"] = gpu_model.inference(data, tokenizer=tokenizer, frontend=frontend)[0]
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        field = "timestamp" if name == "MonotonicAligner" else "text"
+        same = [r[field] for r in results["gpu"]] == [r[field] for r in results["cpu"]]
+        sites = kernel_sites(gpu_model)
+        log(f"CTC family {name} (small, fp32): CUDA {field}s equal to the CPU port's: {same}; "
+            f"launches {launches} (sites per call {sites}); {[r[field] for r in results['gpu']][:1]}")
+        if not same or any(launches[k] != n for k, n in sites.items()):
+            raise AssertionError(f"CTC family {name}: CUDA disagrees with the CPU port or "
+                                 f"bypassed a kernel site: {launches} vs {sites}")
+        out[name] = dict(launches=launches, sites=sites)
+    return out
+
+
+def phase_sensevoice(dev, counters, card):
+    """Phase 12: SenseVoiceSmall at its published widths through ``AutoModel`` (32 x 15 s
+    at fp32, bf16 and W8A8: ``sense_voice_batch``), the CUDA port against the CPU port
+    (small config and full width), the demo's VAD call (``sense_voice_demo``) and the CTC
+    family at a small config (``family_cuda_vs_cpu``). Returns its figures."""
+    import tempfile
+    from funasr_tpu_torch import AutoModel, tables
+    from funasr_tpu_torch.utils.bucket import pad_feats_bucketed
+
+    rng = np.random.default_rng(10)
+    batch = [pcm(rng, 15.0) for _ in range(SV_BATCH)]
+    blocks = SV_CONF["encoder_conf"]["num_blocks"] + SV_CONF["encoder_conf"]["tp_blocks"]
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        dirs = {name: os.path.join(root, name) for name in ("sv", "vad")}
+        for d in dirs.values():
+            os.makedirs(d)
+        t0 = time.perf_counter()
+        write_sense_voice_dir(dirs["sv"], dev)
+        write_vad_dir(dirs["vad"])
+        log(f"SenseVoice: model dirs written in {time.perf_counter() - t0:.1f} s")
+        for label, extra in SV_SETTINGS:
+            am = AutoModel(model=dirs["sv"], device="cuda", batch_size=32, log_level="WARNING",
+                           **extra)
+            sites = {"flash_attention": blocks, "fsmn_memory": blocks,
+                     "w8a8_linear": 4 * blocks + 1 if "quant" in extra else 0}
+            out[label] = sense_voice_batch(am, batch, counters, card, label, sites)
+            if label == "fp32":
+                out["cuda_vs_cpu"] = sense_voice_cuda_vs_cpu(am.model, batch[:2],
+                                                             "full width", gate_all=False)
+                feats, flens = am.kwargs["frontend"].extract(batch, device=dev)
+                with torch.inference_mode():
+                    sp, ln, _ = pad_feats_bucketed(feats, flens)
+                    lid = torch.zeros(sp.shape[0], dtype=torch.long, device=dev)
+                    ids, lens, logp = am.model.infer(sp, ln, lid, lid + 15)
+                log(f"SenseVoice fp32: encoded T = {ids.shape[1]} (bucket {sp.shape[1]} + 4 "
+                    f"prompt rows), log-probs {tuple(logp.shape)} finite "
+                    f"{bool(torch.isfinite(logp).all())}")
+                if ids.shape[1] != SV_T or not torch.isfinite(logp).all():
+                    raise AssertionError(f"SenseVoice: T {ids.shape[1]} (expected {SV_T}) or "
+                                         f"non-finite log-probs")
+                del logp
+            del am
+            torch.cuda.empty_cache()
+        g = torch.Generator().manual_seed(0)
+        small = tables.model_classes["SenseVoiceSmall"](**SV_SMALL_CONF, generator=g).eval()
+        out["cuda_vs_cpu_small"] = sense_voice_cuda_vs_cpu(small.to(dev), batch[:4],
+                                                           "2 + 1 blocks, d 64", gate_all=True)
+        out["demo"], out["demo_kernels"] = sense_voice_demo(dirs["sv"], dirs["vad"],
+                                                            counters, card)
+    out["family"] = family_cuda_vs_cpu(dev, counters)
     return out
 
 
@@ -2445,6 +3083,18 @@ STREAMING_ENTRIES = {
 }
 
 
+# the kernel rows at SenseVoice's shapes: kernel -> [(label, record key)]
+SENSEVOICE_ENTRIES = {
+    "flash_attention": [(dt, ("flash_attention", "sensevoice", dtype))
+                        for dt, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))],
+    "fsmn_memory": [(dt, ("fsmn_memory", "sensevoice", dtype))
+                    for dt, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))],
+    "w8a8_linear": [(f"block_{k}x{n}_bf16", ("w8a8_linear", "sensevoice", (k, n)))
+                    for k, n in SV_W8A8_BLOCKS]
+                   + [("ctc_head_bf16", ("w8a8_linear", "sensevoice", torch.bfloat16))],
+}
+
+
 # the kernel rows at the pipeline's shapes: kernel -> [(label, record key, the phase 8
 # stage whose launches they are, None where the default fp32 pipeline does not run it)]
 PIPELINE_ENTRIES = {
@@ -2456,7 +3106,7 @@ PIPELINE_ENTRIES = {
 
 
 def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None,
-                 hotword=None, streaming=None):
+                 hotword=None, streaming=None, sensevoice=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
@@ -2468,7 +3118,10 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
     rows (the SeACo decoder's memory) with their launches per decode. Phase 11's figures
     (``streaming``) go under ``streaming``: launches of the fp32 and bf16 streams and per
     chunk, the realtime punctuation's, and the kernel rows at the streaming shapes
-    (``STREAMING_ENTRIES``); FSMN splits its chunk launches into (11, 5) and (11, 10)."""
+    (``STREAMING_ENTRIES``); FSMN splits its chunk launches into (11, 5) and (11, 10).
+    Phase 12's (``sensevoice``) go under ``sensevoice``: launches of one SenseVoice decode at
+    each setting, their sum, the profile's device ms per decode, and the kernel's rows at
+    SenseVoice's shapes (``SENSEVOICE_ENTRIES``)."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -2523,6 +3176,17 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
                 entry["streaming"]["profile_per_chunk"] = {
                     dt: {k: v for k, v in r["profile_per_chunk"].items() if "fsmn" in k}
                     for dt, r in runs.items()}
+        if sensevoice:
+            decodes = {label: sensevoice[label]["launches"][name] for label, _ in SV_SETTINGS}
+            entry["sensevoice"] = dict(
+                launches=sum(decodes.values()), launches_per_decode=decodes,
+                profile_ms_per_decode={label: sensevoice[label]["profile"][name]["ms"]
+                                       for label, _ in SV_SETTINGS},
+                demo_asr_launches=sum(r["asr_launches"][name] for r in sensevoice["demo"]),
+                rows={label: record[key] for label, key in SENSEVOICE_ENTRIES[name]})
+            if name in sensevoice["demo_kernels"]["rows"]:
+                entry["sensevoice"]["rows"]["demo_asr_fp32"] = (
+                    sensevoice["demo_kernels"]["rows"][name])
         kernels.append(entry)
     return {"kernels": kernels}
 
@@ -2564,13 +3228,17 @@ def main():
     speaker = phase_speaker(dev, counters, card)
     hotword = phase_hotword(dev, counters, card)
     streaming = phase_streaming(dev, counters, card)
+    sensevoice = phase_sensevoice(dev, counters, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
-                                  speaker, hotword, streaming), default=str))
+                                  speaker, hotword, streaming, sensevoice), default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--stream-profile"]:
+        stream_profile(sys.argv[2], sys.argv[3] == "bf16")
+    else:
+        main()

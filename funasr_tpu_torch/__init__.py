@@ -1,9 +1,11 @@
-"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slices 1-8: offline
+"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slices 1-9: offline
 Paraformer, ``AutoModel`` with bf16 and int8 / W8A8 quantization, the VAD -> ASR ->
 punctuation pipeline with FSMN-VAD and CT-Transformer, speaker-attributed
 transcription: BiCif-Paraformer timestamps, CAM++ and its clustering, hotword
-transcription: SeACo-Paraformer and the Contextual Paraformer through ``hotword=``, and
-streaming: ParaformerStreaming and the realtime punctuation model through ``cache=``).
+transcription: SeACo-Paraformer and the Contextual Paraformer through ``hotword=``,
+streaming: ParaformerStreaming and the realtime punctuation model through ``cache=``,
+and SenseVoice-Small with the CTC family: the CTC model, Paraformer's CTC head,
+Paraformer-v2, E-Paraformer and the fa-zh aligner).
 
 Imports torch, numpy and scipy, never jax, ``funasr_tpu`` or scikit-learn. The public
 entry point:
@@ -16,6 +18,15 @@ entry point:
 
     model = AutoModel(model="<seaco or contextual dir>", device="cuda")
     results = model.generate(input=["a.wav"], hotword="w1 w2 w3")
+
+    model = AutoModel(model="<sensevoice dir>", vad_model="<vad dir>",
+                      vad_kwargs={"max_single_segment_time": 30000}, device="cuda")
+    res = model.generate(input="a.wav", language="auto", use_itn=True, batch_size_s=60,
+                         merge_vad=True, merge_length_s=15)
+    text = rich_transcription_postprocess(res[0]["text"])  # utils/postprocess_utils.py
+
+    model = AutoModel(model="<fa-zh dir>", device="cuda")
+    res = model.generate(input=[("a.wav", "transcript of a")])  # res[0]["timestamp"]
 
     model = AutoModel(model="<paraformer streaming dir>", device="cuda")
     cache = {}
@@ -32,8 +43,8 @@ Importing the package registers its classes in its own ``tables``:
     tokenizer = tables.tokenizer_classes["CharTokenizer"](token_list=tokens)
     results, meta = model.inference(waves, tokenizer=tokenizer, frontend=frontend)
 
-On a CUDA device the encoders' attention, every FSMN memory block (the VAD's included)
-and every W8A8 linear run hand-written kernels (``csrc/``, built with nvcc at first use);
+On a CUDA device the encoders' attention (SenseVoice's 70 blocks included), every FSMN
+memory block (the VAD's included) and every W8A8 linear run hand-written kernels (``csrc/``, built with nvcc at first use);
 on the CPU they run their plain PyTorch versions.
 """
 
@@ -52,13 +63,19 @@ from funasr_tpu_torch.models.campplus import model as campplus_model  # noqa: E4
 from funasr_tpu_torch.models.contextual_paraformer import model as ctx_model  # noqa: E402,F401
 from funasr_tpu_torch.models.ct_transformer import model as ct_model  # noqa: E402,F401
 from funasr_tpu_torch.models.ct_transformer_streaming import model as ct_stream  # noqa: E402,F401
+from funasr_tpu_torch.models.ctc import model as ctc_model  # noqa: E402,F401
+from funasr_tpu_torch.models.e_paraformer import model as e_paraformer  # noqa: E402,F401
 from funasr_tpu_torch.models.fsmn_vad_streaming import model as vad_model  # noqa: E402,F401
+from funasr_tpu_torch.models.monotonic_aligner import model as aligner  # noqa: E402,F401
 from funasr_tpu_torch.models.paraformer import cif_predictor, decoder, model  # noqa: E402,F401
 from funasr_tpu_torch.models.paraformer import san_decoder  # noqa: E402,F401
 from funasr_tpu_torch.models.paraformer_streaming import model as stream_model  # noqa: E402,F401
+from funasr_tpu_torch.models.paraformer_v2 import model as paraformer_v2  # noqa: E402,F401
 from funasr_tpu_torch.models.seaco_paraformer import model as seaco_model  # noqa: E402,F401
 from funasr_tpu_torch.models.sanm import encoder  # noqa: E402,F401
+from funasr_tpu_torch.models.sense_voice import model as sense_voice  # noqa: E402,F401
 from funasr_tpu_torch.tokenizer import char_tokenizer  # noqa: E402,F401
+from funasr_tpu_torch.tokenizer import sentencepiece_tokenizer  # noqa: E402,F401
 from funasr_tpu_torch import parity  # noqa: E402,F401  (aliases, after every class)
 from funasr_tpu_torch.auto.auto_model import AutoModel  # noqa: E402
 

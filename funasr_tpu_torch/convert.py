@@ -1,18 +1,25 @@
 """JAX parameters -> the port's ``state_dict``.
 
 The inverse of ``funasr_tpu/convert/torch_to_jax.py``'s ``convert_paraformer`` (the
-BiCif predictor's head included, ``:165-188``), ``convert_fsmn_vad``,
-``convert_ct_transformer`` and ``convert_campplus`` (``:244-288``): it takes the JAX
+BiCif predictor's head, the PIF predictor and the CTC head included, ``:154-192``),
+``convert_fsmn_vad``, ``convert_ct_transformer``, ``convert_campplus`` (``:244-288``),
+``convert_sense_voice``, ``convert_paraformer_v2`` and ``convert_monotonic_aligner``
+(``:339-401, 564``): it takes the JAX
 package's parameter tree (as numpy arrays) and gives the tensors that the port model's
 ``load_state_dict`` takes, under FunASR's state-dict names. Layouts:
 
-* scanned layer stacks (``encoders``, ``decoders``, ``decoders2``) -> ``name.{i}``;
+* scanned layer stacks (``encoders``, ``decoders``, ``decoders2``, SenseVoice's
+  ``tp_encoders``) -> ``name.{i}``;
   single-module lists (``encoders0``, ``decoders3``) and ``embed`` -> ``name.0``;
 * Linear ``w`` (in, out) -> ``weight`` (out, in); LayerNorm ``scale`` -> ``weight``;
 * depthwise conv ``w`` (k, C) -> ``weight`` (C, 1, k);
 * full conv1d ``w`` (k, C_in, C_out) -> ``weight`` (C_out, C_in, k);
 * Embedding ``w`` -> ``weight`` unchanged (CTTransformer's ``embed`` is one module,
   ``embed.weight``);
+* a bare tensor beside layers (the PIF predictor's ``sigma`` and ``bias``) keeps its
+  name; SenseVoice's query ``embed`` ``w`` -> ``embed.weight``; Paraformer-v2's
+  model-level ``embed`` linear -> ``decoder.embed.0`` (the JAX decoder's own token table
+  is dropped);
 * the VAD's FSMN: ``fsmn`` is a list of blocks; ``linear`` / ``affine`` / ``in_linear*`` /
   ``out_linear*`` sit under FunASR's ``.linear``; the memory convs ``conv_left`` /
   ``conv_right`` ``w`` (k, C) -> ``fsmn_block.conv_*.weight`` (C, 1, k, 1);
@@ -43,7 +50,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-_STACKED = ("encoders", "decoders", "decoders2")
+_STACKED = ("encoders", "decoders", "decoders2", "tp_encoders")
 _SINGLE = ("encoders0", "decoders3", "embed")
 
 
@@ -76,7 +83,9 @@ def _walk(tree, prefix: str, target, out):
         out.update(_leaf(tree, prefix, target))
         return
     for name, sub in tree.items():
-        if name in _STACKED:
+        if not isinstance(sub, dict):  # a bare tensor beside layers (PIF's sigma, bias)
+            out[f"{prefix}{name}"] = sub
+        elif name in _STACKED:
             n = len(next(iter(_flatten(sub))))
             for i in range(n):
                 _walk(_index(sub, i), f"{prefix}{name}.{i}.", target, out)
@@ -171,6 +180,23 @@ def _contextual(tree, target, out):
     out["bias_embed.weight"] = tree["bias_embed"]["w"]
 
 
+def _sense_voice(tree, target, out):
+    """The stacks walk by name (``tp_encoders`` too); the query table is one
+    ``nn.Embedding``, ``embed.weight``."""
+    _walk({k: v for k, v in tree.items() if k != "embed"}, "", target, out)
+    out["embed.weight"] = tree["embed"]["w"]
+
+
+def _paraformer_v2(tree, target, out):
+    """The model-level ``embed`` linear is FunASR's ``decoder.embed.0``; the JAX
+    decoder's own token table (training's glancing sampler) has no counterpart."""
+    dec = {k: v for k, v in tree["decoder"].items() if k != "embed"}
+    rest = {k: v for k, v in tree.items() if k not in ("decoder", "embed")}
+    _walk({**rest, "decoder": dec}, "", target, out)
+    out["decoder.embed.0.weight"] = np.asarray(tree["embed"]["w"]).T
+    out["decoder.embed.0.bias"] = tree["embed"]["b"]
+
+
 def _campplus(tree, target, out):
     def bn(prefix, p):
         out[prefix + "running_mean"] = p["mean"]
@@ -224,14 +250,16 @@ def _campplus(tree, target, out):
 _BY_MODEL = {"FsmnVADStreaming": _fsmn_vad, "CTTransformer": _ct_transformer,
              "CTTransformerStreaming": _ct_transformer,
              "BiCifParaformer": _bicif, "CAMPPlus": _campplus, "SeacoParaformer": _seaco,
-             "ContextualParaformer": _contextual}
+             "ContextualParaformer": _contextual, "SenseVoiceSmall": _sense_voice,
+             "ParaformerV2": _paraformer_v2, "MonotonicAligner": _bicif}
 
 
 def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """JAX params (nested dict of arrays) of a Paraformer, BiCifParaformer,
-    ParaformerStreaming (Paraformer's layout), SeacoParaformer, ContextualParaformer,
-    FsmnVADStreaming, CTTransformer, CTTransformerStreaming or CAMPPlus -> ``model``'s
-    state dict.
+    """JAX params (nested dict of arrays) of a Paraformer (a CTC head included),
+    BiCifParaformer, ParaformerStreaming (Paraformer's layout), SeacoParaformer,
+    ContextualParaformer, FsmnVADStreaming, CTTransformer, CTTransformerStreaming,
+    CAMPPlus, SenseVoiceSmall, CTCModel, ParaformerV2, EParaformer or MonotonicAligner
+    -> ``model``'s state dict.
 
     Int8 and int64 tensors keep their type, every other leaf becomes fp32. Raises if the names or
     shapes do not match ``model.state_dict()`` exactly.

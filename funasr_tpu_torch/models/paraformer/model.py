@@ -10,8 +10,10 @@ of the JAX package; ``pred_timestamp=True`` adds CIF timestamps, whose alphas an
 ride in the fetch's one device-to-host copy. Subclasses change the decode's outputs
 (``decode_outputs``), its per-call inputs beyond the audio (``decode_context``: the
 hotword models' biasing lists, made once per call) and each row's result
-(``transcript``), so the pair serves them too. Training, CTC and specaug are later
-slices.
+(``transcript``), so the pair serves them too. A config with ``ctc_weight > 0`` builds
+the CTC head (``self.ctc``), so its checkpoints load; the decode does not use it.
+Paraformer-v2 and E-Paraformer (``models/{paraformer_v2,e_paraformer}``) keep the pair
+through ``infer_core`` and ``decode_outputs``. Training and specaug are later slices.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from torch import nn
 
 from funasr_tpu_torch.core.layers import make_pad_mask
 from funasr_tpu_torch.core.module import init_weights
+from funasr_tpu_torch.models.ctc.ctc import CTC
 from funasr_tpu_torch.register import tables
 from funasr_tpu_torch.utils import postprocess_utils
 from funasr_tpu_torch.utils.bucket import pad_feats_bucketed
@@ -42,8 +45,9 @@ class Paraformer(nn.Module):
         encoder_conf: Optional[Dict] = None,
         decoder: str = "ParaformerSANMDecoder",
         decoder_conf: Optional[Dict] = None,
-        predictor: str = "CifPredictorV2",
+        predictor: Optional[str] = "CifPredictorV2",
         predictor_conf: Optional[Dict] = None,
+        ctc_conf: Optional[Dict] = None,
         ctc_weight: float = 0.0,
         input_size: int = 80,
         vocab_size: int = -1,
@@ -56,21 +60,24 @@ class Paraformer(nn.Module):
     ):
         """``generator``: when given, every weight is drawn from it (the JAX package's
         init rules, ``core/module.py::init_weights``); otherwise torch's default init.
-        Training-only keys of hub configs (specaug, predictor_bias, lsm_weight, ...) are
-        accepted and ignored; a ``normalize`` layer is not ported yet."""
+        ``ctc_weight > 0`` builds the CTC head ``ctc`` (``model.py:107-110``), which only
+        the training loss reads (slice 7) and Paraformer-v2's decode; ``predictor=None``
+        builds no predictor (Paraformer-v2). Training-only keys of hub configs (specaug,
+        predictor_bias, lsm_weight, ...) are accepted and ignored; a ``normalize`` layer
+        is not ported yet."""
         super().__init__()
         if normalize is not None:
             raise NotImplementedError(f"normalize={normalize} is not ported")
-        if ctc_weight > 0.0:
-            raise NotImplementedError("the CTC branch is not ported")
         self.encoder = tables.encoder_classes[encoder](
             input_size=input_size, device=device, **(encoder_conf or {}))
         enc_out = self.encoder.output_size()
         self.decoder = tables.decoder_classes[decoder](
             vocab_size=vocab_size, encoder_output_size=enc_out, device=device,
             **(decoder_conf or {}))
-        self.predictor = tables.predictor_classes[predictor](
-            device=device, **(predictor_conf or {}))
+        self.predictor = (None if predictor is None else tables.predictor_classes[predictor](
+            device=device, **(predictor_conf or {})))
+        self.ctc = (CTC(odim=vocab_size, encoder_output_size=enc_out, device=device,
+                        **(ctc_conf or {})) if ctc_weight > 0.0 else None)
         self.blank_id = blank_id
         self.sos = sos if sos is not None else vocab_size - 1
         self.eos = eos if eos is not None else vocab_size - 1

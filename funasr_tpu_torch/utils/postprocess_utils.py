@@ -6,8 +6,9 @@ mixed-script handling; ``abbr_dispose:71`` — single-letter runs "i b m" -> "IB
 Fresh implementation structured around an explicit word/timestamp zip.
 
 Framework-free copy of ``funasr_tpu/utils/postprocess_utils.py`` (the
-``sentence_postprocess`` text join and its helpers), held to the original by
-``tests/test_torch_frontend.py``.
+``sentence_postprocess`` text join and its helpers, held to the original by
+``tests/test_torch_frontend.py``; SenseVoice's ``rich_transcription_postprocess`` with its
+tag tables, held by ``tests/test_torch_ctc_family.py``).
 """
 
 from __future__ import annotations
@@ -160,3 +161,38 @@ def sentence_postprocess(words: List[Any], time_stamp: Optional[List[List[int]]]
     real_words = [w for w in word_lists if w != " "]
     sentence = "".join(word_lists).strip()
     return sentence, real_words
+
+
+# ---------------------------------------------------------------------------
+# SenseVoice rich-transcription tags
+# ---------------------------------------------------------------------------
+
+EMO_DICT = {
+    "<|HAPPY|>": "😊", "<|SAD|>": "😔", "<|ANGRY|>": "😡", "<|NEUTRAL|>": "",
+    "<|FEARFUL|>": "😰", "<|DISGUSTED|>": "🤢", "<|SURPRISED|>": "😮",
+}
+EVENT_DICT = {
+    "<|BGM|>": "🎼", "<|Speech|>": "", "<|Applause|>": "👏", "<|Laughter|>": "😀",
+    "<|Cry|>": "😭", "<|Sneeze|>": "🤧", "<|Breath|>": "", "<|Cough|>": "🤧",
+}
+_OTHER_TAGS = {
+    "<|zh|>", "<|en|>", "<|yue|>", "<|ja|>", "<|ko|>", "<|nospeech|>",
+    "<|quhe|>", "<|unknown|>", "<|interjection|>",
+    "<|withitn|>", "<|woitn|>", "<|wo_itn|>", "<|Event_UNK|>", "<|SPECIAL_TOKEN_1|>",
+}
+
+
+def rich_transcription_postprocess(s: str) -> str:
+    """Strip/replace SenseVoice ``<|tag|>`` markup with emoji, merging per-segment
+    (behavior of reference ``rich_transcription_postprocess:436``)."""
+
+    def replace_tags(text: str) -> str:
+        for tag, emoji in {**EMO_DICT, **EVENT_DICT}.items():
+            text = text.replace(tag, emoji)
+        for tag in _OTHER_TAGS:
+            text = text.replace(tag, "")
+        return text
+
+    segments = [seg for seg in s.split("<|withitn|>")]
+    out = "".join(replace_tags(seg) for seg in segments)
+    return out.strip()

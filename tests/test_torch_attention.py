@@ -257,7 +257,8 @@ def cuda_device():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape", [(4, 4, 384, 128), (2, 3, 77, 40), (32, 4, 384, 128),
                                    (1, 4, 1408, 128), (3, 4, 200, 64),
-                                   (1, 8, 40, 32), (2, 8, 224, 32)])  # ct-punc: 8 x 32
+                                   (1, 8, 40, 32), (2, 8, 224, 32),  # ct-punc: 8 x 32
+                                   (32, 4, 388, 128)])  # SenseVoice: 384 + 4 prompt rows
 def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, tol, shape):
     """Strided q|k|v head views, ragged lengths, a zero-length row (uniform average of V
     over all T keys, every row compared), T not a multiple of the tile (77), D = 32 (the
@@ -348,6 +349,7 @@ FSMN_CARD_CASES = {
     # the VAD's causal memory over cache + one 60 s chunk, and the punctuation encoder's
     "VAD causal k = 20": (1, 6019, 128, 20, 19, None),
     "punc": (1, 64, 256, 11, 5, "prefix"),
+    "SenseVoice": (32, 388, 512, 11, 5, "prefix"),  # a 15 s batch + the 4 prompt rows
 }
 
 
@@ -363,7 +365,8 @@ def test_fsmn_kernel_matches_plain_on_card(cuda_device, dtype, tol, case):
     w = (torch.rand(c, 1, k, generator=g) - 0.5).to(cuda_device, dtype)
     mask = None
     if mask_kind == "prefix":
-        lens = torch.tensor([n, n - 17, 100, 1][:b], device=cuda_device).clamp(0, n)
+        lens = torch.tensor([[n, n - 17, 100, 1][i % 4] for i in range(b)],
+                            device=cuda_device).clamp(0, n)
         mask = torch.arange(n, device=cuda_device)[None] < lens[:, None]
     elif mask_kind == "random":
         mask = (torch.rand(b, n, generator=g) < 0.7).to(cuda_device)

@@ -10,8 +10,8 @@
 * the fp32 flash kernel's 3xTF32 split, emulated in fp32 with its key tiles and online
   softmax: within the card's tolerance of the plain version, where one TF32 product is
   not;
-* the kernels' JSON line of ``chip_smoke.py``, fp32, pipeline, hotword and streaming
-  entries included;
+* the kernels' JSON line of ``chip_smoke.py``, fp32, pipeline, hotword, streaming and
+  SenseVoice entries included;
 * the flash kernel's per-row key limits (``key_limits``): each mode's limits are the JAX
   masks (causal, the "VAD corner") beside the pad mask as row prefixes, and never fall
   with the row, which the kernel's skip of key tiles past a row block's last row needs;
@@ -193,6 +193,38 @@ def test_kernels_line_carries_streaming_entries():
     assert fsmn["profile_per_chunk"]["fp32"] == {"fsmn_11_5": 50.0, "fsmn_11_10": 16.0}
     assert set(fsmn["rows"]) == {"step25_fp32", "step25_bf16", "step26_fp32", "step26_bf16"}
     assert "streaming" not in kernels["w8a8_linear"]
+
+
+def test_kernels_line_carries_sensevoice_entries():
+    """Every kernel carries phase 12's launches per SenseVoice decode at each setting and
+    its rows at SenseVoice's shapes under ``sensevoice``: W8A8 the five block products and
+    the CTC head, flash and FSMN their rows at the demo's largest ASR batch too."""
+    row = dict(shape=(1, 2), max_abs_err=0.0, ms=1.0, call_ms=2.0, plain_ms=3.0,
+               library_ms=4.0, bound_ms=0.5, bound_by="bytes")
+    record = {(name, torch.bfloat16): row for name in chip_smoke.LIBRARY_CALLS}
+    for entries in chip_smoke.SENSEVOICE_ENTRIES.values():
+        for _, key in entries:
+            record[key] = dict(row, ms=7.0)
+    launches = {"flash_attention": 70, "fsmn_memory": 70, "w8a8_linear": 0}
+    run = dict(launches=launches, profile={name: dict(ms=1.5, launches=n)
+                                           for name, n in launches.items()})
+    sensevoice = dict(fp32=run, bf16=run, w8a8=dict(run, launches=dict(launches,
+                                                                       w8a8_linear=281)),
+                      demo=[dict(asr_launches=dict(launches, flash_attention=350))],
+                      demo_kernels=dict(rows={"flash_attention": dict(row, ms=9.0),
+                                              "fsmn_memory": dict(row, ms=9.0)}))
+    line = chip_smoke.kernels_line(record, {"flash_attention": 100, "fsmn_memory": 132},
+                                   {"w8a8_linear": 282}, launches, sensevoice=sensevoice)
+    kernels = {k["name"]: k["sensevoice"] for k in line["kernels"]}
+    assert kernels["w8a8_linear"]["launches_per_decode"] == {"fp32": 0, "bf16": 0, "w8a8": 281}
+    assert set(kernels["w8a8_linear"]["rows"]) == {
+        "block_560x1536_bf16", "block_512x1536_bf16", "block_512x512_bf16",
+        "block_512x2048_bf16", "block_2048x512_bf16", "ctc_head_bf16"}
+    assert "demo_asr_fp32" not in kernels["w8a8_linear"]["rows"]
+    for name in ("flash_attention", "fsmn_memory"):
+        assert set(kernels[name]["rows"]) == {"fp32", "bf16", "demo_asr_fp32"}
+        assert kernels[name]["rows"]["demo_asr_fp32"]["ms"] == 9.0
+    assert kernels["flash_attention"]["demo_asr_launches"] == 350
 
 
 def test_flash_work_with_a_key_cache_and_row_limits():

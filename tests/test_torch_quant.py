@@ -207,14 +207,16 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("mkn", chip_smoke.W8A8_SHAPES + [(7, 560, 24), (33, 40, 24),
                                                          (65, 100, 37), (300, 512, 1024),
-                                                         (33, 40, 24, 0), (9, 9000, 40, 0)])
+                                                         (33, 40, 24, 0), (9, 9000, 40, 0),
+                                                         (12416, 512, 25055)])
 def test_w8a8_kernel_matches_plain_bit_exact(cuda_device, dtype, mkn):
     """Every (M, K, N) of the W8A8 path, plus ragged M / N and K = 40, 100 (weights
     padded to K % 16 == 0 by the wrapper) and N = 37 (output row pitch padded); x with
     row stride 2K, starting `off` elements into its row. K % 16 != 0 starts off a
     16-byte boundary (the quantizer's scalar loads) unless `off` = 0 is given: then the
     vector loads meet the ragged K tail, and at K = 9000 the row is longer than the
-    8,192 values the quantizer keeps in registers, so it is read again."""
+    8,192 values the quantizer keeps in registers, so it is read again. (12416, 512,
+    25055) is SenseVoice's CTC head at B = 32 x 15 s (odd N: the pitch pads to 25056)."""
     m, k, n, *given = mkn
     g = torch.Generator().manual_seed(0)
     off = given[0] if given else 1 if k % 16 else 0

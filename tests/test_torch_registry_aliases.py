@@ -139,3 +139,23 @@ def test_jax_export_predictor_alias_cannot_hold_a_v2_checkpoint():
     held = shapes["predictor"]["cif_conv1d"]["w"].shape
     loaded = convert_paraformer(v2.state_dict(), jm)["predictor"]["cif_conv1d"]["w"].shape
     assert held == (3, 64) and loaded == (3, 64, 64)
+
+
+# the names of the SenseVoice / CTC-family slice, as hub configs spell them
+SLICE_NAMES = [("model_classes", "SenseVoiceSmall"), ("encoder_classes", "SenseVoiceEncoderSmall"),
+               ("model_classes", "CTC"), ("ctc_classes", "CTC"),
+               ("model_classes", "ParaformerV2"), ("model_classes", "Paraformer_v2_community"),
+               ("model_classes", "EParaformer"), ("predictor_classes", "PifPredictor"),
+               ("model_classes", "MonotonicAligner"),
+               ("tokenizer_classes", "SentencepiecesTokenizer")]
+
+
+@pytest.mark.parametrize("table,name", SLICE_NAMES, ids=[f"{t}:{n}" for t, n in SLICE_NAMES])
+def test_slice_names_resolve_as_in_the_jax_package(table, name):
+    """Each name resolves in both packages to a class of the same name, and two names of
+    one JAX class (Paraformer-v2's) to one port class."""
+    port_cls, jax_cls = getattr(tables, table)[name], getattr(jtables, table)[name]
+    assert port_cls.__name__ == jax_cls.__name__
+    assert port_cls.__module__.replace("funasr_tpu_torch.", "funasr_tpu.") == jax_cls.__module__
+    same = [n for t, n in SLICE_NAMES if t == table and getattr(jtables, t)[n] is jax_cls]
+    assert all(getattr(tables, table)[n] is port_cls for n in same)

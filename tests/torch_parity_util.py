@@ -436,3 +436,53 @@ def shape_only_init(names=("Paraformer", "BiCifParaformer", "FsmnVADStreaming",
     finally:
         for name, original in originals.items():
             jtables.model_classes[name].init_params = original
+
+
+# ---------------------------------------------------------------------------
+# SenseVoice-Small: a small SenseVoiceSmall (3 + 2 tp blocks, d = 64) over the published
+# vocabulary size, with the rich tags at their published ids, written the same way
+# ---------------------------------------------------------------------------
+
+SV_VOCAB = 25055
+# the published tag ids (SenseVoiceSmall.LID_INT_DICT / TEXTNORM_INT_DICT); the emotion
+# and event tags of the copied tag tables placed beside EMO_UNK (25009)
+SV_TAGS = {24884: "<|zh|>", 24885: "<|en|>", 24888: "<|yue|>", 24892: "<|ja|>",
+           24896: "<|ko|>", 24992: "<|nospeech|>", 25016: "<|withitn|>", 25017: "<|woitn|>",
+           24993: "<|Speech|>", 24994: "<|BGM|>", 24995: "<|Applause|>",
+           24996: "<|Laughter|>", 24997: "<|Cry|>", 24998: "<|Sneeze|>", 24999: "<|Breath|>",
+           25000: "<|Cough|>", 25001: "<|HAPPY|>", 25002: "<|SAD|>", 25003: "<|ANGRY|>",
+           25004: "<|NEUTRAL|>", 25005: "<|FEARFUL|>", 25006: "<|DISGUSTED|>",
+           25007: "<|SURPRISED|>", 25008: "<|Event_UNK|>"}
+SV_CONF = dict(
+    input_size=560, vocab_size=SV_VOCAB, blank_id=0,
+    encoder="SenseVoiceEncoderSmall",
+    encoder_conf=dict(output_size=64, attention_heads=4, linear_units=96, num_blocks=3,
+                      tp_blocks=2, kernel_size=11, sanm_shfit=0))
+
+
+def sense_voice_tokens(n=SV_VOCAB):
+    """n distinct tokens: <blank>, <s>, </s>, <unk>, the tags at their ids, characters
+    from U+4E00 on elsewhere."""
+    tokens = [chr(0x4E00 + i) for i in range(n)]
+    tokens[:4] = ["<blank>", "<s>", "</s>", "<unk>"]
+    for i, tag in SV_TAGS.items():
+        if i < n:
+            tokens[i] = tag
+    return tokens
+
+
+def write_sense_voice_dir(d, seed=0, model=None, conf=SV_CONF):
+    from funasr_tpu_torch.models.sense_voice.model import SenseVoiceSmall
+    if model is None:
+        model = SenseVoiceSmall(**conf, generator=torch.Generator().manual_seed(seed))
+    torch.save(model.state_dict(), os.path.join(d, "model.pt"))
+    _write_tokens(d, sense_voice_tokens(conf["vocab_size"]))
+    write_identity_cmvn(os.path.join(d, "am.mvn"), conf["input_size"])
+    return _write_config(d, dict(
+        model="SenseVoiceSmall", model_conf=dict(blank_id=0, sos=1, eos=2),
+        encoder=conf["encoder"], encoder_conf=conf["encoder_conf"],
+        frontend="WavFrontend",
+        frontend_conf=dict(fs=16000, window="hamming", n_mels=80, frame_length=25,
+                           frame_shift=10, lfr_m=7, lfr_n=6, cmvn_file="am.mvn", dither=0.0),
+        tokenizer="CharTokenizer",
+        tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>")))
