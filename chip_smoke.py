@@ -6,7 +6,9 @@ and drives the offline Paraformer decode, ``AutoModel(quant="w8a8")``, the defau
 ``AutoModel(model=bicif, vad_model=, punc_model=, spk_model=)``, hotword transcription
 ``AutoModel(model=seaco | contextual).generate(hotword=...)``, streaming
 ``AutoModel(model=paraformer_streaming).generate(input=chunk, cache=cache, ...)`` and
-SenseVoice-Small ``AutoModel(model=sensevoice[, vad_model=])`` with the CTC family.
+SenseVoice-Small ``AutoModel(model=sensevoice[, vad_model=])`` with the CTC family, and
+the three servers over real localhost sockets: the OpenAI-compatible HTTP app with its
+cross-request batcher, the 2-pass WebSocket server and the realtime WebSocket server.
 
     python3 chip_smoke.py
 
@@ -54,7 +56,7 @@ Phases (any failure raises and exits non-zero):
    seeded modules (the PROD_CONF Paraformer; fsmn-vad at its published widths crafted
    into an energy detector with small seeded memory taps; ct-punc-c at its published
    widths, vocab 272727) through ``AutoModel(model=asr, vad_model=vad, punc_model=punc,
-   device="cuda")`` (fp32, the public default), 4 requests of 300 s of synthetic speech
+   device="cuda")`` (fp32, the public default), 2 requests of 300 s of synthetic speech
    bursts (3-14 s) and near silence (1-3 s), one ``generate`` each. Gates per request:
    one row with its key and a text ending in sentence-final punctuation, >= 10 VAD
    segments equal to the port's VAD on the CPU to the ms, the first 3 punctuation
@@ -65,7 +67,7 @@ Phases (any failure raises and exits non-zero):
 9. speaker (``phase_speaker``): a BiCifParaformer at PROD_CONF width with the published
    CifPredictorV3 head, phase 8's VAD and punctuation, CAM++ at speech_campplus_sv's
    widths, through ``AutoModel(model=, vad_model=, punc_model=, spk_model=,
-   device="cuda")`` on 2 meetings of 300 s of two synthetic voices, one
+   device="cuda")`` on 1 meeting of 300 s of two synthetic voices, one
    ``generate(**SPEAKER_CALL)`` each. Gates: integer speakers on every sentence and
    timestamps rising inside [0, 300000] ms; each stage's launches at their sites; the
    timestamp head and CAM++ embeddings against the CPU port; request 0 whole through
@@ -124,6 +126,28 @@ Phases (any failure raises and exits non-zero):
    shape against their plain versions, and the longest batch against the CPU port. The CTC family at a small config
    (``family_cuda_vs_cpu``): CTCModel, ParaformerV2, EParaformer ids and MonotonicAligner
    timestamps equal to the CPU port's, every kernel site launched.
+13. serving (``phase_serving``): kernel rows at the serving shapes
+   (``serving_kernel_rows``: flash (8, 4, 384, 128) and FSMN (8, 384, 512), the HTTP
+   batches; (1, 4, T, 128) and (1, T, 512) at T = 128, 256, 384, 1,024 and 5,120, the
+   partial windows, the finals and a 300 s forced final; fp32), then, over the model dirs
+   phases 8, 9 and 11 kept (``keep_dirs``), fp32 on the card, in this process, each
+   server's kernel counts set to 0 just before its traffic and read just after it, at
+   least the kernel sites of each model call it made (``served``):
+   ``TranscriptionApp(AutoModel(model=asr))`` (max_batch 8, batch_wait_ms 15) under 16
+   clients at once with 10-15 s each: every response 200 with a text equal to its row of
+   a direct ``generate`` over its batcher group, fewer ``generate`` calls than requests
+   and a batch of >= 2, launches at the kernel sites, the smallest group against the CPU
+   port (log-probs, ids where the margin clears the error); the server CLI's deployment
+   ``AutoModel(model=, vad_model=, punc_model=)`` under 4 clients of 60 s, one
+   ``verbose_json`` with its segments; ``WSServer`` 2-pass (Paraformer + punctuation,
+   ParaformerStreaming, realtime punctuation, the VAD), 2 sessions of 30 s at once, then
+   one after the other: equal messages, every model call replayed directly equal;
+   ``RealtimeWSServer`` (VAD endpoints, CAM++ speakers) with a server-mode session of 20 s
+   at real time and a client-mode session committing 10 s and 60 s: finals in order with
+   speakers, partials never after their final, COMMIT finals equal to direct decodes. Prints
+   requests/s, latency p50 / p95, the batches, one profiled ``generate`` of a group, the
+   2-pass online message's server time per chunk and ``is_speaking: false`` -> final, the
+   realtime partial latency.
 
 Kernel times (phases 3-4): ``ms`` is device time per launch over 20 back-to-back
 launches between one pair of CUDA events, queued behind a spin kernel so that host
@@ -142,10 +166,11 @@ The second-to-last line is the kernels' JSON record (``kernels_line``: each kern
 its main path shape, with ``launches`` of the main path's run and
 ``launches_per_decode``; flash and FSMN add their fp32 figures under ``fp32``, launches
 from the fp32 ``AutoModel`` decode, and their rows at the pipeline's shapes under
-``pipeline``, launches from phase 8's four requests; every kernel's launches on phase 9's
+``pipeline``, launches from phase 8's two requests; every kernel's launches on phase 9's
 meetings under ``speaker``, on phase 10's decodes under ``hotword``, where FSMN adds its
-k = 21 rows, phase 11's under ``streaming``, with the rows at the streaming shapes, and
-phase 12's under ``sensevoice``, with the rows at SenseVoice's shapes), the last line
+k = 21 rows, phase 11's under ``streaming``, with the rows at the streaming shapes,
+phase 12's under ``sensevoice``, with the rows at SenseVoice's shapes, and phase 13's under
+``serving``, by server, with the rows at the serving shapes), the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -158,6 +183,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -300,11 +326,13 @@ def profile_once(fn, label, wall):
     """One call of `fn` under torch.profiler: device kernel time in all and by kernel,
     and the device's idle share against `wall`, the unprofiled median wall ms. Returns
     {kernel name: (ms, launches)}."""
+    t0 = time.perf_counter()
     by_name = profile_kernels(fn)
     kernels = sorted(((t, n, name) for name, (t, n) in by_name.items()), reverse=True)
     device = sum(t for t, _, _ in kernels)
     log(f"profile {label}: device kernel time {device:.2f} ms, unprofiled wall {wall:.2f} ms, "
-        f"idle share {1 - device / wall:.1%}; by kernel (ms, launches):")
+        f"idle share {1 - device / wall:.1%} (profiled and summed in "
+        f"{time.perf_counter() - t0:.1f} s); by kernel (ms, launches):")
     for t, n, name in kernels[:14]:
         log(f"  {t:8.3f} {n:5d}  {name[:110]}")
     for group, keys in PORT_KERNELS.items():  # the port's kernels, all instantiations
@@ -958,7 +986,7 @@ PUNC_ENC = dict(input_size=256, output_size=256, attention_heads=8, linear_units
 PUNC_MODEL_CONF = dict(punc_list=["<unk>", "_", "，", "。", "？", "、"], embed_unit=256,
                        att_unit=256, sentence_end_id=3)
 PUNC_VOCAB = 272727
-PIPELINE_REQUESTS = 4
+PIPELINE_REQUESTS = 2  # cut from 4, for the run's time limit beside phase 13
 REQUEST_SECONDS = 300.0
 MIN_SEGMENTS = 10
 PUNC_LOGIT_TOL = 1e-3  # fp32 logits, CUDA against the CPU: cuBLAS and kernel sum order
@@ -1117,7 +1145,7 @@ def forward_counter(module):
     return calls
 
 
-def phase_pipeline(dev, counters, card):
+def phase_pipeline(dev, counters, card, keep=None):
     """AutoModel(model=asr, vad_model=vad, punc_model=punc, device="cuda"), the public
     default (fp32 everywhere), answering PIPELINE_REQUESTS requests of ~300 s, one
     ``generate`` each. Gates per request: one row with its key and text ending in
@@ -1126,7 +1154,7 @@ def phase_pipeline(dev, counters, card):
     of the CPU port's; launches per stage at least the model's kernel sites times its
     calls (``kernel_sites``; FSMN 4 per VAD encoder call, 66 per ASR batch, 4 per
     punctuation window; flash 50 per ASR batch, 4 per window).
-    Returns the launches per request of each stage."""
+    Returns the launches per request of each stage. ``keep``: see ``keep_dirs``."""
     import tempfile
     from funasr_tpu_torch import AutoModel
     from funasr_tpu_torch.frontends import wav_frontend
@@ -1137,6 +1165,7 @@ def phase_pipeline(dev, counters, card):
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         dirs = write_pipeline_dirs(root, dev)
+        keep_dirs(keep, dirs, {"asr": "asr", "vad": "vad", "punc": "punc"})
         log(f"pipeline: model dirs written in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         am = AutoModel(model=dirs["asr"], vad_model=dirs["vad"], punc_model=dirs["punc"],
@@ -1254,7 +1283,8 @@ BICIF_PREDICTOR = dict(PROD_CONF["predictor_conf"], smooth_factor2=0.25, noise_t
 # speech_campplus_sv_zh-cn_16k-common: the CAMPPlus defaults (feat 80, embedding 192,
 # growth 32, bn_size 4, init 128, blocks 12 / 24 / 16)
 SPK_CONF = dict(feat_dim=80, embedding_size=192, growth_rate=32, bn_size=4, init_channels=128)
-SPEAKER_REQUESTS = 2  # two meetings keep the whole run near its length beside phase 10
+SPEAKER_REQUESTS = 1  # cut from 2, for the run's time limit beside phase 13
+SPEAKER_PROFILE_SECONDS = 60  # the profiled request: request 0's first 60 s
 US_ALPHAS_TOL = 1e-4      # fp32 upsampled alphas, CUDA against the CPU (cuDNN LSTM, cuBLAS)
 US_FIRES_MIN_SHARE = 0.99  # fires of running sums within rounding of an integer may move
 SPK_EMB_REL_TOL = 1e-3    # CAM++ embeddings, per chunk, relative L2 (cuDNN conv sum order)
@@ -1380,17 +1410,28 @@ class Span:
 
 
 class Recorder:
-    """Wraps ``obj.attr`` and keeps (args, kwargs) and what it returned of every call."""
+    """Wraps ``obj.attr`` and keeps (args, kwargs), what it returned and its wall ms of
+    every call, appended together when the call returns (under a lock), so that the calls
+    of executor threads stay paired with their results."""
 
     def __init__(self, obj, attr):
-        self.inner, self.calls, self.outputs = getattr(obj, attr), [], []
+        import threading
+        self.inner, self.calls, self.outputs, self.ms = getattr(obj, attr), [], [], []
+        self.lock = threading.Lock()
         setattr(obj, attr, self)
 
     def __call__(self, *args, **kwargs):
-        self.calls.append((args, dict(kwargs)))
+        call, t0 = (args, dict(kwargs)), time.perf_counter()
         out = self.inner(*args, **kwargs)
-        self.outputs.append(out)
+        with self.lock:
+            self.calls.append(call)
+            self.outputs.append(out)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
         return out
+
+    def log(self):
+        """[(kwargs, result, ms)] of every call, in the order they returned."""
+        return [(kw, out, ms) for (_, kw), out, ms in zip(self.calls, self.outputs, self.ms)]
 
 
 def sync_points(fn):
@@ -1435,7 +1476,7 @@ def segment_boundaries(results):
     return [(r["text"], [b for ts in r.get("timestamp", []) for b in ts]) for r in results]
 
 
-def phase_speaker(dev, counters, card):
+def phase_speaker(dev, counters, card, keep=None):
     """AutoModel(model=bicif, vad_model=vad, punc_model=punc, spk_model=cam++,
     device="cuda") at the fp32 default: a BiCif Paraformer-large (PROD_CONF with the
     published CifPredictorV3 head), phase 8's fsmn-vad and ct-punc-c, CAM++ at
@@ -1452,7 +1493,8 @@ def phase_speaker(dev, counters, card):
     BOUNDARY_MAX_MS), the voices separate on the CPU port's embeddings
     (MIN_VOICE_AGREEMENT), and the card's cluster labels equal the CPU port's. Prints
     RTFx and the stage split per request, the speaker stage at ``spk_kwargs`` batch 64,
-    and one profiled request. Returns the launches per request of each stage."""
+    and one profiled request. Returns the launches per request of each stage. ``keep``: see
+    ``keep_dirs``."""
     import tempfile
     from funasr_tpu_torch import AutoModel
     from funasr_tpu_torch.models.campplus import utils as spk_utils
@@ -1464,6 +1506,7 @@ def phase_speaker(dev, counters, card):
         dirs = write_pipeline_dirs(root, dev, asr_writer=write_bicif_dir)
         dirs["spk"] = os.path.join(root, "spk")
         write_spk_dir(dirs["spk"])
+        keep_dirs(keep, dirs, {"spk": "spk"})
         log(f"speaker: model dirs written in {time.perf_counter() - t0:.1f} s")
         kw = dict(model=dirs["asr"], vad_model=dirs["vad"], punc_model=dirs["punc"],
                   spk_model=dirs["spk"], log_level="WARNING")
@@ -1661,8 +1704,13 @@ def phase_speaker(dev, counters, card):
         f"{rows64[0]['sentence_info'] == first['row']['sentence_info']}")
     am.spk_kwargs["batch_size"] = 1
     campplus_alone(am.spk_model, dev, card)
-    profile_once(lambda: am.generate(input=[wav], key=["profiled"], **SPEAKER_CALL),
-                 "speaker request 0 (VAD + BiCif ASR + CAM++ + punctuation)", walls[0])
+    # the profile takes request 0's first SPEAKER_PROFILE_SECONDS (cut from the whole 300 s,
+    # ~380,000 CAM++ launches at B = 1, for the run's time limit)
+    clip = wav[:16000 * SPEAKER_PROFILE_SECONDS]
+    clip_ms, _ = wall_ms(lambda: am.generate(input=[clip], key=["clip"], **SPEAKER_CALL), runs=1)
+    profile_once(lambda: am.generate(input=[clip], key=["profiled"], **SPEAKER_CALL),
+                 f"speaker request 0's first {SPEAKER_PROFILE_SECONDS} s (VAD + BiCif ASR + "
+                 f"CAM++ + punctuation)", clip_ms)
     return per_request
 
 
@@ -1681,7 +1729,7 @@ SEACO_EXTRA = dict(inner_dim=512, NO_BIAS=8377, seaco_decoder="ParaformerSANMDec
 CONTEXTUAL_EXTRA = dict(inner_dim=512)
 HOTWORD_COUNTS = (20, 200)  # N + 1 = 21 < nfilter 50: no filtering; 201: ASF keeps 51
 HOTWORD_LOGP_TOL = 1e-3     # fp32 log-probs, CUDA against the CPU port (sum orders)
-HOTWORD_REQUESTS = 2
+HOTWORD_REQUESTS = 1  # cut from 2, for the run's time limit beside phase 13
 FSMN_K21 = ", 21, 10, 4>"   # the k = 21 instantiation's template arguments, demangled
 
 
@@ -2522,12 +2570,12 @@ def dynamic_vad(vad_dir, wav, card):
     return dict(feeds=len(walls), events=len(events["cuda"]), feed_p50_ms=percentile(walls, 50))
 
 
-def phase_streaming(dev, counters, card):
+def phase_streaming(dev, counters, card, keep=None):
     """Phase 11: ParaformerStreaming at PROD_CONF width through ``AutoModel.generate``
     600 ms a call, fp32 then ``bf16=True`` (``streaming_asr``); the CUDA port against
     the CPU port at full width for the first chunks and at the small config for a whole
     stream (``stream_cuda_vs_cpu``); the realtime punctuation model over the demo's
-    pieces; ``DynamicStreamingVAD``. Returns its figures."""
+    pieces; ``DynamicStreamingVAD``. Returns its figures. ``keep``: see ``keep_dirs``."""
     import tempfile
     from funasr_tpu_torch import AutoModel, tables
 
@@ -2544,6 +2592,7 @@ def phase_streaming(dev, counters, card):
                         decoder_conf=STREAM_DECODER_CONF, frontend="WavFrontendOnline")
         write_punc_realtime_dir(dirs["punc"])
         write_vad_dir(dirs["vad"])
+        keep_dirs(keep, dirs, {"asr": "online", "punc": "punc_online"})
         log(f"streaming: model dirs written in {time.perf_counter() - t0:.1f} s")
         for bf16, label in ((False, "fp32"), (True, "bf16")):
             am = AutoModel(model=dirs["asr"], device="cuda", bf16=bf16, log_level="WARNING")
@@ -3071,6 +3120,730 @@ def phase_sensevoice(dev, counters, card):
     return out
 
 
+# ---- phase 13: serving ------------------------------------------------------------------
+
+# the traffic of each server: the OpenAI HTTP API, the 2-pass and the realtime WebSocket services
+SERVE_HTTP_CLIENTS = 16            # the model alone: 16 clients at once, 10-15 s each
+SERVE_HTTP_SECONDS = (10.0, 15.0)
+SERVE_PIPE_CLIENTS = 4             # the server CLI's deployment (VAD + punctuation): 60 s
+SERVE_PIPE_SECONDS = 60.0
+SERVE_MAX_BATCH, SERVE_WAIT_MS = 8, 15.0  # TranscriptionApp's defaults
+SERVE_2PASS = dict(mode="2pass", chunk_size=[5, 10, 5])
+SERVE_2PASS_SESSIONS = 2
+SERVE_2PASS_SECONDS = 30.0
+SERVE_2PASS_FRAME = 9600           # 600 ms of PCM16 a binary frame
+SERVE_RT_SECONDS = 20.0            # the server-mode session, 60 ms frames at real time
+SERVE_RT_FRAME = 960               # (cut from 30 s for the run's time limit: one VAD
+                                   # endpoint, at 10.1 s, and the STOP final)
+SERVE_RT_COMMITS = (10.0, 60.0)    # the client-mode session's COMMITs: the second at T 1,024
+# B = 1 kernel rows: partial windows (0.48-15 s: T 128 / 256 / 384), the 60 s COMMIT
+# (T 1,024) and the forced final at max_utterance_sec = 300 s (T 5,120)
+SERVE_T = (128, 256, 384, 1024, 5120)
+SERVE_LOGP_TOL = 1e-3              # fp32 decoder log-probs, CUDA against the CPU port
+SERVE_MARGIN_FACTOR = 10           # ids gated where the top-2 margin exceeds 10x the error
+# the model dirs phase 13 serves, which the earlier phases keep: phase 8's Paraformer, VAD
+# and punctuation, phase 11's streaming Paraformer and realtime punctuation, phase 9's CAM++
+SERVE_ROLES = ("asr", "vad", "punc", "online", "punc_online", "spk")
+SERVERS = ("http", "http_pipeline", "two_pass", "realtime")
+
+
+def keep_dirs(keep, dirs, roles):
+    """Hard-link the model dirs ``dirs[role]`` of an earlier phase into ``keep["root"]``
+    (they outlive the phase's temporary directory) as ``keep[role]``; ``keep`` None: no-op.
+    ``roles``: {role in dirs: role in keep}."""
+    import shutil
+    if keep is None:
+        return
+    for src, dst in roles.items():
+        keep[dst] = os.path.join(keep["root"], dst)
+        shutil.copytree(dirs[src], keep[dst], copy_function=os.link)
+
+
+def serving_kernel_rows(dev, g):
+    """Flash and FSMN (fp32, the servers' dtype) at the serving shapes, each against its
+    plain version: the model-alone server's batches, (8, 4, 384, 128) with ragged lengths
+    and FSMN (8, 384, 512) k 11 with a prefix mask; B = 1 at T = SERVE_T (a window or an
+    utterance of T - 24 valid frames): (1, 4, T, 128) and (1, T, 512). q | k | v and the
+    FSMN input are strided slices of one fused projection, as on the path. Raises on a
+    disagreement."""
+    rows = {}
+    shapes = [(8, 384)] + [(1, t) for t in SERVE_T]
+    for b, t in shapes:
+        lens = [t - 37 * (i % 2) for i in range(b)] if b > 1 else [t - 24]
+        qkv = torch.randn(b, t, 3, 4, 128, generator=g).to(dev)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        rows[("flash_attention", "serving", (b, t))] = flash_row(q, k, v, lens)
+        del qkv, q, k, v
+        x = torch.randn(b, t, 3 * 512, generator=g).to(dev)[..., 2 * 512:]
+        w = (torch.rand(512, 1, 11, generator=g) - 0.5).to(dev)
+        mask = torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]
+        rows[("fsmn_memory", "serving", (b, t))] = fsmn_row(x, w, mask, 5, 5)
+    for key, row in rows.items():
+        tol = (FLASH_TOL if key[0] == "flash_attention" else FSMN_TOL)[torch.float32]
+        log(f"{key[0]} serving {row['shape']} fp32: max_abs_err {row['max_abs_err']:.3e} "
+            f"(tol {tol:g}) " + timing_line(row))
+        if not (math.isfinite(row["max_abs_err"]) and row["max_abs_err"] <= tol):
+            raise AssertionError(f"{key} kernel disagrees: {row['max_abs_err']}")
+    return rows
+
+
+def wav_bytes(wave16, fs=16000):
+    """A PCM16 WAV container, as a client uploads it."""
+    import io
+    import wave
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(fs)
+        w.writeframes(wave16.tobytes())
+    return buf.getvalue()
+
+
+def to_pcm16(wav):
+    return np.clip(np.round(wav * 32768), -32768, 32767).astype(np.int16)
+
+
+def http_post(port, data, **fields):
+    """One ``/v1/audio/transcriptions`` request, multipart as ``tests/test_serving.py``
+    builds it: (status, payload, seconds)."""
+    import urllib.request
+    boundary = "x123"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"a.wav\"\r\nContent-Type: audio/wav\r\n\r\n").encode() + data
+    for name, value in fields.items():
+        body += (f"\r\n--{boundary}\r\nContent-Disposition: form-data; "
+                 f"name=\"{name}\"\r\n\r\n{value}").encode()
+    body += f"\r\n--{boundary}--\r\n".encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/audio/transcriptions", data=body,
+        headers={"Content-Type": f"multipart/form-data; boundary={boundary}"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return resp.status, json.loads(resp.read()), time.perf_counter() - t0
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_burst(app, requests):
+    """``app`` on a free localhost port, every request ([(wav bytes, fields)]) sent at once
+    from a client thread each: ([(status, payload, seconds)], wall seconds of the burst,
+    {"batcher": ms each request spent in the batcher (queue, wait, decode), "handle": ms
+    the server spent on each connection}). The clients are threads of this process, so
+    their latency also holds their turns at the interpreter lock."""
+    import asyncio
+    import concurrent.futures
+    port = free_port()
+    batcher_ms, handle_ms, submit = [], [], app.batcher.submit
+
+    async def timed_submit(audio, **kwargs):
+        t0 = time.perf_counter()
+        result = await submit(audio, **kwargs)
+        batcher_ms.append((time.perf_counter() - t0) * 1e3)
+        return result
+    app.batcher.submit = timed_submit
+
+    async def timed_handle(reader, writer):
+        t0 = time.perf_counter()
+        await app.handle(reader, writer)
+        handle_ms.append((time.perf_counter() - t0) * 1e3)
+
+    async def scenario():
+        server = await asyncio.start_server(timed_handle, "127.0.0.1", port)
+        loop = asyncio.get_running_loop()
+        async with server:
+            with concurrent.futures.ThreadPoolExecutor(len(requests)) as pool:
+                t0 = time.perf_counter()
+                out = await asyncio.gather(*[
+                    loop.run_in_executor(pool, lambda r=r: http_post(port, r[0], **r[1]))
+                    for r in requests])
+                return out, time.perf_counter() - t0, dict(batcher=batcher_ms, handle=handle_ms)
+
+    return asyncio.run(scenario())
+
+
+def served(label, counters, targets, traffic):
+    """``traffic()``, a server's run, with every kernel's count set to 0 just before it and
+    read just after it, and the calls of each ``targets[name]`` = (module, method) counted
+    meanwhile from any thread (an instance attribute shadows the method). Raises unless
+    flash and FSMN each launched at least ``kernel_sites(module)`` times each counted
+    call, and at least once. Returns (what ``traffic`` returned, {kernel: launches},
+    {name: calls})."""
+    calls = {name: [] for name in targets}
+    for name, (module, attr) in targets.items():
+        def counted(*args, _inner=getattr(module, attr), _calls=calls[name], **kwargs):
+            _calls.append(1)
+            return _inner(*args, **kwargs)
+        setattr(module, attr, counted)
+    try:
+        for c in counters:
+            c.launches = 0
+        out = traffic()
+        launches = {c.__name__: c.launches for c in counters}
+    finally:
+        for module, attr in targets.values():
+            delattr(module, attr)
+    need = {}
+    for name, (module, _) in targets.items():
+        for kernel, n in kernel_sites(module).items():
+            need[kernel] = need.get(kernel, 0) + n * len(calls[name])
+    short = {k: (launches[k], need.get(k, 0)) for k in ("flash_attention", "fsmn_memory")
+             if not 0 < need.get(k, 0) <= launches[k]}
+    if short:
+        raise AssertionError(f"{label}: the server bypassed a kernel (launches, needed by its "
+                             f"model calls {({n: len(c) for n, c in calls.items()})}): {short}")
+    return out, launches, {name: len(c) for name, c in calls.items()}
+
+
+def asr_targets(name, am):
+    """``served`` targets of an offline AutoModel: its encoder and decoder forwards, and
+    its punctuation model's encoder forward if it has one."""
+    targets = {f"{name} encoder": (am.model.encoder, "forward"),
+               f"{name} decoder": (am.model.decoder, "forward")}
+    if am.punc_model is not None:
+        targets[f"{name} punctuation"] = (am.punc_model.encoder, "forward")
+    return targets
+
+
+def check_http(label, out, data, calls, am):
+    """Gates of one HTTP run: every response 200 with a non-empty text, and equal to its
+    row of a direct ``generate`` over its batcher group (``calls``: the groups'
+    ``generate`` calls) in the same order."""
+    bad = [(s, p) for s, p, _ in out if s != 200 or not p.get("text")]
+    if bad:
+        raise AssertionError(f"{label}: responses not 200 with a text: {bad[:3]}")
+    index = {x: i for i, x in enumerate(data)}
+    for kwargs, _, _ in calls:
+        group = kwargs["input"]
+        direct = am.generate(input=group, **{k: v for k, v in kwargs.items() if k != "input"})
+        for audio, row in zip(group, direct):
+            got = out[index[audio]][1]["text"]
+            if got != row["text"]:
+                raise AssertionError(f"{label}: a response is not its row of the group: "
+                                     f"{got[:40]!r} vs {row['text'][:40]!r}")
+
+
+def http_group_vs_cpu(am, cpu_am, group):
+    """One group of the model-alone server's on the card and on the CPU port (fp32) through
+    ``generate``: the decoder log-probs within SERVE_LOGP_TOL on rows whose token counts
+    agree; ids equal wherever the CPU's top-2 margin exceeds SERVE_MARGIN_FACTOR x that
+    error; the texts equal on every row whose tokens all clear it."""
+    out = {}
+    for name, a in (("card", am), ("cpu", cpu_am)):
+        rec = Recorder(a.model, "cal_decoder_with_predictor")
+        rows = a.generate(input=group, batch_size=len(group))
+        del a.model.cal_decoder_with_predictor
+        out[name] = (rows, rec.outputs[-1][0].float().cpu(), rec.calls[-1][0][3].cpu())
+    (rows_g, lp_g, ln_g), (rows_c, lp_c, ln_c) = out["card"], out["cpu"]
+    err, sure_equal, rows_sure, texts_equal, tokens, sure_n = 0.0, True, 0, True, 0, 0
+    for i in range(len(group)):
+        n = int(ln_c[i])
+        if int(ln_g[i]) != n:
+            continue
+        err = max(err, (lp_g[i, :n] - lp_c[i, :n]).abs().max().item() if n else 0.0)
+    for i in range(len(group)):
+        n = int(ln_c[i])
+        if int(ln_g[i]) != n:
+            continue
+        top2 = lp_c[i, :n].topk(2, dim=-1).values
+        sure = top2[:, 0] - top2[:, 1] > SERVE_MARGIN_FACTOR * err
+        same = lp_g[i, :n].argmax(-1) == lp_c[i, :n].argmax(-1)
+        tokens, sure_n = tokens + n, sure_n + int(sure.sum())
+        sure_equal &= bool(same[sure].all())
+        if bool(sure.all()):
+            rows_sure += 1
+            texts_equal &= rows_g[i]["text"] == rows_c[i]["text"]
+    r = dict(rows=len(group), logp_err=err, tokens=tokens, sure_tokens=sure_n,
+             sure_equal=sure_equal, rows_all_sure=rows_sure, texts_equal_there=texts_equal,
+             same_lens=int((ln_g[:len(group)] == ln_c[:len(group)]).sum()),
+             texts_equal=sum(a["text"] == b["text"] for a, b in zip(rows_g, rows_c)))
+    if not (err <= SERVE_LOGP_TOL and sure_equal and texts_equal):
+        raise AssertionError(f"HTTP group on the card disagrees with the CPU port: {r}")
+    return r
+
+
+def serve_http_model(d, counters, card):
+    """The model-alone server: ``TranscriptionApp(AutoModel(model=asr, device="cuda"))``
+    (max_batch 8, batch_wait_ms 15), SERVE_HTTP_CLIENTS clients at once, one 10-15 s WAV
+    each (``json``). Gated by ``check_http``; the smallest group of >= 2 against the CPU
+    port (``http_group_vs_cpu``). Prints requests/s, p50 / p95 latency, the batches, and
+    one profiled ``generate`` of the largest group."""
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.bin._server_app import TranscriptionApp
+
+    rng = np.random.default_rng(13)
+    waves = [long_recording(rng, rng.uniform(*SERVE_HTTP_SECONDS))
+             for _ in range(SERVE_HTTP_CLIENTS)]
+    data = [wav_bytes(to_pcm16(w)) for w in waves]
+    am = AutoModel(model=d["asr"], device="cuda", log_level="WARNING")
+    sites = kernel_sites(am.model)
+    am.generate(input=data[:2], batch_size=2)  # warm-up, outside the counts
+    torch.cuda.synchronize()
+    calls = Recorder(am, "generate")
+    app = TranscriptionApp(am, batch_wait_ms=SERVE_WAIT_MS, max_batch=SERVE_MAX_BATCH)
+    (out, wall, server_ms), launches, model_calls = served(
+        "HTTP model alone", counters, asr_targets("asr", am),
+        lambda: http_burst(app, [(x, {}) for x in data]))
+    del am.generate
+    stats = app.batcher.stats()
+    lat = [s * 1e3 for _, _, s in out]
+    log(f"HTTP model alone: {len(out)} requests of {sum(len(w) for w in waves) / 16000:.1f} s "
+        f"in {wall * 1e3:.2f} ms: {len(out) / wall:.2f} requests/s, latency p50 "
+        f"{percentile(lat, 50):.2f} p95 {percentile(lat, 95):.2f} ms (the server's handler p50 "
+        f"{percentile(server_ms['handle'], 50):.2f} p95 {percentile(server_ms['handle'], 95):.2f}"
+        f", in the batcher p50 {percentile(server_ms['batcher'], 50):.2f} p95 "
+        f"{percentile(server_ms['batcher'], 95):.2f}); batches "
+        f"{app.batcher.batch_sizes} (mean {stats['mean_batch']:.2f}), generate wall ms "
+        f"{[round(ms, 2) for ms in calls.ms]}; launches {launches} (sites a generate "
+        f"{sites}; model calls {model_calls}) on {card}")
+    check_http("HTTP model alone", out, data, calls.log(), am)
+    if not (stats["generate_calls"] < stats["requests"] and stats["max_batch_seen"] >= 2):
+        raise AssertionError(f"HTTP model alone: the batcher did not batch: {stats}")
+    inputs = [kw["input"] for _, kw in calls.calls]
+    largest = max(inputs, key=len)
+    g_med, _ = wall_ms(lambda: am.generate(input=largest, batch_size=len(largest)), runs=3)
+    by_name = profile_once(lambda: am.generate(input=largest, batch_size=len(largest)),
+                           f"HTTP generate of a group of {len(largest)}", g_med)
+    small = min((x for x in inputs if len(x) >= 2), key=len, default=min(inputs, key=len))
+    cpu_am = AutoModel(model=d["asr"], device="cpu", log_level="WARNING")
+    vs_cpu = http_group_vs_cpu(am, cpu_am, small)
+    log(f"HTTP group of {len(small)} vs the CPU port: decoder log-probs max_abs_err "
+        f"{vs_cpu['logp_err']:.3e} (tol {SERVE_LOGP_TOL:g}) on {vs_cpu['same_lens']} rows of "
+        f"equal token counts; ids equal on the {vs_cpu['sure_tokens']} of "
+        f"{vs_cpu['tokens']} tokens whose top-2 margin exceeds {SERVE_MARGIN_FACTOR}x it: "
+        f"{vs_cpu['sure_equal']}; texts equal on the {vs_cpu['rows_all_sure']} rows all of "
+        f"whose tokens clear it; all texts equal on {vs_cpu['texts_equal']} of "
+        f"{vs_cpu['rows']} rows")
+    del cpu_am
+    return dict(stats=stats, requests_per_s=len(out) / wall, p50_ms=percentile(lat, 50),
+                p95_ms=percentile(lat, 95), launches=launches, sites=sites,
+                model_calls=model_calls,
+                handle_p50_ms=percentile(server_ms["handle"], 50),
+                batcher_p50_ms=percentile(server_ms["batcher"], 50),
+                batch_sizes=app.batcher.batch_sizes, group_wall_ms=g_med,
+                group=len(largest), vs_cpu=vs_cpu,
+                profile={name: kernel_totals(by_name, key) for name, key in FP32_KERNELS.items()})
+
+
+def serve_http_pipeline(d, counters, card):
+    """The server CLI's deployment: ``TranscriptionApp(AutoModel(model=asr, vad_model=vad,
+    punc_model=punc, device="cuda"))``, built with ``pred_timestamp`` and
+    ``sentence_timestamp`` (the plain Paraformer's timestamps, which paraformer-zh's BiCif
+    head gives natively, so ``verbose_json`` has sentence segments), SERVE_PIPE_CLIENTS
+    clients at once with 60 s each, one asking for ``verbose_json``. Gated by
+    ``check_http`` (the VAD segments of each input batch inside ``inference_with_vad``)
+    and on the segments."""
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.bin._server_app import TranscriptionApp
+
+    rng = np.random.default_rng(14)
+    waves = [long_recording(rng, SERVE_PIPE_SECONDS) for _ in range(SERVE_PIPE_CLIENTS)]
+    data = [wav_bytes(to_pcm16(w)) for w in waves]
+    am = AutoModel(model=d["asr"], vad_model=d["vad"], punc_model=d["punc"], device="cuda",
+                   pred_timestamp=True, sentence_timestamp=True, log_level="WARNING")
+    am.generate(input=data[:1])  # warm-up, outside the counts
+    torch.cuda.synchronize()
+    calls = Recorder(am, "generate")
+    app = TranscriptionApp(am, batch_wait_ms=SERVE_WAIT_MS, max_batch=SERVE_MAX_BATCH)
+    fields = [{"response_format": "verbose_json"}] + [{}] * (len(data) - 1)
+    (out, wall, server_ms), launches, model_calls = served(
+        "HTTP pipeline", counters,
+        {**asr_targets("asr", am), "vad encoder": (am.vad_model.encoder, "forward")},
+        lambda: http_burst(app, list(zip(data, fields))))
+    n_asr = model_calls["asr encoder"]
+    del am.generate
+    stats = app.batcher.stats()
+    lat = [s * 1e3 for _, _, s in out]
+    segments = out[0][1].get("segments") or []
+    log(f"HTTP VAD + ASR + punctuation: {len(out)} requests of {SERVE_PIPE_SECONDS:.0f} s in "
+        f"{wall * 1e3:.2f} ms: {len(out) / wall:.2f} requests/s, latency p50 "
+        f"{percentile(lat, 50):.2f} p95 {percentile(lat, 95):.2f} ms (the server's handler p50 "
+        f"{percentile(server_ms['handle'], 50):.2f}, in the batcher p50 "
+        f"{percentile(server_ms['batcher'], 50):.2f}), RTFx "
+        f"{len(out) * SERVE_PIPE_SECONDS / wall:.1f}; batches {app.batcher.batch_sizes}, "
+        f"{n_asr} ASR batches of VAD segments; verbose_json {len(segments)} "
+        f"segments; launches {launches} (model calls {model_calls}) on {card}")
+    check_http("HTTP pipeline", out, data, calls.log(), am)
+    if not segments or not all(isinstance(s["text"], str) and s["end"] >= 0 for s in segments):
+        raise AssertionError(f"HTTP pipeline: verbose_json segments {segments[:3]}")
+    return dict(stats=stats, requests_per_s=len(out) / wall, p50_ms=percentile(lat, 50),
+                p95_ms=percentile(lat, 95), launches=launches, segments=len(segments),
+                asr_batches=n_asr, model_calls=model_calls)
+
+
+async def two_pass_client(port, wav, name):
+    """The FunASR 2-pass client: the config frame, PCM16 in SERVE_2PASS_FRAME frames as
+    fast as the socket takes them, ``is_speaking: false``; every message up to the final
+    with its arrival time, and the time ``is_speaking: false`` was sent."""
+    import asyncio
+    from funasr_tpu_torch.serving.ws_protocol import connect
+
+    ws = await connect("127.0.0.1", port)
+    await ws.send(json.dumps(dict(SERVE_2PASS, wav_name=name, is_speaking=True)))
+    data = to_pcm16(wav)
+    for i in range(0, len(data), SERVE_2PASS_FRAME):
+        await ws.send(data[i:i + SERVE_2PASS_FRAME].tobytes())
+    t_end = time.perf_counter()
+    await ws.send(json.dumps({"is_speaking": False}))
+    msgs = []
+    while not (msgs and msgs[-1][0]["is_final"]):
+        msgs.append((json.loads(await asyncio.wait_for(ws.recv(), 300)), time.perf_counter()))
+    await ws.close()
+    return [m for m, _ in msgs], (msgs[-1][1] - t_end) * 1e3
+
+
+def run_two_pass(server, waves, concurrent):
+    """Each wave through a 2-pass session of its own, all at once or one after the
+    other: [(messages, ms from is_speaking false to the final)]."""
+    import asyncio
+    from funasr_tpu_torch.serving.ws_protocol import serve
+    port = free_port()
+
+    async def scenario():
+        srv = await serve(server.handle, "127.0.0.1", port)
+        try:
+            sessions = [two_pass_client(port, w, f"s{i}") for i, w in enumerate(waves)]
+            if concurrent:
+                return await asyncio.gather(*sessions)
+            return [await s for s in sessions]
+        finally:
+            srv.close()
+            await srv.wait_closed()
+
+    return asyncio.run(scenario())
+
+
+def replay_two_pass(online, punc_online, offline, chunk_calls, punc_calls, final_calls):
+    """The server's model calls, replayed directly on the same AutoModels: each streaming
+    cache's 9,600-sample chunks in order from a fresh cache (``generate``), each punctuation
+    cache's texts (``inference`` with the model's kwargs), each final's audio through the
+    offline AutoModel (``generate``). Returns the mismatches."""
+    bad = []
+    for calls, run in ((chunk_calls, lambda kw, cache: online.generate(
+            input=kw["input"], cache=cache, is_final=kw["is_final"],
+            chunk_size=kw["chunk_size"])),
+                       (punc_calls, lambda kw, cache: punc_online.inference(
+            kw["input"], model=punc_online.model, kwargs=punc_online.kwargs, cache=cache))):
+        caches = {}
+        for kw, res, _ in calls:
+            cache = caches.setdefault(id(kw["cache"]), {})
+            got = run(kw, cache)[0]["text"]
+            if got != res[0]["text"]:
+                bad.append((got, res[0]["text"]))
+    for kw, res, _ in final_calls:
+        got = offline.generate(input=kw["input"])[0]["text"]
+        if got != res[0]["text"]:
+            bad.append((got, res[0]["text"]))
+    return bad
+
+
+def serve_two_pass(d, counters, card, offline, vad):
+    """The 2-pass server: ``WSServer(asr=Paraformer + punctuation, asr_online=
+    ParaformerStreaming, punc_online=CTTransformerStreaming, vad=fsmn-vad)`` on the card,
+    SERVE_2PASS_SESSIONS sessions of SERVE_2PASS_SECONDS at once (``2pass``, chunk_size
+    [5, 10, 5]), then the same sessions one after the other. Gates: each session has
+    online and offline messages and ends in a final; the two runs' messages equal; the
+    concurrent run's model calls replayed directly equal (``replay_two_pass``), and the
+    offline messages are the offline AutoModel's outputs. Prints the online message's
+    server time per chunk (streaming ``generate`` + punctuation) and the ms from
+    ``is_speaking: false`` to the final."""
+    import collections
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.bin.funasr_wss_server import WSServer
+
+    def stats(calls, name):
+        return percentile([ms for _, _, ms in calls[name]], 50)
+
+    rng = np.random.default_rng(15)
+    waves = [long_recording(rng, SERVE_2PASS_SECONDS) for _ in range(SERVE_2PASS_SESSIONS)]
+    online = AutoModel(model=d["online"], device="cuda", log_level="WARNING")
+    punc_online = AutoModel(model=d["punc_online"], device="cuda", log_level="WARNING")
+    server = WSServer(asr_model=offline, asr_model_online=online, vad_model=vad,
+                      punc_model_online=punc_online)
+    run_two_pass(server, [waves[0][:16000 * 3]], concurrent=False)  # warm-up
+    # an online message's server time: its chunk's streaming call to its punctuation's end
+    starts, chunk_ms = {}, []
+    online_chunk, punc_chunk = server._online_chunk, server._punc_online
+
+    def timed_online(sess, chunk, is_final):
+        starts[id(sess)] = time.perf_counter()
+        return online_chunk(sess, chunk, is_final)
+
+    def timed_punc(sess, text):
+        out = punc_chunk(sess, text)
+        chunk_ms.append((time.perf_counter() - starts[id(sess)]) * 1e3)
+        return out
+    server._online_chunk, server._punc_online = timed_online, timed_punc
+    logs = {name: Recorder(am, "generate") for name, am in
+            (("online", online), ("punc", punc_online), ("offline", offline))}
+    targets = {**asr_targets("offline", offline),
+               "streaming encoder": (online.model.encoder, "forward_chunk"),
+               "streaming decoder": (online.model.decoder, "forward_chunk"),
+               "realtime punctuation": (punc_online.model.encoder, "forward"),
+               "vad encoder": (vad.model.encoder, "forward")}
+    t0 = time.perf_counter()
+    together, launches, model_calls = served(
+        "2-pass", counters, targets, lambda: run_two_pass(server, waves, concurrent=True))
+    wall = time.perf_counter() - t0
+    calls = {name: lg.log() for name, lg in logs.items()}
+    for am in (online, punc_online, offline):
+        del am.generate
+    final_ms = [ms for _, ms in together]
+    chunk_p50, chunk_p95 = percentile(chunk_ms, 50), percentile(chunk_ms, 95)
+    msgs = [m for m, _ in together]
+    log(f"2-pass: {len(waves)} sessions of {SERVE_2PASS_SECONDS:.0f} s at once in "
+        f"{wall * 1e3:.2f} ms; messages per session "
+        f"{[collections.Counter(x['mode'] for x in m) for m in msgs]}; online message "
+        f"server ms per chunk (streaming generate + punctuation) p50 "
+        f"{chunk_p50:.2f} p95 {chunk_p95:.2f} over {len(chunk_ms)}, streaming "
+        f"generate p50 {stats(calls, 'online'):.2f}, punctuation p50 {stats(calls, 'punc'):.2f} "
+        f"(each AutoModel's lock wait included); offline finals {len(calls['offline'])}, "
+        f"generate p50 {stats(calls, 'offline'):.2f} ms; is_speaking false -> "
+        f"final {[round(x, 2) for x in final_ms]} ms; launches {launches} (model calls "
+        f"{model_calls}) on {card}")
+    for m in msgs:
+        modes = [x["mode"] for x in m]
+        if not ("2pass-online" in modes and "2pass-offline" in modes
+                and m[-1]["is_final"] is True and m[-1]["mode"] == "2pass-offline"):
+            raise AssertionError(f"2-pass: a session's messages {modes}")
+    bad = replay_two_pass(online, punc_online, offline, calls["online"], calls["punc"],
+                          calls["offline"])
+    offline_texts = collections.Counter(x["text"] for m in msgs for x in m
+                                        if x["mode"] == "2pass-offline")
+    outputs = collections.Counter(res[0]["text"] for _, res, _ in calls["offline"])
+    spare = sum(offline_texts.values()) - sum(outputs.values())
+    if bad or spare < 0 or offline_texts != outputs + collections.Counter({"": spare}):
+        raise AssertionError(f"2-pass: served texts differ from the direct calls: {bad[:3]}; "
+                             f"offline {offline_texts} vs {outputs}")
+    log(f"2-pass: {len(calls['online'])} streaming chunks, {len(calls['punc'])} punctuation "
+        f"calls and {len(calls['offline'])} finals replayed directly: equal")
+    # the same sessions one after the other: their messages, and the same timings without
+    # the other session's calls in the way (the AutoModels' locks, the interpreter lock)
+    logs = {name: Recorder(am, "generate") for name, am in
+            (("online", online), ("punc", punc_online), ("offline", offline))}
+    n_together, t0 = len(chunk_ms), time.perf_counter()
+    one_by_one = run_two_pass(server, waves, concurrent=False)
+    alone_wall = time.perf_counter() - t0
+    alone = {name: lg.log() for name, lg in logs.items()}
+    for am in (online, punc_online, offline):
+        del am.generate
+    alone_ms = chunk_ms[n_together:]
+    log(f"2-pass, the sessions one after the other: {alone_wall * 1e3:.2f} ms; online message "
+        f"server ms per chunk p50 {percentile(alone_ms, 50):.2f} p95 "
+        f"{percentile(alone_ms, 95):.2f}, streaming generate p50 {stats(alone, 'online'):.2f}, "
+        f"punctuation p50 {stats(alone, 'punc'):.2f}, offline generate p50 "
+        f"{stats(alone, 'offline'):.2f} ms; is_speaking false -> final "
+        f"{[round(ms, 2) for _, ms in one_by_one]} ms; messages equal to the concurrent "
+        f"run's: {[m for m, _ in one_by_one] == msgs}")
+    if [m for m, _ in one_by_one] != msgs:
+        raise AssertionError("2-pass: concurrent sessions differ from the same sessions run "
+                             "one after the other")
+    return dict(launches=launches, model_calls=model_calls, wall_ms=wall * 1e3,
+                chunk_p50_ms=chunk_p50,
+                chunk_p95_ms=chunk_p95, final_ms=final_ms,
+                online_calls=len(calls["online"]), finals=len(calls["offline"]),
+                alone=dict(wall_ms=alone_wall * 1e3, chunk_p50_ms=percentile(alone_ms, 50),
+                           chunk_p95_ms=percentile(alone_ms, 95),
+                           final_ms=[ms for _, ms in one_by_one],
+                           generate_p50_ms={k: stats(alone, k) for k in alone}))
+
+
+async def realtime_server_session(ws, data, fs=16000):
+    """SERVE_RT_FRAME frames at real time (frame i leaves when i frames of audio have
+    played), then STOP: every message."""
+    import asyncio
+    from funasr_tpu_torch.serving.ws_protocol import ConnectionClosed
+
+    t0 = time.perf_counter()
+    for i in range(0, len(data), SERVE_RT_FRAME):
+        await asyncio.sleep(max(t0 + i / fs - time.perf_counter(), 0.0))
+        await ws.send(data[i:i + SERVE_RT_FRAME].tobytes())
+    await asyncio.sleep(1.0)  # the VAD worker's queue drains
+    await ws.send("STOP")
+    msgs = []
+    try:
+        while True:
+            msgs.append(json.loads(await asyncio.wait_for(ws.recv(), 300)))
+    except ConnectionClosed:
+        return msgs
+
+
+async def realtime_client_session(ws, utterances):
+    """``endpoint_mode: client``: each utterance in SERVE_RT_FRAME frames as fast as the
+    socket takes them, then COMMIT, waiting for its final; STOP."""
+    import asyncio
+    msgs = []
+    await ws.send(json.dumps({"endpoint_mode": "client"}))
+    for data in utterances:
+        for i in range(0, len(data), SERVE_RT_FRAME):
+            await ws.send(data[i:i + SERVE_RT_FRAME].tobytes())
+        await ws.send("COMMIT")
+        while True:
+            msgs.append(json.loads(await asyncio.wait_for(ws.recv(), 300)))
+            if msgs[-1].get("is_final"):
+                break
+    await ws.send("STOP")
+    return msgs
+
+
+def realtime_order(msgs):
+    """Finals in order from utterance 0 with rising spans; partials with ``stable`` >= 1,
+    never after their utterance's final. Returns the finals."""
+    finals, seen = [], set()
+    for m in msgs:
+        if m["type"] == "final":
+            finals.append(m)
+            seen.add(m["utt"])
+        elif m["type"] != "partial" or m["stable"] < 1 or m["utt"] in seen:
+            raise AssertionError(f"realtime: a partial out of order: {m}")
+    if [f["utt"] for f in finals] != list(range(len(finals))) or any(
+            not (a["end_ms"] == b["start_ms"] < b["end_ms"]) for a, b in zip(finals, finals[1:])):
+        raise AssertionError(f"realtime: finals out of order: {finals}")
+    return finals
+
+
+def serve_realtime(d, counters, card, asr, vad):
+    """The realtime server: ``RealtimeWSServer(asr=Paraformer + punctuation,
+    vad_model=fsmn-vad, spk_model=CAM++)`` on the card. One ``server``-mode session (VAD
+    endpoints, speakers) of SERVE_RT_SECONDS of two voices, and one ``client``-mode session
+    committing SERVE_RT_COMMITS seconds. Gates: finals in order with rising spans, an
+    integer ``spk`` on every server-mode final; partials in order (``realtime_order``); the
+    COMMIT finals equal direct decodes of the committed audio. Prints the partial latency
+    (cadence point to message, executor wait included)."""
+    import asyncio
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.bin.realtime_ws import RealtimeWSServer
+    from funasr_tpu_torch.serving.ws_protocol import connect, serve
+
+    rng = np.random.default_rng(16)
+    wav, _ = two_voice_recording(rng, SERVE_RT_SECONDS)
+    wav[-24000:] += voice_burst(rng, 0, 24000)  # speech up to STOP: the last final has a voice
+    commits = [to_pcm16(long_recording(rng, s)) for s in SERVE_RT_COMMITS]
+    server = RealtimeWSServer(
+        asr, vad_model=vad,
+        spk_model=AutoModel(model=d["spk"], device="cuda", log_level="WARNING"))
+    partial_ms, partial_task = [], server._partial_task
+
+    async def timed_partial(*args):
+        t0 = time.perf_counter()
+        await partial_task(*args)
+        partial_ms.append((time.perf_counter() - t0) * 1e3)
+    server._partial_task = timed_partial
+    port = free_port()
+
+    async def scenario():
+        srv = await serve(server.handle, "127.0.0.1", port)
+        try:
+            out = []
+            for script, arg in ((realtime_server_session, to_pcm16(wav)),
+                                (realtime_client_session, commits)):
+                ws = await connect("127.0.0.1", port)
+                t0 = time.perf_counter()
+                out.append((await script(ws, arg), time.perf_counter() - t0))
+                await ws.close()
+            return out
+        finally:
+            srv.close()
+            await srv.wait_closed()
+
+    asr.generate(input=commits[0][:16000])  # warm-up
+    ((server_msgs, server_s), (client_msgs, client_s)), launches, model_calls = served(
+        "realtime", counters, {**asr_targets("asr", asr),
+                               "vad encoder": (vad.model.encoder, "forward")},
+        lambda: asyncio.run(scenario()))
+    server_finals, client_finals = realtime_order(server_msgs), realtime_order(client_msgs)
+    log(f"realtime: server mode {SERVE_RT_SECONDS:.0f} s in {server_s * 1e3:.2f} ms: "
+        f"{len(server_finals)} finals (spk {[f.get('spk') for f in server_finals]}, spans "
+        f"{[(f['start_ms'], f['end_ms']) for f in server_finals]}), "
+        f"{len(server_msgs) - len(server_finals)} partials; client mode "
+        f"{sum(SERVE_RT_COMMITS):.0f} s in {client_s * 1e3:.2f} ms: {len(client_finals)} "
+        f"finals, {len(client_msgs) - len(client_finals)} partials; partial latency p50 "
+        f"{percentile(partial_ms, 50):.2f} p95 {percentile(partial_ms, 95):.2f} ms over "
+        f"{len(partial_ms)} (server mode at real time); launches {launches} (model calls "
+        f"{model_calls}) on {card}")
+    if len(server_finals) < 2 or not all(isinstance(f.get("spk"), int) for f in server_finals):
+        raise AssertionError(f"realtime server mode: finals {server_finals}")
+    direct = [asr.generate(input=c.astype(np.float32) / 32768)[0]["text"] for c in commits]
+    if [f["text"] for f in client_finals] != direct:
+        raise AssertionError(f"realtime: COMMIT finals {[f['text'][:30] for f in client_finals]}"
+                             f" differ from direct decodes {[t[:30] for t in direct]}")
+    return dict(launches=launches, model_calls=model_calls, server_finals=len(server_finals),
+                client_finals=len(client_finals), partial_p50_ms=percentile(partial_ms, 50),
+                partial_p95_ms=percentile(partial_ms, 95), partials=len(partial_ms))
+
+
+def unmask_ms(n, runs=5):
+    """Host ms of ``WebSocket._read_frame`` over one masked n-byte client frame (126 <= n <
+    65,536): the server unmasks each payload byte by byte in Python. Median of ``runs``."""
+    import asyncio
+    import struct
+    from funasr_tpu_torch.serving.ws_protocol import WebSocket
+
+    payload, mask = np.random.default_rng(0).bytes(n), b"\x12\x34\x56\x78"
+    frame = (bytes([0x82, 0xFE]) + struct.pack(">H", n) + mask
+             + bytes(b ^ mask[i % 4] for i, b in enumerate(payload)))
+
+    async def read_once():
+        reader = asyncio.StreamReader()
+        reader.feed_data(frame)
+        t0 = time.perf_counter()
+        _, _, out = await WebSocket(reader, None)._read_frame()
+        if out != payload:
+            raise AssertionError("ws_protocol: a frame did not unmask to its payload")
+        return (time.perf_counter() - t0) * 1e3
+
+    return statistics.median(asyncio.run(read_once()) for _ in range(runs))
+
+
+def phase_serving(dev, counters, card, keep):
+    """Phase 13: the port's three servers on the card over real localhost sockets, in this
+    process, at PROD_CONF width, fp32 (the public default), seeded weights: kernel rows at
+    the serving shapes (``serving_kernel_rows``), the model-alone HTTP server and the
+    server CLI's VAD + punctuation deployment (``serve_http_model``,
+    ``serve_http_pipeline``), the 2-pass WebSocket server (``serve_two_pass``) and the
+    realtime WebSocket server (``serve_realtime``), over the model dirs SERVE_ROLES of
+    ``keep`` (phases 8, 9 and 11 keep them). Each server's kernel counts are set to 0 just
+    before its traffic and read just after it (``served``); the phase's launches are their
+    sum."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cpu").manual_seed(13)
+    rows = serving_kernel_rows(dev, g)
+    d = {role: keep[role] for role in SERVE_ROLES}
+    log(f"serving: kernel rows in {time.perf_counter() - t0:.1f} s")
+    from funasr_tpu_torch import AutoModel
+
+    unmask = {n: unmask_ms(n) for n in (2 * SERVE_RT_FRAME, 2 * SERVE_2PASS_FRAME)}
+    log("ws_protocol: reading one client frame, its per-byte unmask included: " + ", ".join(
+        f"{n:,} bytes {ms:.3f} ms" for n, ms in unmask.items()) + " on the host")
+
+    out = dict(rows=rows, unmask_ms=unmask)
+    for name, run in (("http", serve_http_model), ("http_pipeline", serve_http_pipeline)):
+        t1 = time.perf_counter()
+        out[name] = run(d, counters, card)
+        torch.cuda.empty_cache()
+        log(f"serving: {name} in {time.perf_counter() - t1:.1f} s")
+    # the WebSocket servers share the offline ASR (Paraformer + punctuation) and the VAD
+    shared = (AutoModel(model=d["asr"], punc_model=d["punc"], device="cuda",
+                        log_level="WARNING"),
+              AutoModel(model=d["vad"], device="cuda", log_level="WARNING"))
+    for name, run in (("two_pass", serve_two_pass), ("realtime", serve_realtime)):
+        t1 = time.perf_counter()
+        out[name] = run(d, counters, card, *shared)
+        log(f"serving: {name} in {time.perf_counter() - t1:.1f} s")
+    del shared
+    torch.cuda.empty_cache()
+    out["launches"] = {c.__name__: sum(out[srv]["launches"][c.__name__] for srv in SERVERS)
+                       for c in counters}
+    log(f"serving: launches over the four server runs {out['launches']}, "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    return out
+
+
 # the kernel rows at the streaming shapes: kernel -> [(label, record key)]
 STREAMING_ENTRIES = {
     "flash_attention": [(f"{key}_{dt}", ("flash_attention", "streaming", key, dtype))
@@ -3095,6 +3868,12 @@ SENSEVOICE_ENTRIES = {
 }
 
 
+# the kernel rows at the serving shapes: kernel -> [(label, record key)]
+SERVING_ENTRIES = {name: [(f"{b}x{t}_fp32", (name, "serving", (b, t)))
+                          for b, t in [(8, 384)] + [(1, t) for t in SERVE_T]]
+                   for name in ("flash_attention", "fsmn_memory")}
+
+
 # the kernel rows at the pipeline's shapes: kernel -> [(label, record key, the phase 8
 # stage whose launches they are, None where the default fp32 pipeline does not run it)]
 PIPELINE_ENTRIES = {
@@ -3106,7 +3885,7 @@ PIPELINE_ENTRIES = {
 
 
 def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None,
-                 hotword=None, streaming=None, sensevoice=None):
+                 hotword=None, streaming=None, sensevoice=None, serving=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
@@ -3121,7 +3900,9 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
     (``STREAMING_ENTRIES``); FSMN splits its chunk launches into (11, 5) and (11, 10).
     Phase 12's (``sensevoice``) go under ``sensevoice``: launches of one SenseVoice decode at
     each setting, their sum, the profile's device ms per decode, and the kernel's rows at
-    SenseVoice's shapes (``SENSEVOICE_ENTRIES``)."""
+    SenseVoice's shapes (``SENSEVOICE_ENTRIES``). Phase 13's (``serving``) go under
+    ``serving``: each kernel's launches over the four server runs, by server, and flash's and FSMN's
+    rows at the serving shapes (``SERVING_ENTRIES``)."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -3187,6 +3968,11 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             if name in sensevoice["demo_kernels"]["rows"]:
                 entry["sensevoice"]["rows"]["demo_asr_fp32"] = (
                     sensevoice["demo_kernels"]["rows"][name])
+        if serving:
+            entry["serving"] = dict(
+                launches=serving["launches"][name],
+                by_server={srv: serving[srv]["launches"][name] for srv in SERVERS},
+                rows={label: serving["rows"][key] for label, key in SERVING_ENTRIES.get(name, ())})
         kernels.append(entry)
     return {"kernels": kernels}
 
@@ -3218,20 +4004,33 @@ def main():
             log("  " + line.strip())
 
     counters = (flash_attention, fsmn_memory, w8a8_linear)
-    record = phase_kernels(dev)
-    record[("w8a8_linear", torch.bfloat16)] = phase_w8a8_kernel(dev)
-    phase_cuda_vs_cpu(dev)
-    phase_cuda_vs_cpu_w8a8(dev)
-    launches = phase_main_path(dev, funasr_tpu_torch.tables, counters, card)
-    am_launches, fp32_launches = phase_automodel(dev, counters, card)
-    pipeline = phase_pipeline(dev, counters, card)
-    speaker = phase_speaker(dev, counters, card)
-    hotword = phase_hotword(dev, counters, card)
-    streaming = phase_streaming(dev, counters, card)
-    sensevoice = phase_sensevoice(dev, counters, card)
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"{label} done in {time.perf_counter() - t0:.1f} s ({time.perf_counter() - t_start:.1f}"
+            f" s since the start)")
+        return out
+
+    record = timed("kernels", phase_kernels, dev)
+    record[("w8a8_linear", torch.bfloat16)] = timed("w8a8 kernel", phase_w8a8_kernel, dev)
+    timed("CUDA vs CPU", phase_cuda_vs_cpu, dev)
+    timed("CUDA vs CPU W8A8", phase_cuda_vs_cpu_w8a8, dev)
+    launches = timed("main path", phase_main_path, dev, funasr_tpu_torch.tables, counters, card)
+    am_launches, fp32_launches = timed("AutoModel", phase_automodel, dev, counters, card)
+    # the model dirs phase 13 serves, kept from phases 8, 9 and 11 (removed at the end)
+    with tempfile.TemporaryDirectory() as keep_root:
+        keep = {"root": keep_root}
+        pipeline = timed("pipeline", phase_pipeline, dev, counters, card, keep)
+        speaker = timed("speaker", phase_speaker, dev, counters, card, keep)
+        hotword = timed("hotword", phase_hotword, dev, counters, card)
+        streaming = timed("streaming", phase_streaming, dev, counters, card, keep)
+        sensevoice = timed("SenseVoice", phase_sensevoice, dev, counters, card)
+        serving = timed("serving", phase_serving, dev, counters, card, keep)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
-                                  speaker, hotword, streaming, sensevoice), default=str))
+                                  speaker, hotword, streaming, sensevoice, serving),
+                     default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

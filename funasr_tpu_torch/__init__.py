@@ -1,11 +1,13 @@
-"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slices 1-9: offline
+"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slices 1-10: offline
 Paraformer, ``AutoModel`` with bf16 and int8 / W8A8 quantization, the VAD -> ASR ->
 punctuation pipeline with FSMN-VAD and CT-Transformer, speaker-attributed
 transcription: BiCif-Paraformer timestamps, CAM++ and its clustering, hotword
 transcription: SeACo-Paraformer and the Contextual Paraformer through ``hotword=``,
 streaming: ParaformerStreaming and the realtime punctuation model through ``cache=``,
 and SenseVoice-Small with the CTC family: the CTC model, Paraformer's CTC head,
-Paraformer-v2, E-Paraformer and the fa-zh aligner).
+Paraformer-v2, E-Paraformer and the fa-zh aligner, and serving: the OpenAI-compatible
+HTTP server with cross-request batching, the 2-pass and realtime WebSocket servers, the
+inference and benchmark CLIs under ``funasr_tpu_torch.bin``, and ``AutoFrontend``).
 
 Imports torch, numpy and scipy, never jax, ``funasr_tpu`` or scikit-learn. The public
 entry point:
@@ -79,4 +81,11 @@ from funasr_tpu_torch.tokenizer import sentencepiece_tokenizer  # noqa: E402,F40
 from funasr_tpu_torch import parity  # noqa: E402,F401  (aliases, after every class)
 from funasr_tpu_torch.auto.auto_model import AutoModel  # noqa: E402
 
-__all__ = ["AutoModel", "tables"]
+__all__ = ["AutoFrontend", "AutoModel", "tables"]
+
+
+def __getattr__(name):
+    if name == "AutoFrontend":
+        from funasr_tpu_torch.auto.auto_frontend import AutoFrontend
+        return AutoFrontend
+    raise AttributeError(f"module 'funasr_tpu_torch' has no attribute {name!r}")

@@ -26,17 +26,25 @@ chunk embeddings clustered (``preset_spk_num`` speakers, else found), the speake
 distributed over the sentences into ``sentence_info`` (``spk``, ``start``, ``end``,
 ``text``), else ``sentence_info`` when ``sentence_timestamp``. ITN (ROADMAP item 23) and
 ``export`` raise ``NotImplementedError``.
+
+``generate`` keeps each call's configuration in ``self.kwargs`` (reset and rewritten by
+every call, the streaming ``cache`` included), as the JAX package does; the port's servers
+call one ``AutoModel`` from several executor threads, so ``generate``, ``inference`` and
+``inference_with_vad`` run under one re-entrant lock per ``AutoModel``: calls from
+different threads take turns, and each gives what it gives alone.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import logging
 import os
 import random
 import re
 import string
+import threading
 import time
 from typing import Any, Dict, List
 
@@ -119,8 +127,18 @@ def prepare_data_iterator(data_in, input_len=None, data_type=None, key=None):
     return key_list, data_list
 
 
+def _serialized(method):
+    """Run ``method`` under the instance's lock (see the module docstring)."""
+    @functools.wraps(method)
+    def locked(self, *args, **kwargs):
+        with self._lock:
+            return method(self, *args, **kwargs)
+    return locked
+
+
 class AutoModel:
     def __init__(self, **kwargs):
+        self._lock = threading.RLock()
         log_level = getattr(logging, kwargs.get("log_level", "INFO").upper())
         logging.basicConfig(level=log_level)
 
@@ -239,6 +257,7 @@ class AutoModel:
 
     # ------------------------------------------------------------------
 
+    @_serialized
     def generate(self, input, input_len=None, progress_callback=None, **cfg):
         from funasr_tpu_torch.utils.postprocess_hotwords import (
             apply_postprocess_hotwords_to_results)
@@ -260,6 +279,7 @@ class AutoModel:
                 result["text"] = punc_res[0]["text"]
         return apply_postprocess_hotwords_to_results(results, cfg)
 
+    @_serialized
     def inference(self, input, input_len=None, model=None, kwargs=None, key=None,
                   progress_callback=None, **cfg):
         """``model`` (the main model unless given) over ``input`` in batches of
@@ -326,6 +346,7 @@ class AutoModel:
 
     # ------------------------------------------------------------------
 
+    @_serialized
     def inference_with_vad(self, input, input_len=None, **cfg):
         """VAD -> per-segment ASR in length-sorted ``batch_size_s`` batches (+ CAM++ over
         each segment's chunks) -> merged text and timestamps -> punctuation -> speaker
@@ -335,10 +356,12 @@ class AutoModel:
         self._reset_runtime_configs()
         kwargs = self.kwargs
 
-        # step 1: VAD
+        # step 1: VAD, one input a call: the VAD takes batch 1, and a caller's batch_size
+        # (the HTTP batcher's, the group's size) is the ASR's. The JAX package hands it
+        # on, and its VAD's batch-1 assertion fails (ROADMAP section 3).
         deep_update(self.vad_kwargs, cfg)
         res = self.inference(input, input_len=input_len, model=self.vad_model,
-                             kwargs=self.vad_kwargs, **cfg)
+                             kwargs=self.vad_kwargs, **dict(cfg, batch_size=1))
         if cfg.get("merge_vad", False):
             for r in res:
                 r["value"] = merge_vad(r["value"], kwargs.get("merge_length_s", 15) * 1000)
@@ -500,8 +523,8 @@ class AutoModel:
         return sentence_list
 
     def export(self, input=None, **cfg):
-        raise NotImplementedError("export is not ported yet (slice 5 with the serving "
-                                  "binaries, ROADMAP item 17)")
+        raise NotImplementedError("export is not ported yet (ROADMAP item 17b: the "
+                                  "port's own export format is still to be chosen)")
 
 
 def dispatch_pair(model):

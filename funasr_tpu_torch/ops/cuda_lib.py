@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -63,6 +64,12 @@ def _run_all(cmds):
     return [(p.returncode, out) for p, out in ((p, p.communicate()[0]) for p in procs)]
 
 
+# a server's first requests reach load_library on several executor threads at once, and
+# lru_cache lets each run the body: the build runs under this lock, and a thread that
+# waited on it finds the library built
+_BUILD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=1)
 def load_library() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library: one nvcc per source, all started
@@ -74,21 +81,22 @@ def load_library() -> ctypes.CDLL:
         digest.update(src.name.encode() + src.read_bytes())
     lib_path = BUILD_DIR / f"libfunasr_tpu_torch_{digest.hexdigest()[:16]}.so"
     build_seconds, log = 0.0, ""
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
-            t0 = time.perf_counter()
-            objs = [os.path.join(tmp_dir, src.stem + ".o") for src in sources]
-            runs = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                             for src, obj in zip(sources, objs)])
-            tmp = os.path.join(tmp_dir, lib_path.name)
-            if all(rc == 0 for rc, _ in runs):
-                runs += _run_all([[_nvcc(), *NVCC_LINK_FLAGS, "-o", tmp, *objs]])
-            build_seconds = time.perf_counter() - t0
-            log = "".join(out for _, out in runs)
-            if any(rc != 0 for rc, _ in runs):
-                raise RuntimeError(f"nvcc failed:\n{log}")
-            os.replace(tmp, lib_path)  # atomic: a concurrent build never loads a partial file
+    with _BUILD_LOCK:
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+                t0 = time.perf_counter()
+                objs = [os.path.join(tmp_dir, src.stem + ".o") for src in sources]
+                runs = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                                 for src, obj in zip(sources, objs)])
+                tmp = os.path.join(tmp_dir, lib_path.name)
+                if all(rc == 0 for rc, _ in runs):
+                    runs += _run_all([[_nvcc(), *NVCC_LINK_FLAGS, "-o", tmp, *objs]])
+                build_seconds = time.perf_counter() - t0
+                log = "".join(out for _, out in runs)
+                if any(rc != 0 for rc, _ in runs):
+                    raise RuntimeError(f"nvcc failed:\n{log}")
+                os.replace(tmp, lib_path)  # atomic: a concurrent build never loads a partial file
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -247,11 +247,16 @@ def test_unported_options_raise(model_dir, monkeypatch):
 
 def test_import_of_auto_model_pulls_in_no_jax():
     """Neither jax, nor the JAX package, nor scikit-learn (the port's clustering,
-    imported here too, is numpy)."""
+    imported here too, is numpy), with the serving modules and ``AutoFrontend``."""
     code = ("import sys\n"
             "import funasr_tpu_torch\n"
             "from funasr_tpu_torch import AutoModel\n"
             "from funasr_tpu_torch.models.campplus import cluster_backend\n"
+            "from funasr_tpu_torch import AutoFrontend\n"
+            "from funasr_tpu_torch.bin import (_server_app, benchmark, funasr_wss_server,\n"
+            "                                  inference, realtime_ws, server)\n"
+            "from funasr_tpu_torch.serving import batcher, ws_protocol\n"
+            "from funasr_tpu_torch.metrics import wer\n"
             "assert AutoModel is funasr_tpu_torch.AutoModel\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'funasr_tpu', 'sklearn'))\n"

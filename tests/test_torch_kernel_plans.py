@@ -10,8 +10,9 @@
 * the fp32 flash kernel's 3xTF32 split, emulated in fp32 with its key tiles and online
   softmax: within the card's tolerance of the plain version, where one TF32 product is
   not;
-* the kernels' JSON line of ``chip_smoke.py``, fp32, pipeline, hotword, streaming and
-  SenseVoice entries included;
+* the kernels' JSON line of ``chip_smoke.py``, fp32, pipeline, hotword, streaming,
+  SenseVoice and serving entries included, and phase 13's per-server launch gate
+  (``served``);
 * the flash kernel's per-row key limits (``key_limits``): each mode's limits are the JAX
   masks (causal, the "VAD corner") beside the pad mask as row prefixes, and never fall
   with the row, which the kernel's skip of key tiles past a row block's last row needs;
@@ -225,6 +226,69 @@ def test_kernels_line_carries_sensevoice_entries():
         assert set(kernels[name]["rows"]) == {"fp32", "bf16", "demo_asr_fp32"}
         assert kernels[name]["rows"]["demo_asr_fp32"]["ms"] == 9.0
     assert kernels["flash_attention"]["demo_asr_launches"] == 350
+
+
+def test_kernels_line_carries_serving_entries():
+    """Flash and FSMN carry phase 13's launches under ``serving``: the sum of the four
+    server runs, each run's own beside it, and their rows at the serving shapes."""
+    row = dict(shape=(1, 2), max_abs_err=0.0, ms=1.0, call_ms=2.0, plain_ms=3.0,
+               library_ms=4.0, bound_ms=0.5, bound_by="bytes")
+    record = {(name, torch.bfloat16): row for name in chip_smoke.LIBRARY_CALLS}
+    launches = {"flash_attention": 100, "fsmn_memory": 132, "w8a8_linear": 0}
+    runs = {srv: {"launches": {k: (i + 1) * v for k, v in launches.items()}}
+            for i, srv in enumerate(chip_smoke.SERVERS)}
+    serving = dict(runs, rows={key: dict(row, ms=5.0) for entries in
+                               chip_smoke.SERVING_ENTRIES.values() for _, key in entries},
+                   launches={k: 10 * v for k, v in launches.items()})
+    line = chip_smoke.kernels_line(record, launches, {"w8a8_linear": 282}, launches,
+                                   serving=serving)
+    kernels = {k["name"]: k["serving"] for k in line["kernels"]}
+    for name, entry in kernels.items():
+        assert entry["launches"] == sum(entry["by_server"].values()) == 10 * launches[name]
+    assert set(kernels["flash_attention"]["rows"]) == set(kernels["fsmn_memory"]["rows"]) == {
+        f"{b}x{t}_fp32" for b, t in [(8, 384)] + [(1, t) for t in chip_smoke.SERVE_T]}
+    assert kernels["w8a8_linear"]["rows"] == {}
+
+
+@pytest.mark.parametrize("counted", [True, False])
+def test_served_gates_each_run_on_its_own_model_calls(monkeypatch, counted):
+    """``chip_smoke.served`` sets the counts to 0 before a server's traffic, counts the
+    calls of its models, and raises where the launches fall short of the kernel sites of
+    those calls: here the plain versions count as launches only when ``counted``."""
+    from funasr_tpu_torch import tables
+    from funasr_tpu_torch.ops import flash_attention as fa
+    from funasr_tpu_torch.ops import fsmn
+    from funasr_tpu_torch.ops.w8a8 import w8a8_linear
+
+    if counted:
+        for mod, ref, wrapper in ((fa, "flash_attention_ref", fa.flash_attention),
+                                  (fsmn, "fsmn_memory_ref", fsmn.fsmn_memory)):
+            def plain(*args, _inner=getattr(mod, ref), _wrapper=wrapper, **kwargs):
+                _wrapper.launches += 1
+                return _inner(*args, **kwargs)
+            monkeypatch.setattr(mod, ref, plain)
+    enc = tables.encoder_classes["SANMEncoder"](input_size=16, output_size=32,
+                                                attention_heads=4, linear_units=48,
+                                                num_blocks=2)
+    counters = (fa.flash_attention, fsmn.fsmn_memory, w8a8_linear)
+    for c in counters:
+        c.launches = 7  # set to 0 by served
+
+    def traffic():
+        for t in (20, 9):
+            enc(torch.randn(1, t, 16), torch.tensor([t]))
+        return "answer"
+    run = lambda: chip_smoke.served("stub server", counters, {"enc": (enc, "forward")},
+                                    traffic)
+    if not counted:
+        with pytest.raises(AssertionError, match="bypassed a kernel"):
+            run()
+        assert "forward" not in vars(enc)  # the wrapper is removed on a failure too
+        return
+    out, launches, calls = run()
+    assert (out, calls) == ("answer", {"enc": 2})
+    assert launches == {"flash_attention": 4, "fsmn_memory": 4, "w8a8_linear": 0}
+    assert "forward" not in vars(enc)
 
 
 def test_flash_work_with_a_key_cache_and_row_limits():

@@ -486,3 +486,90 @@ def write_sense_voice_dir(d, seed=0, model=None, conf=SV_CONF):
                            frame_shift=10, lfr_m=7, lfr_n=6, cmvn_file="am.mvn", dither=0.0),
         tokenizer="CharTokenizer",
         tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>")))
+
+
+# ---------------------------------------------------------------------------
+# serving: audio, WAV bodies, multipart forms and localhost clients shared by the
+# server tests (the HTTP client as tests/test_serving.py builds it)
+# ---------------------------------------------------------------------------
+
+FS = 16000
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def speech(seconds, bursts, seed=0, fs=FS):
+    """Tone bursts ((start s, end s, f0), ...) over a near-silent floor, float32."""
+    rng = np.random.default_rng(seed)
+    wav = (rng.standard_normal(int(seconds * fs)) * 1e-6).astype(np.float32)
+    for beg, end, f0 in bursts:
+        i, j = int(beg * fs), int(end * fs)
+        tt = np.arange(j - i) / fs
+        wav[i:j] += (0.3 * np.sin(2 * np.pi * f0 * tt)
+                     * (1 + 0.4 * np.sin(2 * np.pi * 3 * tt))).astype(np.float32)
+    return wav
+
+
+def pcm16(wav):
+    return np.clip(np.round(wav * 32768), -32768, 32767).astype(np.int16)
+
+
+def wav_bytes(samples, fs=FS):
+    import io
+    import wave
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(fs)
+        w.writeframes(pcm16(samples).tobytes())
+    return buf.getvalue()
+
+
+def multipart(data, **fields):
+    """(body, content type) of a form with the WAV ``file`` and text fields."""
+    boundary = "x123"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"a.wav\"\r\nContent-Type: audio/wav\r\n\r\n").encode() + data
+    for name, value in fields.items():
+        body += (f"\r\n--{boundary}\r\nContent-Disposition: form-data; "
+                 f"name=\"{name}\"\r\n\r\n{value}").encode()
+    body += f"\r\n--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def post(port, data, **fields):
+    """POST a transcription request: (HTTP status, JSON payload)."""
+    import json
+    import urllib.request
+    body, ctype = multipart(data, **fields)
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/audio/transcriptions",
+                                 data=body, headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def serve_http(app, requests, workers=8):
+    """Serve ``app`` on a free port and send ``requests`` ([(wav bytes, fields)]) from
+    ``workers`` client threads at once; the (status, payload) of each, in order."""
+    import asyncio
+    import concurrent.futures
+    port = free_port()
+
+    async def scenario():
+        server = await asyncio.start_server(app.handle, "127.0.0.1", port)
+        loop = asyncio.get_running_loop()
+        async with server:
+            with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+                return await asyncio.gather(*[
+                    loop.run_in_executor(pool, lambda r=r: post(port, r[0], **r[1]))
+                    for r in requests])
+
+    return asyncio.run(scenario())
