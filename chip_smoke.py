@@ -8,7 +8,9 @@ and drives the offline Paraformer decode, ``AutoModel(quant="w8a8")``, the defau
 ``AutoModel(model=paraformer_streaming).generate(input=chunk, cache=cache, ...)`` and
 SenseVoice-Small ``AutoModel(model=sensevoice[, vad_model=])`` with the CTC family, and
 the three servers over real localhost sockets: the OpenAI-compatible HTTP app with its
-cross-request batcher, the 2-pass WebSocket server and the realtime WebSocket server.
+cross-request batcher, the 2-pass WebSocket server and the realtime WebSocket server, and
+LLM-based ASR: Fun-ASR-Nano (Qwen3-0.6B on the port's ``LLMEngine``) through ``AutoModel`` and
+``AutoModelVLLM``, and Whisper-large-v3.
 
     python3 chip_smoke.py
 
@@ -148,6 +150,26 @@ Phases (any failure raises and exits non-zero):
    requests/s, latency p50 / p95, the batches, one profiled ``generate`` of a group, the
    2-pass online message's server time per chunk and ``is_speaking: false`` -> final, the
    realtime partial latency.
+14. LLM (``phase_llm``): kernel rows at the LLM path's shapes (``llm_kernel_rows``: flash
+   (16, 4, 289, 128) and FSMN (16, 289, 512), 250 frames valid a row, fp32 and bf16,
+   Fun-ASR-Nano's encoder on 16 x 15 s; ``llm_w8a8_rows``: W8A8 at every (M, K, N) that
+   the counted W8A8 run launched, recorded there by ``w8a8_shapes``: the encoder's and
+   adaptor's linears, fp32 with bias, and each Qwen3-0.6B linear at a decode step's M =
+   16 and each prefill chunk's M, bf16, each with a zero row, bit-exact); a Fun-ASR-Nano
+   dir at full width and depth
+   (``NANO_FULL``: the 50-block SAN-M, the Linear adaptor, Qwen3-0.6B as published; the
+   script's own tokenizer, ``SmokeChatTokenizer``) through ``AutoModel(model=dir,
+   device="cuda").generate`` on 16 x 15 s, 64 new tokens, 16 slots, at fp32 (the
+   default), ``bf16=True`` and ``quant="w8a8"`` (``nano_run``): 16 keyed texts of 64 tokens,
+   each kernel's launches exactly its sites x calls (flash and FSMN 50 an encode, W8A8 202
+   an encode + 196 an LLM forward), no host wait inside the decode step (fp32); RTFx,
+   decode tokens/s, engine steps and host fetches, device ms and idle share of a profiled
+   8-token ``generate`` (decode chunk 8); ``AutoModelVLLM.generate`` on 4 x 15 s, its
+   launches exactly its sites x calls; the CUDA port against the CPU port at a small
+   config (``nano_cuda_vs_cpu``: audio rows, prompt logits within ``LLM_LOGIT_TOL``,
+   greedy ids where the margin clears); Whisper-large-v3 at full width,
+   depth cut to 4 + 4 layers, 2 x 30 s, 32 tokens through ``AutoModel(model=
+   "Whisper-large-v3")`` (``whisper_run``: cached decode = prefix oracle).
 
 Kernel times (phases 3-4): ``ms`` is device time per launch over 20 back-to-back
 launches between one pair of CUDA events, queued behind a spin kernel so that host
@@ -169,13 +191,15 @@ from the fp32 ``AutoModel`` decode, and their rows at the pipeline's shapes unde
 ``pipeline``, launches from phase 8's two requests; every kernel's launches on phase 9's
 meetings under ``speaker``, on phase 10's decodes under ``hotword``, where FSMN adds its
 k = 21 rows, phase 11's under ``streaming``, with the rows at the streaming shapes,
-phase 12's under ``sensevoice``, with the rows at SenseVoice's shapes, and phase 13's under
-``serving``, by server, with the rows at the serving shapes), the last line
+phase 12's under ``sensevoice``, with the rows at SenseVoice's shapes, phase 13's under
+``serving``, by server, with the rows at the serving shapes, and phase 14's under ``llm``,
+by run, with the rows at the LLM path's shapes), the last line
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -623,8 +647,8 @@ def timing_line(row):
 def w8a8_row(x, w_q8, scale, bias, label="w8a8"):
     """One W8A8 kernel row, bit-exact against its plain version, with the library's integer
     product alone (``torch._int_mm`` on the padded int8 operands) and cuBLAS bf16
-    ``F.linear``; bf16 rows print the profile's quantize / GEMM split. Raises on a
-    disagreement."""
+    ``F.linear``; bf16 rows print the profile's quantize / GEMM split. ``bias`` may be
+    None (Qwen's linears have none). Raises on a disagreement."""
     import torch.nn.functional as F
     from funasr_tpu_torch.ops.w8a8 import (plan_w8a8, quantize_rows_int8, w8a8_linear,
                                            w8a8_linear_ref)
@@ -639,14 +663,17 @@ def w8a8_row(x, w_q8, scale, bias, label="w8a8"):
                call_ms=call_ms(lambda: w8a8_linear(x, w_q8, scale, bias)),
                plain_ms=device_ms(lambda: w8a8_linear_ref(x, w_q8, scale, bias), launches=5))
     kp = plan_w8a8(m, k, n, dtype).kp
-    x_q = F.pad(quantize_rows_int8(x)[0], (0, kp - k))
+    # torch._int_mm takes more than 16 rows: a decode step's M = 16 goes in padded to 32
+    x_q = F.pad(quantize_rows_int8(x)[0], (0, kp - k, 0, max(0, 32 - m) if m <= 16 else 0))
     w_p = F.pad(w_q8, (0, kp - k))
+    row["library_rows"] = x_q.shape[0]
     row["library_ms"] = device_ms(lambda: torch._int_mm(x_q, w_p.t()))
     w_bf16 = (w_q8.float() * scale[:, None]).to(torch.bfloat16)
-    xb, bb = x.to(torch.bfloat16), bias.to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    bb = None if bias is None else bias.to(torch.bfloat16)
     row["cublas_bf16_ms"] = device_ms(lambda: F.linear(xb, w_bf16, bb))
-    row["bound_ms"], row["bound_by"] = bound_ms(
-        *w8a8_work(m, k, n, x.element_size(), bias.element_size()), "int8")
+    row["bound_ms"], row["bound_by"] = bound_ms(*w8a8_work(
+        m, k, n, x.element_size(), 0 if bias is None else bias.element_size()), "int8")
     log(f"{label} ({m}, {k}, {n}) {str(dtype)[6:]}: max_abs_err {err:.3e} "
         f"(tol {W8A8_TOL}) " + timing_line(row)
         + f"; cuBLAS bf16 F.linear {row['cublas_bf16_ms']:.4f}")
@@ -1284,7 +1311,8 @@ BICIF_PREDICTOR = dict(PROD_CONF["predictor_conf"], smooth_factor2=0.25, noise_t
 # growth 32, bn_size 4, init 128, blocks 12 / 24 / 16)
 SPK_CONF = dict(feat_dim=80, embedding_size=192, growth_rate=32, bn_size=4, init_channels=128)
 SPEAKER_REQUESTS = 1  # cut from 2, for the run's time limit beside phase 13
-SPEAKER_PROFILE_SECONDS = 60  # the profiled request: request 0's first 60 s
+SPEAKER_PROFILE_SECONDS = 30  # the profiled request: request 0's first 30 s (cut from 60 s,
+#                               for the run's time limit beside phase 14)
 US_ALPHAS_TOL = 1e-4      # fp32 upsampled alphas, CUDA against the CPU (cuDNN LSTM, cuBLAS)
 US_FIRES_MIN_SHARE = 0.99  # fires of running sums within rounding of an integer may move
 SPK_EMB_REL_TOL = 1e-3    # CAM++ embeddings, per chunk, relative L2 (cuDNN conv sum order)
@@ -3844,6 +3872,465 @@ def phase_serving(dev, counters, card, keep):
     return out
 
 
+# ---- phase 14: LLM-based ASR --------------------------------------------------------------
+
+# Fun-ASR-Nano at full width and depth: benchmarks/bench_zoo.py:104-108's SAN-M encoder (50 x
+# 512, 4 heads, FFN 2048, k 11, input 560), the Linear adaptor (downsample 2, FFN 2048) and
+# Qwen3-0.6B as Hugging Face publishes it (Qwen/Qwen3-0.6B config.json)
+NANO_ENCODER = dict(output_size=512, attention_heads=4, linear_units=2048, num_blocks=50,
+                    kernel_size=11, sanm_shfit=0, dropout_rate=0.0)
+QWEN3_0_6B = dict(vocab_size=151936, hidden_size=1024, intermediate_size=3072,
+                  num_hidden_layers=28, num_attention_heads=16, num_key_value_heads=8,
+                  head_dim=128, qk_norm=True, tie_word_embeddings=True, rope_theta=1000000.0,
+                  rms_norm_eps=1e-6)
+NANO_FULL = dict(input_size=560, audio_encoder="SANMEncoder", audio_encoder_conf=NANO_ENCODER,
+                 audio_adaptor="Linear",
+                 audio_adaptor_conf=dict(downsample_rate=2, encoder_dim=512, llm_dim=1024,
+                                         ffn_dim=2048),
+                 llm_conf=QWEN3_0_6B)
+# the CUDA-vs-CPU config: 2 encoder blocks at d 64, a 2-layer Qwen3 at d 128 (GQA 4 / 2)
+NANO_SMALL = dict(NANO_FULL, audio_encoder_conf=dict(NANO_ENCODER, output_size=64,
+                                                     linear_units=96, num_blocks=2),
+                  audio_adaptor_conf=dict(downsample_rate=2, encoder_dim=64, llm_dim=128,
+                                          ffn_dim=128),
+                  llm_conf=dict(QWEN3_0_6B, vocab_size=1000, hidden_size=128,
+                                intermediate_size=256, num_hidden_layers=2,
+                                num_attention_heads=4, num_key_value_heads=2, head_dim=32))
+LLM_SETTINGS = (("fp32", {}), ("bf16", dict(bf16=True)), ("w8a8", dict(quant="w8a8")))
+LLM_BATCH = 16             # utterances of 15 s a generate
+# a fixed-length decode: the random weights' ids never hit an EOS id past the vocabulary
+LLM_CALL = dict(max_new_tokens=64, num_slots=LLM_BATCH,
+                eos_token_ids=(QWEN3_0_6B["vocab_size"],))
+LLM_VLLM_BATCH = 4
+LLM_PROFILE_TOKENS = 8     # the profiled generate's new tokens and decode chunk (nano_run)
+LLM_LOGIT_TOL = 1e-3       # fp32 logits, CUDA against the CPU: as PUNC_LOGIT_TOL
+LLM_MARGIN_FACTOR = 10     # ids gated where the top-2 margin clears 10x the logit error
+# Whisper-large-v3 at full width (d 1280, 20 heads, FFN 5120, 128 mels, vocab 51,866), its
+# depth cut from 32 + 32 to 4 + 4 layers for the run's time limit
+WHISPER_CONF = dict(encoder_layers=4, decoder_layers=4)
+WHISPER_BATCH = 2          # utterances of 30 s
+WHISPER_TOKENS = 32
+WHISPER_PROMPT = [50258, 50259, 50360, 50364]  # <|startoftranscript|><|en|><|transcribe|>...
+WHISPER_EOT = -1           # a fixed-length decode: an id the argmax never gives
+
+
+class SmokeChatTokenizer:
+    """The script's own tokenizer (it must run where ``transformers`` is absent): Qwen's ids
+    for the ChatML specials, one id a character for the rest (its code point modulo
+    150,000); ``decode`` gives one CJK character an id, so a text's length is its ids'."""
+    SPECIAL = {"<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_end|>": 151645}
+
+    def __init__(self, **kwargs):
+        import re
+        self._split = re.compile("(" + "|".join(re.escape(t) for t in self.SPECIAL) + ")")
+
+    def encode(self, text):
+        ids = []
+        for piece in self._split.split(text):
+            ids += ([self.SPECIAL[piece]] if piece in self.SPECIAL
+                    else [ord(c) % 150000 for c in piece])
+        return ids
+
+    def decode(self, ids):
+        return "".join(chr(0x4E00 + int(i) % 20000) for i in ids)
+
+    def get_vocab_size(self):
+        return QWEN3_0_6B["vocab_size"]
+
+
+class SmokeWhisperTokenizer(SmokeChatTokenizer):
+    sot_sequence = tuple(WHISPER_PROMPT)
+
+
+def write_nano_dir(d, dev, conf=NANO_FULL):
+    """A FunASRNano directory: config.yaml (``SmokeChatTokenizer``, WavFrontend with an
+    identity am.mvn) and model.pt of a port model seeded on the card."""
+    from funasr_tpu_torch import tables
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = tables.model_classes["FunASRNano"](**conf, device=dev, generator=g)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(d, "model.pt"))
+    with open(os.path.join(d, "am.mvn"), "w") as f:
+        f.write(identity_cmvn(conf["input_size"]))
+    write_config(d, dict(model="FunASRNano",
+                         **{k: v for k, v in conf.items() if k != "input_size"},
+                         frontend="WavFrontend",
+                         frontend_conf=dict(FRONTEND_CONF, cmvn_file="am.mvn"),
+                         tokenizer="SmokeChatTokenizer"))
+    del model
+    torch.cuda.empty_cache()
+
+
+def llm_kernel_rows(dev, g, t, lens):
+    """Flash (B, 4, T, 128) and FSMN (11, 5) at (B, T, 512) on the v slice, fp32 and
+    bf16, at Fun-ASR-Nano's encoder shapes: B = len(lens) utterances whose features the
+    frontend pads to T frames (its waveform bucket), ``lens`` valid each. Raises on a
+    disagreement."""
+    b, h, d = len(lens), 4, 128
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn(b, t, 3, h, d, generator=g).to(dev, dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        rows[("flash_attention", "llm", dtype)] = flash_row(q, k, v, lens)
+        x = torch.randn(b, t, 3 * 512, generator=g).to(dev, dtype)[..., 2 * 512:]
+        w = (torch.rand(512, 1, 11, generator=g) - 0.5).to(dev, dtype)
+        rows[("fsmn_memory", "llm", dtype)] = fsmn_row(
+            x, w, torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None],
+            5, 5)
+    for key, row in rows.items():
+        tol = (FLASH_TOL if key[0] == "flash_attention" else FSMN_TOL)[key[2]]
+        log(f"{key[0]} llm {row['shape']} {str(key[2])[6:]}: max_abs_err "
+            f"{row['max_abs_err']:.3e} (tol {tol:g}) " + timing_line(row))
+        if not (math.isfinite(row["max_abs_err"]) and row["max_abs_err"] <= tol):
+            raise AssertionError(f"{key} kernel disagrees: {row['max_abs_err']}")
+    return rows
+
+
+@contextlib.contextmanager
+def w8a8_shapes():
+    """Yields a set that gathers (M, K, N, x dtype, bias dtype or None) of every W8A8
+    launch through ``ops/quant.py::qlinear``, the path's only caller of the wrapper,
+    while the block runs."""
+    from funasr_tpu_torch.ops import quant
+
+    inner, seen = quant.w8a8_linear, set()
+
+    def recorded(x, w_q8, scale, bias=None):
+        seen.add((x.numel() // x.shape[-1], x.shape[-1], w_q8.shape[0], x.dtype,
+                  None if bias is None else bias.dtype))
+        return inner(x, w_q8, scale, bias)
+
+    quant.w8a8_linear = recorded
+    try:
+        yield seen
+    finally:
+        quant.w8a8_linear = inner
+
+
+def llm_w8a8_rows(dev, shapes):
+    """One W8A8 row (``w8a8_row``: bit-exact against the plain version) at each (M, K, N,
+    x dtype, bias dtype) of ``shapes``, as the W8A8 run launched them: random int8 weights
+    and scales, a bias where the launch had one, the last row zero."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    rows = {}
+    for m, k, n, dtype, bias_dtype in shapes:
+        w_q8 = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+        scale = torch.rand(n, generator=g, device=dev) * 1e-3
+        x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+        x[-1] = 0
+        bias = (None if bias_dtype is None
+                else torch.randn(n, generator=g, device=dev).to(bias_dtype))
+        rows[("w8a8_linear", "llm", (m, k, n, dtype, bias_dtype))] = w8a8_row(
+            x, w_q8, scale, bias, label="w8a8 llm path")
+    return rows
+
+
+def w8a8_label(shape):
+    """A W8A8 row's label in the kernels line, e.g. "4624x512x1536_float32_bias"."""
+    m, k, n, dtype, bias_dtype = shape
+    return f"{m}x{k}x{n}_{str(dtype)[6:]}" + ("" if bias_dtype is None else "_bias")
+
+
+def count_w8a8(module):
+    from funasr_tpu_torch.ops.quant import Int8Linear
+    return sum(isinstance(m, Int8Linear) and m.key == "w_q8" for m in module.modules())
+
+
+def llm_sites(model, enc_calls, llm_calls):
+    """Launches each kernel must make: flash and FSMN at the encoder's sites a call, W8A8
+    at every W8A8 linear of the encoder and adaptor a call and of the LLM's 28 layers a
+    forward (the vocab head is the tied table, no linear)."""
+    sites = {k: n * enc_calls for k, n in kernel_sites(model.audio_encoder).items()}
+    sites["w8a8_linear"] = ((count_w8a8(model.audio_encoder) + count_w8a8(model.audio_adaptor))
+                            * enc_calls + count_w8a8(model.llm) * llm_calls)
+    return sites
+
+
+def device_loop_lines():
+    """(file, first line, last line) of the functions a decode step runs on the device:
+    ``sync_points`` must find no host wait in them."""
+    import inspect
+
+    from funasr_tpu_torch.llm import engine
+    from funasr_tpu_torch.models.llm import qwen
+
+    spans = []
+    for fn in (qwen.rms_norm, qwen.rope_tables, qwen.apply_rope, qwen.step_tables,
+               qwen.QwenAttention.forward, qwen.QwenMLP.forward, qwen.QwenDecoderLayer.forward,
+               qwen.QwenLM.forward_hidden, qwen.QwenLM.logits_head,
+               engine.LLMEngine._decode_multi):
+        lines, first = inspect.getsourcelines(fn)
+        spans.append((os.path.basename(inspect.getsourcefile(fn)), first, first + len(lines)))
+    return spans
+
+
+def nano_run(am, batch, counters, card, label, seconds):
+    """One setting of Fun-ASR-Nano through ``am.generate`` (16 x 15 s, 64 new tokens each),
+    one counted and timed call (the engine built before it with the call's slots, so that
+    its steps are timed too), the shapes of its W8A8 launches recorded (``w8a8_shapes``,
+    for ``llm_w8a8_rows``). Gates: keyed texts of 64 tokens; each kernel's launches
+    exactly at its sites x calls (``llm_sites``); no host wait inside the decode step
+    (``device_loop_lines``; fp32). Prints RTFx, decode tokens/s over the engine's steps,
+    engine steps and host fetches; device ms and the idle share of one profiled
+    ``generate`` of LLM_PROFILE_TOKENS new tokens with the engine's decode chunk at
+    LLM_PROFILE_TOKENS too (10 LLM forwards where 64 tokens take 66, the same steps: the
+    profiler's processing of a whole call took ~40 s, of a 32-token one 12-17 s)."""
+    keys = [f"utt{i}" for i in range(len(batch))]
+    model = am.model
+    enc_calls = forward_counter(model.audio_encoder)
+    llm_calls = forward_counter(model.llm.model.layers[0])
+    engine = model.engine(num_slots=LLM_CALL["num_slots"])
+    step_ms = []
+    inner_step = engine.step
+
+    def timed_step():
+        t0 = time.perf_counter()
+        out = inner_step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    engine.step = timed_step
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    try:
+        with w8a8_shapes() as shapes:
+            t_med = time.perf_counter()
+            results = am.generate(input=batch, key=keys, **LLM_CALL)
+            torch.cuda.synchronize()
+            t_med = (time.perf_counter() - t_med) * 1e3
+    finally:
+        del engine.step
+    launches = {c.__name__: c.launches for c in counters}
+    n_enc, n_llm = len(enc_calls), len(llm_calls)
+    sites = llm_sites(model, n_enc, n_llm)
+    steps, fetches = engine.n_steps, engine.n_syncs
+    tokens = sum(len(r["text"]) for r in results)
+    llm_ms = sum(step_ms)
+    syncs, in_loop = {}, []
+    short = dict(LLM_CALL, max_new_tokens=LLM_PROFILE_TOKENS)
+    chunk, engine.decode_chunk = engine.decode_chunk, LLM_PROFILE_TOKENS
+    try:
+        if label == "fp32":
+            syncs = sync_points(lambda: am.generate(input=batch, key=keys, **short))
+            spans = device_loop_lines()
+            in_loop = [line for line in syncs if any(
+                line.split(":")[0] == f and a <= int(line.split(":")[1]) < b
+                for f, a, b in spans)]
+        t_short, _ = wall_ms(lambda: am.generate(input=batch, key=keys, **short), runs=1)
+        by_name = profile_once(lambda: am.generate(input=batch, key=keys, **short),
+                               f"Fun-ASR-Nano {label} generate of {LLM_PROFILE_TOKENS} tokens",
+                               t_short)
+    finally:
+        engine.decode_chunk = chunk
+    device = sum(ms for ms, _ in by_name.values())
+    profiled = {name: kernel_totals(by_name, key) for name, key in (
+        ("flash_attention", "flash_"), ("fsmn_memory", "fsmn_kernel"),
+        ("w8a8_linear", "quantize_rows_kernel"))}
+    stats = dict(launches=launches, sites=sites, encoder_calls=n_enc, llm_forwards=n_llm,
+                 wall_ms=t_med, rtfx=len(batch) * seconds * 1e3 / t_med, tokens=tokens,
+                 llm_steps_ms=llm_ms, decode_tokens_per_s=tokens / llm_ms * 1e3,
+                 engine_steps=steps, host_fetches=fetches, sync_lines=dict(syncs),
+                 w8a8_shapes=sorted(shapes, key=str),
+                 profile_tokens=LLM_PROFILE_TOKENS, profile_wall_ms=t_short, device_ms=device,
+                 idle_share=1 - device / t_short,
+                 profile={name: dict(ms=ms, launches=n) for name, (ms, n) in profiled.items()})
+    log(f"Fun-ASR-Nano {label} B={len(batch)} x {seconds:g} s, {LLM_CALL['max_new_tokens']} "
+        f"new tokens: generate {t_med:.2f} ms, RTFx {stats['rtfx']:.1f}; {tokens} tokens over "
+        f"{steps} engine "
+        f"steps ({llm_ms:.2f} ms, {stats['decode_tokens_per_s']:.1f} tokens/s), {fetches} host "
+        f"fetches; {n_enc} encoder calls, {n_llm} LLM forwards; launches {launches} (sites x "
+        f"calls {sites}); {LLM_PROFILE_TOKENS} tokens: wall {t_short:.2f} ms, device "
+        f"{device:.2f} ms, idle share {stats['idle_share']:.1%}, profile {stats['profile']}; "
+        f"host waits {dict(syncs)} on {card}")
+    if [r["key"] for r in results] != keys or not all(
+            len(r["text"]) == LLM_CALL["max_new_tokens"] for r in results):
+        raise AssertionError(f"Fun-ASR-Nano {label}: expected {len(keys)} keyed texts of "
+                             f"{LLM_CALL['max_new_tokens']} tokens: "
+                             f"{[(r['key'], len(r['text'])) for r in results]}")
+    if launches != sites or not all(sites[k] for k in ("flash_attention", "fsmn_memory")):
+        raise AssertionError(f"Fun-ASR-Nano {label}: launches {launches}, expected {sites}")
+    if in_loop:
+        raise AssertionError(f"Fun-ASR-Nano {label}: the decode step waits for the device at "
+                             f"{in_loop}")
+    return stats
+
+
+def nano_cuda_vs_cpu(dev):
+    """NANO_SMALL on the card against its copy on the CPU (fp32, engine in fp32), 2 x 15 s
+    on the same host features: the audio rows within CPU_GPU_ENC_TOL, the LLM's logits over
+    the assembled prompt within LLM_LOGIT_TOL, and the card's greedy ids (16 new tokens)
+    equal to the CPU's argmax over the same teacher-forced sequence on every step up to
+    the first whose top-2 margin does not clear LLM_MARGIN_FACTOR x the logit error."""
+    from funasr_tpu_torch import tables
+    from funasr_tpu_torch.frontends.wav_frontend import WavFrontend
+    from funasr_tpu_torch.llm.engine import LLMEngine
+    from funasr_tpu_torch.models.fun_asr_nano.model import assemble_prompts
+
+    g = torch.Generator().manual_seed(5)
+    cpu = tables.model_classes["FunASRNano"](**NANO_SMALL, generator=g).eval()
+    gpu = copy.deepcopy(cpu).to(dev)
+    waves = [pcm(np.random.default_rng(21 + i), 15.0) for i in range(2)]
+    feats, flens = WavFrontend(**FRONTEND_CONF).extract(waves)
+    tok = SmokeChatTokenizer()
+    prefix_ids, suffix_ids = cpu.build_chatml_ids(tok, cpu.get_prompt())
+    out = {}
+    for name, m in (("cpu", cpu), ("cuda", gpu)):
+        with torch.no_grad():
+            audio, lens = m.encode_audio(torch.from_numpy(feats).to(m.device),
+                                         torch.from_numpy(flens).to(m.device))
+            prompts = assemble_prompts(m.llm.embed(prefix_ids, torch.float32), audio, lens,
+                                       m.llm.embed(suffix_ids, torch.float32))
+            logits = m.llm.forward_embeds(prompts)
+        out[name] = (audio.cpu(), logits.cpu(), prompts, lens.cpu().numpy())
+    enc_err = (out["cpu"][0] - out["cuda"][0]).abs().max().item()
+    logit_err = (out["cpu"][1] - out["cuda"][1]).abs().max().item()
+    prompts, lens = out["cuda"][2], out["cuda"][3]
+    engine = LLMEngine(gpu.llm, num_slots=2, max_len=1024, dtype=torch.float32)
+    p_lens = len(prefix_ids) + lens + len(suffix_ids)
+    reqs = engine.submit_prompt_batch(prompts, p_lens, max_new_tokens=16)
+    while any(not r.done for r in reqs):
+        if not engine.step():
+            break
+    held = total = 0
+    for i, r in enumerate(reqs):  # the CPU's argmax along the card's own ids
+        seq = torch.cat([out["cpu"][2][i, :p_lens[i]],
+                         cpu.llm.embed(r.output_ids[:-1], torch.float32)])
+        with torch.no_grad():
+            rows = cpu.llm.forward_embeds(seq[None])[0, p_lens[i] - 1:]
+        top2 = rows.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > LLM_MARGIN_FACTOR * logit_err
+        for step, tok_id in enumerate(r.output_ids):
+            if not clear[step]:
+                break
+            if int(rows[step].argmax()) != tok_id:
+                raise AssertionError(f"LLM CUDA vs CPU: row {i} step {step}: the card's id "
+                                     f"{tok_id}, the CPU's {int(rows[step].argmax())}")
+            held += 1
+        total += len(r.output_ids)
+    log(f"Fun-ASR-Nano CUDA vs CPU (2 + 2 blocks d 64, Qwen3 2 layers d 128, fp32): audio rows "
+        f"max abs {enc_err:.3e} (tol {CPU_GPU_ENC_TOL:g}), prompt logits max abs "
+        f"{logit_err:.3e} (tol {LLM_LOGIT_TOL:g}), greedy ids equal on {held} of {total} "
+        f"tokens (gated where the top-2 margin clears {LLM_MARGIN_FACTOR}x the logit error)")
+    if not (enc_err <= CPU_GPU_ENC_TOL and logit_err <= LLM_LOGIT_TOL and held > 0):
+        raise AssertionError(f"LLM CUDA vs CPU: audio {enc_err}, logits {logit_err}, held "
+                             f"{held}")
+    return dict(audio_max_abs=enc_err, logit_max_abs=logit_err, ids_held=held, ids=total)
+
+
+def whisper_run(dev, card):
+    """Whisper-large-v3 at full width, depth cut to WHISPER_CONF, seeded, through
+    ``AutoModel(model="Whisper-large-v3")``: 2 x 30 s, 32 tokens by the cached greedy decode.
+    Gates: 2 texts of 32 tokens; the cached decode's ids equal to the prefix-recompute
+    oracle's on the same encoder output. Prints RTFx, wall, device ms, idle share."""
+    from funasr_tpu_torch import AutoModel
+
+    t0 = time.perf_counter()
+    am = AutoModel(model="Whisper-large-v3", model_conf={}, **WHISPER_CONF,
+                   frontend="WhisperFrontend", frontend_conf=dict(n_mels=128),
+                   tokenizer=SmokeWhisperTokenizer(), device="cuda", log_level="WARNING")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(30)
+    batch = [pcm(rng, 30.0) for _ in range(WHISPER_BATCH)]
+    call = dict(max_new_tokens=WHISPER_TOKENS, batch_size=WHISPER_BATCH, eot_id=WHISPER_EOT)
+    am.generate(input=batch, **call)  # warm-up
+    results = am.generate(input=batch, **call)
+    t_med, times = wall_ms(lambda: am.generate(input=batch, **call), runs=2)
+    by_name = profile_once(lambda: am.generate(input=batch, **call), "Whisper generate", t_med)
+    device = sum(ms for ms, _ in by_name.values())
+    m = am.model
+    mel, _ = am.kwargs["frontend"].extract(batch, device=dev)
+    with torch.no_grad():
+        enc, _ = m.encode(mel)
+    cached = m.greedy_decode(enc, WHISPER_PROMPT, WHISPER_EOT, WHISPER_TOKENS)
+    oracle = m.greedy_decode_prefix(enc, WHISPER_PROMPT, WHISPER_EOT, WHISPER_TOKENS)
+    stats = dict(wall_ms=t_med, walls=times, rtfx=WHISPER_BATCH * 30e3 / t_med,
+                 device_ms=device, idle_share=1 - device / t_med, build_s=build_s,
+                 cached_equals_oracle=cached == oracle)
+    log(f"Whisper-large-v3 ({WHISPER_CONF['encoder_layers']} + {WHISPER_CONF['decoder_layers']} "
+        f"layers, d {m.cfg.d_model}) B={WHISPER_BATCH} x 30 s, {WHISPER_TOKENS} tokens: generate "
+        f"median {t_med:.2f} ms (runs {[round(x, 2) for x in times]}), RTFx {stats['rtfx']:.1f}, "
+        f"device {device:.2f} ms, idle share {stats['idle_share']:.1%}; built in {build_s:.1f} s; "
+        f"cached decode = prefix oracle: {cached == oracle} on {card}")
+    if not (len(results) == WHISPER_BATCH and all(len(r["text"]) == WHISPER_TOKENS
+                                                  for r in results) and cached == oracle):
+        raise AssertionError(f"Whisper: texts {[len(r['text']) for r in results]}, cached "
+                             f"{cached} vs oracle {oracle}")
+    return stats
+
+
+def phase_llm(dev, counters, card):
+    """Phase 14: Fun-ASR-Nano at full width (``NANO_FULL``: the 50-block SAN-M, the Linear
+    adaptor, Qwen3-0.6B) through ``AutoModel(model=dir).generate`` on 16 x 15 s, 64 new
+    tokens, at fp32 (the default), ``bf16=True`` and ``quant="w8a8"`` (``nano_run``) and
+    ``AutoModelVLLM.generate`` once; kernel rows at the path's new shapes
+    (``llm_kernel_rows``); the CUDA port against the CPU port at NANO_SMALL
+    (``nano_cuda_vs_cpu``); Whisper-large-v3 at full width, depth cut (``whisper_run``).
+    Returns its figures."""
+    from funasr_tpu_torch import AutoModel, tables
+    from funasr_tpu_torch.auto.auto_model_vllm import AutoModelVLLM
+
+    t0 = time.perf_counter()
+    tables.register("tokenizer_classes", "SmokeChatTokenizer")(SmokeChatTokenizer)
+    rng = np.random.default_rng(14)
+    batch = [pcm(rng, 15.0) for _ in range(LLM_BATCH)]
+    # the encoder's (B, T) as the path's frontend gives it: T padded, the valid lengths
+    feats, flens = tables.frontend_classes["WavFrontend"](**FRONTEND_CONF).extract(batch,
+                                                                                 device=dev)
+    out = {"rows": llm_kernel_rows(dev, torch.Generator().manual_seed(14), feats.shape[1],
+                                   flens.tolist())}
+    del feats
+    log(f"LLM: kernel rows in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as d:
+        t1 = time.perf_counter()
+        write_nano_dir(d, dev)
+        log(f"LLM: Fun-ASR-Nano dir written in {time.perf_counter() - t1:.1f} s")
+        for label, extra in LLM_SETTINGS:
+            t1 = time.perf_counter()
+            am = AutoModel(model=d, device="cuda", batch_size=LLM_BATCH, log_level="WARNING",
+                           **extra)
+            log(f"LLM: AutoModel {label} built in {time.perf_counter() - t1:.1f} s")
+            out[label] = nano_run(am, batch, counters, card, label, 15.0)
+            del am
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        out["rows"].update(llm_w8a8_rows(dev, out["w8a8"]["w8a8_shapes"]))
+        log(f"LLM: W8A8 rows at the {len(out['w8a8']['w8a8_shapes'])} shapes of the W8A8 run "
+            f"in {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        vllm = AutoModelVLLM(model=d, device="cuda", max_num_seqs=LLM_BATCH, log_level="WARNING")
+        enc_calls = forward_counter(vllm.model.audio_encoder)
+        llm_calls = forward_counter(vllm.model.llm.model.layers[0])
+        for c in counters:
+            c.launches = 0
+        res = vllm.generate(batch[:LLM_VLLM_BATCH], max_new_tokens=LLM_CALL["max_new_tokens"],
+                            eos_token_ids=LLM_CALL["eos_token_ids"])
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        sites = llm_sites(vllm.model, len(enc_calls), len(llm_calls))
+        out["vllm"] = dict(launches=launches, sites=sites, encoder_calls=len(enc_calls),
+                           llm_forwards=len(llm_calls), seconds=time.perf_counter() - t1)
+        log(f"LLM: AutoModelVLLM.generate {LLM_VLLM_BATCH} x 15 s (built and run in "
+            f"{out['vllm']['seconds']:.1f} s): texts {[len(r['text']) for r in res]} tokens, "
+            f"{len(enc_calls)} encoder calls, {len(llm_calls)} LLM forwards, launches "
+            f"{launches} (sites x calls {sites})")
+        if len(res) != LLM_VLLM_BATCH or not all(r["text"] for r in res) or launches != sites \
+                or not all(sites[k] for k in ("flash_attention", "fsmn_memory")):
+            raise AssertionError(f"AutoModelVLLM: {res}, {out['vllm']}")
+        del vllm
+        torch.cuda.empty_cache()
+    out["cuda_vs_cpu"] = nano_cuda_vs_cpu(dev)
+    out["whisper"] = whisper_run(dev, card)
+    torch.cuda.empty_cache()
+    out["launches"] = {c.__name__: sum(out[label]["launches"][c.__name__]
+                                       for label, _ in LLM_SETTINGS)
+                       + out["vllm"]["launches"][c.__name__] for c in counters}
+    log(f"LLM: launches over the three AutoModel runs and AutoModelVLLM {out['launches']}, "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    return out
+
+
 # the kernel rows at the streaming shapes: kernel -> [(label, record key)]
 STREAMING_ENTRIES = {
     "flash_attention": [(f"{key}_{dt}", ("flash_attention", "streaming", key, dtype))
@@ -3884,8 +4371,18 @@ PIPELINE_ENTRIES = {
 }
 
 
+# flash's and FSMN's rows at the LLM path's shapes: kernel -> [(label, record key)]; the
+# W8A8 rows are those of the shapes the W8A8 run launched (``llm_w8a8_rows``, ``w8a8_label``)
+LLM_ENTRIES = {
+    "flash_attention": [(dt, ("flash_attention", "llm", dtype))
+                        for dt, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))],
+    "fsmn_memory": [(dt, ("fsmn_memory", "llm", dtype))
+                    for dt, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16))],
+}
+
+
 def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None,
-                 hotword=None, streaming=None, sensevoice=None, serving=None):
+                 hotword=None, streaming=None, sensevoice=None, serving=None, llm=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
@@ -3902,7 +4399,10 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
     each setting, their sum, the profile's device ms per decode, and the kernel's rows at
     SenseVoice's shapes (``SENSEVOICE_ENTRIES``). Phase 13's (``serving``) go under
     ``serving``: each kernel's launches over the four server runs, by server, and flash's and FSMN's
-    rows at the serving shapes (``SERVING_ENTRIES``)."""
+    rows at the serving shapes (``SERVING_ENTRIES``). Phase 14's (``llm``) go under ``llm``:
+    launches of each Fun-ASR-Nano setting and of AutoModelVLLM, the sites x calls each run
+    was held to, and the rows at the LLM path's shapes (``LLM_ENTRIES``; W8A8's at the
+    shapes of the W8A8 run, labelled by ``w8a8_label``)."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -3973,6 +4473,18 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
                 launches=serving["launches"][name],
                 by_server={srv: serving[srv]["launches"][name] for srv in SERVERS},
                 rows={label: serving["rows"][key] for label, key in SERVING_ENTRIES.get(name, ())})
+        if llm:
+            runs = [label for label, _ in LLM_SETTINGS]
+            entry["llm"] = dict(
+                launches=llm["launches"][name],
+                by_run={**{label: llm[label]["launches"][name] for label in runs},
+                        "vllm": llm["vllm"]["launches"][name]},
+                sites_x_calls={**{label: llm[label]["sites"][name] for label in runs},
+                               "vllm": llm["vllm"]["sites"][name]},
+                rows={label: llm["rows"][key] for label, key in LLM_ENTRIES.get(name, ())})
+            if name == "w8a8_linear":
+                entry["llm"]["rows"] = {w8a8_label(key[2]): row for key, row in llm["rows"].items()
+                                        if key[0] == name}
         kernels.append(entry)
     return {"kernels": kernels}
 
@@ -4027,9 +4539,10 @@ def main():
         streaming = timed("streaming", phase_streaming, dev, counters, card, keep)
         sensevoice = timed("SenseVoice", phase_sensevoice, dev, counters, card)
         serving = timed("serving", phase_serving, dev, counters, card, keep)
+    llm = timed("LLM", phase_llm, dev, counters, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
-                                  speaker, hotword, streaming, sensevoice, serving),
+                                  speaker, hotword, streaming, sensevoice, serving, llm),
                      default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slices 1-10: offline
+"""funasr_tpu_torch: the PyTorch + CUDA port of funasr_tpu (slices 1-11: offline
 Paraformer, ``AutoModel`` with bf16 and int8 / W8A8 quantization, the VAD -> ASR ->
 punctuation pipeline with FSMN-VAD and CT-Transformer, speaker-attributed
 transcription: BiCif-Paraformer timestamps, CAM++ and its clustering, hotword
@@ -7,7 +7,9 @@ streaming: ParaformerStreaming and the realtime punctuation model through ``cach
 and SenseVoice-Small with the CTC family: the CTC model, Paraformer's CTC head,
 Paraformer-v2, E-Paraformer and the fa-zh aligner, and serving: the OpenAI-compatible
 HTTP server with cross-request batching, the 2-pass and realtime WebSocket servers, the
-inference and benchmark CLIs under ``funasr_tpu_torch.bin``, and ``AutoFrontend``).
+inference and benchmark CLIs under ``funasr_tpu_torch.bin``, and ``AutoFrontend``, and
+LLM-based ASR: Qwen2 / Qwen3 under the continuous-batching ``LLMEngine``, Fun-ASR-Nano
+through ``AutoModel`` and ``AutoModelVLLM``, the LLMASR family and Whisper).
 
 Imports torch, numpy and scipy, never jax, ``funasr_tpu`` or scikit-learn. The public
 entry point:
@@ -29,6 +31,9 @@ entry point:
 
     model = AutoModel(model="<fa-zh dir>", device="cuda")
     res = model.generate(input=[("a.wav", "transcript of a")])  # res[0]["timestamp"]
+
+    model = AutoModel(model="<fun-asr-nano dir>", device="cuda")
+    res = model.generate(input=["a.wav"], batch_size=16, num_slots=16, max_new_tokens=256)
 
     model = AutoModel(model="<paraformer streaming dir>", device="cuda")
     cache = {}
@@ -60,6 +65,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from funasr_tpu_torch.frontends import wav_frontend  # noqa: E402,F401
+from funasr_tpu_torch.frontends import whisper_frontend  # noqa: E402,F401
 from funasr_tpu_torch.models.bicif_paraformer import model as bicif_model  # noqa: E402,F401
 from funasr_tpu_torch.models.campplus import model as campplus_model  # noqa: E402,F401
 from funasr_tpu_torch.models.contextual_paraformer import model as ctx_model  # noqa: E402,F401
@@ -68,6 +74,8 @@ from funasr_tpu_torch.models.ct_transformer_streaming import model as ct_stream 
 from funasr_tpu_torch.models.ctc import model as ctc_model  # noqa: E402,F401
 from funasr_tpu_torch.models.e_paraformer import model as e_paraformer  # noqa: E402,F401
 from funasr_tpu_torch.models.fsmn_vad_streaming import model as vad_model  # noqa: E402,F401
+from funasr_tpu_torch.models.fun_asr_nano import model as fun_asr_nano  # noqa: E402,F401
+from funasr_tpu_torch.models.llm_asr import model as llm_asr  # noqa: E402,F401
 from funasr_tpu_torch.models.monotonic_aligner import model as aligner  # noqa: E402,F401
 from funasr_tpu_torch.models.paraformer import cif_predictor, decoder, model  # noqa: E402,F401
 from funasr_tpu_torch.models.paraformer import san_decoder  # noqa: E402,F401
@@ -76,7 +84,11 @@ from funasr_tpu_torch.models.paraformer_v2 import model as paraformer_v2  # noqa
 from funasr_tpu_torch.models.seaco_paraformer import model as seaco_model  # noqa: E402,F401
 from funasr_tpu_torch.models.sanm import encoder  # noqa: E402,F401
 from funasr_tpu_torch.models.sense_voice import model as sense_voice  # noqa: E402,F401
+from funasr_tpu_torch.models.whisper import encoders as whisper_encoders  # noqa: E402,F401
+from funasr_tpu_torch.models.whisper import model as whisper  # noqa: E402,F401
 from funasr_tpu_torch.tokenizer import char_tokenizer  # noqa: E402,F401
+from funasr_tpu_torch.tokenizer import extra_tokenizers  # noqa: E402,F401
+from funasr_tpu_torch.tokenizer import hf_tokenizer  # noqa: E402,F401
 from funasr_tpu_torch.tokenizer import sentencepiece_tokenizer  # noqa: E402,F401
 from funasr_tpu_torch import parity  # noqa: E402,F401  (aliases, after every class)
 from funasr_tpu_torch.auto.auto_model import AutoModel  # noqa: E402

@@ -27,6 +27,10 @@ distributed over the sentences into ``sentence_info`` (``spk``, ``start``, ``end
 ``text``), else ``sentence_info`` when ``sentence_timestamp``. ITN (ROADMAP item 23) and
 ``export`` raise ``NotImplementedError``.
 
+``inference`` keeps each batch's speed stats (load and feature seconds, ``forward``:
+that batch's own dispatch plus its own fetch, ``rtf``) of its last call in
+``self.batch_stats``.
+
 ``generate`` keeps each call's configuration in ``self.kwargs`` (reset and rewritten by
 every call, the streaming ``cache`` included), as the JAX package does; the port's servers
 call one ``AutoModel`` from several executor threads, so ``generate``, ``inference`` and
@@ -55,6 +59,10 @@ from funasr_tpu_torch.download.download_model_from_hub import download_model
 from funasr_tpu_torch.register import tables
 from funasr_tpu_torch.utils.misc import deep_update
 from funasr_tpu_torch.utils.vad_utils import merge_vad, slice_padding_audio_samples
+
+# models of the JAX package that the port leaves unbound, with the reason
+NOT_PORTED = {"GLMASR": "GLM-ASR's audio encoder, TransformerEncoder, is not ported yet "
+                        "(ROADMAP item 22)"}
 
 
 def _join_vad_texts(texts) -> str:
@@ -221,8 +229,10 @@ class AutoModel:
         model_class_name = kwargs["model"]
         model_class = tables.model_classes.get(model_class_name)
         if model_class is None:
-            raise RuntimeError(f"model '{model_class_name}' is not ported. Ported: "
-                               f"{sorted(tables.model_classes)}")
+            why = NOT_PORTED.get(model_class_name)
+            raise RuntimeError(f"model '{model_class_name}' is not ported"
+                               + (f": {why}" if why else
+                                  f". Ported: {sorted(tables.model_classes)}"))
         model_conf: Dict[str, Any] = {}
         deep_update(model_conf, kwargs.get("model_conf", {}))
         deep_update(model_conf, kwargs)
@@ -300,47 +310,57 @@ class AutoModel:
             input, input_len=input_len, data_type=kwargs.get("data_type"), key=key)
 
         results_all: List[dict] = []
-        speed_stats: Dict[str, Any] = {}
+        self.batch_stats: List[Dict[str, Any]] = []
         n = len(data_list)
         time_speech, time_escape = 1e-9, 0.0
         # double-buffered batch loop (auto_model.py:317-357): batch k + 1 is loaded,
         # featurized and launched before batch k's results are fetched, so the host
         # work of one overlaps the device work of the other. Launches are
-        # asynchronous, so one stream suffices.
+        # asynchronous, so one stream suffices. A batch's ``forward`` time is its own
+        # dispatch plus its own fetch: the dispatch of batch k + 1, which runs between
+        # them, is not counted in batch k's (the JAX package times batch k from its
+        # dispatch to its fetch, ``auto_model.py:329-345``).
         dispatch = dispatch_pair(model)
         pipelined = dispatch is not None and n > batch_size
 
-        def _finish(res, t1, end):
+        def _finish(res, forward_s, end):
             nonlocal time_speech, time_escape
             results, meta = (res if isinstance(res, tuple) else (res, {}))
-            t2 = time.perf_counter()
             results_all.extend(results)
             bdt = meta.get("batch_data_time", -1)
-            speed_stats.update(load_data=meta.get("load_data", 0.0),
-                               extract_feat=meta.get("extract_feat", 0.0),
-                               forward=f"{t2 - t1:0.3f}", batch_size=len(results),
-                               rtf=f"{(t2 - t1) / bdt:0.3f}" if bdt and bdt > 0 else "-")
+            self.batch_stats.append(dict(
+                load_data=meta.get("load_data", 0.0), extract_feat=meta.get("extract_feat", 0.0),
+                forward=f"{forward_s:0.3f}", batch_size=len(results),
+                rtf=f"{forward_s / bdt:0.3f}" if bdt and bdt > 0 else "-"))
             if progress_callback:
                 progress_callback(end, n)
             if bdt and bdt > 0:
                 time_speech += bdt
-            time_escape += t2 - t1
+            time_escape += forward_s
 
-        pending = None  # (handle, t1, end) of the in-flight batch
+        def _fetch(pending):
+            handle, dispatch_s, end = pending
+            t0 = time.perf_counter()
+            res = dispatch[1](handle)
+            _finish(res, dispatch_s + time.perf_counter() - t0, end)
+
+        pending = None  # (handle, dispatch seconds, end) of the in-flight batch
         for beg in range(0, n, batch_size):
             end = min(n, beg + batch_size)
             batch = {"data_in": data_list[beg:end], "key": key_list[beg:end]}
             t1 = time.perf_counter()
             if pipelined:
                 handle = dispatch[0](**batch, **_strip(kwargs))
+                dispatched = (handle, time.perf_counter() - t1, end)
                 if pending is not None:
-                    _finish(dispatch[1](pending[0]), pending[1], pending[2])
-                pending = (handle, t1, end)
+                    _fetch(pending)
+                pending = dispatched
             else:
-                _finish(model.inference(**batch, **_strip(kwargs)), t1, end)
+                res = model.inference(**batch, **_strip(kwargs))
+                _finish(res, time.perf_counter() - t1, end)
         if pending is not None:
-            _finish(dispatch[1](pending[0]), pending[1], pending[2])
-        logging.debug("speed_stats: %s rtf_avg=%.3f", speed_stats,
+            _fetch(pending)
+        logging.debug("speed_stats: %s rtf_avg=%.3f", self.batch_stats[-1:],
                       time_escape / time_speech)
         return results_all
 

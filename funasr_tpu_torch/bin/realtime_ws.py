@@ -25,10 +25,16 @@ Rebuild of FunASR ``funasr/bin/realtime_ws.py`` (1261 LoC):
   HybridSpeakerTracker online diarization, forced finalize at
   ``max_utterance_sec`` (memory bound for endpoint-less streams).
 
-Runs on the stdlib websocket implementation. One departure from the JAX copy: a VAD
-worker that fails (a CUDA error, say) logs the exception and closes the session with
-code 1011 instead of ending silently, so that the session cannot go on without
-endpoints.
+Runs on the stdlib websocket implementation. Two departures from the JAX copy:
+
+* a VAD worker that fails (a CUDA error, say) logs the exception and closes the session
+  with code 1011 instead of ending silently, so that the session cannot go on without
+  endpoints;
+* an endpoint final ends at the endpoint's sample. The VAD's event carries the
+  endpoint's time, the worker turns it into a sample of the session, and ``_finalize``
+  splits the utterance's audio there: what came after it (audio that arrived while the
+  worker lagged behind the socket) starts the next utterance. The JAX server decodes all
+  of the buffered audio, so the next utterance's start is glued onto the final.
 """
 
 from __future__ import annotations
@@ -100,6 +106,8 @@ class RealtimeSession:
         self.server = server
         self.endpoint_mode = endpoint_mode
         self.audio = np.zeros((0,), np.float32)   # current utterance
+        self.audio_start = 0                      # session sample of audio[0]
+        self.vad_origin = 0                       # session sample of the VAD's time 0
         self.total_samples = 0
         self.last_decode_samples = 0
         self.first_decode_done = False
@@ -253,9 +261,10 @@ class RealtimeWSServer:
                 events = await loop.run_in_executor(
                     None, lambda f=feed: sess.vad.feed(f))
                 for ev in events:
-                    if ev[1] != -1:  # endpoint
+                    if ev[1] != -1:  # endpoint, in ms of the VAD's stream
+                        end = sess.vad_origin + int(ev[1]) * self.sample_rate // 1000
                         async with sess.fin_lock:
-                            await self._finalize(ws, sess, tracker, loop)
+                            await self._finalize(ws, sess, tracker, loop, end_sample=end)
         except asyncio.CancelledError:
             pass
         except ConnectionClosed:
@@ -340,11 +349,17 @@ class RealtimeWSServer:
                 sess.vad = None
             elif sess.vad is None:
                 sess.vad = self.make_vad()
+                sess.vad_origin = sess.total_samples
         return True
 
-    async def _finalize(self, ws, sess, tracker, loop):
-        audio = sess.audio
-        sess.audio = np.zeros((0,), np.float32)
+    async def _finalize(self, ws, sess, tracker, loop, end_sample=None):
+        """Decode and send the pending utterance: all of ``sess.audio``, or, at a VAD
+        endpoint, its samples before the session sample ``end_sample``; the rest stays
+        as the next utterance's start."""
+        split = len(sess.audio) if end_sample is None else min(
+            max(end_sample - sess.audio_start, 0), len(sess.audio))
+        audio, sess.audio = sess.audio[:split], sess.audio[split:]
+        sess.audio_start += split
         sess.last_decode_samples = sess.total_samples
         sess.first_decode_done = False
         sess.last_partial_norm = ""
@@ -357,7 +372,7 @@ class RealtimeWSServer:
         text = await loop.run_in_executor(
             None, lambda: self._decode(audio, sess.hotword, **cfg))
         spk = tracker.assign(audio) if tracker is not None else None
-        end_ms = sess.total_samples * 1000 // self.sample_rate
+        end_ms = sess.audio_start * 1000 // self.sample_rate
         payload = {"type": "final", "text": text, "utt": sess.utt_index,
                    "start_ms": sess.start_ms, "end_ms": end_ms,
                    "is_final": True}

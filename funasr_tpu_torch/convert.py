@@ -4,7 +4,8 @@ The inverse of ``funasr_tpu/convert/torch_to_jax.py``'s ``convert_paraformer`` (
 BiCif predictor's head, the PIF predictor and the CTC head included, ``:154-192``),
 ``convert_fsmn_vad``, ``convert_ct_transformer``, ``convert_campplus`` (``:244-288``),
 ``convert_sense_voice``, ``convert_paraformer_v2`` and ``convert_monotonic_aligner``
-(``:339-401, 564``): it takes the JAX
+(``:339-401, 564``), ``convert_fun_asr_nano`` (FunASRNano and the LLMASR family, ``:688``)
+and ``convert_whisper`` (``:735``; Hugging Face names): it takes the JAX
 package's parameter tree (as numpy arrays) and gives the tensors that the port model's
 ``load_state_dict`` takes, under FunASR's state-dict names. Layouts:
 
@@ -37,6 +38,11 @@ package's parameter tree (as numpy arrays) and gives the tensors that the port m
   ``num_batches_tracked``; the FCM blocks ``head.layer{1,2}.{i}`` (0-based) with
   ``shortcut.0`` / ``shortcut.1``, the dense layers ``xvector.block{i}.tdnnd{j}``
   (1-based), every batch norm of the trunk under ``.batchnorm``;
+* Qwen (``convert_hf_qwen``'s tree) -> Hugging Face names under ``llm.``: bare norm
+  weights -> ``.weight``; stacked MoE experts (E, in, out) -> ``mlp.experts.J.*`` (out,
+  in); whisper towers -> OpenAI names (``blocks.N.attn.query``, ``mlp.0``, ``ln_post``);
+  Whisper -> Hugging Face names, the encoder's sinusoids computed, as the JAX package
+  computes them;
 * int8 linears of ``ops/quant.py::quantize_params_int8`` (``{w_q8 | w_q, scale[, b]}``)
   -> ``Int8Linear`` tensors: ``w_q8`` / ``w_q`` (in, out) -> (out, in), kept int8.
   The target model is quantized first (``funasr_tpu_torch.ops.quant``, same mode), so
@@ -247,26 +253,140 @@ def _campplus(tree, target, out):
         bn("xvector.dense.nonlinear.batchnorm.", xv["dense"]["nonlinear"])
 
 
+_MHA = {"linear_q": "q_proj", "linear_k": "k_proj", "linear_v": "v_proj",
+        "linear_out": "out_proj"}
+_TOWER_MHA = {"linear_q": "query", "linear_k": "key", "linear_v": "value", "linear_out": "out"}
+
+
+def _mha(p, prefix, names, target, out):
+    for jname, tname in names.items():
+        out.update(_leaf(p[jname], f"{prefix}{tname}.", target))
+
+
+def _qwen(tree, prefix, target, out):
+    """A ``QwenLM`` tree (``convert_hf_qwen``'s layout) -> Hugging Face names under
+    ``prefix``; MoE experts stacked (E, in, out) -> ``mlp.experts.J.*``."""
+    out[f"{prefix}model.embed_tokens.weight"] = tree["embed_tokens"]
+    out[f"{prefix}model.norm.weight"] = tree["norm"]
+    for i, lp in enumerate(tree["layers"]):
+        pre = f"{prefix}model.layers.{i}."
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            out[f"{pre}{name}.weight"] = lp[name]
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            out.update(_leaf(lp[name], f"{pre}self_attn.{name}.", target))
+        for name in ("q_norm", "k_norm"):
+            if name in lp:
+                out[f"{pre}self_attn.{name}.weight"] = lp[name]
+        if "experts" in lp:
+            out.update(_leaf(lp["gate"], f"{pre}mlp.gate.", target))
+            for name, p in lp["experts"].items():
+                for j, w in enumerate(np.asarray(p["w"])):
+                    out[f"{pre}mlp.experts.{j}.{name}.weight"] = w.T
+        else:
+            for name in ("gate_proj", "up_proj", "down_proj"):
+                out.update(_leaf(lp[name], f"{pre}mlp.{name}.", target))
+    if "lm_head" in tree:
+        out.update(_leaf(tree["lm_head"], f"{prefix}lm_head.", target))
+
+
+def _adaptor(tree, prefix, target, out):
+    """Linear / Transformer / QFormer adaptors: leaves by name, ``blocks`` and
+    ``layers`` lists -> ``name.{i}``, QFormer's ``queries`` as it is."""
+    for name, sub in tree.items():
+        if isinstance(sub, list):
+            for i, block in enumerate(sub):
+                _walk(block, f"{prefix}{name}.{i}.", target, out)
+        elif isinstance(sub, dict):
+            _walk(sub, f"{prefix}{name}.", target, out)
+        else:
+            out[f"{prefix}{name}"] = sub
+
+
+def _whisper_tower(tree, prefix, target, out):
+    """``OpenAIWhisperEncoderWarp`` / ``QwenAudioEncoder`` -> OpenAI whisper names."""
+    for name in ("conv1", "conv2", "ln_post", "proj"):
+        if name in tree:
+            out.update(_leaf(tree[name], f"{prefix}{name}.", target))
+    for i, lp in enumerate(tree["layers"]):
+        pre = f"{prefix}blocks.{i}."
+        _mha(lp["self_attn"], pre + "attn.", _TOWER_MHA, target, out)
+        out.update(_leaf(lp["self_attn_layer_norm"], pre + "attn_ln.", target))
+        out.update(_leaf(lp["final_layer_norm"], pre + "mlp_ln.", target))
+        out.update(_leaf(lp["fc1"], pre + "mlp.0.", target))
+        out.update(_leaf(lp["fc2"], pre + "mlp.2.", target))
+    if "audio_bos_eos_token" in tree:
+        out[f"{prefix}audio_bos_eos_token.weight"] = tree["audio_bos_eos_token"]
+
+
+def _llm_asr(tree, target, out):
+    """FunASRNano and the LLMASR family: the SAN-M (or whisper-tower) encoder, the
+    adaptors, the Qwen LM and the CTC head."""
+    enc = tree["audio_encoder"]
+    if "conv1" in enc:
+        _whisper_tower(enc, "audio_encoder.", target, out)
+    else:
+        _walk(enc, "audio_encoder.", target, out)
+    for name in ("audio_adaptor", "ctc_decoder"):
+        if name in tree:
+            _adaptor(tree[name], f"{name}.", target, out)
+    _qwen(tree["llm"], "llm.", target, out)
+    if "ctc" in tree:
+        _walk(tree["ctc"], "ctc.", target, out)
+
+
+def _whisper(tree, target, out):
+    """WhisperModel -> Hugging Face names; the encoder's sinusoid table, which the JAX
+    package computes, from ``models/whisper/model.py::sinusoids``."""
+    from funasr_tpu_torch.models.whisper.model import sinusoids
+
+    for side in ("encoder", "decoder"):
+        t, pre = tree[side], f"model.{side}."
+        for name in ("conv1", "conv2", "layer_norm"):
+            if name in t:
+                out.update(_leaf(t[name], f"{pre}{name}.", target))
+        for i, lp in enumerate(t["layers"]):
+            lpre = f"{pre}layers.{i}."
+            for attn in ("self_attn", "encoder_attn"):
+                if attn in lp:
+                    _mha(lp[attn], f"{lpre}{attn}.", _MHA, target, out)
+            for name in ("self_attn_layer_norm", "encoder_attn_layer_norm", "final_layer_norm",
+                         "fc1", "fc2"):
+                if name in lp:
+                    out.update(_leaf(lp[name], f"{lpre}{name}.", target))
+    enc_pos = target["model.encoder.embed_positions.weight"]
+    out["model.encoder.embed_positions.weight"] = sinusoids(*enc_pos.shape)
+    out["model.decoder.embed_tokens.weight"] = tree["decoder"]["embed_tokens"]
+    out["model.decoder.embed_positions.weight"] = tree["decoder"]["embed_positions"]
+
+
+_LLM_ASR_NAMES = ("FunASRNano", "LLMASR", "LLMASR2", "LLMASR3", "LLMASR4", "LLMASRNAR",
+                  "LLMASRNARPrompt", "LLMASRVersions", "Qwen3ASR", "QwenAudio", "MinMo")
+
 _BY_MODEL = {"FsmnVADStreaming": _fsmn_vad, "CTTransformer": _ct_transformer,
              "CTTransformerStreaming": _ct_transformer,
              "BiCifParaformer": _bicif, "CAMPPlus": _campplus, "SeacoParaformer": _seaco,
              "ContextualParaformer": _contextual, "SenseVoiceSmall": _sense_voice,
-             "ParaformerV2": _paraformer_v2, "MonotonicAligner": _bicif}
+             "ParaformerV2": _paraformer_v2, "MonotonicAligner": _bicif,
+             "WhisperModel": _whisper, **{name: _llm_asr for name in _LLM_ASR_NAMES}}
 
 
 def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """JAX params (nested dict of arrays) of a Paraformer (a CTC head included),
     BiCifParaformer, ParaformerStreaming (Paraformer's layout), SeacoParaformer,
     ContextualParaformer, FsmnVADStreaming, CTTransformer, CTTransformerStreaming,
-    CAMPPlus, SenseVoiceSmall, CTCModel, ParaformerV2, EParaformer or MonotonicAligner
-    -> ``model``'s state dict.
+    CAMPPlus, SenseVoiceSmall, CTCModel, ParaformerV2, EParaformer, MonotonicAligner,
+    FunASRNano, the LLMASR family or a WhisperModel of any size -> ``model``'s state
+    dict.
 
     Int8 and int64 tensors keep their type, every other leaf becomes fp32. Raises if the names or
     shapes do not match ``model.state_dict()`` exactly.
     """
     target = model.state_dict()
     out: Dict[str, np.ndarray] = {}
-    _BY_MODEL.get(type(model).__name__, _generic)(np_params, target, out)
+    # the nearest class with a converter: each Whisper size subclasses WhisperModel
+    fn = next((_BY_MODEL[c.__name__] for c in type(model).__mro__ if c.__name__ in _BY_MODEL),
+              _generic)
+    fn(np_params, target, out)
     if set(out) != set(target):
         raise KeyError(f"parameter names differ: missing {sorted(set(target) - set(out))}, "
                        f"unexpected {sorted(set(out) - set(target))}")

@@ -54,15 +54,15 @@ def layer_norm(x, weight, bias, eps: float = LN_EPS):
     return y.to(x.dtype)
 
 
-def conv1d(x, weight, bias=None, *, left_pad: int = 0, right_pad: int = 0):
-    """Full conv1d, x (B, T, C_in) -> (B, T', C_out), zero padding, stride 1.
+def conv1d(x, weight, bias=None, *, left_pad: int = 0, right_pad: int = 0, stride: int = 1):
+    """Full conv1d, x (B, T, C_in) -> (B, T', C_out), zero padding.
 
     Runs as one GEMM over the unfolded (T', C_in * K) windows, so it follows ``linear``'s
     numerics and never reaches cuDNN (whose fp32 convolutions default to TF32).
     """
     c_out, c_in, k = weight.shape
     xp = F.pad(x, (0, 0, left_pad, right_pad))
-    win = xp.unfold(1, k, 1)  # (B, T', C_in, K)
+    win = xp.unfold(1, k, stride)  # (B, T', C_in, K)
     return linear(win.reshape(*win.shape[:2], c_in * k), weight.reshape(c_out, c_in * k),
                   bias)
 

@@ -6,6 +6,11 @@ ctc_forced_align.py``), held to the original by ``tests/test_torch_ctc_family.py
 alignment tables are small (T x 2L + 1) beside the model's work. The JAX package's device
 viterbi, ``ctc_forced_align_jax``, serves only Paraformer-v2's training loss
 (``paraformer_v2/model.py::forward_jit``) and comes with the training slice.
+
+One departure from the JAX copy: an empty target aligns to the all-blank path. The JAX
+function raises there (its skip candidates are built two states wide for a graph of one
+blank state), and so does ``ctc_forced_align_batch`` for a row whose target is all
+padding.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ def ctc_forced_align(log_probs: np.ndarray, targets: np.ndarray,
     l_len = target_length if target_length is not None else targets.shape[0]
     log_probs = log_probs[:t_len]
     targets = targets[:l_len]
+    if l_len == 0:  # one blank state: every frame is blank
+        return np.full(t_len, blank_id, np.int64)
 
     # extended sequence: blank l1 blank l2 ... blank lL blank
     ext = np.full((2 * l_len + 1,), blank_id, np.int64)

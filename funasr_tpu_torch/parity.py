@@ -3,7 +3,8 @@
 
 FunASR registers export wrappers (``*Export``) and recipe spellings of the same code
 under names of their own. The alias list below is the JAX package's
-(``funasr_tpu/parity.py:23-54``) for the encoder and decoder tables; as there, an alias
+(``funasr_tpu/parity.py:23-54``) for the encoder and decoder tables and its model keys
+(``:63-84``: whisper spellings, the LLM family's hub paths); as there, an alias
 is bound only when its target is registered and the name is not, so it grows with the
 port. Two entries are left out because the reference binds their names to classes of
 their own, which the port does not have yet: ``FsmnDecoderSCAMAOpt`` (the SCAMA decoder
@@ -44,10 +45,30 @@ def _alias(table: str, name: str, target: str):
         tbl[name] = tbl[target]
 
 
+# model keys (``parity.py:63-84``): whisper size spellings, each to its size or else to
+# large-v3, and hub paths / brand spellings of the LLM family
+WHISPER_SPELLINGS = ["tiny", "tiny.en", "base", "base.en", "small", "small.en", "medium",
+                     "medium.en", "large-v1", "large-v2", "large-v3", "large-v3-turbo"]
+MODEL_ALIASES = [
+    ("Qwen-Audio", "QwenAudio"), ("Qwen/Qwen-Audio", "QwenAudio"),
+    ("Qwen/QwenAudio", "QwenAudio"), ("Qwen-Audio-Chat", "QwenAudioChat"),
+    ("Qwen/Qwen-Audio-Chat", "QwenAudioChat"), ("Qwen/QwenAudioChat", "QwenAudioChat"),
+    ("QwenAudioChatWarp", "QwenAudioChat"),
+    ("Qwen/Qwen3-ASR-0.6B", "Qwen3ASR"), ("Qwen/Qwen3-ASR-1.7B", "Qwen3ASR"),
+    ("ZhipuAI/GLM-ASR-Nano-2512", "GLMASR"), ("zai-org/GLM-ASR-Nano-2512", "GLMASR"),
+    ("iic/speech_eres2netv2_sv_zh-cn_16k-common", "ERes2NetV2"),
+]
+
+
 def register_parity_aliases():
     for table, pairs in ALIASES.items():
         for name, target in pairs:
             _alias(table, name, target)
+    for size in WHISPER_SPELLINGS:
+        _alias("model_classes", f"Whisper-{size}", f"whisper-{size}")
+        _alias("model_classes", f"Whisper-{size}", "whisper-large-v3")
+    for name, target in MODEL_ALIASES:
+        _alias("model_classes", name, target)
 
 
 register_parity_aliases()

@@ -8,8 +8,9 @@ paths and RIFF bytes (copies of the JAX package's parser: 8/16/24/32-bit integer
 float32, G.711 mu-law and A-law, any channel count), ``.pcm`` paths and raw PCM16 bytes,
 all resampled with ``scipy.signal.resample_poly`` as the JAX package does. The "text"
 data type passes text through (or encodes it with a tokenizer). Compressed containers
-(mp3, flac, ogg, mp4, ...) raise: they need the native codec or ``ffmpeg`` (ROADMAP
-item 9). URLs raise: the port fetches nothing. The fbank data type is not ported.
+(mp3, flac, ogg, mp4, ...) decode through the native runtime's libav codec
+(``utils/native_codec.py``), else an ``ffmpeg`` subprocess, and raise when neither is
+there. URLs raise: the port fetches nothing. The fbank data type is not ported.
 
 Checkpoints: a FunASR ``model.pt`` state dict loads through ``load_state_dict``; a
 pickle of the JAX package's Trainer goes through ``convert.params_from_jax``.
@@ -111,12 +112,37 @@ def is_audio_container(data: bytes) -> bool:
     return False
 
 
+def _ffmpeg_decode(data: bytes, fs: int) -> np.ndarray:
+    """ffmpeg-subprocess fallback (reference load_utils.py:272-306 role)."""
+    import shutil
+    import subprocess
+    if shutil.which("ffmpeg") is None:
+        raise RuntimeError("ffmpeg binary not found")
+    proc = subprocess.run(
+        ["ffmpeg", "-nostdin", "-v", "error", "-i", "pipe:0", "-f", "f32le",
+         "-ac", "1", "-ar", str(fs), "pipe:1"],
+        input=data, stdout=subprocess.PIPE, stderr=subprocess.PIPE, check=False)
+    if proc.returncode != 0 or not proc.stdout:
+        raise RuntimeError(f"ffmpeg decode failed: {proc.stderr[:200]!r}")
+    return np.frombuffer(proc.stdout, np.float32).copy()
+
+
 def decode_container(data: bytes, fs: int) -> np.ndarray:
-    """Compressed containers are not ported: the JAX package decodes them with its
-    native runtime's libav or ``ffmpeg`` (``load_utils.py:122-138``)."""
-    raise NotImplementedError(
-        "compressed audio (mp3/flac/ogg/mp4/...) is not ported (ROADMAP item 9): "
-        "pass WAV, PCM or a waveform")
+    """Compressed container bytes (mp3/flac/ogg/mp4/webm/opus) -> mono f32 @ fs, by the
+    JAX package's chain (``load_utils.py:122-138``): the native runtime's codec (libav*
+    through ctypes, ``utils/native_codec.py``), then an ``ffmpeg`` subprocess. WAV is
+    parsed before reaching here."""
+    from funasr_tpu_torch.utils import native_codec
+    wav = native_codec.decode_bytes(data, target_rate=fs)
+    if wav is not None:
+        return wav
+    try:
+        return _ffmpeg_decode(data, fs)
+    except RuntimeError as e:
+        raise RuntimeError(
+            "cannot decode compressed audio: build the native runtime "
+            "(runtime/funasr_tpu_runtime, links system libav*) or install "
+            f"ffmpeg ({e})") from e
 
 
 def resample(wav: np.ndarray, orig_fs: int, target_fs: int) -> np.ndarray:

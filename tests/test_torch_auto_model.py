@@ -245,9 +245,50 @@ def test_unported_options_raise(model_dir, monkeypatch):
         AutoModel(model=model_dir)  # device defaults to "cuda"; no CPU fallback
 
 
+class _SleepyModel:
+    """A stand-in model with the dispatch / fetch pair: dispatch sleeps DISPATCH_S and
+    fetch FETCH_S; each batch is 1 s of audio."""
+    DISPATCH_S, FETCH_S = 0.12, 0.04
+
+    def inference(self, data_in, key=None, **kwargs):
+        return self.inference_fetch(self.inference_dispatch(data_in, key))
+
+    def inference_dispatch(self, data_in, key=None, **kwargs):
+        import time
+        time.sleep(self.DISPATCH_S)
+        return key
+
+    def inference_fetch(self, handle):
+        import time
+        time.sleep(self.FETCH_S)
+        return [{"key": k, "text": ""} for k in handle], {"batch_data_time": 1.0}
+
+
+def test_batch_stats_time_one_batch_each():
+    """The double-buffered loop dispatches batch k + 1 before it fetches batch k; each
+    batch's ``forward`` must still be its own dispatch plus its own fetch (the JAX
+    package counts batch k + 1's dispatch in batch k's, ROADMAP section 3)."""
+    am = AutoModel.__new__(AutoModel)
+    am._lock = __import__("threading").RLock()
+    kwargs = {"batch_size": 1}
+    stub = _SleepyModel()
+    res = am.inference([np.zeros(16000, np.float32)] * 3, model=stub, kwargs=kwargs,
+                       key=["a", "b", "c"])
+    assert [r["key"] for r in res] == ["a", "b", "c"]
+    one = stub.DISPATCH_S + stub.FETCH_S
+    forwards = [float(b["forward"]) for b in am.batch_stats]
+    assert len(forwards) == 3 and all(b["batch_size"] == 1 for b in am.batch_stats)
+    for f, b in zip(forwards, am.batch_stats):
+        # one batch's time; the overlapped next dispatch would add DISPATCH_S more
+        assert one - 0.005 <= f < one + stub.DISPATCH_S / 2, forwards
+        assert b["rtf"] == f"{f:0.3f}"
+
+
 def test_import_of_auto_model_pulls_in_no_jax():
     """Neither jax, nor the JAX package, nor scikit-learn (the port's clustering,
-    imported here too, is numpy), with the serving modules and ``AutoFrontend``."""
+    imported here too, is numpy), with the serving modules and ``AutoFrontend``; nor, with
+    the LLM slice's modules, ``transformers``, ``tokenizers`` or ``tiktoken``: a GPU host
+    may lack them (the tokenizers import them when built)."""
     code = ("import sys\n"
             "import funasr_tpu_torch\n"
             "from funasr_tpu_torch import AutoModel\n"
@@ -257,9 +298,19 @@ def test_import_of_auto_model_pulls_in_no_jax():
             "                                  inference, realtime_ws, server)\n"
             "from funasr_tpu_torch.serving import batcher, ws_protocol\n"
             "from funasr_tpu_torch.metrics import wer\n"
+            "from funasr_tpu_torch.auto import auto_model_vllm\n"
+            "from funasr_tpu_torch.llm import engine\n"
+            "from funasr_tpu_torch.models.fun_asr_nano import model as nano\n"
+            "from funasr_tpu_torch.models.llm import qwen\n"
+            "from funasr_tpu_torch.models.llm_asr import adaptor, model as llm_asr\n"
+            "from funasr_tpu_torch.models.whisper import encoders, model as whisper\n"
+            "from funasr_tpu_torch.frontends import whisper_frontend\n"
+            "from funasr_tpu_torch.tokenizer import extra_tokenizers, hf_tokenizer\n"
+            "from funasr_tpu_torch.utils import native_codec\n"
             "assert AutoModel is funasr_tpu_torch.AutoModel\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('jax', 'funasr_tpu', 'sklearn'))\n"
+            "             ('jax', 'funasr_tpu', 'sklearn', 'transformers', 'tokenizers',\n"
+            "              'tiktoken'))\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

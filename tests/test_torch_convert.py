@@ -32,6 +32,8 @@ def test_import_pulls_in_no_jax():
         "from funasr_tpu_torch import convert, tables\n"
         "from funasr_tpu_torch.ops import flash_attention, fsmn\n"
         "assert 'Paraformer' in tables.model_classes\n"
+        "assert {'FunASRNano', 'LLMASR', 'QwenAudio', 'whisper-tiny', 'Whisper-large-v3'} \\\n"
+        "    <= set(tables.model_classes)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'funasr_tpu' or m.startswith('funasr_tpu.'))\n"
         "assert not bad, bad\n"

@@ -15,8 +15,8 @@ encoder + 2 decoder blocks, d = 64), the same weights in both packages:
   JAX fetch raises on the predictor's missing fires (ROADMAP section 3);
 * ``MonotonicAligner`` (fa-zh): timestamps equal through both ``AutoModel``s over (audio,
   text) pairs;
-* the copied host functions: ``ctc_forced_align`` / ``ctc_forced_align_batch`` (an empty
-  target and repeated labels included), ``rich_transcription_postprocess``; and the
+* the copied host functions: ``ctc_forced_align`` / ``ctc_forced_align_batch`` (repeated
+  labels included; an empty target, which raises in JAX, aligns to all blanks), ``rich_transcription_postprocess``; and the
   ``SentencepiecesTokenizer`` registration, import-gated.
 """
 
@@ -385,12 +385,16 @@ def test_ctc_forced_align_matches_jax(target):
 
 
 def test_ctc_forced_align_empty_target_raises_as_in_jax():
-    """An empty target (one blank state) fails in both copies: the skip candidates are
-    built two states wide (ROADMAP section 3)."""
+    """An empty target (one blank state) raises in the JAX copy, whose skip candidates
+    are built two states wide (ROADMAP section 3); the port aligns it to the all-blank
+    path."""
     logp = _log_probs(np.random.default_rng(0), (12, 5))
-    for fn in (ctc_align.ctc_forced_align, jalign.ctc_forced_align):
-        with pytest.raises(ValueError, match="same shape"):
-            fn(logp, np.zeros(0, np.int64))
+    with pytest.raises(ValueError, match="same shape"):
+        jalign.ctc_forced_align(logp, np.zeros(0, np.int64))
+    got = ctc_align.ctc_forced_align(logp, np.zeros(0, np.int64))
+    np.testing.assert_array_equal(got, np.zeros(12, np.int64))
+    got = ctc_align.ctc_forced_align(logp, np.zeros(0, np.int64), 7, blank_id=3)
+    np.testing.assert_array_equal(got, np.full(7, 3, np.int64))
 
 
 def test_ctc_forced_align_batch_matches_jax():
@@ -401,9 +405,11 @@ def test_ctc_forced_align_batch_matches_jax():
     np.testing.assert_array_equal(got, jalign.ctc_forced_align_batch(*args))
     assert (got[1, 11:] == 0).all() and (got[2, 7:] == 0).all()  # padded frames blank
     targets[2, 0] = -1  # a row whose target is all padding: empty, as above
-    for fn in (ctc_align.ctc_forced_align_batch, jalign.ctc_forced_align_batch):
-        with pytest.raises(ValueError, match="same shape"):
-            fn(*args)
+    with pytest.raises(ValueError, match="same shape"):
+        jalign.ctc_forced_align_batch(*args)
+    empty = ctc_align.ctc_forced_align_batch(*args)
+    np.testing.assert_array_equal(empty[:2], got[:2])
+    assert (empty[2] == 0).all()
 
 
 @pytest.mark.parametrize("text", [

@@ -11,7 +11,7 @@
   softmax: within the card's tolerance of the plain version, where one TF32 product is
   not;
 * the kernels' JSON line of ``chip_smoke.py``, fp32, pipeline, hotword, streaming,
-  SenseVoice and serving entries included, and phase 13's per-server launch gate
+  SenseVoice, serving and LLM entries included, and phase 13's per-server launch gate
   (``served``);
 * the flash kernel's per-row key limits (``key_limits``): each mode's limits are the JAX
   masks (causal, the "VAD corner") beside the pad mask as row prefixes, and never fall
@@ -35,6 +35,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 SMOKE_LENS = [384 - 37 * (i % 2) for i in range(32)]  # chip_smoke's flash lengths
+QWEN_KN = [(1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024)]
 
 
 @pytest.mark.parametrize("name,work,op_type,want_us,want_by", [
@@ -250,6 +251,54 @@ def test_kernels_line_carries_serving_entries():
     assert kernels["w8a8_linear"]["rows"] == {}
 
 
+def test_kernels_line_carries_llm_entries():
+    """Every kernel carries phase 14's launches under ``llm``: their sum over the three
+    ``AutoModel`` settings and ``AutoModelVLLM``, each run's beside it, the sites x calls
+    each run was held to, and the rows at the LLM path's shapes (W8A8's at each shape
+    that the W8A8 run launched, labelled by ``w8a8_label``)."""
+    row = dict(shape=(1, 2), max_abs_err=0.0, ms=1.0, call_ms=2.0, plain_ms=3.0,
+               library_ms=4.0, bound_ms=0.5, bound_by="bytes")
+    record = {(name, torch.bfloat16): row for name in chip_smoke.LIBRARY_CALLS}
+    launches = {"flash_attention": 50, "fsmn_memory": 50, "w8a8_linear": 0}
+    runs = {label: {"launches": dict(launches), "sites": dict(launches)}
+            for label, _ in chip_smoke.LLM_SETTINGS + (("vllm", None),)}
+    runs["w8a8"]["launches"]["w8a8_linear"] = runs["w8a8"]["sites"]["w8a8_linear"] = 13138
+    shapes = [(4000, 560, 1536, torch.float32, torch.float32)] + [
+        (m, k, n, torch.bfloat16, None) for m in (16, 1024, 2560) for k, n in QWEN_KN]
+    rows = {key: dict(row, ms=5.0) for entries in chip_smoke.LLM_ENTRIES.values()
+            for _, key in entries}
+    rows.update({("w8a8_linear", "llm", shape): dict(row, ms=6.0) for shape in shapes})
+    llm = dict(runs, rows=rows, launches={k: 4 * v + (13138 if k == "w8a8_linear" else 0)
+                                          for k, v in launches.items()})
+    line = chip_smoke.kernels_line(record, launches, {"w8a8_linear": 282}, launches, llm=llm)
+    kernels = {k["name"]: k["llm"] for k in line["kernels"]}
+    for name, entry in kernels.items():
+        assert entry["launches"] == sum(entry["by_run"].values())
+        assert set(entry["by_run"]) == set(entry["sites_x_calls"]) == {
+            "fp32", "bf16", "w8a8", "vllm"}
+    assert kernels["w8a8_linear"]["sites_x_calls"]["w8a8"] == 13138
+    assert set(kernels["w8a8_linear"]["rows"]) == {"4000x560x1536_float32_bias"} | {
+        f"{m}x{k}x{n}_bfloat16" for m in (16, 1024, 2560) for k, n in QWEN_KN}
+    assert set(kernels["flash_attention"]["rows"]) == {"fp32", "bf16"}
+
+
+def test_w8a8_shapes_records_each_launch_and_restores_the_wrapper():
+    """``chip_smoke.w8a8_shapes`` gathers (M, K, N, x dtype, bias dtype) of each W8A8 call
+    through ``qlinear`` (here the plain version, on CPU tensors), and puts the wrapper
+    back when the block ends."""
+    from funasr_tpu_torch.ops import quant
+
+    inner = quant.w8a8_linear
+    with_bias = quant.quantize_linear_int8(torch.nn.Linear(256, 384), key="w_q8")
+    no_bias = quant.quantize_linear_int8(torch.nn.Linear(384, 256, bias=False), key="w_q8")
+    x = torch.randn(2, 3, 256)
+    with chip_smoke.w8a8_shapes() as seen:
+        y = quant.qlinear(no_bias, quant.qlinear(with_bias, x).to(torch.bfloat16))
+    assert quant.w8a8_linear is inner and y.shape == (2, 3, 256)
+    assert seen == {(6, 256, 384, torch.float32, torch.float32),
+                    (6, 384, 256, torch.bfloat16, None)}
+
+
 @pytest.mark.parametrize("counted", [True, False])
 def test_served_gates_each_run_on_its_own_model_calls(monkeypatch, counted):
     """``chip_smoke.served`` sets the counts to 0 before a server's traffic, counts the
@@ -356,6 +405,20 @@ def test_library_calls_named_for_every_kernel():
     (65, 100, 37, torch.bfloat16, 112, True, 40),          # N = 37: out rows padded to 16 B
     (65, 100, 37, torch.float32, 112, True, 40),
     (7, 560, 24, torch.float32, 560, False, 24),
+] + [
+    # Qwen3-0.6B's linears under quant="w8a8": q, k / v, o, gate / up, down at the decode
+    # step's M (8 or 16 slots, one 128-row tile mostly empty) and prefill chunks of 16
+    # slots x 64, 128 and 160 rows (Fun-ASR-Nano's two chunks of a 15 s prompt: 160, 64)
+    (m, k, n, dtype, k, False, n)
+    for m in (8, 16, 16 * 128, 16 * 64, 16 * 160) for k, n in QWEN_KN
+    for dtype in (torch.bfloat16, torch.float32)
+] + [
+    # Fun-ASR-Nano's encoder and Linear adaptor on 16 x 15 s (289 padded frames, 144 after
+    # the adaptor's downsampling): ragged last tiles, fp32 activations
+    (m, k, n, torch.float32, k, False, n)
+    for m, k, n in [(16 * 289, 560, 1536), (16 * 289, 512, 1536), (16 * 289, 512, 512),
+                    (16 * 289, 512, 2048), (16 * 289, 2048, 512), (16 * 144, 1024, 2048),
+                    (16 * 144, 2048, 1024)]
 ])
 def test_w8a8_plan(m, k, n, dtype, kp, pad, pitch):
     p = plan_w8a8(m, k, n, dtype)
@@ -370,9 +433,28 @@ def test_w8a8_plan(m, k, n, dtype, kp, pad, pitch):
     (2, 3, 77, 64),
     (132, 1, 128, 128),  # one 128-row block per SM
     (131, 1, 128, 64),
+    (16, 4, 384, 128),   # Fun-ASR-Nano's encoder at B = 16, T = 384: 192 blocks
+    (16, 4, 250, 64),    # at 250 frames 128-row blocks would be 128 of 132
+    (16, 4, 289, 128),   # at 15 s: 250 LFR frames in the frontend's 289-frame bucket
 ])
 def test_flash_block_rows(b, h, t, rows):
     assert flash_block_rows(b, h, t) == rows
+
+
+@pytest.mark.parametrize("b,t,c,k", [(16, 384, 512, 11), (16, 250, 512, 11),
+                                     (16, 289, 512, 11)])
+def test_fsmn_plan_takes_the_llm_encoder_shapes(b, t, c, k):
+    """The FSMN wrapper's checks pass Fun-ASR-Nano's encoder memory (the v slice of the
+    fused q|k|v projection, as the SAN-M attention hands it over) at B = 16; its grid is
+    (B, T / TIME_STEPS) blocks."""
+    from funasr_tpu_torch.ops import fsmn
+
+    qkv = torch.zeros(b, t, 3 * c)
+    x = qkv[..., 2 * c:]
+    w = torch.zeros(c, 1, k)
+    mask = torch.ones(b, t, dtype=torch.bool)
+    fsmn._check(x, w, mask, (k - 1) // 2, (k - 1) // 2)
+    assert -(-t // fsmn.TIME_STEPS) <= 65535 and b <= 65535
 
 
 def _quantize_like_the_kernel(x):

@@ -3,8 +3,9 @@
 WAV files are written with ``struct`` from one seeded signal in every sample format the
 JAX parser reads (8 / 16 / 24 / 32-bit integer PCM, float32, the extensible float32
 header, G.711 mu-law and A-law), mono and stereo, at 16 and 8 kHz (resampled to 16 kHz),
-and loaded as paths and as bytes; lists and tuples of samples too. Compressed containers
-and URLs raise in the port (no codec, no network).
+and loaded as paths and as bytes; lists and tuples of samples too. URLs raise in the port
+(no network); compressed containers raise when neither the native codec nor ``ffmpeg``
+is there (``tests/test_torch_native_codec.py`` decodes them with the codec).
 """
 
 import struct
@@ -88,17 +89,22 @@ def test_raw_pcm_bytes_and_path_load_as_in_jax(tmp_path):
                               jload.load_audio(source, audio_fs=8000))
 
 
-def test_container_sniff_and_unported_sources(tmp_path):
+def test_container_sniff_and_unported_sources(tmp_path, monkeypatch):
     samples = [b"RIFF\x00\x00\x00\x00WAVEfmt ", b"fLaC" + b"\x00" * 12, b"OggS" + b"\x00" * 12,
                b"ID3\x03" + b"\x00" * 12, b"\xff\xfb" + b"\x00" * 14,
                b"\x00\x00\x00\x18ftypmp42", b"\x01\x02" * 8, b"short"]
     for data in samples:
         assert tload.is_audio_container(data) == jload.is_audio_container(data)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    # no decoder present: neither the native codec nor ffmpeg (as in JAX)
+    import shutil
+    from funasr_tpu_torch.utils import native_codec
+    monkeypatch.setattr(native_codec, "_load", lambda: None)
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="cannot decode compressed audio"):
         tload.load_audio(b"fLaC" + b"\x00" * 64)
     mp3 = tmp_path / "a.mp3"
     mp3.write_bytes(b"\x00" * 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(RuntimeError, match="cannot decode compressed audio"):
         tload.load_audio(str(mp3))
     with pytest.raises(NotImplementedError, match="URL"):
         tload.load_audio("https://example.invalid/a.wav")

@@ -233,6 +233,51 @@ def test_vad_worker_failure_closes_the_session_with_1011(asr_pair):
     assert talk(server, tws, script) == 1011
 
 
+def test_endpoint_final_splits_at_the_endpoint_sample(asr_pair):
+    """Two utterances sent faster than the VAD worker feeds: the endpoint final holds
+    the audio up to the endpoint's sample and nothing after it, and the next final starts
+    there. (The JAX server's endpoint final takes all the audio buffered by then.)"""
+    end_ms = 1000
+    wav = np.random.default_rng(5).standard_normal(3 * FS).astype(np.float32) * 0.1
+    pcm = pcm16(wav)
+
+    class LaggingVAD:  # endpoints at 1 s once 1.2 s are fed; each feed takes 50 ms
+        fed, sent = 0, False
+
+        def feed(self, chunk):
+            import time
+            time.sleep(0.05)
+            self.fed += len(chunk)
+            if self.fed >= 1.2 * FS and not self.sent:
+                self.sent = True
+                return [[-1, end_ms]]
+            return []
+
+    server = trt.RealtimeWSServer(None, vad_model=object(), vad_feed_ms=60,
+                                  chunk_ms=60000, first_chunk_ms=60000)
+    server.make_vad = LaggingVAD
+    decoded = []
+    server._decode = lambda audio, hotword=None, **cfg: decoded.append(audio) or "x"
+
+    async def script(ws):
+        msgs = []
+        for j in range(0, len(pcm), 1600):  # all 3 s at once, in 100 ms frames
+            await ws.send(pcm[j:j + 1600].tobytes())
+        await drain_until_final(ws, msgs)
+        await ws.send("STOP")
+        await drain_until_final(ws, msgs)
+        return msgs
+
+    finals = [m for m in talk(server, tws, script) if m["type"] == "final"]
+    split = end_ms * FS // 1000
+    want = pcm.astype(np.float32) / 32768.0
+    assert len(decoded) == 2
+    np.testing.assert_array_equal(decoded[0], want[:split])  # nothing past the endpoint
+    np.testing.assert_array_equal(decoded[1], want[split:])  # starts at the endpoint
+    assert [(f["utt"], f["start_ms"], f["end_ms"]) for f in finals] == [
+        (0, 0, end_ms), (1, end_ms, 3000)]
+
+
 def test_partial_stability_counter():
     """``tests/test_realtime_ws.py``'s stability test on the port: consecutive partials
     with the same normalized text bump ``stable``; a changed text resets it to 1."""

@@ -573,3 +573,70 @@ def serve_http(app, requests, workers=8):
                     for r in requests])
 
     return asyncio.run(scenario())
+
+
+# ---------------------------------------------------------------------------
+# the LLM path: a small Fun-ASR-Nano (the encoder and LLM of
+# tests/test_fun_asr_nano_r2.py:21-27, a CTC branch) and a Hugging Face tokenizer built
+# with ``tokenizers`` in a directory, so nothing is downloaded
+# ---------------------------------------------------------------------------
+
+NANO_ENC = dict(output_size=32, attention_heads=4, linear_units=64, num_blocks=2,
+                input_layer="pe", kernel_size=11, sanm_shfit=0, dropout_rate=0.0)
+# untied: a tied random-weight head decodes one token over and over (each step's token
+# row lines up best with itself), and equal texts would then say little
+NANO_LLM = dict(hidden_size=48, intermediate_size=96, num_hidden_layers=2,
+                num_attention_heads=4, num_key_value_heads=2, vocab_size=160, head_dim=12,
+                rms_norm_eps=1e-6, rope_theta=10000.0, tie_word_embeddings=False,
+                qkv_bias=False, qk_norm=True)
+NANO_CTC_VOCAB = 40
+NANO_CONF = dict(
+    input_size=560, audio_encoder="SANMEncoder", audio_encoder_conf=NANO_ENC,
+    audio_adaptor="Linear",
+    audio_adaptor_conf=dict(downsample_rate=2, encoder_dim=32, llm_dim=48, ffn_dim=64),
+    llm_conf=NANO_LLM, ctc_decoder="Linear",
+    ctc_decoder_conf=dict(downsample_rate=1, encoder_dim=32, llm_dim=32, ffn_dim=64),
+    ctc_conf=dict(ctc_vocab_size=NANO_CTC_VOCAB), ctc_weight=0.3)
+NANO_FRONTEND = dict(fs=16000, window="hamming", n_mels=80, frame_length=25, frame_shift=10,
+                     lfr_m=7, lfr_n=6, cmvn_file="am.mvn", dither=0.0)
+CHATML = ("<|im_start|>", "<|im_end|>", "<|endoftext|>")
+CTC_TOKENS = ["<blank>", "<s>", "</s>"] + [chr(ord("一") + i) for i in range(36)] + ["<unk>"]
+
+
+def write_hf_tokenizer(d, vocab_size=NANO_LLM["vocab_size"]):
+    """A character-level Hugging Face tokenizer of ``vocab_size`` ids: the ChatML special
+    tokens, every character of the Fun-ASR-Nano prompts, then CJK fillers; saved as
+    ``tokenizer.json`` + ``tokenizer_config.json``, which ``AutoTokenizer`` loads."""
+    os.environ.setdefault("USE_TF", "0")
+    os.environ.setdefault("USE_FLAX", "0")
+    from tokenizers import Tokenizer, decoders, models
+    from transformers import PreTrainedTokenizerFast
+
+    text = ("system\nYou are a helpful assistant.\nuser\n语音转写成：，不进行文本规整"
+            "assistant\n Transcribe the speech to text:(language)[context]")
+    chars = sorted(set(text))
+    fill = [chr(ord("一") + i) for i in range(vocab_size)]
+    vocab_chars = (chars + [c for c in fill if c not in chars])[:vocab_size - len(CHATML)]
+    vocab = {t: i for i, t in enumerate(list(CHATML) + vocab_chars)}
+    tok = Tokenizer(models.BPE(vocab=vocab, merges=[], unk_token=None))
+    tok.decoder = decoders.Fuse()
+    fast = PreTrainedTokenizerFast(tokenizer_object=tok, additional_special_tokens=list(CHATML))
+    fast.save_pretrained(str(d))
+    return str(d)
+
+
+def write_nano_dir(d, tok_dir, seed=0):
+    """A FunASRNano directory: config.yaml (HuggingfaceTokenizer at ``tok_dir``),
+    model.pt of a seeded port model at NANO_CONF (its token table scaled from std 0.02 to
+    0.1), identity am.mvn. Returns (dir, model)."""
+    from funasr_tpu_torch.models.fun_asr_nano.model import FunASRNano
+    model = FunASRNano(**NANO_CONF, generator=torch.Generator().manual_seed(seed)).eval()
+    with torch.no_grad():  # token rows of std 0.1, so that the ids vary step to step
+        model.llm.model.embed_tokens.weight.mul_(5.0)
+    torch.save(model.state_dict(), os.path.join(d, "model.pt"))
+    write_identity_cmvn(os.path.join(d, "am.mvn"), 560)
+    conf = {k: v for k, v in NANO_CONF.items() if k != "input_size"}
+    _write_config(d, dict(model="FunASRNano", **conf, frontend="WavFrontend",
+                          frontend_conf=NANO_FRONTEND, tokenizer="HuggingfaceTokenizer",
+                          tokenizer_conf=dict(init_param_path=str(tok_dir))))
+    return str(d), model
