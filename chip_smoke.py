@@ -10,7 +10,8 @@ SenseVoice-Small ``AutoModel(model=sensevoice[, vad_model=])`` with the CTC fami
 the three servers over real localhost sockets: the OpenAI-compatible HTTP app with its
 cross-request batcher, the 2-pass WebSocket server and the realtime WebSocket server, and
 LLM-based ASR: Fun-ASR-Nano (Qwen3-0.6B on the port's ``LLMEngine``) through ``AutoModel`` and
-``AutoModelVLLM``, and Whisper-large-v3.
+``AutoModelVLLM``, and Whisper-large-v3, and text normalization and deployment:
+``generate(itn=True)``, ``AutoModel.export`` run by ``ExportedModel`` and the MCP server.
 
     python3 chip_smoke.py
 
@@ -170,6 +171,27 @@ Phases (any failure raises and exits non-zero):
    greedy ids where the margin clears); Whisper-large-v3 at full width,
    depth cut to 4 + 4 layers, 2 x 30 s, 32 tokens through ``AutoModel(model=
    "Whisper-large-v3")`` (``whisper_run``: cached decode = prefix oracle).
+15. text and export (``phase_export``): a PROD_CONF Paraformer dir whose token list puts
+   the numerals first and whose head lifts them (``number_tokens``, ``lift_numerals``),
+   so that seeded decodes hold numbers: ``generate(itn=True)`` on 32 x 15 s equal to the
+   port's ``InverseNormalizer`` over ``generate()``'s texts, some rewritten, launches
+   exactly 50 flash + 66 FSMN (``itn_check``); the same for SenseVoice-Small from phase
+   12's dir, 8 x 15 s, ``language="zh"``, 70 + 70. ``AutoModel.export`` at fp32
+   (buckets ``EXPORT_BUCKETS``) and under ``quant="w8a8"`` (``EXPORT_W8A8_BUCKETS``),
+   each directory loaded by ``ExportedModel`` in a process of its own that imports no
+   model module (``chip_smoke.py --exported``): every program call and every
+   ``transcribe`` launches exactly 50 flash + 66 FSMN (+ 282 W8A8), ids and token counts
+   equal to eager ``infer_core``'s on the same features, the score within
+   ``EXPORT_SCORE_TOL``, texts equal to ``generate``'s; each kernel held against its
+   plain version at every shape a counted program call launched, recorded there by
+   ``KernelShapes`` (``export_kernel_rows``: the program's own lengths and masks);
+   prints each trace's seconds, each directory's bytes, one program call's wall ms and
+   device kernel ms next to eager ``infer_core``'s, and EXPORT_UNBOUND's call as
+   ``program.module()`` runs it. The MCP
+   server (``bin/mcp_server.py``, on the card by its default) in a process of its own:
+   ``tools/list``, ``transcribe`` with and without ``itn`` equal to ``AutoModel``'s text,
+   ``inverse_normalize`` of 三百二十五 -> 325. Each kernel's lone call through its custom op
+   against the wrapper's direct call (``op_dispatch_rows``).
 
 Kernel times (phases 3-4): ``ms`` is device time per launch over 20 back-to-back
 launches between one pair of CUDA events, queued behind a spin kernel so that host
@@ -193,7 +215,9 @@ meetings under ``speaker``, on phase 10's decodes under ``hotword``, where FSMN 
 k = 21 rows, phase 11's under ``streaming``, with the rows at the streaming shapes,
 phase 12's under ``sensevoice``, with the rows at SenseVoice's shapes, phase 13's under
 ``serving``, by server, with the rows at the serving shapes, and phase 14's under ``llm``,
-by run, with the rows at the LLM path's shapes), the last line
+by run, with the rows at the LLM path's shapes, and phase 15's under ``export``: launches
+of each counted call of an exported program, with the rows at the shapes those calls
+launched), the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -212,6 +236,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -850,10 +875,13 @@ def write_model_dir(d, dev, model_name="Paraformer", predictor="CifPredictorV2",
                     predictor_conf=PROD_CONF["predictor_conf"],
                     decoder="ParaformerSANMDecoder", extra=None, encoder="SANMEncoder",
                     encoder_conf=PROD_CONF["encoder_conf"],
-                    decoder_conf=PROD_CONF["decoder_conf"], frontend="WavFrontend"):
+                    decoder_conf=PROD_CONF["decoder_conf"], frontend="WavFrontend",
+                    tokens=None, craft=None):
     """A FunASR-layout model directory at PROD_CONF width with seeded random weights;
     `extra`: the model's own config keys (a hotword model's), in ``model_conf``; the
-    streaming model names its own encoder, decoder shift and frontend."""
+    streaming model names its own encoder, decoder shift and frontend; `tokens`: the token
+    list (8,401 CJK characters by default); `craft`: applied to the model before it is
+    saved."""
     import yaml
     from funasr_tpu_torch import tables
 
@@ -863,8 +891,11 @@ def write_model_dir(d, dev, model_name="Paraformer", predictor="CifPredictorV2",
     model = tables.model_classes[model_name](**conf, encoder=encoder, predictor=predictor,
                                              decoder=decoder, device=dev, generator=g,
                                              **(extra or {}))
+    if craft is not None:
+        craft(model)
     torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(d, "model.pt"))
-    tokens = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(8400)] + ["<unk>"]
+    tokens = tokens or (["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(8400)]
+                        + ["<unk>"])
     with open(os.path.join(d, "tokens.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(tokens) + "\n")
     with open(os.path.join(d, "am.mvn"), "w") as f:
@@ -3094,11 +3125,12 @@ def family_cuda_vs_cpu(dev, counters):
     return out
 
 
-def phase_sensevoice(dev, counters, card):
+def phase_sensevoice(dev, counters, card, keep=None):
     """Phase 12: SenseVoiceSmall at its published widths through ``AutoModel`` (32 x 15 s
     at fp32, bf16 and W8A8: ``sense_voice_batch``), the CUDA port against the CPU port
     (small config and full width), the demo's VAD call (``sense_voice_demo``) and the CTC
-    family at a small config (``family_cuda_vs_cpu``). Returns its figures."""
+    family at a small config (``family_cuda_vs_cpu``). Keeps its SenseVoice dir for phase
+    15 (``keep_dirs``). Returns its figures."""
     import tempfile
     from funasr_tpu_torch import AutoModel, tables
     from funasr_tpu_torch.utils.bucket import pad_feats_bucketed
@@ -3114,6 +3146,7 @@ def phase_sensevoice(dev, counters, card):
         t0 = time.perf_counter()
         write_sense_voice_dir(dirs["sv"], dev)
         write_vad_dir(dirs["vad"])
+        keep_dirs(keep, dirs, {"sv": "sv"})
         log(f"SenseVoice: model dirs written in {time.perf_counter() - t0:.1f} s")
         for label, extra in SV_SETTINGS:
             am = AutoModel(model=dirs["sv"], device="cuda", batch_size=32, log_level="WARNING",
@@ -4331,6 +4364,544 @@ def phase_llm(dev, counters, card):
     return out
 
 
+# ---- phase 15: text normalization and export ---------------------------------------------
+
+EXPORT_BUCKETS = [(4, 168), (32, 384)]  # AutoModel.export at fp32: the JAX default, then B 32
+EXPORT_W8A8_BUCKETS = [(32, 384)]       # and under quant="w8a8"
+# each bucket's transcribed waves: 9 s give 150 frames (the 168-frame program), 15 s give
+# 250 (the 384-frame program: eager generate pads 15 s to 384 frames as well)
+EXPORT_WAVE_SECONDS = {(4, 168): 9.0, (32, 384): 15.0}
+EXPORT_SCORE_TOL = 1e-6  # the program's score against eager infer_core's, same device
+# the program also timed as ``program.module()`` runs it (the weights flattened and checked
+# on every call, an assert before each dtype cast), against ``bind_weights``' call
+EXPORT_UNBOUND = ("fp32", (4, 168))
+# the numerals that ITN rewrites, first in the phase's token list; the output heads' biases
+# at their ids are lifted by NUMBER_LIFT (a unit-RMS input through a uniform(+-1/sqrt(d))
+# head gives logits of std ~0.58) so that seeded decodes emit numerals for ITN to rewrite
+NUMBER_CHARS = "零一二三四五六七八九十百千万亿两点"
+NUMBER_LIFT = 2.0
+ITN_SV_BATCH = 8                        # SenseVoice utterances of 15 s in the ITN check
+MCP_ITN = ("三百二十五", "325")         # the MCP inverse_normalize call and its answer
+
+
+def number_tokens(n=None):
+    """A PROD_CONF token list (``n`` tokens, the vocabulary by default) with the numerals
+    first (ids 3-20), then other CJK characters."""
+    n = n or PROD_CONF["vocab_size"]
+    rest = [c for c in map(chr, range(0x4E00, 0x4E00 + n + len(NUMBER_CHARS)))
+            if c not in NUMBER_CHARS]
+    return (["<blank>", "<s>", "</s>"] + list(NUMBER_CHARS)
+            + rest[:n - 4 - len(NUMBER_CHARS)] + ["<unk>"])
+
+
+def lift_numerals(linear, tokens):
+    """Add NUMBER_LIFT to the output head ``linear``'s bias at the numerals' ids."""
+    ids = [i for i, tok in enumerate(tokens) if tok in NUMBER_CHARS]
+    with torch.no_grad():
+        linear.bias[ids] += NUMBER_LIFT
+
+
+def op_dispatch_rows(dev):
+    """A lone call's ms (``call_ms``, host work included) through each kernel's custom op
+    against the wrapper's direct call, same inputs, same kernel, outputs equal: flash and
+    FSMN at the main path's fp32 shapes, W8A8 at a Qwen3 decode step (M = 16, bf16), where
+    the host paces the kernel. The op's dispatch is why eager calls go direct."""
+    from funasr_tpu_torch.ops import flash_attention as fa
+    from funasr_tpu_torch.ops import fsmn, w8a8
+
+    g = torch.Generator().manual_seed(15)
+    q = torch.randn(32, 4, 384, 128, generator=g).to(dev)
+    lens = torch.full((32,), 384, dtype=torch.int32, device=dev)
+    x = torch.randn(32, 384, 512, generator=g).to(dev)
+    w = (torch.rand(512, 1, 11, generator=g) - 0.5).to(dev)
+    mask = torch.ones(32, 384, dtype=torch.bool, device=dev)
+    xq = torch.randn(16, 1024, generator=g).to(dev, torch.bfloat16)
+    wq = torch.randint(-127, 128, (2048, 1024), generator=g, dtype=torch.int8).to(dev)
+    sq = torch.rand(2048, generator=g).to(dev)
+    cases = {"flash_attention": (lambda: fa.flash_attention(q, q, q, lens),
+                                 lambda: fa.flash_attention_op(q, q, q, lens, "none", None)),
+             "fsmn_memory": (lambda: fsmn.fsmn_memory(x, w, mask, 5, 5),
+                             lambda: fsmn.fsmn_memory_op(x, w, mask, 5, 5, False)),
+             "w8a8_linear": (lambda: w8a8.w8a8_linear(xq, wq, sq),
+                             lambda: w8a8.w8a8_linear_op(xq, wq, sq, None))}
+    rows = {}
+    for name, (direct, op) in cases.items():
+        equal = torch.equal(direct(), op())
+        rows[name] = dict(direct_call_ms=call_ms(direct), op_call_ms=call_ms(op))
+        log(f"{name} lone call: direct {rows[name]['direct_call_ms']:.4f} ms, through the "
+            f"custom op {rows[name]['op_call_ms']:.4f} ms; outputs equal {equal}")
+        if not equal:
+            raise AssertionError(f"{name}: the custom op's output is not the wrapper's")
+    return rows
+
+
+def itn_check(am, waves, label, counters, sites, **call):
+    """``am.generate(itn=True)`` against the port's ``InverseNormalizer`` over the texts of
+    ``am.generate()`` on the same waves, one decode each. Gates: equal texts, at least one
+    rewritten, the ITN decode's launches (counts set to 0 just before it) exactly
+    ``sites``. Returns its figures."""
+    from funasr_tpu_torch.text.inverse_normalize import InverseNormalizer
+
+    call = dict(call, batch_size=len(waves))
+    plain = [r["text"] for r in am.generate(input=waves, **call)]
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    got = [r["text"] for r in am.generate(input=waves, itn=True, **call)]
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    inv = InverseNormalizer(lang=call.get("language", "zh")[:2])
+    t0 = time.perf_counter()
+    want = [inv.inverse_normalize(text) for text in plain]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    rewritten = [i for i, (w, p) in enumerate(zip(want, plain)) if w != p]
+    numerals = sum(ch in NUMBER_CHARS for text in plain for ch in text)
+    log(f"ITN {label} B={len(waves)}: {len(rewritten)} of {len(plain)} texts rewritten "
+        f"(numerals {numerals} of {sum(map(len, plain))} characters; ITN on the host "
+        f"{host_ms:.2f} ms); e.g. {plain[rewritten[0]][:40] if rewritten else ''!r} -> "
+        f"{got[rewritten[0]][:40] if rewritten else ''!r}; launches {launches} (sites {sites})")
+    if got != want:
+        bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+        raise AssertionError(f"ITN {label}: generate(itn=True) text {bad} {got[bad]!r} is not "
+                             f"InverseNormalizer's {want[bad]!r}")
+    if not rewritten or launches != sites:
+        raise AssertionError(f"ITN {label}: {len(rewritten)} texts rewritten; launches "
+                             f"{launches}, expected {sites}")
+    return dict(rewritten=rewritten, texts=len(plain), numerals=numerals, host_ms=host_ms,
+                launches=launches)
+
+
+def kernel_signature(name, *args):
+    """(key, inputs) of one call of a kernel's custom op: ``key`` the shape it launches at
+    (dtype, shapes, strides and the op's other arguments; W8A8's (M, K, N, x dtype, bias
+    dtype)), ``inputs`` the small tensors that set its limits (flash's lengths and
+    vad_pos, FSMN's mask), copied to the CPU."""
+    if name == "flash_attention":
+        q, k, v, lengths, mode, vad_pos = args
+        return ((name, q.dtype, tuple(q.shape), tuple(k.shape),
+                 tuple(x.stride() for x in (q, k, v)), mode),
+                dict(lengths=lengths.cpu(), vad_pos=None if vad_pos is None else vad_pos.cpu()))
+    if name == "fsmn_memory":
+        x, w, mask, left, right, generic = args
+        return ((name, x.dtype, tuple(x.shape), x.stride(), w.shape[-1], left, right, generic,
+                 mask is None), dict(mask=None if mask is None else mask.cpu()))
+    x, w_q8, scale, bias = args
+    return (name, (x.numel() // x.shape[-1], x.shape[-1], w_q8.shape[0], x.dtype,
+                   None if bias is None else bias.dtype)), {}
+
+
+class KernelShapes(TorchDispatchMode):
+    """While this mode is on, every call of the kernels' custom ops (an exported program's
+    launches) is counted by the shape it launches at (``kernel_signature``): ``seen``
+    maps each key to its calls, ``inputs`` to its first call's small tensors."""
+
+    def __init__(self):
+        super().__init__()
+        from funasr_tpu_torch.ops import flash_attention, fsmn, w8a8  # noqa: F401 (the ops)
+
+        ops = torch.ops.funasr_tpu_torch
+        self.ops = {ops.flash_attention.default: "flash_attention",
+                    ops.fsmn_memory.default: "fsmn_memory",
+                    ops.w8a8_linear.default: "w8a8_linear"}
+        self.seen, self.inputs = {}, {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = self.ops.get(func)
+        if name is not None:
+            schema = func._schema.arguments
+            key, inputs = kernel_signature(name, *args, *(
+                kwargs.get(a.name, a.default_value) for a in schema[len(args):]))
+            self.seen[key] = self.seen.get(key, 0) + 1
+            self.inputs.setdefault(key, inputs)
+        return func(*args, **kwargs)
+
+
+def export_label(key):
+    """A row's label in the kernels line: flash "4x4x168x128_float32", FSMN
+    "4x168x512_k11_float32", W8A8 ``w8a8_label``."""
+    if key[0] == "w8a8_linear":
+        return w8a8_label(key[1])
+    shape = "x".join(map(str, key[2]))
+    if key[0] == "flash_attention":
+        return f"{shape}_{str(key[1])[6:]}" + ("" if key[5] == "none" else f"_{key[5]}")
+    return f"{shape}_k{key[4]}_{str(key[1])[6:]}"
+
+
+def strided_randn(shape, stride, dtype, g, dev):
+    """Random values at ``shape`` laid out with ``stride``: a view into a larger buffer
+    where the strides leave gaps, as a head split out of a fused projection is."""
+    size = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+    return torch.randn(size, generator=g, device=dev).to(dtype).as_strided(shape, stride)
+
+
+def export_kernel_rows(dev, shapes):
+    """One row per shape that the exported programs' counted calls launched
+    (``KernelShapes``), each against its plain version with its tolerance: flash and FSMN
+    with random values at the program's own shapes and strides and its own lengths and
+    mask (``flash_row``, ``fsmn_row``); W8A8 bit-exact at the program's (M, K, N)
+    (``w8a8_row``). ``shapes``: {key: {"inputs", "programs": {program: launches}}}.
+    Returns {kernel: {label: row with its launches by program}}; raises on a
+    disagreement."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    rows = {}
+    for key, info in shapes.items():
+        name, inputs = key[0], info["inputs"]
+        if name == "flash_attention":
+            _, dtype, q_shape, k_shape, strides, mode = key
+            q, k, v = (strided_randn(shape, st, dtype, g, dev)
+                       for shape, st in zip((q_shape, k_shape, k_shape), strides))
+            vp = inputs["vad_pos"]
+            row = flash_row(q, k, v, inputs["lengths"].tolist(), mode,
+                            None if vp is None else vp.tolist())
+            tol = FLASH_TOL[dtype]
+        elif name == "fsmn_memory":
+            _, dtype, x_shape, x_stride, k, left, right, generic, _ = key
+            if generic:
+                raise AssertionError("an exported program launched the generic FSMN kernel")
+            x = strided_randn(x_shape, x_stride, dtype, g, dev)
+            w = (torch.rand(x_shape[-1], 1, k, generator=g, device=dev) - 0.5).to(dtype)
+            mask = None if inputs["mask"] is None else inputs["mask"].to(dev)
+            row = fsmn_row(x, w, mask, left, right)
+            tol = FSMN_TOL[dtype]
+        else:
+            m, k, n, dtype, bias_dtype = key[1]
+            w_q8 = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+            scale = torch.rand(n, generator=g, device=dev) * 1e-3
+            x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+            bias = (None if bias_dtype is None
+                    else torch.randn(n, generator=g, device=dev).to(bias_dtype))
+            row = w8a8_row(x, w_q8, scale, bias, label="w8a8 exported program")
+            tol = W8A8_TOL
+        if name != "w8a8_linear":
+            log(f"{name} exported program {export_label(key)}: max_abs_err "
+                f"{row['max_abs_err']:.3e} (tol {tol:g}) " + timing_line(row)
+                + f"; launches a call {info['programs']}")
+        if not (math.isfinite(row["max_abs_err"]) and row["max_abs_err"] <= tol):
+            raise AssertionError(f"{name} kernel disagrees at the exported program's "
+                                 f"{export_label(key)}: {row['max_abs_err']}")
+        label, by_name = export_label(key), rows.setdefault(name, {})
+        while label in by_name:  # the same shape at other strides
+            label += "'"
+        by_name[label] = dict(row, launches_per_call=info["programs"])
+    return rows
+
+
+def export_inputs(bucket, seed):
+    """Seeded (B, T, 560) features and ragged (B,) lengths for a bucket's program."""
+    b, t = bucket
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.tensor([t - (17 * i) % (t // 2) for i in range(b)], dtype=torch.int32)
+    return torch.randn(b, t, PROD_CONF["input_size"], generator=g), lengths
+
+
+def export_setting(am, out_dir, buckets, waves, label, dev):
+    """``am.export`` of one setting at ``buckets``, and the eager references its programs
+    are held to: each bucket's ``infer_core(...)[:3]`` on seeded features and
+    ``generate``'s texts on the bucket's waves. Returns them with the trace seconds and
+    the directory's bytes by file."""
+    t0 = time.perf_counter()
+    functions = am.export(output_dir=out_dir, buckets=buckets)
+    seconds = time.perf_counter() - t0
+    size = {f: os.path.getsize(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))}
+    calls = []
+    for i, bucket in enumerate(buckets):
+        speech, lengths = export_inputs(bucket, i)
+        sp, ln = speech.to(dev), lengths.to(dev)
+        with torch.inference_mode():
+            eager = am.model.infer_core(sp, ln, am.model._max_tokens_for(bucket[1]))[:3]
+        calls.append(dict(bucket=bucket, speech=speech, lengths=lengths,
+                          eager=[x.cpu() for x in eager]))
+    texts = {b: [r["text"] for r in am.generate(input=waves[b], batch_size=b[0])]
+             for b in buckets}
+    log(f"export {label}: AutoModel.export in {seconds:.1f} s, traces "
+        f"{ {f['file']: f['trace_s'] for f in functions} } s; directory "
+        f"{sum(size.values())} bytes {size}")
+    return dict(dir=out_dir, seconds=seconds, functions=functions, bytes=size, calls=calls,
+                texts=texts, waves={b: waves[b] for b in buckets})
+
+
+def eager_ms(am, setting, dev):
+    """Each bucket's eager ``infer_core``: wall ms (median of 5) and the device's kernel ms
+    of one profiled call, into ``setting``'s calls."""
+    for call in setting["calls"]:
+        sp, ln = call["speech"].to(dev), call["lengths"].to(dev)
+        mt = am.model._max_tokens_for(call["bucket"][1])
+        with torch.inference_mode():
+            call["eager_ms"] = wall_ms(lambda: am.model.infer_core(sp, ln, mt))[0]
+            call["eager_device_ms"] = device_total_ms(
+                lambda: am.model.infer_core(sp, ln, mt))
+
+
+def device_total_ms(fn):
+    """The device's kernel ms over one call of ``fn``, from torch.profiler."""
+    return sum(t for t, _ in profile_kernels(fn).values())
+
+
+def exported_child(io_path):
+    """``python3 chip_smoke.py --exported <io.pt>``, in a process of its own: loads each
+    export directory of ``io.pt`` with ``ExportedModel`` (and EXPORT_UNBOUND's program as
+    ``program.module()``), waits for ``<io.pt>.go`` (the parent's device work done), calls
+    each bucket's program on the parent's features (warm-up, then one call with the counts
+    set to 0 just before it and read just after, the shapes of its launches recorded by
+    ``KernelShapes``, then its wall ms and the device's kernel ms of one profiled call),
+    and transcribes each bucket's waves, counted alike. Writes its figures to
+    ``<io.pt>.out``, with the model modules the process imported (there must be none)."""
+    from funasr_tpu_torch.export_runtime import ExportedModel
+    from funasr_tpu_torch.ops.flash_attention import flash_attention
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory
+    from funasr_tpu_torch.ops.w8a8 import w8a8_linear
+
+    counters = (flash_attention, fsmn_memory, w8a8_linear)
+    io = torch.load(io_path, weights_only=False)
+    dev = torch.device(io["device"])
+
+    def counted(fn):
+        for c in counters:
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {c.__name__: c.launches for c in counters}
+
+    models, out = {}, {}
+    for label, setting in io["settings"].items():
+        t0 = time.perf_counter()
+        models[label] = ExportedModel(setting["dir"], device=dev.type)
+        out[label] = dict(load_s=time.perf_counter() - t0)
+        log(f"{label}: loaded in {out[label]['load_s']:.1f} s")
+    label, (b, t) = EXPORT_UNBOUND
+    unbound = torch.export.load(os.path.join(io["settings"][label]["dir"],
+                                             f"model_b{b}_t{t}.pt2")).module()
+    while not os.path.exists(io_path + ".go"):
+        time.sleep(0.05)
+    for label, setting in io["settings"].items():
+        em, calls = models.pop(label), []
+        for call in setting["calls"]:
+            sp, ln = call["speech"].to(dev), call["lengths"].to(dev)
+            em(sp, ln)  # warm-up
+            with KernelShapes() as shapes:
+                res, launches = counted(lambda: em(sp, ln))
+            calls.append(dict(out=[x.cpu() for x in res], launches=launches,
+                              shapes=shapes.seen, inputs=shapes.inputs,
+                              ms=wall_ms(lambda: em(sp, ln))[0],
+                              device_ms=device_total_ms(lambda: em(sp, ln))))
+            if (label, tuple(sp.shape[:2])) == EXPORT_UNBOUND:
+                with torch.inference_mode():
+                    same = all(torch.equal(x, y)
+                               for x, y in zip(unbound(em.params, sp, ln), res))
+                    calls[-1].update(unbound_equal=same, unbound_ms=wall_ms(
+                        lambda: unbound(em.params, sp, ln))[0])
+        transcribe = {}
+        for bucket, waves in setting["waves"].items():
+            texts, launches = counted(lambda: em.transcribe(waves))
+            transcribe[bucket] = dict(texts=texts, launches=launches)
+        out[label].update(calls=calls, transcribe=transcribe)
+        log(f"{label}: program calls {[c['launches'] for c in calls]}")
+        del em
+    out["modules"] = sorted(m for m in sys.modules
+                            if m.startswith("funasr_tpu_torch.models")
+                            or m.split(".")[0] in ("jax", "funasr_tpu"))
+    torch.save(out, io_path + ".out")
+
+
+def exported_in_child(io_path):
+    """Starts ``exported_child`` in a process of its own; returns a function that lets it
+    run its calls, waits for it, relays its lines and returns its figures."""
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--exported", io_path],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish():
+        open(io_path + ".go", "w").close()
+        stdout, stderr = proc.communicate(timeout=900)
+        for line in stdout.strip().splitlines():
+            log(f"  export process: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"the export process exited with {proc.returncode}: "
+                                 f"{stderr[-3000:]}")
+        return torch.load(io_path + ".out", weights_only=False)
+    return finish
+
+
+def check_exported(label, setting, got, sites, card):
+    """Gates one setting's programs: launches of each call and each transcription exactly
+    ``sites``, ids and token counts equal to eager ``infer_core``'s, the score within
+    ``EXPORT_SCORE_TOL``, texts equal to ``generate``'s, every launch of a counted call
+    at a recorded shape, and EXPORT_UNBOUND's ``program.module()`` call equal to the
+    bound one. Returns its figures, with each call's shapes under ``shapes``: {key:
+    {"inputs", "programs": {program: launches}}}."""
+    calls, shapes = [], {}
+    for call, res in zip(setting["calls"], got["calls"]):
+        (yseq, tl, score), (eyseq, etl, escore) = res["out"], call["eager"]
+        err = (score - escore).abs().max().item()
+        b, t = call["bucket"]
+        program = f"{label}_b{b}_t{t}"
+        by_kernel = {name: sum(n for key, n in res["shapes"].items() if key[0] == name)
+                     for name in sites}
+        unbound = (f"; as program.module() runs it {res['unbound_ms']:.2f} ms, outputs equal "
+                   f"{res['unbound_equal']}" if "unbound_ms" in res else "")
+        log(f"export {label} program b{b} t{t}: launches {res['launches']} (sites {sites}) at "
+            f"{len(res['shapes'])} shapes; ids equal {torch.equal(yseq, eyseq)}, token counts "
+            f"equal {torch.equal(tl, etl)} ({tl.tolist()[:8]}...), score max abs diff "
+            f"{err:.3e}; one call {res['ms']:.2f} ms (device kernels {res['device_ms']:.2f} "
+            f"ms), eager infer_core {call['eager_ms']:.2f} ms (device kernels "
+            f"{call['eager_device_ms']:.2f} ms){unbound} on {card}")
+        if res["launches"] != sites or by_kernel != sites or not (
+                torch.equal(yseq, eyseq) and torch.equal(tl, etl) and err <= EXPORT_SCORE_TOL
+                and res.get("unbound_equal", True)):
+            raise AssertionError(f"export {label} b{b} t{t}: launches {res['launches']} "
+                                 f"(expected {sites}, at recorded shapes {by_kernel}), ids / "
+                                 f"counts / score diff {err}, module() equal "
+                                 f"{res.get('unbound_equal')}")
+        for key, n in res["shapes"].items():
+            entry = shapes.setdefault(key, dict(inputs=res["inputs"][key], programs={}))
+            entry["programs"][program] = n
+        calls.append(dict(bucket=(b, t), launches=res["launches"], ms=res["ms"],
+                          device_ms=res["device_ms"], eager_ms=call["eager_ms"],
+                          eager_device_ms=call["eager_device_ms"], score_err=err,
+                          **{k: res[k] for k in ("unbound_ms",) if k in res}))
+    for bucket, res in got["transcribe"].items():
+        want = setting["texts"][bucket]
+        same = sum(x == y for x, y in zip(res["texts"], want))
+        log(f"export {label} ExportedModel.transcribe {bucket[0]} waves ({bucket}): "
+            f"{same} of {len(want)} texts equal to generate's; launches {res['launches']}")
+        if res["texts"] != want or res["launches"] != sites:
+            raise AssertionError(f"export {label} transcribe {bucket}: {res['texts']} vs "
+                                 f"{want}, launches {res['launches']}")
+    return dict(calls=calls, shapes=shapes, load_s=got["load_s"], seconds=setting["seconds"],
+                trace_s={f["file"]: f["trace_s"] for f in setting["functions"]},
+                bytes=sum(setting["bytes"].values()))
+
+
+def mcp_check(model_dir, wav_path, dev):
+    """Starts the port's MCP server (``bin/mcp_server.py``) in a process of its own, on the
+    card by its default, with its requests: ``initialize``, ``tools/list``, ``transcribe``
+    of a wav without and with ``itn``, ``inverse_normalize`` of MCP_ITN. Returns a function
+    of an ``AutoModel`` over the same dir that waits for the server and gates: the two
+    tools, the texts equal to the ``AutoModel``'s on the same wav, MCP_ITN's answer."""
+    def call(i, name, **arguments):
+        return {"jsonrpc": "2.0", "id": i, "method": "tools/call",
+                "params": {"name": name, "arguments": arguments}}
+
+    reqs = [{"jsonrpc": "2.0", "id": 1, "method": "initialize", "params": {}},
+            {"jsonrpc": "2.0", "method": "notifications/initialized"},
+            {"jsonrpc": "2.0", "id": 2, "method": "tools/list"},
+            call(3, "transcribe", audio_path=wav_path),
+            call(4, "transcribe", audio_path=wav_path, itn=True),
+            call(5, "inverse_normalize", text=MCP_ITN[0], language="zh")]
+    cmd = [sys.executable, "-m", "funasr_tpu_torch.bin.mcp_server", "--model", model_dir]
+    if dev.type != "cuda":
+        cmd += ["--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    proc.stdin.write("".join(json.dumps(r, ensure_ascii=False) + "\n" for r in reqs))
+    proc.stdin.flush()  # communicate() closes it: the server then ends
+
+    def finish(am):
+        stdout, stderr = proc.communicate(timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"MCP server exited with {proc.returncode}: {stderr[-3000:]}")
+        resp = {r["id"]: r for r in map(json.loads, stdout.strip().splitlines())}
+        tools = [t["name"] for t in resp[2]["result"]["tools"]]
+        texts = [resp[i]["result"]["content"][0]["text"] for i in (3, 4, 5)]
+        want = [am.generate(input=wav_path)[0]["text"],
+                am.generate(input=wav_path, itn=True)[0]["text"], MCP_ITN[1]]
+        log(f"MCP server (started {seconds:.1f} s before its result was read): tools "
+            f"{tools}; transcribe {texts[0][:30]!r}..., with itn {texts[1][:30]!r}..., "
+            f"inverse_normalize {MCP_ITN[0]} -> {texts[2]!r}; equal to AutoModel's "
+            f"{texts == want}")
+        if tools != ["transcribe", "inverse_normalize"] or texts != want \
+                or texts[0] == texts[1] or any(resp[i]["result"].get("isError")
+                                               for i in (3, 4, 5)):
+            raise AssertionError(f"MCP: tools {tools}, texts {texts}, expected {want}")
+        return dict(seconds=seconds, tools=tools)
+    return finish
+
+
+def phase_export(dev, counters, card, keep):
+    """Phase 15: text normalization and export at Paraformer-large width (PROD_CONF, seeded,
+    the numerals first in its tokens and lifted in its head): ``generate(itn=True)``
+    against ``InverseNormalizer`` (``itn_check``), then ``AutoModel.export`` at fp32
+    (EXPORT_BUCKETS) and under ``quant="w8a8"`` (EXPORT_W8A8_BUCKETS), each directory
+    loaded by ``ExportedModel`` in a process of its own that imports no model module
+    (``exported_child``): exact launches a program call, ids equal to eager
+    ``infer_core``'s, texts equal to ``generate``'s (``check_exported``), each kernel
+    against its plain version at every shape those calls launched
+    (``export_kernel_rows``); the MCP server
+    (``mcp_check``); SenseVoice-Small's ITN from phase 12's dir (``keep["sv"]``); and each
+    op's lone call against the wrapper's direct one (``op_dispatch_rows``). The
+    MCP server runs beside the exports; the SenseVoice check and eager ``infer_core``'s
+    timing while the export process loads its programs, whose calls wait for them.
+    Returns its figures."""
+    from funasr_tpu_torch import AutoModel
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(15)
+    waves = {b: [pcm(rng, s) for _ in range(b[0])] for b, s in EXPORT_WAVE_SECONDS.items()}
+    tokens = number_tokens()
+    out = {"op_dispatch": op_dispatch_rows(dev)}
+    with tempfile.TemporaryDirectory() as root:
+        d = os.path.join(root, "asr")
+        os.makedirs(d)
+        write_model_dir(d, dev, tokens=tokens,
+                        craft=lambda m: lift_numerals(m.decoder.output_layer, tokens))
+        am = AutoModel(model=d, device=dev.type, log_level="WARNING")
+        log(f"text and export: Paraformer-large dir written and built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        sites = dict(kernel_sites(am.model), w8a8_linear=0)
+        batch = waves[(32, 384)]
+        out["itn"] = {"paraformer": itn_check(am, batch, "Paraformer-large fp32", counters,
+                                              sites)}
+        wav_path = os.path.join(root, "mcp.wav")
+        with open(wav_path, "wb") as f:
+            f.write(wav_bytes(np.asarray(batch[out["itn"]["paraformer"]["rewritten"][0]],
+                                         np.int16)))
+        mcp = mcp_check(d, wav_path, dev)
+        settings = {"fp32": export_setting(am, os.path.join(root, "fp32"), EXPORT_BUCKETS,
+                                           waves, "fp32", dev)}
+        am_q = AutoModel(model=d, device=dev.type, quant="w8a8", log_level="WARNING")
+        sites_q = dict(sites, w8a8_linear=count_w8a8(am_q.model))
+        settings["w8a8"] = export_setting(am_q, os.path.join(root, "w8a8"),
+                                          EXPORT_W8A8_BUCKETS, waves, "w8a8", dev)
+        io_path = os.path.join(root, "io.pt")
+        torch.save(dict(device=dev.type, settings={
+            label: {k: s[k] for k in ("dir", "waves")}
+            | {"calls": [{k: c[k] for k in ("speech", "lengths")} for c in s["calls"]]}
+            for label, s in settings.items()}), io_path)
+        exported = exported_in_child(io_path)
+        sv = AutoModel(model=keep["sv"], device=dev.type, log_level="WARNING")
+        lift_numerals(sv.model.ctc.ctc_lo, sv_tokens())
+        sv_waves = [pcm(rng, 15.0) for _ in range(ITN_SV_BATCH)]
+        out["itn"]["sensevoice"] = itn_check(sv, sv_waves, "SenseVoice-Small fp32", counters,
+                                             dict(kernel_sites(sv.model), w8a8_linear=0),
+                                             language="zh")
+        del sv
+        out["mcp"] = mcp(am)
+        eager_ms(am, settings["fp32"], dev)
+        eager_ms(am_q, settings["w8a8"], dev)
+        del am, am_q
+        torch.cuda.empty_cache()
+        got = exported()
+        if got["modules"]:
+            raise AssertionError(f"the export process imported model code: {got['modules']}")
+        for label, site in (("fp32", sites), ("w8a8", sites_q)):
+            out[label] = check_exported(label, settings[label], got[label], site, card)
+    torch.cuda.empty_cache()
+    shapes = {}
+    for label in ("fp32", "w8a8"):
+        for key, entry in out[label].pop("shapes").items():
+            shapes.setdefault(key, dict(inputs=entry["inputs"], programs={}))[
+                "programs"].update(entry["programs"])
+    out["rows"] = export_kernel_rows(dev, shapes)
+    out["launches"] = {c.__name__: sum(call["launches"][c.__name__] for label in ("fp32", "w8a8")
+                                       for call in out[label]["calls"]) for c in counters}
+    log(f"text and export: program launches {out['launches']}, "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    return out
+
+
 # the kernel rows at the streaming shapes: kernel -> [(label, record key)]
 STREAMING_ENTRIES = {
     "flash_attention": [(f"{key}_{dt}", ("flash_attention", "streaming", key, dtype))
@@ -4382,7 +4953,8 @@ LLM_ENTRIES = {
 
 
 def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None,
-                 hotword=None, streaming=None, sensevoice=None, serving=None, llm=None):
+                 hotword=None, streaming=None, sensevoice=None, serving=None, llm=None,
+                 export=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
@@ -4402,7 +4974,11 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
     rows at the serving shapes (``SERVING_ENTRIES``). Phase 14's (``llm``) go under ``llm``:
     launches of each Fun-ASR-Nano setting and of AutoModelVLLM, the sites x calls each run
     was held to, and the rows at the LLM path's shapes (``LLM_ENTRIES``; W8A8's at the
-    shapes of the W8A8 run, labelled by ``w8a8_label``)."""
+    shapes of the W8A8 run, labelled by ``w8a8_label``). Phase 15's (``export``) go under
+    ``export``: launches of the exported programs' counted calls, by setting and bucket, the
+    rows at every shape those calls launched (``export_kernel_rows``, labelled by
+    ``export_label``, each with its launches a call by program), and a lone call's ms
+    through the custom op and directly (``op_dispatch_rows``)."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -4485,6 +5061,11 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             if name == "w8a8_linear":
                 entry["llm"]["rows"] = {w8a8_label(key[2]): row for key, row in llm["rows"].items()
                                         if key[0] == name}
+        if export:
+            entry["export"] = dict(launches=export["launches"][name], launches_per_call={
+                f"{label}_b{c['bucket'][0]}_t{c['bucket'][1]}": c["launches"][name]
+                for label in ("fp32", "w8a8") for c in export[label]["calls"]},
+                rows=export["rows"].get(name, {}), **export["op_dispatch"][name])
         kernels.append(entry)
     return {"kernels": kernels}
 
@@ -4537,12 +5118,14 @@ def main():
         speaker = timed("speaker", phase_speaker, dev, counters, card, keep)
         hotword = timed("hotword", phase_hotword, dev, counters, card)
         streaming = timed("streaming", phase_streaming, dev, counters, card, keep)
-        sensevoice = timed("SenseVoice", phase_sensevoice, dev, counters, card)
+        sensevoice = timed("SenseVoice", phase_sensevoice, dev, counters, card, keep)
         serving = timed("serving", phase_serving, dev, counters, card, keep)
-    llm = timed("LLM", phase_llm, dev, counters, card)
+        llm = timed("LLM", phase_llm, dev, counters, card)
+        export = timed("text and export", phase_export, dev, counters, card, keep)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
-                                  speaker, hotword, streaming, sensevoice, serving, llm),
+                                  speaker, hotword, streaming, sensevoice, serving, llm,
+                                  export),
                      default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4552,5 +5135,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--stream-profile"]:
         stream_profile(sys.argv[2], sys.argv[3] == "bf16")
+    elif sys.argv[1:2] == ["--exported"]:
+        exported_child(sys.argv[2])
     else:
         main()

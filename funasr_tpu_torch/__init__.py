@@ -42,7 +42,8 @@ entry point:
                              chunk_size=[0, 10, 5], encoder_chunk_look_back=4,
                              decoder_chunk_look_back=1)
 
-Importing the package registers its classes in its own ``tables``:
+The first lookup in ``tables`` imports the model modules, whose classes register
+themselves (importing the package imports none of them):
 
     from funasr_tpu_torch import tables
     model = tables.model_classes["Paraformer"](**conf, device="cuda", generator=g)
@@ -59,44 +60,20 @@ import torch
 
 from funasr_tpu_torch.register import tables
 
+__version__ = "0.1.0"
+
 # The JAX package runs its fp32 products at full precision (the fbank DFT explicitly at
 # HIGHEST). PyTorch defaults CUDA fp32 convolutions to TF32; state both switches.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from funasr_tpu_torch.frontends import wav_frontend  # noqa: E402,F401
-from funasr_tpu_torch.frontends import whisper_frontend  # noqa: E402,F401
-from funasr_tpu_torch.models.bicif_paraformer import model as bicif_model  # noqa: E402,F401
-from funasr_tpu_torch.models.campplus import model as campplus_model  # noqa: E402,F401
-from funasr_tpu_torch.models.contextual_paraformer import model as ctx_model  # noqa: E402,F401
-from funasr_tpu_torch.models.ct_transformer import model as ct_model  # noqa: E402,F401
-from funasr_tpu_torch.models.ct_transformer_streaming import model as ct_stream  # noqa: E402,F401
-from funasr_tpu_torch.models.ctc import model as ctc_model  # noqa: E402,F401
-from funasr_tpu_torch.models.e_paraformer import model as e_paraformer  # noqa: E402,F401
-from funasr_tpu_torch.models.fsmn_vad_streaming import model as vad_model  # noqa: E402,F401
-from funasr_tpu_torch.models.fun_asr_nano import model as fun_asr_nano  # noqa: E402,F401
-from funasr_tpu_torch.models.llm_asr import model as llm_asr  # noqa: E402,F401
-from funasr_tpu_torch.models.monotonic_aligner import model as aligner  # noqa: E402,F401
-from funasr_tpu_torch.models.paraformer import cif_predictor, decoder, model  # noqa: E402,F401
-from funasr_tpu_torch.models.paraformer import san_decoder  # noqa: E402,F401
-from funasr_tpu_torch.models.paraformer_streaming import model as stream_model  # noqa: E402,F401
-from funasr_tpu_torch.models.paraformer_v2 import model as paraformer_v2  # noqa: E402,F401
-from funasr_tpu_torch.models.seaco_paraformer import model as seaco_model  # noqa: E402,F401
-from funasr_tpu_torch.models.sanm import encoder  # noqa: E402,F401
-from funasr_tpu_torch.models.sense_voice import model as sense_voice  # noqa: E402,F401
-from funasr_tpu_torch.models.whisper import encoders as whisper_encoders  # noqa: E402,F401
-from funasr_tpu_torch.models.whisper import model as whisper  # noqa: E402,F401
-from funasr_tpu_torch.tokenizer import char_tokenizer  # noqa: E402,F401
-from funasr_tpu_torch.tokenizer import extra_tokenizers  # noqa: E402,F401
-from funasr_tpu_torch.tokenizer import hf_tokenizer  # noqa: E402,F401
-from funasr_tpu_torch.tokenizer import sentencepiece_tokenizer  # noqa: E402,F401
-from funasr_tpu_torch import parity  # noqa: E402,F401  (aliases, after every class)
-from funasr_tpu_torch.auto.auto_model import AutoModel  # noqa: E402
-
 __all__ = ["AutoFrontend", "AutoModel", "tables"]
 
 
 def __getattr__(name):
+    if name == "AutoModel":
+        from funasr_tpu_torch.auto.auto_model import AutoModel
+        return AutoModel
     if name == "AutoFrontend":
         from funasr_tpu_torch.auto.auto_frontend import AutoFrontend
         return AutoFrontend

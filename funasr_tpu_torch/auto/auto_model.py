@@ -24,8 +24,12 @@ each segment's 1.5 s chunks at ``spk_kwargs["batch_size"]``, default 1) -> texts
 (timestamps offset by their segment's start) -> punctuation -> with a speaker model the
 chunk embeddings clustered (``preset_spk_num`` speakers, else found), the speaker turns
 distributed over the sentences into ``sentence_info`` (``spk``, ``start``, ``end``,
-``text``), else ``sentence_info`` when ``sentence_timestamp``. ITN (ROADMAP item 23) and
-``export`` raise ``NotImplementedError``.
+``text``), else ``sentence_info`` when ``sentence_timestamp``. ``itn=True`` (without the
+model's own ``use_itn``) rewrites every text that ``inference`` returns through
+``text/inverse_normalize.py`` in ``language``'s grammar (zh by default): the VAD
+pipeline's segments and the punctuated text too. ``export`` writes ``torch.export``
+programs, one per (batch, frames) bucket (``bin/export.py``), that
+``export_runtime.py::ExportedModel`` runs without the model code.
 
 ``inference`` keeps each batch's speed stats (load and feature seconds, ``forward``:
 that batch's own dispatch plus its own fetch, ``rtf``) of its last call in
@@ -300,9 +304,6 @@ class AutoModel:
         kwargs = self.kwargs if kwargs is None else kwargs
         kwargs.pop("cache", None)
         deep_update(kwargs, cfg)
-        if kwargs.get("itn") and not kwargs.get("use_itn"):
-            raise NotImplementedError("itn=True: inverse text normalization (slice 9, "
-                                      "ROADMAP item 23) is not ported yet")
         model = self.model if model is None else model
 
         batch_size = kwargs.get("batch_size", 1)
@@ -362,6 +363,8 @@ class AutoModel:
             _fetch(pending)
         logging.debug("speed_stats: %s rtf_avg=%.3f", self.batch_stats[-1:],
                       time_escape / time_speech)
+        if kwargs.get("itn") and not kwargs.get("use_itn"):
+            apply_itn(results_all, kwargs.get("language", "zh"))
         return results_all
 
     # ------------------------------------------------------------------
@@ -543,8 +546,32 @@ class AutoModel:
         return sentence_list
 
     def export(self, input=None, **cfg):
-        raise NotImplementedError("export is not ported yet (ROADMAP item 17b: the "
-                                  "port's own export format is still to be chosen)")
+        """Write ``torch.export`` programs of the main model, one per (batch, frames)
+        bucket (``buckets``, default ``[(4, 168)]``), its weights once, a manifest and the
+        model dir's sidecars to ``output_dir`` (default "exported"), on the model's
+        device (``bin/export.py``; ``auto_model.py:540-547``). Returns the manifest's
+        functions."""
+        from funasr_tpu_torch.bin.export import copy_sidecars, export_model
+
+        output_dir = cfg.get("output_dir", "exported")
+        functions = export_model(self.model, output_dir, cfg.get("buckets", [(4, 168)]))
+        copy_sidecars(self.model_path, output_dir)
+        return functions
+
+
+def apply_itn(results, language):
+    """Inverse text normalization of each result's text in place, on the host
+    (``auto_model.py:360-373``): any model's text, in ``language``'s first two letters
+    (default zh); a language the normalizer rejects leaves the text as it is."""
+    from funasr_tpu_torch.text.inverse_normalize import InverseNormalizer
+
+    try:
+        inv = InverseNormalizer(lang=str(language or "zh").lower()[:2])
+    except ValueError:
+        return
+    for r in results:
+        if isinstance(r.get("text"), str):
+            r["text"] = inv.inverse_normalize(r["text"])
 
 
 def dispatch_pair(model):

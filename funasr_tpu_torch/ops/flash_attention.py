@@ -31,7 +31,12 @@ the kernel. A row of length 0 gets the uniform average of V over its Tk keys in 
 versions (the Pallas kernel's behaviour); bucketing never builds one.
 
 Dispatch: a CPU tensor takes ``flash_attention_ref``; a CUDA tensor launches the
-kernel or raises. ``flash_attention.launches`` counts kernel launches.
+kernel or raises. ``flash_attention.launches`` counts kernel launches. Under
+``torch.export`` the wrapper records the custom op ``funasr_tpu_torch::flash_attention``
+instead (its CUDA implementation launches the same kernel, its CPU one is
+``flash_attention_ref``, its fake one gives the output's shape and strides), so an
+exported program runs the kernel; eager calls skip the op's dispatch, which costs host
+time on every call (measured in PERF.md, section 6).
 """
 
 from __future__ import annotations
@@ -123,8 +128,14 @@ def flash_attention(q, k, v, lengths, mode: str = "none", vad_pos=None):
     as long as the last stride is 1; the result is a (B, H, Tq, D) view of a contiguous
     (B, Tq, H, D) tensor, so merging heads afterwards costs no copy.
     """
+    if torch.compiler.is_exporting():
+        return flash_attention_op(q, k, v, lengths, mode, vad_pos)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, lengths, mode, vad_pos)
+    return _flash_attention_cuda(q, k, v, lengths, mode, vad_pos)
+
+
+def _flash_attention_cuda(q, k, v, lengths, mode="none", vad_pos=None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CPU or CUDA tensors, not {q.device}")
     _check(q, k, v, lengths, mode, vad_pos)
@@ -145,3 +156,18 @@ def flash_attention(q, k, v, lengths, mode: str = "none", vad_pos=None):
 
 
 flash_attention.launches = 0
+
+flash_attention_op = torch.library.custom_op(
+    "funasr_tpu_torch::flash_attention", flash_attention_ref, mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor lengths, str mode, Tensor? vad_pos) "
+           "-> Tensor")
+flash_attention_op.register_kernel("cuda")(_flash_attention_cuda)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, lengths, mode, vad_pos):
+    b, h, t, d = q.shape
+    if q.device.type == "cuda":  # the kernel writes (B, Tq, H, D)
+        return q.new_empty((b, t, h, d)).permute(0, 2, 1, 3)
+    return q.new_empty((b, h, t, d))

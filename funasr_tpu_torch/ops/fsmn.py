@@ -27,7 +27,10 @@ anything else raises ``ValueError``.
 
 Dispatch: a CPU tensor takes ``fsmn_memory_ref``; a CUDA tensor launches the kernel or
 raises. ``fsmn_memory.launches`` counts kernel launches. ``generic=True`` launches the
-generic instantiation whatever k is, to time a specialised one against it.
+generic instantiation whatever k is, to time a specialised one against it. Under
+``torch.export`` the wrapper records the custom op ``funasr_tpu_torch::fsmn_memory``
+(CUDA: the same kernel; CPU: ``fsmn_memory_ref``; fake: the (B, T, C) output), so an
+exported program runs the kernel; eager calls skip the op's dispatch.
 """
 
 from __future__ import annotations
@@ -90,8 +93,14 @@ def _check(x, weight, mask, left_pad, right_pad):
 def fsmn_memory(x, weight, mask, left_pad: int, right_pad: int, *, generic: bool = False):
     """x (B, T, C) (any batch/time strides, unit channel stride); weight (C, 1, k) in
     x's dtype; mask (B, T) bool or None -> contiguous (B, T, C) in x's dtype."""
+    if torch.compiler.is_exporting():
+        return fsmn_memory_op(x, weight, mask, left_pad, right_pad, generic)
     if x.device.type == "cpu":
         return fsmn_memory_ref(x, weight, mask, left_pad, right_pad)
+    return _fsmn_memory_cuda(x, weight, mask, left_pad, right_pad, generic)
+
+
+def _fsmn_memory_cuda(x, weight, mask, left_pad, right_pad, generic=False):
     if x.device.type != "cuda":
         raise ValueError(f"fsmn_memory runs on CPU or CUDA tensors, not {x.device}")
     _check(x, weight, mask, left_pad, right_pad)
@@ -113,3 +122,17 @@ def fsmn_memory(x, weight, mask, left_pad: int, right_pad: int, *, generic: bool
 
 
 fsmn_memory.launches = 0
+
+fsmn_memory_op = torch.library.custom_op(
+    "funasr_tpu_torch::fsmn_memory",
+    lambda x, weight, mask, left_pad, right_pad, generic: fsmn_memory_ref(
+        x, weight, mask, left_pad, right_pad),
+    mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor weight, Tensor? mask, int left_pad, int right_pad, "
+           "bool generic) -> Tensor")
+fsmn_memory_op.register_kernel("cuda")(_fsmn_memory_cuda)
+
+
+@fsmn_memory_op.register_fake
+def _fsmn_memory_fake(x, weight, mask, left_pad, right_pad, generic):
+    return x.new_empty(x.shape)

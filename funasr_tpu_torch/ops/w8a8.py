@@ -24,7 +24,11 @@ stores) overlaps the other's products. It is bit-exact to ``w8a8_linear_ref``.
 ``plan_w8a8`` holds the wrapper's shape arithmetic (paddings).
 
 Dispatch: a CPU tensor takes ``w8a8_linear_ref``; a CUDA tensor launches the kernel or
-raises. ``w8a8_linear.launches`` counts kernel launches.
+raises. ``w8a8_linear.launches`` counts kernel launches. Under ``torch.export`` the
+wrapper records the custom op ``funasr_tpu_torch::w8a8_linear`` (CUDA: the same kernels,
+its ``x_q`` / ``sx`` scratch allocated inside; CPU: ``w8a8_linear_ref``; fake: the
+(..., N) output), so an exported program runs the kernel; eager calls skip the op's
+dispatch.
 """
 
 from __future__ import annotations
@@ -106,8 +110,14 @@ def w8a8_linear(x, w_q8, scale, bias=None):
     On CUDA, x is viewed as (M, K) rows (copied only if that view needs a non-unit column
     stride); the wrapper allocates the (M, Kp) int8 rows x_q and the (M,) fp32 row scales
     that the kernel fills (``plan_w8a8``)."""
+    if torch.compiler.is_exporting():
+        return w8a8_linear_op(x, w_q8, scale, bias)
     if x.device.type == "cpu":
         return w8a8_linear_ref(x, w_q8, scale, bias)
+    return _w8a8_linear_cuda(x, w_q8, scale, bias)
+
+
+def _w8a8_linear_cuda(x, w_q8, scale, bias=None):
     if x.device.type != "cuda":
         raise ValueError(f"w8a8_linear runs on CPU or CUDA tensors, not {x.device}")
     _check(x, w_q8, scale, bias)
@@ -141,3 +151,13 @@ def w8a8_linear(x, w_q8, scale, bias=None):
 
 
 w8a8_linear.launches = 0
+
+w8a8_linear_op = torch.library.custom_op(
+    "funasr_tpu_torch::w8a8_linear", w8a8_linear_ref, mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor w_q8, Tensor scale, Tensor? bias) -> Tensor")
+w8a8_linear_op.register_kernel("cuda")(_w8a8_linear_cuda)
+
+
+@w8a8_linear_op.register_fake
+def _w8a8_linear_fake(x, w_q8, scale, bias):
+    return x.new_empty((*x.shape[:-1], w_q8.shape[0]))

@@ -8,15 +8,36 @@ class named in a hub ``config.yaml`` (FunASR ``funasr/register.py:8-92``).
 
 from __future__ import annotations
 
+import importlib
 import inspect
 import logging
 from typing import Any, Callable, Dict
 
 
-class RegisterTables:
-    """Holds one dict per extension point.
+# The modules whose import registers the port's classes, imported at the first lookup
+# in ``tables``: importing the package imports no model module, so a process that only
+# runs exported programs (``export_runtime.py``) holds no model code. ``parity`` binds the
+# aliases after every class.
+REGISTRABLE = tuple(f"funasr_tpu_torch.{m}" for m in (
+    "frontends.wav_frontend", "frontends.whisper_frontend", "models.bicif_paraformer.model",
+    "models.campplus.model", "models.contextual_paraformer.model",
+    "models.ct_transformer.model", "models.ct_transformer_streaming.model",
+    "models.ctc.model", "models.e_paraformer.model", "models.fsmn_vad_streaming.model",
+    "models.fun_asr_nano.model", "models.llm_asr.model", "models.monotonic_aligner.model",
+    "models.paraformer.cif_predictor", "models.paraformer.decoder",
+    "models.paraformer.model", "models.paraformer.san_decoder",
+    "models.paraformer_streaming.model", "models.paraformer_v2.model",
+    "models.seaco_paraformer.model", "models.sanm.encoder", "models.sense_voice.model",
+    "models.whisper.encoders", "models.whisper.model", "tokenizer.char_tokenizer",
+    "tokenizer.extra_tokenizers", "tokenizer.hf_tokenizer",
+    "tokenizer.sentencepiece_tokenizer", "parity"))
 
-    Attribute access for an unknown ``*_classes`` name lazily creates the table, so new
+
+class RegisterTables:
+    """Holds one dict per extension point, read as ``tables.<name>_classes``.
+
+    The first read of a table imports ``REGISTRABLE``, whose classes register
+    themselves. Reading an unknown ``*_classes`` name creates the table, so new
     extension points need no code change here.
     """
 
@@ -41,25 +62,39 @@ class RegisterTables:
     scheduler_classes: Dict[str, Any]
 
     def __init__(self) -> None:
-        for name, ann in self.__class__.__annotations__.items():
-            if name.endswith(self._TABLE_SUFFIX):
-                setattr(self, name, {})
+        self._tables: Dict[str, Dict[str, Any]] = {
+            name: {} for name in self.__class__.__annotations__
+            if name.endswith(self._TABLE_SUFFIX)}
         self._meta: Dict[str, Dict[str, str]] = {}
+        self._filled = None  # None: not yet; False: importing; True: done
 
     def __getattr__(self, name: str) -> Any:
-        # Only called when normal lookup fails: lazily create unknown tables.
-        if name.endswith(self._TABLE_SUFFIX) and not name.startswith("_"):
-            table: Dict[str, Any] = {}
-            object.__setattr__(self, name, table)
-            return table
-        raise AttributeError(name)
+        # Only called when normal lookup fails, as it does for every table.
+        if not name.endswith(self._TABLE_SUFFIX) or name.startswith("_"):
+            raise AttributeError(name)
+        self._fill()
+        return self._tables.setdefault(name, {})
+
+    def _fill(self) -> None:
+        """Import the registering modules once; a lookup during their import (their
+        own module-level reads) sees the tables as they stand."""
+        if self._filled is not None:
+            return
+        self._filled = False
+        try:
+            for module in REGISTRABLE:
+                importlib.import_module(module)
+        except BaseException:
+            self._filled = None
+            raise
+        self._filled = True
 
     def register(self, table_name: str, key: str | None = None) -> Callable:
         """Class decorator: ``@tables.register("model_classes", "Paraformer")``."""
 
         def decorator(target: Any) -> Any:
             name = key if key is not None else target.__name__
-            table = getattr(self, table_name)
+            table = self._tables.setdefault(table_name, {})  # starts no import
             if name in table and table[name] is not target:
                 logging.debug("registry: overriding %s/%s", table_name, name)
             table[name] = target
@@ -76,9 +111,8 @@ class RegisterTables:
     def print(self, table_name: str | None = None) -> str:
         """Human-readable dump of one or all tables."""
         lines = []
-        names = [table_name] if table_name else sorted(
-            n for n in vars(self) if n.endswith(self._TABLE_SUFFIX)
-        )
+        self._fill()
+        names = [table_name] if table_name else sorted(self._tables)
         for tname in names:
             table = getattr(self, tname, {})
             lines.append(f"----------- ** {tname} ** -----------")

@@ -229,17 +229,22 @@ def test_deep_update_and_hotwords_copies_match():
         assert got == want
 
 
-def test_unported_options_raise(model_dir, monkeypatch):
+def test_unported_options_raise(model_dir, monkeypatch, tmp_path):
     """vad_model / punc_model / spk_model build (tests/test_torch_pipeline.py,
-    tests/test_torch_spk_pipeline.py); ITN and export still raise."""
+    tests/test_torch_spk_pipeline.py); a hub alias offline and "cuda" without a GPU
+    raise. ITN and export, which raised until they were ported, now run
+    (tests/test_torch_itn.py, tests/test_torch_export.py)."""
     monkeypatch.setenv("FUNASR_TPU_OFFLINE", "1")
     with pytest.raises(FileNotFoundError, match="cam"):  # a hub alias, not a directory
         AutoModel(model=model_dir, device="cpu", spk_model="cam++", log_level="WARNING")
     am = AutoModel(model=model_dir, device="cpu", log_level="WARNING")
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        am.generate(input=_pcm(1, (8000,)), itn=True)
-    with pytest.raises(NotImplementedError, match="export"):
-        am.export()
+    from funasr_tpu_torch.text.inverse_normalize import InverseNormalizer
+    plain = am.generate(input=_pcm(1, (8000,)))[0]["text"]
+    assert am.generate(input=_pcm(1, (8000,)), itn=True)[0]["text"] == \
+        InverseNormalizer(lang="zh").inverse_normalize(plain)
+    functions = am.export(output_dir=str(tmp_path), buckets=[(1, 128)])
+    assert [(f["batch"], f["frames"]) for f in functions] == [(1, 128)]
+    assert (tmp_path / "export_manifest.json").exists()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         AutoModel(model=model_dir)  # device defaults to "cuda"; no CPU fallback

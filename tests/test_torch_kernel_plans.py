@@ -282,6 +282,60 @@ def test_kernels_line_carries_llm_entries():
     assert set(kernels["flash_attention"]["rows"]) == {"fp32", "bf16"}
 
 
+def test_kernels_line_carries_export_entries():
+    """Every kernel carries phase 15's launches under ``export``: their sum over the
+    exported programs' counted calls, each call's by setting and bucket, the rows at the
+    shapes those calls launched (with their launches a call by program), and its lone
+    call's ms through the custom op and directly."""
+    row = dict(shape=(1, 2), max_abs_err=0.0, ms=1.0, call_ms=2.0, plain_ms=3.0,
+               library_ms=4.0, bound_ms=0.5, bound_by="bytes")
+    record = {(name, torch.bfloat16): row for name in chip_smoke.LIBRARY_CALLS}
+    call = {"flash_attention": 50, "fsmn_memory": 66, "w8a8_linear": 0}
+    export = {"fp32": {"calls": [dict(bucket=b, launches=call)
+                                 for b in chip_smoke.EXPORT_BUCKETS]},
+              "w8a8": {"calls": [dict(bucket=b, launches=dict(call, w8a8_linear=282))
+                                 for b in chip_smoke.EXPORT_W8A8_BUCKETS]},
+              "launches": {"flash_attention": 150, "fsmn_memory": 198, "w8a8_linear": 282},
+              "op_dispatch": {name: dict(direct_call_ms=0.05, op_call_ms=0.07)
+                              for name in chip_smoke.LIBRARY_CALLS},
+              "rows": {"flash_attention": {"4x4x168x128_float32": dict(
+                           row, launches_per_call={"fp32_b4_t168": 50})},
+                       "fsmn_memory": {"4x168x512_k11_float32": dict(
+                           row, launches_per_call={"fp32_b4_t168": 50}),
+                           "4x100x512_k11_float32": dict(
+                           row, launches_per_call={"fp32_b4_t168": 16})}}}
+    line = chip_smoke.kernels_line(record, call, {"w8a8_linear": 282}, call, export=export)
+    kernels = {k["name"]: k["export"] for k in line["kernels"]}
+    for name, entry in kernels.items():
+        assert entry["launches"] == sum(entry["launches_per_call"].values())
+    assert sum(r["launches_per_call"]["fp32_b4_t168"]
+               for r in kernels["fsmn_memory"]["rows"].values()) == 66
+    assert set(kernels["flash_attention"]["rows"]) == {"4x4x168x128_float32"}
+    assert kernels["w8a8_linear"]["rows"] == {}
+    assert kernels["fsmn_memory"]["launches_per_call"] == {
+        "fp32_b4_t168": 66, "fp32_b32_t384": 66, "w8a8_b32_t384": 66}
+    assert kernels["w8a8_linear"]["launches_per_call"]["w8a8_b32_t384"] == 282
+    assert kernels["w8a8_linear"]["op_call_ms"] == 0.07
+    assert "export" not in chip_smoke.kernels_line(record, call, {"w8a8_linear": 282},
+                                                   call)["kernels"][0]
+
+
+def test_number_tokens_put_the_numerals_first():
+    """Phase 15's token list: as many distinct tokens as the vocabulary, the numerals at
+    ids 3-20; ``lift_numerals`` raises the head's bias at those ids and nowhere else."""
+    tokens = chip_smoke.number_tokens()
+    n = len(chip_smoke.NUMBER_CHARS)
+    assert len(tokens) == len(set(tokens)) == chip_smoke.PROD_CONF["vocab_size"]
+    assert tokens[3:3 + n] == list(chip_smoke.NUMBER_CHARS) and tokens[-1] == "<unk>"
+    head = torch.nn.Linear(4, len(tokens))
+    before = head.bias.detach().clone()
+    chip_smoke.lift_numerals(head, tokens)
+    lift = (head.bias.detach() - before).nonzero().flatten().tolist()
+    assert lift == list(range(3, 3 + n))
+    assert torch.allclose(head.bias[3:3 + n] - before[3:3 + n],
+                          torch.full((n,), chip_smoke.NUMBER_LIFT))
+
+
 def test_w8a8_shapes_records_each_launch_and_restores_the_wrapper():
     """``chip_smoke.w8a8_shapes`` gathers (M, K, N, x dtype, bias dtype) of each W8A8 call
     through ``qlinear`` (here the plain version, on CPU tensors), and puts the wrapper

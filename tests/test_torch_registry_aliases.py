@@ -162,3 +162,26 @@ def test_slice_names_resolve_as_in_the_jax_package(table, name):
     assert port_cls.__module__.replace("funasr_tpu_torch.", "funasr_tpu.") == jax_cls.__module__
     same = [n for t, n in SLICE_NAMES if t == table and getattr(jtables, t)[n] is jax_cls]
     assert all(getattr(tables, table)[n] is port_cls for n in same)
+
+
+def test_the_first_table_read_imports_every_registering_module():
+    """``import funasr_tpu_torch`` imports no model module; the first read of a table
+    imports ``register.REGISTRABLE``, which must reach every module that registers a
+    class (a fresh interpreter)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    code = ("import sys, funasr_tpu_torch\n"
+            "assert not [m for m in sys.modules if m.startswith('funasr_tpu_torch.models')]\n"
+            "funasr_tpu_torch.tables.model_classes['Paraformer']\n"
+            "print(' '.join(m for m in sys.modules if m.startswith('funasr_tpu_torch.')))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=repo, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    registering = {
+        ".".join(path.relative_to(repo).with_suffix("").parts)
+        for path in (repo / "funasr_tpu_torch").rglob("*.py")
+        if "tables.register(" in path.read_text(encoding="utf-8")}
+    assert registering and registering <= set(proc.stdout.split())

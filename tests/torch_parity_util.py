@@ -143,11 +143,17 @@ def _write_tokens(d, tokens):
         f.write("\n".join(tokens) + "\n")
 
 
-def write_asr_dir(d, seed=0):
-    conf = dict(PIPE_ASR_CONF)
+# the Chinese numerals and units first, so that seeded decodes hold numbers for the
+# inverse text normalization to rewrite
+NUMBER_TOKENS = (["<blank>", "<s>", "</s>"] + list("零一二三四五六七八九十百千万亿两点年月号")
+                 + [chr(ord("一") + 100 + i) for i in range(20)] + ["<unk>"])
+
+
+def write_asr_dir(d, seed=0, tokens=PIPE_TOKENS):
+    conf = dict(PIPE_ASR_CONF, vocab_size=len(tokens))
     model = TorchParaformer(**conf, generator=torch.Generator().manual_seed(seed))
     torch.save(model.state_dict(), os.path.join(d, "model.pt"))
-    _write_tokens(d, PIPE_TOKENS)
+    _write_tokens(d, tokens)
     write_identity_cmvn(os.path.join(d, "am.mvn"), conf["input_size"])
     return _write_config(d, dict(
         model="Paraformer",
