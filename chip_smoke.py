@@ -11,7 +11,9 @@ the three servers over real localhost sockets: the OpenAI-compatible HTTP app wi
 cross-request batcher, the 2-pass WebSocket server and the realtime WebSocket server, and
 LLM-based ASR: Fun-ASR-Nano (Qwen3-0.6B on the port's ``LLMEngine``) through ``AutoModel`` and
 ``AutoModelVLLM``, and Whisper-large-v3, and text normalization and deployment:
-``generate(itn=True)``, ``AutoModel.export`` run by ``ExportedModel`` and the MCP server.
+``generate(itn=True)``, ``AutoModel.export`` run by ``ExportedModel`` and the MCP server, and
+Paraformer-large fine-tuning through ``bin/data_tools`` and ``bin/train`` with the backward
+kernels.
 
     python3 chip_smoke.py
 
@@ -192,6 +194,36 @@ Phases (any failure raises and exits non-zero):
    ``tools/list``, ``transcribe`` with and without ``itn`` equal to ``AutoModel``'s text,
    ``inverse_normalize`` of 三百二十五 -> 325. Each kernel's lone call through its custom op
    against the wrapper's direct call (``op_dispatch_rows``).
+16. training (``phase_training``): (a) the backward kernels at the recipe's first batch
+   shape (``train_kernel_rows``: flash backward at (B, 4, T, 128) fp32 with the batch's
+   ragged lengths in modes none / causal / corner, FSMN dx (the forward kernel with the
+   taps reversed) and dw at (B, T, 512), k 11, pads 5 / 5) against autograd through
+   their plain versions (relative L2 ``FLASH_BWD_REL_TOL`` / ``FSMN_BWD_REL_TOL``), two
+   runs bit-equal, with the library call's backward time beside; (b) one training step
+   of a PROD_CONF-width Paraformer cut to 4 + 2 blocks on the card against the CPU
+   (``train_cuda_vs_cpu``: loss within ``TRAIN_LOSS_RTOL``, every gradient within
+   ``TRAIN_GRAD_REL_TOL``, launches exactly the step's sites); (c) finetune.sh's recipe:
+   ``python -m funasr_tpu_torch.bin.data_tools scp2jsonl`` and ``python -m
+   funasr_tpu_torch.bin.train`` (the ``funasr-tpu-torch-data-tools`` / ``-train`` console
+   scripts) as subprocesses on a seeded PROD_CONF Paraformer-large (50 + 16 blocks, d
+   512, vocab 8404) with the training keys (SpecAugLFR, dropout 0.1, dither 1.0,
+   ``sampling_ratio`` 0.75, ``lsm_weight`` 0.1), 16 + 4 generated wavs of 10-15 s, token
+   batches of 6,000 and lr 0.0002: one epoch (a mid-epoch checkpoint with its
+   validation, the epoch's), then resumed for a second (its epoch's checkpoint, the
+   average of the 2 best). Gated on a
+   finite loss every step, every step's and validation's launches exactly their sites
+   (the trainer's per-step counts), the resumed run going on from its step, every encoder
+   linear_q_k_v's q / k rows and every fsmn_block reached by a gradient (the
+   checkpoint's Adam moments) and the average decoding through ``AutoModel(model=<output
+   dir>)``. Prints ms a step, steps/s, audio seconds a second, peak memory and one
+   profiled step's device time and idle share. (d) a kernel-vs-plain row at every
+   signature (shapes, strides, lengths) the recipe's runs launched, from the trainer's
+   ``kernel_shapes`` (``recipe_kernel_rows``).
+
+``python3 chip_smoke.py --recipe-ab [TREE]`` (not part of the run above): the recipe's
+``bin/train`` six times in one process, alternating this tree with the kernel-shape log on
+and the same tree with it off, or, given TREE (another checkout), that tree: ms a step of
+each run and pooled (``recipe_ab``), to compare two versions within one call.
 
 Kernel times (phases 3-4): ``ms`` is device time per launch over 20 back-to-back
 launches between one pair of CUDA events, queued behind a spin kernel so that host
@@ -217,7 +249,9 @@ phase 12's under ``sensevoice``, with the rows at SenseVoice's shapes, phase 13'
 ``serving``, by server, with the rows at the serving shapes, and phase 14's under ``llm``,
 by run, with the rows at the LLM path's shapes, and phase 15's under ``export``: launches
 of each counted call of an exported program, with the rows at the shapes those calls
-launched), the last line
+launched, and phase 16's under ``training``, with three more kernels, the backward
+launches ``flash_attention_bwd``, ``fsmn_memory_bwd_input`` and ``fsmn_memory_bwd_weight``),
+the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -4903,6 +4937,663 @@ def phase_export(dev, counters, card, keep):
 
 
 # the kernel rows at the streaming shapes: kernel -> [(label, record key)]
+# ---------------------------------------------------------------------------------------
+# phase 16: training: the backward kernels, CUDA against the CPU, and the
+# finetune recipe through bin/data_tools and bin/train
+# ---------------------------------------------------------------------------------------
+
+# the training keys of paraformer-large's config.yaml (FunASR's template: SpecAugLFR,
+# dropout 0.1, dither 1.0, lsm_weight 0.1, the glancing sampler at 0.75)
+TRAIN_MODEL_CONF = dict(lsm_weight=0.1, predictor_weight=1.0, length_normalized_loss=True,
+                        sampling_ratio=0.75)
+TRAIN_SPECAUG_CONF = dict(apply_time_warp=False, time_warp_window=5, time_warp_mode="bicubic",
+                          apply_freq_mask=True, freq_mask_width_range=[0, 30], lfr_rate=6,
+                          num_freq_mask=1, apply_time_mask=True, time_mask_width_range=[0, 12],
+                          num_time_mask=1)
+TRAIN_UTTS = 16            # train utterances of 10-15 s: about 4 token batches of 6,000 frames
+TRAIN_VAL_UTTS = 4
+TRAIN_SECONDS = (10.0, 15.0)
+# finetune.sh's flags, with the run cut to one epoch (then one more, resumed)
+TRAIN_RECIPE = ["++dataset_conf.batch_size=6000", "++dataset_conf.batch_type=token",
+                "++optim_conf.lr=0.0002", "++train_conf.keep_nbest_models=10",
+                "++train_conf.log_interval=1", "++train_conf.use_tensorboard=False",
+                "++train_conf.log_kernel_shapes=True"]
+# the first run adds a mid-epoch checkpoint (step 3) and the profiled step (the second);
+# the resumed run checkpoints at its epoch's end and averages the 2 best
+TRAIN_FIRST = ["++train_conf.max_epoch=1", "++train_conf.save_checkpoint_interval=3",
+               "++train_conf.profile_start_step=1", "++train_conf.profile_steps=1"]
+TRAIN_RESUMED = ["++train_conf.max_epoch=2", "++train_conf.save_checkpoint_interval=0",
+                 "++train_conf.avg_nbest_model=2"]
+TRAIN_CPU_DEPTH = (4, 2)   # encoder / decoder blocks of the CUDA-vs-CPU step (PROD_CONF width)
+TRAIN_CPU_T = 10.0         # seconds of each of the step's 2 utterances
+TRAIN_LOSS_RTOL = 1e-5     # the step's loss, CUDA against the CPU (fp32)
+# each parameter's gradient, CUDA against the CPU, relative L2: fp32 on both, the kernels'
+# 3xTF32 / FFMA sums and cuBLAS against the CPU's order, through 4 + 2 blocks
+TRAIN_GRAD_REL_TOL = 1e-3
+FLASH_BWD_REL_TOL = 1e-5   # dq / dk / dv against autograd through the plain version (fp32)
+FSMN_BWD_REL_TOL = 1e-5    # dx / dw against autograd through the plain version (fp32)
+CIF_TIE_SCALE = 1 + 1e-5   # the training CIF's last-fire tie moved alike on both devices
+
+
+def train_sites(enc_blocks, dec_blocks):
+    """Launches of each kernel in one training step of Paraformer (every decoder layer but
+    the last has an FSMN; the glancing sampler's first decoder pass runs them again under
+    no_grad) and in one validation batch."""
+    step = {"flash_attention": enc_blocks, "flash_attention_bwd": enc_blocks,
+            "fsmn_memory": enc_blocks + 2 * dec_blocks,
+            "fsmn_memory_bwd_input": enc_blocks + dec_blocks,
+            "fsmn_memory_bwd_weight": enc_blocks + dec_blocks, "w8a8_linear": 0}
+    val = dict(step, flash_attention_bwd=0, fsmn_memory_bwd_input=0, fsmn_memory_bwd_weight=0)
+    return step, val
+
+
+def flash_bwd_work(b, h, t, tk, d, limits):
+    """Bytes and flops of the flash backward (fp32): q, o, dO read and dq written (Tq rows),
+    k, v read and dk, dv written (Tk rows), the lengths; 10 D flops per query row and key
+    it sees (S recomputed, dO V^T, dV, dQ, dK: five products of 2 D each)."""
+    n_bytes = 4 * b * h * d * (4 * t + 4 * tk) + 4 * b
+    return n_bytes, 10 * h * d * sum(sum(r) for r in limits)
+
+
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+
+
+def train_kernel_rows(dev, g, b, t, lens):
+    """(a) The backward kernels at the training batch's shapes against autograd through
+    their plain versions: flash at (B, 4, T, 128) fp32 (strided head views of q|k|v, the
+    batch's ragged lengths) in each mode, FSMN dx and dw at (B, T, 512), k 11, pads 5 / 5,
+    the batch's mask. Each with ms, call_ms, plain ms (the plain forward + autograd), the
+    library call's ms and the bound."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv1d_input, conv1d_weight
+    from funasr_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
+                                                      flash_attention_bwd_ref, key_limits)
+    from funasr_tpu_torch.ops.fsmn import (fsmn_memory_bwd_input, fsmn_memory_bwd_ref,
+                                           fsmn_memory_bwd_weight, fsmn_memory_ref)
+
+    rows = {}
+    h, d = PROD_CONF["encoder_conf"]["attention_heads"], 128
+    qkv = torch.randn(b, t, 3, h, d, generator=g).to(dev)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for mode, vp_list in (("none", None), ("causal", None), ("corner", [t // 3] * b)):
+        vp = None if vp_list is None else torch.tensor(vp_list, dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            out = flash_attention(q, k, v, ln, mode, vp)
+        dout = torch.randn(out.shape, generator=g).to(dev)
+        got = flash_attention_bwd(q, k, v, out, dout, ln, mode, vp)
+        again = flash_attention_bwd(q, k, v, out, dout, ln, mode, vp)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_ref(q, k, v, dout, ln, mode, vp)
+        rel = max(rel_l2(a, w) for a, w in zip(got, want))
+        err = max((a - w).abs().max().item() for a, w in zip(got, want))
+        same = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+        limits = key_limits(ln, t, mode, vp)
+        key_valid = torch.arange(t, device=dev)[None, None, :] < limits[:, :, None]
+        qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_valid[:, None])
+        row = dict(shape=(b, h, t, d), mode=mode, lengths=list(lens), max_abs_err=err,
+                   rel_l2=rel, deterministic=same,
+                   library_call="torch.autograd.grad(scaled_dot_product_attention(q, k, v, "
+                                "attn_mask=key_valid), (q, k, v), dout)",
+                   ms=device_ms(lambda: flash_attention_bwd(q, k, v, out, dout, ln, mode, vp)),
+                   call_ms=call_ms(lambda: flash_attention_bwd(q, k, v, out, dout, ln, mode, vp)),
+                   plain_ms=device_ms(lambda: flash_attention_bwd_ref(q, k, v, dout, ln, mode, vp)),
+                   library_ms=device_ms(lambda: torch.autograd.grad(
+                       sdpa, (qs, ks, vs), dout, retain_graph=True)))
+        lim_rows = [[n if n > 0 else t for n in r] for r in limits.tolist()]
+        n_bytes, n_ops = flash_bwd_work(b, h, t, t, d, lim_rows)
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 3 * n_ops, "tf32")
+        row["cuda_core_bound_ms"] = bound_ms(n_bytes, n_ops, "fp32")[0]
+        if vp_list is not None:
+            row["vad_pos"] = vp_list
+        log(f"flash backward {row['shape']} fp32 {mode}: rel L2 {rel:.2e} (tol "
+            f"{FLASH_BWD_REL_TOL:g}) max_abs_err {err:.3e}, two runs bit-equal {same}; "
+            + timing_line(row))
+        if not (rel <= FLASH_BWD_REL_TOL and same):
+            raise AssertionError(f"flash backward kernel disagrees ({mode}): {rel}, {same}")
+        rows[("flash_attention_bwd", mode)] = row
+
+    c, kk, left = 512, 11, 5
+    x = torch.randn(b, t, 3 * c, generator=g).to(dev)[..., 2 * c:]
+    w = (torch.rand(c, 1, kk, generator=g) - 0.5).to(dev)
+    mask = torch.arange(t, device=dev)[None] < ln[:, None]
+    dout = torch.randn(b, t, c, generator=g).to(dev)
+    want_dx, want_dw = fsmn_memory_bwd_ref(x, w, mask, left, left, dout)
+    m = mask[:, None, :].float()
+    g_bct = (dout.transpose(1, 2) * m).contiguous()   # the library calls' (B, C, T) layout
+    xm_bct = (x.transpose(1, 2) * m).contiguous()
+
+    def plain(wrt):
+        def run():
+            with torch.enable_grad():
+                x_, w_ = x.detach().requires_grad_(wrt == 0), w.detach().requires_grad_(wrt == 1)
+                out = fsmn_memory_ref(x_, w_, mask, left, left)
+                return torch.autograd.grad(out, (x_, w_)[wrt], dout)
+        return run
+
+    for name, fn, want, lib, lib_call, work in (
+            ("fsmn_memory_bwd_input", lambda: fsmn_memory_bwd_input(dout, w, mask, left, left),
+             want_dx, lambda: conv1d_input((b, c, t), w, g_bct, padding=left, groups=c) + g_bct,
+             "torch.nn.grad.conv1d_input(xm.shape, w, g, padding=5, groups=C) + g",
+             fsmn_work(b, t, c, kk, 4)),
+            ("fsmn_memory_bwd_weight", lambda: fsmn_memory_bwd_weight(x, dout, mask, left, left),
+             want_dw.reshape(c, kk),
+             lambda: conv1d_weight(xm_bct, w.shape, g_bct, padding=left, groups=c),
+             "torch.nn.grad.conv1d_weight(xm, w.shape, g, padding=5, groups=C)",
+             (4 * (2 * b * t * c + c * kk) + b * t, 2 * kk * b * t * c))):
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            got, again = got.reshape(want.shape), again.reshape(want.shape)
+        rel, err = rel_l2(got, want), (got - want).abs().max().item()
+        same = torch.equal(got, again)
+        row = dict(shape=(b, t, c), k=kk, pads=(left, left), max_abs_err=err, rel_l2=rel,
+                   deterministic=same, library_call=lib_call, ms=device_ms(fn),
+                   call_ms=call_ms(fn), plain_ms=device_ms(plain(0 if "input" in name else 1)),
+                   library_ms=device_ms(lib))
+        row["bound_ms"], row["bound_by"] = bound_ms(*work, "fp32")
+        log(f"{name} {row['shape']} k=11 fp32: rel L2 {rel:.2e} (tol {FSMN_BWD_REL_TOL:g}) "
+            f"max_abs_err {err:.3e}, two runs bit-equal {same}; " + timing_line(row))
+        if not (rel <= FSMN_BWD_REL_TOL and same):
+            raise AssertionError(f"{name} disagrees: {rel}, {same}")
+        rows[(name,)] = row
+    return rows
+
+
+def recipe_launch_shapes(lines):
+    """Every signature the recipe's counted runs launched, from the trainer's log lines
+    (steps and validations; ``++train_conf.log_kernel_shapes``): {(kernel, ((shape,
+    strides), ...), args): {"launches", "lengths" (the first launch's)}}. Raises where a
+    line's signatures do not add up to its launches."""
+    shapes = {}
+    for x in lines:
+        by_kernel = {}
+        for e in x["kernel_shapes"]:
+            key = (e["kernel"], tuple((tuple(sh), tuple(st)) for sh, st in e["tensors"]),
+                   tuple(e["args"]))
+            entry = shapes.setdefault(key, dict(launches=0, lengths=e["lengths"]))
+            entry["launches"] += e["launches"]
+            by_kernel[e["kernel"]] = by_kernel.get(e["kernel"], 0) + e["launches"]
+        if any(by_kernel.get(k, 0) != n for k, n in x["launches"].items()):
+            raise AssertionError(f"step {x['step']}: launches by shape {by_kernel} do not "
+                                 f"add up to {x['launches']}")
+    return shapes
+
+
+def recipe_label(key):
+    """A recipe row's label: the first tensor's shape, the FSMN's k ("5x190x512_k11")."""
+    name, tensors, args = key
+    shape = "x".join(map(str, tensors[0][0]))
+    return shape if name.startswith("flash") else f"{shape}_k{args[0]}"
+
+
+def recipe_kernel_rows(dev, shapes):
+    """(d) One row per signature the recipe's runs launched (``recipe_launch_shapes``):
+    random values at the launch's shapes and strides (``strided_randn``), its lengths
+    (flash's key lengths; the FSMN's prefix mask of the mask's row sums), against the
+    plain version. Forward kernels within FLASH_TOL / FSMN_TOL (fp32, max abs); backward
+    kernels within FLASH_BWD_REL_TOL / FSMN_BWD_REL_TOL relative L2 and bit-equal across
+    two runs; each row with its kernel ms and its launches in the runs. Returns {kernel:
+    {label: row}}; raises on a disagreement."""
+    from funasr_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
+                                                      flash_attention_bwd_ref)
+    from funasr_tpu_torch.ops.fsmn import (fsmn_memory, fsmn_memory_bwd_input,
+                                           fsmn_memory_bwd_ref, fsmn_memory_bwd_weight)
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    f32 = torch.float32
+    rows = {}
+    for key, info in shapes.items():
+        name, tensors, args = key
+        lens = info["lengths"]
+        made = [strided_randn(sh, st, f32, g, dev) for sh, st in tensors]
+        if name.startswith("flash"):
+            if args[0] != "none":
+                raise AssertionError(f"the recipe launched {name} in mode {args[0]}")
+            q, k, v = made[:3]
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        else:
+            kk, left, right = args[:3]
+            b, t, c = tensors[0][0]
+            w = torch.rand(c, 1, kk, generator=g, device=dev) - 0.5
+            mask = (None if lens is None else torch.arange(t, device=dev)[None]
+                    < torch.tensor(lens, device=dev)[:, None])
+        if name == "flash_attention":
+            row, tol = flash_row(q, k, v, lens, timed=False), FLASH_TOL[f32]
+            row["ms"] = device_ms(lambda: flash_attention(q, k, v, ln))
+        elif name == "fsmn_memory":
+            if args[3]:
+                raise AssertionError("the recipe launched the generic FSMN kernel")
+            row, tol = fsmn_row(made[0], w, mask, left, right, timed=False), FSMN_TOL[f32]
+            row["ms"] = device_ms(lambda: fsmn_memory(made[0], w, mask, left, right))
+        else:
+            if name == "flash_attention_bwd":
+                out, dout = made[3:]
+                with torch.no_grad():
+                    out.copy_(flash_attention(q, k, v, ln))
+                fn = lambda: flash_attention_bwd(q, k, v, out, dout, ln)  # noqa: E731
+                want = flash_attention_bwd_ref(q, k, v, dout, ln)
+                tol = FLASH_BWD_REL_TOL
+            elif name == "fsmn_memory_bwd_input":
+                dout = made[0]
+                fn = lambda: (fsmn_memory_bwd_input(dout, w, mask, left, right),)  # noqa: E731
+                want = fsmn_memory_bwd_ref(torch.randn_like(dout), w, mask, left, right,
+                                           dout)[:1]
+                tol = FSMN_BWD_REL_TOL
+            elif name == "fsmn_memory_bwd_weight":
+                x, dout = made
+                fn = lambda: (fsmn_memory_bwd_weight(x, dout, mask, left, right),)  # noqa: E731
+                want = (fsmn_memory_bwd_ref(x, w, mask, left, right, dout)[1].reshape(c, kk),)
+                tol = FSMN_BWD_REL_TOL
+            else:
+                raise AssertionError(f"the recipe launched {name}")
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            row = dict(shape=tensors[0][0], rel_l2=max(rel_l2(a, w_) for a, w_ in zip(got, want)),
+                       max_abs_err=max((a - w_).abs().max().item() for a, w_ in zip(got, want)),
+                       deterministic=all(torch.equal(a, a2) for a, a2 in zip(got, again)),
+                       ms=device_ms(fn))
+        row.update(strides=[st for _, st in tensors], launches=info["launches"])
+        if lens is not None:
+            row["lengths"] = lens
+        err = row.get("rel_l2", row["max_abs_err"])
+        ok = math.isfinite(err) and err <= tol and row.get("deterministic", True)
+        log(f"  {name} {recipe_label(key)}: {'rel L2' if 'rel_l2' in row else 'max_abs_err'} "
+            f"{err:.2e} (tol {tol:g}){'' if row.get('deterministic', True) else ' NOT bit-equal'}"
+            f", kernel {row['ms']:.4f} ms, {info['launches']} launches")
+        if not ok:
+            raise AssertionError(f"{name} disagrees at the recipe's {recipe_label(key)}: {row}")
+        label, by_name = recipe_label(key), rows.setdefault(name, {})
+        while label in by_name:  # the same shape at other strides
+            label += "'"
+        by_name[label] = row
+    return rows
+
+
+@contextlib.contextmanager
+def cif_tie_moved():
+    """The training CIF's rescaled alphas times CIF_TIE_SCALE, on every device alike: they
+    sum to the target count exactly, and whether the last token fires is a tie that
+    rounding decides, in another order on each device."""
+    import funasr_tpu_torch.models.paraformer.cif_predictor as cif_mod
+    cif = cif_mod.cif
+    cif_mod.cif = lambda h, a, k, thr=1.0: cif(h, a * CIF_TIE_SCALE, k, thr)
+    try:
+        yield
+    finally:
+        cif_mod.cif = cif
+
+
+def train_cuda_vs_cpu(dev, counters):
+    """(b) One training step (loss + backward) of a PROD_CONF-width Paraformer cut to 4 + 2
+    blocks, on the card and on the CPU: the same weights and features, dropout and SpecAug
+    off, the sampler's draws fed equal. Gates: the loss within TRAIN_LOSS_RTOL, every
+    parameter's gradient within TRAIN_GRAD_REL_TOL relative L2, the step's launches
+    exactly its sites, the q / k rows of every linear_q_k_v and every fsmn_block non-zero
+    on the card."""
+    from funasr_tpu_torch import tables
+    from funasr_tpu_torch.frontends.wav_frontend import WavFrontend
+
+    enc_n, dec_n = TRAIN_CPU_DEPTH
+    conf = dict(PROD_CONF, **TRAIN_MODEL_CONF,
+                encoder_conf=dict(PROD_CONF["encoder_conf"], num_blocks=enc_n),
+                decoder_conf=dict(PROD_CONF["decoder_conf"], num_blocks=dec_n,
+                                  att_layer_num=dec_n))
+    cpu = tables.model_classes["Paraformer"](**conf, generator=torch.Generator().manual_seed(5))
+    gpu = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(5)
+    waves = [pcm(rng, TRAIN_CPU_T), pcm(rng, TRAIN_CPU_T * 0.7)]
+    feats, flens = WavFrontend(**dict(FRONTEND_CONF, cmvn_file=None)).extract(waves)
+    feats, flens = torch.from_numpy(np.ascontiguousarray(feats)), torch.from_numpy(flens)
+    tl = torch.tensor([40, 31])
+    text = torch.full((2, 40), -1, dtype=torch.long)
+    for i, n in enumerate(tl.tolist()):
+        text[i, :n] = torch.from_numpy(rng.integers(3, conf["vocab_size"] - 1, n))
+    uniform = torch.from_numpy(rng.random((2, 41), dtype=np.float32))
+    out = {}
+    with cif_tie_moved():
+        for name, model in (("cpu", cpu), ("cuda", gpu)):
+            model.train()
+            d = next(model.parameters()).device
+            for c in counters:
+                c.launches = 0
+            loss, stats, _ = model(feats.to(d), flens.to(d), text.to(d), tl.to(d),
+                                   sampler_uniform=uniform.to(d))
+            loss.backward()
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            out[name] = (loss.item(), {k: float(v.detach()) for k, v in stats.items()},
+                         {n: p.grad for n, p in model.named_parameters()},
+                         {c.__name__: c.launches for c in counters})
+    (cl, cst, cg, _), (gl, gst, gg, launches) = out["cpu"], out["cuda"]
+    sites, _ = train_sites(enc_n, dec_n)
+    worst, worst_name = 0.0, None
+    for n, want in cg.items():
+        got = gg[n]
+        if want is None or got is None:
+            if (want is None) != (got is None):
+                raise AssertionError(f"{n}: a gradient on one device only")
+            continue
+        r = rel_l2(got.cpu(), want) if want.norm() > 0 else got.abs().max().item()
+        if r > worst:
+            worst, worst_name = r, n
+    zero = [n for n, gr in gg.items()
+            if ("linear_q_k_v.weight" in n and n.startswith("encoder.")
+                and gr[:2 * 512].abs().max() == 0)
+            or ("fsmn_block" in n and gr.abs().max() == 0)]
+    log(f"training step CUDA vs CPU (PROD_CONF width, {enc_n} + {dec_n} blocks, 2 x "
+        f"{TRAIN_CPU_T:g} s): loss {gl:.7f} vs {cl:.7f} (rel {abs(gl - cl) / abs(cl):.2e}, tol "
+        f"{TRAIN_LOSS_RTOL:g}); worst gradient rel L2 {worst:.2e} ({worst_name}, tol "
+        f"{TRAIN_GRAD_REL_TOL:g}); launches {launches} (sites {sites})")
+    if abs(gl - cl) > TRAIN_LOSS_RTOL * abs(cl) or not worst <= TRAIN_GRAD_REL_TOL:
+        raise AssertionError("training step: CUDA disagrees with the CPU")
+    if launches != sites:
+        raise AssertionError(f"training step launches {launches} != sites {sites}")
+    if zero:
+        raise AssertionError(f"zero attention / FSMN weight gradients on CUDA: {zero[:4]}")
+    return dict(loss_cuda=gl, loss_cpu=cl, worst_grad_rel_l2=worst, worst_param=worst_name,
+                launches=launches, depth=TRAIN_CPU_DEPTH)
+
+
+def write_train_data(root, rng, tokens):
+    """Generated wavs of 10-15 s with random texts of ~4 characters a second, as wav.scp
+    + text.txt pairs for train and val (finetune.sh's inputs)."""
+    lists = {}
+    for split, n in (("train", TRAIN_UTTS), ("val", TRAIN_VAL_UTTS)):
+        scp, txt = [], []
+        for i in range(n):
+            seconds = float(rng.uniform(*TRAIN_SECONDS))
+            path = os.path.join(root, f"{split}{i}.wav")
+            with open(path, "wb") as f:
+                f.write(wav_bytes(pcm(rng, seconds)))
+            chars = [tokens[int(j)] for j in rng.integers(3, len(tokens) - 1, int(seconds * 4))]
+            scp.append(f"{split}{i} {path}")
+            txt.append(f"{split}{i} {''.join(chars)}")
+        for kind, lines in (("wav.scp", scp), ("text.txt", txt)):
+            with open(os.path.join(root, f"{split}_{kind}"), "w", encoding="utf-8") as f:
+                f.write("\n".join(lines) + "\n")
+        lists[split] = (os.path.join(root, f"{split}_wav.scp"),
+                        os.path.join(root, f"{split}_text.txt"))
+    return lists
+
+
+def run_cli(args, label, timeout=600, tree=None):
+    """A console script of the port as finetune.sh runs it (``python -m`` of the module
+    its entry point names), from the root of this checkout (or of ``tree``); its
+    output's tail on failure."""
+    t0 = time.perf_counter()
+    tree = tree or os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run([sys.executable, "-m", *args], cwd=tree,
+                         env=dict(os.environ, PYTHONPATH=tree), capture_output=True,
+                         text=True, timeout=timeout)
+    log(f"{label}: exit {run.returncode} in {time.perf_counter() - t0:.1f} s")
+    for line in run.stderr.splitlines():  # the CLI's timestamped milestones
+        if any(k in line for k in ("loading pretrained", "saved checkpoint", "resumed from",
+                                   "validate epoch", "averaged", "profiler trace")):
+            log("  " + line[:160])
+    if run.returncode != 0:
+        raise AssertionError(f"{label} failed:\n{run.stdout[-3000:]}\n{run.stderr[-6000:]}")
+    return run
+
+
+def read_train_log(out):
+    with open(os.path.join(out, "train.log.jsonl"), encoding="utf-8") as f:
+        lines = [json.loads(line) for line in f]
+    return ([x for x in lines if "validate" not in x], [x for x in lines if "validate" in x])
+
+
+def grads_reached(ckpt_path):
+    """From a checkpoint's Adam state: the encoder's linear_q_k_v weights whose q / k rows
+    and the fsmn_block weights whose taps never had a non-zero gradient (the second
+    moment stays 0 only then), and how many of each were checked."""
+    state = torch.load(ckpt_path, map_location="cpu", weights_only=True, mmap=True)
+    names = list(state["state_dict"])
+    opt = state["optimizer"]
+    params = opt["param_groups"][0]["params"]
+    if len(params) != len(names):
+        raise AssertionError(f"{len(params)} optimizer params for {len(names)} tensors")
+    checked, zero = 0, []
+    for idx, name in zip(params, names):
+        if not (("linear_q_k_v.weight" in name and name.startswith("encoder."))
+                or "fsmn_block" in name):
+            continue
+        v = opt["state"][idx]["exp_avg_sq"]
+        part = v[:2 * PROD_CONF["encoder_conf"]["output_size"]] if "q_k_v" in name else v
+        checked += 1
+        if part.abs().max() == 0:
+            zero.append(name)
+    return checked, zero
+
+
+def recipe_batches(jsonl):
+    """The audio seconds of each batch the trainer's sampler gives in epochs 0 and 1 (the
+    same seed and token budget)."""
+    from funasr_tpu_torch.datasets.audio_datasets.datasets import AudioDataset
+    from funasr_tpu_torch.datasets.audio_datasets.samplers import BatchSampler
+    ds = AudioDataset("IndexDSJsonl", {"path": jsonl})
+    sampler = BatchSampler(ds, batch_size=6000, batch_type="token", shuffle=True)
+    seconds = []
+    for epoch in (0, 1):
+        sampler.set_epoch(epoch)
+        seconds += [sum(ds.get_source_len(i) for i in b) / 100.0 for b in sampler]
+    return seconds
+
+
+def recipe_setup(root, dev):
+    """finetune.sh's inputs under ``root``: a seeded PROD_CONF Paraformer-large model dir
+    whose config carries the training keys, 16 + 4 generated wavs and their jsonl, written
+    by ``bin/data_tools scp2jsonl`` as a subprocess. Returns (model dir, tokens, {split:
+    jsonl})."""
+    import yaml
+    rng = np.random.default_rng(16)
+    md = os.path.join(root, "paraformer-large")
+    os.makedirs(md)
+    t0 = time.perf_counter()
+    write_model_dir(md, dev, extra=TRAIN_MODEL_CONF,
+                    encoder_conf=dict(PROD_CONF["encoder_conf"], dropout_rate=0.1))
+    with open(os.path.join(md, "config.yaml"), encoding="utf-8") as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(specaug="SpecAugLFR", specaug_conf=TRAIN_SPECAUG_CONF)
+    cfg["frontend_conf"]["dither"] = 1.0
+    write_config(md, cfg)
+    with open(os.path.join(md, "tokens.txt"), encoding="utf-8") as f:
+        tokens = f.read().split("\n")[:-1]
+    lists = write_train_data(root, rng, tokens)
+    log(f"training: model dir and {TRAIN_UTTS} + {TRAIN_VAL_UTTS} wavs written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    jsonl = {}
+    for split, (scp, txt) in lists.items():
+        jsonl[split] = os.path.join(root, f"{split}.jsonl")
+        run_cli(["funasr_tpu_torch.bin.data_tools", "scp2jsonl",
+                 f'++scp_file_list=["{scp}","{txt}"]', '++data_type_list=["source","target"]',
+                 f"++jsonl_file_out={jsonl[split]}"], f"data_tools scp2jsonl {split}")
+    return md, tokens, jsonl
+
+
+def run_step_ms(steps):
+    """ms of each whole step in one run's log lines: the differences of ``time`` between
+    consecutive lines of one epoch (the epoch's end, with its validation and checkpoint,
+    left out)."""
+    return [(y["time"] - x["time"]) * 1e3 for x, y in zip(steps, steps[1:])
+            if x["epoch"] == y["epoch"]]
+
+
+def recipe_ab(other=None):
+    """``--recipe-ab [TREE]``: the recipe's ``bin/train`` (2 epochs, checkpoints only at
+    their ends) six times, alternating this tree with ``log_kernel_shapes`` on and either
+    this tree with it off or, given ``other``, that checkout (its own kernel build): ms a
+    step of each run (``run_step_ms``: median) and of each side pooled."""
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip()
+    log(card)
+    here = os.path.dirname(os.path.abspath(__file__))
+    sides = {"shapes_on": here,
+             ("other" if other else "shapes_off"): os.path.abspath(other or here)}
+    recipe = [a for a in TRAIN_RECIPE if "log_kernel_shapes" not in a]
+    pooled = {side: [] for side in sides}
+    with tempfile.TemporaryDirectory() as root:
+        md, _, jsonl = recipe_setup(root, torch.device("cuda"))
+        for i, side in enumerate(list(sides) * 3):
+            out = os.path.join(root, f"exp{i}")
+            args = ["funasr_tpu_torch.bin.train", f"++model={md}",
+                    f"++train_data_set_list={jsonl['train']}",
+                    f"++valid_data_set_list={jsonl['val']}", *recipe, f"++output_dir={out}",
+                    "++train_conf.max_epoch=2", "++train_conf.save_checkpoint_interval=0",
+                    "++train_conf.keep_nbest_models=1"]
+            if side == "shapes_on":
+                args.append("++train_conf.log_kernel_shapes=True")
+            run_cli(args, f"bin/train run {i} ({side})", tree=sides[side])
+            ms = run_step_ms(read_train_log(out)[0])
+            pooled[side] += ms
+            log(f"run {i} {side}: ms a step {[round(x, 1) for x in ms]}, median "
+                f"{statistics.median(ms):.1f}")
+    log(f"recipe A/B ({card}): " + "; ".join(
+        f"{side} median {statistics.median(v):.1f} ms a step over {len(v)} steps"
+        for side, v in pooled.items()))
+
+
+def phase_training(dev, counters, card):
+    """Phase 16: (a) the backward kernels at the recipe's first batch shape, (b) a training
+    step on the card against the CPU, (c) finetune.sh's recipe: ``bin/data_tools
+    scp2jsonl`` and ``bin/train`` as subprocesses on a seeded PROD_CONF Paraformer-large
+    (50 + 16 blocks, d 512, vocab 8404) whose config carries the training keys, one epoch
+    (about 4 token batches of 6,000, a mid-epoch checkpoint with its validation at step
+    3, the epoch's checkpoint), then the run resumed for a second epoch (its checkpoint,
+    the average of the 2 best). Gates: a finite loss every step, each step's launches exactly
+    ``train_sites`` and each validation's its batches x the forward sites, the resumed run
+    going on from the step it stopped at, every encoder linear_q_k_v's q / k rows and
+    every fsmn_block reached by a gradient (the checkpoint's Adam moments), the averaged
+    checkpoint decoding through ``AutoModel`` with 50 flash + 66 FSMN launches a decode;
+    (d) a kernel-vs-plain row at every shape and stride the recipe's runs launched (the
+    trainer's ``kernel_shapes``, ``recipe_kernel_rows``)."""
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.frontends.wav_frontend import WavFrontend
+    from funasr_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory_bwd_input, fsmn_memory_bwd_weight
+
+    counters = (*counters, flash_attention_bwd, fsmn_memory_bwd_input, fsmn_memory_bwd_weight)
+    torch.cuda.empty_cache()
+    figures = {}
+    enc_n = PROD_CONF["encoder_conf"]["num_blocks"]
+    dec_n = PROD_CONF["decoder_conf"]["num_blocks"]
+    step_sites, val_sites = train_sites(enc_n, dec_n)
+    with tempfile.TemporaryDirectory() as root:
+        md, tokens, jsonl = recipe_setup(root, dev)
+
+        # (a) the kernels at the first batch's shape (the frontend's frames of it)
+        from funasr_tpu_torch.datasets.audio_datasets.datasets import AudioDataset
+        from funasr_tpu_torch.datasets.audio_datasets.samplers import BatchSampler
+        from funasr_tpu_torch.tokenizer.char_tokenizer import CharTokenizer
+        ds = AudioDataset("IndexDSJsonl", {"path": jsonl["train"]},
+                          tokenizer=CharTokenizer(token_list=tokens))
+        first = next(iter(BatchSampler(ds, batch_size=6000, batch_type="token", shuffle=True)))
+        batch = ds.collator([ds[i] for i in first])
+        with torch.no_grad():
+            feats, flens = WavFrontend(**FRONTEND_CONF).forward(
+                torch.from_numpy(batch["speech"]).to(dev),
+                torch.from_numpy(batch["speech_lengths"]).to(dev))
+        b, t = feats.shape[:2]
+        lens = flens.tolist()
+        log(f"training batch 0: B {b}, T {t}, lengths {lens}")
+        g = torch.Generator().manual_seed(16)
+        figures["rows"] = train_kernel_rows(dev, g, b, t, lens)
+
+        # (b) CUDA against the CPU
+        figures["cuda_vs_cpu"] = train_cuda_vs_cpu(dev, counters)
+
+        # (c) the recipe
+        out = os.path.join(root, "exp")
+        profile_dir = os.path.join(root, "profile")
+        base = ["funasr_tpu_torch.bin.train", f"++model={md}",
+                f"++train_data_set_list={jsonl['train']}",
+                f"++valid_data_set_list={jsonl['val']}", *TRAIN_RECIPE, f"++output_dir={out}"]
+        t0 = time.perf_counter()
+        run_cli(base + TRAIN_FIRST + [f"++train_conf.profile_dir={profile_dir}"],
+                "bin/train (epoch 0)")
+        first_wall = time.perf_counter() - t0
+        steps1, vals1 = read_train_log(out)
+        n1 = len(steps1)
+        t0 = time.perf_counter()
+        run_cli(base + TRAIN_RESUMED, "bin/train (resumed, epoch 1)")
+        second_wall = time.perf_counter() - t0
+        steps, vals = read_train_log(out)
+        resumed = steps[n1:]
+        if not resumed or resumed[0]["step"] != steps1[-1]["step"] + 1 or resumed[0]["epoch"] != 1:
+            raise AssertionError(f"the resumed run did not go on from step {steps1[-1]['step']}")
+        bad = [x["step"] for x in steps if not math.isfinite(x["loss"])]
+        wrong = [(x["step"], x["launches"]) for x in steps if x["launches"] != step_sites]
+        wrong += [("val", x["step"], x["launches"]) for x in vals
+                  if x["launches"] != {k: v * x["batches"] for k, v in val_sites.items()}]
+        for x in steps:
+            log(f"  step {x['step']} (epoch {x['epoch']}): loss {x['loss']:.4f} loss_att "
+                f"{x['loss_att']:.4f} loss_pre {x['loss_pre']:.4f} acc {x['acc']:.4f} "
+                f"grad_norm {x['grad_norm']:.3f} batch {x['batch_size']:g} "
+                f"peak {x.get('peak_mem_mib', 0):.0f} MiB")
+        if bad or wrong:
+            raise AssertionError(f"training: non-finite loss at {bad}; launches off the "
+                                 f"sites {wrong[:3]}")
+        latest = open(os.path.join(out, "model.pt.latest")).read().strip()
+        checked, zero = grads_reached(os.path.join(out, latest))
+        log(f"training: {checked} attention / FSMN weights checked in {latest}, "
+            f"{len(zero)} never reached by a gradient")
+        if zero or checked != 2 * enc_n + dec_n:
+            raise AssertionError(f"weights without a gradient: {zero[:4]} ({checked} checked)")
+
+        # (d) every shape the recipe launched, against the plain versions
+        shapes = recipe_launch_shapes(steps + vals)
+        log(f"training: {len(shapes)} kernel signatures launched over the recipe's "
+            f"{len(steps)} steps and {len(vals)} validations")
+        figures["recipe_rows"] = recipe_kernel_rows(dev, shapes)
+
+        # the average decodes
+        avg = os.path.join(out, "model.pt.avg")
+        am = AutoModel(model=out, init_param=avg, device="cuda")
+        waves = [np.asarray(pcm(np.random.default_rng(99), 12.0))]
+        for c in counters:
+            c.launches = 0
+        res = am.generate(input=waves)
+        torch.cuda.synchronize()
+        dec_launches = {c.__name__: c.launches for c in counters}
+        log(f"averaged checkpoint through AutoModel(model=<output dir>): {res[0]['key']} "
+            f"text of {len(res[0]['text'])} characters; launches {dec_launches}")
+        if not isinstance(res[0]["text"], str) or dec_launches["flash_attention"] != enc_n \
+                or dec_launches["fsmn_memory"] != enc_n + dec_n:
+            raise AssertionError("the averaged checkpoint did not decode through the kernels")
+        del am
+
+        # speed: whole steps between log lines (the first, with its warm-up, the profiled
+        # one and those after a checkpoint left out), audio seconds of each step's batch
+        seconds = recipe_batches(jsonl["train"])
+        wall = [y["time"] - x["time"] for run in (steps1, resumed) for x, y in zip(run, run[1:])
+                if y["step"] != 2 and x["step"] != 3]  # not the profiled step, nor a checkpoint's
+        step_ms = statistics.median(wall) * 1e3 if wall else float("nan")
+        audio = statistics.mean(seconds) if seconds else float("nan")
+        with open(os.path.join(profile_dir, "summary.json")) as f:
+            prof = json.load(f)
+        idle = 1 - prof["device_ms"] / step_ms  # against the unprofiled median step
+        peak = max(x.get("peak_mem_mib", 0) for x in steps)
+        launches = {k: sum(x["launches"][k] for x in steps + vals) for k in step_sites}
+        log(f"training ({card}): {len(steps)} steps ({n1} + {len(resumed)} resumed), "
+            f"{step_ms:.1f} ms a step (median of {len(wall)}), {1e3 / step_ms:.2f} steps/s, "
+            f"{audio * 1e3 / step_ms:.1f} audio s a second ({audio:.1f} s a batch), peak "
+            f"{peak:.0f} MiB; profiled step: device {prof['device_ms']:.1f} ms ({prof['wall_ms']:.1f}"
+            f" ms wall under the profiler), idle share {idle:.1%}; runs {first_wall:.1f} s + "
+            f"{second_wall:.1f} s; launches {launches}")
+        top = sorted(prof["by_kernel"].items(), key=lambda kv: -kv[1][0])[:8]
+        for name, (ms, n) in top:
+            log(f"  {ms:8.3f} {n:5d}  {name[:110]}")
+        figures.update(steps=len(steps), step_ms=step_ms, steps_per_s=1e3 / step_ms,
+                       audio_s_per_s=audio * 1e3 / step_ms, peak_mem_mib=peak,
+                       profile=dict(device_ms=prof["device_ms"], wall_ms=prof["wall_ms"],
+                                    idle_share=idle),
+                       launches=launches, launches_per_step=steps[0]["launches"],
+                       decode_launches=dec_launches, batch=(b, t))
+    return figures
+
+
 STREAMING_ENTRIES = {
     "flash_attention": [(f"{key}_{dt}", ("flash_attention", "streaming", key, dtype))
                         for key in [f"keys{tk}" for tk in STREAM_FLASH_KEYS] + ["causal",
@@ -4954,7 +5645,7 @@ LLM_ENTRIES = {
 
 def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None,
                  hotword=None, streaming=None, sensevoice=None, serving=None, llm=None,
-                 export=None):
+                 export=None, training=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
@@ -4978,7 +5669,13 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
     ``export``: launches of the exported programs' counted calls, by setting and bucket, the
     rows at every shape those calls launched (``export_kernel_rows``, labelled by
     ``export_label``, each with its launches a call by program), and a lone call's ms
-    through the custom op and directly (``op_dispatch_rows``)."""
+    through the custom op and directly (``op_dispatch_rows``). Phase 16's (``training``):
+    each forward kernel's launches in the recipe's runs under ``training``, and three more
+    kernels, the backward launches (``TRAIN_BACKWARD``), each at the recipe's first batch
+    shape, ``launches`` those of the recipe's runs (the sums of the trainer's per-step and
+    per-validation counts), flash's rows in each mode under ``rows``; each of the five
+    kernels' rows at every shape the recipe launched (``recipe_kernel_rows``, labelled by
+    ``recipe_label``) under ``recipe_rows`` (the forward kernels': in ``training``)."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -5066,8 +5763,35 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
                 f"{label}_b{c['bucket'][0]}_t{c['bucket'][1]}": c["launches"][name]
                 for label in ("fp32", "w8a8") for c in export[label]["calls"]},
                 rows=export["rows"].get(name, {}), **export["op_dispatch"][name])
+        if training:
+            entry["training"] = dict(launches=training["launches"][name],
+                                     launches_per_step=training["launches_per_step"][name],
+                                     recipe_rows=training["recipe_rows"].get(name, {}))
+        kernels.append(entry)
+    for name, (src, keys) in (TRAIN_BACKWARD.items() if training else ()):
+        rows = training["rows"]
+        entry = dict(name=name, route="cuda", source=src, replaces=sources[
+            "flash_attention" if "flash" in name else "fsmn_memory"][1],
+            gradient_of=("the kernel of that TPU kernel's port; the JAX package takes its "
+                         "gradient by XLA autodiff of the einsum path "
+                         "(funasr_tpu/models/sanm/attention.py:121-133)"),
+            launches=training["launches"][name],
+            launches_per_step=training["launches_per_step"][name], **rows[keys[0]],
+            recipe_rows=training["recipe_rows"][name])
+        if len(keys) > 1:
+            entry["rows"] = {key[1]: rows[key] for key in keys}
         kernels.append(entry)
     return {"kernels": kernels}
+
+
+# phase 16's backward kernels: name -> (source, record keys; the first is the line's row)
+TRAIN_BACKWARD = {
+    "flash_attention_bwd": ("funasr_tpu_torch/csrc/flash_attention_bwd.cu",
+                            [("flash_attention_bwd", m) for m in ("none", "causal", "corner")]),
+    "fsmn_memory_bwd_input": ("funasr_tpu_torch/csrc/fsmn.cu (the forward kernel, taps "
+                              "reversed, pads swapped)", [("fsmn_memory_bwd_input",)]),
+    "fsmn_memory_bwd_weight": ("funasr_tpu_torch/csrc/fsmn.cu", [("fsmn_memory_bwd_weight",)]),
+}
 
 
 def main():
@@ -5122,10 +5846,11 @@ def main():
         serving = timed("serving", phase_serving, dev, counters, card, keep)
         llm = timed("LLM", phase_llm, dev, counters, card)
         export = timed("text and export", phase_export, dev, counters, card, keep)
+    training = timed("training", phase_training, dev, counters, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
                                   speaker, hotword, streaming, sensevoice, serving, llm,
-                                  export),
+                                  export, training),
                      default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -5137,5 +5862,10 @@ if __name__ == "__main__":
         stream_profile(sys.argv[2], sys.argv[3] == "bf16")
     elif sys.argv[1:2] == ["--exported"]:
         exported_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--recipe-ab"]:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; needs an "
+                             "NVIDIA GPU")
+        recipe_ab(*sys.argv[2:3])
     else:
         main()

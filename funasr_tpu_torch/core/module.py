@@ -19,6 +19,19 @@ def _fill(param, sample):
         param.copy_(sample.to(param.device, param.dtype))
 
 
+def maybe_dropout(x, rate: float, training: bool, generator=None):
+    """Inverted dropout (``funasr_tpu/core/module.py::maybe_dropout``): each element kept
+    with probability 1 - rate and scaled by 1 / (1 - rate), the keep-mask drawn from
+    ``generator`` (a ``torch.Generator`` on x's device). The identity outside training,
+    at rate 0 or without a generator, as the JAX function is without a key: a module
+    left in ``train()`` mode still decodes deterministically."""
+    if not training or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialise every weight from ``generator``, with the JAX package's init rules:
     Linear, Conv1d / Conv2d and ConvTranspose1d weights and biases uniform in

@@ -46,6 +46,11 @@
 // F.conv1d), hence its own instantiation; so did the SeACo decoder's k = 21 / left 10,
 // which PERF.md's kernel table times against the generic one at (32, 208, 512).
 //
+// Training: the input gradient is this kernel run on dout with the taps reversed and the
+// pads swapped (the transpose of a depthwise correlation; the wrapper's
+// fsmn_memory_bwd_input); the weight gradient is fsmn_memory_bwd_weight at the end of
+// this file, a two-pass reduction with no float atomics.
+//
 // x is (B, T, C) with unit channel stride and batch / time strides that are multiples of
 // the vector (it is the v slice of the fused q|k|v projection in the encoder, or the
 // decoder's contiguous input), its base 16-byte aligned and C a multiple of the vector;
@@ -304,6 +309,51 @@ int run(int dtype, const void* x, const void* w, const void* mask, void* out, in
   return (int)cudaErrorInvalidValue;
 }
 
+// ---- the weight gradient ---------------------------------------------------------------
+//
+//   dw[c, j] = sum_{b, t} g[b, t, c] * xm[b, t + j - left, c],  g = m * dout
+//
+// (the input gradient is the forward kernel itself, run by the wrapper on dout with the
+// taps reversed and the pads swapped). A reduction over B T rows for each of the C k
+// taps, deterministic: block (x, j, z) sums the rows of chunk z for 128 channels of tap
+// j in a fixed order (four accumulators, by row mod 4, added at the end) and writes a
+// partial; the second kernel adds each tap's partials in chunk order. No float atomics,
+// so two runs give bit-equal gradients. Loads of a row are 128 neighbouring channels
+// (512 bytes a warp-row); the mask bytes of a row are one broadcast read per warp.
+// Bound by bytes (x and dout read once, 8 B T C bytes: 2.6 MB at (5, 256, 512)); this
+// first kernel reads each row once per tap (k times, mostly from L2).
+constexpr int DW_THREADS = 128;
+
+__global__ void __launch_bounds__(DW_THREADS)
+fsmn_bwd_weight_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                               const uint8_t* __restrict__ mask, float* __restrict__ partial,
+                               int B, int T_len, int C, int K, int left, long long xsb,
+                               long long xst, long long gsb, long long gst, int rows_per_chunk) {
+  const int c = blockIdx.x * DW_THREADS + threadIdx.x;
+  const int j = blockIdx.y, z = blockIdx.z;
+  const int r0 = z * rows_per_chunk, r1 = min(r0 + rows_per_chunk, B * T_len);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (c < C) {
+    for (int r = r0; r < r1; ++r) {
+      const int b = r / T_len, t = r % T_len, s = t + j - left;
+      if (s < 0 || s >= T_len) continue;
+      if (mask && (!mask[(long long)b * T_len + t] || !mask[(long long)b * T_len + s])) continue;
+      acc[r & 3] = fmaf(g[b * gsb + t * gst + c], x[b * xsb + s * xst + c], acc[r & 3]);
+    }
+    partial[((long long)z * K + j) * C + c] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  }
+}
+
+__global__ void fsmn_bwd_weight_reduce_kernel(const float* __restrict__ partial,
+                                              float* __restrict__ dw, int C, int K, int chunks) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // dw index c * K + j
+  if (i >= C * K) return;
+  const int c = i / K, j = i % K;
+  float sum = 0.f;
+  for (int z = 0; z < chunks; ++z) sum += partial[((long long)z * K + j) * C + c];
+  dw[i] = sum;
+}
+
 }  // namespace
 
 // dtype (of x, w and out): 0 = float32, 1 = bfloat16. mask: (B, T) bytes or NULL.
@@ -320,4 +370,29 @@ extern "C" int fsmn_memory_generic_fwd(int dtype, const void* x, const void* w,
                                        int K, int left, long long xsb, long long xst,
                                        void* stream) {
   return run(dtype, x, w, mask, out, B, T_len, C, K, left, xsb, xst, true, stream);
+}
+
+// fp32 weight gradient of the FSMN memory: x (B, T, C) the forward's input, dout (B, T, C)
+// the output's gradient (any batch / time strides, unit channel stride), mask (B, T)
+// bytes or NULL -> dw (C, K) contiguous. partial: chunks x K x C floats of scratch, chunks
+// = ceil(B T / rows_per_chunk). Two kernel launches on `stream`.
+extern "C" int fsmn_memory_bwd_weight(const void* x, const void* dout, const void* mask,
+                                      void* partial, void* dw, int B, int T_len, int C, int K,
+                                      int left, long long xsb, long long xst, long long gsb,
+                                      long long gst, int rows_per_chunk, void* stream) {
+  if (K < 1 || K > MAX_K || left < 0 || left > K - 1 || rows_per_chunk < 1 || B < 1 ||
+      T_len < 1 || C < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int chunks = (B * T_len + rows_per_chunk - 1) / rows_per_chunk;
+  fsmn_bwd_weight_partial_kernel<<<dim3((C + DW_THREADS - 1) / DW_THREADS, K, chunks),
+                                   DW_THREADS, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dout),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(partial), B, T_len, C, K, left,
+      xsb, xst, gsb, gst, rows_per_chunk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fsmn_bwd_weight_reduce_kernel<<<(C * K + 255) / 256, 256, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dw), C, K, chunks);
+  return (int)cudaGetLastError();
 }

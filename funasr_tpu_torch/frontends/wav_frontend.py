@@ -38,8 +38,9 @@ class WavFrontend:
         self.frame_shift = int(frame_shift * fs / 1000)
         self.lfr_m = lfr_m
         self.lfr_n = lfr_n
-        # ``dither`` acts on the JAX package's training path only; inference (the only
-        # path of this slice) is deterministic without it
+        # dither acts on the training path only (``forward`` with a generator); inference
+        # is deterministic without it
+        self.dither = dither
         self.snip_edges = snip_edges
         self.upsacle_samples = upsacle_samples
         self.cmvn = load_cmvn(cmvn_file) if cmvn_file else None
@@ -47,9 +48,10 @@ class WavFrontend:
     def output_size(self) -> int:
         return self.n_mels * self.lfr_m
 
-    def forward(self, waveforms, lengths):
+    def forward(self, waveforms, lengths, generator=None):
         """(B, N) float32 or int16 PCM tensor + (B,) sample lengths ->
-        ((B, T, D) fp32 feats, (B,) int32 frame lengths), on the input's device."""
+        ((B, T, D) fp32 feats, (B,) int32 frame lengths), on the input's device.
+        ``generator``: the training step's, which turns ``dither`` on."""
         if waveforms.dtype == torch.int16:
             # PCM16: int16 -> f32 is lossless and (i/2^15)*2^15 == i in f32, so the
             # features are bit-identical to the float path's
@@ -65,6 +67,8 @@ class WavFrontend:
             sample_frequency=float(self.fs),
             window_type=self.window,
             snip_edges=self.snip_edges,
+            dither=self.dither,
+            generator=generator,
         )
         if self.lfr_m != 1 or self.lfr_n != 1:
             feats, flens = apply_lfr_batch(feats, flens, self.lfr_m, self.lfr_n)

@@ -1,7 +1,8 @@
 """CTC head in PyTorch (counterpart of ``funasr_tpu/models/ctc/ctc.py``; FunASR
 ``funasr/models/ctc/ctc.py:7-148``): the ``ctc_lo`` projection and its log-softmax /
-argmax. The loss (``CTC.loss``, optax's alpha recursion in the JAX package) serves
-training only and comes with the training slice (ROADMAP item 20).
+argmax, and ``loss``: the mean over utterances of the per-sequence CTC NLL with
+optax's numerics (``losses/ctc.py``), which the training loss of a model with
+``ctc_weight > 0`` reads.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ import torch
 from torch import nn
 
 from funasr_tpu_torch.core.layers import apply_linear
+from funasr_tpu_torch.losses.ctc import ctc_loss
 from funasr_tpu_torch.register import tables
 
 
@@ -32,3 +34,14 @@ class CTC(nn.Module):
 
     def argmax(self, hs_pad):
         return self.logits(hs_pad).argmax(dim=-1)
+
+    def loss(self, hs_pad, hlens, ys_pad, ys_lens):
+        """Mean per-utterance CTC loss (``ctc.py:38-47``). ys_pad: (B, L), any padding."""
+        logits = self.logits(hs_pad).float()
+        t, l = logits.shape[1], ys_pad.shape[1]
+        dev = logits.device
+        logit_paddings = (torch.arange(t, device=dev)[None, :] >= hlens[:, None]).float()
+        label_paddings = (torch.arange(l, device=dev)[None, :] >= ys_lens[:, None]).float()
+        labels = torch.where(label_paddings > 0, 0, ys_pad)
+        return ctc_loss(logits, logit_paddings, labels, label_paddings,
+                        blank_id=self.blank_id).mean()

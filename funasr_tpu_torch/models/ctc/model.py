@@ -2,7 +2,8 @@
 ``funasr/models/ctc/model.py:17``, registered as model "CTC"): any registered encoder,
 the CTC head and the greedy collapse. As in the JAX package the features are not
 bucketed, and the path is the argmax of the logits, blank past each row's length; it
-comes to the host in one copy. The CTC loss is training's (slice 7).
+comes to the host in one copy. This model's training loss is ROADMAP item 20b
+(``CTC.loss`` is ported).
 """
 
 from __future__ import annotations

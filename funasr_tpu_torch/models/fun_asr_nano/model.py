@@ -21,8 +21,8 @@ One departure: the features go to the encoder in its weights' dtype, as the port
 Paraformer and SenseVoice do (JAX keeps them fp32, so its bf16 encoder computes in
 fp32). The LLM runs in the engine's dtype, bf16 by default whatever the weights' dtype,
 as in JAX. The encoder runs once a batch: the JAX CTC branch encodes again
-(``ctc_branch``), with the same result. The fine-tune loss (``forward_jit``) comes with
-the training slice (ROADMAP item 20).
+(``ctc_branch``), with the same result. The fine-tune loss (``forward_jit``) is ROADMAP
+item 20b.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ reference's multiturn OpenAI-message format: ``generate(input=[messages])``, whe
 turns may hold ``<|startofspeech|>!path<|endofspeech|>`` audio spans (reference
 ``data_template:666`` / ``data_load_speech:693`` / ``inference:820``). ``GLMASR`` stays
 unbound: its ``TransformerEncoder`` is ROADMAP item 22's. The multiturn training loss
-(``forward_jit_batch``) comes with the training slice (item 20).
+(``forward_jit_batch``) is ROADMAP item 20b.
 """
 
 from __future__ import annotations

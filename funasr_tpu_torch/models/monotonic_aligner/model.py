@@ -21,6 +21,7 @@ from torch import nn
 import funasr_tpu_torch.models.bicif_paraformer.cif_predictor  # noqa: F401 (registers V3)
 from funasr_tpu_torch.core.layers import make_pad_mask
 from funasr_tpu_torch.core.module import init_weights
+from funasr_tpu_torch.models.normalize.normalize import build_normalize
 from funasr_tpu_torch.register import tables
 from funasr_tpu_torch.utils import postprocess_utils
 from funasr_tpu_torch.utils.load_utils import extract_fbank, load_audio_text_image_video
@@ -30,13 +31,13 @@ from funasr_tpu_torch.utils.timestamp_tools import ts_prediction_lfr6_standard
 @tables.register("model_classes", "MonotonicAligner")
 class MonotonicAligner(nn.Module):
     def __init__(self, input_size: int = 80, normalize: Optional[str] = None,
-                 encoder: str = "SANMEncoder", encoder_conf: Optional[Dict] = None,
+                 normalize_conf: Optional[Dict] = None, encoder: str = "SANMEncoder",
+                 encoder_conf: Optional[Dict] = None,
                  predictor: str = "CifPredictorV3", predictor_conf: Optional[Dict] = None,
                  predictor_bias: int = 0, device=None,
                  generator: Optional[torch.Generator] = None, **kwargs):
         super().__init__()
-        if normalize is not None:
-            raise NotImplementedError(f"normalize={normalize} is not ported")
+        self.normalize = build_normalize(normalize, normalize_conf)
         self.encoder = tables.encoder_classes[encoder](
             input_size=input_size, device=device, **(encoder_conf or {}))
         self.predictor = tables.predictor_classes[predictor](
@@ -56,6 +57,8 @@ class MonotonicAligner(nn.Module):
     def upsampled(self, speech, speech_lengths, token_nums):
         """(B, T, D) features and (B,) token counts -> (us_alphas (B, T' * up), us_peaks,
         encoder lengths), fp32."""
+        if self.normalize is not None:
+            speech, speech_lengths = self.normalize(speech, speech_lengths)
         encoder_out, encoder_out_lens = self.encoder(speech, speech_lengths)
         mask = make_pad_mask(encoder_out_lens, encoder_out.shape[1])
         _, _, us_alphas, us_peaks = self.predictor.get_upsample_timestamp(

@@ -4,8 +4,10 @@
 FunASR's ``CifPredictorV2`` (``funasr/models/paraformer/cif_predictor.py:209-412``):
 pad(l, r) conv1d + relu + linear + sigmoid alphas, then (inference) the tail-threshold
 fire appended. The fired-token axis is the caller's ``max_tokens`` budget; slots past a
-row's token count are zero. The training branch (alphas rescaled to the target length)
-is slice 7. ``forward_chunk`` is the streaming predictor (``cif_predictor.py:106-167``):
+row's token count are zero. With ``target_length`` (training, ``cif_predictor.py:68-90``)
+the alphas are rescaled so each row sums to its target token count, no tail fire is
+appended and the token count returned is the unscaled alpha sum (``mae_token_loss``
+reads it). ``forward_chunk`` is the streaming predictor (``cif_predictor.py:106-167``):
 the chunk's alphas kept inside its stride, the tail-threshold frame appended when final,
 the sequential integrate with a carried state (``ops/cif.py::cif_scan``) and the fired
 frames compacted to the front by a stable sort, all on the device.
@@ -55,10 +57,16 @@ class CifPredictorV2(nn.Module):
             a = a * mask.float()
         return a
 
-    def forward(self, hidden, mask, max_tokens: int):
-        """Returns (acoustic_embeds (B,K,D), token_num (B,), alphas (B,T+1), fires)."""
+    def forward(self, hidden, mask, max_tokens: int, target_length=None):
+        """Returns (acoustic_embeds (B,K,D), token_num (B,), alphas (B,T+1), fires);
+        with ``target_length`` (B,) the training branch: alphas (B, T) rescaled to it."""
         b, t, _ = hidden.shape
         a = self.alphas(hidden, mask)
+        if target_length is not None:
+            token_num = a.sum(dim=1)
+            a = a * (target_length.float() / token_num.clamp_min(1e-9))[:, None]
+            acoustic_embeds, fires = cif(hidden, a, max_tokens, self.threshold)
+            return acoustic_embeds, token_num, a, fires
         if self.tail_threshold > 0.0:
             # one extra frame of zeros; alpha[len] += tail_threshold
             lens = (mask.sum(dim=1) if mask is not None
@@ -107,6 +115,13 @@ class CifPredictorV2(nn.Module):
     def init_state(batch: int, dim: int, device=None):
         return {"integrate": torch.zeros(batch, device=device),
                 "frame": torch.zeros(batch, dim, device=device)}
+
+
+def mae_token_loss(token_num, pre_token_length, normalize_length: bool = False):
+    """L1 token-count loss (``cif_predictor.py:175``; FunASR ``mae_loss``): the summed
+    |target count - predicted count| over the batch size (or the target total)."""
+    norm = token_num.shape[0] if not normalize_length else token_num.sum()
+    return (token_num.float() - pre_token_length).abs().sum() / norm
 
 
 @tables.register("predictor_classes", "CifPredictor")

@@ -13,7 +13,18 @@ hotword models' biasing lists, made once per call) and each row's result
 (``transcript``), so the pair serves them too. A config with ``ctc_weight > 0`` builds
 the CTC head (``self.ctc``), so its checkpoints load; the decode does not use it.
 Paraformer-v2 and E-Paraformer (``models/{paraformer_v2,e_paraformer}``) keep the pair
-through ``infer_core`` and ``decode_outputs``. Training and specaug are later slices.
+through ``infer_core`` and ``decode_outputs``.
+
+``forward(speech, speech_lengths, text, text_lengths)`` is the training loss
+(``forward_jit``, ``model.py:203-284``) -> (loss, stats, weight): SpecAug and the
+encoder's dropout (``train()`` mode with a generator), the normalize layer, the CIF
+predictor rescaled to the target lengths (``predictor_bias`` 1 appends eos, 2 wraps the
+text in sos / eos), the glancing sampler (``sampling_ratio > 0``: a first decoder pass
+under ``torch.no_grad()`` counts each row's errors and target embeddings replace that
+share of the acoustic embeddings), the decoder, and label-smoothed CE (``lsm_weight``,
+``length_normalized_loss``) + ``predictor_weight`` x the MAE token loss (+ CTC at
+``ctc_weight``). Every random draw comes from the ``generator`` it is given; the sampler's
+uniform draws can be passed in (``sampler_uniform``) so a test can feed JAX's.
 """
 
 from __future__ import annotations
@@ -26,9 +37,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from funasr_tpu_torch.core.layers import make_pad_mask
+from funasr_tpu_torch.core.layers import embedding, make_pad_mask
 from funasr_tpu_torch.core.module import init_weights
+from funasr_tpu_torch.losses.label_smoothing_loss import label_smoothing_loss, th_accuracy
 from funasr_tpu_torch.models.ctc.ctc import CTC
+from funasr_tpu_torch.models.normalize.normalize import build_normalize
+from funasr_tpu_torch.models.paraformer.cif_predictor import mae_token_loss
 from funasr_tpu_torch.register import tables
 from funasr_tpu_torch.utils import postprocess_utils
 from funasr_tpu_torch.utils.bucket import pad_feats_bucketed
@@ -36,11 +50,35 @@ from funasr_tpu_torch.utils.load_utils import extract_fbank, load_audio_text_ima
 from funasr_tpu_torch.utils.timestamp_tools import ts_prediction_lfr6_standard
 
 
+def add_sos_eos_out(ys_pad, ys_lens, eos: int, ignore_id: int = -1):
+    """ys_out = [text, eos, ignore ...] (B, L + 1) (``add_sos_eos_out``)."""
+    b, l = ys_pad.shape
+    valid = make_pad_mask(ys_lens, l)
+    out = torch.full((b, l + 1), ignore_id, dtype=ys_pad.dtype, device=ys_pad.device)
+    out[:, :l] = torch.where(valid, ys_pad, ignore_id)
+    out[torch.arange(b, device=ys_pad.device), ys_lens.long()] = eos
+    return out
+
+
+def add_sos_and_eos(ys_pad, ys_lens, sos: int, eos: int, ignore_id: int = -1):
+    """[sos] + text + [eos] (B, L + 2), ignore past it (``predictor_bias`` 2)."""
+    b, l = ys_pad.shape
+    col = torch.full((b, 1), sos, dtype=ys_pad.dtype, device=ys_pad.device)
+    ys = torch.cat([col, ys_pad, torch.full_like(col, ignore_id)], dim=1)
+    pos = torch.arange(l + 2, device=ys_pad.device)[None]
+    eos_pos = (ys_lens + 1)[:, None]
+    ys = torch.where(pos == eos_pos, eos, ys)
+    return torch.where(pos > eos_pos, ignore_id, ys)
+
+
 @tables.register("model_classes", "Paraformer")
 class Paraformer(nn.Module):
     def __init__(
         self,
+        specaug: Optional[str] = None,
+        specaug_conf: Optional[Dict] = None,
         normalize: Optional[str] = None,
+        normalize_conf: Optional[Dict] = None,
         encoder: str = "SANMEncoder",
         encoder_conf: Optional[Dict] = None,
         decoder: str = "ParaformerSANMDecoder",
@@ -51,23 +89,30 @@ class Paraformer(nn.Module):
         ctc_weight: float = 0.0,
         input_size: int = 80,
         vocab_size: int = -1,
+        ignore_id: int = -1,
         blank_id: int = 0,
         sos: int = 1,
         eos: int = 2,
+        lsm_weight: float = 0.0,
+        length_normalized_loss: bool = False,
+        predictor_weight: float = 1.0,
+        predictor_bias: int = 0,
+        sampling_ratio: float = 0.2,
         device=None,
         generator: Optional[torch.Generator] = None,
         **kwargs,
     ):
         """``generator``: when given, every weight is drawn from it (the JAX package's
         init rules, ``core/module.py::init_weights``); otherwise torch's default init.
-        ``ctc_weight > 0`` builds the CTC head ``ctc`` (``model.py:107-110``), which only
-        the training loss reads (slice 7) and Paraformer-v2's decode; ``predictor=None``
-        builds no predictor (Paraformer-v2). Training-only keys of hub configs (specaug,
-        predictor_bias, lsm_weight, ...) are accepted and ignored; a ``normalize`` layer
-        is not ported yet."""
+        ``ctc_weight > 0`` builds the CTC head ``ctc`` (``model.py:107-110``), which
+        the training loss reads at ``ctc_weight`` and Paraformer-v2's decode; ``predictor=None``
+        builds no predictor (Paraformer-v2). The training keys (specaug, lsm_weight,
+        predictor_weight, predictor_bias, sampling_ratio, length_normalized_loss,
+        ctc_weight) set ``forward``'s loss; ``normalize`` applies in ``encode``."""
         super().__init__()
-        if normalize is not None:
-            raise NotImplementedError(f"normalize={normalize} is not ported")
+        self.specaug = (tables.specaug_classes[specaug](**(specaug_conf or {}))
+                        if specaug else None)
+        self.normalize = build_normalize(normalize, normalize_conf)
         self.encoder = tables.encoder_classes[encoder](
             input_size=input_size, device=device, **(encoder_conf or {}))
         enc_out = self.encoder.output_size()
@@ -78,9 +123,17 @@ class Paraformer(nn.Module):
             device=device, **(predictor_conf or {})))
         self.ctc = (CTC(odim=vocab_size, encoder_output_size=enc_out, device=device,
                         **(ctc_conf or {})) if ctc_weight > 0.0 else None)
+        self.vocab_size = vocab_size
+        self.ignore_id = ignore_id
         self.blank_id = blank_id
         self.sos = sos if sos is not None else vocab_size - 1
         self.eos = eos if eos is not None else vocab_size - 1
+        self.ctc_weight = ctc_weight
+        self.lsm_weight = lsm_weight
+        self.length_normalized_loss = length_normalized_loss
+        self.predictor_weight = predictor_weight
+        self.predictor_bias = predictor_bias
+        self.sampling_ratio = sampling_ratio
         if generator is not None:
             init_weights(self, generator)
 
@@ -96,8 +149,105 @@ class Paraformer(nn.Module):
     # device path
     # ------------------------------------------------------------------
 
-    def encode(self, speech, speech_lengths):
-        return self.encoder(speech, speech_lengths)
+    def encode(self, speech, speech_lengths, generator=None):
+        """SpecAug and the encoder's dropout (``train()`` mode with a ``generator``, the JAX
+        package's key), normalize, encoder (``model.py:152-157``)."""
+        if self.specaug is not None and self.training and generator is not None:
+            speech, speech_lengths = self.specaug(speech, speech_lengths, generator)
+        if self.normalize is not None:
+            speech, speech_lengths = self.normalize(speech, speech_lengths)
+        return self.encoder(speech, speech_lengths, generator=generator)
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+
+    def forward(self, speech, speech_lengths, text, text_lengths, generator=None,
+                sampler_uniform=None):
+        """One batch's training loss (``forward_jit``): features (B, T, D) and their
+        lengths, token ids (B, L) padded with ``ignore_id`` -> (loss, stats, weight);
+        stats holds 0-d tensors (``loss``, ``loss_att``, ``loss_pre``, ``acc``,
+        ``batch_size``; ``loss_ctc`` with CTC). ``generator`` draws SpecAug, dropout and
+        the sampler's uniforms; ``sampler_uniform`` (B, L') replaces the latter. The
+        subclasses' own losses (BiCif, streaming, v2, ...) are ROADMAP item 20b."""
+        if type(self) is not Paraformer:
+            raise NotImplementedError(f"{type(self).__name__}'s training loss is not ported "
+                                      "yet (ROADMAP item 20b)")
+        batch_size = speech.shape[0]
+        encoder_out, encoder_out_lens = self.encode(speech, speech_lengths, generator)
+        stats = {}
+        loss_ctc = None
+        if self.ctc is not None and self.ctc_weight > 0.0:
+            loss_ctc = self.ctc.loss(encoder_out, encoder_out_lens, text, text_lengths)
+            stats["loss_ctc"] = loss_ctc
+
+        ys_pad, ys_pad_lens = text, text_lengths
+        if self.predictor_bias == 1:
+            ys_pad = add_sos_eos_out(text, text_lengths, self.eos, self.ignore_id)
+            ys_pad_lens = text_lengths + 1
+        elif self.predictor_bias == 2:
+            ys_pad = add_sos_and_eos(text, text_lengths, self.sos, self.eos, self.ignore_id)
+            ys_pad_lens = text_lengths + 2
+
+        mask = make_pad_mask(encoder_out_lens, encoder_out.shape[1])
+        pre_acoustic_embeds, pre_token_length, _, _ = self.predictor(
+            encoder_out, mask, ys_pad.shape[1], target_length=ys_pad_lens)
+
+        if self.sampling_ratio > 0.0:
+            sematic_embeds, dec_out_1st = self._sampler(
+                encoder_out, encoder_out_lens, ys_pad, ys_pad_lens, pre_acoustic_embeds,
+                generator, sampler_uniform)
+        else:
+            sematic_embeds, dec_out_1st = pre_acoustic_embeds, None
+
+        decoder_out, _ = self.decoder(encoder_out, encoder_out_lens, sematic_embeds,
+                                      ys_pad_lens)
+        if dec_out_1st is None:
+            dec_out_1st = decoder_out
+        loss_att = label_smoothing_loss(
+            decoder_out, ys_pad, ignore_id=self.ignore_id, smoothing=self.lsm_weight,
+            vocab_size=self.vocab_size, normalize_length=self.length_normalized_loss)
+        loss_pre = mae_token_loss(ys_pad_lens, pre_token_length)
+        acc_att = th_accuracy(dec_out_1st, ys_pad, self.ignore_id)
+        if loss_ctc is not None:
+            loss = (self.ctc_weight * loss_ctc + (1 - self.ctc_weight) * loss_att
+                    + loss_pre * self.predictor_weight)
+        else:
+            loss = loss_att + loss_pre * self.predictor_weight
+        stats.update(loss_att=loss_att, loss_pre=loss_pre, acc=acc_att, loss=loss,
+                     batch_size=torch.tensor(batch_size))
+        weight = ((text_lengths + self.predictor_bias).sum() if self.length_normalized_loss
+                  else batch_size)
+        return loss, stats, weight
+
+    def _sampler(self, encoder_out, encoder_out_lens, ys_pad, ys_pad_lens,
+                 pre_acoustic_embeds, generator=None, uniform=None):
+        """Glancing sampler (``_sampler``, ``model.py:171-201``): a decoder pass under
+        ``torch.no_grad()`` over the acoustic embeddings; in each row, a random
+        ``sampling_ratio`` share of its wrong tokens' slots take the target's embedding
+        (the ``target_num`` valid slots of lowest uniform draw). -> (semantic embeds,
+        the first pass's logits masked to the targets)."""
+        b, l = ys_pad.shape
+        tgt_mask = make_pad_mask(ys_pad_lens, l)
+        ys_masked = torch.where(tgt_mask, ys_pad, 0)
+        ys_embed = embedding(ys_masked, self.decoder.embed[0].weight,
+                             dtype=pre_acoustic_embeds.dtype)
+        with torch.no_grad():
+            dec_out, _ = self.decoder(encoder_out, encoder_out_lens, pre_acoustic_embeds,
+                                      ys_pad_lens)
+        pred = dec_out.argmax(dim=-1)
+        nonpad = ys_pad != self.ignore_id
+        seq_lens = nonpad.sum(dim=1)
+        same = ((pred == ys_pad) & nonpad).sum(dim=1)
+        target_num = ((seq_lens - same).float() * self.sampling_ratio).to(torch.int64)
+        if uniform is None:
+            uniform = torch.rand((b, l), generator=generator, device=ys_pad.device)
+        u = torch.where(nonpad, uniform.to(ys_pad.device), torch.inf)
+        rank = torch.argsort(torch.argsort(u, dim=1), dim=1)
+        replace = (rank < target_num[:, None]) & nonpad
+        sematic = torch.where(replace[..., None], ys_embed, pre_acoustic_embeds)
+        sematic = sematic * tgt_mask[..., None].to(sematic.dtype)
+        return sematic, dec_out * tgt_mask[..., None]
 
     def calc_predictor(self, encoder_out, encoder_out_lens,
                        max_tokens: Optional[int] = None):

@@ -12,7 +12,7 @@ runs the compression with the pair's token budget K = T/2 + 16, and the fetch's
 full-budget retry runs when a row has K segments (JAX ``paraformer/model.py:308-330,
 384-388``). The decoder runs in the weights' dtype: the JAX package feeds it the fp32
 projection, which under bf16 weights lifts its decoder to fp32; in fp32 the two are the
-same. Training's forced alignment (``ctc_forced_align_jax``) comes with slice 7.
+same. Training's forced alignment (``ctc_forced_align_jax``) is ROADMAP item 20b.
 """
 
 from __future__ import annotations

@@ -3,8 +3,11 @@
 FunASR's ``SANMEncoder`` (``funasr/models/sanm/encoder.py:187-535``): ``x * sqrt(d)`` +
 sinusoidal PE, one dim-changing block (``encoders0``, no attention residual) then N-1
 homogeneous blocks (``encoders``), after-norm, output masked. The JAX package scans the
-stacked blocks; here they are an ``nn.ModuleList`` loop. Inference only: dropout (the
-``dropout_rate`` of hub configs) is not applied.
+stacked blocks; here they are an ``nn.ModuleList`` loop. In ``train()`` mode, with a
+``generator`` given to ``forward`` (the JAX package's key), each block applies dropout at
+``dropout_rate`` (0.1 by default, as in the JAX package) after its self-attention and
+after its feed-forward (``encoder.py:80,85``), the keep-masks drawn from it; in
+``eval()`` mode or without a generator (every inference path) there is none.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import NamedTuple
 
 from torch import nn
 
+from funasr_tpu_torch.core.module import maybe_dropout
 from funasr_tpu_torch.core.layers import (
     LayerNorm,
     PositionwiseFeedForward,
@@ -37,6 +41,7 @@ class SANMEncoderConfig(NamedTuple):
     sanm_shift: int = 0
     input_layer: str = "pe"
     normalize_before: bool = True
+    dropout_rate: float = 0.1
 
     def attn_cfg(self, first: bool) -> SANMAttentionConfig:
         return SANMAttentionConfig(
@@ -56,16 +61,19 @@ class EncoderLayerSANM(nn.Module):
         super().__init__()
         attn_cfg = cfg.attn_cfg(first)
         self.residual_attn = attn_cfg.in_feat == attn_cfg.n_feat
+        self.dropout_rate = cfg.dropout_rate
         self.norm1 = LayerNorm(attn_cfg.in_feat, device=device)
         self.norm2 = LayerNorm(cfg.output_size, device=device)
         self.self_attn = MultiHeadedAttentionSANM(attn_cfg, device=device)
         self.feed_forward = PositionwiseFeedForward(cfg.output_size, cfg.linear_units,
                                                     device=device)
 
-    def forward(self, x, mask, lengths, mode: str = "none", vad_pos=None):
+    def forward(self, x, mask, lengths, mode: str = "none", vad_pos=None, generator=None):
         h = self.self_attn(self.norm1(x), mask, lengths, mode, vad_pos)
+        h = maybe_dropout(h, self.dropout_rate, self.training, generator)
         x = x + h if self.residual_attn else h
-        return x + self.feed_forward(self.norm2(x))
+        f = self.feed_forward(self.norm2(x))
+        return x + maybe_dropout(f, self.dropout_rate, self.training, generator)
 
     def forward_chunk(self, x, cache, lengths, chunk_size, look_back: int):
         """One streaming chunk (``scama/encoder.py:87-97``) -> (out, new K/V cache)."""
@@ -80,7 +88,8 @@ class SANMEncoder(nn.Module):
     def __init__(self, input_size: int, output_size: int = 256, attention_heads: int = 4,
                  linear_units: int = 2048, num_blocks: int = 6, kernel_size: int = 11,
                  sanm_shfit: int = 0, input_layer: str = "pe",
-                 normalize_before: bool = True, device=None, **kwargs):
+                 normalize_before: bool = True, dropout_rate: float = 0.1, device=None,
+                 **kwargs):
         super().__init__()
         if input_layer not in ("pe", "null", None):
             raise NotImplementedError(f"input_layer={input_layer}")
@@ -89,6 +98,7 @@ class SANMEncoder(nn.Module):
             attention_heads=attention_heads, linear_units=linear_units,
             num_blocks=num_blocks, kernel_size=kernel_size, sanm_shift=sanm_shfit,
             input_layer=input_layer, normalize_before=normalize_before,
+            dropout_rate=dropout_rate,
         )
         self.encoders0 = nn.ModuleList([EncoderLayerSANM(cfg, True, device)])
         self.encoders = nn.ModuleList(
@@ -98,15 +108,16 @@ class SANMEncoder(nn.Module):
     def output_size(self) -> int:
         return self.cfg.output_size
 
-    def forward(self, xs_pad, ilens):
-        """xs_pad: (B, T, input_size); ilens: (B,) -> ((B, T, out), (B,) lens)."""
+    def forward(self, xs_pad, ilens, generator=None):
+        """xs_pad: (B, T, input_size); ilens: (B,) -> ((B, T, out), (B,) lens).
+        ``generator``: the dropout masks' (``train()`` mode only)."""
         cfg = self.cfg
         mask = make_pad_mask(ilens, xs_pad.shape[1])
         x = xs_pad * (cfg.output_size ** 0.5)
         if cfg.input_layer == "pe":
             x = add_sinusoidal_pe(x)
         for layer in (*self.encoders0, *self.encoders):
-            x = layer(x, mask, ilens)
+            x = layer(x, mask, ilens, generator=generator)
         if cfg.normalize_before:
             x = self.after_norm(x)
         return x * mask[..., None].to(x.dtype), ilens

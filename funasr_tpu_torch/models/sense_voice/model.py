@@ -30,6 +30,7 @@ from funasr_tpu_torch.core.layers import LayerNorm, add_sinusoidal_pe, embedding
 from funasr_tpu_torch.core.module import init_weights
 from funasr_tpu_torch.models.ctc.ctc import CTC
 from funasr_tpu_torch.models.sanm.encoder import EncoderLayerSANM, SANMEncoderConfig
+from funasr_tpu_torch.models.normalize.normalize import build_normalize
 from funasr_tpu_torch.register import tables
 from funasr_tpu_torch.utils.bucket import pad_feats_bucketed
 from funasr_tpu_torch.utils.load_utils import extract_fbank, load_audio_text_image_video
@@ -78,16 +79,17 @@ class SenseVoiceSmall(nn.Module):
     EMO_UNK = 25009
 
     def __init__(self, specaug: Optional[str] = None, normalize: Optional[str] = None,
+                 normalize_conf: Optional[dict] = None,
                  encoder: str = "SenseVoiceEncoderSmall", encoder_conf: Optional[dict] = None,
                  ctc_conf: Optional[dict] = None, input_size: int = 80, vocab_size: int = -1,
                  blank_id: int = 0, sos: int = 1, eos: int = 2, device=None,
                  generator: Optional[torch.Generator] = None, **kwargs):
         """``generator``: every weight drawn from it (``init_weights``), else torch's
-        default init. ``specaug`` and the loss keys are training's and ignored; a
-        ``normalize`` layer is not ported."""
+        default init. ``specaug`` and the loss keys are training's and ignored (this
+        model's training loss is ROADMAP item 20b); a ``normalize`` layer applies before
+        the prompt rows (``model.py:196-197``)."""
         super().__init__()
-        if normalize is not None:
-            raise NotImplementedError(f"normalize={normalize} is not ported")
+        self.normalize = build_normalize(normalize, normalize_conf)
         self.encoder = tables.encoder_classes[encoder](
             input_size=input_size, device=device, **(encoder_conf or {}))
         self.ctc = CTC(odim=vocab_size, encoder_output_size=self.encoder.output_size(),
@@ -125,6 +127,8 @@ class SenseVoiceSmall(nn.Module):
         """Batched CTC argmax over the padded frames (``infer_jit``, JAX ``:193-208``) ->
         (ids (B, T + 4) int32, lengths (B,), fp32 log-probs (B, T + 4, vocab)). The
         argmax is taken of the log-probs, as in JAX, so ties fall alike."""
+        if self.normalize is not None:
+            speech, speech_lengths = self.normalize(speech, speech_lengths)
         speech, speech_lengths = self.with_prompt(speech, speech_lengths, lid_ids, tn_ids)
         encoder_out, encoder_out_lens = self.encoder(speech, speech_lengths)
         logp = self.ctc.log_softmax(encoder_out)

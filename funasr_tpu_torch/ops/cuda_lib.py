@@ -44,6 +44,13 @@ _SIGNATURES = {
     # dtype, x, w, mask, out, B, T, C, K, left, x_sb, x_st, stream
     "fsmn_memory_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P],
     "fsmn_memory_generic_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P],
+    # q, k, v, o, dout, dq, dk, dv, stats, lengths, B, H, Tq, Tk, D, strides[24], sm_scale,
+    # mode, vad_pos, stream (fp32)
+    "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            ctypes.POINTER(_L), ctypes.c_float, _I, _P, _P],
+    # x, dout, mask, partial, dw, B, T, C, K, left, x_sb, x_st, dout_sb, dout_st,
+    # rows_per_chunk, stream (fp32)
+    "fsmn_memory_bwd_weight": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _I, _P],
     # dtype, x, x_row_stride, w_q, scale, bias, bias_dtype, x_q, sx, out, out_pitch, M, N,
     # K, Kp, sms, stream
     "w8a8_linear_fwd": [_I, _P, _L, _P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
@@ -122,3 +129,59 @@ def sm_count(index: int) -> int:
 def stream_handle(device) -> int:
     """PyTorch's current stream on ``device``: kernels launch there and never sync."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def vectorizable(x: torch.Tensor) -> torch.Tensor:
+    """x as the kernels read it: unit last stride, 16-byte aligned rows and base; a copy
+    only when x is not so (autograd may hand an expanded or odd-strided gradient)."""
+    vec = 16 // x.element_size()
+    if x.stride(-1) != 1 or any(s % vec for s in x.stride()[:-1]) or x.data_ptr() % 16:
+        return x.contiguous()
+    return x
+
+
+# While a dict (``record_launch_shapes``), every kernel launch is also counted in it under
+# its signature: (wrapper name, each tensor's shape and strides, the other arguments) ->
+# [launches, the first such launch's per-row lengths (a device copy)]. None: launches are
+# only counted.
+launch_shapes = None
+
+
+def count_launch(wrapper, tensors, args=(), lengths=None) -> None:
+    """One launch of ``wrapper``'s kernel: ``wrapper.launches`` += 1 and, while shapes are
+    recorded, one more under its signature. ``lengths``: flash's (B,) key lengths or the
+    FSMN's (B, T) bool mask (kept as its row sums)."""
+    wrapper.launches += 1
+    if launch_shapes is None:
+        return
+    key = (wrapper.__name__, tuple((tuple(t.shape), tuple(t.stride())) for t in tensors),
+           tuple(args))
+    entry = launch_shapes.get(key)
+    if entry is None:
+        if lengths is not None:
+            lengths = (lengths.sum(-1, dtype=torch.int32) if lengths.dtype == torch.bool
+                       else lengths.clone())
+        entry = launch_shapes[key] = [0, lengths]
+    entry[0] += 1
+
+
+def record_launch_shapes() -> None:
+    """Start (or restart) recording the shapes the kernels launch at."""
+    global launch_shapes
+    launch_shapes = {}
+
+
+def take_launch_shapes() -> list:
+    """The launches recorded since the last ``record_launch_shapes`` / ``take``, as
+    JSON-ready dicts ``{kernel, tensors: [[shape, strides], ...], args, launches,
+    lengths}`` (reading the lengths waits for the device), and a fresh record."""
+    global launch_shapes
+    taken, launch_shapes = launch_shapes or {}, {}
+    return [dict(kernel=name, tensors=[[list(s), list(st)] for s, st in tensors],
+                 args=list(args), launches=n, lengths=None if ln is None else ln.tolist())
+            for (name, tensors, args), (n, ln) in taken.items()]
+
+
+def stop_recording_launch_shapes() -> None:
+    global launch_shapes
+    launch_shapes = None

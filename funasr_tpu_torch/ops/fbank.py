@@ -9,7 +9,8 @@ preemphasis 0.97, power spectrum, kaldi mel banks from 20 Hz):
 The real DFT is a fp32 matmul against ``_dft_matrix``, as in the JAX package, which runs
 it at HIGHEST precision (``fbank.py:180-184``); the package turns TF32 off
 (``funasr_tpu_torch/__init__.py``) so the CUDA matmul stays full fp32.
-Dither (training only in the JAX package) is not ported in this slice.
+Dither (kaldi's gaussian noise on the frames) applies only with a ``generator``, the
+training step's, as the JAX package applies it only with a key.
 """
 
 from __future__ import annotations
@@ -127,12 +128,16 @@ def fbank(
     sample_frequency: float = 16000.0,
     window_type: str = "hamming",
     snip_edges: bool = True,
+    dither: float = 0.0,
+    generator=None,
 ):
     """waveform (..., N) float32 (already scaled, e.g. *32768) -> (..., T, num_mel_bins).
 
     Leading axes are a batch: ``fbank_batch`` passes (B, N) in one call. DC removal,
     preemphasis 0.97, the power spectrum and mel banks from 20 Hz to Nyquist are the
-    reference frontend's fixed settings.
+    reference frontend's fixed settings. ``dither`` (kaldi's gaussian noise on each
+    frame's samples, ``funasr_tpu/ops/fbank.py:164-165``) applies only when a
+    ``generator`` (on the waveform's device) is given: the training path's.
     """
     n = waveform.shape[-1]
     dev = waveform.device
@@ -145,6 +150,8 @@ def fbank(
     if pad_n > n:
         w = torch.nn.functional.pad(w, (0, pad_n - n))
     frames = w.unfold(-1, frame_length, frame_shift)[..., :t, :]  # (..., T, L)
+    if dither != 0.0 and generator is not None:
+        frames = frames + dither * torch.randn(frames.shape, generator=generator, device=dev)
 
     frames = frames - frames.mean(dim=-1, keepdim=True)
     prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)

@@ -31,7 +31,12 @@ the kernel. A row of length 0 gets the uniform average of V over its Tk keys in 
 versions (the Pallas kernel's behaviour); bucketing never builds one.
 
 Dispatch: a CPU tensor takes ``flash_attention_ref``; a CUDA tensor launches the
-kernel or raises. ``flash_attention.launches`` counts kernel launches. Under
+kernel or raises. ``flash_attention.launches`` counts kernel launches. With grad mode on
+and q, k or v requiring grad, the output comes from ``FlashAttentionFn``, whose backward
+is ``flash_attention_bwd``: on CUDA (fp32) the hand-written kernel of
+``funasr_tpu_torch/csrc/flash_attention_bwd.cu`` (``flash_attention_bwd.launches`` counts
+its calls, two kernel launches each), on the CPU autograd through ``flash_attention_ref``;
+bf16 raises (ROADMAP item 20b). lengths and vad_pos get no gradient. Under
 ``torch.export`` the wrapper records the custom op ``funasr_tpu_torch::flash_attention``
 instead (its CUDA implementation launches the same kernel, its CPU one is
 ``flash_attention_ref``, its fake one gives the output's shape and strides), so an
@@ -78,13 +83,24 @@ def key_limits(lengths, tq: int, mode: str = "none", vad_pos=None):
 
 def flash_attention_ref(q, k, v, lengths, mode: str = "none", vad_pos=None):
     """Plain PyTorch version: q (B, H, Tq, D), k, v (B, H, Tk, D), lengths (B,), row
-    limits as ``flash_attention`` -> (B, H, Tq, D)."""
+    limits as ``flash_attention`` -> (B, H, Tq, D). Computed in fp32 (float64 stays
+    float64, for ``gradcheck``)."""
     tq, tk, d = q.shape[2], k.shape[2], q.shape[3]
-    s = torch.matmul(q.float() * (1.0 / math.sqrt(d)), k.float().transpose(-1, -2))
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.matmul(q.to(acc) * (1.0 / math.sqrt(d)), k.to(acc).transpose(-1, -2))
     lim = key_limits(lengths.to(q.device), tq, mode, vad_pos)
     key_valid = torch.arange(tk, device=q.device)[None, None, :] < lim[:, :, None]
     s = s.masked_fill(~key_valid[:, None], NEG_INF)
-    return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
+    return torch.matmul(torch.softmax(s, dim=-1), v.to(acc)).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, dout, lengths, mode: str = "none", vad_pos=None):
+    """Plain version of the backward: autograd through ``flash_attention_ref`` ->
+    (dq, dk, dv)."""
+    with torch.enable_grad():
+        q_, k_, v_ = (x.detach().requires_grad_() for x in (q, k, v))
+        out = flash_attention_ref(q_, k_, v_, lengths, mode, vad_pos)
+        return torch.autograd.grad(out, (q_, k_, v_), dout)
 
 
 def _check(q, k, v, lengths, mode, vad_pos):
@@ -130,9 +146,72 @@ def flash_attention(q, k, v, lengths, mode: str = "none", vad_pos=None):
     """
     if torch.compiler.is_exporting():
         return flash_attention_op(q, k, v, lengths, mode, vad_pos)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, lengths, mode, vad_pos)
+    return _flash_forward(q, k, v, lengths, mode, vad_pos)
+
+
+def _flash_forward(q, k, v, lengths, mode="none", vad_pos=None):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, lengths, mode, vad_pos)
     return _flash_attention_cuda(q, k, v, lengths, mode, vad_pos)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward kernel (or plain version) as it
+    is, the backward ``flash_attention_bwd`` on the saved q, k, v and output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, mode, vad_pos):
+        out = _flash_forward(q, k, v, lengths, mode, vad_pos)
+        ctx.save_for_backward(q, k, v, out, lengths, vad_pos)
+        ctx.mode = mode
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lengths, vad_pos = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lengths, ctx.mode, vad_pos)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(q, k, v, out, dout, lengths, mode: str = "none", vad_pos=None):
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, lengths, mode, vad_pos)``
+    = out, given dout, its output's gradient. CPU tensors: ``flash_attention_bwd_ref``;
+    CUDA: the fp32 backward kernel, or raises (bf16: ``NotImplementedError``). Each
+    gradient is a (B, H, T, D) view of a contiguous (B, T, H, D) tensor, as the forward's
+    output is, so the heads merge back into the fused projection's layout without a
+    copy."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, dout, lengths, mode, vad_pos)
+    if q.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the flash attention backward kernel takes float32; {q.dtype} training (its "
+            "backward kernels) is ROADMAP item 20b")
+    _check(q, k, v, lengths, mode, vad_pos)
+    b, h, t, d = q.shape
+    tk = k.shape[2]
+    o, do = (cuda_lib.vectorizable(x) for x in (out, dout))
+    lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    vps = None if vad_pos is None else vad_pos.to(dtype=torch.int32).contiguous()
+    dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    dk, dv = (torch.empty((b, tk, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+              for _ in range(2))
+    stats = torch.empty((3, b * h * t), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(s for x in (q, k, v, o, do, dq, dk, dv)
+                                         for s in x.stride()[:3]))
+    lib = cuda_lib.load_library()
+    cuda_lib.count_launch(flash_attention_bwd, (q, k, v, o, do), (mode,), lens)
+    err = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), lens.data_ptr(), b, h, t, tk, d,
+        strides, 1.0 / math.sqrt(d), MODES[mode], None if vps is None else vps.data_ptr(),
+        cuda_lib.stream_handle(q.device))
+    cuda_lib.check(err, "flash_attention_bwd")
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
 
 
 def _flash_attention_cuda(q, k, v, lengths, mode="none", vad_pos=None):
@@ -146,7 +225,7 @@ def _flash_attention_cuda(q, k, v, lengths, mode="none", vad_pos=None):
     strides = (ctypes.c_longlong * 12)(*(s for x in (q, k, v, out) for s in x.stride()[:3]))
     rows = flash_block_rows(b, h, t, cuda_lib.sm_count(q.device.index or 0))
     lib = cuda_lib.load_library()
-    flash_attention.launches += 1
+    cuda_lib.count_launch(flash_attention, (q, k, v), (mode,), lens)
     err = lib.flash_attention_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lens.data_ptr(), b, h, t, k.shape[2], d, strides, 1.0 / math.sqrt(d), MODES[mode],

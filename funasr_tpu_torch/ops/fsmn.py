@@ -26,8 +26,17 @@ path's inputs are (the v slice at offset 2C of q|k|v, the decoder's contiguous i
 anything else raises ``ValueError``.
 
 Dispatch: a CPU tensor takes ``fsmn_memory_ref``; a CUDA tensor launches the kernel or
-raises. ``fsmn_memory.launches`` counts kernel launches. ``generic=True`` launches the
-generic instantiation whatever k is, to time a specialised one against it. Under
+raises. ``fsmn_memory.launches`` counts kernel launches. With grad mode on and x or the
+weight requiring grad, the output comes from ``FsmnMemoryFn``. With a 0/1 mask m,
+out = m (conv(m x) + m x), so with g = m dout the input gradient is m (corr'(g) + g),
+where corr' correlates with the taps reversed and the pads swapped: the forward kernel
+itself on dout (``fsmn_memory_bwd_input``; the path's (11, 5) maps onto itself and keeps
+its instantiation). The weight gradient dw[c, j] = sum_{b,t} g[b,t,c] xm[b,t+j-left,c]
+is the reduction kernel ``fsmn_memory_bwd_weight`` of ``csrc/fsmn.cu`` (fp32,
+deterministic). Each counts its calls in ``.launches``; on the CPU both are autograd
+through ``fsmn_memory_ref``; bf16 raises (ROADMAP item 20b). The mask gets no gradient.
+``generic=True`` launches the generic instantiation whatever k is, to time a specialised
+one against it. Under
 ``torch.export`` the wrapper records the custom op ``funasr_tpu_torch::fsmn_memory``
 (CUDA: the same kernel; CPU: ``fsmn_memory_ref``; fake: the (B, T, C) output), so an
 exported program runs the kernel; eager calls skip the op's dispatch.
@@ -54,10 +63,11 @@ def fsmn_memory_ref(x, weight, mask, left_pad: int, right_pad: int):
     mask (B, T) bool, True = valid, or None -> (B, T, C) in x's dtype."""
     c, k = weight.shape[0], weight.shape[-1]
     x = _masked(x, mask)
-    pad = F.pad(x.float(), (0, 0, left_pad, right_pad))
-    w = weight.reshape(c, k).float()
+    acc_t = torch.promote_types(x.dtype, torch.float32)  # float64 stays (gradcheck)
+    pad = F.pad(x.to(acc_t), (0, 0, left_pad, right_pad))
+    w = weight.reshape(c, k).to(acc_t)
     t = x.shape[1]
-    acc = torch.zeros(pad.shape[0], t, c, dtype=torch.float32, device=x.device)
+    acc = torch.zeros(pad.shape[0], t, c, dtype=acc_t, device=x.device)
     for i in range(k):
         acc = acc + pad[:, i : i + t] * w[:, i]
     return _masked(acc.to(x.dtype) + x, mask)
@@ -95,9 +105,123 @@ def fsmn_memory(x, weight, mask, left_pad: int, right_pad: int, *, generic: bool
     x's dtype; mask (B, T) bool or None -> contiguous (B, T, C) in x's dtype."""
     if torch.compiler.is_exporting():
         return fsmn_memory_op(x, weight, mask, left_pad, right_pad, generic)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return FsmnMemoryFn.apply(x, weight, mask, left_pad, right_pad)
+    return _fsmn_forward(x, weight, mask, left_pad, right_pad, generic)
+
+
+def _fsmn_forward(x, weight, mask, left_pad, right_pad, generic=False):
     if x.device.type == "cpu":
         return fsmn_memory_ref(x, weight, mask, left_pad, right_pad)
     return _fsmn_memory_cuda(x, weight, mask, left_pad, right_pad, generic)
+
+
+class FsmnMemoryFn(torch.autograd.Function):
+    """``fsmn_memory`` with a gradient for x and the weight."""
+
+    @staticmethod
+    def forward(ctx, x, weight, mask, left_pad, right_pad):
+        ctx.save_for_backward(x, weight, mask)
+        ctx.pads = (left_pad, right_pad)
+        return _fsmn_forward(x, weight, mask, left_pad, right_pad)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, weight, mask = ctx.saved_tensors
+        left, right = ctx.pads
+        if x.device.type == "cpu":
+            dx, dw = fsmn_memory_bwd_ref(x, weight, mask, left, right, dout)
+        else:
+            dx = (fsmn_memory_bwd_input(dout, weight, mask, left, right)
+                  if ctx.needs_input_grad[0] else None)
+            dw = (fsmn_memory_bwd_weight(x, dout, mask, left, right).reshape(weight.shape)
+                  if ctx.needs_input_grad[1] else None)
+        return dx, dw, None, None, None
+
+
+def fsmn_memory_bwd_ref(x, weight, mask, left_pad, right_pad, dout):
+    """Plain version of the backward: autograd through ``fsmn_memory_ref`` -> (dx, dw)."""
+    with torch.enable_grad():
+        x_, w_ = x.detach().requires_grad_(), weight.detach().requires_grad_()
+        out = fsmn_memory_ref(x_, w_, mask, left_pad, right_pad)
+        return torch.autograd.grad(out, (x_, w_), dout)
+
+
+def _fp32_cuda(name, *tensors):
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} runs on CUDA tensors, not {t.device}")
+        if t.dtype != torch.float32:
+            raise NotImplementedError(
+                f"{name} takes float32; {t.dtype} training (its backward kernels) is "
+                "ROADMAP item 20b")
+
+
+def fsmn_memory_bwd_input(dout, weight, mask, left_pad: int, right_pad: int):
+    """The input gradient of ``fsmn_memory``: the forward kernel on dout with the taps
+    reversed and the pads swapped (CUDA, fp32) -> contiguous (B, T, C)."""
+    _fp32_cuda("fsmn_memory_bwd_input", dout, weight)
+    g = cuda_lib.vectorizable(dout)
+    w = weight.reshape(weight.shape[0], weight.shape[-1]).flip(-1).contiguous()
+    _check(g, w, mask, right_pad, left_pad)
+    b, t, c = g.shape
+    m = None if mask is None else mask.contiguous()
+    dx = torch.empty((b, t, c), dtype=g.dtype, device=g.device)
+    lib = cuda_lib.load_library()
+    cuda_lib.count_launch(fsmn_memory_bwd_input, (g,), (w.shape[1], left_pad, right_pad), m)
+    err = lib.fsmn_memory_fwd(_DTYPES[g.dtype], g.data_ptr(), w.data_ptr(),
+                              None if m is None else m.data_ptr(), dx.data_ptr(), b, t, c,
+                              w.shape[1], right_pad, g.stride(0), g.stride(1),
+                              cuda_lib.stream_handle(g.device))
+    cuda_lib.check(err, "fsmn_memory_bwd_input")
+    return dx
+
+
+fsmn_memory_bwd_input.launches = 0
+
+DW_BLOCKS_PER_SM = 4  # blocks the weight-gradient kernel aims for, per multiprocessor
+DW_THREADS = 128  # channels a block (csrc/fsmn.cu)
+
+
+def dw_rows_per_chunk(b: int, t: int, c: int, k: int, sms: int) -> int:
+    """Rows (b, t) each partial sum of the weight-gradient kernel covers: enough chunks
+    that the grid (C / 128, k, chunks) holds about DW_BLOCKS_PER_SM blocks on each of the
+    card's ``sms`` multiprocessors."""
+    per_chunk = -(-c // DW_THREADS) * k
+    chunks = max(1, DW_BLOCKS_PER_SM * sms // per_chunk)
+    return max(32, -(-(b * t) // chunks))
+
+
+def fsmn_memory_bwd_weight(x, dout, mask, left_pad: int, right_pad: int):
+    """The weight gradient of ``fsmn_memory`` (CUDA, fp32): x and dout (B, T, C), any
+    batch / time strides -> (C, k) fp32, k = left_pad + right_pad + 1."""
+    _fp32_cuda("fsmn_memory_bwd_weight", x, dout)
+    if x.dim() != 3 or dout.shape != x.shape or x.stride(2) != 1 or dout.stride(2) != 1:
+        raise ValueError(f"x and dout must be one (B, T, C) shape with unit channel "
+                         f"stride, got {tuple(x.shape)}, {tuple(dout.shape)}")
+    b, t, c = x.shape
+    k = left_pad + right_pad + 1
+    if not 1 <= k <= MAX_KERNEL or left_pad < 0 or right_pad < 0:
+        raise ValueError(f"need pads >= 0 with k = left + right + 1 <= {MAX_KERNEL}")
+    if mask is not None and (mask.dtype != torch.bool or mask.shape != (b, t)
+                             or mask.device != x.device):
+        raise ValueError(f"mask must be a ({b}, {t}) bool tensor on {x.device}")
+    rows = dw_rows_per_chunk(b, t, c, k, cuda_lib.sm_count(x.device.index or 0))
+    chunks = -(-(b * t) // rows)
+    partial = torch.empty((chunks, k, c), dtype=torch.float32, device=x.device)
+    dw = torch.empty((c, k), dtype=torch.float32, device=x.device)
+    m = None if mask is None else mask.contiguous()
+    lib = cuda_lib.load_library()
+    cuda_lib.count_launch(fsmn_memory_bwd_weight, (x, dout), (k, left_pad, right_pad), m)
+    err = lib.fsmn_memory_bwd_weight(
+        x.data_ptr(), dout.data_ptr(), None if m is None else m.data_ptr(),
+        partial.data_ptr(), dw.data_ptr(), b, t, c, k, left_pad, x.stride(0), x.stride(1),
+        dout.stride(0), dout.stride(1), rows, cuda_lib.stream_handle(x.device))
+    cuda_lib.check(err, "fsmn_memory_bwd_weight")
+    return dw
+
+
+fsmn_memory_bwd_weight.launches = 0
 
 
 def _fsmn_memory_cuda(x, weight, mask, left_pad, right_pad, generic=False):
@@ -112,7 +236,7 @@ def _fsmn_memory_cuda(x, weight, mask, left_pad, right_pad, generic=False):
     m = None if mask is None else mask.contiguous()
     out = torch.empty((b, t, c), dtype=x.dtype, device=x.device)
     lib = cuda_lib.load_library()
-    fsmn_memory.launches += 1
+    cuda_lib.count_launch(fsmn_memory, (x,), (k, left_pad, right_pad, generic), m)
     err = (lib.fsmn_memory_generic_fwd if generic else lib.fsmn_memory_fwd)(
         _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
         None if m is None else m.data_ptr(), out.data_ptr(), b, t, c, k, left_pad,

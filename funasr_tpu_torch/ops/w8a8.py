@@ -138,7 +138,7 @@ def _w8a8_linear_cuda(x, w_q8, scale, bias=None):
     sc = scale.contiguous()
     b = None if bias is None else bias.contiguous()
     lib = cuda_lib.load_library()
-    w8a8_linear.launches += 1
+    cuda_lib.count_launch(w8a8_linear, (x2,), (n, None if b is None else str(b.dtype)[6:]))
     err = lib.w8a8_linear_fwd(
         _DTYPES[x.dtype], x2.data_ptr(), x2.stride(0), w.data_ptr(), sc.data_ptr(),
         None if b is None else b.data_ptr(), 0 if b is None else _BIAS_DTYPES[b.dtype],

@@ -3,8 +3,9 @@
 
 FunASR registers export wrappers (``*Export``) and recipe spellings of the same code
 under names of their own. The alias list below is the JAX package's
-(``funasr_tpu/parity.py:23-54``) for the encoder and decoder tables and its model keys
-(``:63-84``: whisper spellings, the LLM family's hub paths); as there, an alias
+(``funasr_tpu/parity.py:23-54``) for the encoder and decoder tables, its model keys
+(``:63-84``: whisper spellings, the LLM family's hub paths) and its training tables
+(``:86-120``: samplers, datasets, the dataloader, a preprocessor); as there, an alias
 is bound only when its target is registered and the name is not, so it grows with the
 port. Two entries are left out because the reference binds their names to classes of
 their own, which the port does not have yet: ``FsmnDecoderSCAMAOpt`` (the SCAMA decoder
@@ -36,6 +37,31 @@ ALIASES = {
         ("OpenAIWhisperDecoderWarp", "TransformerDecoder"),
         ("rnn_decoder", "TransformerDecoder"),
     ],
+    # the training tables (``parity.py:86-120``): recipe spellings of the two sampler
+    # strategies, the dataset, index, dataloader and preprocessor names
+    "batch_sampler_classes": [
+        ("CustomDistributedBatchSampler", "BatchSampler"),
+        ("RankFullLocalShuffleBatchSampler", "BatchSampler"),
+        ("CustomDistributedDynamicBatchSampler", "CustomDistributedBufferDynamicBatchSampler"),
+        ("DynamicBatchLocalShuffleSampler", "CustomDistributedBufferDynamicBatchSampler"),
+        ("RankFullLocalShuffleDynamicBatchSampler",
+         "CustomDistributedBufferDynamicBatchSampler"),
+        ("EspnetStyleBatchSampler", "CustomDistributedBufferDynamicBatchSampler"),
+        ("BatchSamplerEpoch", "BatchSampler"),
+    ],
+    "dataset_classes": [
+        ("FunASR", "AudioDataset"),
+        ("AudioLLMDataset", "LLMDataset"),
+        ("AudioLLMARDataset", "LLMDataset"),
+        ("AudioLLMNARDataset", "LLMDataset"),
+        ("AudioLLMQwenAudioDataset", "LLMQwenAudioDataset"),
+        ("AudioLLMVicunaDataset", "LLMVicunaDataset"),
+        ("SenseVoiceCTCDataset", "SenseVoiceDataset"),
+        ("KwsMTDataset", "KWSDataset"),
+    ],
+    "index_ds_classes": [("FunASR", "IndexDSJsonl")],
+    "dataloader_classes": [("DataloaderIterable", "DataloaderMapStyle")],
+    "preprocessor_classes": [("SpeechPreprocessSpeedPerturb", "SpeedPerturb")],
 }
 
 

@@ -19,18 +19,22 @@ from typing import Any, Callable, Dict
 # runs exported programs (``export_runtime.py``) holds no model code. ``parity`` binds the
 # aliases after every class.
 REGISTRABLE = tuple(f"funasr_tpu_torch.{m}" for m in (
-    "frontends.wav_frontend", "frontends.whisper_frontend", "models.bicif_paraformer.model",
+    "datasets.audio_datasets.datasets", "datasets.audio_datasets.index_ds",
+    "datasets.audio_datasets.preprocessor", "datasets.audio_datasets.samplers",
+    "datasets.dataloader_entry", "frontends.wav_frontend", "frontends.whisper_frontend", "models.bicif_paraformer.model",
     "models.campplus.model", "models.contextual_paraformer.model",
     "models.ct_transformer.model", "models.ct_transformer_streaming.model",
     "models.ctc.model", "models.e_paraformer.model", "models.fsmn_vad_streaming.model",
     "models.fun_asr_nano.model", "models.llm_asr.model", "models.monotonic_aligner.model",
     "models.paraformer.cif_predictor", "models.paraformer.decoder",
     "models.paraformer.model", "models.paraformer.san_decoder",
-    "models.paraformer_streaming.model", "models.paraformer_v2.model",
+    "models.normalize.normalize", "models.paraformer_streaming.model",
+    "models.paraformer_v2.model",
     "models.seaco_paraformer.model", "models.sanm.encoder", "models.sense_voice.model",
+    "models.specaug.specaug",
     "models.whisper.encoders", "models.whisper.model", "tokenizer.char_tokenizer",
     "tokenizer.extra_tokenizers", "tokenizer.hf_tokenizer",
-    "tokenizer.sentencepiece_tokenizer", "parity"))
+    "tokenizer.sentencepiece_tokenizer", "optimizers", "schedulers", "parity"))
 
 
 class RegisterTables:
