@@ -199,7 +199,9 @@ Phases (any failure raises and exits non-zero):
    ragged lengths in modes none / causal / corner, FSMN dx (the forward kernel with the
    taps reversed) and dw at (B, T, 512), k 11, pads 5 / 5) against autograd through
    their plain versions (relative L2 ``FLASH_BWD_REL_TOL`` / ``FSMN_BWD_REL_TOL``), two
-   runs bit-equal, with the library call's backward time beside; (b) one training step
+   runs bit-equal, with the library call's backward time beside; flash's backward takes
+   the (m, l) of the forward's stats instantiation, whose output must equal the plain
+   instantiation's bit for bit (both forwards' ms beside); (b) one training step
    of a PROD_CONF-width Paraformer cut to 4 + 2 blocks on the card against the CPU
    (``train_cuda_vs_cpu``: loss within ``TRAIN_LOSS_RTOL``, every gradient within
    ``TRAIN_GRAD_REL_TOL``, launches exactly the step's sites); (c) finetune.sh's recipe:
@@ -218,12 +220,14 @@ Phases (any failure raises and exits non-zero):
    dir>)``. Prints ms a step, steps/s, audio seconds a second, peak memory and one
    profiled step's device time and idle share. (d) a kernel-vs-plain row at every
    signature (shapes, strides, lengths) the recipe's runs launched, from the trainer's
-   ``kernel_shapes`` (``recipe_kernel_rows``).
+   ``kernel_shapes`` (``recipe_kernel_rows``), each with the kernel's ms, a lone call's,
+   the plain version's, the library call's and the bound.
 
 ``python3 chip_smoke.py --recipe-ab [TREE]`` (not part of the run above): the recipe's
 ``bin/train`` six times in one process, alternating this tree with the kernel-shape log on
-and the same tree with it off, or, given TREE (another checkout), that tree: ms a step of
-each run and pooled (``recipe_ab``), to compare two versions within one call.
+and the same tree with it off, or, given TREE (another checkout), this tree and that one
+with the log off on both: ms a step of each run and pooled (``recipe_ab``), to compare
+two versions within one call.
 
 Kernel times (phases 3-4): ``ms`` is device time per launch over 20 back-to-back
 launches between one pair of CUDA events, queued behind a spin kernel so that host
@@ -355,6 +359,13 @@ def device_ms(fn, launches=20, repeats=5, warmup=3):
         else:
             times.append(e0.elapsed_time(e1) / launches)
     return statistics.median(times)
+
+
+def quick_ms(fn):
+    """``device_ms`` with 3 launches and 3 repeats: for the plain versions of phase 16's
+    rows (the recipe's 27 signatures among them), host-bound calls whose 20-launch runs
+    cost ~2 s each."""
+    return device_ms(fn, launches=3, repeats=3, warmup=1)
 
 
 def call_ms(fn, iters=20, warmup=3):
@@ -569,7 +580,7 @@ def phase_kernels(dev):
     return record
 
 
-def fsmn_row(x, w, mask, left, right, timed=True):
+def fsmn_row(x, w, mask, left, right, timed=True, plain_timer=None):
     """One FSMN kernel row against its plain version, with the library call
     ``F.conv1d(groups=C)`` (zero padding max(left, right), the causal output sliced) plus
     the residual. Untimed: the error only."""
@@ -591,7 +602,8 @@ def fsmn_row(x, w, mask, left, right, timed=True):
                             " + xm",
                ms=device_ms(lambda: fsmn_memory(x, w, mask, left, right)),
                call_ms=call_ms(lambda: fsmn_memory(x, w, mask, left, right)),
-               plain_ms=device_ms(lambda: fsmn_memory_ref(x, w, mask, left, right)),
+               plain_ms=(plain_timer or device_ms)(
+                   lambda: fsmn_memory_ref(x, w, mask, left, right)),
                library_ms=device_ms(
                    lambda: F.conv1d(xm, w, padding=pad, groups=c)[..., off:off + t] + xm))
     row["bound_ms"], row["bound_by"] = bound_ms(*fsmn_work(b, t, c, k, x.element_size()),
@@ -599,7 +611,7 @@ def fsmn_row(x, w, mask, left, right, timed=True):
     return row
 
 
-def flash_row(q, k, v, lens_list, mode="none", vad_pos=None, timed=True):
+def flash_row(q, k, v, lens_list, mode="none", vad_pos=None, timed=True, plain_timer=None):
     """One flash kernel row against its plain version and scaled_dot_product_attention
     (with the explicit (B, 1, Tq, Tk) mask of the same key limits); the error over each
     row's valid queries. q (B, H, Tq, D), k and v (B, H, Tk, D); ``mode`` / ``vad_pos``
@@ -629,7 +641,8 @@ def flash_row(q, k, v, lens_list, mode="none", vad_pos=None, timed=True):
     row.update(library_call=LIBRARY_CALLS["flash_attention"],
                ms=device_ms(lambda: flash_attention(q, k, v, lens, mode, vp)),
                call_ms=call_ms(lambda: flash_attention(q, k, v, lens, mode, vp)),
-               plain_ms=device_ms(lambda: flash_attention_ref(q, k, v, lens, mode, vp)),
+               plain_ms=(plain_timer or device_ms)(
+                   lambda: flash_attention_ref(q, k, v, lens, mode, vp)),
                library_ms=device_ms(
                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)))
     row["bound_ms"], row["bound_by"] = flash_bound(b, h, t, d, lens_list, q.dtype,
@@ -4968,7 +4981,7 @@ TRAIN_CPU_DEPTH = (4, 2)   # encoder / decoder blocks of the CUDA-vs-CPU step (P
 TRAIN_CPU_T = 10.0         # seconds of each of the step's 2 utterances
 TRAIN_LOSS_RTOL = 1e-5     # the step's loss, CUDA against the CPU (fp32)
 # each parameter's gradient, CUDA against the CPU, relative L2: fp32 on both, the kernels'
-# 3xTF32 / FFMA sums and cuBLAS against the CPU's order, through 4 + 2 blocks
+# 3xTF32 sums and cuBLAS against the CPU's order, through 4 + 2 blocks
 TRAIN_GRAD_REL_TOL = 1e-3
 FLASH_BWD_REL_TOL = 1e-5   # dq / dk / dv against autograd through the plain version (fp32)
 FSMN_BWD_REL_TOL = 1e-5    # dx / dw against autograd through the plain version (fp32)
@@ -4990,27 +5003,99 @@ def train_sites(enc_blocks, dec_blocks):
 def flash_bwd_work(b, h, t, tk, d, limits):
     """Bytes and flops of the flash backward (fp32): q, o, dO read and dq written (Tq rows),
     k, v read and dk, dv written (Tk rows), the lengths; 10 D flops per query row and key
-    it sees (S recomputed, dO V^T, dV, dQ, dK: five products of 2 D each)."""
+    it sees (S, dO V^T, dV, dQ, dK: five products of 2 D each)."""
     n_bytes = 4 * b * h * d * (4 * t + 4 * tk) + 4 * b
     return n_bytes, 10 * h * d * sum(sum(r) for r in limits)
+
+
+def fsmn_dw_work(b, t, c, k):
+    """Bytes and flops of the FSMN weight gradient (fp32): x and dout read once, the mask,
+    dw (C, k) written; 2 k flops a value (one multiply-add a tap)."""
+    return 4 * (2 * b * t * c + c * k) + b * t, 2 * k * b * t * c
 
 
 def rel_l2(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
 
 
+FLASH_BWD_LIBRARY = ("torch.autograd.grad(scaled_dot_product_attention(q, k, v, "
+                     "attn_mask=key_valid), (q, k, v), dout)")
+
+
+def flash_bwd_timing(q, k, v, out, stats, dout, ln, mode, vp):
+    """The flash backward kernel's ms (with the forward's (m, l), as FlashAttentionFn
+    runs it), a lone call's ms, the plain version's (the plain forward + autograd, by
+    ``quick_ms``), SDPA's backward with the same key mask, and the bound (3xTF32 and
+    CUDA-core)."""
+    import torch.nn.functional as F
+    from funasr_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                      flash_attention_bwd_ref, key_limits)
+
+    b, h, t, d = q.shape
+    tk = k.shape[2]
+    limits = key_limits(ln, t, mode, vp)
+    key_valid = torch.arange(tk, device=q.device)[None, None, :] < limits[:, :, None]
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_valid[:, None])
+    kernel = lambda: flash_attention_bwd(q, k, v, out, dout, ln, mode, vp, stats=stats)  # noqa: E731
+    row = dict(library_call=FLASH_BWD_LIBRARY, ms=device_ms(kernel), call_ms=call_ms(kernel),
+               plain_ms=quick_ms(lambda: flash_attention_bwd_ref(q, k, v, dout, ln, mode, vp)),
+               library_ms=device_ms(lambda: torch.autograd.grad(
+                   sdpa, (qs, ks, vs), dout, retain_graph=True)))
+    lim_rows = [[n if n > 0 else tk for n in r] for r in limits.tolist()]
+    n_bytes, n_ops = flash_bwd_work(b, h, t, tk, d, lim_rows)
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 3 * n_ops, "tf32")
+    row["cuda_core_bound_ms"] = bound_ms(n_bytes, n_ops, "fp32")[0]
+    return row
+
+
+def fsmn_bwd_timing(name, fn, x, dout, w, mask, left, right):
+    """An FSMN backward kernel's ms (``fn``), a lone call's, the plain version's (autograd
+    through the plain forward, for x or the weight, by ``quick_ms``), the library call's
+    (``conv1d_input`` + g for dx, ``conv1d_weight`` for dw, on the masked (B, C, T)
+    tensors; symmetric pads, as the training path's) and the bound."""
+    from torch.nn.grad import conv1d_input, conv1d_weight
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory_ref
+
+    b, t, c = dout.shape
+    kk = w.shape[-1]
+    m = (torch.ones(b, t, device=dout.device) if mask is None else mask.float())[:, None, :]
+    g_bct = (dout.transpose(1, 2) * m).contiguous()   # the library calls' (B, C, T) layout
+    xm_bct = (x.transpose(1, 2) * m).contiguous()
+    wrt = 0 if name == "fsmn_memory_bwd_input" else 1
+
+    def plain():
+        with torch.enable_grad():
+            x_, w_ = x.detach().requires_grad_(wrt == 0), w.detach().requires_grad_(wrt == 1)
+            out = fsmn_memory_ref(x_, w_, mask, left, right)
+            return torch.autograd.grad(out, (x_, w_)[wrt], dout)
+
+    if wrt == 0:
+        lib = lambda: conv1d_input((b, c, t), w, g_bct, padding=left, groups=c) + g_bct  # noqa: E731
+        lib_call = f"torch.nn.grad.conv1d_input(xm.shape, w, g, padding={left}, groups=C) + g"
+        work = fsmn_work(b, t, c, kk, 4)
+    else:
+        lib = lambda: conv1d_weight(xm_bct, w.shape, g_bct, padding=left, groups=c)  # noqa: E731
+        lib_call = f"torch.nn.grad.conv1d_weight(xm, w.shape, g, padding={left}, groups=C)"
+        work = fsmn_dw_work(b, t, c, kk)
+    row = dict(library_call=lib_call, ms=device_ms(fn), call_ms=call_ms(fn),
+               plain_ms=quick_ms(plain), library_ms=device_ms(lib))
+    row["bound_ms"], row["bound_by"] = bound_ms(*work, "fp32")
+    return row
+
+
 def train_kernel_rows(dev, g, b, t, lens):
     """(a) The backward kernels at the training batch's shapes against autograd through
     their plain versions: flash at (B, 4, T, 128) fp32 (strided head views of q|k|v, the
-    batch's ragged lengths) in each mode, FSMN dx and dw at (B, T, 512), k 11, pads 5 / 5,
-    the batch's mask. Each with ms, call_ms, plain ms (the plain forward + autograd), the
-    library call's ms and the bound."""
-    import torch.nn.functional as F
-    from torch.nn.grad import conv1d_input, conv1d_weight
+    batch's ragged lengths) in each mode, with the forward's (m, l) as FlashAttentionFn
+    passes them; FSMN dx and dw at (B, T, 512), k 11, pads 5 / 5, the batch's mask. Each
+    with ms, call_ms, plain ms (the plain forward + autograd), the library call's ms and
+    the bound; flash also the forward's ms without and with its (m, l)."""
     from funasr_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
-                                                      flash_attention_bwd_ref, key_limits)
+                                                      flash_attention_bwd_ref,
+                                                      flash_attention_with_stats)
     from funasr_tpu_torch.ops.fsmn import (fsmn_memory_bwd_input, fsmn_memory_bwd_ref,
-                                           fsmn_memory_bwd_weight, fsmn_memory_ref)
+                                           fsmn_memory_bwd_weight)
 
     rows = {}
     h, d = PROD_CONF["encoder_conf"]["attention_heads"], 128
@@ -5020,39 +5105,31 @@ def train_kernel_rows(dev, g, b, t, lens):
     for mode, vp_list in (("none", None), ("causal", None), ("corner", [t // 3] * b)):
         vp = None if vp_list is None else torch.tensor(vp_list, dtype=torch.int32, device=dev)
         with torch.no_grad():
-            out = flash_attention(q, k, v, ln, mode, vp)
+            out, stats = flash_attention_with_stats(q, k, v, ln, mode, vp)
+            same_fwd = torch.equal(out, flash_attention(q, k, v, ln, mode, vp))
         dout = torch.randn(out.shape, generator=g).to(dev)
-        got = flash_attention_bwd(q, k, v, out, dout, ln, mode, vp)
-        again = flash_attention_bwd(q, k, v, out, dout, ln, mode, vp)
+        got = flash_attention_bwd(q, k, v, out, dout, ln, mode, vp, stats=stats)
+        again = flash_attention_bwd(q, k, v, out, dout, ln, mode, vp, stats=stats)
         torch.cuda.synchronize()
         want = flash_attention_bwd_ref(q, k, v, dout, ln, mode, vp)
         rel = max(rel_l2(a, w) for a, w in zip(got, want))
         err = max((a - w).abs().max().item() for a, w in zip(got, want))
         same = all(torch.equal(a, a2) for a, a2 in zip(got, again))
-        limits = key_limits(ln, t, mode, vp)
-        key_valid = torch.arange(t, device=dev)[None, None, :] < limits[:, :, None]
-        qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_valid[:, None])
         row = dict(shape=(b, h, t, d), mode=mode, lengths=list(lens), max_abs_err=err,
                    rel_l2=rel, deterministic=same,
-                   library_call="torch.autograd.grad(scaled_dot_product_attention(q, k, v, "
-                                "attn_mask=key_valid), (q, k, v), dout)",
-                   ms=device_ms(lambda: flash_attention_bwd(q, k, v, out, dout, ln, mode, vp)),
-                   call_ms=call_ms(lambda: flash_attention_bwd(q, k, v, out, dout, ln, mode, vp)),
-                   plain_ms=device_ms(lambda: flash_attention_bwd_ref(q, k, v, dout, ln, mode, vp)),
-                   library_ms=device_ms(lambda: torch.autograd.grad(
-                       sdpa, (qs, ks, vs), dout, retain_graph=True)))
-        lim_rows = [[n if n > 0 else t for n in r] for r in limits.tolist()]
-        n_bytes, n_ops = flash_bwd_work(b, h, t, t, d, lim_rows)
-        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 3 * n_ops, "tf32")
-        row["cuda_core_bound_ms"] = bound_ms(n_bytes, n_ops, "fp32")[0]
+                   **flash_bwd_timing(q, k, v, out, stats, dout, ln, mode, vp),
+                   fwd_ms=device_ms(lambda: flash_attention(q, k, v, ln, mode, vp)),
+                   fwd_stats_ms=device_ms(lambda: flash_attention_with_stats(q, k, v, ln, mode,
+                                                                             vp)))
         if vp_list is not None:
             row["vad_pos"] = vp_list
         log(f"flash backward {row['shape']} fp32 {mode}: rel L2 {rel:.2e} (tol "
-            f"{FLASH_BWD_REL_TOL:g}) max_abs_err {err:.3e}, two runs bit-equal {same}; "
-            + timing_line(row))
-        if not (rel <= FLASH_BWD_REL_TOL and same):
-            raise AssertionError(f"flash backward kernel disagrees ({mode}): {rel}, {same}")
+            f"{FLASH_BWD_REL_TOL:g}) max_abs_err {err:.3e}, two runs bit-equal {same}, forward "
+            f"with (m, l) equal to without {same_fwd} ({row['fwd_stats_ms']:.4f} / "
+            f"{row['fwd_ms']:.4f} ms); " + timing_line(row))
+        if not (rel <= FLASH_BWD_REL_TOL and same and same_fwd):
+            raise AssertionError(f"flash backward kernel disagrees ({mode}): {rel}, {same}, "
+                                 f"{same_fwd}")
         rows[("flash_attention_bwd", mode)] = row
 
     c, kk, left = 512, 11, 5
@@ -5061,39 +5138,17 @@ def train_kernel_rows(dev, g, b, t, lens):
     mask = torch.arange(t, device=dev)[None] < ln[:, None]
     dout = torch.randn(b, t, c, generator=g).to(dev)
     want_dx, want_dw = fsmn_memory_bwd_ref(x, w, mask, left, left, dout)
-    m = mask[:, None, :].float()
-    g_bct = (dout.transpose(1, 2) * m).contiguous()   # the library calls' (B, C, T) layout
-    xm_bct = (x.transpose(1, 2) * m).contiguous()
-
-    def plain(wrt):
-        def run():
-            with torch.enable_grad():
-                x_, w_ = x.detach().requires_grad_(wrt == 0), w.detach().requires_grad_(wrt == 1)
-                out = fsmn_memory_ref(x_, w_, mask, left, left)
-                return torch.autograd.grad(out, (x_, w_)[wrt], dout)
-        return run
-
-    for name, fn, want, lib, lib_call, work in (
+    for name, fn, want in (
             ("fsmn_memory_bwd_input", lambda: fsmn_memory_bwd_input(dout, w, mask, left, left),
-             want_dx, lambda: conv1d_input((b, c, t), w, g_bct, padding=left, groups=c) + g_bct,
-             "torch.nn.grad.conv1d_input(xm.shape, w, g, padding=5, groups=C) + g",
-             fsmn_work(b, t, c, kk, 4)),
+             want_dx),
             ("fsmn_memory_bwd_weight", lambda: fsmn_memory_bwd_weight(x, dout, mask, left, left),
-             want_dw.reshape(c, kk),
-             lambda: conv1d_weight(xm_bct, w.shape, g_bct, padding=left, groups=c),
-             "torch.nn.grad.conv1d_weight(xm, w.shape, g, padding=5, groups=C)",
-             (4 * (2 * b * t * c + c * kk) + b * t, 2 * kk * b * t * c))):
+             want_dw.reshape(c, kk))):
         got, again = fn(), fn()
         torch.cuda.synchronize()
-        if got.shape != want.shape:
-            got, again = got.reshape(want.shape), again.reshape(want.shape)
         rel, err = rel_l2(got, want), (got - want).abs().max().item()
         same = torch.equal(got, again)
         row = dict(shape=(b, t, c), k=kk, pads=(left, left), max_abs_err=err, rel_l2=rel,
-                   deterministic=same, library_call=lib_call, ms=device_ms(fn),
-                   call_ms=call_ms(fn), plain_ms=device_ms(plain(0 if "input" in name else 1)),
-                   library_ms=device_ms(lib))
-        row["bound_ms"], row["bound_by"] = bound_ms(*work, "fp32")
+                   deterministic=same, **fsmn_bwd_timing(name, fn, x, dout, w, mask, left, left))
         log(f"{name} {row['shape']} k=11 fp32: rel L2 {rel:.2e} (tol {FSMN_BWD_REL_TOL:g}) "
             f"max_abs_err {err:.3e}, two runs bit-equal {same}; " + timing_line(row))
         if not (rel <= FSMN_BWD_REL_TOL and same):
@@ -5135,12 +5190,15 @@ def recipe_kernel_rows(dev, shapes):
     (flash's key lengths; the FSMN's prefix mask of the mask's row sums), against the
     plain version. Forward kernels within FLASH_TOL / FSMN_TOL (fp32, max abs); backward
     kernels within FLASH_BWD_REL_TOL / FSMN_BWD_REL_TOL relative L2 and bit-equal across
-    two runs; each row with its kernel ms and its launches in the runs. Returns {kernel:
-    {label: row}}; raises on a disagreement."""
-    from funasr_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
-                                                      flash_attention_bwd_ref)
-    from funasr_tpu_torch.ops.fsmn import (fsmn_memory, fsmn_memory_bwd_input,
-                                           fsmn_memory_bwd_ref, fsmn_memory_bwd_weight)
+    two runs (flash with the forward's (m, l), as FlashAttentionFn runs it); each row with
+    its kernel ms, a lone call's ms, the plain version's ms (``quick_ms``), the library
+    call's ms, the bound and its launches in the runs. Returns {kernel: {label: row}}; raises on a
+    disagreement."""
+    from funasr_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                      flash_attention_bwd_ref,
+                                                      flash_attention_with_stats)
+    from funasr_tpu_torch.ops.fsmn import (fsmn_memory_bwd_input, fsmn_memory_bwd_ref,
+                                           fsmn_memory_bwd_weight)
 
     g = torch.Generator(device=dev).manual_seed(17)
     f32 = torch.float32
@@ -5161,26 +5219,25 @@ def recipe_kernel_rows(dev, shapes):
             mask = (None if lens is None else torch.arange(t, device=dev)[None]
                     < torch.tensor(lens, device=dev)[:, None])
         if name == "flash_attention":
-            row, tol = flash_row(q, k, v, lens, timed=False), FLASH_TOL[f32]
-            row["ms"] = device_ms(lambda: flash_attention(q, k, v, ln))
+            row, tol = flash_row(q, k, v, lens, plain_timer=quick_ms), FLASH_TOL[f32]
         elif name == "fsmn_memory":
             if args[3]:
                 raise AssertionError("the recipe launched the generic FSMN kernel")
-            row, tol = fsmn_row(made[0], w, mask, left, right, timed=False), FSMN_TOL[f32]
-            row["ms"] = device_ms(lambda: fsmn_memory(made[0], w, mask, left, right))
+            row, tol = fsmn_row(made[0], w, mask, left, right, plain_timer=quick_ms), FSMN_TOL[f32]
         else:
             if name == "flash_attention_bwd":
                 out, dout = made[3:]
                 with torch.no_grad():
-                    out.copy_(flash_attention(q, k, v, ln))
-                fn = lambda: flash_attention_bwd(q, k, v, out, dout, ln)  # noqa: E731
+                    fwd, stats = flash_attention_with_stats(q, k, v, ln)
+                    out.copy_(fwd)
+                fn = lambda: flash_attention_bwd(q, k, v, out, dout, ln, stats=stats)  # noqa: E731
                 want = flash_attention_bwd_ref(q, k, v, dout, ln)
                 tol = FLASH_BWD_REL_TOL
             elif name == "fsmn_memory_bwd_input":
                 dout = made[0]
+                x = torch.randn_like(dout)
                 fn = lambda: (fsmn_memory_bwd_input(dout, w, mask, left, right),)  # noqa: E731
-                want = fsmn_memory_bwd_ref(torch.randn_like(dout), w, mask, left, right,
-                                           dout)[:1]
+                want = fsmn_memory_bwd_ref(x, w, mask, left, right, dout)[:1]
                 tol = FSMN_BWD_REL_TOL
             elif name == "fsmn_memory_bwd_weight":
                 x, dout = made
@@ -5193,8 +5250,11 @@ def recipe_kernel_rows(dev, shapes):
             torch.cuda.synchronize()
             row = dict(shape=tensors[0][0], rel_l2=max(rel_l2(a, w_) for a, w_ in zip(got, want)),
                        max_abs_err=max((a - w_).abs().max().item() for a, w_ in zip(got, want)),
-                       deterministic=all(torch.equal(a, a2) for a, a2 in zip(got, again)),
-                       ms=device_ms(fn))
+                       deterministic=all(torch.equal(a, a2) for a, a2 in zip(got, again)))
+            if name == "flash_attention_bwd":
+                row.update(flash_bwd_timing(q, k, v, out, stats, dout, ln, "none", None))
+            else:
+                row.update(fsmn_bwd_timing(name, fn, x, dout, w, mask, left, right))
         row.update(strides=[st for _, st in tensors], launches=info["launches"])
         if lens is not None:
             row["lengths"] = lens
@@ -5202,7 +5262,7 @@ def recipe_kernel_rows(dev, shapes):
         ok = math.isfinite(err) and err <= tol and row.get("deterministic", True)
         log(f"  {name} {recipe_label(key)}: {'rel L2' if 'rel_l2' in row else 'max_abs_err'} "
             f"{err:.2e} (tol {tol:g}){'' if row.get('deterministic', True) else ' NOT bit-equal'}"
-            f", kernel {row['ms']:.4f} ms, {info['launches']} launches")
+            f", {info['launches']} launches; " + timing_line(row))
         if not ok:
             raise AssertionError(f"{name} disagrees at the recipe's {recipe_label(key)}: {row}")
         label, by_name = recipe_label(key), rows.setdefault(name, {})
@@ -5422,16 +5482,17 @@ def run_step_ms(steps):
 
 def recipe_ab(other=None):
     """``--recipe-ab [TREE]``: the recipe's ``bin/train`` (2 epochs, checkpoints only at
-    their ends) six times, alternating this tree with ``log_kernel_shapes`` on and either
-    this tree with it off or, given ``other``, that checkout (its own kernel build): ms a
-    step of each run (``run_step_ms``: median) and of each side pooled."""
+    their ends) six times, alternating this tree with ``log_kernel_shapes`` on and off
+    or, given ``other``, this tree and that checkout (its own kernel build), both with
+    the log off: ms a step of each run (``run_step_ms``: median) and of each side
+    pooled."""
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60, check=True).stdout.strip()
     log(card)
     here = os.path.dirname(os.path.abspath(__file__))
-    sides = {"shapes_on": here,
-             ("other" if other else "shapes_off"): os.path.abspath(other or here)}
+    sides = ({"this": here, "other": os.path.abspath(other)} if other
+             else {"shapes_on": here, "shapes_off": here})
     recipe = [a for a in TRAIN_RECIPE if "log_kernel_shapes" not in a]
     pooled = {side: [] for side in sides}
     with tempfile.TemporaryDirectory() as root:
@@ -5499,10 +5560,14 @@ def phase_training(dev, counters, card):
         lens = flens.tolist()
         log(f"training batch 0: B {b}, T {t}, lengths {lens}")
         g = torch.Generator().manual_seed(16)
+        t_part = time.perf_counter()
         figures["rows"] = train_kernel_rows(dev, g, b, t, lens)
+        log(f"training (a): kernel rows in {time.perf_counter() - t_part:.1f} s")
 
         # (b) CUDA against the CPU
+        t_part = time.perf_counter()
         figures["cuda_vs_cpu"] = train_cuda_vs_cpu(dev, counters)
+        log(f"training (b): CUDA against the CPU in {time.perf_counter() - t_part:.1f} s")
 
         # (c) the recipe
         out = os.path.join(root, "exp")
@@ -5546,7 +5611,9 @@ def phase_training(dev, counters, card):
         shapes = recipe_launch_shapes(steps + vals)
         log(f"training: {len(shapes)} kernel signatures launched over the recipe's "
             f"{len(steps)} steps and {len(vals)} validations")
+        t_part = time.perf_counter()
         figures["recipe_rows"] = recipe_kernel_rows(dev, shapes)
+        log(f"training (d): recipe rows in {time.perf_counter() - t_part:.1f} s")
 
         # the average decodes
         avg = os.path.join(out, "model.pt.avg")

@@ -313,11 +313,8 @@ cudaError_t launch_bf16(const void* const* ptrs, const int* lengths, const int* 
 
 // ---- fp32: 3xTF32 on mma.sync --------------------------------------------------------
 //
-// Each fp32 operand a is split into hi = tf32(a) (round to nearest) and lo = a - hi
-// (exact; the tensor core truncates it to TF32), and a product is lo*hi' + hi*lo' +
-// hi*hi', three m16n8k8 TF32 mma accumulating in fp32: the dropped lo*lo' and lo's
-// truncation are ~2^-21 of a product, fp32 accuracy at three TF32 products (one TF32
-// product alone moves results by ~1e-3).
+// Each product is three TF32 products on the tensor cores (hopper.cuh: split_tf32,
+// mma_tf32; the backward kernel in flash_attention_bwd.cu shares them), fp32 accuracy.
 //
 // Block: 4 warps, 16 query rows each (64 rows). Q sits in shared memory; K and V tiles
 // of 32 keys come through a 2-stage cp.async ring (all threads copy, one barrier per
@@ -343,6 +340,14 @@ cudaError_t launch_bf16(const void* const* ptrs, const int* lengths, const int* 
 //     its V values as 16-byte vectors and holds output columns 32 tig + [0, 32).
 // Row pitches of 132 floats for K and V (= 4 mod 32 banks) and 144 for Q (= 16 mod 32)
 // make every such 16-byte read conflict-free.
+//
+// Training: FlashAttentionFn launches the STATS instantiation, which also writes each
+// row's max m (log2 units) and sum l, the two numbers the backward kernel needs to form
+// P without recomputing S twice; every inference path launches the other, which is the
+// kernel as it was before the flag.
+
+using hopper::mma_tf32;
+using hopper::split4;
 
 constexpr int FQ = 64;           // query rows per block (4 warps x 16)
 constexpr int FK = 32;           // keys per tile
@@ -357,31 +362,7 @@ struct F32Smem {  // 104,448 bytes: two blocks per SM
   float v[FSTAGES][FK * FPITCH];
 };
 
-// hi: x rounded to TF32 (nearest, ties away), exact; lo = x - hi, exact in fp32, of which
-// the tensor core reads the top 19 bits (a truncation: 2^-21 of x). Integer and fp32
-// ops at full rate: cvt.rna.tf32.f32 runs at a quarter of it and, at ~670 conversions a
-// warp and key tile, held the first version of this kernel.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// not volatile: a pure function of its operands, so the compiler may interleave
-// independent products
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(x[i], hi[i], lo[i]);
-}
-
+template <bool STATS>
 __global__ void __launch_bounds__(FTHREADS, 2)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
@@ -390,7 +371,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  long long qsb, long long qsh, long long qst,
                  long long ksb, long long ksh, long long kst,
                  long long vsb, long long vsh, long long vst,
-                 long long osb, long long osh, long long ost, float scale_log2) {
+                 long long osb, long long osh, long long ost, float scale_log2,
+                 float* __restrict__ stats) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   F32Smem& sm = *reinterpret_cast<F32Smem*>(smem_raw);
   const int b = blockIdx.x / H, h = blockIdx.x % H;
@@ -560,24 +542,37 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         *reinterpret_cast<float4*>(og + row * ost + c) = val;
       }
   }
+  if constexpr (STATS) {  // (m, l) of rows r0 + g, + 8: m at [bh Tq + row], l B H Tq later
+    const long long n = (long long)gridDim.x * Tq, at = (long long)blockIdx.x * Tq;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = r0 + g + 8 * hr;
+      const float l_sum = quad_sum(l_r[hr]);
+      if (tig == 0 && row < Tq) {
+        stats[at + row] = m_r[hr];
+        stats[n + at + row] = l_sum;
+      }
+    }
+  }
 }
 
 cudaError_t launch_f32(const void* const* ptrs, const int* lengths, const int* vad_pos, int B,
                        int H, int Tq, int Tk, int D, const long long* st, float sm_scale,
-                       int mode, cudaStream_t stream) {
+                       int mode, float* stats, cudaStream_t stream) {
   const size_t bytes = sizeof(F32Smem);  // above the 48 KB default: opt in per device
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  auto kernel = stats ? flash_f32_kernel<true> : flash_f32_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess)  // the whole carveout as shared memory: two blocks per SM
-    err = cudaFuncSetAttribute(flash_f32_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (Tq + FQ - 1) / FQ);
-  flash_f32_kernel<<<grid, FTHREADS, bytes, stream>>>(
+  kernel<<<grid, FTHREADS, bytes, stream>>>(
       static_cast<const float*>(ptrs[0]), static_cast<const float*>(ptrs[1]),
       static_cast<const float*>(ptrs[2]), static_cast<float*>(const_cast<void*>(ptrs[3])),
       lengths, vad_pos, H, Tq, Tk, D, mode, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], sm_scale * LOG2E);
+      st[7], st[8], st[9], st[10], st[11], sm_scale * LOG2E, stats);
   return cudaGetLastError();
 }
 
@@ -586,11 +581,13 @@ cudaError_t launch_f32(const void* const* ptrs, const int* lengths, const int* v
 // dtype: 0 = float32, 1 = bfloat16. q and o are (B, H, Tq, D), k and v (B, H, Tk, D);
 // strides: (b, h, t) for q, k, v, o in elements. mode: 0 none, 1 causal, 2 corner, which
 // reads vad_pos (B int32; NULL otherwise). block_rows: query rows per bf16 block, 64 or
-// 128 (the fp32 kernel always takes 64).
+// 128 (the fp32 kernel always takes 64). stats: NULL, or (fp32 only) 2 B H Tq floats that
+// receive each row's max m (log2 units) and sum l, the backward kernel's input.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* o, const void* lengths, int B, int H, int Tq, int Tk,
                                    int D, const long long* strides, float sm_scale, int mode,
-                                   const void* vad_pos, int block_rows, void* stream) {
+                                   const void* vad_pos, int block_rows, void* stats,
+                                   void* stream) {
   const void* ptrs[4] = {q, k, v, o};
   const int* lens = static_cast<const int*>(lengths);
   const int* vps = static_cast<const int*>(vad_pos);
@@ -599,8 +596,9 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
       (mode == 2 && vps == nullptr))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)launch_f32(ptrs, lens, vps, B, H, Tq, Tk, D, strides, sm_scale, mode, s);
-  if (dtype == 1 && (block_rows == QR || block_rows == 2 * QR))
+    return (int)launch_f32(ptrs, lens, vps, B, H, Tq, Tk, D, strides, sm_scale, mode,
+                           static_cast<float*>(stats), s);
+  if (dtype == 1 && stats == nullptr && (block_rows == QR || block_rows == 2 * QR))
     return (int)launch_bf16(ptrs, lens, vps, B, H, Tq, Tk, D, strides, sm_scale, mode,
                             block_rows, s);
   return (int)cudaErrorInvalidValue;

@@ -49,7 +49,8 @@
 // Training: the input gradient is this kernel run on dout with the taps reversed and the
 // pads swapped (the transpose of a depthwise correlation; the wrapper's
 // fsmn_memory_bwd_input); the weight gradient is fsmn_memory_bwd_weight at the end of
-// this file, a two-pass reduction with no float atomics.
+// this file, per-chunk partials from one pass over the rows, then their ordered sum, with
+// no float atomics (its own note is there).
 //
 // x is (B, T, C) with unit channel stride and batch / time strides that are multiples of
 // the vector (it is the v slice of the fused q|k|v projection in the encoder, or the
@@ -314,16 +315,171 @@ int run(int dtype, const void* x, const void* w, const void* mask, void* out, in
 //   dw[c, j] = sum_{b, t} g[b, t, c] * xm[b, t + j - left, c],  g = m * dout
 //
 // (the input gradient is the forward kernel itself, run by the wrapper on dout with the
-// taps reversed and the pads swapped). A reduction over B T rows for each of the C k
-// taps, deterministic: block (x, j, z) sums the rows of chunk z for 128 channels of tap
-// j in a fixed order (four accumulators, by row mod 4, added at the end) and writes a
-// partial; the second kernel adds each tap's partials in chunk order. No float atomics,
-// so two runs give bit-equal gradients. Loads of a row are 128 neighbouring channels
-// (512 bytes a warp-row); the mask bytes of a row are one broadcast read per warp.
-// Bound by bytes (x and dout read once, 8 B T C bytes: 2.6 MB at (5, 256, 512)); this
-// first kernel reads each row once per tap (k times, mostly from L2).
-constexpr int DW_THREADS = 128;
+// taps reversed and the pads swapped). A reduction over B T rows for each of the C k taps,
+// deterministic: each chunk of rows writes a (k, C) partial, and a second kernel adds the
+// partials in chunk order. No float atomics, so two runs give bit-equal gradients.
+//
+// What bounds it on the H100: bytes. x and dout are read once, 8 B T C bytes (3.9 MB at
+// the recipe's (5, 190, 512), 1.2 us at 3.35 TB/s); 2 k flops a value. The first kernel
+// (grid (C / 128, k, chunks), one 4-byte scalar a thread and row) read every g and x row
+// once per tap, k = 11 times, mostly from L2, and took 0.0357 ms there (NVIDIA H100 80GB
+// HBM3, 700 W), 2x torch.nn.grad.conv1d_weight. What the specialised kernel (k and left
+// as template parameters: 11 and 5, the pads of every FSMN the training path runs) does:
+//   * the forward's shape: a thread owns a 16-byte vector of 4 channels, a warp 128
+//     neighbouring channels, and a warp walks a chunk of (b, t) rows in time order;
+//   * a block (4 warps on 4 consecutive chunks of the same 128 channels) stages its g
+//     rows and its x rows with their (k - 1)-row halo in shared memory by one batch of
+//     cp.async (a row outside [0, B T) is zero-filled, not read): one memory latency a
+//     block. A first version streamed each warp's rows through a per-thread
+//     cp.async ring instead and paid ~0.28 us a row (0.0147 ms in all at (5, 190, 512));
+//   * the last k rows of x stay in registers (row of step i in slot i % k, the walk
+//     unrolled k steps at a time), the k x 4 tap accumulators too; the window slides on
+//     over flat rows, and a tap whose x row lies outside its g row's utterance is
+//     skipped, so a batch boundary inside a chunk costs nothing;
+//   * the mask bits of the block's rows and halo are read once, a byte a lane, as
+//     __ballot_sync words, while the rows load: a masked x row or g row is loaded all the
+//     same and skipped as its taps are formed;
+//   * the 4 warps' accumulators are added in warp order into one partial a block, and
+//     the second kernel adds the blocks' partials in order, 16 loads in flight a thread;
+//   * chunks of 4-16 rows, as many as give every SM two blocks (ops/fsmn.py::dw_plan):
+//     60 blocks of 4 x 4 rows for each of the 4 channel groups at (5, 190, 512); the
+//     halo adds (k - 1) / (4 rows) of x reads.
+// Measured (NVIDIA H100 80GB HBM3, 700 W): 0.0102 ms at (5, 190, 512), 11 % of the bound
+// and 1.7x faster than conv1d_weight; what is left is two launches' latency (the block
+// kernel ~0.0057, the sum ~0.0028 by profile). Any other k or pads, or C not a multiple
+// of 4, take the first kernel as the generic instantiation (the wrapper hands the vector
+// kernel 16-byte vectorizable x and dout).
+constexpr int DW_THREADS = 128;   // generic kernel: channels a block
+constexpr int DW_WARPS = 4;       // specialised kernel: warps a block, on consecutive chunks
+constexpr int DW_MAX_ROWS = 16;   // rows a warp's chunk, at most
+constexpr int DW_MASK_WORDS = 3;  // ballot words: a block's rows and its k - 1 halo rows
 
+// Block (z, y): 128 channels (group y) of the flat rows [R0, R0 + DW_WARPS rows), R0 =
+// z DW_WARPS rows; warp w walks rows R0 + w rows + [0, rows). The block stages its g rows
+// and its x rows with the (k - 1)-row halo in shared memory by one batch of cp.async,
+// then each warp slides a k-row window of x over its chunk in registers; the warps'
+// accumulators are added in warp order into the block's partial (z, k, C).
+template <int K, int LEFT>
+__global__ void __launch_bounds__(32 * DW_WARPS)
+fsmn_bwd_weight_vec_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                           const uint8_t* __restrict__ mask, float* __restrict__ partial,
+                           int B, int T_len, int C, long long xsb, long long xst, long long gsb,
+                           long long gst, int rows) {
+  constexpr int RIGHT = K - 1 - LEFT;
+  static_assert(DW_WARPS * DW_MAX_ROWS + K - 1 <= 32 * DW_MASK_WORDS, "mask words");
+  // x rows [R0 - LEFT, R1 + RIGHT), then g rows [R0, R1); at the end the warps' sums
+  extern __shared__ uint4 stage[];
+  __shared__ uint32_t bits[DW_MASK_WORDS];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (blockIdx.y * 128 >= C) return;  // the whole block
+  const int cv = blockIdx.y * 32 + lane;  // channel vector
+  const bool active = cv * 4 < C;
+  const int n_rows = B * T_len;
+  const int R0 = blockIdx.x * DW_WARPS * rows, R1 = min(R0 + DW_WARPS * rows, n_rows);
+  const int h0 = R0 - LEFT;           // the flat row of x slot 0 and of bit 0
+  const int xrows = R1 - R0 + K - 1;  // staged x rows
+  uint4* xs = stage;
+  uint4* gs = stage + xrows * 32;
+
+  // one batch of loads: a warp a row (512 bytes), a lane 16 bytes; rows outside [0, B T)
+  // are zero-filled, not read. The mask is applied as the rows are used, so the loads
+  // need not wait for it.
+  const float* xv = x + (long long)cv * 4;
+  const float* gv = g + (long long)cv * 4;
+  for (int r = warp; r < xrows; r += DW_WARPS) {
+    const int f = h0 + r, b = f / T_len, t = f - b * T_len;
+    const bool ok = active && f >= 0 && f < n_rows;
+    hopper::cp_async16(xs + r * 32 + lane, ok ? xv + b * xsb + t * xst : xv, ok);
+  }
+  for (int r = warp; r < R1 - R0; r += DW_WARPS) {
+    const int f = R0 + r, b = f / T_len, t = f - b * T_len;
+    hopper::cp_async16(gs + r * 32 + lane, active ? gv + b * gsb + t * gst : gv, active);
+  }
+  hopper::cp_async_commit();
+  if (warp == 0) {  // valid rows (inside [0, B T) and unmasked), one mask byte a lane
+#pragma unroll
+    for (int i = 0; i < DW_MASK_WORDS; ++i) {
+      const int f = h0 + 32 * i + lane;
+      const bool ok = f >= 0 && f < n_rows && (!mask || mask[f]);
+      const uint32_t word = __ballot_sync(0xffffffffu, ok);
+      if (lane == 0) bits[i] = word;
+    }
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+  // the K bits of rows o .. o + K - 1 past h0 (o >= 0)
+  auto window = [&](int o) -> uint32_t {
+    const int w = o >> 5;
+    const uint64_t two =
+        ((uint64_t)(w + 1 < DW_MASK_WORDS ? bits[w + 1] : 0u) << 32) | bits[w];
+    return (uint32_t)(two >> (o & 31)) & ((1u << K) - 1u);
+  };
+
+  // this warp's chunk [c0, c1): step i loads x row c0 - LEFT + i into slot i % K; from
+  // step K - 1 on, g row r = c0 + i - (K - 1) takes the window, tap j reading x row
+  // r + j - LEFT, the row of step i - (K - 1) + j; taps outside the row's utterance
+  // ([0, T)) are skipped: the window runs on across batch boundaries
+  const int c0 = R0 + warp * rows, c1 = min(c0 + rows, R1);
+  const int steps = c1 > c0 ? c1 - c0 + K - 1 : 0;
+  int t = c0 >= 0 && c0 < n_rows ? c0 % T_len : 0;  // the time of g row r
+  float xw[K][4], acc[K][4];
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) xw[j][e] = acc[j][e] = 0.f;
+  for (int i0 = 0; i0 < steps; i0 += K) {
+#pragma unroll
+    for (int s = 0; s < K; ++s) {  // step i = i0 + s: its x row goes to slot s
+      const int i = i0 + s;
+      if (i >= steps) break;
+      unpack(xs[(c0 - R0 + i) * 32 + lane], xw[s]);
+      if (i < K - 1) continue;
+      const int r = c0 + i - (K - 1);
+      // taps j whose x row r + j - LEFT is valid and inside r's utterance ([0, T)), if
+      // g row r is unmasked
+      const uint32_t taps = (window(r - h0) & 1u) ? window(r - LEFT - h0) &
+                                                        (((1u << K) - 1u) << max(LEFT - t, 0)) &
+                                                        ((1u << min(T_len - t + LEFT, K)) - 1u)
+                                                  : 0u;
+      if (taps) {
+        float gf[4];
+        unpack(gs[(r - R0) * 32 + lane], gf);
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          if ((taps >> j) & 1u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[j][e] = fmaf(gf[e], xw[(s + 1 + j) % K][e], acc[j][e]);
+      }
+      if (++t == T_len) t = 0;
+    }
+  }
+  __syncthreads();  // every warp is done with the staged rows: they hold the sums now
+
+  // the block's partial: warp 0's accumulators, then warps 1, 2, 3's, in that order
+  float* red = reinterpret_cast<float*>(stage);  // [warp - 1][4 j + e][lane]
+  if (warp > 0)
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[((warp - 1) * 4 * K + 4 * j + e) * 32 + lane] = acc[j][e];
+  __syncthreads();
+  if (warp > 0 || !active) return;
+#pragma unroll
+  for (int w = 0; w < DW_WARPS - 1; ++w)
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += red[(w * 4 * K + 4 * j + e) * 32 + lane];
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    *reinterpret_cast<float4*>(partial + ((long long)blockIdx.x * K + j) * C + cv * 4) =
+        make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+}
+
+// the generic instantiation: block (x, j, z) sums the rows of chunk z for 128 channels of
+// tap j in a fixed order (four accumulators, by row mod 4, added at the end), one 4-byte
+// scalar a thread and row
 __global__ void __launch_bounds__(DW_THREADS)
 fsmn_bwd_weight_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
                                const uint8_t* __restrict__ mask, float* __restrict__ partial,
@@ -344,14 +500,25 @@ fsmn_bwd_weight_partial_kernel(const float* __restrict__ x, const float* __restr
   }
 }
 
+// dw[c, j] = the partials[z, j, c] added in z order; a thread a (j, c), c the fastest, so
+// the partials are read in whole rows, 16 loads in flight before their adds
 __global__ void fsmn_bwd_weight_reduce_kernel(const float* __restrict__ partial,
-                                              float* __restrict__ dw, int C, int K, int chunks) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // dw index c * K + j
+                                              float* __restrict__ dw, int C, int K, int parts) {
+  constexpr int ILP = 16;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // j * C + c
   if (i >= C * K) return;
-  const int c = i / K, j = i % K;
+  const long long step = (long long)K * C;
   float sum = 0.f;
-  for (int z = 0; z < chunks; ++z) sum += partial[((long long)z * K + j) * C + c];
-  dw[i] = sum;
+  int z = 0;
+  for (; z + ILP <= parts; z += ILP) {
+    float v[ILP];
+#pragma unroll
+    for (int u = 0; u < ILP; ++u) v[u] = partial[(z + u) * step + i];
+#pragma unroll
+    for (int u = 0; u < ILP; ++u) sum += v[u];
+  }
+  for (; z < parts; ++z) sum += partial[z * step + i];
+  dw[(i % C) * K + i / C] = sum;
 }
 
 }  // namespace
@@ -374,25 +541,49 @@ extern "C" int fsmn_memory_generic_fwd(int dtype, const void* x, const void* w,
 
 // fp32 weight gradient of the FSMN memory: x (B, T, C) the forward's input, dout (B, T, C)
 // the output's gradient (any batch / time strides, unit channel stride), mask (B, T)
-// bytes or NULL -> dw (C, K) contiguous. partial: chunks x K x C floats of scratch, chunks
-// = ceil(B T / rows_per_chunk). Two kernel launches on `stream`.
+// bytes or NULL -> dw (C, K) contiguous. specialised: 1 for the vector kernel (k 11, left
+// 5; C, x's and dout's batch / time strides multiples of 4, bases 16-byte aligned;
+// rows_per_chunk <= 16), 0 for the generic one. partial: parts x K x C floats of scratch;
+// chunks = ceil(B T / rows_per_chunk), and parts = ceil(chunks / 4) for the vector kernel
+// (a block of 4 chunks), chunks for the generic one. Two kernel launches on `stream`.
 extern "C" int fsmn_memory_bwd_weight(const void* x, const void* dout, const void* mask,
                                       void* partial, void* dw, int B, int T_len, int C, int K,
                                       int left, long long xsb, long long xst, long long gsb,
-                                      long long gst, int rows_per_chunk, void* stream) {
+                                      long long gst, int rows_per_chunk, int specialised,
+                                      void* stream) {
   if (K < 1 || K > MAX_K || left < 0 || left > K - 1 || rows_per_chunk < 1 || B < 1 ||
       T_len < 1 || C < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int chunks = (B * T_len + rows_per_chunk - 1) / rows_per_chunk;
-  fsmn_bwd_weight_partial_kernel<<<dim3((C + DW_THREADS - 1) / DW_THREADS, K, chunks),
-                                   DW_THREADS, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dout),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(partial), B, T_len, C, K, left,
-      xsb, xst, gsb, gst, rows_per_chunk);
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(dout);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  float* part = static_cast<float*>(partial);
+  int parts = chunks;
+  if (specialised) {
+    if (K != 11 || left != 5 || C % 4 || xsb % 4 || xst % 4 || gsb % 4 || gst % 4 ||
+        reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(dout) % 16 ||
+        reinterpret_cast<uintptr_t>(partial) % 16 || rows_per_chunk > DW_MAX_ROWS)
+      return (int)cudaErrorInvalidValue;
+    parts = (chunks + DW_WARPS - 1) / DW_WARPS;
+    // the staged x and g rows of a block, later the warps' sums: above 48 KB at 16 rows
+    // a chunk, so opt in
+    const int bytes = max((2 * DW_WARPS * rows_per_chunk + K - 1) * 32 * (int)sizeof(uint4),
+                          (DW_WARPS - 1) * 4 * K * 32 * (int)sizeof(float));
+    const cudaError_t opt = cudaFuncSetAttribute(
+        fsmn_bwd_weight_vec_kernel<11, 5>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (opt != cudaSuccess) return (int)opt;
+    fsmn_bwd_weight_vec_kernel<11, 5><<<dim3(parts, (C + 127) / 128), 32 * DW_WARPS, bytes, s>>>(
+        xf, gf, m, part, B, T_len, C, xsb, xst, gsb, gst, rows_per_chunk);
+  } else {
+    fsmn_bwd_weight_partial_kernel<<<dim3((C + DW_THREADS - 1) / DW_THREADS, K, chunks),
+                                     DW_THREADS, 0, s>>>(xf, gf, m, part, B, T_len, C, K, left,
+                                                         xsb, xst, gsb, gst, rows_per_chunk);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fsmn_bwd_weight_reduce_kernel<<<(C * K + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dw), C, K, chunks);
+      part, static_cast<float*>(dw), C, K, parts);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers, cp.async,
-// TMA loads and stores, wgmma descriptors and instructions, register rebalancing, and the host
-// side encoding of TMA tensor maps.
+// the 3xTF32 split and mma.sync of the fp32 flash kernels, ldmatrix, TMA loads and
+// stores, wgmma descriptors and instructions, register rebalancing, and the host side
+// encoding of TMA tensor maps.
 //
 // Shared-memory tiles are loaded by TMA with 128-byte swizzle: a tile is rows of 128
 // bytes, the 16-byte chunk c of row r stored at chunk c ^ (r % 8), each tile 1024-byte
@@ -97,6 +98,72 @@ __device__ __forceinline__ void cp_async_commit() {
 // at most N of this thread's committed groups are still in flight
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4 bytes global -> shared, or 4 zero bytes where !full (src is then not read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+
+// ---- fp32 products on the tensor cores: 3xTF32 on mma.sync ---------------------------
+//
+// Each fp32 operand a is split into hi = tf32(a) (round to nearest) and lo = a - hi
+// (exact; the tensor core truncates it to TF32), and a product is lo*hi' + hi*lo' +
+// hi*hi', three m16n8k8 TF32 mma accumulating in fp32: the dropped lo*lo' and lo's
+// truncation are ~2^-21 of a product, fp32 accuracy at three TF32 products (one TF32
+// product alone moves results by ~1e-3). The forward (flash_attention.cu) and the
+// backward (flash_attention_bwd.cu) of fp32 flash attention share these.
+
+// hi: x rounded to TF32 (nearest, ties away), exact; lo = x - hi, exact in fp32, of which
+// the tensor core reads the top 19 bits (a truncation: 2^-21 of x). Integer and fp32
+// ops at full rate: cvt.rna.tf32.f32 runs at a quarter of it and, at ~670 conversions a
+// warp and key tile, held the first version of the forward kernel.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split4(const float (&x)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// c += a b, m16n8k8: a (16 x 8, row) a0 = (g, t), a1 = (g + 8, t), a2 = (g, t + 4),
+// a3 = (g + 8, t + 4); b (8 x 8, col) b0 = (t, g), b1 = (t + 4, g); c (16 x 8) c0 / c1 =
+// (g, 2t / 2t + 1), c2 / c3 = (g + 8, 2t / 2t + 1), with g = lane / 4, t = lane % 4.
+// Not volatile: a pure function of its operands, so the compiler may interleave
+// independent products.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32: the three terms, lo hi' first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// Four 8 x 4 blocks of 32-bit values from shared memory (ldmatrix of 8 x 8 b16 blocks:
+// rows of 16 bytes). Lane i gives the address of row i % 8 of block i / 8; each lane
+// receives, of block j, r[j] = the word lane % 4 of row lane / 4: an mma_tf32 A fragment
+// from blocks (rows 0-7, words 0-3), (rows 8-15, 0-3), (0-7, 4-7), (8-15, 4-7) of a
+// row-major tile, or B fragments from an [n][k] tile. Rows whose addresses differ by a
+// pitch of 4 mod 32 words fall in distinct banks.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row))
+               : "memory");
 }
 
 // ---- TMA ------------------------------------------------------------------------------

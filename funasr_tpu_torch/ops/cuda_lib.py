@@ -38,19 +38,20 @@ _L = ctypes.c_longlong
 # C entry points: name -> argtypes (each returns a cudaError_t as int)
 _SIGNATURES = {
     # dtype, q, k, v, o, lengths, B, H, Tq, Tk, D, strides[12], sm_scale, mode, vad_pos,
-    # block_rows, stream
+    # block_rows, stats, stream
     "flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            ctypes.POINTER(_L), ctypes.c_float, _I, _P, _I, _P],
+                            ctypes.POINTER(_L), ctypes.c_float, _I, _P, _I, _P, _P],
     # dtype, x, w, mask, out, B, T, C, K, left, x_sb, x_st, stream
     "fsmn_memory_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P],
     "fsmn_memory_generic_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P],
-    # q, k, v, o, dout, dq, dk, dv, stats, lengths, B, H, Tq, Tk, D, strides[24], sm_scale,
-    # mode, vad_pos, stream (fp32)
-    "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # q, k, v, o, dout, stats, dq, dk, dv, scratch, lengths, B, H, Tq, Tk, D, strides[24],
+    # sm_scale, mode, vad_pos, stream (fp32)
+    "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             ctypes.POINTER(_L), ctypes.c_float, _I, _P, _P],
     # x, dout, mask, partial, dw, B, T, C, K, left, x_sb, x_st, dout_sb, dout_st,
-    # rows_per_chunk, stream (fp32)
-    "fsmn_memory_bwd_weight": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _I, _P],
+    # rows_per_chunk, specialised, stream (fp32)
+    "fsmn_memory_bwd_weight": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I,
+                               _P],
     # dtype, x, x_row_stride, w_q, scale, bias, bias_dtype, x_q, sx, out, out_pitch, M, N,
     # K, Kp, sms, stream
     "w8a8_linear_fwd": [_I, _P, _L, _P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],

@@ -32,16 +32,22 @@ versions (the Pallas kernel's behaviour); bucketing never builds one.
 
 Dispatch: a CPU tensor takes ``flash_attention_ref``; a CUDA tensor launches the
 kernel or raises. ``flash_attention.launches`` counts kernel launches. With grad mode on
-and q, k or v requiring grad, the output comes from ``FlashAttentionFn``, whose backward
-is ``flash_attention_bwd``: on CUDA (fp32) the hand-written kernel of
-``funasr_tpu_torch/csrc/flash_attention_bwd.cu`` (``flash_attention_bwd.launches`` counts
-its calls, two kernel launches each), on the CPU autograd through ``flash_attention_ref``;
-bf16 raises (ROADMAP item 20b). lengths and vad_pos get no gradient. Under
-``torch.export`` the wrapper records the custom op ``funasr_tpu_torch::flash_attention``
-instead (its CUDA implementation launches the same kernel, its CPU one is
-``flash_attention_ref``, its fake one gives the output's shape and strides), so an
-exported program runs the kernel; eager calls skip the op's dispatch, which costs host
-time on every call (measured in PERF.md, section 6).
+and q, k or v requiring grad, the output comes from ``FlashAttentionFn``: on CUDA at fp32
+its forward is the kernel's instantiation that also writes each row's softmax max and sum
+(m, l; ``flash_attention_with_stats``), and its backward is ``flash_attention_bwd``, the
+hand-written kernel of ``funasr_tpu_torch/csrc/flash_attention_bwd.cu``
+(``flash_attention_bwd.launches`` counts its calls, three kernel launches each): every
+product on the tensor cores in 3xTF32, S and dO V^T formed once, a small kernel for
+Dr = rowsum(dO o O), one block of 256 threads per 32 keys (``flash_bwd_plan``: 120 at
+the recipe's (5, 4, 190)) that walks the query tiles with dK and dV in registers and
+writes its share of dQ to a scratch, and a last kernel that adds the shares in key-block
+order; no float atomics, so gradients are bit-equal across runs. On the CPU the backward
+is autograd through ``flash_attention_ref``; bf16 raises (ROADMAP item 20b). lengths and
+vad_pos get no gradient. Under ``torch.export`` the wrapper records the custom op
+``funasr_tpu_torch::flash_attention`` instead (its CUDA implementation launches the same
+kernel, its CPU one is ``flash_attention_ref``, its fake one gives the output's shape
+and strides), so an exported program runs the kernel; eager calls skip the op's
+dispatch, which costs host time on every call (measured in PERF.md, section 6).
 """
 
 from __future__ import annotations
@@ -159,26 +165,60 @@ def _flash_forward(q, k, v, lengths, mode="none", vad_pos=None):
 
 class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` with a gradient: the forward kernel (or plain version) as it
-    is, the backward ``flash_attention_bwd`` on the saved q, k, v and output."""
+    is, on CUDA at fp32 its instantiation that also writes each row's (m, l), and the
+    backward ``flash_attention_bwd`` on the saved q, k, v, output and (m, l)."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, mode, vad_pos):
-        out = _flash_forward(q, k, v, lengths, mode, vad_pos)
-        ctx.save_for_backward(q, k, v, out, lengths, vad_pos)
+        if q.device.type == "cuda" and q.dtype == torch.float32:
+            out, stats = flash_attention_with_stats(q, k, v, lengths, mode, vad_pos)
+        else:
+            out, stats = _flash_forward(q, k, v, lengths, mode, vad_pos), None
+        ctx.save_for_backward(q, k, v, out, lengths, vad_pos, stats)
         ctx.mode = mode
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lengths, vad_pos = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lengths, ctx.mode, vad_pos)
+        q, k, v, out, lengths, vad_pos, stats = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lengths, ctx.mode, vad_pos,
+                                         stats=stats)
         return dq, dk, dv, None, None, None
 
 
-def flash_attention_bwd(q, k, v, out, dout, lengths, mode: str = "none", vad_pos=None):
+def flash_attention_with_stats(q, k, v, lengths, mode: str = "none", vad_pos=None):
+    """The fp32 forward kernel on CUDA tensors, also writing each query row's softmax
+    max m (log2 units: scores times log2(e) / sqrt(D)) and sum l, which the backward
+    kernel takes -> (out, stats (2, B H Tq) fp32). One ``flash_attention`` launch."""
+    if q.device.type != "cuda" or q.dtype != torch.float32:
+        raise ValueError(f"the forward with (m, l) is the fp32 CUDA kernel's; got "
+                         f"{q.dtype} on {q.device}")
+    b, h, t, _ = q.shape
+    stats = torch.empty((2, b * h * t), dtype=torch.float32, device=q.device)
+    return _flash_attention_cuda(q, k, v, lengths, mode, vad_pos, stats=stats), stats
+
+
+KEY_BLOCK = 32  # keys a block of the backward kernel (csrc/flash_attention_bwd.cu)
+
+
+def flash_bwd_plan(b: int, h: int, tq: int, tk: int, d: int) -> dict:
+    """The backward kernel's grid and scratch: (B H, ceil(Tk / KEY_BLOCK)) blocks of 256
+    threads, and floats of scratch for Dr (B H Tq, rounded up to a multiple of 4) and the
+    key blocks' shares of dQ (key blocks, B H, Tq, D). (5, 4, 190, 128): 120 blocks."""
+    key_blocks = -(-tk // KEY_BLOCK)
+    rows = b * h * tq
+    return dict(grid=(b * h, key_blocks), dr_floats=-(-rows // 4) * 4,
+                dq_part_shape=(key_blocks, b * h, tq, d),
+                scratch_floats=-(-rows // 4) * 4 + key_blocks * rows * d)
+
+
+def flash_attention_bwd(q, k, v, out, dout, lengths, mode: str = "none", vad_pos=None, *,
+                        stats=None):
     """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, lengths, mode, vad_pos)``
     = out, given dout, its output's gradient. CPU tensors: ``flash_attention_bwd_ref``;
-    CUDA: the fp32 backward kernel, or raises (bf16: ``NotImplementedError``). Each
+    CUDA: the fp32 backward kernel, or raises (bf16: ``NotImplementedError``). ``stats``:
+    the (m, l) that ``flash_attention_with_stats`` wrote with ``out`` (``FlashAttentionFn``
+    passes them); without them the forward kernel runs once more to write them. Each
     gradient is a (B, H, T, D) view of a contiguous (B, T, H, D) tensor, as the forward's
     output is, so the heads merge back into the fused projection's layout without a
     copy."""
@@ -186,27 +226,34 @@ def flash_attention_bwd(q, k, v, out, dout, lengths, mode: str = "none", vad_pos
         return flash_attention_bwd_ref(q, k, v, dout, lengths, mode, vad_pos)
     if q.dtype != torch.float32:
         raise NotImplementedError(
-            f"the flash attention backward kernel takes float32; {q.dtype} training (its "
-            "backward kernels) is ROADMAP item 20b")
+            f"the flash attention backward kernel takes float32, as the reference trains; "
+            f"{q.dtype} training is not planned (ROADMAP item 20b)")
     _check(q, k, v, lengths, mode, vad_pos)
     b, h, t, d = q.shape
     tk = k.shape[2]
+    if stats is None:
+        _, stats = flash_attention_with_stats(q, k, v, lengths, mode, vad_pos)
+    if stats.shape != (2, b * h * t) or stats.dtype != torch.float32 \
+            or stats.device != q.device or not stats.is_contiguous():
+        raise ValueError(f"stats must be a contiguous (2, {b * h * t}) float32 tensor on "
+                         f"{q.device}")
     o, do = (cuda_lib.vectorizable(x) for x in (out, dout))
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     vps = None if vad_pos is None else vad_pos.to(dtype=torch.int32).contiguous()
     dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     dk, dv = (torch.empty((b, tk, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
               for _ in range(2))
-    stats = torch.empty((3, b * h * t), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(flash_bwd_plan(b, h, t, tk, d)["scratch_floats"],
+                          dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(s for x in (q, k, v, o, do, dq, dk, dv)
                                          for s in x.stride()[:3]))
     lib = cuda_lib.load_library()
     cuda_lib.count_launch(flash_attention_bwd, (q, k, v, o, do), (mode,), lens)
     err = lib.flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), lens.data_ptr(), b, h, t, tk, d,
-        strides, 1.0 / math.sqrt(d), MODES[mode], None if vps is None else vps.data_ptr(),
-        cuda_lib.stream_handle(q.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        stats.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+        lens.data_ptr(), b, h, t, tk, d, strides, 1.0 / math.sqrt(d), MODES[mode],
+        None if vps is None else vps.data_ptr(), cuda_lib.stream_handle(q.device))
     cuda_lib.check(err, "flash_attention_bwd")
     return dq, dk, dv
 
@@ -214,7 +261,7 @@ def flash_attention_bwd(q, k, v, out, dout, lengths, mode: str = "none", vad_pos
 flash_attention_bwd.launches = 0
 
 
-def _flash_attention_cuda(q, k, v, lengths, mode="none", vad_pos=None):
+def _flash_attention_cuda(q, k, v, lengths, mode="none", vad_pos=None, stats=None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CPU or CUDA tensors, not {q.device}")
     _check(q, k, v, lengths, mode, vad_pos)
@@ -229,7 +276,8 @@ def _flash_attention_cuda(q, k, v, lengths, mode="none", vad_pos=None):
     err = lib.flash_attention_fwd(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lens.data_ptr(), b, h, t, k.shape[2], d, strides, 1.0 / math.sqrt(d), MODES[mode],
-        None if vps is None else vps.data_ptr(), rows, cuda_lib.stream_handle(q.device))
+        None if vps is None else vps.data_ptr(), rows,
+        None if stats is None else stats.data_ptr(), cuda_lib.stream_handle(q.device))
     cuda_lib.check(err, "flash_attention_fwd")
     return out
 

@@ -33,8 +33,14 @@ where corr' correlates with the taps reversed and the pads swapped: the forward 
 itself on dout (``fsmn_memory_bwd_input``; the path's (11, 5) maps onto itself and keeps
 its instantiation). The weight gradient dw[c, j] = sum_{b,t} g[b,t,c] xm[b,t+j-left,c]
 is the reduction kernel ``fsmn_memory_bwd_weight`` of ``csrc/fsmn.cu`` (fp32,
-deterministic). Each counts its calls in ``.launches``; on the CPU both are autograd
-through ``fsmn_memory_ref``; bf16 raises (ROADMAP item 20b). The mask gets no gradient.
+deterministic: per-chunk partials added in chunk order). At k 11, pads 5 / 5 (every FSMN
+of the training path) and C a multiple of 4 it is the forward's shape: 4 channels a
+thread, the k-row window of xm and the k x 4 taps in registers, each g and x row read
+once (a block's rows and halo staged in shared memory by one batch of ``cp.async``), 4
+chunks a block added in the block, chunks planned by ``dw_plan`` to fill the card; any
+other k, pads or C takes the generic kernel, which reads each row once a tap. Each counts
+its calls in ``.launches``; on the CPU both are autograd through ``fsmn_memory_ref``;
+bf16 raises (ROADMAP item 20b). The mask gets no gradient.
 ``generic=True`` launches the generic instantiation whatever k is, to time a specialised
 one against it. Under
 ``torch.export`` the wrapper records the custom op ``funasr_tpu_torch::fsmn_memory``
@@ -153,8 +159,8 @@ def _fp32_cuda(name, *tensors):
             raise ValueError(f"{name} runs on CUDA tensors, not {t.device}")
         if t.dtype != torch.float32:
             raise NotImplementedError(
-                f"{name} takes float32; {t.dtype} training (its backward kernels) is "
-                "ROADMAP item 20b")
+                f"{name} takes float32, as the reference trains; {t.dtype} training is "
+                "not planned (ROADMAP item 20b)")
 
 
 def fsmn_memory_bwd_input(dout, weight, mask, left_pad: int, right_pad: int):
@@ -179,17 +185,38 @@ def fsmn_memory_bwd_input(dout, weight, mask, left_pad: int, right_pad: int):
 
 fsmn_memory_bwd_input.launches = 0
 
-DW_BLOCKS_PER_SM = 4  # blocks the weight-gradient kernel aims for, per multiprocessor
-DW_THREADS = 128  # channels a block (csrc/fsmn.cu)
+DW_BLOCKS_PER_SM = 4  # blocks the generic weight-gradient kernel aims for, per multiprocessor
+DW_THREADS = 128  # channels a block of the generic kernel (csrc/fsmn.cu)
+DW_SPECIALISED = (11, 5)  # (k, left) of the vector weight-gradient kernel (csrc/fsmn.cu)
+DW_BLOCK_CHUNKS = 4  # chunks a block of the vector kernel: 4 warps on 128 channels
+DW_BLOCKS_PER_SM_VEC = 2  # blocks the vector kernel aims for, per multiprocessor
+DW_MIN_ROWS, DW_MAX_ROWS = 4, 16  # rows a chunk (a warp's) of the vector kernel
 
 
 def dw_rows_per_chunk(b: int, t: int, c: int, k: int, sms: int) -> int:
-    """Rows (b, t) each partial sum of the weight-gradient kernel covers: enough chunks
-    that the grid (C / 128, k, chunks) holds about DW_BLOCKS_PER_SM blocks on each of the
-    card's ``sms`` multiprocessors."""
+    """Rows (b, t) each partial sum of the generic weight-gradient kernel covers: enough
+    chunks that the grid (C / 128, k, chunks) holds about DW_BLOCKS_PER_SM blocks on each
+    of the card's ``sms`` multiprocessors."""
     per_chunk = -(-c // DW_THREADS) * k
     chunks = max(1, DW_BLOCKS_PER_SM * sms // per_chunk)
     return max(32, -(-(b * t) // chunks))
+
+
+def dw_plan(b: int, t: int, c: int, k: int, left: int, sms: int):
+    """(specialised, rows a chunk, partial shape) of the weight gradient. The vector
+    kernel (k 11, left 5, C a multiple of 4) walks chunks of DW_MIN_ROWS-DW_MAX_ROWS
+    rows, DW_BLOCK_CHUNKS a block of 128 channels, as many as give each of the card's
+    ``sms`` multiprocessors DW_BLOCKS_PER_SM_VEC blocks: at (5, 190, 512) 238 chunks of
+    4 rows, 240 blocks (60 for each 128 channels), one partial (k, C) a block. Any other
+    k, pads or C takes the generic kernel (``dw_rows_per_chunk``, a partial a chunk).
+    Partials: (parts, k, C) fp32."""
+    if (k, left) == DW_SPECIALISED and c % 4 == 0:
+        chunks = max(1, DW_BLOCK_CHUNKS * DW_BLOCKS_PER_SM_VEC * sms // -(-c // 128))
+        rows = min(DW_MAX_ROWS, max(DW_MIN_ROWS, -(-(b * t) // chunks)))
+        parts = -(-(-(-(b * t) // rows)) // DW_BLOCK_CHUNKS)
+        return True, rows, (parts, k, c)
+    rows = dw_rows_per_chunk(b, t, c, k, sms)
+    return False, rows, (-(-(b * t) // rows), k, c)
 
 
 def fsmn_memory_bwd_weight(x, dout, mask, left_pad: int, right_pad: int):
@@ -206,9 +233,13 @@ def fsmn_memory_bwd_weight(x, dout, mask, left_pad: int, right_pad: int):
     if mask is not None and (mask.dtype != torch.bool or mask.shape != (b, t)
                              or mask.device != x.device):
         raise ValueError(f"mask must be a ({b}, {t}) bool tensor on {x.device}")
-    rows = dw_rows_per_chunk(b, t, c, k, cuda_lib.sm_count(x.device.index or 0))
-    chunks = -(-(b * t) // rows)
-    partial = torch.empty((chunks, k, c), dtype=torch.float32, device=x.device)
+    specialised, rows, shape = dw_plan(b, t, c, k, left_pad,
+                                       cuda_lib.sm_count(x.device.index or 0))
+    if specialised:  # 16-byte vectors: a copy only for a layout the path never hands over
+        x, dout = cuda_lib.vectorizable(x), cuda_lib.vectorizable(dout)
+    if shape[0] > (2**31 - 1 if specialised else 65535):
+        raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's grid")
+    partial = torch.empty(shape, dtype=torch.float32, device=x.device)
     dw = torch.empty((c, k), dtype=torch.float32, device=x.device)
     m = None if mask is None else mask.contiguous()
     lib = cuda_lib.load_library()
@@ -216,7 +247,8 @@ def fsmn_memory_bwd_weight(x, dout, mask, left_pad: int, right_pad: int):
     err = lib.fsmn_memory_bwd_weight(
         x.data_ptr(), dout.data_ptr(), None if m is None else m.data_ptr(),
         partial.data_ptr(), dw.data_ptr(), b, t, c, k, left_pad, x.stride(0), x.stride(1),
-        dout.stride(0), dout.stride(1), rows, cuda_lib.stream_handle(x.device))
+        dout.stride(0), dout.stride(1), rows, int(specialised),
+        cuda_lib.stream_handle(x.device))
     cuda_lib.check(err, "fsmn_memory_bwd_weight")
     return dw
 

@@ -10,6 +10,12 @@
 * the fp32 flash kernel's 3xTF32 split, emulated in fp32 with its key tiles and online
   softmax: within the card's tolerance of the plain version, where one TF32 product is
   not;
+* the backward kernels' decompositions, emulated in fp32: flash's (3xTF32 products, the
+  forward's (m, l) kept apart, 32-key blocks over 64-row query tiles with the live tiles
+  a suffix, dK / dV added over four query quarters, the key blocks' dQ shares added in
+  order) and the FSMN weight gradient's (blocks of 4 chunks, a k-slot window sliding
+  over flat rows, taps outside a row's utterance skipped), each against autograd through
+  the plain version; their planning functions and ``chip_smoke.fsmn_dw_work``;
 * the kernels' JSON line of ``chip_smoke.py``, fp32, pipeline, hotword, streaming,
   SenseVoice, serving and LLM entries included, and phase 13's per-server launch gate
   (``served``);
@@ -642,3 +648,234 @@ def test_kernel_modules_call_no_library_kernel(path):
     names |= {a.name for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)
               for a in node.names}
     assert not names & {"scaled_dot_product_attention", "_int_mm", "conv1d"}, path
+
+
+LOG2E = 1.4426950408889634
+KEY_BLOCK, QUERY_TILE = 32, 64  # csrc/flash_attention_bwd.cu: KB, QT
+
+
+def _flash_inputs(b, h, tq, tk, d, seed):
+    rng = np.random.default_rng(seed)
+    q, dout = (torch.from_numpy(rng.standard_normal((b, h, tq, d), dtype=np.float32))
+               for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, h, tk, d), dtype=np.float32))
+            for _ in range(2))
+    return q, k, v, dout
+
+
+def _flash_bwd_like_the_kernel(q, k, v, dout, lengths, mode, vad_pos, mm, one_lse=False):
+    """``csrc/flash_attention_bwd.cu``'s arithmetic in fp32: the forward's (m, l) (log2
+    units; keys past a row's limit -1e30), Dr = rowsum(dO o O), one pass per 32-key
+    block over the 64-row query tiles its keys reach (a suffix; every tile for a length-0
+    row), S^T, P^T, dP^T, dS^T formed once, dK / dV summed per 16-row query quarter and
+    the quarters added in order, each key block's share of dQ = dS K added in key-block
+    order; every product through ``mm``. ``one_lse``: P from m + log2(l) alone."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    scale = 1.0 / d ** 0.5
+    lim = key_limits(lengths, tq, mode, vad_pos)  # (B, Tq)
+    keys = torch.arange(tk)
+    s2 = mm(q, k.transpose(-1, -2)) * (scale * LOG2E)
+    s2 = torch.where(keys[None, None, None, :] >= lim[:, None, :, None], torch.tensor(-1e30),
+                     s2)
+    m = s2.amax(-1)
+    l = torch.exp2(s2 - m[..., None]).sum(-1)
+    out = mm(torch.exp2(s2 - m[..., None]) / l[..., None], v)
+    if one_lse:
+        m, l = m + torch.log2(l), torch.ones_like(l)
+    dr = (dout * out).sum(-1)
+    dq = torch.zeros_like(q)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for i in range(b):
+        n = int(lengths[i])
+        for k0 in range(0, tk, KEY_BLOCK):
+            kb = slice(k0, min(k0 + KEY_BLOCK, tk))
+            key = keys[kb]
+            quarters_k = [torch.zeros(h, key.numel(), d) for _ in range(4)]
+            quarters_v = [torch.zeros(h, key.numel(), d) for _ in range(4)]
+            for r0 in range(0, tq, QUERY_TILE):
+                rows = slice(r0, min(r0 + QUERY_TILE, tq))
+                if n > 0 and int(lim[i, rows.stop - 1]) <= k0:
+                    continue  # the tile's largest limit does not reach the block
+                li = lim[i, rows]
+                st = mm(k[i, :, kb], q[i, :, rows].transpose(-1, -2)) * (scale * LOG2E)
+                st = torch.where(key[:, None] >= li[None, :], torch.tensor(-1e30), st)
+                pt = torch.exp2(st - m[i, :, None, rows]) / l[i, :, None, rows]
+                dpt = mm(v[i, :, kb], dout[i, :, rows].transpose(-1, -2))
+                dst = torch.where(key[:, None] < li[None, :], pt * (dpt - dr[i, :, None, rows]),
+                                  torch.tensor(0.0))
+                for w in range(4):  # the warps' query quarters of the tile
+                    cols = slice(16 * w, 16 * w + 16)
+                    quarters_v[w] += mm(pt[..., cols], dout[i, :, rows][:, cols])
+                    quarters_k[w] += mm(dst[..., cols], q[i, :, rows][:, cols])
+                dq[i, :, rows] += mm(dst.transpose(-1, -2), k[i, :, kb])
+            dv[i, :, kb] = ((quarters_v[0] + quarters_v[1]) + quarters_v[2]) + quarters_v[3]
+            dk[i, :, kb] = (((quarters_k[0] + quarters_k[1]) + quarters_k[2])
+                            + quarters_k[3]) * scale
+    return dq * scale, dk, dv, out
+
+
+FLASH_BWD_CASES = {
+    # a length-0 row, a ragged last query tile (100 rows) and key block (4 x 32 > 100)
+    "none": ((3, 2, 100, 100, 64), [100, 0, 37], "none", None),
+    "causal": ((2, 2, 70, 70, 32), [70, 50], "causal", None),
+    "corner": ((2, 2, 70, 70, 32), [70, 50], "corner", [20, 1]),
+    # Tq < Tk: query rows over [cached keys | chunk], as the streaming encoder
+    "tq_lt_tk": ((2, 2, 40, 100, 64), [100, 63], "none", None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_BWD_CASES))
+def test_flash_backward_decomposition_meets_the_fp32_tolerance(case):
+    """The backward kernel's decomposition, every product in 3xTF32, lies within
+    chip_smoke.FLASH_BWD_REL_TOL (relative L2) of autograd through the plain version for
+    dq, dk and dv."""
+    from funasr_tpu_torch.ops.flash_attention import flash_attention_bwd_ref
+
+    (b, h, tq, tk, d), lens, mode, vad_pos = FLASH_BWD_CASES[case]
+    q, k, v, dout = _flash_inputs(b, h, tq, tk, d, seed=len(case))
+    ln = torch.tensor(lens)
+    vp = None if vad_pos is None else torch.tensor(vad_pos)
+    want = flash_attention_bwd_ref(q, k, v, dout, ln, mode, vp)
+    got = _flash_bwd_like_the_kernel(q, k, v, dout, ln, mode, vp, _mm_3xtf32)[:3]
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        rel = ((a - w).norm() / w.norm()).item()
+        assert rel <= chip_smoke.FLASH_BWD_REL_TOL / 2, (case, name, rel)
+
+
+def test_flash_backward_needs_3xtf32_and_m_l_apart():
+    """One TF32 product a product misses the 1e-5 gate; so does P from a single
+    log-sum-exp m + log2(l), on the length-0 row, whose m is -1e30 and whose l = Tk
+    vanishes in the sum, where m and l kept apart give P = 1 / Tk."""
+    from funasr_tpu_torch.ops.flash_attention import flash_attention_bwd_ref
+
+    (b, h, tq, tk, d), lens, mode, vad_pos = FLASH_BWD_CASES["none"]
+    q, k, v, dout = _flash_inputs(b, h, tq, tk, d, seed=4)
+    ln = torch.tensor(lens)
+    want = flash_attention_bwd_ref(q, k, v, dout, ln)
+
+    def worst(**kw):
+        got = _flash_bwd_like_the_kernel(q, k, v, dout, ln, mode, None, **kw)[:3]
+        return max(((a - w).norm() / w.norm()).item() for a, w in zip(got, want))
+
+    assert worst(mm=_mm_3xtf32) <= chip_smoke.FLASH_BWD_REL_TOL
+    assert worst(mm=_mm_1xtf32) > chip_smoke.FLASH_BWD_REL_TOL
+    assert worst(mm=_mm_3xtf32, one_lse=True) > 0.5
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d,blocks,scratch", [
+    (5, 4, 190, 190, 128, (20, 6), 3800 + 6 * 3800 * 128),   # the recipe's first batch
+    (3, 4, 296, 296, 128, (12, 10), 3552 + 10 * 3552 * 128),
+    (1, 4, 15, 55, 128, (4, 2), 60 + 2 * 60 * 128),          # a streaming chunk's keys
+    (1, 1, 3, 3, 8, (1, 1), 4 + 3 * 8),                       # Dr rounded up to 4 floats
+])
+def test_flash_bwd_plan(b, h, tq, tk, d, blocks, scratch):
+    """The backward's grid (B H, key blocks of 32): 120 blocks at the recipe's (5, 4,
+    190), 132 SMs nearly full; its scratch: Dr, then the key blocks' dQ shares."""
+    from funasr_tpu_torch.ops.flash_attention import KEY_BLOCK as kb, flash_bwd_plan
+
+    plan = flash_bwd_plan(b, h, tq, tk, d)
+    assert kb == KEY_BLOCK and plan["grid"] == blocks
+    assert plan["scratch_floats"] == scratch
+    assert plan["dq_part_shape"] == (blocks[1], b * h, tq, d)
+    assert plan["dr_floats"] % 4 == 0 and plan["dr_floats"] >= b * h * tq
+
+
+def _fsmn_dw_like_the_kernel(x, dout, mask, left, right, rows):
+    """``csrc/fsmn.cu``'s vector weight-gradient kernel in fp32: blocks of 4 chunks of
+    ``rows`` flat (b, t) rows; a chunk's walk loads x row c0 - left + i at step i into
+    slot i % k and, from step k - 1 on, adds g row r times the window (tap j: slot
+    (i + 1 + j) % k), skipping a masked g row and taps whose x row is masked or outside
+    r's utterance; the 4 chunks' sums added in order into a block's partial, the
+    partials in block order -> (C, k)."""
+    b, t, c = x.shape
+    k = left + right + 1
+    n = b * t
+    xf, gf = x.reshape(n, c), dout.reshape(n, c)
+    valid = torch.ones(n, dtype=torch.bool) if mask is None else mask.reshape(n)
+    blocks = []
+    for r_0 in range(0, n, 4 * rows):
+        r_1 = min(r_0 + 4 * rows, n)
+        sums = []
+        for c0 in range(r_0, r_0 + 4 * rows, rows):
+            c1 = min(c0 + rows, r_1)
+            acc = torch.zeros(k, c)
+            window = [torch.zeros(c) for _ in range(k)]
+            for i in range(c1 - c0 + k - 1 if c1 > c0 else 0):
+                f = c0 - left + i
+                window[i % k] = xf[f] if 0 <= f < n else torch.zeros(c)
+                if i < k - 1:
+                    continue
+                r = c0 + i - (k - 1)
+                if not valid[r]:
+                    continue
+                for j in range(k):
+                    if 0 <= r % t + j - left < t and valid[r + j - left]:
+                        acc[j] += gf[r] * window[(i + 1 + j) % k]
+            sums.append(acc)
+        blocks.append(((sums[0] + sums[1]) + sums[2]) + sums[3])
+    dw = blocks[0]
+    for part in blocks[1:]:
+        dw = dw + part
+    return dw.T
+
+
+@pytest.mark.parametrize("rows,lens", [
+    (7, [20, 13, 0]),    # chunks end inside utterances and at 21, across the first boundary
+    (4, [20, 20, 20]),   # a boundary every 5 chunks, no mask
+    (16, None),          # a chunk across two boundaries
+    (5, "holes"),        # a mask with holes inside the utterances
+])
+def test_fsmn_dw_walk_matches_plain(rows, lens):
+    """The vector kernel's walk and sums give the plain version's weight gradient within
+    FSMN_BWD_REL_TOL (relative L2), however chunks fall against utterances."""
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory_bwd_ref
+
+    rng = np.random.default_rng(rows)
+    b, t, c, left, right = 3, 20, 8, 5, 5
+    x, dout = (torch.from_numpy(rng.standard_normal((b, t, c), dtype=np.float32))
+               for _ in range(2))
+    w = torch.from_numpy(rng.uniform(-0.5, 0.5, (c, 1, left + right + 1)).astype(np.float32))
+    if lens == "holes":
+        mask = torch.from_numpy(rng.random((b, t)) > 0.3)
+    else:
+        mask = None if lens is None else torch.arange(t)[None] < torch.tensor(lens)[:, None]
+    want = fsmn_memory_bwd_ref(x, w, mask, left, right, dout)[1].reshape(c, -1)
+    got = _fsmn_dw_like_the_kernel(x, dout, mask, left, right, rows)
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= chip_smoke.FSMN_BWD_REL_TOL / 10, rel
+
+
+@pytest.mark.parametrize("b,t,c,k,left,plan", [
+    # the recipe's encoder batches: 4-row chunks, 4 a block, >= 2 blocks an SM-ish
+    (5, 190, 512, 11, 5, (True, 4, (60, 11, 512))),
+    (4, 237, 512, 11, 5, (True, 4, (60, 11, 512))),
+    (3, 296, 512, 11, 5, (True, 4, (56, 11, 512))),
+    # the decoder's (B, L + 1): the fewest rows a chunk
+    (5, 49, 512, 11, 5, (True, 4, (16, 11, 512))),
+    # a decode-sized batch: the most rows a chunk
+    (32, 384, 512, 11, 5, (True, 16, (192, 11, 512))),
+    # other pads, or C the 16-byte vectors do not tile: the generic kernel
+    (5, 190, 512, 11, 10, (False, 80, (12, 11, 512))),
+    (5, 190, 512, 21, 10, (False, 159, (6, 21, 512))),
+    (5, 190, 510, 11, 5, (False, 80, (12, 11, 510))),
+])
+def test_fsmn_dw_plan(b, t, c, k, left, plan):
+    from funasr_tpu_torch.ops.fsmn import DW_MAX_ROWS, DW_MIN_ROWS, dw_plan
+
+    got = dw_plan(b, t, c, k, left, 132)
+    assert got == plan
+    if got[0]:
+        assert DW_MIN_ROWS <= got[1] <= DW_MAX_ROWS
+        assert got[2][0] == -(-(-(-(b * t) // got[1])) // 4)  # blocks of 4 chunks
+        if b * t >= 888:  # the encoder's: every SM a block, 512 channels in 4 groups
+            assert 4 * got[2][0] >= 132
+
+
+def test_fsmn_dw_work():
+    """The weight gradient's bytes (x and dout once, the mask, dw) and flops (2 k a
+    value): at the recipe's (5, 190, 512), k 11, 3.9 MB, a 1.2 us bound."""
+    n_bytes, n_ops = chip_smoke.fsmn_dw_work(5, 190, 512, 11)
+    assert n_bytes == 4 * (2 * 950 * 512 + 512 * 11) + 950 and n_ops == 2 * 11 * 950 * 512
+    ms, by = chip_smoke.bound_ms(n_bytes, n_ops, "fp32")
+    assert round(ms * 1e3, 1) == 1.2 and by == "bytes"
