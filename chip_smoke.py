@@ -13,7 +13,7 @@ LLM-based ASR: Fun-ASR-Nano (Qwen3-0.6B on the port's ``LLMEngine``) through ``A
 ``AutoModelVLLM``, and Whisper-large-v3, and text normalization and deployment:
 ``generate(itn=True)``, ``AutoModel.export`` run by ``ExportedModel`` and the MCP server, and
 Paraformer-large fine-tuning through ``bin/data_tools`` and ``bin/train`` with the backward
-kernels.
+kernels, then SenseVoice-Small's and the other models' training losses.
 
     python3 chip_smoke.py
 
@@ -72,9 +72,9 @@ Phases (any failure raises and exits non-zero):
 9. speaker (``phase_speaker``): a BiCifParaformer at PROD_CONF width with the published
    CifPredictorV3 head, phase 8's VAD and punctuation, CAM++ at speech_campplus_sv's
    widths, through ``AutoModel(model=, vad_model=, punc_model=, spk_model=,
-   device="cuda")`` on 1 meeting of 300 s of two synthetic voices, one
-   ``generate(**SPEAKER_CALL)`` each. Gates: integer speakers on every sentence and
-   timestamps rising inside [0, 300000] ms; each stage's launches at their sites; the
+   device="cuda")`` on 1 meeting of 90 s of two synthetic voices (300 s before phase
+   17 came), one ``generate(**SPEAKER_CALL)`` each. Gates: integer speakers on every
+   sentence and timestamps rising inside the meeting; each stage's launches at their sites; the
    timestamp head and CAM++ embeddings against the CPU port; request 0 whole through
    the CPU port (VAD segments to the ms, token boundaries, the voices separating on its
    embeddings, cluster labels equal). Prints RTFx and the stage split per meeting, the
@@ -98,7 +98,7 @@ Phases (any failure raises and exits non-zero):
    keys, and with causal / corner key limits at (1, 8, 64, 32); FSMN (11, 10) at (1, 25 /
    26, 512) against its generic instantiation); ParaformerStreaming at PROD_CONF width
    (the chunk encoder, decoder sanm_shfit 5, WavFrontendOnline) through
-   ``AutoModel.generate`` 600 ms a call as the demo calls it, 2 streams of 30 s, fp32 and
+   ``AutoModel.generate`` 600 ms a call as the demo calls it, 2 streams of 20 s, fp32 and
    ``bf16=True``: gated on non-empty texts (a whole-array call's text equal to the
    chunked stream's), exactly 50 flash, 50 FSMN (11, 5) and 16 FSMN (11, 10) launches a
    chunk and one device-to-host copy a chunk; per-chunk wall p50 / p95 (cold apart), RTF,
@@ -145,7 +145,7 @@ Phases (any failure raises and exits non-zero):
    port (log-probs, ids where the margin clears the error); the server CLI's deployment
    ``AutoModel(model=, vad_model=, punc_model=)`` under 4 clients of 60 s, one
    ``verbose_json`` with its segments; ``WSServer`` 2-pass (Paraformer + punctuation,
-   ParaformerStreaming, realtime punctuation, the VAD), 2 sessions of 30 s at once, then
+   ParaformerStreaming, realtime punctuation, the VAD), 2 sessions of 15 s at once, then
    one after the other: equal messages, every model call replayed directly equal;
    ``RealtimeWSServer`` (VAD endpoints, CAM++ speakers) with a server-mode session of 20 s
    at real time and a client-mode session committing 10 s and 60 s: finals in order with
@@ -222,6 +222,24 @@ Phases (any failure raises and exits non-zero):
    signature (shapes, strides, lengths) the recipe's runs launched, from the trainer's
    ``kernel_shapes`` (``recipe_kernel_rows``), each with the kernel's ms, a lone call's,
    the plain version's, the library call's and the bound.
+17. training family (``phase_training_family``): (c) one training step (loss +
+   backward) of each new loss on the card against the CPU port at PROD_CONF width cut to
+   4 + 2 blocks (``train_family_cuda_vs_cpu``: SenseVoice, CTC, Paraformer-v2 with its
+   device viterbi, E-Paraformer, BiCif, SeACo, Contextual, the fa-zh aligner,
+   CT-Transformer at ct-punc's widths): the loss within ``TRAIN_LOSS_RTOL``, every gradient within
+   ``FAMILY_TRAIN_GRAD_REL_TOL``, launches exactly ``family_train_sites``, the viterbi's
+   indices on the card equal to the CPU's; (a) SenseVoice-Small's recipe as subprocesses:
+   ``bin/data_tools sensevoice2jsonl`` (string tags) and ``bin/train
+   ++dataset=SenseVoiceDataset`` on a seeded SenseVoiceSmall at its published width (50
+   + 20 blocks, d 512, vocab 25,055) with SpecAugLFR, one epoch of token batches of 6,000
+   (a mid-epoch checkpoint with its validation, the epoch's, the 2 best averaged), gated
+   on a finite loss every step, launches exactly 70 flash + 70 flash backward + 70 FSMN
+   + 70 dx + 70 dw a step and 70 + 70 a validation batch, every q / k row, FSMN tap and
+   the prompt embed's rows of the data's tags reached by a gradient, the n-best metric
+   the loss, the average decoding through ``AutoModel`` at 70 + 70 launches; prints ms a
+   step, audio seconds a second, peak memory, a profiled step's device time and idle
+   share; (b) a kernel-vs-plain row at every signature the recipe launched and at
+   CT-Transformer's (16, 8, L, 32) flash backward and (16, L, 256) FSMN dx / dw.
 
 ``python3 chip_smoke.py --recipe-ab [TREE]`` (not part of the run above): the recipe's
 ``bin/train`` six times in one process, alternating this tree with the kernel-shape log on
@@ -254,8 +272,8 @@ phase 12's under ``sensevoice``, with the rows at SenseVoice's shapes, phase 13'
 by run, with the rows at the LLM path's shapes, and phase 15's under ``export``: launches
 of each counted call of an exported program, with the rows at the shapes those calls
 launched, and phase 16's under ``training``, with three more kernels, the backward
-launches ``flash_attention_bwd``, ``fsmn_memory_bwd_input`` and ``fsmn_memory_bwd_weight``),
-the last line
+launches ``flash_attention_bwd``, ``fsmn_memory_bwd_input`` and ``fsmn_memory_bwd_weight``,
+and phase 17's under ``training_family`` in those five), the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1389,6 +1407,8 @@ BICIF_PREDICTOR = dict(PROD_CONF["predictor_conf"], smooth_factor2=0.25, noise_t
 # growth 32, bn_size 4, init 128, blocks 12 / 24 / 16)
 SPK_CONF = dict(feat_dim=80, embedding_size=192, growth_rate=32, bn_size=4, init_channels=128)
 SPEAKER_REQUESTS = 1  # cut from 2, for the run's time limit beside phase 13
+SPEAKER_SECONDS = 90.0   # the meeting's length (cut from 300 s, for the run's time limit
+#                          beside phase 17: the CPU port re-runs it whole)
 SPEAKER_PROFILE_SECONDS = 30  # the profiled request: request 0's first 30 s (cut from 60 s,
 #                               for the run's time limit beside phase 14)
 US_ALPHAS_TOL = 1e-4      # fp32 upsampled alphas, CUDA against the CPU (cuDNN LSTM, cuBLAS)
@@ -1586,11 +1606,11 @@ def phase_speaker(dev, counters, card, keep=None):
     """AutoModel(model=bicif, vad_model=vad, punc_model=punc, spk_model=cam++,
     device="cuda") at the fp32 default: a BiCif Paraformer-large (PROD_CONF with the
     published CifPredictorV3 head), phase 8's fsmn-vad and ct-punc-c, CAM++ at
-    speech_campplus_sv's widths, all seeded; SPEAKER_REQUESTS meetings of 300 s of two
-    synthetic voices, one ``generate(**SPEAKER_CALL)`` each (``batch_size_s=300,
+    speech_campplus_sv's widths, all seeded; SPEAKER_REQUESTS meetings of SPEAKER_SECONDS of
+    two synthetic voices, one ``generate(**SPEAKER_CALL)`` each (``batch_size_s=300,
     preset_spk_num=2``, a fixed 800 ms end silence). Gates
     (raised errors): every request's ``sentence_info`` has an int ``spk`` on every
-    sentence and timestamps rising inside [0, 300000] ms; each stage's kernel launches at
+    sentence and timestamps rising inside the meeting; each stage's kernel launches at
     their sites; the timestamp head on the card against the CPU port on request 0's first
     ASR batch (``us_alphas`` within US_ALPHAS_TOL, fires equal on US_FIRES_MIN_SHARE);
     CAM++ embeddings of request 0's chunks against the CPU port (SPK_EMB_REL_TOL per
@@ -1606,7 +1626,7 @@ def phase_speaker(dev, counters, card, keep=None):
     from funasr_tpu_torch.models.campplus import utils as spk_utils
 
     rng = np.random.default_rng(9)
-    requests = [two_voice_recording(rng) for _ in range(SPEAKER_REQUESTS)]
+    requests = [two_voice_recording(rng, SPEAKER_SECONDS) for _ in range(SPEAKER_REQUESTS)]
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         dirs = write_pipeline_dirs(root, dev, asr_writer=write_bicif_dir)
@@ -1698,8 +1718,8 @@ def phase_speaker(dev, counters, card, keep=None):
         bounds = [b for ts in row["timestamp"] for b in ts]
         starts = [s["start"] for s in info]
         if not (bounds == sorted(bounds) and starts == sorted(starts) and bounds
-                and 0 <= bounds[0] and bounds[-1] <= REQUEST_SECONDS * 1e3):
-            raise AssertionError(f"{key}: timestamps do not rise inside [0, 300000] ms")
+                and 0 <= bounds[0] and bounds[-1] <= SPEAKER_SECONDS * 1e3):
+            raise AssertionError(f"{key}: timestamps do not rise inside the meeting")
         need = {(stage, kernel): n * calls for stage, calls in
                 (("vad", stats["vad_calls"]), ("asr", stats["asr_batches"]),
                  ("punc", stats["windows"])) for kernel, n in sites[stage].items()}
@@ -1810,7 +1830,7 @@ def phase_speaker(dev, counters, card, keep=None):
         f"{rows64[0]['sentence_info'] == first['row']['sentence_info']}")
     am.spk_kwargs["batch_size"] = 1
     campplus_alone(am.spk_model, dev, card)
-    # the profile takes request 0's first SPEAKER_PROFILE_SECONDS (cut from the whole 300 s,
+    # the profile takes request 0's first SPEAKER_PROFILE_SECONDS (cut from the whole meeting,
     # ~380,000 CAM++ launches at B = 1, for the run's time limit)
     clip = wav[:16000 * SPEAKER_PROFILE_SECONDS]
     clip_ms, _ = wall_ms(lambda: am.generate(input=[clip], key=["clip"], **SPEAKER_CALL), runs=1)
@@ -2216,7 +2236,7 @@ STREAM_SMALL_CONF = dict(SMALL_CONF, encoder="SANMEncoderChunkOpt",
 # the demo's call (examples/industrial_data_pretraining/paraformer_streaming/demo.py:21-40)
 STREAM_CALL = dict(chunk_size=[0, 10, 5], encoder_chunk_look_back=4, decoder_chunk_look_back=1)
 STREAM_STRIDE = 9600       # samples a generate: 600 ms
-STREAM_SECONDS = 30.0
+STREAM_SECONDS = 20.0      # (cut from 30 s for the run's time limit beside phase 17)
 STREAMS = 2
 STREAM_COLD = 5            # the first chunks of the first stream: the look-back fills
 STREAM_CPU_CHUNKS = 10     # full-width chunks held against the CPU port
@@ -3238,7 +3258,7 @@ SERVE_PIPE_SECONDS = 60.0
 SERVE_MAX_BATCH, SERVE_WAIT_MS = 8, 15.0  # TranscriptionApp's defaults
 SERVE_2PASS = dict(mode="2pass", chunk_size=[5, 10, 5])
 SERVE_2PASS_SESSIONS = 2
-SERVE_2PASS_SECONDS = 30.0
+SERVE_2PASS_SECONDS = 15.0         # (cut from 30 s for the run's time limit beside phase 17)
 SERVE_2PASS_FRAME = 9600           # 600 ms of PCM16 a binary frame
 SERVE_RT_SECONDS = 20.0            # the server-mode session, 60 ms frames at real time
 SERVE_RT_FRAME = 960               # (cut from 30 s for the run's time limit: one VAD
@@ -5398,6 +5418,14 @@ def run_cli(args, label, timeout=600, tree=None):
     return run
 
 
+def run_clis(jobs, timeout=600):
+    """``run_cli`` of each (args, label) in ``jobs`` at once, each in a process of its own
+    (finetune.sh's data_tools calls of the train and val splits); raises as ``run_cli``."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        return list(pool.map(lambda job: run_cli(*job, timeout=timeout), jobs))
+
+
 def read_train_log(out):
     with open(os.path.join(out, "train.log.jsonl"), encoding="utf-8") as f:
         lines = [json.loads(line) for line in f]
@@ -5444,8 +5472,8 @@ def recipe_batches(jsonl):
 def recipe_setup(root, dev):
     """finetune.sh's inputs under ``root``: a seeded PROD_CONF Paraformer-large model dir
     whose config carries the training keys, 16 + 4 generated wavs and their jsonl, written
-    by ``bin/data_tools scp2jsonl`` as a subprocess. Returns (model dir, tokens, {split:
-    jsonl})."""
+    by ``bin/data_tools scp2jsonl``, a subprocess a split, both at once. Returns (model
+    dir, tokens, {split: jsonl})."""
     import yaml
     rng = np.random.default_rng(16)
     md = os.path.join(root, "paraformer-large")
@@ -5463,12 +5491,11 @@ def recipe_setup(root, dev):
     lists = write_train_data(root, rng, tokens)
     log(f"training: model dir and {TRAIN_UTTS} + {TRAIN_VAL_UTTS} wavs written in "
         f"{time.perf_counter() - t0:.1f} s")
-    jsonl = {}
-    for split, (scp, txt) in lists.items():
-        jsonl[split] = os.path.join(root, f"{split}.jsonl")
-        run_cli(["funasr_tpu_torch.bin.data_tools", "scp2jsonl",
-                 f'++scp_file_list=["{scp}","{txt}"]', '++data_type_list=["source","target"]',
-                 f"++jsonl_file_out={jsonl[split]}"], f"data_tools scp2jsonl {split}")
+    jsonl = {split: os.path.join(root, f"{split}.jsonl") for split in lists}
+    run_clis([(["funasr_tpu_torch.bin.data_tools", "scp2jsonl",
+                f'++scp_file_list=["{scp}","{txt}"]', '++data_type_list=["source","target"]',
+                f"++jsonl_file_out={jsonl[split]}"], f"data_tools scp2jsonl {split}")
+              for split, (scp, txt) in lists.items()])
     return md, tokens, jsonl
 
 
@@ -5661,6 +5688,407 @@ def phase_training(dev, counters, card):
     return figures
 
 
+# ---- phase 17: training SenseVoice and the Paraformer variants -----------------------
+
+# SenseVoice's training keys. The repo holds no published SenseVoice value for them: the
+# JAX class's defaults (lsm_weight 0, length_normalized_loss off, ignore_id -1), FunASR's
+# template SpecAugLFR (TRAIN_SPECAUG_CONF, paraformer-large's) and phase 12's frontend
+# (dither 0); the encoder has no dropout (the JAX loss passes it no key)
+SV_TRAIN_MODEL_CONF = dict(lsm_weight=0.0, length_normalized_loss=False, ignore_id=-1)
+# finetune.sh's flags (TRAIN_RECIPE) for one epoch of about 4 steps: the mid-epoch
+# checkpoint and its validation at step 3, the profiled step the second, the epoch's
+# checkpoint, the 2 best averaged
+SV_TRAIN_RUN = ["++dataset=SenseVoiceDataset", "++train_conf.max_epoch=1",
+                "++train_conf.save_checkpoint_interval=3", "++train_conf.avg_nbest_model=2",
+                "++train_conf.profile_start_step=1", "++train_conf.profile_steps=1"]
+SV_QUERY_ROWS = [1, 2, 3, 15]  # the prompt embed's rows sensevoice2jsonl's tags reach:
+#                                event, emotion, <|zh|> -> 3, <|woitn|> -> 15
+# (c) the losses at PROD_CONF width cut to 4 + 2 blocks (TRAIN_CPU_DEPTH), one step each on
+# the card and on the CPU: 2 utterances of FAMILY_TRAIN_T seconds, ~4 characters a second
+FAMILY_TRAIN_T = (6.0, 4.2)
+FAMILY_TRAIN_TEXT = (24, 17)
+FAMILY_TRAIN_GRAD_REL_TOL = 1e-4  # each gradient, CUDA against the CPU, relative L2
+FAMILY_ZERO_SHARE = 1e-6  # a gradient under this share of the global norm is zero (PIF bias)
+CT_TRAIN = (16, 100)      # CT-Transformer's batch: 16 windows of up to 100 tokens
+
+
+def sv_train_sites(blocks):
+    """Launches of each kernel in one SenseVoice training step (every block's attention
+    and FSMN, forward and backward) and in one validation batch."""
+    step = {"flash_attention": blocks, "flash_attention_bwd": blocks, "fsmn_memory": blocks,
+            "fsmn_memory_bwd_input": blocks, "fsmn_memory_bwd_weight": blocks,
+            "w8a8_linear": 0}
+    val = dict(step, flash_attention_bwd=0, fsmn_memory_bwd_input=0, fsmn_memory_bwd_weight=0)
+    return step, val
+
+
+def family_train_sites(name, enc, dec):
+    """Launches of each kernel in one training step (forward and backward) of ``name`` at
+    ``enc`` encoder and ``dec`` decoder blocks: Paraformer's sites (the glancing sampler's
+    no-grad decoder pass adds the decoder's FSMNs again); Paraformer-v2 has no sampler;
+    BiCif and SeACo encode a second time, with gradients, for ``loss_pre2``; the
+    encoder-only models their encoder's."""
+    if name in ("SenseVoiceSmall", "CTC", "MonotonicAligner", "CTTransformer"):
+        return sv_train_sites(enc)[0]
+    twice = 2 if name in ("BiCifParaformer", "SeacoParaformer") else 1
+    sampler = 0 if name == "ParaformerV2" else dec
+    step, _ = train_sites(enc, dec)
+    return dict(step, flash_attention=twice * enc, flash_attention_bwd=twice * enc,
+                fsmn_memory=twice * enc + dec + sampler,
+                fsmn_memory_bwd_input=twice * enc + dec,
+                fsmn_memory_bwd_weight=twice * enc + dec)
+
+
+def family_train_confs():
+    """The nine losses' configs: PROD_CONF width at TRAIN_CPU_DEPTH (SenseVoice's 4 + 2
+    SAN-M and tp blocks), the published heads of phases 9, 10 and 12, PROD_CONF's training
+    keys (TRAIN_MODEL_CONF: the sampler at 0.75, lsm 0.1); CT-Transformer at ct-punc's
+    published widths (4 blocks, d 256, 8 heads)."""
+    enc_n, dec_n = TRAIN_CPU_DEPTH
+    enc = dict(PROD_CONF["encoder_conf"], num_blocks=enc_n)
+    para = dict(PROD_CONF, **TRAIN_MODEL_CONF, encoder_conf=enc,
+                decoder_conf=dict(PROD_CONF["decoder_conf"], num_blocks=dec_n,
+                                  att_layer_num=dec_n))
+    v3 = dict(BICIF_PREDICTOR)
+    return {
+        "SenseVoiceSmall": dict(SV_CONF, lsm_weight=0.1, encoder_conf=dict(
+            SV_CONF["encoder_conf"], num_blocks=enc_n, tp_blocks=dec_n)),
+        "CTC": dict(input_size=560, vocab_size=PROD_CONF["vocab_size"], encoder_conf=enc),
+        "ParaformerV2": dict({k: v for k, v in para.items() if k != "predictor_conf"},
+                             ctc_weight=0.5),
+        "EParaformer": dict({k: v for k, v in para.items() if k != "predictor_bias"},
+                            predictor_conf=dict(idim=enc["output_size"], sigma_heads=4)),
+        "BiCifParaformer": dict(para, predictor_conf=v3),
+        "SeacoParaformer": dict(para, predictor_conf=v3, **SEACO_EXTRA),
+        "ContextualParaformer": dict(para, **CONTEXTUAL_EXTRA),
+        "MonotonicAligner": dict(input_size=560, encoder_conf=enc, predictor="CifPredictorV3",
+                                 predictor_conf=v3, predictor_bias=1),
+        "CTTransformer": dict(PUNC_MODEL_CONF, vocab_size=PUNC_VOCAB,
+                              encoder_conf=dict(PUNC_ENC, dropout_rate=0.0)),
+    }
+
+
+def family_train_batch(name, model, rng):
+    """One step's inputs: (feats, lengths, text, text lengths, the glancing sampler's
+    uniforms or None) for the ASR models, (token ids, punctuation ids, lengths) for
+    CT-Transformer."""
+    from funasr_tpu_torch.frontends.wav_frontend import WavFrontend
+    if name == "CTTransformer":
+        b, l = CT_TRAIN
+        lens = torch.from_numpy(rng.integers(l // 3, l + 1, b)).int()
+        lens[0] = l
+        valid = torch.arange(l)[None] < lens[:, None].long()
+        text = torch.from_numpy(rng.integers(0, model.embed.num_embeddings, (b, l))) * valid
+        punc = torch.where(valid, torch.from_numpy(rng.integers(1, 6, (b, l))), -1)
+        return text.long(), punc.long(), lens
+    waves = [pcm(rng, s) for s in FAMILY_TRAIN_T]
+    feats, flens = WavFrontend(**FRONTEND_CONF).extract(waves)
+    tl = torch.tensor(FAMILY_TRAIN_TEXT)
+    text = torch.full((2, max(FAMILY_TRAIN_TEXT)), -1, dtype=torch.long)
+    for i, n in enumerate(FAMILY_TRAIN_TEXT):
+        text[i, :n] = torch.from_numpy(rng.integers(3, 8000, n))
+    uniform = None
+    if name == "SenseVoiceSmall":
+        tags = torch.tensor([[24884, 24993, 25004, 25017], [24885, 24994, 25001, 25016]])
+        text, tl = torch.cat([tags, text], dim=1), tl + 4
+    elif getattr(model, "sampling_ratio", 0) > 0 and name != "ParaformerV2":
+        uniform = torch.from_numpy(rng.random((2, text.shape[1] + model.predictor_bias),
+                                              dtype=np.float32))
+    return (torch.from_numpy(np.ascontiguousarray(feats)), torch.from_numpy(flens), text, tl,
+            uniform)
+
+
+def grad_rel_errors(cpu_grads, gpu_grads):
+    """Each parameter's gradient, CUDA against the CPU, relative L2; a gradient under
+    FAMILY_ZERO_SHARE of the global norm on the CPU (zero in exact arithmetic: the PIF
+    predictor's per-head bias, under which softmax does not move) is held to that floor
+    on both instead. -> (worst relative error, its name, names over the floor's rule)."""
+    total = math.sqrt(sum(float(g.double().square().sum()) for g in cpu_grads.values()
+                          if g is not None))
+    floor = FAMILY_ZERO_SHARE * total
+    worst, worst_name, bad = 0.0, None, []
+    for n, want in cpu_grads.items():
+        got = gpu_grads[n]
+        if want is None or got is None:
+            if (want is None) != (got is None):
+                bad.append(n)
+            continue
+        got = got.cpu()
+        if want.norm() <= floor:
+            if got.norm() > floor:
+                bad.append(n)
+            continue
+        r = rel_l2(got, want)
+        if not r <= worst:
+            worst, worst_name = r, n
+    return worst, worst_name, bad
+
+
+@contextlib.contextmanager
+def recorded_alignments():
+    """Each Paraformer-v2 step's forced alignment: the log-probs and targets it was given
+    and the indices it returned (on their device)."""
+    import funasr_tpu_torch.models.paraformer_v2.model as v2
+    align, calls = v2.ctc_forced_align_device, []
+
+    def record(*args, **kwargs):
+        out = align(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    v2.ctc_forced_align_device = record
+    try:
+        yield calls
+    finally:
+        v2.ctc_forced_align_device = align
+
+
+def train_family_cuda_vs_cpu(dev, counters):
+    """(c) One training step (loss + backward) of each new loss on the card and on the
+    CPU, the same weights and inputs, dropout and SpecAug off, the sampler's draws fed
+    equal, the CIF's last-fire tie moved alike (``cif_tie_moved``). Gates: the loss within
+    TRAIN_LOSS_RTOL, every gradient within FAMILY_TRAIN_GRAD_REL_TOL relative L2
+    (``grad_rel_errors``), the step's launches exactly ``family_train_sites``; on the card
+    the device viterbi's indices equal the CPU's on the CPU step's log-probs, and
+    Paraformer-v2's alignment inside the two steps alike. CT-Transformer's launches are
+    recorded by signature for (b). Returns {name: figures} and CT's launch shapes."""
+    from funasr_tpu_torch import tables
+    from funasr_tpu_torch.ops import cuda_lib
+    from funasr_tpu_torch.ops.ctc_align import ctc_forced_align_device
+
+    enc_n, dec_n = TRAIN_CPU_DEPTH
+    out, ct_shapes = {}, None
+    for name, conf in family_train_confs().items():
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(17)
+        cpu = tables.model_classes[name](**conf, generator=torch.Generator().manual_seed(17))
+        gpu = copy.deepcopy(cpu).to(dev)
+        batch = family_train_batch(name, cpu, rng)
+        res = {}
+        tie = cif_tie_moved() if name in ("BiCifParaformer", "SeacoParaformer",
+                                          "ContextualParaformer") else contextlib.nullcontext()
+        with tie, recorded_alignments() as aligned:
+            for label, model in (("cpu", cpu), ("cuda", gpu)):
+                model.train()
+                d = next(model.parameters()).device
+                if name == "CTTransformer":
+                    args, kwargs = [x.to(d) for x in batch], {}
+                else:
+                    args = [x.to(d) for x in batch[:4]]
+                    kwargs = {} if batch[4] is None else {"sampler_uniform": batch[4].to(d)}
+                for c in counters:
+                    c.launches = 0
+                if label == "cuda" and name == "CTTransformer":
+                    cuda_lib.record_launch_shapes()
+                loss, stats, weight = model(*args, **kwargs)
+                loss.backward()
+                if d.type == "cuda":
+                    torch.cuda.synchronize()
+                if label == "cuda" and name == "CTTransformer":
+                    lines = [dict(step=0, launches={c.__name__: c.launches for c in counters},
+                                  kernel_shapes=cuda_lib.take_launch_shapes())]
+                    cuda_lib.stop_recording_launch_shapes()
+                    ct_shapes = recipe_launch_shapes(lines)
+                res[label] = (loss.item(), {k: float(v.detach()) for k, v in stats.items()
+                                            if torch.is_tensor(v) and v.dim() == 0},
+                              int(weight), {n: p.grad for n, p in model.named_parameters()},
+                              {c.__name__: c.launches for c in counters})
+        (cl, cst, cw, cg, _), (gl, gst, gw, gg, launches) = res["cpu"], res["cuda"]
+        worst, worst_name, bad = grad_rel_errors(cg, gg)
+        # the losses among the stats (an accuracy is an argmax, whose near-ties may flip)
+        stat_err = max(abs(gst[k] - v) / max(abs(v), 1.0) for k, v in cst.items()
+                       if k.startswith("loss"))
+        sites = family_train_sites(name, 6 if name == "SenseVoiceSmall" else
+                                   PUNC_ENC["num_blocks"] if name == "CTTransformer"
+                                   else enc_n, dec_n)
+        fig = dict(loss_cpu=cl, loss_cuda=gl, loss_rel=abs(gl - cl) / abs(cl), stats_err=stat_err,
+                   worst_grad_rel_l2=worst, worst_param=worst_name, launches=launches,
+                   seconds=time.perf_counter() - t0)
+        if name == "ParaformerV2":
+            (cpu_args, cpu_kw, cpu_idx), (_, _, gpu_idx) = aligned
+            again = ctc_forced_align_device(*[a.to(dev) for a in cpu_args], **cpu_kw)
+            fig.update(viterbi_equal=bool(torch.equal(again.cpu(), cpu_idx)),
+                       step_alignments_equal=bool(torch.equal(gpu_idx.cpu(), cpu_idx)),
+                       viterbi_frames=int((cpu_idx >= 0).sum()))
+        log(f"training step CUDA vs CPU, {name}: loss {gl:.7f} vs {cl:.7f} (rel "
+            f"{fig['loss_rel']:.2e}, tol {TRAIN_LOSS_RTOL:g}; stats {stat_err:.2e}); worst "
+            f"gradient rel L2 {worst:.2e} ({worst_name}, tol {FAMILY_TRAIN_GRAD_REL_TOL:g}); "
+            f"launches {launches}" + (f"; viterbi on the card equal {fig['viterbi_equal']}, "
+                                      f"the steps' alignments equal "
+                                      f"{fig['step_alignments_equal']}"
+                                      if name == "ParaformerV2" else "")
+            + f" ({fig['seconds']:.1f} s)")
+        if fig["loss_rel"] > TRAIN_LOSS_RTOL or stat_err > TRAIN_LOSS_RTOL or cw != gw:
+            raise AssertionError(f"{name}: the CUDA loss disagrees with the CPU's")
+        if not worst <= FAMILY_TRAIN_GRAD_REL_TOL or bad:
+            raise AssertionError(f"{name}: gradients disagree ({worst_name} {worst}; {bad[:4]})")
+        if launches != sites:
+            raise AssertionError(f"{name}: launches {launches} != sites {sites}")
+        if name == "ParaformerV2" and not (fig["viterbi_equal"] and fig["step_alignments_equal"]):
+            raise AssertionError("the device viterbi on the card disagrees with the CPU's")
+        out[name] = fig
+        del cpu, gpu
+    return out, ct_shapes
+
+
+def sv_recipe_setup(root, dev):
+    """SenseVoice's recipe inputs under ``root``: a seeded SenseVoiceSmall dir at its
+    published width (phase 12's ``write_sense_voice_dir``, tags at their ids) whose config
+    carries the training keys, and 16 + 4 generated wavs of 10-15 s written to jsonl by
+    ``bin/data_tools sensevoice2jsonl`` (string tags: zh, NEUTRAL, Speech, with_itn
+    false), a subprocess a split, both at once. Returns (model dir, {split: jsonl})."""
+    md = os.path.join(root, "sensevoice-small")
+    os.makedirs(md)
+    t0 = time.perf_counter()
+    write_sense_voice_dir(md, dev)
+    with open(os.path.join(md, "config.yaml"), encoding="utf-8") as f:
+        import yaml
+        cfg = yaml.safe_load(f)
+    cfg.update(specaug="SpecAugLFR", specaug_conf=TRAIN_SPECAUG_CONF)
+    cfg["model_conf"].update(SV_TRAIN_MODEL_CONF)
+    write_config(md, cfg)
+    # characters only: the tag tokens sit at 24884 and after
+    lists = write_train_data(root, np.random.default_rng(17), sv_tokens()[1:24884])
+    log(f"SenseVoice training: model dir and {TRAIN_UTTS} + {TRAIN_VAL_UTTS} wavs written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    jsonl = {split: os.path.join(root, f"sv_{split}.jsonl") for split in lists}
+    run_clis([(["funasr_tpu_torch.bin.data_tools", "sensevoice2jsonl",
+                f'++scp_file_list=["{scp}","{txt}"]', '++data_type_list=["source","target"]',
+                f"++jsonl_file_out={jsonl[split]}"], f"data_tools sensevoice2jsonl {split}")
+              for split, (scp, txt) in lists.items()])
+    return md, jsonl
+
+
+def embed_rows_reached(ckpt_path):
+    """The prompt embed's rows that had a non-zero gradient (their Adam second moment)."""
+    state = torch.load(ckpt_path, map_location="cpu", weights_only=True, mmap=True)
+    idx = list(state["state_dict"]).index("embed.weight")
+    opt = state["optimizer"]
+    v = opt["state"][opt["param_groups"][0]["params"][idx]]["exp_avg_sq"]
+    return [i for i in range(v.shape[0]) if v[i].abs().max() > 0]
+
+
+def phase_training_family(dev, counters, card):
+    """Phase 17: (a) SenseVoice-Small's recipe: ``bin/data_tools sensevoice2jsonl`` and
+    ``bin/train ++dataset=SenseVoiceDataset`` as subprocesses on a seeded SenseVoiceSmall
+    at its published width (50 + 20 blocks, d 512, vocab 25,055) with its training keys,
+    one epoch of token batches of 6,000 frames (a mid-epoch checkpoint with its
+    validation, the epoch's, the 2 best averaged). Gates: a finite loss every step, every
+    step's launches exactly 70 flash + 70 flash backward + 70 FSMN + 70 dx + 70 dw and
+    every validation batch's 70 + 70, every linear_q_k_v's q / k rows, every fsmn_block
+    and the prompt embed's rows of the data's tags reached by a gradient (the
+    checkpoint's Adam moments), the average decoding through ``AutoModel`` at 70 + 70
+    launches a batch. (b) a kernel-vs-plain row at every signature the recipe launched
+    and at CT-Transformer's (16, 8, L, 32) flash backward and (16, L, 256) FSMN dx / dw,
+    from (c)'s step (``recipe_kernel_rows``). (c) one step of each new loss on the card
+    against the CPU (``train_family_cuda_vs_cpu``)."""
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory_bwd_input, fsmn_memory_bwd_weight
+
+    counters = (*counters, flash_attention_bwd, fsmn_memory_bwd_input, fsmn_memory_bwd_weight)
+    torch.cuda.empty_cache()
+    figures = {}
+    blocks = SV_CONF["encoder_conf"]["num_blocks"] + SV_CONF["encoder_conf"]["tp_blocks"]
+    step_sites, val_sites = sv_train_sites(blocks)
+
+    # (c) first: its CT-Transformer step gives (b) its signatures
+    t_part = time.perf_counter()
+    figures["cuda_vs_cpu"], ct_shapes = train_family_cuda_vs_cpu(dev, counters)
+    log(f"training family (c): CUDA against the CPU in {time.perf_counter() - t_part:.1f} s")
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root:
+        md, jsonl = sv_recipe_setup(root, dev)
+        out = os.path.join(root, "exp")
+        profile_dir = os.path.join(root, "profile")
+        t0 = time.perf_counter()
+        run_cli(["funasr_tpu_torch.bin.train", f"++model={md}",
+                 f"++train_data_set_list={jsonl['train']}",
+                 f"++valid_data_set_list={jsonl['val']}", *TRAIN_RECIPE, *SV_TRAIN_RUN,
+                 f"++output_dir={out}", f"++train_conf.profile_dir={profile_dir}"],
+                "bin/train SenseVoice (epoch 0)")
+        run_wall = time.perf_counter() - t0
+        steps, vals = read_train_log(out)
+        bad = [x["step"] for x in steps if not math.isfinite(x["loss"])]
+        wrong = [(x["step"], x["launches"]) for x in steps if x["launches"] != step_sites]
+        wrong += [("val", x["step"], x["launches"]) for x in vals
+                  if x["launches"] != {k: v * x["batches"] for k, v in val_sites.items()}]
+        for x in steps:
+            log(f"  step {x['step']}: loss {x['loss']:.4f} loss_ctc {x['loss_ctc']:.4f} "
+                f"loss_rich {x['loss_rich']:.4f} acc_rich {x['acc_rich']:.4f} grad_norm "
+                f"{x['grad_norm']:.3f} peak {x.get('peak_mem_mib', 0):.0f} MiB")
+        for x in vals:
+            log(f"  validation at step {x['step']}: {x['batches']} batches, loss "
+                f"{x['validate']['loss']:.4f}, launches {x['launches']}")
+        if bad or wrong or len(vals) != 2:
+            raise AssertionError(f"SenseVoice training: non-finite loss at {bad}; launches "
+                                 f"off the sites {wrong[:3]}; {len(vals)} validations")
+        latest = open(os.path.join(out, "model.pt.latest")).read().strip()
+        ckpt = os.path.join(out, latest)
+        checked, zero = grads_reached(ckpt)
+        rows = embed_rows_reached(ckpt)
+        metric_name = torch.load(ckpt, map_location="cpu", weights_only=True,
+                                 mmap=True)["metric_name"]
+        log(f"SenseVoice training: {checked} attention / FSMN weights checked in {latest}, "
+            f"{len(zero)} never reached by a gradient; prompt embed rows reached {rows}; "
+            f"n-best metric {metric_name!r}")
+        if zero or checked != 2 * blocks or rows != SV_QUERY_ROWS or metric_name != "loss":
+            raise AssertionError(f"SenseVoice weights without a gradient: {zero[:4]} "
+                                 f"({checked} checked), embed rows {rows}, {metric_name}")
+
+        # (b) every signature the recipe and CT-Transformer's step launched
+        shapes = recipe_launch_shapes(steps + vals)
+        log(f"SenseVoice training: {len(shapes)} kernel signatures over {len(steps)} steps "
+            f"and {len(vals)} validations; CT-Transformer's step {len(ct_shapes)}")
+        t_part = time.perf_counter()
+        figures["recipe_rows"] = recipe_kernel_rows(dev, shapes)
+        figures["ct_rows"] = recipe_kernel_rows(dev, ct_shapes)
+        log(f"training family (b): kernel rows in {time.perf_counter() - t_part:.1f} s")
+
+        # the average decodes
+        am = AutoModel(model=out, init_param=os.path.join(out, "model.pt.avg"), device="cuda")
+        waves = [np.asarray(pcm(np.random.default_rng(98), 12.0))]
+        for c in counters:
+            c.launches = 0
+        res = am.generate(input=waves, language="auto")
+        torch.cuda.synchronize()
+        dec_launches = {c.__name__: c.launches for c in counters}
+        log(f"averaged SenseVoice checkpoint through AutoModel(model=<output dir>): "
+            f"{res[0]['key']} text of {len(res[0]['text'])} characters; launches {dec_launches}")
+        if not isinstance(res[0]["text"], str) or dec_launches["flash_attention"] != blocks \
+                or dec_launches["fsmn_memory"] != blocks:
+            raise AssertionError("the averaged SenseVoice checkpoint did not decode through "
+                                 "the kernels")
+        del am
+
+        seconds = recipe_batches(jsonl["train"])[:len(steps)]
+        wall = [y["time"] - x["time"] for x, y in zip(steps, steps[1:])
+                if y["step"] != 2 and x["step"] != 3]  # not the profiled step, nor a checkpoint's
+        step_ms = statistics.median(wall) * 1e3 if wall else float("nan")
+        audio = statistics.mean(seconds)
+        with open(os.path.join(profile_dir, "summary.json")) as f:
+            prof = json.load(f)
+        idle = 1 - prof["device_ms"] / step_ms
+        peak = max(x.get("peak_mem_mib", 0) for x in steps)
+        launches = {k: sum(x["launches"][k] for x in steps + vals) for k in step_sites}
+        log(f"SenseVoice training ({card}): {len(steps)} steps, {step_ms:.1f} ms a step "
+            f"(median of {len(wall)}), {audio * 1e3 / step_ms:.1f} audio s a second "
+            f"({audio:.1f} s a batch), peak {peak:.0f} MiB; profiled step: device "
+            f"{prof['device_ms']:.1f} ms ({prof['wall_ms']:.1f} ms wall under the profiler), "
+            f"idle share {idle:.1%}; the run {run_wall:.1f} s; launches {launches}")
+        top = sorted(prof["by_kernel"].items(), key=lambda kv: -kv[1][0])[:8]
+        for name, (ms, n) in top:
+            log(f"  {ms:8.3f} {n:5d}  {name[:110]}")
+        figures.update(steps=len(steps), step_ms=step_ms, audio_s_per_s=audio * 1e3 / step_ms,
+                       peak_mem_mib=peak, run_s=run_wall,
+                       profile=dict(device_ms=prof["device_ms"], wall_ms=prof["wall_ms"],
+                                    idle_share=idle),
+                       launches=launches, launches_per_step=step_sites,
+                       decode_launches=dec_launches)
+    return figures
+
+
 STREAMING_ENTRIES = {
     "flash_attention": [(f"{key}_{dt}", ("flash_attention", "streaming", key, dtype))
                         for key in [f"keys{tk}" for tk in STREAM_FLASH_KEYS] + ["causal",
@@ -5712,7 +6140,7 @@ LLM_ENTRIES = {
 
 def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None,
                  hotword=None, streaming=None, sensevoice=None, serving=None, llm=None,
-                 export=None, training=None):
+                 export=None, training=None, training_family=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
@@ -5742,7 +6170,9 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
     shape, ``launches`` those of the recipe's runs (the sums of the trainer's per-step and
     per-validation counts), flash's rows in each mode under ``rows``; each of the five
     kernels' rows at every shape the recipe launched (``recipe_kernel_rows``, labelled by
-    ``recipe_label``) under ``recipe_rows`` (the forward kernels': in ``training``)."""
+    ``recipe_label``) under ``recipe_rows`` (the forward kernels': in ``training``). Phase
+    17's (``training_family``) go under ``training_family`` in each of those five
+    (``family_entry``)."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -5834,6 +6264,8 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             entry["training"] = dict(launches=training["launches"][name],
                                      launches_per_step=training["launches_per_step"][name],
                                      recipe_rows=training["recipe_rows"].get(name, {}))
+        if training_family:
+            entry["training_family"] = family_entry(training_family, name)
         kernels.append(entry)
     for name, (src, keys) in (TRAIN_BACKWARD.items() if training else ()):
         rows = training["rows"]
@@ -5847,8 +6279,23 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             recipe_rows=training["recipe_rows"][name])
         if len(keys) > 1:
             entry["rows"] = {key[1]: rows[key] for key in keys}
+        if training_family:
+            entry["training_family"] = family_entry(training_family, name)
         kernels.append(entry)
     return {"kernels": kernels}
+
+
+def family_entry(family, name):
+    """A kernel's phase 17 figures: its launches in SenseVoice's recipe run (steps and
+    validations) and a step, its rows at every signature that run launched
+    (``recipe_rows``) and at CT-Transformer's step (``ct_rows``), and its launches in
+    each loss's CUDA step of (c)."""
+    return dict(launches=family["launches"][name],
+                launches_per_step=family["launches_per_step"][name],
+                recipe_rows=family["recipe_rows"].get(name, {}),
+                ct_rows=family["ct_rows"].get(name, {}),
+                cuda_vs_cpu_launches={m: f["launches"][name]
+                                      for m, f in family["cuda_vs_cpu"].items()})
 
 
 # phase 16's backward kernels: name -> (source, record keys; the first is the line's row)
@@ -5914,10 +6361,11 @@ def main():
         llm = timed("LLM", phase_llm, dev, counters, card)
         export = timed("text and export", phase_export, dev, counters, card, keep)
     training = timed("training", phase_training, dev, counters, card)
+    family = timed("training family", phase_training_family, dev, counters, card)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
                                   speaker, hotword, streaming, sensevoice, serving, llm,
-                                  export, training),
+                                  export, training, family),
                      default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

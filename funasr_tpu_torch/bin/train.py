@@ -7,6 +7,10 @@ Usage (``funasr-tpu-torch-train`` is the console script of this module):
         ++dataset_conf.batch_size=6000 ++dataset_conf.batch_type=token \\
         ++optim_conf.lr=0.0002 ++train_conf.max_epoch=50 ++output_dir=exp1 [++device=cpu]
 
+SenseVoice-Small's recipe adds ``++dataset=SenseVoiceDataset`` (or a ``dataset`` key in the
+model dir's config.yaml) over the jsonl of ``bin/data_tools sensevoice2jsonl``; every ported
+ASR model but the streaming Paraformer and the LLM family trains this way.
+
 The model is built as ``AutoModel`` builds it (the dir's config.yaml, tokenizer,
 frontend, ``model.pt`` as the starting weights, else seeded ones), on ``++device``
 (cuda by default; cuda without a GPU raises), in fp32. The output dir gets the model

@@ -10,6 +10,11 @@ then ``get_upsample_timestamp`` rescales the upsampled alphas to the decoded tok
 upsample rate. It keeps Paraformer's dispatch / fetch pair: ``decode_outputs`` hands the
 upsampled alphas and peaks to the pair's single copy, and ``transcript`` formats each
 row, so ``AutoModel``'s double-buffered loop keeps the timestamps.
+
+``forward`` is the training loss (``forward_jit``, ``model.py:39-53``): Paraformer's plus
+``loss_pre2``, the MAE of the upsampled alphas' sum against the target count. As in the
+JAX package, that head reads a second pass of the encoder without SpecAug or dropout, so
+a BiCif step runs the encoder twice (SeACo-Paraformer inherits the loss).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Optional
 
 import funasr_tpu_torch.models.bicif_paraformer.cif_predictor  # noqa: F401 (registers V3)
 from funasr_tpu_torch.core.layers import make_pad_mask
+from funasr_tpu_torch.models.paraformer.cif_predictor import mae_token_loss
 from funasr_tpu_torch.models.paraformer.model import Paraformer
 from funasr_tpu_torch.register import tables
 from funasr_tpu_torch.utils import postprocess_utils
@@ -28,6 +34,19 @@ from funasr_tpu_torch.utils.timestamp_tools import ts_prediction_lfr6_standard
 class BiCifParaformer(Paraformer):
     def __init__(self, *args, predictor: str = "CifPredictorV3", **kwargs):
         super().__init__(*args, predictor=predictor, **kwargs)
+
+    def forward(self, speech, speech_lengths, text, text_lengths, generator=None,
+                sampler_uniform=None):
+        """Paraformer's (loss, stats, weight) with ``loss_pre2`` added to the loss and the
+        stats."""
+        loss, stats, weight = super().forward(speech, speech_lengths, text, text_lengths,
+                                              generator, sampler_uniform)
+        encoder_out, encoder_out_lens = self.encode(speech, speech_lengths)
+        mask = make_pad_mask(encoder_out_lens, encoder_out.shape[1])
+        _, _, us_alphas, _ = self.predictor.get_upsample_timestamp(encoder_out, mask)
+        loss_pre2 = mae_token_loss(text_lengths + self.predictor_bias, us_alphas.sum(dim=-1))
+        loss = loss + loss_pre2
+        return loss, dict(stats, loss_pre2=loss_pre2, loss=loss), weight
 
     def infer_timestamp(self, speech, speech_lengths, max_tokens: Optional[int] = None,
                         context=None):

@@ -13,6 +13,11 @@ Each window is padded to ``bucket_length(n, minimum=8, multiple=8)`` with length
 in JAX; every encoder block runs the flash kernel (8 heads x 32 at ct-punc width) and
 the FSMN kernel on CUDA. Each window's logits come to the host for the argmax, as in
 JAX, so the loop is host-bound by design.
+
+``forward(text, punc, text_lengths)`` is the training loss (``forward_jit``,
+``model.py:78-88``): CE over the punctuation ids weighted by ``punc_weight``, padding
+(``ignore_id``) left out, over the token count, which is also the weight. The trainer
+feeds features, so it is a model method only, as in JAX.
 """
 
 from __future__ import annotations
@@ -36,13 +41,16 @@ class CTTransformer(nn.Module):
 
     def __init__(self, encoder: str = "SANMEncoder", encoder_conf: Optional[dict] = None,
                  vocab_size: int = -1, punc_list: Optional[list] = None,
-                 embed_unit: int = 128, att_unit: int = 256, sentence_end_id: int = 3,
+                 punc_weight: Optional[list] = None, embed_unit: int = 128,
+                 att_unit: int = 256, ignore_id: int = -1, sentence_end_id: int = 3,
                  device=None, generator: Optional[torch.Generator] = None, **kwargs):
         """``generator``: when given, every weight is drawn from it (the JAX package's
-        init rules, ``core/module.py::init_weights``). Training-only keys of hub configs
-        (``punc_weight``, ``ignore_id``, ...) are accepted and ignored."""
+        init rules, ``core/module.py::init_weights``). ``punc_weight`` (1 for each
+        punctuation by default) and ``ignore_id`` set ``forward``'s loss."""
         super().__init__()
         self.punc_list = punc_list or ["<unk>", "_", "，", "。", "？", "、"]
+        self.punc_weight = list(punc_weight or [1.0] * len(self.punc_list))
+        self.ignore_id = ignore_id
         self.sentence_end_id = sentence_end_id
         enc_conf = dict(encoder_conf or {})
         enc_conf.setdefault("input_size", embed_unit)
@@ -69,6 +77,18 @@ class CTTransformer(nn.Module):
         x = embedding(text, self.embed.weight)
         h, _ = self.encoder(x, text_lengths)
         return apply_linear(self.decoder, h)
+
+    def forward(self, text, punc, text_lengths):
+        """(B, L) token ids, (B, L) punctuation ids (``ignore_id`` padding), lengths ->
+        (loss, stats ``loss``, weight: the count of non-padding ids)."""
+        logp = torch.log_softmax(self.punc_forward(text, text_lengths).float(), dim=-1)
+        valid = punc != self.ignore_id
+        tgt = torch.where(valid, punc, 0).long()
+        w = torch.tensor(self.punc_weight, dtype=torch.float32, device=logp.device)[tgt]
+        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0] * w * valid
+        ntokens = valid.sum()
+        loss = nll.sum() / ntokens.clamp_min(1)
+        return loss, dict(loss=loss), ntokens
 
     # ------------------------------------------------------------------
 

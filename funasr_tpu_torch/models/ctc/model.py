@@ -2,8 +2,8 @@
 ``funasr/models/ctc/model.py:17``, registered as model "CTC"): any registered encoder,
 the CTC head and the greedy collapse. As in the JAX package the features are not
 bucketed, and the path is the argmax of the logits, blank past each row's length; it
-comes to the host in one copy. This model's training loss is ROADMAP item 20b
-(``CTC.loss`` is ported).
+comes to the host in one copy. ``forward`` is the training loss (``forward_jit``,
+``model.py:44-51``): SpecAug, the encoder with its dropout, the mean CTC loss.
 """
 
 from __future__ import annotations
@@ -24,11 +24,15 @@ from funasr_tpu_torch.utils.load_utils import extract_fbank, load_audio_text_ima
 
 @tables.register("model_classes", "CTC")
 class CTCModel(nn.Module):
-    def __init__(self, encoder: str = "SANMEncoder", encoder_conf: Optional[Dict] = None,
+    def __init__(self, specaug: Optional[str] = None, specaug_conf: Optional[Dict] = None,
+                 encoder: str = "SANMEncoder", encoder_conf: Optional[Dict] = None,
                  ctc_conf: Optional[Dict] = None, input_size: int = 80, vocab_size: int = -1,
-                 blank_id: int = 0, sos: int = 1, eos: int = 2, device=None,
-                 generator: Optional[torch.Generator] = None, **kwargs):
+                 ignore_id: int = -1, blank_id: int = 0, sos: int = 1, eos: int = 2,
+                 device=None, generator: Optional[torch.Generator] = None, **kwargs):
         super().__init__()
+        self.specaug = (tables.specaug_classes[specaug](**(specaug_conf or {}))
+                        if specaug else None)
+        self.ignore_id = ignore_id
         self.encoder = tables.encoder_classes[encoder](
             input_size=input_size, device=device, **(encoder_conf or {}))
         self.ctc = CTC(odim=vocab_size, encoder_output_size=self.encoder.output_size(),
@@ -45,6 +49,17 @@ class CTCModel(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return next(self.parameters()).dtype
+
+    def forward(self, speech, speech_lengths, text, text_lengths, generator=None, **kwargs):
+        """One batch's training loss -> (loss, stats ``loss``, ``loss_ctc``,
+        ``batch_size``, weight B). ``generator`` draws SpecAug and the encoder's dropout
+        (``train()`` mode)."""
+        if self.specaug is not None and self.training and generator is not None:
+            speech, speech_lengths = self.specaug(speech, speech_lengths, generator)
+        enc, enc_lens = self.encoder(speech, speech_lengths, generator=generator)
+        loss = self.ctc.loss(enc, enc_lens, text, text_lengths)
+        b = speech.shape[0]
+        return loss, dict(loss=loss, loss_ctc=loss, batch_size=torch.tensor(b)), b
 
     def infer(self, speech, speech_lengths):
         """(B, T, D) features -> (greedy path (B, T) int32, blank past each length,

@@ -119,6 +119,11 @@ class FunASRNano(nn.Module):
                 init_weights(self.ctc, generator)
             init_qwen(self.llm, generator)
 
+    def forward(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"{type(self).__name__}'s training loss is not ported yet: ROADMAP item 20b, the "
+            "LLM family (forward_jit / forward_jit_batch, LoRA and its datasets)")
+
     @property
     def device(self) -> torch.device:
         return self.llm.device

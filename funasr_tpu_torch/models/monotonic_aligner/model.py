@@ -5,8 +5,9 @@ text) pair (counterpart of ``funasr_tpu/models/monotonic_aligner/model.py``; Fun
 A SAN-M encoder and the CifPredictorV3 upsample head, whose alphas are rescaled to the
 known token count (``get_upsample_timestamp(token_num=)``), then the host's
 ``ts_prediction_lfr6_standard`` per row. The upsampled alphas and peaks and the encoder
-lengths come to the host in one copy. The training loss (MAE on the token count) comes
-with the training slice.
+lengths come to the host in one copy. ``forward`` is the training loss (``forward_jit``,
+``model.py:56-65``): SpecAug, normalize, the encoder with its dropout, and the MAE of the
+upsampled alphas' sum against the target count.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import funasr_tpu_torch.models.bicif_paraformer.cif_predictor  # noqa: F401 (reg
 from funasr_tpu_torch.core.layers import make_pad_mask
 from funasr_tpu_torch.core.module import init_weights
 from funasr_tpu_torch.models.normalize.normalize import build_normalize
+from funasr_tpu_torch.models.paraformer.cif_predictor import mae_token_loss
 from funasr_tpu_torch.register import tables
 from funasr_tpu_torch.utils import postprocess_utils
 from funasr_tpu_torch.utils.load_utils import extract_fbank, load_audio_text_image_video
@@ -30,13 +32,17 @@ from funasr_tpu_torch.utils.timestamp_tools import ts_prediction_lfr6_standard
 
 @tables.register("model_classes", "MonotonicAligner")
 class MonotonicAligner(nn.Module):
-    def __init__(self, input_size: int = 80, normalize: Optional[str] = None,
+    def __init__(self, input_size: int = 80, specaug: Optional[str] = None,
+                 specaug_conf: Optional[Dict] = None, normalize: Optional[str] = None,
                  normalize_conf: Optional[Dict] = None, encoder: str = "SANMEncoder",
                  encoder_conf: Optional[Dict] = None,
                  predictor: str = "CifPredictorV3", predictor_conf: Optional[Dict] = None,
-                 predictor_bias: int = 0, device=None,
+                 predictor_bias: int = 0, length_normalized_loss: bool = False, device=None,
                  generator: Optional[torch.Generator] = None, **kwargs):
         super().__init__()
+        self.specaug = (tables.specaug_classes[specaug](**(specaug_conf or {}))
+                        if specaug else None)
+        self.length_normalized_loss = length_normalized_loss
         self.normalize = build_normalize(normalize, normalize_conf)
         self.encoder = tables.encoder_classes[encoder](
             input_size=input_size, device=device, **(encoder_conf or {}))
@@ -53,6 +59,20 @@ class MonotonicAligner(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return next(self.parameters()).dtype
+
+    def forward(self, speech, speech_lengths, text, text_lengths, generator=None, **kwargs):
+        """One batch's training loss -> (loss, stats ``loss`` and ``loss_pre``, weight B).
+        ``generator`` draws SpecAug and the encoder's dropout (``train()`` mode)."""
+        if self.specaug is not None and self.training and generator is not None:
+            speech, speech_lengths = self.specaug(speech, speech_lengths, generator)
+        if self.normalize is not None:
+            speech, speech_lengths = self.normalize(speech, speech_lengths)
+        encoder_out, encoder_out_lens = self.encoder(speech, speech_lengths, generator=generator)
+        mask = make_pad_mask(encoder_out_lens, encoder_out.shape[1])
+        _, _, us_alphas, _ = self.predictor.get_upsample_timestamp(encoder_out, mask)
+        loss = mae_token_loss(text_lengths + self.predictor_bias, us_alphas.sum(dim=-1),
+                              self.length_normalized_loss)
+        return loss, dict(loss=loss, loss_pre=loss), speech.shape[0]
 
     def upsampled(self, speech, speech_lengths, token_nums):
         """(B, T, D) features and (B,) token counts -> (us_alphas (B, T' * up), us_peaks,

@@ -73,6 +73,9 @@ def add_sos_and_eos(ys_pad, ys_lens, sos: int, eos: int, ignore_id: int = -1):
 
 @tables.register("model_classes", "Paraformer")
 class Paraformer(nn.Module):
+    # the part of ROADMAP item 20b a subclass's training loss waits for (``forward`` raises)
+    TRAINING_WAITS_FOR: Optional[str] = None
+
     def __init__(
         self,
         specaug: Optional[str] = None,
@@ -169,10 +172,12 @@ class Paraformer(nn.Module):
         stats holds 0-d tensors (``loss``, ``loss_att``, ``loss_pre``, ``acc``,
         ``batch_size``; ``loss_ctc`` with CTC). ``generator`` draws SpecAug, dropout and
         the sampler's uniforms; ``sampler_uniform`` (B, L') replaces the latter. The
-        subclasses' own losses (BiCif, streaming, v2, ...) are ROADMAP item 20b."""
-        if type(self) is not Paraformer:
+        subclasses that inherit ``forward_jit`` in JAX (E-Paraformer, Contextual) train
+        through it; a class whose loss waits names its part of ROADMAP item 20b in
+        ``TRAINING_WAITS_FOR`` and raises."""
+        if self.TRAINING_WAITS_FOR:
             raise NotImplementedError(f"{type(self).__name__}'s training loss is not ported "
-                                      "yet (ROADMAP item 20b)")
+                                      f"yet: {self.TRAINING_WAITS_FOR}")
         batch_size = speech.shape[0]
         encoder_out, encoder_out_lens = self.encode(speech, speech_lengths, generator)
         stats = {}

@@ -53,6 +53,10 @@ def upload(array, device, dtype):
 
 @tables.register("model_classes", "ParaformerStreaming")
 class ParaformerStreaming(Paraformer):
+    TRAINING_WAITS_FOR = (
+        "ROADMAP item 20b, streaming training (forward_jit's OverlapChunk and "
+        "forward_train_chunk need a key-window mode in the flash kernels, forward and backward)")
+
     def __init__(self, encoder: str = "SANMEncoderChunkOpt", **kwargs):
         super().__init__(encoder=encoder, **kwargs)
 

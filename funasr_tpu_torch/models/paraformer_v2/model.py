@@ -12,7 +12,13 @@ runs the compression with the pair's token budget K = T/2 + 16, and the fetch's
 full-budget retry runs when a row has K segments (JAX ``paraformer/model.py:308-330,
 384-388``). The decoder runs in the weights' dtype: the JAX package feeds it the fp32
 projection, which under bf16 weights lifts its decoder to fp32; in fp32 the two are the
-same. Training's forced alignment (``ctc_forced_align_jax``) is ROADMAP item 20b.
+same.
+
+``forward`` is the training loss (``forward_jit``, JAX ``:90-120``): the CTC loss, the
+forced alignment of the CTC log-probs to the text under ``torch.no_grad()``
+(``ops/ctc_align.py::ctc_forced_align_device``, on the device), the posteriors compressed
+along it to the text's length, the decoder and label-smoothed CE, weighted by
+``ctc_weight``.
 """
 
 from __future__ import annotations
@@ -24,8 +30,10 @@ from torch import nn
 
 from funasr_tpu_torch.core.layers import apply_linear, make_pad_mask
 from funasr_tpu_torch.core.module import init_weights
+from funasr_tpu_torch.losses.label_smoothing_loss import label_smoothing_loss, th_accuracy
 from funasr_tpu_torch.models.ctc.ctc import CTC
 from funasr_tpu_torch.models.paraformer.model import Paraformer
+from funasr_tpu_torch.ops.ctc_align import ctc_forced_align_device
 from funasr_tpu_torch.register import tables
 
 
@@ -63,10 +71,40 @@ class ParaformerV2(Paraformer):
         super().__init__(predictor=None, vocab_size=vocab_size, device=device, **kwargs)
         self.ctc = CTC(odim=vocab_size, encoder_output_size=self.encoder.output_size(),
                        device=device, **(ctc_conf or {}))
+        self.ctc_weight = ctc_weight
         self.decoder.embed = nn.Sequential(
             nn.Linear(vocab_size, self.encoder.output_size(), device=device))
         if generator is not None:
             init_weights(self, generator)
+
+    def forward(self, speech, speech_lengths, text, text_lengths, generator=None, **kwargs):
+        """One batch's training loss -> (loss, stats, weight); stats ``loss``,
+        ``loss_att``, ``loss_ctc``, ``acc``, ``batch_size``. ``generator`` draws SpecAug
+        and the encoder's dropout."""
+        batch_size = speech.shape[0]
+        encoder_out, encoder_out_lens = self.encode(speech, speech_lengths, generator)
+        logits = self.ctc.logits(encoder_out)
+        loss_ctc = self.ctc.loss(encoder_out, encoder_out_lens, text, text_lengths)
+        with torch.no_grad():
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            tgt = torch.where(text == self.ignore_id, 0, text)
+            target_idx = ctc_forced_align_device(logp, tgt, encoder_out_lens, text_lengths,
+                                                 blank_id=self.blank_id)
+        frame_valid = make_pad_mask(encoder_out_lens, encoder_out.shape[1])
+        probs = torch.softmax(logits.float(), dim=-1)
+        compressed, _ = compress_ctc_probs(probs, target_idx, frame_valid, text.shape[1])
+        sem = apply_linear(self.decoder.embed[0], compressed)
+        decoder_out, _ = self.decoder(encoder_out, encoder_out_lens, sem, text_lengths)
+        loss_att = label_smoothing_loss(
+            decoder_out, text, ignore_id=self.ignore_id, smoothing=self.lsm_weight,
+            vocab_size=self.vocab_size, normalize_length=self.length_normalized_loss)
+        acc_att = th_accuracy(decoder_out, text, self.ignore_id)
+        loss = (self.ctc_weight * loss_ctc + (1 - self.ctc_weight) * loss_att
+                if self.ctc_weight > 0 else loss_att)
+        stats = dict(loss=loss, loss_att=loss_att, loss_ctc=loss_ctc, acc=acc_att,
+                     batch_size=torch.tensor(batch_size))
+        weight = text_lengths.sum() if self.length_normalized_loss else batch_size
+        return loss, stats, weight
 
     def infer_core(self, speech, speech_lengths, max_tokens: Optional[int] = None,
                    context=None):

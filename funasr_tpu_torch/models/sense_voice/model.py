@@ -13,8 +13,13 @@ flash kernel and every FSMN memory the FSMN kernel on the card.
 ``inference`` buckets the features as the JAX package does (``pad_feats_bucketed``)
 before the prompt, so a 15 s batch encodes at T = 384 + 4. The (B, T, vocab) log-probs
 stay on the device; one device-to-host copy a batch carries the speech lengths and the
-ids, as the JAX program drops the logits (``_sv_infer_program``). The training loss (CTC
-on frames 4+ and CE on the prompt positions) comes with the training slice.
+ids, as the JAX program drops the logits (``_sv_infer_program``).
+
+``forward`` is the training loss (``forward_jit``, JAX ``:155-191``): SpecAug and
+normalize, the text's first and fourth tags mapped to query-table ids, the prompt, the
+encoder (no dropout: the JAX loss passes it no key), CTC on frames 4 onwards against
+``text[:, 4:]``, and label-smoothed CE of the CTC head's logits on the 4 prompt rows
+against ``text[:, :4]``.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from torch import nn
 
 from funasr_tpu_torch.core.layers import LayerNorm, add_sinusoidal_pe, embedding, make_pad_mask
 from funasr_tpu_torch.core.module import init_weights
+from funasr_tpu_torch.losses.label_smoothing_loss import label_smoothing_loss, th_accuracy
 from funasr_tpu_torch.models.ctc.ctc import CTC
 from funasr_tpu_torch.models.sanm.encoder import EncoderLayerSANM, SANMEncoderConfig
 from funasr_tpu_torch.models.normalize.normalize import build_normalize
@@ -78,17 +84,20 @@ class SenseVoiceSmall(nn.Module):
     TEXTNORM_INT_DICT = {25016: 14, 25017: 15}
     EMO_UNK = 25009
 
-    def __init__(self, specaug: Optional[str] = None, normalize: Optional[str] = None,
-                 normalize_conf: Optional[dict] = None,
+    def __init__(self, specaug: Optional[str] = None, specaug_conf: Optional[dict] = None,
+                 normalize: Optional[str] = None, normalize_conf: Optional[dict] = None,
                  encoder: str = "SenseVoiceEncoderSmall", encoder_conf: Optional[dict] = None,
                  ctc_conf: Optional[dict] = None, input_size: int = 80, vocab_size: int = -1,
-                 blank_id: int = 0, sos: int = 1, eos: int = 2, device=None,
+                 ignore_id: int = -1, blank_id: int = 0, sos: int = 1, eos: int = 2,
+                 length_normalized_loss: bool = False, lsm_weight: float = 0.0, device=None,
                  generator: Optional[torch.Generator] = None, **kwargs):
         """``generator``: every weight drawn from it (``init_weights``), else torch's
-        default init. ``specaug`` and the loss keys are training's and ignored (this
-        model's training loss is ROADMAP item 20b); a ``normalize`` layer applies before
-        the prompt rows (``model.py:196-197``)."""
+        default init. ``specaug``, ``lsm_weight``, ``length_normalized_loss`` and
+        ``ignore_id`` set ``forward``'s loss; a ``normalize`` layer applies before the
+        prompt rows (``model.py:196-197``)."""
         super().__init__()
+        self.specaug = (tables.specaug_classes[specaug](**(specaug_conf or {}))
+                        if specaug else None)
         self.normalize = build_normalize(normalize, normalize_conf)
         self.encoder = tables.encoder_classes[encoder](
             input_size=input_size, device=device, **(encoder_conf or {}))
@@ -96,8 +105,12 @@ class SenseVoiceSmall(nn.Module):
                        device=device, **(ctc_conf or {}))
         self.embed = nn.Embedding(7 + len(self.LID_DICT) + len(self.TEXTNORM_DICT),
                                   input_size, device=device)
+        self.vocab_size = vocab_size
+        self.ignore_id = ignore_id
         self.blank_id = blank_id
         self.sos, self.eos = sos, eos
+        self.lsm_weight = lsm_weight
+        self.length_normalized_loss = length_normalized_loss
         if generator is not None:
             init_weights(self, generator)
 
@@ -108,6 +121,41 @@ class SenseVoiceSmall(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return next(self.parameters()).dtype
+
+    def query_table_ids(self, text):
+        """The text's language (column 0) and textnorm (column 3) token ids -> query-table
+        ids (JAX ``:164-171``): an unknown language 0, an unknown textnorm ``woitn``."""
+        lid, tn = text[:, 0], text[:, 3]
+        lid_ids = torch.zeros_like(lid)
+        for tok, qid in self.LID_INT_DICT.items():
+            lid_ids = torch.where(lid == tok, qid, lid_ids)
+        tn_ids = torch.full_like(tn, self.TEXTNORM_DICT["woitn"])
+        for tok, qid in self.TEXTNORM_INT_DICT.items():
+            tn_ids = torch.where(tn == tok, qid, tn_ids)
+        return lid_ids, tn_ids
+
+    def forward(self, speech, speech_lengths, text, text_lengths, generator=None, **kwargs):
+        """One batch's training loss: features (B, T, D), token ids (B, 4 + L) whose first
+        4 are the [language, event, emotion, textnorm] tags -> (loss, stats, weight B);
+        stats ``loss_ctc``, ``loss_rich``, ``loss``, ``acc_rich``. ``generator`` draws
+        SpecAug (``train()`` mode)."""
+        if self.specaug is not None and self.training and generator is not None:
+            speech, speech_lengths = self.specaug(speech, speech_lengths, generator)
+        if self.normalize is not None:
+            speech, speech_lengths = self.normalize(speech, speech_lengths)
+        lid_ids, tn_ids = self.query_table_ids(text)
+        speech, speech_lengths = self.with_prompt(speech, speech_lengths, lid_ids, tn_ids)
+        encoder_out, encoder_out_lens = self.encoder(speech, speech_lengths)
+        loss_ctc = self.ctc.loss(encoder_out[:, 4:], encoder_out_lens - 4, text[:, 4:],
+                                 text_lengths - 4)
+        rich_logits = self.ctc.logits(encoder_out[:, :4])
+        loss_rich = label_smoothing_loss(
+            rich_logits, text[:, :4], ignore_id=self.ignore_id, smoothing=self.lsm_weight,
+            vocab_size=self.vocab_size, normalize_length=self.length_normalized_loss)
+        acc_rich = th_accuracy(rich_logits, text[:, :4], self.ignore_id)
+        loss = loss_ctc + loss_rich
+        stats = dict(loss_ctc=loss_ctc, loss_rich=loss_rich, loss=loss, acc_rich=acc_rich)
+        return loss, stats, speech.shape[0]
 
     def with_prompt(self, speech, speech_lengths, lid_ids, textnorm_ids):
         """Prepend the [language | event, emotion | textnorm] query frames

@@ -220,6 +220,10 @@ class WhisperModel(nn.Module):
         if generator is not None:
             init_whisper(self, generator)
 
+    def forward(self, *args, **kwargs):
+        raise NotImplementedError("Whisper's training loss is not ported yet: ROADMAP item "
+                                  "20b, Whisper's loss (whisper/model.py::forward_jit)")
+
     @property
     def device(self) -> torch.device:
         return self.model.decoder.embed_tokens.weight.device

@@ -3,9 +3,12 @@
 Framework-free copy of ``funasr_tpu/ops/ctc_align.py``'s numpy functions
 (``ctc_forced_align``, ``ctc_forced_align_batch``; FunASR ``funasr/utils/
 ctc_forced_align.py``), held to the original by ``tests/test_torch_ctc_family.py``. The
-alignment tables are small (T x 2L + 1) beside the model's work. The JAX package's device
-viterbi, ``ctc_forced_align_jax``, serves only Paraformer-v2's training loss
-(``paraformer_v2/model.py::forward_jit``) and comes with the training slice.
+alignment tables are small (T x 2L + 1) beside the model's work.
+
+``ctc_forced_align_device`` is the counterpart of the JAX package's device viterbi
+(``ctc_forced_align_jax``, ``ctc_align.py:81-148``), which Paraformer-v2's training loss
+runs: the whole batch's (B, 2L + 1) states on the tensors' device, T - 1 steps of tensor
+ops and a backtrack of T gathers, with no host sync.
 
 One departure from the JAX copy: an empty target aligns to the all-blank path. The JAX
 function raises there (its skip candidates are built two states wide for a graph of one
@@ -16,6 +19,7 @@ padding.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 NEG_INF = -1e30
 
@@ -81,3 +85,61 @@ def ctc_forced_align_batch(log_probs, targets, input_lengths, target_lengths,
         out[i, :tl] = ctc_forced_align(np.asarray(log_probs[i]), tg, tl, len(tg),
                                        blank_id)
     return out
+
+
+def ctc_forced_align_device(log_probs, targets, input_lengths, target_lengths,
+                            blank_id: int = 0):
+    """The batched viterbi on the tensors' device (``ctc_forced_align_jax``).
+
+    log_probs: (B, T, V) fp32 log-softmax; targets: (B, L) label ids, L >= 1 (padding any
+    valid id); lengths (B,). Returns (B, T) int32 target indices: the position in [0, L) each
+    frame aligns to, -1 for blank and padded frames. Its rules are JAX's: the states past
+    2 ``target_lengths`` stay at -1e30, a frame at or past a row's length keeps the
+    row's scores and records the "stay" move, each move is the first maximum of (stay,
+    from the state before, from two before where a label may skip its blank), and a row
+    ends at its last blank or last label, whichever scores higher (the blank on a tie or
+    an empty target)."""
+    b, t_max, _ = log_probs.shape
+    l_max = targets.shape[1]
+    dev = log_probs.device
+    s_max = 2 * l_max + 1
+    s_idx = torch.arange(s_max, device=dev)
+    is_lab = (s_idx % 2) == 1
+    t_len = input_lengths.to(dev, torch.long)[:, None]
+    l_len = target_lengths.to(dev, torch.long)[:, None]
+    tgt = targets.to(dev, torch.long)
+    lab = tgt[:, torch.clamp((s_idx - 1) // 2, 0, l_max - 1)]
+    ext = torch.where(is_lab, lab, blank_id)
+    prev_lab = tgt[:, torch.clamp((s_idx - 3) // 2, 0, l_max - 1)]
+    can_skip = is_lab & (s_idx >= 2) & (lab != prev_lab)
+    state_valid = s_idx[None] <= 2 * l_len
+    neg = torch.full((b, 1), NEG_INF, dtype=torch.float32, device=dev)
+    emits = torch.gather(log_probs.float(), 2, ext[:, None, :].expand(b, t_max, s_max))
+    alpha = torch.where((s_idx == 0) | ((s_idx == 1) & (l_len > 0)), emits[:, 0], NEG_INF)
+    alpha = torch.where(state_valid, alpha, NEG_INF)
+    choices = torch.zeros((max(t_max - 1, 0), b, s_max), dtype=torch.long, device=dev)
+    for t in range(1, t_max):
+        from1 = torch.cat([neg, alpha[:, :-1]], dim=1)
+        from2 = torch.where(can_skip, torch.cat([neg, neg, alpha[:, :-2]], dim=1)[:, :s_max],
+                            NEG_INF)
+        take1 = from1 > alpha
+        best = torch.where(take1, from1, alpha)
+        take2 = from2 > best
+        best = torch.where(take2, from2, best)
+        choice = torch.where(take2, 2, take1.long())
+        frozen = t >= t_len
+        alpha = torch.where(frozen, alpha,
+                            torch.where(state_valid, best + emits[:, t], NEG_INF))
+        choices[t - 1] = torch.where(frozen, 0, choice)
+    end_hi = torch.clamp(2 * l_len, 0, s_max - 1)
+    end_a = torch.gather(alpha, 1, end_hi)
+    end_b = torch.gather(alpha, 1, torch.clamp(2 * l_len - 1, 0, s_max - 1))
+    s = torch.where((l_len == 0) | (end_a >= end_b), 2 * l_len, 2 * l_len - 1)
+    states = torch.empty((b, t_max), dtype=torch.long, device=dev)
+    for t in range(t_max - 1, -1, -1):
+        states[:, t] = s[:, 0]
+        if t >= 1:
+            s = s - torch.gather(choices[t - 1], 1, s)
+    idx = torch.where(states % 2 == 1, (states - 1) // 2, -1)
+    idx = torch.where(torch.arange(t_max, device=dev)[None] < t_len, idx, -1)
+    return idx.to(torch.int32)

@@ -17,24 +17,29 @@ def average_checkpoints(output_dir: str, avg_nbest_model: int = 5,
                         out_name: str = "model.pt.avg",
                         avg_keep_nbest_models_type: str = "acc") -> str:
     """Average the state dicts of the ``avg_nbest_model`` best checkpoints in
-    ``output_dir`` (by their recorded validation metric: highest first for "acc", else
-    lowest, as the trainer's pruning ranks them) and write ``{"state_dict": <average>,
+    ``output_dir`` (by their recorded validation metric, as the trainer's pruning ranks
+    them: highest first where the checkpoint's ``metric_name`` is an accuracy, lowest
+    first for a loss; a checkpoint without the name is taken to hold
+    ``avg_keep_nbest_models_type``) and write ``{"state_dict": <average>,
     "averaged_from": [...]}`` to ``out_name``. Floating-point tensors are summed in
     float64 and cast back to their dtype; others are taken from the first. Returns the
     output path. The checkpoints are memory-mapped, so the optimizer state they also hold
     is never read. (The JAX package ranks lowest first whatever the metric, which for
     accuracy picks the worst checkpoints: ROADMAP section 3.)"""
+    from funasr_tpu_torch.train_utils.trainer import higher_is_better
     if ckpt_paths is None:
         cands = []
         for name in os.listdir(output_dir):
             if not name.startswith("model.pt.ep"):
                 continue
             path = os.path.join(output_dir, name)
-            metric = torch.load(path, map_location="cpu", weights_only=True,
-                                mmap=True).get("metric")
+            state = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+            metric = state.get("metric")
             if metric is not None:
-                cands.append((metric, path))
-        cands.sort(key=lambda x: x[0], reverse=avg_keep_nbest_models_type == "acc")
+                best_high = higher_is_better(state.get("metric_name")
+                                             or avg_keep_nbest_models_type)
+                cands.append((-metric if best_high else metric, path))
+        cands.sort(key=lambda x: x[0])
         ckpt_paths = [p for _, p in cands[:avg_nbest_model]]
     if not ckpt_paths:
         raise FileNotFoundError(f"no rankable checkpoints in {output_dir}")

@@ -26,10 +26,15 @@ in the JAX package) at each epoch's end and with each mid-epoch checkpoint, logg
 ``{"validate": averages, "launches", ...}`` line; checkpoints every
 ``save_checkpoint_interval`` steps and at each epoch's end are ``torch.save`` files
 ``{"state_dict": <FunASR-layout state dict>, "optimizer", "scheduler", "accum", "epoch",
-"step", "metric", "epoch_step"}`` (``AutoModel(model=<dir>, init_param=<file>)`` loads
-their ``state_dict``); ``model.pt.latest`` names the last, which n-best pruning never
-deletes. ``profile_dir``: ``torch.profiler`` over steps [profile_start_step, + profile_steps),
-a Chrome trace and ``summary.json`` (the window's wall ms, device kernel ms by kernel).
+"step", "metric", "metric_name", "epoch_step"}`` (``AutoModel(model=<dir>,
+init_param=<file>)`` loads their ``state_dict``); ``model.pt.latest`` names the last, which
+n-best pruning never deletes. The metric is the validation's ``avg_keep_nbest_models_type``
+stat, or its ``loss`` where the model reports no such stat (SenseVoice, CTC, the aligner),
+and pruning ranks by the stat it is: highest first for an accuracy, lowest first for a
+loss. (The JAX trainer ranks highest first whenever the type is "acc", so for those
+models it keeps the worst checkpoints: ROADMAP section 3.) ``profile_dir``:
+``torch.profiler`` over steps [profile_start_step, + profile_steps), a Chrome trace and
+``summary.json`` (the window's wall ms, device kernel ms by kernel).
 
 ``sharding`` other than "dp" (one device) raises: DDP / FSDP is ROADMAP item 21.
 """
@@ -55,6 +60,12 @@ KERNEL_COUNTERS = {"flash_attention": flash_attention,
                    "flash_attention_bwd": flash_attention_bwd,
                    "fsmn_memory": fsmn_memory, "fsmn_memory_bwd_input": fsmn_memory_bwd_input,
                    "fsmn_memory_bwd_weight": fsmn_memory_bwd_weight, "w8a8_linear": w8a8_linear}
+
+
+def higher_is_better(metric_name: str) -> bool:
+    """Whether a validation stat ranks highest first: an accuracy ("acc", "acc_rich")
+    does, a loss does not."""
+    return metric_name.startswith("acc")
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -196,9 +207,7 @@ class Trainer:
             if hasattr(dataloader_train.sampler, "set_epoch"):
                 dataloader_train.sampler.set_epoch(epoch)
             self.train_epoch(dataloader_train, dataloader_val, epoch)
-            metric = (self.validate_epoch(dataloader_val, epoch)
-                      if dataloader_val is not None else None)
-            self.save_checkpoint(epoch, metric=metric)
+            self.save_checkpoint(epoch, **self.validate_epoch(dataloader_val, epoch))
         return self.model
 
     def _launches_since(self, base):
@@ -257,17 +266,18 @@ class Trainer:
                             self._tb.add_scalar(f"train/{k}", v, self.step)
             if self.save_checkpoint_interval > 0 \
                     and self.step % self.save_checkpoint_interval == 0:
-                metric = (self.validate_epoch(val_loader, epoch)
-                          if val_loader is not None else None)
-                self.save_checkpoint(epoch, step=self.step, metric=metric, epoch_step=it + 1)
+                self.save_checkpoint(epoch, step=self.step, epoch_step=it + 1,
+                                     **self.validate_epoch(val_loader, epoch))
                 base = self._count_from_here()  # the next line counts its steps' only
         if profiler is not None:
             self._stop_profile(profiler)
 
     @torch.no_grad()
     def validate_epoch(self, loader, epoch):
+        """The validation's averages, logged -> {"metric": the ``avg_type`` stat, else the
+        loss, "metric_name": which}; {} without a loader."""
         if loader is None:
-            return None
+            return {}
         self.model.eval()
         base = self._count_from_here()
         tot: Dict[str, float] = {}
@@ -285,7 +295,8 @@ class Trainer:
         self._log_f.write(json.dumps({"validate": avg, "epoch": epoch, "step": self.step,
                                       "batches": n, **self._launches_since(base)}) + "\n")
         self._log_f.flush()
-        return avg.get(self.avg_type, avg.get("loss"))
+        name = self.avg_type if self.avg_type in avg else "loss"
+        return {"metric": avg.get(name), "metric_name": name}
 
     # ------------------------------------------------------------------
 
@@ -325,14 +336,18 @@ class Trainer:
     def _ckpt_path(self, name):
         return os.path.join(self.output_dir, name)
 
-    def save_checkpoint(self, epoch, step=None, metric=None, epoch_step=None):
+    def save_checkpoint(self, epoch, step=None, metric=None, epoch_step=None,
+                        metric_name=None):
+        """``metric_name``: the validation stat ``metric`` is (``avg_type`` if not given),
+        which sets the ranking's order."""
         name = f"model.pt.ep{epoch}" + (f".{step}" if step is not None else "")
+        metric_name = metric_name or self.avg_type
         state = {
             "state_dict": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "scheduler": None if self.scheduler is None else self.scheduler.state_dict(),
             "accum": {"mini_step": self._mini_step, "acc": self._acc},
-            "epoch": epoch, "step": self.step, "metric": metric,
+            "epoch": epoch, "step": self.step, "metric": metric, "metric_name": metric_name,
             # batches consumed within this epoch; non-None marks a mid-epoch checkpoint
             "epoch_step": epoch_step,
         }
@@ -340,20 +355,21 @@ class Trainer:
         with open(self._ckpt_path("model.pt.latest"), "w") as f:
             f.write(name)
         if metric is not None:
-            self.best_ckpts[name] = float(metric)
+            # the rank key: lowest first
+            metric = float(metric)
+            self.best_ckpts[name] = -metric if higher_is_better(metric_name) else metric
             self._prune_nbest()
         logging.info("saved checkpoint %s (metric=%s)", name, metric)
 
     def _prune_nbest(self):
-        reverse = self.avg_type == "acc"  # higher acc is better
         # never delete the checkpoint model.pt.latest points at: resume reads it
         latest_name = None
         latest = self._ckpt_path("model.pt.latest")
         if os.path.exists(latest):
             with open(latest) as f:
                 latest_name = f.read().strip()
-        ranked = sorted(self.best_ckpts.items(), key=lambda kv: kv[1], reverse=reverse)
-        for name, _ in ranked[self.keep_nbest_models:]:
+        ranked = sorted(self.best_ckpts, key=self.best_ckpts.get)
+        for name in ranked[self.keep_nbest_models:]:
             if name == latest_name:
                 continue
             path = self._ckpt_path(name)
