@@ -13,7 +13,8 @@ LLM-based ASR: Fun-ASR-Nano (Qwen3-0.6B on the port's ``LLMEngine``) through ``A
 ``AutoModelVLLM``, and Whisper-large-v3, and text normalization and deployment:
 ``generate(itn=True)``, ``AutoModel.export`` run by ``ExportedModel`` and the MCP server, and
 Paraformer-large fine-tuning through ``bin/data_tools`` and ``bin/train`` with the backward
-kernels, then SenseVoice-Small's and the other models' training losses.
+kernels, then SenseVoice-Small's and the other models' training losses, then streaming
+Paraformer's fine-tuning with the flash kernels in chunk mode.
 
     python3 chip_smoke.py
 
@@ -72,8 +73,8 @@ Phases (any failure raises and exits non-zero):
 9. speaker (``phase_speaker``): a BiCifParaformer at PROD_CONF width with the published
    CifPredictorV3 head, phase 8's VAD and punctuation, CAM++ at speech_campplus_sv's
    widths, through ``AutoModel(model=, vad_model=, punc_model=, spk_model=,
-   device="cuda")`` on 1 meeting of 90 s of two synthetic voices (300 s before phase
-   17 came), one ``generate(**SPEAKER_CALL)`` each. Gates: integer speakers on every
+   device="cuda")`` on 1 meeting of 60 s of two synthetic voices (300 s before phase
+   17 came, 90 s before phase 18), one ``generate(**SPEAKER_CALL)`` each. Gates: integer speakers on every
    sentence and timestamps rising inside the meeting; each stage's launches at their sites; the
    timestamp head and CAM++ embeddings against the CPU port; request 0 whole through
    the CPU port (VAD segments to the ms, token boundaries, the voices separating on its
@@ -98,7 +99,7 @@ Phases (any failure raises and exits non-zero):
    keys, and with causal / corner key limits at (1, 8, 64, 32); FSMN (11, 10) at (1, 25 /
    26, 512) against its generic instantiation); ParaformerStreaming at PROD_CONF width
    (the chunk encoder, decoder sanm_shfit 5, WavFrontendOnline) through
-   ``AutoModel.generate`` 600 ms a call as the demo calls it, 2 streams of 20 s, fp32 and
+   ``AutoModel.generate`` 600 ms a call as the demo calls it, 2 streams of 12 s, fp32 and
    ``bf16=True``: gated on non-empty texts (a whole-array call's text equal to the
    chunked stream's), exactly 50 flash, 50 FSMN (11, 5) and 16 FSMN (11, 10) launches a
    chunk and one device-to-host copy a chunk; per-chunk wall p50 / p95 (cold apart), RTF,
@@ -241,6 +242,24 @@ Phases (any failure raises and exits non-zero):
    share; (b) a kernel-vs-plain row at every signature the recipe launched and at
    CT-Transformer's (16, 8, L, 32) flash backward and (16, L, 256) FSMN dx / dw.
 
+18. streaming training (``phase_streaming_training``): (c) one training step of a
+   PROD_CONF-width ParaformerStreaming cut to 4 + 2 blocks under each chunk config, on the
+   card and on the CPU (loss within TRAIN_LOSS_RTOL, every gradient within
+   ``STREAM_TRAIN_GRAD_REL_TOL`` relative L2, launches exactly ``train_sites``); (a)
+   paraformer_streaming's ``finetune.sh`` flags through ``bin/train`` on a seeded
+   paraformer-zh-streaming dir at full width (50 + 16 blocks, d 512, vocab 8,404; chunk
+   sizes [12, 15], strides [8, 10], look-back 4; decoder sanm_shfit 5) over phase 16's
+   wavs, one epoch of token batches of 6,000 (a mid-epoch checkpoint with its
+   validation, the epoch's, the 2 best averaged), gated on a finite loss every step,
+   both chunk configs drawn over the steps, each step's launches exactly phase 16's with
+   every flash launch in chunk mode, every q / k row and FSMN tap reached by a gradient,
+   and the average decoding through ``AutoModel``'s streaming ``generate`` at phase 11's
+   launches a chunk; prints ms a step, audio seconds a second, peak memory, a profiled
+   step's device time and idle share; (b) a kernel-vs-plain row at every signature the
+   recipe launched (chunk mode under each config; FSMN, dx and dw under the holed frame
+   mask at (5, 5) and the decoder's (10, 0)), each within 1e-5 relative L2 and bit-equal
+   across two runs.
+
 ``python3 chip_smoke.py --recipe-ab [TREE]`` (not part of the run above): the recipe's
 ``bin/train`` six times in one process, alternating this tree with the kernel-shape log on
 and the same tree with it off, or, given TREE (another checkout), this tree and that one
@@ -273,7 +292,8 @@ by run, with the rows at the LLM path's shapes, and phase 15's under ``export``:
 of each counted call of an exported program, with the rows at the shapes those calls
 launched, and phase 16's under ``training``, with three more kernels, the backward
 launches ``flash_attention_bwd``, ``fsmn_memory_bwd_input`` and ``fsmn_memory_bwd_weight``,
-and phase 17's under ``training_family`` in those five), the last line
+and phase 17's under ``training_family`` and phase 18's under ``streaming_training`` in
+those five), the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -284,6 +304,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -629,22 +650,49 @@ def fsmn_row(x, w, mask, left, right, timed=True, plain_timer=None):
     return row
 
 
-def flash_row(q, k, v, lens_list, mode="none", vad_pos=None, timed=True, plain_timer=None):
+def chunk_library_mask(lens, t, chunk):
+    """Chunk mode's (B, Tq, Tk) mask for the library call: SDPA gives a row with no live key
+    NaN, so each such row (an FSMN shift row) gets its key 0 live; the kernel's time is
+    that of the chunk mask itself."""
+    from funasr_tpu_torch.ops.flash_attention import chunk_mask
+    live = chunk_mask(lens, t, t, chunk)
+    dead = ~live.any(-1)
+    live[..., 0] |= dead
+    return live
+
+
+def chunk_flash_work(b, h, t, d, lens, chunk, elem_bytes=4):
+    """Bytes and flops of chunk mode over (B, H, T, D): q read and o written in full, k and
+    v read up to each batch row's length, the lengths; 4 D flops per live score (the
+    predicate's, ``chunk_mask``), which is what the work needs. Returns (bytes, flops, live
+    scores)."""
+    from funasr_tpu_torch.ops.flash_attention import chunk_mask
+    live = int(chunk_mask(lens, t, t, chunk).sum())
+    n_bytes = elem_bytes * h * d * (2 * b * t + 2 * int(lens.sum())) + 4 * b
+    return n_bytes, 4 * h * d * live, live
+
+
+def flash_row(q, k, v, lens_list, mode="none", vad_pos=None, timed=True, plain_timer=None,
+              chunk=None):
     """One flash kernel row against its plain version and scaled_dot_product_attention
     (with the explicit (B, 1, Tq, Tk) mask of the same key limits); the error over each
     row's valid queries. q (B, H, Tq, D), k and v (B, H, Tk, D); ``mode`` / ``vad_pos``
-    the per-row key limits. Untimed: the error only."""
+    the per-row key limits, or ``mode="chunk"`` with ``chunk``: then also the relative L2
+    error over every row, whether fully masked rows are 0 and whether two runs are
+    bit-equal, the library call on ``chunk_library_mask`` and the bound over the live
+    scores. Untimed: the error only."""
     import torch.nn.functional as F
-    from funasr_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_ref,
-                                                      key_limits)
+    from funasr_tpu_torch.ops.flash_attention import (chunk_mask, flash_attention,
+                                                      flash_attention_ref, key_limits)
 
     b, h, t, d = q.shape
     tk = k.shape[2]
     lens = torch.tensor(lens_list, dtype=torch.int32, device=q.device)
     vp = None if vad_pos is None else torch.tensor(vad_pos, dtype=torch.int32, device=q.device)
-    out = flash_attention(q, k, v, lens, mode, vp)
+    out = flash_attention(q, k, v, lens, mode, vp, chunk)
+    again = None if chunk is None else flash_attention(q, k, v, lens, mode, vp, chunk)
     torch.cuda.synchronize()
-    ref = flash_attention_ref(q, k, v, lens, mode, vp)
+    ref = flash_attention_ref(q, k, v, lens, mode, vp, chunk)
     err = max((out[i, :, :min(n, t)] - ref[i, :, :min(n, t)]).abs().max().item()
               for i, n in enumerate(lens_list))
     row = dict(shape=(b, h, t, d), max_abs_err=err)
@@ -652,19 +700,32 @@ def flash_row(q, k, v, lens_list, mode="none", vad_pos=None, timed=True, plain_t
         row["keys"] = tk
     if mode != "none":
         row.update(mode=mode, vad_pos=vad_pos)
+    if chunk is not None:
+        dead = ~chunk_mask(lens, t, t, chunk).any(-1)
+        row.update(chunk=list(chunk), rel_l2=rel_l2(out, ref), deterministic=torch.equal(
+            out, again), dead_rows_zero=bool((out.permute(0, 2, 1, 3)[dead] == 0).all()))
     if not timed:
         return row
-    limits = key_limits(lens, t, mode, vp)
-    mask = (torch.arange(tk, device=q.device)[None, None, :] < limits[:, :, None])[:, None]
+    if chunk is not None:
+        mask = chunk_library_mask(lens, t, chunk)[:, None]
+    else:
+        limits = key_limits(lens, t, mode, vp)
+        mask = (torch.arange(tk, device=q.device)[None, None, :] < limits[:, :, None])[:, None]
     row.update(library_call=LIBRARY_CALLS["flash_attention"],
-               ms=device_ms(lambda: flash_attention(q, k, v, lens, mode, vp)),
-               call_ms=call_ms(lambda: flash_attention(q, k, v, lens, mode, vp)),
+               ms=device_ms(lambda: flash_attention(q, k, v, lens, mode, vp, chunk)),
+               call_ms=call_ms(lambda: flash_attention(q, k, v, lens, mode, vp, chunk)),
                plain_ms=(plain_timer or device_ms)(
-                   lambda: flash_attention_ref(q, k, v, lens, mode, vp)),
+                   lambda: flash_attention_ref(q, k, v, lens, mode, vp, chunk)),
                library_ms=device_ms(
                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)))
-    row["bound_ms"], row["bound_by"] = flash_bound(b, h, t, d, lens_list, q.dtype,
-                                                   limits.tolist())
+    if chunk is not None:
+        n_bytes, n_ops, row["live_scores"] = chunk_flash_work(b, h, t, d, lens, chunk)
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 3 * n_ops, "tf32")
+        # the mode-0 kernel on the same inputs and lengths: what chunk mode's tile ranges save
+        row["mode_none_ms"] = device_ms(lambda: flash_attention(q, k, v, lens))
+    else:
+        row["bound_ms"], row["bound_by"] = flash_bound(b, h, t, d, lens_list, q.dtype,
+                                                       limits.tolist())
     return row
 
 
@@ -731,7 +792,9 @@ def timing_line(row):
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
             f"{row['bound_ms'] / row['ms']:.1%} of it)"
             + (f"; CUDA-core fp32 bound {row['cuda_core_bound_ms']:.4f} ms"
-               if "cuda_core_bound_ms" in row else ""))
+               if "cuda_core_bound_ms" in row else "")
+            + (f"; mode 0 on the same inputs {row['mode_none_ms']:.4f} ms"
+               if "mode_none_ms" in row else ""))
 
 
 def w8a8_row(x, w_q8, scale, bias, label="w8a8"):
@@ -1407,8 +1470,9 @@ BICIF_PREDICTOR = dict(PROD_CONF["predictor_conf"], smooth_factor2=0.25, noise_t
 # growth 32, bn_size 4, init 128, blocks 12 / 24 / 16)
 SPK_CONF = dict(feat_dim=80, embedding_size=192, growth_rate=32, bn_size=4, init_channels=128)
 SPEAKER_REQUESTS = 1  # cut from 2, for the run's time limit beside phase 13
-SPEAKER_SECONDS = 90.0   # the meeting's length (cut from 300 s, for the run's time limit
-#                          beside phase 17: the CPU port re-runs it whole)
+SPEAKER_SECONDS = 60.0   # the meeting's length (cut from 300 s to 90 s, for the run's time
+#                          limit beside phase 17: the CPU port re-runs it whole; to 60 s
+#                          beside phase 18)
 SPEAKER_PROFILE_SECONDS = 30  # the profiled request: request 0's first 30 s (cut from 60 s,
 #                               for the run's time limit beside phase 14)
 US_ALPHAS_TOL = 1e-4      # fp32 upsampled alphas, CUDA against the CPU (cuDNN LSTM, cuBLAS)
@@ -2236,7 +2300,8 @@ STREAM_SMALL_CONF = dict(SMALL_CONF, encoder="SANMEncoderChunkOpt",
 # the demo's call (examples/industrial_data_pretraining/paraformer_streaming/demo.py:21-40)
 STREAM_CALL = dict(chunk_size=[0, 10, 5], encoder_chunk_look_back=4, decoder_chunk_look_back=1)
 STREAM_STRIDE = 9600       # samples a generate: 600 ms
-STREAM_SECONDS = 20.0      # (cut from 30 s for the run's time limit beside phase 17)
+STREAM_SECONDS = 12.0      # (cut from 30 s to 20 s for the run's time limit beside phase 17,
+#                            to 12 s beside phase 18)
 STREAMS = 2
 STREAM_COLD = 5            # the first chunks of the first stream: the look-back fills
 STREAM_CPU_CHUNKS = 10     # full-width chunks held against the CPU port
@@ -5042,27 +5107,40 @@ FLASH_BWD_LIBRARY = ("torch.autograd.grad(scaled_dot_product_attention(q, k, v, 
                      "attn_mask=key_valid), (q, k, v), dout)")
 
 
-def flash_bwd_timing(q, k, v, out, stats, dout, ln, mode, vp):
+def flash_bwd_timing(q, k, v, out, stats, dout, ln, mode, vp, chunk=None):
     """The flash backward kernel's ms (with the forward's (m, l), as FlashAttentionFn
     runs it), a lone call's ms, the plain version's (the plain forward + autograd, by
-    ``quick_ms``), SDPA's backward with the same key mask, and the bound (3xTF32 and
-    CUDA-core)."""
+    ``quick_ms``), SDPA's backward with the same key mask (in chunk mode
+    ``chunk_library_mask``), and the bound (3xTF32 and CUDA-core; in chunk mode over the
+    live scores)."""
     import torch.nn.functional as F
-    from funasr_tpu_torch.ops.flash_attention import (flash_attention_bwd,
-                                                      flash_attention_bwd_ref, key_limits)
+    from funasr_tpu_torch.ops.flash_attention import (chunk_mask, flash_attention_bwd,
+                                                      flash_attention_bwd_ref,
+                                                      flash_attention_with_stats, key_limits)
 
     b, h, t, d = q.shape
     tk = k.shape[2]
-    limits = key_limits(ln, t, mode, vp)
-    key_valid = torch.arange(tk, device=q.device)[None, None, :] < limits[:, :, None]
+    if chunk is not None:
+        key_valid = chunk_library_mask(ln, t, chunk)
+    else:
+        limits = key_limits(ln, t, mode, vp)
+        key_valid = torch.arange(tk, device=q.device)[None, None, :] < limits[:, :, None]
     qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=key_valid[:, None])
-    kernel = lambda: flash_attention_bwd(q, k, v, out, dout, ln, mode, vp, stats=stats)  # noqa: E731
+    kernel = lambda: flash_attention_bwd(q, k, v, out, dout, ln, mode, vp, stats=stats,  # noqa: E731
+                                         chunk=chunk)
     row = dict(library_call=FLASH_BWD_LIBRARY, ms=device_ms(kernel), call_ms=call_ms(kernel),
-               plain_ms=quick_ms(lambda: flash_attention_bwd_ref(q, k, v, dout, ln, mode, vp)),
+               plain_ms=quick_ms(lambda: flash_attention_bwd_ref(q, k, v, dout, ln, mode, vp,
+                                                                 chunk)),
                library_ms=device_ms(lambda: torch.autograd.grad(
                    sdpa, (qs, ks, vs), dout, retain_graph=True)))
-    lim_rows = [[n if n > 0 else tk for n in r] for r in limits.tolist()]
+    if chunk is not None:
+        lim_rows = chunk_mask(ln, t, t, chunk).sum(-1).tolist()
+        _, stats0 = flash_attention_with_stats(q, k, v, ln)  # mode 0 on the same inputs
+        row["mode_none_ms"] = device_ms(lambda: flash_attention_bwd(q, k, v, out, dout, ln,
+                                                                    stats=stats0))
+    else:
+        lim_rows = [[n if n > 0 else tk for n in r] for r in limits.tolist()]
     n_bytes, n_ops = flash_bwd_work(b, h, t, tk, d, lim_rows)
     row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, 3 * n_ops, "tf32")
     row["cuda_core_bound_ms"] = bound_ms(n_bytes, n_ops, "fp32")[0]
@@ -5189,6 +5267,8 @@ def recipe_launch_shapes(lines):
             key = (e["kernel"], tuple((tuple(sh), tuple(st)) for sh, st in e["tensors"]),
                    tuple(e["args"]))
             entry = shapes.setdefault(key, dict(launches=0, lengths=e["lengths"]))
+            if "mask_runs" in e:  # a holed mask (``cuda_lib.take_launch_shapes``)
+                entry["mask_runs"] = e["mask_runs"]
             entry["launches"] += e["launches"]
             by_kernel[e["kernel"]] = by_kernel.get(e["kernel"], 0) + e["launches"]
         if any(by_kernel.get(k, 0) != n for k, n in x["launches"].items()):
@@ -5198,27 +5278,36 @@ def recipe_launch_shapes(lines):
 
 
 def recipe_label(key):
-    """A recipe row's label: the first tensor's shape, the FSMN's k ("5x190x512_k11")."""
+    """A recipe row's label: the first tensor's shape, the FSMN's k ("5x190x512_k11"), chunk
+    mode's integers ("5x4x402x128_chunk17-5-8-4") and an FSMN's pads where they are not the
+    encoder's (5, 5) ("_pads10-0")."""
     name, tensors, args = key
     shape = "x".join(map(str, tensors[0][0]))
-    return shape if name.startswith("flash") else f"{shape}_k{args[0]}"
+    if name.startswith("flash"):
+        return shape + ("_chunk" + "-".join(map(str, args[1:])) if args[0] == "chunk" else "")
+    return f"{shape}_k{args[0]}" + ("" if tuple(args[1:3]) == (5, 5) else
+                                    f"_pads{args[1]}-{args[2]}")
 
 
-def recipe_kernel_rows(dev, shapes):
+def recipe_kernel_rows(dev, shapes, strict=False):
     """(d) One row per signature the recipe's runs launched (``recipe_launch_shapes``):
     random values at the launch's shapes and strides (``strided_randn``), its lengths
-    (flash's key lengths; the FSMN's prefix mask of the mask's row sums), against the
-    plain version. Forward kernels within FLASH_TOL / FSMN_TOL (fp32, max abs); backward
-    kernels within FLASH_BWD_REL_TOL / FSMN_BWD_REL_TOL relative L2 and bit-equal across
-    two runs (flash with the forward's (m, l), as FlashAttentionFn runs it); each row with
-    its kernel ms, a lone call's ms, the plain version's ms (``quick_ms``), the library
-    call's ms, the bound and its launches in the runs. Returns {kernel: {label: row}}; raises on a
+    (flash's key lengths, and chunk mode's integers; the FSMN's mask: the recorded runs of
+    a holed mask, else the prefix mask of the row sums), against the plain version.
+    Forward kernels within FLASH_TOL / FSMN_TOL (fp32, max abs); backward kernels within
+    FLASH_BWD_REL_TOL / FSMN_BWD_REL_TOL relative L2 and bit-equal across two runs (flash
+    with the forward's (m, l), as FlashAttentionFn runs it); ``strict``: the forward kernels
+    too within those relative L2 limits and bit-equal (phase 18). Each row with its kernel
+    ms, a lone call's ms, the plain version's ms (``quick_ms``), the library call's ms, the
+    bound and its launches in the runs. Returns {kernel: {label: row}}; raises on a
     disagreement."""
-    from funasr_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+    from funasr_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
                                                       flash_attention_bwd_ref,
+                                                      flash_attention_ref,
                                                       flash_attention_with_stats)
-    from funasr_tpu_torch.ops.fsmn import (fsmn_memory_bwd_input, fsmn_memory_bwd_ref,
-                                           fsmn_memory_bwd_weight)
+    from funasr_tpu_torch.ops.fsmn import (fsmn_memory, fsmn_memory_bwd_input,
+                                           fsmn_memory_bwd_ref, fsmn_memory_bwd_weight,
+                                           fsmn_memory_ref)
 
     g = torch.Generator(device=dev).manual_seed(17)
     f32 = torch.float32
@@ -5227,9 +5316,11 @@ def recipe_kernel_rows(dev, shapes):
         name, tensors, args = key
         lens = info["lengths"]
         made = [strided_randn(sh, st, f32, g, dev) for sh, st in tensors]
+        chunk = None
         if name.startswith("flash"):
-            if args[0] != "none":
+            if args[0] not in ("none", "chunk"):
                 raise AssertionError(f"the recipe launched {name} in mode {args[0]}")
+            chunk = tuple(args[1:]) if args[0] == "chunk" else None
             q, k, v = made[:3]
             ln = torch.tensor(lens, dtype=torch.int32, device=dev)
         else:
@@ -5238,20 +5329,39 @@ def recipe_kernel_rows(dev, shapes):
             w = torch.rand(c, 1, kk, generator=g, device=dev) - 0.5
             mask = (None if lens is None else torch.arange(t, device=dev)[None]
                     < torch.tensor(lens, device=dev)[:, None])
+            if info.get("mask_runs") is not None:
+                mask = torch.zeros(b, t, dtype=torch.bool, device=dev)
+                for i, runs in enumerate(info["mask_runs"]):
+                    for s0, s1 in runs:
+                        mask[i, s0:s1] = True
         if name == "flash_attention":
-            row, tol = flash_row(q, k, v, lens, plain_timer=quick_ms), FLASH_TOL[f32]
+            row = flash_row(q, k, v, lens, "chunk" if chunk else "none", plain_timer=quick_ms,
+                            chunk=chunk)
+            tol = FLASH_BWD_REL_TOL if strict else FLASH_TOL[f32]
+            if strict and "rel_l2" not in row:
+                out = flash_attention(q, k, v, ln)
+                row.update(rel_l2=rel_l2(out, flash_attention_ref(q, k, v, ln)),
+                           deterministic=torch.equal(out, flash_attention(q, k, v, ln)))
         elif name == "fsmn_memory":
             if args[3]:
                 raise AssertionError("the recipe launched the generic FSMN kernel")
-            row, tol = fsmn_row(made[0], w, mask, left, right, plain_timer=quick_ms), FSMN_TOL[f32]
+            row = fsmn_row(made[0], w, mask, left, right, plain_timer=quick_ms)
+            tol = FSMN_BWD_REL_TOL if strict else FSMN_TOL[f32]
+            if strict:
+                out = fsmn_memory(made[0], w, mask, left, right)
+                row.update(rel_l2=rel_l2(out, fsmn_memory_ref(made[0], w, mask, left, right)),
+                           deterministic=torch.equal(out, fsmn_memory(made[0], w, mask, left,
+                                                                      right)))
         else:
             if name == "flash_attention_bwd":
                 out, dout = made[3:]
+                mode = "chunk" if chunk else "none"
                 with torch.no_grad():
-                    fwd, stats = flash_attention_with_stats(q, k, v, ln)
+                    fwd, stats = flash_attention_with_stats(q, k, v, ln, mode, chunk=chunk)
                     out.copy_(fwd)
-                fn = lambda: flash_attention_bwd(q, k, v, out, dout, ln, stats=stats)  # noqa: E731
-                want = flash_attention_bwd_ref(q, k, v, dout, ln)
+                fn = lambda: flash_attention_bwd(q, k, v, out, dout, ln, mode,  # noqa: E731
+                                                 stats=stats, chunk=chunk)
+                want = flash_attention_bwd_ref(q, k, v, dout, ln, mode, chunk=chunk)
                 tol = FLASH_BWD_REL_TOL
             elif name == "fsmn_memory_bwd_input":
                 dout = made[0]
@@ -5272,14 +5382,19 @@ def recipe_kernel_rows(dev, shapes):
                        max_abs_err=max((a - w_).abs().max().item() for a, w_ in zip(got, want)),
                        deterministic=all(torch.equal(a, a2) for a, a2 in zip(got, again)))
             if name == "flash_attention_bwd":
-                row.update(flash_bwd_timing(q, k, v, out, stats, dout, ln, "none", None))
+                row.update(flash_bwd_timing(q, k, v, out, stats, dout, ln, mode, None, chunk))
+                if chunk is not None:
+                    row["chunk"] = list(chunk)
             else:
                 row.update(fsmn_bwd_timing(name, fn, x, dout, w, mask, left, right))
         row.update(strides=[st for _, st in tensors], launches=info["launches"])
         if lens is not None:
             row["lengths"] = lens
+        if info.get("mask_runs") is not None:
+            row["mask"] = "holed (the frame mask's recorded runs)"
         err = row.get("rel_l2", row["max_abs_err"])
-        ok = math.isfinite(err) and err <= tol and row.get("deterministic", True)
+        ok = (math.isfinite(err) and err <= tol and row.get("deterministic", True)
+              and row.get("dead_rows_zero", True))
         log(f"  {name} {recipe_label(key)}: {'rel L2' if 'rel_l2' in row else 'max_abs_err'} "
             f"{err:.2e} (tol {tol:g}){'' if row.get('deterministic', True) else ' NOT bit-equal'}"
             f", {info['launches']} launches; " + timing_line(row))
@@ -5306,22 +5421,26 @@ def cif_tie_moved():
         cif_mod.cif = cif
 
 
-def train_cuda_vs_cpu(dev, counters):
+def train_cuda_vs_cpu(dev, counters, model_name="Paraformer", encoder_conf=None,
+                      decoder_conf=None, grad_tol=TRAIN_GRAD_REL_TOL, **call):
     """(b) One training step (loss + backward) of a PROD_CONF-width Paraformer cut to 4 + 2
     blocks, on the card and on the CPU: the same weights and features, dropout and SpecAug
     off, the sampler's draws fed equal. Gates: the loss within TRAIN_LOSS_RTOL, every
-    parameter's gradient within TRAIN_GRAD_REL_TOL relative L2, the step's launches
-    exactly its sites, the q / k rows of every linear_q_k_v and every fsmn_block non-zero
-    on the card."""
+    parameter's gradient within ``grad_tol`` relative L2, the step's launches exactly its
+    sites, the q / k rows of every linear_q_k_v and every fsmn_block non-zero on the card.
+    ``model_name`` / ``encoder_conf`` / ``decoder_conf`` (cut to the same depth) / ``call``
+    (extra arguments of the step, e.g. ``chunk_index``): another model (phase 18's)."""
     from funasr_tpu_torch import tables
     from funasr_tpu_torch.frontends.wav_frontend import WavFrontend
 
     enc_n, dec_n = TRAIN_CPU_DEPTH
-    conf = dict(PROD_CONF, **TRAIN_MODEL_CONF,
-                encoder_conf=dict(PROD_CONF["encoder_conf"], num_blocks=enc_n),
-                decoder_conf=dict(PROD_CONF["decoder_conf"], num_blocks=dec_n,
+    extra = {} if model_name == "Paraformer" else {"encoder": "SANMEncoderChunkOpt"}
+    conf = dict(PROD_CONF, **TRAIN_MODEL_CONF, **extra,
+                encoder_conf=dict(encoder_conf or PROD_CONF["encoder_conf"], num_blocks=enc_n,
+                                  dropout_rate=0.0),
+                decoder_conf=dict(decoder_conf or PROD_CONF["decoder_conf"], num_blocks=dec_n,
                                   att_layer_num=dec_n))
-    cpu = tables.model_classes["Paraformer"](**conf, generator=torch.Generator().manual_seed(5))
+    cpu = tables.model_classes[model_name](**conf, generator=torch.Generator().manual_seed(5))
     gpu = copy.deepcopy(cpu).to(dev)
     rng = np.random.default_rng(5)
     waves = [pcm(rng, TRAIN_CPU_T), pcm(rng, TRAIN_CPU_T * 0.7)]
@@ -5340,7 +5459,7 @@ def train_cuda_vs_cpu(dev, counters):
             for c in counters:
                 c.launches = 0
             loss, stats, _ = model(feats.to(d), flens.to(d), text.to(d), tl.to(d),
-                                   sampler_uniform=uniform.to(d))
+                                   sampler_uniform=uniform.to(d), **call)
             loss.backward()
             if d.type == "cuda":
                 torch.cuda.synchronize()
@@ -5363,11 +5482,11 @@ def train_cuda_vs_cpu(dev, counters):
             if ("linear_q_k_v.weight" in n and n.startswith("encoder.")
                 and gr[:2 * 512].abs().max() == 0)
             or ("fsmn_block" in n and gr.abs().max() == 0)]
-    log(f"training step CUDA vs CPU (PROD_CONF width, {enc_n} + {dec_n} blocks, 2 x "
-        f"{TRAIN_CPU_T:g} s): loss {gl:.7f} vs {cl:.7f} (rel {abs(gl - cl) / abs(cl):.2e}, tol "
-        f"{TRAIN_LOSS_RTOL:g}); worst gradient rel L2 {worst:.2e} ({worst_name}, tol "
-        f"{TRAIN_GRAD_REL_TOL:g}); launches {launches} (sites {sites})")
-    if abs(gl - cl) > TRAIN_LOSS_RTOL * abs(cl) or not worst <= TRAIN_GRAD_REL_TOL:
+    log(f"{model_name} training step CUDA vs CPU (PROD_CONF width, {enc_n} + {dec_n} blocks, "
+        f"2 x {TRAIN_CPU_T:g} s{', ' + str(call) if call else ''}): loss {gl:.7f} vs {cl:.7f} "
+        f"(rel {abs(gl - cl) / abs(cl):.2e}, tol {TRAIN_LOSS_RTOL:g}); worst gradient rel L2 "
+        f"{worst:.2e} ({worst_name}, tol {grad_tol:g}); launches {launches} (sites {sites})")
+    if abs(gl - cl) > TRAIN_LOSS_RTOL * abs(cl) or not worst <= grad_tol:
         raise AssertionError("training step: CUDA disagrees with the CPU")
     if launches != sites:
         raise AssertionError(f"training step launches {launches} != sites {sites}")
@@ -5543,7 +5662,7 @@ def recipe_ab(other=None):
         for side, v in pooled.items()))
 
 
-def phase_training(dev, counters, card):
+def phase_training(dev, counters, card, keep=None):
     """Phase 16: (a) the backward kernels at the recipe's first batch shape, (b) a training
     step on the card against the CPU, (c) finetune.sh's recipe: ``bin/data_tools
     scp2jsonl`` and ``bin/train`` as subprocesses on a seeded PROD_CONF Paraformer-large
@@ -5556,7 +5675,10 @@ def phase_training(dev, counters, card):
     every fsmn_block reached by a gradient (the checkpoint's Adam moments), the averaged
     checkpoint decoding through ``AutoModel`` with 50 flash + 66 FSMN launches a decode;
     (d) a kernel-vs-plain row at every shape and stride the recipe's runs launched (the
-    trainer's ``kernel_shapes``, ``recipe_kernel_rows``)."""
+    trainer's ``kernel_shapes``, ``recipe_kernel_rows``). ``keep``: {"root": a directory
+    that outlives the phase}: the generated wavs and their jsonl stay there for phase 18
+    (``keep["train_data"]`` = (tokens, {split: jsonl})), the model dir and the run's
+    output are removed."""
     from funasr_tpu_torch import AutoModel
     from funasr_tpu_torch.frontends.wav_frontend import WavFrontend
     from funasr_tpu_torch.ops.flash_attention import flash_attention_bwd
@@ -5568,8 +5690,12 @@ def phase_training(dev, counters, card):
     enc_n = PROD_CONF["encoder_conf"]["num_blocks"]
     dec_n = PROD_CONF["decoder_conf"]["num_blocks"]
     step_sites, val_sites = train_sites(enc_n, dec_n)
-    with tempfile.TemporaryDirectory() as root:
+    with contextlib.ExitStack() as stack:
+        root = keep["root"] if keep else stack.enter_context(tempfile.TemporaryDirectory())
         md, tokens, jsonl = recipe_setup(root, dev)
+        if keep is not None:
+            keep["train_data"] = (tokens, jsonl)
+            stack.callback(shutil.rmtree, md)
 
         # (a) the kernels at the first batch's shape (the frontend's frames of it)
         from funasr_tpu_torch.datasets.audio_datasets.datasets import AudioDataset
@@ -5599,6 +5725,8 @@ def phase_training(dev, counters, card):
         # (c) the recipe
         out = os.path.join(root, "exp")
         profile_dir = os.path.join(root, "profile")
+        if keep is not None:
+            stack.callback(shutil.rmtree, out)
         base = ["funasr_tpu_torch.bin.train", f"++model={md}",
                 f"++train_data_set_list={jsonl['train']}",
                 f"++valid_data_set_list={jsonl['val']}", *TRAIN_RECIPE, f"++output_dir={out}"]
@@ -6089,6 +6217,207 @@ def phase_training_family(dev, counters, card):
     return figures
 
 
+# ---- phase 18: streaming fine-tuning (paraformer-zh-streaming) ------------------------
+
+# paraformer-zh-streaming as published (SURVEY.md:635-640; its template.yaml's training
+# chunks): PROD_CONF widths, SANMEncoderChunkOpt with chunk sizes [12, 15], strides [8, 10],
+# look-back 4 (dropout 0.1 as published: the chunk path applies none, as the JAX loss),
+# the decoder at sanm_shfit 5
+STREAM_TRAIN_CHUNKS = dict(chunk_size=[12, 15], stride=[8, 10], pad_left=[0, 0],
+                           encoder_att_look_back_factor=[4, 4],
+                           decoder_att_look_back_factor=[1, 1])
+STREAM_TRAIN_ENCODER_CONF = dict(STREAM_ENCODER_CONF, dropout_rate=0.1, **STREAM_TRAIN_CHUNKS)
+STREAM_TRAIN_SEED = 0      # the trainer's seed: its steps draw both chunk configs
+# finetune.sh's flags (TRAIN_RECIPE) for one epoch of about 4 steps over phase 16's wavs:
+# the mid-epoch checkpoint and its validation at step 3, the profiled step the second, the
+# epoch's checkpoint, the 2 best averaged
+STREAM_TRAIN_RUN = ["++train_conf.max_epoch=1", "++train_conf.save_checkpoint_interval=3",
+                    "++train_conf.profile_start_step=1", "++train_conf.profile_steps=1",
+                    "++train_conf.avg_nbest_model=2", f"++seed={STREAM_TRAIN_SEED}"]
+STREAM_TRAIN_GRAD_REL_TOL = 1e-4  # each gradient, CUDA against the CPU, relative L2
+STREAM_TRAIN_DECODE_S = 6.0       # the averaged checkpoint's stream, 600 ms a generate
+
+
+def chunk_configs(kernel_shapes):
+    """The chunk configs (the flash kernels' chunk-mode integers) a log line's launches ran,
+    and whether every flash launch of it was in chunk mode."""
+    flash = [e for e in kernel_shapes if e["kernel"].startswith("flash")]
+    return ({tuple(e["args"][1:]) for e in flash if e["args"][0] == "chunk"},
+            all(e["args"][0] == "chunk" for e in flash))
+
+
+def streaming_decode_launches(am, counters, wav):
+    """One stream through the averaged model's streaming ``generate`` (phase 11's call):
+    (texts, chunks, launches, FSMN calls by (k, left pad))."""
+    model = am.model
+    inner, chunks = model.generate_chunk, []
+
+    def counted(*args, **kwargs):
+        chunks.append(1)
+        return inner(*args, **kwargs)
+    model.generate_chunk = counted
+    split = FsmnSplit()
+    try:
+        for c in counters:
+            c.launches = 0
+        text, _ = run_stream(am, wav)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+    finally:
+        del model.generate_chunk
+        split.remove()
+    return text, len(chunks), launches, dict(split.counts)
+
+
+def phase_streaming_training(dev, counters, card, keep):
+    """Phase 18: streaming Paraformer's fine-tuning. (a) ``finetune.sh`` (the
+    paraformer_streaming recipe's flags, sharding dp) through ``bin/train`` as a
+    subprocess on a seeded paraformer-zh-streaming dir at full width (50 + 16 blocks, d
+    512, vocab 8404, its training keys as phase 16's) over phase 16's generated wavs
+    (``keep["train_data"]``), one epoch of token batches of 6,000 frames. Gates: a finite
+    loss every step; both chunk configs drawn over the steps; each step's launches exactly
+    phase 16's (``train_sites``) with every flash launch in chunk mode, each validation's
+    its batches x the forward sites; every encoder linear_q_k_v's q / k rows and every
+    fsmn_block reached by a gradient; the average of the 2 best checkpoints decoding
+    through ``AutoModel``'s streaming ``generate`` at phase 11's launches a chunk (50 flash,
+    50 FSMN (11, 5) and 16 (11, 10)). (b) a kernel-vs-plain row at every signature the
+    recipe launched (chunk mode under each config, FSMN, dx, dw under the holed frame mask
+    at (5, 5) and the decoder's (10, 0)), each within 1e-5 relative L2 and bit-equal across
+    two runs (``recipe_kernel_rows(strict=True)``). (c) one step of each config on the card
+    against the CPU at 4 + 2 blocks: the loss within TRAIN_LOSS_RTOL, every gradient within
+    STREAM_TRAIN_GRAD_REL_TOL relative L2."""
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory_bwd_input, fsmn_memory_bwd_weight
+
+    counters = (*counters, flash_attention_bwd, fsmn_memory_bwd_input, fsmn_memory_bwd_weight)
+    torch.cuda.empty_cache()
+    figures = {}
+    enc_n = PROD_CONF["encoder_conf"]["num_blocks"]
+    dec_n = PROD_CONF["decoder_conf"]["num_blocks"]
+    step_sites, val_sites = train_sites(enc_n, dec_n)
+
+    # (c) first, while the card is clear of the recipe's process
+    t_part = time.perf_counter()
+    figures["cuda_vs_cpu"] = {
+        f"config{ind}": train_cuda_vs_cpu(
+            dev, counters, "ParaformerStreaming", STREAM_TRAIN_ENCODER_CONF, STREAM_DECODER_CONF,
+            STREAM_TRAIN_GRAD_REL_TOL, chunk_index=ind)
+        for ind in range(len(STREAM_TRAIN_CHUNKS["chunk_size"]))}
+    log(f"streaming training (c): CUDA against the CPU in {time.perf_counter() - t_part:.1f} s")
+
+    _, jsonl = keep["train_data"]
+    with tempfile.TemporaryDirectory(dir=keep["root"]) as root:
+        md = os.path.join(root, "paraformer-zh-streaming")
+        os.makedirs(md)
+        t0 = time.perf_counter()
+        write_model_dir(md, dev, model_name="ParaformerStreaming", extra=TRAIN_MODEL_CONF,
+                        encoder="SANMEncoderChunkOpt", encoder_conf=STREAM_TRAIN_ENCODER_CONF,
+                        decoder_conf=STREAM_DECODER_CONF, frontend="WavFrontendOnline")
+        import yaml
+        with open(os.path.join(md, "config.yaml"), encoding="utf-8") as f:
+            cfg = yaml.safe_load(f)
+        cfg.update(specaug="SpecAugLFR", specaug_conf=TRAIN_SPECAUG_CONF)
+        cfg["frontend_conf"]["dither"] = 1.0
+        write_config(md, cfg)
+        log(f"streaming training: model dir written in {time.perf_counter() - t0:.1f} s")
+        out = os.path.join(root, "exp")
+        profile_dir = os.path.join(root, "profile")
+        t0 = time.perf_counter()
+        run_cli(["funasr_tpu_torch.bin.train", f"++model={md}",
+                 f"++train_data_set_list={jsonl['train']}",
+                 f"++valid_data_set_list={jsonl['val']}", *TRAIN_RECIPE, *STREAM_TRAIN_RUN,
+                 f"++output_dir={out}", f"++train_conf.profile_dir={profile_dir}"],
+                "bin/train paraformer-zh-streaming (epoch 0)")
+        run_wall = time.perf_counter() - t0
+        steps, vals = read_train_log(out)
+        bad = [x["step"] for x in steps if not math.isfinite(x["loss"])]
+        wrong = [(x["step"], x["launches"]) for x in steps if x["launches"] != step_sites]
+        wrong += [("val", x["step"], x["launches"]) for x in vals
+                  if x["launches"] != {k: v * x["batches"] for k, v in val_sites.items()}]
+        drawn, not_chunk = [], []
+        for x in steps + vals:
+            configs, all_chunk = chunk_configs(x["kernel_shapes"])
+            drawn.append(sorted(configs))
+            if not all_chunk:
+                not_chunk.append(x["step"])
+        for x, cfgs in zip(steps, drawn):
+            log(f"  step {x['step']}: loss {x['loss']:.4f} loss_att {x['loss_att']:.4f} "
+                f"loss_pre {x['loss_pre']:.4f} acc {x['acc']:.4f} grad_norm "
+                f"{x['grad_norm']:.3f} chunk config {cfgs} peak "
+                f"{x.get('peak_mem_mib', 0):.0f} MiB")
+        for x in vals:
+            log(f"  validation at step {x['step']}: {x['batches']} batches, loss "
+                f"{x['validate']['loss']:.4f}, launches {x['launches']}")
+        step_configs = set().union(*(set(c) for c in drawn[:len(steps)]))
+        if bad or wrong or not_chunk or len(step_configs) != len(STREAM_TRAIN_CHUNKS["chunk_size"]):
+            raise AssertionError(f"streaming training: non-finite loss at {bad}; launches off "
+                                 f"the sites {wrong[:3]}; flash not in chunk mode at "
+                                 f"{not_chunk}; chunk configs drawn {drawn}")
+        latest = open(os.path.join(out, "model.pt.latest")).read().strip()
+        checked, zero = grads_reached(os.path.join(out, latest))
+        log(f"streaming training: {checked} attention / FSMN weights checked in {latest}, "
+            f"{len(zero)} never reached by a gradient; chunk configs by step {drawn}")
+        if zero or checked != 2 * enc_n + dec_n:
+            raise AssertionError(f"weights without a gradient: {zero[:4]} ({checked} checked)")
+
+        # (b) every signature the recipe launched
+        shapes = recipe_launch_shapes(steps + vals)
+        log(f"streaming training: {len(shapes)} kernel signatures over {len(steps)} steps and "
+            f"{len(vals)} validations")
+        t_part = time.perf_counter()
+        figures["recipe_rows"] = recipe_kernel_rows(dev, shapes, strict=True)
+        log(f"streaming training (b): kernel rows in {time.perf_counter() - t_part:.1f} s")
+        holed = {name: [label for label, row in rows.items() if "mask" in row]
+                 for name, rows in figures["recipe_rows"].items() if name.startswith("fsmn")}
+        chunk_rows = {tuple(row["chunk"]) for name in ("flash_attention", "flash_attention_bwd")
+                      for row in figures["recipe_rows"].get(name, {}).values() if "chunk" in row}
+        if len(chunk_rows) < len(step_configs) or not all(holed.values()) or len(holed) != 3:
+            raise AssertionError(f"streaming training: rows in chunk mode {chunk_rows}, under "
+                                 f"the holed mask {holed}")
+
+        # the average decodes through the streaming generate
+        am = AutoModel(model=out, init_param=os.path.join(out, "model.pt.avg"), device="cuda",
+                       log_level="WARNING")
+        wav = np.asarray(pcm(np.random.default_rng(97), STREAM_TRAIN_DECODE_S), np.float32) / 32768
+        text, chunks, dec_launches, by_call = streaming_decode_launches(am, counters, wav)
+        log(f"averaged streaming checkpoint through AutoModel's streaming generate: "
+            f"{chunks} chunks, text of {len(text)} characters; launches {dec_launches}, FSMN "
+            f"by (k, left pad) {by_call}")
+        if not isinstance(text, str) or dec_launches["flash_attention"] != enc_n * chunks \
+                or dec_launches["fsmn_memory"] != (enc_n + dec_n) * chunks \
+                or by_call != {(11, 5): enc_n * chunks, (11, 10): dec_n * chunks}:
+            raise AssertionError("the averaged streaming checkpoint did not decode through "
+                                 "the kernels at phase 11's launches")
+        del am
+
+        seconds = recipe_batches(jsonl["train"])[:len(steps)]
+        wall = [y["time"] - x["time"] for x, y in zip(steps, steps[1:])
+                if y["step"] != 2 and x["step"] != 3]  # not the profiled step, nor a checkpoint's
+        step_ms = statistics.median(wall) * 1e3 if wall else float("nan")
+        audio = statistics.mean(seconds)
+        with open(os.path.join(profile_dir, "summary.json")) as f:
+            prof = json.load(f)
+        idle = 1 - prof["device_ms"] / step_ms
+        peak = max(x.get("peak_mem_mib", 0) for x in steps)
+        launches = {k: sum(x["launches"][k] for x in steps + vals) for k in step_sites}
+        log(f"streaming training ({card}): {len(steps)} steps, {step_ms:.1f} ms a step (median "
+            f"of {len(wall)}), {audio * 1e3 / step_ms:.1f} audio s a second ({audio:.1f} s a "
+            f"batch), peak {peak:.0f} MiB; profiled step: device {prof['device_ms']:.1f} ms "
+            f"({prof['wall_ms']:.1f} ms wall under the profiler), idle share {idle:.1%}; the "
+            f"run {run_wall:.1f} s; launches {launches}")
+        top = sorted(prof["by_kernel"].items(), key=lambda kv: -kv[1][0])[:8]
+        for name, (ms, n) in top:
+            log(f"  {ms:8.3f} {n:5d}  {name[:110]}")
+        figures.update(steps=len(steps), step_ms=step_ms, audio_s_per_s=audio * 1e3 / step_ms,
+                       peak_mem_mib=peak, run_s=run_wall, chunk_configs=drawn,
+                       profile=dict(device_ms=prof["device_ms"], wall_ms=prof["wall_ms"],
+                                    idle_share=idle),
+                       launches=launches, launches_per_step=step_sites,
+                       decode_launches=dec_launches, decode_chunks=chunks)
+    return figures
+
+
 STREAMING_ENTRIES = {
     "flash_attention": [(f"{key}_{dt}", ("flash_attention", "streaming", key, dtype))
                         for key in [f"keys{tk}" for tk in STREAM_FLASH_KEYS] + ["causal",
@@ -6140,7 +6469,7 @@ LLM_ENTRIES = {
 
 def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None,
                  hotword=None, streaming=None, sensevoice=None, serving=None, llm=None,
-                 export=None, training=None, training_family=None):
+                 export=None, training=None, training_family=None, streaming_training=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
@@ -6172,7 +6501,8 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
     kernels' rows at every shape the recipe launched (``recipe_kernel_rows``, labelled by
     ``recipe_label``) under ``recipe_rows`` (the forward kernels': in ``training``). Phase
     17's (``training_family``) go under ``training_family`` in each of those five
-    (``family_entry``)."""
+    (``family_entry``), phase 18's (``streaming_training``) under ``streaming_training``
+    (``streaming_training_entry``)."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -6266,6 +6596,8 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
                                      recipe_rows=training["recipe_rows"].get(name, {}))
         if training_family:
             entry["training_family"] = family_entry(training_family, name)
+        if streaming_training and name != "w8a8_linear":
+            entry["streaming_training"] = streaming_training_entry(streaming_training, name)
         kernels.append(entry)
     for name, (src, keys) in (TRAIN_BACKWARD.items() if training else ()):
         rows = training["rows"]
@@ -6281,8 +6613,22 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             entry["rows"] = {key[1]: rows[key] for key in keys}
         if training_family:
             entry["training_family"] = family_entry(training_family, name)
+        if streaming_training:
+            entry["streaming_training"] = streaming_training_entry(streaming_training, name)
         kernels.append(entry)
     return {"kernels": kernels}
+
+
+def streaming_training_entry(fig, name):
+    """A kernel's phase 18 figures: its launches in the streaming recipe's run (steps and
+    validations) and a step, its rows at every signature that run launched (chunk mode's
+    under each config, the holed mask's), its launches in each config's CUDA step of (c)
+    and in the averaged checkpoint's streaming decode."""
+    return dict(launches=fig["launches"][name], launches_per_step=fig["launches_per_step"][name],
+                recipe_rows=fig["recipe_rows"].get(name, {}),
+                cuda_vs_cpu_launches={k: f["launches"][name]
+                                      for k, f in fig["cuda_vs_cpu"].items()},
+                decode_launches=fig["decode_launches"][name], decode_chunks=fig["decode_chunks"])
 
 
 def family_entry(family, name):
@@ -6360,12 +6706,17 @@ def main():
         serving = timed("serving", phase_serving, dev, counters, card, keep)
         llm = timed("LLM", phase_llm, dev, counters, card)
         export = timed("text and export", phase_export, dev, counters, card, keep)
-    training = timed("training", phase_training, dev, counters, card)
-    family = timed("training family", phase_training_family, dev, counters, card)
+    # phase 16's generated wavs serve phase 18 (removed at the end)
+    with tempfile.TemporaryDirectory() as train_root:
+        keep_train = {"root": train_root}
+        training = timed("training", phase_training, dev, counters, card, keep_train)
+        family = timed("training family", phase_training_family, dev, counters, card)
+        stream_training = timed("streaming training", phase_streaming_training, dev, counters,
+                                card, keep_train)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
                                   speaker, hotword, streaming, sensevoice, serving, llm,
-                                  export, training, family),
+                                  export, training, family, stream_training),
                      default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

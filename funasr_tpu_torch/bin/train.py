@@ -9,7 +9,12 @@ Usage (``funasr-tpu-torch-train`` is the console script of this module):
 
 SenseVoice-Small's recipe adds ``++dataset=SenseVoiceDataset`` (or a ``dataset`` key in the
 model dir's config.yaml) over the jsonl of ``bin/data_tools sensevoice2jsonl``; every ported
-ASR model but the streaming Paraformer and the LLM family trains this way.
+ASR model but the LLM family trains this way. The streaming Paraformer's recipe
+(``paraformer_streaming/finetune.sh``) is Paraformer's flags on a ``ParaformerStreaming``
+dir whose ``encoder_conf`` holds the training chunk keys (``chunk_size``, ``stride``,
+``pad_left``, the look-back factors): each step draws one chunk config and trains under
+its overlap-chunk masks, and the averaged checkpoint streams through ``AutoModel``'s
+``generate(cache=..., chunk_size=[0, 10, 5])``.
 
 The model is built as ``AutoModel`` builds it (the dir's config.yaml, tokenizer,
 frontend, ``model.pt`` as the starting weights, else seeded ones), on ``++device``

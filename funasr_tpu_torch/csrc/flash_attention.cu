@@ -62,6 +62,20 @@
 // loaded nor computed (their exp() is exactly 0). Query rows at or past lengths[b] are
 // computed like any other row (callers ignore them); rows past Tq are not written.
 //
+// Chunk mode (mode 3, fp32 only, Tq = Tk): the overlap-chunk attention of streaming
+// training (funasr_tpu/models/scama/chunk_utils.py:90-97 with the key pad mask). With
+// (shift, sf, stride, lb) = chunk[0..3], row r is in chunk r / shift at in-chunk index
+// j = r % shift - sf; it sees key c < len_b when j >= 0, c's own index is >= 0 and c is in
+// r's chunk, or c's chunk is one of the lb before it and both indices are < stride. That
+// is no per-row limit: a look-back chunk's look-ahead rows and every chunk's sf shift rows
+// are holes. So the predicate is computed per score from the row and key indices (no
+// (Tq, Tk) mask is read), a masked score is -inf (contributes exactly 0), and a block of
+// 64 rows loads only the key tiles of [(c_first - lb) shift + sf, (c_last + 1) shift),
+// clipped to len_b: about 150 of ~400 keys at the recipe's chunks. A fully masked row
+// (an FSMN shift row) keeps m = -1e30 and l = 0 and writes 0, as JAX's masked_softmax
+// gives; the backward forms P only at live keys, so (m, l) = (-1e30, 0) carries no
+// probability mass. The CHUNK template flag keeps the other modes' kernel as it was.
+//
 // Inputs have any strides whose last one is 1 and the others multiples of 16 bytes;
 // the wrapper (funasr_tpu_torch/ops/flash_attention.py) checks this, allocates the
 // output, picks the bf16 block rows and passes the stream. D <= 128, a multiple of 8.
@@ -341,6 +355,8 @@ cudaError_t launch_bf16(const void* const* ptrs, const int* lengths, const int* 
 // Row pitches of 132 floats for K and V (= 4 mod 32 banks) and 144 for Q (= 16 mod 32)
 // make every such 16-byte read conflict-free.
 //
+// Chunk mode is the CHUNK instantiation (the note at "Chunk mode" above).
+//
 // Training: FlashAttentionFn launches the STATS instantiation, which also writes each
 // row's max m (log2 units) and sum l, the two numbers the backward kernel needs to form
 // P without recomputing S twice; every inference path launches the other, which is the
@@ -362,7 +378,18 @@ struct F32Smem {  // 104,448 bytes: two blocks per SM
   float v[FSTAGES][FK * FPITCH];
 };
 
-template <bool STATS>
+struct Chunk {  // chunk mode's predicate (mode 3)
+  int shift, sf, stride, lb;
+};
+
+// chunk mode: whether a row of chunk rc at in-chunk index rj sees a key of chunk kc at
+// index kj (the key's length check aside)
+__device__ __forceinline__ bool chunk_sees(const Chunk& c, int rc, int rj, int kc, int kj) {
+  return rj >= 0 && kj >= 0 &&
+         (kc == rc || (kc < rc && kc >= rc - c.lb && rj < c.stride && kj < c.stride));
+}
+
+template <bool STATS, bool CHUNK>
 __global__ void __launch_bounds__(FTHREADS, 2)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
@@ -372,7 +399,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  long long ksb, long long ksh, long long kst,
                  long long vsb, long long vsh, long long vst,
                  long long osb, long long osh, long long ost, float scale_log2,
-                 float* __restrict__ stats) {
+                 float* __restrict__ stats, Chunk ch) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   F32Smem& sm = *reinterpret_cast<F32Smem*>(smem_raw);
   const int b = blockIdx.x / H, h = blockIdx.x % H;
@@ -380,8 +407,19 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane / 4, tig = lane % 4;
   const int len = min(max(lengths[b], 0), Tk);
   const int vp = mode == 2 ? vad_pos[b] : 0;
-  const int block_lim = key_limit(mode, min((int)blockIdx.y * FQ + FQ, Tq) - 1, len, vp);
-  const int ntiles = ((block_lim > 0 ? block_lim : Tk) + FK - 1) / FK;
+  // the block's key tiles [t_lo, t_lo + ntiles)
+  int t_lo = 0, ntiles;
+  if constexpr (CHUNK) {
+    const int c_first = (int)blockIdx.y * FQ / ch.shift;
+    const int c_last = (min((int)blockIdx.y * FQ + FQ, Tq) - 1) / ch.shift;
+    const int lo = max(c_first - ch.lb, 0) * ch.shift + ch.sf;
+    const int hi = min(len, (c_last + 1) * ch.shift);
+    t_lo = lo / FK;
+    ntiles = hi > lo ? (hi + FK - 1) / FK - t_lo : 0;
+  } else {
+    const int block_lim = key_limit(mode, min((int)blockIdx.y * FQ + FQ, Tq) - 1, len, vp);
+    ntiles = ((block_lim > 0 ? block_lim : Tk) + FK - 1) / FK;
+  }
 
   const float* kg = k + b * ksb + h * ksh;
   const float* vg = v + b * vsb + h * vsh;
@@ -410,11 +448,19 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 #pragma unroll
   for (int st = 0; st < FSTAGES - 1; ++st) {
-    if (st < ntiles) load_kv(st, st);
+    if (st < ntiles) load_kv(st, t_lo + st);
     hopper::cp_async_commit();
   }
   const int r0 = blockIdx.y * FQ + warp * 16;  // this warp's rows r0 + g, r0 + g + 8
   const int lim[2] = {key_limit(mode, r0 + g, len, vp), key_limit(mode, r0 + g + 8, len, vp)};
+  int rc[2] = {0, 0}, rj[2] = {-1, -1};  // chunk mode: the rows' chunks and indices
+  if constexpr (CHUNK) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      rc[hr] = (r0 + g + 8 * hr) / ch.shift;
+      rj[hr] = r0 + g + 8 * hr - rc[hr] * ch.shift - ch.sf;
+    }
+  }
   const float* qs = &sm.q[(warp * 16 + g) * QPITCH + 4 * tig];
 
   float acc[DP / 8][4];  // O: output tile jn, rows g / g + 8
@@ -424,13 +470,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc[jn][e] = 0.f;
   float m_r[2] = {MASKED, MASKED}, l_r[2] = {0.f, 0.f};
 
-  for (int kt = 0; kt < ntiles; ++kt) {
+  for (int it = 0; it < ntiles; ++it) {
+    const int kt = t_lo + it;
     hopper::cp_async_wait<FSTAGES - 2>();  // this thread's copies of tile kt have landed
     __syncthreads();               // everyone's have; everyone is done with tile kt - 1
-    if (kt + FSTAGES - 1 < ntiles) load_kv((kt + FSTAGES - 1) % FSTAGES, kt + FSTAGES - 1);
+    if (it + FSTAGES - 1 < ntiles) load_kv((it + FSTAGES - 1) % FSTAGES, kt + FSTAGES - 1);
     hopper::cp_async_commit();
-    const float* ks = sm.k[kt % FSTAGES];
-    const float* vs = sm.v[kt % FSTAGES];
+    const float* ks = sm.k[it % FSTAGES];
+    const float* vs = sm.v[it % FSTAGES];
 
     // S = Q K^T over 16 head-dim columns (two mma steps) at a time
     float sc[FK / 8][4];
@@ -474,7 +521,12 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + 8 * j + tig + 4 * (e & 1);
         const float x = sc[j][e] * scale_log2;
-        sc[j][e] = key >= Tk ? -INFINITY : (key >= lim[e / 2] ? MASKED : x);
+        if constexpr (CHUNK) {  // key < len <= Tk is part of being live
+          const int kc = key / ch.shift, kj = key - kc * ch.shift - ch.sf;
+          sc[j][e] = key < len && chunk_sees(ch, rc[e / 2], rj[e / 2], kc, kj) ? x : -INFINITY;
+        } else {
+          sc[j][e] = key >= Tk ? -INFINITY : (key >= lim[e / 2] ? MASKED : x);
+        }
         mx[e / 2] = fmaxf(mx[e / 2], sc[j][e]);
       }
     float alpha[2];
@@ -558,9 +610,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 cudaError_t launch_f32(const void* const* ptrs, const int* lengths, const int* vad_pos, int B,
                        int H, int Tq, int Tk, int D, const long long* st, float sm_scale,
-                       int mode, float* stats, cudaStream_t stream) {
+                       int mode, float* stats, Chunk ch, cudaStream_t stream) {
   const size_t bytes = sizeof(F32Smem);  // above the 48 KB default: opt in per device
-  auto kernel = stats ? flash_f32_kernel<true> : flash_f32_kernel<false>;
+  auto kernel = mode == 3 ? (stats ? flash_f32_kernel<true, true> : flash_f32_kernel<false, true>)
+                          : (stats ? flash_f32_kernel<true, false> : flash_f32_kernel<false, false>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess)  // the whole carveout as shared memory: two blocks per SM
@@ -572,7 +625,7 @@ cudaError_t launch_f32(const void* const* ptrs, const int* lengths, const int* v
       static_cast<const float*>(ptrs[0]), static_cast<const float*>(ptrs[1]),
       static_cast<const float*>(ptrs[2]), static_cast<float*>(const_cast<void*>(ptrs[3])),
       lengths, vad_pos, H, Tq, Tk, D, mode, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], st[9], st[10], st[11], sm_scale * LOG2E, stats);
+      st[7], st[8], st[9], st[10], st[11], sm_scale * LOG2E, stats, ch);
   return cudaGetLastError();
 }
 
@@ -580,24 +633,33 @@ cudaError_t launch_f32(const void* const* ptrs, const int* lengths, const int* v
 
 // dtype: 0 = float32, 1 = bfloat16. q and o are (B, H, Tq, D), k and v (B, H, Tk, D);
 // strides: (b, h, t) for q, k, v, o in elements. mode: 0 none, 1 causal, 2 corner, which
-// reads vad_pos (B int32; NULL otherwise). block_rows: query rows per bf16 block, 64 or
-// 128 (the fp32 kernel always takes 64). stats: NULL, or (fp32 only) 2 B H Tq floats that
-// receive each row's max m (log2 units) and sum l, the backward kernel's input.
+// reads vad_pos (B int32; NULL otherwise), 3 chunk (fp32, Tq = Tk), which reads chunk (4
+// host ints: shift, s_fsmn, stride, look-back; NULL otherwise). block_rows: query rows per
+// bf16 block, 64 or 128 (the fp32 kernel always takes 64). stats: NULL, or (fp32 only)
+// 2 B H Tq floats that receive each row's max m (log2 units) and sum l, the backward
+// kernel's input.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* o, const void* lengths, int B, int H, int Tq, int Tk,
                                    int D, const long long* strides, float sm_scale, int mode,
                                    const void* vad_pos, int block_rows, void* stats,
-                                   void* stream) {
+                                   const int* chunk, void* stream) {
   const void* ptrs[4] = {q, k, v, o};
   const int* lens = static_cast<const int*>(lengths);
   const int* vps = static_cast<const int*>(vad_pos);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D < 8 || D > DP || D % 8 || Tq < 1 || Tk < Tq || mode < 0 || mode > 2 ||
-      (mode == 2 && vps == nullptr))
+  if (D < 8 || D > DP || D % 8 || Tq < 1 || Tk < Tq || mode < 0 || mode > 3 ||
+      (mode == 2 && vps == nullptr) || (mode == 3) != (chunk != nullptr))
     return (int)cudaErrorInvalidValue;
+  Chunk ch = {1, 0, 1, 0};
+  if (mode == 3) {
+    ch = Chunk{chunk[0], chunk[1], chunk[2], chunk[3]};
+    if (dtype != 0 || Tk != Tq || ch.shift < 1 || ch.sf < 0 || ch.sf >= ch.shift ||
+        ch.stride < 1 || ch.lb < 0)
+      return (int)cudaErrorInvalidValue;
+  }
   if (dtype == 0)
     return (int)launch_f32(ptrs, lens, vps, B, H, Tq, Tk, D, strides, sm_scale, mode,
-                           static_cast<float*>(stats), s);
+                           static_cast<float*>(stats), ch, s);
   if (dtype == 1 && stats == nullptr && (block_rows == QR || block_rows == 2 * QR))
     return (int)launch_bf16(ptrs, lens, vps, B, H, Tq, Tk, D, strides, sm_scale, mode,
                             block_rows, s);

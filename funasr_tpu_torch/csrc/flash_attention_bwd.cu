@@ -53,6 +53,15 @@
 // Splitting K and V once a block instead of at each use moved the key blocks by < 3 %:
 // the splits do not bound it.
 //
+// Chunk mode (mode 3; flash_attention.cu's note at "Chunk mode"): P and dS are formed only
+// at live scores, the predicate computed from the row and key indices, so a fully masked
+// row (the forward's (m, l) = (-1e30, 0)) adds nothing to dK or dV and gets dq = 0. Key
+// block [k0, k0 + 32) is seen only by the rows of chunks c' = k0 / shift ... c'' + lb
+// (c'' its last key's chunk), so it walks only the query tiles of those rows; its keys at
+// or past len_b are seen by none. The dQ sum adds, in key-block order, the shares of the
+// key blocks whose walk covered the row's tile (the same range function), so a row no
+// block reached gets 0. The CHUNK template flag keeps the other modes' kernel as it was.
+//
 // Shapes: q, o, dO, dq (B, H, Tq, D); k, v, dk, dv (B, H, Tk, D); Tq <= Tk; D <= 128,
 // a multiple of 8; any strides with a unit last one and the others multiples of 4
 // elements, bases 16-byte aligned (the wrapper checks). stats: 2 x B H Tq floats (m in
@@ -99,6 +108,7 @@ struct Args {
   float *dq, *dk, *dv, *dr, *dq_part;
   const int *lengths, *vad_pos;
   int BH, H, Tq, Tk, D, mode;
+  int shift, sf, stride, lb;  // chunk mode (3)
   Strides q_s, k_s, v_s, o_s, do_s, dq_s, dk_s, dv_s;
   float sm_scale, scale_log2;
 };
@@ -112,6 +122,27 @@ __device__ __forceinline__ int key_limit(int mode, int row, int len, int vp) {
 // the largest key limit of query tile qt (its last row's)
 __device__ __forceinline__ int tile_limit(const Args& a, int qt, int len, int vp) {
   return key_limit(a.mode, min((qt + 1) * QT, a.Tq) - 1, len, vp);
+}
+
+// chunk mode: whether a row of chunk rc at in-chunk index rj sees a key of chunk kc at
+// index kj (the key's length check aside)
+__device__ __forceinline__ bool chunk_sees(const Args& a, int rc, int rj, int kc, int kj) {
+  return rj >= 0 && kj >= 0 &&
+         (kc == rc || (kc < rc && kc >= rc - a.lb && rj < a.stride && kj < a.stride));
+}
+
+// chunk mode: the query tiles [first, end) whose rows can see key block kb (none when
+// its keys are all at or past len)
+__device__ __forceinline__ void chunk_tiles(const Args& a, int kb, int len, int& first,
+                                            int& end) {
+  const int k0 = kb * KB, k1 = min(k0 + KB, len);
+  if (k1 <= k0) {
+    first = end = 0;
+    return;
+  }
+  const int c0 = k0 / a.shift, c1 = (k1 - 1) / a.shift;
+  first = (c0 * a.shift + a.sf) / QT;
+  end = (min(a.Tq, (c1 + a.lb + 1) * a.shift) + QT - 1) / QT;
 }
 
 __device__ __forceinline__ void split4u(const uint32_t (&r)[4], uint32_t (&hi)[4],
@@ -141,6 +172,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dr_kernel(Args a) {
 }
 
 // One block of KB keys of one (b, h): dK, dV and its share of dQ. Grid (B H, Tk / KB).
+template <bool CHUNK>
 __global__ void __launch_bounds__(THREADS, 1) flash_bwd_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
@@ -150,11 +182,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_kernel(Args a) {
   const int k0 = blockIdx.y * KB;
   const int len = min(max(a.lengths[b], 0), a.Tk);
   const int vp = a.mode == 2 ? a.vad_pos[b] : 0;
-  const int ntiles = (a.Tq + QT - 1) / QT;
-  // the live query tiles, a suffix; a length-0 row sends dO / Tk to every key
-  int first = 0;
-  if (len > 0)
-    while (first < ntiles && tile_limit(a, first, len, vp) <= k0) ++first;
+  // the live query tiles [first, end): a suffix outside chunk mode (a length-0 row sends
+  // dO / Tk to every key), the rows of the chunks that see this block in it
+  int first = 0, end = (a.Tq + QT - 1) / QT;
+  if constexpr (CHUNK) {
+    chunk_tiles(a, blockIdx.y, len, first, end);
+  } else if (len > 0) {
+    while (first < end && tile_limit(a, first, len, vp) <= k0) ++first;
+  }
   const float* qg = a.q + b * a.q_s.sb + h * a.q_s.sh;
   const float* dog = a.dout + b * a.do_s.sb + h * a.do_s.sh;
   const long long n = (long long)a.BH * a.Tq, at = (long long)bh * a.Tq;
@@ -187,7 +222,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_kernel(Args a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) dv[jn][e] = dk[jn][e] = 0.f;
 
-  if (first < ntiles) {
+  if (first < end) {
     const float* kg = a.k + b * a.k_s.sb + h * a.k_s.sh;
     const float* vg = a.v + b * a.v_s.sb + h * a.v_s.sh;
 #pragma unroll
@@ -210,11 +245,22 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_kernel(Args a) {
   const int b_off =
       (16 * qh + 8 * (lane >> 4) + ((lane & 7) >> 1) + 4 * (lane & 1)) * PITCH + 4 * ((lane >> 3) & 1);
 
-  for (int qt = first; qt < ntiles; ++qt) {
+  // chunk mode: this thread's two keys' chunks and in-chunk indices
+  int kc[2] = {0, 0}, kj[2] = {-1, -1};
+  if constexpr (CHUNK) {
+#pragma unroll
+    for (int hk = 0; hk < 2; ++hk) {
+      const int key = k0 + 16 * kh + g + 8 * hk;
+      kc[hk] = key / a.shift;
+      kj[hk] = key < len ? key - kc[hk] * a.shift - a.sf : -1;  // -1: never live
+    }
+  }
+
+  for (int qt = first; qt < end; ++qt) {
     const int st = (qt - first) & 1;
     hopper::cp_async_wait<0>();  // this thread's copies of tile qt have landed
     __syncthreads();             // everyone's have; everyone is done with tile qt - 1
-    if (qt + 1 < ntiles) load_tile(st ^ 1, qt + 1);
+    if (qt + 1 < end) load_tile(st ^ 1, qt + 1);
     hopper::cp_async_commit();
     const float* qs = sm.q[st];
     const float* dos = sm.dout[st];
@@ -254,11 +300,21 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_kernel(Args a) {
         const int ql = 16 * qh + 8 * j + tig + 4 * hq, row = row0 + ql;
         const int lim = row < a.Tq ? key_limit(a.mode, row, len, vp) : -1;  // -1: no such row
         const float m = sm.m[st][ql], l = sm.l[st][ql], dr = sm.dr[st][ql];
+        int rc = 0, rj = -1;  // chunk mode: the row's chunk and index (-1: never live)
+        if constexpr (CHUNK) {
+          rc = row / a.shift;
+          rj = row < a.Tq ? row - rc * a.shift - a.sf : -1;
+        }
 #pragma unroll
         for (int hk = 0; hk < 2; ++hk) {
           const int e = 2 * hk + hq, kl = 16 * kh + g + 8 * hk, key = k0 + kl;
           float p = 0.f, d = 0.f;
-          if (lim >= 0 && key < a.Tk) {
+          if constexpr (CHUNK) {
+            if (chunk_sees(a, rc, rj, kc[hk], kj[hk])) {
+              p = exp2f(s[j][e] * a.scale_log2 - m) / l;
+              d = p * (dp[j][e] - dr);
+            }
+          } else if (lim >= 0 && key < a.Tk) {
             p = exp2f((key >= lim ? MASKED : s[j][e] * a.scale_log2) - m) / l;
             if (key < lim) d = p * (dp[j][e] - dr);
           }
@@ -405,9 +461,15 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(Args a) {
   const int len = min(max(a.lengths[b], 0), a.Tk);
   const int vp = a.mode == 2 ? a.vad_pos[b] : 0;
   const int nkb = (a.Tk + KB - 1) / KB;
-  const int live = len > 0 ? min(nkb, (tile_limit(a, t / QT, len, vp) + KB - 1) / KB) : nkb;
+  const int live = a.mode == 3 ? nkb
+                   : len > 0 ? min(nkb, (tile_limit(a, t / QT, len, vp) + KB - 1) / KB) : nkb;
   float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int kb = 0; kb < live; ++kb) {
+    if (a.mode == 3) {  // only the key blocks whose walk covered this row's tile wrote
+      int first, end;
+      chunk_tiles(a, kb, len, first, end);
+      if (t / QT < first || t / QT >= end) continue;
+    }
     const float4 x =
         *reinterpret_cast<const float4*>(a.dq_part + ((long long)kb * a.BH * a.Tq + row) * a.D + c);
     sum.x += x.x, sum.y += x.y, sum.z += x.z, sum.w += x.w;
@@ -422,17 +484,26 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_kernel(Args a) {
 // elements for q, k, v, o, dout, dq, dk, dv (24 values). stats: the forward's 2 B H Tq
 // floats (m in log2 units, l). scratch: B H Tq rounded up to a multiple of 4 (Dr), then
 // ceil(Tk / 32) B H Tq D (the key blocks' shares of dQ) floats. mode: 0 none, 1 causal,
-// 2 corner, which reads vad_pos (B int32; NULL otherwise). Three kernel launches on
-// `stream`.
+// 2 corner, which reads vad_pos (B int32; NULL otherwise), 3 chunk (Tq = Tk), which reads
+// chunk (4 host ints: shift, s_fsmn, stride, look-back; NULL otherwise). Three kernel
+// launches on `stream`.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const void* stats, void* dq, void* dk,
                                    void* dv, void* scratch, const void* lengths, int B, int H,
                                    int Tq, int Tk, int D, const long long* strides,
-                                   float sm_scale, int mode, const void* vad_pos, void* stream) {
-  if (D < 8 || D > DP || D % 8 || Tq < 1 || Tk < Tq || mode < 0 || mode > 2 ||
-      (mode == 2 && vad_pos == nullptr) || B * H < 1 || stats == nullptr)
+                                   float sm_scale, int mode, const void* vad_pos,
+                                   const int* chunk, void* stream) {
+  if (D < 8 || D > DP || D % 8 || Tq < 1 || Tk < Tq || mode < 0 || mode > 3 ||
+      (mode == 2 && vad_pos == nullptr) || B * H < 1 || stats == nullptr ||
+      (mode == 3) != (chunk != nullptr))
     return (int)cudaErrorInvalidValue;
   Args a;
+  a.shift = 1, a.sf = 0, a.stride = 1, a.lb = 0;
+  if (mode == 3) {
+    a.shift = chunk[0], a.sf = chunk[1], a.stride = chunk[2], a.lb = chunk[3];
+    if (Tk != Tq || a.shift < 1 || a.sf < 0 || a.sf >= a.shift || a.stride < 1 || a.lb < 0)
+      return (int)cudaErrorInvalidValue;
+  }
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
   a.v = static_cast<const float*>(v);
@@ -453,14 +524,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   a.sm_scale = sm_scale;
   a.scale_log2 = sm_scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = mode == 3 ? flash_bwd_kernel<true> : flash_bwd_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)sizeof(Smem));
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dr_kernel<<<(unsigned)((rows + DR_ROWS - 1) / DR_ROWS), THREADS, 0, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_kernel<<<dim3(B * H, (Tk + KB - 1) / KB), THREADS, sizeof(Smem), s>>>(a);
+  kernel<<<dim3(B * H, (Tk + KB - 1) / KB), THREADS, sizeof(Smem), s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long vecs = rows * (D / 4);

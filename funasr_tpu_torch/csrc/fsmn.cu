@@ -48,7 +48,10 @@
 //
 // Training: the input gradient is this kernel run on dout with the taps reversed and the
 // pads swapped (the transpose of a depthwise correlation; the wrapper's
-// fsmn_memory_bwd_input); the weight gradient is fsmn_memory_bwd_weight at the end of
+// fsmn_memory_bwd_input). The streaming decoder's (10, 0) pads swap to (0, 10): on the
+// generic instantiation its input gradient took 0.0324-0.0331 ms at (B, 49-73, 512),
+// 3.6x torch.nn.grad.conv1d_input's (NVIDIA H100 80GB HBM3, 700 W), hence k = 11 / left
+// 0 of its own (the phase 18 rows of PERF.md time it). The weight gradient is fsmn_memory_bwd_weight at the end of
 // this file, per-chunk partials from one pass over the rows, then their ordered sum, with
 // no float atomics (its own note is there).
 //
@@ -287,6 +290,9 @@ cudaError_t dispatch(const void* x, const void* w, const void* mask, void* out, 
   // streaming model, sanm_shfit 5, has the same pads)
   if (K == 11 && left == 10)
     return launch<T, 11, 10>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
+  // that decoder's input gradient in training: the forward kernel, pads swapped to (0, 10)
+  if (K == 11 && left == 0)
+    return launch<T, 11, 0>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
   // the VAD's causal memory (lorder 20, fp32): its window and taps take 160 registers
   // a thread at 4 channels; bf16's 8 channels would spill, so bf16 stays generic
   if constexpr (Vec<T>::N == 4)

@@ -73,9 +73,6 @@ def add_sos_and_eos(ys_pad, ys_lens, sos: int, eos: int, ignore_id: int = -1):
 
 @tables.register("model_classes", "Paraformer")
 class Paraformer(nn.Module):
-    # the part of ROADMAP item 20b a subclass's training loss waits for (``forward`` raises)
-    TRAINING_WAITS_FOR: Optional[str] = None
-
     def __init__(
         self,
         specaug: Optional[str] = None,
@@ -173,18 +170,11 @@ class Paraformer(nn.Module):
         ``batch_size``; ``loss_ctc`` with CTC). ``generator`` draws SpecAug, dropout and
         the sampler's uniforms; ``sampler_uniform`` (B, L') replaces the latter. The
         subclasses that inherit ``forward_jit`` in JAX (E-Paraformer, Contextual) train
-        through it; a class whose loss waits names its part of ROADMAP item 20b in
-        ``TRAINING_WAITS_FOR`` and raises."""
-        if self.TRAINING_WAITS_FOR:
-            raise NotImplementedError(f"{type(self).__name__}'s training loss is not ported "
-                                      f"yet: {self.TRAINING_WAITS_FOR}")
-        batch_size = speech.shape[0]
+        through it."""
         encoder_out, encoder_out_lens = self.encode(speech, speech_lengths, generator)
-        stats = {}
         loss_ctc = None
         if self.ctc is not None and self.ctc_weight > 0.0:
             loss_ctc = self.ctc.loss(encoder_out, encoder_out_lens, text, text_lengths)
-            stats["loss_ctc"] = loss_ctc
 
         ys_pad, ys_pad_lens = text, text_lengths
         if self.predictor_bias == 1:
@@ -197,16 +187,26 @@ class Paraformer(nn.Module):
         mask = make_pad_mask(encoder_out_lens, encoder_out.shape[1])
         pre_acoustic_embeds, pre_token_length, _, _ = self.predictor(
             encoder_out, mask, ys_pad.shape[1], target_length=ys_pad_lens)
+        return self.decoder_loss(encoder_out, encoder_out_lens, ys_pad, ys_pad_lens,
+                                 pre_acoustic_embeds, pre_token_length, loss_ctc, text_lengths,
+                                 generator, sampler_uniform)
 
+    def decoder_loss(self, memory, memory_lens, ys_pad, ys_pad_lens, pre_acoustic_embeds,
+                     pre_token_length, loss_ctc, text_lengths, generator=None,
+                     sampler_uniform=None):
+        """The loss's second half (``forward_jit``'s, ``ParaformerStreaming``'s too): the
+        glancing sampler and the decoder over ``memory``, label-smoothed CE +
+        ``predictor_weight`` x the MAE token loss (+ ``loss_ctc`` at ``ctc_weight``) ->
+        (loss, stats, weight)."""
+        stats = {} if loss_ctc is None else {"loss_ctc": loss_ctc}
         if self.sampling_ratio > 0.0:
             sematic_embeds, dec_out_1st = self._sampler(
-                encoder_out, encoder_out_lens, ys_pad, ys_pad_lens, pre_acoustic_embeds,
-                generator, sampler_uniform)
+                memory, memory_lens, ys_pad, ys_pad_lens, pre_acoustic_embeds, generator,
+                sampler_uniform)
         else:
             sematic_embeds, dec_out_1st = pre_acoustic_embeds, None
 
-        decoder_out, _ = self.decoder(encoder_out, encoder_out_lens, sematic_embeds,
-                                      ys_pad_lens)
+        decoder_out, _ = self.decoder(memory, memory_lens, sematic_embeds, ys_pad_lens)
         if dec_out_1st is None:
             dec_out_1st = decoder_out
         loss_att = label_smoothing_loss(
@@ -219,6 +219,7 @@ class Paraformer(nn.Module):
                     + loss_pre * self.predictor_weight)
         else:
             loss = loss_att + loss_pre * self.predictor_weight
+        batch_size = ys_pad.shape[0]
         stats.update(loss_att=loss_att, loss_pre=loss_pre, acc=acc_att, loss=loss,
                      batch_size=torch.tensor(batch_size))
         weight = ((text_lengths + self.predictor_bias).sum() if self.length_normalized_loss

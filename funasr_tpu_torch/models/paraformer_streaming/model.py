@@ -18,7 +18,18 @@ k = 11 / pads (5, 5) in the encoder and 16 at pads (10, 0) in the decoder.
 
 The cache is the JAX package's dict ({"encoder", "decoder", "frontend",
 "prev_samples"}) with torch tensors on the model's device; the per-layer K/V caches are
-lists. Training with overlap-chunk masks (``forward_jit``) belongs to the training slice.
+lists.
+
+``forward`` is the training loss under overlap-chunk masks (``forward_jit``, ``:76-218``),
+-> (loss, stats, weight) as ``Paraformer.forward``: one chunk config of the encoder's
+``overlap_chunk_cls`` drawn from the step's generator (or given, ``chunk_index``), its
+masks built on the host at the batch's padded length and padded to the configs' common
+shape (``chunk_masks``, kept per length and device), the chunked lengths from JAX's
+formula, SpecAug (``train()`` mode with a generator) and normalize, the encoder's
+``forward_train_chunk`` (every self-attention on the flash kernels' chunk mode, no
+dropout), CTC on ``remove_chunk``'s output, the CIF predictor on the chunked output times
+the FSMN-shift mask under the pad and stride-region mask (a mask with holes), the glancing
+sampler and the decoder on the un-chunked memory, the loss, stats and weight.
 
 One departure: an int16 waveform is scaled to [-1, 1) before the stride loop (as
 ``load_audio``'s other outputs are). The JAX loop casts it to float32 unscaled, so its
@@ -34,8 +45,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from funasr_tpu_torch.models.paraformer.model import Paraformer
+from funasr_tpu_torch.core.layers import make_pad_mask
+from funasr_tpu_torch.models.paraformer.model import Paraformer, add_sos_eos_out
 from funasr_tpu_torch.models.scama import encoder as _scama_encoder  # noqa: F401 (registers)
+from funasr_tpu_torch.models.scama.chunk_utils import device_tables, remove_chunk
 from funasr_tpu_torch.register import tables
 from funasr_tpu_torch.utils import postprocess_utils
 from funasr_tpu_torch.utils.load_utils import (as_unit_f32, extract_fbank,
@@ -51,14 +64,112 @@ def upload(array, device, dtype):
     return x.to(dtype)
 
 
+def _padto(a, shape):
+    out = np.zeros(shape, a.dtype)
+    out[tuple(slice(0, s) for s in a.shape)] = a
+    return out
+
+
 @tables.register("model_classes", "ParaformerStreaming")
 class ParaformerStreaming(Paraformer):
-    TRAINING_WAITS_FOR = (
-        "ROADMAP item 20b, streaming training (forward_jit's OverlapChunk and "
-        "forward_train_chunk need a key-window mode in the flash kernels, forward and backward)")
+    CHUNK_MASKS_KEPT = 64  # padded batch lengths whose device masks stay built
 
     def __init__(self, encoder: str = "SANMEncoderChunkOpt", **kwargs):
         super().__init__(encoder=encoder, **kwargs)
+        self._chunk_masks = {}
+
+    # ------------------------------------------------------------------
+    # training with overlap-chunk masks
+    # ------------------------------------------------------------------
+
+    def stacked_chunk_masks(self, l_max: int):
+        """Every config's masks at ``l_max`` (``OverlapChunk.gen_chunk_mask``), padded to
+        their common shape (``_stacked_chunk_masks``, ``:76-113``): {key: [one per config]}
+        (numpy; the attention mask left out, the kernels compute it) and the common
+        pad_left."""
+        oc = self.encoder.overlap_chunk_cls
+        if len(set(oc.pad_left)) != 1:
+            raise ValueError("mixed pad_left is unsupported")
+        per_cfg = [oc.gen_chunk_mask(np.asarray([l_max]), ind)
+                   for ind in range(len(oc.chunk_size))]
+        lc = max(m["x_add_mask"].shape[0] for m in per_cfg)
+        tp = max(m["x_add_mask"].shape[1] for m in per_cfg)
+        shapes = {"x_add_mask": (lc, tp), "x_rm_mask": (l_max, lc), "mask_shfit_chunk": (lc,),
+                  "mask_chunk_predictor": (lc,)}
+        return ({k: [_padto(m[k], shape) for m in per_cfg] for k, shape in shapes.items()},
+                oc.pad_left[0])
+
+    def chunk_masks(self, l_max: int, ind: int, device):
+        """Config ``ind``'s masks at ``l_max`` on ``device``, as ``forward_train_chunk``
+        and ``forward`` take them (the attention mask stays on the host: the kernels compute
+        it): {"tables", "mask_shfit_chunk", "mask_chunk_predictor" (Tc,) bool, "pad_left",
+        "chunk", "stride", "shift"}; kept for the CHUNK_MASKS_KEPT (length, config,
+        device) keys used last."""
+        key = (l_max, ind, str(device))
+        if key not in self._chunk_masks:
+            if len(self._chunk_masks) >= self.CHUNK_MASKS_KEPT:
+                del self._chunk_masks[next(iter(self._chunk_masks))]
+            stacked, pad_left = self.stacked_chunk_masks(l_max)
+            oc = self.encoder.overlap_chunk_cls
+            chunk = oc.attention_chunk(ind)
+            self._chunk_masks[key] = {
+                "tables": device_tables(stacked["x_add_mask"][ind], stacked["x_rm_mask"][ind],
+                                        device),
+                "mask_shfit_chunk": torch.from_numpy(
+                    stacked["mask_shfit_chunk"][ind] > 0).to(device),
+                "mask_chunk_predictor": torch.from_numpy(
+                    stacked["mask_chunk_predictor"][ind] > 0).to(device),
+                "pad_left": pad_left, "chunk": chunk, "shift": chunk[0],
+                "stride": oc.stride[ind]}
+        self._chunk_masks[key] = self._chunk_masks.pop(key)  # the most recent last
+        return self._chunk_masks[key]
+
+    def forward(self, speech, speech_lengths, text, text_lengths, generator=None,
+                sampler_uniform=None, chunk_index=None):
+        """One batch's training loss under overlap-chunk masks (``forward_jit``): as
+        ``Paraformer.forward`` -> (loss, stats, weight). The chunk config is drawn from
+        ``generator`` (uniformly over the encoder's configs, on the generator's device), or
+        ``chunk_index`` pins it; ``sampler_uniform`` replaces the sampler's draws."""
+        oc = self.encoder.overlap_chunk_cls
+        if chunk_index is None:
+            dev = generator.device if generator is not None else speech.device
+            chunk_index = int(torch.randint(len(oc.chunk_size), (), generator=generator,
+                                            device=dev))
+        masks = dict(self.chunk_masks(int(speech.shape[1]), chunk_index, speech.device))
+        stride, shift = masks["stride"], masks["shift"]
+        n_chunks = (speech_lengths + stride - 1) // stride
+        masks["x_len_chunk"] = ((n_chunks - 1) * shift + oc.shfit_fsmn + masks["pad_left"]
+                                + speech_lengths - (n_chunks - 1) * stride).to(torch.int32)
+        if self.specaug is not None and self.training and generator is not None:
+            speech, speech_lengths = self.specaug(speech, speech_lengths, generator)
+        if self.normalize is not None:
+            speech, speech_lengths = self.normalize(speech, speech_lengths)
+        enc_chunk, enc_chunk_lens = self.encoder.forward_train_chunk(speech, speech_lengths,
+                                                                     masks)
+        # CTC, the sampler and the decoder on the un-chunked sequence
+        enc_plain = remove_chunk(enc_chunk, enc_chunk_lens, masks["tables"])
+        loss_ctc = None
+        if self.ctc is not None and self.ctc_weight > 0.0:
+            loss_ctc = self.ctc.loss(enc_plain, speech_lengths, text, text_lengths)
+
+        ys_pad, ys_pad_lens = text, text_lengths
+        if self.predictor_bias == 1:
+            ys_pad = add_sos_eos_out(text, text_lengths, self.eos, self.ignore_id)
+            ys_pad_lens = text_lengths + 1
+
+        # the predictor on the chunked sequence: alphas only in the stride regions
+        pad_ok = make_pad_mask(enc_chunk_lens, enc_chunk.shape[1])
+        pred_mask = pad_ok & masks["mask_chunk_predictor"][None]
+        hidden = enc_chunk * masks["mask_shfit_chunk"][None, :, None].to(enc_chunk.dtype)
+        pre_acoustic_embeds, pre_token_length, _, _ = self.predictor(
+            hidden, pred_mask, ys_pad.shape[1], target_length=ys_pad_lens)
+        return self.decoder_loss(enc_plain, speech_lengths, ys_pad, ys_pad_lens,
+                                 pre_acoustic_embeds, pre_token_length, loss_ctc, text_lengths,
+                                 generator, sampler_uniform)
+
+    # ------------------------------------------------------------------
+    # streaming inference
+    # ------------------------------------------------------------------
 
     def init_cache(self, cache: Optional[Dict] = None, **kwargs) -> Dict:
         if cache is None:

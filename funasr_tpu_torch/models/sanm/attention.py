@@ -18,7 +18,9 @@ x's dtype before its fp32 softmax (``attention.py:127``); the two agree in fp32.
 Decoder cross-attention (16 heads of 32 at Paraformer-large width) stays matmul +
 softmax, as in the JAX package. The JAX ``attn_mask`` of the streaming punctuation
 encoder (a causal or "VAD corner" query-key mask beside the pad mask) is the flash
-kernel's per-row key limit here (``mode`` / ``vad_pos``).
+kernel's per-row key limit here (``mode`` / ``vad_pos``); that of streaming training
+(``models/scama/encoder.py::forward_train_chunk``, the overlap-chunk mask) is the kernels'
+chunk mode (``mode="chunk"``, ``chunk``), with the FSMN branch under the holed frame mask.
 
 Streaming (``attention.py:134-262``): ``sanm_attention_apply_chunk`` attends a chunk's
 queries over [cached K/V | chunk] on the flash kernel (Tq < Tk) and keeps the keys up to
@@ -113,8 +115,8 @@ class MultiHeadedAttentionSANM(nn.Module):
         self.linear_q_k_v = nn.Linear(cfg.in_feat, cfg.n_feat * 3, device=device)
         self.fsmn_block = _depthwise_conv(cfg.n_feat, cfg.kernel_size, device)
 
-    def forward(self, x, mask, lengths, mode: str = "none", vad_pos=None):
-        return sanm_attention_apply(self, x, mask, lengths, mode, vad_pos)
+    def forward(self, x, mask, lengths, mode: str = "none", vad_pos=None, chunk=None):
+        return sanm_attention_apply(self, x, mask, lengths, mode, vad_pos, chunk)
 
 
 class MultiHeadedAttentionSANMDecoder(nn.Module):
@@ -140,10 +142,12 @@ class MultiHeadedAttentionCrossAtt(nn.Module):
 
 
 def sanm_attention_apply(attn: MultiHeadedAttentionSANM, x, mask, lengths,
-                         mode: str = "none", vad_pos=None):
+                         mode: str = "none", vad_pos=None, chunk=None):
     """x: (B, T, in_feat); mask: (B, T) bool valid-mask or None; lengths: (B,) valid
     key counts -> (B, T, n_feat). ``mode`` / ``vad_pos``: the query rows' key limits
-    (``ops/flash_attention.py::key_limits``); the FSMN branch keeps the pad mask."""
+    (``ops/flash_attention.py::key_limits``), or ``mode="chunk"`` with ``chunk``
+    (``chunk_mask``); the FSMN branch takes ``mask`` as it is (in chunk mode the frame
+    mask, pad and FSMN shift rows both out)."""
     cfg = attn.cfg
     qkv = apply_linear(attn.linear_q_k_v, x)
     q, k, v = torch.split(qkv, cfg.n_feat, dim=-1)
@@ -153,7 +157,7 @@ def sanm_attention_apply(attn: MultiHeadedAttentionSANM, x, mask, lengths,
     q_h = _split_heads(q, cfg.n_head, cfg.d_k)
     k_h = _split_heads(k, cfg.n_head, cfg.d_k)
     v_h = _split_heads(v, cfg.n_head, cfg.d_k)
-    ctx = flash_attention(q_h, k_h, v_h, lengths, mode, vad_pos)
+    ctx = flash_attention(q_h, k_h, v_h, lengths, mode, vad_pos, chunk=chunk)
     att_out = apply_linear(attn.linear_out, _merge_heads(ctx))
     return att_out + fsmn
 

@@ -68,8 +68,9 @@ class EncoderLayerSANM(nn.Module):
         self.feed_forward = PositionwiseFeedForward(cfg.output_size, cfg.linear_units,
                                                     device=device)
 
-    def forward(self, x, mask, lengths, mode: str = "none", vad_pos=None, generator=None):
-        h = self.self_attn(self.norm1(x), mask, lengths, mode, vad_pos)
+    def forward(self, x, mask, lengths, mode: str = "none", vad_pos=None, generator=None,
+                chunk=None):
+        h = self.self_attn(self.norm1(x), mask, lengths, mode, vad_pos, chunk)
         h = maybe_dropout(h, self.dropout_rate, self.training, generator)
         x = x + h if self.residual_attn else h
         f = self.feed_forward(self.norm2(x))

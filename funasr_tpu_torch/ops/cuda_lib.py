@@ -38,16 +38,18 @@ _L = ctypes.c_longlong
 # C entry points: name -> argtypes (each returns a cudaError_t as int)
 _SIGNATURES = {
     # dtype, q, k, v, o, lengths, B, H, Tq, Tk, D, strides[12], sm_scale, mode, vad_pos,
-    # block_rows, stats, stream
+    # block_rows, stats, chunk[4] (shift, s_fsmn, stride, look_back; mode 3), stream
     "flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            ctypes.POINTER(_L), ctypes.c_float, _I, _P, _I, _P, _P],
+                            ctypes.POINTER(_L), ctypes.c_float, _I, _P, _I, _P,
+                            ctypes.POINTER(_I), _P],
     # dtype, x, w, mask, out, B, T, C, K, left, x_sb, x_st, stream
     "fsmn_memory_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P],
     "fsmn_memory_generic_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P],
     # q, k, v, o, dout, stats, dq, dk, dv, scratch, lengths, B, H, Tq, Tk, D, strides[24],
-    # sm_scale, mode, vad_pos, stream (fp32)
+    # sm_scale, mode, vad_pos, chunk[4], stream (fp32)
     "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            ctypes.POINTER(_L), ctypes.c_float, _I, _P, _P],
+                            ctypes.POINTER(_L), ctypes.c_float, _I, _P, ctypes.POINTER(_I),
+                            _P],
     # x, dout, mask, partial, dw, B, T, C, K, left, x_sb, x_st, dout_sb, dout_st,
     # rows_per_chunk, specialised, stream (fp32)
     "fsmn_memory_bwd_weight": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I,
@@ -143,15 +145,15 @@ def vectorizable(x: torch.Tensor) -> torch.Tensor:
 
 # While a dict (``record_launch_shapes``), every kernel launch is also counted in it under
 # its signature: (wrapper name, each tensor's shape and strides, the other arguments) ->
-# [launches, the first such launch's per-row lengths (a device copy)]. None: launches are
-# only counted.
+# [launches, the first such launch's per-row lengths or bool mask (a device copy)]. None:
+# launches are only counted.
 launch_shapes = None
 
 
 def count_launch(wrapper, tensors, args=(), lengths=None) -> None:
     """One launch of ``wrapper``'s kernel: ``wrapper.launches`` += 1 and, while shapes are
     recorded, one more under its signature. ``lengths``: flash's (B,) key lengths or the
-    FSMN's (B, T) bool mask (kept as its row sums)."""
+    FSMN's (B, T) bool mask."""
     wrapper.launches += 1
     if launch_shapes is None:
         return
@@ -159,11 +161,25 @@ def count_launch(wrapper, tensors, args=(), lengths=None) -> None:
            tuple(args))
     entry = launch_shapes.get(key)
     if entry is None:
-        if lengths is not None:
-            lengths = (lengths.sum(-1, dtype=torch.int32) if lengths.dtype == torch.bool
-                       else lengths.clone())
-        entry = launch_shapes[key] = [0, lengths]
+        entry = launch_shapes[key] = [0, None if lengths is None else lengths.clone()]
     entry[0] += 1
+
+
+def _lengths_entry(ln) -> dict:
+    """A recorded launch's lengths: flash's as they are; a mask's row sums and, for a mask
+    that is not a prefix of each row (streaming training's holed frame mask), also its
+    rows as [start, end) runs of valid rows (``mask_runs``)."""
+    if ln is None or ln.dtype != torch.bool:
+        return {"lengths": None if ln is None else ln.tolist()}
+    m = ln.cpu()
+    sums = m.sum(-1)
+    out = {"lengths": sums.tolist()}
+    if not torch.equal(m, torch.arange(m.shape[1])[None] < sums[:, None]):
+        edges = torch.diff(torch.nn.functional.pad(m.to(torch.int8), (1, 1)), dim=1)
+        out["mask_runs"] = [torch.stack([torch.nonzero(e == 1)[:, 0],
+                                         torch.nonzero(e == -1)[:, 0]], 1).tolist()
+                            for e in edges]
+    return out
 
 
 def record_launch_shapes() -> None:
@@ -175,11 +191,12 @@ def record_launch_shapes() -> None:
 def take_launch_shapes() -> list:
     """The launches recorded since the last ``record_launch_shapes`` / ``take``, as
     JSON-ready dicts ``{kernel, tensors: [[shape, strides], ...], args, launches,
-    lengths}`` (reading the lengths waits for the device), and a fresh record."""
+    lengths[, mask_runs]}`` (``_lengths_entry``; reading them waits for the device), and a
+    fresh record."""
     global launch_shapes
     taken, launch_shapes = launch_shapes or {}, {}
     return [dict(kernel=name, tensors=[[list(s), list(st)] for s, st in tensors],
-                 args=list(args), launches=n, lengths=None if ln is None else ln.tolist())
+                 args=list(args), launches=n, **_lengths_entry(ln))
             for (name, tensors, args), (n, ln) in taken.items()]
 
 

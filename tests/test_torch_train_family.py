@@ -591,24 +591,29 @@ def test_sense_voice_train_cli_cpu_end_to_end(sv_corpus, tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_only_streaming_and_the_llm_family_wait_for_their_loss():
-    """``Paraformer.forward`` raises for ParaformerStreaming alone among the Paraformer
-    classes, naming its part of ROADMAP item 20b; the LLM family and Whisper name theirs."""
+    """No Paraformer class waits for its loss any more: ParaformerStreaming trains (a
+    finite loss and a gradient under its overlap-chunk masks); the LLM family and Whisper
+    still raise, naming their parts of ROADMAP item 20b."""
     from funasr_tpu_torch.models.fun_asr_nano.model import FunASRNano
     from funasr_tpu_torch.models.llm_asr.model import LLMASR
     from funasr_tpu_torch.models.paraformer.model import Paraformer
     from funasr_tpu_torch.models.whisper.model import WhisperModel
     waiting = {name for name, cls in tables.model_classes.items()
                if isinstance(cls, type) and issubclass(cls, Paraformer)
-               and cls.TRAINING_WAITS_FOR}
-    assert waiting == {"ParaformerStreaming"}
+               and getattr(cls, "TRAINING_WAITS_FOR", None)}
+    assert waiting == set()
     stream = tables.model_classes["ParaformerStreaming"](
         input_size=80, vocab_size=V, encoder_conf=dict(ENC, chunk_size=[5], stride=[5],
                                                        pad_left=[0], encoder_att_look_back_factor=[0],
                                                        decoder_att_look_back_factor=[0]),
-        decoder_conf=DEC, predictor_conf=dict(idim=32))
+        decoder_conf=DEC, predictor_conf=dict(idim=32),
+        generator=torch.Generator().manual_seed(0)).train()
     speech, slen, text, tlen = (torch.from_numpy(x) for x in asr_batch("Paraformer"))
-    with pytest.raises(NotImplementedError, match="item 20b, streaming training"):
-        stream(speech, slen, text.long(), tlen.long())
+    loss, stats, _ = stream(speech, slen, text.long(), tlen.long(),
+                            generator=torch.Generator().manual_seed(1))
+    loss.backward()
+    assert torch.isfinite(loss) and set(stats) >= {"loss", "loss_att", "loss_pre", "acc"}
+    assert stream.encoder.encoders[0].self_attn.linear_q_k_v.weight.grad.abs().max() > 0
     for cls, part in ((FunASRNano, "the LLM family"), (LLMASR, "the LLM family"),
                       (WhisperModel, "Whisper's loss")):
         with pytest.raises(NotImplementedError, match=f"item 20b, {part}"):
@@ -625,6 +630,7 @@ NEW_MODULES = [
     "funasr_tpu_torch.models.monotonic_aligner.model",
     "funasr_tpu_torch.models.ct_transformer.model",
     "funasr_tpu_torch.models.paraformer_streaming.model",
+    "funasr_tpu_torch.models.scama.chunk_utils", "funasr_tpu_torch.models.scama.encoder",
     "funasr_tpu_torch.models.fun_asr_nano.model", "funasr_tpu_torch.models.whisper.model",
     "funasr_tpu_torch.train_utils.trainer", "funasr_tpu_torch.train_utils.average_nbest_models",
     "funasr_tpu_torch.bin.train"]
