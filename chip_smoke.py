@@ -14,7 +14,8 @@ LLM-based ASR: Fun-ASR-Nano (Qwen3-0.6B on the port's ``LLMEngine``) through ``A
 ``generate(itn=True)``, ``AutoModel.export`` run by ``ExportedModel`` and the MCP server, and
 Paraformer-large fine-tuning through ``bin/data_tools`` and ``bin/train`` with the backward
 kernels, then SenseVoice-Small's and the other models' training losses, then streaming
-Paraformer's fine-tuning with the flash kernels in chunk mode.
+Paraformer's fine-tuning with the flash kernels in chunk mode, then Fun-ASR-Nano's
+fine-tuning at full width with the LLM-ASR family's and Whisper's losses.
 
     python3 chip_smoke.py
 
@@ -73,8 +74,8 @@ Phases (any failure raises and exits non-zero):
 9. speaker (``phase_speaker``): a BiCifParaformer at PROD_CONF width with the published
    CifPredictorV3 head, phase 8's VAD and punctuation, CAM++ at speech_campplus_sv's
    widths, through ``AutoModel(model=, vad_model=, punc_model=, spk_model=,
-   device="cuda")`` on 1 meeting of 60 s of two synthetic voices (300 s before phase
-   17 came, 90 s before phase 18), one ``generate(**SPEAKER_CALL)`` each. Gates: integer speakers on every
+   device="cuda")`` on 1 meeting of 45 s of two synthetic voices (300 s before phase
+   17 came, 90 s before phase 18, 60 s before phase 19), one ``generate(**SPEAKER_CALL)`` each. Gates: integer speakers on every
    sentence and timestamps rising inside the meeting; each stage's launches at their sites; the
    timestamp head and CAM++ embeddings against the CPU port; request 0 whole through
    the CPU port (VAD segments to the ms, token boundaries, the voices separating on its
@@ -99,7 +100,7 @@ Phases (any failure raises and exits non-zero):
    keys, and with causal / corner key limits at (1, 8, 64, 32); FSMN (11, 10) at (1, 25 /
    26, 512) against its generic instantiation); ParaformerStreaming at PROD_CONF width
    (the chunk encoder, decoder sanm_shfit 5, WavFrontendOnline) through
-   ``AutoModel.generate`` 600 ms a call as the demo calls it, 2 streams of 12 s, fp32 and
+   ``AutoModel.generate`` 600 ms a call as the demo calls it, 2 streams of 8 s, fp32 and
    ``bf16=True``: gated on non-empty texts (a whole-array call's text equal to the
    chunked stream's), exactly 50 flash, 50 FSMN (11, 5) and 16 FSMN (11, 10) launches a
    chunk and one device-to-host copy a chunk; per-chunk wall p50 / p95 (cold apart), RTF,
@@ -148,7 +149,7 @@ Phases (any failure raises and exits non-zero):
    ``verbose_json`` with its segments; ``WSServer`` 2-pass (Paraformer + punctuation,
    ParaformerStreaming, realtime punctuation, the VAD), 2 sessions of 15 s at once, then
    one after the other: equal messages, every model call replayed directly equal;
-   ``RealtimeWSServer`` (VAD endpoints, CAM++ speakers) with a server-mode session of 20 s
+   ``RealtimeWSServer`` (VAD endpoints, CAM++ speakers) with a server-mode session of 12 s
    at real time and a client-mode session committing 10 s and 60 s: finals in order with
    speakers, partials never after their final, COMMIT finals equal to direct decodes. Prints
    requests/s, latency p50 / p95, the batches, one profiled ``generate`` of a group, the
@@ -260,6 +261,26 @@ Phases (any failure raises and exits non-zero):
    mask at (5, 5) and the decoder's (10, 0)), each within 1e-5 relative L2 and bit-equal
    across two runs.
 
+19. LLM training (``phase_llm_training``): (c) one training step on the card and on the
+   CPU of Fun-ASR-Nano at full width and vocabulary cut to 4 encoder blocks and 2 Qwen3
+   layers (``forward`` at ctc_weight 0 and 0.3 with a Transformer ``ctc_decoder``),
+   LLMASR2's ``forward_batch`` on a collated ``OpenAIDataset`` batch, and
+   Whisper-large-v3's loss at depth 2 + 2 (loss within TRAIN_LOSS_RTOL, every gradient
+   within ``LLM_TRAIN_GRAD_REL_TOL`` relative L2, every trained parameter reached, launches
+   exactly the cut encoder's); (a) fun_asr_nano's ``finetune.sh`` flags with
+   ``++sharding=dp`` through ``bin/train`` on a seeded Fun-ASR-Nano dir at full width
+   (``NANO_FULL``: the 50-block SAN-M, the Linear adaptor, Qwen3-0.6B, all trained in fp32;
+   a ``CharTokenizer`` over phase 16's characters) over phase 16's wavs, one epoch of token
+   batches of 6,000 (a mid-epoch checkpoint with its validation, the epoch's, the best 5
+   averaged), gated on a finite loss and acc every step, each step's launches exactly 50
+   flash + 50 flash backward + 50 FSMN + 50 dx + 50 dw and no W8A8, every parameter
+   reached by a gradient in the first checkpoint, and the average generating through
+   ``AutoModel`` with phase 14's ``LLM_CALL`` on 2 x 15 s at 50 flash + 50 FSMN; prints ms
+   a step, steps / s, audio seconds a second, peak memory, a profiled step's device time
+   and idle share and each checkpoint's seconds; (b) a kernel-vs-plain row at every
+   signature the recipe launched, each within 1e-5 relative L2 and bit-equal across two
+   runs.
+
 ``python3 chip_smoke.py --recipe-ab [TREE]`` (not part of the run above): the recipe's
 ``bin/train`` six times in one process, alternating this tree with the kernel-shape log on
 and the same tree with it off, or, given TREE (another checkout), this tree and that one
@@ -292,8 +313,8 @@ by run, with the rows at the LLM path's shapes, and phase 15's under ``export``:
 of each counted call of an exported program, with the rows at the shapes those calls
 launched, and phase 16's under ``training``, with three more kernels, the backward
 launches ``flash_attention_bwd``, ``fsmn_memory_bwd_input`` and ``fsmn_memory_bwd_weight``,
-and phase 17's under ``training_family`` and phase 18's under ``streaming_training`` in
-those five), the last line
+and phase 17's under ``training_family``, phase 18's under ``streaming_training`` and
+phase 19's under ``llm_training`` in those five (W8A8 too, at 0 launches)), the last line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1470,9 +1491,9 @@ BICIF_PREDICTOR = dict(PROD_CONF["predictor_conf"], smooth_factor2=0.25, noise_t
 # growth 32, bn_size 4, init 128, blocks 12 / 24 / 16)
 SPK_CONF = dict(feat_dim=80, embedding_size=192, growth_rate=32, bn_size=4, init_channels=128)
 SPEAKER_REQUESTS = 1  # cut from 2, for the run's time limit beside phase 13
-SPEAKER_SECONDS = 60.0   # the meeting's length (cut from 300 s to 90 s, for the run's time
+SPEAKER_SECONDS = 45.0   # the meeting's length (cut from 300 s to 90 s, for the run's time
 #                          limit beside phase 17: the CPU port re-runs it whole; to 60 s
-#                          beside phase 18)
+#                          beside phase 18, to 45 s beside phase 19)
 SPEAKER_PROFILE_SECONDS = 30  # the profiled request: request 0's first 30 s (cut from 60 s,
 #                               for the run's time limit beside phase 14)
 US_ALPHAS_TOL = 1e-4      # fp32 upsampled alphas, CUDA against the CPU (cuDNN LSTM, cuBLAS)
@@ -2300,8 +2321,8 @@ STREAM_SMALL_CONF = dict(SMALL_CONF, encoder="SANMEncoderChunkOpt",
 # the demo's call (examples/industrial_data_pretraining/paraformer_streaming/demo.py:21-40)
 STREAM_CALL = dict(chunk_size=[0, 10, 5], encoder_chunk_look_back=4, decoder_chunk_look_back=1)
 STREAM_STRIDE = 9600       # samples a generate: 600 ms
-STREAM_SECONDS = 12.0      # (cut from 30 s to 20 s for the run's time limit beside phase 17,
-#                            to 12 s beside phase 18)
+STREAM_SECONDS = 8.0       # (cut from 30 s to 20 s for the run's time limit beside phase 17,
+#                            to 12 s beside phase 18, to 8 s beside phase 19)
 STREAMS = 2
 STREAM_COLD = 5            # the first chunks of the first stream: the look-back fills
 STREAM_CPU_CHUNKS = 10     # full-width chunks held against the CPU port
@@ -3325,9 +3346,10 @@ SERVE_2PASS = dict(mode="2pass", chunk_size=[5, 10, 5])
 SERVE_2PASS_SESSIONS = 2
 SERVE_2PASS_SECONDS = 15.0         # (cut from 30 s for the run's time limit beside phase 17)
 SERVE_2PASS_FRAME = 9600           # 600 ms of PCM16 a binary frame
-SERVE_RT_SECONDS = 20.0            # the server-mode session, 60 ms frames at real time
-SERVE_RT_FRAME = 960               # (cut from 30 s for the run's time limit: one VAD
-                                   # endpoint, at 10.1 s, and the STOP final)
+SERVE_RT_SECONDS = 12.0            # the server-mode session, 60 ms frames at real time
+SERVE_RT_FRAME = 960               # (cut from 30 s to 20 s for the run's time limit, to 12 s
+                                   # beside phase 19: one VAD endpoint, at 10.1 s, and the
+                                   # STOP final)
 SERVE_RT_COMMITS = (10.0, 60.0)    # the client-mode session's COMMITs: the second at T 1,024
 # B = 1 kernel rows: partial windows (0.48-15 s: T 128 / 256 / 384), the 60 s COMMIT
 # (T 1,024) and the forced final at max_utterance_sec = 300 s (T 5,120)
@@ -6418,6 +6440,343 @@ def phase_streaming_training(dev, counters, card, keep):
     return figures
 
 
+# ---- phase 19: fine-tuning Fun-ASR-Nano and the LLM-ASR family --------------------------
+
+# fun_asr_nano/finetune.sh's flags (TRAIN_RECIPE, ++sharding=dp, avg 5) for one epoch of
+# about 4 steps over phase 16's wavs: the mid-epoch checkpoint and its validation at step 3,
+# the profiled step the second, the epoch's checkpoint, the best 5 (of 2) averaged
+NANO_TRAIN_RUN = ["++sharding=dp", "++train_conf.max_epoch=1",
+                  "++train_conf.save_checkpoint_interval=3", "++train_conf.profile_start_step=1",
+                  "++train_conf.profile_steps=1", "++train_conf.avg_nbest_model=5"]
+NANO_TRAIN_DECODE = 2      # utterances of 15 s through the averaged checkpoint's generate
+# (c): NANO_FULL's widths and vocabulary at 4 encoder blocks and 2 Qwen3 layers
+LLM_TRAIN_CPU_DEPTH = (4, 2)
+LLM_TRAIN_T = (5.0, 3.5)   # seconds of the step's 2 utterances
+LLM_TRAIN_TEXT = (20, 14)  # their target tokens
+LLM_TRAIN_GRAD_REL_TOL = 1e-4  # each gradient, CUDA against the CPU, relative L2
+# a CTC branch at the encoder's width: a Transformer ctc_decoder (2 blocks) and a head over
+# PROD_CONF's 8,404 characters
+NANO_CTC = dict(ctc_decoder="Transformer",
+                ctc_decoder_conf=dict(downsample_rate=1, encoder_dim=512, llm_dim=512,
+                                      ffn_dim=2048, n_layer=2, attention_heads=8),
+                ctc_conf=dict(ctc_vocab_size=PROD_CONF["vocab_size"]), ctc_weight=0.3)
+# Whisper-large-v3 at full width (d 1280, vocab 51,866), depth cut to 2 + 2, 6 s of mel
+WHISPER_TRAIN_CONF = dict(encoder_layers=2, decoder_layers=2)
+WHISPER_TRAIN_T = 6.0
+
+
+def nano_weights_reached(ckpt_path):
+    """From a checkpoint's Adam state, every parameter that never had a non-zero gradient
+    (its second moment stays 0 only then; of a linear_q_k_v weight the q / k rows): ->
+    (names checked, names never reached)."""
+    state = torch.load(ckpt_path, map_location="cpu", weights_only=True, mmap=True)
+    names = list(state["state_dict"])
+    opt = state["optimizer"]
+    params = opt["param_groups"][0]["params"]
+    if len(params) != len(names):
+        raise AssertionError(f"{len(params)} optimizer params for {len(names)} tensors")
+    zero = []
+    for idx, name in zip(params, names):
+        v = opt["state"][idx]["exp_avg_sq"]
+        if "linear_q_k_v.weight" in name:
+            v = v[:2 * v.shape[0] // 3]
+        if v.abs().max() == 0:
+            zero.append(name)
+    return names, zero
+
+
+def checkpoint_seconds(stderr):
+    """{checkpoint name: seconds} from the trainer's "saved checkpoint ... in N s" lines."""
+    import re
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"saved checkpoint (\S+) \(metric=[^)]*\) in ([0-9.]+) s", stderr)}
+
+
+def write_nano_train_dir(d, dev, tokens, conf=NANO_FULL):
+    """Phase 14's Fun-ASR-Nano dir (``write_nano_dir``: ``conf``, seeded on ``dev``) with
+    a ``CharTokenizer`` over ``tokens`` (phase 16's 8,404 characters, every id under
+    Qwen3's 151,936) in place of ``SmokeChatTokenizer``, which only this process registers:
+    ``bin/train`` is a process of its own."""
+    import yaml
+    write_nano_dir(d, dev, conf)
+    with open(os.path.join(d, "tokens.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(tokens) + "\n")
+    with open(os.path.join(d, "config.yaml"), encoding="utf-8") as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(tokenizer="CharTokenizer",
+               tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>"))
+    write_config(d, cfg)
+
+
+def llm_train_confs():
+    """(c)'s models: NANO_FULL cut to LLM_TRAIN_CPU_DEPTH (the vocabulary whole) without
+    and with the CTC branch, LLMASR2 at the same config (its batch loss), and
+    Whisper-large-v3 at WHISPER_TRAIN_CONF."""
+    enc_n, llm_n = LLM_TRAIN_CPU_DEPTH
+    nano = dict(NANO_FULL, audio_encoder_conf=dict(NANO_ENCODER, num_blocks=enc_n),
+                llm_conf=dict(QWEN3_0_6B, num_hidden_layers=llm_n))
+    return {"FunASRNano": ("FunASRNano", nano), "FunASRNano_ctc": ("FunASRNano",
+                                                                   dict(nano, **NANO_CTC)),
+            "LLMASR2_batch": ("LLMASR2", nano),
+            "Whisper": ("Whisper-large-v3", WHISPER_TRAIN_CONF)}
+
+
+def openai_train_batch(root, rng):
+    """Two OpenAI-format rows (a system turn, a user turn holding the audio span, the
+    assistant's text) of LLM_TRAIN_T seconds through ``OpenAIDataset`` and its collator
+    (``audio_encoder_downsample_rate=1``, as ``tests/test_llm_asr_multiturn.py:201-204``),
+    the frontend's features of the padded waveforms: -> batch of CPU tensors."""
+    from funasr_tpu_torch import tables
+    from funasr_tpu_torch.frontends.wav_frontend import WavFrontend
+
+    rows = []
+    for i, seconds in enumerate(LLM_TRAIN_T):
+        path = os.path.join(root, f"openai{i}.wav")
+        with open(path, "wb") as f:
+            f.write(wav_bytes(pcm(rng, seconds)))
+        text = "".join(chr(0x4E00 + int(j)) for j in rng.integers(0, 8000, LLM_TRAIN_TEXT[i]))
+        rows.append(dict(system=["You are a helpful assistant."],
+                         user=[f"语音转写：<|startofspeech|>!{path}<|endofspeech|>"],
+                         assistant=[text], key=f"openai{i}", source=path,
+                         source_len=int(seconds * 100), target_len=len(text)))
+    jsonl = os.path.join(root, "openai.jsonl")
+    with open(jsonl, "w", encoding="utf-8") as f:
+        f.write("\n".join(json.dumps(r, ensure_ascii=False) for r in rows) + "\n")
+    fe = WavFrontend(**FRONTEND_CONF)
+    ds = tables.dataset_classes["OpenAIDataset"](
+        index_ds="IndexDSJsonl", index_ds_conf={"path": jsonl}, tokenizer=SmokeChatTokenizer(),
+        frontend=fe, audio_encoder_downsample_rate=1, audio_adaptor_downsample_rate=2)
+    batch = ds.collator([ds[i] for i in range(len(rows))])
+    feats, flens = fe.forward(torch.from_numpy(batch["speech"]),
+                              torch.from_numpy(batch["speech_lengths"]))
+    return {"speech": feats, "speech_lengths": flens,
+            **{k: torch.from_numpy(batch[k]) for k in ("input_ids", "labels_ids", "fbank_mask")}}
+
+
+def llm_train_batch(name, rng, root):
+    """One step's inputs: (feats, lengths, text, text lengths) of LLM_TRAIN_T seconds and
+    LLM_TRAIN_TEXT random ids under the CTC head's 8,404 (Whisper: 128 mels, 2 x
+    WHISPER_TRAIN_T seconds, ids under its vocabulary); for the batch loss, the OpenAI
+    batch's dict."""
+    from funasr_tpu_torch.frontends.wav_frontend import WavFrontend
+    from funasr_tpu_torch.frontends.whisper_frontend import WhisperFrontend
+    if name == "LLMASR2_batch":
+        return openai_train_batch(root, rng)
+    if name == "Whisper":
+        feats, flens = WhisperFrontend(n_mels=128, pad_samples=int(WHISPER_TRAIN_T * 16000)
+                                       ).extract([pcm(rng, WHISPER_TRAIN_T),
+                                                  pcm(rng, WHISPER_TRAIN_T * 0.7)])
+        vocab = 51866
+    else:
+        feats, flens = WavFrontend(**FRONTEND_CONF).extract([pcm(rng, s) for s in LLM_TRAIN_T])
+        vocab = PROD_CONF["vocab_size"]
+    tl = torch.tensor(LLM_TRAIN_TEXT)
+    text = torch.full((2, max(LLM_TRAIN_TEXT)), -1, dtype=torch.long)
+    for i, n in enumerate(LLM_TRAIN_TEXT):
+        text[i, :n] = torch.from_numpy(rng.integers(3, vocab, n))
+    return (torch.from_numpy(np.ascontiguousarray(feats)), torch.from_numpy(np.asarray(flens)),
+            text, tl)
+
+
+def llm_train_cuda_vs_cpu(dev, counters):
+    """(c) One training step (loss + backward) of each of ``llm_train_confs`` on the card
+    and on the CPU, the same weights and inputs: Fun-ASR-Nano's ``forward`` at ctc_weight 0
+    and 0.3, LLMASR2's ``forward_batch`` on a collated OpenAIDataset batch, Whisper's
+    ``forward``. Gates: the loss and the other losses among the stats within
+    TRAIN_LOSS_RTOL, every gradient within LLM_TRAIN_GRAD_REL_TOL relative L2
+    (``grad_rel_errors``), every trained parameter's gradient non-zero, the step's
+    launches exactly ``sv_train_sites`` of the cut encoder (Whisper: none)."""
+    from funasr_tpu_torch import tables
+
+    enc_n, llm_n = LLM_TRAIN_CPU_DEPTH
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        for case, (name, conf) in llm_train_confs().items():
+            t0 = time.perf_counter()
+            rng = np.random.default_rng(19)
+            g = torch.Generator().manual_seed(19)
+            cpu = tables.model_classes[name](**conf, generator=g)
+            gpu = copy.deepcopy(cpu).to(dev)
+            batch = llm_train_batch(case, rng, root)
+            res = {}
+            for label, model in (("cpu", cpu), ("cuda", gpu)):
+                model.train()
+                d = next(model.parameters()).device
+                for c in counters:
+                    c.launches = 0
+                if isinstance(batch, dict):
+                    loss, stats, weight = model.forward_batch(
+                        {k: v.to(d) for k, v in batch.items()})
+                else:
+                    loss, stats, weight = model(*[x.to(d) for x in batch])
+                loss.backward()
+                if d.type == "cuda":
+                    torch.cuda.synchronize()
+                res[label] = (loss.item(), {k: float(v.detach()) for k, v in stats.items()},
+                              int(weight), {n: p.grad for n, p in model.named_parameters()},
+                              {c.__name__: c.launches for c in counters})
+            (cl, cst, cw, cg, _), (gl, gst, gw, gg, launches) = res["cpu"], res["cuda"]
+            worst, worst_name, bad = grad_rel_errors(cg, gg)
+            stat_err = max(abs(gst[k] - v) / max(abs(v), 1.0) for k, v in cst.items()
+                           if k.startswith("loss"))
+            unreached = [n for n, p in cpu.named_parameters()
+                         if p.requires_grad and (p.grad is None or p.grad.abs().max() == 0)]
+            sites = ({c.__name__: 0 for c in counters} if name.startswith("Whisper")
+                     else sv_train_sites(enc_n)[0])
+            fig = dict(loss_cpu=cl, loss_cuda=gl, loss_rel=abs(gl - cl) / abs(cl),
+                       stats_err=stat_err, worst_grad_rel_l2=worst, worst_param=worst_name,
+                       params=len(gg), launches=launches, seconds=time.perf_counter() - t0)
+            log(f"LLM training step CUDA vs CPU, {case} ({enc_n} encoder blocks, {llm_n} Qwen3 "
+                f"layers at full width and vocabulary; Whisper {WHISPER_TRAIN_CONF}): loss "
+                f"{gl:.7f} vs {cl:.7f} (rel {fig['loss_rel']:.2e}, tol {TRAIN_LOSS_RTOL:g}; "
+                f"stats {stat_err:.2e}); worst gradient rel L2 {worst:.2e} ({worst_name}, tol "
+                f"{LLM_TRAIN_GRAD_REL_TOL:g}) over {len(gg)} tensors, {len(unreached)} without "
+                f"a gradient; launches {launches} ({fig['seconds']:.1f} s)")
+            if fig["loss_rel"] > TRAIN_LOSS_RTOL or stat_err > TRAIN_LOSS_RTOL or cw != gw:
+                raise AssertionError(f"{case}: the CUDA loss disagrees with the CPU's")
+            if not worst <= LLM_TRAIN_GRAD_REL_TOL or bad or unreached:
+                raise AssertionError(f"{case}: gradients disagree ({worst_name} {worst}; "
+                                     f"{bad[:4]}; unreached {unreached[:4]})")
+            if launches != sites:
+                raise AssertionError(f"{case}: launches {launches} != sites {sites}")
+            out[case] = fig
+            del cpu, gpu
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_llm_training(dev, counters, card, keep):
+    """Phase 19: (a) Fun-ASR-Nano's recipe at full width (NANO_FULL: the 50-block SAN-M,
+    the Linear adaptor, Qwen3-0.6B as published, all trained in fp32):
+    ``fun_asr_nano/finetune.sh``'s flags with ``++sharding=dp`` (NANO_TRAIN_RUN) over
+    phase 16's wavs (``keep["train_data"]``), ``bin/train`` as a subprocess on a seeded
+    dir with a ``CharTokenizer`` (``write_nano_train_dir``). Gates: every step's loss and
+    acc finite; every step's launches exactly 50 flash + 50 flash backward + 50 FSMN + 50
+    dx + 50 dw and no W8A8, every validation batch's 50 + 50; every parameter reached by a
+    gradient in the first checkpoint (its Adam moments, ``nano_weights_reached``); the
+    averaged checkpoint through ``AutoModel(model=<output dir>, init_param=...)`` and
+    ``generate`` with LLM_CALL on 2 x 15 s, its encoder at exactly 50 flash + 50 FSMN. (b) a
+    kernel-vs-plain row at every signature the recipe launched (``recipe_kernel_rows``,
+    strict). (c) the card against the CPU (``llm_train_cuda_vs_cpu``)."""
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory_bwd_input, fsmn_memory_bwd_weight
+
+    counters = (*counters, flash_attention_bwd, fsmn_memory_bwd_input, fsmn_memory_bwd_weight)
+    torch.cuda.empty_cache()
+    figures = {}
+    blocks = NANO_ENCODER["num_blocks"]
+    # one of each kernel an encoder block, as SenseVoice's (the adaptor and LLM launch none)
+    step_sites, val_sites = sv_train_sites(blocks)
+
+    # (c) first, while the card is clear of the recipe's process
+    t_part = time.perf_counter()
+    figures["cuda_vs_cpu"] = llm_train_cuda_vs_cpu(dev, counters)
+    log(f"LLM training (c): CUDA against the CPU in {time.perf_counter() - t_part:.1f} s")
+
+    tokens, jsonl = keep["train_data"]
+    with tempfile.TemporaryDirectory(dir=keep["root"]) as root:
+        md = os.path.join(root, "fun-asr-nano")
+        os.makedirs(md)
+        t0 = time.perf_counter()
+        write_nano_train_dir(md, dev, tokens)
+        log(f"LLM training: Fun-ASR-Nano dir written in {time.perf_counter() - t0:.1f} s")
+        out = os.path.join(root, "exp")
+        profile_dir = os.path.join(root, "profile")
+        t0 = time.perf_counter()
+        run = run_cli(["funasr_tpu_torch.bin.train", f"++model={md}",
+                       f"++train_data_set_list={jsonl['train']}",
+                       f"++valid_data_set_list={jsonl['val']}", *TRAIN_RECIPE, *NANO_TRAIN_RUN,
+                       f"++output_dir={out}", f"++train_conf.profile_dir={profile_dir}"],
+                      "bin/train Fun-ASR-Nano (epoch 0)")
+        run_wall = time.perf_counter() - t0
+        ckpt_s = checkpoint_seconds(run.stderr)
+        steps, vals = read_train_log(out)
+        bad = [x["step"] for x in steps if not (math.isfinite(x["loss"])
+                                                 and math.isfinite(x["acc"]))]
+        wrong = [(x["step"], x["launches"]) for x in steps if x["launches"] != step_sites]
+        wrong += [("val", x["step"], x["launches"]) for x in vals
+                  if x["launches"] != {k: v * x["batches"] for k, v in val_sites.items()}]
+        for x in steps:
+            log(f"  step {x['step']}: loss {x['loss']:.4f} acc {x['acc']:.4f} grad_norm "
+                f"{x['grad_norm']:.3f} peak {x.get('peak_mem_mib', 0):.0f} MiB")
+        for x in vals:
+            log(f"  validation at step {x['step']}: {x['batches']} batches, loss "
+                f"{x['validate']['loss']:.4f} acc {x['validate']['acc']:.4f}, launches "
+                f"{x['launches']}")
+        log(f"  checkpoints written in {ckpt_s} s")
+        if bad or wrong or len(vals) != 2 or len(ckpt_s) != 2:
+            raise AssertionError(f"Fun-ASR-Nano training: non-finite loss / acc at {bad}; "
+                                 f"launches off the sites {wrong[:3]}; {len(vals)} "
+                                 f"validations; checkpoints {ckpt_s}")
+        first = next(iter(ckpt_s))  # the mid-epoch checkpoint, written first
+        names, zero = nano_weights_reached(os.path.join(out, first))
+        log(f"Fun-ASR-Nano training: {len(names)} parameters checked in {first}, {len(zero)} "
+            f"never reached by a gradient")
+        if zero:
+            raise AssertionError(f"weights without a gradient: {zero[:4]} ({len(names)} checked)")
+
+        # (b) every signature the recipe launched
+        shapes = recipe_launch_shapes(steps + vals)
+        log(f"LLM training: {len(shapes)} kernel signatures over {len(steps)} steps and "
+            f"{len(vals)} validations")
+        t_part = time.perf_counter()
+        figures["recipe_rows"] = recipe_kernel_rows(dev, shapes, strict=True)
+        log(f"LLM training (b): kernel rows in {time.perf_counter() - t_part:.1f} s")
+
+        # the average generates as phase 14's model does
+        t0 = time.perf_counter()
+        am = AutoModel(model=out, init_param=os.path.join(out, "model.pt.avg"), device="cuda",
+                       tokenizer=SmokeChatTokenizer(), batch_size=NANO_TRAIN_DECODE,
+                       log_level="WARNING")
+        load_s = time.perf_counter() - t0
+        rng = np.random.default_rng(19)
+        waves = [pcm(rng, 15.0) for _ in range(NANO_TRAIN_DECODE)]
+        for c in counters:
+            c.launches = 0
+        res = am.generate(input=waves, **LLM_CALL)
+        torch.cuda.synchronize()
+        dec_launches = {c.__name__: c.launches for c in counters}
+        log(f"averaged Fun-ASR-Nano checkpoint through AutoModel(model=<output dir>) (loaded "
+            f"in {load_s:.1f} s): texts of {[len(r['text']) for r in res]} tokens; launches "
+            f"{dec_launches}")
+        if [len(r["text"]) for r in res] != [LLM_CALL["max_new_tokens"]] * NANO_TRAIN_DECODE \
+                or dec_launches != dict({c.__name__: 0 for c in counters},
+                                        flash_attention=blocks, fsmn_memory=blocks):
+            raise AssertionError("the averaged Fun-ASR-Nano checkpoint did not generate "
+                                 "through the kernels")
+        del am
+        torch.cuda.empty_cache()
+
+        seconds = recipe_batches(jsonl["train"])[:len(steps)]
+        wall = [y["time"] - x["time"] for x, y in zip(steps, steps[1:])
+                if y["step"] != 2 and x["step"] != 3]  # not the profiled step, nor a checkpoint's
+        step_ms = statistics.median(wall) * 1e3 if wall else float("nan")
+        audio = statistics.mean(seconds)
+        with open(os.path.join(profile_dir, "summary.json")) as f:
+            prof = json.load(f)
+        idle = 1 - prof["device_ms"] / step_ms
+        peak = max(x.get("peak_mem_mib", 0) for x in steps)
+        launches = {k: sum(x["launches"][k] for x in steps + vals) for k in step_sites}
+        log(f"Fun-ASR-Nano training ({card}): {len(steps)} steps, {step_ms:.1f} ms a step "
+            f"(median of {len(wall)}), {1e3 / step_ms:.2f} steps/s, "
+            f"{audio * 1e3 / step_ms:.1f} audio s a second ({audio:.1f} s a batch), peak "
+            f"{peak:.0f} MiB; profiled step: device {prof['device_ms']:.1f} ms "
+            f"({prof['wall_ms']:.1f} ms wall under the profiler), idle share {idle:.1%}; the "
+            f"run {run_wall:.1f} s, checkpoints {ckpt_s} s; launches {launches}")
+        top = sorted(prof["by_kernel"].items(), key=lambda kv: -kv[1][0])[:8]
+        for name, (ms, n) in top:
+            log(f"  {ms:8.3f} {n:5d}  {name[:110]}")
+        figures.update(steps=len(steps), step_ms=step_ms, steps_per_s=1e3 / step_ms,
+                       audio_s_per_s=audio * 1e3 / step_ms, peak_mem_mib=peak, run_s=run_wall,
+                       checkpoint_s=ckpt_s, avg_load_s=load_s,
+                       profile=dict(device_ms=prof["device_ms"], wall_ms=prof["wall_ms"],
+                                    idle_share=idle),
+                       launches=launches, launches_per_step=step_sites,
+                       decode_launches=dec_launches)
+    return figures
+
+
 STREAMING_ENTRIES = {
     "flash_attention": [(f"{key}_{dt}", ("flash_attention", "streaming", key, dtype))
                         for key in [f"keys{tk}" for tk in STREAM_FLASH_KEYS] + ["causal",
@@ -6469,7 +6828,8 @@ LLM_ENTRIES = {
 
 def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None,
                  hotword=None, streaming=None, sensevoice=None, serving=None, llm=None,
-                 export=None, training=None, training_family=None, streaming_training=None):
+                 export=None, training=None, training_family=None, streaming_training=None,
+                 llm_training=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
@@ -6502,7 +6862,8 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
     ``recipe_label``) under ``recipe_rows`` (the forward kernels': in ``training``). Phase
     17's (``training_family``) go under ``training_family`` in each of those five
     (``family_entry``), phase 18's (``streaming_training``) under ``streaming_training``
-    (``streaming_training_entry``)."""
+    (``streaming_training_entry``), phase 19's (``llm_training``) under ``llm_training`` in
+    every kernel (``llm_training_entry``; W8A8's launches there are 0)."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -6598,6 +6959,8 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             entry["training_family"] = family_entry(training_family, name)
         if streaming_training and name != "w8a8_linear":
             entry["streaming_training"] = streaming_training_entry(streaming_training, name)
+        if llm_training:
+            entry["llm_training"] = llm_training_entry(llm_training, name)
         kernels.append(entry)
     for name, (src, keys) in (TRAIN_BACKWARD.items() if training else ()):
         rows = training["rows"]
@@ -6615,8 +6978,21 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             entry["training_family"] = family_entry(training_family, name)
         if streaming_training:
             entry["streaming_training"] = streaming_training_entry(streaming_training, name)
+        if llm_training:
+            entry["llm_training"] = llm_training_entry(llm_training, name)
         kernels.append(entry)
     return {"kernels": kernels}
+
+
+def llm_training_entry(fig, name):
+    """A kernel's phase 19 figures: its launches in Fun-ASR-Nano's recipe run (steps and
+    validations) and a step, its rows at every signature that run launched, its launches
+    in each model's CUDA step of (c) and in the averaged checkpoint's ``generate``."""
+    return dict(launches=fig["launches"][name], launches_per_step=fig["launches_per_step"][name],
+                recipe_rows=fig["recipe_rows"].get(name, {}),
+                cuda_vs_cpu_launches={k: f["launches"][name]
+                                      for k, f in fig["cuda_vs_cpu"].items()},
+                decode_launches=fig["decode_launches"][name])
 
 
 def streaming_training_entry(fig, name):
@@ -6706,17 +7082,19 @@ def main():
         serving = timed("serving", phase_serving, dev, counters, card, keep)
         llm = timed("LLM", phase_llm, dev, counters, card)
         export = timed("text and export", phase_export, dev, counters, card, keep)
-    # phase 16's generated wavs serve phase 18 (removed at the end)
+    # phase 16's generated wavs serve phases 18 and 19 (removed at the end)
     with tempfile.TemporaryDirectory() as train_root:
         keep_train = {"root": train_root}
         training = timed("training", phase_training, dev, counters, card, keep_train)
         family = timed("training family", phase_training_family, dev, counters, card)
         stream_training = timed("streaming training", phase_streaming_training, dev, counters,
                                 card, keep_train)
+        llm_training = timed("LLM training", phase_llm_training, dev, counters, card,
+                             keep_train)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
                                   speaker, hotword, streaming, sensevoice, serving, llm,
-                                  export, training, family, stream_training),
+                                  export, training, family, stream_training, llm_training),
                      default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -251,7 +251,7 @@ class AutoModel:
         if pretrained:
             from funasr_tpu_torch.utils.load_utils import load_pretrained
             logging.info("loading pretrained params from %s", init_param)
-            load_pretrained(model, init_param)
+            load_pretrained(model, init_param, model_class_name)
 
         if kwargs.get("bf16", False) or kwargs.get("fp16", False):
             from funasr_tpu_torch.core.module import cast_floats

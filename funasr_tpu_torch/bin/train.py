@@ -14,7 +14,16 @@ ASR model but the LLM family trains this way. The streaming Paraformer's recipe
 dir whose ``encoder_conf`` holds the training chunk keys (``chunk_size``, ``stride``,
 ``pad_left``, the look-back factors): each step draws one chunk config and trains under
 its overlap-chunk masks, and the averaged checkpoint streams through ``AutoModel``'s
-``generate(cache=..., chunk_size=[0, 10, 5])``.
+``generate(cache=..., chunk_size=[0, 10, 5])``. Fun-ASR-Nano's recipe
+(``fun_asr_nano/finetune.sh``) is Paraformer's flags on a ``FunASRNano`` dir with
+``++sharding=dp`` (the recipe's default ``fsdp`` raises: ROADMAP item 21): the SAN-M
+encoder, the adaptor and the LLM all train on (speech, text) batches. The LLM-ASR family's
+recipes add ``++dataset=OpenAIDataset`` (or a ``dataset`` key in the config) over jsonl rows
+of ``system`` / ``user`` / ``assistant`` turns, the user turns holding
+``<|startofspeech|>!path<|endofspeech|>``: the trainer gives those batches to the model's
+``forward_batch``. Whisper has no route here: its frontend has no batched ``forward`` over
+waveforms (nor has the JAX ``WhisperFrontend`` a ``_pipeline``), so it trains through
+``Trainer`` on given mel features only.
 
 The model is built as ``AutoModel`` builds it (the dir's config.yaml, tokenizer,
 frontend, ``model.pt`` as the starting weights, else seeded ones), on ``++device``
@@ -65,6 +74,12 @@ def main(**kwargs):
                                   "kernels) is ROADMAP item 20b, quantization is inference's")
     kwargs.setdefault("device", "cuda")
     model, kwargs = AutoModel.build_model(**kwargs)
+    frontend = kwargs.get("frontend")
+    if frontend is not None and not hasattr(frontend, "forward"):
+        raise NotImplementedError(
+            f"{type(frontend).__name__} has no batched forward over waveforms (the JAX "
+            "package's has no _pipeline either), so the trainer cannot make this model's "
+            "features: train it through Trainer on given features")
     output_dir = kwargs.get("output_dir", "exp")
     os.makedirs(output_dir, exist_ok=True)
     if kwargs.get("model_path"):

@@ -43,6 +43,9 @@ package's parameter tree (as numpy arrays) and gives the tensors that the port m
   in); whisper towers -> OpenAI names (``blocks.N.attn.query``, ``mlp.0``, ``ln_post``);
   Whisper -> Hugging Face names, the encoder's sinusoids computed, as the JAX package
   computes them;
+* LoRA factors beside a linear's ``w`` (``funasr_tpu/models/lora/layers.py``: ``lora_a``
+  (in, r), ``lora_b`` (r, out)) -> ``lora_A`` (r, in), ``lora_B`` (out, r), the tensors
+  ``models/lora/layers.py::lora_init`` attaches;
 * int8 linears of ``ops/quant.py::quantize_params_int8`` (``{w_q8 | w_q, scale[, b]}``)
   -> ``Int8Linear`` tensors: ``w_q8`` / ``w_q`` (in, out) -> (out, in), kept int8.
   The target model is quantized first (``funasr_tpu_torch.ops.quant``, same mode), so
@@ -81,6 +84,9 @@ def _leaf(p: Dict[str, np.ndarray], prefix: str, target: Dict[str, torch.Tensor]
     out = {prefix + "weight": w}
     if "b" in p:
         out[prefix + "bias"] = p["b"]
+    if "lora_a" in p:  # models/lora: a (in, r), b (r, out) -> lora_A (r, in), lora_B (out, r)
+        out[prefix + "lora_A"] = np.asarray(p["lora_a"]).T
+        out[prefix + "lora_B"] = np.asarray(p["lora_b"]).T
     return out
 
 

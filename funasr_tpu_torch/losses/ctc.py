@@ -26,7 +26,11 @@ def ctc_loss(logits, logit_paddings, labels, label_paddings, blank_id: int = 0,
     repeat = (labels[:, :-1] == labels[:, 1:]).to(logprobs.dtype)
     repeat = torch.nn.functional.pad(repeat, (0, 1))
     logprobs_phi = logprobs[:, :, blank_id:blank_id + 1].transpose(0, 1)  # (T, B, 1)
-    one_hot = torch.nn.functional.one_hot(labels.long(), k).to(logprobs.dtype)
+    # jax.nn.one_hot: a label outside [0, K) is a row of zeros (an LLM's token ids against
+    # a smaller CTC vocabulary, Fun-ASR-Nano's CTC branch), where F.one_hot raises
+    labels = labels.long()
+    inside = ((labels >= 0) & (labels < k))[..., None]
+    one_hot = (torch.nn.functional.one_hot(labels.clamp(0, k - 1), k) * inside).to(logprobs.dtype)
     logprobs_emit = torch.einsum("btk,bnk->btn", logprobs, one_hot).transpose(0, 1)
 
     phi = torch.full((b, n + 1), log_epsilon, dtype=logprobs.dtype, device=logits.device)

@@ -21,8 +21,11 @@ One departure: the features go to the encoder in its weights' dtype, as the port
 Paraformer and SenseVoice do (JAX keeps them fp32, so its bf16 encoder computes in
 fp32). The LLM runs in the engine's dtype, bf16 by default whatever the weights' dtype,
 as in JAX. The encoder runs once a batch: the JAX CTC branch encodes again
-(``ctc_branch``), with the same result. The fine-tune loss (``forward_jit``) is ROADMAP
-item 20b.
+(``ctc_branch``), with the same result.
+
+``forward`` is the fine-tune loss (``forward_jit``), the encoder, adaptor and LLM all
+trained: on the card the encoder's 50 attentions and FSMN memories run the flash and
+FSMN kernels forward and backward.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from torch import nn
 
 import funasr_tpu_torch.models.llm_asr.adaptor  # noqa: F401 (registers the adaptors)
 import funasr_tpu_torch.models.sanm.encoder  # noqa: F401 (registers SANMEncoder)
+from funasr_tpu_torch.core.layers import make_pad_mask
 from funasr_tpu_torch.core.module import init_weights
 from funasr_tpu_torch.llm.engine import LLMEngine, Request
 from funasr_tpu_torch.models.llm.qwen import QwenConfig, QwenLM, init_qwen
@@ -119,10 +123,53 @@ class FunASRNano(nn.Module):
                 init_weights(self.ctc, generator)
             init_qwen(self.llm, generator)
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__}'s training loss is not ported yet: ROADMAP item 20b, the "
-            "LLM family (forward_jit / forward_jit_batch, LoRA and its datasets)")
+    def forward(self, speech, speech_lengths, text, text_lengths, generator=None):
+        """The fine-tune loss (``fun_asr_nano/model.py:114-163``, reference
+        ``forward:287-408``) -> (loss, stats, batch size). The LLM reads [``<|im_start|>`` |
+        every audio row of the batch's width | ``<|im_end|>`` | target embeds] (the two
+        ids clipped to the vocabulary, as the JAX ``embed`` clips them); CE on the target
+        positions (``text >= 0`` within ``text_lengths``) over their count, at least 1, and
+        ``acc`` by argmax; with a CTC head and ``ctc_weight`` > 0, plus ``ctc_weight`` x
+        the CTC loss.
+
+        As in JAX: no encoder dropout, whatever the config's ``dropout_rate`` (the JAX
+        loss gives ``encode_audio`` no key; FunASR's torch model drops out); the CTC loss
+        reads the encoder output the LLM path computed, where JAX encodes a second time:
+        the same values and the same gradient. The head (the vocab projection) runs on
+        the target window alone, gathered before it: rows are independent, so the
+        numbers are those of JAX's full logits at a quarter of the head's work for
+        Fun-ASR-Nano's prompts. ``generator`` is unused (nothing is drawn)."""
+        b = speech.shape[0]
+        enc, enc_lens = self.encode(speech, speech_lengths)
+        audio, _ = self.audio_adaptor(enc, enc_lens)
+        dt = torch.float32
+        d = self.llm_cfg.hidden_size
+        prefix = self.llm.embed([151644], dt)  # <|im_start|>
+        suffix = self.llm.embed([151645], dt)  # <|im_end|>
+        tgt = text.clamp_min(0)
+        inputs = torch.cat([prefix[None].expand(b, -1, d), audio.to(dt),
+                            suffix[None].expand(b, -1, d), self.llm.embed(tgt, dt)], dim=1)
+        # the logits predicting target t sit one step left of it
+        off = prefix.shape[0] + audio.shape[1] + suffix.shape[0]
+        hidden = self.llm.hidden_embeds(inputs)[:, off - 1: off - 1 + tgt.shape[1]]
+        pred = self.llm.logits_head(hidden)
+        logp = torch.log_softmax(pred.float(), dim=-1)
+        mask = (make_pad_mask(text_lengths, tgt.shape[1]) & (text >= 0)).float()
+        ce = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        denom = mask.sum().clamp_min(1.0)
+        loss_llm = (ce * mask).sum() / denom
+        acc = ((pred.argmax(-1) == tgt).float() * mask).sum() / denom
+        stats = {"loss_llm": loss_llm, "acc": acc}
+        loss = loss_llm
+        if self.ctc is not None and self.ctc_weight > 0:
+            ctc_in, ctc_lens = enc, enc_lens
+            if self.ctc_decoder is not None:
+                ctc_in, ctc_lens = self.ctc_decoder(ctc_in, ctc_lens)
+            loss_ctc = self.ctc.loss(ctc_in, ctc_lens, text, text_lengths)
+            stats["loss_ctc"] = loss_ctc
+            loss = loss_llm + self.ctc_weight * loss_ctc
+        stats["loss"] = loss
+        return loss, stats, b
 
     @property
     def device(self) -> torch.device:

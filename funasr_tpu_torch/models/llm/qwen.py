@@ -119,11 +119,12 @@ def rope(x, positions, theta: float):
 
 class StepTables(NamedTuple):
     """What every layer of one forward shares: the RoPE tables, the cache rows the new
-    keys go to, and the attention mask over the cache (True where masked)."""
+    keys go to (None without a cache), and the attention mask over the cache, or over
+    this call's keys without one (True where masked)."""
     cos: torch.Tensor
     sin: torch.Tensor
-    b_idx: torch.Tensor    # (B, T)
-    idx: torch.Tensor      # (B, T) cache rows, write_pos + t modulo the cache length
+    b_idx: Optional[torch.Tensor]  # (B, T)
+    idx: Optional[torch.Tensor]    # (B, T) cache rows, write_pos + t modulo the cache length
     masked: torch.Tensor   # (B, 1, 1, T, S): not (spos <= qpos and spos < kv_lens)
 
 
@@ -137,6 +138,15 @@ def step_tables(cfg, positions, write_pos, kv_lens, max_len: int) -> StepTables:
     valid = ((spos <= positions[:, None, None, :, None])
              & (spos < kv_lens[:, None, None, None, None]))
     return StepTables(cos, sin, b_idx, idx, ~valid)
+
+
+def causal_tables(cfg, t: int, device) -> StepTables:
+    """The tables of a full-sequence forward without a cache: positions 0..T-1, each
+    query seeing the keys up to its own (the cache path's mask with kv_lens = T)."""
+    pos = torch.arange(t, device=device)
+    cos, sin = rope_tables(pos[None], cfg.hd, cfg.rope_theta)
+    masked = (pos[None, :] > pos[:, None])[None, None, None]  # (1, 1, 1, T, T)
+    return StepTables(cos, sin, None, None, masked)
 
 
 class RMSNorm(nn.Module):
@@ -164,7 +174,8 @@ class QwenAttention(nn.Module):
             self.k_norm = RMSNorm(c.hd, device)
 
     def forward(self, x, tabs: StepTables, kv):
-        """x (B, T, D); kv the layer's cache, written in place at rows ``tabs.idx``."""
+        """x (B, T, D); kv the layer's cache, written in place at rows ``tabs.idx``, or
+        None: attention over this call's keys (training, teacher forcing)."""
         c = self.cfg
         b, t, _ = x.shape
 
@@ -180,9 +191,12 @@ class QwenAttention(nn.Module):
         q = apply_rope(q, tabs.cos, tabs.sin)
         k = apply_rope(k, tabs.cos, tabs.sin)
 
-        k_cache, v_cache = kv["k"], kv["v"]
-        k_cache.index_put_((tabs.b_idx, tabs.idx), k.to(k_cache.dtype))
-        v_cache.index_put_((tabs.b_idx, tabs.idx), v.to(v_cache.dtype))
+        if kv is None:
+            k_cache, v_cache = k, v
+        else:
+            k_cache, v_cache = kv["k"], kv["v"]
+            k_cache.index_put_((tabs.b_idx, tabs.idx), k.to(k_cache.dtype))
+            v_cache.index_put_((tabs.b_idx, tabs.idx), v.to(v_cache.dtype))
 
         n_rep = c.num_attention_heads // c.num_key_value_heads
         qg = (q.float() * c.hd ** -0.5).reshape(b, t, c.num_key_value_heads, n_rep, c.hd)
@@ -331,17 +345,22 @@ class QwenLM(nn.Module):
         ids = torch.as_tensor(token_ids, device=table.device).long()
         return table[ids.clamp(0, table.shape[0] - 1)].to(dtype)
 
+    def hidden_embeds(self, input_embeds):
+        """Full-sequence causal forward without a cache: (B, T, D) embeds -> (B, T, D)
+        hidden states before the final norm. The JAX ``forward_embeds`` writes K / V into
+        a fresh cache of T rows and attends over all of it; this attends over the call's
+        own K / V under the same causal mask, the same values with no scatter or copy,
+        and autograd follows it (training)."""
+        tabs = causal_tables(self.cfg, input_embeds.shape[1], input_embeds.device)
+        x = input_embeds
+        for layer in self.model.layers:
+            x = layer(x, tabs, None)
+        return x
+
     def forward_embeds(self, input_embeds):
         """Full-sequence causal forward without a persistent cache: (B, T, D) embeds ->
-        (B, T, V) logits (teacher forcing)."""
-        b, t, _ = input_embeds.shape
-        dev = input_embeds.device
-        kv = self.init_kv_cache(b, t, dtype=input_embeds.dtype, device=dev)
-        positions = torch.arange(t, device=dev)[None].expand(b, t)
-        logits, _ = self.forward(input_embeds, positions, kv,
-                                 torch.zeros(b, dtype=torch.long, device=dev),
-                                 torch.full((b,), t, dtype=torch.long, device=dev))
-        return logits
+        (B, T, V) logits (teacher forcing, training; ``qwen.py:297-307``)."""
+        return self.logits_head(self.hidden_embeds(input_embeds))
 
 
 def _drop_tied_head(state_dict, prefix, *args):

@@ -7,8 +7,10 @@ in encoder, prompt format and decode mode. ``LLMASR`` and its versions also spea
 reference's multiturn OpenAI-message format: ``generate(input=[messages])``, where user
 turns may hold ``<|startofspeech|>!path<|endofspeech|>`` audio spans (reference
 ``data_template:666`` / ``data_load_speech:693`` / ``inference:820``). ``GLMASR`` stays
-unbound: its ``TransformerEncoder`` is ROADMAP item 22's. The multiturn training loss
-(``forward_jit_batch``) is ROADMAP item 20b.
+unbound: its ``TransformerEncoder`` is ROADMAP item 22's. Every name trains on collated
+OpenAI-format batches through ``forward_batch`` (the JAX ``forward_jit_batch``), which the
+trainer picks for a batch holding ``input_ids``; plain (speech, text) batches take
+Fun-ASR-Nano's ``forward``.
 """
 
 from __future__ import annotations
@@ -148,6 +150,39 @@ class LLMASR(FunASRNano):
             "fake_token_len": np.asarray(fake_token_len, np.int32),
             "attention_mask": np.ones((len(input_ids),), np.int32),
         }
+
+    def splice_audio_embeds(self, embeds, audio, audio_lens, fbank_mask):
+        """Positions where ``fbank_mask`` is set take successive rows of the audio
+        embeddings, one span per row (the JAX cumsum + gather, ``model.py:168-177``; the
+        reference's in-place row loop, ``model.py:869-878``)."""
+        mask = fbank_mask > 0
+        idx = (torch.cumsum(mask.int(), dim=-1) - 1).clamp(0, audio.shape[1] - 1)
+        gathered = torch.gather(audio, 1, idx[..., None].expand(-1, -1, audio.shape[-1]))
+        return torch.where(mask[..., None], gathered.to(embeds.dtype), embeds)
+
+    def forward_batch(self, batch, generator=None):
+        """The multiturn fine-tune loss over a collated OpenAI-format batch
+        (``model.py:179-209``, reference LLMASR4 ``forward:1135-1244``) -> (loss, stats,
+        batch size): the audio embeddings spliced into the placeholder slots, next-token
+        CE where ``labels_ids[:, 1:]`` is not -100 over their count (at least 1), ``acc``
+        by argmax. ``batch``: tensors ``speech`` (B, T, D) features, ``speech_lengths``,
+        ``input_ids``, ``labels_ids``, ``fbank_mask``. ``generator`` is unused."""
+        speech = batch["speech"]
+        if speech.dim() == 2:  # waveforms: the trainer runs the frontend first
+            raise ValueError("forward_batch expects fbank features")
+        audio, audio_lens = self.encode_audio(speech, batch["speech_lengths"])
+        emb = self.llm.embed(batch["input_ids"].clamp_min(0), torch.float32)
+        spliced = self.splice_audio_embeds(emb, audio, audio_lens, batch["fbank_mask"])
+        pred = self.llm.logits_head(self.llm.hidden_embeds(spliced)[:, :-1])
+        tgt = batch["labels_ids"][:, 1:].long()
+        valid = (tgt != IGNORE_INDEX).float()
+        tgt = tgt.clamp_min(0)
+        logp = torch.log_softmax(pred.float(), dim=-1)
+        ce = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        denom = valid.sum().clamp_min(1.0)
+        loss = (ce * valid).sum() / denom
+        acc = ((pred.argmax(-1) == tgt).float() * valid).sum() / denom
+        return loss, {"loss": loss, "loss_llm": loss, "acc": acc}, speech.shape[0]
 
     @staticmethod
     def _is_messages(x) -> bool:

@@ -15,7 +15,10 @@ Pallas kernel: fp32 scores, the masked softmax in the activations' dtype
 (``core/layers.py::masked_softmax``). ``greedy_decode`` is the cached decode: cross-K / V
 once an utterance (``cross_kv``), self-K / V written a step at a time (``cached_step``),
 one host fetch of the next ids a step, as in JAX; ``greedy_decode_prefix`` is the
-full-prefix oracle it must equal. The training loss comes with the training slice.
+full-prefix oracle it must equal. ``forward`` is the training loss on mel features (the
+JAX ``forward_jit``); the encoder's fixed sinusoids take no gradient, a constant in JAX.
+The JAX ``WhisperFrontend`` has no batched ``_pipeline``, so its trainer cannot run
+Whisper from waveforms, and the port's trains it on given features only.
 """
 
 from __future__ import annotations
@@ -175,6 +178,7 @@ class WhisperEncoder(nn.Module):
         with torch.no_grad():
             self.embed_positions.weight.copy_(
                 torch.from_numpy(sinusoids(c.max_source_positions, c.d_model)))
+        self.embed_positions.weight.requires_grad_(False)  # fixed, as in JAX
         self.layers = nn.ModuleList([
             WhisperEncoderLayer(c.d_model, c.encoder_attention_heads, c.encoder_ffn_dim, device)
             for _ in range(c.encoder_layers)])
@@ -220,9 +224,21 @@ class WhisperModel(nn.Module):
         if generator is not None:
             init_whisper(self, generator)
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError("Whisper's training loss is not ported yet: ROADMAP item "
-                                  "20b, Whisper's loss (whisper/model.py::forward_jit)")
+    def forward(self, speech, speech_lengths, text, text_lengths, generator=None):
+        """The training loss (``whisper/model.py:365-375``): mel (B, T, n_mels), token ids
+        (B, L) -> (loss, stats, batch size); CE of ``text[:, 1:]`` teacher forced on
+        ``text[:, :-1]``, over the positions below ``text_lengths - 1``. ``generator`` is
+        unused."""
+        encoder_out, _ = self.encode(speech, speech_lengths)
+        logits = self.decode_logits(text[:, :-1], encoder_out)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ys_out = text[:, 1:]
+        valid = (torch.arange(ys_out.shape[1], device=ys_out.device)[None]
+                 < (text_lengths - 1)[:, None])
+        tgt = torch.where(valid, ys_out, 0).long()
+        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0] * valid
+        loss = nll.sum() / valid.sum().clamp_min(1)
+        return loss, {"loss": loss}, speech.shape[0]
 
     @property
     def device(self) -> torch.device:

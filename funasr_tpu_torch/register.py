@@ -21,7 +21,9 @@ from typing import Any, Callable, Dict
 REGISTRABLE = tuple(f"funasr_tpu_torch.{m}" for m in (
     "datasets.audio_datasets.datasets", "datasets.audio_datasets.index_ds",
     "datasets.audio_datasets.preprocessor", "datasets.audio_datasets.samplers",
-    "datasets.dataloader_entry", "datasets.specialized_datasets", "frontends.wav_frontend", "frontends.whisper_frontend", "models.bicif_paraformer.model",
+    "datasets.dataloader_entry", "datasets.fun_asr_datasets",
+    "datasets.specialized_datasets", "frontends.wav_frontend", "frontends.whisper_frontend",
+    "models.bicif_paraformer.model",
     "models.campplus.model", "models.contextual_paraformer.model",
     "models.ct_transformer.model", "models.ct_transformer_streaming.model",
     "models.ctc.model", "models.e_paraformer.model", "models.fsmn_vad_streaming.model",

@@ -3,9 +3,11 @@
 
 A step: the batch's waveforms go to the model's device, the frontend runs there (dither
 from the step's generator, ``trainer.py:104-108``), ``model(...)`` gives (loss, stats,
-weight), ``loss.backward()``; every parameter without a gradient gets zeros (optax's
-gradient tree holds every leaf, so decay and moments cover it too); the gradients' global
-L2 norm g, scaled by min(1, clip / (g + 1e-6)), and all set to zero when g is not finite,
+weight), or ``model.forward_batch(...)`` for a batch with ``input_ids`` (the LLM-ASR
+family's OpenAI-format batches, as the JAX trainer dispatches), ``loss.backward()``;
+every parameter without a gradient gets zeros (optax's gradient tree holds every leaf, so
+decay and moments cover it too); the gradients' global L2 norm g, scaled by min(1, clip /
+(g + 1e-6)), and all set to zero when g is not finite,
 the update still taken (``trainer.py:126-141``); ``accum_grad`` k averages k gradients as
 ``optax.MultiSteps`` does (running mean, ``acc + (g - acc) / (i + 1)``) and applies them
 once, the scheduler stepping with the applied updates. Random draws (dither, SpecAug,
@@ -138,25 +140,40 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def _features(self, batch, generator=None):
-        """The batch on the device: (feats, feat lengths, text, text lengths); waveforms
-        (B, N) go through the frontend there."""
+        """The batch on the device: (feats, feat lengths, text, text lengths, the
+        OpenAI-format batch's ``input_ids`` / ``labels_ids`` / ``fbank_mask`` where it has
+        them); waveforms (B, N) go through the frontend there."""
         dev = self.device
         speech = torch.as_tensor(batch["speech"]).to(dev, non_blocking=True)
         lens = torch.as_tensor(batch["speech_lengths"]).to(dev, non_blocking=True)
         text = torch.as_tensor(batch["text"]).to(dev, non_blocking=True).long()
         tlens = torch.as_tensor(batch["text_lengths"]).to(dev, non_blocking=True).long()
+        extra = {k: torch.as_tensor(batch[k]).to(dev, non_blocking=True)
+                 for k in ("input_ids", "labels_ids", "fbank_mask") if k in batch}
         if self.frontend is not None and speech.dim() == 2:
             speech, lens = self.frontend.forward(speech, lens, generator=generator)
-        return speech, lens, text, tlens
+        return speech, lens, text, tlens, extra
+
+    def _loss(self, batch, generator, train=True):
+        """The model's (loss, stats, weight) on a batch, dispatched as the JAX trainer's
+        ``loss_fn`` (``trainer.py:110-125``): a batch with ``input_ids`` goes to the
+        model's ``forward_batch`` where it has one (the LLM-ASR family's OpenAI-format
+        batches), any other to ``forward(feats, flens, text, tlens)``. The frontend
+        dithers from ``generator`` only when ``train``."""
+        feats, flens, text, tlens, extra = self._features(
+            batch, generator=generator if train else None)
+        if "input_ids" in batch and hasattr(self.model, "forward_batch"):
+            return self.model.forward_batch({**extra, "speech": feats, "speech_lengths": flens},
+                                            generator=generator)
+        return self.model(feats, flens, text, tlens, generator=generator)
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
         """One mini-batch: loss, backward, norm, clip / guard, (accumulated) update."""
         self.model.train()
         gen = step_generator(self.device, self.seed, self.step)
-        feats, flens, text, tlens = self._features(batch, generator=gen)
         for p in self.params:
             p.grad = None
-        loss, stats, _ = self.model(feats, flens, text, tlens, generator=gen)
+        loss, stats, _ = self._loss(batch, gen)
         loss.backward()
         grads = []
         for p in self.params:
@@ -284,8 +301,7 @@ class Trainer:
         n = 0
         gen = step_generator(self.device, self.seed, 999)
         for batch in loader:
-            feats, flens, text, tlens = self._features(batch)
-            _, stats, _ = self.model(feats, flens, text, tlens, generator=gen)
+            _, stats, _ = self._loss(batch, gen, train=False)
             for k, v in stats.items():
                 if v.dim() == 0:
                     tot[k] = tot.get(k, 0.0) + float(v)
@@ -340,6 +356,7 @@ class Trainer:
                         metric_name=None):
         """``metric_name``: the validation stat ``metric`` is (``avg_type`` if not given),
         which sets the ranking's order."""
+        t0 = time.perf_counter()
         name = f"model.pt.ep{epoch}" + (f".{step}" if step is not None else "")
         metric_name = metric_name or self.avg_type
         state = {
@@ -359,7 +376,8 @@ class Trainer:
             metric = float(metric)
             self.best_ckpts[name] = -metric if higher_is_better(metric_name) else metric
             self._prune_nbest()
-        logging.info("saved checkpoint %s (metric=%s)", name, metric)
+        logging.info("saved checkpoint %s (metric=%s) in %.1f s", name, metric,
+                     time.perf_counter() - t0)
 
     def _prune_nbest(self):
         # never delete the checkpoint model.pt.latest points at: resume reads it

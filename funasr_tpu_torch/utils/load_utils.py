@@ -290,9 +290,41 @@ def load_torch_checkpoint(path: str) -> Dict[str, Any]:
     return obj
 
 
-def load_pretrained(model: torch.nn.Module, path: str) -> torch.nn.Module:
+#: the model names whose checkpoints get their peft LoRA adapters merged on load: those
+#: the JAX package converts with ``convert_fun_asr_nano``
+#: (``funasr_tpu/convert/torch_to_jax.py:1489-1490``)
+LORA_MERGED_MODELS = ("FunASRNano", "LLMASR")
+
+
+def merge_lora_weights(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """Fold peft-style LoRA adapters into their base weights and strip peft's wrapper
+    names (a copy of ``funasr_tpu/convert/torch_to_jax.py:660-685`` in torch layout;
+    the reference loads LoRA through peft, ``fun_asr_nano/model.py:133-147``):
+    ``base_model.model.`` and ``.base_layer.`` go, W <- W + B @ A in fp32 for each
+    ``lora_A`` / ``lora_B`` pair with a base weight, at scale 1.0 (the JAX package's:
+    lora_alpha / r is not in the keys), and the adapters' keys are dropped."""
+    out: Dict[str, Any] = {}
+    loras: Dict[str, Dict[str, Any]] = {}
+    for k, v in sd.items():
+        k2 = k.replace("base_model.model.", "")
+        if ".lora_A." in k2 or ".lora_B." in k2:
+            for tag in (".lora_A.", ".lora_B."):
+                if tag in k2:
+                    loras.setdefault(k2.partition(tag)[0], {})[tag.strip(".")] = v
+            continue
+        out[k2.replace(".base_layer.", ".")] = v
+    for base, ab in loras.items():
+        wkey = base + ".weight"
+        if "lora_A" in ab and "lora_B" in ab and wkey in out:
+            out[wkey] = out[wkey].float() + ab["lora_B"].float() @ ab["lora_A"].float()
+    return out
+
+
+def load_pretrained(model: torch.nn.Module, path: str,
+                    model_name: str | None = None) -> torch.nn.Module:
     """Load ``path`` into ``model`` in place: a Trainer pickle through
-    ``params_from_jax``, else a torch state dict through ``load_state_dict``. Missing
+    ``params_from_jax``, else a torch state dict through ``load_state_dict``, its LoRA
+    adapters merged first where ``model_name`` is one of ``LORA_MERGED_MODELS``. Missing
     keys raise; keys of branches the port does not build (e.g. ``ctc.*``) are logged
     and dropped, as the JAX converter ignores them."""
     native = load_native_checkpoint(path)
@@ -301,6 +333,8 @@ def load_pretrained(model: torch.nn.Module, path: str) -> torch.nn.Module:
         model.load_state_dict(params_from_jax(native, model))
         return model
     sd = _strip_module_prefix(load_torch_checkpoint(path))
+    if model_name in LORA_MERGED_MODELS:
+        sd = merge_lora_weights(sd)
     missing, unexpected = model.load_state_dict(sd, strict=False)
     if missing:
         raise KeyError(f"{path} lacks {len(missing)} of the model's tensors: "
