@@ -5082,8 +5082,10 @@ TRAIN_RECIPE = ["++dataset_conf.batch_size=6000", "++dataset_conf.batch_type=tok
 # the resumed run checkpoints at its epoch's end and averages the 2 best
 TRAIN_FIRST = ["++train_conf.max_epoch=1", "++train_conf.save_checkpoint_interval=3",
                "++train_conf.profile_start_step=1", "++train_conf.profile_steps=1"]
+# (under the recipes' default fsdp, over the trainer's own one-rank group: the first run's
+# dp checkpoint loads into FSDP2's shards)
 TRAIN_RESUMED = ["++train_conf.max_epoch=2", "++train_conf.save_checkpoint_interval=0",
-                 "++train_conf.avg_nbest_model=2"]
+                 "++train_conf.avg_nbest_model=2", "++sharding=fsdp"]
 TRAIN_CPU_DEPTH = (4, 2)   # encoder / decoder blocks of the CUDA-vs-CPU step (PROD_CONF width)
 TRAIN_CPU_T = 10.0         # seconds of each of the step's 2 utterances
 TRAIN_LOSS_RTOL = 1e-5     # the step's loss, CUDA against the CPU (fp32)
@@ -5093,6 +5095,10 @@ TRAIN_GRAD_REL_TOL = 1e-3
 FLASH_BWD_REL_TOL = 1e-5   # dq / dk / dv against autograd through the plain version (fp32)
 FSMN_BWD_REL_TOL = 1e-5    # dx / dw against autograd through the plain version (fp32)
 CIF_TIE_SCALE = 1 + 1e-5   # the training CIF's last-fire tie moved alike on both devices
+# the step under dp and fsdp over a one-rank NCCL group against the plain step on the card:
+# the same kernels and sums, the collectives copies (bit-equal expected)
+DATA_PARALLEL_LOSS_RTOL = 1e-6
+DATA_PARALLEL_GRAD_REL_TOL = 1e-5
 
 
 def train_sites(enc_blocks, dec_blocks):
@@ -5444,12 +5450,14 @@ def cif_tie_moved():
 
 
 def train_cuda_vs_cpu(dev, counters, model_name="Paraformer", encoder_conf=None,
-                      decoder_conf=None, grad_tol=TRAIN_GRAD_REL_TOL, **call):
+                      decoder_conf=None, grad_tol=TRAIN_GRAD_REL_TOL, data_parallel=False,
+                      **call):
     """(b) One training step (loss + backward) of a PROD_CONF-width Paraformer cut to 4 + 2
     blocks, on the card and on the CPU: the same weights and features, dropout and SpecAug
     off, the sampler's draws fed equal. Gates: the loss within TRAIN_LOSS_RTOL, every
     parameter's gradient within ``grad_tol`` relative L2, the step's launches exactly its
     sites, the q / k rows of every linear_q_k_v and every fsmn_block non-zero on the card.
+    With ``data_parallel``, also the card's step under dp and fsdp (``train_data_parallel``).
     ``model_name`` / ``encoder_conf`` / ``decoder_conf`` (cut to the same depth) / ``call``
     (extra arguments of the step, e.g. ``chunk_index``): another model (phase 18's)."""
     from funasr_tpu_torch import tables
@@ -5473,6 +5481,7 @@ def train_cuda_vs_cpu(dev, counters, model_name="Paraformer", encoder_conf=None,
     for i, n in enumerate(tl.tolist()):
         text[i, :n] = torch.from_numpy(rng.integers(3, conf["vocab_size"] - 1, n))
     uniform = torch.from_numpy(rng.random((2, 41), dtype=np.float32))
+    pristine = copy.deepcopy(gpu) if data_parallel else None
     out = {}
     with cif_tie_moved():
         for name, model in (("cpu", cpu), ("cuda", gpu)):
@@ -5514,8 +5523,74 @@ def train_cuda_vs_cpu(dev, counters, model_name="Paraformer", encoder_conf=None,
         raise AssertionError(f"training step launches {launches} != sites {sites}")
     if zero:
         raise AssertionError(f"zero attention / FSMN weight gradients on CUDA: {zero[:4]}")
-    return dict(loss_cuda=gl, loss_cpu=cl, worst_grad_rel_l2=worst, worst_param=worst_name,
-                launches=launches, depth=TRAIN_CPU_DEPTH)
+    fig = dict(loss_cuda=gl, loss_cpu=cl, worst_grad_rel_l2=worst, worst_param=worst_name,
+               launches=launches, depth=TRAIN_CPU_DEPTH)
+    if data_parallel:
+        inputs = (feats.to(dev), flens.to(dev), text.to(dev), tl.to(dev), uniform.to(dev))
+        fig["data_parallel"] = train_data_parallel(dev, counters, pristine, inputs, gl, gg,
+                                                   sites)
+    return fig
+
+
+def train_data_parallel(dev, counters, model, inputs, plain_loss, plain_grads, sites):
+    """(b) The card's step of ``train_cuda_vs_cpu`` under dp (the gradients all-reduced
+    after the backward) and under fsdp (FSDP2: each encoder and decoder layer a unit, then
+    the root), over one one-rank NCCL group made in this process, each on a copy of
+    ``model`` as it was before the plain step. Gates: the loss within
+    DATA_PARALLEL_LOSS_RTOL and every gradient within DATA_PARALLEL_GRAD_REL_TOL relative
+    L2 of the plain step's, the launches exactly ``sites``. -> {mode: figures}."""
+    from funasr_tpu_torch.parallel.sharding import DataGroup
+    from funasr_tpu_torch.train_utils.train_step import backward
+
+    feats, flens, text, tl, uniform = inputs
+    t0 = time.perf_counter()
+    groups = {"dp": DataGroup("dp", dev)}  # makes the group
+    groups["fsdp"] = DataGroup("fsdp", dev)  # over it
+    group_s = time.perf_counter() - t0
+    figures = {}
+    try:
+        for mode, data in groups.items():
+            m = copy.deepcopy(model).train()
+            t0 = time.perf_counter()
+            data.prepare(m)
+            wrap_s = time.perf_counter() - t0
+            # the sharded parameters: between a forward and its backward FSDP2 registers
+            # the root's unsharded ones in their place
+            params = list(m.parameters())
+            for c in counters:
+                c.launches = 0
+            with cif_tie_moved(), data.active():
+                loss, _, _ = m(feats, flens, text, tl, sampler_uniform=uniform)
+            grads = backward(loss, params, data)
+            torch.cuda.synchronize()
+            launches = {c.__name__: c.launches for c in counters}
+            got = {n: g.full_tensor() if hasattr(g, "full_tensor") else g
+                   for (n, _), g in zip(m.named_parameters(), grads)}
+            worst, worst_name = 0.0, None
+            for n, want in plain_grads.items():
+                if want is None:  # no gradient in the plain step: zeros here
+                    r = got[n].abs().max().item()
+                else:
+                    r = rel_l2(got[n], want) if want.norm() > 0 else got[n].abs().max().item()
+                if r > worst:
+                    worst, worst_name = r, n
+            rel = abs(loss.item() - plain_loss) / abs(plain_loss)
+            log(f"training step under {mode} (one NCCL rank): loss {loss.item():.7f} (rel "
+                f"{rel:.2e} to the plain step, tol {DATA_PARALLEL_LOSS_RTOL:g}); worst gradient "
+                f"rel L2 {worst:.2e} ({worst_name}, tol {DATA_PARALLEL_GRAD_REL_TOL:g}); "
+                f"launches {launches}; wrapped in {wrap_s:.2f} s")
+            if rel > DATA_PARALLEL_LOSS_RTOL or not worst <= DATA_PARALLEL_GRAD_REL_TOL:
+                raise AssertionError(f"training step under {mode}: not the plain step")
+            if launches != sites:
+                raise AssertionError(f"training step under {mode}: launches {launches} != "
+                                     f"sites {sites}")
+            figures[mode] = dict(loss_rel=rel, worst_grad_rel_l2=worst, launches=launches,
+                                 wrap_s=wrap_s)
+            del m, grads, got
+    finally:
+        groups["dp"].close()
+    figures["group_s"] = group_s
+    return figures
 
 
 def write_train_data(root, rng, tokens):
@@ -5552,7 +5627,8 @@ def run_cli(args, label, timeout=600, tree=None):
     log(f"{label}: exit {run.returncode} in {time.perf_counter() - t0:.1f} s")
     for line in run.stderr.splitlines():  # the CLI's timestamped milestones
         if any(k in line for k in ("loading pretrained", "saved checkpoint", "resumed from",
-                                   "validate epoch", "averaged", "profiler trace")):
+                                   "validate epoch", "averaged", "profiler trace",
+                                   "process group", "data group")):
             log("  " + line[:160])
     if run.returncode != 0:
         raise AssertionError(f"{label} failed:\n{run.stdout[-3000:]}\n{run.stderr[-6000:]}")
@@ -5686,12 +5762,14 @@ def recipe_ab(other=None):
 
 def phase_training(dev, counters, card, keep=None):
     """Phase 16: (a) the backward kernels at the recipe's first batch shape, (b) a training
-    step on the card against the CPU, (c) finetune.sh's recipe: ``bin/data_tools
+    step on the card against the CPU, and under dp and fsdp over a one-rank NCCL group
+    against the plain step, (c) finetune.sh's recipe: ``bin/data_tools
     scp2jsonl`` and ``bin/train`` as subprocesses on a seeded PROD_CONF Paraformer-large
     (50 + 16 blocks, d 512, vocab 8404) whose config carries the training keys, one epoch
     (about 4 token batches of 6,000, a mid-epoch checkpoint with its validation at step
-    3, the epoch's checkpoint), then the run resumed for a second epoch (its checkpoint,
-    the average of the 2 best). Gates: a finite loss every step, each step's launches exactly
+    3, the epoch's checkpoint), then the run resumed for a second epoch under the
+    recipes' default ``++sharding=fsdp`` from the dp checkpoint (its checkpoint, the
+    average of the 2 best). Gates: a finite loss every step, each step's launches exactly
     ``train_sites`` and each validation's its batches x the forward sites, the resumed run
     going on from the step it stopped at, every encoder linear_q_k_v's q / k rows and
     every fsmn_block reached by a gradient (the checkpoint's Adam moments), the averaged
@@ -5741,8 +5819,9 @@ def phase_training(dev, counters, card, keep=None):
 
         # (b) CUDA against the CPU
         t_part = time.perf_counter()
-        figures["cuda_vs_cpu"] = train_cuda_vs_cpu(dev, counters)
-        log(f"training (b): CUDA against the CPU in {time.perf_counter() - t_part:.1f} s")
+        figures["cuda_vs_cpu"] = train_cuda_vs_cpu(dev, counters, data_parallel=True)
+        log(f"training (b): CUDA against the CPU, dp and fsdp in "
+            f"{time.perf_counter() - t_part:.1f} s")
 
         # (c) the recipe
         out = os.path.join(root, "exp")
@@ -5759,7 +5838,7 @@ def phase_training(dev, counters, card, keep=None):
         steps1, vals1 = read_train_log(out)
         n1 = len(steps1)
         t0 = time.perf_counter()
-        run_cli(base + TRAIN_RESUMED, "bin/train (resumed, epoch 1)")
+        run_cli(base + TRAIN_RESUMED, "bin/train (resumed under fsdp, epoch 1)")
         second_wall = time.perf_counter() - t0
         steps, vals = read_train_log(out)
         resumed = steps[n1:]
@@ -6442,10 +6521,12 @@ def phase_streaming_training(dev, counters, card, keep):
 
 # ---- phase 19: fine-tuning Fun-ASR-Nano and the LLM-ASR family --------------------------
 
-# fun_asr_nano/finetune.sh's flags (TRAIN_RECIPE, ++sharding=dp, avg 5) for one epoch of
-# about 4 steps over phase 16's wavs: the mid-epoch checkpoint and its validation at step 3,
-# the profiled step the second, the epoch's checkpoint, the best 5 (of 2) averaged
-NANO_TRAIN_RUN = ["++sharding=dp", "++train_conf.max_epoch=1",
+# fun_asr_nano/finetune.sh's flags (TRAIN_RECIPE, its default ++sharding=fsdp, avg 5) for
+# one epoch of about 4 steps over phase 16's wavs, under torchrun (NANO_TORCHRUN, NCCL on
+# one rank): the mid-epoch checkpoint and its validation at step 3, the profiled step the
+# second, the epoch's checkpoint, the best 5 (of 2) averaged
+NANO_TORCHRUN = ["torch.distributed.run", "--standalone", "--nproc_per_node=1", "-m"]
+NANO_TRAIN_RUN = ["++sharding=fsdp", "++distributed=true", "++train_conf.max_epoch=1",
                   "++train_conf.save_checkpoint_interval=3", "++train_conf.profile_start_step=1",
                   "++train_conf.profile_steps=1", "++train_conf.avg_nbest_model=5"]
 NANO_TRAIN_DECODE = 2      # utterances of 15 s through the averaged checkpoint's generate
@@ -6490,6 +6571,19 @@ def checkpoint_seconds(stderr):
     import re
     return {m.group(1): float(m.group(2)) for m in re.finditer(
         r"saved checkpoint (\S+) \(metric=[^)]*\) in ([0-9.]+) s", stderr)}
+
+
+def data_group_seconds(stderr):
+    """The seconds of a data-parallel ``bin/train`` run's set-up and gathers, from its log:
+    {"group": the process group's start, "wrap": the data group's and the model's
+    sharding, "gather": {checkpoint name: seconds gathering its whole tensors}}."""
+    import re
+    group = re.search(r"process group: .* up in ([0-9.]+) s", stderr)
+    wrap = re.search(r"data group: .* group ([0-9.]+) s, model ([0-9.]+) s", stderr)
+    return {"group": float(group.group(1)) if group else None,
+            "wrap": float(wrap.group(1)) + float(wrap.group(2)) if wrap else None,
+            "gather": {m.group(1): float(m.group(2)) for m in re.finditer(
+                r"saved checkpoint (\S+) .* \(gather ([0-9.]+) s\)", stderr)}}
 
 
 def write_nano_train_dir(d, dev, tokens, conf=NANO_FULL):
@@ -6645,12 +6739,67 @@ def llm_train_cuda_vs_cpu(dev, counters):
     return out
 
 
+SHARDING_AB_RUN = ["++train_conf.max_epoch=2", "++train_conf.save_checkpoint_interval=0",
+                   "++train_conf.keep_nbest_models=1", "++train_conf.profile_start_step=5",
+                   "++train_conf.profile_steps=1"]
+
+
+def sharding_ab():
+    """``--sharding-ab``: Fun-ASR-Nano's recipe (phase 19's dir and phase 16's wavs, two
+    epochs, a checkpoint at each epoch's end, the sixth step profiled) under
+    ``++sharding=dp`` and ``++sharding=fsdp`` (FSDP2 over the trainer's own one-rank
+    NCCL group), alternating dp, fsdp, fsdp, dp in this call: each run's ms a step
+    (``run_step_ms`` less the profiled step), the profiled step's device ms and its copy
+    kernels' ms, each checkpoint's and its gather's seconds, the peak memory; then
+    each mode's pooled median."""
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip()
+    log(card)
+    dev = torch.device("cuda")
+    pooled = {"dp": [], "fsdp": []}
+    with tempfile.TemporaryDirectory() as root:
+        _, tokens, jsonl = recipe_setup(root, dev)
+        md = os.path.join(root, "fun-asr-nano")
+        os.makedirs(md)
+        write_nano_train_dir(md, dev, tokens)
+        torch.cuda.empty_cache()
+        for i, mode in enumerate(["dp", "fsdp", "fsdp", "dp"]):
+            out, prof_dir = os.path.join(root, f"exp{i}"), os.path.join(root, f"prof{i}")
+            run = run_cli(["funasr_tpu_torch.bin.train", f"++model={md}",
+                           f"++train_data_set_list={jsonl['train']}",
+                           f"++valid_data_set_list={jsonl['val']}", *TRAIN_RECIPE,
+                           f"++sharding={mode}", *SHARDING_AB_RUN,
+                           f"++train_conf.profile_dir={prof_dir}", f"++output_dir={out}"],
+                          f"bin/train run {i} ({mode})")
+            steps, _ = read_train_log(out)
+            ms = [(y["time"] - x["time"]) * 1e3 for x, y in zip(steps, steps[1:])
+                  if x["epoch"] == y["epoch"] and y["step"] != 6]  # not the profiled step
+            with open(os.path.join(prof_dir, "summary.json")) as f:
+                prof = json.load(f)
+            copies = sum(v[0] for k, v in prof["by_kernel"].items()
+                         if "Memcpy" in k or "copy" in k.lower())
+            pooled[mode] += ms
+            log(f"run {i} {mode}: ms a step {[round(x, 1) for x in ms]}, median "
+                f"{statistics.median(ms):.1f}; profiled step device {prof['device_ms']:.1f} "
+                f"ms (copies {copies:.1f}), wall under the profiler {prof['wall_ms']:.1f} ms; "
+                f"checkpoints {checkpoint_seconds(run.stderr)} s, gathers "
+                f"{data_group_seconds(run.stderr)['gather']} s; peak "
+                f"{max(x['peak_mem_mib'] for x in steps):.0f} MiB")
+            shutil.rmtree(out)
+    log(f"sharding A/B ({card}): " + "; ".join(
+        f"{mode} median {statistics.median(v):.1f} ms a step over {len(v)} steps"
+        for mode, v in pooled.items()))
+
+
 def phase_llm_training(dev, counters, card, keep):
     """Phase 19: (a) Fun-ASR-Nano's recipe at full width (NANO_FULL: the 50-block SAN-M,
     the Linear adaptor, Qwen3-0.6B as published, all trained in fp32):
-    ``fun_asr_nano/finetune.sh``'s flags with ``++sharding=dp`` (NANO_TRAIN_RUN) over
-    phase 16's wavs (``keep["train_data"]``), ``bin/train`` as a subprocess on a seeded
-    dir with a ``CharTokenizer`` (``write_nano_train_dir``). Gates: every step's loss and
+    ``fun_asr_nano/finetune.sh``'s flags with its default ``++sharding=fsdp`` and
+    ``++distributed=true`` (NANO_TRAIN_RUN) over phase 16's wavs (``keep["train_data"]``),
+    ``bin/train`` under torchrun on one NCCL rank (NANO_TORCHRUN) on a seeded dir with a
+    ``CharTokenizer`` (``write_nano_train_dir``); the group's and the sharding's seconds and
+    each checkpoint's gather seconds logged. Gates: every step's loss and
     acc finite; every step's launches exactly 50 flash + 50 flash backward + 50 FSMN + 50
     dx + 50 dw and no W8A8, every validation batch's 50 + 50; every parameter reached by a
     gradient in the first checkpoint (its Adam moments, ``nano_weights_reached``); the
@@ -6684,13 +6833,20 @@ def phase_llm_training(dev, counters, card, keep):
         out = os.path.join(root, "exp")
         profile_dir = os.path.join(root, "profile")
         t0 = time.perf_counter()
-        run = run_cli(["funasr_tpu_torch.bin.train", f"++model={md}",
+        run = run_cli([*NANO_TORCHRUN, "funasr_tpu_torch.bin.train", f"++model={md}",
                        f"++train_data_set_list={jsonl['train']}",
                        f"++valid_data_set_list={jsonl['val']}", *TRAIN_RECIPE, *NANO_TRAIN_RUN,
                        f"++output_dir={out}", f"++train_conf.profile_dir={profile_dir}"],
-                      "bin/train Fun-ASR-Nano (epoch 0)")
+                      "torchrun bin/train Fun-ASR-Nano under fsdp (epoch 0)")
         run_wall = time.perf_counter() - t0
         ckpt_s = checkpoint_seconds(run.stderr)
+        group_s = data_group_seconds(run.stderr)
+        log(f"  fsdp on one NCCL rank: group {group_s['group']} s, data group and sharding "
+            f"{group_s['wrap']} s, checkpoint gathers {group_s['gather']} s")
+        if group_s["group"] is None or group_s["wrap"] is None or \
+                len(group_s["gather"]) != len(ckpt_s):
+            raise AssertionError(f"the torchrun run logged no group / sharding / gathers: "
+                                 f"{group_s}")
         steps, vals = read_train_log(out)
         bad = [x["step"] for x in steps if not (math.isfinite(x["loss"])
                                                  and math.isfinite(x["acc"]))]
@@ -6773,7 +6929,7 @@ def phase_llm_training(dev, counters, card, keep):
                        profile=dict(device_ms=prof["device_ms"], wall_ms=prof["wall_ms"],
                                     idle_share=idle),
                        launches=launches, launches_per_step=step_sites,
-                       decode_launches=dec_launches)
+                       decode_launches=dec_launches, data_group_s=group_s)
     return figures
 
 
@@ -7106,6 +7262,11 @@ if __name__ == "__main__":
         stream_profile(sys.argv[2], sys.argv[3] == "bf16")
     elif sys.argv[1:2] == ["--exported"]:
         exported_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--sharding-ab"]:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; needs an "
+                             "NVIDIA GPU")
+        sharding_ab()
     elif sys.argv[1:2] == ["--recipe-ab"]:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; needs an "

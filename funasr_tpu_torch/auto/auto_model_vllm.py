@@ -4,7 +4,7 @@
 The same ``generate()`` surface as the reference, over the port's continuous-batching
 ``LLMEngine`` instead of vLLM. ``max_num_seqs`` sets the engine's slots and
 ``max_model_len`` its cache bound. ``tensor_parallel_size`` > 1 raises: sharding the
-LLM over several cards is ROADMAP item 21.
+LLM over several cards is ROADMAP item 21b.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ class AutoModelVLLM:
         if self.tensor_parallel_size > 1:
             raise NotImplementedError(
                 "tensor_parallel_size > 1: sharding the LLM over several cards is not "
-                "ported yet (ROADMAP item 21)")
+                "ported yet (ROADMAP item 21b)")
         self.num_slots = kwargs.pop("max_num_seqs", 8)
         self.max_model_len = kwargs.pop("max_model_len", 2048)
         model, kwargs = AutoModel.build_model(**kwargs)

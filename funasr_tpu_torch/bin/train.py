@@ -15,8 +15,7 @@ dir whose ``encoder_conf`` holds the training chunk keys (``chunk_size``, ``stri
 ``pad_left``, the look-back factors): each step draws one chunk config and trains under
 its overlap-chunk masks, and the averaged checkpoint streams through ``AutoModel``'s
 ``generate(cache=..., chunk_size=[0, 10, 5])``. Fun-ASR-Nano's recipe
-(``fun_asr_nano/finetune.sh``) is Paraformer's flags on a ``FunASRNano`` dir with
-``++sharding=dp`` (the recipe's default ``fsdp`` raises: ROADMAP item 21): the SAN-M
+(``fun_asr_nano/finetune.sh``) is Paraformer's flags on a ``FunASRNano`` dir: the SAN-M
 encoder, the adaptor and the LLM all train on (speech, text) batches. The LLM-ASR family's
 recipes add ``++dataset=OpenAIDataset`` (or a ``dataset`` key in the config) over jsonl rows
 of ``system`` / ``user`` / ``assistant`` turns, the user turns holding
@@ -24,6 +23,20 @@ of ``system`` / ``user`` / ``assistant`` turns, the user turns holding
 ``forward_batch``. Whisper has no route here: its frontend has no batched ``forward`` over
 waveforms (nor has the JAX ``WhisperFrontend`` a ``_pipeline``), so it trains through
 ``Trainer`` on given mel features only.
+
+``++sharding`` is "dp" by default and "fsdp" in the shipped recipes (``parallel/
+sharding.py``): without torchrun, fsdp runs over a one-rank group of the trainer's own on
+the one device. Multi-GPU training is torchrun with ``++distributed=true``, which makes
+the group from torchrun's environment (NCCL on ``cuda:LOCAL_RANK``; gloo with
+``++device=cpu``) and gives each rank its block of every global batch::
+
+    torchrun --nproc_per_node=8 -m funasr_tpu_torch.bin.train ++model=<model dir> \
+        ++train_data_set_list=train.jsonl ++valid_data_set_list=val.jsonl \
+        ++dataset_conf.batch_size=6000 ++dataset_conf.batch_type=token \
+        ++distributed=true ++sharding=fsdp ++output_dir=exp1
+
+Only rank 0 writes the log, the checkpoints and ``model.pt.avg`` (after a barrier at the
+run's end). ``++model_parallel_size`` > 1 and ``++sharding=sp|pp`` are ROADMAP item 21b.
 
 The model is built as ``AutoModel`` builds it (the dir's config.yaml, tokenizer,
 frontend, ``model.pt`` as the starting weights, else seeded ones), on ``++device``
@@ -38,6 +51,7 @@ from __future__ import annotations
 import logging
 import os
 import sys
+import time
 
 import yaml
 
@@ -59,6 +73,37 @@ def write_output_config(model_path: str, output_dir: str) -> str:
 
 
 def main(**kwargs):
+    import torch
+    import torch.distributed as dist
+
+    from funasr_tpu_torch.parallel.sharding import ITEM_21B, init_from_env
+
+    if int(kwargs.get("model_parallel_size", 1)) > 1:
+        raise NotImplementedError(
+            f"++model_parallel_size={kwargs['model_parallel_size']}: tensor parallelism "
+            f"needs the model code to run on local shards ({ITEM_21B})")
+    if kwargs.get("bf16") or kwargs.get("fp16") or kwargs.get("quant"):
+        raise NotImplementedError("the port trains in fp32; bf16 training (its backward "
+                                  "kernels) is ROADMAP item 20b, quantization is inference's")
+    kwargs.setdefault("device", "cuda")
+    distributed = kwargs.pop("distributed", False)
+    if distributed:
+        t0 = time.perf_counter()
+        kwargs["device"] = str(init_from_env(torch.device(kwargs["device"]).type))
+        if dist.get_rank() != 0:
+            logging.getLogger().setLevel(logging.WARNING)
+        logging.info("process group: %d rank(s) on %s, up in %.1f s", dist.get_world_size(),
+                     dist.get_backend(), time.perf_counter() - t0)
+    try:
+        return _train(distributed, **kwargs)
+    finally:
+        if distributed:
+            dist.destroy_process_group()
+
+
+def _train(distributed, **kwargs):
+    import torch.distributed as dist
+
     from funasr_tpu_torch.auto.auto_model import AutoModel
     from funasr_tpu_torch.optimizers import build_optimizer
     from funasr_tpu_torch.register import tables
@@ -66,13 +111,7 @@ def main(**kwargs):
     from funasr_tpu_torch.train_utils.average_nbest_models import average_checkpoints
     from funasr_tpu_torch.train_utils.trainer import Trainer
 
-    if kwargs.pop("distributed", False):
-        raise SystemExit("++distributed=true: the port trains on one device; DDP / FSDP is "
-                         "ROADMAP item 21")
-    if kwargs.get("bf16") or kwargs.get("fp16") or kwargs.get("quant"):
-        raise NotImplementedError("the port trains in fp32; bf16 training (its backward "
-                                  "kernels) is ROADMAP item 20b, quantization is inference's")
-    kwargs.setdefault("device", "cuda")
+    rank = dist.get_rank() if distributed else 0
     model, kwargs = AutoModel.build_model(**kwargs)
     frontend = kwargs.get("frontend")
     if frontend is not None and not hasattr(frontend, "forward"):
@@ -82,7 +121,7 @@ def main(**kwargs):
             "features: train it through Trainer on given features")
     output_dir = kwargs.get("output_dir", "exp")
     os.makedirs(output_dir, exist_ok=True)
-    if kwargs.get("model_path"):
+    if kwargs.get("model_path") and rank == 0:
         write_output_config(kwargs["model_path"], output_dir)
 
     dl_kwargs = {k: v for k, v in kwargs.items() if k not in ("frontend", "tokenizer")}
@@ -99,9 +138,11 @@ def main(**kwargs):
                       seed=int(kwargs.get("seed", 0)), **train_conf)
     trainer.run(dl.train, dl.valid)
     trainer.close()
+    if distributed:
+        dist.barrier()  # every rank done: rank 0's checkpoints are final
 
     avg_n = train_conf.get("avg_nbest_model", 0)
-    if avg_n:
+    if avg_n and rank == 0:
         try:
             average_checkpoints(output_dir, avg_n, avg_keep_nbest_models_type=train_conf.get(
                 "avg_keep_nbest_models_type", "acc"))

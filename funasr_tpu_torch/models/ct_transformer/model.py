@@ -31,6 +31,7 @@ from torch import nn
 from funasr_tpu_torch.core.layers import apply_linear, embedding
 from funasr_tpu_torch.core.module import init_weights
 from funasr_tpu_torch.models.ct_transformer.utils import split_to_mini_sentence, split_words
+from funasr_tpu_torch.parallel.sharding import global_count
 from funasr_tpu_torch.register import tables
 from funasr_tpu_torch.utils.bucket import bucket_length
 
@@ -87,7 +88,7 @@ class CTTransformer(nn.Module):
         w = torch.tensor(self.punc_weight, dtype=torch.float32, device=logp.device)[tgt]
         nll = -torch.gather(logp, -1, tgt[..., None])[..., 0] * w * valid
         ntokens = valid.sum()
-        loss = nll.sum() / ntokens.clamp_min(1)
+        loss = nll.sum() / global_count(ntokens).clamp_min(1)
         return loss, dict(loss=loss), ntokens
 
     # ------------------------------------------------------------------

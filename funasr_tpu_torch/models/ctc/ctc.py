@@ -12,6 +12,7 @@ from torch import nn
 
 from funasr_tpu_torch.core.layers import apply_linear
 from funasr_tpu_torch.losses.ctc import ctc_loss
+from funasr_tpu_torch.parallel.sharding import global_count
 from funasr_tpu_torch.register import tables
 
 
@@ -36,12 +37,14 @@ class CTC(nn.Module):
         return self.logits(hs_pad).argmax(dim=-1)
 
     def loss(self, hs_pad, hlens, ys_pad, ys_lens):
-        """Mean per-utterance CTC loss (``ctc.py:38-47``). ys_pad: (B, L), any padding."""
+        """Mean per-utterance CTC loss (``ctc.py:38-47``), the rows counted over the data
+        group (``global_count``). ys_pad: (B, L), any padding."""
         logits = self.logits(hs_pad).float()
         t, l = logits.shape[1], ys_pad.shape[1]
         dev = logits.device
         logit_paddings = (torch.arange(t, device=dev)[None, :] >= hlens[:, None]).float()
         label_paddings = (torch.arange(l, device=dev)[None, :] >= ys_lens[:, None]).float()
         labels = torch.where(label_paddings > 0, 0, ys_pad)
-        return ctc_loss(logits, logit_paddings, labels, label_paddings,
-                        blank_id=self.blank_id).mean()
+        per_row = ctc_loss(logits, logit_paddings, labels, label_paddings,
+                           blank_id=self.blank_id)
+        return per_row.sum() / global_count(per_row.shape[0])

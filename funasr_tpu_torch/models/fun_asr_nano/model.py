@@ -44,6 +44,7 @@ from funasr_tpu_torch.core.module import init_weights
 from funasr_tpu_torch.llm.engine import LLMEngine, Request
 from funasr_tpu_torch.models.llm.qwen import QwenConfig, QwenLM, init_qwen
 from funasr_tpu_torch.models.llm_asr.adaptor import init_adaptor
+from funasr_tpu_torch.parallel.sharding import global_count
 from funasr_tpu_torch.register import tables
 
 
@@ -156,7 +157,7 @@ class FunASRNano(nn.Module):
         logp = torch.log_softmax(pred.float(), dim=-1)
         mask = (make_pad_mask(text_lengths, tgt.shape[1]) & (text >= 0)).float()
         ce = -torch.gather(logp, -1, tgt[..., None])[..., 0]
-        denom = mask.sum().clamp_min(1.0)
+        denom = global_count(mask.sum()).clamp_min(1.0)
         loss_llm = (ce * mask).sum() / denom
         acc = ((pred.argmax(-1) == tgt).float() * mask).sum() / denom
         stats = {"loss_llm": loss_llm, "acc": acc}

@@ -27,7 +27,7 @@ Numerics copied from the JAX package, not "fixed":
 * the tied head is ``x @ embed_tokens.T`` with the weight in x's dtype and an fp32
   product (``:277-279``);
 * the MoE block runs densely over all experts with a zero-masked combine
-  (``:223-251``); expert parallelism is ROADMAP item 21.
+  (``:223-251``); expert parallelism is ROADMAP item 21b.
 
 The K / V cache is a list of ``{"k", "v"}`` (B, S, Hkv, hd) tensors, one per layer;
 ``forward_hidden`` writes the new rows into it in place and returns it.

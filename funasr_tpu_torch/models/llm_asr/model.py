@@ -23,6 +23,7 @@ import torch
 
 from funasr_tpu_torch.llm.engine import Request
 from funasr_tpu_torch.models.fun_asr_nano.model import FunASRNano
+from funasr_tpu_torch.parallel.sharding import global_count
 from funasr_tpu_torch.register import tables
 
 #: ``<|startofspeech|>!/path.wav<|endofspeech|>`` inside a user turn (reference
@@ -179,7 +180,7 @@ class LLMASR(FunASRNano):
         tgt = tgt.clamp_min(0)
         logp = torch.log_softmax(pred.float(), dim=-1)
         ce = -torch.gather(logp, -1, tgt[..., None])[..., 0]
-        denom = valid.sum().clamp_min(1.0)
+        denom = global_count(valid.sum()).clamp_min(1.0)
         loss = (ce * valid).sum() / denom
         acc = ((pred.argmax(-1) == tgt).float() * valid).sum() / denom
         return loss, {"loss": loss, "loss_llm": loss, "acc": acc}, speech.shape[0]

@@ -28,6 +28,7 @@ from torch import nn
 
 from funasr_tpu_torch.core.layers import apply_linear, conv1d
 from funasr_tpu_torch.ops.cif import cif, cif_scan
+from funasr_tpu_torch.parallel.sharding import global_count
 from funasr_tpu_torch.register import tables
 
 
@@ -119,8 +120,9 @@ class CifPredictorV2(nn.Module):
 
 def mae_token_loss(token_num, pre_token_length, normalize_length: bool = False):
     """L1 token-count loss (``cif_predictor.py:175``; FunASR ``mae_loss``): the summed
-    |target count - predicted count| over the batch size (or the target total)."""
-    norm = token_num.shape[0] if not normalize_length else token_num.sum()
+    |target count - predicted count| over the batch size (or the target total), over the
+    data group (``global_count``)."""
+    norm = global_count(token_num.shape[0] if not normalize_length else token_num.sum())
     return (token_num.float() - pre_token_length).abs().sum() / norm
 
 

@@ -34,6 +34,7 @@ from torch import nn
 
 from funasr_tpu_torch.core.layers import LayerNorm, apply_linear, conv1d, masked_softmax
 from funasr_tpu_torch.core.module import init_weights
+from funasr_tpu_torch.parallel.sharding import global_count
 from funasr_tpu_torch.register import tables
 from funasr_tpu_torch.utils.bucket import bucket_length
 
@@ -237,7 +238,7 @@ class WhisperModel(nn.Module):
                  < (text_lengths - 1)[:, None])
         tgt = torch.where(valid, ys_out, 0).long()
         nll = -torch.gather(logp, -1, tgt[..., None])[..., 0] * valid
-        loss = nll.sum() / valid.sum().clamp_min(1)
+        loss = nll.sum() / global_count(valid.sum()).clamp_min(1)
         return loss, {"loss": loss}, speech.shape[0]
 
     @property

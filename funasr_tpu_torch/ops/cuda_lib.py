@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -148,6 +149,18 @@ def vectorizable(x: torch.Tensor) -> torch.Tensor:
 # [launches, the first such launch's per-row lengths or bool mask (a device copy)]. None:
 # launches are only counted.
 launch_shapes = None
+
+
+def no_dtensor(name: str, *tensors) -> None:
+    """Raises if a DTensor reached a kernel wrapper: FSDP2 hands a module plain unsharded
+    parameters only inside its ``__call__`` (or a method registered with
+    ``register_fsdp_forward_method``), and no wrapper falls back to its plain version.
+    No DTensor exists before its module is imported, which inference never does."""
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    if dtensor is not None and any(isinstance(t, dtensor.DTensor) for t in tensors):
+        raise TypeError(f"a DTensor reached {name}: FSDP2 did not unshard this module's "
+                        "parameters (call it through __call__, or register the method with "
+                        "register_fsdp_forward_method)")
 
 
 def count_launch(wrapper, tensors, args=(), lengths=None) -> None:

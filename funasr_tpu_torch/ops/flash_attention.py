@@ -221,6 +221,7 @@ def flash_attention(q, k, v, lengths, mode: str = "none", vad_pos=None, chunk=No
         if chunk is not None:
             raise NotImplementedError("chunk mode (streaming training) is not exportable")
         return flash_attention_op(q, k, v, lengths, mode, vad_pos)
+    cuda_lib.no_dtensor("flash_attention", q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, lengths, mode, vad_pos, chunk)
     return _flash_forward(q, k, v, lengths, mode, vad_pos, chunk)

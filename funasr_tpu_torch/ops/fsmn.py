@@ -111,6 +111,7 @@ def fsmn_memory(x, weight, mask, left_pad: int, right_pad: int, *, generic: bool
     x's dtype; mask (B, T) bool or None -> contiguous (B, T, C) in x's dtype."""
     if torch.compiler.is_exporting():
         return fsmn_memory_op(x, weight, mask, left_pad, right_pad, generic)
+    cuda_lib.no_dtensor("fsmn_memory", x, weight)
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         return FsmnMemoryFn.apply(x, weight, mask, left_pad, right_pad)
     return _fsmn_forward(x, weight, mask, left_pad, right_pad, generic)

@@ -38,11 +38,21 @@ models it keeps the worst checkpoints: ROADMAP section 3.) ``profile_dir``:
 ``torch.profiler`` over steps [profile_start_step, + profile_steps), a Chrome trace and
 ``summary.json`` (the window's wall ms, device kernel ms by kernel).
 
-``sharding`` other than "dp" (one device) raises: DDP / FSDP is ROADMAP item 21.
+Data parallelism (``parallel/sharding.py``): with a process group up (torchrun and
+``++distributed=true``), ``sharding="dp"`` keeps the model whole on each rank and sums
+the gradients over the group after the backward; ``sharding="fsdp"`` (the recipes'
+default) shards it with FSDP2, over a one-rank group of its own where none is up. Each
+rank steps on its block of the global batch's rows (padded by repeating the last row),
+the losses' normalizers count over the group, so a step is the step on the global
+batch, and the logged stats are the global batch's; each rank's random draws fold its
+rank into the seed. Only rank 0 writes the log, the profile and the checkpoints, which
+hold whole tensors in the same layout under either mode. "sp" and "pp" (and tensor
+parallelism) are ROADMAP item 21b.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -50,18 +60,24 @@ import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from funasr_tpu_torch.ops import cuda_lib
 from funasr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
 from funasr_tpu_torch.ops.fsmn import (fsmn_memory, fsmn_memory_bwd_input,
                                        fsmn_memory_bwd_weight)
 from funasr_tpu_torch.ops.w8a8 import w8a8_linear
+from funasr_tpu_torch.parallel.sharding import ITEM_21B, DataGroup, local
+from funasr_tpu_torch.train_utils.train_step import backward, clip_scale, global_norm, scale_
 
 # the kernel wrappers whose launches each log line counts
 KERNEL_COUNTERS = {"flash_attention": flash_attention,
                    "flash_attention_bwd": flash_attention_bwd,
                    "fsmn_memory": fsmn_memory, "fsmn_memory_bwd_input": fsmn_memory_bwd_input,
                    "fsmn_memory_bwd_weight": fsmn_memory_bwd_weight, "w8a8_linear": w8a8_linear}
+
+
+RANK_SEED_STRIDE = 0x9E3779B1  # odd: r x it mod 2^32 differs for every rank r < 2^32
 
 
 def higher_is_better(metric_name: str) -> bool:
@@ -74,15 +90,12 @@ def kernel_launches() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNEL_COUNTERS.items()}
 
 
-def step_generator(device, seed: int, step: int) -> torch.Generator:
-    """The step's generator (the JAX trainer's ``fold_in(rng, step)``)."""
-    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
-
-
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient (``optax.global_norm``), fp32: each
-    tensor's L2 norm in one multi-tensor launch, then their norm."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)).float())
+def step_generator(device, seed: int, step: int, rank: int = 0) -> torch.Generator:
+    """The step's generator (the JAX trainer's ``fold_in(rng, step)``); each rank of a
+    data group draws its own (rank 0 as on one device). The rank moves the seed's low 32
+    bits, the only ones the CPU generator's Mersenne twister reads."""
+    return torch.Generator(device=device).manual_seed(
+        seed * 1_000_003 + step + rank * RANK_SEED_STRIDE)
 
 
 class Trainer:
@@ -95,10 +108,12 @@ class Trainer:
                  profile_start_step: int = 10, profile_steps: int = 5, sharding: str = "dp",
                  seed: int = 0, use_tensorboard: bool = True, log_kernel_shapes: bool = False,
                  **kwargs):
-        if sharding != "dp":
+        if sharding in ("sp", "pp"):
             raise NotImplementedError(
-                f"sharding={sharding!r}: the port trains on one device; DDP / FSDP is "
-                "ROADMAP item 21")
+                f"sharding={sharding!r}: sequence and pipeline parallelism need the model "
+                f"code to run on time shards or stages ({ITEM_21B})")
+        if sharding not in ("dp", "fsdp"):
+            raise ValueError(f"sharding must be 'dp', 'fsdp', 'sp' or 'pp', got {sharding!r}")
         self.model = model
         self.optimizer = optimizer
         self.scheduler = scheduler
@@ -122,27 +137,41 @@ class Trainer:
         self.start_epoch = 0
         self._resume_skip_batches = 0
         self.best_ckpts: Dict[str, float] = {}
+        # a data group over the process group that is up, or fsdp's own one-rank group
+        self.data = (DataGroup(sharding, self.device)
+                     if sharding == "fsdp" or dist.is_initialized() else None)
+        self.rank = 0 if self.data is None else self.data.rank
+        if self.data is not None:
+            wrap_s = self.data.prepare(model, optimizer)
+            logging.info("data group: %s over %d rank(s), group %.1f s, model %.1f s",
+                         sharding, self.data.world, self.data.setup_s, wrap_s)
         self.params = [p for p in model.parameters() if p.requires_grad]
         # optax.MultiSteps state: mini-batches accumulated and their running-mean grads
         self._mini_step = 0
         self._acc = None
         os.makedirs(output_dir, exist_ok=True)
-        self._tb = None
-        if use_tensorboard:
+        self._tb = self._log_f = None
+        if self.rank != 0:
+            self.profile_dir = None
+        elif use_tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self._tb = SummaryWriter(log_dir=os.path.join(output_dir, "tensorboard"))
             except ImportError:
                 pass
-        self._log_f = open(os.path.join(output_dir, "train.log.jsonl"), "a")
+        if self.rank == 0:
+            self._log_f = open(os.path.join(output_dir, "train.log.jsonl"), "a")
         self._t0 = time.perf_counter()
 
     # ------------------------------------------------------------------
 
     def _features(self, batch, generator=None):
-        """The batch on the device: (feats, feat lengths, text, text lengths, the
-        OpenAI-format batch's ``input_ids`` / ``labels_ids`` / ``fbank_mask`` where it has
-        them); waveforms (B, N) go through the frontend there."""
+        """The batch on the device (this rank's rows of it in a data group): (feats, feat
+        lengths, text, text lengths, the OpenAI-format batch's ``input_ids`` /
+        ``labels_ids`` / ``fbank_mask`` where it has them); waveforms (B, N) go through the
+        frontend there."""
+        if self.data is not None:
+            batch = self.data.local_rows(batch)
         dev = self.device
         speech = torch.as_tensor(batch["speech"]).to(dev, non_blocking=True)
         lens = torch.as_tensor(batch["speech_lengths"]).to(dev, non_blocking=True)
@@ -162,35 +191,31 @@ class Trainer:
         dithers from ``generator`` only when ``train``."""
         feats, flens, text, tlens, extra = self._features(
             batch, generator=generator if train else None)
-        if "input_ids" in batch and hasattr(self.model, "forward_batch"):
-            return self.model.forward_batch({**extra, "speech": feats, "speech_lengths": flens},
-                                            generator=generator)
-        return self.model(feats, flens, text, tlens, generator=generator)
+        with self.data.active() if self.data is not None else contextlib.nullcontext():
+            if "input_ids" in batch and hasattr(self.model, "forward_batch"):
+                return self.model.forward_batch(
+                    {**extra, "speech": feats, "speech_lengths": flens}, generator=generator)
+            return self.model(feats, flens, text, tlens, generator=generator)
 
     def train_step(self, batch) -> Dict[str, torch.Tensor]:
-        """One mini-batch: loss, backward, norm, clip / guard, (accumulated) update."""
+        """One mini-batch: loss, backward (the gradients summed over a data group), norm,
+        clip / guard, (accumulated) update -> the step's stats (the global batch's)."""
         self.model.train()
-        gen = step_generator(self.device, self.seed, self.step)
+        gen = step_generator(self.device, self.seed, self.step, self.rank)
         for p in self.params:
             p.grad = None
         loss, stats, _ = self._loss(batch, gen)
-        loss.backward()
-        grads = []
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
-        gnorm = global_norm(grads)
-        stats = dict(stats)
+        grads = backward(loss, self.params, self.data)
+        gnorm = global_norm(grads, self.data)
+        stats = dict(stats) if self.data is None else self.data.sum_stats(stats)
         stats["grad_norm"] = gnorm
         # the host reads the norm: a scale of 0 would leave an inf or NaN gradient NaN
         # (0 x inf), where JAX's where() gives 0, and torch has no multi-tensor where
         if torch.isfinite(gnorm):
             if self.clip_grad_norm:
-                torch._foreach_mul_(grads, torch.clamp(self.clip_grad_norm / (gnorm + 1e-6),
-                                                       max=1.0))
+                scale_(grads, clip_scale(gnorm, self.clip_grad_norm))
         else:
-            torch._foreach_zero_(grads)
+            torch._foreach_zero_([local(g) for g in grads])
         self._apply(grads)
         return stats
 
@@ -204,12 +229,13 @@ class Trainer:
         if self._acc is None:
             self._acc = [torch.zeros_like(g) for g in grads]
         n = self._mini_step
-        for acc, g in zip(self._acc, grads):
+        accs, gs = [local(a) for a in self._acc], [local(g) for g in grads]
+        for acc, g in zip(accs, gs):
             acc.add_((g - acc) / (n + 1))
         self._mini_step = (n + 1) % self.accum_grad
         if self._mini_step == 0:
-            for p, acc in zip(self.params, self._acc):
-                p.grad = acc.clone()
+            for g, acc in zip(gs, accs):
+                g.copy_(acc)
                 acc.zero_()
             self.optimizer.step()
             if self.scheduler is not None:
@@ -275,8 +301,7 @@ class Trainer:
                 base = self._count_from_here()
                 t_data = t_step = 0.0
                 logging.info("train: %s", logs)
-                self._log_f.write(json.dumps(logs) + "\n")
-                self._log_f.flush()
+                self._write_log(logs)
                 if self._tb is not None:
                     for k, v in logs.items():
                         if isinstance(v, (int, float)) and k not in ("epoch", "step"):
@@ -289,28 +314,35 @@ class Trainer:
         if profiler is not None:
             self._stop_profile(profiler)
 
+    def _write_log(self, line: dict):
+        if self._log_f is not None:
+            self._log_f.write(json.dumps(line) + "\n")
+            self._log_f.flush()
+
     @torch.no_grad()
     def validate_epoch(self, loader, epoch):
-        """The validation's averages, logged -> {"metric": the ``avg_type`` stat, else the
-        loss, "metric_name": which}; {} without a loader."""
+        """The validation's averages (of the global batches' stats in a data group),
+        logged -> {"metric": the ``avg_type`` stat, else the loss, "metric_name": which};
+        {} without a loader."""
         if loader is None:
             return {}
         self.model.eval()
         base = self._count_from_here()
         tot: Dict[str, float] = {}
         n = 0
-        gen = step_generator(self.device, self.seed, 999)
+        gen = step_generator(self.device, self.seed, 999, self.rank)
         for batch in loader:
             _, stats, _ = self._loss(batch, gen, train=False)
             for k, v in stats.items():
                 if v.dim() == 0:
                     tot[k] = tot.get(k, 0.0) + float(v)
             n += 1
+        if self.data is not None:
+            tot = self.data.sum_floats(tot)
         avg = {k: v / max(n, 1) for k, v in tot.items()}
         logging.info("validate epoch %d: %s", epoch, avg)
-        self._log_f.write(json.dumps({"validate": avg, "epoch": epoch, "step": self.step,
-                                      "batches": n, **self._launches_since(base)}) + "\n")
-        self._log_f.flush()
+        self._write_log({"validate": avg, "epoch": epoch, "step": self.step, "batches": n,
+                         **self._launches_since(base)})
         name = self.avg_type if self.avg_type in avg else "loss"
         return {"metric": avg.get(name), "metric_name": name}
 
@@ -355,15 +387,23 @@ class Trainer:
     def save_checkpoint(self, epoch, step=None, metric=None, epoch_step=None,
                         metric_name=None):
         """``metric_name``: the validation stat ``metric`` is (``avg_type`` if not given),
-        which sets the ranking's order."""
+        which sets the ranking's order. In a data group every rank takes part in gathering
+        the whole tensors and rank 0 writes them."""
         t0 = time.perf_counter()
         name = f"model.pt.ep{epoch}" + (f".{step}" if step is not None else "")
         metric_name = metric_name or self.avg_type
+        tensors = {"state_dict": self.model.state_dict(),
+                   "optimizer": self.optimizer.state_dict(), "acc": self._acc}
+        if self.data is not None:
+            tensors = self.data.full_state(tensors)
+        gather_s = time.perf_counter() - t0
+        if self.rank != 0:
+            return
         state = {
-            "state_dict": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "state_dict": tensors["state_dict"],
+            "optimizer": tensors["optimizer"],
             "scheduler": None if self.scheduler is None else self.scheduler.state_dict(),
-            "accum": {"mini_step": self._mini_step, "acc": self._acc},
+            "accum": {"mini_step": self._mini_step, "acc": tensors["acc"]},
             "epoch": epoch, "step": self.step, "metric": metric, "metric_name": metric_name,
             # batches consumed within this epoch; non-None marks a mid-epoch checkpoint
             "epoch_step": epoch_step,
@@ -376,8 +416,8 @@ class Trainer:
             metric = float(metric)
             self.best_ckpts[name] = -metric if higher_is_better(metric_name) else metric
             self._prune_nbest()
-        logging.info("saved checkpoint %s (metric=%s) in %.1f s", name, metric,
-                     time.perf_counter() - t0)
+        logging.info("saved checkpoint %s (metric=%s) in %.1f s (gather %.1f s)", name, metric,
+                     time.perf_counter() - t0, gather_s)
 
     def _prune_nbest(self):
         # never delete the checkpoint model.pt.latest points at: resume reads it
@@ -407,14 +447,20 @@ class Trainer:
         if not os.path.exists(path):
             return False
         state = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
-        self.model.load_state_dict(state["state_dict"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        if self.data is None:
+            self.model.load_state_dict(state["state_dict"])
+            self.optimizer.load_state_dict(state["optimizer"])
+        else:  # whole tensors, from either mode, into this rank's shards
+            self.data.load_model_state(self.model, state["state_dict"])
+            self.data.load_optimizer_state(self.optimizer, state["optimizer"])
         if self.scheduler is not None and state.get("scheduler") is not None:
             self.scheduler.load_state_dict(state["scheduler"])
         accum = state.get("accum") or {}
         self._mini_step = accum.get("mini_step", 0)
         acc = accum.get("acc")
-        self._acc = None if acc is None else [a.to(self.device) for a in acc]
+        self._acc = None if acc is None else [
+            a.to(self.device) if self.data is None else self.data.shard_like(a, p)
+            for a, p in zip(acc, self.params)]
         self.step = state["step"]
         epoch_step = state.get("epoch_step")
         if epoch_step:
@@ -429,7 +475,10 @@ class Trainer:
     def close(self):
         if self.log_kernel_shapes:
             cuda_lib.stop_recording_launch_shapes()
-        self._log_f.close()
+        if self._log_f is not None:
+            self._log_f.close()
         if self._tb is not None:
             self._tb.close()
+        if self.data is not None:
+            self.data.close()
 

@@ -19,8 +19,9 @@ package's (CPU, fp32).
   ``load_pretrained`` to the JAX converter's merged weights and logits, and a port
   ``generate`` gives the JAX package's ids.
 * ``WhisperModel.forward`` at a tiny config; ``bin/train`` refusing a Whisper model.
-* ``bin/train ++device=cpu`` on a small Fun-ASR-Nano dir, its averaged checkpoint
-  generating through ``AutoModel``; the import boundary.
+* ``bin/train ++device=cpu`` on a small Fun-ASR-Nano dir under ``++sharding=dp`` and the
+  recipe's ``fsdp`` (the same logs and weights), its averaged checkpoint generating
+  through ``AutoModel``; the import boundary.
 
 ``chip_smoke.py``'s phase 19 and the card's tests are in ``test_torch_train_llm_chip.py``.
 """
@@ -619,10 +620,11 @@ def test_every_llm_model_trains():
 
 def test_nano_recipe_cpu_end_to_end(tmp_path):
     """``data_tools scp2jsonl`` and ``bin/train`` as ``fun_asr_nano/finetune.sh`` runs
-    them (``++sharding=dp``, ``++device=cpu``) on a small Fun-ASR-Nano dir; the averaged
-    checkpoint generates through ``AutoModel(model=<output dir>)``."""
+    them (``++device=cpu``) on a small Fun-ASR-Nano dir, under ``++sharding=dp`` and under
+    the recipe's default ``fsdp`` (a one-rank group of the trainer's own, no torchrun),
+    both at once: the same logs and averaged weights; the average generates through
+    ``AutoModel(model=<output dir>)``."""
     import yaml
-    from funasr_tpu_torch.bin.train import main
     d = str(tmp_path)
     env = dict(os.environ, PYTHONPATH=REPO)
     os.makedirs(tmp_path / "nano")
@@ -653,17 +655,31 @@ def test_nano_recipe_cpu_end_to_end(tmp_path):
                         f'++scp_file_list=["{d}/{split}_wav.scp","{d}/{split}_text.txt"]',
                         '++data_type_list=["source","target"]', f"++jsonl_file_out={jsonl[split]}"],
                        check=True, env=env, cwd=d, capture_output=True)
-    out = os.path.join(d, "exp")
-    run = subprocess.run(
+    outs = {mode: os.path.join(d, f"exp_{mode}") for mode in ("dp", "fsdp")}
+    runs = {mode: subprocess.Popen(
         [sys.executable, "-m", "funasr_tpu_torch.bin.train", f"++model={md}", "++device=cpu",
          f"++train_data_set_list={jsonl['train']}", f"++valid_data_set_list={jsonl['val']}",
-         "++sharding=dp", "++dataset_conf.batch_size=300", "++dataset_conf.batch_type=token",
-         "++optim_conf.lr=0.0002", "++train_conf.max_epoch=2", "++train_conf.log_interval=1",
+         f"++sharding={mode}", "++dataset_conf.batch_size=300",
+         "++dataset_conf.batch_type=token", "++optim_conf.lr=0.0002",
+         "++train_conf.max_epoch=2", "++train_conf.log_interval=1",
          "++train_conf.keep_nbest_models=10", "++train_conf.avg_nbest_model=5",
          "++train_conf.use_tensorboard=False", f"++output_dir={out}"],
-        env=env, cwd=d, capture_output=True, text=True, timeout=300)
-    assert run.returncode == 0, run.stderr[-3000:]
-    logs = [json.loads(line) for line in open(os.path.join(out, "train.log.jsonl"))]
+        env=dict(env, OMP_NUM_THREADS="1"), cwd=d, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True) for mode, out in outs.items()}
+    for mode, run in runs.items():
+        _, err = run.communicate(timeout=300)
+        assert run.returncode == 0, (mode, err[-3000:])
+    logs = {mode: [json.loads(line) for line in open(os.path.join(out, "train.log.jsonl"))]
+            for mode, out in outs.items()}
+    drop = ("time", "data_load", "step_time")  # host clocks
+    assert [{k: v for k, v in x.items() if k not in drop} for x in logs["fsdp"]] == \
+        [{k: v for k, v in x.items() if k not in drop} for x in logs["dp"]]
+    avg = {mode: torch.load(os.path.join(out, "model.pt.avg"), map_location="cpu",
+                            weights_only=True)["state_dict"] for mode, out in outs.items()}
+    assert list(avg["fsdp"]) == list(avg["dp"])
+    for k, v in avg["dp"].items():
+        assert torch.equal(avg["fsdp"][k], v), k
+    out, logs = outs["fsdp"], logs["fsdp"]
     steps = [x for x in logs if "validate" not in x]
     assert len(steps) >= 4 and all(np.isfinite([x["loss"], x["acc"], x["loss_ctc"]]).all()
                                    for x in steps)
@@ -673,9 +689,6 @@ def test_nano_recipe_cpu_end_to_end(tmp_path):
                    log_level="WARNING", disable_pbar=True)
     res = am.generate(input=[os.path.join(d, "val0.wav")], max_new_tokens=6, num_slots=2)
     assert res[0]["key"] == "val0" and isinstance(res[0]["text"], str)
-    with pytest.raises(NotImplementedError, match="item 21"):  # the recipe's default fsdp
-        main(model=md, device="cpu", train_data_set_list=jsonl["train"], sharding="fsdp",
-             output_dir=out + "2")
 
 
 def test_openai_recipe_cpu_end_to_end(corpus, tmp_path):
@@ -709,7 +722,8 @@ NEW_MODULES = ["funasr_tpu_torch.datasets.fun_asr_datasets",
                "funasr_tpu_torch.datasets.specialized_datasets",
                "funasr_tpu_torch.models.lora.layers", "funasr_tpu_torch.models.llm_asr.model",
                "funasr_tpu_torch.models.whisper.model", "funasr_tpu_torch.utils.load_utils",
-               "funasr_tpu_torch.train_utils.trainer", "funasr_tpu_torch.bin.train"]
+               "funasr_tpu_torch.train_utils.trainer", "funasr_tpu_torch.bin.train",
+               "funasr_tpu_torch.parallel.sharding", "funasr_tpu_torch.parallel.dryrun"]
 
 
 def test_new_modules_import_without_jax():

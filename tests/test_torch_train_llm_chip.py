@@ -48,7 +48,7 @@ def test_phase19_sites_and_confs():
     assert confs["FunASRNano_ctc"][1]["ctc_weight"] > 0
     assert confs["FunASRNano_ctc"][1]["ctc_decoder"] == "Transformer"
     assert confs["Whisper"][1] == dict(encoder_layers=2, decoder_layers=2)
-    assert "++sharding=dp" in chip_smoke.NANO_TRAIN_RUN
+    assert {"++sharding=fsdp", "++distributed=true"} <= set(chip_smoke.NANO_TRAIN_RUN)
     assert "++train_conf.avg_nbest_model=5" in chip_smoke.NANO_TRAIN_RUN
 
 

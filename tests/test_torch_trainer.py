@@ -17,7 +17,8 @@
   uninterrupted run, n-best pruning keeps ``model.pt.latest``'s target, averaging;
 * ``python -m funasr_tpu_torch.bin.train ++device=cpu`` (the ``funasr-tpu-torch-train``
   console script) end to end after ``bin/data_tools scp2jsonl``, the average decoded by
-  ``AutoModel``, and the new modules' import leaving ``jax`` out of ``sys.modules``.
+  ``AutoModel``, and the new modules' import leaving ``jax`` out of ``sys.modules``;
+  ``sp``, ``pp`` and ``model_parallel_size`` > 1 raising, naming ROADMAP item 21b.
 """
 
 import json
@@ -416,12 +417,19 @@ def test_pruning_keeps_the_latest_checkpoint(tmp_path):
     t.close()
 
 
-def test_sharding_other_than_dp_raises(tmp_path):
+@pytest.mark.parametrize("mode", ["sp", "pp", "model_parallel_size=2"])
+def test_sharding_other_than_dp_raises(tmp_path, mode):
+    """Sequence, pipeline and tensor parallelism wait for ROADMAP item 21b (dp and fsdp:
+    ``tests/test_torch_parallel.py``)."""
+    from funasr_tpu_torch.bin.train import main
     from funasr_tpu_torch.train_utils.trainer import Trainer
     model = PortStandIn(np.ones(4, np.float32))
-    with pytest.raises(NotImplementedError, match="item 21"):
-        Trainer(model, torch.optim.SGD(model.parameters(), lr=0.1), output_dir=str(tmp_path),
-                sharding="fsdp", use_tensorboard=False)
+    with pytest.raises(NotImplementedError, match="item 21b"):
+        if mode.startswith("model_parallel_size"):
+            main(model=str(tmp_path), device="cpu", model_parallel_size=2)
+        else:
+            Trainer(model, torch.optim.SGD(model.parameters(), lr=0.1),
+                    output_dir=str(tmp_path), sharding=mode, use_tensorboard=False)
 
 
 def test_train_cli_cpu_end_to_end(tmp_path):
@@ -469,7 +477,8 @@ NEW_MODULES = [
     "funasr_tpu_torch.datasets.audio_datasets.preprocessor",
     "funasr_tpu_torch.losses.label_smoothing_loss", "funasr_tpu_torch.losses.ctc",
     "funasr_tpu_torch.losses.cr_ctc", "funasr_tpu_torch.models.specaug.specaug",
-    "funasr_tpu_torch.models.normalize.normalize"]
+    "funasr_tpu_torch.models.normalize.normalize", "funasr_tpu_torch.parallel.sharding",
+    "funasr_tpu_torch.parallel.dryrun"]
 
 
 def test_new_modules_import_without_jax():
