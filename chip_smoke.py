@@ -15,7 +15,9 @@ LLM-based ASR: Fun-ASR-Nano (Qwen3-0.6B on the port's ``LLMEngine``) through ``A
 Paraformer-large fine-tuning through ``bin/data_tools`` and ``bin/train`` with the backward
 kernels, then SenseVoice-Small's and the other models' training losses, then streaming
 Paraformer's fine-tuning with the flash kernels in chunk mode, then Fun-ASR-Nano's
-fine-tuning at full width with the LLM-ASR family's and Whisper's losses.
+fine-tuning at full width with the LLM-ASR family's and Whisper's losses, then the
+Transformer-family AED models (Conformer, E-Branchformer, Paraformer over a Conformer
+encoder) with their depthwise convolutions on the FSMN kernel's plain mode.
 
     python3 chip_smoke.py
 
@@ -281,6 +283,26 @@ Phases (any failure raises and exits non-zero):
    signature the recipe launched, each within 1e-5 relative L2 and bit-equal across two
    runs.
 
+20. AED (``phase_aed``): the Transformer-family AED models at the AISHELL recipes'
+   published widths (d 256, 4 heads, FFN 2,048, 12 encoder + 6 decoder blocks), fp32,
+   seeded weights, vocabulary 5,212, each written as a model dir. (a) the Conformer AED
+   (conformer_12e_6d_2048_256) through ``AutoModel(model=dir, device="cuda").generate(
+   input=4 waves of 5-8 s, beam_size=5)``: 4 non-empty texts, the FSMN kernel's plain
+   depthwise mode exactly 12 launches an encode (one a convolution module, k 15) and no
+   other kernel; wall per utterance, a profiled ``generate`` (device ms, idle share); one
+   utterance against the CPU port (``aed_cuda_vs_cpu``: encoder within
+   ``AED_ENC_REL_TOL`` relative L2, one-best ids equal). (b) E-Branchformer
+   (e_branchformer_12e_6d_2048_256): a batched encode of the 4 waves at exactly 24
+   plain-mode launches (12 at k 31 with the input mask, 12 at k 3), one utterance through
+   ``generate``. (c) the paraformer_conformer_12e_6d_2048_256 recipe's model through
+   ``AutoModel(batch_size=8)`` on 8 x 6 s at fp32 and ``quant="w8a8"``: 12 plain-mode
+   launches a decode, W8A8 exactly 72 an encode + the decoder's linears a pass (the JAX
+   package's stacked-leaf rule), RTFx; the CPU port at fp32 (``para_cuda_vs_cpu``: CIF
+   token counts equal, ids where the margin clears). Then a kernel-vs-plain row at each
+   plain-mode signature the counted runs launched, fp32 and bf16, each bit-equal, each
+   specialised instantiation with the generic one's time beside (``aed_kernel_rows``), and a W8A8 row at
+   each new (M, 256, 256), (M, 256, 2,048), (M, 2,048, 256) of (c).
+
 ``python3 chip_smoke.py --recipe-ab [TREE]`` (not part of the run above): the recipe's
 ``bin/train`` six times in one process, alternating this tree with the kernel-shape log on
 and the same tree with it off, or, given TREE (another checkout), this tree and that one
@@ -504,10 +526,12 @@ def kernel_totals(by_name, key):
 
 # the device kernels of each wrapper, by name
 PORT_KERNELS = {"flash_attention": ("flash_bf16_kernel", "flash_f32_kernel"),
-                "fsmn_memory": ("fsmn_kernel",),
+                "fsmn_memory": ("fsmn_kernel<false",),
+                "depthwise_conv1d": ("fsmn_kernel<true",),
                 "w8a8_linear": ("quantize_rows_kernel", "gemm_kernel")}
 # the fp32 instantiations, which the default (fp32) AutoModel must launch
-FP32_KERNELS = {"flash_attention": "flash_f32_kernel", "fsmn_memory": "fsmn_kernel<float"}
+FP32_KERNELS = {"flash_attention": "flash_f32_kernel",
+                "fsmn_memory": "fsmn_kernel<false, float"}
 
 
 # NVIDIA H100 SXM, published dense peaks (data sheet) at the full 700 W power limit;
@@ -3000,7 +3024,7 @@ def sense_voice_batch(am, batch, counters, card, label, sites):
     d2h = sum(n for line, n in syncs.items() if not line.startswith("wav_frontend.py"))
     t_med, times = wall_ms(lambda: am.generate(input=batch, key=keys))
     kernels = {"flash_attention": "flash_f32_kernel" if label == "fp32" else "flash_",
-               "fsmn_memory": "fsmn_kernel<float" if label == "fp32" else "fsmn_kernel",
+               "fsmn_memory": "fsmn_kernel<false, float" if label == "fp32" else "fsmn_kernel",
                "w8a8_linear": "quantize_rows_kernel"}
     for tries in range(1, PROFILE_TRIES + 1):
         by_name = profile_once(lambda: am.generate(input=batch, key=keys),
@@ -6933,6 +6957,441 @@ def phase_llm_training(dev, counters, card, keep):
     return figures
 
 
+# ---- phase 20: the Transformer-family AED models ------------------------------------------
+
+# examples/aishell/conformer/conf/conformer_12e_6d_2048_256/config.yaml
+AED_ENCODER = dict(output_size=256, attention_heads=4, linear_units=2048, num_blocks=12,
+                   dropout_rate=0.1, input_layer="conv2d", cnn_module_kernel=15)
+AED_DECODER = dict(attention_heads=4, linear_units=2048, num_blocks=6, dropout_rate=0.1)
+AED_MODEL_CONF = dict(ctc_weight=0.3, lsm_weight=0.1, length_normalized_loss=False, sos=1,
+                      eos=2)
+# examples/aishell/e_branchformer/conf/e_branchformer_12e_6d_2048_256/config.yaml
+EBRANCH_ENCODER = dict(output_size=256, attention_heads=4, num_blocks=12, dropout_rate=0.1,
+                       cgmlp_linear_units=2048, cgmlp_conv_kernel=31, linear_units=1024,
+                       input_layer="conv2d")
+# examples/aishell/paraformer/conf/paraformer_conformer_12e_6d_2048_256/config.yaml
+PARA_CONFORMER = dict(
+    model_conf=dict(AED_MODEL_CONF, predictor_weight=1.0, predictor_bias=1, sampling_ratio=0.4),
+    decoder="ParaformerSANDecoder", predictor="CifPredictor",
+    predictor_conf=dict(idim=256, threshold=1.0, l_order=1, r_order=1, tail_threshold=0.45))
+AED_VOCAB = 5212           # speech_conformer_asr_nat-zh-cn-16k-aishell2-vocab5212
+# the recipes' frontend (80 mels, no LFR); dither 0 at inference
+AED_FRONTEND = dict(fs=16000, window="hamming", n_mels=80, frame_length=25, frame_shift=10,
+                    lfr_m=1, lfr_n=1, dither=0.0)
+AED_SECONDS = (5.0, 6.2, 7.1, 8.0)  # the four waves of (a) and (b)
+AED_BEAM = 5               # the Conformer demo's beam_size
+AED_ENC_REL_TOL = 1e-4     # fp32 encoder output, CUDA against the CPU, relative L2 (TF32 off)
+AED_BLOCKS = 12            # plain-mode launches a Conformer encode: one a block
+PARA_BATCH, PARA_SECONDS = 8, 6.0
+PARA_MARGIN_FACTOR = 10    # Paraformer ids gated where the top-2 margin clears 10x the error
+# the plain mode's own instantiations (csrc/fsmn.cu), timed against the generic one
+DEPTHWISE_SPECIALISED = {torch.float32: ((15, 7), (3, 1), (31, 15)),
+                         torch.bfloat16: ((15, 7), (3, 1))}
+AED_W8A8_ENCODE = 72       # W8A8 launches a Conformer encode: linear_q / linear_out and the two
+#                            swish FFNs' w_1 / w_2, 6 a block (the JAX stacked-leaf rule)
+
+
+def write_aed_dir(d, dev, model_name, encoder, encoder_conf, model_conf=AED_MODEL_CONF,
+                  decoder="TransformerDecoder", extra=None):
+    """A FunASR-layout AED directory (config.yaml in the AISHELL recipes' layout, model.pt
+    of seeded weights with seeded batch-norm statistics, tokens.txt of AED_VOCAB)."""
+    import yaml
+    from funasr_tpu_torch import tables
+
+    os.makedirs(d, exist_ok=True)
+    extra = dict(extra or {})
+    conf = dict(input_size=80, vocab_size=AED_VOCAB, encoder=encoder, encoder_conf=encoder_conf,
+                decoder=decoder, decoder_conf=AED_DECODER,
+                **{k: v for k, v in extra.items() if k != "model_conf"}, **model_conf)
+    model = tables.model_classes[model_name](
+        **conf, device=dev, generator=torch.Generator(device=dev).manual_seed(20))
+    seed_batchnorm(model, 20)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(d, "model.pt"))
+    tokens = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(AED_VOCAB - 4)] + ["<unk>"]
+    with open(os.path.join(d, "tokens.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(tokens) + "\n")
+    cfg = dict(model=model_name, model_conf=model_conf, encoder=encoder,
+               encoder_conf=encoder_conf, decoder=decoder, decoder_conf=AED_DECODER,
+               frontend="WavFrontend", frontend_conf=AED_FRONTEND, tokenizer="CharTokenizer",
+               tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>"),
+               **{k: v for k, v in extra.items() if k != "model_conf"})
+    with open(os.path.join(d, "config.yaml"), "w", encoding="utf-8") as f:
+        yaml.safe_dump(cfg, f, allow_unicode=True)
+    del model
+    return d
+
+
+def depthwise_work(b, t, c, k, elem_bytes, bias, masked):
+    """Bytes and flops of the plain depthwise conv: x read and out written once, the
+    (C, k) taps and the bias, the bool mask; k multiplies and k adds an element (the
+    bias one more)."""
+    n_bytes = elem_bytes * (2 * b * t * c + c * k + (c if bias else 0)) + (b * t if masked else 0)
+    return n_bytes, (2 * k + (1 if bias else 0)) * b * t * c
+
+
+def depthwise_row(x, w, bias, mask, left, right, generic_too=False):
+    """The plain mode's kernel row: bit-equal to ``depthwise_conv1d_ref`` (raises
+    otherwise), the kernel's ms, a lone call's, the plain version's, the library call
+    ``F.conv1d(groups=C)`` with the bias on the (B, C, T) input, the bytes bound;
+    ``generic_too``: the generic instantiation's ms beside a specialised one's."""
+    import torch.nn.functional as F
+    from funasr_tpu_torch.ops.fsmn import depthwise_conv1d, depthwise_conv1d_ref
+
+    b, t, c = x.shape
+    k = w.shape[-1]
+    with torch.inference_mode():
+        out = depthwise_conv1d(x, w, bias, mask, left, right)
+        ref = depthwise_conv1d_ref(x, w, bias, mask, left, right)
+        equal = torch.equal(out, ref)
+        err = (out.float() - ref.float()).abs().max().item()
+        xm = (x if mask is None else x * mask[..., None].to(x.dtype)).transpose(1, 2).contiguous()
+        row = dict(shape=(b, t, c), k=k, pads=(left, right), dtype=str(x.dtype)[6:],
+                   masked=mask is not None, max_abs_err=err, bit_equal=equal,
+                   library_call=f"F.conv1d(xm, w, bias, padding={left}, groups=C) on xm (B, C, T)",
+                   ms=device_ms(lambda: depthwise_conv1d(x, w, bias, mask, left, right)),
+                   call_ms=call_ms(lambda: depthwise_conv1d(x, w, bias, mask, left, right)),
+                   plain_ms=device_ms(lambda: depthwise_conv1d_ref(x, w, bias, mask, left, right),
+                                      launches=5),
+                   library_ms=device_ms(lambda: F.conv1d(xm, w, bias, padding=left, groups=c)))
+        if generic_too:
+            row["generic_ms"] = device_ms(
+                lambda: depthwise_conv1d(x, w, bias, mask, left, right, generic=True))
+    row["bound_ms"], row["bound_by"] = bound_ms(*depthwise_work(
+        b, t, c, k, x.element_size(), bias is not None, mask is not None), "fp32")
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    log(f"depthwise {(b, t, c)} k {k} pads ({left}, {right}) {row['dtype']}"
+        f"{' masked' if mask is not None else ''}: bit-equal {equal} (max_abs_err {err:.3e}) "
+        + timing_line(row)
+        + (f"; generic instantiation {row['generic_ms']:.4f} ms" if generic_too else ""))
+    if not equal:
+        raise AssertionError(f"the depthwise kernel disagrees with its plain version at "
+                             f"{(b, t, c)} k {k} {x.dtype}: {err}")
+    return row
+
+
+def aed_kernel_rows(dev, signatures):
+    """A row in fp32 and bf16 at each recorded plain-mode signature (label -> the launch
+    record of ``cuda_lib.take_launch_shapes``): random x, taps and bias, the recorded
+    mask's lengths; a signature with its own instantiation (``DEPTHWISE_SPECIALISED``)
+    with the generic one's ms beside."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    rows = {}
+    for label, e in signatures.items():
+        (b, t, c), (k, left, right, _) = e["tensors"][0][0], e["args"]
+        lens = e.get("lengths")
+        mask = (None if lens is None else
+                torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None])
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(b, t, c, generator=g, device=dev).to(dtype)
+            w = (torch.rand(c, 1, k, generator=g, device=dev) * 2 - 1).to(dtype) / k ** 0.5
+            bias = torch.randn(c, generator=g, device=dev).to(dtype)
+            rows[f"{label}_{str(dtype)[6:]}"] = depthwise_row(
+                x, w, bias, mask, left, right,
+                generic_too=(k, left) in DEPTHWISE_SPECIALISED[dtype])
+    return rows
+
+
+def aed_launches(counters):
+    return {c.__name__: c.launches for c in counters}
+
+
+def depthwise_signatures(shapes):
+    """The plain-mode launches of a record: [(label, entry)], label (B)x(T)x(C)_k(k)."""
+    return [(f"{'x'.join(map(str, e['tensors'][0][0]))}_k{e['args'][0]}", e) for e in shapes
+            if e["kernel"] == "depthwise_conv1d"]
+
+
+def aed_cuda_vs_cpu(am, wave):
+    """The Conformer AED on the card against its copy on the CPU, one utterance, the same
+    host features: the encoder output within AED_ENC_REL_TOL relative L2 at the valid
+    frames, the beam search's one-best ids equal (a flip is reported with each side's
+    top-2 per-token margin before it raises)."""
+    from funasr_tpu_torch.core.layers import make_pad_mask
+    from funasr_tpu_torch.models.transformer.search import beam_search
+
+    gpu = am.model
+    cpu = copy.deepcopy(gpu).cpu()
+    feats, flens = am.kwargs["frontend"].extract([wave])
+    out = {}
+    t0 = time.perf_counter()
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = model.device
+        with torch.inference_mode():
+            enc, elens = model.encode(torch.from_numpy(feats).to(dev),
+                                      torch.from_numpy(flens).to(dev))
+        hyps = beam_search(model.decoder, enc, make_pad_mask(elens, enc.shape[1]), model.sos,
+                           model.eos, beam_size=AED_BEAM)
+        out[name] = (enc.cpu(), int(elens[0]), hyps)
+        log(f"  AED cuda vs cpu: the {name} encode + beam search took "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+    n = out["cpu"][1]
+    a, b = out["cpu"][0][0, :n], out["gpu"][0][0, :n]
+    rel = ((b - a).norm() / a.norm()).item()
+    best = {k: v[2][0] for k, v in out.items()}
+    same = best["cpu"].yseq == best["gpu"].yseq
+
+    def margin(hyps):
+        return (hyps[0].score / len(hyps[0].yseq) - hyps[1].score / len(hyps[1].yseq)
+                if len(hyps) > 1 else float("inf"))
+
+    r = dict(enc_rel_l2=rel, frames=n, ids_equal=same, tokens=len(best["gpu"].yseq) - 2,
+             score_cpu=best["cpu"].score, score_gpu=best["gpu"].score,
+             margin_cpu=margin(out["cpu"][2]), margin_gpu=margin(out["gpu"][2]))
+    log(f"AED cuda vs cpu (Conformer, fp32, {len(wave) / 16000:.1f} s, T' {n}): encoder rel L2 "
+        f"{rel:.3e} (tol {AED_ENC_REL_TOL:g}); one-best ids equal {same} ({r['tokens']} tokens; "
+        f"scores cpu {r['score_cpu']:.6f} gpu {r['score_gpu']:.6f}; top-2 per-token margins cpu "
+        f"{r['margin_cpu']:.3e} gpu {r['margin_gpu']:.3e})")
+    if not same:
+        diff = next(i for i, (x, y) in enumerate(zip(best["cpu"].yseq, best["gpu"].yseq))
+                    if x != y) if any(x != y for x, y in zip(best["cpu"].yseq,
+                                                             best["gpu"].yseq)) else None
+        log(f"  one-best flip at step {diff}: cpu {best['cpu'].yseq[:diff + 3 if diff else 8]} "
+            f"gpu {best['gpu'].yseq[:diff + 3 if diff else 8]}")
+    if not (rel <= AED_ENC_REL_TOL and same):
+        raise AssertionError(f"the Conformer AED on CUDA disagrees with the CPU port: {r}")
+    return r
+
+
+def para_cuda_vs_cpu(model, waves):
+    """Paraformer over ConformerEncoder on the card against its copy on the CPU (fp32), the
+    same host features padded as ``infer_bucketed`` pads them: CIF token counts equal, the
+    decoder log-probs' error, ids equal wherever the CPU's top-2 margin clears
+    PARA_MARGIN_FACTOR x that error."""
+    from funasr_tpu_torch.core.layers import make_pad_mask
+    from funasr_tpu_torch.utils.bucket import pad_feats_bucketed
+
+    cpu = copy.deepcopy(model).cpu()
+    from funasr_tpu_torch import tables
+    feats, flens = tables.frontend_classes["WavFrontend"](**AED_FRONTEND).extract(
+        waves, device="cpu")
+    sp, ln, nb = pad_feats_bucketed(feats, flens)
+    mt = model._max_tokens_for(sp.shape[1])
+    out = {}
+    for name, m in (("cpu", cpu), ("gpu", model)):
+        dev = m.device
+        with torch.inference_mode():
+            enc, elens = m.encode(sp.to(dev), ln.to(dev))
+            emb, tl, _, _ = m.calc_predictor(enc, elens, mt)
+            k = emb.shape[1]
+            token_lens = torch.clamp(torch.round(tl).to(torch.int32), 0, k)
+            dec, _ = m.cal_decoder_with_predictor(enc, elens, emb, token_lens)
+        out[name] = (token_lens[:nb].cpu(), dec[:nb].float().cpu())
+    tl_cpu, lp_cpu = out["cpu"]
+    tl_gpu, lp_gpu = out["gpu"]
+    counts_equal = torch.equal(tl_cpu, tl_gpu)
+    valid = make_pad_mask(tl_cpu, lp_cpu.shape[1])
+    err = (lp_gpu - lp_cpu)[valid].abs().max().item()
+    top2 = lp_cpu.topk(2, dim=-1).values
+    sure = valid & (top2[..., 0] - top2[..., 1] > PARA_MARGIN_FACTOR * err)
+    same = lp_gpu.argmax(-1) == lp_cpu.argmax(-1)
+    r = dict(token_counts_equal=counts_equal, logp_err=err, tokens=int(valid.sum()),
+             sure=int(sure.sum()), sure_equal=bool(same[sure].all()),
+             ids_equal=bool(same[valid].all()))
+    log(f"Paraformer-Conformer cuda vs cpu (fp32, {nb} x {PARA_SECONDS:g} s): CIF token counts "
+        f"equal {counts_equal} ({tl_cpu.tolist()}); decoder log-prob max_abs_err {err:.3e}; ids "
+        f"equal on {r['sure']} of {r['tokens']} tokens whose top-2 margin exceeds "
+        f"{PARA_MARGIN_FACTOR}x that: {r['sure_equal']}; all equal {r['ids_equal']}")
+    if not (counts_equal and r["sure_equal"]):
+        raise AssertionError(f"Paraformer-Conformer on CUDA disagrees with the CPU port: {r}")
+    return r
+
+
+def phase_aed(dev, counters, card, root):
+    """Phase 20: the Transformer-family AED models at the AISHELL recipes' published widths,
+    fp32, seeded weights (seeded batch-norm statistics), vocabulary 5,212.
+    (a) the Conformer AED (conformer_12e_6d_2048_256) from a model dir through
+    ``AutoModel(model=dir, device="cuda").generate(input=4 waves of 5-8 s, beam_size=5)``:
+    4 keyed non-empty texts, the plain-mode depthwise kernel exactly 12 launches an
+    encode, no other kernel; wall per utterance, one profiled ``generate`` (device ms,
+    idle share); the CPU port on one utterance (``aed_cuda_vs_cpu``). (b) E-Branchformer
+    (e_branchformer_12e_6d_2048_256): one batched encode of the same 4 waves, exactly 24
+    plain-mode launches (12 at k 31 with the input mask, 12 at k 3), and one utterance
+    through ``generate``. (c) the paraformer_conformer_12e_6d_2048_256 recipe's model
+    (Paraformer + ConformerEncoder + ParaformerSANDecoder + CifPredictor) through
+    ``AutoModel(batch_size=8).generate`` on 8 x 6 s at fp32 and ``quant="w8a8"``: 8 texts,
+    12 plain-mode launches a decode, W8A8 launches exactly the JAX rule's linears (72 an
+    encode + the decoder's) a decode; RTFx; the CPU port at fp32 (``para_cuda_vs_cpu``).
+    Then a kernel-vs-plain row at each plain-mode signature the counted runs launched,
+    fp32 and bf16 (``aed_kernel_rows``), and a W8A8 row at each (M, K, N) of (c) with
+    (K, N) in (256, 256), (256, 2,048), (2,048, 256)."""
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.ops import cuda_lib
+    from funasr_tpu_torch.ops.fsmn import depthwise_conv1d
+
+    counters = (*counters, depthwise_conv1d)
+    fig = {"launches": {}}
+    rng = np.random.default_rng(20)
+    waves = [pcm(rng, s) for s in AED_SECONDS]
+    seconds = sum(AED_SECONDS)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    # (a) the Conformer AED through AutoModel.generate
+    t_part = time.perf_counter()
+    d = write_aed_dir(os.path.join(root, "conformer"), dev, "Conformer", "ConformerEncoder",
+                      AED_ENCODER)
+    am = AutoModel(model=d, device="cuda", log_level="WARNING")
+    encodes = forward_counter(am.model.encoder)
+    am.generate(input=waves[:1], beam_size=AED_BEAM)  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+    encodes.clear()
+    cuda_lib.record_launch_shapes()
+    reset()
+    t0 = time.perf_counter()
+    results = am.generate(input=waves, beam_size=AED_BEAM)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = aed_launches(counters)
+    shapes = cuda_lib.take_launch_shapes()
+    cuda_lib.stop_recording_launch_shapes()
+    fig["launches"]["conformer"] = launches
+    texts = [r["text"] for r in results]
+    log(f"AED (a) Conformer generate, 4 waves ({seconds:g} s), beam {AED_BEAM}: {len(encodes)} "
+        f"encodes, launches {launches}; wall {wall:.2f} s, {wall / 4:.2f} s an utterance, "
+        f"RTFx {seconds / wall:.2f}; text lengths {[len(t) for t in texts]} on {card}")
+    if len(results) != 4 or not all(isinstance(t, str) and t for t in texts):
+        raise AssertionError(f"the Conformer AED gave {texts}")
+    want = dict({c.__name__: 0 for c in counters}, depthwise_conv1d=AED_BLOCKS * len(encodes))
+    if len(encodes) != 4 or launches != want:
+        raise AssertionError(f"the Conformer AED's launches {launches} over {len(encodes)} "
+                             f"encodes, expected {want}")
+    fig["wall_s_per_utterance"] = wall / 4
+    signatures = dict(sorted(depthwise_signatures(shapes),
+                             key=lambda kv: kv[1]["tensors"][0][0][1])[-1:])
+    fig["main_label"] = f"{next(iter(signatures))}_float32"
+    t_one = time.perf_counter()
+    am.generate(input=waves[:1], beam_size=AED_BEAM)
+    torch.cuda.synchronize()
+    t_one = (time.perf_counter() - t_one) * 1e3
+    by_name = profile_once(lambda: am.generate(input=waves[:1], beam_size=AED_BEAM),
+                           "AED Conformer generate (1 x 5 s)", t_one)
+    device = sum(t for t, _ in by_name.values())
+    fig["profile"] = dict(wall_ms=t_one, device_ms=device, idle_share=1 - device / t_one,
+                          depthwise=kernel_totals(by_name, PORT_KERNELS["depthwise_conv1d"][0]))
+    fig["cuda_vs_cpu"] = aed_cuda_vs_cpu(am, waves[0])
+    del am
+    torch.cuda.empty_cache()
+    log(f"AED (a) done in {time.perf_counter() - t_part:.1f} s")
+
+    # (b) E-Branchformer: one batched encode, one utterance through the beam search
+    t_part = time.perf_counter()
+    d = write_aed_dir(os.path.join(root, "ebranchformer"), dev, "EBranchformer",
+                      "EBranchformerEncoder", EBRANCH_ENCODER)
+    am = AutoModel(model=d, device="cuda", log_level="WARNING")
+    feats, flens = am.kwargs["frontend"].extract(waves, device=dev)
+    feats = feats[:, : int(flens.max())]
+    with torch.inference_mode():
+        am.model.encode(feats, flens)  # warm-up
+        torch.cuda.synchronize()
+        cuda_lib.record_launch_shapes()
+        reset()
+        am.model.encode(feats, flens)
+        torch.cuda.synchronize()
+    launches = aed_launches(counters)
+    shapes = cuda_lib.take_launch_shapes()
+    cuda_lib.stop_recording_launch_shapes()
+    by_k = {}
+    for e in shapes:
+        if e["kernel"] == "depthwise_conv1d":
+            by_k[e["args"][0]] = by_k.get(e["args"][0], 0) + e["launches"]
+    fig["launches"]["ebranchformer_encode"] = launches
+    log(f"AED (b) E-Branchformer batched encode {tuple(feats.shape)}: launches {launches}, "
+        f"plain-mode launches by k {by_k}")
+    if launches["depthwise_conv1d"] != 2 * AED_BLOCKS or by_k != {31: AED_BLOCKS, 3: AED_BLOCKS}:
+        raise AssertionError(f"E-Branchformer's encode launched {by_k}, expected 12 at k 31 "
+                             "and 12 at k 3")
+    signatures.update(depthwise_signatures(shapes))
+    reset()
+    res = am.generate(input=waves[:1], beam_size=AED_BEAM)
+    fig["launches"]["ebranchformer_generate"] = aed_launches(counters)
+    log(f"AED (b) E-Branchformer generate 1 x 5 s: text length {len(res[0]['text'])}, launches "
+        f"{fig['launches']['ebranchformer_generate']}")
+    if not res[0]["text"] or fig["launches"]["ebranchformer_generate"]["depthwise_conv1d"] != 24:
+        raise AssertionError(f"E-Branchformer's generate: {res}")
+    del am
+    torch.cuda.empty_cache()
+    log(f"AED (b) done in {time.perf_counter() - t_part:.1f} s")
+
+    # (c) the paraformer_conformer recipe's model, fp32 and W8A8
+    t_part = time.perf_counter()
+    d = write_aed_dir(os.path.join(root, "paraformer_conformer"), dev, "Paraformer",
+                      "ConformerEncoder", AED_ENCODER, model_conf=PARA_CONFORMER["model_conf"],
+                      decoder=PARA_CONFORMER["decoder"],
+                      extra=dict(predictor=PARA_CONFORMER["predictor"],
+                                 predictor_conf=PARA_CONFORMER["predictor_conf"]))
+    batch = [pcm(rng, PARA_SECONDS) for _ in range(PARA_BATCH)]
+    w8a8_seen = set()
+    for label, kw in (("fp32", {}), ("w8a8", dict(quant="w8a8"))):
+        am = AutoModel(model=d, device="cuda", batch_size=PARA_BATCH, log_level="WARNING", **kw)
+        encodes, decodes = forward_counter(am.model.encoder), forward_counter(am.model.decoder)
+        am.generate(input=batch)
+        torch.cuda.synchronize()
+        encodes.clear()
+        decodes.clear()
+        cuda_lib.record_launch_shapes()
+        reset()
+        with contextlib.ExitStack() as stack:
+            seen = stack.enter_context(w8a8_shapes())
+            results = am.generate(input=batch)
+            torch.cuda.synchronize()
+        launches = aed_launches(counters)
+        shapes = cuda_lib.take_launch_shapes()
+        cuda_lib.stop_recording_launch_shapes()
+        w8a8_enc, w8a8_dec = count_w8a8(am.model.encoder), count_w8a8(am.model.decoder)
+        want = dict({c.__name__: 0 for c in counters},
+                    depthwise_conv1d=AED_BLOCKS * len(encodes),
+                    w8a8_linear=w8a8_enc * len(encodes) + w8a8_dec * len(decodes))
+        n_enc, n_dec = len(encodes), len(decodes)
+        t_med, _ = wall_ms(lambda: am.generate(input=batch), runs=3)
+        fig["launches"][f"paraformer_{label}"] = launches
+        fig[f"paraformer_{label}"] = dict(
+            wall_ms=t_med, rtfx=PARA_BATCH * PARA_SECONDS * 1e3 / t_med, encodes=n_enc,
+            decodes=n_dec, w8a8_per_encode=w8a8_enc, w8a8_per_decoder_pass=w8a8_dec)
+        log(f"AED (c) Paraformer-Conformer {label} {PARA_BATCH} x {PARA_SECONDS:g} s: "
+            f"{n_enc} encodes, {n_dec} decoder passes, launches {launches} "
+            f"(expected {want}; W8A8 linears {w8a8_enc} an encode, {w8a8_dec} a decoder pass); "
+            f"generate median {t_med:.1f} ms, RTFx {fig[f'paraformer_{label}']['rtfx']:.1f}")
+        if len(results) != PARA_BATCH or not all(r["text"] for r in results):
+            raise AssertionError(f"Paraformer-Conformer {label}: {results}")
+        if launches != want or (label == "w8a8" and w8a8_enc != AED_W8A8_ENCODE):
+            raise AssertionError(f"Paraformer-Conformer {label}: launches {launches}, expected "
+                                 f"{want}, W8A8 an encode {w8a8_enc} (step 0: "
+                                 f"{AED_W8A8_ENCODE})")
+        if label == "fp32":
+            signatures.update(depthwise_signatures(shapes))
+            fig["paraformer_cuda_vs_cpu"] = para_cuda_vs_cpu(am.model, batch)
+        else:
+            w8a8_seen = {s for s in seen if (s[1], s[2]) in ((256, 256), (256, 2048),
+                                                             (2048, 256))}
+        del am
+        torch.cuda.empty_cache()
+    log(f"AED (c) done in {time.perf_counter() - t_part:.1f} s")
+
+    # the kernel rows at the phase's shapes
+    t_part = time.perf_counter()
+    fig["rows"] = aed_kernel_rows(dev, signatures)
+    # every (M, K, N) of those (K, N): the encoder's M = B x T', the decoder's B x tokens
+    g = torch.Generator(device=dev).manual_seed(22)
+    fig["w8a8_rows"] = {}
+    for m, k, n, dtype, bias_dtype in sorted(w8a8_seen, key=lambda s: s[:3]):
+        w_q8 = torch.randint(-127, 128, (n, k), generator=g, device=dev, dtype=torch.int8)
+        scale = torch.rand(n, generator=g, device=dev) * 1e-3
+        x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+        bias = None if bias_dtype is None else torch.randn(n, generator=g, device=dev).to(bias_dtype)
+        fig["w8a8_rows"][w8a8_label((m, k, n, dtype, bias_dtype))] = w8a8_row(
+            x, w_q8, scale, bias, label="w8a8 paraformer-conformer")
+    log(f"AED rows done in {time.perf_counter() - t_part:.1f} s")
+    return fig
+
+
+def aed_entries(aed, name):
+    """A kernel's phase 20 figures: its launches in each counted run."""
+    return dict(by_run={run: counts.get(name, 0) for run, counts in aed["launches"].items()})
+
+
 STREAMING_ENTRIES = {
     "flash_attention": [(f"{key}_{dt}", ("flash_attention", "streaming", key, dtype))
                         for key in [f"keys{tk}" for tk in STREAM_FLASH_KEYS] + ["causal",
@@ -6985,7 +7444,7 @@ LLM_ENTRIES = {
 def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None,
                  hotword=None, streaming=None, sensevoice=None, serving=None, llm=None,
                  export=None, training=None, training_family=None, streaming_training=None,
-                 llm_training=None):
+                 llm_training=None, aed=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
@@ -7019,7 +7478,11 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
     17's (``training_family``) go under ``training_family`` in each of those five
     (``family_entry``), phase 18's (``streaming_training``) under ``streaming_training``
     (``streaming_training_entry``), phase 19's (``llm_training``) under ``llm_training`` in
-    every kernel (``llm_training_entry``; W8A8's launches there are 0)."""
+    every kernel (``llm_training_entry``; W8A8's launches there are 0). Phase 20's
+    (``aed``) go under ``aed`` in those three (their launches by counted run; W8A8's rows
+    at the Paraformer-Conformer's new shapes), and add a kernel, ``depthwise_conv1d``
+    (the FSMN kernel's plain mode), at the Conformer AED's generate shape, ``launches`` of
+    that counted run, with its rows at every signature the phase launched."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -7117,7 +7580,21 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             entry["streaming_training"] = streaming_training_entry(streaming_training, name)
         if llm_training:
             entry["llm_training"] = llm_training_entry(llm_training, name)
+        if aed:
+            entry["aed"] = aed_entries(aed, name)
+            if name == "w8a8_linear":
+                entry["aed"]["rows"] = aed["w8a8_rows"]
         kernels.append(entry)
+    if aed:
+        kernels.append(dict(
+            name="depthwise_conv1d", route="cuda",
+            source="funasr_tpu_torch/csrc/fsmn.cu (the FSMN kernel's plain mode, "
+                   "fsmn_depthwise_fwd)",
+            replaces=sources["fsmn_memory"][1],
+            launches=aed["launches"]["conformer"]["depthwise_conv1d"],
+            launches_per_encode=AED_BLOCKS, **aed["rows"][aed["main_label"]],
+            rows=aed["rows"], aed=aed_entries(aed, "depthwise_conv1d"),
+            profile_per_generate=aed["profile"]["depthwise"]))
     for name, (src, keys) in (TRAIN_BACKWARD.items() if training else ()):
         rows = training["rows"]
         entry = dict(name=name, route="cuda", source=src, replaces=sources[
@@ -7247,10 +7724,13 @@ def main():
                                 card, keep_train)
         llm_training = timed("LLM training", phase_llm_training, dev, counters, card,
                              keep_train)
+    with tempfile.TemporaryDirectory() as aed_root:
+        aed = timed("AED", phase_aed, dev, counters, card, aed_root)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
                                   speaker, hotword, streaming, sensevoice, serving, llm,
-                                  export, training, family, stream_training, llm_training),
+                                  export, training, family, stream_training, llm_training,
+                                  aed),
                      default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -64,11 +64,6 @@ from funasr_tpu_torch.register import tables
 from funasr_tpu_torch.utils.misc import deep_update
 from funasr_tpu_torch.utils.vad_utils import merge_vad, slice_padding_audio_samples
 
-# models of the JAX package that the port leaves unbound, with the reason
-NOT_PORTED = {"GLMASR": "GLM-ASR's audio encoder, TransformerEncoder, is not ported yet "
-                        "(ROADMAP item 22)"}
-
-
 def _join_vad_texts(texts) -> str:
     """Strip rich tags and join per-VAD-segment texts, inserting a space only when the
     join boundary is not CJK-to-CJK (reference ``funasr/auto/auto_model.py:56-68``).
@@ -233,10 +228,8 @@ class AutoModel:
         model_class_name = kwargs["model"]
         model_class = tables.model_classes.get(model_class_name)
         if model_class is None:
-            why = NOT_PORTED.get(model_class_name)
-            raise RuntimeError(f"model '{model_class_name}' is not ported"
-                               + (f": {why}" if why else
-                                  f". Ported: {sorted(tables.model_classes)}"))
+            raise RuntimeError(f"model '{model_class_name}' is not ported. "
+                               f"Ported: {sorted(tables.model_classes)}")
         model_conf: Dict[str, Any] = {}
         deep_update(model_conf, kwargs.get("model_conf", {}))
         deep_update(model_conf, kwargs)

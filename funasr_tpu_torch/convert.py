@@ -15,8 +15,20 @@ package's parameter tree (as numpy arrays) and gives the tensors that the port m
 * Linear ``w`` (in, out) -> ``weight`` (out, in); LayerNorm ``scale`` -> ``weight``;
 * depthwise conv ``w`` (k, C) -> ``weight`` (C, 1, k);
 * full conv1d ``w`` (k, C_in, C_out) -> ``weight`` (C_out, C_in, k);
-* Embedding ``w`` -> ``weight`` unchanged (CTTransformer's ``embed`` is one module,
-  ``embed.weight``);
+* Embedding ``w`` -> ``weight`` unchanged (CTTransformer's and TransformerLM's
+  ``embed`` is one module, ``embed.weight``; SeqRNNLM's ``encoder.weight``); a linear
+  ``embed`` (a bias beside ``w``, the Transformer encoder's ``linear`` input layer) is
+  transposed as any linear;
+* conv2d subsampling (``embed`` with ``conv1`` / ``conv2`` / ``out``) -> FunASR's
+  ``embed.conv.0`` / ``embed.conv.2`` (HWIO -> OIHW) / ``embed.out.0``;
+* inference BatchNorm ``mean`` / ``var`` / ``scale`` / ``bias`` -> ``running_mean`` /
+  ``running_var`` / ``weight`` / ``bias`` and a zero ``num_batches_tracked``;
+* the Branchformer layers' ``merge_conv``, ``norm_ff1`` / ``ffn1``, ``norm_ff2`` /
+  ``ffn2`` and cgMLP ``channel_proj1`` / ``norm_gate`` / ``conv_gate`` -> FunASR's
+  ``depthwise_conv_fusion``, ``norm_ff_macaron`` / ``feed_forward_macaron``, ``norm_ff``
+  / ``feed_forward``, ``cgmlp.channel_proj1.0`` / ``cgmlp.csgu.norm`` /
+  ``cgmlp.csgu.conv``; a convolution decoder's list of layers -> ``decoders.{i}``, its
+  ``self_conv`` -> ``self_attn``;
 * a bare tensor beside layers (the PIF predictor's ``sigma`` and ``bias``) keeps its
   name; SenseVoice's query ``embed`` ``w`` -> ``embed.weight``; Paraformer-v2's
   model-level ``embed`` linear -> ``decoder.embed.0`` (the JAX decoder's own token table
@@ -67,6 +79,12 @@ def _leaf(p: Dict[str, np.ndarray], prefix: str, target: Dict[str, torch.Tensor]
     """One JAX layer dict -> {torch name: array}, laid out as ``target`` expects."""
     if set(p) == {"scale", "bias"}:
         return {prefix + "weight": p["scale"], prefix + "bias": p["bias"]}
+    if "mean" in p:  # inference BatchNorm (the Conformer's convolution module)
+        out = {prefix + "running_mean": p["mean"], prefix + "running_var": p["var"],
+               prefix + "num_batches_tracked": np.zeros((), np.int64)}
+        if "scale" in p:
+            out.update({prefix + "weight": p["scale"], prefix + "bias": p["bias"]})
+        return out
     q = next((k for k in ("w_q8", "w_q") if k in p), None)
     if q is not None:
         out = {prefix + q: np.asarray(p[q]).T, prefix + "scale": p["scale"]}
@@ -79,8 +97,8 @@ def _leaf(p: Dict[str, np.ndarray], prefix: str, target: Dict[str, torch.Tensor]
         w = w.transpose(2, 1, 0)
     elif tw.dim() == 3:  # depthwise conv (k, C)
         w = w.T[:, None, :]
-    elif not prefix.endswith("embed.0."):  # linear (in, out)
-        w = w.T
+    elif not (prefix.endswith("embed.0.") and "b" not in p):  # linear (in, out); an
+        w = w.T                                                # embedding has no bias
     out = {prefix + "weight": w}
     if "b" in p:
         out[prefix + "bias"] = p["b"]
@@ -95,8 +113,13 @@ def _walk(tree, prefix: str, target, out):
         out.update(_leaf(tree, prefix, target))
         return
     for name, sub in tree.items():
-        if not isinstance(sub, dict):  # a bare tensor beside layers (PIF's sigma, bias)
+        if isinstance(sub, list):  # layers the JAX package keeps as a list
+            for i, layer in enumerate(sub):
+                _walk(layer, f"{prefix}{name}.{i}.", target, out)
+        elif not isinstance(sub, dict):  # a bare tensor beside layers (PIF's sigma, bias)
             out[f"{prefix}{name}"] = sub
+        elif name == "embed" and "conv1" in sub:  # conv2d subsampling
+            _subsampling(sub, f"{prefix}embed.", out)
         elif name in _STACKED:
             n = len(next(iter(_flatten(sub))))
             for i in range(n):
@@ -105,6 +128,62 @@ def _walk(tree, prefix: str, target, out):
             _walk(sub, f"{prefix}{name}.0.", target, out)
         else:
             _walk(sub, f"{prefix}{name}.", target, out)
+
+
+def _subsampling(tree, prefix: str, out):
+    """Conv2d subsampling: ``conv1`` / ``conv2`` HWIO -> ``conv.0`` / ``conv.2`` OIHW,
+    ``out`` -> ``out.0``."""
+    for jname, tname in (("conv1", "conv.0"), ("conv2", "conv.2")):
+        out[f"{prefix}{tname}.weight"] = np.asarray(tree[jname]["w"]).transpose(3, 2, 0, 1)
+        out[f"{prefix}{tname}.bias"] = tree[jname]["b"]
+    out[f"{prefix}out.0.weight"] = np.asarray(tree["out"]["w"]).T
+    out[f"{prefix}out.0.bias"] = tree["out"]["b"]
+
+
+# the Branchformer layer's JAX names -> FunASR's
+_BRANCHFORMER = {"merge_conv": "depthwise_conv_fusion", "norm_ff1": "norm_ff_macaron",
+                 "ffn1": "feed_forward_macaron", "norm_ff2": "norm_ff", "ffn2": "feed_forward"}
+_CGMLP = {"channel_proj1": "channel_proj1.0", "norm_gate": "csgu.norm",
+          "conv_gate": "csgu.conv", "channel_proj2": "channel_proj2"}
+
+
+def _branchformer(tree, target, out):
+    """The AED walked by name, the encoder layers' JAX names renamed to FunASR's."""
+    enc = dict(tree["encoder"])
+    layers = enc.pop("encoders")
+    _walk({**tree, "encoder": enc}, "", target, out)
+    n = len(next(iter(_flatten(layers))))
+    for i in range(n):
+        lp = _index(layers, i)
+        cg = lp.pop("cgmlp")
+        lp = {_BRANCHFORMER.get(k, k): v for k, v in lp.items()}
+        _walk(lp, f"encoder.encoders.{i}.", target, out)
+        for jname, tname in _CGMLP.items():
+            out.update(_leaf(cg[jname], f"encoder.encoders.{i}.cgmlp.{tname}.", target))
+
+
+def _conv_decoder_aed(tree, target, out):
+    """A Transformer AED whose decoder is a convolution decoder: the JAX layers'
+    ``self_conv`` is FunASR's ``self_attn``."""
+    dec = dict(tree["decoder"])
+    dec["decoders"] = [{("self_attn" if k == "self_conv" else k): v for k, v in lp.items()}
+                       for lp in dec["decoders"]]
+    _walk({**tree, "decoder": dec}, "", target, out)
+
+
+def _transformer_lm(tree, target, out):
+    """TransformerLM: the token table is one ``nn.Embedding`` (``embed.weight``)."""
+    _walk({k: v for k, v in tree.items() if k != "embed"}, "", target, out)
+    out["embed.weight"] = tree["embed"]["w"]
+
+
+def _seq_rnn_lm(tree, target, out):
+    """SeqRNNLM: FunASR's ``encoder`` (embedding), ``rnn`` (the LSTM stack) and
+    ``decoder`` (head)."""
+    out["encoder.weight"] = tree["embed"]["w"]
+    for i, p in enumerate(tree["lstm"]):
+        _lstm_layer(p, "rnn", f"l{i}", out)
+    out.update(_leaf(tree["decoder"], "decoder.", target))
 
 
 def _flatten(tree):
@@ -365,7 +444,7 @@ def _whisper(tree, target, out):
     out["model.decoder.embed_positions.weight"] = tree["decoder"]["embed_positions"]
 
 
-_LLM_ASR_NAMES = ("FunASRNano", "LLMASR", "LLMASR2", "LLMASR3", "LLMASR4", "LLMASRNAR",
+_LLM_ASR_NAMES = ("FunASRNano", "GLMASR", "LLMASR", "LLMASR2", "LLMASR3", "LLMASR4", "LLMASRNAR",
                   "LLMASRNARPrompt", "LLMASRVersions", "Qwen3ASR", "QwenAudio", "MinMo")
 
 _BY_MODEL = {"FsmnVADStreaming": _fsmn_vad, "CTTransformer": _ct_transformer,
@@ -373,16 +452,20 @@ _BY_MODEL = {"FsmnVADStreaming": _fsmn_vad, "CTTransformer": _ct_transformer,
              "BiCifParaformer": _bicif, "CAMPPlus": _campplus, "SeacoParaformer": _seaco,
              "ContextualParaformer": _contextual, "SenseVoiceSmall": _sense_voice,
              "ParaformerV2": _paraformer_v2, "MonotonicAligner": _bicif,
-             "WhisperModel": _whisper, **{name: _llm_asr for name in _LLM_ASR_NAMES}}
+             "WhisperModel": _whisper, "Branchformer": _branchformer,
+             "EBranchformer": _branchformer, "TransformerLM": _transformer_lm,
+             "SeqRNNLM": _seq_rnn_lm, **{name: _llm_asr for name in _LLM_ASR_NAMES}}
 
 
 def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
-    """JAX params (nested dict of arrays) of a Paraformer (a CTC head included),
-    BiCifParaformer, ParaformerStreaming (Paraformer's layout), SeacoParaformer,
-    ContextualParaformer, FsmnVADStreaming, CTTransformer, CTTransformerStreaming,
-    CAMPPlus, SenseVoiceSmall, CTCModel, ParaformerV2, EParaformer, MonotonicAligner,
-    FunASRNano, the LLMASR family or a WhisperModel of any size -> ``model``'s state
-    dict.
+    """JAX params (nested dict of arrays) of a Paraformer (a CTC head included; its
+    encoder a SAN-M or a Conformer), BiCifParaformer, ParaformerStreaming (Paraformer's
+    layout), SeacoParaformer, ContextualParaformer, FsmnVADStreaming, CTTransformer,
+    CTTransformerStreaming, CAMPPlus, SenseVoiceSmall, CTCModel, ParaformerV2,
+    EParaformer, MonotonicAligner, FunASRNano, the LLMASR family (GLMASR included), a
+    WhisperModel of any size, the Transformer AEDs (Transformer, SANM, Conformer,
+    Branchformer, EBranchformer; a convolution decoder too), TransformerLM or SeqRNNLM
+    -> ``model``'s state dict.
 
     Int8 and int64 tensors keep their type, every other leaf becomes fp32. Raises if the names or
     shapes do not match ``model.state_dict()`` exactly.
@@ -392,6 +475,8 @@ def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor
     # the nearest class with a converter: each Whisper size subclasses WhisperModel
     fn = next((_BY_MODEL[c.__name__] for c in type(model).__mro__ if c.__name__ in _BY_MODEL),
               _generic)
+    if fn is _generic and isinstance(np_params.get("decoder", {}).get("decoders"), list):
+        fn = _conv_decoder_aed
     fn(np_params, target, out)
     if set(out) != set(target):
         raise KeyError(f"parameter names differ: missing {sorted(set(target) - set(out))}, "

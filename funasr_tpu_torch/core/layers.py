@@ -67,6 +67,27 @@ def conv1d(x, weight, bias=None, *, left_pad: int = 0, right_pad: int = 0, strid
                   bias)
 
 
+def depthwise_conv1d(x, conv: nn.Conv1d, left_pad: int, right_pad: int, mask=None):
+    """A depthwise ``nn.Conv1d`` (FunASR's weight (C, 1, k), bias or none) over x (B, T, C)
+    with zero pads (``depthwise_conv1d_apply``, ``core/layers.py:104-122``): taps summed
+    in fp32, the bias added, one rounding to x's dtype. ``mask`` (B, T) bool zeroes the
+    input rows it marks invalid. Runs ``ops/fsmn.py::depthwise_conv1d``: the plain mode
+    of the FSMN kernel on CUDA, its plain version on the CPU."""
+    from funasr_tpu_torch.ops.fsmn import depthwise_conv1d as dw
+
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return dw(x, conv.weight.to(x.dtype), bias, mask, left_pad, right_pad)
+
+
+def batch_norm(x, bn: nn.BatchNorm1d):
+    """Inference-mode BatchNorm over x's last (channel) axis (``campplus/components.py:
+    52-57``): (x - mean) * rsqrt(var + eps) * weight + bias in fp32, cast to x's dtype."""
+    y = (x.float() - bn.running_mean.float()) * torch.rsqrt(bn.running_var.float() + bn.eps)
+    if bn.weight is not None:
+        y = y * bn.weight.float() + bn.bias.float()
+    return y.to(x.dtype)
+
+
 def conv_transpose1d_stride_eq_kernel(x, weight, bias=None):
     """``nn.ConvTranspose1d`` with stride == kernel (``core/layers.py:188-194``): each
     input frame emits K output frames. x (B, T, C_in), weight (C_in, C_out, K) ->

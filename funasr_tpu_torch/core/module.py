@@ -39,7 +39,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     ``depthwise_conv1d_init`` / ``conv_transpose1d_init``; the fan-in of a transposed
     conv's (C_in, C_out, K) weight is C_out * K, JAX's C_in * K where they are equal), LSTM
     weights and biases uniform in +-1/sqrt(hidden) (``lstm_init``), Embedding standard
-    normal, LayerNorm ones and zeros; BatchNorm keeps its defaults. Samples are drawn on the generator's device and copied, so
+    normal, LayerNorm ones and zeros; BatchNorm keeps its defaults; a module with an
+    ``init_from(generator)`` method draws its own bare tensors there. Samples are drawn on the generator's device and copied, so
     a CPU generator initialises a model on any device identically.
     """
     dev = generator.device
@@ -60,4 +61,6 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, nn.LayerNorm):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
+        elif hasattr(m, "init_from"):  # a module's own tensors (attention position biases)
+            m.init_from(generator)
     return module

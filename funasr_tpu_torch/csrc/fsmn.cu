@@ -55,6 +55,26 @@
 // this file, per-chunk partials from one pass over the rows, then their ordered sum, with
 // no float atomics (its own note is there).
 //
+// The plain mode (PLAIN = true; entry fsmn_depthwise_fwd) is dw_pallas's own function,
+// core/layers.py::depthwise_conv1d_apply, as the Conformer's convolution module (k 15,
+// pads 7 / 7), the Branchformer's cgMLP gate (k 31, pads 15 / 15, input masked) and the
+// E-Branchformer's merge conv (k 3, pads 1 / 1) call it:
+//
+//   out[b, t, c] = round( (sum_i w[c, i] * xm[b, t + i - left, c]) + bias[c] )
+//
+// with no residual and no output mask. Each tap is a rounded product added with its own
+// rounding (__fmul_rn, __fadd_rn: no fma), from 0 in the order i = 0 .. k - 1, then the
+// bias, as the plain PyTorch version (ops/fsmn.py::depthwise_conv1d_ref) runs on the
+// card, so the two agree bit for bit. k = 15 / left 7 has its own instantiation at 4
+// channels a thread (8 bf16 channels' window and taps, 2 x 15 x 8 floats, would spill as
+// k = 21's did), k = 3 / left 1 its own at the vector's channels, and fp32 k = 31 / left
+// 15 its own at 2 channels a thread (8-byte loads: 2 x 31 x 2 floats of window and taps);
+// bf16 k = 31 and any other k take the generic one, which reads each input row k times
+// through L1 and each tap from global memory at every step. Measured (NVIDIA H100 80GB
+// HBM3, 700 W), specialised against generic: fp32 k 31 at (4, 198, 1024) 0.0102 against
+// 0.0806 ms (F.conv1d 0.0166), k 3 at (4, 198, 512) 0.0045 against 0.0131, k 15 at
+// (1, 198, 256) 0.0075 against 0.0417; all launch-bound at these shapes.
+//
 // x is (B, T, C) with unit channel stride and batch / time strides that are multiples of
 // the vector (it is the v slice of the fused q|k|v projection in the encoder, or the
 // decoder's contiguous input), its base 16-byte aligned and C a multiple of the vector;
@@ -81,6 +101,7 @@ template <typename T> struct Vec { static constexpr int N = 16 / sizeof(T); };
 // the raw load of V channels of T: 16 bytes, or 8 for 4 bf16 channels
 template <typename T, int V> struct RawOf { typedef uint4 type; };
 template <> struct RawOf<bf16, 4> { typedef uint2 type; };
+template <> struct RawOf<float, 2> { typedef uint2 type; };
 
 // the N floats of one 16-byte vector
 __device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
@@ -114,6 +135,14 @@ __device__ __forceinline__ void unpack(const uint2& u, float (&f)[4]) {  // 4 bf
   f[3] = __uint_as_float(u.y & 0xffff0000u);
 }
 
+__device__ __forceinline__ void unpack(const uint2& u, float (&f)[2]) {  // 2 fp32
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+}
+__device__ __forceinline__ uint2 pack(const float (&f)[2], float*) {
+  return make_uint2(__float_as_uint(f[0]), __float_as_uint(f[1]));
+}
+
 __device__ __forceinline__ uint4 pack(const float (&f)[4], float*) {
   return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
                     __float_as_uint(f[3]));
@@ -145,15 +174,22 @@ __device__ __forceinline__ void cp_async(uint2* dst, const void* src, bool full)
                : "memory");
 }
 
+// one tap: fma for the FSMN memory; for the plain mode the product and the sum each
+// rounded, as the plain PyTorch version's separate multiply and add
+template <bool PLAIN> __device__ __forceinline__ float tap(float x, float w, float acc) {
+  return PLAIN ? __fadd_rn(acc, __fmul_rn(x, w)) : fmaf(x, w, acc);
+}
+
 // KS > 0: k = KS and left = LS, window in registers; KS == 0: any k and left (the
 // runtime `k`, `left`), taps read through L1. V channels a thread (one raw load). Block:
 // WARPS warps on consecutive time chunks of TT steps, each warp 32 channel vectors. Grid
-// (ceil(C / V / 32), ceil(chunks / WARPS), B).
-template <typename T, int KS, int LS, int V>
+// (ceil(C / V / 32), ceil(chunks / WARPS), B). PLAIN: the plain depthwise conv (bias, or
+// none when `bias` is null; no residual, no output mask), else the FSMN memory.
+template <bool PLAIN, typename T, int KS, int LS, int V>
 __global__ void __launch_bounds__(32 * WARPS, 2)
-fsmn_kernel(const T* __restrict__ x, const T* __restrict__ w, const uint8_t* __restrict__ mask,
-            T* __restrict__ out, int T_len, int C, int k, int left_rt, long long xsb,
-            long long xst) {
+fsmn_kernel(const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ bias,
+            const uint8_t* __restrict__ mask, T* __restrict__ out, int T_len, int C, int k,
+            int left_rt, long long xsb, long long xst) {
   typedef typename RawOf<T, V>::type Raw;
   constexpr int NW = KS > 0 ? (TT + KS - 1 + 31) / 32 : (TT + MAX_K - 1 + 31) / 32;
   const int K = KS > 0 ? KS : k;
@@ -184,6 +220,14 @@ fsmn_kernel(const T* __restrict__ x, const T* __restrict__ w, const uint8_t* __r
   const T* xb = x + b * xsb + (long long)cv * V;
   T* ob = out + ((long long)b * T_len + t0) * C + (long long)cv * V;
   const T* wv = w + (long long)cv * V * K;  // this thread's V x K taps, contiguous
+  float bv[V];  // the plain mode's bias
+#pragma unroll
+  for (int e = 0; e < V; ++e) bv[e] = 0.f;
+  if (PLAIN && bias) unpack(load<Raw>(bias + (long long)cv * V), bv);
+  // the plain mode's output: the tap sum, plus the bias when there is one, rounded once
+  auto plain_out = [&](float acc, int e) -> float {
+    return round_to(bias ? __fadd_rn(acc, bv[e]) : acc, (T*)nullptr);
+  };
 
   if constexpr (KS > 0) {
     // weights: wr[i][j] = w[cv * V + j, i], from K raw loads
@@ -227,11 +271,12 @@ fsmn_kernel(const T* __restrict__ x, const T* __restrict__ w, const uint8_t* __r
       for (int e = 0; e < V; ++e) {
         float acc = 0.f;
 #pragma unroll
-        for (int i = 0; i < KS; ++i) acc = fmaf(xw[(tt + i) % KS][e], wr[i][e], acc);
-        res[e] = round_to(acc, (T*)nullptr) + xw[(tt + left) % KS][e];
+        for (int i = 0; i < KS; ++i) acc = tap<PLAIN>(xw[(tt + i) % KS][e], wr[i][e], acc);
+        res[e] = PLAIN ? plain_out(acc, e) : round_to(acc, (T*)nullptr) + xw[(tt + left) % KS][e];
       }
-      // row tt + left is output t0 + tt's own: valid means unmasked (t < T holds)
-      if (!row_ok(tt + left))
+      // row tt + left is output t0 + tt's own: valid means unmasked (t < T holds); the
+      // plain mode masks no output
+      if (!PLAIN && !row_ok(tt + left))
 #pragma unroll
         for (int e = 0; e < V; ++e) res[e] = 0.f;
       *reinterpret_cast<Raw*>(ob + (long long)tt * C) = pack(res, (T*)nullptr);
@@ -245,10 +290,13 @@ fsmn_kernel(const T* __restrict__ x, const T* __restrict__ w, const uint8_t* __r
         if (!row_ok(tt + i)) continue;  // a zero input adds exactly 0 to every tap
         unpack(load<Raw>(xb + (t0 - left + tt + i) * xst), f);
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc[e] = fmaf(f[e], to_float(wv[e * K + i]), acc[e]);
+        for (int e = 0; e < V; ++e) acc[e] = tap<PLAIN>(f[e], to_float(wv[e * K + i]), acc[e]);
       }
       float res[V];
-      if (row_ok(tt + left)) {
+      if (PLAIN) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) res[e] = plain_out(acc[e], e);
+      } else if (row_ok(tt + left)) {
         unpack(load<Raw>(xb + (t0 + tt) * xst), f);
 #pragma unroll
         for (int e = 0; e < V; ++e) res[e] = round_to(acc[e], (T*)nullptr) + f[e];
@@ -261,58 +309,87 @@ fsmn_kernel(const T* __restrict__ x, const T* __restrict__ w, const uint8_t* __r
   }
 }
 
-template <typename T, int KS, int LS, int V = Vec<T>::N>
-cudaError_t launch(const void* x, const void* w, const void* mask, void* out, int B, int T_len,
-                   int C, int K, int left, long long xsb, long long xst, cudaStream_t stream) {
+template <bool PLAIN, typename T, int KS, int LS, int V = Vec<T>::N>
+cudaError_t launch(const void* x, const void* w, const void* bias, const void* mask, void* out,
+                   int B, int T_len, int C, int K, int left, long long xsb, long long xst,
+                   cudaStream_t stream) {
   const int vectors = C / V, chunks = (T_len + TT - 1) / TT;
   dim3 grid((vectors + 31) / 32, (chunks + WARPS - 1) / WARPS, B);
-  fsmn_kernel<T, KS, LS, V><<<grid, 32 * WARPS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const uint8_t*>(mask),
-      static_cast<T*>(out), T_len, C, K, left, xsb, xst);
+  fsmn_kernel<PLAIN, T, KS, LS, V><<<grid, 32 * WARPS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(bias),
+      static_cast<const uint8_t*>(mask), static_cast<T*>(out), T_len, C, K, left, xsb, xst);
   return cudaGetLastError();
 }
 
 // generic: launch the runtime-k instantiation whatever k and pads are (to time it
 // against a specialised one)
-template <typename T>
-cudaError_t dispatch(const void* x, const void* w, const void* mask, void* out, int B,
-                     int T_len, int C, int K, int left, long long xsb, long long xst,
-                     bool generic, cudaStream_t stream) {
+template <bool PLAIN, typename T>
+cudaError_t dispatch(const void* x, const void* w, const void* bias, const void* mask,
+                     void* out, int B, int T_len, int C, int K, int left, long long xsb,
+                     long long xst, bool generic, cudaStream_t stream) {
   constexpr int V = Vec<T>::N;
   if (K < 1 || K > MAX_K || left < 0 || left > K - 1 || C % V || xsb % V || xst % V ||
-      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(bias) % 16)
     return cudaErrorInvalidValue;
   if (generic)
-    return launch<T, 0, 0>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
-  if (K == 11 && left == 5)  // the SAN-M encoders' and decoder's k and pads
-    return launch<T, 11, 5>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
-  // the streaming decoder's causal step over concat(cache, x) (the offline decoder of a
-  // streaming model, sanm_shfit 5, has the same pads)
-  if (K == 11 && left == 10)
-    return launch<T, 11, 10>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
-  // that decoder's input gradient in training: the forward kernel, pads swapped to (0, 10)
-  if (K == 11 && left == 0)
-    return launch<T, 11, 0>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
-  // the VAD's causal memory (lorder 20, fp32): its window and taps take 160 registers
-  // a thread at 4 channels; bf16's 8 channels would spill, so bf16 stays generic
-  if constexpr (Vec<T>::N == 4)
-    if (K == 20 && left == 19)
-      return launch<T, 20, 19>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
-  // the SeACo decoder's memory (kernel_size 21, sanm_shfit 0): 4 channels a thread, so
-  // that bf16's window and taps fit in registers as fp32's do
-  if (K == 21 && left == 10)
-    return launch<T, 21, 10, 4>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
-  return launch<T, 0, 0>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, stream);
+    return launch<PLAIN, T, 0, 0>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst, stream);
+  if constexpr (PLAIN) {
+    // the Conformer's convolution module (cnn_module_kernel 15): 4 channels a thread
+    if (K == 15 && left == 7)
+      return launch<PLAIN, T, 15, 7, 4>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst,
+                                        stream);
+    // the E-Branchformer's merge conv
+    if (K == 3 && left == 1)
+      return launch<PLAIN, T, 3, 1>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst,
+                                    stream);
+    // the cgMLP gate (cgmlp_conv_kernel 31), fp32: 2 channels a thread (8-byte loads), so
+    // that the 31-row window and the taps fit in registers; bf16 stays generic
+    if constexpr (Vec<T>::N == 4)
+      if (K == 31 && left == 15)
+        return launch<PLAIN, T, 31, 15, 2>(x, w, bias, mask, out, B, T_len, C, K, left, xsb,
+                                           xst, stream);
+    return launch<PLAIN, T, 0, 0>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst, stream);
+  } else {
+    if (K == 11 && left == 5)  // the SAN-M encoders' and decoder's k and pads
+      return launch<PLAIN, T, 11, 5>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst,
+                                     stream);
+    // the streaming decoder's causal step over concat(cache, x) (the offline decoder of a
+    // streaming model, sanm_shfit 5, has the same pads)
+    if (K == 11 && left == 10)
+      return launch<PLAIN, T, 11, 10>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst,
+                                      stream);
+    // that decoder's input gradient in training: the forward kernel, pads swapped to (0, 10)
+    if (K == 11 && left == 0)
+      return launch<PLAIN, T, 11, 0>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst,
+                                     stream);
+    // the VAD's causal memory (lorder 20, fp32): its window and taps take 160 registers
+    // a thread at 4 channels; bf16's 8 channels would spill, so bf16 stays generic
+    if constexpr (Vec<T>::N == 4)
+      if (K == 20 && left == 19)
+        return launch<PLAIN, T, 20, 19>(x, w, bias, mask, out, B, T_len, C, K, left, xsb,
+                                        xst, stream);
+    // the SeACo decoder's memory (kernel_size 21, sanm_shfit 0): 4 channels a thread, so
+    // that bf16's window and taps fit in registers as fp32's do
+    if (K == 21 && left == 10)
+      return launch<PLAIN, T, 21, 10, 4>(x, w, bias, mask, out, B, T_len, C, K, left, xsb,
+                                         xst, stream);
+    return launch<PLAIN, T, 0, 0>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst,
+                                  stream);
+  }
 }
 
-int run(int dtype, const void* x, const void* w, const void* mask, void* out, int B,
-        int T_len, int C, int K, int left, long long xsb, long long xst, bool generic,
+template <bool PLAIN>
+int run(int dtype, const void* x, const void* w, const void* bias, const void* mask, void* out,
+        int B, int T_len, int C, int K, int left, long long xsb, long long xst, bool generic,
         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch<float>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, generic, s);
+    return (int)dispatch<PLAIN, float>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst,
+                                       generic, s);
   if (dtype == 1)
-    return (int)dispatch<bf16>(x, w, mask, out, B, T_len, C, K, left, xsb, xst, generic, s);
+    return (int)dispatch<PLAIN, bf16>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst,
+                                      generic, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -534,7 +611,8 @@ __global__ void fsmn_bwd_weight_reduce_kernel(const float* __restrict__ partial,
 extern "C" int fsmn_memory_fwd(int dtype, const void* x, const void* w, const void* mask,
                                void* out, int B, int T_len, int C, int K, int left,
                                long long xsb, long long xst, void* stream) {
-  return run(dtype, x, w, mask, out, B, T_len, C, K, left, xsb, xst, false, stream);
+  return run<false>(dtype, x, w, nullptr, mask, out, B, T_len, C, K, left, xsb, xst, false,
+                    stream);
 }
 
 // the same, always on the generic (runtime-k) instantiation
@@ -542,7 +620,20 @@ extern "C" int fsmn_memory_generic_fwd(int dtype, const void* x, const void* w,
                                        const void* mask, void* out, int B, int T_len, int C,
                                        int K, int left, long long xsb, long long xst,
                                        void* stream) {
-  return run(dtype, x, w, mask, out, B, T_len, C, K, left, xsb, xst, true, stream);
+  return run<false>(dtype, x, w, nullptr, mask, out, B, T_len, C, K, left, xsb, xst, true,
+                    stream);
+}
+
+// the plain depthwise conv (dw_pallas's function): x (B, T, C), w (C, K), bias (C,) or
+// NULL, all in x's dtype (fp32 0 / bf16 1), w and bias 16-byte aligned; mask (B, T) bytes
+// or NULL masks the input; out (B, T, C) contiguous. generic: 1 forces the runtime-k
+// instantiation (to time k 15's own against it).
+extern "C" int fsmn_depthwise_fwd(int dtype, const void* x, const void* w, const void* bias,
+                                  const void* mask, void* out, int B, int T_len, int C, int K,
+                                  int left, long long xsb, long long xst, int generic,
+                                  void* stream) {
+  return run<true>(dtype, x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst, generic != 0,
+                   stream);
 }
 
 // fp32 weight gradient of the FSMN memory: x (B, T, C) the forward's input, dout (B, T, C)

@@ -6,8 +6,8 @@ All share Fun-ASR-Nano's machinery (the port's ``QwenLM`` and ``LLMEngine``) and
 in encoder, prompt format and decode mode. ``LLMASR`` and its versions also speak the
 reference's multiturn OpenAI-message format: ``generate(input=[messages])``, where user
 turns may hold ``<|startofspeech|>!path<|endofspeech|>`` audio spans (reference
-``data_template:666`` / ``data_load_speech:693`` / ``inference:820``). ``GLMASR`` stays
-unbound: its ``TransformerEncoder`` is ROADMAP item 22's. Every name trains on collated
+``data_template:666`` / ``data_load_speech:693`` / ``inference:820``). ``GLMASR`` runs
+its audio through the port's ``TransformerEncoder``. Every name trains on collated
 OpenAI-format batches through ``forward_batch`` (the JAX ``forward_jit_batch``), which the
 trainer picks for a batch holding ``input_ids``; plain (speech, text) batches take
 Fun-ASR-Nano's ``forward``.
@@ -267,6 +267,32 @@ class LLMASR(FunASRNano):
         tgt_np = tgt.cpu().numpy()[n_src - 1:]
         out = [int(t) for t, v in zip(preds, tgt_np != IGNORE_INDEX) if v]
         return {"text": tokenizer.decode(out) if tokenizer else "", "loss": loss}
+
+
+@tables.register("model_classes", "GLMASR")
+class GLMASR(LLMASR):
+    """GLM-ASR-Nano (reference ``glm_asr/model.py:14``; ``funasr_tpu/models/llm_asr/
+    model.py:323-347``): a Transformer audio encoder (conv2d x4 subsampling, d 256 unless
+    the config says otherwise) + adaptor + a GLM-edge decoder (GQA + RMSNorm, the Qwen
+    block layout set by ``llm_conf``), prompted with GLM's chat template around the audio
+    span."""
+
+    def __init__(self, audio_encoder: str = "TransformerEncoder",
+                 audio_encoder_conf: Optional[dict] = None, input_size: int = 128,
+                 prompt_template: str = "Please transcribe this audio into text", **kwargs):
+        enc_conf = dict(audio_encoder_conf or {})
+        if audio_encoder == "TransformerEncoder":
+            enc_conf.setdefault("input_layer", "conv2d")
+            enc_conf.setdefault("output_size", 256)
+        super().__init__(audio_encoder=audio_encoder, audio_encoder_conf=enc_conf,
+                         input_size=input_size, prompt_template=prompt_template, **kwargs)
+
+    def build_chatml_ids(self, tokenizer, prompt: str, prev_text: str = ""):
+        """[gMASK]<sop><|user|> prompt + audio ... <|assistant|> (GLM-edge's
+        apply_chat_template layout); ``prev_text`` is a forced continuation prefix."""
+        prefix = f"[gMASK]<sop><|user|>\n{prompt}\n<|begin_of_audio|>"
+        suffix = "<|end_of_audio|><|assistant|>\n" + prev_text
+        return tokenizer.encode(prefix), tokenizer.encode(suffix)
 
 
 @tables.register("model_classes", "QwenAudio")

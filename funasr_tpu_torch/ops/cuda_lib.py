@@ -46,6 +46,8 @@ _SIGNATURES = {
     # dtype, x, w, mask, out, B, T, C, K, left, x_sb, x_st, stream
     "fsmn_memory_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P],
     "fsmn_memory_generic_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _P],
+    # dtype, x, w, bias, mask, out, B, T, C, K, left, x_sb, x_st, generic, stream
+    "fsmn_depthwise_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P],
     # q, k, v, o, dout, stats, dq, dk, dv, scratch, lengths, B, H, Tq, Tk, D, strides[24],
     # sm_scale, mode, vad_pos, chunk[4], stream (fp32)
     "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -42,7 +42,18 @@ other k, pads or C takes the generic kernel, which reads each row once a tap. Ea
 its calls in ``.launches``; on the CPU both are autograd through ``fsmn_memory_ref``;
 bf16 raises (ROADMAP item 20b). The mask gets no gradient.
 ``generic=True`` launches the generic instantiation whatever k is, to time a specialised
-one against it. Under
+one against it.
+
+``depthwise_conv1d`` is the same kernel's plain mode: dw_pallas's own function,
+``core/layers.py::depthwise_conv1d_apply`` (zero pads, taps summed in fp32 from 0 in tap
+order, then the bias, one rounding to x's dtype), with an optional input mask and no
+residual or output mask, as the Conformer's convolution module, the Branchformer's
+cgMLP gate and the E-Branchformer's merge conv call it (own instantiations for k 15 / left
+7, k 3 / left 1 and fp32 k 31 / left 15; ``generic=True`` as above). Its plain version is
+``depthwise_conv1d_ref``, whose separate multiply and add the kernel copies, so the two
+agree bit for bit on the card. It counts its launches in ``depthwise_conv1d.launches``.
+It has no backward kernel: with grad mode on and a CUDA input requiring grad it raises
+(ROADMAP item 22.1b); on the CPU autograd runs through the plain version. Under
 ``torch.export`` the wrapper records the custom op ``funasr_tpu_torch::fsmn_memory``
 (CUDA: the same kernel; CPU: ``fsmn_memory_ref``; fake: the (B, T, C) output), so an
 exported program runs the kernel; eager calls skip the op's dispatch.
@@ -293,3 +304,70 @@ fsmn_memory_op.register_kernel("cuda")(_fsmn_memory_cuda)
 @fsmn_memory_op.register_fake
 def _fsmn_memory_fake(x, weight, mask, left_pad, right_pad, generic):
     return x.new_empty(x.shape)
+
+
+# ---- the plain mode: dw_pallas's own function ---------------------------------------
+
+
+def depthwise_conv1d_ref(x, weight, bias, mask, left_pad: int, right_pad: int):
+    """Plain PyTorch version (``depthwise_conv1d_apply``, ``core/layers.py:104-122``).
+    x (B, T, C); weight (C, 1, k); bias (C,) or None; mask (B, T) bool or None masks the
+    input -> (B, T + left + right - k + 1, C) in x's dtype."""
+    c, k = weight.shape[0], weight.shape[-1]
+    x = _masked(x, mask)
+    acc_t = torch.promote_types(x.dtype, torch.float32)
+    pad = F.pad(x.to(acc_t), (0, 0, left_pad, right_pad))
+    w = weight.reshape(c, k).to(acc_t)
+    t_out = pad.shape[1] - k + 1
+    acc = torch.zeros(pad.shape[0], t_out, c, dtype=acc_t, device=x.device)
+    for i in range(k):
+        acc = acc + pad[:, i : i + t_out] * w[:, i]
+    if bias is not None:
+        acc = acc + bias.to(acc_t)
+    return acc.to(x.dtype)
+
+
+def depthwise_conv1d(x, weight, bias, mask, left_pad: int, right_pad: int, *,
+                     generic: bool = False):
+    """x (B, T, C) (unit channel stride); weight (C, 1, k) and bias (C,) or None in x's
+    dtype; mask (B, T) bool or None (applied to the input); pads summing to k - 1 ->
+    contiguous (B, T, C) in x's dtype. CPU tensors take ``depthwise_conv1d_ref``; CUDA
+    tensors launch the plain mode of the kernel of ``csrc/fsmn.cu`` or raise."""
+    cuda_lib.no_dtensor("depthwise_conv1d", x, weight)
+    if x.device.type == "cpu":
+        return depthwise_conv1d_ref(x, weight, bias, mask, left_pad, right_pad)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, weight, bias)):
+        raise NotImplementedError(
+            "depthwise_conv1d has no backward kernel on the card yet: training the "
+            "Transformer-family AED models on CUDA is ROADMAP item 22.1b")
+    if x.device.type != "cuda":
+        raise ValueError(f"depthwise_conv1d runs on CPU or CUDA tensors, not {x.device}")
+    x = cuda_lib.vectorizable(x)
+    _check(x, weight, mask, left_pad, right_pad)
+    b, t, c = x.shape
+    k = weight.shape[-1]
+    w = weight.reshape(c, k).contiguous()
+    if w.data_ptr() % 16:
+        w = w.clone()
+    if bias is not None:
+        if bias.shape != (c,) or bias.dtype != x.dtype or bias.device != x.device:
+            raise ValueError(f"bias must be ({c},) {x.dtype} on {x.device}, got "
+                             f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
+        bias = bias.contiguous()
+        if bias.data_ptr() % 16:
+            bias = bias.clone()
+    m = None if mask is None else mask.contiguous()
+    out = torch.empty((b, t, c), dtype=x.dtype, device=x.device)
+    lib = cuda_lib.load_library()
+    cuda_lib.count_launch(depthwise_conv1d, (x,), (k, left_pad, right_pad, generic), m)
+    err = lib.fsmn_depthwise_fwd(
+        _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
+        None if bias is None else bias.data_ptr(), None if m is None else m.data_ptr(),
+        out.data_ptr(), b, t, c, k, left_pad, x.stride(0), x.stride(1), int(generic),
+        cuda_lib.stream_handle(x.device))
+    cuda_lib.check(err, "fsmn_depthwise_fwd")
+    return out
+
+
+depthwise_conv1d.launches = 0

@@ -8,8 +8,9 @@ symmetric int8 weights in torch layout ``(out, in)`` with an fp32 ``scale (out,)
   int8 -> int32 (the compute play for batched offline serving). On CUDA it runs the
   hand-written kernel of ``ops/w8a8.py``.
 
-``quantize_params_int8(model, mode=...)`` swaps every large ``nn.Linear`` of a model in
-place, as the JAX function does to a parameter tree.
+``quantize_params_int8(model, mode=...)`` swaps, in place, the large ``nn.Linear``s that
+the JAX function quantizes in a parameter tree: inside a layer the JAX package stacks for
+``lax.scan``, only those under a known linear name (``LINEAR3_KEYS``).
 
 Numerics copied from the JAX package:
 
@@ -34,6 +35,29 @@ from funasr_tpu_torch.ops.w8a8 import quantize_rows_int8 as _quantize_rows_int8 
 from funasr_tpu_torch.ops.w8a8 import w8a8_linear
 
 _KEYS = {"weight_only": "w_q", "w8a8": "w_q8"}
+
+# The leaf names the JAX package quantizes inside a scan-stacked layer (``quant.py``'s
+# ``_LINEAR3_KEYS``: a stacked (L, in, out) kernel looks like a conv kernel, so it is
+# quantized only under a known linear name).
+LINEAR3_KEYS = frozenset({
+    "linear_q_k_v", "linear_out", "linear_q", "linear_k_v", "w_1", "w_2",
+    "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj",
+})
+# the layer lists the JAX package stacks for ``lax.scan`` (``convert.py``'s ``_STACKED``)
+STACKED_LISTS = frozenset({"encoders", "decoders", "decoders2", "tp_encoders"})
+
+
+def scan_stacked(model: nn.Module, name: str) -> bool:
+    """Whether the JAX package holds the module ``name`` inside a scan-stacked layer: under
+    an ``nn.ModuleList`` named in ``STACKED_LISTS`` whose owner does not set
+    ``SCAN_STACKED = False`` (the convolution decoders keep a plain list)."""
+    parts = name.split(".")
+    for i in range(1, len(parts)):
+        if parts[i].isdigit() and parts[i - 1] in STACKED_LISTS:
+            owner = model.get_submodule(".".join(parts[: i - 1]))
+            if getattr(owner, "SCAN_STACKED", True):
+                return True
+    return False
 
 
 class Int8Linear(nn.Module):
@@ -129,9 +153,11 @@ def qlinear(mod, x):
 
 def quantize_params_int8(model: nn.Module, min_dim: int = 256,
                          mode: str = "weight_only") -> nn.Module:
-    """Swap, in place and under the same attribute name, every ``nn.Linear`` whose
-    smaller dimension is >= ``min_dim`` and whose qualified name has no ``embed`` for an
-    ``Int8Linear`` (``quant.py::quantize_params_int8``). Returns ``model``.
+    """Swap, in place and under the same attribute name, every ``nn.Linear`` that the JAX
+    package quantizes (``quant.py::quantize_params_int8``) for an ``Int8Linear``: its
+    smaller dimension >= ``min_dim``, no ``embed`` in its qualified name, and, inside a
+    layer the JAX package stacks for ``lax.scan`` (``scan_stacked``), a leaf name in
+    ``LINEAR3_KEYS``. Returns ``model``.
 
     ``mode``: "weight_only" (``w_q``) or "w8a8" (``w_q8``). Under "w8a8" the logits
     projection (``output_layer`` / ``lm_head``) stays weight-only (``w_q``): per-row
@@ -139,7 +165,8 @@ def quantize_params_int8(model: nn.Module, min_dim: int = 256,
     key = _KEYS[mode]
     targets = [(name, mod) for name, mod in model.named_modules()
                if isinstance(mod, nn.Linear) and "embed" not in name
-               and min(mod.in_features, mod.out_features) >= min_dim]
+               and min(mod.in_features, mod.out_features) >= min_dim
+               and (name.rpartition(".")[2] in LINEAR3_KEYS or not scan_stacked(model, name))]
     for name, mod in targets:
         parent_name, _, leaf = name.rpartition(".")
         parent = model.get_submodule(parent_name)

@@ -26,14 +26,17 @@ REGISTRABLE = tuple(f"funasr_tpu_torch.{m}" for m in (
     "models.bicif_paraformer.model",
     "models.campplus.model", "models.contextual_paraformer.model",
     "models.ct_transformer.model", "models.ct_transformer_streaming.model",
+    "models.branchformer.encoder", "models.conformer.encoder", "models.conformer.model",
     "models.ctc.model", "models.e_paraformer.model", "models.fsmn_vad_streaming.model",
     "models.fun_asr_nano.model", "models.llm_asr.model", "models.monotonic_aligner.model",
     "models.paraformer.cif_predictor", "models.paraformer.decoder",
     "models.paraformer.model", "models.paraformer.san_decoder",
     "models.normalize.normalize", "models.paraformer_streaming.model",
     "models.paraformer_v2.model",
+    "models.language_model.transformer_lm",
     "models.seaco_paraformer.model", "models.sanm.encoder", "models.sense_voice.model",
-    "models.specaug.specaug",
+    "models.specaug.specaug", "models.transformer.conv_decoders",
+    "models.transformer.decoder", "models.transformer.encoder", "models.transformer.model",
     "models.whisper.encoders", "models.whisper.model", "tokenizer.char_tokenizer",
     "tokenizer.extra_tokenizers", "tokenizer.hf_tokenizer",
     "tokenizer.sentencepiece_tokenizer", "optimizers", "schedulers", "parity"))

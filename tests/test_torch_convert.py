@@ -34,6 +34,12 @@ def test_import_pulls_in_no_jax():
         "assert 'Paraformer' in tables.model_classes\n"
         "assert {'FunASRNano', 'LLMASR', 'QwenAudio', 'whisper-tiny', 'Whisper-large-v3'} \\\n"
         "    <= set(tables.model_classes)\n"
+        "assert {'Transformer', 'SANM', 'Conformer', 'Branchformer', 'EBranchformer',\n"
+        "        'GLMASR', 'TransformerLM', 'SeqRNNLM'} <= set(tables.model_classes)\n"
+        "assert {'LightweightConvolutionTransformerDecoder', 'TransformerDecoder'} \\\n"
+        "    <= set(tables.decoder_classes)\n"
+        "import funasr_tpu_torch.models.transformer.search\n"
+        "import funasr_tpu_torch.models.transformer.hotword_scorer\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'funasr_tpu' or m.startswith('funasr_tpu.'))\n"
         "assert not bad, bad\n"

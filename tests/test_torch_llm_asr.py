@@ -6,8 +6,8 @@ are a seeded port model's, converted for JAX with ``convert_state_dict(..., "LLM
 
 Held: ``data_template`` and ``data_load_speech`` equal (ids, labels, masks, features);
 generated texts, teacher-forcing loss (within 2e-4) and predictions; ``LLMASRNAR``'s texts;
-``QwenAudio``'s ChatML prompt ids; the class names registered as in JAX, ``GLMASR`` left
-unbound with an error that names ROADMAP item 22.
+``QwenAudio``'s ChatML prompt ids; the class names registered as in JAX, ``GLMASR``
+included.
 """
 
 import wave
@@ -138,13 +138,14 @@ def test_nar_and_qwen_audio_match_jax():
 
 
 def test_family_names_and_glmasr_unbound(tmp_path):
+    # GLMASR is bound since its TransformerEncoder was ported: every name, GLMASR
+    # included, is registered in both packages, and an unknown name still raises
     for name in ("LLMASR", "LLMASR2", "LLMASR3", "LLMASR4", "LLMASRNAR", "LLMASRNARPrompt",
                  "Qwen3ASR", "QwenAudio", "QwenAudioChat", "QwenAudioWarp", "MinMo",
-                 "FunASRNano"):
+                 "FunASRNano", "GLMASR"):
         assert name in tables.model_classes and name in jtables.model_classes, name
-    assert "GLMASR" not in tables.model_classes and "GLMASR" in jtables.model_classes
-    with pytest.raises(RuntimeError, match="item 22"):
-        AutoModel(model="GLMASR", model_conf={}, device="cpu")
+    with pytest.raises(RuntimeError, match="not ported"):
+        AutoModel(model="GLMASRX", model_conf={}, device="cpu")
 
 
 def test_extra_tokenizers_match_jax(tmp_path, monkeypatch):

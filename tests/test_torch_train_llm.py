@@ -604,11 +604,12 @@ def test_bin_train_refuses_whisper(tmp_path):
 
 def test_every_llm_model_trains():
     """No ``forward`` of the family raises: FunASRNano's and Whisper's are the losses, every
-    LLMASR name inherits ``forward_batch``; GLMASR stays unbound (ROADMAP item 22)."""
+    LLMASR name inherits ``forward_batch``, GLMASR (bound since its TransformerEncoder was
+    ported) included."""
     from funasr_tpu_torch.models.fun_asr_nano.model import FunASRNano
     names = [n for n, c in tables.model_classes.items()
              if isinstance(c, type) and issubclass(c, FunASRNano)]
-    assert len(names) >= 12 and "GLMASR" not in tables.model_classes
+    assert len(names) >= 13 and "GLMASR" in names
     for n in names:
         assert callable(getattr(tables.model_classes[n], "forward_batch", None)) \
             or n == "FunASRNano", n
