@@ -17,7 +17,8 @@ kernels, then SenseVoice-Small's and the other models' training losses, then str
 Paraformer's fine-tuning with the flash kernels in chunk mode, then Fun-ASR-Nano's
 fine-tuning at full width with the LLM-ASR family's and Whisper's losses, then the
 Transformer-family AED models (Conformer, E-Branchformer, Paraformer over a Conformer
-encoder) with their depthwise convolutions on the FSMN kernel's plain mode.
+encoder) with their depthwise convolutions on the FSMN kernel's plain mode, then the
+AISHELL Conformer recipe and the transducer training on that mode's backward kernels.
 
     python3 chip_smoke.py
 
@@ -273,10 +274,11 @@ Phases (any failure raises and exits non-zero):
    ``++sharding=dp`` through ``bin/train`` on a seeded Fun-ASR-Nano dir at full width
    (``NANO_FULL``: the 50-block SAN-M, the Linear adaptor, Qwen3-0.6B, all trained in fp32;
    a ``CharTokenizer`` over phase 16's characters) over phase 16's wavs, one epoch of token
-   batches of 6,000 (a mid-epoch checkpoint with its validation, the epoch's, the best 5
-   averaged), gated on a finite loss and acc every step, each step's launches exactly 50
-   flash + 50 flash backward + 50 FSMN + 50 dx + 50 dw and no W8A8, every parameter
-   reached by a gradient in the first checkpoint, and the average generating through
+   batches of 6,000 (the epoch's checkpoint with its validation, the best 5 averaged:
+   the mid-epoch checkpoint was cut for the run's time limit beside phase 21, phase 16's
+   run holds that path), gated on a finite loss and acc every step, each step's launches
+   exactly 50 flash + 50 flash backward + 50 FSMN + 50 dx + 50 dw and no W8A8, every
+   parameter reached by a gradient in the checkpoint, and the average generating through
    ``AutoModel`` with phase 14's ``LLM_CALL`` on 2 x 15 s at 50 flash + 50 FSMN; prints ms
    a step, steps / s, audio seconds a second, peak memory, a profiled step's device time
    and idle share and each checkpoint's seconds; (b) a kernel-vs-plain row at every
@@ -287,12 +289,12 @@ Phases (any failure raises and exits non-zero):
    published widths (d 256, 4 heads, FFN 2,048, 12 encoder + 6 decoder blocks), fp32,
    seeded weights, vocabulary 5,212, each written as a model dir. (a) the Conformer AED
    (conformer_12e_6d_2048_256) through ``AutoModel(model=dir, device="cuda").generate(
-   input=4 waves of 5-8 s, beam_size=5)``: 4 non-empty texts, the FSMN kernel's plain
+   input=2 waves of 5 and 8 s, beam_size=5)``: 2 non-empty texts, the FSMN kernel's plain
    depthwise mode exactly 12 launches an encode (one a convolution module, k 15) and no
    other kernel; wall per utterance, a profiled ``generate`` (device ms, idle share); one
    utterance against the CPU port (``aed_cuda_vs_cpu``: encoder within
    ``AED_ENC_REL_TOL`` relative L2, one-best ids equal). (b) E-Branchformer
-   (e_branchformer_12e_6d_2048_256): a batched encode of the 4 waves at exactly 24
+   (e_branchformer_12e_6d_2048_256): a batched encode of the 2 waves at exactly 24
    plain-mode launches (12 at k 31 with the input mask, 12 at k 3), one utterance through
    ``generate``. (c) the paraformer_conformer_12e_6d_2048_256 recipe's model through
    ``AutoModel(batch_size=8)`` on 8 x 6 s at fp32 and ``quant="w8a8"``: 12 plain-mode
@@ -302,6 +304,39 @@ Phases (any failure raises and exits non-zero):
    plain-mode signature the counted runs launched, fp32 and bf16, each bit-equal, each
    specialised instantiation with the generic one's time beside (``aed_kernel_rows``), and a W8A8 row at
    each new (M, 256, 256), (M, 256, 2,048), (M, 2,048, 256) of (c).
+
+21. AED training (``phase_aed_training``): the depthwise conv's backward kernels
+   (``depthwise_conv1d_bwd_input``: the plain-mode forward on dout, taps reversed, pads
+   swapped, times the input mask; ``depthwise_conv1d_bwd_weight``: dw and db in one
+   deterministic reduction) under two ``bin/train`` subprocesses at once over phase 16's
+   wavs: (a) the AISHELL Conformer recipe as ``examples/aishell/utils/stages.sh`` runs
+   it (stage 1 ``bin/data_tools compute_cmvn``; stage 4 ``bin/train ++model=<conf dir>``,
+   the recipe's config.yaml as it stands beside phase 20's seeded Conformer weights,
+   ``++sharding=dp``, 4 epochs of one batch of 16 wavs; stage 5 ``bin/benchmark
+   ++mode=cer`` from the average on 2 utterances) and (c) a Transducer over
+   ``ChunkConformerEncoder`` (the AISHELL encoder widths, chunk 16, left 4, vocab 4,234)
+   under ``transducer/finetune.sh``'s flags (fsdp on one rank, token batches of 6,000, lr
+   0.0002). Gated on finite losses, each step's launches exactly 12 forward + 12 dx + 12
+   dw (each validation's 12 forwards a batch), every depthwise weight and bias reached by
+   a gradient, a CER report; the trained transducer's greedy decode on the card equal to
+   its chunked ``decode_chunk`` stream (16 frames a chunk) on 2 utterances, and to the CPU
+   port's decisions where the margin clears 10x the logits' error. Meanwhile in this
+   process: one step of the Conformer, Branchformer and E-Branchformer at the recipes'
+   widths cut to 2 + 1 blocks, and of (c)'s Transducer cut to 2 blocks at the full
+   vocabulary, on the card against the CPU port (loss within ``TRAIN_LOSS_RTOL``, every
+   gradient within ``AED_TRAIN_GRAD_REL_TOL``, launches exact, each ReLU pre-activation
+   the card puts on the other side of 0 within ``RELU_CROSS_REL`` of its call's RMS),
+   and (d) BAT (``RWKVEncoder`` 256 x 6) through ``AutoModel.generate`` on 2 x 5 s, texts
+   equal to the CPU port's. (e) A row per backward signature the counted runs launched
+   and per forward signature at the chunk conformer's (15, 14): dx bit-equal, dw and db
+   within 1e-5 relative L2 and bit-equal across two runs, with ``conv1d_input`` /
+   ``conv1d_weight`` + ``.sum`` beside them (``depthwise_bwd_rows``).
+
+``python3 chip_smoke.py --aed-training`` (not part of the run above): phase 21 alone, with
+the wavs and the Conformer dir it reads of phases 16 and 20, both ``bin/train`` runs
+profiling their second step (device ms, idle share; ~40 s of the profiler's own work, so
+the run above skips it), each run alone on the card and the host, one after the other,
+before the rest of the phase; its figures as the last line, one JSON object.
 
 ``python3 chip_smoke.py --recipe-ab [TREE]`` (not part of the run above): the recipe's
 ``bin/train`` six times in one process, alternating this tree with the kernel-shape log on
@@ -336,14 +371,17 @@ of each counted call of an exported program, with the rows at the shapes those c
 launched, and phase 16's under ``training``, with three more kernels, the backward
 launches ``flash_attention_bwd``, ``fsmn_memory_bwd_input`` and ``fsmn_memory_bwd_weight``,
 and phase 17's under ``training_family``, phase 18's under ``streaming_training`` and
-phase 19's under ``llm_training`` in those five (W8A8 too, at 0 launches)), the last line
-``{"ok": true, "device": {...}}``.
+phase 19's under ``llm_training`` in those five (W8A8 too, at 0 launches); phase 20's
+under ``aed`` with a kernel of its own, ``depthwise_conv1d``; phase 21's under
+``aed_training`` there, with two more kernels, ``depthwise_conv1d_bwd_input`` and
+``depthwise_conv1d_bwd_weight``), the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -5125,6 +5163,11 @@ DATA_PARALLEL_LOSS_RTOL = 1e-6
 DATA_PARALLEL_GRAD_REL_TOL = 1e-5
 
 
+def sites_met(launches, sites):
+    """A log line's launches exactly ``sites``, a kernel that neither names at 0."""
+    return all(launches.get(k, 0) == sites.get(k, 0) for k in {*launches, *sites})
+
+
 def train_sites(enc_blocks, dec_blocks):
     """Launches of each kernel in one training step of Paraformer (every decoder layer but
     the last has an FSMN; the glancing sampler's first decoder pass runs them again under
@@ -5869,9 +5912,11 @@ def phase_training(dev, counters, card, keep=None):
         if not resumed or resumed[0]["step"] != steps1[-1]["step"] + 1 or resumed[0]["epoch"] != 1:
             raise AssertionError(f"the resumed run did not go on from step {steps1[-1]['step']}")
         bad = [x["step"] for x in steps if not math.isfinite(x["loss"])]
-        wrong = [(x["step"], x["launches"]) for x in steps if x["launches"] != step_sites]
+        wrong = [(x["step"], x["launches"]) for x in steps
+                 if not sites_met(x["launches"], step_sites)]
         wrong += [("val", x["step"], x["launches"]) for x in vals
-                  if x["launches"] != {k: v * x["batches"] for k, v in val_sites.items()}]
+                  if not sites_met(x["launches"], {k: v * x["batches"]
+                                                   for k, v in val_sites.items()})]
         for x in steps:
             log(f"  step {x['step']} (epoch {x['epoch']}): loss {x['loss']:.4f} loss_att "
                 f"{x['loss_att']:.4f} loss_pre {x['loss_pre']:.4f} acc {x['acc']:.4f} "
@@ -6264,9 +6309,11 @@ def phase_training_family(dev, counters, card):
         run_wall = time.perf_counter() - t0
         steps, vals = read_train_log(out)
         bad = [x["step"] for x in steps if not math.isfinite(x["loss"])]
-        wrong = [(x["step"], x["launches"]) for x in steps if x["launches"] != step_sites]
+        wrong = [(x["step"], x["launches"]) for x in steps
+                 if not sites_met(x["launches"], step_sites)]
         wrong += [("val", x["step"], x["launches"]) for x in vals
-                  if x["launches"] != {k: v * x["batches"] for k, v in val_sites.items()}]
+                  if not sites_met(x["launches"], {k: v * x["batches"]
+                                                   for k, v in val_sites.items()})]
         for x in steps:
             log(f"  step {x['step']}: loss {x['loss']:.4f} loss_ctc {x['loss_ctc']:.4f} "
                 f"loss_rich {x['loss_rich']:.4f} acc_rich {x['acc_rich']:.4f} grad_norm "
@@ -6457,9 +6504,11 @@ def phase_streaming_training(dev, counters, card, keep):
         run_wall = time.perf_counter() - t0
         steps, vals = read_train_log(out)
         bad = [x["step"] for x in steps if not math.isfinite(x["loss"])]
-        wrong = [(x["step"], x["launches"]) for x in steps if x["launches"] != step_sites]
+        wrong = [(x["step"], x["launches"]) for x in steps
+                 if not sites_met(x["launches"], step_sites)]
         wrong += [("val", x["step"], x["launches"]) for x in vals
-                  if x["launches"] != {k: v * x["batches"] for k, v in val_sites.items()}]
+                  if not sites_met(x["launches"], {k: v * x["batches"]
+                                                   for k, v in val_sites.items()})]
         drawn, not_chunk = [], []
         for x in steps + vals:
             configs, all_chunk = chunk_configs(x["kernel_shapes"])
@@ -6547,12 +6596,14 @@ def phase_streaming_training(dev, counters, card, keep):
 
 # fun_asr_nano/finetune.sh's flags (TRAIN_RECIPE, its default ++sharding=fsdp, avg 5) for
 # one epoch of about 4 steps over phase 16's wavs, under torchrun (NANO_TORCHRUN, NCCL on
-# one rank): the mid-epoch checkpoint and its validation at step 3, the profiled step the
-# second, the epoch's checkpoint, the best 5 (of 2) averaged
+# one rank): the profiled step the second, the epoch's checkpoint and its validation, the
+# best 5 (of 1) averaged. No mid-epoch checkpoint (cut for the run's time limit beside
+# phase 21: its 9 GB save, validation and second averaged input cost ~20 s; phase 16's run
+# holds that path)
 NANO_TORCHRUN = ["torch.distributed.run", "--standalone", "--nproc_per_node=1", "-m"]
 NANO_TRAIN_RUN = ["++sharding=fsdp", "++distributed=true", "++train_conf.max_epoch=1",
-                  "++train_conf.save_checkpoint_interval=3", "++train_conf.profile_start_step=1",
-                  "++train_conf.profile_steps=1", "++train_conf.avg_nbest_model=5"]
+                  "++train_conf.profile_start_step=1", "++train_conf.profile_steps=1",
+                  "++train_conf.avg_nbest_model=5"]
 NANO_TRAIN_DECODE = 2      # utterances of 15 s through the averaged checkpoint's generate
 # (c): NANO_FULL's widths and vocabulary at 4 encoder blocks and 2 Qwen3 layers
 LLM_TRAIN_CPU_DEPTH = (4, 2)
@@ -6874,9 +6925,11 @@ def phase_llm_training(dev, counters, card, keep):
         steps, vals = read_train_log(out)
         bad = [x["step"] for x in steps if not (math.isfinite(x["loss"])
                                                  and math.isfinite(x["acc"]))]
-        wrong = [(x["step"], x["launches"]) for x in steps if x["launches"] != step_sites]
+        wrong = [(x["step"], x["launches"]) for x in steps
+                 if not sites_met(x["launches"], step_sites)]
         wrong += [("val", x["step"], x["launches"]) for x in vals
-                  if x["launches"] != {k: v * x["batches"] for k, v in val_sites.items()}]
+                  if not sites_met(x["launches"], {k: v * x["batches"]
+                                                   for k, v in val_sites.items()})]
         for x in steps:
             log(f"  step {x['step']}: loss {x['loss']:.4f} acc {x['acc']:.4f} grad_norm "
                 f"{x['grad_norm']:.3f} peak {x.get('peak_mem_mib', 0):.0f} MiB")
@@ -6885,11 +6938,11 @@ def phase_llm_training(dev, counters, card, keep):
                 f"{x['validate']['loss']:.4f} acc {x['validate']['acc']:.4f}, launches "
                 f"{x['launches']}")
         log(f"  checkpoints written in {ckpt_s} s")
-        if bad or wrong or len(vals) != 2 or len(ckpt_s) != 2:
+        if bad or wrong or len(vals) != 1 or len(ckpt_s) != 1:
             raise AssertionError(f"Fun-ASR-Nano training: non-finite loss / acc at {bad}; "
                                  f"launches off the sites {wrong[:3]}; {len(vals)} "
                                  f"validations; checkpoints {ckpt_s}")
-        first = next(iter(ckpt_s))  # the mid-epoch checkpoint, written first
+        first = next(iter(ckpt_s))  # the epoch's checkpoint
         names, zero = nano_weights_reached(os.path.join(out, first))
         log(f"Fun-ASR-Nano training: {len(names)} parameters checked in {first}, {len(zero)} "
             f"never reached by a gradient")
@@ -6930,7 +6983,7 @@ def phase_llm_training(dev, counters, card, keep):
 
         seconds = recipe_batches(jsonl["train"])[:len(steps)]
         wall = [y["time"] - x["time"] for x, y in zip(steps, steps[1:])
-                if y["step"] != 2 and x["step"] != 3]  # not the profiled step, nor a checkpoint's
+                if y["step"] != 2]  # not the profiled step
         step_ms = statistics.median(wall) * 1e3 if wall else float("nan")
         audio = statistics.mean(seconds)
         with open(os.path.join(profile_dir, "summary.json")) as f:
@@ -6978,7 +7031,7 @@ AED_VOCAB = 5212           # speech_conformer_asr_nat-zh-cn-16k-aishell2-vocab52
 # the recipes' frontend (80 mels, no LFR); dither 0 at inference
 AED_FRONTEND = dict(fs=16000, window="hamming", n_mels=80, frame_length=25, frame_shift=10,
                     lfr_m=1, lfr_n=1, dither=0.0)
-AED_SECONDS = (5.0, 6.2, 7.1, 8.0)  # the four waves of (a) and (b)
+AED_SECONDS = (5.0, 8.0)   # the waves of (a) and (b) (4 of 5-8 s before phase 21 came)
 AED_BEAM = 5               # the Conformer demo's beam_size
 AED_ENC_REL_TOL = 1e-4     # fp32 encoder output, CUDA against the CPU, relative L2 (TF32 off)
 AED_BLOCKS = 12            # plain-mode launches a Conformer encode: one a block
@@ -7045,14 +7098,21 @@ def depthwise_row(x, w, bias, mask, left, right, generic_too=False):
         equal = torch.equal(out, ref)
         err = (out.float() - ref.float()).abs().max().item()
         xm = (x if mask is None else x * mask[..., None].to(x.dtype)).transpose(1, 2).contiguous()
+        if left == right:
+            lib = lambda: F.conv1d(xm, w, bias, padding=left, groups=c)  # noqa: E731
+            lib_call = f"F.conv1d(xm, w, bias, padding={left}, groups=C) on xm (B, C, T)"
+        else:  # the causal pads: an explicit pad, then an unpadded conv
+            lib = lambda: F.conv1d(F.pad(xm, (left, right)), w, bias, groups=c)  # noqa: E731
+            lib_call = (f"F.conv1d(F.pad(xm, ({left}, {right})), w, bias, groups=C) on xm "
+                        "(B, C, T)")
         row = dict(shape=(b, t, c), k=k, pads=(left, right), dtype=str(x.dtype)[6:],
                    masked=mask is not None, max_abs_err=err, bit_equal=equal,
-                   library_call=f"F.conv1d(xm, w, bias, padding={left}, groups=C) on xm (B, C, T)",
+                   library_call=lib_call,
                    ms=device_ms(lambda: depthwise_conv1d(x, w, bias, mask, left, right)),
                    call_ms=call_ms(lambda: depthwise_conv1d(x, w, bias, mask, left, right)),
                    plain_ms=device_ms(lambda: depthwise_conv1d_ref(x, w, bias, mask, left, right),
                                       launches=5),
-                   library_ms=device_ms(lambda: F.conv1d(xm, w, bias, padding=left, groups=c)))
+                   library_ms=device_ms(lib))
         if generic_too:
             row["generic_ms"] = device_ms(
                 lambda: depthwise_conv1d(x, w, bias, mask, left, right, generic=True))
@@ -7201,11 +7261,11 @@ def phase_aed(dev, counters, card, root):
     """Phase 20: the Transformer-family AED models at the AISHELL recipes' published widths,
     fp32, seeded weights (seeded batch-norm statistics), vocabulary 5,212.
     (a) the Conformer AED (conformer_12e_6d_2048_256) from a model dir through
-    ``AutoModel(model=dir, device="cuda").generate(input=4 waves of 5-8 s, beam_size=5)``:
-    4 keyed non-empty texts, the plain-mode depthwise kernel exactly 12 launches an
+    ``AutoModel(model=dir, device="cuda").generate(input=AED_SECONDS's waves, beam_size=5)``:
+    a keyed non-empty text a wave, the plain-mode depthwise kernel exactly 12 launches an
     encode, no other kernel; wall per utterance, one profiled ``generate`` (device ms,
     idle share); the CPU port on one utterance (``aed_cuda_vs_cpu``). (b) E-Branchformer
-    (e_branchformer_12e_6d_2048_256): one batched encode of the same 4 waves, exactly 24
+    (e_branchformer_12e_6d_2048_256): one batched encode of the same waves, exactly 24
     plain-mode launches (12 at k 31 with the input mask, 12 at k 3), and one utterance
     through ``generate``. (c) the paraformer_conformer_12e_6d_2048_256 recipe's model
     (Paraformer + ConformerEncoder + ParaformerSANDecoder + CifPredictor) through
@@ -7249,16 +7309,18 @@ def phase_aed(dev, counters, card, root):
     cuda_lib.stop_recording_launch_shapes()
     fig["launches"]["conformer"] = launches
     texts = [r["text"] for r in results]
-    log(f"AED (a) Conformer generate, 4 waves ({seconds:g} s), beam {AED_BEAM}: {len(encodes)} "
-        f"encodes, launches {launches}; wall {wall:.2f} s, {wall / 4:.2f} s an utterance, "
+    n_waves = len(waves)
+    log(f"AED (a) Conformer generate, {n_waves} waves ({seconds:g} s), beam {AED_BEAM}: "
+        f"{len(encodes)} encodes, launches {launches}; wall {wall:.2f} s, "
+        f"{wall / n_waves:.2f} s an utterance, "
         f"RTFx {seconds / wall:.2f}; text lengths {[len(t) for t in texts]} on {card}")
-    if len(results) != 4 or not all(isinstance(t, str) and t for t in texts):
+    if len(results) != n_waves or not all(isinstance(t, str) and t for t in texts):
         raise AssertionError(f"the Conformer AED gave {texts}")
     want = dict({c.__name__: 0 for c in counters}, depthwise_conv1d=AED_BLOCKS * len(encodes))
-    if len(encodes) != 4 or launches != want:
+    if len(encodes) != n_waves or launches != want:
         raise AssertionError(f"the Conformer AED's launches {launches} over {len(encodes)} "
                              f"encodes, expected {want}")
-    fig["wall_s_per_utterance"] = wall / 4
+    fig["wall_s_per_utterance"] = wall / n_waves
     signatures = dict(sorted(depthwise_signatures(shapes),
                              key=lambda kv: kv[1]["tensors"][0][0][1])[-1:])
     fig["main_label"] = f"{next(iter(signatures))}_float32"
@@ -7387,6 +7449,729 @@ def phase_aed(dev, counters, card, root):
     return fig
 
 
+# ---- phase 21: training the Conformer family and the transducer -----------------------
+
+AISHELL_CONFS = {name: f"examples/aishell/{name}/conf/{name}_12e_6d_2048_256/config.yaml"
+                 for name in ("conformer", "branchformer", "e_branchformer")}
+# stage 4's flags (examples/aishell/utils/stages.sh:84-95) beside the recipe's config.yaml:
+# dp on one rank; 4 epochs of one batch each (the 16 wavs of phase 16 are one batch of the
+# recipe's EspnetStyleBatchSampler at batch_type length, 25,000); the second step profiled
+AED_TRAIN_RUN = ["++sharding=dp", "++train_conf.max_epoch=4", "++train_conf.log_interval=1",
+                 "++train_conf.use_tensorboard=False", "++train_conf.log_kernel_shapes=True",
+                 "++train_conf.profile_start_step=1", "++train_conf.profile_steps=1"]
+# the transducer's finetune.sh flags (fsdp on one rank, token batches of 6,000, lr 0.0002):
+# one epoch of phase 16's wavs, about 4 steps
+TRANSDUCER_TRAIN_RUN = ["++sharding=fsdp", "++dataset_conf.batch_size=6000",
+                        "++dataset_conf.batch_type=token", "++optim_conf.lr=0.0002",
+                        "++train_conf.max_epoch=1", "++train_conf.keep_nbest_models=10",
+                        "++train_conf.avg_nbest_model=5", "++train_conf.log_interval=1",
+                        "++train_conf.use_tensorboard=False",
+                        "++train_conf.log_kernel_shapes=True",
+                        "++train_conf.profile_start_step=1", "++train_conf.profile_steps=1"]
+TRANSDUCER_VOCAB = 4234    # speech_bat_asr-zh-cn-16k-aishell1-vocab4234
+# the AISHELL Conformer encoder's widths, chunk-causal (chunk 16, 4 chunks of left context),
+# and the JAX package's prediction net and joint (transducer/model.py:68-75)
+TRANSDUCER_ENCODER = dict(AED_ENCODER, chunk_size=16, left_chunks=4)
+TRANSDUCER_PRED = dict(decoder_conf=dict(embed_size=256, hidden_size=256, num_layers=1),
+                       joint_network_conf=dict(joint_space_size=640))
+RWKV_ENCODER = dict(output_size=256, num_blocks=6, ffn_mult=4)  # the JAX package's defaults
+AED_TRAIN_CPU_DEPTH = (2, 1)   # encoder / decoder blocks of the CUDA-vs-CPU steps
+AED_TRAIN_T = (6.0, 4.2)       # seconds of each step's 2 utterances
+AED_TRAIN_TEXT = (24, 17)      # their target tokens
+AED_TRAIN_GRAD_REL_TOL = 1e-4  # each gradient, CUDA against the CPU, relative L2
+# a ReLU pre-activation the card puts on the other side of 0 than the CPU must lie within
+# this share of its call's RMS of 0: a rounding difference, not another linear piece
+RELU_CROSS_REL = 1e-4
+BAT_SECONDS = (5.0, 5.0)
+AED_TEST_SECONDS = (4.0, 4.5)  # stage 5's 2 test utterances (random texts of the vocabulary)
+TRANSDUCER_DECODE = 2          # utterances of the transducer's greedy and chunked decodes
+TRANSDUCER_MARGIN_FACTOR = 10  # ids gated where the top-2 margin clears 10x the logit error
+DEPTHWISE_BWD_REL_TOL = 1e-5   # dw and db against their plain version, relative L2 (fp32)
+DEPTHWISE_SIGNATURES = ("depthwise_conv1d", "depthwise_conv1d_bwd_input",
+                        "depthwise_conv1d_bwd_weight")
+
+
+def aed_train_sites(blocks, convs=1):
+    """Launches of each depthwise kernel in one training step of a model whose encoder
+    runs ``convs`` depthwise convs a block (forward, dx, dw + db each), and in one
+    validation batch (the forwards)."""
+    n = blocks * convs
+    step = {"depthwise_conv1d": n, "depthwise_conv1d_bwd_input": n,
+            "depthwise_conv1d_bwd_weight": n}
+    return step, dict(step, depthwise_conv1d_bwd_input=0, depthwise_conv1d_bwd_weight=0)
+
+
+def depthwise_dw_work(b, t, c, k, masked):
+    """Bytes and flops of the weight and bias gradients: x and dout read once, the mask,
+    dw and db written; 2 k flops a value for the taps, one for the bias."""
+    n_bytes = 4 * (2 * b * t * c + c * k + c) + (b * t if masked else 0)
+    return n_bytes, (2 * k + 1) * b * t * c
+
+
+def depthwise_bwd_rows(dev, shapes):
+    """(e) One row per backward signature the counted runs launched (``{(kernel, ((shape,
+    strides), ...), args): {"launches", "lengths"}}``, as ``recipe_launch_shapes`` gives
+    them), at the recorded strides and lengths: dx bit-equal to
+    ``depthwise_conv1d_bwd_input_ref``; dw and db within DEPTHWISE_BWD_REL_TOL relative L2
+    of ``depthwise_conv1d_bwd_weight_ref`` and bit-equal across two runs; the kernel's ms,
+    a lone call's, the plain version's, the library call's (``torch.nn.grad.conv1d_input``
+    times the mask; ``conv1d_weight`` and ``.sum`` for db, on the (B, C, T) tensors, the
+    asymmetric pads as an explicit ``F.pad``) and the bytes bound. -> {kernel: {label:
+    row}}."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv1d_input, conv1d_weight
+    from funasr_tpu_torch.ops.fsmn import (depthwise_conv1d_bwd_input,
+                                           depthwise_conv1d_bwd_input_ref,
+                                           depthwise_conv1d_bwd_weight,
+                                           depthwise_conv1d_bwd_weight_ref)
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows = {}
+    for (name, tensors, args), info in sorted(shapes.items(), key=str):
+        if name not in DEPTHWISE_SIGNATURES[1:]:
+            continue
+        (b, t, c), stride = tensors[0]
+        k = args[0]
+        # dx's recorded pads are its kernel's (swapped); dw's the forward's
+        left, right = (args[2], args[1]) if name == "depthwise_conv1d_bwd_input" else args[1:3]
+        lens = info["lengths"]
+        mask = (None if lens is None else
+                torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None])
+        m = (torch.ones(b, t, device=dev) if mask is None else mask.float())[:, None, :]
+        w = (torch.rand(c, 1, k, generator=g, device=dev) * 2 - 1) / k ** 0.5
+        # the recorded tensors at their strides: dx's dout; dw's x, then dout
+        first = strided_randn((b, t, c), stride, torch.float32, g, dev)
+        label = f"{b}x{t}x{c}_k{k}_pads{left}-{right}{'_masked' if mask is not None else ''}"
+        with torch.inference_mode():
+            if name == "depthwise_conv1d_bwd_input":
+                dout = first
+                g_bct = dout.transpose(1, 2).contiguous()
+                fn = lambda: depthwise_conv1d_bwd_input(dout, w, mask, left, right)  # noqa: E731
+                got, ref = fn(), depthwise_conv1d_bwd_input_ref(dout, w, mask, left, right)
+                equal = torch.equal(got, ref)
+                err = (got - ref).abs().max().item()
+                ok = equal
+                if left == right:
+                    lib = lambda: conv1d_input((b, c, t), w, g_bct, padding=left, groups=c) * m  # noqa: E731
+                    lib_call = f"torch.nn.grad.conv1d_input(x.shape, w, g, padding={left}, groups=C) * m"
+                else:
+                    lib = lambda: conv1d_input((b, c, t + k - 1), w, g_bct, groups=c)[..., left:left + t] * m  # noqa: E731
+                    lib_call = ("torch.nn.grad.conv1d_input((B, C, T + k - 1), w, g, groups=C)"
+                                f"[..., {left}:{left} + T] * m")
+                row = dict(bit_equal=equal, max_abs_err=err,
+                           plain_ms=quick_ms(lambda: depthwise_conv1d_bwd_input_ref(
+                               dout, w, mask, left, right)))
+                work = depthwise_work(b, t, c, k, 4, False, mask is not None)
+            else:
+                x, dout = first, strided_randn((b, t, c), tensors[1][1], torch.float32, g, dev)
+                g_bct = dout.transpose(1, 2).contiguous()
+                x_bct = (x.transpose(1, 2) * m).contiguous()
+                fn = lambda: depthwise_conv1d_bwd_weight(x, dout, mask, left, right)  # noqa: E731
+                (dw, db), (dw2, db2) = fn(), fn()
+                want_dw, want_db = depthwise_conv1d_bwd_weight_ref(x, dout, mask, left, right)
+                rel = max(rel_l2(dw, want_dw), rel_l2(db, want_db))
+                det = torch.equal(dw, dw2) and torch.equal(db, db2)
+                err = max((dw - want_dw).abs().max().item(), (db - want_db).abs().max().item())
+                ok = rel <= DEPTHWISE_BWD_REL_TOL and det
+                xp = x_bct if left == right else F.pad(x_bct, (left, right))
+                pad = left if left == right else 0
+                lib = lambda: (conv1d_weight(xp, w.shape, g_bct, padding=pad, groups=c),  # noqa: E731
+                               g_bct.sum((0, 2)))
+                lib_call = (f"torch.nn.grad.conv1d_weight(xm, w.shape, g, padding={pad}, "
+                            f"groups=C) and g.sum((0, 2)) on (B, C, T)"
+                            + ("" if left == right else f", xm padded ({left}, {right})"))
+                row = dict(rel_l2=rel, deterministic=det, max_abs_err=err,
+                           plain_ms=quick_ms(lambda: depthwise_conv1d_bwd_weight_ref(
+                               x, dout, mask, left, right)))
+                work = depthwise_dw_work(b, t, c, k, mask is not None)
+            row.update(shape=(b, t, c), k=k, pads=(left, right), strides=[st for _, st in tensors],
+                       masked=mask is not None, launches=info["launches"], library_call=lib_call,
+                       ms=device_ms(fn), call_ms=call_ms(fn), library_ms=device_ms(lib))
+        row["bound_ms"], row["bound_by"] = bound_ms(*work, "fp32")
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        log(f"{name} {label}: " + (f"bit-equal {row['bit_equal']}" if "bit_equal" in row else
+                                   f"rel L2 {row['rel_l2']:.2e} deterministic "
+                                   f"{row['deterministic']}")
+            + f" (max_abs_err {err:.3e}); " + timing_line(row) + f"; {info['launches']} launches")
+        if not ok:
+            raise AssertionError(f"{name} {label} disagrees with its plain version: {row}")
+        rows.setdefault(name, {})[label] = row
+    return rows
+
+
+def aed_train_batch(conf, rng):
+    """The CUDA-vs-CPU steps' batch: 2 utterances of AED_TRAIN_T seconds through the
+    recipes' frontend, AED_TRAIN_TEXT random targets."""
+    from funasr_tpu_torch.frontends.wav_frontend import WavFrontend
+
+    waves = [pcm(rng, s) for s in AED_TRAIN_T]
+    feats, flens = WavFrontend(**AED_FRONTEND).extract(waves)
+    tl = torch.tensor(AED_TRAIN_TEXT)
+    text = torch.full((2, max(AED_TRAIN_TEXT)), -1, dtype=torch.long)
+    for i, n in enumerate(AED_TRAIN_TEXT):
+        text[i, :n] = torch.from_numpy(rng.integers(3, conf["vocab_size"] - 1, n))
+    return (torch.from_numpy(np.ascontiguousarray(feats)), torch.from_numpy(flens), text, tl)
+
+
+@contextlib.contextmanager
+def shared_relu_masks(masks, record):
+    """``PositionwiseFeedForward`` (the ReLU FFN of the decoders and the E-Branchformer's
+    macaron pair) with its ReLU as h * mask: while ``record``, each call's mask h > 0 is
+    appended to ``masks``; else each call takes the next of ``masks`` (the other device's
+    step), counts in ``masks.crossed`` the pre-activations whose own sign differs and keeps
+    in ``masks.worst`` the largest |h| among them over the call's RMS of h (the caller
+    holds it to RELU_CROSS_REL). On the recording device the values and gradients are
+    ReLU's bit for bit. So both devices' steps follow one linear piece of each ReLU: a
+    pre-activation within rounding of 0 may otherwise fall on the other side on the card
+    (one such element in a block moved the E-Branchformer's FFN weight gradients by 2e-4
+    relative L2 against fp64, the CPU's by 3e-7, on an NVIDIA H100)."""
+    from funasr_tpu_torch.core import layers
+
+    orig = layers.PositionwiseFeedForward.forward
+    taken = iter(list(masks))
+
+    def forward(self, x):
+        h = layers.apply_linear(self.w_1, x)
+        if record:
+            m = h > 0
+            masks.append(m.detach())
+        else:
+            m = next(taken).to(h.device)
+            crossed = (h > 0) != m
+            n = int(crossed.sum())
+            if n:
+                masks.crossed += n
+                hd = h.detach()
+                rms = hd.double().square().mean().sqrt()
+                masks.worst = max(masks.worst, float(hd[crossed].abs().max() / rms))
+        return layers.apply_linear(self.w_2, h * m.to(h.dtype))
+
+    layers.PositionwiseFeedForward.forward = forward
+    try:
+        yield masks
+    finally:
+        layers.PositionwiseFeedForward.forward = orig
+
+
+class Masks(list):
+    """The ReLU masks ``shared_relu_masks`` records, the crossings it counts and the
+    largest crossed |h| over its call's RMS."""
+    crossed = 0
+    worst = 0.0
+
+
+def aed_step_cuda_vs_cpu(dev, counters, name, model_name, conf, convs):
+    """One training step (loss + backward) on the card and on the CPU, the same weights
+    and batch, dropout and SpecAug off (no generator), the card's ReLU FFNs on the CPU's
+    linear pieces (``shared_relu_masks``: each crossing within RELU_CROSS_REL of 0), shapes
+    recorded: the loss within TRAIN_LOSS_RTOL, every gradient within AED_TRAIN_GRAD_REL_TOL
+    relative L2 (``grad_rel_errors``), launches exactly ``aed_train_sites``, every depthwise
+    weight and bias gradient non-zero on the card. The encoder is cut to
+    AED_TRAIN_CPU_DEPTH[0] blocks, an attention decoder to [1] (a transducer keeps its
+    one-layer prediction net). -> (figures, the card's recorded signatures)."""
+    from funasr_tpu_torch import tables
+    from funasr_tpu_torch.ops import cuda_lib
+
+    enc_n, dec_n = AED_TRAIN_CPU_DEPTH
+    cut = {"num_blocks": dec_n} if "num_blocks" in conf["decoder_conf"] else {}
+    conf = dict(conf, encoder_conf=dict(conf["encoder_conf"], num_blocks=enc_n),
+                decoder_conf=dict(conf["decoder_conf"], **cut))
+    cpu = tables.model_classes[model_name](**conf, generator=torch.Generator().manual_seed(21))
+    seed_batchnorm(cpu, 21)
+    gpu = copy.deepcopy(cpu).to(dev)
+    batch = aed_train_batch(conf, np.random.default_rng(21))
+    out = {}
+    masks = Masks()
+    for label, model in (("cpu", cpu), ("cuda", gpu)):
+        model.train()
+        d = next(model.parameters()).device
+        for c in counters:
+            c.launches = 0
+        if label == "cuda":
+            cuda_lib.record_launch_shapes()
+        with shared_relu_masks(masks, record=label == "cpu"):
+            loss, _, _ = model(*(x.to(d) for x in batch))
+            loss.backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        out[label] = (loss.item(), {n: p.grad for n, p in model.named_parameters()},
+                      {c.__name__: c.launches for c in counters})
+    shapes = cuda_lib.take_launch_shapes()
+    cuda_lib.stop_recording_launch_shapes()
+    (cl, cg, _), (gl, gg, launches) = out["cpu"], out["cuda"]
+    worst, worst_name, bad = grad_rel_errors(cg, gg)
+    sites, _ = aed_train_sites(enc_n, convs)
+    zero = [n for n, gr in gg.items() if "conv" in n and ("depthwise" in n or "conv_gate" in n
+                                                           or "csgu.conv" in n)
+            and gr is not None and gr.abs().max() == 0]
+    log(f"{name} training step CUDA vs CPU (the recipe's widths, {enc_n} + {dec_n} blocks, 2 x "
+        f"{AED_TRAIN_T} s): loss {gl:.7f} vs {cl:.7f} (rel {abs(gl - cl) / abs(cl):.2e}, tol "
+        f"{TRAIN_LOSS_RTOL:g}); worst gradient rel L2 {worst:.2e} ({worst_name}, tol "
+        f"{AED_TRAIN_GRAD_REL_TOL:g}); launches {launches} (sites {sites}); {len(masks)} ReLU "
+        f"FFN calls on the CPU's pieces, {masks.crossed} pre-activations on the other side "
+        f"on the card, the largest {masks.worst:.2e} of its call's RMS (tol {RELU_CROSS_REL:g})")
+    if masks.worst > RELU_CROSS_REL:
+        raise AssertionError(f"{name} training step: the card puts a ReLU pre-activation "
+                             f"{masks.worst:.2e} of its call's RMS on the other side of 0")
+    if abs(gl - cl) > TRAIN_LOSS_RTOL * abs(cl) or not worst <= AED_TRAIN_GRAD_REL_TOL or bad:
+        top = sorted(((rel_l2(gg[n].cpu(), g), n) for n, g in cg.items()
+                      if g is not None and g.norm() > 0), reverse=True)[:5]
+        log("  the worst gradients: " + "; ".join(f"{n} {r:.2e}" for r, n in top))
+        raise AssertionError(f"{name} training step: CUDA disagrees with the CPU ({bad[:4]})")
+    if not sites_met(launches, sites) or zero:
+        raise AssertionError(f"{name} training step: launches {launches} (sites {sites}); "
+                             f"zero depthwise gradients {zero[:4]}")
+    return dict(loss_cuda=gl, loss_cpu=cl, worst_grad_rel_l2=worst, worst_param=worst_name,
+                launches=launches, depth=AED_TRAIN_CPU_DEPTH, relu_calls=len(masks),
+                relu_crossed=masks.crossed, relu_crossed_worst=masks.worst), shapes
+
+
+def write_recipe_dir(d, recipe, model_pt, tokens):
+    """An AISHELL recipe's conf dir as stage 4 passes it (``++model=<conf dir>``): the
+    recipe's config.yaml as it stands, with a model.pt of starting weights beside it."""
+    os.makedirs(d)
+    here = os.path.dirname(os.path.abspath(__file__))
+    shutil.copy(os.path.join(here, AISHELL_CONFS[recipe]), os.path.join(d, "config.yaml"))
+    shutil.copy(model_pt, os.path.join(d, "model.pt"))
+    shutil.copy(tokens, os.path.join(d, "tokens.txt"))
+    return d
+
+
+def write_transducer_dir(d, dev, model_name="Transducer", encoder="ChunkConformerEncoder",
+                         encoder_conf=TRANSDUCER_ENCODER, sharpen=1.0):
+    """A transducer dir: config.yaml (the AISHELL frontend, ``CharTokenizer``), seeded
+    weights, tokens.txt of TRANSDUCER_VOCAB; ``sharpen`` scales the joint's output layer
+    so that seeded weights emit with clear margins."""
+    import yaml
+    from funasr_tpu_torch import tables
+
+    os.makedirs(d, exist_ok=True)
+    conf = dict(input_size=80, vocab_size=TRANSDUCER_VOCAB, encoder=encoder,
+                encoder_conf=encoder_conf, **TRANSDUCER_PRED)
+    model = tables.model_classes[model_name](
+        **conf, device=dev, generator=torch.Generator(device=dev).manual_seed(24))
+    seed_batchnorm(model, 24)
+    with torch.no_grad():
+        model.joint_network.lin_out.weight.mul_(sharpen)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(d, "model.pt"))
+    tokens = (["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(TRANSDUCER_VOCAB - 4)]
+              + ["<unk>"])
+    with open(os.path.join(d, "tokens.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(tokens) + "\n")
+    cfg = dict(model=model_name, encoder=encoder, encoder_conf=encoder_conf, **TRANSDUCER_PRED,
+               frontend="WavFrontend", frontend_conf=dict(AED_FRONTEND, dither=1.0),
+               tokenizer="CharTokenizer",
+               tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>"))
+    with open(os.path.join(d, "config.yaml"), "w", encoding="utf-8") as f:
+        yaml.safe_dump(cfg, f, allow_unicode=True)
+    del model
+    return d
+
+
+def transducer_decisions(model, enc, n, forced=None):
+    """The host oracle's decisions over enc (T, D) (one frame and symbol at a time, at most
+    3 a frame), each decision's joint logits (fp32, on the host), and the tokens: its own
+    argmax, or ``forced`` (another device's tokens, replayed on this model's state)."""
+    logits_all, tokens, i = [], [], 0
+    with torch.inference_mode():
+        pred, states = model._start(1)
+        for t in range(n):
+            for _ in range(3):
+                logits = model.joint_network(enc[t].float()[None], pred)[0]
+                logits_all.append(logits.cpu())
+                tok = int(logits.argmax()) if forced is None else forced[i]
+                tokens.append(tok)
+                i += 1
+                if tok == model.blank_id:
+                    break
+                pred, states = model.decoder.step(
+                    torch.full((1,), tok, dtype=torch.int32, device=enc.device), states)
+    return torch.stack(logits_all), tokens
+
+
+def balance_blank(model, enc):
+    """Lower the joint's blank logit by the median, over enc's frames (T, D), of blank's
+    lead over the best other token at the start state: about half of the first decisions
+    then emit. 4 steps of training from seeded weights emit blanks only, seeded weights a
+    token at nearly every decision (BAT's 1,494 tokens over 2 x 500 frames), and either
+    would hold the streamed ids to the offline ones trivially.
+    -> the shift."""
+    b = model.blank_id
+    with torch.inference_mode():
+        pred, _ = model._start(1)
+        logits = model.joint_network(enc.float(), pred)
+        other = torch.cat([logits[:, :b], logits[:, b + 1:]], dim=1).amax(-1)
+        shift = float((logits[:, b] - other).median())
+    with torch.no_grad():
+        model.joint_network.lin_out.bias[b] -= shift
+    return shift
+
+
+def transducer_decode_checks(dev, am, waves):
+    """(c) The trained transducer on TRANSDUCER_DECODE utterances, each alone: the batched
+    greedy decode on the card (``greedy_decode``, one host copy) over the chunk-causal
+    offline encoder output; ``decode_chunk`` over the same utterance's subsampled frames,
+    16 a chunk, whose joined emissions must equal those ids (JAX's contract); the CPU
+    port's encoder and decisions, replayed on the card along the CPU's tokens: ids equal
+    wherever the CPU's top-2 margin clears TRANSDUCER_MARGIN_FACTOR x the logits' error.
+    The joint's blank logit is first balanced (``balance_blank``) on the first utterance,
+    and at least one token must be emitted."""
+    gpu = am.model
+    enc_mod = gpu.encoder
+    feats, flens = am.kwargs["frontend"].extract(waves[:1], device=dev)
+    with torch.inference_mode():
+        enc, elens = gpu.encoder(feats[:, : int(flens.max())], flens)
+    shift = balance_blank(gpu, enc[0, : int(elens[0])])
+    log(f"transducer decode: the blank logit lowered by {shift:.3f}")
+    cpu = copy.deepcopy(gpu).cpu()
+    fig = []
+    for i, wave in enumerate(waves):
+        feats, flens = am.kwargs["frontend"].extract([wave], device=dev)
+        feats = feats[:, : int(flens.max())]
+        with torch.inference_mode():
+            enc, elens = gpu.encoder(feats, flens)
+            t0 = time.perf_counter()
+            ids = gpu.greedy_decode(enc, elens)[0]
+            greedy_s = time.perf_counter() - t0
+            x, xl = enc_mod.embed(feats, flens, add_pe=False)
+            x = x * enc_mod.cfg.output_size ** 0.5
+            state = gpu.init_stream(1)
+            t0 = time.perf_counter()
+            n = int(xl[0])
+            for s in range(0, n, enc_mod.chunk_size):
+                gpu.decode_chunk(x[:, s: min(s + enc_mod.chunk_size, n)], state)
+            stream_s = time.perf_counter() - t0
+            cenc, celens = cpu.encoder(feats.cpu(), flens.cpu())
+        streamed = state["tokens"][0]
+        t_out = int(elens[0])
+        clog, ctoks = transducer_decisions(cpu, cenc[0], t_out)
+        glog, _ = transducer_decisions(gpu, enc[0], t_out, forced=ctoks)
+        err = (glog - clog).abs().max().item()
+        top2 = clog.topk(2, dim=-1).values
+        sure = top2[:, 0] - top2[:, 1] > TRANSDUCER_MARGIN_FACTOR * err
+        same = glog.argmax(-1) == clog.argmax(-1)
+        cpu_ids = [tk for tk in ctoks if tk != gpu.blank_id]
+        r = dict(frames=t_out, tokens=len(ids), stream_equal=streamed == ids,
+                 ids_equal_cpu=cpu_ids == ids, logit_err=err, decisions=len(ctoks),
+                 sure=int(sure.sum()), sure_equal=bool(same[sure].all()),
+                 greedy_s=greedy_s, stream_s=stream_s,
+                 enc_rel_l2=rel_l2(enc[0, :t_out].cpu(), cenc[0, :t_out]))
+        log(f"transducer decode {i} ({len(wave) / 16000:.1f} s, T' {t_out}): {len(ids)} ids in "
+            f"{greedy_s:.2f} s (greedy on the card), chunked stream {stream_s:.2f} s equal "
+            f"{r['stream_equal']}; CPU port: encoder rel L2 {r['enc_rel_l2']:.2e}, logit "
+            f"max_abs_err {err:.3e}, ids equal {r['ids_equal_cpu']}, equal on {r['sure']} of "
+            f"{len(ctoks)} decisions whose margin clears {TRANSDUCER_MARGIN_FACTOR}x that: "
+            f"{r['sure_equal']}")
+        if not (r["stream_equal"] and r["sure_equal"]):
+            raise AssertionError(f"transducer decode {i}: {r}")
+        fig.append(r)
+    del cpu
+    if not any(r["tokens"] for r in fig):
+        raise AssertionError(f"the transducer decodes emitted nothing: {fig}")
+    return dict(blank_shift=shift, utterances=fig)
+
+
+def bat_generate(dev, root):
+    """(d) BAT over RWKVEncoder at the JAX package's defaults (256 x 6 blocks, ffn x4),
+    vocab 4,234, seeded weights (the joint sharpened x8), through ``AutoModel.generate`` on
+    2 x 5 s on the card and on the CPU: texts equal, launches of the port's kernels 0."""
+    from funasr_tpu_torch import AutoModel
+
+    d = write_transducer_dir(os.path.join(root, "bat"), dev, "BAT", "RWKVEncoder",
+                             RWKV_ENCODER, sharpen=8.0)
+    rng = np.random.default_rng(25)
+    waves = [pcm(rng, s) for s in BAT_SECONDS]
+    out = {}
+    for device in ("cuda", "cpu"):
+        am = AutoModel(model=d, device=device, log_level="WARNING")
+        if device == "cuda":
+            am.generate(input=waves[:1])  # warm-up
+        t0 = time.perf_counter()
+        res = am.generate(input=waves)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[device] = ([r["text"] for r in res], time.perf_counter() - t0)
+        del am
+    equal = out["cuda"][0] == out["cpu"][0]
+    log(f"BAT (RWKV 256 x 6) generate 2 x {BAT_SECONDS[0]:g} s: cuda {out['cuda'][1]:.2f} s, cpu "
+        f"{out['cpu'][1]:.2f} s; text lengths {[len(t) for t in out['cuda'][0]]}; texts equal "
+        f"{equal}")
+    if not equal or not all(out["cuda"][0]):
+        raise AssertionError(f"BAT on CUDA disagrees with the CPU port: {out}")
+    return dict(texts_equal=equal, text_lengths=[len(t) for t in out["cuda"][0]],
+                cuda_s=out["cuda"][1], cpu_s=out["cpu"][1])
+
+
+def depthwise_reached(ckpt_path):
+    """From a checkpoint's Adam state: the depthwise weights and biases that never had a
+    non-zero gradient, and how many were checked."""
+    state = torch.load(ckpt_path, map_location="cpu", weights_only=True, mmap=True)
+    # the parameters' names in the optimizer's order: the state dict without the batch
+    # norms' buffers
+    names = [n for n in state["state_dict"] if not n.endswith(
+        ("running_mean", "running_var", "num_batches_tracked"))]
+    opt = state["optimizer"]
+    params = [i for g in opt["param_groups"] for i in g["params"]]
+    if len(params) != len(names):
+        raise AssertionError(f"{len(params)} optimizer params for {len(names)} parameters")
+    checked, zero = 0, []
+    for idx, name in zip(params, names):
+        if "depthwise_conv." not in name:
+            continue
+        checked += 1
+        if opt["state"][idx]["exp_avg_sq"].abs().max() == 0:
+            zero.append(name)
+    return checked, zero
+
+
+def recipe_run_figures(label, out, step_sites, val_sites, card):
+    """A bin/train run's log: finite losses, each step's and validation's depthwise
+    launches exactly its sites, the profiled step's device ms and idle share, the host
+    time of train_step (``step_time``), peak memory -> (figures, steps, validations)."""
+    steps, vals = read_train_log(out)
+    bad = [x["step"] for x in steps if not math.isfinite(x["loss"])]
+    wrong = [(x["step"], x["launches"]) for x in steps if not sites_met(x["launches"], step_sites)]
+    wrong += [("val", x["step"], x["launches"]) for x in vals
+              if not sites_met(x["launches"], {k: v * x["batches"] for k, v in val_sites.items()})]
+    for x in steps:
+        log(f"  {label} step {x['step']}: loss {x['loss']:.4f} step_time {x['step_time']:.3f} s "
+            f"peak {x.get('peak_mem_mib', 0):.0f} MiB launches "
+            f"{ {k: v for k, v in x['launches'].items() if v} }")
+    if bad or wrong or not steps:
+        raise AssertionError(f"{label}: non-finite loss at {bad}; launches off the sites "
+                             f"{wrong[:3]} ({len(steps)} steps)")
+    host = [x["step_time"] * 1e3 for x in steps[2:]] or [steps[-1]["step_time"] * 1e3]
+    fig = dict(steps=len(steps), validations=len(vals), step_time_ms=statistics.median(host),
+               peak_mem_mib=max(x.get("peak_mem_mib", 0) for x in steps),
+               launches={k: sum(x["launches"].get(k, 0) for x in steps + vals)
+                         for k in DEPTHWISE_SIGNATURES},
+               launches_per_step=step_sites)
+    profiled = ""
+    summary = os.path.join(out, "profile", "summary.json")
+    if os.path.exists(summary):  # the run had a profile_dir
+        with open(summary) as f:
+            prof = json.load(f)
+        fig["profile"] = dict(device_ms=prof["device_ms"], wall_ms=prof["wall_ms"],
+                              idle_share=1 - prof["device_ms"] / prof["wall_ms"])
+        profiled = (f", profiled step device {prof['device_ms']:.1f} ms of "
+                    f"{prof['wall_ms']:.1f} ms wall under the profiler (idle "
+                    f"{fig['profile']['idle_share']:.1%})")
+    log(f"{label} ({card}): {len(steps)} steps, host train_step {fig['step_time_ms']:.1f} ms "
+        f"(median of steps 3 on){profiled}, peak {fig['peak_mem_mib']:.0f} MiB, launches "
+        f"{fig['launches']}")
+    return fig, steps, vals
+
+
+def phase_aed_training(dev, counters, card, keep, profile=False):
+    """Phase 21: the Conformer family's and the transducer's training on the depthwise
+    backward kernels. Two ``bin/train`` subprocesses at once: (a) the AISHELL Conformer
+    recipe (stages 1, 4 and 5 of ``examples/aishell/utils/stages.sh``: ``bin/data_tools
+    compute_cmvn``, ``bin/train`` over a conf dir holding the recipe's config.yaml as it
+    stands and phase 20's seeded Conformer weights (``keep["conformer"]``), ``++sharding=dp``,
+    4 epochs of one batch over phase 16's wavs, then ``bin/benchmark ++mode=cer`` from the
+    average on 2 of them) and (c) a Transducer over ``ChunkConformerEncoder`` (the AISHELL
+    encoder widths, chunk 16, left 4; vocab 4,234) under ``transducer/finetune.sh``'s flags
+    (fsdp on one rank, token batches of 6,000, lr 0.0002), one epoch. Meanwhile in this
+    process: one step of the Conformer, Branchformer and E-Branchformer (the recipes' widths,
+    2 + 1 blocks) and of (c)'s Transducer (2 blocks, the full vocabulary) on the card
+    against the CPU port (``aed_step_cuda_vs_cpu``), and (d) BAT's generate
+    (``bat_generate``). Gates: finite losses, each step's launches exactly 12 forward + 12
+    dx + 12 dw + db (each validation's 12 forwards a batch), every depthwise weight and bias
+    reached by a gradient, a CER report; the transducer's greedy and chunked decodes
+    (``transducer_decode_checks``). Then (e) a row per backward signature the counted runs
+    launched and per forward signature at (15, 14) (``depthwise_bwd_rows``,
+    ``depthwise_row``). ``profile``: each run profiles its second step (``profile_dir``;
+    the profiler's events and trace cost 20-35 s a run, past the phase's budget), and the
+    two runs go one after the other, alone, before the rest of the phase: ``chip_smoke.py
+    --aed-training`` runs the phase so."""
+    import yaml
+    from concurrent.futures import ThreadPoolExecutor
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.ops.fsmn import (depthwise_conv1d, depthwise_conv1d_bwd_input,
+                                           depthwise_conv1d_bwd_weight)
+
+    counters = (*counters, depthwise_conv1d, depthwise_conv1d_bwd_input,
+                depthwise_conv1d_bwd_weight)
+    fig = {"cuda_vs_cpu": {}}
+    tokens, jsonl = keep["train_data"]
+    root = keep["root"]
+    t_part = time.perf_counter()
+    md = write_recipe_dir(os.path.join(root, "aishell_conformer"), "conformer",
+                          os.path.join(keep["conformer"], "model.pt"),
+                          os.path.join(keep["conformer"], "tokens.txt"))
+    td = write_transducer_dir(os.path.join(root, "transducer"), dev)
+    # stage 5's test set: 2 utterances of AED_TEST_SECONDS with random texts
+    rng = np.random.default_rng(28)
+    with open(os.path.join(md, "tokens.txt"), encoding="utf-8") as f:
+        vocab = f.read().split("\n")[3:-2]
+    scp, txt = [], []
+    for i, seconds in enumerate(AED_TEST_SECONDS):
+        path = os.path.join(root, f"test{i}.wav")
+        with open(path, "wb") as f:
+            f.write(wav_bytes(pcm(rng, seconds)))
+        scp.append(f"test{i} {path}")
+        txt.append(f"test{i} " + "".join(vocab[j] for j in rng.integers(0, len(vocab),
+                                                                        int(seconds * 4))))
+    for kind, lines in (("wav.scp", scp), ("text.txt", txt)):
+        with open(os.path.join(root, f"test_{kind}"), "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+    # stage 1 in this process (the function the CLI runs: its ~10 s start-up is phase 16's
+    # and 19's already), before the subprocesses start
+    from funasr_tpu_torch.bin.data_tools import compute_cmvn
+    mvn = os.path.join(root, "am.mvn")
+    compute_cmvn(jsonl=jsonl["train"], out=mvn, dim=80, device=str(dev))
+    out_a, out_c = os.path.join(root, "exp_conformer"), os.path.join(root, "exp_transducer")
+    log(f"AED training: dirs, test set and stage 1's am.mvn written in "
+        f"{time.perf_counter() - t_part:.1f} s")
+
+    def profiled(out):
+        return [f"++train_conf.profile_dir={os.path.join(out, 'profile')}"] if profile else []
+
+    def recipe():
+        t0 = time.perf_counter()
+        run_cli(["funasr_tpu_torch.bin.train", f"++model={md}",
+                 f"++train_data_set_list={jsonl['train']}",
+                 f"++valid_data_set_list={jsonl['val']}",
+                 f"++tokenizer_conf.token_list={os.path.join(md, 'tokens.txt')}",
+                 f"++frontend_conf.cmvn_file={mvn}", *AED_TRAIN_RUN, f"++output_dir={out_a}",
+                 *profiled(out_a)], "bin/train AISHELL Conformer (stage 4)")
+        return time.perf_counter() - t0
+
+    def transducer():
+        t0 = time.perf_counter()
+        run_cli(["funasr_tpu_torch.bin.train", f"++model={td}",
+                 f"++train_data_set_list={jsonl['train']}",
+                 f"++valid_data_set_list={jsonl['val']}", *TRANSDUCER_TRAIN_RUN,
+                 f"++output_dir={out_c}", *profiled(out_c)],
+                "bin/train transducer (finetune.sh's flags)")
+        return time.perf_counter() - t0
+
+    enc_n = AED_ENCODER["num_blocks"]
+    step_sites, val_sites = aed_train_sites(enc_n)
+    here = os.path.dirname(os.path.abspath(__file__))
+    cut_steps = []  # the CUDA-vs-CPU steps: (name, model class, conf, depthwise convs a block)
+    for name, model_name, recipe_name, convs in (
+            ("Conformer", "Conformer", "conformer", 1),
+            ("Branchformer", "Branchformer", "branchformer", 1),
+            ("E-Branchformer", "EBranchformer", "e_branchformer", 2)):
+        with open(os.path.join(here, AISHELL_CONFS[recipe_name]), encoding="utf-8") as f:
+            rc = yaml.safe_load(f)
+        cut_steps.append((name, model_name, dict(
+            input_size=80, vocab_size=AED_VOCAB, encoder=rc["encoder"],
+            encoder_conf=dict(rc["encoder_conf"], dropout_rate=0.0), decoder=rc["decoder"],
+            decoder_conf=dict(rc["decoder_conf"], dropout_rate=0.0), **rc["model_conf"]), convs))
+    # (c)'s model: the chunk conformer's causal conv at (15, 14), the full vocabulary's lattice
+    cut_steps.append(("Transducer", "Transducer", dict(
+        input_size=80, vocab_size=TRANSDUCER_VOCAB, encoder="ChunkConformerEncoder",
+        encoder_conf=dict(TRANSDUCER_ENCODER, dropout_rate=0.0), **TRANSDUCER_PRED), 1))
+    with ThreadPoolExecutor(2) as pool, contextlib.ExitStack() as stack:
+        if profile:
+            # each bin/train alone on the card and the host, one after the other, before
+            # anything else of the phase runs: its profile and step times uncontended
+            runs = []
+            for fn in (recipe, transducer):
+                runs.append(pool.submit(fn))
+                runs[-1].exception()  # waits
+        else:
+            runs = [pool.submit(recipe), pool.submit(transducer)]
+        stack.callback(lambda: [log(f"AED training: a bin/train run failed: {f.exception()}")
+                                for f in runs if f.exception() is not None])
+        # meanwhile (afterwards under ``profile``), the CUDA-vs-CPU steps and BAT here
+        t0 = time.perf_counter()
+        shapes = {}
+        for name, model_name, conf, convs in cut_steps:
+            fig["cuda_vs_cpu"][name], step_shapes = aed_step_cuda_vs_cpu(
+                dev, counters, name, model_name, conf, convs)
+            for e in step_shapes:
+                key = (e["kernel"], tuple((tuple(sh), tuple(st)) for sh, st in e["tensors"]),
+                       tuple(e["args"]))
+                shapes.setdefault(key, dict(launches=0, lengths=e["lengths"]))
+                shapes[key]["launches"] += e["launches"]
+        log(f"AED training: CUDA-vs-CPU steps in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        fig["bat"] = bat_generate(dev, root)
+        log(f"AED training (d): BAT in {time.perf_counter() - t0:.1f} s")
+
+        # (c) the transducer's gates and decodes, while the recipe may still train
+        transducer_s = runs[1].result()
+        fig["transducer"], steps_c, vals_c = recipe_run_figures("transducer", out_c, step_sites,
+                                                                val_sites, card)
+        latest = open(os.path.join(out_c, "model.pt.latest")).read().strip()
+        checked, zero = depthwise_reached(os.path.join(out_c, latest))
+        if zero or checked != 2 * enc_n:
+            raise AssertionError(f"transducer: depthwise without a gradient {zero[:4]}")
+        fig["transducer"].update(run_s=transducer_s, depthwise_checked=checked)
+        am = AutoModel(model=out_c, init_param=os.path.join(out_c, latest), device="cuda",
+                       log_level="WARNING")
+        rng = np.random.default_rng(26)
+        fig["transducer"]["decode"] = transducer_decode_checks(
+            dev, am, [pcm(rng, s) for s in (12.0, 9.0)][:TRANSDUCER_DECODE])
+        del am
+        torch.cuda.empty_cache()
+        train_s = runs[0].result()
+    log(f"AED training: the two bin/train runs took {train_s:.1f} s and {transducer_s:.1f} s")
+
+    # (a) the recipe's gates, then stage 5 through bin/benchmark's entry in this process
+    # (``main_cli`` on the CLI's arguments: a process of its own costs ~8 s more)
+    fig["recipe"], steps_a, vals_a = recipe_run_figures("AISHELL Conformer", out_a, step_sites,
+                                                        val_sites, card)
+    latest = open(os.path.join(out_a, "model.pt.latest")).read().strip()
+    checked, zero = depthwise_reached(os.path.join(out_a, latest))
+    from funasr_tpu_torch.bin.benchmark import main_cli as benchmark_cli
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        benchmark_cli(["++mode=cer", f"++model={md}", f"++beam_size={AED_BEAM}",
+                       f"++init_param={os.path.join(out_a, 'model.pt.avg')}",
+                       f"++tokenizer_conf.token_list={os.path.join(md, 'tokens.txt')}",
+                       f"++frontend_conf.cmvn_file={mvn}",
+                       f"++wav_scp={os.path.join(root, 'test_wav.scp')}",
+                       f"++text={os.path.join(root, 'test_text.txt')}"])
+    cer = json.loads(printed.getvalue().strip().splitlines()[-1])
+    fig["recipe"].update(run_s=train_s, cer=cer, cer_s=time.perf_counter() - t0,
+                         depthwise_checked=checked)
+    log(f"AISHELL Conformer: {checked} depthwise weights and biases checked in {latest}, "
+        f"{len(zero)} never reached by a gradient; stage 5 (bin/benchmark ++mode=cer) in "
+        f"{fig['recipe']['cer_s']:.1f} s: {cer}")
+    if zero or checked != 2 * enc_n or len(steps_a) != 4 or cer.get("mode") != "cer" \
+            or cer.get("n_utts") != 2:
+        raise AssertionError(f"AISHELL Conformer recipe: steps {len(steps_a)}, depthwise "
+                             f"without a gradient {zero[:4]} ({checked} checked), CER {cer}")
+
+    # (e) the kernel rows
+    t_part = time.perf_counter()
+    for key, info in recipe_launch_shapes(steps_a + vals_a + steps_c + vals_c).items():
+        if key in shapes:
+            shapes[key]["launches"] += info["launches"]
+        else:
+            shapes[key] = info
+    fig["rows"] = depthwise_bwd_rows(dev, shapes)
+    g = torch.Generator(device=dev).manual_seed(27)
+    fig["forward_rows"] = {}
+    for (name, tensors, args), info in sorted(shapes.items(), key=str):
+        if name != "depthwise_conv1d" or tuple(args[:3]) != (15, 14, 0):
+            continue
+        (b, t, c), stride = tensors[0]
+        lens = info["lengths"]
+        mask = (None if lens is None else
+                torch.arange(t, device=dev)[None] < torch.tensor(lens, device=dev)[:, None])
+        x = strided_randn((b, t, c), stride, torch.float32, g, dev)
+        w = (torch.rand(c, 1, 15, generator=g, device=dev) * 2 - 1) / 15 ** 0.5
+        bias = torch.randn(c, generator=g, device=dev)
+        row = depthwise_row(x, w, bias, mask, 14, 0, generic_too=True)
+        row["launches"] = info["launches"]
+        fig["forward_rows"][f"{b}x{t}x{c}_k15_pads14-0{'_masked' if mask is not None else ''}"] = row
+    log(f"AED training (e): kernel rows in {time.perf_counter() - t_part:.1f} s")
+    if set(fig["rows"]) != set(DEPTHWISE_SIGNATURES[1:]) or not fig["forward_rows"]:
+        raise AssertionError(f"AED training rows: {sorted(fig['rows'])}, forward (15, 14) rows "
+                             f"{sorted(fig['forward_rows'])}")
+    fig["main"] = {name: max(rows.items(), key=lambda kv: (kv[1]["shape"][0] * kv[1]["shape"][1]
+                                                           if kv[1]["pads"] == (7, 7) else 0))[0]
+                   for name, rows in fig["rows"].items()}
+    fig["launches"] = {k: fig["recipe"]["launches"][k] for k in DEPTHWISE_SIGNATURES}
+    return fig
+
+
 def aed_entries(aed, name):
     """A kernel's phase 20 figures: its launches in each counted run."""
     return dict(by_run={run: counts.get(name, 0) for run, counts in aed["launches"].items()})
@@ -7444,7 +8229,7 @@ LLM_ENTRIES = {
 def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None,
                  hotword=None, streaming=None, sensevoice=None, serving=None, llm=None,
                  export=None, training=None, training_family=None, streaming_training=None,
-                 llm_training=None, aed=None):
+                 llm_training=None, aed=None, aed_training=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
@@ -7482,7 +8267,13 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
     (``aed``) go under ``aed`` in those three (their launches by counted run; W8A8's rows
     at the Paraformer-Conformer's new shapes), and add a kernel, ``depthwise_conv1d``
     (the FSMN kernel's plain mode), at the Conformer AED's generate shape, ``launches`` of
-    that counted run, with its rows at every signature the phase launched."""
+    that counted run, with its rows at every signature the phase launched. Phase 21's
+    (``aed_training``) add the depthwise conv's two backward kernels,
+    ``depthwise_conv1d_bwd_input`` and ``depthwise_conv1d_bwd_weight``, each at the AISHELL
+    Conformer recipe's signature, ``launches`` those of the recipe's run (steps and
+    validations), with their rows at every signature phase 21 launched, and put the
+    forward's launches there and its rows at the chunk conformer's (15, 14) under
+    ``aed_training`` in ``depthwise_conv1d``."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -7595,6 +8386,20 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             launches_per_encode=AED_BLOCKS, **aed["rows"][aed["main_label"]],
             rows=aed["rows"], aed=aed_entries(aed, "depthwise_conv1d"),
             profile_per_generate=aed["profile"]["depthwise"]))
+        if aed_training:
+            kernels[-1]["aed_training"] = aed_training_entry(aed_training, "depthwise_conv1d")
+    for name in DEPTHWISE_SIGNATURES[1:] if aed_training else ():
+        kernels.append(dict(
+            name=name, route="cuda", source=DEPTHWISE_BACKWARD[name],
+            replaces=sources["fsmn_memory"][1],
+            gradient_of=("the depthwise_conv1d kernel (the FSMN kernel's plain mode); the JAX "
+                         "package takes its gradient by XLA autodiff of "
+                         "funasr_tpu/core/layers.py::depthwise_conv1d_apply"),
+            launches=aed_training["launches"][name],
+            launches_per_step=aed_training["recipe"]["launches_per_step"][name],
+            **{k: v for k, v in aed_training["rows"][name][aed_training["main"][name]].items()
+               if k != "launches"},
+            aed_training=aed_training_entry(aed_training, name)))
     for name, (src, keys) in (TRAIN_BACKWARD.items() if training else ()):
         rows = training["rows"]
         entry = dict(name=name, route="cuda", source=src, replaces=sources[
@@ -7615,6 +8420,57 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             entry["llm_training"] = llm_training_entry(llm_training, name)
         kernels.append(entry)
     return {"kernels": kernels}
+
+
+def aed_training_alone():
+    """``--aed-training``: phase 21 alone, with what it reads of phases 16 and 20 (the wavs
+    and jsonl of ``recipe_setup``, the Conformer dir of ``write_aed_dir``), both
+    ``bin/train`` runs profiled; its figures printed last, one JSON object."""
+    from funasr_tpu_torch.ops import cuda_lib
+    from funasr_tpu_torch.ops.flash_attention import flash_attention
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory
+    from funasr_tpu_torch.ops.w8a8 import w8a8_linear
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip()
+    log(card)
+    lib = cuda_lib.load_library()
+    log(f"build: {lib.build_seconds:.1f} s")
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as root:
+        keep = {"root": root}
+        _, tokens, jsonl = recipe_setup(root, dev)
+        keep["train_data"] = (tokens, jsonl)
+        keep["conformer"] = write_aed_dir(os.path.join(root, "aed", "conformer"), dev,
+                                          "Conformer", "ConformerEncoder", AED_ENCODER)
+        t0 = time.perf_counter()
+        fig = phase_aed_training(dev, (flash_attention, fsmn_memory, w8a8_linear), card, keep,
+                                 profile=True)
+        log(f"AED training (profiled) done in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps(fig, default=str))
+
+
+# phase 21's backward kernels: name -> source
+DEPTHWISE_BACKWARD = {
+    "depthwise_conv1d_bwd_input": ("funasr_tpu_torch/csrc/fsmn.cu (the plain-mode forward "
+                                   "kernel, taps reversed, pads swapped; the wrapper masks)"),
+    "depthwise_conv1d_bwd_weight": "funasr_tpu_torch/csrc/fsmn.cu (fsmn_depthwise_bwd_weight)",
+}
+
+
+def aed_training_entry(fig, name):
+    """A depthwise kernel's phase 21 figures: its launches in the AISHELL Conformer
+    recipe's run and the transducer's (steps and validations) and a step, in each CUDA
+    step of the CUDA-vs-CPU checks, and its rows (the backward's at every signature the
+    phase launched, the forward's at (15, 14))."""
+    rows = fig["forward_rows"] if name == "depthwise_conv1d" else fig["rows"].get(name, {})
+    return dict(launches=fig["recipe"]["launches"][name],
+                launches_per_step=fig["recipe"]["launches_per_step"][name],
+                transducer_launches=fig["transducer"]["launches"][name],
+                cuda_vs_cpu_launches={k: f["launches"].get(name, 0)
+                                      for k, f in fig["cuda_vs_cpu"].items()},
+                rows=rows)
 
 
 def llm_training_entry(fig, name):
@@ -7716,6 +8572,7 @@ def main():
         llm = timed("LLM", phase_llm, dev, counters, card)
         export = timed("text and export", phase_export, dev, counters, card, keep)
     # phase 16's generated wavs serve phases 18 and 19 (removed at the end)
+    # and phase 21, with phase 20's Conformer dir (removed at the end)
     with tempfile.TemporaryDirectory() as train_root:
         keep_train = {"root": train_root}
         training = timed("training", phase_training, dev, counters, card, keep_train)
@@ -7724,13 +8581,17 @@ def main():
                                 card, keep_train)
         llm_training = timed("LLM training", phase_llm_training, dev, counters, card,
                              keep_train)
-    with tempfile.TemporaryDirectory() as aed_root:
+        aed_root = os.path.join(train_root, "aed")
+        os.makedirs(aed_root)
         aed = timed("AED", phase_aed, dev, counters, card, aed_root)
+        keep_train["conformer"] = os.path.join(aed_root, "conformer")
+        aed_training = timed("AED training", phase_aed_training, dev, counters, card,
+                             keep_train)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
                                   speaker, hotword, streaming, sensevoice, serving, llm,
                                   export, training, family, stream_training, llm_training,
-                                  aed),
+                                  aed, aed_training),
                      default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -7747,6 +8608,11 @@ if __name__ == "__main__":
             raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; needs an "
                              "NVIDIA GPU")
         sharding_ab()
+    elif sys.argv[1:2] == ["--aed-training"]:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; needs an "
+                             "NVIDIA GPU")
+        aed_training_alone()
     elif sys.argv[1:2] == ["--recipe-ab"]:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false; needs an "

@@ -4,7 +4,9 @@ The inverse of ``funasr_tpu/convert/torch_to_jax.py``'s ``convert_paraformer`` (
 BiCif predictor's head, the PIF predictor and the CTC head included, ``:154-192``),
 ``convert_fsmn_vad``, ``convert_ct_transformer``, ``convert_campplus`` (``:244-288``),
 ``convert_sense_voice``, ``convert_paraformer_v2`` and ``convert_monotonic_aligner``
-(``:339-401, 564``), ``convert_fun_asr_nano`` (FunASRNano and the LLMASR family, ``:688``)
+(``:339-401, 564``), ``convert_transducer`` (``:1374``; the JAX converter reads every
+encoder as a Conformer, so an RWKV encoder's tree, which it cannot read, maps here by its
+own names), ``convert_fun_asr_nano`` (FunASRNano and the LLMASR family, ``:688``)
 and ``convert_whisper`` (``:735``; Hugging Face names): it takes the JAX
 package's parameter tree (as numpy arrays) and gives the tensors that the port model's
 ``load_state_dict`` takes, under FunASR's state-dict names. Layouts:
@@ -256,6 +258,37 @@ def _seaco(tree, target, out):
         _lstm_layer(p, "bias_encoder", f"l{i}", out)
 
 
+def _encoder(enc, target, out):
+    """The encoder's subtree under ``encoder.``: an ``RWKVEncoder``'s stacked ``blocks``
+    to ``blocks.{i}`` (its ``embed`` is a plain linear), any other walked by name."""
+    if "blocks" not in enc:
+        _walk({"encoder": enc}, "", target, out)
+        return
+    out.update(_leaf(enc["embed"], "encoder.embed.", target))
+    out.update(_leaf(enc["after_norm"], "encoder.after_norm.", target))
+    for i in range(len(next(iter(_flatten(enc["blocks"]))))):
+        _walk(_index(enc["blocks"], i), f"encoder.blocks.{i}.", target, out)
+
+
+def _transducer(tree, target, out):
+    """Transducer / BAT (``convert_transducer``, ``torch_to_jax.py:1374-1394``): the
+    encoder (a Conformer, a chunk Conformer or an RWKV encoder), the prediction net's
+    ``embed`` and ``pred_lstm`` list -> ``decoder.embed`` and ``decoder.rnn.{i}``
+    (one-layer LSTMs), ``joint`` -> ``joint_network``."""
+    _encoder(tree["encoder"], target, out)
+    out["decoder.embed.weight"] = tree["embed"]["w"]
+    for i, p in enumerate(tree["pred_lstm"]):
+        _lstm_layer(p, f"decoder.rnn.{i}", "l0", out)
+    for name, p in tree["joint"].items():
+        out.update(_leaf(p, f"joint_network.{name}.", target))
+
+
+def _conformer_rwkv(tree, target, out):
+    """ConformerRWKV: the Transformer AED's tree with an RWKV encoder."""
+    _encoder(tree["encoder"], target, out)
+    _walk({k: v for k, v in tree.items() if k != "encoder"}, "", target, out)
+
+
 def _contextual(tree, target, out):
     """The stacked decoder layers split into ``decoders`` and ``last_decoder``, the
     1-layer ``bias_encoder`` and ``bias_embed`` by hand."""
@@ -454,7 +487,8 @@ _BY_MODEL = {"FsmnVADStreaming": _fsmn_vad, "CTTransformer": _ct_transformer,
              "ParaformerV2": _paraformer_v2, "MonotonicAligner": _bicif,
              "WhisperModel": _whisper, "Branchformer": _branchformer,
              "EBranchformer": _branchformer, "TransformerLM": _transformer_lm,
-             "SeqRNNLM": _seq_rnn_lm, **{name: _llm_asr for name in _LLM_ASR_NAMES}}
+             "SeqRNNLM": _seq_rnn_lm, "Transducer": _transducer,
+             "ConformerRWKV": _conformer_rwkv, **{name: _llm_asr for name in _LLM_ASR_NAMES}}
 
 
 def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -464,7 +498,8 @@ def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor
     CTTransformerStreaming, CAMPPlus, SenseVoiceSmall, CTCModel, ParaformerV2,
     EParaformer, MonotonicAligner, FunASRNano, the LLMASR family (GLMASR included), a
     WhisperModel of any size, the Transformer AEDs (Transformer, SANM, Conformer,
-    Branchformer, EBranchformer; a convolution decoder too), TransformerLM or SeqRNNLM
+    Branchformer, EBranchformer; a convolution decoder too), TransformerLM, SeqRNNLM,
+    Transducer and BAT (a Conformer, chunk Conformer or RWKV encoder) or ConformerRWKV
     -> ``model``'s state dict.
 
     Int8 and int64 tensors keep their type, every other leaf becomes fp32. Raises if the names or

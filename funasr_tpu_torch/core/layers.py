@@ -138,19 +138,29 @@ def masked_softmax(scores, mask, *, dim: int = -1):
     return out.to(scores.dtype)
 
 
-def lstm_apply(lstm: nn.LSTM, x):
+def _lstm_weights(lstm: nn.LSTM, layer: int):
+    return (getattr(lstm, f"{name}_l{layer}").float() for name in
+            ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+
+
+def lstm_apply(lstm: nn.LSTM, x, init=None, return_state: bool = False):
     """A unidirectional ``nn.LSTM`` (any number of layers, FunASR's parameter names) over
     x (B, T, D) -> (B, T, H), in fp32 whatever the weights' dtype, as ``lstm_apply``
     (``core/layers.py:209-239``) computes: per layer the input product plus both biases
     for every step at once, then one (B, H) x (H, 4H) product a step, gates (i, f, g, o).
-    The hotword bias encoders run it over a few tokens per word."""
+    ``init``: the (h, c) each layer starts from, each (B, H) (zeros when None; one pair
+    for a one-layer LSTM); ``return_state`` also returns the last layer's final (h, c).
+    The hotword bias encoders run it over a few tokens per word, the transducer's
+    prediction net over the label prefix."""
     h_all = x.float()
     for layer in range(lstm.num_layers):
-        w_ih, w_hh, b_ih, b_hh = (getattr(lstm, f"{name}_l{layer}").float() for name in
-                                  ("weight_ih", "weight_hh", "bias_ih", "bias_hh"))
+        w_ih, w_hh, b_ih, b_hh = _lstm_weights(lstm, layer)
         pre = F.linear(h_all, w_ih) + b_ih + b_hh
-        h = torch.zeros(x.shape[0], lstm.hidden_size, device=x.device)
-        c = torch.zeros_like(h)
+        if init is None:
+            h = torch.zeros(x.shape[0], lstm.hidden_size, device=x.device)
+            c = torch.zeros_like(h)
+        else:
+            h, c = init[0].float(), init[1].float()
         steps = []
         for t in range(x.shape[1]):
             i, f, g, o = (pre[:, t] + h @ w_hh.T).chunk(4, dim=-1)
@@ -158,7 +168,21 @@ def lstm_apply(lstm: nn.LSTM, x):
             h = torch.sigmoid(o) * torch.tanh(c)
             steps.append(h)
         h_all = torch.stack(steps, dim=1)
-    return h_all
+    return (h_all, (h, c)) if return_state else h_all
+
+
+def lstm_step(lstm: nn.LSTM, x_t, state, layer: int = 0):
+    """One cell step of layer ``layer`` of an ``nn.LSTM`` (``lstm_step``,
+    ``core/layers.py:242-256``): x_t (B, D), state (h, c) each (B, H) fp32 -> (h in x_t's
+    dtype, (h, c)); the sum x W_ih + b_ih + b_hh + h W_hh in that order, gates (i, f, g,
+    o), fp32. The transducer's prediction net takes one label a step with it."""
+    w_ih, w_hh, b_ih, b_hh = _lstm_weights(lstm, layer)
+    h, c = state
+    pre = F.linear(x_t.float(), w_ih) + b_ih + b_hh + h @ w_hh.T
+    i, f, g, o = pre.chunk(4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h = torch.sigmoid(o) * torch.tanh(c)
+    return h.to(x_t.dtype), (h, c)
 
 
 def encode_hotwords(lstm: nn.LSTM, table, hw_lists):

@@ -73,7 +73,21 @@
 // through L1 and each tap from global memory at every step. Measured (NVIDIA H100 80GB
 // HBM3, 700 W), specialised against generic: fp32 k 31 at (4, 198, 1024) 0.0102 against
 // 0.0806 ms (F.conv1d 0.0166), k 3 at (4, 198, 512) 0.0045 against 0.0131, k 15 at
-// (1, 198, 256) 0.0075 against 0.0417; all launch-bound at these shapes.
+// (1, 198, 256) 0.0075 against 0.0417; all launch-bound at these shapes. The chunk
+// conformer's causal conv (k 15, pads 14 / 0) has its own instantiation too.
+//
+// In training the plain mode's input gradient is this kernel in the plain mode on dout with
+// the taps reversed, the pads swapped and no bias (the causal conv's maps onto k 15 / left
+// 0, an instantiation of its own; the symmetric ones onto themselves); the wrapper
+// (ops/fsmn.py::depthwise_conv1d_bwd_input) multiplies by the input mask. The weight and
+// bias gradients are fsmn_depthwise_bwd_weight at the end of this file. Neither replaces a
+// TPU kernel: the JAX package takes the gradient of dw_pallas's function by XLA autodiff.
+// Both are bytes-bound (x and dout read once, dx or dw + db written). Measured (NVIDIA
+// H100 80GB HBM3, 700 W) at the AISHELL Conformer recipe's (16, 443, 256), k 15: dx
+// 0.0130 ms (33 % of its bytes bound, 3.3x faster than torch.nn.grad.conv1d_input), dw +
+// db 0.0176 (25 %, 4.8x faster than conv1d_weight and a sum); the causal conv's masked dx,
+// the mask's multiply a launch of its own, 0.0215 (1.45x behind conv1d_input and that
+// multiply).
 //
 // x is (B, T, C) with unit channel stride and batch / time strides that are multiples of
 // the vector (it is the v slice of the fused q|k|v projection in the encoder, or the
@@ -339,6 +353,14 @@ cudaError_t dispatch(const void* x, const void* w, const void* bias, const void*
     if (K == 15 && left == 7)
       return launch<PLAIN, T, 15, 7, 4>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst,
                                         stream);
+    // the chunk conformer's causal conv (pads 14 / 0), and its input gradient in training
+    // (the taps reversed, the pads swapped to 0 / 14)
+    if (K == 15 && left == 14)
+      return launch<PLAIN, T, 15, 14, 4>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst,
+                                         stream);
+    if (K == 15 && left == 0)
+      return launch<PLAIN, T, 15, 0, 4>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst,
+                                        stream);
     // the E-Branchformer's merge conv
     if (K == 3 && left == 1)
       return launch<PLAIN, T, 3, 1>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst,
@@ -432,51 +454,65 @@ int run(int dtype, const void* x, const void* w, const void* bias, const void* m
 // kernel ~0.0057, the sum ~0.0028 by profile). Any other k or pads, or C not a multiple
 // of 4, take the first kernel as the generic instantiation (the wrapper hands the vector
 // kernel 16-byte vectorizable x and dout).
+//
+// The plain depthwise mode's gradient (fsmn_depthwise_bwd_weight) runs the same two
+// kernels with PLAIN set: dout is not masked (only x is, as the forward masks its input),
+// and one more partial row sums dout, the bias gradient, in the same pass and the same
+// ordered second pass. Its vector instantiations: k 15 / left 7 (the Conformer's), k 15 /
+// left 14 (the chunk conformer's causal conv) and k 3 / left 1 (the E-Branchformer's
+// merge) at 4 channels a thread, k 31 / left 15 (the cgMLP gate) at 2, so that 31 rows of
+// window and 32 of accumulators stay in registers as in the forward.
 constexpr int DW_THREADS = 128;   // generic kernel: channels a block
 constexpr int DW_WARPS = 4;       // specialised kernel: warps a block, on consecutive chunks
 constexpr int DW_MAX_ROWS = 16;   // rows a warp's chunk, at most
 constexpr int DW_MASK_WORDS = 3;  // ballot words: a block's rows and its k - 1 halo rows
 
-// Block (z, y): 128 channels (group y) of the flat rows [R0, R0 + DW_WARPS rows), R0 =
-// z DW_WARPS rows; warp w walks rows R0 + w rows + [0, rows). The block stages its g rows
-// and its x rows with the (k - 1)-row halo in shared memory by one batch of cp.async,
-// then each warp slides a k-row window of x over its chunk in registers; the warps'
-// accumulators are added in warp order into the block's partial (z, k, C).
-template <int K, int LEFT>
+// Block (z, y): the 32 V channels of group y (V a thread) of the flat rows [R0, R0 +
+// DW_WARPS rows), R0 = z DW_WARPS rows; warp w walks rows R0 + w rows + [0, rows). The
+// block stages its g rows and its x rows with the (k - 1)-row halo in shared memory by one
+// batch of cp.async, then each warp slides a k-row window of x over its chunk in registers;
+// the warps' accumulators are added in warp order into the block's partial (z, KP, C).
+// PLAIN (the plain depthwise mode's gradient): g = dout is not masked (only x is), and a
+// (K + 1)-th partial row sums g, the bias gradient, in the same pass; else the FSMN mode:
+// g = m dout, KP = K.
+template <int K, int LEFT, int V, bool PLAIN>
 __global__ void __launch_bounds__(32 * DW_WARPS)
 fsmn_bwd_weight_vec_kernel(const float* __restrict__ x, const float* __restrict__ g,
                            const uint8_t* __restrict__ mask, float* __restrict__ partial,
                            int B, int T_len, int C, long long xsb, long long xst, long long gsb,
                            long long gst, int rows) {
-  constexpr int RIGHT = K - 1 - LEFT;
+  typedef typename RawOf<float, V>::type Raw;  // 16 bytes (V 4) or 8 (V 2)
+  constexpr int KP = PLAIN ? K + 1 : K;       // partial rows: the taps, then the bias's
+  static_assert(K <= 31, "tap masks are 32-bit words");
   static_assert(DW_WARPS * DW_MAX_ROWS + K - 1 <= 32 * DW_MASK_WORDS, "mask words");
   // x rows [R0 - LEFT, R1 + RIGHT), then g rows [R0, R1); at the end the warps' sums
-  extern __shared__ uint4 stage[];
+  extern __shared__ uint4 stage_words[];
+  Raw* stage = reinterpret_cast<Raw*>(stage_words);
   __shared__ uint32_t bits[DW_MASK_WORDS];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (blockIdx.y * 128 >= C) return;  // the whole block
+  if (blockIdx.y * 32 * V >= C) return;  // the whole block
   const int cv = blockIdx.y * 32 + lane;  // channel vector
-  const bool active = cv * 4 < C;
+  const bool active = cv * V < C;
   const int n_rows = B * T_len;
   const int R0 = blockIdx.x * DW_WARPS * rows, R1 = min(R0 + DW_WARPS * rows, n_rows);
   const int h0 = R0 - LEFT;           // the flat row of x slot 0 and of bit 0
   const int xrows = R1 - R0 + K - 1;  // staged x rows
-  uint4* xs = stage;
-  uint4* gs = stage + xrows * 32;
+  Raw* xs = stage;
+  Raw* gs = stage + xrows * 32;
 
-  // one batch of loads: a warp a row (512 bytes), a lane 16 bytes; rows outside [0, B T)
-  // are zero-filled, not read. The mask is applied as the rows are used, so the loads
-  // need not wait for it.
-  const float* xv = x + (long long)cv * 4;
-  const float* gv = g + (long long)cv * 4;
+  // one batch of loads: a warp a row (32 V floats), a lane one vector; rows outside
+  // [0, B T) are zero-filled, not read. The mask is applied as the rows are used, so the
+  // loads need not wait for it.
+  const float* xv = x + (long long)cv * V;
+  const float* gv = g + (long long)cv * V;
   for (int r = warp; r < xrows; r += DW_WARPS) {
     const int f = h0 + r, b = f / T_len, t = f - b * T_len;
     const bool ok = active && f >= 0 && f < n_rows;
-    hopper::cp_async16(xs + r * 32 + lane, ok ? xv + b * xsb + t * xst : xv, ok);
+    cp_async(xs + r * 32 + lane, ok ? xv + b * xsb + t * xst : xv, ok);
   }
   for (int r = warp; r < R1 - R0; r += DW_WARPS) {
     const int f = R0 + r, b = f / T_len, t = f - b * T_len;
-    hopper::cp_async16(gs + r * 32 + lane, active ? gv + b * gsb + t * gst : gv, active);
+    cp_async(gs + r * 32 + lane, active ? gv + b * gsb + t * gst : gv, active);
   }
   hopper::cp_async_commit();
   if (warp == 0) {  // valid rows (inside [0, B T) and unmasked), one mask byte a lane
@@ -505,11 +541,15 @@ fsmn_bwd_weight_vec_kernel(const float* __restrict__ x, const float* __restrict_
   const int c0 = R0 + warp * rows, c1 = min(c0 + rows, R1);
   const int steps = c1 > c0 ? c1 - c0 + K - 1 : 0;
   int t = c0 >= 0 && c0 < n_rows ? c0 % T_len : 0;  // the time of g row r
-  float xw[K][4], acc[K][4];
+  float xw[K][V], acc[KP][V];
 #pragma unroll
   for (int j = 0; j < K; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) xw[j][e] = acc[j][e] = 0.f;
+    for (int e = 0; e < V; ++e) xw[j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < KP; ++j)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[j][e] = 0.f;
   for (int i0 = 0; i0 < steps; i0 += K) {
 #pragma unroll
     for (int s = 0; s < K; ++s) {  // step i = i0 + s: its x row goes to slot s
@@ -519,20 +559,24 @@ fsmn_bwd_weight_vec_kernel(const float* __restrict__ x, const float* __restrict_
       if (i < K - 1) continue;
       const int r = c0 + i - (K - 1);
       // taps j whose x row r + j - LEFT is valid and inside r's utterance ([0, T)), if
-      // g row r is unmasked
-      const uint32_t taps = (window(r - h0) & 1u) ? window(r - LEFT - h0) &
-                                                        (((1u << K) - 1u) << max(LEFT - t, 0)) &
-                                                        ((1u << min(T_len - t + LEFT, K)) - 1u)
-                                                  : 0u;
-      if (taps) {
-        float gf[4];
+      // g row r counts (the FSMN mode's g row must be unmasked)
+      const uint32_t taps = (PLAIN || (window(r - h0) & 1u))
+                                ? window(r - LEFT - h0) &
+                                      (((1u << K) - 1u) << max(LEFT - t, 0)) &
+                                      ((1u << min(T_len - t + LEFT, K)) - 1u)
+                                : 0u;
+      if (PLAIN || taps) {
+        float gf[V];
         unpack(gs[(r - R0) * 32 + lane], gf);
 #pragma unroll
         for (int j = 0; j < K; ++j)
           if ((taps >> j) & 1u)
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
+            for (int e = 0; e < V; ++e)
               acc[j][e] = fmaf(gf[e], xw[(s + 1 + j) % K][e], acc[j][e]);
+        if (PLAIN)  // the bias gradient: every g row
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[KP - 1][e] += gf[e];
       }
       if (++t == T_len) t = 0;
     }
@@ -540,29 +584,32 @@ fsmn_bwd_weight_vec_kernel(const float* __restrict__ x, const float* __restrict_
   __syncthreads();  // every warp is done with the staged rows: they hold the sums now
 
   // the block's partial: warp 0's accumulators, then warps 1, 2, 3's, in that order
-  float* red = reinterpret_cast<float*>(stage);  // [warp - 1][4 j + e][lane]
+  float* red = reinterpret_cast<float*>(stage_words);  // [warp - 1][V j + e][lane]
   if (warp > 0)
 #pragma unroll
-    for (int j = 0; j < K; ++j)
+    for (int j = 0; j < KP; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) red[((warp - 1) * 4 * K + 4 * j + e) * 32 + lane] = acc[j][e];
+      for (int e = 0; e < V; ++e) red[((warp - 1) * V * KP + V * j + e) * 32 + lane] = acc[j][e];
   __syncthreads();
   if (warp > 0 || !active) return;
 #pragma unroll
   for (int w = 0; w < DW_WARPS - 1; ++w)
 #pragma unroll
-    for (int j = 0; j < K; ++j)
+    for (int j = 0; j < KP; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] += red[(w * 4 * K + 4 * j + e) * 32 + lane];
+      for (int e = 0; e < V; ++e) acc[j][e] += red[(w * V * KP + V * j + e) * 32 + lane];
 #pragma unroll
-  for (int j = 0; j < K; ++j)
-    *reinterpret_cast<float4*>(partial + ((long long)blockIdx.x * K + j) * C + cv * 4) =
-        make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+  for (int j = 0; j < KP; ++j)
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      partial[((long long)blockIdx.x * KP + j) * C + cv * V + e] = acc[j][e];
 }
 
 // the generic instantiation: block (x, j, z) sums the rows of chunk z for 128 channels of
 // tap j in a fixed order (four accumulators, by row mod 4, added at the end), one 4-byte
-// scalar a thread and row
+// scalar a thread and row. PLAIN: g is not masked, and j = K (the grid's last row) sums
+// g, the bias gradient; partials (chunks, K + PLAIN, C).
+template <bool PLAIN>
 __global__ void __launch_bounds__(DW_THREADS)
 fsmn_bwd_weight_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
                                const uint8_t* __restrict__ mask, float* __restrict__ partial,
@@ -570,27 +617,35 @@ fsmn_bwd_weight_partial_kernel(const float* __restrict__ x, const float* __restr
                                long long xst, long long gsb, long long gst, int rows_per_chunk) {
   const int c = blockIdx.x * DW_THREADS + threadIdx.x;
   const int j = blockIdx.y, z = blockIdx.z;
+  const int KP = PLAIN ? K + 1 : K;
   const int r0 = z * rows_per_chunk, r1 = min(r0 + rows_per_chunk, B * T_len);
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   if (c < C) {
     for (int r = r0; r < r1; ++r) {
       const int b = r / T_len, t = r % T_len, s = t + j - left;
+      if (PLAIN && j == K) {
+        acc[r & 3] += g[b * gsb + t * gst + c];
+        continue;
+      }
       if (s < 0 || s >= T_len) continue;
-      if (mask && (!mask[(long long)b * T_len + t] || !mask[(long long)b * T_len + s])) continue;
+      if (mask && ((!PLAIN && !mask[(long long)b * T_len + t]) || !mask[(long long)b * T_len + s]))
+        continue;
       acc[r & 3] = fmaf(g[b * gsb + t * gst + c], x[b * xsb + s * xst + c], acc[r & 3]);
     }
-    partial[((long long)z * K + j) * C + c] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    partial[((long long)z * KP + j) * C + c] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
   }
 }
 
-// dw[c, j] = the partials[z, j, c] added in z order; a thread a (j, c), c the fastest, so
-// the partials are read in whole rows, 16 loads in flight before their adds
+// dw[c, j] = the partials[z, j, c] added in z order (j < K), db[c] those of row K; a thread
+// a (j, c), c the fastest, so the partials are read in whole rows, 16 loads in flight
+// before their adds
 __global__ void fsmn_bwd_weight_reduce_kernel(const float* __restrict__ partial,
-                                              float* __restrict__ dw, int C, int K, int parts) {
+                                              float* __restrict__ dw, float* __restrict__ db,
+                                              int C, int K, int KP, int parts) {
   constexpr int ILP = 16;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;  // j * C + c
-  if (i >= C * K) return;
-  const long long step = (long long)K * C;
+  if (i >= C * KP) return;
+  const long long step = (long long)KP * C;
   float sum = 0.f;
   int z = 0;
   for (; z + ILP <= parts; z += ILP) {
@@ -601,7 +656,84 @@ __global__ void fsmn_bwd_weight_reduce_kernel(const float* __restrict__ partial,
     for (int u = 0; u < ILP; ++u) sum += v[u];
   }
   for (; z < parts; ++z) sum += partial[z * step + i];
-  dw[(i % C) * K + i / C] = sum;
+  if (i / C < K)
+    dw[(i % C) * K + i / C] = sum;
+  else
+    db[i % C] = sum;
+}
+
+// the vector kernel at (K, LEFT, V): opt in to the shared memory a block stages (above
+// 48 KB at 16 rows a chunk), then one launch of `parts` blocks a channel group
+template <int K, int LEFT, int V, bool PLAIN>
+cudaError_t launch_bwd_weight_vec(const float* x, const float* g, const uint8_t* m, float* part,
+                                  int parts, int B, int T_len, int C, long long xsb,
+                                  long long xst, long long gsb, long long gst, int rows,
+                                  cudaStream_t s) {
+  constexpr int KP = PLAIN ? K + 1 : K;
+  const int bytes = max((2 * DW_WARPS * rows + K - 1) * 32 * V * (int)sizeof(float),
+                        (DW_WARPS - 1) * V * KP * 32 * (int)sizeof(float));
+  const cudaError_t opt = cudaFuncSetAttribute(fsmn_bwd_weight_vec_kernel<K, LEFT, V, PLAIN>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               bytes);
+  if (opt != cudaSuccess) return opt;
+  fsmn_bwd_weight_vec_kernel<K, LEFT, V, PLAIN>
+      <<<dim3(parts, (C + 32 * V - 1) / (32 * V)), 32 * DW_WARPS, bytes, s>>>(
+          x, g, m, part, B, T_len, C, xsb, xst, gsb, gst, rows);
+  return cudaGetLastError();
+}
+
+// one pass of partials, then their ordered sum; vec: 0 the generic kernel, else the
+// vector kernel at V = vec channels a thread, for the (K, left) it was instantiated at
+template <bool PLAIN>
+int bwd_weight(const void* x, const void* dout, const void* mask, void* partial, void* dw,
+               void* db, int B, int T_len, int C, int K, int left, long long xsb, long long xst,
+               long long gsb, long long gst, int rows_per_chunk, int vec, void* stream) {
+  if (K < 1 || K > MAX_K || left < 0 || left > K - 1 || rows_per_chunk < 1 || B < 1 ||
+      T_len < 1 || C < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int chunks = (B * T_len + rows_per_chunk - 1) / rows_per_chunk;
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(dout);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  float* part = static_cast<float*>(partial);
+  const int KP = PLAIN ? K + 1 : K;
+  int parts = chunks;
+  cudaError_t err;
+  if (vec) {
+    if (C % vec || xsb % vec || xst % vec || gsb % vec || gst % vec ||
+        reinterpret_cast<uintptr_t>(x) % (4 * vec) ||
+        reinterpret_cast<uintptr_t>(dout) % (4 * vec) || rows_per_chunk > DW_MAX_ROWS)
+      return (int)cudaErrorInvalidValue;
+    parts = (chunks + DW_WARPS - 1) / DW_WARPS;
+    const auto at = [&](int k, int l, int v) { return K == k && left == l && vec == v; };
+    if (!PLAIN && at(11, 5, 4))  // every FSMN of the training path
+      err = launch_bwd_weight_vec<11, 5, 4, false>(xf, gf, m, part, parts, B, T_len, C, xsb,
+                                                   xst, gsb, gst, rows_per_chunk, s);
+    else if (PLAIN && at(15, 7, 4))  // the Conformer's convolution module
+      err = launch_bwd_weight_vec<15, 7, 4, true>(xf, gf, m, part, parts, B, T_len, C, xsb,
+                                                  xst, gsb, gst, rows_per_chunk, s);
+    else if (PLAIN && at(15, 14, 4))  // the chunk conformer's causal conv
+      err = launch_bwd_weight_vec<15, 14, 4, true>(xf, gf, m, part, parts, B, T_len, C, xsb,
+                                                   xst, gsb, gst, rows_per_chunk, s);
+    else if (PLAIN && at(3, 1, 4))  // the E-Branchformer's merge conv
+      err = launch_bwd_weight_vec<3, 1, 4, true>(xf, gf, m, part, parts, B, T_len, C, xsb,
+                                                 xst, gsb, gst, rows_per_chunk, s);
+    else if (PLAIN && at(31, 15, 2))  // the cgMLP gate, 2 channels a thread as its forward
+      err = launch_bwd_weight_vec<31, 15, 2, true>(xf, gf, m, part, parts, B, T_len, C, xsb,
+                                                   xst, gsb, gst, rows_per_chunk, s);
+    else
+      return (int)cudaErrorInvalidValue;
+  } else {
+    fsmn_bwd_weight_partial_kernel<PLAIN>
+        <<<dim3((C + DW_THREADS - 1) / DW_THREADS, KP, chunks), DW_THREADS, 0, s>>>(
+            xf, gf, m, part, B, T_len, C, K, left, xsb, xst, gsb, gst, rows_per_chunk);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return (int)err;
+  fsmn_bwd_weight_reduce_kernel<<<(C * KP + 255) / 256, 256, 0, s>>>(
+      part, static_cast<float*>(dw), static_cast<float*>(db), C, K, KP, parts);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -648,39 +780,23 @@ extern "C" int fsmn_memory_bwd_weight(const void* x, const void* dout, const voi
                                       int left, long long xsb, long long xst, long long gsb,
                                       long long gst, int rows_per_chunk, int specialised,
                                       void* stream) {
-  if (K < 1 || K > MAX_K || left < 0 || left > K - 1 || rows_per_chunk < 1 || B < 1 ||
-      T_len < 1 || C < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int chunks = (B * T_len + rows_per_chunk - 1) / rows_per_chunk;
-  const float* xf = static_cast<const float*>(x);
-  const float* gf = static_cast<const float*>(dout);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  float* part = static_cast<float*>(partial);
-  int parts = chunks;
-  if (specialised) {
-    if (K != 11 || left != 5 || C % 4 || xsb % 4 || xst % 4 || gsb % 4 || gst % 4 ||
-        reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(dout) % 16 ||
-        reinterpret_cast<uintptr_t>(partial) % 16 || rows_per_chunk > DW_MAX_ROWS)
-      return (int)cudaErrorInvalidValue;
-    parts = (chunks + DW_WARPS - 1) / DW_WARPS;
-    // the staged x and g rows of a block, later the warps' sums: above 48 KB at 16 rows
-    // a chunk, so opt in
-    const int bytes = max((2 * DW_WARPS * rows_per_chunk + K - 1) * 32 * (int)sizeof(uint4),
-                          (DW_WARPS - 1) * 4 * K * 32 * (int)sizeof(float));
-    const cudaError_t opt = cudaFuncSetAttribute(
-        fsmn_bwd_weight_vec_kernel<11, 5>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (opt != cudaSuccess) return (int)opt;
-    fsmn_bwd_weight_vec_kernel<11, 5><<<dim3(parts, (C + 127) / 128), 32 * DW_WARPS, bytes, s>>>(
-        xf, gf, m, part, B, T_len, C, xsb, xst, gsb, gst, rows_per_chunk);
-  } else {
-    fsmn_bwd_weight_partial_kernel<<<dim3((C + DW_THREADS - 1) / DW_THREADS, K, chunks),
-                                     DW_THREADS, 0, s>>>(xf, gf, m, part, B, T_len, C, K, left,
-                                                         xsb, xst, gsb, gst, rows_per_chunk);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fsmn_bwd_weight_reduce_kernel<<<(C * K + 255) / 256, 256, 0, s>>>(
-      part, static_cast<float*>(dw), C, K, parts);
-  return (int)cudaGetLastError();
+  return bwd_weight<false>(x, dout, mask, partial, dw, nullptr, B, T_len, C, K, left, xsb, xst,
+                           gsb, gst, rows_per_chunk, specialised ? 4 : 0, stream);
+}
+
+// fp32 weight and bias gradients of the plain depthwise conv: x (B, T, C) the forward's
+// input, dout (B, T, C) the output's gradient (any batch / time strides, unit channel
+// stride), mask (B, T) bytes or NULL (the input's) -> dw (C, K), db (C,) contiguous.
+// vec: 4 or 2, the vector kernel at that many channels a thread, for its (K, left): (15,
+// 7), (15, 14), (3, 1) at 4, (31, 15) at 2 (C, x's and dout's batch / time strides
+// multiples of vec, bases 4 vec-byte aligned, rows_per_chunk <= 16); 0, the generic one.
+// partial: parts x (K + 1) x C floats of scratch, parts as for fsmn_memory_bwd_weight.
+// Two kernel launches on `stream`.
+extern "C" int fsmn_depthwise_bwd_weight(const void* x, const void* dout, const void* mask,
+                                         void* partial, void* dw, void* db, int B, int T_len,
+                                         int C, int K, int left, long long xsb, long long xst,
+                                         long long gsb, long long gst, int rows_per_chunk,
+                                         int vec, void* stream) {
+  return bwd_weight<true>(x, dout, mask, partial, dw, db, B, T_len, C, K, left, xsb, xst, gsb,
+                          gst, rows_per_chunk, vec, stream);
 }

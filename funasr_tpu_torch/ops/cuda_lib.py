@@ -57,6 +57,10 @@ _SIGNATURES = {
     # rows_per_chunk, specialised, stream (fp32)
     "fsmn_memory_bwd_weight": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I,
                                _P],
+    # x, dout, mask, partial, dw, db, B, T, C, K, left, x_sb, x_st, dout_sb, dout_st,
+    # rows_per_chunk, vec, stream (fp32)
+    "fsmn_depthwise_bwd_weight": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L,
+                                  _I, _I, _P],
     # dtype, x, x_row_stride, w_q, scale, bias, bias_dtype, x_q, sx, out, out_pitch, M, N,
     # K, Kp, sms, stream
     "w8a8_linear_fwd": [_I, _P, _L, _P, _P, _P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P],

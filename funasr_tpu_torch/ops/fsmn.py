@@ -52,8 +52,17 @@ cgMLP gate and the E-Branchformer's merge conv call it (own instantiations for k
 7, k 3 / left 1 and fp32 k 31 / left 15; ``generic=True`` as above). Its plain version is
 ``depthwise_conv1d_ref``, whose separate multiply and add the kernel copies, so the two
 agree bit for bit on the card. It counts its launches in ``depthwise_conv1d.launches``.
-It has no backward kernel: with grad mode on and a CUDA input requiring grad it raises
-(ROADMAP item 22.1b); on the CPU autograd runs through the plain version. Under
+With grad mode on and a CUDA input, weight or bias requiring grad it runs through
+``DepthwiseConvFn``: dx is the plain-mode forward kernel on dout with the taps reversed,
+the pads swapped and no bias, times the input mask (applied by the wrapper,
+``depthwise_conv1d_bwd_input``, bit-equal to ``depthwise_conv1d_bwd_input_ref``); dw and
+db come from one deterministic reduction, ``depthwise_conv1d_bwd_weight`` (the FSMN weight
+gradient's vector kernel with a bias row and an unmasked dout, at k 15 / left 7, k 15 /
+left 14, k 3 / left 1 and, 2 channels a thread, k 31 / left 15; the generic kernel for any
+other k; plain version ``depthwise_conv1d_bwd_weight_ref``). fp32 only: a bf16 backward
+raises (ROADMAP item 20b). On the CPU autograd runs through the plain version. The chunk
+conformer's causal conv (pads 14 / 0) and its dx (0 / 14) have their own forward
+instantiations. Under
 ``torch.export`` the wrapper records the custom op ``funasr_tpu_torch::fsmn_memory``
 (CUDA: the same kernel; CPU: ``fsmn_memory_ref``; fake: the (B, T, C) output), so an
 exported program runs the kernel; eager calls skip the op's dispatch.
@@ -214,6 +223,16 @@ def dw_rows_per_chunk(b: int, t: int, c: int, k: int, sms: int) -> int:
     return max(32, -(-(b * t) // chunks))
 
 
+def _vec_plan(b: int, t: int, c: int, v: int, sms: int):
+    """(rows a chunk, blocks a channel group) of the vector weight-gradient kernel at v
+    channels a thread: chunks of DW_MIN_ROWS-DW_MAX_ROWS rows, DW_BLOCK_CHUNKS a block of
+    32 v channels, as many as give each of the card's ``sms`` multiprocessors
+    DW_BLOCKS_PER_SM_VEC blocks."""
+    chunks = max(1, DW_BLOCK_CHUNKS * DW_BLOCKS_PER_SM_VEC * sms // -(-c // (32 * v)))
+    rows = min(DW_MAX_ROWS, max(DW_MIN_ROWS, -(-(b * t) // chunks)))
+    return rows, -(-(-(-(b * t) // rows)) // DW_BLOCK_CHUNKS)
+
+
 def dw_plan(b: int, t: int, c: int, k: int, left: int, sms: int):
     """(specialised, rows a chunk, partial shape) of the weight gradient. The vector
     kernel (k 11, left 5, C a multiple of 4) walks chunks of DW_MIN_ROWS-DW_MAX_ROWS
@@ -223,9 +242,7 @@ def dw_plan(b: int, t: int, c: int, k: int, left: int, sms: int):
     k, pads or C takes the generic kernel (``dw_rows_per_chunk``, a partial a chunk).
     Partials: (parts, k, C) fp32."""
     if (k, left) == DW_SPECIALISED and c % 4 == 0:
-        chunks = max(1, DW_BLOCK_CHUNKS * DW_BLOCKS_PER_SM_VEC * sms // -(-c // 128))
-        rows = min(DW_MAX_ROWS, max(DW_MIN_ROWS, -(-(b * t) // chunks)))
-        parts = -(-(-(-(b * t) // rows)) // DW_BLOCK_CHUNKS)
+        rows, parts = _vec_plan(b, t, c, 4, sms)
         return True, rows, (parts, k, c)
     rows = dw_rows_per_chunk(b, t, c, k, sms)
     return False, rows, (-(-(b * t) // rows), k, c)
@@ -331,16 +348,20 @@ def depthwise_conv1d(x, weight, bias, mask, left_pad: int, right_pad: int, *,
                      generic: bool = False):
     """x (B, T, C) (unit channel stride); weight (C, 1, k) and bias (C,) or None in x's
     dtype; mask (B, T) bool or None (applied to the input); pads summing to k - 1 ->
-    contiguous (B, T, C) in x's dtype. CPU tensors take ``depthwise_conv1d_ref``; CUDA
-    tensors launch the plain mode of the kernel of ``csrc/fsmn.cu`` or raise."""
+    contiguous (B, T, C) in x's dtype. CPU tensors take ``depthwise_conv1d_ref`` (autograd
+    runs through it); CUDA tensors launch the plain mode of the kernel of ``csrc/fsmn.cu``
+    or raise, through ``DepthwiseConvFn`` when grad mode is on and x, the weight or the
+    bias requires grad."""
     cuda_lib.no_dtensor("depthwise_conv1d", x, weight)
     if x.device.type == "cpu":
         return depthwise_conv1d_ref(x, weight, bias, mask, left_pad, right_pad)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (x, weight, bias)):
-        raise NotImplementedError(
-            "depthwise_conv1d has no backward kernel on the card yet: training the "
-            "Transformer-family AED models on CUDA is ROADMAP item 22.1b")
+        return DepthwiseConvFn.apply(x, weight, bias, mask, left_pad, right_pad)
+    return _depthwise_cuda(x, weight, bias, mask, left_pad, right_pad, generic)
+
+
+def _depthwise_cuda(x, weight, bias, mask, left_pad, right_pad, generic=False):
     if x.device.type != "cuda":
         raise ValueError(f"depthwise_conv1d runs on CPU or CUDA tensors, not {x.device}")
     x = cuda_lib.vectorizable(x)
@@ -371,3 +392,131 @@ def depthwise_conv1d(x, weight, bias, mask, left_pad: int, right_pad: int, *,
 
 
 depthwise_conv1d.launches = 0
+
+
+class DepthwiseConvFn(torch.autograd.Function):
+    """``depthwise_conv1d`` on the card with gradients for x, the weight and the bias:
+    dx from ``depthwise_conv1d_bwd_input``, dw and db from one
+    ``depthwise_conv1d_bwd_weight``. The mask gets none."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mask, left_pad, right_pad):
+        x = cuda_lib.vectorizable(x)
+        ctx.save_for_backward(x, weight, mask)
+        ctx.pads = (left_pad, right_pad)
+        return _depthwise_cuda(x, weight, bias, mask, left_pad, right_pad)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, weight, mask = ctx.saved_tensors
+        left, right = ctx.pads
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = depthwise_conv1d_bwd_input(dout, weight, mask, left, right)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dw, db = depthwise_conv1d_bwd_weight(x, dout, mask, left, right)
+            dw = dw.reshape(weight.shape) if ctx.needs_input_grad[1] else None
+            db = db if ctx.needs_input_grad[2] else None
+        return dx, dw, db, None, None, None
+
+
+def depthwise_conv1d_bwd_input_ref(dout, weight, mask, left_pad: int, right_pad: int):
+    """Plain version of the input gradient: ``depthwise_conv1d_ref`` on dout with the taps
+    reversed, the pads swapped and no bias, times the input mask."""
+    w = weight.reshape(weight.shape[0], 1, weight.shape[-1]).flip(-1)
+    return _masked(depthwise_conv1d_ref(dout, w, None, None, right_pad, left_pad), mask)
+
+
+def depthwise_conv1d_bwd_weight_ref(x, dout, mask, left_pad: int, right_pad: int):
+    """Plain version of the weight and bias gradients: dw[c, j] = sum_{b,t} dout[b, t, c]
+    xm[b, t + j - left, c] (xm the masked input, zero outside [0, T)) and db[c] =
+    sum_{b,t} dout[b, t, c], each a sum over (b, t) in fp32, tap by tap in tap order ->
+    ((C, k), (C,)) fp32."""
+    k = left_pad + right_pad + 1
+    t = x.shape[1]
+    g = dout.float()
+    xp = F.pad(_masked(x, mask).float(), (0, 0, left_pad, right_pad))
+    dw = torch.stack([(g * xp[:, j: j + t]).sum((0, 1)) for j in range(k)], dim=-1)
+    return dw, g.sum((0, 1))
+
+
+def depthwise_conv1d_bwd_input(dout, weight, mask, left_pad: int, right_pad: int):
+    """The input gradient of ``depthwise_conv1d`` (CUDA, fp32): the plain-mode forward
+    kernel on dout with the taps reversed, the pads swapped and no bias; the wrapper then
+    multiplies by the input mask -> contiguous (B, T, C). Bit-equal to
+    ``depthwise_conv1d_bwd_input_ref``."""
+    _fp32_cuda("depthwise_conv1d_bwd_input", dout, weight)
+    g = cuda_lib.vectorizable(dout)
+    k = weight.shape[-1]
+    w = weight.reshape(weight.shape[0], k).flip(-1).contiguous()
+    _check(g, w, mask, right_pad, left_pad)
+    b, t, c = g.shape
+    dx = torch.empty((b, t, c), dtype=g.dtype, device=g.device)
+    lib = cuda_lib.load_library()
+    cuda_lib.count_launch(depthwise_conv1d_bwd_input, (g,), (k, right_pad, left_pad), mask)
+    err = lib.fsmn_depthwise_fwd(_DTYPES[g.dtype], g.data_ptr(), w.data_ptr(), None, None,
+                                 dx.data_ptr(), b, t, c, k, right_pad, g.stride(0),
+                                 g.stride(1), 0, cuda_lib.stream_handle(g.device))
+    cuda_lib.check(err, "depthwise_conv1d_bwd_input")
+    return dx if mask is None else dx.mul_(mask[..., None].to(dx.dtype))
+
+
+depthwise_conv1d_bwd_input.launches = 0
+
+# (k, left) of the depthwise weight gradient's vector kernel -> channels a thread
+# (csrc/fsmn.cu): the Conformer's, the chunk conformer's causal, the E-Branchformer's merge
+# conv and, at 2 channels a thread as its forward, the cgMLP gate
+DEPTHWISE_DW_VEC = {(15, 7): 4, (15, 14): 4, (3, 1): 4, (31, 15): 2}
+
+
+def depthwise_dw_plan(b: int, t: int, c: int, k: int, left: int, sms: int):
+    """(channels a thread of the vector kernel, 0 for the generic one; rows a chunk;
+    partial shape) of ``depthwise_conv1d_bwd_weight``: ``dw_plan``'s chunks at the vector
+    kernel's channels (``DEPTHWISE_DW_VEC``, C a multiple of them), else the generic
+    kernel's; each partial holds the k taps and the bias row: (parts, k + 1, C) fp32."""
+    v = DEPTHWISE_DW_VEC.get((k, left), 0)
+    if v and c % v == 0:
+        rows, parts = _vec_plan(b, t, c, v, sms)
+        return v, rows, (parts, k + 1, c)
+    rows = dw_rows_per_chunk(b, t, c, k + 1, sms)
+    return 0, rows, (-(-(b * t) // rows), k + 1, c)
+
+
+def depthwise_conv1d_bwd_weight(x, dout, mask, left_pad: int, right_pad: int):
+    """The weight and bias gradients of ``depthwise_conv1d`` (CUDA, fp32): one reduction
+    kernel over the B T rows for the C k taps and the bias row at once
+    (``fsmn_depthwise_bwd_weight``, deterministic: per-chunk partials added in chunk
+    order), x and dout (B, T, C), any batch / time strides -> ((C, k), (C,)) fp32."""
+    _fp32_cuda("depthwise_conv1d_bwd_weight", x, dout)
+    if x.dim() != 3 or dout.shape != x.shape or x.stride(2) != 1 or dout.stride(2) != 1:
+        raise ValueError(f"x and dout must be one (B, T, C) shape with unit channel "
+                         f"stride, got {tuple(x.shape)}, {tuple(dout.shape)}")
+    b, t, c = x.shape
+    k = left_pad + right_pad + 1
+    if not 1 <= k <= MAX_KERNEL or left_pad < 0 or right_pad < 0:
+        raise ValueError(f"need pads >= 0 with k = left + right + 1 <= {MAX_KERNEL}")
+    if mask is not None and (mask.dtype != torch.bool or mask.shape != (b, t)
+                             or mask.device != x.device):
+        raise ValueError(f"mask must be a ({b}, {t}) bool tensor on {x.device}")
+    vec, rows, shape = depthwise_dw_plan(b, t, c, k, left_pad,
+                                         cuda_lib.sm_count(x.device.index or 0))
+    if vec:
+        x, dout = cuda_lib.vectorizable(x), cuda_lib.vectorizable(dout)
+    if shape[0] > (2**31 - 1 if vec else 65535):
+        raise ValueError(f"shape {tuple(x.shape)} exceeds the kernel's grid")
+    partial = torch.empty(shape, dtype=torch.float32, device=x.device)
+    dw = torch.empty((c, k), dtype=torch.float32, device=x.device)
+    db = torch.empty((c,), dtype=torch.float32, device=x.device)
+    m = None if mask is None else mask.contiguous()
+    lib = cuda_lib.load_library()
+    cuda_lib.count_launch(depthwise_conv1d_bwd_weight, (x, dout), (k, left_pad, right_pad), m)
+    err = lib.fsmn_depthwise_bwd_weight(
+        x.data_ptr(), dout.data_ptr(), None if m is None else m.data_ptr(),
+        partial.data_ptr(), dw.data_ptr(), db.data_ptr(), b, t, c, k, left_pad, x.stride(0),
+        x.stride(1), dout.stride(0), dout.stride(1), rows, vec,
+        cuda_lib.stream_handle(x.device))
+    cuda_lib.check(err, "depthwise_conv1d_bwd_weight")
+    return dw, db
+
+
+depthwise_conv1d_bwd_weight.launches = 0

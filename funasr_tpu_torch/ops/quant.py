@@ -50,13 +50,16 @@ STACKED_LISTS = frozenset({"encoders", "decoders", "decoders2", "tp_encoders"})
 def scan_stacked(model: nn.Module, name: str) -> bool:
     """Whether the JAX package holds the module ``name`` inside a scan-stacked layer: under
     an ``nn.ModuleList`` named in ``STACKED_LISTS`` whose owner does not set
-    ``SCAN_STACKED = False`` (the convolution decoders keep a plain list)."""
+    ``SCAN_STACKED = False`` (the convolution decoders keep a plain list), or in the
+    owner's own ``SCAN_STACKED_LISTS`` (``RWKVEncoder``'s ``blocks``)."""
     parts = name.split(".")
     for i in range(1, len(parts)):
-        if parts[i].isdigit() and parts[i - 1] in STACKED_LISTS:
-            owner = model.get_submodule(".".join(parts[: i - 1]))
-            if getattr(owner, "SCAN_STACKED", True):
-                return True
+        if not parts[i].isdigit():
+            continue
+        owner = model.get_submodule(".".join(parts[: i - 1]))
+        if (parts[i - 1] in STACKED_LISTS and getattr(owner, "SCAN_STACKED", True)
+                or parts[i - 1] in getattr(owner, "SCAN_STACKED_LISTS", ())):
+            return True
     return False
 
 

@@ -35,7 +35,8 @@ REGISTRABLE = tuple(f"funasr_tpu_torch.{m}" for m in (
     "models.paraformer_v2.model",
     "models.language_model.transformer_lm",
     "models.seaco_paraformer.model", "models.sanm.encoder", "models.sense_voice.model",
-    "models.specaug.specaug", "models.transformer.conv_decoders",
+    "models.rwkv_bat.model", "models.specaug.specaug", "models.transducer.model",
+    "models.transformer.conv_decoders",
     "models.transformer.decoder", "models.transformer.encoder", "models.transformer.model",
     "models.whisper.encoders", "models.whisper.model", "tokenizer.char_tokenizer",
     "tokenizer.extra_tokenizers", "tokenizer.hf_tokenizer",

@@ -64,8 +64,9 @@ import torch.distributed as dist
 
 from funasr_tpu_torch.ops import cuda_lib
 from funasr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
-from funasr_tpu_torch.ops.fsmn import (fsmn_memory, fsmn_memory_bwd_input,
-                                       fsmn_memory_bwd_weight)
+from funasr_tpu_torch.ops.fsmn import (depthwise_conv1d, depthwise_conv1d_bwd_input,
+                                       depthwise_conv1d_bwd_weight, fsmn_memory,
+                                       fsmn_memory_bwd_input, fsmn_memory_bwd_weight)
 from funasr_tpu_torch.ops.w8a8 import w8a8_linear
 from funasr_tpu_torch.parallel.sharding import ITEM_21B, DataGroup, local
 from funasr_tpu_torch.train_utils.train_step import backward, clip_scale, global_norm, scale_
@@ -74,7 +75,10 @@ from funasr_tpu_torch.train_utils.train_step import backward, clip_scale, global
 KERNEL_COUNTERS = {"flash_attention": flash_attention,
                    "flash_attention_bwd": flash_attention_bwd,
                    "fsmn_memory": fsmn_memory, "fsmn_memory_bwd_input": fsmn_memory_bwd_input,
-                   "fsmn_memory_bwd_weight": fsmn_memory_bwd_weight, "w8a8_linear": w8a8_linear}
+                   "fsmn_memory_bwd_weight": fsmn_memory_bwd_weight, "w8a8_linear": w8a8_linear,
+                   "depthwise_conv1d": depthwise_conv1d,
+                   "depthwise_conv1d_bwd_input": depthwise_conv1d_bwd_input,
+                   "depthwise_conv1d_bwd_weight": depthwise_conv1d_bwd_weight}
 
 
 RANK_SEED_STRIDE = 0x9E3779B1  # odd: r x it mod 2^32 differs for every rank r < 2^32

@@ -36,8 +36,11 @@ def test_import_pulls_in_no_jax():
         "    <= set(tables.model_classes)\n"
         "assert {'Transformer', 'SANM', 'Conformer', 'Branchformer', 'EBranchformer',\n"
         "        'GLMASR', 'TransformerLM', 'SeqRNNLM'} <= set(tables.model_classes)\n"
-        "assert {'LightweightConvolutionTransformerDecoder', 'TransformerDecoder'} \\\n"
-        "    <= set(tables.decoder_classes)\n"
+        "assert {'LightweightConvolutionTransformerDecoder', 'TransformerDecoder',\n"
+        "        'RNNTDecoder', 'rnnt_decoder'} <= set(tables.decoder_classes)\n"
+        "assert {'Transducer', 'BAT', 'RWKVBAT', 'ConformerRWKV'} <= set(tables.model_classes)\n"
+        "assert {'ChunkConformerEncoder', 'RWKVEncoder'} <= set(tables.encoder_classes)\n"
+        "import funasr_tpu_torch.ops.rnnt_loss\n"
         "import funasr_tpu_torch.models.transformer.search\n"
         "import funasr_tpu_torch.models.transformer.hotword_scorer\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

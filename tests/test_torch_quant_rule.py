@@ -26,6 +26,8 @@ from torch_parity_util import (BICIF_PREDICTOR, NANO_LLM, PUNC_ENC, PUNC_MODEL_C
                                SEACO_DECODER_CONF, SV_CONF, one_torch_thread)  # noqa: F401
 
 import funasr_tpu.models.conformer.model  # noqa: F401,E402 (registers Conformer in JAX)
+import funasr_tpu.models.rwkv_bat.model  # noqa: F401,E402 (registers BAT in JAX)
+import funasr_tpu.models.transducer.model  # noqa: F401,E402
 
 D = 256
 SANM_ENC = dict(output_size=D, attention_heads=4, linear_units=D, num_blocks=2,
@@ -84,6 +86,15 @@ CASES = {
     "TransformerLM": ("TransformerLM", dict(vocab_size=300, embed_unit=D, att_unit=D, head=4,
                                             unit=D, layer=2)),
     "SeqRNNLM": ("SeqRNNLM", dict(vocab_size=300, embed_unit=D, hidden_size=D, num_layers=2)),
+    "Transducer": ("Transducer", dict(
+        input_size=80, vocab_size=300, encoder="ChunkConformerEncoder",
+        encoder_conf=dict(output_size=D, attention_heads=4, linear_units=D, num_blocks=2,
+                          cnn_module_kernel=15, input_layer="conv2d"),
+        decoder_conf=dict(embed_size=D, hidden_size=D), joint_network_conf=dict(
+            joint_space_size=D))),
+    "BAT": ("BAT", dict(input_size=80, vocab_size=300, encoder_conf=dict(
+        output_size=D, num_blocks=2, ffn_mult=2), decoder_conf=dict(embed_size=D, hidden_size=D),
+        joint_network_conf=dict(joint_space_size=D))),
 }
 
 

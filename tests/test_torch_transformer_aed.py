@@ -204,10 +204,24 @@ def test_conv_decoders_match_jax(rng, decoder):
     close(step.numpy(), jstep, MODEL_TOL)
 
 
-@pytest.mark.parametrize("name", ["Transformer", "SANM"])
+CHUNK_ENC = dict(ENC, cnn_module_kernel=15, chunk_size=8, left_chunks=1, input_layer="conv2d")
+FORWARD_CASES = {
+    "Transformer": ("Transformer", CONF),
+    "SANM": ("SANM", dict(CONF, encoder_conf=SANM_ENC)),
+    # the chunk-causal Conformer under an AED, and the transducer over it (its loss alone)
+    "Conformer_chunk": ("Conformer", dict(CONF, encoder="ChunkConformerEncoder",
+                                          encoder_conf=CHUNK_ENC)),
+    "Transducer": ("Transducer", dict(input_size=80, vocab_size=len(TOKENS),
+                                      encoder="ChunkConformerEncoder", encoder_conf=CHUNK_ENC,
+                                      decoder_conf=dict(embed_size=16, hidden_size=24),
+                                      joint_network_conf=dict(joint_space_size=40))),
+}
+
+
+@pytest.mark.parametrize("name", list(FORWARD_CASES))
 def test_forward_loss_and_stats_match_forward_jit(name):
-    conf = dict(CONF, encoder_conf=SANM_ENC) if name == "SANM" else CONF
-    pt, jm, jp = build(name, conf, seed=2)
+    model, conf = FORWARD_CASES[name]
+    pt, jm, jp = build(model, conf, seed=2)
     x, lens = padded_batch(2)
     rng = np.random.default_rng(5)
     tlens = np.asarray([7, 4, 2], np.int32)
