@@ -18,7 +18,9 @@ Paraformer's fine-tuning with the flash kernels in chunk mode, then Fun-ASR-Nano
 fine-tuning at full width with the LLM-ASR family's and Whisper's losses, then the
 Transformer-family AED models (Conformer, E-Branchformer, Paraformer over a Conformer
 encoder) with their depthwise convolutions on the FSMN kernel's plain mode, then the
-AISHELL Conformer recipe and the transducer training on that mode's backward kernels.
+AISHELL Conformer recipe and the transducer training on that mode's backward kernels, then
+SCAMA and UniASR 2-pass (the flash kernels' chunk mode and the FSMN kernel on a decode),
+UniASR's fine-tuning, LCB-Net with OCR context and ERes2NetV2 speaker embeddings.
 
     python3 chip_smoke.py
 
@@ -332,6 +334,31 @@ Phases (any failure raises and exits non-zero):
    within 1e-5 relative L2 and bit-equal across two runs, with ``conv1d_input`` /
    ``conv1d_weight`` + ``.sum`` beside them (``depthwise_bwd_rows``).
 
+22. The long tail (``phase_long_tail``), on 2 of phase 16's wavs cut to 6 s, seeded
+   weights, fp32: (a) UniASR (two paraformer-zh-streaming encoders at PROD_CONF width with
+   phase 18's chunk configs, two 16-block ``FsmnDecoderSCAMAOpt``s, k 11, vocab 8,358)
+   from a model dir through ``AutoModel.generate(decoding_model="fast")`` and
+   ``"normal"``, (b) SCAMA (one such encoder and decoder, vocab 8,404) through
+   ``generate``: every flash launch in chunk mode, exactly 50 an encoder, FSMN exactly 50
+   an encoder + 16 a greedy step, the normal and SCAMA runs profiled; each model cut to 4
+   + 2 blocks a pass on the card against the CPU port (encoder outputs within 1e-4
+   relative L2, CIF token counts and frame alignments equal, ids where the margin clears);
+   a row per flash and FSMN signature the decodes launched (chunk mode at (2, 4, Tc,
+   128), the encoders' (11, 5) under the holed frame mask, the decoders' (11, 10)
+   prefix-masked), each within 1e-5 relative L2 and bit-equal across two runs. (c) LCB-Net
+   at phase 20's AISHELL Conformer widths: ``generate(beam_size=5, ocr_text=...)`` (12
+   plain-mode launches, the OCR context fused in), ``bias_scores`` on a batch of 2 (one
+   plain-mode launch at k 7, pads 3 / 3, the generic instantiation, its row bit-equal),
+   the cut model on the card against the CPU (encoder, fused output, bias scores within
+   1e-4). (d) UniASR's ``bin/train`` with ``uniasr/finetune.sh``'s flags (fsdp on one
+   rank, token batches of 6,000) over a prefix of phase 16's wavs that makes 2 steps, one
+   checkpoint (each step exactly 100 flash in chunk mode + 100 backward, 132
+   FSMN + 132 dx + 132 dw), a subprocess started before phase 21, beside its runs
+   (``long_tail_train_start``); its step cut to 4 +
+   2 blocks a pass on the card against the CPU (loss within 1e-6, every gradient within
+   1e-4 relative L2). (e) ERes2NetV2 at its class defaults through ``AutoModel.generate``:
+   (2, 192) embeddings within 1e-4 of the CPU's.
+
 ``python3 chip_smoke.py --aed-training`` (not part of the run above): phase 21 alone, with
 the wavs and the Conformer dir it reads of phases 16 and 20, both ``bin/train`` runs
 profiling their second step (device ms, idle share; ~40 s of the profiler's own work, so
@@ -374,7 +401,8 @@ and phase 17's under ``training_family``, phase 18's under ``streaming_training`
 phase 19's under ``llm_training`` in those five (W8A8 too, at 0 launches); phase 20's
 under ``aed`` with a kernel of its own, ``depthwise_conv1d``; phase 21's under
 ``aed_training`` there, with two more kernels, ``depthwise_conv1d_bwd_input`` and
-``depthwise_conv1d_bwd_weight``), the last line ``{"ok": true, "device": {...}}``.
+``depthwise_conv1d_bwd_weight``; phase 22's under ``long_tail``), the last line ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -7616,8 +7644,9 @@ def aed_train_batch(conf, rng):
 @contextlib.contextmanager
 def shared_relu_masks(masks, record):
     """``PositionwiseFeedForward`` (the ReLU FFN of the decoders and the E-Branchformer's
-    macaron pair) with its ReLU as h * mask: while ``record``, each call's mask h > 0 is
-    appended to ``masks``; else each call takes the next of ``masks`` (the other device's
+    macaron pair, and of the SAN-M encoders) and the SAN-M decoders'
+    ``PositionwiseFeedForwardDecoderSANM`` (its ReLU feeds a LayerNorm) with the ReLU as
+    h * mask: while ``record``, each call's mask h > 0 is appended to ``masks``; else each call takes the next of ``masks`` (the other device's
     step), counts in ``masks.crossed`` the pre-activations whose own sign differs and keeps
     in ``masks.worst`` the largest |h| among them over the call's RMS of h (the caller
     holds it to RELU_CROSS_REL). On the recording device the values and gradients are
@@ -7628,10 +7657,10 @@ def shared_relu_masks(masks, record):
     from funasr_tpu_torch.core import layers
 
     orig = layers.PositionwiseFeedForward.forward
+    orig_sanm = layers.PositionwiseFeedForwardDecoderSANM.forward
     taken = iter(list(masks))
 
-    def forward(self, x):
-        h = layers.apply_linear(self.w_1, x)
+    def relu(h):
         if record:
             m = h > 0
             masks.append(m.detach())
@@ -7644,13 +7673,21 @@ def shared_relu_masks(masks, record):
                 hd = h.detach()
                 rms = hd.double().square().mean().sqrt()
                 masks.worst = max(masks.worst, float(hd[crossed].abs().max() / rms))
-        return layers.apply_linear(self.w_2, h * m.to(h.dtype))
+        return h * m.to(h.dtype)
+
+    def forward(self, x):
+        return layers.apply_linear(self.w_2, relu(layers.apply_linear(self.w_1, x)))
+
+    def forward_sanm(self, x):
+        return layers.apply_linear(self.w_2, self.norm(relu(layers.apply_linear(self.w_1, x))))
 
     layers.PositionwiseFeedForward.forward = forward
+    layers.PositionwiseFeedForwardDecoderSANM.forward = forward_sanm
     try:
         yield masks
     finally:
         layers.PositionwiseFeedForward.forward = orig
+        layers.PositionwiseFeedForwardDecoderSANM.forward = orig_sanm
 
 
 class Masks(list):
@@ -8172,6 +8209,723 @@ def phase_aed_training(dev, counters, card, keep, profile=False):
     return fig
 
 
+# ---- phase 22: SCAMA, UniASR 2-pass, LCB-Net, ERes2NetV2 ------------------------------
+
+# paraformer-zh-streaming's encoder at PROD_CONF width with phase 18's chunk configs (chunks
+# [12, 15], strides [8, 10], look-back 4) and FsmnDecoderSCAMAOpt at that width: 16 blocks,
+# all with cross-attention, k 11, the class's default sanm_shfit (k - 1) // 2 = 5, so the
+# FSMN kernel's (11, 10) pads. The published SCAMA and UniASR config.yaml files are not in
+# the repository (ROADMAP section 1)
+CHUNK_AR_ENCODER = dict(STREAM_ENCODER_CONF, **STREAM_TRAIN_CHUNKS)
+CHUNK_AR_DECODER = dict(attention_heads=4, linear_units=2048, num_blocks=16, att_layer_num=16,
+                        kernel_size=11)
+CHUNK_AR_PREDICTOR = PROD_CONF["predictor_conf"]
+SCAMA_CONF = dict(encoder="SANMEncoderChunkOpt", encoder_conf=CHUNK_AR_ENCODER,
+                  decoder="FsmnDecoderSCAMAOpt", decoder_conf=CHUNK_AR_DECODER,
+                  predictor="CifPredictorV2", predictor_conf=CHUNK_AR_PREDICTOR)
+UNIASR_CONF = dict(SCAMA_CONF, encoder2="SANMEncoderChunkOpt", encoder2_conf=CHUNK_AR_ENCODER,
+                   decoder2="FsmnDecoderSCAMAOpt", decoder2_conf=CHUNK_AR_DECODER,
+                   predictor2="CifPredictorV2", predictor2_conf=CHUNK_AR_PREDICTOR,
+                   stride_conv="stride_conv1d",
+                   stride_conv_conf=dict(kernel_size=2, stride=2, pad=[0, 1]))
+SCAMA_MODEL_CONF = dict(sos=1, eos=2, ctc_weight=0.5, lsm_weight=0.1, predictor_weight=1.0)
+UNIASR_MODEL_CONF = dict(sos=1, eos=2, lsm_weight=0.1, predictor_bias=1, predictor2_bias=1,
+                         predictor_weight=1.0, predictor2_weight=1.0, loss_weight_model1=0.5)
+UNIASR_VOCAB = 8358        # speech_UniASR-large_asr_2pass-zh-cn-16k-common-vocab8358
+LONG_TAIL_WAVES = 2        # phase 16's first train wavs, each cut to LONG_TAIL_SECONDS
+LONG_TAIL_SECONDS = 6.0
+LONG_TAIL_CPU_DEPTH = (4, 2)    # encoder / decoder blocks a pass of the CUDA-vs-CPU checks
+LONG_TAIL_ENC_REL_TOL = 1e-4    # fp32 encoder outputs, CUDA against the CPU, relative L2
+LONG_TAIL_LOSS_RTOL = 1e-6      # the UniASR cut step's loss, CUDA against the CPU
+LONG_TAIL_GRAD_REL_TOL = 1e-4   # each gradient of that step, relative L2
+LCBNET_OCR = 9                  # OCR tokens a row of the bias_scores batch
+# uniasr/finetune.sh's flags (fsdp on one rank, token batches of 6,000, lr 0.0002, the best
+# 10 kept) for one epoch of UNIASR_TRAIN_STEPS steps over a prefix of phase 16's train
+# wavs and one of its val wavs: the epoch's validation and checkpoint. No average of the
+# best 5 (cut for the run's time limit: it reads and writes ~7 GB, ~10 s; phase 16's run
+# holds that path)
+UNIASR_TRAIN_TOKENS = 6000
+UNIASR_TRAIN_RUN = ["++sharding=fsdp", f"++dataset_conf.batch_size={UNIASR_TRAIN_TOKENS}",
+                    "++dataset_conf.batch_type=token", "++optim_conf.lr=0.0002",
+                    "++train_conf.max_epoch=1", "++train_conf.keep_nbest_models=10",
+                    "++train_conf.avg_nbest_model=0", "++train_conf.log_interval=1",
+                    "++train_conf.use_tensorboard=False",
+                    "++train_conf.log_kernel_shapes=True"]
+UNIASR_TRAIN_STEPS = 2
+
+
+def chunk_ar_tokens(n):
+    return ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(n - 4)] + ["<unk>"]
+
+
+def write_chunk_ar_dir(d, dev, model_name, conf, model_conf, vocab, seed):
+    """A FunASR-layout SCAMA or UniASR directory: config.yaml, model.pt of seeded weights,
+    tokens.txt of ``vocab`` entries, an identity am.mvn (WavFrontend lfr 7 / 6)."""
+    from funasr_tpu_torch import tables
+
+    os.makedirs(d, exist_ok=True)
+    model = tables.model_classes[model_name](
+        input_size=PROD_CONF["input_size"], vocab_size=vocab, **conf, **model_conf, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(seed))
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(d, "model.pt"))
+    del model
+    with open(os.path.join(d, "tokens.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(chunk_ar_tokens(vocab)) + "\n")
+    with open(os.path.join(d, "am.mvn"), "w") as f:
+        f.write(identity_cmvn(PROD_CONF["input_size"]))
+    write_config(d, dict(model=model_name, model_conf=model_conf, **conf,
+                         frontend="WavFrontend",
+                         frontend_conf=dict(FRONTEND_CONF, cmvn_file="am.mvn"),
+                         tokenizer="CharTokenizer",
+                         tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>")))
+    return d
+
+
+def cut_conf(conf):
+    """``conf`` cut to LONG_TAIL_CPU_DEPTH blocks a pass."""
+    enc_n, dec_n = LONG_TAIL_CPU_DEPTH
+    out = dict(conf)
+    for key in ("encoder_conf", "encoder2_conf"):
+        if key in conf:
+            out[key] = dict(conf[key], num_blocks=enc_n)
+    for key in ("decoder_conf", "decoder2_conf"):
+        if key in conf:
+            out[key] = dict(conf[key], num_blocks=dec_n, att_layer_num=dec_n)
+    return out
+
+
+@contextlib.contextmanager
+def recorded_decode_passes(model):
+    """Records each ``decode_pass`` that the model's own decode (``decode_features``) runs:
+    its decoder, encoder output, lengths and masks, the SCAMA alignments and windows it
+    builds (``scama_windows``), its greedy ids and CIF token counts. Yields the list."""
+    passes = []
+    decode_pass, windows = model.decode_pass, model.scama_windows
+
+    def record_windows(align, *args, **kwargs):
+        window = windows(align, *args, **kwargs)
+        passes[-1].update(align=align, window=window)
+        return window
+
+    def record_pass(encoder, predictor, decoder, enc, enc_lens, masks, *args):
+        passes.append(dict(decoder=decoder, enc=enc, enc_lens=enc_lens, masks=masks))
+        ids, token_num = decode_pass(encoder, predictor, decoder, enc, enc_lens, masks, *args)
+        passes[-1].update(greedy=ids, token_num=token_num)
+        return ids, token_num
+
+    model.decode_pass, model.scama_windows = record_pass, record_windows
+    try:
+        yield passes
+    finally:
+        del model.decode_pass, model.scama_windows
+
+
+def teacher_forced_logp(model, part, ids):
+    """A recorded pass's decoder log-probs teacher-forced on ``ids`` (B, max_tokens) over
+    all max_tokens rows, under the pass's own SCAMA windows."""
+    x = model.pass_inputs(part["enc"], part["enc_lens"], part["masks"])[0]
+    ys = ids.to(x.device)
+    ys_in = torch.cat([torch.full_like(ys[:, :1], model.sos), ys[:, :-1]], dim=1)
+    logits, _ = part["decoder"](x, part["enc_lens"], ys_in,
+                                torch.full_like(part["enc_lens"], ys.shape[1]),
+                                chunk_mask=part["window"])
+    return torch.log_softmax(logits.float(), -1).cpu()
+
+
+def chunk_ar_cuda_vs_cpu(dev, model_name, conf, model_conf, vocab, feats, flens, modes):
+    """SCAMA or UniASR at PROD_CONF width cut to LONG_TAIL_CPU_DEPTH on the card against
+    its copy on the CPU (fp32, TF32 off), the same host features, through the model's own
+    decode (``decode_features``, once a ``modes`` entry: its keyword arguments) with each
+    decoded pass recorded (``recorded_decode_passes``): the encoder output within
+    LONG_TAIL_ENC_REL_TOL relative L2, the CIF token counts and the frame alignments equal,
+    the decoder's log-probs teacher-forced on the CPU's greedy ids, the card's argmax
+    equal to those ids wherever the CPU's top-2 margin clears PARA_MARGIN_FACTOR x the
+    log-probs' error, and the card's greedy ids equal to the CPU's in each row up to its
+    first position whose margin does not."""
+    from funasr_tpu_torch import tables
+
+    cpu = tables.model_classes[model_name](
+        input_size=PROD_CONF["input_size"], vocab_size=vocab, **cut_conf(conf), **model_conf,
+        generator=torch.Generator().manual_seed(23)).eval()
+    gpu = copy.deepcopy(cpu).to(dev)
+    figures = []
+    for mode in modes:
+        out = {}
+        for name, model in (("cpu", cpu), ("gpu", gpu)):
+            d = model.device
+            with torch.inference_mode(), recorded_decode_passes(model) as passes:
+                model.decode_features(feats.to(d), flens.to(d), 0, **mode)
+            out[name] = passes
+        (c,), (g,) = out["cpu"], out["gpu"]
+        label = f"{model_name} {mode.get('mode', 'decode')}"
+        enc_rel = rel_l2(g["enc"].cpu(), c["enc"])
+        counts_equal = torch.equal(c["token_num"], g["token_num"])
+        align_equal = torch.equal(c["align"], g["align"].cpu())
+        if not (counts_equal and align_equal):
+            raise AssertionError(f"{label} on CUDA: CIF token counts {g['token_num']} vs "
+                                 f"{c['token_num']}, alignments equal {align_equal}")
+        with torch.inference_mode():
+            c_logp = teacher_forced_logp(cpu, c, c["greedy"])
+            g_logp = teacher_forced_logp(gpu, g, c["greedy"])
+        c_greedy, g_greedy = c["greedy"], g["greedy"].cpu()
+        max_tokens = c_greedy.shape[1]
+        valid = torch.arange(max_tokens)[None] < c["token_num"][:, None]
+        err = (g_logp - c_logp)[valid].abs().max().item() if valid.any() else 0.0
+        top2 = c_logp.topk(2, dim=-1).values
+        sure = valid & (top2[..., 0] - top2[..., 1] > PARA_MARGIN_FACTOR * err)
+        same = g_logp.argmax(-1) == c_greedy
+        # each row's ids up to its first unsure position, where the two decodes may part
+        gated = torch.cumprod((sure | ~valid).int(), dim=1).bool() & valid
+        greedy_same = g_greedy == c_greedy
+        r = dict(enc_rel_l2=enc_rel, token_counts_equal=counts_equal,
+                 alignments_equal=align_equal, logp_err=err, tokens=int(valid.sum()),
+                 sure=int(sure.sum()), sure_equal=bool(same[sure].all()),
+                 greedy_gated=int(gated.sum()), greedy_gated_equal=bool(greedy_same[gated].all()),
+                 greedy_equal=bool(greedy_same[valid].all()), token_num=c["token_num"].tolist())
+        log(f"{label} cuda vs cpu ({LONG_TAIL_CPU_DEPTH[0]} + {LONG_TAIL_CPU_DEPTH[1]} blocks, "
+            f"fp32): encoder rel L2 {enc_rel:.3e} (tol {LONG_TAIL_ENC_REL_TOL:g}); CIF token "
+            f"counts equal ({r['token_num']}); alignments equal; decoder log-prob max_abs_err "
+            f"{err:.3e}; teacher-forced ids equal on {r['sure']} of {r['tokens']} tokens whose "
+            f"top-2 margin exceeds {PARA_MARGIN_FACTOR}x that: {r['sure_equal']}; greedy ids "
+            f"equal on the {r['greedy_gated']} before each row's first smaller margin: "
+            f"{r['greedy_gated_equal']} (all {r['greedy_equal']})")
+        if not (enc_rel <= LONG_TAIL_ENC_REL_TOL and r["sure_equal"]
+                and r["greedy_gated_equal"]):
+            raise AssertionError(f"{label} on CUDA disagrees with the CPU port: {r}")
+        figures.append(r)
+    return figures
+
+
+def host_feats(waves):
+    from funasr_tpu_torch import tables
+    feats, flens = tables.frontend_classes["WavFrontend"](**FRONTEND_CONF).extract(waves)
+    return (torch.from_numpy(np.ascontiguousarray(feats)), torch.from_numpy(flens))
+
+
+def chunk_ar_generate(am, waves, counters, label, passes, profile=False, **call):
+    """One counted ``generate`` of the waves in one batch: every count set to 0 just before
+    it and read just after, the decoder steps (calls of the decoded pass's decoder), the
+    launch shapes, the wall ms; gated on a keyed text a wave, every flash launch in chunk
+    mode, flash exactly 50 an encoder and FSMN 50 an encoder + 16 a decoder step
+    (the prediction in ``PERF.md`` section 6). ``profile``: one more call under the
+    profiler (device ms, idle share)."""
+    from funasr_tpu_torch.ops import cuda_lib
+
+    model = am.model
+    decoder = model.decoder2 if call.get("decoding_model", "normal") != "fast" \
+        and hasattr(model, "decoder2") else model.decoder
+    steps = forward_counter(decoder)
+    torch.cuda.synchronize()
+    cuda_lib.record_launch_shapes()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    results = am.generate(input=waves, batch_size=len(waves), **call)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {c.__name__: c.launches for c in counters}
+    shapes = cuda_lib.take_launch_shapes()
+    cuda_lib.stop_recording_launch_shapes()
+    n_steps = len(steps)
+    enc_n, dec_n = CHUNK_AR_ENCODER["num_blocks"], CHUNK_AR_DECODER["num_blocks"]
+    want = dict({c.__name__: 0 for c in counters}, flash_attention=enc_n * passes,
+                fsmn_memory=enc_n * passes + dec_n * n_steps)
+    chunk_mode = all(e["args"][0] == "chunk" for e in shapes
+                     if e["kernel"] == "flash_attention")
+    texts = [r["text"] for r in results]
+    fig = dict(launches=launches, decoder_steps=n_steps, wall_ms=wall, texts=texts,
+               chunk_mode=chunk_mode)
+    log(f"{label}: {len(waves)} x {LONG_TAIL_SECONDS:g} s in one batch, wall {wall:.1f} ms, "
+        f"{n_steps} decoder steps, launches {launches} (expected {want}), flash all in chunk "
+        f"mode {chunk_mode}; texts {[t[:12] + '...' for t in texts]} (lengths "
+        f"{[len(t) for t in texts]})")
+    if len(results) != len(waves) or not all(isinstance(t, str) for t in texts) \
+            or launches != want or not chunk_mode:
+        raise AssertionError(f"{label}: {results}, launches {launches}, expected {want}")
+    if profile:
+        by_name = profile_once(lambda: am.generate(input=waves, batch_size=len(waves), **call),
+                               label, wall)
+        device = sum(t for t, _ in by_name.values())
+        fig["profile"] = dict(device_ms=device, idle_share=1 - device / wall,
+                              flash=kernel_totals(by_name, PORT_KERNELS["flash_attention"][1]),
+                              fsmn=kernel_totals(by_name, PORT_KERNELS["fsmn_memory"][0]))
+    return fig, shapes
+
+
+def decode_signatures(shapes):
+    """The flash and FSMN signatures of a counted decode as ``recipe_kernel_rows`` takes
+    them. A prefix-masked FSMN (a SCAMA decoder's: greedy step s launches it with s + 1
+    valid rows of max_tokens, the record keeps the first launch's) is timed at the middle
+    step's mask and marked ``prefix_steps`` (max_tokens) for ``prefix_mask_sweep``."""
+    out = {}
+    for e in shapes:
+        if e["kernel"] not in ("flash_attention", "fsmn_memory"):
+            continue
+        key = (e["kernel"], tuple((tuple(sh), tuple(st)) for sh, st in e["tensors"]),
+               tuple(e["args"]))
+        info = out.setdefault(key, dict(launches=0, lengths=e["lengths"]))
+        info["launches"] += e["launches"]
+        if "mask_runs" in e:
+            info["mask_runs"] = e["mask_runs"]
+        elif e["kernel"] == "fsmn_memory" and e["lengths"] is not None:
+            b, t = e["tensors"][0][0][:2]
+            info.update(lengths=[(t + 1) // 2] * b, prefix_steps=t)
+    return out
+
+
+def prefix_mask_sweep(dev, signatures):
+    """Each prefix-masked FSMN signature of ``decode_signatures`` at every mask its greedy
+    decode launches (s + 1 valid rows, s = 0 .. max_tokens - 1) against the plain version:
+    within FSMN_TOL (max abs) and every row past the mask exactly 0, as the plain
+    version's. -> {label: dict(steps, max_abs_err)}; raises on a disagreement."""
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory, fsmn_memory_ref
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    out = {}
+    for (name, tensors, args), info in signatures.items():
+        if "prefix_steps" not in info:
+            continue
+        (shape, stride), = tensors[:1]
+        b, t, c = shape
+        kk, left, right = args[:3]
+        x = strided_randn(shape, stride, torch.float32, g, dev)
+        w = torch.rand(c, 1, kk, generator=g, device=dev) - 0.5
+        worst, bad = 0.0, []
+        for n in range(1, info["prefix_steps"] + 1):
+            mask = (torch.arange(t, device=dev) < n)[None].repeat(b, 1)
+            got = fsmn_memory(x, w, mask, left, right)
+            err = (got - fsmn_memory_ref(x, w, mask, left, right)).abs().max().item()
+            worst = max(worst, err)
+            if not err <= FSMN_TOL[torch.float32] or bool(got[:, n:].any()):
+                bad.append((n, err))
+        label = f"{b}x{t}x{c}_k{kk}_{left}_{right}"
+        log(f"  FSMN ({kk}, {left}) prefix masks of {label}: {info['prefix_steps']} steps, "
+            f"max_abs_err {worst:.3e} (tol {FSMN_TOL[torch.float32]:g}), rows past the mask 0")
+        if bad:
+            raise AssertionError(f"FSMN {label} at the decode's prefix masks: (valid rows, "
+                                 f"err) {bad[:5]}")
+        out[label] = dict(steps=info["prefix_steps"], max_abs_err=worst)
+    return out
+
+
+def two_step_lists(jsonl, root):
+    """A prefix of phase 16's train jsonl that the recipe's sampler (token batches of
+    6,000) cuts into UNIASR_TRAIN_STEPS batches, the longest such, and its val jsonl's
+    first row: {split: path}."""
+    from funasr_tpu_torch.datasets.audio_datasets.datasets import AudioDataset
+    from funasr_tpu_torch.datasets.audio_datasets.samplers import BatchSampler
+
+    with open(jsonl["train"], encoding="utf-8") as f:
+        rows = f.read().splitlines()
+    out = {"train": os.path.join(root, "train2.jsonl"), "val": os.path.join(root, "val1.jsonl")}
+    best = None
+    for n in range(1, len(rows) + 1):
+        with open(out["train"], "w", encoding="utf-8") as f:
+            f.write("\n".join(rows[:n]) + "\n")
+        ds = AudioDataset("IndexDSJsonl", {"path": out["train"]})
+        sampler = BatchSampler(ds, batch_size=UNIASR_TRAIN_TOKENS, batch_type="token",
+                               shuffle=True)
+        sampler.set_epoch(0)
+        if len(list(sampler)) == UNIASR_TRAIN_STEPS:
+            best = n
+    if best is None:
+        raise AssertionError(f"no prefix of {jsonl['train']} makes {UNIASR_TRAIN_STEPS} batches")
+    with open(out["train"], "w", encoding="utf-8") as f:
+        f.write("\n".join(rows[:best]) + "\n")
+    with open(jsonl["val"], encoding="utf-8") as f:
+        val = f.read().splitlines()[:1]
+    with open(out["val"], "w", encoding="utf-8") as f:
+        f.write("\n".join(val) + "\n")
+    return out, best
+
+
+@contextlib.contextmanager
+def scama_tie_moved():
+    """The training CIF's rescaled alphas times CIF_TIE_SCALE where the SCAMA decoder's
+    training windows read them too (``gen_frame_alignments``): they sum to the target
+    count exactly, and whether the last token's frame reaches it is a tie that rounding
+    decides, in another order on each device (``cif_tie_moved`` for the fires)."""
+    import funasr_tpu_torch.models.scama.model as scama_mod
+    gen = scama_mod.gen_frame_alignments
+    scama_mod.gen_frame_alignments = lambda a, lens, k, training=True: gen(
+        a * CIF_TIE_SCALE if training else a, lens, k, training)
+    try:
+        with cif_tie_moved():
+            yield
+    finally:
+        scama_mod.gen_frame_alignments = gen
+
+
+def uniasr_step_cuda_vs_cpu(dev, counters, feats, flens, vocab):
+    """One UniASR training step (loss + backward, config 0, both passes) at PROD_CONF width
+    cut to LONG_TAIL_CPU_DEPTH on the card and on the CPU: the same weights, features and
+    targets, every ReLU FFN of the card on the CPU's linear pieces (``shared_relu_masks``;
+    each crossing within RELU_CROSS_REL of 0); the loss within
+    LONG_TAIL_LOSS_RTOL, every gradient within LONG_TAIL_GRAD_REL_TOL relative L2
+    (``grad_rel_errors``; the five worst logged), the launches exactly the cut step's (8
+    flash + 8 backward, 12 FSMN + 12 dx + 12 dw)."""
+    from funasr_tpu_torch import tables
+
+    enc_n, dec_n = LONG_TAIL_CPU_DEPTH
+    cpu = tables.model_classes["UniASR"](
+        input_size=PROD_CONF["input_size"], vocab_size=vocab, **cut_conf(UNIASR_CONF),
+        **UNIASR_MODEL_CONF, generator=torch.Generator().manual_seed(24))
+    gpu = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(24)
+    tl = torch.tensor([24, 17])
+    text = torch.full((2, 24), -1, dtype=torch.long)
+    for i, n in enumerate(tl.tolist()):
+        text[i, :n] = torch.from_numpy(rng.integers(3, vocab - 1, n))
+    out = {}
+    masks = Masks()
+    with scama_tie_moved():
+        for name, model in (("cpu", cpu), ("cuda", gpu)):
+            model.train()
+            d = model.device
+            for c in counters:
+                c.launches = 0
+            with shared_relu_masks(masks, record=name == "cpu"):
+                loss, stats, _ = model(feats.to(d), flens.to(d), text.to(d), tl.to(d))
+                loss.backward()
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            out[name] = (loss.item(), {n: p.grad for n, p in model.named_parameters()},
+                         {c.__name__: c.launches for c in counters})
+    (cl, cg, _), (gl, gg, launches) = out["cpu"], out["cuda"]
+    worst, worst_name, bad = grad_rel_errors(cg, gg)
+    ranked = sorted(((rel_l2(gg[n].cpu(), g), n) for n, g in cg.items()
+                     if g is not None and g.norm() > 0), reverse=True)[:5]
+    log(f"  the five worst gradients: " + ", ".join(f"{n} {r:.2e}" for r, n in ranked)
+        + f"; ReLU pre-activations crossed on the card {masks.crossed} (largest |h| "
+        f"{masks.worst:.2e} of its call's RMS, gate {RELU_CROSS_REL:g})")
+    sites = {"flash_attention": 2 * enc_n, "flash_attention_bwd": 2 * enc_n,
+             "fsmn_memory": 2 * (enc_n + dec_n), "fsmn_memory_bwd_input": 2 * (enc_n + dec_n),
+             "fsmn_memory_bwd_weight": 2 * (enc_n + dec_n)}
+    rel = abs(gl - cl) / abs(cl)
+    log(f"UniASR training step CUDA vs CPU (PROD_CONF width, {enc_n} + {dec_n} blocks a pass, "
+        f"2 x {LONG_TAIL_SECONDS:g} s): loss {gl:.7f} vs {cl:.7f} (rel {rel:.2e}, tol "
+        f"{LONG_TAIL_LOSS_RTOL:g}); worst gradient rel L2 {worst:.2e} ({worst_name}, tol "
+        f"{LONG_TAIL_GRAD_REL_TOL:g}); launches {launches} (sites {sites})")
+    if rel > LONG_TAIL_LOSS_RTOL or not worst <= LONG_TAIL_GRAD_REL_TOL or bad \
+            or masks.worst > RELU_CROSS_REL:
+        raise AssertionError(f"the UniASR step on CUDA disagrees with the CPU port ({bad})")
+    if not sites_met(launches, sites):
+        raise AssertionError(f"the UniASR step's launches {launches} != sites {sites}")
+    return dict(loss_cuda=gl, loss_cpu=cl, loss_rel=rel, worst_grad_rel_l2=worst,
+                worst_param=worst_name, launches=launches, depth=LONG_TAIL_CPU_DEPTH,
+                relu_crossed=masks.crossed, relu_worst=masks.worst)
+
+
+def lcbnet_checks(dev, counters, root, waves, card):
+    """(c) LCB-Net at the AISHELL Conformer recipe's widths (phase 20's AED_ENCODER /
+    AED_DECODER, vocab 5,212; the text, fusion and bias-predictor encoders at the JAX
+    class defaults, sized to the encoder's 256): ``generate(beam_size=5, ocr_text=...)`` on
+    one wave (12 plain-mode launches, the OCR context fused in), ``bias_scores`` on a batch
+    of 2 (one plain-mode launch, k 7, pads 3 / 3, a bias: the generic instantiation), its
+    row against the plain version; the model cut to LONG_TAIL_CPU_DEPTH on the card
+    against the CPU: the encoder output, the fused output and ``bias_scores`` within
+    LONG_TAIL_ENC_REL_TOL relative L2."""
+    from funasr_tpu_torch import AutoModel, tables
+    from funasr_tpu_torch.ops import cuda_lib
+    from funasr_tpu_torch.ops.fsmn import depthwise_conv1d
+
+    counters = (*counters, depthwise_conv1d)
+    fig = {}
+    d = write_aed_dir(os.path.join(root, "lcbnet"), dev, "LCBNet", "ConformerEncoder",
+                      AED_ENCODER)
+    am = AutoModel(model=d, device="cuda", log_level="WARNING")
+    tokens = am.kwargs["tokenizer"].token_list
+    rng = np.random.default_rng(25)
+    ocr = "".join(tokens[int(j)] for j in rng.integers(3, len(tokens) - 1, LCBNET_OCR))
+    fused = []
+    inner = am.model.fuse_ocr
+    am.model.fuse_ocr = lambda *a, **k: fused.append(1) or inner(*a, **k)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = am.generate(input=waves[:1], beam_size=AED_BEAM, ocr_text=ocr)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {c.__name__: c.launches for c in counters}
+    del am.model.fuse_ocr
+    want = dict({c.__name__: 0 for c in counters}, depthwise_conv1d=AED_BLOCKS)
+    log(f"LCB-Net generate (beam {AED_BEAM}, {LCBNET_OCR} OCR tokens) 1 x "
+        f"{LONG_TAIL_SECONDS:g} s: wall {wall:.1f} ms, OCR fused {len(fused)}x, launches "
+        f"{launches} (expected {want}); text {res[0]['text'][:12]}... (length "
+        f"{len(res[0]['text'])}) on {card}")
+    if len(res) != 1 or not res[0]["text"] or fused != [1] or launches != want:
+        raise AssertionError(f"LCB-Net generate: {res}, launches {launches}")
+    fig.update(generate=dict(wall_ms=wall, launches=launches, text=res[0]["text"]))
+    feats, flens = am.kwargs["frontend"].extract(waves, device=dev)
+    feats = feats[:, : int(flens.max())]
+    ocr_ids = torch.from_numpy(rng.integers(1, len(tokens), (len(waves), LCBNET_OCR))).to(dev)
+    with torch.inference_mode():
+        enc, _ = am.model.encode(feats, flens)
+        for c in counters:
+            c.launches = 0
+        cuda_lib.record_launch_shapes()
+        scores = am.model.bias_scores(enc, ocr_ids)
+        torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    shapes = [e for e in cuda_lib.take_launch_shapes() if e["kernel"] == "depthwise_conv1d"]
+    cuda_lib.stop_recording_launch_shapes()
+    log(f"LCB-Net bias_scores {tuple(scores.shape)}: launches {launches}, plain-mode "
+        f"signatures {[(e['tensors'][0][0], e['args']) for e in shapes]}")
+    if tuple(scores.shape) != (len(waves), LCBNET_OCR) or launches["depthwise_conv1d"] != 1 \
+            or [tuple(e["args"][:4]) for e in shapes] != [(7, 3, 3, False)] \
+            or not torch.isfinite(scores).all():
+        raise AssertionError(f"LCB-Net bias_scores: {scores.shape}, launches {launches}")
+    fig["bias_scores_launches"] = launches
+    del am
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(26)
+    (b, t, c), _ = shapes[0]["tensors"][0]
+    x = torch.randn(b, t, c, generator=g, device=dev)
+    w = (torch.rand(c, 1, 7, generator=g, device=dev) * 2 - 1) / 7 ** 0.5
+    row = depthwise_row(x, w, torch.randn(c, generator=g, device=dev), None, 3, 3)
+    row["launches"] = 1
+    fig["rows"] = {f"{b}x{t}x{c}_k7": row}
+
+    # the model cut to LONG_TAIL_CPU_DEPTH, on the card against the CPU
+    enc_n, dec_n = LONG_TAIL_CPU_DEPTH
+    cpu = tables.model_classes["LCBNet"](
+        input_size=80, vocab_size=AED_VOCAB, encoder="ConformerEncoder",
+        encoder_conf=dict(AED_ENCODER, num_blocks=enc_n, dropout_rate=0.0),
+        decoder_conf=dict(AED_DECODER, num_blocks=dec_n, dropout_rate=0.0), **AED_MODEL_CONF,
+        generator=torch.Generator().manual_seed(27))
+    seed_batchnorm(cpu, 27).eval()
+    gpu = copy.deepcopy(cpu).to(dev)
+    host, host_lens = tables.frontend_classes["WavFrontend"](**AED_FRONTEND).extract(waves)
+    ids = ocr_ids.cpu()
+    out = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dd = model.device
+        with torch.inference_mode():
+            e, _ = model.encode(torch.from_numpy(host).to(dd), torch.from_numpy(host_lens).to(dd))
+            out[name] = [y.cpu() for y in (e, model.fuse_ocr(e, ids.to(dd)),
+                                           model.bias_scores(e, ids.to(dd)))]
+    rels = {k: rel_l2(a, b_) for k, a, b_ in zip(("encoder", "fused", "bias_scores"),
+                                                  out["gpu"], out["cpu"])}
+    log(f"LCB-Net cuda vs cpu ({enc_n} + {dec_n} blocks, fp32, 2 x {LONG_TAIL_SECONDS:g} s): "
+        f"rel L2 {rels} (tol {LONG_TAIL_ENC_REL_TOL:g})")
+    if not all(v <= LONG_TAIL_ENC_REL_TOL for v in rels.values()):
+        raise AssertionError(f"LCB-Net on CUDA disagrees with the CPU port: {rels}")
+    fig["cuda_vs_cpu"] = rels
+    return fig
+
+
+def eres2net_checks(dev, counters, root, waves):
+    """(e) ERes2NetV2 at its class defaults (FunASR's eres2netv2: [3, 4, 6, 3] blocks, 64
+    channels, 192-d), seeded batch-norm statistics, from a model dir through
+    ``AutoModel.generate``: a (2, 192) embedding of the waves, none of the port's kernels
+    launched (its convolutions are cuDNN's, as the JAX package's are XLA's); the same model
+    on the CPU within LONG_TAIL_ENC_REL_TOL relative L2."""
+    from funasr_tpu_torch import AutoModel, tables
+
+    d = os.path.join(root, "eres2netv2")
+    os.makedirs(d)
+    model = tables.model_classes["ERes2NetV2"](generator=torch.Generator().manual_seed(28))
+    seed_batchnorm(model, 28)
+    torch.save(model.state_dict(), os.path.join(d, "model.pt"))
+    write_config(d, dict(model="ERes2NetV2", model_conf=dict(pooling_func="TSTP"),
+                         frontend="WavFrontend", frontend_conf=AED_FRONTEND))
+    am = AutoModel(model=d, device="cuda", log_level="WARNING")
+    am.generate(input=waves[:1])  # warm-up (cuDNN's algorithm choice)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = am.generate(input=waves, batch_size=len(waves))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {c.__name__: c.launches for c in counters}
+    emb = np.asarray(res[0]["spk_embedding"])
+    want, _ = model.eval().inference(waves)
+    rel = float(np.linalg.norm(emb - want[0]["spk_embedding"])
+                / np.linalg.norm(want[0]["spk_embedding"]))
+    log(f"ERes2NetV2 (defaults) AutoModel.generate {len(waves)} x {LONG_TAIL_SECONDS:g} s: "
+        f"embedding {emb.shape}, wall {wall:.1f} ms, launches {launches}; against the CPU "
+        f"rel L2 {rel:.3e} (tol {LONG_TAIL_ENC_REL_TOL:g})")
+    if emb.shape != (len(waves), 192) or any(launches.values()) \
+            or not rel <= LONG_TAIL_ENC_REL_TOL:
+        raise AssertionError(f"ERes2NetV2: {emb.shape}, launches {launches}, rel {rel}")
+    del am
+    return dict(wall_ms=wall, emb_rel_l2=rel, launches=launches)
+
+
+def long_tail_train_start(dev, keep):
+    """(d)'s start: UniASR's model dir (``UNIASR_CONF``, seeded weights), a prefix of phase
+    16's train list that makes UNIASR_TRAIN_STEPS batches and one val row
+    (``two_step_lists``), and ``bin/train`` with ``UNIASR_TRAIN_RUN`` (uniasr/finetune.sh's
+    flags: fsdp on one rank, token batches of 6,000) as a subprocess, from a thread of its
+    own: {"dir", "out", "train_wavs", "run": the future of its seconds}. ``main`` starts it
+    before phase 21, beside whose two ``bin/train`` runs it runs (its fixed costs, ~45 s of
+    start-up, weights and checkpoint, would otherwise be phase 22's critical path)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    root = os.path.join(keep["root"], "long_tail")
+    os.makedirs(root)
+    _, jsonl = keep["train_data"]
+    ud = write_chunk_ar_dir(os.path.join(root, "uniasr"), dev, "UniASR", UNIASR_CONF,
+                            UNIASR_MODEL_CONF, UNIASR_VOCAB, 22)
+    lists, n_train = two_step_lists(jsonl, root)
+    out = os.path.join(root, "exp_uniasr")
+    log(f"long tail: UniASR dir and the {n_train}-wav train list written in "
+        f"{time.perf_counter() - t0:.1f} s; its bin/train starts")
+
+    def train():
+        t1 = time.perf_counter()
+        run_cli(["funasr_tpu_torch.bin.train", f"++model={ud}",
+                 f"++train_data_set_list={lists['train']}",
+                 f"++valid_data_set_list={lists['val']}", *UNIASR_TRAIN_RUN,
+                 f"++output_dir={out}"], "bin/train UniASR (uniasr/finetune.sh's flags)")
+        return time.perf_counter() - t1
+
+    pool = ThreadPoolExecutor(1)
+    run = pool.submit(train)
+    pool.shutdown(wait=False)  # the thread runs on; phase 22 waits on ``run``
+    return dict(dir=ud, out=out, train_wavs=n_train, run=run, root=root)
+
+
+def phase_long_tail(dev, counters, card, keep, train):
+    """Phase 22: SCAMA, UniASR 2-pass, LCB-Net and ERes2NetV2, seeded weights, fp32, on 2 of
+    phase 16's wavs cut to 6 s. (a) UniASR (``UNIASR_CONF``: two paraformer-zh-streaming
+    encoders at PROD_CONF width with phase 18's chunk configs, two 16-block SCAMA decoders,
+    vocab 8,358) from the model dir of (d) (``train``, ``long_tail_train_start``) through
+    ``AutoModel.generate(decoding_model="fast")`` then ``"normal"`` (``chunk_ar_generate``:
+    flash exactly 50 an encoder, all in chunk mode, FSMN 50 an encoder + 16 a decoder
+    step), the normal one profiled; (b) SCAMA (``SCAMA_CONF``, vocab 8,404) likewise; each
+    cut to LONG_TAIL_CPU_DEPTH on the card against the CPU port (``chunk_ar_cuda_vs_cpu``);
+    a row per flash and FSMN signature the counted decodes launched
+    (``recipe_kernel_rows``, strict); (c) LCB-Net (``lcbnet_checks``); (e) ERes2NetV2
+    (``eres2net_checks``); (d)'s cut step on the card against the CPU
+    (``uniasr_step_cuda_vs_cpu``). Then (d)'s gates: its 2 steps of finite loss, each
+    exactly 100 flash (chunk mode) + 100 backward, 132 FSMN + 132 dx + 132 dw, the
+    validation's 100 + 132 forwards a batch, the checkpoint written."""
+    import wave as wave_mod
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory_bwd_input, fsmn_memory_bwd_weight
+
+    root = train["root"]
+    fig = {}
+    _, jsonl = keep["train_data"]
+    with open(jsonl["train"], encoding="utf-8") as f:
+        sources = [json.loads(line)["source"] for line in f.read().splitlines()[:LONG_TAIL_WAVES]]
+    waves = []
+    for path in sources:
+        with wave_mod.open(path, "rb") as w:
+            pcm16 = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+        waves.append(pcm16[: int(LONG_TAIL_SECONDS * 16000)])
+
+    try:
+        # (a) UniASR, fast then normal
+        t_part = time.perf_counter()
+        am = AutoModel(model=train["dir"], device="cuda", log_level="WARNING")
+        am.generate(input=waves[:1], decoding_model="fast")  # warm-up, not counted
+        shapes = []
+        for label, mode, passes in (("fast", "fast", 1), ("normal", "normal", 2)):
+            fig[f"uniasr_{label}"], s = chunk_ar_generate(
+                am, waves, counters, f"UniASR generate ({label})", passes,
+                profile=label == "normal", decoding_model=mode)
+            shapes += s
+        del am
+        torch.cuda.empty_cache()
+        feats, flens = host_feats(waves)
+        fig["uniasr_cuda_vs_cpu"] = chunk_ar_cuda_vs_cpu(
+            dev, "UniASR", UNIASR_CONF, UNIASR_MODEL_CONF, UNIASR_VOCAB, feats, flens,
+            ({"mode": "fast"}, {"mode": "normal"}))
+        log(f"long tail (a) UniASR done in {time.perf_counter() - t_part:.1f} s")
+
+        # (b) SCAMA
+        t_part = time.perf_counter()
+        sd = write_chunk_ar_dir(os.path.join(root, "scama"), dev, "SCAMA", SCAMA_CONF,
+                                SCAMA_MODEL_CONF, PROD_CONF["vocab_size"], 21)
+        am = AutoModel(model=sd, device="cuda", log_level="WARNING")
+        fig["scama"], s = chunk_ar_generate(am, waves, counters, "SCAMA generate", 1,
+                                            profile=True)
+        shapes += s
+        del am
+        torch.cuda.empty_cache()
+        fig["scama_cuda_vs_cpu"] = chunk_ar_cuda_vs_cpu(
+            dev, "SCAMA", SCAMA_CONF, SCAMA_MODEL_CONF, PROD_CONF["vocab_size"], feats, flens,
+            ({},))
+        signatures = decode_signatures(shapes)
+        fig["rows"] = recipe_kernel_rows(dev, signatures, strict=True)
+        fig["prefix_masks"] = prefix_mask_sweep(dev, signatures)
+        log(f"long tail (b) SCAMA and the decode rows done in "
+            f"{time.perf_counter() - t_part:.1f} s")
+
+        # (c) LCB-Net, (e) ERes2NetV2
+        t_part = time.perf_counter()
+        fig["lcbnet"] = lcbnet_checks(dev, counters, root, waves, card)
+        fig["eres2netv2"] = eres2net_checks(dev, counters, root, waves)
+        log(f"long tail (c), (e) done in {time.perf_counter() - t_part:.1f} s")
+
+        # (d)'s cut step
+        train_counters = (*counters, flash_attention_bwd, fsmn_memory_bwd_input,
+                          fsmn_memory_bwd_weight)
+        fig["uniasr_step_cuda_vs_cpu"] = uniasr_step_cuda_vs_cpu(
+            dev, train_counters, feats, flens, UNIASR_VOCAB)
+    finally:
+        if train["run"].exception() is not None:
+            log(f"long tail: the bin/train run failed: {train['run'].exception()}")
+    t_wait = time.perf_counter()
+    run_s = train["run"].result()
+    log(f"long tail: waited {time.perf_counter() - t_wait:.1f} s for (d)'s bin/train")
+
+    # (d)'s gates
+    out_d = train["out"]
+    steps, vals = read_train_log(out_d)
+    enc_n, dec_n = CHUNK_AR_ENCODER["num_blocks"], CHUNK_AR_DECODER["num_blocks"]
+    step_sites = {"flash_attention": 2 * enc_n, "flash_attention_bwd": 2 * enc_n,
+                  "fsmn_memory": 2 * (enc_n + dec_n),
+                  "fsmn_memory_bwd_input": 2 * (enc_n + dec_n),
+                  "fsmn_memory_bwd_weight": 2 * (enc_n + dec_n)}
+    val_sites = {"flash_attention": 2 * enc_n, "fsmn_memory": 2 * (enc_n + dec_n)}
+    for x in steps:
+        log(f"  step {x['step']}: loss {x['loss']:.4f} loss1 {x['loss1']:.4f} loss2 "
+            f"{x['loss2']:.4f} grad_norm {x['grad_norm']:.3f} step_time "
+            f"{x['step_time'] * 1e3:.1f} ms launches {x['launches']} peak "
+            f"{x.get('peak_mem_mib', 0):.0f} MiB")
+    for x in vals:
+        log(f"  validation: {x['batches']} batches, loss {x['validate']['loss']:.4f}, "
+            f"launches {x['launches']}")
+    wrong = [(x["step"], x["launches"]) for x in steps if not sites_met(x["launches"], step_sites)]
+    wrong += [("val", x["launches"]) for x in vals
+              if not sites_met(x["launches"], {k: v * x["batches"] for k, v in val_sites.items()})]
+    not_chunk = [x["step"] for x in steps + vals if not chunk_configs(x["kernel_shapes"])[1]]
+    bad = [x["step"] for x in steps if not math.isfinite(x["loss"])]
+    saved = sorted(f for f in os.listdir(out_d) if f.startswith("model.pt"))
+    log(f"UniASR bin/train: {len(steps)} steps, {len(vals)} validations in {run_s:.1f} s; "
+        f"files {saved}")
+    if len(steps) != UNIASR_TRAIN_STEPS or not vals or bad or wrong or not_chunk \
+            or "model.pt.ep0" not in saved:
+        raise AssertionError(f"UniASR training: steps {len(steps)}, non-finite {bad}, launches "
+                             f"off the sites {wrong[:3]}, not in chunk mode {not_chunk}, "
+                             f"files {saved}")
+    fig["uniasr_train"] = dict(run_s=run_s, steps=len(steps), train_wavs=train["train_wavs"],
+                               launches_per_step=step_sites,
+                               launches={k: sum(x["launches"].get(k, 0) for x in steps + vals)
+                                         for k in step_sites},
+                               losses=[x["loss"] for x in steps],
+                               step_ms=[x["step_time"] * 1e3 for x in steps],
+                               peak_mem_mib=max(x.get("peak_mem_mib", 0) for x in steps))
+    fig["launches"] = {label: fig[key]["launches"] for label, key in (
+        ("uniasr_fast", "uniasr_fast"), ("uniasr_normal", "uniasr_normal"), ("scama", "scama"))}
+    return fig
+
+
+def long_tail_entry(fig, name):
+    """A kernel's phase 22 figures: its launches in each counted run, and its rows at the
+    decodes' signatures (``recipe_label``s)."""
+    entry = dict(by_run={run: counts.get(name, 0) for run, counts in fig["launches"].items()},
+                 training_launches=fig["uniasr_train"]["launches"].get(name, 0))
+    if name in fig["rows"]:
+        entry["rows"] = fig["rows"][name]
+    return entry
+
+
 def aed_entries(aed, name):
     """A kernel's phase 20 figures: its launches in each counted run."""
     return dict(by_run={run: counts.get(name, 0) for run, counts in aed["launches"].items()})
@@ -8229,7 +8983,7 @@ LLM_ENTRIES = {
 def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None,
                  hotword=None, streaming=None, sensevoice=None, serving=None, llm=None,
                  export=None, training=None, training_family=None, streaming_training=None,
-                 llm_training=None, aed=None, aed_training=None):
+                 llm_training=None, aed=None, aed_training=None, long_tail=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
@@ -8273,7 +9027,12 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
     Conformer recipe's signature, ``launches`` those of the recipe's run (steps and
     validations), with their rows at every signature phase 21 launched, and put the
     forward's launches there and its rows at the chunk conformer's (15, 14) under
-    ``aed_training`` in ``depthwise_conv1d``."""
+    ``aed_training`` in ``depthwise_conv1d``. Phase 22's (``long_tail``) go under
+    ``long_tail`` in flash and FSMN (their launches in the SCAMA / UniASR decodes and the
+    UniASR recipe's, and their rows at the decodes' signatures: chunk mode, the encoders'
+    (11, 5) under the holed frame mask, the decoders' (11, 10) prefix-masked) and W8A8 (0
+    launches), and in ``depthwise_conv1d`` (LCB-Net's launches and the bias predictor's
+    (7, 3) row)."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -8375,6 +9134,8 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             entry["aed"] = aed_entries(aed, name)
             if name == "w8a8_linear":
                 entry["aed"]["rows"] = aed["w8a8_rows"]
+        if long_tail:
+            entry["long_tail"] = long_tail_entry(long_tail, name)
         kernels.append(entry)
     if aed:
         kernels.append(dict(
@@ -8388,6 +9149,13 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             profile_per_generate=aed["profile"]["depthwise"]))
         if aed_training:
             kernels[-1]["aed_training"] = aed_training_entry(aed_training, "depthwise_conv1d")
+        if long_tail:
+            kernels[-1]["long_tail"] = dict(
+                by_run={"lcbnet_generate": long_tail["lcbnet"]["generate"]["launches"][
+                            "depthwise_conv1d"],
+                        "lcbnet_bias_scores": long_tail["lcbnet"]["bias_scores_launches"][
+                            "depthwise_conv1d"]},
+                rows=long_tail["lcbnet"]["rows"])
     for name in DEPTHWISE_SIGNATURES[1:] if aed_training else ():
         kernels.append(dict(
             name=name, route="cuda", source=DEPTHWISE_BACKWARD[name],
@@ -8418,6 +9186,8 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             entry["streaming_training"] = streaming_training_entry(streaming_training, name)
         if llm_training:
             entry["llm_training"] = llm_training_entry(llm_training, name)
+        if long_tail:
+            entry["long_tail"] = long_tail_entry(long_tail, name)
         kernels.append(entry)
     return {"kernels": kernels}
 
@@ -8571,7 +9341,7 @@ def main():
         serving = timed("serving", phase_serving, dev, counters, card, keep)
         llm = timed("LLM", phase_llm, dev, counters, card)
         export = timed("text and export", phase_export, dev, counters, card, keep)
-    # phase 16's generated wavs serve phases 18 and 19 (removed at the end)
+    # phase 16's generated wavs serve phases 18, 19 and 22 (removed at the end)
     # and phase 21, with phase 20's Conformer dir (removed at the end)
     with tempfile.TemporaryDirectory() as train_root:
         keep_train = {"root": train_root}
@@ -8585,13 +9355,18 @@ def main():
         os.makedirs(aed_root)
         aed = timed("AED", phase_aed, dev, counters, card, aed_root)
         keep_train["conformer"] = os.path.join(aed_root, "conformer")
+        # phase 22's bin/train runs beside phase 21's two runs
+        long_tail_train = timed("long tail's bin/train start", long_tail_train_start, dev,
+                                keep_train)
         aed_training = timed("AED training", phase_aed_training, dev, counters, card,
                              keep_train)
+        long_tail = timed("long tail", phase_long_tail, dev, counters, card, keep_train,
+                          long_tail_train)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
                                   speaker, hotword, streaming, sensevoice, serving, llm,
                                   export, training, family, stream_training, llm_training,
-                                  aed, aed_training),
+                                  aed, aed_training, long_tail),
                      default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

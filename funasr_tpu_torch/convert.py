@@ -7,7 +7,10 @@ BiCif predictor's head, the PIF predictor and the CTC head included, ``:154-192`
 (``:339-401, 564``), ``convert_transducer`` (``:1374``; the JAX converter reads every
 encoder as a Conformer, so an RWKV encoder's tree, which it cannot read, maps here by its
 own names), ``convert_fun_asr_nano`` (FunASRNano and the LLMASR family, ``:688``)
-and ``convert_whisper`` (``:735``; Hugging Face names): it takes the JAX
+and ``convert_whisper`` (``:735``; Hugging Face names), ``convert_scama`` /
+``convert_uniasr`` (``:1297``, ``:1275``; the SCAMA decoder's ``embed_concat_ffn`` too,
+which the JAX converter does not read), ``convert_lcbnet`` (``:1397``) and
+``convert_eres2netv2`` (``:297``): it takes the JAX
 package's parameter tree (as numpy arrays) and gives the tensors that the port model's
 ``load_state_dict`` takes, under FunASR's state-dict names. Layouts:
 
@@ -74,7 +77,7 @@ import numpy as np
 import torch
 
 _STACKED = ("encoders", "decoders", "decoders2", "tp_encoders")
-_SINGLE = ("encoders0", "decoders3", "embed")
+_SINGLE = ("encoders0", "decoders3", "embed", "embed_concat_ffn")
 
 
 def _leaf(p: Dict[str, np.ndarray], prefix: str, target: Dict[str, torch.Tensor]):
@@ -321,54 +324,105 @@ def _paraformer_v2(tree, target, out):
     out["decoder.embed.0.bias"] = tree["embed"]["b"]
 
 
+def _bn_leaf(out, prefix, p):
+    out[prefix + "running_mean"] = p["mean"]
+    out[prefix + "running_var"] = p["var"]
+    out[prefix + "num_batches_tracked"] = np.zeros((), np.int64)
+    if "scale" in p:
+        out[prefix + "weight"] = p["scale"]
+        out[prefix + "bias"] = p["bias"]
+
+
+def _conv_leaf(out, prefix, p):
+    w = np.asarray(p["w"])
+    out[prefix + "weight"] = (w.transpose(3, 2, 0, 1) if w.ndim == 4  # HWIO -> OIHW
+                              else w.transpose(2, 1, 0))  # (k, C_in, C_out)
+    if "b" in p:
+        out[prefix + "bias"] = p["b"]
+
+
+def _eres2netv2(tree, target, out):
+    """ERes2NetV2 (``convert_eres2netv2``, ``torch_to_jax.py:297``): the block lists ->
+    ``layer{l}.{i}``, their ``convs`` / ``bns`` lists by index, ``fuse`` -> ``fuse_models``
+    and every AFF's two convs and batch norms -> ``local_att.0`` / ``.1`` / ``.3`` /
+    ``.4``."""
+    def aff(prefix, p):
+        for i, name in ((0, "conv1"), (3, "conv2")):
+            _conv_leaf(out, f"{prefix}local_att.{i}.", p[name])
+        for i, name in ((1, "bn1"), (4, "bn2")):
+            _bn_leaf(out, f"{prefix}local_att.{i}.", p[name])
+
+    _conv_leaf(out, "conv1.", tree["conv1"])
+    _bn_leaf(out, "bn1.", tree["bn1"])
+    for li in range(1, 5):
+        for bi, block in enumerate(tree[f"layer{li}"]):
+            prefix = f"layer{li}.{bi}."
+            for name in ("conv1", "conv3"):
+                _conv_leaf(out, prefix + name + ".", block[name])
+            for name in ("bn1", "bn3"):
+                _bn_leaf(out, prefix + name + ".", block[name])
+            for j, (c, b) in enumerate(zip(block["convs"], block["bns"])):
+                _conv_leaf(out, f"{prefix}convs.{j}.", c)
+                _bn_leaf(out, f"{prefix}bns.{j}.", b)
+            for j, p in enumerate(block["fuse"]):
+                aff(f"{prefix}fuse_models.{j}.", p)
+            if "shortcut" in block:
+                _conv_leaf(out, prefix + "shortcut.0.", block["shortcut"]["conv"])
+                _bn_leaf(out, prefix + "shortcut.1.", block["shortcut"]["bn"])
+    _conv_leaf(out, "layer3_ds.", tree["layer3_ds"])
+    aff("fuse34.", tree["fuse34"])
+    out.update(_leaf(tree["seg_1"], "seg_1.", target))
+
+
+def _uniasr(tree, target, out):
+    """UniASR (``convert_uniasr``, ``torch_to_jax.py:1275``): the rest by name, the stride
+    conv's (k, C_in, C_out) weight -> FunASR's ``stride_conv.conv``."""
+    _walk({k: v for k, v in tree.items() if k != "stride_conv"}, "", target, out)
+    _conv_leaf(out, "stride_conv.conv.", tree["stride_conv"])
+
+
+def _lcbnet(tree, target, out):
+    """LCBNet (``convert_lcbnet``, ``torch_to_jax.py:1397``): the Conformer AED and the
+    fusion and bias-predictor blocks by name; the text encoder's JAX ``encoder`` level has
+    no FunASR name (``text_encoder.encoders.{i}``, ``text_encoder.after_norm``)."""
+    _walk({k: v for k, v in tree.items() if k != "text_encoder"}, "", target, out)
+    te = tree["text_encoder"]
+    _walk({"embed": te["embed"], **te["encoder"]}, "text_encoder.", target, out)
+
+
 def _campplus(tree, target, out):
-    def bn(prefix, p):
-        out[prefix + "running_mean"] = p["mean"]
-        out[prefix + "running_var"] = p["var"]
-        out[prefix + "num_batches_tracked"] = np.zeros((), np.int64)
-        if "scale" in p:
-            out[prefix + "weight"] = p["scale"]
-            out[prefix + "bias"] = p["bias"]
-
-    def conv(prefix, p):
-        w = np.asarray(p["w"])
-        out[prefix + "weight"] = (w.transpose(3, 2, 0, 1) if w.ndim == 4  # HWIO -> OIHW
-                                  else w.transpose(2, 1, 0))  # (k, C_in, C_out)
-        if "b" in p:
-            out[prefix + "bias"] = p["b"]
-
     head = tree["head"]
     for name in ("conv1", "conv2"):
-        conv(f"head.{name}.", head[name])
+        _conv_leaf(out, f"head.{name}.", head[name])
     for name in ("bn1", "bn2"):
-        bn(f"head.{name}.", head[name])
+        _bn_leaf(out, f"head.{name}.", head[name])
     for li in (1, 2):
         for bi, block in enumerate(head[f"layer{li}"]):
             prefix = f"head.layer{li}.{bi}."
-            conv(prefix + "conv1.", block["conv1"])
-            conv(prefix + "conv2.", block["conv2"])
-            bn(prefix + "bn1.", block["bn1"])
-            bn(prefix + "bn2.", block["bn2"])
+            _conv_leaf(out, prefix + "conv1.", block["conv1"])
+            _conv_leaf(out, prefix + "conv2.", block["conv2"])
+            _bn_leaf(out, prefix + "bn1.", block["bn1"])
+            _bn_leaf(out, prefix + "bn2.", block["bn2"])
             if "shortcut" in block:
-                conv(prefix + "shortcut.0.", block["shortcut"]["conv"])
-                bn(prefix + "shortcut.1.", block["shortcut"]["bn"])
+                _conv_leaf(out, prefix + "shortcut.0.", block["shortcut"]["conv"])
+                _bn_leaf(out, prefix + "shortcut.1.", block["shortcut"]["bn"])
     xv = tree["xvector"]
-    conv("xvector.tdnn.linear.", xv["tdnn"]["linear"])
-    bn("xvector.tdnn.nonlinear.batchnorm.", xv["tdnn"]["bn"])
+    _conv_leaf(out, "xvector.tdnn.linear.", xv["tdnn"]["linear"])
+    _bn_leaf(out, "xvector.tdnn.nonlinear.batchnorm.", xv["tdnn"]["bn"])
     for i in range(1, 4):
         for j, layer in enumerate(xv[f"block{i}"]):
             prefix = f"xvector.block{i}.tdnnd{j + 1}."
-            bn(prefix + "nonlinear1.batchnorm.", layer["nonlinear1"])
-            conv(prefix + "linear1.", layer["linear1"])
-            bn(prefix + "nonlinear2.batchnorm.", layer["nonlinear2"])
+            _bn_leaf(out, prefix + "nonlinear1.batchnorm.", layer["nonlinear1"])
+            _conv_leaf(out, prefix + "linear1.", layer["linear1"])
+            _bn_leaf(out, prefix + "nonlinear2.batchnorm.", layer["nonlinear2"])
             for name, p in layer["cam_layer"].items():
-                conv(f"{prefix}cam_layer.{name}.", p)
-        bn(f"xvector.transit{i}.nonlinear.batchnorm.", xv[f"transit{i}"]["nonlinear"])
-        conv(f"xvector.transit{i}.linear.", xv[f"transit{i}"]["linear"])
-    bn("xvector.out_nonlinear.batchnorm.", xv["out_nonlinear"])
+                _conv_leaf(out, f"{prefix}cam_layer.{name}.", p)
+        _bn_leaf(out, f"xvector.transit{i}.nonlinear.batchnorm.", xv[f"transit{i}"]["nonlinear"])
+        _conv_leaf(out, f"xvector.transit{i}.linear.", xv[f"transit{i}"]["linear"])
+    _bn_leaf(out, "xvector.out_nonlinear.batchnorm.", xv["out_nonlinear"])
     if "dense" in xv:
-        conv("xvector.dense.linear.", xv["dense"]["linear"])
-        bn("xvector.dense.nonlinear.batchnorm.", xv["dense"]["nonlinear"])
+        _conv_leaf(out, "xvector.dense.linear.", xv["dense"]["linear"])
+        _bn_leaf(out, "xvector.dense.nonlinear.batchnorm.", xv["dense"]["nonlinear"])
 
 
 _MHA = {"linear_q": "q_proj", "linear_k": "k_proj", "linear_v": "v_proj",
@@ -488,7 +542,8 @@ _BY_MODEL = {"FsmnVADStreaming": _fsmn_vad, "CTTransformer": _ct_transformer,
              "WhisperModel": _whisper, "Branchformer": _branchformer,
              "EBranchformer": _branchformer, "TransformerLM": _transformer_lm,
              "SeqRNNLM": _seq_rnn_lm, "Transducer": _transducer,
-             "ConformerRWKV": _conformer_rwkv, **{name: _llm_asr for name in _LLM_ASR_NAMES}}
+             "ConformerRWKV": _conformer_rwkv, "UniASR": _uniasr, "LCBNet": _lcbnet,
+             "ERes2NetV2": _eres2netv2, **{name: _llm_asr for name in _LLM_ASR_NAMES}}
 
 
 def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -499,8 +554,8 @@ def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor
     EParaformer, MonotonicAligner, FunASRNano, the LLMASR family (GLMASR included), a
     WhisperModel of any size, the Transformer AEDs (Transformer, SANM, Conformer,
     Branchformer, EBranchformer; a convolution decoder too), TransformerLM, SeqRNNLM,
-    Transducer and BAT (a Conformer, chunk Conformer or RWKV encoder) or ConformerRWKV
-    -> ``model``'s state dict.
+    Transducer and BAT (a Conformer, chunk Conformer or RWKV encoder), ConformerRWKV,
+    SCAMA, UniASR, LCBNet or ERes2NetV2 -> ``model``'s state dict.
 
     Int8 and int64 tensors keep their type, every other leaf becomes fp32. Raises if the names or
     shapes do not match ``model.state_dict()`` exactly.

@@ -222,13 +222,13 @@ class PositionwiseFeedForward(nn.Module):
 
 
 class PositionwiseFeedForwardDecoderSANM(nn.Module):
-    """Linear -> ReLU -> LayerNorm(hidden) -> Linear(no bias)
-    (FunASR ``sanm/positionwise_feed_forward.py``)."""
+    """Linear -> ReLU -> LayerNorm(hidden) -> Linear(no bias) to ``adim`` (``idim`` when
+    None; FunASR ``sanm/positionwise_feed_forward.py``)."""
 
-    def __init__(self, idim: int, hidden_units: int, device=None):
+    def __init__(self, idim: int, hidden_units: int, device=None, adim: int = None):
         super().__init__()
         self.w_1 = nn.Linear(idim, hidden_units, device=device)
-        self.w_2 = nn.Linear(hidden_units, idim, bias=False, device=device)
+        self.w_2 = nn.Linear(hidden_units, adim or idim, bias=False, device=device)
         self.norm = LayerNorm(hidden_units, device=device)
 
     def forward(self, x):

@@ -79,26 +79,31 @@ class CAMPPlus(nn.Module):
                   tokenizer=None, frontend=None, **kwargs):
         """Returns ([{"spk_embedding": (B, embedding_size) numpy}], meta) over the
         batch of clips (reference contract ``model.py:160-200``)."""
-        from funasr_tpu_torch.ops.fbank import fbank
-        from funasr_tpu_torch.utils.load_utils import (as_pcm16_f32,
-                                                       load_audio_text_image_video)
+        return speaker_inference(self, data_in, self.feat_dim, **kwargs)
 
-        meta: Dict = {}
-        t0 = time.perf_counter()
-        audio_list = load_audio_text_image_video(
-            data_in, fs=16000, audio_fs=kwargs.get("fs", 16000), data_type="sound")
-        meta["load_data"] = f"{time.perf_counter() - t0:0.3f}"
-        dev = self.device
-        with torch.inference_mode():
-            feats = []
-            for au in audio_list:
-                f = fbank(torch.from_numpy(as_pcm16_f32(au)).to(dev),
-                          num_mel_bins=self.feat_dim)
-                feats.append(f - f.mean(dim=0, keepdim=True))
-            maxlen = max(f.shape[0] for f in feats)
-            batch = torch.zeros(len(feats), maxlen, self.feat_dim, device=dev)
-            for i, f in enumerate(feats):
-                batch[i, : f.shape[0]] = f
-            meta["batch_data_time"] = sum(len(a) for a in audio_list) / 16000.0
-            embs = self(batch.to(next(self.parameters()).dtype)).float().cpu().numpy()
-        return [{"spk_embedding": np.asarray(embs)}], meta
+
+def speaker_inference(model, data_in, feat_dim: int, **kwargs):
+    """A speaker model's ``inference``: each clip's kaldi fbank of ``feat_dim`` bins on the
+    model's device, its mean over time subtracted, the batch zero-padded, ``model``'s
+    embeddings -> ([{"spk_embedding": (B, D) numpy}], meta)."""
+    from funasr_tpu_torch.ops.fbank import fbank
+    from funasr_tpu_torch.utils.load_utils import as_pcm16_f32, load_audio_text_image_video
+
+    meta: Dict = {}
+    t0 = time.perf_counter()
+    audio_list = load_audio_text_image_video(
+        data_in, fs=16000, audio_fs=kwargs.get("fs", 16000), data_type="sound")
+    meta["load_data"] = f"{time.perf_counter() - t0:0.3f}"
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        feats = []
+        for au in audio_list:
+            f = fbank(torch.from_numpy(as_pcm16_f32(au)).to(dev), num_mel_bins=feat_dim)
+            feats.append(f - f.mean(dim=0, keepdim=True))
+        maxlen = max(f.shape[0] for f in feats)
+        batch = torch.zeros(len(feats), maxlen, feat_dim, device=dev)
+        for i, f in enumerate(feats):
+            batch[i, : f.shape[0]] = f
+        meta["batch_data_time"] = sum(len(a) for a in audio_list) / 16000.0
+        embs = model(batch.to(next(model.parameters()).dtype)).float().cpu().numpy()
+    return [{"spk_embedding": np.asarray(embs)}], meta

@@ -117,6 +117,11 @@ class Transformer(nn.Module):
         stats.update(loss_att=loss_att, loss=loss)
         return loss, stats, speech.shape[0]
 
+    def decode_memory(self, encoder_out, tokenizer=None, **kwargs):
+        """The memory the beam search reads: the encoder output (``LCBNet`` fuses its OCR
+        context in)."""
+        return encoder_out
+
     def inference(self, data_in, data_lengths=None, key: Optional[List] = None,
                   tokenizer=None, frontend=None, **kwargs):
         """waveforms -> text: one batch encode, then the beam search per utterance
@@ -146,6 +151,7 @@ class Transformer(nn.Module):
         results = []
         with torch.inference_mode():
             encoder_out, encoder_out_lens = self.encode(speech.to(self.dtype), speech_lengths)
+            encoder_out = self.decode_memory(encoder_out, tokenizer=tokenizer, **kwargs)
             b = encoder_out.shape[0]
             if key is None:
                 key = [f"rand_key_{i}" for i in range(b)]

@@ -183,7 +183,8 @@ def _check(q, k, v, lengths, mode, vad_pos, chunk=None):
     if chunk is not None:
         if q.dtype != torch.float32:
             raise NotImplementedError(
-                f"chunk mode is the fp32 kernels' (streaming training runs fp32); got "
+                f"chunk mode is the fp32 kernels' (streaming training and the SCAMA / UniASR "
+                f"decodes run fp32; ROADMAP.md queue 2, item 11: bf16 chunk mode); got "
                 f"{q.dtype}")
         shift, sf, stride, lb = chunk
         if k.shape[2] != t or not (shift >= 1 and 0 <= sf < shift and stride >= 1 and lb >= 0):

@@ -7,7 +7,9 @@ alpha(t, u) = logaddexp(alpha(t - 1, u) + blank(t - 1, u), alpha(t, u - 1) + emi
 (the blank move alone at u = 0); cells past each target length set to ``NEG_INF`` (a
 large finite -1e30, not -inf, so an infeasible alignment gives a large finite loss with
 finite gradients); the loss -(alpha(T_b - 1, U_b) + blank(T_b - 1, U_b)), rows past each
-logit length never read (JAX freezes them, which reads the same cell).
+logit length never read (JAX freezes them, which reads the same cell). A row of logit
+length 0 takes JAX's reading: alpha(0, U_b) and the blank at frame T - 1, where JAX's
+index T_b - 1 = -1 wraps.
 
 The order differs: JAX scans T rows with an inner scan over U, T U sequential steps. Here
 the lattice runs by anti-diagonals t + u = d, T + U - 1 steps, each one vectorised op
@@ -69,7 +71,9 @@ def rnnt_loss(logits, targets, logit_lengths, target_lengths, blank_id: int = 0)
         diags.append(alpha)
     lattice = torch.stack(diags, dim=1)  # (B, D, T)
     rows = torch.arange(b, device=dev)
-    last_t = t_len - 1
+    # a row of logit length 0 reads what JAX reads: alpha at (0, U_b), row 0 (its scan
+    # never moves that row), and the blank at frame -1, which wraps to the last frame
+    last_t = (t_len - 1).clamp(min=0)
     last_alpha = lattice[rows, last_t + u_len, last_t]
-    last_blank = blank[rows, last_t, u_len]
+    last_blank = blank[rows, (t_len - 1) % t_max, u_len]
     return -(last_alpha + last_blank)

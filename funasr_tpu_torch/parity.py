@@ -7,11 +7,9 @@ under names of their own. The alias list below is the JAX package's
 (``:63-84``: whisper spellings, the LLM family's hub paths) and its training tables
 (``:86-120``: samplers, datasets, the dataloader, a preprocessor); as there, an alias
 is bound only when its target is registered and the name is not, so it grows with the
-port. Two entries are left out because the reference binds their names to classes of
-their own, which the port does not have yet: ``FsmnDecoderSCAMAOpt`` (the SCAMA decoder
-of the autoregressive SCAMA model, deferred when streaming Paraformer was ported) and
-``FsmnDecoder`` through it. Binding them here would build a Paraformer decoder for a
-SCAMA config.
+port. ``FsmnDecoder`` (FunASR's AR embed + FSMN decoder, ``sanm/decoder.py:203``) binds to
+the SCAMA decoder, which has its layout. The JAX list's ``FsmnDecoderSCAMAOpt`` ->
+``ParaformerSANMDecoder`` entry is left out: the SCAMA decoder registers that name itself.
 """
 
 from __future__ import annotations
@@ -33,6 +31,7 @@ ALIASES = {
         ("ParaformerSANMDecoderOnlineExport", "ParaformerSANMDecoder"),
         ("ParaformerSANMDecoder_v2_community", "ParaformerSANMDecoder"),
         ("ContextualParaformerDecoderExport", "ContextualParaformerDecoder"),
+        ("FsmnDecoder", "FsmnDecoderSCAMAOpt"),
         ("TransformerRWKVDecoder", "TransformerDecoder"),
         ("OpenAIWhisperDecoderWarp", "TransformerDecoder"),
         ("rnn_decoder", "TransformerDecoder"),

@@ -36,6 +36,8 @@ REGISTRABLE = tuple(f"funasr_tpu_torch.{m}" for m in (
     "models.language_model.transformer_lm",
     "models.seaco_paraformer.model", "models.sanm.encoder", "models.sense_voice.model",
     "models.rwkv_bat.model", "models.specaug.specaug", "models.transducer.model",
+    "models.scama.model", "models.uniasr.model", "models.lcbnet.model",
+    "models.eres2net.model",
     "models.transformer.conv_decoders",
     "models.transformer.decoder", "models.transformer.encoder", "models.transformer.model",
     "models.whisper.encoders", "models.whisper.model", "tokenizer.char_tokenizer",

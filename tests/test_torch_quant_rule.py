@@ -26,6 +26,8 @@ from torch_parity_util import (BICIF_PREDICTOR, NANO_LLM, PUNC_ENC, PUNC_MODEL_C
                                SEACO_DECODER_CONF, SV_CONF, one_torch_thread)  # noqa: F401
 
 import funasr_tpu.models.conformer.model  # noqa: F401,E402 (registers Conformer in JAX)
+import funasr_tpu.models.lcbnet.model  # noqa: F401,E402 (registers LCBNet in JAX)
+import funasr_tpu.models.uniasr.model  # noqa: F401,E402 (registers UniASR in JAX)
 import funasr_tpu.models.rwkv_bat.model  # noqa: F401,E402 (registers BAT in JAX)
 import funasr_tpu.models.transducer.model  # noqa: F401,E402
 
@@ -92,6 +94,17 @@ CASES = {
                           cnn_module_kernel=15, input_layer="conv2d"),
         decoder_conf=dict(embed_size=D, hidden_size=D), joint_network_conf=dict(
             joint_space_size=D))),
+    "UniASR": ("UniASR", dict(
+        input_size=560, vocab_size=300,
+        encoder_conf=dict(SANM_ENC, num_blocks=1, chunk_size=[12, 15], stride=[8, 10]),
+        encoder2_conf=dict(SANM_ENC, num_blocks=1),
+        decoder_conf=dict(SANM_DEC, num_blocks=3, concat_embeds=True),
+        decoder2_conf=dict(SANM_DEC, num_blocks=2), predictor_conf=PREDICTOR,
+        sos=1, eos=2, predictor_bias=1, predictor2_bias=1)),
+    "LCBNet": ("LCBNet", dict(AED, encoder_conf=dict(
+        output_size=D, attention_heads=4, linear_units=D, num_blocks=1, cnn_module_kernel=15),
+        text_encoder_conf=dict(linear_units=D, num_blocks=2),
+        fusion_encoder_conf=dict(linear_units=D), bias_predictor_conf=dict(linear_units=D))),
     "BAT": ("BAT", dict(input_size=80, vocab_size=300, encoder_conf=dict(
         output_size=D, num_blocks=2, ffn_mult=2), decoder_conf=dict(embed_size=D, hidden_size=D),
         joint_network_conf=dict(joint_space_size=D))),

@@ -33,7 +33,7 @@ from torch_parity_util import write_asr_dir, write_contextual_dir
 PORT_ALIASES = {"SANMEncoderExport", "FSMNExport", "FSMNConvert", "FSMNMT", "FSMNMTConvert",
                 "ParaformerSANMDecoderExport", "ParaformerSANMDecoderOnlineExport",
                 "ParaformerSANMDecoder_v2_community", "ContextualParaformerDecoderExport",
-                "SANMEncoderChunkOptExport", "SANMVadEncoderExport"}
+                "SANMEncoderChunkOptExport", "SANMVadEncoderExport", "FsmnDecoder"}
 
 
 def _reference_pairs():
@@ -71,12 +71,18 @@ def test_alias_resolves_as_in_the_jax_package(table, name, target):
 
 def test_streaming_encoder_aliases_bind_and_the_scama_decoder_stays_unbound():
     """The streaming encoders' export names resolve to the port's classes; the SCAMA
-    decoder's names stay unbound until the SCAMA decoder is ported."""
-    enc = tables.encoder_classes
+    decoder's names resolve to the port's ``FsmnDecoderSCAMAOpt``, as in the JAX package
+    (``FsmnDecoder`` through the alias), never to the Paraformer decoder."""
+    from funasr_tpu_torch.models.scama.decoder import FsmnDecoderSCAMAOpt
+
+    enc, dec = tables.encoder_classes, tables.decoder_classes
     assert enc["SANMEncoderChunkOptExport"] is enc["SANMEncoderChunkOpt"]
     assert enc["SANMVadEncoderExport"] is enc["SANMVadEncoder"]
-    assert "FsmnDecoderSCAMAOpt" not in tables.decoder_classes
-    assert "FsmnDecoder" not in tables.decoder_classes
+    assert dec["FsmnDecoderSCAMAOpt"] is FsmnDecoderSCAMAOpt
+    assert dec["FsmnDecoder"] is FsmnDecoderSCAMAOpt
+    assert jtables.decoder_classes["FsmnDecoder"] is jtables.decoder_classes[
+        "FsmnDecoderSCAMAOpt"]
+    assert dec["FsmnDecoderSCAMAOpt"] is not dec["ParaformerSANMDecoder"]
 
 
 def test_config_naming_export_aliases_builds_and_matches_jax(tmp_path):

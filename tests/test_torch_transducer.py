@@ -81,6 +81,9 @@ LOSS_CASES = {  # (B, T, U, V, logit lengths, target lengths)
     "ragged": (3, 7, 4, 6, [7, 5, 2], [4, 2, 4]),
     "t_below_u": (2, 3, 6, 5, [3, 1], [6, 5]),
     "no_labels": (2, 4, 0, 3, [4, 2], [0, 0]),
+    # a row of logit length 0: JAX reads its frozen row 0 and the blank at the wrapped
+    # frame -1, a finite value (ROADMAP section 3, repaired)
+    "zero_logit_length": (3, 6, 3, 7, [6, 4, 0], [3, 2, 1]),
 }
 
 
@@ -120,6 +123,25 @@ def test_rnnt_loss_matches_brute_force(seed):
     for i in range(2):
         want = brute_force_rnnt(logp[i], tgt[i], int(tlen[i]), int(ulen[i]))
         assert abs(got[i] - want) <= LOSS_RTOL * abs(want), (got[i], want)
+
+
+def test_rnnt_loss_zero_logit_length_row_is_jaxs_finite_value():
+    """The row of logit length 0 reads alpha(0, U_b) and the blank at frame T - 1, as
+    JAX's index -1 does: a finite loss equal to JAX's, not 1e30; the other rows are
+    those of the same batch without it, bit for bit."""
+    rng = np.random.default_rng(21)
+    logits = rng.standard_normal((3, 6, 4, 7)).astype(np.float32)
+    tgt = rng.integers(1, 7, (3, 3)).astype(np.int32)
+    tlen, ulen = np.asarray([6, 4, 0]), np.asarray([3, 2, 1])
+    want = np.asarray(jax_rnnt_loss(jnp.asarray(logits), jnp.asarray(tgt), jnp.asarray(tlen),
+                                    jnp.asarray(ulen)))
+    got = rnnt_loss(t(logits), t(tgt), t(tlen), t(ulen)).numpy()
+    assert np.isfinite(want[2]) and abs(want[2]) < 1e3
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    logp = np.asarray(torch.log_softmax(t(logits[2]), -1))
+    np.testing.assert_allclose(got[2], -(logp[0, 0, tgt[2, 0]] + logp[5, 1, 0]), rtol=1e-6)
+    rest = rnnt_loss(t(logits[:2]), t(tgt[:2]), t(tlen[:2]), t(ulen[:2])).numpy()
+    np.testing.assert_array_equal(got[:2], rest)
 
 
 def test_rnnt_loss_keeps_cells_past_the_target_at_neg_inf():
@@ -250,9 +272,20 @@ def test_rwkv_encoder_matches_jax():
 
 @pytest.mark.parametrize("name", list(ENCODERS))
 def test_transducer_loss_and_grads_match_jax(name):
+    check_loss_and_grads(name, *batch())
+
+
+def test_transducer_loss_with_an_empty_encoder_output_matches_jax():
+    """A batch whose third utterance has no frames: the RWKV encoder keeps lengths, so
+    its logit length is 0, and the batch mean takes JAX's finite value for that row (it
+    was ~1e30 / 3 before the repair)."""
+    speech, _, text, tlen = batch()
+    check_loss_and_grads("rwkv", speech, np.asarray([40, 31, 0], np.int32), text, tlen)
+
+
+def check_loss_and_grads(name, speech, slen, text, tlen):
     pt, jm, tree, _ = build(name)
     pt.train()
-    speech, slen, text, tlen = batch()
 
     def loss_fn(p):
         return jm.forward_jit(p, jnp.asarray(speech), jnp.asarray(slen), jnp.asarray(text),
