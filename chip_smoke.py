@@ -359,6 +359,23 @@ Phases (any failure raises and exits non-zero):
    1e-4 relative L2). (e) ERes2NetV2 at its class defaults through ``AutoModel.generate``:
    (2, 192) embeddings within 1e-4 of the CPU's.
 
+23. The keyword spotters, emotion2vec, MFCCA, SA-ASR and Whisper-LID (``phase_kws_family``),
+   on phase 22's 2 wavs of 6 s, seeded weights, fp32: (a) FsmnKWS at the lorder 10 / rorder
+   2 recipe's widths (4 layers, linear 250, proj 128, 80 mels x LFR 5, vocab 2,599) from a
+   model dir through ``AutoModel.generate(keywords=...)`` in both decode modes (4 FSMN
+   launches, all at k 12 / left 9: one a lookahead block), one profiled, and
+   ``detect_chunk`` in 600 ms feeds (4 a feed); (b) its ``bin/train`` with
+   ``fsmn_kws/finetune.sh``'s flags and ``KWSDataset``, 2 steps (4 FSMN + 4 dx (12, 2) + 4
+   dw (12, 9) a step) and one checkpoint, started before phase 22 (``kws_train_start``);
+   (c) SanmKWS at the JAX SANMEncoder defaults (6 flash at D 64 + 6 FSMN); (d) emotion2vec
+   and Whisper-LID (whisper-small, ERes2NetV2) at their defaults, no kernel; (e) MFCCA on a
+   2-channel input (6 plain-mode (31, 15) launches an encode) and SA-ASR at PROD_CONF with
+   4 speaker profiles (50 flash + 82 FSMN). Each cut to 2 layers / blocks (SA-ASR 4 + 2) on
+   the card against the CPU port: logits, outputs and embeddings within 1e-4 relative L2,
+   KWS scores within 1e-4 on 2 s clips, detections, ids and speakers equal where their
+   margins clear 10x the error, the KWS step's loss within 1e-6 and gradients within 1e-4;
+   the fused lookahead block within 1e-6 of the CPU's; a kernel row at every new signature.
+
 ``python3 chip_smoke.py --aed-training`` (not part of the run above): phase 21 alone, with
 the wavs and the Conformer dir it reads of phases 16 and 20, both ``bin/train`` runs
 profiling their second step (device ms, idle share; ~40 s of the profiler's own work, so
@@ -5274,7 +5291,8 @@ def fsmn_bwd_timing(name, fn, x, dout, w, mask, left, right):
     """An FSMN backward kernel's ms (``fn``), a lone call's, the plain version's (autograd
     through the plain forward, for x or the weight, by ``quick_ms``), the library call's
     (``conv1d_input`` + g for dx, ``conv1d_weight`` for dw, on the masked (B, C, T)
-    tensors; symmetric pads, as the training path's) and the bound."""
+    tensors; asymmetric pads through the padded input) and the bound."""
+    import torch.nn.functional as F
     from torch.nn.grad import conv1d_input, conv1d_weight
     from funasr_tpu_torch.ops.fsmn import fsmn_memory_ref
 
@@ -5291,14 +5309,23 @@ def fsmn_bwd_timing(name, fn, x, dout, w, mask, left, right):
             out = fsmn_memory_ref(x_, w_, mask, left, right)
             return torch.autograd.grad(out, (x_, w_)[wrt], dout)
 
-    if wrt == 0:
+    if wrt == 0 and left == right:
         lib = lambda: conv1d_input((b, c, t), w, g_bct, padding=left, groups=c) + g_bct  # noqa: E731
         lib_call = f"torch.nn.grad.conv1d_input(xm.shape, w, g, padding={left}, groups=C) + g"
-        work = fsmn_work(b, t, c, kk, 4)
-    else:
+    elif wrt == 0:  # asymmetric pads (the lookahead FSMN's): the padded input's gradient
+        lib = lambda: conv1d_input((b, c, t + left + right), w, g_bct,  # noqa: E731
+                                   groups=c)[..., left:left + t] + g_bct
+        lib_call = (f"torch.nn.grad.conv1d_input((B, C, T + {left + right}), w, g, "
+                    f"groups=C)[..., {left}:{left} + T] + g")
+    elif left == right:
         lib = lambda: conv1d_weight(xm_bct, w.shape, g_bct, padding=left, groups=c)  # noqa: E731
         lib_call = f"torch.nn.grad.conv1d_weight(xm, w.shape, g, padding={left}, groups=C)"
-        work = fsmn_dw_work(b, t, c, kk)
+    else:
+        xm_pad = F.pad(xm_bct, (left, right))
+        lib = lambda: conv1d_weight(xm_pad, w.shape, g_bct, groups=c)  # noqa: E731
+        lib_call = (f"torch.nn.grad.conv1d_weight(F.pad(xm, ({left}, {right})), w.shape, g, "
+                    "groups=C)")
+    work = fsmn_work(b, t, c, kk, 4) if wrt == 0 else fsmn_dw_work(b, t, c, kk)
     row = dict(library_call=lib_call, ms=device_ms(fn), call_ms=call_ms(fn),
                plain_ms=quick_ms(plain), library_ms=device_ms(lib))
     row["bound_ms"], row["bound_by"] = bound_ms(*work, "fp32")
@@ -8802,21 +8829,13 @@ def phase_long_tail(dev, counters, card, keep, train):
     (``uniasr_step_cuda_vs_cpu``). Then (d)'s gates: its 2 steps of finite loss, each
     exactly 100 flash (chunk mode) + 100 backward, 132 FSMN + 132 dx + 132 dw, the
     validation's 100 + 132 forwards a batch, the checkpoint written."""
-    import wave as wave_mod
     from funasr_tpu_torch import AutoModel
     from funasr_tpu_torch.ops.flash_attention import flash_attention_bwd
     from funasr_tpu_torch.ops.fsmn import fsmn_memory_bwd_input, fsmn_memory_bwd_weight
 
     root = train["root"]
     fig = {}
-    _, jsonl = keep["train_data"]
-    with open(jsonl["train"], encoding="utf-8") as f:
-        sources = [json.loads(line)["source"] for line in f.read().splitlines()[:LONG_TAIL_WAVES]]
-    waves = []
-    for path in sources:
-        with wave_mod.open(path, "rb") as w:
-            pcm16 = np.frombuffer(w.readframes(w.getnframes()), np.int16)
-        waves.append(pcm16[: int(LONG_TAIL_SECONDS * 16000)])
+    waves = train_waves(keep)
 
     try:
         # (a) UniASR, fast then normal
@@ -8916,6 +8935,749 @@ def phase_long_tail(dev, counters, card, keep, train):
     return fig
 
 
+# ---- phase 23: the keyword spotters, emotion2vec, MFCCA, SA-ASR and Whisper-LID ----------
+
+KWS_VOCAB = 2599           # fsmn_4e_l10r2_250_128_fdim80_t2599: 2,599 tokens
+# that recipe config's encoder: 4 layers, lorder 10, rorder 2, linear 250, proj 128, over
+# 80 mel bins at LFR 5 (input 400); affine 140 as fsmn-vad's; its logits are the vocabulary
+KWS_FSMN = dict(input_dim=400, input_affine_dim=140, fsmn_layers=4, linear_dim=250,
+                proj_dim=128, lorder=10, rorder=2, lstride=1, rstride=1,
+                output_affine_dim=140, output_dim=KWS_VOCAB, use_softmax=False)
+KWS_FRONTEND = dict(fs=16000, window="hamming", n_mels=80, frame_length=25, frame_shift=10,
+                    lfr_m=5, lfr_n=1, dither=0.0)
+# SanmKWS at the JAX SANMEncoder's defaults
+KWS_SANM = dict(output_size=256, attention_heads=4, linear_units=2048, num_blocks=6,
+                kernel_size=11, sanm_shfit=0)
+KWS_KEYWORDS = 3           # seeded keywords of 2-4 tokens a generate
+KWS_THRESHOLD = -5.0       # FsmnKWS's default kws_threshold
+KWS_CHUNK = 60             # frames a detect_chunk feed: 600 ms at 10 ms a frame
+KWS_SCORE_SECONDS = 2.0    # the CUDA-vs-CPU scores' clip: a score is a difference of fp32
+#                            sums over T log-probs of about -8, whose last bit at 2 s (200
+#                            frames, sums near 1,600) is 1.2e-4: at 6 s it is 4.9e-4
+KWS_SCORE_TOL = 1e-4       # KWS scores, CUDA against the CPU, absolute
+KWS_MARGIN_FACTOR = 10     # detections gated where the score clears the threshold by 10x
+# fsmn_kws/finetune.sh's flags (fsdp, token batches of 6,000, lr 0.0002, the best 10 kept)
+# with the KWS dataset, for one epoch of UNIASR_TRAIN_STEPS steps over a prefix of phase
+# 16's train wavs and one val wav (``two_step_lists``); no average of the best 5
+KWS_TRAIN_RUN = ["++dataset=KWSDataset", "++sharding=fsdp", "++dataset_conf.batch_size=6000",
+                 "++dataset_conf.batch_type=token", "++optim_conf.lr=0.0002",
+                 "++train_conf.max_epoch=1", "++train_conf.keep_nbest_models=10",
+                 "++train_conf.avg_nbest_model=0", "++train_conf.log_interval=1",
+                 "++train_conf.use_tensorboard=False", "++train_conf.log_kernel_shapes=True"]
+SLICE_CPU_DEPTH = 2        # FSMN layers / encoder blocks / Whisper layers of the cut checks
+SLICE_REL_TOL = 1e-4       # logits, encoder outputs, embeddings: CUDA vs CPU, relative L2
+SLICE_LOSS_RTOL = 1e-6     # the KWS cut step's loss, CUDA against the CPU
+SLICE_GRAD_REL_TOL = 1e-4  # each gradient of that step, relative L2
+LOOKAHEAD_BLOCK_REL_TOL = 1e-6  # the fused (12, 9) block against the CPU block (JAX's order)
+E2V_LABELS = ["生气/angry", "厌恶/disgusted", "恐惧/fearful", "开心/happy", "中立/neutral",
+              "其他/other", "难过/sad", "吃惊/surprised", "<unk>"]
+WLID_LANGS = ["zh", "en", "yue", "ja", "ko", "nospeech", "<unk>"]
+SAASR_PROFILES = 4         # speaker profiles of 192 dims (CAM++'s / ERes2NetV2's width)
+SAASR_EXTRA = dict(spk_embed_dim=192, spk_attention_heads=4)
+MFCCA_CHANNELS = 2
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off for matmuls and cuDNN convolutions (cuDNN's default is on), restored
+    after: the cut checks hold fp32 sums to the CPU's."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def train_waves(keep, n=LONG_TAIL_WAVES, seconds=LONG_TAIL_SECONDS):
+    """Phase 16's first ``n`` train wavs, each cut to ``seconds``, as int16 PCM."""
+    import wave as wave_mod
+    _, jsonl = keep["train_data"]
+    with open(jsonl["train"], encoding="utf-8") as f:
+        sources = [json.loads(line)["source"] for line in f.read().splitlines()[:n]]
+    waves = []
+    for path in sources:
+        with wave_mod.open(path, "rb") as w:
+            pcm16 = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+        waves.append(pcm16[: int(seconds * 16000)])
+    return waves
+
+
+def kws_tokens():
+    """The KWS vocabulary: the first 2,595 characters of phase 16's token list (its texts'
+    other characters map to <unk>)."""
+    return ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(KWS_VOCAB - 4)] + ["<unk>"]
+
+
+def write_slice_dir(d, dev, cfg, conf, tokens, seed, craft=None):
+    """A FunASR-layout model dir: config.yaml (``cfg``), model.pt of the class built from
+    ``cfg["model"]`` and ``conf`` with seeded weights on the card (``craft`` applied),
+    tokens.txt."""
+    from funasr_tpu_torch import tables
+
+    os.makedirs(d, exist_ok=True)
+    model = tables.model_classes[cfg["model"]](
+        **conf, device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+    if craft is not None:
+        craft(model)
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(d, "model.pt"))
+    with open(os.path.join(d, "tokens.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(tokens) + "\n")
+    write_config(d, dict(cfg, tokenizer="CharTokenizer",
+                         tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>")))
+    del model
+    return d
+
+
+def kws_conf(kind, depth=None):
+    """FsmnKWS's (``kind`` "fsmn") or SanmKWS's class arguments, ``depth`` layers /
+    blocks when given."""
+    if kind == "fsmn":
+        enc = dict(KWS_FSMN, **({"fsmn_layers": depth} if depth else {}))
+        return dict(encoder="FSMN", encoder_conf=enc, input_size=400, vocab_size=KWS_VOCAB)
+    enc = dict(KWS_SANM, **({"num_blocks": depth} if depth else {}))
+    return dict(encoder="SANMEncoder", encoder_conf=enc, input_size=400, vocab_size=KWS_VOCAB)
+
+
+def write_kws_dir(d, dev, kind, seed):
+    conf = kws_conf(kind)
+    cfg = dict(model="FsmnKWS" if kind == "fsmn" else "SanmKWS",
+               model_conf=dict(ctc_weight=1.0), encoder=conf["encoder"],
+               encoder_conf=conf["encoder_conf"], frontend="WavFrontend",
+               frontend_conf=KWS_FRONTEND)
+    return write_slice_dir(d, dev, cfg, conf, kws_tokens(), seed)
+
+
+def kws_train_start(dev, keep):
+    """(b)'s start: the FsmnKWS dir at the recipe's widths (seeded weights), a prefix of
+    phase 16's train list that makes UNIASR_TRAIN_STEPS token batches and one val row
+    (``two_step_lists``), and ``bin/train`` with KWS_TRAIN_RUN as a subprocess from a thread
+    of its own, which runs on beside (a) and (c)-(e): {"dir", "out", "train_wavs", "run":
+    the future of its seconds, "root"}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    root = os.path.join(keep["root"], "kws_family")
+    os.makedirs(root)
+    _, jsonl = keep["train_data"]
+    kd = write_kws_dir(os.path.join(root, "fsmn_kws"), dev, "fsmn", 30)
+    lists, n_train = two_step_lists(jsonl, root)
+    out = os.path.join(root, "exp_kws")
+
+    def train():
+        t1 = time.perf_counter()
+        run_cli(["funasr_tpu_torch.bin.train", f"++model={kd}",
+                 f"++train_data_set_list={lists['train']}",
+                 f"++valid_data_set_list={lists['val']}", *KWS_TRAIN_RUN,
+                 f"++output_dir={out}"], "bin/train FsmnKWS (fsmn_kws/finetune.sh's flags)")
+        return time.perf_counter() - t1
+
+    pool = ThreadPoolExecutor(1)
+    run = pool.submit(train)
+    pool.shutdown(wait=False)
+    return dict(dir=kd, out=out, train_wavs=n_train, run=run, root=root)
+
+
+def seeded_keywords(tokens, n=KWS_KEYWORDS, seed=31):
+    """``n`` keywords of 2-4 characters drawn from the vocabulary (no special tokens)."""
+    rng = np.random.default_rng(seed)
+    return [
+        "".join(tokens[int(j)] for j in rng.integers(3, len(tokens) - 1, int(rng.integers(2, 5))))
+        for _ in range(n)]
+
+
+def counted(counters, fn):
+    """(``fn()``, wall ms, each counter's launches): every count set to 0 just before the
+    call and read just after it."""
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return out, wall, {c.__name__: c.launches for c in counters}
+
+
+def launch_gate(label, launches, want):
+    log(f"{label}: launches {launches} (expected {want})")
+    if not sites_met(launches, want):
+        raise AssertionError(f"{label}: launches {launches} != {want}")
+
+
+def shape_signatures(shapes, kernels=("flash_attention", "fsmn_memory")):
+    """Recorded launch shapes (``cuda_lib.take_launch_shapes``) as ``recipe_kernel_rows``
+    takes them, each signature's first lengths kept."""
+    out = {}
+    for e in shapes:
+        if e["kernel"] not in kernels:
+            continue
+        key = (e["kernel"], tuple((tuple(sh), tuple(st)) for sh, st in e["tensors"]),
+               tuple(e["args"]))
+        info = out.setdefault(key, dict(launches=0, lengths=e["lengths"]))
+        info["launches"] += e["launches"]
+    return out
+
+
+def kws_generate(dev, counters, waves, root):
+    """(a) FsmnKWS at the recipe's widths from a model dir through ``AutoModel.generate(
+    input=waves, keywords=...)`` in both decode modes, the waves in one batch (FSMN
+    exactly 4 launches a generate, all at k 12 / left 9, one launch a block), one profiled;
+    ``detect_chunk`` over the first wave in 600 ms feeds with its cache (4 launches a feed);
+    returns (figures, launch shapes)."""
+    from funasr_tpu_torch import AutoModel, tables
+    from funasr_tpu_torch.ops import cuda_lib
+
+    fig = {}
+    d = write_kws_dir(os.path.join(root, "fsmn_kws_decode"), dev, "fsmn", 32)
+    am = AutoModel(model=d, device="cuda", log_level="WARNING")
+    keywords = seeded_keywords(am.kwargs["tokenizer"].token_list)
+    layers = KWS_FSMN["fsmn_layers"]
+    want = dict({c.__name__: 0 for c in counters}, fsmn_memory=layers)
+    am.generate(input=waves, batch_size=len(waves), keywords=keywords)  # warm-up
+    shapes = []
+    for mode in ("forced_align", "prefix_beam"):
+        call = dict(batch_size=len(waves), keywords=",".join(keywords), decode_mode=mode)
+        cuda_lib.record_launch_shapes()
+        res, wall, launches = counted(counters, lambda: am.generate(input=waves, **call))
+        shapes += cuda_lib.take_launch_shapes()
+        cuda_lib.stop_recording_launch_shapes()
+        launch_gate(f"FsmnKWS generate ({mode}) {len(waves)} x {LONG_TAIL_SECONDS:g} s, wall "
+                    f"{wall:.1f} ms, hits {[len(r['value']) for r in res]}", launches, want)
+        if len(res) != len(waves) or not all(isinstance(r["value"], list) for r in res):
+            raise AssertionError(f"FsmnKWS generate ({mode}): {res}")
+        fig[mode] = dict(wall_ms=wall, launches=launches, hits=[r["value"] for r in res])
+    sigs = {tuple(e["args"][:3]) for e in shapes if e["kernel"] == "fsmn_memory"}
+    if sigs != {(12, 9, 2)}:
+        raise AssertionError(f"FsmnKWS's FSMN launched at {sigs}, not one k 12 / (9, 2) launch")
+    def call():
+        return am.generate(input=waves, batch_size=len(waves), keywords=",".join(keywords))
+
+    wall, _ = wall_ms(call, runs=3)
+    # taken again while the profile shows fewer FSMN launches than the counter: late in the
+    # script a profile has come back with no kernel records
+    for tries in range(1, PROFILE_TRIES + 1):
+        by_name = profile_once(call, f"FsmnKWS generate (try {tries})", wall)
+        fsmn = kernel_totals(by_name, "fsmn_kernel<false, float, 12, 9,")
+        if fsmn[1] >= layers:
+            break
+    device = sum(t for t, _ in by_name.values()) if fsmn[1] >= layers else None
+    if device is None:
+        log(f"FsmnKWS generate: {PROFILE_TRIES} profiles without the FSMN's records: device "
+            "ms not measured")
+    fig["profile"] = dict(wall_ms=wall, device_ms=device, tries=tries, fsmn=fsmn,
+                          idle_share=None if device is None else 1 - device / wall)
+
+    # detect_chunk over the first wave in 600 ms feeds, the FSMN caches carried
+    stream = tables.model_classes["FsmnKWSMT"](**kws_conf("fsmn"), device=dev).eval()
+    stream.load_state_dict(am.model.state_dict())
+    feats, _ = am.kwargs["frontend"].extract(waves[:1])
+    tokens = am.kwargs["tokenizer"]
+    kw_ids = [tokens.encode(k) for k in keywords]
+    cache = stream.init_cache()
+    chunks = [feats[:, i:i + KWS_CHUNK] for i in range(0, feats.shape[1], KWS_CHUNK)]
+    dets, wall, launches = counted(counters, lambda: [
+        stream.detect_chunk(c, cache, kw_ids, KWS_THRESHOLD) for c in chunks])
+    launch_gate(f"FsmnKWS detect_chunk {len(chunks)} feeds of {KWS_CHUNK} frames, wall "
+                f"{wall:.1f} ms", launches, dict(want, fsmn_memory=layers * len(chunks)))
+    fig["detect_chunk"] = dict(feeds=len(chunks), wall_ms=wall, launches=launches,
+                               detections=sum(len(x) for x in dets))
+    del am, stream
+    return fig, shapes
+
+
+def kws_cuda_vs_cpu(dev, waves):
+    """(a) and (c)'s cut checks: FsmnKWS (2 FSMN layers at the recipe's widths) and SanmKWS
+    (2 blocks at the JAX defaults) on the card against the CPU port, fp32, TF32 off, on the
+    waves' first KWS_SCORE_SECONDS: logits within SLICE_REL_TOL relative L2, ``detect``
+    scores within KWS_SCORE_TOL, detections equal where the score clears the threshold by
+    KWS_MARGIN_FACTOR x the scores' difference; FsmnKWS's ``detect_chunk`` over 3 feeds
+    likewise. Also one lookahead block (lorder 10, rorder 2, C 128) on the card (the fused
+    k 12 launch) against the CPU's (JAX's order) within LOOKAHEAD_BLOCK_REL_TOL."""
+    from funasr_tpu_torch import tables
+    from funasr_tpu_torch.models.fsmn_vad_streaming.encoder import FSMNBlock
+    from funasr_tpu_torch.tokenizer.char_tokenizer import CharTokenizer
+
+    fig = {}
+    fe = tables.frontend_classes["WavFrontend"](**KWS_FRONTEND)
+    feats, flens = fe.extract([w[: int(KWS_SCORE_SECONDS * 16000)] for w in waves])
+    tok = CharTokenizer(token_list=kws_tokens())
+    kw_ids = [tok.encode(k) for k in seeded_keywords(kws_tokens())]
+    for kind, name in (("fsmn", "FsmnKWSMT"), ("sanm", "SanmKWS")):
+        cpu = tables.model_classes[name](**kws_conf(kind, SLICE_CPU_DEPTH),
+                                         generator=torch.Generator().manual_seed(33)).eval()
+        gpu = copy.deepcopy(cpu).to(dev)
+        out = {}
+        with no_tf32():
+            for side, m in (("cpu", cpu), ("gpu", gpu)):
+                with torch.inference_mode():
+                    logits, _ = m.logits(torch.from_numpy(feats).to(m.device),
+                                         torch.from_numpy(flens).to(m.device))
+                out[side] = (logits.float().cpu(), m.detect(feats, flens, kw_ids,
+                                                            KWS_THRESHOLD))
+                if kind == "fsmn":
+                    cache = m.init_cache()
+                    out[side] += ([m.detect_chunk(feats[:1, i:i + KWS_CHUNK], cache, kw_ids,
+                                                  -1e9) for i in range(0, 3 * KWS_CHUNK,
+                                                                       KWS_CHUNK)],)
+        rel = rel_l2(out["gpu"][0], out["cpu"][0])
+        pairs = [(g["score"], c["score"], g["detected"], c["detected"])
+                 for gu, cu in zip(out["gpu"][1], out["cpu"][1]) for g, c in zip(gu, cu)]
+        if kind == "fsmn":
+            pairs += [(g["score"], c["score"], True, True)
+                      for gf, cf in zip(out["gpu"][2], out["cpu"][2]) for g, c in zip(gf, cf)]
+        diff = max(abs(g - c) for g, c, _, _ in pairs)
+        gated = [(g, c) for g, c, gd, cd in pairs
+                 if abs(c - KWS_THRESHOLD) > KWS_MARGIN_FACTOR * diff]
+        flips = [(g, c) for g, c, gd, cd in pairs if gd != cd
+                 and abs(c - KWS_THRESHOLD) > KWS_MARGIN_FACTOR * diff]
+        log(f"{name} cuda vs cpu ({SLICE_CPU_DEPTH} {'layers' if kind == 'fsmn' else 'blocks'}, "
+            f"fp32, TF32 off, 2 x {KWS_SCORE_SECONDS:g} s): logits rel L2 {rel:.2e} (tol "
+            f"{SLICE_REL_TOL:g}); {len(pairs)} scores, max |diff| {diff:.2e} (tol "
+            f"{KWS_SCORE_TOL:g}), {len(gated)} clear the threshold by {KWS_MARGIN_FACTOR}x "
+            f"it, detections flipped there {len(flips)}")
+        if not rel <= SLICE_REL_TOL or not diff <= KWS_SCORE_TOL or flips \
+                or not all(np.isfinite(g) for g, _ in gated):
+            raise AssertionError(f"{name} on CUDA disagrees with the CPU port: {rel}, {diff}, "
+                                 f"{flips}")
+        fig[name] = dict(logits_rel_l2=rel, score_max_diff=diff, scores=len(pairs),
+                         gated=len(gated))
+        del cpu, gpu
+
+    block = FSMNBlock(KWS_FSMN["proj_dim"], KWS_FSMN["lorder"], KWS_FSMN["rorder"])
+    g = torch.Generator().manual_seed(34)
+    with torch.no_grad():
+        for w in (block.conv_left.weight, block.conv_right.weight):
+            w.copy_(torch.rand(w.shape, generator=g) - 0.5)
+        h = torch.randn(2, 150, KWS_FSMN["proj_dim"], generator=g)
+        cache = torch.randn(2, KWS_FSMN["lorder"] - 1, KWS_FSMN["proj_dim"], generator=g)
+        want = [block(h)[0], block(h, cache)[0]]
+        gblock = copy.deepcopy(block).to(dev)
+        got = [gblock(h.to(dev))[0].cpu(), gblock(h.to(dev), cache.to(dev))[0].cpu()]
+    rels = [rel_l2(a, b) for a, b in zip(got, want)]
+    log(f"lookahead block (lorder 10, rorder 2, C 128) fused on the card against the CPU "
+        f"block (JAX's order): rel L2 offline {rels[0]:.2e}, cached {rels[1]:.2e} (tol "
+        f"{LOOKAHEAD_BLOCK_REL_TOL:g})")
+    if not max(rels) <= LOOKAHEAD_BLOCK_REL_TOL:
+        raise AssertionError(f"the fused lookahead block disagrees with the CPU's: {rels}")
+    fig["lookahead_block_rel_l2"] = rels
+    return fig
+
+
+def kws_step_cuda_vs_cpu(dev, counters, waves):
+    """(b)'s cut step: FsmnKWS at the recipe's widths cut to SLICE_CPU_DEPTH layers, one
+    ``forward`` + backward on the card (the lookahead's forward, dx and dw kernels: one
+    launch each a layer) against the CPU port: loss within SLICE_LOSS_RTOL, every gradient
+    (``conv_left`` and ``conv_right``'s from the (C, 12) weight gradient) within
+    SLICE_GRAD_REL_TOL relative L2."""
+    from funasr_tpu_torch import tables
+
+    fe = tables.frontend_classes["WavFrontend"](**KWS_FRONTEND)
+    feats, flens = fe.extract(waves)
+    rng = np.random.default_rng(35)
+    tlen = np.asarray([12, 9][: len(waves)], np.int64)
+    text = np.full((len(waves), int(tlen.max())), -1, np.int64)
+    for i, n in enumerate(tlen):
+        text[i, :n] = rng.integers(3, KWS_VOCAB - 1, n)
+    cpu = tables.model_classes["FsmnKWS"](**kws_conf("fsmn", SLICE_CPU_DEPTH),
+                                          generator=torch.Generator().manual_seed(36))
+    gpu = copy.deepcopy(cpu).to(dev)
+    res = {}
+    with no_tf32():
+        for side, m in (("cpu", cpu), ("gpu", gpu)):
+            d = m.device
+            args = [torch.from_numpy(x).to(d) for x in (feats, flens, text, tlen)]
+            m.train()
+            m.zero_grad()
+            if side == "gpu":
+                (loss, _, _), _, launches = counted(counters, lambda: m(*args))
+                (_, _, bwd) = counted(counters, lambda: loss.backward())
+            else:
+                loss, _, _ = m(*args)
+                loss.backward()
+            res[side] = (loss.item(), {n: p.grad.detach().cpu() for n, p in m.named_parameters()})
+    (gl, gg), (cl, cg) = res["gpu"], res["cpu"]
+    rel = abs(gl - cl) / abs(cl)
+    worst = max((rel_l2(gg[n], cg[n]), n) for n in cg)
+    layers = SLICE_CPU_DEPTH
+    want_f = {c.__name__: 0 for c in counters}
+    want_f["fsmn_memory"] = layers
+    want_b = {c.__name__: 0 for c in counters}
+    want_b.update(fsmn_memory_bwd_input=layers, fsmn_memory_bwd_weight=layers)
+    log(f"FsmnKWS training step cuda vs cpu ({layers} layers, fp32, TF32 off, "
+        f"{len(waves)} x {LONG_TAIL_SECONDS:g} s): loss {gl:.7f} vs {cl:.7f} (rel {rel:.2e}, tol "
+        f"{SLICE_LOSS_RTOL:g}); worst gradient rel L2 {worst[0]:.2e} ({worst[1]}, tol "
+        f"{SLICE_GRAD_REL_TOL:g}); forward launches {launches}, backward {bwd}")
+    if not rel <= SLICE_LOSS_RTOL or not worst[0] <= SLICE_GRAD_REL_TOL:
+        raise AssertionError(f"the FsmnKWS step on CUDA disagrees with the CPU port")
+    if not sites_met(launches, want_f) or not sites_met(bwd, want_b):
+        raise AssertionError(f"the FsmnKWS step's launches {launches} / {bwd}")
+    return dict(loss_cuda=gl, loss_cpu=cl, loss_rel=rel, worst_grad_rel_l2=worst[0],
+                worst_param=worst[1], launches=dict(launches, **{k: v for k, v in bwd.items()
+                                                                  if v}))
+
+
+def sanm_kws_generate(dev, counters, waves, root):
+    """(c) SanmKWS (the SAN-M encoder at the JAX defaults: d 256, 4 heads, FFN 2,048, 6
+    blocks, k 11, and the CTC head) from a model dir through ``generate(keywords=...)``,
+    the waves in one batch: flash and FSMN exactly 6 launches each; -> (figures, shapes)."""
+    from funasr_tpu_torch import AutoModel
+    from funasr_tpu_torch.ops import cuda_lib
+
+    d = write_kws_dir(os.path.join(root, "sanm_kws"), dev, "sanm", 37)
+    am = AutoModel(model=d, device="cuda", log_level="WARNING")
+    keywords = ",".join(seeded_keywords(am.kwargs["tokenizer"].token_list))
+    blocks = KWS_SANM["num_blocks"]
+    am.generate(input=waves, batch_size=len(waves), keywords=keywords)  # warm-up
+    cuda_lib.record_launch_shapes()
+    res, wall, launches = counted(counters, lambda: am.generate(
+        input=waves, batch_size=len(waves), keywords=keywords))
+    shapes = cuda_lib.take_launch_shapes()
+    cuda_lib.stop_recording_launch_shapes()
+    launch_gate(f"SanmKWS generate {len(waves)} x {LONG_TAIL_SECONDS:g} s, wall {wall:.1f} "
+                f"ms, hits {[len(r['value']) for r in res]}", launches,
+                dict({c.__name__: 0 for c in counters}, flash_attention=blocks,
+                     fsmn_memory=blocks))
+    heads = {tuple(e["tensors"][0][0])[1:2] + tuple(e["tensors"][0][0])[3:]
+             for e in shapes if e["kernel"] == "flash_attention"}
+    h = KWS_SANM["attention_heads"]
+    if heads != {(h, KWS_SANM["output_size"] // h)}:
+        raise AssertionError(f"SanmKWS's flash launches at heads x D {heads}")
+    del am
+    return dict(wall_ms=wall, launches=launches, hits=[r["value"] for r in res]), shapes
+
+
+def emotion2vec_lid_checks(dev, counters, waves, root):
+    """(d) emotion2vec at the JAX defaults (embed 768, 4 prenet + 8 blocks, 12 heads, the
+    7-layer conv extractor, 5 positional convs of k 19 in 16 groups, 10 extra tokens; 9
+    labels) and Whisper-LID (whisper-small's encoder, ERes2NetV2 at its defaults as the
+    LidPredictor, seeded batch-norm statistics; 7 languages) from model dirs through
+    ``generate`` on one wave each (emotion2vec at utterance and frame granularity): none of
+    the port's kernels launched (their attention is einsums in the JAX package, their
+    convolutions XLA's). Each cut (emotion2vec to 1 prenet + SLICE_CPU_DEPTH blocks,
+    Whisper to SLICE_CPU_DEPTH layers) on the card against the CPU, fp32, TF32 off:
+    emotion2vec's features within SLICE_REL_TOL relative L2 and its scores within
+    KWS_SCORE_TOL, Whisper-LID's embedding and logits within SLICE_REL_TOL."""
+    from funasr_tpu_torch import AutoModel, tables
+
+    fig = {}
+    none = {c.__name__: 0 for c in counters}
+    d = write_slice_dir(os.path.join(root, "emotion2vec"), dev,
+                        dict(model="Emotion2vec", model_conf={}), dict(vocab_size=len(E2V_LABELS)),
+                        E2V_LABELS, 38)
+    am = AutoModel(model=d, device="cuda", log_level="WARNING")
+    am.generate(input=waves[0])  # warm-up (cuDNN's algorithm choice)
+    for gran in ("utterance", "frame"):
+        res, wall, launches = counted(counters, lambda: am.generate(input=waves[0],
+                                                                    granularity=gran))
+        launch_gate(f"emotion2vec generate ({gran}) 1 x {LONG_TAIL_SECONDS:g} s, wall "
+                    f"{wall:.1f} ms, feats {np.asarray(res[0]['feats']).shape}, top label "
+                    f"{res[0]['labels'][int(np.argmax(res[0]['scores']))]}", launches, none)
+        if len(res[0]["scores"]) != len(E2V_LABELS) or abs(sum(res[0]["scores"]) - 1) > 1e-4:
+            raise AssertionError(f"emotion2vec generate: {res[0]['scores']}")
+        fig[f"emotion2vec_{gran}"] = dict(wall_ms=wall, launches=launches,
+                                          feats_shape=list(np.asarray(res[0]["feats"]).shape))
+    del am
+
+    def craft_lid(model):
+        seed_batchnorm(model.lid_predictor, 39)
+
+    lid_conf = dict(vocab_size=len(WLID_LANGS), encoder="whisper-small")
+    d = write_slice_dir(os.path.join(root, "whisper_lid"), dev,
+                        dict(model="OpenAIWhisperLIDModel", model_conf=dict(encoder="whisper-small"),
+                             frontend="WhisperFrontend", frontend_conf=dict(n_mels=80)),
+                        lid_conf, WLID_LANGS, 39, craft=craft_lid)
+    am = AutoModel(model=d, device="cuda", log_level="WARNING")
+    am.generate(input=waves[0])  # warm-up
+    res, wall, launches = counted(counters, lambda: am.generate(input=waves[0]))
+    launch_gate(f"Whisper-LID generate 1 x {LONG_TAIL_SECONDS:g} s (30 s padded), wall "
+                f"{wall:.1f} ms, language {res[0]['text']}", launches, none)
+    if res[0]["text"] not in WLID_LANGS or len(res[0]["lid_logits"]) != len(WLID_LANGS):
+        raise AssertionError(f"Whisper-LID generate: {res}")
+    fig["whisper_lid"] = dict(wall_ms=wall, launches=launches, text=res[0]["text"])
+    frontend = am.kwargs["frontend"]
+    del am
+    torch.cuda.empty_cache()
+
+    # the cut models on the card against the CPU
+    rng = np.random.default_rng(40)
+    src = (rng.standard_normal((1, 32000)) * 0.1).astype(np.float32)
+    e2v = tables.model_classes["Emotion2vec"](
+        vocab_size=len(E2V_LABELS), model_conf=dict(depth=SLICE_CPU_DEPTH, modalities=dict(
+            audio=dict(prenet_depth=1))), generator=torch.Generator().manual_seed(41)).eval()
+    mel, _ = frontend.extract([waves[0]])
+    lid = tables.model_classes["OpenAIWhisperLIDModel"](
+        vocab_size=len(WLID_LANGS), encoder_conf=dict(whisper_size="whisper-small",
+                                                      encoder_layers=SLICE_CPU_DEPTH),
+        generator=torch.Generator().manual_seed(42))
+    seed_batchnorm(lid.lid_predictor, 42)
+    lid.eval()
+    out = {}
+    with no_tf32():
+        for side, (m1, m2) in (("cpu", (e2v, lid)),
+                               ("gpu", (copy.deepcopy(e2v).to(dev), copy.deepcopy(lid).to(dev)))):
+            with torch.inference_mode():
+                x = m1._normalized(torch.from_numpy(src).to(m1.device))
+                feats = m1.extract_features(x)
+                scores = torch.softmax(m1.proj(feats.mean(1)).float(), -1)
+                melt = torch.from_numpy(mel).to(m2.device)
+                emb = m2.lid_predictor(m2.features(melt))
+                logits = m2.logits(melt)
+            out[side] = [y.float().cpu() for y in (feats, scores, emb, logits)]
+    rels = {k: rel_l2(g, c) for k, g, c in zip(("e2v_feats", "e2v_scores", "lid_embedding",
+                                                "lid_logits"), out["gpu"], out["cpu"])}
+    score_diff = (out["gpu"][1] - out["cpu"][1]).abs().max().item()
+    log(f"emotion2vec (1 + {SLICE_CPU_DEPTH} blocks) and Whisper-LID ({SLICE_CPU_DEPTH} "
+        f"layers) cuda vs cpu (fp32, TF32 off): rel L2 {rels}, emotion2vec scores max |diff| "
+        f"{score_diff:.2e} (tols {SLICE_REL_TOL:g}, {KWS_SCORE_TOL:g})")
+    if not all(v <= SLICE_REL_TOL for v in rels.values()) or not score_diff <= KWS_SCORE_TOL:
+        raise AssertionError(f"emotion2vec / Whisper-LID on CUDA disagree with the CPU: {rels}")
+    fig["cuda_vs_cpu"] = dict(rels, e2v_score_max_diff=score_diff)
+    return fig
+
+
+def mfcca_checks(dev, counters, waves, root):
+    """(e) MFCCA at the encoder's JAX defaults (d 256, 4 heads, FFN 2,048, 6 blocks, conv
+    kernel 31, swish, legacy rel-pos; the Transformer decoder at phase 20's widths, vocab
+    AED_VOCAB, seeded batch-norm statistics) from a model dir: ``generate(beam_size=5)`` on
+    one wave (6 plain-mode launches, fp32 k 31 / left 15), and the encoder on a
+    MFCCA_CHANNELS-channel input made from the waves (6 launches, B x C rows); the
+    plain mode's row at that signature; the model cut to SLICE_CPU_DEPTH blocks on the
+    card against the CPU: the fused encoder output within SLICE_REL_TOL relative L2."""
+    from funasr_tpu_torch import AutoModel, tables
+    from funasr_tpu_torch.ops import cuda_lib
+    from funasr_tpu_torch.ops.fsmn import depthwise_conv1d
+
+    counters = (*counters, depthwise_conv1d)
+    fig = {}
+    conf = dict(input_size=80, vocab_size=AED_VOCAB, encoder="MFCCAEncoder", encoder_conf={},
+                decoder="TransformerDecoder", decoder_conf=AED_DECODER, **AED_MODEL_CONF)
+    cfg = dict(model="MFCCA", model_conf=AED_MODEL_CONF, encoder="MFCCAEncoder",
+               encoder_conf={}, decoder="TransformerDecoder", decoder_conf=AED_DECODER,
+               frontend="WavFrontend", frontend_conf=AED_FRONTEND)
+    tokens = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(AED_VOCAB - 4)] + ["<unk>"]
+    d = write_slice_dir(os.path.join(root, "mfcca"), dev, cfg, conf, tokens, 43,
+                        craft=lambda m: seed_batchnorm(m, 43))
+    am = AutoModel(model=d, device="cuda", log_level="WARNING")
+    am.generate(input=waves[:1], beam_size=AED_BEAM)  # warm-up
+    blocks = 6
+    res, wall, launches = counted(counters, lambda: am.generate(input=waves[:1],
+                                                                beam_size=AED_BEAM))
+    want = dict({c.__name__: 0 for c in counters}, depthwise_conv1d=blocks)
+    launch_gate(f"MFCCA generate (beam {AED_BEAM}) 1 x {LONG_TAIL_SECONDS:g} s, wall "
+                f"{wall:.1f} ms, text length {len(res[0]['text'])}", launches, want)
+    fig["generate"] = dict(wall_ms=wall, launches=launches)
+    feats, flens = am.kwargs["frontend"].extract(waves[:MFCCA_CHANNELS], device=dev)
+    multi = feats[None, :, : int(flens.min())]  # (1, C, T, 80): the waves as channels
+    mlens = flens.min()[None].to(dev)
+    cuda_lib.record_launch_shapes()
+    with torch.inference_mode():
+        (enc, elens), wall, launches = counted(counters, lambda: am.model.encode(multi, mlens))
+    shapes = [e for e in cuda_lib.take_launch_shapes() if e["kernel"] == "depthwise_conv1d"]
+    cuda_lib.stop_recording_launch_shapes()
+    launch_gate(f"MFCCA encode {MFCCA_CHANNELS} channels x {int(mlens):d} frames -> "
+                f"{tuple(enc.shape)}, wall {wall:.1f} ms", launches, want)
+    sigs = {(tuple(e["tensors"][0][0]), tuple(e["args"][:3])) for e in shapes}
+    if len(sigs) != 1 or next(iter(sigs))[1] != (31, 15, 15):
+        raise AssertionError(f"MFCCA's depthwise launches at {sigs}")
+    fig["encode"] = dict(wall_ms=wall, launches=launches, shape=list(enc.shape))
+    del am
+    torch.cuda.empty_cache()
+    (b, t, c), _ = next(iter(sigs))
+    g = torch.Generator(device=dev).manual_seed(44)
+    x = torch.randn(b, t, c, generator=g, device=dev)
+    w = (torch.rand(c, 1, 31, generator=g, device=dev) * 2 - 1) / 31 ** 0.5
+    row = depthwise_row(x, w, torch.randn(c, generator=g, device=dev), None, 15, 15)
+    row["launches"] = blocks
+    fig["rows"] = {f"{b}x{t}x{c}_k31": row}
+
+    cpu = tables.model_classes["MFCCA"](**dict(conf, encoder_conf=dict(
+        num_blocks=SLICE_CPU_DEPTH)), generator=torch.Generator().manual_seed(45))
+    seed_batchnorm(cpu, 45).eval()
+    gpu = copy.deepcopy(cpu).to(dev)
+    host = multi.cpu()
+    outs = {}
+    with no_tf32():
+        for side, m in (("cpu", cpu), ("gpu", gpu)):
+            with torch.inference_mode():
+                outs[side] = m.encode(host.to(m.device), mlens.cpu().to(m.device))[0].cpu()
+    rel = rel_l2(outs["gpu"], outs["cpu"])
+    log(f"MFCCA cuda vs cpu ({SLICE_CPU_DEPTH} blocks, {MFCCA_CHANNELS} channels, fp32, TF32 "
+        f"off): encoder rel L2 {rel:.2e} (tol {SLICE_REL_TOL:g})")
+    if not rel <= SLICE_REL_TOL:
+        raise AssertionError(f"MFCCA on CUDA disagrees with the CPU port: {rel}")
+    fig["cuda_vs_cpu"] = dict(encoder_rel_l2=rel)
+    return fig
+
+
+def sa_asr_checks(dev, counters, waves, root):
+    """(e) SA-ASR at Paraformer-large's widths (PROD_CONF) with SAASR_PROFILES speaker
+    profiles of 192 dims from a model dir through ``generate(profiles=...)``, the waves in
+    one batch: flash exactly 50, FSMN 50 + 16 x 2 (the decoder runs twice: logits, then
+    hidden states), ids and a speaker a token; the model cut to LONG_TAIL_CPU_DEPTH on the
+    card against the CPU: encoder output within SLICE_REL_TOL relative L2, CIF token counts
+    equal, the decoder's logits and speaker logits within SLICE_REL_TOL, ids and
+    ``spk_ids`` equal where the CPU's top-2 margin clears PARA_MARGIN_FACTOR x the error."""
+    from funasr_tpu_torch import AutoModel, tables
+
+    d = os.path.join(root, "sa_asr")
+    os.makedirs(d)
+    write_model_dir(d, dev, model_name="SAASR", extra=SAASR_EXTRA)
+    am = AutoModel(model=d, device="cuda", log_level="WARNING")
+    profiles = np.random.default_rng(46).standard_normal(
+        (len(waves), SAASR_PROFILES, SAASR_EXTRA["spk_embed_dim"])).astype(np.float32)
+    am.generate(input=waves, batch_size=len(waves), profiles=profiles)  # warm-up
+    res, wall, launches = counted(counters, lambda: am.generate(
+        input=waves, batch_size=len(waves), profiles=profiles))
+    enc_n = PROD_CONF["encoder_conf"]["num_blocks"]
+    dec_n = PROD_CONF["decoder_conf"]["num_blocks"]
+    launch_gate(f"SA-ASR generate {len(waves)} x {LONG_TAIL_SECONDS:g} s, {SAASR_PROFILES} "
+                f"profiles, wall {wall:.1f} ms, tokens {[len(r['spk_ids']) for r in res]}",
+                launches, dict({c.__name__: 0 for c in counters}, flash_attention=enc_n,
+                               fsmn_memory=enc_n + 2 * dec_n))
+    if any(len(r["spk_ids"]) != len(r["text"]) or not all(0 <= s < SAASR_PROFILES
+                                                         for s in r["spk_ids"]) for r in res):
+        raise AssertionError(f"SA-ASR generate: {res}")
+    fig = dict(generate=dict(wall_ms=wall, launches=launches,
+                             spk_ids=[r["spk_ids"] for r in res]))
+    del am
+    torch.cuda.empty_cache()
+
+    feats, flens = host_feats(waves)
+    enc_c, dec_c = LONG_TAIL_CPU_DEPTH
+    conf = dict(PROD_CONF, encoder_conf=dict(PROD_CONF["encoder_conf"], num_blocks=enc_c),
+                decoder_conf=dict(PROD_CONF["decoder_conf"], num_blocks=dec_c,
+                                  att_layer_num=dec_c))
+    cpu = tables.model_classes["SAASR"](**conf, **SAASR_EXTRA,
+                                        generator=torch.Generator().manual_seed(47)).eval()
+    gpu = copy.deepcopy(cpu).to(dev)
+    out = {}
+    with no_tf32():
+        for side, m in (("cpu", cpu), ("gpu", gpu)):
+            dd = m.device
+            with torch.inference_mode():
+                enc, elens = m.encode(feats.to(dd), flens.to(dd))
+                embeds, tok_num, _, _ = m.calc_predictor(enc, elens)
+                tok = torch.clamp(torch.round(tok_num).to(torch.int32), 0, embeds.shape[1])
+                logits, _ = m.decoder(enc, elens, embeds, tok)
+                hidden, _ = m.decoder(enc, elens, embeds, tok, return_hidden=True)
+                spk = m.spk_logits(hidden, torch.from_numpy(profiles).to(dd))
+            out[side] = [y.float().cpu() for y in (enc, tok, logits, spk)]
+    (ce, ct, cl, cs), (ge, gt, gl, gs) = out["cpu"], out["gpu"]
+    if not torch.equal(ct, gt):
+        raise AssertionError(f"SA-ASR CIF token counts on CUDA {gt} vs CPU {ct}")
+    rels = dict(encoder=rel_l2(ge, ce), logits=rel_l2(gl, cl), spk_logits=rel_l2(gs, cs))
+    gates = {}
+    for key, c_, g_ in (("ids", cl, gl), ("spk_ids", cs, gs)):
+        valid = torch.arange(c_.shape[1])[None] < ct[:, None]
+        err = (g_ - c_)[valid].abs().max().item() if valid.any() else 0.0
+        top2 = c_.topk(2, dim=-1).values
+        sure = valid & (top2[..., 0] - top2[..., 1] > PARA_MARGIN_FACTOR * err)
+        wrong = (sure & (g_.argmax(-1) != c_.argmax(-1))).sum().item()
+        gates[key] = dict(err=err, sure=int(sure.sum()), valid=int(valid.sum()), wrong=wrong)
+    log(f"SA-ASR cuda vs cpu ({enc_c} + {dec_c} blocks, fp32, TF32 off): rel L2 {rels} (tol "
+        f"{SLICE_REL_TOL:g}), token counts {ct.tolist()} equal; gates {gates}")
+    if not all(v <= SLICE_REL_TOL for v in rels.values()) or any(
+            g["wrong"] for g in gates.values()):
+        raise AssertionError(f"SA-ASR on CUDA disagrees with the CPU port: {rels} {gates}")
+    fig["cuda_vs_cpu"] = dict(rels, gates=gates)
+    return fig
+
+
+def phase_kws_family(dev, counters, card, keep, train):
+    """Phase 23: the keyword spotters, emotion2vec, MFCCA, SA-ASR and Whisper-LID, seeded
+    weights, fp32, on LONG_TAIL_WAVES of phase 16's wavs cut to LONG_TAIL_SECONDS: (a)
+    FsmnKWS at the recipe's widths (``kws_generate``), its lookahead FSMN's rows; (c) SanmKWS (``sanm_kws_generate``) and its flash (D 64) and
+    FSMN rows; (a) and (c)'s cut checks (``kws_cuda_vs_cpu``); (d) emotion2vec and
+    Whisper-LID (``emotion2vec_lid_checks``); (e) MFCCA (``mfcca_checks``) and SA-ASR
+    (``sa_asr_checks``); (b) the cut training step on the card against the CPU
+    (``kws_step_cuda_vs_cpu``), then FsmnKWS's ``bin/train`` (``train``, started by
+    ``kws_train_start`` at the phase's start): its 2 steps of finite loss, each exactly 4
+    FSMN + 4 dx + 4 dw launches at the lookahead's signatures, the validation's 4 a batch,
+    the checkpoint written, and a row per signature its runs launched."""
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory_bwd_input, fsmn_memory_bwd_weight
+
+    root = train["root"]
+    waves = train_waves(keep)
+    fig = {}
+    try:
+        t_part = time.perf_counter()
+        fig["kws"], kws_shapes = kws_generate(dev, counters, waves, root)
+        # the lookahead FSMN's row at each signature the KWS decodes launched: the kernel
+        # against the fused plain version (``fsmn_memory_ref`` at k 12)
+        fig["kws_rows"] = recipe_kernel_rows(dev, shape_signatures(kws_shapes, ("fsmn_memory",)))
+        fig["sanm_kws"], sanm_shapes = sanm_kws_generate(dev, counters, waves, root)
+        fig["sanm_kws_rows"] = recipe_kernel_rows(dev, shape_signatures(sanm_shapes))
+        fig["kws_cuda_vs_cpu"] = kws_cuda_vs_cpu(dev, waves)
+        log(f"kws family (a), (c) done in {time.perf_counter() - t_part:.1f} s")
+        t_part = time.perf_counter()
+        fig["emotion2vec_lid"] = emotion2vec_lid_checks(dev, counters, waves, root)
+        fig["mfcca"] = mfcca_checks(dev, counters, waves, root)
+        fig["sa_asr"] = sa_asr_checks(dev, counters, waves, root)
+        log(f"kws family (d), (e) done in {time.perf_counter() - t_part:.1f} s")
+        train_counters = (*counters, fsmn_memory_bwd_input, fsmn_memory_bwd_weight)
+        fig["kws_step_cuda_vs_cpu"] = kws_step_cuda_vs_cpu(dev, train_counters, waves)
+    finally:
+        if train["run"].exception() is not None:
+            log(f"kws family: the bin/train run failed: {train['run'].exception()}")
+    t_wait = time.perf_counter()
+    run_s = train["run"].result()
+    log(f"kws family: waited {time.perf_counter() - t_wait:.1f} s for (b)'s bin/train")
+
+    steps, vals = read_train_log(train["out"])
+    layers = KWS_FSMN["fsmn_layers"]
+    step_sites = {"fsmn_memory": layers, "fsmn_memory_bwd_input": layers,
+                  "fsmn_memory_bwd_weight": layers}
+    for x in steps:
+        log(f"  step {x['step']}: loss {x['loss']:.4f} grad_norm {x['grad_norm']:.3f} "
+            f"step_time {x['step_time'] * 1e3:.1f} ms launches {x['launches']}")
+    wrong = [(x["step"], x["launches"]) for x in steps if not sites_met(x["launches"], step_sites)]
+    wrong += [("val", x["launches"]) for x in vals
+              if not sites_met(x["launches"], {"fsmn_memory": layers * x["batches"]})]
+    sigs = {(e["kernel"], tuple(e["args"][:3])) for x in steps + vals for e in x["kernel_shapes"]}
+    bad = [x["step"] for x in steps if not math.isfinite(x["loss"])]
+    saved = sorted(f for f in os.listdir(train["out"]) if f.startswith("model.pt"))
+    log(f"FsmnKWS bin/train: {len(steps)} steps, {len(vals)} validations in {run_s:.1f} s; "
+        f"signatures {sorted(sigs)}; files {saved}")
+    if len(steps) != UNIASR_TRAIN_STEPS or not vals or bad or wrong \
+            or "model.pt.ep0" not in saved or sigs != {("fsmn_memory", (12, 9, 2)),
+                                                       ("fsmn_memory_bwd_input", (12, 9, 2)),
+                                                       ("fsmn_memory_bwd_weight", (12, 9, 2))}:
+        raise AssertionError(f"FsmnKWS training: steps {len(steps)}, non-finite {bad}, "
+                             f"launches off the sites {wrong[:3]}, signatures {sigs}, files "
+                             f"{saved}")
+    fig["kws_train_rows"] = recipe_kernel_rows(dev, recipe_launch_shapes(steps + vals))
+    fig["kws_train"] = dict(run_s=run_s, steps=len(steps), train_wavs=train["train_wavs"],
+                            launches_per_step=step_sites,
+                            launches={k: sum(x["launches"].get(k, 0) for x in steps + vals)
+                                      for k in step_sites},
+                            losses=[x["loss"] for x in steps],
+                            step_ms=[x["step_time"] * 1e3 for x in steps])
+    fig["launches"] = {
+        "kws_forced_align": fig["kws"]["forced_align"]["launches"],
+        "kws_prefix_beam": fig["kws"]["prefix_beam"]["launches"],
+        "kws_detect_chunk": fig["kws"]["detect_chunk"]["launches"],
+        "sanm_kws": fig["sanm_kws"]["launches"],
+        "sa_asr": fig["sa_asr"]["generate"]["launches"],
+        "mfcca_generate": fig["mfcca"]["generate"]["launches"],
+        "mfcca_encode": fig["mfcca"]["encode"]["launches"]}
+    return fig
+
+
+def kws_family_entry(fig, name):
+    """A kernel's phase 23 figures: its launches in each counted run, in the FsmnKWS
+    recipe's run, and its rows at the signatures those runs launched."""
+    entry = dict(by_run={run: counts.get(name, 0) for run, counts in fig["launches"].items()},
+                 training_launches=fig["kws_train"]["launches"].get(name, 0))
+    rows = {}
+    for key in ("kws_rows", "sanm_kws_rows", "kws_train_rows"):
+        rows.update({f"{key[:-5]}_{label}": row for label, row in fig[key].get(name, {}).items()})
+    if name == "depthwise_conv1d":
+        rows.update(fig["mfcca"]["rows"])
+    if rows:
+        entry["rows"] = rows
+    return entry
+
+
 def long_tail_entry(fig, name):
     """A kernel's phase 22 figures: its launches in each counted run, and its rows at the
     decodes' signatures (``recipe_label``s)."""
@@ -8983,7 +9745,8 @@ LLM_ENTRIES = {
 def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, speaker=None,
                  hotword=None, streaming=None, sensevoice=None, serving=None, llm=None,
                  export=None, training=None, training_family=None, streaming_training=None,
-                 llm_training=None, aed=None, aed_training=None, long_tail=None):
+                 llm_training=None, aed=None, aed_training=None, long_tail=None,
+                 kws_family=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
@@ -9032,7 +9795,10 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
     UniASR recipe's, and their rows at the decodes' signatures: chunk mode, the encoders'
     (11, 5) under the holed frame mask, the decoders' (11, 10) prefix-masked) and W8A8 (0
     launches), and in ``depthwise_conv1d`` (LCB-Net's launches and the bias predictor's
-    (7, 3) row)."""
+    (7, 3) row). Phase 23's (``kws_family``) go under ``kws_family`` in every kernel
+    (``kws_family_entry``: the launches of each counted run and of the FsmnKWS recipe's,
+    and the rows at their signatures: the lookahead FSMN's (12, 9) and its backward's,
+    SanmKWS's flash at D 64 and FSMN, MFCCA's plain mode at (31, 15))."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -9136,6 +9902,8 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
                 entry["aed"]["rows"] = aed["w8a8_rows"]
         if long_tail:
             entry["long_tail"] = long_tail_entry(long_tail, name)
+        if kws_family:
+            entry["kws_family"] = kws_family_entry(kws_family, name)
         kernels.append(entry)
     if aed:
         kernels.append(dict(
@@ -9156,6 +9924,8 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
                         "lcbnet_bias_scores": long_tail["lcbnet"]["bias_scores_launches"][
                             "depthwise_conv1d"]},
                 rows=long_tail["lcbnet"]["rows"])
+        if kws_family:
+            kernels[-1]["kws_family"] = kws_family_entry(kws_family, "depthwise_conv1d")
     for name in DEPTHWISE_SIGNATURES[1:] if aed_training else ():
         kernels.append(dict(
             name=name, route="cuda", source=DEPTHWISE_BACKWARD[name],
@@ -9188,6 +9958,8 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             entry["llm_training"] = llm_training_entry(llm_training, name)
         if long_tail:
             entry["long_tail"] = long_tail_entry(long_tail, name)
+        if kws_family:
+            entry["kws_family"] = kws_family_entry(kws_family, name)
         kernels.append(entry)
     return {"kernels": kernels}
 
@@ -9355,18 +10127,21 @@ def main():
         os.makedirs(aed_root)
         aed = timed("AED", phase_aed, dev, counters, card, aed_root)
         keep_train["conformer"] = os.path.join(aed_root, "conformer")
-        # phase 22's bin/train runs beside phase 21's two runs
+        # phase 22's bin/train runs beside phase 21's two runs, phase 23's beside phase 22
         long_tail_train = timed("long tail's bin/train start", long_tail_train_start, dev,
                                 keep_train)
         aed_training = timed("AED training", phase_aed_training, dev, counters, card,
                              keep_train)
+        kws_train = timed("kws family's bin/train start", kws_train_start, dev, keep_train)
         long_tail = timed("long tail", phase_long_tail, dev, counters, card, keep_train,
                           long_tail_train)
+        kws_family = timed("kws family", phase_kws_family, dev, counters, card, keep_train,
+                           kws_train)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
                                   speaker, hotword, streaming, sensevoice, serving, llm,
                                   export, training, family, stream_training, llm_training,
-                                  aed, aed_training, long_tail),
+                                  aed, aed_training, long_tail, kws_family),
                      default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,10 @@ own names), ``convert_fun_asr_nano`` (FunASRNano and the LLMASR family, ``:688``
 and ``convert_whisper`` (``:735``; Hugging Face names), ``convert_scama`` /
 ``convert_uniasr`` (``:1297``, ``:1275``; the SCAMA decoder's ``embed_concat_ffn`` too,
 which the JAX converter does not read), ``convert_lcbnet`` (``:1397``) and
-``convert_eres2netv2`` (``:297``): it takes the JAX
+``convert_eres2netv2`` (``:297``), ``convert_fsmn_kws`` (``:1218``),
+``convert_emotion2vec`` (``:513``) and ``convert_mfcca`` (``:840``), and maps the trees of
+SAASR, LCBNetNAR and OpenAIWhisperLIDModel, which have no JAX converter, by name: it
+takes the JAX
 package's parameter tree (as numpy arrays) and gives the tensors that the port model's
 ``load_state_dict`` takes, under FunASR's state-dict names. Layouts:
 
@@ -506,29 +509,113 @@ def _llm_asr(tree, target, out):
         _walk(tree["ctc"], "ctc.", target, out)
 
 
-def _whisper(tree, target, out):
-    """WhisperModel -> Hugging Face names; the encoder's sinusoid table, which the JAX
-    package computes, from ``models/whisper/model.py::sinusoids``."""
+def _whisper_side(t, pre, target, out):
+    """One Whisper tower's convs, layers and final norm -> Hugging Face names."""
+    for name in ("conv1", "conv2", "layer_norm"):
+        if name in t:
+            out.update(_leaf(t[name], f"{pre}{name}.", target))
+    for i, lp in enumerate(t["layers"]):
+        lpre = f"{pre}layers.{i}."
+        for attn in ("self_attn", "encoder_attn"):
+            if attn in lp:
+                _mha(lp[attn], f"{lpre}{attn}.", _MHA, target, out)
+        for name in ("self_attn_layer_norm", "encoder_attn_layer_norm", "final_layer_norm",
+                     "fc1", "fc2"):
+            if name in lp:
+                out.update(_leaf(lp[name], f"{lpre}{name}.", target))
+
+
+def _encoder_positions(pre, target, out):
+    """The encoder's sinusoid table, which the JAX package computes, from
+    ``models/whisper/model.py::sinusoids``."""
     from funasr_tpu_torch.models.whisper.model import sinusoids
 
+    out[pre + "embed_positions.weight"] = sinusoids(*target[pre + "embed_positions.weight"].shape)
+
+
+def _whisper(tree, target, out):
+    """WhisperModel -> Hugging Face names; the encoder's sinusoid table computed."""
     for side in ("encoder", "decoder"):
-        t, pre = tree[side], f"model.{side}."
-        for name in ("conv1", "conv2", "layer_norm"):
-            if name in t:
-                out.update(_leaf(t[name], f"{pre}{name}.", target))
-        for i, lp in enumerate(t["layers"]):
-            lpre = f"{pre}layers.{i}."
-            for attn in ("self_attn", "encoder_attn"):
-                if attn in lp:
-                    _mha(lp[attn], f"{lpre}{attn}.", _MHA, target, out)
-            for name in ("self_attn_layer_norm", "encoder_attn_layer_norm", "final_layer_norm",
-                         "fc1", "fc2"):
-                if name in lp:
-                    out.update(_leaf(lp[name], f"{lpre}{name}.", target))
-    enc_pos = target["model.encoder.embed_positions.weight"]
-    out["model.encoder.embed_positions.weight"] = sinusoids(*enc_pos.shape)
+        _whisper_side(tree[side], f"model.{side}.", target, out)
+    _encoder_positions("model.encoder.", target, out)
     out["model.decoder.embed_tokens.weight"] = tree["decoder"]["embed_tokens"]
     out["model.decoder.embed_positions.weight"] = tree["decoder"]["embed_positions"]
+
+
+def _prefixed(fn, tree, prefix, target, out):
+    """``fn`` over a submodule's tree, its names under ``prefix``."""
+    sub_target = {k[len(prefix):]: v for k, v in target.items() if k.startswith(prefix)}
+    sub = {}
+    fn(tree, sub_target, sub)
+    out.update({prefix + k: v for k, v in sub.items()})
+
+
+def _whisper_lid(tree, target, out):
+    """OpenAIWhisperLIDModel (no JAX converter): the Whisper encoder under ``encoder.``
+    (Hugging Face names), the ERes2NetV2 ``lid_predictor``, the linears by name."""
+    _whisper_side(tree["encoder"], "encoder.", target, out)
+    _encoder_positions("encoder.", target, out)
+    _prefixed(_eres2netv2, tree["lid_predictor"], "lid_predictor.", target, out)
+    _walk({k: v for k, v in tree.items() if k in ("proj_layer", "output_layer")}, "", target,
+          out)
+
+
+def _fsmn_kws(tree, target, out):
+    """FsmnKWS / SanmKWS (``convert_fsmn_kws``, ``torch_to_jax.py:1218``): the FSMN as the
+    VAD's, a SAN-M encoder and the CTC head by name."""
+    if "fsmn" in tree["encoder"]:
+        _fsmn_vad({"encoder": tree["encoder"]}, target, out)
+        if "ctc" in tree:
+            _walk({"ctc": tree["ctc"]}, "", target, out)
+    else:
+        _walk(tree, "", target, out)
+
+
+def _emotion2vec(tree, target, out):
+    """Emotion2vec (``convert_emotion2vec``, ``torch_to_jax.py:513``): FunASR's
+    ``modality_encoders.AUDIO`` layout, the conv extractor's layers ``conv_layers.{i}.0``
+    / ``.2.1``, ``project_features.1`` / ``.2``, the positional convs
+    ``relative_positional_encoder.{i + 1}.0``, the prenet ``context_encoder``."""
+    aud = "modality_encoders.AUDIO."
+    for i, lp in enumerate(tree["local_encoder"]):
+        pre = f"{aud}local_encoder.conv_layers.{i}."
+        out[pre + "0.weight"] = np.asarray(lp["conv"]["w"]).transpose(2, 1, 0)
+        out.update(_leaf(lp["norm"], pre + "2.1.", target))
+    pf = tree["project_features"]
+    out.update(_leaf(pf["norm"], aud + "project_features.1.", target))
+    out.update(_leaf(pf["linear"], aud + "project_features.2.", target))
+    for i, lp in enumerate(tree["pos_conv"]):
+        pre = f"{aud}relative_positional_encoder.{i + 1}.0."
+        out[pre + "weight"] = np.asarray(lp["w"]).transpose(2, 1, 0)
+        out[pre + "bias"] = lp["b"]
+    out[aud + "extra_tokens"] = tree["extra_tokens"]
+    out[aud + "alibi_scale"] = tree["alibi_scale"]
+    out.update(_leaf(tree["prenet_norm"], aud + "context_encoder.norm.", target))
+    for pre, blocks in ((aud + "context_encoder.", tree["prenet_blocks"]), ("", tree["blocks"])):
+        for i, bp in enumerate(blocks):
+            _walk(bp, f"{pre}blocks.{i}.", target, out)
+    if "proj" in tree:
+        out.update(_leaf(tree["proj"], "proj.", target))
+
+
+def _mfcca_encoder(enc, prefix, target, out):
+    """MFCCAEncoder (``convert_mfcca``, ``torch_to_jax.py:840``): each block's
+    ``norm_mha_cca`` / ``cca`` -> ``norm_mha`` / ``encoder_cros_channel_atten``, the rest
+    under ``encoder_csa``; the four fusion convs HWIO -> OIHW."""
+    for i, lp in enumerate(enc["encoders"]):
+        pre = f"{prefix}encoders.{i}."
+        _walk({"norm_mha": lp["norm_mha_cca"], "encoder_cros_channel_atten": lp["cca"]},
+              pre, target, out)
+        csa = {k: v for k, v in lp.items() if k not in ("norm_mha_cca", "cca")}
+        _walk(csa, pre + "encoder_csa.", target, out)
+    _walk({k: v for k, v in enc.items() if k in ("after_norm", "embed")}, prefix, target, out)
+    for name in ("conv1", "conv2", "conv3", "conv4"):
+        _conv_leaf(out, f"{prefix}{name}.", enc[name])
+
+
+def _mfcca(tree, target, out):
+    _mfcca_encoder(tree["encoder"], "encoder.", target, out)
+    _walk({k: v for k, v in tree.items() if k != "encoder"}, "", target, out)
 
 
 _LLM_ASR_NAMES = ("FunASRNano", "GLMASR", "LLMASR", "LLMASR2", "LLMASR3", "LLMASR4", "LLMASRNAR",
@@ -543,7 +630,9 @@ _BY_MODEL = {"FsmnVADStreaming": _fsmn_vad, "CTTransformer": _ct_transformer,
              "EBranchformer": _branchformer, "TransformerLM": _transformer_lm,
              "SeqRNNLM": _seq_rnn_lm, "Transducer": _transducer,
              "ConformerRWKV": _conformer_rwkv, "UniASR": _uniasr, "LCBNet": _lcbnet,
-             "ERes2NetV2": _eres2netv2, **{name: _llm_asr for name in _LLM_ASR_NAMES}}
+             "ERes2NetV2": _eres2netv2, "FsmnKWS": _fsmn_kws, "Emotion2vec": _emotion2vec,
+             "MFCCA": _mfcca, "OpenAIWhisperLIDModel": _whisper_lid,
+             **{name: _llm_asr for name in _LLM_ASR_NAMES}}
 
 
 def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
@@ -555,7 +644,9 @@ def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor
     WhisperModel of any size, the Transformer AEDs (Transformer, SANM, Conformer,
     Branchformer, EBranchformer; a convolution decoder too), TransformerLM, SeqRNNLM,
     Transducer and BAT (a Conformer, chunk Conformer or RWKV encoder), ConformerRWKV,
-    SCAMA, UniASR, LCBNet or ERes2NetV2 -> ``model``'s state dict.
+    SCAMA, UniASR, LCBNet, ERes2NetV2, FsmnKWS / SanmKWS (and their streaming names),
+    Emotion2vec, MFCCA, SAASR, LCBNetNAR (Paraformer's layout and their own linears and
+    attentions by name) or OpenAIWhisperLIDModel -> ``model``'s state dict.
 
     Int8 and int64 tensors keep their type, every other leaf becomes fp32. Raises if the names or
     shapes do not match ``model.state_dict()`` exactly.

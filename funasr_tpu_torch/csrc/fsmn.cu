@@ -20,7 +20,8 @@
 //     a warp 32 neighbouring vectors of one time chunk (512 contiguous bytes a row);
 //   * k and the left pad are template parameters (11 and 5, the SAN-M path's; 11 and 10,
 //     the streaming decoder's causal step; 20 and 19, the VAD's causal memory, fp32
-//     only; 21 and 10, the SeACo decoder's memory; a
+//     only; 21 and 10, the SeACo decoder's memory; 12 and 9, the keyword spotters'
+//     FSMN with its lookahead (below), and 12 and 2, its input gradient; a
 //     generic instantiation serves any other k up to 64 and any pads, with runtime taps
 //     read through L1): the time loop is unrolled and the k-vector window of inputs
 //     lives in registers (input row r in slot r % k); each input is loaded once per
@@ -45,6 +46,18 @@
 // k = 20 fp32 took 0.0902 ms on the generic instantiation (2 % of its 1.8 us bound, 5x
 // F.conv1d), hence its own instantiation; so did the SeACo decoder's k = 21 / left 10,
 // which PERF.md's kernel table times against the generic one at (32, 208, 512).
+//
+// The lookahead FSMN (the keyword spotters' encoder: lorder 10, rorder 2) adds a right
+// conv over frames t + 1 .. t + rorder to the causal left one. The two are one conv of
+// k = lorder + rorder taps over frames t - (lorder - 1) .. t + rorder, the taps
+// [conv_left | conv_right], pads (lorder - 1, rorder): this kernel at k 12 / left 9, one
+// launch a block (models/fsmn_vad_streaming/encoder.py). With a streaming cache the
+// input is concat(cache, h) and the first lorder - 1 rows are dropped; the right pad's
+// zeros past the chunk's end are what the JAX block's right conv sees. The taps sum in
+// one fp32 pass and round once, where the JAX block rounds h + left and then + right: at
+// fp32 an ulp apart. k 12 / left 9 and its input gradient's k 12 / left 2 run at 4
+// channels a thread (bf16's 8 would hold 2 x 12 x 8 floats of window and taps), and the
+// weight gradient has a vector instantiation at k 12 / left 9.
 //
 // Training: the input gradient is this kernel run on dout with the taps reversed and the
 // pads swapped (the transpose of a depthwise correlation; the wrapper's
@@ -396,6 +409,16 @@ cudaError_t dispatch(const void* x, const void* w, const void* bias, const void*
     if (K == 21 && left == 10)
       return launch<PLAIN, T, 21, 10, 4>(x, w, bias, mask, out, B, T_len, C, K, left, xsb,
                                          xst, stream);
+    // the keyword spotters' FSMN with its lookahead (lorder 10, rorder 2: the left and
+    // right taps as one k = 12 conv over frames t - 9 .. t + 2), and its input gradient in
+    // training (the taps reversed, the pads swapped to 2 / 9); 4 channels a thread, so
+    // that bf16's window and taps fit in registers as at k = 21
+    if (K == 12 && left == 9)
+      return launch<PLAIN, T, 12, 9, 4>(x, w, bias, mask, out, B, T_len, C, K, left, xsb,
+                                        xst, stream);
+    if (K == 12 && left == 2)
+      return launch<PLAIN, T, 12, 2, 4>(x, w, bias, mask, out, B, T_len, C, K, left, xsb,
+                                        xst, stream);
     return launch<PLAIN, T, 0, 0>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst,
                                   stream);
   }
@@ -710,6 +733,9 @@ int bwd_weight(const void* x, const void* dout, const void* mask, void* partial,
     if (!PLAIN && at(11, 5, 4))  // every FSMN of the training path
       err = launch_bwd_weight_vec<11, 5, 4, false>(xf, gf, m, part, parts, B, T_len, C, xsb,
                                                    xst, gsb, gst, rows_per_chunk, s);
+    else if (!PLAIN && at(12, 9, 4))  // the keyword spotters' FSMN with its lookahead
+      err = launch_bwd_weight_vec<12, 9, 4, false>(xf, gf, m, part, parts, B, T_len, C, xsb,
+                                                   xst, gsb, gst, rows_per_chunk, s);
     else if (PLAIN && at(15, 7, 4))  // the Conformer's convolution module
       err = launch_bwd_weight_vec<15, 7, 4, true>(xf, gf, m, part, parts, B, T_len, C, xsb,
                                                   xst, gsb, gst, rows_per_chunk, s);
@@ -771,7 +797,7 @@ extern "C" int fsmn_depthwise_fwd(int dtype, const void* x, const void* w, const
 // fp32 weight gradient of the FSMN memory: x (B, T, C) the forward's input, dout (B, T, C)
 // the output's gradient (any batch / time strides, unit channel stride), mask (B, T)
 // bytes or NULL -> dw (C, K) contiguous. specialised: 1 for the vector kernel (k 11, left
-// 5; C, x's and dout's batch / time strides multiples of 4, bases 16-byte aligned;
+// 5, or k 12, left 9; C, x's and dout's batch / time strides multiples of 4, bases 16-byte aligned;
 // rows_per_chunk <= 16), 0 for the generic one. partial: parts x K x C floats of scratch;
 // chunks = ceil(B T / rows_per_chunk), and parts = ceil(chunks / 4) for the vector kernel
 // (a block of 4 chunks), chunks for the generic one. Two kernel launches on `stream`.

@@ -1,6 +1,5 @@
 """Per-model-family dataset variants (a copy of ``funasr_tpu/datasets/
-specialized_datasets.py`` but ``KWSDataset``, which waits for ``fsmn_kws``: ROADMAP item 22;
-FunASR ``funasr/datasets/{sense_voice_datasets,llm_datasets*,openai_datasets}``,
+specialized_datasets.py``; FunASR ``funasr/datasets/{sense_voice_datasets,llm_datasets*,openai_datasets}``,
 ``audio_datasets/datasets.py:155``).
 
 Each specializes :class:`AudioDataset` with its family's targets; the bucketed collator
@@ -102,6 +101,17 @@ class AudioDatasetHotword(AudioDataset):
             item["hotword"] = text[start: start + span].copy()
         else:
             item["hotword"] = np.asarray([1], np.int32)  # <s> = no-bias
+        return item
+
+
+@tables.register("dataset_classes", "KWSDataset")
+class KWSDataset(AudioDataset):
+    """Keyword spotting: jsonl "target" may carry the keyword transcription; items
+    gain a binary "is_keyword" flag from the "label" field."""
+
+    def __getitem__(self, idx: int):
+        item = super().__getitem__(idx)
+        item["is_keyword"] = int(self.index_ds[idx].get("label", 1))
         return item
 
 

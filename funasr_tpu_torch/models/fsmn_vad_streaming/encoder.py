@@ -13,8 +13,17 @@ lorder - 1 projected frames of the previous chunk (zeros at the start). That is 
 last T rows of the FSMN kernel's ``conv(pad(x)) + x`` over x = concat(cache, h) with
 left pad lorder - 1 and no mask, so it runs ``ops/fsmn.py::fsmn_memory`` (the
 hand-written kernel on CUDA) and drops the first lorder - 1 rows. The conv sum is rounded
-to x's dtype before the residual, as in JAX. The lookahead branch (``rorder > 0``;
-fsmn-vad has rorder 0) is a plain version on the CPU; on CUDA it raises.
+to x's dtype before the residual, as in JAX.
+
+The lookahead (``rorder > 0``; fsmn-vad has rorder 0, the keyword spotters' FSMN rorder 2)
+adds ``conv_right`` over frames t + 1 .. t + rorder, zeros past the chunk's end. On CUDA
+the two convs are one kernel launch: ``fsmn_memory`` at k = lorder + rorder with the taps
+``[conv_left | conv_right]`` and pads (lorder - 1, rorder), over concat(cache, h) with the
+first lorder - 1 rows dropped when a cache is carried; its backward is the kernel's, and
+autograd through the concatenation splits the weight gradient back into the two convs.
+That sums all taps in fp32 and rounds once; the JAX block rounds ``h + left`` and then adds
+the right conv, an ulp apart at fp32. So on the CPU the block keeps JAX's order: the left
+memory through ``fsmn_memory`` (its plain version), then ``lookahead_ref``.
 """
 
 from __future__ import annotations
@@ -80,21 +89,20 @@ class FSMNBlock(nn.Module):
 
     def forward(self, h, cache=None):
         """h (B, T, C) -> (h + memory, new cache or None)."""
-        k, c = self.lorder, h.shape[-1]
+        k, c, r = self.lorder, h.shape[-1], self.rorder
         w = self.conv_left.weight.to(h.dtype).reshape(c, 1, k)
+        fused = r > 0 and h.device.type != "cpu"  # the lookahead on the kernel
+        if fused:
+            w = torch.cat([w, self.conv_right.weight.to(h.dtype).reshape(c, 1, r)], dim=-1)
         if cache is not None:
             full = torch.cat([cache.to(h.dtype), h], dim=1)
-            out = fsmn_memory(full, w, None, k - 1, 0)[:, k - 1:]
+            out = fsmn_memory(full, w, None, k - 1, r if fused else 0)[:, k - 1:]
             new_cache = full[:, -(k - 1):] if k > 1 else cache
         else:
-            out = fsmn_memory(h, w, None, k - 1, 0)
+            out = fsmn_memory(h, w, None, k - 1, r if fused else 0)
             new_cache = None
-        if self.rorder > 0:
-            if h.device.type != "cpu":
-                raise NotImplementedError(
-                    "the FSMN lookahead (rorder > 0) runs only as a plain version on the "
-                    "CPU; its kernel route is not wired up (ROADMAP queue 2)")
-            out = out + lookahead_ref(h, self.conv_right.weight, self.rorder)
+        if r > 0 and not fused:
+            out = out + lookahead_ref(h, self.conv_right.weight, r)
         return out, new_cache
 
 

@@ -186,6 +186,16 @@ class WhisperEncoder(nn.Module):
         self.layer_norm = LayerNorm(c.d_model, device=device)
 
 
+def encode_mel(enc: WhisperEncoder, mel):
+    """The encoder tower over mel (B, T, n_mels) -> (B, T // 2, D)."""
+    mel = mel.to(enc.conv1.weight.dtype)
+    h = conv_gelu(conv_gelu(mel, enc.conv1), enc.conv2, stride=2)
+    h = h + enc.embed_positions.weight[: h.shape[1]].to(h.dtype)
+    for layer in enc.layers:
+        h = layer(h)
+    return enc.layer_norm(h)
+
+
 class WhisperDecoder(nn.Module):
     def __init__(self, c: WhisperConfig, device=None):
         super().__init__()
@@ -249,14 +259,7 @@ class WhisperModel(nn.Module):
 
     def encode(self, mel, mel_lens=None):
         """mel (B, T, n_mels) -> ((B, T // 2, D), mel_lens // 2)."""
-        enc = self.model.encoder
-        mel = mel.to(enc.conv1.weight.dtype)
-        h = conv_gelu(conv_gelu(mel, enc.conv1), enc.conv2, stride=2)
-        h = h + enc.embed_positions.weight[: h.shape[1]].to(h.dtype)
-        for layer in enc.layers:
-            h = layer(h)
-        h = enc.layer_norm(h)
-        return h, None if mel_lens is None else mel_lens // 2
+        return encode_mel(self.model.encoder, mel), None if mel_lens is None else mel_lens // 2
 
     def _logits(self, h):
         w = self.model.decoder.embed_tokens.weight.to(h.dtype)

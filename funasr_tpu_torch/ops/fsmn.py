@@ -11,8 +11,9 @@ H100 (device-memory bandwidth: 23 flops per element for k = 11; 7.5 us of bytes 
 (32, 384, 512) bf16, where the first port took 0.0488 ms) and what its design does about
 it: 16-byte loads and stores of 8 bf16 or 4 fp32 channels per thread, k and the pads as
 template parameters (11 and 5 on the SAN-M path, 20 and 19 for the VAD's fp32 causal
-memory, 21 and 10 for the SeACo decoder's memory at 4 channels a thread, so that bf16's
-window and taps fit in registers too; a generic instantiation for the rest) so the
+memory, 21 and 10 for the SeACo decoder's memory and 12 and 9 for the keyword spotters'
+lookahead FSMN, both at 4 channels a thread, so that bf16's window and taps fit in
+registers too; a generic instantiation for the rest) so the
 k-vector input window stays in registers and loads run several rows ahead, the weights
 read once per thread, the mask once per warp and row (as ballot bits), and the three
 elementwise passes fused away.
@@ -33,8 +34,9 @@ where corr' correlates with the taps reversed and the pads swapped: the forward 
 itself on dout (``fsmn_memory_bwd_input``; the path's (11, 5) maps onto itself and keeps
 its instantiation). The weight gradient dw[c, j] = sum_{b,t} g[b,t,c] xm[b,t+j-left,c]
 is the reduction kernel ``fsmn_memory_bwd_weight`` of ``csrc/fsmn.cu`` (fp32,
-deterministic: per-chunk partials added in chunk order). At k 11, pads 5 / 5 (every FSMN
-of the training path) and C a multiple of 4 it is the forward's shape: 4 channels a
+deterministic: per-chunk partials added in chunk order). At k 11, pads 5 / 5 (every
+SAN-M FSMN of the training path) or k 12, pads 9 / 2 (the lookahead FSMN) and C a
+multiple of 4 it is the forward's shape: 4 channels a
 thread, the k-row window of xm and the k x 4 taps in registers, each g and x row read
 once (a block's rows and halo staged in shared memory by one batch of ``cp.async``), 4
 chunks a block added in the block, chunks planned by ``dw_plan`` to fill the card; any
@@ -43,6 +45,13 @@ its calls in ``.launches``; on the CPU both are autograd through ``fsmn_memory_r
 bf16 raises (ROADMAP item 20b). The mask gets no gradient.
 ``generic=True`` launches the generic instantiation whatever k is, to time a specialised
 one against it.
+
+The lookahead FSMN (``models/fsmn_vad_streaming/encoder.py``, ``rorder > 0``: the keyword
+spotters' lorder 10 / rorder 2) is this function at k = lorder + rorder, the taps
+``[conv_left | conv_right]`` and pads (lorder - 1, rorder): one launch of the k 12 / left
+9 instantiation a block, its input gradient on k 12 / left 2 (the pads swapped), its
+weight gradient on the vector kernel at k 12 / left 9, split back into the two convs by
+autograd through the concatenation.
 
 ``depthwise_conv1d`` is the same kernel's plain mode: dw_pallas's own function,
 ``core/layers.py::depthwise_conv1d_apply`` (zero pads, taps summed in fp32 from 0 in tap
@@ -208,7 +217,9 @@ fsmn_memory_bwd_input.launches = 0
 
 DW_BLOCKS_PER_SM = 4  # blocks the generic weight-gradient kernel aims for, per multiprocessor
 DW_THREADS = 128  # channels a block of the generic kernel (csrc/fsmn.cu)
-DW_SPECIALISED = (11, 5)  # (k, left) of the vector weight-gradient kernel (csrc/fsmn.cu)
+# (k, left) of the vector weight-gradient kernel (csrc/fsmn.cu): the SAN-M FSMN's, and the
+# keyword spotters' lookahead FSMN (lorder 10, rorder 2)
+DW_SPECIALISED = ((11, 5), (12, 9))
 DW_BLOCK_CHUNKS = 4  # chunks a block of the vector kernel: 4 warps on 128 channels
 DW_BLOCKS_PER_SM_VEC = 2  # blocks the vector kernel aims for, per multiprocessor
 DW_MIN_ROWS, DW_MAX_ROWS = 4, 16  # rows a chunk (a warp's) of the vector kernel
@@ -235,13 +246,13 @@ def _vec_plan(b: int, t: int, c: int, v: int, sms: int):
 
 def dw_plan(b: int, t: int, c: int, k: int, left: int, sms: int):
     """(specialised, rows a chunk, partial shape) of the weight gradient. The vector
-    kernel (k 11, left 5, C a multiple of 4) walks chunks of DW_MIN_ROWS-DW_MAX_ROWS
+    kernel (k 11, left 5 or k 12, left 9; C a multiple of 4) walks chunks of DW_MIN_ROWS-DW_MAX_ROWS
     rows, DW_BLOCK_CHUNKS a block of 128 channels, as many as give each of the card's
     ``sms`` multiprocessors DW_BLOCKS_PER_SM_VEC blocks: at (5, 190, 512) 238 chunks of
     4 rows, 240 blocks (60 for each 128 channels), one partial (k, C) a block. Any other
     k, pads or C takes the generic kernel (``dw_rows_per_chunk``, a partial a chunk).
     Partials: (parts, k, C) fp32."""
-    if (k, left) == DW_SPECIALISED and c % 4 == 0:
+    if (k, left) in DW_SPECIALISED and c % 4 == 0:
         rows, parts = _vec_plan(b, t, c, 4, sms)
         return True, rows, (parts, k, c)
     rows = dw_rows_per_chunk(b, t, c, k, sms)

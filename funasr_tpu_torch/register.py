@@ -37,7 +37,9 @@ REGISTRABLE = tuple(f"funasr_tpu_torch.{m}" for m in (
     "models.seaco_paraformer.model", "models.sanm.encoder", "models.sense_voice.model",
     "models.rwkv_bat.model", "models.specaug.specaug", "models.transducer.model",
     "models.scama.model", "models.uniasr.model", "models.lcbnet.model",
-    "models.eres2net.model",
+    "models.eres2net.model", "models.fsmn_kws.model", "models.emotion2vec.model",
+    "models.mfcca.encoder", "models.mfcca.model", "models.sa_asr.model",
+    "models.whisper_lid.model",
     "models.transformer.conv_decoders",
     "models.transformer.decoder", "models.transformer.encoder", "models.transformer.model",
     "models.whisper.encoders", "models.whisper.model", "tokenizer.char_tokenizer",
@@ -72,6 +74,7 @@ class RegisterTables:
     preprocessor_classes: Dict[str, Any]
     optim_classes: Dict[str, Any]
     scheduler_classes: Dict[str, Any]
+    lid_predictor_classes: Dict[str, Any]
 
     def __init__(self) -> None:
         self._tables: Dict[str, Dict[str, Any]] = {

@@ -43,6 +43,11 @@ def test_import_pulls_in_no_jax():
         "import funasr_tpu_torch.ops.rnnt_loss\n"
         "import funasr_tpu_torch.models.transformer.search\n"
         "import funasr_tpu_torch.models.transformer.hotword_scorer\n"
+        "assert {'FsmnKWS', 'SanmKWS', 'FsmnKWSMT', 'SanmKWSStreaming', 'Emotion2vec',\n"
+        "        'MFCCA', 'SAASR', 'LCBNetNAR', 'WhisperLID'} <= set(tables.model_classes)\n"
+        "assert 'LidPredictor' in tables.lid_predictor_classes\n"
+        "import funasr_tpu_torch.utils.kws_utils\n"
+        "import funasr_tpu_torch.models.mfcca.encoder\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'funasr_tpu' or m.startswith('funasr_tpu.'))\n"
         "assert not bad, bad\n"

@@ -170,6 +170,31 @@ def test_slice_names_resolve_as_in_the_jax_package(table, name):
     assert all(getattr(tables, table)[n] is port_cls for n in same)
 
 
+# the names of the keyword spotters', emotion2vec's, MFCCA's, SA-ASR's and Whisper-LID's
+# slice, as hub configs and recipes spell them
+SLICE22_NAMES = [("model_classes", n) for n in (
+    "FsmnKWS", "SanmKWS", "FsmnKWSConvert", "FsmnKWSMT", "FsmnKWSMTConvert",
+    "SanmKWSStreaming", "Emotion2vec", "MFCCA", "SAASR", "SAAsr", "LCBNetNAR",
+    "OpenAIWhisperLIDModel", "WhisperLID")] + [
+    ("encoder_classes", "MFCCAEncoder"), ("lid_predictor_classes", "LidPredictor"),
+    ("dataset_classes", "KWSDataset"), ("dataset_classes", "KwsMTDataset")]
+
+
+@pytest.mark.parametrize("table,name", SLICE22_NAMES,
+                         ids=[f"{t}:{n}" for t, n in SLICE22_NAMES])
+def test_slice22_names_resolve_as_in_the_jax_package(table, name):
+    """Each name resolves in both packages to a class of the same module (the package
+    prefix aside) and of the same name, the port's ``LCBNetNAR`` aside (the JAX package's
+    class is ``LCBNet``, a name the port's AED LCB-Net holds); names of one JAX class
+    resolve to one port class."""
+    port_cls, jax_cls = getattr(tables, table)[name], getattr(jtables, table)[name]
+    assert port_cls.__module__.replace("funasr_tpu_torch.", "funasr_tpu.") == jax_cls.__module__
+    assert port_cls.__name__ == ("LCBNetNAR" if jax_cls.__name__ == "LCBNet" and
+                                 name == "LCBNetNAR" else jax_cls.__name__)
+    same = [n for t, n in SLICE22_NAMES if t == table and getattr(jtables, t)[n] is jax_cls]
+    assert all(getattr(tables, table)[n] is port_cls for n in same)
+
+
 def test_the_first_table_read_imports_every_registering_module():
     """``import funasr_tpu_torch`` imports no model module; the first read of a table
     imports ``register.REGISTRABLE``, which must reach every module that registers a

@@ -239,6 +239,8 @@ def check_loss_stats_grads(pt, jm, tree, speech, slen, text, tlen):
     want = params_from_jax(jax.tree_util.tree_map(np.asarray, jg), pt)
     floor = ZERO_SHARE * np.sqrt(sum(float((w ** 2).sum()) for w in want.values()))
     for n, p in pt.named_parameters():
+        if not p.requires_grad:  # a fixed table (Whisper's sinusoids): not trained
+            continue
         g = np.zeros(p.shape, np.float32) if p.grad is None else p.grad.numpy()
         if np.linalg.norm(want[n].numpy()) <= floor:  # exact zero in exact arithmetic
             assert np.linalg.norm(g) <= floor, n

@@ -272,7 +272,7 @@ def test_parity_aliases_bind_the_llm_datasets():
                           ("AudioLLMQwenAudioDataset", "LLMQwenAudioDataset"),
                           ("AudioLLMVicunaDataset", "LLMVicunaDataset")):
         assert ds[alias] is ds[target]
-    assert "KWSDataset" not in ds  # waits for fsmn_kws (ROADMAP item 22)
+    assert ds["KwsMTDataset"] is ds["KWSDataset"]  # the keyword spotters' dataset
     assert set(tables.prompt_classes) >= {"MultiContextPrompt", "MultiContextPromptNew"}
     assert "OpenAIIndexDSJsonl" in tables.index_ds_classes
 
