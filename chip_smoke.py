@@ -96,7 +96,7 @@ Phases (any failure raises and exits non-zero):
    fp32. Gates: 32 texts, every kernel site launched, the k = 21 FSMN instantiation 12
    times a SeACo decode (18 under filtering) by count and by profile. Prints RTFx, device
    spans by stage (CUDA events), tokens the gate gave the hotword head, launches, one
-   profile each. Then CUDA against the CPU port on 4 x 15 s (log-probs within
+   profile each. Then CUDA against the CPU port on 2 x 15 s (log-probs within
    ``HOTWORD_LOGP_TOL``, the kept set, timestamps), and the pipeline with 20 hotwords:
    ``HOTWORD_REQUESTS`` requests of 300 s through ``AutoModel(model=seaco, vad_model=,
    punc_model=)``, RTFx and the stage split;
@@ -376,6 +376,21 @@ Phases (any failure raises and exits non-zero):
    margins clear 10x the error, the KWS step's loss within 1e-6 and gradients within 1e-4;
    the fused lookahead block within 1e-6 of the CPU's; a kernel row at every new signature.
 
+24. Diarization, SSL and separation (``phase_diar_ssl_sep``), on phase 22's 2 wavs of 6 s
+   (resampled to 8 kHz for EEND-OLA and MossFormer), seeded weights, fp32: (a) EEND-OLA at
+   the JAX defaults (4 layers of 256 x 4 heads, FFN 2,048, 8 speakers, WavFrontendMel23)
+   from a model dir through ``AutoModel.generate`` (4 flash at D 64) and one loss step (4
+   flash + 4 backward); (b) data2vec at base width (12 x 768, 12 heads, wav2vec 2.0's conv
+   spec) through ``S3prlFrontend.extract``, plain and ``multilayer_feature`` (12 flash at
+   D 64 each), a Conformer at phase 20's widths with that frontend through ``generate``
+   (beam 1: 12 flash + 12 plain-mode launches), one pretraining step (24 flash + 12
+   backward) and ``ema_update``; (c) MossFormer at the JAX defaults (512, 24 blocks, group
+   256) through ``generate`` on a 4 s mixture (72 FSMN launches, all at k 17 / pads 8 / 8).
+   Each cut to 2 layers / blocks on the card against the CPU port: outputs within 1e-4
+   relative L2, EEND's decisions where their margins clear 10x the error, one training
+   step each (loss within 1e-6, every gradient within 1e-4; MossFormer's 6 FSMN + 6 dx + 6
+   dw); a kernel row at every signature the counted runs launched.
+
 ``python3 chip_smoke.py --aed-training`` (not part of the run above): phase 21 alone, with
 the wavs and the Conformer dir it reads of phases 16 and 20, both ``bin/train`` runs
 profiling their second step (device ms, idle share; ~40 s of the profiler's own work, so
@@ -418,7 +433,8 @@ and phase 17's under ``training_family``, phase 18's under ``streaming_training`
 phase 19's under ``llm_training`` in those five (W8A8 too, at 0 launches); phase 20's
 under ``aed`` with a kernel of its own, ``depthwise_conv1d``; phase 21's under
 ``aed_training`` there, with two more kernels, ``depthwise_conv1d_bwd_input`` and
-``depthwise_conv1d_bwd_weight``; phase 22's under ``long_tail``), the last line ``{"ok":
+``depthwise_conv1d_bwd_weight``; phase 22's under ``long_tail``, phase 23's under
+``kws_family``, phase 24's under ``diar_ssl_sep``), the last line ``{"ok":
 true, "device": {...}}``.
 """
 
@@ -1601,8 +1617,9 @@ SPEAKER_REQUESTS = 1  # cut from 2, for the run's time limit beside phase 13
 SPEAKER_SECONDS = 45.0   # the meeting's length (cut from 300 s to 90 s, for the run's time
 #                          limit beside phase 17: the CPU port re-runs it whole; to 60 s
 #                          beside phase 18, to 45 s beside phase 19)
-SPEAKER_PROFILE_SECONDS = 30  # the profiled request: request 0's first 30 s (cut from 60 s,
-#                               for the run's time limit beside phase 14)
+SPEAKER_PROFILE_SECONDS = 10  # the profiled request: request 0's first 10 s (cut from 60 s,
+#                               for the run's time limit beside phase 14, to 30 s, and to
+#                               10 s beside phase 24)
 US_ALPHAS_TOL = 1e-4      # fp32 upsampled alphas, CUDA against the CPU (cuDNN LSTM, cuBLAS)
 US_FIRES_MIN_SHARE = 0.99  # fires of running sums within rounding of an integer may move
 SPK_EMB_REL_TOL = 1e-3    # CAM++ embeddings, per chunk, relative L2 (cuDNN conv sum order)
@@ -2048,6 +2065,7 @@ CONTEXTUAL_EXTRA = dict(inner_dim=512)
 HOTWORD_COUNTS = (20, 200)  # N + 1 = 21 < nfilter 50: no filtering; 201: ASF keeps 51
 HOTWORD_LOGP_TOL = 1e-3     # fp32 log-probs, CUDA against the CPU port (sum orders)
 HOTWORD_REQUESTS = 1  # cut from 2, for the run's time limit beside phase 13
+HOTWORD_CPU_WAVES = 2  # utterances of the CUDA-vs-CPU checks (cut from 4 beside phase 24)
 FSMN_K21 = ", 21, 10, 4>"   # the k = 21 instantiation's template arguments, demangled
 
 
@@ -2210,7 +2228,7 @@ def hotword_checks(label, model, stats, results, n, asf):
 
 
 def hotword_cuda_vs_cpu(am, cpu_am, waves, hotword):
-    """The same model and 4 x 15 s on the card and on the CPU port (fp32) through
+    """The same model and the same waves on the card and on the CPU port (fp32) through
     ``model.inference``: the merged (or Contextual) log-probs of the decode within
     HOTWORD_LOGP_TOL on valid tokens of rows whose token counts agree, the ASF kept set
     equal, token flips, and the results (texts, ms timestamps) equal. Returns a dict."""
@@ -2262,7 +2280,8 @@ def phase_hotword(dev, counters, card):
       fp32 and ``bf16=True``; gates: 32 texts, >= 50 flash and >= 66 + 12 FSMN launches,
       the k = 21 instantiation 12 times a decode (18 under ASF), counted and profiled;
     - the Contextual Paraformer, 20 hotwords, fp32, the same figures;
-    - CUDA against the CPU port, 4 x 15 s fp32: SeACo (200 hotwords) and Contextual (20)
+    - CUDA against the CPU port, HOTWORD_CPU_WAVES x 15 s fp32: SeACo (200 hotwords) and
+      Contextual (20)
       log-probs within HOTWORD_LOGP_TOL, the ASF kept set equal, results equal; token
       flips printed;
     - the pipeline with 20 hotwords: HOTWORD_REQUESTS requests of 300 s through
@@ -2277,7 +2296,7 @@ def phase_hotword(dev, counters, card):
     batch = [pcm(rng, 15.0) for _ in range(32)]
     keys = [f"utt_{i}" for i in range(32)]
     hotwords = {n: hotword_list(rng, n) for n in HOTWORD_COUNTS}
-    small = batch[:4]
+    small = batch[:HOTWORD_CPU_WAVES]
     figures = {}
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
@@ -2312,7 +2331,8 @@ def phase_hotword(dev, counters, card):
             figures[("seaco", "fp32", n)] = stats
         cpu_am = AutoModel(model=dirs["asr"], device="cpu", log_level="WARNING")
         r = hotword_cuda_vs_cpu(am, cpu_am, small, hotwords[200])
-        log(f"hotword: SeACo 4 x 15 s, 200 hotwords, CUDA vs CPU port (fp32): merged "
+        log(f"hotword: SeACo {len(small)} x 15 s, 200 hotwords, CUDA vs CPU port (fp32): "
+            f"merged "
             f"log-probs max_abs_err {r['err']:.3e} (tol {HOTWORD_LOGP_TOL:g}) over "
             f"{r['tokens']} tokens, token counts equal {r['same_lens']}, flips {r['flips']}; "
             f"ASF kept set equal {r['kept_equal']} ({len(r['kept'] or ())} of 201); rows "
@@ -2343,7 +2363,8 @@ def phase_hotword(dev, counters, card):
         figures[("contextual", "fp32", 20)] = stats
         cpu_am = AutoModel(model=dirs["ctx"], device="cpu", log_level="WARNING")
         r = hotword_cuda_vs_cpu(am, cpu_am, small, hotwords[20])
-        log(f"hotword: Contextual 4 x 15 s, 20 hotwords, CUDA vs CPU port (fp32): log-probs "
+        log(f"hotword: Contextual {len(small)} x 15 s, 20 hotwords, CUDA vs CPU port (fp32): "
+            f"log-probs "
             f"max_abs_err {r['err']:.3e} (tol {HOTWORD_LOGP_TOL:g}) over {r['tokens']} "
             f"tokens, token counts equal {r['same_lens']}, flips {r['flips']}; rows equal "
             f"{r['rows_equal']}")
@@ -4572,10 +4593,11 @@ def phase_llm(dev, counters, card):
     # the encoder's (B, T) as the path's frontend gives it: T padded, the valid lengths
     feats, flens = tables.frontend_classes["WavFrontend"](**FRONTEND_CONF).extract(batch,
                                                                                  device=dev)
-    out = {"rows": llm_kernel_rows(dev, torch.Generator().manual_seed(14), feats.shape[1],
-                                   flens.tolist())}
+    t, lens = feats.shape[1], flens.tolist()
     del feats
-    log(f"LLM: kernel rows in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    CARD_ROWS.rows(out, "rows", lambda t=t, lens=lens: llm_kernel_rows(
+        dev, torch.Generator().manual_seed(14), t, lens), "LLM: kernel rows")
     with tempfile.TemporaryDirectory() as d:
         t1 = time.perf_counter()
         write_nano_dir(d, dev)
@@ -4588,10 +4610,9 @@ def phase_llm(dev, counters, card):
             out[label] = nano_run(am, batch, counters, card, label, 15.0)
             del am
             torch.cuda.empty_cache()
-        t1 = time.perf_counter()
-        out["rows"].update(llm_w8a8_rows(dev, out["w8a8"]["w8a8_shapes"]))
-        log(f"LLM: W8A8 rows at the {len(out['w8a8']['w8a8_shapes'])} shapes of the W8A8 run "
-            f"in {time.perf_counter() - t1:.1f} s")
+        w8a8_shapes = out["w8a8"]["w8a8_shapes"]
+        CARD_ROWS.rows(out, "rows", lambda w=w8a8_shapes: llm_w8a8_rows(dev, w),
+                       f"LLM: W8A8 rows at the {len(w8a8_shapes)} shapes of the W8A8 run")
         t1 = time.perf_counter()
         vllm = AutoModelVLLM(model=d, device="cuda", max_num_seqs=LLM_BATCH, log_level="WARNING")
         enc_calls = forward_counter(vllm.model.audio_encoder)
@@ -5102,7 +5123,9 @@ def phase_export(dev, counters, card, keep):
     rng = np.random.default_rng(15)
     waves = {b: [pcm(rng, s) for _ in range(b[0])] for b, s in EXPORT_WAVE_SECONDS.items()}
     tokens = number_tokens()
-    out = {"op_dispatch": op_dispatch_rows(dev)}
+    out = {}
+    CARD_ROWS.rows(out, "op_dispatch", lambda: op_dispatch_rows(dev),
+                   "text and export: lone calls through the custom ops")
     with tempfile.TemporaryDirectory() as root:
         d = os.path.join(root, "asr")
         os.makedirs(d)
@@ -5155,7 +5178,8 @@ def phase_export(dev, counters, card, keep):
         for key, entry in out[label].pop("shapes").items():
             shapes.setdefault(key, dict(inputs=entry["inputs"], programs={}))[
                 "programs"].update(entry["programs"])
-    out["rows"] = export_kernel_rows(dev, shapes)
+    CARD_ROWS.rows(out, "rows", lambda shapes=shapes: export_kernel_rows(dev, shapes),
+                   "text and export: the exported programs' kernel rows")
     out["launches"] = {c.__name__: sum(call["launches"][c.__name__] for label in ("fp32", "w8a8")
                                        for call in out[label]["calls"]) for c in counters}
     log(f"text and export: program launches {out['launches']}, "
@@ -5809,10 +5833,18 @@ def recipe_batches(jsonl):
 
 
 def recipe_setup(root, dev):
+    """finetune.sh's inputs under ``root`` (``recipe_files``), their jsonl written. Returns
+    (model dir, tokens, {split: jsonl})."""
+    md, tokens, jsonl, jobs = recipe_files(root, dev)
+    run_clis(jobs)
+    return md, tokens, jsonl
+
+
+def recipe_files(root, dev):
     """finetune.sh's inputs under ``root``: a seeded PROD_CONF Paraformer-large model dir
-    whose config carries the training keys, 16 + 4 generated wavs and their jsonl, written
-    by ``bin/data_tools scp2jsonl``, a subprocess a split, both at once. Returns (model
-    dir, tokens, {split: jsonl})."""
+    whose config carries the training keys, 16 + 4 generated wavs, and the calls that
+    write their jsonl (``bin/data_tools scp2jsonl``, a subprocess a split, both at once
+    through ``run_clis``). Returns (model dir, tokens, {split: jsonl}, those calls)."""
     import yaml
     rng = np.random.default_rng(16)
     md = os.path.join(root, "paraformer-large")
@@ -5831,11 +5863,11 @@ def recipe_setup(root, dev):
     log(f"training: model dir and {TRAIN_UTTS} + {TRAIN_VAL_UTTS} wavs written in "
         f"{time.perf_counter() - t0:.1f} s")
     jsonl = {split: os.path.join(root, f"{split}.jsonl") for split in lists}
-    run_clis([(["funasr_tpu_torch.bin.data_tools", "scp2jsonl",
-                f'++scp_file_list=["{scp}","{txt}"]', '++data_type_list=["source","target"]',
-                f"++jsonl_file_out={jsonl[split]}"], f"data_tools scp2jsonl {split}")
-              for split, (scp, txt) in lists.items()])
-    return md, tokens, jsonl
+    jobs = [(["funasr_tpu_torch.bin.data_tools", "scp2jsonl",
+              f'++scp_file_list=["{scp}","{txt}"]', '++data_type_list=["source","target"]',
+              f"++jsonl_file_out={jsonl[split]}"], f"data_tools scp2jsonl {split}")
+            for split, (scp, txt) in lists.items()]
+    return md, tokens, jsonl, jobs
 
 
 def run_step_ms(steps):
@@ -5882,7 +5914,39 @@ def recipe_ab(other=None):
         for side, v in pooled.items()))
 
 
-def phase_training(dev, counters, card, keep=None):
+def training_recipe_start(dev, keep):
+    """Phase 16 (c)'s start: ``recipe_files`` under ``keep["root"]`` (the wavs and their
+    jsonl stay there for phases 18, 19 and 21-23: ``keep["train_data"]`` = (tokens,
+    {split: jsonl})), then on a thread of its own (``started``) the scp2jsonl calls and
+    the recipe's two ``bin/train`` runs, one after the other: {"md", "out", "profile_dir",
+    "run": the future of (the first run's steps, its seconds, the resumed run's
+    seconds)}. ``main`` starts it before phase 14, so that its subprocesses (~120 s of
+    start-up, steps and checkpoints, phase 16's critical path before) run beside phases
+    14 and 15; phase 16 waits on ``run``."""
+    root = keep["root"]
+    md, tokens, jsonl, jobs = recipe_files(root, dev)
+    keep["train_data"] = (tokens, jsonl)
+    out = os.path.join(root, "exp")
+    profile_dir = os.path.join(root, "profile")
+    base = ["funasr_tpu_torch.bin.train", f"++model={md}",
+            f"++train_data_set_list={jsonl['train']}",
+            f"++valid_data_set_list={jsonl['val']}", *TRAIN_RECIPE, f"++output_dir={out}"]
+
+    def runs():
+        run_clis(jobs)
+        t0 = time.perf_counter()
+        run_cli(base + TRAIN_FIRST + [f"++train_conf.profile_dir={profile_dir}"],
+                "bin/train (epoch 0)")
+        first_wall = time.perf_counter() - t0
+        steps1, _ = read_train_log(out)
+        t0 = time.perf_counter()
+        run_cli(base + TRAIN_RESUMED, "bin/train (resumed under fsdp, epoch 1)")
+        return steps1, first_wall, time.perf_counter() - t0
+
+    return dict(md=md, out=out, profile_dir=profile_dir, run=started(runs))
+
+
+def phase_training(dev, counters, card, keep, train):
     """Phase 16: (a) the backward kernels at the recipe's first batch shape, (b) a training
     step on the card against the CPU, and under dp and fsdp over a one-rank NCCL group
     against the plain step, (c) finetune.sh's recipe: ``bin/data_tools
@@ -5897,10 +5961,9 @@ def phase_training(dev, counters, card, keep=None):
     every fsmn_block reached by a gradient (the checkpoint's Adam moments), the averaged
     checkpoint decoding through ``AutoModel`` with 50 flash + 66 FSMN launches a decode;
     (d) a kernel-vs-plain row at every shape and stride the recipe's runs launched (the
-    trainer's ``kernel_shapes``, ``recipe_kernel_rows``). ``keep``: {"root": a directory
-    that outlives the phase}: the generated wavs and their jsonl stay there for phase 18
-    (``keep["train_data"]`` = (tokens, {split: jsonl})), the model dir and the run's
-    output are removed."""
+    trainer's ``kernel_shapes``, ``recipe_kernel_rows``). ``train``: (c)'s runs, started
+    by ``training_recipe_start`` under ``keep["root"]``; the phase waits on them first,
+    and removes their model dir and output at its end."""
     from funasr_tpu_torch import AutoModel
     from funasr_tpu_torch.frontends.wav_frontend import WavFrontend
     from funasr_tpu_torch.ops.flash_attention import flash_attention_bwd
@@ -5913,11 +5976,10 @@ def phase_training(dev, counters, card, keep=None):
     dec_n = PROD_CONF["decoder_conf"]["num_blocks"]
     step_sites, val_sites = train_sites(enc_n, dec_n)
     with contextlib.ExitStack() as stack:
-        root = keep["root"] if keep else stack.enter_context(tempfile.TemporaryDirectory())
-        md, tokens, jsonl = recipe_setup(root, dev)
-        if keep is not None:
-            keep["train_data"] = (tokens, jsonl)
-            stack.callback(shutil.rmtree, md)
+        stack.callback(shutil.rmtree, train["md"])
+        stack.callback(shutil.rmtree, train["out"])
+        tokens, jsonl = keep["train_data"]
+        steps1, first_wall, second_wall = train["run"].result()
 
         # (a) the kernels at the first batch's shape (the frontend's frames of it)
         from funasr_tpu_torch.datasets.audio_datasets.datasets import AudioDataset
@@ -5935,9 +5997,8 @@ def phase_training(dev, counters, card, keep=None):
         lens = flens.tolist()
         log(f"training batch 0: B {b}, T {t}, lengths {lens}")
         g = torch.Generator().manual_seed(16)
-        t_part = time.perf_counter()
-        figures["rows"] = train_kernel_rows(dev, g, b, t, lens)
-        log(f"training (a): kernel rows in {time.perf_counter() - t_part:.1f} s")
+        CARD_ROWS.rows(figures, "rows", lambda a=(dev, g, b, t, lens): train_kernel_rows(*a),
+                       "training (a): kernel rows")
 
         # (b) CUDA against the CPU
         t_part = time.perf_counter()
@@ -5945,23 +6006,9 @@ def phase_training(dev, counters, card, keep=None):
         log(f"training (b): CUDA against the CPU, dp and fsdp in "
             f"{time.perf_counter() - t_part:.1f} s")
 
-        # (c) the recipe
-        out = os.path.join(root, "exp")
-        profile_dir = os.path.join(root, "profile")
-        if keep is not None:
-            stack.callback(shutil.rmtree, out)
-        base = ["funasr_tpu_torch.bin.train", f"++model={md}",
-                f"++train_data_set_list={jsonl['train']}",
-                f"++valid_data_set_list={jsonl['val']}", *TRAIN_RECIPE, f"++output_dir={out}"]
-        t0 = time.perf_counter()
-        run_cli(base + TRAIN_FIRST + [f"++train_conf.profile_dir={profile_dir}"],
-                "bin/train (epoch 0)")
-        first_wall = time.perf_counter() - t0
-        steps1, vals1 = read_train_log(out)
+        # (c) the recipe's runs (``training_recipe_start``)
+        out, profile_dir = train["out"], train["profile_dir"]
         n1 = len(steps1)
-        t0 = time.perf_counter()
-        run_cli(base + TRAIN_RESUMED, "bin/train (resumed under fsdp, epoch 1)")
-        second_wall = time.perf_counter() - t0
         steps, vals = read_train_log(out)
         resumed = steps[n1:]
         if not resumed or resumed[0]["step"] != steps1[-1]["step"] + 1 or resumed[0]["epoch"] != 1:
@@ -5991,9 +6038,9 @@ def phase_training(dev, counters, card, keep=None):
         shapes = recipe_launch_shapes(steps + vals)
         log(f"training: {len(shapes)} kernel signatures launched over the recipe's "
             f"{len(steps)} steps and {len(vals)} validations")
-        t_part = time.perf_counter()
-        figures["recipe_rows"] = recipe_kernel_rows(dev, shapes)
-        log(f"training (d): recipe rows in {time.perf_counter() - t_part:.1f} s")
+        CARD_ROWS.rows(figures, "recipe_rows",
+                       lambda shapes=shapes: recipe_kernel_rows(dev, shapes),
+                       "training (d): recipe rows")
 
         # the average decodes
         avg = os.path.join(out, "model.pt.avg")
@@ -6284,12 +6331,13 @@ def train_family_cuda_vs_cpu(dev, counters):
     return out, ct_shapes
 
 
-def sv_recipe_setup(root, dev):
+def sv_recipe_files(root, dev):
     """SenseVoice's recipe inputs under ``root``: a seeded SenseVoiceSmall dir at its
     published width (phase 12's ``write_sense_voice_dir``, tags at their ids) whose config
-    carries the training keys, and 16 + 4 generated wavs of 10-15 s written to jsonl by
-    ``bin/data_tools sensevoice2jsonl`` (string tags: zh, NEUTRAL, Speech, with_itn
-    false), a subprocess a split, both at once. Returns (model dir, {split: jsonl})."""
+    carries the training keys, 16 + 4 generated wavs of 10-15 s, and the calls that write
+    their jsonl (``bin/data_tools sensevoice2jsonl``, string tags: zh, NEUTRAL, Speech,
+    with_itn false; a subprocess a split, both at once through ``run_clis``). Returns
+    (model dir, {split: jsonl}, those calls)."""
     md = os.path.join(root, "sensevoice-small")
     os.makedirs(md)
     t0 = time.perf_counter()
@@ -6305,11 +6353,38 @@ def sv_recipe_setup(root, dev):
     log(f"SenseVoice training: model dir and {TRAIN_UTTS} + {TRAIN_VAL_UTTS} wavs written in "
         f"{time.perf_counter() - t0:.1f} s")
     jsonl = {split: os.path.join(root, f"sv_{split}.jsonl") for split in lists}
-    run_clis([(["funasr_tpu_torch.bin.data_tools", "sensevoice2jsonl",
-                f'++scp_file_list=["{scp}","{txt}"]', '++data_type_list=["source","target"]',
-                f"++jsonl_file_out={jsonl[split]}"], f"data_tools sensevoice2jsonl {split}")
-              for split, (scp, txt) in lists.items()])
-    return md, jsonl
+    jobs = [(["funasr_tpu_torch.bin.data_tools", "sensevoice2jsonl",
+              f'++scp_file_list=["{scp}","{txt}"]', '++data_type_list=["source","target"]',
+              f"++jsonl_file_out={jsonl[split]}"], f"data_tools sensevoice2jsonl {split}")
+            for split, (scp, txt) in lists.items()]
+    return md, jsonl, jobs
+
+
+def training_family_start(dev, keep):
+    """Phase 17 (a)'s start: ``sv_recipe_files`` under a directory of ``keep["root"]``,
+    then on a thread of its own (``started``) the sensevoice2jsonl calls and the recipe's
+    ``bin/train``: {"root", "md", "jsonl", "out", "profile_dir", "run": the future of the
+    run's seconds}. ``main`` starts it before phase 15, so that its subprocesses (~85 s,
+    phase 17's critical path before) run beside phase 15 and 16; phase 17 waits on
+    ``run`` and removes ``root``."""
+    root = os.path.join(keep["root"], "training_family")
+    os.makedirs(root)
+    md, jsonl, jobs = sv_recipe_files(root, dev)
+    out = os.path.join(root, "exp")
+    profile_dir = os.path.join(root, "profile")
+    args = ["funasr_tpu_torch.bin.train", f"++model={md}",
+            f"++train_data_set_list={jsonl['train']}", f"++valid_data_set_list={jsonl['val']}",
+            *TRAIN_RECIPE, *SV_TRAIN_RUN, f"++output_dir={out}",
+            f"++train_conf.profile_dir={profile_dir}"]
+
+    def run():
+        run_clis(jobs)
+        t0 = time.perf_counter()
+        run_cli(args, "bin/train SenseVoice (epoch 0)")
+        return time.perf_counter() - t0
+
+    return dict(root=root, md=md, jsonl=jsonl, out=out, profile_dir=profile_dir,
+                run=started(run))
 
 
 def embed_rows_reached(ckpt_path):
@@ -6321,7 +6396,7 @@ def embed_rows_reached(ckpt_path):
     return [i for i in range(v.shape[0]) if v[i].abs().max() > 0]
 
 
-def phase_training_family(dev, counters, card):
+def phase_training_family(dev, counters, card, train):
     """Phase 17: (a) SenseVoice-Small's recipe: ``bin/data_tools sensevoice2jsonl`` and
     ``bin/train ++dataset=SenseVoiceDataset`` as subprocesses on a seeded SenseVoiceSmall
     at its published width (50 + 20 blocks, d 512, vocab 25,055) with its training keys,
@@ -6334,7 +6409,8 @@ def phase_training_family(dev, counters, card):
     launches a batch. (b) a kernel-vs-plain row at every signature the recipe launched
     and at CT-Transformer's (16, 8, L, 32) flash backward and (16, L, 256) FSMN dx / dw,
     from (c)'s step (``recipe_kernel_rows``). (c) one step of each new loss on the card
-    against the CPU (``train_family_cuda_vs_cpu``)."""
+    against the CPU (``train_family_cuda_vs_cpu``). ``train``: (a)'s run, started by
+    ``training_family_start`` (before phase 15); the phase waits on it after (c)."""
     from funasr_tpu_torch import AutoModel
     from funasr_tpu_torch.ops.flash_attention import flash_attention_bwd
     from funasr_tpu_torch.ops.fsmn import fsmn_memory_bwd_input, fsmn_memory_bwd_weight
@@ -6345,23 +6421,21 @@ def phase_training_family(dev, counters, card):
     blocks = SV_CONF["encoder_conf"]["num_blocks"] + SV_CONF["encoder_conf"]["tp_blocks"]
     step_sites, val_sites = sv_train_sites(blocks)
 
-    # (c) first: its CT-Transformer step gives (b) its signatures
-    t_part = time.perf_counter()
-    figures["cuda_vs_cpu"], ct_shapes = train_family_cuda_vs_cpu(dev, counters)
-    log(f"training family (c): CUDA against the CPU in {time.perf_counter() - t_part:.1f} s")
-    torch.cuda.empty_cache()
-
-    with tempfile.TemporaryDirectory() as root:
-        md, jsonl = sv_recipe_setup(root, dev)
-        out = os.path.join(root, "exp")
-        profile_dir = os.path.join(root, "profile")
-        t0 = time.perf_counter()
-        run_cli(["funasr_tpu_torch.bin.train", f"++model={md}",
-                 f"++train_data_set_list={jsonl['train']}",
-                 f"++valid_data_set_list={jsonl['val']}", *TRAIN_RECIPE, *SV_TRAIN_RUN,
-                 f"++output_dir={out}", f"++train_conf.profile_dir={profile_dir}"],
-                "bin/train SenseVoice (epoch 0)")
-        run_wall = time.perf_counter() - t0
+    with contextlib.ExitStack() as stack:
+        stack.callback(shutil.rmtree, train["root"])
+        jsonl, out, profile_dir, run = (train[k] for k in ("jsonl", "out", "profile_dir",
+                                                           "run"))
+        # (c) while the recipe may still run: its CT-Transformer step gives (b) its
+        # signatures
+        try:
+            t_part = time.perf_counter()
+            figures["cuda_vs_cpu"], ct_shapes = train_family_cuda_vs_cpu(dev, counters)
+            log(f"training family (c): CUDA against the CPU in "
+                f"{time.perf_counter() - t_part:.1f} s")
+        finally:
+            run.exception()  # the recipe's process ends before the phase goes on
+        run_wall = run.result()
+        torch.cuda.empty_cache()
         steps, vals = read_train_log(out)
         bad = [x["step"] for x in steps if not math.isfinite(x["loss"])]
         wrong = [(x["step"], x["launches"]) for x in steps
@@ -6396,10 +6470,11 @@ def phase_training_family(dev, counters, card):
         shapes = recipe_launch_shapes(steps + vals)
         log(f"SenseVoice training: {len(shapes)} kernel signatures over {len(steps)} steps "
             f"and {len(vals)} validations; CT-Transformer's step {len(ct_shapes)}")
-        t_part = time.perf_counter()
-        figures["recipe_rows"] = recipe_kernel_rows(dev, shapes)
-        figures["ct_rows"] = recipe_kernel_rows(dev, ct_shapes)
-        log(f"training family (b): kernel rows in {time.perf_counter() - t_part:.1f} s")
+        CARD_ROWS.rows(figures, "recipe_rows",
+                       lambda shapes=shapes: recipe_kernel_rows(dev, shapes),
+                       "training family (b): SenseVoice recipe rows")
+        CARD_ROWS.rows(figures, "ct_rows", lambda shapes=ct_shapes: recipe_kernel_rows(dev, shapes),
+                       "training family (b): CT-Transformer step rows")
 
         # the average decodes
         am = AutoModel(model=out, init_param=os.path.join(out, "model.pt.avg"), device="cuda")
@@ -6594,16 +6669,19 @@ def phase_streaming_training(dev, counters, card, keep):
         shapes = recipe_launch_shapes(steps + vals)
         log(f"streaming training: {len(shapes)} kernel signatures over {len(steps)} steps and "
             f"{len(vals)} validations")
-        t_part = time.perf_counter()
-        figures["recipe_rows"] = recipe_kernel_rows(dev, shapes, strict=True)
-        log(f"streaming training (b): kernel rows in {time.perf_counter() - t_part:.1f} s")
-        holed = {name: [label for label, row in rows.items() if "mask" in row]
-                 for name, rows in figures["recipe_rows"].items() if name.startswith("fsmn")}
-        chunk_rows = {tuple(row["chunk"]) for name in ("flash_attention", "flash_attention_bwd")
-                      for row in figures["recipe_rows"].get(name, {}).values() if "chunk" in row}
-        if len(chunk_rows) < len(step_configs) or not all(holed.values()) or len(holed) != 3:
-            raise AssertionError(f"streaming training: rows in chunk mode {chunk_rows}, under "
-                                 f"the holed mask {holed}")
+
+        def checked_rows(shapes=shapes, step_configs=step_configs):
+            rows = recipe_kernel_rows(dev, shapes, strict=True)
+            holed = {name: [label for label, row in by.items() if "mask" in row]
+                     for name, by in rows.items() if name.startswith("fsmn")}
+            chunk_rows = {tuple(row["chunk"]) for name in ("flash_attention",
+                                                           "flash_attention_bwd")
+                          for row in rows.get(name, {}).values() if "chunk" in row}
+            if len(chunk_rows) < len(step_configs) or not all(holed.values()) or len(holed) != 3:
+                raise AssertionError(f"streaming training: rows in chunk mode {chunk_rows}, "
+                                     f"under the holed mask {holed}")
+            return rows
+        CARD_ROWS.rows(figures, "recipe_rows", checked_rows, "streaming training (b): kernel rows")
 
         # the average decodes through the streaming generate
         am = AutoModel(model=out, init_param=os.path.join(out, "model.pt.avg"), device="cuda",
@@ -6922,7 +7000,37 @@ def sharding_ab():
         for mode, v in pooled.items()))
 
 
-def phase_llm_training(dev, counters, card, keep):
+def llm_training_start(dev, keep):
+    """Phase 19 (a)'s start: the Fun-ASR-Nano dir (``write_nano_train_dir``, phase 16's
+    tokens) under a directory of ``keep["root"]``, then ``bin/train`` under torchrun on a
+    thread of its own (``started``): {"root", "jsonl", "out", "profile_dir", "run": the
+    future of (its ``run_cli`` result, its seconds)}. ``main`` starts it after phase 16, so that the
+    run (~95 s: torchrun, the 0.76 B model's load, FSDP2's wrap, the steps and the
+    checkpoint; phase 19's critical path before) goes on beside phases 17 and 18; phase 19
+    waits on ``run`` after (c) and removes ``root``."""
+    tokens, jsonl = keep["train_data"]
+    root = os.path.join(keep["root"], "llm_training")
+    md = os.path.join(root, "fun-asr-nano")
+    os.makedirs(md)
+    t0 = time.perf_counter()
+    write_nano_train_dir(md, dev, tokens)
+    log(f"LLM training: Fun-ASR-Nano dir written in {time.perf_counter() - t0:.1f} s")
+    out = os.path.join(root, "exp")
+    profile_dir = os.path.join(root, "profile")
+    args = [*NANO_TORCHRUN, "funasr_tpu_torch.bin.train", f"++model={md}",
+            f"++train_data_set_list={jsonl['train']}", f"++valid_data_set_list={jsonl['val']}",
+            *TRAIN_RECIPE, *NANO_TRAIN_RUN, f"++output_dir={out}",
+            f"++train_conf.profile_dir={profile_dir}"]
+
+    def run():
+        t1 = time.perf_counter()
+        done = run_cli(args, "torchrun bin/train Fun-ASR-Nano under fsdp (epoch 0)")
+        return done, time.perf_counter() - t1
+
+    return dict(root=root, jsonl=jsonl, out=out, profile_dir=profile_dir, run=started(run))
+
+
+def phase_llm_training(dev, counters, card, train):
     """Phase 19: (a) Fun-ASR-Nano's recipe at full width (NANO_FULL: the 50-block SAN-M,
     the Linear adaptor, Qwen3-0.6B as published, all trained in fp32):
     ``fun_asr_nano/finetune.sh``'s flags with its default ``++sharding=fsdp`` and
@@ -6936,7 +7044,9 @@ def phase_llm_training(dev, counters, card, keep):
     averaged checkpoint through ``AutoModel(model=<output dir>, init_param=...)`` and
     ``generate`` with LLM_CALL on 2 x 15 s, its encoder at exactly 50 flash + 50 FSMN. (b) a
     kernel-vs-plain row at every signature the recipe launched (``recipe_kernel_rows``,
-    strict). (c) the card against the CPU (``llm_train_cuda_vs_cpu``)."""
+    strict). (c) the card against the CPU (``llm_train_cuda_vs_cpu``). ``train``: (a)'s
+    run, started by ``llm_training_start`` (after phase 16); the phase waits on it after
+    (c)."""
     from funasr_tpu_torch import AutoModel
     from funasr_tpu_torch.ops.flash_attention import flash_attention_bwd
     from funasr_tpu_torch.ops.fsmn import fsmn_memory_bwd_input, fsmn_memory_bwd_weight
@@ -6948,27 +7058,19 @@ def phase_llm_training(dev, counters, card, keep):
     # one of each kernel an encoder block, as SenseVoice's (the adaptor and LLM launch none)
     step_sites, val_sites = sv_train_sites(blocks)
 
-    # (c) first, while the card is clear of the recipe's process
-    t_part = time.perf_counter()
-    figures["cuda_vs_cpu"] = llm_train_cuda_vs_cpu(dev, counters)
-    log(f"LLM training (c): CUDA against the CPU in {time.perf_counter() - t_part:.1f} s")
-
-    tokens, jsonl = keep["train_data"]
-    with tempfile.TemporaryDirectory(dir=keep["root"]) as root:
-        md = os.path.join(root, "fun-asr-nano")
-        os.makedirs(md)
-        t0 = time.perf_counter()
-        write_nano_train_dir(md, dev, tokens)
-        log(f"LLM training: Fun-ASR-Nano dir written in {time.perf_counter() - t0:.1f} s")
-        out = os.path.join(root, "exp")
-        profile_dir = os.path.join(root, "profile")
-        t0 = time.perf_counter()
-        run = run_cli([*NANO_TORCHRUN, "funasr_tpu_torch.bin.train", f"++model={md}",
-                       f"++train_data_set_list={jsonl['train']}",
-                       f"++valid_data_set_list={jsonl['val']}", *TRAIN_RECIPE, *NANO_TRAIN_RUN,
-                       f"++output_dir={out}", f"++train_conf.profile_dir={profile_dir}"],
-                      "torchrun bin/train Fun-ASR-Nano under fsdp (epoch 0)")
-        run_wall = time.perf_counter() - t0
+    with contextlib.ExitStack() as stack:
+        stack.callback(shutil.rmtree, train["root"])
+        jsonl, out, profile_dir, running = (train[k] for k in ("jsonl", "out",
+                                                               "profile_dir", "run"))
+        # (c) while the recipe may still run
+        try:
+            t_part = time.perf_counter()
+            figures["cuda_vs_cpu"] = llm_train_cuda_vs_cpu(dev, counters)
+            log(f"LLM training (c): CUDA against the CPU in "
+                f"{time.perf_counter() - t_part:.1f} s")
+        finally:
+            running.exception()  # the recipe's process ends before the phase goes on
+        run, run_wall = running.result()
         ckpt_s = checkpoint_seconds(run.stderr)
         group_s = data_group_seconds(run.stderr)
         log(f"  fsdp on one NCCL rank: group {group_s['group']} s, data group and sharding "
@@ -7100,15 +7202,18 @@ AED_W8A8_ENCODE = 72       # W8A8 launches a Conformer encode: linear_q / linear
 
 
 def write_aed_dir(d, dev, model_name, encoder, encoder_conf, model_conf=AED_MODEL_CONF,
-                  decoder="TransformerDecoder", extra=None):
+                  decoder="TransformerDecoder", extra=None, frontend="WavFrontend",
+                  frontend_conf=AED_FRONTEND, input_size=80):
     """A FunASR-layout AED directory (config.yaml in the AISHELL recipes' layout, model.pt
-    of seeded weights with seeded batch-norm statistics, tokens.txt of AED_VOCAB)."""
+    of seeded weights with seeded batch-norm statistics, tokens.txt of AED_VOCAB); the
+    recipes' 80-mel frontend unless another is named, with its feature width."""
     import yaml
     from funasr_tpu_torch import tables
 
     os.makedirs(d, exist_ok=True)
     extra = dict(extra or {})
-    conf = dict(input_size=80, vocab_size=AED_VOCAB, encoder=encoder, encoder_conf=encoder_conf,
+    conf = dict(input_size=input_size, vocab_size=AED_VOCAB, encoder=encoder,
+                encoder_conf=encoder_conf,
                 decoder=decoder, decoder_conf=AED_DECODER,
                 **{k: v for k, v in extra.items() if k != "model_conf"}, **model_conf)
     model = tables.model_classes[model_name](
@@ -7120,7 +7225,7 @@ def write_aed_dir(d, dev, model_name, encoder, encoder_conf, model_conf=AED_MODE
         f.write("\n".join(tokens) + "\n")
     cfg = dict(model=model_name, model_conf=model_conf, encoder=encoder,
                encoder_conf=encoder_conf, decoder=decoder, decoder_conf=AED_DECODER,
-               frontend="WavFrontend", frontend_conf=AED_FRONTEND, tokenizer="CharTokenizer",
+               frontend=frontend, frontend_conf=frontend_conf, tokenizer="CharTokenizer",
                tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>"),
                **{k: v for k, v in extra.items() if k != "model_conf"})
     with open(os.path.join(d, "config.yaml"), "w", encoding="utf-8") as f:
@@ -9012,7 +9117,7 @@ def kws_tokens():
 def write_slice_dir(d, dev, cfg, conf, tokens, seed, craft=None):
     """A FunASR-layout model dir: config.yaml (``cfg``), model.pt of the class built from
     ``cfg["model"]`` and ``conf`` with seeded weights on the card (``craft`` applied),
-    tokens.txt."""
+    tokens.txt and a CharTokenizer (none for a model without ``tokens``)."""
     from funasr_tpu_torch import tables
 
     os.makedirs(d, exist_ok=True)
@@ -9021,11 +9126,14 @@ def write_slice_dir(d, dev, cfg, conf, tokens, seed, craft=None):
     if craft is not None:
         craft(model)
     torch.save({k: v.cpu() for k, v in model.state_dict().items()}, os.path.join(d, "model.pt"))
+    del model
+    if tokens is None:
+        write_config(d, cfg)
+        return d
     with open(os.path.join(d, "tokens.txt"), "w", encoding="utf-8") as f:
         f.write("\n".join(tokens) + "\n")
     write_config(d, dict(cfg, tokenizer="CharTokenizer",
                          tokenizer_conf=dict(token_list="tokens.txt", unk_symbol="<unk>")))
-    del model
     return d
 
 
@@ -9096,6 +9204,51 @@ def counted(counters, fn):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     return out, wall, {c.__name__: c.launches for c in counters}
+
+
+def started(fn, *args):
+    """``fn(*args)`` on a thread of its own -> its future: a ``bin/train`` subprocess run
+    beside the caller's own checks."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(fn, *args)
+    pool.shutdown(wait=False)
+    return future
+
+
+class CardRows:
+    """Kernel rows timed on a card that no recipe's ``bin/train`` process shares. Between
+    ``share`` and ``flush`` (``main`` brackets the recipes that run beside phases 14-19
+    with them) ``rows(figures, key, fn, label)`` leaves ``figures[key]`` a dict and keeps
+    ``fn``; ``flush`` fills each with ``fn()`` in order. Outside them ``fn`` runs at once."""
+
+    def __init__(self):
+        self.pending = None
+
+    def share(self):
+        self.pending = []
+
+    def rows(self, figures, key, fn, label):
+        figures.setdefault(key, {})
+        if self.pending is None:
+            self._fill(figures, key, fn, label)
+        else:
+            self.pending.append((figures, key, fn, label))
+
+    def flush(self):
+        pending, self.pending = self.pending or [], None
+        for job in pending:
+            self._fill(*job)
+
+    @staticmethod
+    def _fill(figures, key, fn, label):
+        t0 = time.perf_counter()
+        figures[key].update(fn())
+        log(f"{label} in {time.perf_counter() - t0:.1f} s")
+
+
+CARD_ROWS = CardRows()
 
 
 def launch_gate(label, launches, want):
@@ -9663,6 +9816,475 @@ def phase_kws_family(dev, counters, card, keep, train):
     return fig
 
 
+# ---- phase 24: EEND-OLA, data2vec through S3PRL, MossFormer -------------------------------
+
+# EEND-OLA at the JAX class defaults, the widths of the published
+# damo/speech_diarization_eend-ola-en-us-callhome-8k: 4 layers of 256 units x 4 heads, FFN
+# 2,048, up to 8 speakers, over WavFrontendMel23 at 8 kHz (frame 200 / shift 80, +-7 frames
+# spliced, 1 in 10 kept: 345 inputs, 100 ms frames)
+EEND_CONF = dict(input_size=345, n_units=256, max_n_speaker=8,
+                 encoder_conf=dict(n_layers=4, e_units=2048, h=4))
+EEND_FRONTEND = dict(fs=8000, frame_length=200, frame_shift=80, lfr_m=7, lfr_n=10)
+EEND_STEP_SPEAKERS = 2     # speakers the generate asks for; the loss step's label columns
+# data2vec audio at base width: 12 layers x 768, FFN 3,072, 12 heads, wav2vec 2.0's
+# seven-layer conv spec; the JAX class defaults otherwise
+D2V_BASE = dict(encoder_conf=dict(
+    conv_feature_layers="[(512,10,5)] + [(512,3,2)] * 4 + [(512,2,2)] * 2"))
+D2V_LAYERS = 12
+D2V_CPU_SECONDS = 2.0      # each wave's head in the cut data2vec checks (the CPU's time)
+# MossFormer at the JAX class defaults, the widths of the published
+# damo/speech_mossformer_separation_temporal_8k: 512 channels, 24 blocks, group 256, qk
+# 128, expansion 4, 2 speakers; a 4 s mixture of the two waves at 8 kHz
+MOSS_CONF = {}             # the class defaults
+MOSS_BLOCKS = 24
+MOSS_SECONDS = 4.0
+MOSS_FFCONVM = (17, 8, 8)  # FFConvM's conv: k 17, pads 8 / 8 (one FSMN launch, 3 a block)
+DECISION_MARGIN_FACTOR = 10  # EEND decisions gated where the CPU's margin clears 10x the error
+
+
+def resampled(waves, fs):
+    """int16 16 kHz waves -> float32 [-1, 1) at ``fs``, as ``load_audio`` resamples them."""
+    from funasr_tpu_torch.utils.load_utils import load_audio
+    return [load_audio(w, fs=fs, audio_fs=16000) for w in waves]
+
+
+def counted_shapes(counters, fn):
+    """``counted`` with the launch shapes recorded: (out, wall ms, launches, shapes)."""
+    from funasr_tpu_torch.ops import cuda_lib
+
+    cuda_lib.record_launch_shapes()
+    try:
+        out, wall, launches = counted(counters, fn)
+        shapes = cuda_lib.take_launch_shapes()
+    finally:
+        cuda_lib.stop_recording_launch_shapes()
+    return out, wall, launches, shapes
+
+
+def without_zeros(*counts):
+    """Launch counts merged, the kernels that launched nothing left out."""
+    return {k: v for c in counts for k, v in c.items() if v}
+
+
+def step_cuda_vs_cpu(label, counters, cpu, dev, args_of, want_f, want_b,
+                     reference=torch.float32):
+    """One ``forward`` + backward of ``cpu`` and of its copy on the card (fp32, TF32 off),
+    the card's launches counted and their shapes recorded: the loss within SLICE_LOSS_RTOL
+    and every gradient within SLICE_GRAD_REL_TOL relative L2 (``grad_rel_errors``) of the
+    CPU's, run in ``reference`` (float64 where fp32's own rounding on the CPU is too coarse
+    to judge the card by), the forward's and the backward's launches exactly ``want_f`` /
+    ``want_b`` -> (figures, the card's launch shapes)."""
+    gpu = copy.deepcopy(cpu).to(dev)
+    if reference != torch.float32:
+        cpu = copy.deepcopy(cpu).to(reference)
+    res, shapes = {}, []
+    with no_tf32():
+        for side, m in (("cpu", cpu), ("gpu", gpu)):
+            args = tuple(a.to(reference) if side == "cpu" and torch.is_tensor(a)
+                         and a.is_floating_point() else a for a in args_of(m.device))
+            m.train()
+            m.zero_grad()
+            if side == "gpu":
+                (loss, _, _), _, fwd, s1 = counted_shapes(counters, lambda: m(*args))
+                _, _, bwd, s2 = counted_shapes(counters, lambda: loss.backward())
+                shapes = s1 + s2
+            else:
+                loss, _, _ = m(*args)
+                loss.backward()
+            m.eval()
+            res[side] = (loss.item(), {n: (None if p.grad is None else p.grad.detach().cpu())
+                                       for n, p in m.named_parameters() if p.requires_grad})
+    (gl, gg), (cl, cg) = res["gpu"], res["cpu"]
+    rel = abs(gl - cl) / max(abs(cl), 1e-30)
+    worst, worst_name, bad = grad_rel_errors(cg, gg)
+    log(f"{label} training step cuda (fp32, TF32 off) vs cpu ({str(reference)[6:]}): loss "
+        f"{gl:.7f} vs {cl:.7f} (rel "
+        f"{rel:.2e}, tol {SLICE_LOSS_RTOL:g}); worst gradient rel L2 {worst:.2e} "
+        f"({worst_name}, tol {SLICE_GRAD_REL_TOL:g}); forward launches {fwd}, backward {bwd}")
+    if not (rel <= SLICE_LOSS_RTOL and worst <= SLICE_GRAD_REL_TOL and not bad
+            and math.isfinite(gl)):
+        raise AssertionError(f"the {label} step on CUDA disagrees with the CPU port: {rel}, "
+                             f"{worst} ({worst_name}), {bad}")
+    none = {c.__name__: 0 for c in counters}
+    if not sites_met(fwd, dict(none, **want_f)) or not sites_met(bwd, dict(none, **want_b)):
+        raise AssertionError(f"the {label} step's launches {fwd} / {bwd}, expected "
+                             f"{want_f} / {want_b}")
+    return dict(loss_cuda=gl, loss_cpu=cl, loss_rel=rel, worst_grad_rel_l2=worst,
+                worst_param=worst_name, launches=without_zeros(fwd, bwd),
+                reference=str(reference)), shapes
+
+
+def eend_checks(dev, counters, waves, root):
+    """(a) EEND-OLA at EEND_CONF from a model dir through ``AutoModel.generate`` on the two
+    waves (resampled to 8 kHz by the loader) in one batch, EEND_STEP_SPEAKERS speakers:
+    flash exactly 4 launches (one a layer, D 64), segments of rising ms; one loss step
+    of the full model on the card
+    (EEND_STEP_SPEAKERS seeded label columns): flash 4 forward + 4 backward. The model cut
+    to 2 layers on the card against the CPU: the encoder's output and the existence
+    probabilities within SLICE_REL_TOL relative L2, the speaker counts equal where the
+    probabilities clear the threshold by DECISION_MARGIN_FACTOR x their error, each
+    frame's power-set label equal where the CPU's top-2 margin clears that factor x the
+    logit error (the segments equal when every frame and count does), and the loss step
+    (``step_cuda_vs_cpu``)."""
+    from funasr_tpu_torch import AutoModel, tables
+    from funasr_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+    fig = {}
+    counters_b = (*counters, flash_attention_bwd)
+    none = {c.__name__: 0 for c in counters_b}
+    layers = EEND_CONF["encoder_conf"]["n_layers"]
+    cfg = dict(model="EENDOLA", model_conf={k: v for k, v in EEND_CONF.items()
+                                            if k != "encoder_conf"},
+               encoder="EENDOLATransformerEncoder", encoder_conf=EEND_CONF["encoder_conf"],
+               frontend="WavFrontendMel23", frontend_conf=EEND_FRONTEND)
+    d = write_slice_dir(os.path.join(root, "eend"), dev, cfg, EEND_CONF, None, 60)
+    am = AutoModel(model=d, device="cuda", log_level="WARNING")
+    call = dict(batch_size=len(waves), n_speakers=EEND_STEP_SPEAKERS)
+    am.generate(input=waves, **call)  # warm-up
+    res, wall, launches, shapes = counted_shapes(counters,
+                                                 lambda: am.generate(input=waves, **call))
+    launch_gate(f"EEND-OLA generate {len(waves)} x {LONG_TAIL_SECONDS:g} s (8 kHz), wall "
+                f"{wall:.1f} ms, speakers {[r['n_speakers'] for r in res]}, segments "
+                f"{[len(r['value']) for r in res]}", launches,
+                dict({c.__name__: 0 for c in counters}, flash_attention=layers))
+    for r in res:
+        starts = [s[1] for s in r["value"]]
+        if starts != sorted(starts) or any(s[2] <= s[1] for s in r["value"]):
+            raise AssertionError(f"EEND-OLA segments: {r}")
+    fig["generate"] = dict(wall_ms=wall, launches=launches, segments=[r["value"] for r in res])
+
+    # one loss step of the full model on the card
+    model = am.model
+    x, xl = am.kwargs["frontend"].extract(resampled(waves, EEND_FRONTEND["fs"]), device=dev)
+    g = torch.Generator(device=dev).manual_seed(61)
+    labels = (torch.rand(x.shape[0], x.shape[1], EEND_STEP_SPEAKERS, generator=g,
+                         device=dev) > 0.5).float()
+    model.train()
+    (loss, stats, _), _, fwd, s1 = counted_shapes(counters_b, lambda: model(x, xl, labels))
+    _, _, bwd, s2 = counted_shapes(counters_b, lambda: loss.backward())
+    model.eval()
+    shapes += s1 + s2
+    launch_gate(f"EEND-OLA loss step forward (loss {loss.item():.4f})", fwd,
+                dict(none, flash_attention=layers))
+    launch_gate("EEND-OLA loss step backward", bwd, dict(none, flash_attention_bwd=layers))
+    if not math.isfinite(loss.item()) or not all(
+            torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None):
+        raise AssertionError(f"EEND-OLA loss step: {stats}")
+    fig["step"] = dict(loss=loss.item(), launches=without_zeros(fwd, bwd))
+    del am, model
+    torch.cuda.empty_cache()
+
+    # the model cut to 2 layers, on the card against the CPU
+    conf = dict(EEND_CONF, encoder_conf=dict(EEND_CONF["encoder_conf"], n_layers=2))
+    cpu = tables.model_classes["EENDOLA"](**conf, generator=torch.Generator().manual_seed(62))
+    cpu.eval()
+    gpu = copy.deepcopy(cpu).to(dev)
+    xh, lh = x.cpu(), xl.cpu()
+    out, logits = {}, {}
+    with no_tf32(), torch.inference_mode():
+        for side, m in (("cpu", cpu), ("gpu", gpu)):
+            emb, _ = m.enc(xh.to(m.device), lh.to(m.device))
+            att, ex = m._attractors(emb, m.max_n_speaker)
+            out[side] = (emb.cpu(), torch.sigmoid(ex).cpu())
+            if side == "cpu":
+                n_spk = cpu.speaker_counts(out["cpu"][1].numpy())
+            logits[side] = [lg.cpu() for lg in m.power_logits(emb, att, lh.tolist(), n_spk)]
+    rels = dict(encoder=rel_l2(out["gpu"][0], out["cpu"][0]),
+                exist=rel_l2(out["gpu"][1], out["cpu"][1]))
+    p_err = (out["gpu"][1] - out["cpu"][1]).abs().max().item()
+    sure_counts = bool(((out["cpu"][1] - cpu.attractor_threshold).abs()
+                        > DECISION_MARGIN_FACTOR * p_err).all())
+    counts_equal = gpu.speaker_counts(out["gpu"][1].numpy()) == n_spk
+    l_err = max((a - b).abs().max().item() for a, b in zip(logits["gpu"], logits["cpu"]))
+    frames = sure = wrong = 0
+    for lg_g, lg_c in zip(logits["gpu"], logits["cpu"]):
+        top2 = lg_c.topk(2, dim=-1).values
+        ok = top2[:, 0] - top2[:, 1] > DECISION_MARGIN_FACTOR * l_err
+        frames, sure = frames + len(ok), sure + int(ok.sum())
+        wrong += int((ok & (lg_g.argmax(-1) != lg_c.argmax(-1))).sum())
+    with no_tf32():
+        seg_c = cpu.estimate_sequential(xh, lh)
+        seg_g = gpu.estimate_sequential(xh.to(dev), lh.to(dev))
+    segments_equal = all(np.array_equal(a, b) for a, b in zip(seg_c, seg_g))
+    log(f"EEND-OLA (2 layers) cuda vs cpu (fp32, TF32 off): rel L2 {rels} (tol "
+        f"{SLICE_REL_TOL:g}); existence max |diff| {p_err:.2e}, speaker counts {n_spk} (equal "
+        f"{counts_equal}, every probability clear of the threshold by "
+        f"{DECISION_MARGIN_FACTOR}x {sure_counts}); power-set logits max |diff| {l_err:.2e}: "
+        f"{sure} of {frames} frames sure, {wrong} of them differ; segments equal "
+        f"{segments_equal}")
+    if not all(v <= SLICE_REL_TOL for v in rels.values()) or wrong or (
+            sure_counts and not counts_equal) or (
+            sure_counts and sure == frames and not segments_equal):
+        raise AssertionError(f"EEND-OLA on CUDA disagrees with the CPU port: {rels}, {wrong}")
+    fig["cuda_vs_cpu"] = dict(rels, exist_max_diff=p_err, logit_max_diff=l_err, frames=frames,
+                              sure_frames=sure, wrong=wrong, segments_equal=segments_equal)
+    cut_labels = labels.cpu()
+    fig["step_cuda_vs_cpu"], _ = step_cuda_vs_cpu(
+        "EEND-OLA (2 layers)", counters_b, cpu, dev,
+        lambda dd: (xh.to(dd), lh.to(dd), cut_labels.to(dd)),
+        {"flash_attention": 2}, {"flash_attention_bwd": 2})
+    return fig, shapes
+
+
+def data2vec_checks(dev, counters, waves, root):
+    """(b) data2vec at D2V_BASE through ``S3prlFrontend``: (i) ``extract`` on the two waves,
+    plain and with ``multilayer_feature`` (the softmax-weighted layer sum), 12 flash
+    launches each (D 64, 12 heads); (ii) ``AutoModel.generate`` of a Conformer at phase
+    20's AISHELL widths whose frontend is ``S3prlFrontend`` (``input_size`` 768), beam 1,
+    one wave: 12 flash (the frontend) + 12 plain-mode launches (the Conformer's convs),
+    and of CTC at the family's small config with the same frontend, whose ``inference``
+    takes host numpy: 12 flash besides its SAN-M sites;
+    (iii) one pretraining step of the base model (``mask_indices`` from a seeded
+    generator, an SGD step), then ``ema_update``: flash 24 forward (student and teacher)
+    and 12 backward, the teacher moved by (1 - decay) of the step. The model cut to 2
+    layers on the card against the CPU on each wave's first D2V_CPU_SECONDS: features
+    within SLICE_REL_TOL and the pretraining step (``step_cuda_vs_cpu``)."""
+    from funasr_tpu_torch import AutoModel, tables
+    from funasr_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from funasr_tpu_torch.ops.fsmn import depthwise_conv1d
+    from funasr_tpu_torch.utils.load_utils import as_unit_f32
+
+    fig, shapes = {}, []
+    none = {c.__name__: 0 for c in counters}
+    s3prl = dict(upstream="data2vec", upstream_conf=D2V_BASE)
+    fe = tables.frontend_classes["S3prlFrontend"](frontend_conf=dict(s3prl, seed=63))
+    fe_ml = copy.copy(fe)  # the same trunk through the weighted layer sum
+    fe_ml.multilayer_feature, fe_ml.layer_weights = True, torch.zeros(D2V_LAYERS)
+    feats = {}
+    for label, f in (("plain", fe), ("multilayer", fe_ml)):
+        f.extract(waves, device=dev)  # warm-up (the first moves the trunk to the card)
+        (y, _), wall, launches, s = counted_shapes(counters,
+                                                   lambda: f.extract(waves, device=dev))
+        shapes += s
+        launch_gate(f"S3prlFrontend ({label}) extract {len(waves)} x {LONG_TAIL_SECONDS:g} s "
+                    f"-> {tuple(y.shape)}, wall {wall:.1f} ms", launches,
+                    dict(none, flash_attention=D2V_LAYERS))
+        if not torch.isfinite(y).all() or y.shape[-1] != fe.output_size():
+            raise AssertionError(f"S3prlFrontend ({label}): {tuple(y.shape)}")
+        feats[label] = y
+        fig[f"extract_{label}"] = dict(wall_ms=wall, launches=launches, shape=list(y.shape))
+    if torch.equal(feats["plain"], feats["multilayer"]):
+        raise AssertionError("multilayer_feature changed nothing")
+
+    d = write_aed_dir(os.path.join(root, "conformer_s3prl"), dev, "Conformer",
+                      "ConformerEncoder", AED_ENCODER, frontend="S3prlFrontend",
+                      frontend_conf=dict(fs=16000, frontend_conf=dict(s3prl, seed=64)),
+                      input_size=fe.output_size())
+    am = AutoModel(model=d, device="cuda", log_level="WARNING")
+    am.generate(input=waves[:1], beam_size=1)  # warm-up
+    cnt = (*counters, depthwise_conv1d)
+    res, wall, launches, s = counted_shapes(cnt, lambda: am.generate(input=waves[:1],
+                                                                     beam_size=1))
+    shapes += s
+    launch_gate(f"Conformer (S3PRL data2vec frontend) generate 1 x {LONG_TAIL_SECONDS:g} s, "
+                f"beam 1, wall {wall:.1f} ms, text length {len(res[0]['text'])}", launches,
+                dict({c.__name__: 0 for c in cnt}, flash_attention=D2V_LAYERS,
+                     depthwise_conv1d=AED_BLOCKS))
+    fig["conformer_generate"] = dict(wall_ms=wall, launches=launches)
+    del am
+    # CTC at the family's small config: its ``inference`` takes ``extract_fbank``'s host
+    # numpy, so only the frontend's own device (AutoModel's) puts the trunk on the card
+    tokens = ["<blank>", "<s>", "</s>"] + [chr(0x4E00 + i) for i in range(37)] + ["<unk>"]
+    d = write_slice_dir(os.path.join(root, "ctc_s3prl"), dev, dict(
+        model="CTC", encoder="SANMEncoder", encoder_conf=FAMILY["CTC"]["encoder_conf"],
+        frontend="S3prlFrontend", frontend_conf=dict(fs=16000, frontend_conf=dict(s3prl,
+                                                                                  seed=64))),
+        dict(FAMILY["CTC"], input_size=fe.output_size()), tokens, 71)
+    am = AutoModel(model=d, device="cuda", log_level="WARNING")
+    am.generate(input=waves[:1])  # warm-up
+    res, wall, launches = counted(counters, lambda: am.generate(input=waves[:1]))
+    sites = kernel_sites(am.model)
+    launch_gate(f"CTC (S3PRL data2vec frontend) generate 1 x {LONG_TAIL_SECONDS:g} s, wall "
+                f"{wall:.1f} ms, text length {len(res[0]['text'])}", launches,
+                dict(none, flash_attention=D2V_LAYERS + sites["flash_attention"],
+                     fsmn_memory=sites["fsmn_memory"]))
+    fig["ctc_generate"] = dict(wall_ms=wall, launches=launches)
+    del am
+    torch.cuda.empty_cache()
+
+    # one pretraining step of the base model, then the EMA teacher's update
+    model = fe.upstream
+    wavs = [torch.from_numpy(as_unit_f32(w)) for w in waves]
+    wav = torch.nn.utils.rnn.pad_sequence(wavs, batch_first=True).to(dev)
+    wlens = torch.tensor([len(w) for w in wavs], device=dev)
+    out_lens = model.encoder.feat_extract_output_length(wlens)
+    mask = model.encoder.sample_mask(torch.Generator(device=dev).manual_seed(65),
+                                     wav.shape[0], int(out_lens.max()), out_lens)
+    cnt = (*counters, flash_attention_bwd)
+    none_b = {c.__name__: 0 for c in cnt}
+    model.train()
+    (loss, stats, _), _, fwd, s1 = counted_shapes(
+        cnt, lambda: model(wav, wlens, mask_indices=mask))
+    _, _, bwd, s2 = counted_shapes(cnt, lambda: loss.backward())
+    shapes += s1 + s2
+    launch_gate(f"data2vec pretraining step forward (loss {loss.item():.4f}, "
+                f"{int(stats['masked_frames'])} masked frames)", fwd,
+                dict(none_b, flash_attention=2 * D2V_LAYERS))
+    launch_gate("data2vec pretraining step backward", bwd,
+                dict(none_b, flash_attention_bwd=D2V_LAYERS))
+    name, teacher = "layers.0.fc1.weight", dict(model.ema.named_parameters())
+    before = teacher[name].detach().clone()
+    with torch.no_grad():  # an SGD step, so that the teacher has somewhere to move
+        for p in model.parameters():
+            if p.grad is not None:
+                p.sub_(1e-3 * p.grad)
+    model.ema_update(num_updates=1)
+    decay = model.encoder.annealed_decay(1)
+    student = dict(model.encoder.encoder.named_parameters())[name].detach()
+    moved = rel_l2(teacher[name], decay * before + (1 - decay) * student)
+    log(f"data2vec ema_update (decay {decay:.6f}): the teacher's {name} against decay x "
+        f"before + (1 - decay) x student: rel L2 {moved:.2e}")
+    if not math.isfinite(loss.item()) or not moved <= 1e-6 or torch.equal(before,
+                                                                          teacher[name]):
+        raise AssertionError(f"data2vec step / ema_update: {loss.item()}, {moved}")
+    model.eval()
+    fig["step"] = dict(loss=loss.item(), masked_frames=int(stats["masked_frames"]),
+                       launches=without_zeros(fwd, bwd), ema_rel_l2=moved)
+    del fe, fe_ml, model
+    torch.cuda.empty_cache()
+
+    # the model cut to 2 layers, on the card against the CPU
+    conf = dict(encoder_conf=dict(D2V_BASE["encoder_conf"], encoder_layers=2,
+                                  average_top_k_layers=2))
+    cpu = tables.model_classes["data2vec"](**conf, generator=torch.Generator().manual_seed(66))
+    cpu.eval()
+    gpu = copy.deepcopy(cpu).to(dev)
+    n = int(D2V_CPU_SECONDS * 16000)
+    clip = torch.stack([w[:n] for w in wavs])
+    clens = torch.tensor([n, n - 4000])
+    out = {}
+    with no_tf32(), torch.inference_mode():
+        for side, m in (("cpu", cpu), ("gpu", gpu)):
+            out[side] = m.extract_features(clip.to(m.device), clens.to(m.device))[0].cpu()
+    rel = rel_l2(out["gpu"], out["cpu"])
+    log(f"data2vec (2 layers) features cuda vs cpu (fp32, TF32 off, 2 x "
+        f"{D2V_CPU_SECONDS:g} s): rel L2 {rel:.2e} (tol {SLICE_REL_TOL:g})")
+    if not rel <= SLICE_REL_TOL:
+        raise AssertionError(f"data2vec on CUDA disagrees with the CPU port: {rel}")
+    t_out = int(cpu.encoder.feat_extract_output_length(torch.tensor(n)))
+    cmask = torch.rand(2, t_out, generator=torch.Generator().manual_seed(67)) < 0.5
+    fig["cuda_vs_cpu"] = dict(features_rel_l2=rel)
+    fig["step_cuda_vs_cpu"], _ = step_cuda_vs_cpu(
+        "data2vec (2 layers)", cnt, cpu, dev,
+        lambda dd: (clip.to(dd), clens.to(dd), cmask.to(dd)),
+        {"flash_attention": 4}, {"flash_attention_bwd": 2})
+    return fig, shapes
+
+
+def mossformer_checks(dev, counters, waves, root):
+    """(c) MossFormer at the JAX class defaults from a model dir through
+    ``AutoModel.generate`` on a MOSS_SECONDS mixture of the two waves at 8 kHz: two finite
+    sources of the mixture's length, FSMN exactly 3 launches a block (72), every one at
+    k 17 / pads 8 / 8. The model cut to 2 blocks, on the card against the CPU:
+    ``separate`` on the mixture within SLICE_REL_TOL; one SI-SNR step on that mixture, the
+    two waves its sources, against the CPU in float64 (``step_cuda_vs_cpu``: the CPU's
+    fp32 sums over the 4 s sit too far from exact for the step's tolerance), with FSMN 6
+    forward, 6 dx and 6 dw launches."""
+    from funasr_tpu_torch import AutoModel, tables
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory_bwd_input, fsmn_memory_bwd_weight
+
+    fig = {}
+    n = int(MOSS_SECONDS * 8000)
+    sources = np.stack([w[:n] for w in resampled(waves, 8000)])
+    mix = sources.sum(0)
+    d = write_slice_dir(os.path.join(root, "mossformer"), dev,
+                        dict(model="MossFormer", model_conf=MOSS_CONF), MOSS_CONF, None, 68)
+    am = AutoModel(model=d, device="cuda", log_level="WARNING")
+    am.generate(input=[mix])  # warm-up
+    res, wall, launches, shapes = counted_shapes(counters, lambda: am.generate(input=[mix]))
+    launch_gate(f"MossFormer generate 1 x {MOSS_SECONDS:g} s (8 kHz), wall {wall:.1f} ms",
+                launches, dict({c.__name__: 0 for c in counters}, fsmn_memory=3 * MOSS_BLOCKS))
+    sigs = {tuple(e["args"][:3]) for e in shapes if e["kernel"] == "fsmn_memory"}
+    est = res[0]["value"]
+    if sigs != {MOSS_FFCONVM} or len(est) != 2 or any(
+            e.shape != (n,) or not np.isfinite(e).all() for e in est):
+        raise AssertionError(f"MossFormer generate: FSMN at {sigs}, {[e.shape for e in est]}")
+    fig["generate"] = dict(wall_ms=wall, launches=launches,
+                           source_rms=[float(np.sqrt(np.mean(e ** 2))) for e in est])
+    del am
+    torch.cuda.empty_cache()
+
+    cpu = tables.model_classes["MossFormer"](**dict(MOSS_CONF, num_blocks=2),
+                                             generator=torch.Generator().manual_seed(69))
+    cpu.eval()
+    gpu = copy.deepcopy(cpu).to(dev)
+    out = {}
+    with no_tf32(), torch.inference_mode():
+        for side, m in (("cpu", cpu), ("gpu", gpu)):
+            out[side] = torch.stack(m.separate(torch.from_numpy(mix[None]).to(m.device))).cpu()
+    rel = rel_l2(out["gpu"], out["cpu"])
+    log(f"MossFormer (2 blocks) separate cuda vs cpu (fp32, TF32 off, {MOSS_SECONDS:g} s): "
+        f"rel L2 {rel:.2e} (tol {SLICE_REL_TOL:g})")
+    if not rel <= SLICE_REL_TOL:
+        raise AssertionError(f"MossFormer on CUDA disagrees with the CPU port: {rel}")
+    fig["cuda_vs_cpu"] = dict(separate_rel_l2=rel)
+    del gpu
+    fig["step"], s = step_cuda_vs_cpu(
+        f"MossFormer (2 blocks, {MOSS_SECONDS:g} s)",
+        (*counters, fsmn_memory_bwd_input, fsmn_memory_bwd_weight), cpu, dev,
+        lambda dd: (torch.from_numpy(mix[None]).to(dd), None,
+                    torch.from_numpy(sources[None]).to(dd)),
+        {"fsmn_memory": 6}, {"fsmn_memory_bwd_input": 6, "fsmn_memory_bwd_weight": 6},
+        reference=torch.float64)
+    return fig, shapes + s
+
+
+def phase_diar_ssl_sep(dev, counters, card, keep):
+    """Phase 24: EEND-OLA diarization, data2vec through the S3PRL frontend and MossFormer
+    separation, seeded weights, fp32, on LONG_TAIL_WAVES of phase 16's wavs cut to
+    LONG_TAIL_SECONDS (phase 22's; resampled to 8 kHz for EEND and MossFormer): (a)
+    ``eend_checks``, (b) ``data2vec_checks``, (c) ``mossformer_checks``; then a
+    kernel-vs-plain row at every signature the counted runs launched
+    (``recipe_kernel_rows``, each with its launches there): flash at D 64 (data2vec's 12
+    heads, EEND's 4), forward and backward, and the FSMN kernel at (17, 8) at the
+    separation's three widths, with its dx and dw."""
+    from funasr_tpu_torch.ops.fsmn import fsmn_memory
+
+    root = os.path.join(keep["root"], "diar_ssl_sep")
+    os.makedirs(root)
+    waves = train_waves(keep)
+    fig, shapes = {}, []
+    for part, key, checks in (("(a) EEND-OLA", "eend", eend_checks),
+                              ("(b) data2vec", "data2vec", data2vec_checks),
+                              ("(c) MossFormer", "mossformer", mossformer_checks)):
+        t_part = time.perf_counter()
+        fig[key], s = checks(dev, counters, waves, root)
+        shapes += s
+        log(f"diar / ssl / sep {part} done in {time.perf_counter() - t_part:.1f} s on {card}")
+    t_part = time.perf_counter()
+    fig["rows"] = recipe_kernel_rows(dev, shape_signatures(shapes, (
+        "flash_attention", "flash_attention_bwd", "fsmn_memory", "fsmn_memory_bwd_input",
+        "fsmn_memory_bwd_weight")))
+    g = torch.Generator(device=dev).manual_seed(70)
+    for label, row in fig["rows"].get("fsmn_memory", {}).items():  # (17, 8) against generic
+        x = torch.randn(*row["shape"], generator=g, device=dev)
+        w = torch.rand(x.shape[-1], 1, 17, generator=g, device=dev) - 0.5
+        row["generic_ms"] = device_ms(lambda: fsmn_memory(x, w, None, 8, 8, generic=True))
+        log(f"  fsmn_memory {label}: the (17, 8) instantiation {row['ms']:.4f} ms, the generic "
+            f"one {row['generic_ms']:.4f} ms, F.conv1d {row['library_ms']:.4f} ms")
+    log(f"diar / ssl / sep rows done in {time.perf_counter() - t_part:.1f} s")
+    e, v, m = fig["eend"], fig["data2vec"], fig["mossformer"]
+    fig["launches"] = {
+        "eend_generate": e["generate"]["launches"], "eend_step": e["step"]["launches"],
+        "s3prl_extract": v["extract_plain"]["launches"],
+        "s3prl_multilayer": v["extract_multilayer"]["launches"],
+        "conformer_s3prl_generate": v["conformer_generate"]["launches"],
+        "ctc_s3prl_generate": v["ctc_generate"]["launches"],
+        "data2vec_step": v["step"]["launches"],
+        "mossformer_generate": m["generate"]["launches"],
+        "mossformer_cut_step": m["step"]["launches"]}
+    return fig
+
+
+def diar_ssl_sep_entry(fig, name):
+    """A kernel's phase 24 figures: its launches in each counted run, and its rows at the
+    signatures those runs launched."""
+    entry = dict(by_run={run: counts.get(name, 0) for run, counts in fig["launches"].items()})
+    if name in fig["rows"]:
+        entry["rows"] = fig["rows"][name]
+    return entry
+
+
 def kws_family_entry(fig, name):
     """A kernel's phase 23 figures: its launches in each counted run, in the FsmnKWS
     recipe's run, and its rows at the signatures those runs launched."""
@@ -9746,7 +10368,7 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
                  hotword=None, streaming=None, sensevoice=None, serving=None, llm=None,
                  export=None, training=None, training_family=None, streaming_training=None,
                  llm_training=None, aed=None, aed_training=None, long_tail=None,
-                 kws_family=None):
+                 kws_family=None, diar_ssl_sep=None):
     """The kernels' JSON record: one entry per kernel at its main-path shape, ``launches``
     of the main path's run (2 decodes; W8A8: one AutoModel W8A8 decode) and
     ``launches_per_decode``; flash and FSMN carry their fp32 figures under ``fp32``, with
@@ -9798,7 +10420,11 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
     (7, 3) row). Phase 23's (``kws_family``) go under ``kws_family`` in every kernel
     (``kws_family_entry``: the launches of each counted run and of the FsmnKWS recipe's,
     and the rows at their signatures: the lookahead FSMN's (12, 9) and its backward's,
-    SanmKWS's flash at D 64 and FSMN, MFCCA's plain mode at (31, 15))."""
+    SanmKWS's flash at D 64 and FSMN, MFCCA's plain mode at (31, 15)). Phase 24's
+    (``diar_ssl_sep``) go under ``diar_ssl_sep`` in every kernel (``diar_ssl_sep_entry``:
+    the launches of each counted run, and the rows at their signatures: flash at D 64,
+    forward and backward, at data2vec's and EEND-OLA's shapes, the FSMN kernel's (17, 8)
+    and its dx and dw at MossFormer's)."""
     per_decode = {"flash_attention": launches["flash_attention"] / 2,
                   "fsmn_memory": launches["fsmn_memory"] / 2,
                   "w8a8_linear": am_launches["w8a8_linear"]}
@@ -9904,6 +10530,8 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             entry["long_tail"] = long_tail_entry(long_tail, name)
         if kws_family:
             entry["kws_family"] = kws_family_entry(kws_family, name)
+        if diar_ssl_sep:
+            entry["diar_ssl_sep"] = diar_ssl_sep_entry(diar_ssl_sep, name)
         kernels.append(entry)
     if aed:
         kernels.append(dict(
@@ -9926,6 +10554,8 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
                 rows=long_tail["lcbnet"]["rows"])
         if kws_family:
             kernels[-1]["kws_family"] = kws_family_entry(kws_family, "depthwise_conv1d")
+        if diar_ssl_sep:
+            kernels[-1]["diar_ssl_sep"] = diar_ssl_sep_entry(diar_ssl_sep, "depthwise_conv1d")
     for name in DEPTHWISE_SIGNATURES[1:] if aed_training else ():
         kernels.append(dict(
             name=name, route="cuda", source=DEPTHWISE_BACKWARD[name],
@@ -9960,6 +10590,8 @@ def kernels_line(record, launches, am_launches, fp32_launches, pipeline=None, sp
             entry["long_tail"] = long_tail_entry(long_tail, name)
         if kws_family:
             entry["kws_family"] = kws_family_entry(kws_family, name)
+        if diar_ssl_sep:
+            entry["diar_ssl_sep"] = diar_ssl_sep_entry(diar_ssl_sep, name)
         kernels.append(entry)
     return {"kernels": kernels}
 
@@ -10102,27 +10734,40 @@ def main():
     timed("CUDA vs CPU W8A8", phase_cuda_vs_cpu_w8a8, dev)
     launches = timed("main path", phase_main_path, dev, funasr_tpu_torch.tables, counters, card)
     am_launches, fp32_launches = timed("AutoModel", phase_automodel, dev, counters, card)
-    # the model dirs phase 13 serves, kept from phases 8, 9 and 11 (removed at the end)
-    with tempfile.TemporaryDirectory() as keep_root:
-        keep = {"root": keep_root}
-        pipeline = timed("pipeline", phase_pipeline, dev, counters, card, keep)
-        speaker = timed("speaker", phase_speaker, dev, counters, card, keep)
-        hotword = timed("hotword", phase_hotword, dev, counters, card)
-        streaming = timed("streaming", phase_streaming, dev, counters, card, keep)
-        sensevoice = timed("SenseVoice", phase_sensevoice, dev, counters, card, keep)
-        serving = timed("serving", phase_serving, dev, counters, card, keep)
-        llm = timed("LLM", phase_llm, dev, counters, card)
-        export = timed("text and export", phase_export, dev, counters, card, keep)
-    # phase 16's generated wavs serve phases 18, 19 and 22 (removed at the end)
-    # and phase 21, with phase 20's Conformer dir (removed at the end)
+    # phase 16's generated wavs (phases 18, 19 and 21-23 read them) and phase 20's
+    # Conformer dir (phase 21's), removed at the end
     with tempfile.TemporaryDirectory() as train_root:
         keep_train = {"root": train_root}
-        training = timed("training", phase_training, dev, counters, card, keep_train)
-        family = timed("training family", phase_training_family, dev, counters, card)
+        # the model dirs phase 13 serves, kept from phases 8, 9 and 11 (removed after 15)
+        with tempfile.TemporaryDirectory() as keep_root:
+            keep = {"root": keep_root}
+            pipeline = timed("pipeline", phase_pipeline, dev, counters, card, keep)
+            speaker = timed("speaker", phase_speaker, dev, counters, card, keep)
+            hotword = timed("hotword", phase_hotword, dev, counters, card)
+            streaming = timed("streaming", phase_streaming, dev, counters, card, keep)
+            sensevoice = timed("SenseVoice", phase_sensevoice, dev, counters, card, keep)
+            serving = timed("serving", phase_serving, dev, counters, card, keep)
+            # phase 16's recipe runs beside phases 14 and 15, phase 17's beside 15 and 16;
+            # the kernel rows of phases 14-18 wait for the card to be clear (CARD_ROWS)
+            CARD_ROWS.share()
+            training_run = timed("training's bin/train start", training_recipe_start, dev,
+                                 keep_train)
+            llm = timed("LLM", phase_llm, dev, counters, card)
+            family_run = timed("training family's bin/train start", training_family_start,
+                               dev, keep_train)
+            export = timed("text and export", phase_export, dev, counters, card, keep)
+        training = timed("training", phase_training, dev, counters, card, keep_train,
+                         training_run)
+        # phase 19's recipe runs beside phases 17 and 18
+        llm_training_run = timed("LLM training's bin/train start", llm_training_start, dev,
+                                 keep_train)
+        family = timed("training family", phase_training_family, dev, counters, card,
+                       family_run)
         stream_training = timed("streaming training", phase_streaming_training, dev, counters,
                                 card, keep_train)
         llm_training = timed("LLM training", phase_llm_training, dev, counters, card,
-                             keep_train)
+                             llm_training_run)
+        timed("the kernel rows of phases 14-18", CARD_ROWS.flush)
         aed_root = os.path.join(train_root, "aed")
         os.makedirs(aed_root)
         aed = timed("AED", phase_aed, dev, counters, card, aed_root)
@@ -10137,11 +10782,13 @@ def main():
                           long_tail_train)
         kws_family = timed("kws family", phase_kws_family, dev, counters, card, keep_train,
                            kws_train)
+        diar_ssl_sep = timed("diarization, SSL and separation", phase_diar_ssl_sep, dev,
+                             counters, card, keep_train)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(record, launches, am_launches, fp32_launches, pipeline,
                                   speaker, hotword, streaming, sensevoice, serving, llm,
                                   export, training, family, stream_training, llm_training,
-                                  aed, aed_training, long_tail, kws_family),
+                                  aed, aed_training, long_tail, kws_family, diar_ssl_sep),
                      default=str))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

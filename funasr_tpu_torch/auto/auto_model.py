@@ -220,7 +220,8 @@ class AutoModel:
         kwargs["input_size"] = None
         if frontend is not None and isinstance(frontend, str):
             fe_cls = tables.frontend_classes[frontend]
-            frontend = fe_cls(**(kwargs.get("frontend_conf") or {}))
+            # a frontend that computes on a device (S3PRL, fused) takes the model's
+            frontend = fe_cls(**dict(kwargs.get("frontend_conf") or {}, device=kwargs["device"]))
             if hasattr(frontend, "output_size"):
                 kwargs["input_size"] = frontend.output_size()
         kwargs["frontend"] = frontend

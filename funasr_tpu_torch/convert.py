@@ -11,7 +11,10 @@ and ``convert_whisper`` (``:735``; Hugging Face names), ``convert_scama`` /
 ``convert_uniasr`` (``:1297``, ``:1275``; the SCAMA decoder's ``embed_concat_ffn`` too,
 which the JAX converter does not read), ``convert_lcbnet`` (``:1397``) and
 ``convert_eres2netv2`` (``:297``), ``convert_fsmn_kws`` (``:1218``),
-``convert_emotion2vec`` (``:513``) and ``convert_mfcca`` (``:840``), and maps the trees of
+``convert_emotion2vec`` (``:513``) and ``convert_mfcca`` (``:840``), ``convert_eend_ola``
+(``:479``), ``convert_data2vec`` (``:963``; the folded positional conv back to a
+weight-norm pair, the EMA teacher under ``ema.``) and ``convert_mossformer`` (``:915``),
+and maps the trees of
 SAASR, LCBNetNAR and OpenAIWhisperLIDModel, which have no JAX converter, by name: it
 takes the JAX
 package's parameter tree (as numpy arrays) and gives the tensors that the port model's
@@ -618,6 +621,97 @@ def _mfcca(tree, target, out):
     _walk({k: v for k, v in tree.items() if k != "encoder"}, "", target, out)
 
 
+def _eend(tree, target, out):
+    """DiarEENDOLA (``convert_eend_ola``, ``torch_to_jax.py:479``): the encoder's flat
+    ``enc.lnorm1_{i}`` / ``enc.self_att_{i}`` / ``enc.lnorm2_{i}`` / ``enc.ff_{i}`` names,
+    the EDA LSTMs and counter under ``encoder_decoder_attractor``, the PostNet LSTM."""
+    enc = tree["encoder"]
+    for i, lp in enumerate(enc["layers"]):
+        _walk({f"lnorm1_{i}": lp["lnorm1"], f"self_att_{i}": lp["att"],
+               f"lnorm2_{i}": lp["lnorm2"], f"ff_{i}": lp["ff"]}, "enc.", target, out)
+    _walk({k: enc[k] for k in ("linear_in", "lnorm_out")}, "enc.", target, out)
+    eda = "encoder_decoder_attractor."
+    _lstm_layer(tree["eda_encoder"], eda + "encoder", "l0", out)
+    _lstm_layer(tree["eda_decoder"], eda + "decoder", "l0", out)
+    _lstm_layer(tree["postnet"], "postnet", "l0", out)
+    _walk({"counter": tree["counter"]}, eda, target, out)
+    _walk({"output_layer": tree["output_layer"]}, "", target, out)
+
+
+def _data2vec_transformer(enc, prefix, target, out):
+    """The transformer (``pos_conv``, ``layers``, ``layer_norm``) under ``prefix``; the
+    folded positional conv w (K, C_in / groups, C_out) -> ``pos_conv.0.weight_v`` = w in
+    torch's (C_out, C_in / groups, K) and ``weight_g`` = its norm over all but the taps,
+    so that g v / ||v|| gives w back."""
+    v = np.asarray(enc["pos_conv"]["w"], np.float32).transpose(2, 1, 0)
+    out[prefix + "pos_conv.0.weight_v"] = v
+    out[prefix + "pos_conv.0.weight_g"] = np.sqrt((v ** 2).sum(axis=(0, 1), keepdims=True))
+    out[prefix + "pos_conv.0.bias"] = enc["pos_conv"]["b"]
+    _walk({k: enc[k] for k in ("layers", "layer_norm")}, prefix, target, out)
+
+
+def _data2vec_encoder(enc, prefix, target, out):
+    """Data2VecEncoder (``convert_data2vec``, ``torch_to_jax.py:963``): the conv layers
+    ``feature_extractor.conv_layers.{i}.0`` with ``.2`` (the group norm) or ``.2.1`` (a
+    layer norm), the transformer under ``encoder.``, the linears and norms by name."""
+    for i, lp in enumerate(enc["feature_extractor"]):
+        pre = f"{prefix}feature_extractor.conv_layers.{i}."
+        out[pre + "0.weight"] = np.asarray(lp["conv"]["w"]).transpose(2, 1, 0)
+        if "group_norm" in lp:
+            out.update(_leaf(lp["group_norm"], pre + "2.", target))
+        if "norm" in lp:
+            out.update(_leaf(lp["norm"], pre + "2.1.", target))
+    _data2vec_transformer(enc["encoder"], prefix + "encoder.", target, out)
+    out[prefix + "mask_emb"] = enc["mask_emb"]
+    _walk({k: enc[k] for k in ("layer_norm", "post_extract_proj", "final_proj") if k in enc},
+          prefix, target, out)
+
+
+def _data2vec(tree, target, out):
+    """Data2VecPretrainModel: the student under ``encoder.``, the EMA teacher's transformer
+    under ``ema.``; a bare encoder tree (``Data2VecEncoder``) at the root."""
+    if "student" not in tree:
+        _data2vec_encoder(tree, "", target, out)
+        return
+    _data2vec_encoder(tree["student"], "encoder.", target, out)
+    _data2vec_transformer(tree["ema"], "ema.", target, out)
+
+
+def _conv1x1(p, prefix, out):
+    """A 1x1 conv kept as a (C_in, C_out) matrix -> ``weight`` (C_out, C_in, 1)."""
+    out[prefix + "weight"] = np.asarray(p["w"]).T[:, :, None]
+    if "b" in p:
+        out[prefix + "bias"] = p["b"]
+
+
+def _mossformer(tree, target, out):
+    """MossFormer (``convert_mossformer``, ``torch_to_jax.py:915``): the encoder and
+    decoder convs, the MaskNet's 1x1 convs, each block's FFConvM ``mdl.0.g`` / ``mdl.1`` /
+    ``mdl.3.sequential.1.conv`` and its offset-scale; the scalar scales -> (1,)."""
+    out["enc.conv1d.weight"] = np.asarray(tree["enc"]["w"]).transpose(2, 1, 0)
+    out["dec.weight"] = np.asarray(tree["dec"]["w"]).transpose(2, 1, 0)
+    mn = "mask_net."
+    out.update(_leaf(tree["norm"], mn + "norm.", target))
+    out[mn + "pos_enc.scale"] = np.reshape(tree["pos_scale"], (1,))
+    for name in ("conv1d_encoder", "conv1d_out", "conv1_decoder"):
+        _conv1x1(tree[name], f"{mn}{name}.", out)
+    for name in ("output", "output_gate"):
+        _conv1x1(tree[name], f"{mn}{name}.0.", out)
+    out.update(_leaf(tree["mossformer_norm"], mn + "mdl.intra_mdl.norm.", target))
+    out.update(_leaf(tree["intra_norm"], mn + "mdl.intra_norm.", target))
+    out[mn + "prelu.weight"] = np.reshape(tree["prelu"], (1,))
+    for i, bp in enumerate(tree["blocks"]):
+        pre = f"{mn}mdl.intra_mdl.mossformerM.layers.{i}."
+        for name in ("to_hidden", "to_qk", "to_out"):
+            f = bp[name]
+            out[f"{pre}{name}.mdl.0.g"] = np.reshape(f["norm"]["g"], (1,))
+            out.update(_leaf(f["linear"], f"{pre}{name}.mdl.1.", target))
+            out[f"{pre}{name}.mdl.3.sequential.1.conv.weight"] = np.asarray(
+                f["conv"]["w"]).T[:, None, :]
+        out[pre + "qk_offset_scale.gamma"] = bp["qk_offset_scale"]["gamma"]
+        out[pre + "qk_offset_scale.beta"] = bp["qk_offset_scale"]["beta"]
+
+
 _LLM_ASR_NAMES = ("FunASRNano", "GLMASR", "LLMASR", "LLMASR2", "LLMASR3", "LLMASR4", "LLMASRNAR",
                   "LLMASRNARPrompt", "LLMASRVersions", "Qwen3ASR", "QwenAudio", "MinMo")
 
@@ -631,7 +725,9 @@ _BY_MODEL = {"FsmnVADStreaming": _fsmn_vad, "CTTransformer": _ct_transformer,
              "SeqRNNLM": _seq_rnn_lm, "Transducer": _transducer,
              "ConformerRWKV": _conformer_rwkv, "UniASR": _uniasr, "LCBNet": _lcbnet,
              "ERes2NetV2": _eres2netv2, "FsmnKWS": _fsmn_kws, "Emotion2vec": _emotion2vec,
-             "MFCCA": _mfcca, "OpenAIWhisperLIDModel": _whisper_lid,
+             "MFCCA": _mfcca, "OpenAIWhisperLIDModel": _whisper_lid, "DiarEENDOLA": _eend,
+             "Data2VecPretrainModel": _data2vec, "Data2VecEncoder": _data2vec,
+             "MossFormer": _mossformer,
              **{name: _llm_asr for name in _LLM_ASR_NAMES}}
 
 
@@ -646,7 +742,8 @@ def params_from_jax(np_params, model: torch.nn.Module) -> Dict[str, torch.Tensor
     Transducer and BAT (a Conformer, chunk Conformer or RWKV encoder), ConformerRWKV,
     SCAMA, UniASR, LCBNet, ERes2NetV2, FsmnKWS / SanmKWS (and their streaming names),
     Emotion2vec, MFCCA, SAASR, LCBNetNAR (Paraformer's layout and their own linears and
-    attentions by name) or OpenAIWhisperLIDModel -> ``model``'s state dict.
+    attentions by name), OpenAIWhisperLIDModel, DiarEENDOLA, Data2VecPretrainModel (or a
+    bare Data2VecEncoder) or MossFormer -> ``model``'s state dict.
 
     Int8 and int64 tensors keep their type, every other leaf becomes fp32. Raises if the names or
     shapes do not match ``model.state_dict()`` exactly.

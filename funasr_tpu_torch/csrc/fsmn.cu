@@ -21,7 +21,9 @@
 //   * k and the left pad are template parameters (11 and 5, the SAN-M path's; 11 and 10,
 //     the streaming decoder's causal step; 20 and 19, the VAD's causal memory, fp32
 //     only; 21 and 10, the SeACo decoder's memory; 12 and 9, the keyword spotters'
-//     FSMN with its lookahead (below), and 12 and 2, its input gradient; a
+//     FSMN with its lookahead (below), and 12 and 2, its input gradient; 17 and 8,
+//     MossFormer's FFConvM conv (h + dwconv(h) with symmetric pads and no mask), which
+//     its input gradient maps onto itself, at 4 channels a thread as k = 21; a
 //     generic instantiation serves any other k up to 64 and any pads, with runtime taps
 //     read through L1): the time loop is unrolled and the k-vector window of inputs
 //     lives in registers (input row r in slot r % k); each input is loaded once per
@@ -113,6 +115,21 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+
+// The library is compiled one nvcc process per source, all at once, so this file's many
+// instantiations are split over four units that compile side by side: each of
+// fsmn_bf16.cu, fsmn_depthwise.cu and fsmn_bwd.cu includes this file with FSMN_UNIT set
+// and takes its own entry points (the build waited ~32 s on this file alone, the other
+// sources ~8 s each; NVIDIA H100 host, nvcc 12.9).
+//   0: the FSMN mode's forward (fsmn_memory_fwd, fsmn_memory_generic_fwd), fp32 here;
+//   1: its bf16 instantiations (fsmn_memory_fwd_bf16, called by unit 0);
+//   2: the plain depthwise mode's forward (fsmn_depthwise_fwd);
+//   3: the weight gradients (fsmn_memory_bwd_weight, fsmn_depthwise_bwd_weight).
+#ifndef FSMN_UNIT
+#define FSMN_UNIT 0
+#endif
+// each unit leaves unreferenced the helpers that only the others' kernels use
+#pragma nv_diag_suppress 177
 
 namespace {
 
@@ -418,6 +435,11 @@ cudaError_t dispatch(const void* x, const void* w, const void* bias, const void*
                                         xst, stream);
     if (K == 12 && left == 2)
       return launch<PLAIN, T, 12, 2, 4>(x, w, bias, mask, out, B, T_len, C, K, left, xsb,
+                                        xst, stream);
+    // MossFormer's FFConvM conv (k 17, pads 8 / 8, no mask), which its input gradient
+    // maps onto itself: 4 channels a thread, as at k = 21
+    if (K == 17 && left == 8)
+      return launch<PLAIN, T, 17, 8, 4>(x, w, bias, mask, out, B, T_len, C, K, left, xsb,
                                         xst, stream);
     return launch<PLAIN, T, 0, 0>(x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst,
                                   stream);
@@ -736,6 +758,9 @@ int bwd_weight(const void* x, const void* dout, const void* mask, void* partial,
     else if (!PLAIN && at(12, 9, 4))  // the keyword spotters' FSMN with its lookahead
       err = launch_bwd_weight_vec<12, 9, 4, false>(xf, gf, m, part, parts, B, T_len, C, xsb,
                                                    xst, gsb, gst, rows_per_chunk, s);
+    else if (!PLAIN && at(17, 8, 4))  // MossFormer's FFConvM conv
+      err = launch_bwd_weight_vec<17, 8, 4, false>(xf, gf, m, part, parts, B, T_len, C, xsb,
+                                                   xst, gsb, gst, rows_per_chunk, s);
     else if (PLAIN && at(15, 7, 4))  // the Conformer's convolution module
       err = launch_bwd_weight_vec<15, 7, 4, true>(xf, gf, m, part, parts, B, T_len, C, xsb,
                                                   xst, gsb, gst, rows_per_chunk, s);
@@ -764,13 +789,35 @@ int bwd_weight(const void* x, const void* dout, const void* mask, void* partial,
 
 }  // namespace
 
+// the FSMN mode's bf16 forward: dispatch<false, bf16>, defined in unit 1 (fsmn_bf16.cu)
+cudaError_t fsmn_memory_fwd_bf16(const void* x, const void* w, const void* mask, void* out,
+                                 int B, int T_len, int C, int K, int left, long long xsb,
+                                 long long xst, bool generic, cudaStream_t stream);
+
+#if FSMN_UNIT == 0
+namespace {
+
+int fsmn_forward(int dtype, const void* x, const void* w, const void* mask, void* out, int B,
+                 int T_len, int C, int K, int left, long long xsb, long long xst, bool generic,
+                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)dispatch<false, float>(x, w, nullptr, mask, out, B, T_len, C, K, left, xsb,
+                                       xst, generic, s);
+  if (dtype == 1)
+    return (int)fsmn_memory_fwd_bf16(x, w, mask, out, B, T_len, C, K, left, xsb, xst,
+                                     generic, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
 // dtype (of x, w and out): 0 = float32, 1 = bfloat16. mask: (B, T) bytes or NULL.
 // xsb, xst: batch and time strides of x in elements.
 extern "C" int fsmn_memory_fwd(int dtype, const void* x, const void* w, const void* mask,
                                void* out, int B, int T_len, int C, int K, int left,
                                long long xsb, long long xst, void* stream) {
-  return run<false>(dtype, x, w, nullptr, mask, out, B, T_len, C, K, left, xsb, xst, false,
-                    stream);
+  return fsmn_forward(dtype, x, w, mask, out, B, T_len, C, K, left, xsb, xst, false, stream);
 }
 
 // the same, always on the generic (runtime-k) instantiation
@@ -778,10 +825,20 @@ extern "C" int fsmn_memory_generic_fwd(int dtype, const void* x, const void* w,
                                        const void* mask, void* out, int B, int T_len, int C,
                                        int K, int left, long long xsb, long long xst,
                                        void* stream) {
-  return run<false>(dtype, x, w, nullptr, mask, out, B, T_len, C, K, left, xsb, xst, true,
-                    stream);
+  return fsmn_forward(dtype, x, w, mask, out, B, T_len, C, K, left, xsb, xst, true, stream);
 }
+#endif
 
+#if FSMN_UNIT == 1
+cudaError_t fsmn_memory_fwd_bf16(const void* x, const void* w, const void* mask, void* out,
+                                 int B, int T_len, int C, int K, int left, long long xsb,
+                                 long long xst, bool generic, cudaStream_t stream) {
+  return dispatch<false, bf16>(x, w, nullptr, mask, out, B, T_len, C, K, left, xsb, xst,
+                               generic, stream);
+}
+#endif
+
+#if FSMN_UNIT == 2
 // the plain depthwise conv (dw_pallas's function): x (B, T, C), w (C, K), bias (C,) or
 // NULL, all in x's dtype (fp32 0 / bf16 1), w and bias 16-byte aligned; mask (B, T) bytes
 // or NULL masks the input; out (B, T, C) contiguous. generic: 1 forces the runtime-k
@@ -793,14 +850,17 @@ extern "C" int fsmn_depthwise_fwd(int dtype, const void* x, const void* w, const
   return run<true>(dtype, x, w, bias, mask, out, B, T_len, C, K, left, xsb, xst, generic != 0,
                    stream);
 }
+#endif
 
+#if FSMN_UNIT == 3
 // fp32 weight gradient of the FSMN memory: x (B, T, C) the forward's input, dout (B, T, C)
 // the output's gradient (any batch / time strides, unit channel stride), mask (B, T)
 // bytes or NULL -> dw (C, K) contiguous. specialised: 1 for the vector kernel (k 11, left
-// 5, or k 12, left 9; C, x's and dout's batch / time strides multiples of 4, bases 16-byte aligned;
-// rows_per_chunk <= 16), 0 for the generic one. partial: parts x K x C floats of scratch;
-// chunks = ceil(B T / rows_per_chunk), and parts = ceil(chunks / 4) for the vector kernel
-// (a block of 4 chunks), chunks for the generic one. Two kernel launches on `stream`.
+// 5, k 12, left 9, or k 17, left 8; C, x's and dout's batch / time strides multiples of 4,
+// bases 16-byte aligned; rows_per_chunk <= 16), 0 for the generic one. partial: parts x K
+// x C floats of scratch; chunks = ceil(B T / rows_per_chunk), and parts = ceil(chunks / 4)
+// for the vector kernel (a block of 4 chunks), chunks for the generic one. Two kernel
+// launches on `stream`.
 extern "C" int fsmn_memory_bwd_weight(const void* x, const void* dout, const void* mask,
                                       void* partial, void* dw, int B, int T_len, int C, int K,
                                       int left, long long xsb, long long xst, long long gsb,
@@ -826,3 +886,4 @@ extern "C" int fsmn_depthwise_bwd_weight(const void* x, const void* dout, const 
   return bwd_weight<true>(x, dout, mask, partial, dw, db, B, T_len, C, K, left, xsb, xst, gsb,
                           gst, rows_per_chunk, vec, stream);
 }
+#endif

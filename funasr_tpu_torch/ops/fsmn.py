@@ -11,8 +11,9 @@ H100 (device-memory bandwidth: 23 flops per element for k = 11; 7.5 us of bytes 
 (32, 384, 512) bf16, where the first port took 0.0488 ms) and what its design does about
 it: 16-byte loads and stores of 8 bf16 or 4 fp32 channels per thread, k and the pads as
 template parameters (11 and 5 on the SAN-M path, 20 and 19 for the VAD's fp32 causal
-memory, 21 and 10 for the SeACo decoder's memory and 12 and 9 for the keyword spotters'
-lookahead FSMN, both at 4 channels a thread, so that bf16's window and taps fit in
+memory, 21 and 10 for the SeACo decoder's memory, 12 and 9 for the keyword spotters'
+lookahead FSMN and 17 and 8 for MossFormer's FFConvM conv, the last three at 4 channels a
+thread, so that bf16's window and taps fit in
 registers too; a generic instantiation for the rest) so the
 k-vector input window stays in registers and loads run several rows ahead, the weights
 read once per thread, the mask once per warp and row (as ballot bits), and the three
@@ -35,7 +36,8 @@ itself on dout (``fsmn_memory_bwd_input``; the path's (11, 5) maps onto itself a
 its instantiation). The weight gradient dw[c, j] = sum_{b,t} g[b,t,c] xm[b,t+j-left,c]
 is the reduction kernel ``fsmn_memory_bwd_weight`` of ``csrc/fsmn.cu`` (fp32,
 deterministic: per-chunk partials added in chunk order). At k 11, pads 5 / 5 (every
-SAN-M FSMN of the training path) or k 12, pads 9 / 2 (the lookahead FSMN) and C a
+SAN-M FSMN of the training path), k 12, pads 9 / 2 (the lookahead FSMN) or k 17, pads 8 / 8
+(MossFormer's FFConvM conv) and C a
 multiple of 4 it is the forward's shape: 4 channels a
 thread, the k-row window of xm and the k x 4 taps in registers, each g and x row read
 once (a block's rows and halo staged in shared memory by one batch of ``cp.async``), 4
@@ -217,9 +219,9 @@ fsmn_memory_bwd_input.launches = 0
 
 DW_BLOCKS_PER_SM = 4  # blocks the generic weight-gradient kernel aims for, per multiprocessor
 DW_THREADS = 128  # channels a block of the generic kernel (csrc/fsmn.cu)
-# (k, left) of the vector weight-gradient kernel (csrc/fsmn.cu): the SAN-M FSMN's, and the
-# keyword spotters' lookahead FSMN (lorder 10, rorder 2)
-DW_SPECIALISED = ((11, 5), (12, 9))
+# (k, left) of the vector weight-gradient kernel (csrc/fsmn.cu): the SAN-M FSMN's, the
+# keyword spotters' lookahead FSMN (lorder 10, rorder 2) and MossFormer's FFConvM conv
+DW_SPECIALISED = ((11, 5), (12, 9), (17, 8))
 DW_BLOCK_CHUNKS = 4  # chunks a block of the vector kernel: 4 warps on 128 channels
 DW_BLOCKS_PER_SM_VEC = 2  # blocks the vector kernel aims for, per multiprocessor
 DW_MIN_ROWS, DW_MAX_ROWS = 4, 16  # rows a chunk (a warp's) of the vector kernel
@@ -246,7 +248,8 @@ def _vec_plan(b: int, t: int, c: int, v: int, sms: int):
 
 def dw_plan(b: int, t: int, c: int, k: int, left: int, sms: int):
     """(specialised, rows a chunk, partial shape) of the weight gradient. The vector
-    kernel (k 11, left 5 or k 12, left 9; C a multiple of 4) walks chunks of DW_MIN_ROWS-DW_MAX_ROWS
+    kernel (k 11, left 5, k 12, left 9 or k 17, left 8; C a multiple of 4) walks chunks of
+    DW_MIN_ROWS-DW_MAX_ROWS
     rows, DW_BLOCK_CHUNKS a block of 128 channels, as many as give each of the card's
     ``sms`` multiprocessors DW_BLOCKS_PER_SM_VEC blocks: at (5, 190, 512) 238 chunks of
     4 rows, 240 blocks (60 for each 128 channels), one partial (k, C) a block. Any other

@@ -23,6 +23,7 @@ REGISTRABLE = tuple(f"funasr_tpu_torch.{m}" for m in (
     "datasets.audio_datasets.preprocessor", "datasets.audio_datasets.samplers",
     "datasets.dataloader_entry", "datasets.fun_asr_datasets",
     "datasets.specialized_datasets", "frontends.wav_frontend", "frontends.whisper_frontend",
+    "frontends.default", "frontends.mel23", "frontends.s3prl", "frontends.fused",
     "models.bicif_paraformer.model",
     "models.campplus.model", "models.contextual_paraformer.model",
     "models.ct_transformer.model", "models.ct_transformer_streaming.model",
@@ -39,7 +40,8 @@ REGISTRABLE = tuple(f"funasr_tpu_torch.{m}" for m in (
     "models.scama.model", "models.uniasr.model", "models.lcbnet.model",
     "models.eres2net.model", "models.fsmn_kws.model", "models.emotion2vec.model",
     "models.mfcca.encoder", "models.mfcca.model", "models.sa_asr.model",
-    "models.whisper_lid.model",
+    "models.whisper_lid.model", "models.eend.model", "models.data2vec.model",
+    "models.mossformer.model",
     "models.transformer.conv_decoders",
     "models.transformer.decoder", "models.transformer.encoder", "models.transformer.model",
     "models.whisper.encoders", "models.whisper.model", "tokenizer.char_tokenizer",

@@ -310,6 +310,10 @@ def test_import_of_auto_model_pulls_in_no_jax():
             "from funasr_tpu_torch.models.llm_asr import adaptor, model as llm_asr\n"
             "from funasr_tpu_torch.models.whisper import encoders, model as whisper\n"
             "from funasr_tpu_torch.frontends import whisper_frontend\n"
+            "from funasr_tpu_torch.frontends import default, fused, mel23, s3prl\n"
+            "from funasr_tpu_torch.models.eend import model as eend\n"
+            "from funasr_tpu_torch.models.data2vec import model as data2vec\n"
+            "from funasr_tpu_torch.models.mossformer import model as mossformer\n"
             "from funasr_tpu_torch.tokenizer import extra_tokenizers, hf_tokenizer\n"
             "from funasr_tpu_torch.utils import native_codec\n"
             "assert AutoModel is funasr_tpu_torch.AutoModel\n"

@@ -48,6 +48,16 @@ def test_import_pulls_in_no_jax():
         "assert 'LidPredictor' in tables.lid_predictor_classes\n"
         "import funasr_tpu_torch.utils.kws_utils\n"
         "import funasr_tpu_torch.models.mfcca.encoder\n"
+        "assert {'EENDOLA', 'DiarEENDOLA', 'Data2VecPretrainModel', 'Data2VecAudio',\n"
+        "        'data2vec', 'MossFormer', 'MossFormer2'} <= set(tables.model_classes)\n"
+        "assert {'EENDOLATransformerEncoder', 'Data2VecEncoder'} \\\n"
+        "    <= set(tables.encoder_classes)\n"
+        "assert {'DefaultFrontend', 'EspnetFrontend', 'WavFrontendMel23', 'S3prlFrontend',\n"
+        "        'FusedFrontends', 'fused'} <= set(tables.frontend_classes)\n"
+        "from funasr_tpu_torch.frontends import default, fused, mel23, s3prl\n"
+        "from funasr_tpu_torch.models.data2vec import model as d2v\n"
+        "from funasr_tpu_torch.models.eend import model as eend\n"
+        "from funasr_tpu_torch.models.mossformer import model as moss\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'funasr_tpu' or m.startswith('funasr_tpu.'))\n"
         "assert not bad, bad\n"

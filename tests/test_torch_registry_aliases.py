@@ -195,6 +195,30 @@ def test_slice22_names_resolve_as_in_the_jax_package(table, name):
     assert all(getattr(tables, table)[n] is port_cls for n in same)
 
 
+# the names of the diarization, SSL-frontend and separation slice: 7 model, 2 encoder and
+# 6 frontend names, as hub configs and recipes spell them
+SLICE23_NAMES = [("model_classes", n) for n in (
+    "EENDOLA", "DiarEENDOLA", "Data2VecPretrainModel", "Data2VecAudio", "data2vec",
+    "MossFormer", "MossFormer2")] + [
+    ("encoder_classes", "EENDOLATransformerEncoder"),
+    ("encoder_classes", "Data2VecEncoder")] + [
+    ("frontend_classes", n) for n in ("DefaultFrontend", "EspnetFrontend", "WavFrontendMel23",
+                                      "S3prlFrontend", "FusedFrontends", "fused")]
+
+
+@pytest.mark.parametrize("table,name", SLICE23_NAMES,
+                         ids=[f"{t}:{n}" for t, n in SLICE23_NAMES])
+def test_slice23_names_resolve_as_in_the_jax_package(table, name):
+    """Each name resolves in both packages to a class of the same module (the package
+    prefix aside) and of the same name; names of one JAX class resolve to one port
+    class."""
+    port_cls, jax_cls = getattr(tables, table)[name], getattr(jtables, table)[name]
+    assert port_cls.__module__.replace("funasr_tpu_torch.", "funasr_tpu.") == jax_cls.__module__
+    assert port_cls.__name__ == jax_cls.__name__
+    same = [n for t, n in SLICE23_NAMES if t == table and getattr(jtables, t)[n] is jax_cls]
+    assert all(getattr(tables, table)[n] is port_cls for n in same)
+
+
 def test_the_first_table_read_imports_every_registering_module():
     """``import funasr_tpu_torch`` imports no model module; the first read of a table
     imports ``register.REGISTRABLE``, which must reach every module that registers a
